@@ -1,0 +1,20 @@
+"""mkg_analogy_tpu_torch — the PyTorch and CUDA port of ``mkg_analogy_tpu``
+for one NVIDIA H100 (Hopper, sm_90a).
+
+It keeps the JAX package's module paths and names, so each piece has an
+obvious counterpart there, and imports nothing of it (nor JAX). Ported so
+far: the ``--only_test`` evaluation of ``MKGformerKGC``.
+
+- ``models``   — UniMo (MKGformer) as ``nn.Module``s, the Flax weight map.
+- ``kernels``  — hand-written CUDA kernels (``csrc/``), each with its plain
+                 PyTorch version; the build and ``ctypes`` loader.
+- ``data``     — MarKG/MARS readers, fine-tune prompts, batching.
+- ``text``     — self-contained WordPiece tokenizer (offline-first).
+- ``ops``      — analogy masks and ranking metrics.
+- ``train``    — the evaluation half of the MarT trainer.
+- ``cli``      — ``python -m mkg_analogy_tpu_torch.cli.main --only_test``.
+
+Entry points run on CUDA unless the caller asks for the CPU.
+"""
+
+__version__ = "0.1.0"

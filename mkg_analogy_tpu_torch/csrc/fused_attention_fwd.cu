@@ -1,0 +1,293 @@
+// Fused multi-head attention forward for the MarT towers, sm_90a.
+//
+// Replaces the TPU kernel mkg_analogy_tpu/kernels/attention.py:_fwd_kernel
+// (launched by _fused_attention_fwd, the pl.pallas_call at :313). Contract:
+//
+//   out = softmax(scale * Q K^T (*) analogy multiplier + (1 - mask) * -1e4) V
+//
+// per (batch row, head), on the packed (B, L, heads * 64) layout that the
+// projection GEMMs produce, for input and output. Scores and softmax are in
+// fp32; the probabilities are rounded to the compute dtype (the dtype of
+// q/k/v) before the product with V, which accumulates in fp32. The analogy
+// multiplier is computed inline from (row, col, boundary[b]) with the
+// geometry of attention.py:_geometry_planes (row_start, text_len, offset);
+// it is never stored as a plane. w = (w0, w1) arrives already clamped.
+//
+// Dropout uses the counter hash of the JAX kernel's interpret mode
+// (attention.py:_dropout_keep): idx = row * Lk + col, x = idx ^ (seed *
+// 0x9E3779B9), two lowbias32 rounds, keep where x >= uint32(rate * 2^32),
+// with the per-(b, head) seed of attention.py:_cell_seed. The plain PyTorch
+// version (kernels/attention.py:fused_attention_reference) uses the same
+// hash, so the two agree mask for mask. The TPU's hardware random bits are
+// not reproduced.
+//
+// What bounds it: bytes. At the main-path shapes (L <= 227, head_dim 64)
+// each (b, head) does ~4 * Lq * Lk * 64 flops on 4 * L * 64 * 2 bytes, far
+// below the H100's ~295 flop/byte balance point. So the design reads each
+// of q, k, v once from device memory and writes the context once, and keeps
+// everything in between (scores, probabilities, the dropout mask) in shared
+// memory and registers:
+//   - one block per (query tile of 64 rows, head, batch row); the block
+//     stages that head's K and V slices (Lk x 64, strided out of the packed
+//     layout, 16-byte loads) in shared memory, rows padded by 16 bytes so
+//     that lanes reading different rows hit different banks;
+//   - each warp takes one query row at a time: the row lives in registers,
+//     lane j scores keys j, j+32, ...; the fp32 score row is kept in shared
+//     memory for the max / exp / sum / normalise / dropout passes; then lane
+//     l accumulates output columns 2l and 2l+1 over all keys.
+// The products run on the CUDA cores, not the tensor cores (no mma.sync,
+// wgmma or TMA yet): a simple kernel that is right first.
+//
+// Whole K/V slices in shared memory bound Lk: with the H100's 227 KB per
+// block, up to 717 keys in bf16 and 400 in fp32 (the wrapper checks
+// mkg_fused_attention_fwd_smem against the device and raises above it;
+// longer keys are the flash kernels' work). head_dim is fixed at 64.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+#include <cfloat>
+
+namespace {
+
+constexpr int kHeadDim = 64;
+constexpr int kWarps = 8;
+constexpr int kThreads = kWarps * 32;
+constexpr int kRowsPerBlock = 64;
+constexpr float kNegBias = -10000.0f;  // reference padding bias
+
+__device__ __forceinline__ void load_chunk(const float* p, float* f) {
+  const float4 x = *reinterpret_cast<const float4*>(p);
+  f[0] = x.x; f[1] = x.y; f[2] = x.z; f[3] = x.w;
+}
+
+__device__ __forceinline__ void load_chunk(const __nv_bfloat16* p, float* f) {
+  const uint4 x = *reinterpret_cast<const uint4*>(p);
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&x);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 t = __bfloat1622float2(h[i]);
+    f[2 * i] = t.x;
+    f[2 * i + 1] = t.y;
+  }
+}
+
+__device__ __forceinline__ float2 load_pair(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+
+__device__ __forceinline__ float2 load_pair(const __nv_bfloat16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+
+__device__ __forceinline__ void store_pair(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+
+__device__ __forceinline__ void store_pair(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+// value after a round trip through T (the cast of the probabilities)
+__device__ __forceinline__ float round_to(float x, const float*) { return x; }
+__device__ __forceinline__ float round_to(float x, const __nv_bfloat16*) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+__device__ __forceinline__ float warp_max(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
+  return x;
+}
+
+__device__ __forceinline__ float warp_sum(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+__device__ __forceinline__ bool dropout_keep(uint32_t idx, uint32_t seed_mix,
+                                             uint32_t threshold) {
+  uint32_t x = idx ^ seed_mix;
+  x = (x ^ (x >> 16)) * 0x7FEB352Du;
+  x = (x ^ (x >> 15)) * 0x846CA68Bu;
+  x = x ^ (x >> 16);
+  return x >= threshold;
+}
+
+template <typename T>
+struct Layout {
+  static constexpr int kChunk = 16 / sizeof(T);              // elements per 16 B
+  static constexpr int kStride = kHeadDim + kChunk;          // padded smem row
+  static size_t smem_bytes(int lk) {
+    const size_t lk4 = (lk + 3) & ~3;
+    return 2 * size_t(lk) * kStride * sizeof(T) + lk4 * sizeof(float) * (1 + kWarps);
+  }
+};
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+fused_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                           const T* __restrict__ v, const float* __restrict__ mask,
+                           const int* __restrict__ boundary,
+                           const float* __restrict__ w, T* __restrict__ out,
+                           int lq, int lk, int num_heads, float scale,
+                           int has_geometry, int row_start, int text_len, int offset,
+                           int dropout, uint32_t threshold, float keep_div,
+                           uint32_t seed) {
+  constexpr int kChunk = Layout<T>::kChunk;
+  constexpr int kStride = Layout<T>::kStride;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* ks = reinterpret_cast<T*>(smem_raw);
+  T* vs = ks + size_t(lk) * kStride;
+  float* bias_s = reinterpret_cast<float*>(vs + size_t(lk) * kStride);
+  const int lk4 = (lk + 3) & ~3;
+
+  const int tile = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int hd = num_heads * kHeadDim;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  float* srow = bias_s + lk4 * (1 + warp);
+
+  // Stage this head's K and V slices and the padding bias row.
+  const T* kb = k + size_t(b) * lk * hd + h * kHeadDim;
+  const T* vb = v + size_t(b) * lk * hd + h * kHeadDim;
+  constexpr int kChunksPerRow = kHeadDim / kChunk;
+  for (int i = threadIdx.x; i < lk * kChunksPerRow; i += kThreads) {
+    const int j = i / kChunksPerRow, c = (i % kChunksPerRow) * kChunk;
+    *reinterpret_cast<uint4*>(ks + j * kStride + c) =
+        *reinterpret_cast<const uint4*>(kb + size_t(j) * hd + c);
+    *reinterpret_cast<uint4*>(vs + j * kStride + c) =
+        *reinterpret_cast<const uint4*>(vb + size_t(j) * hd + c);
+  }
+  for (int j = threadIdx.x; j < lk; j += kThreads) {
+    bias_s[j] = (1.0f - mask[size_t(b) * lk + j]) * kNegBias;
+  }
+  __syncthreads();
+
+  const int bnd = has_geometry ? boundary[b] + offset : 0;
+  const float w0 = has_geometry ? w[0] : 1.0f;
+  const float w1 = has_geometry ? w[1] : 1.0f;
+  const uint32_t seed_mix = (seed + uint32_t(b * num_heads + h)) * 0x9E3779B9u;
+  const int r_end = min(lq, (tile + 1) * kRowsPerBlock);
+
+  for (int r = tile * kRowsPerBlock + warp; r < r_end; r += kWarps) {
+    // The query row, in registers, in every lane.
+    const T* qr = q + (size_t(b) * lq + r) * hd + h * kHeadDim;
+    float qf[kHeadDim];
+#pragma unroll
+    for (int c = 0; c < kHeadDim; c += kChunk) load_chunk(qr + c, qf + c);
+
+    // Row half of the analogy geometry (attention.py:_geometry_planes).
+    bool row_in_scope = false;
+    float row_w = 1.0f;
+    if (has_geometry) {
+      const bool row_is_example = r >= row_start && r < bnd;
+      const bool row_is_answer = r >= bnd;
+      row_in_scope = (row_is_example || row_is_answer) && r < text_len;
+      row_w = row_is_example ? w0 : w1;
+    }
+
+    float mx = -FLT_MAX;
+    for (int j = lane; j < lk; j += 32) {
+      const T* kr = ks + j * kStride;
+      float acc = 0.0f;
+#pragma unroll
+      for (int c = 0; c < kHeadDim; c += kChunk) {
+        float kf[kChunk];
+        load_chunk(kr + c, kf);
+#pragma unroll
+        for (int i = 0; i < kChunk; ++i) acc = fmaf(qf[c + i], kf[i], acc);
+      }
+      float s = acc * scale;
+      if (row_in_scope && j >= bnd && j < text_len) s *= row_w;
+      s += bias_s[j];
+      srow[j] = s;
+      mx = fmaxf(mx, s);
+    }
+    mx = warp_max(mx);
+    float sum = 0.0f;
+    for (int j = lane; j < lk; j += 32) {
+      const float e = expf(srow[j] - mx);
+      srow[j] = e;
+      sum += e;
+    }
+    sum = warp_sum(sum);
+    for (int j = lane; j < lk; j += 32) {
+      float p = srow[j] / sum;
+      if (dropout) {
+        p = dropout_keep(uint32_t(r) * uint32_t(lk) + uint32_t(j), seed_mix, threshold)
+                ? p / keep_div
+                : 0.0f;
+      }
+      srow[j] = round_to(p, q);
+    }
+    __syncwarp();
+
+    float a0 = 0.0f, a1 = 0.0f;
+    const T* vcol = vs + 2 * lane;
+#pragma unroll 4
+    for (int j = 0; j < lk; ++j) {
+      const float p = srow[j];
+      const float2 vv = load_pair(vcol + j * kStride);
+      a0 = fmaf(p, vv.x, a0);
+      a1 = fmaf(p, vv.y, a1);
+    }
+    store_pair(out + (size_t(b) * lq + r) * hd + h * kHeadDim + 2 * lane, a0, a1);
+    __syncwarp();  // srow is rewritten by this warp's next row
+  }
+}
+
+template <typename T>
+int launch(const void* q, const void* k, const void* v, const void* mask,
+           const void* boundary, const void* w, void* out, int batch, int lq,
+           int lk, int num_heads, float scale, int has_geometry, int row_start,
+           int text_len, int offset, int dropout, uint32_t threshold,
+           float keep_div, uint32_t seed, cudaStream_t stream) {
+  const size_t smem = Layout<T>::smem_bytes(lk);
+  cudaError_t err = cudaFuncSetAttribute(fused_attention_fwd_kernel<T>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         int(smem));
+  if (err != cudaSuccess) return int(err);
+  const dim3 grid((lq + kRowsPerBlock - 1) / kRowsPerBlock, num_heads, batch);
+  fused_attention_fwd_kernel<T><<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const float*>(mask), static_cast<const int*>(boundary),
+      static_cast<const float*>(w), static_cast<T*>(out), lq, lk, num_heads, scale,
+      has_geometry, row_start, text_len, offset, dropout, threshold, keep_div, seed);
+  return int(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" {
+
+const char* mkg_cuda_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+// Dynamic shared memory one block needs for Lk keys (the wrapper holds it
+// against the device's opt-in limit before launching).
+size_t mkg_fused_attention_fwd_smem(int lk, int is_bf16) {
+  return is_bf16 ? Layout<__nv_bfloat16>::smem_bytes(lk) : Layout<float>::smem_bytes(lk);
+}
+
+// Launches on `stream` without synchronising; returns cudaGetLastError().
+int mkg_fused_attention_fwd(const void* q, const void* k, const void* v,
+                            const void* mask, const void* boundary, const void* w,
+                            void* out, int batch, int lq, int lk, int num_heads,
+                            int is_bf16, float scale, int has_geometry, int row_start,
+                            int text_len, int offset, int dropout,
+                            unsigned int threshold, float keep_div, unsigned int seed,
+                            void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (is_bf16) {
+    return launch<__nv_bfloat16>(q, k, v, mask, boundary, w, out, batch, lq, lk,
+                                 num_heads, scale, has_geometry, row_start, text_len,
+                                 offset, dropout, threshold, keep_div, seed, s);
+  }
+  return launch<float>(q, k, v, mask, boundary, w, out, batch, lq, lk, num_heads,
+                       scale, has_geometry, row_start, text_len, offset, dropout,
+                       threshold, keep_div, seed, s);
+}
+
+}  // extern "C"
