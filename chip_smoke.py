@@ -7,24 +7,46 @@ the port builds, is right and runs its main path on the GPU.
 Phases, one JSON line each; any failure raises, prints its traceback and
 exits non-zero:
 
-1. card    — name and power limit (nvidia-smi);
-2. build   — nvcc builds every kernel under mkg_analogy_tpu_torch/csrc;
-3. kernel  — the fused-attention kernel against its plain PyTorch version
-             at the three main-path shapes, B=128: fp32 (TF32 off) at atol
-             2e-5, bf16 at 2e-2, and fp32 with dropout (same seed, so the
-             masks must agree) at 2e-5; times of the kernel, the plain
-             version and scaled_dot_product_attention (a yardstick only,
-             at the two vision shapes; no single PyTorch call applies the
-             analogy multiplier of the text shape), and the bound;
-4. model   — a full-width UnimoForMaskedLM (random weights from a seed,
-             B=32, L=128, two 224-px images) forward through the kernel and
-             through the plain version: fp32 logits within 1e-3, bf16
-             difference and top-1 agreement reported, 24 launches a forward;
-5. cli     — ``mkg_analogy_tpu_torch.cli.main --only_test`` at full width
-             on a small MARS/MarKG-format dataset written here, in bf16
-             through the kernel (the main path): finite metrics, 24 launches
-             per eval batch; then in fp32 through the kernel and through the
-             plain attention (``--fused_attention 0``): identical ranks.
+1. card       — name and power limit (nvidia-smi);
+2. build      — nvcc builds every kernel under mkg_analogy_tpu_torch/csrc
+                (one process per source, all started together);
+3. kernel     — the fused-attention forward kernel against its plain PyTorch
+                version at the three main-path shapes, B=128: fp32 (TF32
+                off) at atol 2e-5, bf16 at 2e-2, and fp32 with dropout (same
+                seed, so the masks must agree) at 2e-5; times of the kernel,
+                the plain version and scaled_dot_product_attention (a
+                yardstick only, at the two vision shapes; no single PyTorch
+                call applies the analogy multiplier of the text shape), and
+                the bound;
+4. kernel_bwd — the backward kernel against its plain version at the same
+                shapes and B=32 (the training batch): dq, dk, dv and dw in
+                fp32 and bf16, with and without dropout; its times, the
+                plain version's, the bound, and the backward of
+                scaled_dot_product_attention at the vision shapes;
+5. model      — a full-width UnimoForMaskedLM (random weights from a seed,
+                B=32, L=128, two 224-px images) forward through the kernel
+                and through the plain version: fp32 logits within 1e-3, bf16
+                difference and top-1 agreement reported, 24 launches a
+                forward;
+6. train      — the full-width fine-tune step (label-smoothed CE +
+                alpha * relaxation, AdamW), dropout on: fp32 through the
+                kernels against fp32 through the plain attention from the
+                same weights, batch and seeds (loss within 1e-5 relative,
+                every gradient leaf within its bound); then bf16 through the
+                kernels, the main path, for 8 steps on one batch: the loss
+                falls, 24 forward and 24 backward launches a step, step time
+                and a device profile of one step;
+7. cli        — ``mkg_analogy_tpu_torch.cli.main --only_test`` at full width
+                on a small MARS/MarKG-format dataset written here, in bf16
+                through the kernel: finite metrics, 24 launches per eval
+                batch; then in fp32 through the kernel and through the plain
+                attention (``--fused_attention 0``): identical ranks;
+8. cli_train  — the main path of this slice: the CLI fine-tune
+                (``--max_epochs 1 --batch_size 32``, bf16, through the
+                kernels) with dev and test evaluation and the best-dev
+                checkpoint, launches counted from 0; then ``--only_test
+                --checkpoint`` on that checkpoint reproduces the fit's test
+                ranks exactly.
 
 Then the ``{"kernels": [...]}`` line, the card line, and the last line
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -47,6 +69,7 @@ import time
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 BF16_FLOPS_PER_S = 989e12   # H100 SXM data sheet, dense bf16 tensor cores
 BATCH = 128                 # --eval_batch_size default
+TRAIN_BATCH = 32            # --batch_size default
 HEADS, HEAD_DIM = 12, 64
 # (name, Lq, Lk, analogy geometry, launches per forward): 12 text layers,
 # 8 vision layers, 4 vision layers over the previous text layer's K/V
@@ -124,21 +147,32 @@ def bound_by(t_bytes, t_ops):
     return "bytes" if t_bytes >= t_ops else "operations"
 
 
-def attention_inputs(lq, lk, geometry, dtype, device, seed):
+def bwd_bound_times(b, lq, lk, dtype_bytes):
+    """(ms for the bytes, ms for the operations) of one backward: q, k, v
+    and g read once, dq, dk and dv written once, plus the fp32 mask and the
+    int32 boundary, over the HBM rate; 10·B·heads·Lq·Lk·64 flops (QKᵀ
+    recomputed, dv, dp, dq, dk) over the bf16 tensor-core peak."""
+    hd = HEADS * HEAD_DIM
+    nbytes = (3 * b * lq * hd + 4 * b * lk * hd) * dtype_bytes + b * lk * 4 + b * 4
+    flops = 10 * b * HEADS * lq * lk * HEAD_DIM
+    return nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS_PER_S * 1e3
+
+
+def attention_inputs(lq, lk, geometry, dtype, device, seed, batch=BATCH):
     import torch
 
     g = torch.Generator().manual_seed(seed)
     hd = HEADS * HEAD_DIM
-    q, k, v = (torch.randn(BATCH, n, hd, generator=g).to(device, dtype)
+    q, k, v = (torch.randn(batch, n, hd, generator=g).to(device, dtype)
                for n in (lq, lk, lk))
-    text_len = torch.randint(40, 129, (BATCH,), generator=g)
+    text_len = torch.randint(40, 129, (batch,), generator=g)
     text_mask = (torch.arange(128)[None] < text_len[:, None]).float()
     if geometry:                       # text self-attention, padded prompts
         mask = text_mask
     elif lk == lq:                     # vision self-attention
-        mask = torch.ones(BATCH, lk)
+        mask = torch.ones(batch, lk)
     else:                              # vision over [text K/V ; vision]
-        mask = torch.cat([text_mask, torch.ones(BATCH, lq)], dim=1)
+        mask = torch.cat([text_mask, torch.ones(batch, lq)], dim=1)
     kw = {}
     if geometry:
         kw = dict(boundary=(text_len // 2).to(device, torch.int32),
@@ -199,6 +233,114 @@ def kernel_phase(device):
         row["bound_by"] = bound_by(row["bytes_ms"], row["operations_ms"])
         rows.append(row)
         emit(dict(phase="kernel", **row))
+    return rows
+
+
+def kernel_bwd_phase(device):
+    """The backward kernel against fused_attention_bwd_reference at the
+    main-path shapes and the training batch. Bars, per result tensor:
+    fp32 (TF32 off) 2e-5 of its largest |value| (the same fp32 math, summed
+    in another order: the forward's 2e-5 bar, scaled to the gradient);
+    bf16 2^-7 of its largest |value| (dq, dk and dv are rounded to bf16, and
+    a term rounded at a cast point can land one bf16 ulp apart); dw0/dw1
+    1e-5 of the sum of |ds·s_raw| over their region (fp32 sums of up to 6M
+    terms in another order; the error scales with the terms, not with their
+    cancelling sum)."""
+    import torch
+    import torch.nn.functional as F
+
+    from mkg_analogy_tpu_torch.kernels import attention as attn
+
+    rows = []
+    for name, lq, lk, geometry, per_fwd in SHAPES:
+        row = dict(shape=name, B=TRAIN_BATCH, Lq=lq, Lk=lk, heads=HEADS,
+                   head_dim=HEAD_DIM, launches_per_step=per_fwd)
+        for tag, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+            for rate in (0.0, 0.1):
+                q, k, v, mask, kw = attention_inputs(lq, lk, geometry, dtype, device,
+                                                     seed=lq + lk, batch=TRAIN_BATCH)
+                g = torch.randn(q.shape, generator=torch.Generator().manual_seed(lq)
+                                ).to(device, dtype)
+                kw = dict(kw, compute_dtype=dtype, dropout_rate=rate,
+                          deterministic=rate == 0.0, dropout_seed=4321)
+                bnd, w, geo, r, seed = attn._resolve(
+                    q, kw.get("boundary"), kw.get("w0"), kw.get("w1"), None, 0, 0,
+                    rate, rate == 0.0, 4321)
+                got = attn._launch_bwd(q, k, v, mask, g, HEADS, bnd, w, geo, r, seed)
+                want = attn.fused_attention_bwd_reference(q, k, v, mask, g, HEADS, **kw)
+                torch.cuda.synchronize()
+                key = f"{tag}{'_dropout' if rate else ''}"
+                bar = 2e-5 if dtype == torch.float32 else 2.0 ** -7
+                for t_name, a, b in zip(("dq", "dk", "dv"), got[:3], want[:3]):
+                    err = (a.float() - b.float()).abs().max().item()
+                    top = b.float().abs().max().item()
+                    row[f"max_abs_err_{t_name}_{key}"] = err
+                    if not err <= bar * top:
+                        raise AssertionError(f"bwd {name} {key} {t_name}: kernel vs plain "
+                                             f"{err} > {bar} * {top}")
+                if geometry:
+                    # the scale of the dw sums: sum |ds * s_raw| over the regions
+                    with torch.no_grad():
+                        qf, kf = q.float(), k.float()
+                        s_raw, planes, p = attn._scores(qf, kf, mask, HEADS, bnd, w, geo)
+                        gh = attn._split_heads(g, HEADS, torch.float32)
+                        dp = gh @ attn._split_heads(v, HEADS, torch.float32).transpose(-1, -2)
+                        if r > 0.0:
+                            keep = attn.dropout_keep(TRAIN_BATCH, HEADS, lq, lk, r, seed, device)
+                            dp = torch.where(keep, dp / (1.0 - r), 0.0)
+                        ds = p * (dp - (dp * p).sum(-1, keepdim=True))
+                        terms = (ds * s_raw).abs()
+                        scales = [(terms * planes[1]).sum().item(),
+                                  (terms * planes[2]).sum().item()]
+                    for i in range(2):
+                        err = abs(got[3][i].item() - want[3][i].item())
+                        row[f"dw{i}_err_{key}"] = err
+                        row[f"dw{i}_{key}"] = want[3][i].item()
+                        if not err <= 1e-5 * scales[i]:
+                            raise AssertionError(f"bwd {name} {key} dw{i}: {err} > 1e-5 * "
+                                                 f"{scales[i]}")
+                elif got[3].abs().max().item() != 0.0:
+                    raise AssertionError(f"bwd {name}: dw without a geometry")
+        # timing in the main path's dtype, dropout as the text tower trains
+        q, k, v, mask, kw = attention_inputs(lq, lk, geometry, torch.bfloat16, device,
+                                             seed=7, batch=TRAIN_BATCH)
+        g = torch.randn(q.shape, generator=torch.Generator().manual_seed(8)
+                        ).to(device, torch.bfloat16)
+        rate = 0.1 if geometry else 0.0
+        kw = dict(kw, compute_dtype=torch.bfloat16, dropout_rate=rate,
+                  deterministic=rate == 0.0, dropout_seed=99)
+        bnd, w, geo, r, seed = attn._resolve(q, kw.get("boundary"), kw.get("w0"),
+                                             kw.get("w1"), None, 0, 0, rate,
+                                             rate == 0.0, 99)
+        row["kernel_ms"] = time_ms(
+            lambda: attn._launch_bwd(q, k, v, mask, g, HEADS, bnd, w, geo, r, seed))
+        row["plain_ms"] = time_ms(
+            lambda: attn.fused_attention_bwd_reference(q, k, v, mask, g, HEADS, **kw))
+        row["library_ms"] = None
+        if not geometry:
+            def heads(x):
+                return x.view(TRAIN_BATCH, x.shape[1], HEADS, HEAD_DIM).transpose(1, 2)
+
+            qh, kh, vh = (heads(x).detach().requires_grad_(True) for x in (q, k, v))
+            gh = heads(g)
+            bias = None
+            if lk != lq:
+                bias = ((1.0 - mask) * -10000.0).to(torch.bfloat16)[:, None, None, :]
+
+            def sdpa():
+                return F.scaled_dot_product_attention(qh, kh, vh, attn_mask=bias)
+
+            def sdpa_fwd_bwd():
+                torch.autograd.grad(sdpa(), (qh, kh, vh), gh)
+
+            fwd_ms, both_ms = time_ms(sdpa), time_ms(sdpa_fwd_bwd)
+            row["library_fwd_bwd_ms"] = both_ms
+            row["library_ms"] = both_ms - fwd_ms  # the backward alone
+        row["bytes_ms"], row["operations_ms"] = bwd_bound_times(TRAIN_BATCH, lq, lk, 2)
+        row["bound_ms"] = max(row["bytes_ms"], row["operations_ms"])
+        row["bound_by"] = bound_by(row["bytes_ms"], row["operations_ms"])
+        rows.append(row)
+        emit(dict(phase="kernel_bwd", **row))
     return rows
 
 
@@ -271,11 +413,129 @@ def model_phase(device):
     return out
 
 
+class _AnalogyVocab:
+    """What MarTTrainer reads of a KGVocab for a fine-tune step: the rows of
+    the 2,063 analogy entities."""
+    analogy_entity_ids = list(range(20000, 22063))
+
+
+def train_batch(device, b=TRAIN_BATCH, length=128, seed=1):
+    """A full-width fine-tune batch in the feature layout of data/prompt.py:
+    padded prompts, the sep/mask/relation/head positions, labels over the
+    analogy entities, two 224-px images per example."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    lens = torch.randint(48, length + 1, (b,), generator=g)
+    pos = torch.stack([torch.randint(1, 40, (b,), generator=g) for _ in range(6)], 1)
+    batch = dict(
+        input_ids=torch.randint(0, 42112, (b, length), generator=g),
+        attention_mask=(torch.arange(length)[None] < lens[:, None]).int(),
+        token_type_ids=torch.zeros(b, length, dtype=torch.int32),
+        pixel_values=torch.randn(b, 2, 3, 224, 224, generator=g),
+        mask_idx=pos[:, 0], rel_idx=pos[:, 1:3], q_head_idx=pos[:, 3],
+        a_head_idx=pos[:, 4],
+        sep_idx=torch.stack([pos[:, 5], pos[:, 5] + 1, lens // 2], 1).int(),
+        label=torch.randint(0, 2063, (b,), generator=g),
+    )
+    return {k: v.to(device) for k, v in batch.items()}
+
+
+def train_phase(device):
+    """The full-width fine-tune step. (1) fp32 through the kernels against
+    fp32 through the plain attention (autograd through the plain forward),
+    from one state dict and batch, with dropout on and the same seeds, so
+    both draw the same masks. Bars: the loss within 1e-5 relative (the same
+    fp32 forward, summed in other orders); each gradient leaf within 1e-3 of
+    that leaf's largest |gradient| plus 1e-6 of the model's largest (24
+    layers of fp32 backward, summed in other orders, amplify the kernel's
+    last-bit differences; the floor covers leaves whose exact gradient is 0,
+    the key biases, which carry round-off only). (2) bf16 through the
+    kernels, the main path: 8 AdamW steps on one batch, the loss finite and
+    falling, 24 forward and 24 backward launches a step."""
+    import torch
+
+    from mkg_analogy_tpu_torch.kernels import attention as attn
+    from mkg_analogy_tpu_torch.models.common import AttentionCore, DropoutRNG
+    from mkg_analogy_tpu_torch.models.unimo import UnimoConfig, UnimoForMaskedLM
+    from mkg_analogy_tpu_torch.train.optim import make_optimizer
+    from mkg_analogy_tpu_torch.train.trainer import MarTTrainer, TrainConfig
+
+    batch = train_batch(device)
+    out = {}
+    with torch.device(device):
+        model = UnimoForMaskedLM(UnimoConfig(dtype="float32"))
+    model.init_params(torch.Generator(device=device).manual_seed(0))
+    state = {k: v.clone() for k, v in model.state_dict().items()}
+    trainer = MarTTrainer(model, _AnalogyVocab(), TrainConfig(), device=device)
+    runs = {}
+    for fused in (True, False):
+        model.load_state_dict(state)
+        for m in model.modules():
+            if isinstance(m, AttentionCore):
+                m.fused = fused
+        model.zero_grad(set_to_none=True)
+        attn.LAUNCHES = attn.LAUNCHES_BWD = 0
+        loss, _ = trainer._finetune_loss(batch, DropoutRNG.from_seed(5, device))
+        loss.backward()
+        torch.cuda.synchronize()
+        launches = (attn.LAUNCHES, attn.LAUNCHES_BWD)
+        if launches != ((24, 24) if fused else (0, 0)):
+            raise AssertionError(f"fp32 step fused={fused}: launches {launches}")
+        runs[fused] = (loss.item(), {n: p.grad.clone() for n, p in model.named_parameters()})
+    (lk, gk), (lp, gp) = runs[True], runs[False]
+    if not (math.isfinite(lk) and abs(lk - lp) <= 1e-5 * abs(lp)):
+        raise AssertionError(f"fp32 step loss: kernels {lk} vs plain {lp}")
+    top = max(g.abs().max().item() for g in gp.values())
+    worst, worst_name = 0.0, ""
+    for name, want in gp.items():
+        err = (gk[name] - want).abs().max().item()
+        bound = 1e-3 * want.abs().max().item() + 1e-6 * top
+        if not err <= bound:
+            raise AssertionError(f"fp32 grad {name}: kernels vs plain {err} > {bound}")
+        if err / bound > worst:
+            worst, worst_name = err / bound, name
+    out["fp32"] = dict(loss_kernels=lk, loss_plain=lp, loss_rel_diff=abs(lk - lp) / abs(lp),
+                       grad_leaves=len(gp), worst_err_over_bound=worst,
+                       worst_leaf=worst_name, largest_grad=top)
+    del runs, gk, gp, model, trainer
+    torch.cuda.empty_cache()
+
+    with torch.device(device):
+        model = UnimoForMaskedLM(UnimoConfig(dtype="bfloat16"))
+    model.load_state_dict(state)
+    trainer = MarTTrainer(model, _AnalogyVocab(), TrainConfig(seed=3), device=device)
+    opt = make_optimizer(model, 1e-4, 100, warmup_ratio=0.0)
+    losses, times, launches = [], [], []
+    for step in range(8):
+        attn.LAUNCHES = attn.LAUNCHES_BWD = 0
+        t0 = time.perf_counter()
+        metrics = trainer._train_step(opt, batch, step)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        launches.append((attn.LAUNCHES, attn.LAUNCHES_BWD))
+        losses.append(metrics["loss"].item())
+    if any(n != (24, 24) for n in launches):
+        raise AssertionError(f"bf16 steps: launches {launches}, expected 24 + 24 a step")
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"bf16 loss did not fall: {losses}")
+    step_ms = statistics.median(times[2:])
+    out["bf16"] = dict(losses=losses, step_ms=times, median_step_ms=step_ms,
+                       examples_per_sec=TRAIN_BATCH / step_ms * 1e3,
+                       launches_per_step=dict(fwd=24, bwd=24),
+                       peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+                       device_profile_step=device_profile(
+                           lambda: trainer._train_step(opt, batch, 8), top=15))
+    emit(dict(phase="train", B=TRAIN_BATCH, L=128, **out))
+    return out
+
+
 WORDS = ("alpha beta gamma delta epsilon zeta eta theta iota kappa lamda mu nu "
          "xi omicron pi rho sigma tau upsilon").split()
 
 
-def write_dataset(root, n_ent=64, n_rel=8, n_triples=200, n_test=200, seed=0):
+def write_dataset(root, n_ent=64, n_rel=8, n_triples=200, n_train=128, n_test=200,
+                  seed=0):
     """A small MarKG + MARS in the reference file formats (the layout of
     tests/util.make_tiny_dataset, larger)."""
     rng = random.Random(seed)
@@ -298,7 +558,7 @@ def write_dataset(root, n_ent=64, n_rel=8, n_triples=200, n_test=200, seed=0):
         f.write("\n".join(analogy_ents) + "\n")
     with open(os.path.join(mars, "analogy_relations.txt"), "w") as f:
         f.write("\n".join(analogy_rels) + "\n")
-    for split, n in (("train", 16), ("dev", 16), ("test", n_test)):
+    for split, n in (("train", n_train), ("dev", 16), ("test", n_test)):
         with open(os.path.join(mars, f"{split}.json"), "w") as f:
             for i in range(n):
                 f.write(json.dumps(dict(
@@ -309,8 +569,8 @@ def write_dataset(root, n_ent=64, n_rel=8, n_triples=200, n_test=200, seed=0):
 
 
 def cli_phase():
-    """The main path: the CLI's --only_test evaluation in bf16 through the
-    kernel (launches counted from 0). Then the reference check: the same
+    """The evaluation path (slice 1's main path): the CLI's --only_test
+    evaluation in bf16 through the kernel (launches counted from 0). Then the reference check: the same
     evaluation in fp32 through the kernel and through the plain attention
     must rank at least 99% of the examples alike (fp32 differences are
     summation-order ulps, far below the logit gaps of almost every
@@ -371,6 +631,75 @@ def cli_phase():
     return launches
 
 
+def cli_train_phase():
+    """The main path of the training slice: the CLI fine-tune, bf16, through
+    the kernels, with both counts set to 0 just before and read just after.
+    128 training examples at B=32 are 4 steps (24 + 24 launches each); the
+    dev split (16) is one eval batch and the test split (200) two, 24
+    forward launches each. The best-dev checkpoint is written and restored
+    for the test; ``--only_test --checkpoint`` on it must give the same
+    ranks."""
+    import numpy as np
+
+    from mkg_analogy_tpu_torch.cli import main as cli
+    from mkg_analogy_tpu_torch.kernels import attention as attn
+    from mkg_analogy_tpu_torch.train import checkpoint
+
+    n_train, n_test = 128, 200
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_", dir=".") as root:
+        markg, mars = write_dataset(root, n_train=n_train, n_test=n_test)
+
+        def argv(out_dir, *extra):
+            return ["--data_dir", mars, "--pretrain_path", markg, "--device", "cuda",
+                    "--dtype", "bfloat16", "--max_seq_length", "128",
+                    "--image_features", "synthetic", "--output_dir", out_dir,
+                    "--log_dir", os.path.join(root, "logs"),
+                    "--cache_dir", os.path.join(root, "cache"), *extra]
+
+        fit_dir = os.path.join(root, "fit")
+        attn.LAUNCHES = attn.LAUNCHES_BWD = 0
+        t0 = time.perf_counter()
+        metrics = cli.main(argv(fit_dir, "--max_epochs", "1", "--batch_size", "32"))
+        seconds = time.perf_counter() - t0
+        launches = dict(fwd=attn.LAUNCHES, bwd=attn.LAUNCHES_BWD)
+        steps = n_train // 32
+        expect = dict(fwd=24 * (steps + 1 + math.ceil(n_test / 128)), bwd=24 * steps)
+        if launches != expect:
+            raise AssertionError(f"cli fine-tune: launches {launches}, expected {expect}")
+        if not all(math.isfinite(v) for v in metrics.values()):
+            raise AssertionError(f"cli fine-tune: non-finite test metrics {metrics}")
+        ckpt = os.path.join(fit_dir, "ckpt")
+        saved = checkpoint.list_steps(ckpt)
+        if saved != [steps] or not os.path.exists(os.path.join(ckpt, f"metrics_{steps}.json")):
+            raise AssertionError(f"cli fine-tune: checkpoint steps {saved} in {ckpt}")
+        with open(os.path.join(ckpt, f"metrics_{steps}.json")) as f:
+            dev = json.load(f)
+        if not all(math.isfinite(v) for v in dev.values()):
+            raise AssertionError(f"cli fine-tune: non-finite dev metrics {dev}")
+        ranks = np.load(os.path.join(fit_dir, "test_ranks.npz"))["ranks"]
+
+        test_dir = os.path.join(root, "retest")
+        attn.LAUNCHES = attn.LAUNCHES_BWD = 0
+        retest = cli.main(argv(test_dir, "--only_test", "--checkpoint", ckpt))
+        retest_launches = dict(fwd=attn.LAUNCHES, bwd=attn.LAUNCHES_BWD)
+        again = np.load(os.path.join(test_dir, "test_ranks.npz"))["ranks"]
+        if not np.array_equal(again, ranks) or retest != metrics:
+            raise AssertionError("--only_test --checkpoint did not reproduce the fit's "
+                                 f"test ranks ({float((again == ranks).mean())} alike)")
+        with open(os.path.join(root, "logs", "train_metrics.jsonl")) as f:
+            train_log = [json.loads(line) for line in f]
+    epoch = next(r for r in train_log if "train/examples_per_sec" in r)
+    emit(dict(phase="cli_train", dtype="bfloat16", train_examples=n_train,
+              batch_size=32, steps=steps, launches=launches, seconds=seconds,
+              dev_mrr=dev["Eval_entity/mrr"], dev_hits10=dev["Eval_entity/hits10"],
+              test_mrr=metrics["Eval_entity/mrr"],
+              test_hits10=metrics["Eval_entity/hits10"],
+              examples_per_sec_after_step_1=epoch["train/examples_per_sec"],
+              last_loss=epoch["train/last_loss"], retest_launches=retest_launches,
+              retest_ranks_identical=True))
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -396,25 +725,49 @@ def main() -> int:
     emit(dict(phase="build", seconds=time.perf_counter() - t0,
               kernels=sorted(p.stem for p in build.CSRC.glob("*.cu"))))
     rows = kernel_phase(device)
+    bwd_rows = kernel_bwd_phase(device)
     model_phase(device)
-    launches = cli_phase()
+    train_phase(device)
+    eval_launches = cli_phase()
+    launches = cli_train_phase()
+    if not launches["fwd"] or not launches["bwd"]:
+        raise AssertionError(f"the main path launched no kernel: {launches}")
 
-    def per_forward(key):
-        return sum(r[key] * r["launches_per_forward"] for r in rows)
+    def per_call_set(rows, key, n):
+        return sum(r[key] * r[n] for r in rows)
 
-    t_bytes, t_ops = per_forward("bytes_ms"), per_forward("operations_ms")
+    t_bytes = per_call_set(rows, "bytes_ms", "launches_per_forward")
+    t_ops = per_call_set(rows, "operations_ms", "launches_per_forward")
+    b_bytes = per_call_set(bwd_rows, "bytes_ms", "launches_per_step")
+    b_ops = per_call_set(bwd_rows, "operations_ms", "launches_per_step")
     emit({"kernels": [dict(
         name="fused_attention_fwd", route="cuda",
         source="mkg_analogy_tpu_torch/csrc/fused_attention_fwd.cu",
         replaces="mkg_analogy_tpu/kernels/attention.py:124",
-        ok=True, launches=launches,
+        ok=True, launches=launches["fwd"], launches_eval_path=eval_launches,
         max_abs_err=max(r["max_abs_err_bf16"] for r in rows),
         max_abs_err_fp32=max(r["max_abs_err_fp32"] for r in rows),
         # per full-width forward at B=128: 12 text + 8 vision + 4 vision-text calls
-        ms=per_forward("kernel_ms"), plain_ms=per_forward("plain_ms"),
+        ms=per_call_set(rows, "kernel_ms", "launches_per_forward"),
+        plain_ms=per_call_set(rows, "plain_ms", "launches_per_forward"),
         bound_ms=max(t_bytes, t_ops), bound_by=bound_by(t_bytes, t_ops),
         library_ms=None,  # no single PyTorch call applies the analogy multiplier
         shapes=rows,
+    ), dict(
+        name="fused_attention_bwd", route="cuda",
+        source="mkg_analogy_tpu_torch/csrc/fused_attention_bwd.cu",
+        replaces="mkg_analogy_tpu/kernels/attention.py:159",
+        ok=True, launches=launches["bwd"],
+        max_abs_err=max(r[f"max_abs_err_{t}_bf16{d}"] for r in bwd_rows
+                        for t in ("dq", "dk", "dv") for d in ("", "_dropout")),
+        max_abs_err_fp32=max(r[f"max_abs_err_{t}_fp32{d}"] for r in bwd_rows
+                             for t in ("dq", "dk", "dv") for d in ("", "_dropout")),
+        # per full-width train step at B=32: 12 text + 8 vision + 4 vision-text calls
+        ms=per_call_set(bwd_rows, "kernel_ms", "launches_per_step"),
+        plain_ms=per_call_set(bwd_rows, "plain_ms", "launches_per_step"),
+        bound_ms=max(b_bytes, b_ops), bound_by=bound_by(b_bytes, b_ops),
+        library_ms=None,  # per shape below: SDPA's backward at the vision shapes
+        shapes=bwd_rows,
     )]})
     print(card)
     emit({"ok": True, "device": {"platform": "gpu",

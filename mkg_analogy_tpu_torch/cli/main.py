@@ -2,20 +2,27 @@
 ``mkg_analogy_tpu/cli/main.py`` (MarT/main.py:20-60 parity) plus
 ``--device``.
 
-Ported so far: ``--only_test`` evaluation of ``MKGformerKGC``, e.g.
+Ported so far: fine-tuning and evaluation of ``MKGformerKGC``
+(MarT/scripts/run_finetune_mkgformer.sh parity), e.g.
 
-  python -m mkg_analogy_tpu_torch.cli.main --only_test \\
-      --model_class MKGformerKGC --eval_batch_size 128 --max_seq_length 128 \\
-      --data_dir dataset/MARS --pretrain_path dataset/MarKG
+  python -m mkg_analogy_tpu_torch.cli.main \\
+      --model_class MKGformerKGC --batch_size 32 --lr 5e-5 --alpha 0.43 \\
+      --max_epochs 15 --max_seq_length 128 --eval_batch_size 128 \\
+      --data_dir dataset/MARS --pretrain_path dataset/MarKG --pretrain 0
+
+fits with dev evaluation each epoch, keeps the best-dev-Hits@10 checkpoint
+under ``<output_dir>/ckpt`` and tests with it; ``--only_test`` evaluates
+only, from ``--checkpoint <dir>`` (a checkpoint directory of this port) or
+from the seed's random weights. ``--checkpoint`` also initialises a fit.
 
 It runs on CUDA unless ``--device cpu`` is given; with ``--device cuda`` and
 no GPU it raises instead of falling back to the CPU. On CUDA every attention
-call goes through the hand-written kernel (``--fused_attention 1``, the
-default); ``--fused_attention 0`` runs its plain PyTorch version instead.
-Training, checkpoints, the flash kernel, parallelism and the other model
-families raise until their slices land. Flags that only steer training
-(optimizer, schedule, XLA and PRNG knobs of the JAX package) are accepted
-for script parity and do not change an evaluation.
+call, forward and backward, goes through the hand-written kernels
+(``--fused_attention 1``, the default); ``--fused_attention 0`` runs the
+plain PyTorch attention instead. The pre-train formats, ``--export_torch``,
+the flash kernels, parallelism and the other model families raise until
+their slices land. The JAX package's ``--prng`` is accepted and changes
+nothing; ``--xla_opt`` raises.
 """
 
 from __future__ import annotations
@@ -48,8 +55,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--chunk", type=str, default="")
     p.add_argument("--model_class", type=str, default="MKGformerKGC")
     p.add_argument("--checkpoint", type=str, default=None,
-                   help="not supported yet: an orbax checkpoint needs JAX to "
-                        "read (convert with models/convert.py)")
+                   help="a checkpoint directory written by this port (its "
+                        "latest step): the weights of --only_test, or the "
+                        "initialisation of a fit (strict=False). An orbax "
+                        "checkpoint of the JAX package needs JAX to read: "
+                        "convert it with models/convert.py")
     p.add_argument("--visual_model_path", type=str, default=None)
     p.add_argument("--pretrain_path", type=str, default=None)
     p.add_argument("--alpha", type=float, default=0.4,
@@ -124,8 +134,12 @@ def build_parser() -> argparse.ArgumentParser:
                         "poly (default; degree-14 Chebyshev fit of erf-gelu, "
                         "models/common.py gelu_poly), erf, tanh. Overrides "
                         "--exact_gelu when given.")
-    p.add_argument("--qk_bf16_grad", type=int, default=None, choices=[0, 1])
-    p.add_argument("--fused_adamw", action="store_true", default=False)
+    p.add_argument("--qk_bf16_grad", type=int, default=None, choices=[0, 1],
+                   help="1 -> dq/dk GEMMs of the plain attention's backward "
+                        "in the compute dtype: not ported yet (with "
+                        "--fused_attention 1 it changes nothing, as in JAX)")
+    p.add_argument("--fused_adamw", action="store_true", default=False,
+                   help="accepted; the same numbers as the default AdamW")
     p.add_argument("--host_gather", action="store_true", default=False,
                    help="gather image features on the host per batch instead "
                         "of the device-resident table")
@@ -150,19 +164,21 @@ def resolve_device(name: str) -> torch.device:
 
 def _refuse_unported(args) -> None:
     """Fail fast on what later slices of the port bring."""
-    if not args.only_test:
-        raise NotImplementedError(
-            "training is not ported to PyTorch yet (the next slice); run with "
-            "--only_test")
     if args.pretrain:
         raise NotImplementedError(
-            "pre-training formats are not ported yet (training slice)")
-    if args.checkpoint:
+            f"--pretrain (format {args.pretrain_format}): the pre-training "
+            "formats triple / analogy / mixed are not ported yet (ROADMAP.md "
+            "queue 1, the rest of the training slice)")
+    if args.export_torch:
         raise NotImplementedError(
-            "--checkpoint: an orbax checkpoint needs JAX to read; restore it "
-            "with the JAX package and map it with "
-            "mkg_analogy_tpu_torch.models.convert.unimo_params_from_jax "
-            "(checkpoints are the training slice)")
+            "--export_torch: the reference-format converters "
+            "(models/export_torch.py) are a later slice of the port "
+            "(ROADMAP.md queue 2)")
+    if args.qk_bf16_grad and args.fused_attention == "0":
+        raise NotImplementedError(
+            "--qk_bf16_grad 1 with --fused_attention 0: the bf16 dq/dk "
+            "backward of the plain attention is not ported yet (ROADMAP.md "
+            "queue 1, the default-off knobs)")
     if args.fused_attention == "flash":
         raise NotImplementedError(
             "--fused_attention flash: the flash-attention kernels "
@@ -221,6 +237,7 @@ def main(argv=None):
 
     from ..data.module import KGCDataModule
     from ..models.registry import IMAGE_INPUT
+    from ..train import checkpoint
     from ..train.trainer import MarTTrainer, TrainConfig
     from ..utils.logging import MetricLogger
 
@@ -257,7 +274,24 @@ def main(argv=None):
     )
     with torch.device(device):
         model = make_model(args, data.vocab.padded_vocab_size)
-    cfg = TrainConfig(eval_batch_size=args.eval_batch_size)
+    cfg = TrainConfig(
+        lr=args.lr,
+        max_epochs=args.max_epochs,
+        batch_size=args.batch_size,
+        eval_batch_size=args.eval_batch_size,
+        alpha=args.alpha,
+        label_smoothing=args.label_smoothing,
+        warmup_ratio=args.warm_up_radio,
+        weight_decay=args.weight_decay,
+        grad_accum_steps=args.accumulate_grad_batches,
+        seed=args.seed,
+        track_grad_norm=args.track_grad_norm != -1,
+        check_val_every_n_epoch=args.check_val_every_n_epoch,
+        profile_dir=os.path.join(args.log_dir, "profile") if args.profile else None,
+        # pl.Trainer semantics, resolved in MarTTrainer.fit
+        limit_train_batches=args.limit_train_batches or None,
+        fused_adamw=args.fused_adamw,
+    )
     logger = MetricLogger(args.log_dir, wandb=args.wandb,
                           config=vars(args) if args.wandb else None)
     trainer = MarTTrainer(model, data.vocab, cfg, device=device, logger=logger)
@@ -274,14 +308,42 @@ def main(argv=None):
         trainer.set_image_table(data.device_table(), kind=kind)
 
     trainer.init_params(args.seed)
-    metrics = trainer.evaluate(
-        data.features("test"), attach=attach,
-        dump_path=(os.path.join(args.output_dir, "test_ranks.npz")
-                   if args.output_dir else None))
-    logger.log(0, metrics, prefix="test/")
+
+    def restore_from(directory):
+        def init_params_fn(state):
+            return checkpoint.partial_restore(state, checkpoint.load(directory))
+        return init_params_fn
+
+    dump_path = (os.path.join(args.output_dir, "test_ranks.npz")
+                 if args.output_dir else None)
+    if args.only_test:
+        if args.checkpoint:
+            model.load_state_dict(restore_from(args.checkpoint)(model.state_dict()))
+        metrics = trainer.evaluate(data.features("test"), attach=attach,
+                                   dump_path=dump_path)
+        logger.log(0, metrics, prefix="test/")
+        logger.close()
+        print(metrics)
+        return metrics
+
+    ckpt = checkpoint.Checkpointer(os.path.join(args.output_dir, "ckpt"))
+    try:
+        steps, _ = trainer.fit(
+            data.features("train"), data.features("dev"), attach=attach,
+            checkpointer=ckpt,
+            init_params_fn=restore_from(args.checkpoint) if args.checkpoint else None)
+        # test with the best-Hits@10 checkpoint of THIS fit (main.py:157-159
+        # parity: a stale checkpoint directory of an older run is not used)
+        if ckpt.saved_steps:
+            model.load_state_dict(ckpt.restore(step=ckpt.saved_steps[-1]))
+    finally:
+        ckpt.close()
+    test_metrics = trainer.evaluate(data.features("test"), attach=attach,
+                                    dump_path=dump_path)
+    logger.log(steps, test_metrics, prefix="test/")
     logger.close()
-    print(metrics)
-    return metrics
+    print(test_metrics)
+    return test_metrics
 
 
 if __name__ == "__main__":

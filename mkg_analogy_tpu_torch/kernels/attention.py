@@ -1,8 +1,9 @@
-"""Fused multi-head attention forward: the CUDA kernel, its wrapper and its
-plain PyTorch version.
+"""Fused multi-head attention, forward and backward: the CUDA kernels, their
+wrappers and their plain PyTorch versions.
 
 The port of ``mkg_analogy_tpu/kernels/attention.py:fused_attention`` (the
-Pallas ``_fwd_kernel``). One call computes, per (batch row, head)::
+Pallas ``_fwd_kernel`` and ``_bwd_kernel`` under a ``jax.custom_vjp``). One
+call computes, per (batch row, head)::
 
     softmax(d^-1/2 · Q Kᵀ ∘ analogy multiplier + (1 - mask) · -1e4) · V
 
@@ -10,24 +11,31 @@ with fp32 scores and softmax, attention dropout, and the probabilities cast
 to the compute dtype before the product with V, on the packed
 (B, L, heads·d) layout of the projection GEMMs, in and out.
 
-- ``fused_attention`` is the entry point, with the JAX signature. A CUDA
-  tensor launches the hand-written kernel (``csrc/fused_attention_fwd.cu``,
-  built at first use by ``kernels/build.py``); a CPU tensor takes
-  ``fused_attention_reference``. Nothing falls back from one to the other.
-- ``fused_attention_reference`` is the plain version: the
-  ``AttentionCore._einsum`` math on the packed layout. The CPU tests hold it
-  to the JAX kernel in interpret mode, and ``chip_smoke.py`` holds the CUDA
-  kernel to it on the card.
-- ``LAUNCHES`` counts kernel launches, so a run can show that its main path
-  went through the kernel.
+- ``fused_attention`` is the entry point, with the JAX signature, and is
+  differentiable: a ``torch.autograd.Function`` that saves q, k, v, the
+  mask, the boundary, (w0, w1) and the dropout seed — never the
+  probabilities — and recomputes them in the backward, as the JAX custom VJP
+  does. A CUDA tensor launches the hand-written kernels
+  (``csrc/fused_attention_fwd.cu``, ``csrc/fused_attention_bwd.cu``, built at
+  first use by ``kernels/build.py``); a CPU tensor takes the plain versions.
+  Nothing falls back from one to the other. The clamps of w0/w1 stay
+  outside, so autograd chains them.
+- ``fused_attention_reference`` is the plain forward (the
+  ``AttentionCore._einsum`` math on the packed layout) and
+  ``fused_attention_bwd_reference`` the plain backward: the formula of
+  ``_bwd_kernel`` written out, with its cast points, not autograd through the
+  forward. The CPU tests hold both to the JAX kernels in interpret mode, and
+  ``chip_smoke.py`` holds the CUDA kernels to them on the card.
+- ``LAUNCHES`` and ``LAUNCHES_BWD`` count kernel launches, so a run can show
+  that its main path went through the kernels.
 
 Dropout masks come from the counter hash of the JAX kernel's interpret mode
 (``_dropout_keep``: lowbias32 on ``row * Lk + col`` xor ``seed *
-0x9E3779B9``, per-(b, head) seed ``seed + b * heads + head``), in both the
-plain version and the kernel. So the plain version matches the JAX
-interpret-mode kernel bit for bit, and the CUDA kernel matches the plain
-version; neither reproduces the TPU's hardware random bits. The backward
-(``_bwd_kernel``) comes with the training slice.
+0x9E3779B9``, per-(b, head) seed ``seed + b * heads + head``), in the plain
+versions and in both kernels, so the backward regenerates the forward's
+mask. The plain versions match the JAX interpret-mode kernels bit for bit
+in their masks, and the CUDA kernels match the plain versions; none
+reproduces the TPU's hardware random bits.
 """
 
 from __future__ import annotations
@@ -41,8 +49,10 @@ import torch
 from . import build
 
 NEG_BIAS = -10000.0  # reference padding bias (modeling_unimo.py:56)
-HEAD_DIM = 64        # the kernel's head width (BERT-base and ViT-B/32)
-LAUNCHES = 0         # kernel launches since import (or since a caller reset it)
+HEAD_DIM = 64        # the kernels' head width (BERT-base and ViT-B/32)
+ROWS_PER_BLOCK = 64  # query rows per block of both kernels (csrc kRowsPerBlock)
+LAUNCHES = 0         # forward kernel launches since import (or a caller's reset)
+LAUNCHES_BWD = 0     # backward kernel launches, likewise
 
 _M32 = 0xFFFFFFFF
 
@@ -70,9 +80,17 @@ def dropout_keep(batch: int, num_heads: int, lq: int, lk: int, rate: float,
     return x >= int(rate * float(2 ** 32))
 
 
-def _geometry_multiplier(boundary, w, lq, lk, row_start, text_len, offset):
-    """(B, 1, Lq, Lk) analogy multiplier (attention.py:_geometry_planes);
-    ``w`` holds the clamped (w0, w1)."""
+def _acc_dtype(x: torch.Tensor) -> torch.dtype:
+    """Scores, softmax and sums run in fp32 (fp64 for fp64 inputs, which
+    only the gradient checks use)."""
+    return torch.float64 if x.dtype == torch.float64 else torch.float32
+
+
+def _geometry_planes(boundary, w, lq, lk, geometry):
+    """(mult, region0, region1), each (B, 1, Lq, Lk), of the analogy geometry
+    (attention.py:_geometry_planes); ``w`` holds the clamped (w0, w1) and
+    region0/region1 are the 0/1 planes of the dw0/dw1 sums."""
+    row_start, text_len, offset = geometry
     rows = torch.arange(lq, device=boundary.device)[:, None]
     cols = torch.arange(lk, device=boundary.device)[None, :]
     bnd = (boundary.long() + offset)[:, None, None]
@@ -80,23 +98,112 @@ def _geometry_multiplier(boundary, w, lq, lk, row_start, text_len, offset):
     row_is_example = (rows >= row_start) & (rows < bnd)
     row_is_answer = rows >= bnd
     row_in_scope = (row_is_example | row_is_answer) & (rows < text_len)
-    one = torch.ones((), dtype=torch.float32, device=boundary.device)
-    mult = torch.where(col_is_answer & row_in_scope,
-                       torch.where(row_is_example, w[0], w[1]), one)
-    return mult[:, None]
+    region0 = col_is_answer & row_in_scope & row_is_example
+    region1 = col_is_answer & row_in_scope & ~row_is_example
+    one = torch.ones((), dtype=w.dtype, device=boundary.device)
+    mult = torch.where(region0, w[0], torch.where(region1, w[1], one))
+    return mult[:, None], region0[:, None].to(w.dtype), region1[:, None].to(w.dtype)
 
 
-def _resolve(q, w0, w1, text_len):
-    """The (w0, w1) pair as one fp32 tensor (ones when absent) and the text
-    length of the geometry (Lq when absent), as attention.py:fused_attention
-    resolves them."""
+def _resolve(q, boundary, w0, w1, text_len, row_start, offset, dropout_rate,
+             deterministic, dropout_seed):
+    """The call's normalised arguments, as attention.py:fused_attention
+    resolves them: the int32 boundary (zeros when absent), (w0, w1) as one
+    tensor (ones when absent), the geometry (row_start, text_len, offset) or
+    None, the dropout rate in effect (0 when deterministic) and the seed."""
+    b, lq = q.shape[0], q.shape[1]
+    acc = _acc_dtype(q)
     if w0 is None:
-        w = torch.ones(2, dtype=torch.float32, device=q.device)
+        w = torch.ones(2, dtype=acc, device=q.device)
     else:
-        w = torch.stack([w0.reshape(()), w1.reshape(())]).to(torch.float32)
-    lq = q.shape[1]
-    text_len = lq if text_len is None else int(text_len)
-    return w, text_len
+        w = torch.stack([w0.reshape(()), w1.reshape(())]).to(acc)
+    geometry = None
+    if boundary is None:
+        bnd = torch.zeros(b, dtype=torch.int32, device=q.device)
+    else:
+        bnd = boundary.to(device=q.device, dtype=torch.int32).reshape(b)
+        geometry = (int(row_start), lq if text_len is None else int(text_len),
+                    int(offset))
+    rate = 0.0 if deterministic else float(dropout_rate)
+    return bnd, w, geometry, rate, int(dropout_seed or 0)
+
+
+def _split_heads(x, num_heads, dtype):
+    b, length, hd = x.shape
+    return x.reshape(b, length, num_heads, hd // num_heads).transpose(1, 2).to(dtype)
+
+
+def _merge_heads(x, dtype):
+    b, h, length, d = x.shape
+    return x.transpose(1, 2).reshape(b, length, h * d).to(dtype)
+
+
+def _scores(q, k, mask, num_heads, bnd, w, geometry):
+    """(s_raw, planes or None, p): the scaled scores, the geometry planes
+    and the softmax, (B, heads, Lq, Lk) in the accumulation dtype."""
+    acc = _acc_dtype(q)
+    lq, lk = q.shape[1], k.shape[1]
+    scale = float(q.shape[2] // num_heads) ** -0.5
+    # products of the (possibly bf16) inputs, summed in fp32
+    s_raw = torch.matmul(_split_heads(q, num_heads, acc),
+                         _split_heads(k, num_heads, acc).transpose(-1, -2)) * scale
+    planes = None
+    s = s_raw
+    if geometry is not None:
+        planes = _geometry_planes(bnd, w, lq, lk, geometry)
+        s = s_raw * planes[0]
+    s = s + ((1.0 - mask.to(acc)) * NEG_BIAS)[:, None, None, :]
+    return s_raw, planes, torch.softmax(s, dim=-1)
+
+
+def _plain_fwd(q, k, v, mask, num_heads, bnd, w, geometry, rate, seed,
+               compute_dtype):
+    b, lq, _ = q.shape
+    lk = k.shape[1]
+    _, _, p = _scores(q, k, mask, num_heads, bnd, w, geometry)
+    if rate > 0.0:
+        keep = dropout_keep(b, num_heads, lq, lk, rate, seed, q.device)
+        p = torch.where(keep, p / (1.0 - rate), torch.zeros((), dtype=p.dtype,
+                                                           device=q.device))
+    ctx = torch.matmul(p.to(compute_dtype), _split_heads(v, num_heads, compute_dtype))
+    return _merge_heads(ctx, q.dtype)
+
+
+def _plain_bwd(q, k, v, mask, g, num_heads, bnd, w, geometry, rate, seed,
+               compute_dtype):
+    """attention.py:_bwd_kernel :163-233, written out with its cast points."""
+    b, lq, _ = q.shape
+    lk = k.shape[1]
+    acc = _acc_dtype(q)
+    scale = float(q.shape[2] // num_heads) ** -0.5
+    s_raw, planes, p = _scores(q, k, mask, num_heads, bnd, w, geometry)
+    zero = torch.zeros((), dtype=acc, device=q.device)
+    keep = None
+    p_drop = p
+    if rate > 0.0:
+        keep = dropout_keep(b, num_heads, lq, lk, rate, seed, q.device)
+        inv = 1.0 / (1.0 - rate)
+        p_drop = torch.where(keep, p * inv, zero)
+    gh = _split_heads(g, num_heads, acc)
+    # the forward casts the probabilities before ·V; so does dv (:199)
+    p_cast = p_drop.to(compute_dtype).to(acc)
+    dv = torch.matmul(p_cast.transpose(-1, -2), gh)
+    dp = torch.matmul(gh, _split_heads(v, num_heads, acc).transpose(-1, -2))
+    if keep is not None:
+        dp = torch.where(keep, dp * inv, zero)                      # :208-209
+    ds = p * (dp - torch.sum(dp * p, dim=-1, keepdim=True))         # :210
+    if planes is not None:
+        mult, region0, region1 = planes
+        dw = torch.stack([torch.sum(ds * s_raw * region0),          # :212-213
+                          torch.sum(ds * s_raw * region1)])
+        ds = ds * mult
+    else:
+        dw = torch.zeros(2, dtype=acc, device=q.device)
+    ds_raw = (ds * scale).to(compute_dtype).to(acc)                 # :217
+    dq = torch.matmul(ds_raw, _split_heads(k, num_heads, acc))
+    dk = torch.matmul(ds_raw.transpose(-1, -2), _split_heads(q, num_heads, acc))
+    return (_merge_heads(dq, q.dtype), _merge_heads(dk, k.dtype),
+            _merge_heads(dv, v.dtype), dw.to(w.dtype))
 
 
 def fused_attention_reference(
@@ -117,30 +224,42 @@ def fused_attention_reference(
     dropout_seed: Optional[int] = None,
     compute_dtype: torch.dtype = torch.bfloat16,
 ) -> torch.Tensor:
-    """Plain PyTorch version of :func:`fused_attention` (same arguments)."""
-    b, lq, hd = q.shape
-    lk = k.shape[1]
-    d = hd // num_heads
-    scale = float(d) ** -0.5
+    """Plain PyTorch version of :func:`fused_attention` (same arguments).
+    Autograd differentiates it as it stands: the attention of
+    ``--fused_attention 0``."""
+    bnd, w, geometry, rate, seed = _resolve(q, boundary, w0, w1, text_len, row_start,
+                                            offset, dropout_rate, deterministic,
+                                            dropout_seed)
+    return _plain_fwd(q, k, v, mask, num_heads, bnd, w, geometry, rate, seed,
+                      compute_dtype)
 
-    def heads(x, length, dtype):
-        return x.reshape(b, length, num_heads, d).transpose(1, 2).to(dtype)
 
-    # fp32 scores: products of the (possibly bf16) inputs, summed in fp32
-    s = torch.matmul(heads(q, lq, torch.float32),
-                     heads(k, lk, torch.float32).transpose(-1, -2)) * scale
-    if boundary is not None:
-        w, text_len = _resolve(q, w0, w1, text_len)
-        s = s * _geometry_multiplier(boundary, w, lq, lk, row_start, text_len,
-                                     offset)
-    s = s + ((1.0 - mask.to(torch.float32)) * NEG_BIAS)[:, None, None, :]
-    p = torch.softmax(s, dim=-1)
-    if not deterministic and dropout_rate > 0.0:
-        keep = dropout_keep(b, num_heads, lq, lk, dropout_rate,
-                            int(dropout_seed or 0), q.device)
-        p = torch.where(keep, p / (1.0 - dropout_rate), torch.zeros((), device=q.device))
-    ctx = torch.matmul(p.to(compute_dtype), heads(v, lk, compute_dtype))
-    return ctx.transpose(1, 2).reshape(b, lq, hd).to(q.dtype)
+def fused_attention_bwd_reference(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    mask: torch.Tensor,
+    g: torch.Tensor,              # (B, Lq, heads*d) cotangent of the output
+    num_heads: int,
+    *,
+    boundary: Optional[torch.Tensor] = None,
+    w0: Optional[torch.Tensor] = None,
+    w1: Optional[torch.Tensor] = None,
+    text_len: Optional[int] = None,
+    row_start: int = 0,
+    offset: int = 0,
+    dropout_rate: float = 0.0,
+    deterministic: bool = True,
+    dropout_seed: Optional[int] = None,
+    compute_dtype: torch.dtype = torch.bfloat16,
+):
+    """Plain PyTorch version of the backward: (dq, dk, dv, dw), dw the (2,)
+    gradient of the clamped (w0, w1) (zeros without a geometry)."""
+    bnd, w, geometry, rate, seed = _resolve(q, boundary, w0, w1, text_len, row_start,
+                                            offset, dropout_rate, deterministic,
+                                            dropout_seed)
+    return _plain_bwd(q, k, v, mask, g, num_heads, bnd, w, geometry, rate, seed,
+                      compute_dtype)
 
 
 @functools.cache
@@ -163,6 +282,35 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+@functools.cache
+def _lib_bwd() -> ctypes.CDLL:
+    lib = build.load("fused_attention_bwd")
+    p, i, f, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint
+    lib.mkg_fused_attention_bwd.argtypes = [
+        p, p, p, p, p, p, p,        # q k v g mask boundary w
+        p, p, p, p, p,              # dq dk dv stats dw_part
+        i, i, i, i, i,              # batch lq lk num_heads is_bf16
+        f,                          # scale
+        i, i, i, i,                 # has_geometry row_start text_len offset
+        i, u, f, u,                 # dropout threshold inv_keep seed
+        p,                          # stream
+    ]
+    lib.mkg_fused_attention_bwd.restype = ctypes.c_int
+    lib.mkg_fused_attention_bwd_smem.argtypes = [i, i, i]
+    lib.mkg_fused_attention_bwd_smem.restype = ctypes.c_size_t
+    lib.mkg_cuda_error_string.argtypes = [i]
+    lib.mkg_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _check_tensor(name, t, q):
+    if t.device != q.device or t.dtype != q.dtype:
+        raise ValueError(f"{name}: {t.dtype} on {t.device}, q: {q.dtype} on {q.device}")
+    if t.dim() != 3 or not t.is_contiguous() or t.data_ptr() % 16:
+        raise ValueError(f"{name} must be a contiguous, 16-byte aligned "
+                         f"(B, L, heads*d) tensor, got {tuple(t.shape)}")
+
+
 def _check_inputs(q, k, v, mask, num_heads, compute_dtype):
     if q.device.type != "cuda":
         raise ValueError(f"fused_attention kernel needs CUDA tensors, got {q.device}")
@@ -173,11 +321,7 @@ def _check_inputs(q, k, v, mask, num_heads, compute_dtype):
             f"fused_attention kernel computes in the inputs' dtype ({q.dtype}), "
             f"got compute_dtype={compute_dtype}")
     for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.device != q.device or t.dtype != q.dtype:
-            raise ValueError(f"{name}: {t.dtype} on {t.device}, q: {q.dtype} on {q.device}")
-        if t.dim() != 3 or not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError(f"{name} must be a contiguous, 16-byte aligned "
-                             f"(B, L, heads*d) tensor, got {tuple(t.shape)}")
+        _check_tensor(name, t, q)
     b, lq, hd = q.shape
     lk = k.shape[1]
     if hd != num_heads * HEAD_DIM:
@@ -190,6 +334,109 @@ def _check_inputs(q, k, v, mask, num_heads, compute_dtype):
         raise ValueError("fused_attention needs at least one query and one key")
     if mask.shape != (b, lk):
         raise ValueError(f"mask {tuple(mask.shape)} is not (B, Lk) = {(b, lk)}")
+
+
+def _check_smem(smem, q, what):
+    limit = torch.cuda.get_device_properties(q.device).shared_memory_per_block_optin
+    if smem > limit:
+        raise ValueError(
+            f"{what} needs {smem} bytes of shared memory per block, above the "
+            f"device's {limit}: longer sequences are the flash kernels' "
+            f"(kernels/flash_attention.py in the JAX package), a later slice")
+
+
+def _geometry_args(geometry, lq):
+    row_start, text_len, offset = geometry if geometry is not None else (0, lq, 0)
+    return int(geometry is not None), row_start, text_len, offset
+
+
+def _launch_fwd(q, k, v, mask, num_heads, bnd, w, geometry, rate, seed):
+    global LAUNCHES
+    b, lq, _ = q.shape
+    lk = k.shape[1]
+    lib = _lib()
+    is_bf16 = int(q.dtype == torch.bfloat16)
+    _check_smem(lib.mkg_fused_attention_fwd_smem(lk, is_bf16), q, f"Lk={lk}")
+    out = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        err = lib.mkg_fused_attention_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
+            bnd.data_ptr(), w.data_ptr(), out.data_ptr(),
+            b, lq, lk, num_heads, is_bf16, float(HEAD_DIM) ** -0.5,
+            *_geometry_args(geometry, lq),
+            int(rate > 0.0), int(rate * float(2 ** 32)), 1.0 - rate,
+            seed & _M32, torch.cuda.current_stream(q.device).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError("fused_attention_fwd launch failed: "
+                           + lib.mkg_cuda_error_string(err).decode())
+    LAUNCHES += 1
+    return out
+
+
+def _launch_bwd(q, k, v, mask, g, num_heads, bnd, w, geometry, rate, seed):
+    """dq, dk, dv and the (2,) dw of one backward. The kernel writes one
+    (dw0, dw1) partial per (b, head, query tile) and this sums them, so no
+    float atomics run and fp32 results repeat from run to run."""
+    global LAUNCHES_BWD
+    b, lq, _ = q.shape
+    lk = k.shape[1]
+    _check_tensor("g", g, q)
+    if g.shape != q.shape:
+        raise ValueError(f"g {tuple(g.shape)} is not q's shape {tuple(q.shape)}")
+    lib = _lib_bwd()
+    is_bf16 = int(q.dtype == torch.bfloat16)
+    _check_smem(lib.mkg_fused_attention_bwd_smem(lq, lk, is_bf16), q,
+                f"the backward at Lq={lq}, Lk={lk}")
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    stats = torch.empty(b, num_heads, lq, 3, dtype=torch.float32, device=q.device)
+    tiles = -(-lq // ROWS_PER_BLOCK)
+    dw_part = torch.empty(b, num_heads, tiles, 2, dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        err = lib.mkg_fused_attention_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), mask.data_ptr(),
+            bnd.data_ptr(), w.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), stats.data_ptr(), dw_part.data_ptr(),
+            b, lq, lk, num_heads, is_bf16, float(HEAD_DIM) ** -0.5,
+            *_geometry_args(geometry, lq),
+            int(rate > 0.0), int(rate * float(2 ** 32)),
+            (1.0 / (1.0 - rate)) if rate > 0.0 else 1.0,
+            seed & _M32, torch.cuda.current_stream(q.device).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError("fused_attention_bwd launch failed: "
+                           + lib.mkg_cuda_error_string(err).decode())
+    LAUNCHES_BWD += 1
+    return dq, dk, dv, dw_part.sum(dim=(0, 1, 2)).to(w.dtype)
+
+
+class _FusedAttention(torch.autograd.Function):
+    """The custom VJP of attention.py:286-383: the forward saves its inputs
+    and the seed, the backward recomputes the probabilities and the dropout
+    mask. Gradients flow to q, k, v and the stacked (w0, w1)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, mask, bnd, w, num_heads, geometry, rate, seed,
+                compute_dtype):
+        ctx.save_for_backward(q, k, v, mask, bnd, w)
+        ctx.call = (num_heads, geometry, rate, seed, compute_dtype)
+        if q.device.type == "cpu":
+            return _plain_fwd(q, k, v, mask, num_heads, bnd, w, geometry, rate,
+                              seed, compute_dtype)
+        return _launch_fwd(q, k, v, mask, num_heads, bnd, w, geometry, rate, seed)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, mask, bnd, w = ctx.saved_tensors
+        num_heads, geometry, rate, seed, compute_dtype = ctx.call
+        if q.device.type == "cpu":
+            dq, dk, dv, dw = _plain_bwd(q, k, v, mask, g, num_heads, bnd, w,
+                                        geometry, rate, seed, compute_dtype)
+        else:
+            # g comes from the out-projection's backward
+            dq, dk, dv, dw = _launch_bwd(q, k, v, mask, g.to(q.dtype).contiguous(),
+                                         num_heads, bnd, w, geometry, rate, seed)
+        return dq, dk, dv, None, None, dw, None, None, None, None, None
 
 
 def fused_attention(
@@ -211,57 +458,22 @@ def fused_attention(
     compute_dtype: torch.dtype = torch.bfloat16,
 ) -> torch.Tensor:
     """softmax(scale·QKᵀ ∘ analogy_mult + pad_bias) @ V, fused, in the
-    packed (B, L, H) head layout of the projection GEMMs.
+    packed (B, L, H) head layout of the projection GEMMs; differentiable in
+    q, k, v, w0 and w1.
 
     ``boundary``/``w0``/``w1`` enable the analogy multiplier with the
     ops/masks.py geometry (row_start / text_len / compat offset); w0 and w1
-    arrive clamped. On a CPU tensor this is the plain version; on a CUDA
-    tensor it launches the kernel (bf16 or fp32, head_dim 64, compute dtype
-    = the inputs' dtype) or raises.
+    arrive clamped. On CPU tensors this is the plain forward and backward; on
+    CUDA tensors it launches the kernels (bf16 or fp32, head_dim 64, compute
+    dtype = the inputs' dtype) or raises.
     """
-    global LAUNCHES
-    args = dict(boundary=boundary, w0=w0, w1=w1, text_len=text_len,
-                row_start=row_start, offset=offset, dropout_rate=dropout_rate,
-                deterministic=deterministic, dropout_seed=dropout_seed,
-                compute_dtype=compute_dtype)
-    if q.device.type == "cpu":
-        return fused_attention_reference(q, k, v, mask, num_heads, **args)
-    _check_inputs(q, k, v, mask, num_heads, compute_dtype)
     if not 0.0 <= dropout_rate < 1.0:
         raise ValueError(f"dropout_rate must be in [0, 1), got {dropout_rate}")
-    b, lq, _ = q.shape
-    lk = k.shape[1]
-    lib = _lib()
-    is_bf16 = int(q.dtype == torch.bfloat16)
-    smem = lib.mkg_fused_attention_fwd_smem(lk, is_bf16)
-    limit = torch.cuda.get_device_properties(q.device).shared_memory_per_block_optin
-    if smem > limit:
-        raise ValueError(
-            f"Lk={lk} needs {smem} bytes of shared memory per block, above the "
-            f"device's {limit}: longer keys are the flash kernel's "
-            f"(kernels/flash_attention.py in the JAX package), a later slice")
-    w, text_len = _resolve(q, w0, w1, text_len)
-    has_geometry = int(boundary is not None)
-    if boundary is None:
-        bnd = torch.zeros(b, dtype=torch.int32, device=q.device)
-    else:
-        bnd = boundary.to(device=q.device, dtype=torch.int32).reshape(b).contiguous()
-    maskf = mask.to(device=q.device, dtype=torch.float32).contiguous()
-    w = w.to(q.device).contiguous()
-    dropout = int(not deterministic and dropout_rate > 0.0)
-    out = torch.empty_like(q)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.mkg_fused_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), maskf.data_ptr(),
-            bnd.data_ptr(), w.data_ptr(), out.data_ptr(),
-            b, lq, lk, num_heads, is_bf16, float(HEAD_DIM) ** -0.5,
-            has_geometry, int(row_start), text_len, int(offset),
-            dropout, int(dropout_rate * float(2 ** 32)), 1.0 - dropout_rate,
-            int(dropout_seed or 0) & _M32, stream,
-        )
-    if err != 0:
-        raise RuntimeError("fused_attention_fwd launch failed: "
-                           + lib.mkg_cuda_error_string(err).decode())
-    LAUNCHES += 1
-    return out
+    bnd, w, geometry, rate, seed = _resolve(q, boundary, w0, w1, text_len, row_start,
+                                            offset, dropout_rate, deterministic,
+                                            dropout_seed)
+    maskf = mask.to(device=q.device, dtype=_acc_dtype(q)).contiguous()
+    if q.device.type != "cpu":
+        _check_inputs(q, k, v, maskf, num_heads, compute_dtype)
+    return _FusedAttention.apply(q, k, v, maskf, bnd.contiguous(), w.contiguous(),
+                                 num_heads, geometry, rate, seed, compute_dtype)

@@ -4,10 +4,14 @@
 Parameters stay in float32; each layer computes in its ``dtype`` (the
 compute dtype of the precision policy) by casting its parameters where they
 are used, as the Flax layers with ``dtype=`` do.
+
+Dropout draws from explicit generators (``DropoutRNG``), never from the
+global one: a training forward takes one, an evaluation none.
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Optional
 
 import torch
@@ -47,8 +51,7 @@ _GELU_POLY_CHEB = (
 
 # Chebyshev coefficients of r in the same s, fitted so that 0.5 + clip(x,
 # -6, 6) * r(s) approximates gelu'(x) within 4.3e-6 over the real line
-# (_GELU_POLY_DERIV_CHEB of the JAX package). The forward-only slice does
-# not use it; the training slice's backward of ``gelu_poly`` will.
+# (_GELU_POLY_DERIV_CHEB of the JAX package): the backward of ``gelu_poly``.
 _GELU_POLY_DERIV_CHEB = (
     0.21898524531263905,
     -0.22260624861509148,
@@ -77,14 +80,38 @@ def _clenshaw_f32(s: torch.Tensor, coeffs) -> torch.Tensor:
     return s * b1 - b2 + coeffs[0]
 
 
+def _gelu_poly_s(xf: torch.Tensor) -> torch.Tensor:
+    return (xf * xf * (1.0 / 18.0) - 1.0).clamp(-1.0, 1.0)
+
+
+class _GeluPoly(torch.autograd.Function):
+    """The JAX custom JVP (models/common.py:164-194): the forward's series,
+    and for the backward the fitted derivative series ``0.5 + clip(x, -6, 6)
+    * r(s)`` instead of autograd through the Clenshaw chain, which would keep
+    its ~30 fp32 intermediates of every FFN activation. Saves only x."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        xf = x.to(torch.float32)
+        t = (xf * _clenshaw_f32(_gelu_poly_s(xf), _GELU_POLY_CHEB)).clamp(-1.0, 1.0)
+        return (0.5 * xf * (1.0 + t)).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        xf = x.to(torch.float32)
+        d = 0.5 + xf.clamp(-6.0, 6.0) * _clenshaw_f32(_gelu_poly_s(xf),
+                                                      _GELU_POLY_DERIV_CHEB)
+        return (d * g.to(torch.float32)).to(x.dtype)
+
+
 def gelu_poly(x: torch.Tensor) -> torch.Tensor:
     """Exact-gelu via structural polynomial: x/2*(1+clip(x*q(x^2), -1, 1)),
     q a degree-14 Chebyshev series evaluated by Clenshaw in fp32 (within
-    2.1e-6 of erf-gelu everywhere)."""
-    xf = x.to(torch.float32)
-    s = (xf * xf * (1.0 / 18.0) - 1.0).clamp(-1.0, 1.0)
-    t = (xf * _clenshaw_f32(s, _GELU_POLY_CHEB)).clamp(-1.0, 1.0)
-    return (0.5 * xf * (1.0 + t)).to(x.dtype)
+    2.1e-6 of erf-gelu everywhere); its gradient is the fitted derivative
+    series (within 4.3e-6 of erf-gelu's)."""
+    return _GeluPoly.apply(x)
 
 
 def gelu(x: torch.Tensor, impl: str = "poly") -> torch.Tensor:
@@ -107,6 +134,45 @@ def get_activation(name: str, gelu_impl: str = "poly"):
     if name == "quick_gelu":
         return quick_gelu
     raise KeyError(name)
+
+
+def clip(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
+    """``jnp.clip`` with its gradient: at a tie with a bound the gradient is
+    split, half to x (``torch.minimum``/``torch.maximum`` with tensor bounds
+    do that; ``torch.clamp`` passes it whole). ``adaptive_w1`` starts exactly
+    at its lower bound 0.5, so this decides its first step."""
+    return torch.minimum(torch.maximum(x, x.new_tensor(lo)), x.new_tensor(hi))
+
+
+@dataclass
+class DropoutRNG:
+    """The generators one training forward draws from: ``device`` for the
+    hidden-dropout masks (``torch.rand`` on the activations' device) and
+    ``seeds``, on the CPU, for the attention kernel's per-call seeds, drawn
+    as Python ints so that no device sync occurs."""
+
+    device: torch.Generator
+    seeds: torch.Generator
+
+    @classmethod
+    def from_seed(cls, seed: int, device) -> "DropoutRNG":
+        device = torch.device(device)
+        # the xor gives the seed stream its own seed, unrelated to the masks'
+        return cls(torch.Generator(device=device).manual_seed(seed),
+                   torch.Generator().manual_seed(seed ^ 0x5DEECE66D))
+
+    def attention_seed(self) -> int:
+        """A seed in [0, 2^31 - 1), the range of the JAX model's
+        ``jax.random.randint(..., 0, int32 max)``."""
+        return int(torch.randint(0, 2 ** 31 - 1, (), generator=self.seeds))
+
+
+def dropout(x: torch.Tensor, rate: float, generator: torch.Generator) -> torch.Tensor:
+    """Flax ``nn.Dropout``: keep where a uniform draw is >= rate, kept
+    values scaled by 1/(1-rate), in x's dtype."""
+    keep = torch.rand(x.shape, generator=generator, device=x.device) >= rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype,
+                                                           device=x.device))
 
 
 class Dense(nn.Linear):
@@ -148,19 +214,24 @@ class AttentionCore(nn.Module):
     modeling_unimo.py:227-229), with ``extra_kv_bias`` masking their padding.
 
     ``fused``: True sends the attention through ``kernels.attention.
-    fused_attention`` (the CUDA kernel on a CUDA tensor, its plain version on
-    the CPU); False through the plain version on every device (the JAX
-    package's einsum path, the same math).
+    fused_attention`` (the CUDA kernels on a CUDA tensor, their plain
+    versions on the CPU); False through the plain forward on every device,
+    differentiated by autograd (the JAX package's einsum path, the same
+    math).
+
+    ``dropout_rate`` is the attention dropout, applied when a ``DropoutRNG``
+    is given (a training forward); each call draws the kernel's seed from it.
     """
 
     def __init__(self, hidden_size: int, num_heads: int, head_dim: int,
                  dtype: torch.dtype = torch.float32, out_bias: bool = True,
-                 fused: bool = True):
+                 fused: bool = True, dropout_rate: float = 0.0):
         super().__init__()
         inner = num_heads * head_dim
         self.num_heads = num_heads
         self.dtype = dtype
         self.fused = fused
+        self.dropout_rate = dropout_rate
         self.query = Dense(hidden_size, inner, dtype=dtype)
         self.key = Dense(hidden_size, inner, dtype=dtype)
         self.value = Dense(hidden_size, inner, dtype=dtype)
@@ -175,6 +246,7 @@ class AttentionCore(nn.Module):
         extra_kv_bias: Optional[torch.Tensor] = None,
         output_kv: bool = False,
         output_context: bool = False,
+        rng: Optional[DropoutRNG] = None,
     ):
         b, l, _ = hidden_states.shape
         q = self.query(hidden_states)
@@ -203,7 +275,7 @@ class AttentionCore(nn.Module):
         kwargs = {}
         if analogy is not None:
             boundary, w0, w1, row_start, text_len, offset = analogy
-            w0, w1 = w0.clamp(0.0, 0.5), w1.clamp(0.5, 1.0)
+            w0, w1 = clip(w0, 0.0, 0.5), clip(w1, 0.5, 1.0)
             if offset:
                 # compat geometry: boundary shifts, rows start at
                 # img_length+1, columns run to the sequence end
@@ -214,8 +286,10 @@ class AttentionCore(nn.Module):
                               row_start=row_start,
                               text_len=l if text_len is None else text_len,
                               offset=0)
+        if rng is not None and self.dropout_rate > 0.0:
+            kwargs.update(dropout_rate=self.dropout_rate, deterministic=False,
+                          dropout_seed=rng.attention_seed())
         attend = fused_attention if self.fused else fused_attention_reference
-        # evaluation only: attention dropout comes with the training slice
         ctx = attend(q, k, v, mask, self.num_heads, compute_dtype=self.dtype,
                      **kwargs)
         out = self.out(ctx)

@@ -16,7 +16,13 @@
 
 Parameter names follow the Flax tree (``encoder.text_3.attn.query.weight``
 for ``encoder/text_3/attn/query/kernel``), so ``models/convert.py`` maps it
-mechanically. This slice is the forward for evaluation: dropout is off.
+mechanically.
+
+Dropout sits where the JAX model has it: hidden dropout after the text
+embedding LayerNorm, after each text attention's output projection and after
+each text FFN, attention dropout in the text self-attention (the vision
+tower has none). It runs only in a training forward (``deterministic=False``
+with a ``DropoutRNG``); evaluation is deterministic.
 """
 
 from __future__ import annotations
@@ -33,9 +39,11 @@ from ..ops.masks import attention_bias
 from .common import (
     AttentionCore,
     Dense,
+    DropoutRNG,
     LayerNorm,
     MLMTransform,
     PatchEmbed,
+    dropout,
     gather_positions,
     get_activation,
     tied_logits,
@@ -139,20 +147,25 @@ class TextEmbeddings(nn.Module):
     def __init__(self, cfg: TextConfig, dtype: torch.dtype):
         super().__init__()
         self.dtype = dtype
+        self.hidden_dropout = cfg.hidden_dropout
         self.position_embeddings = nn.Parameter(
             torch.empty(cfg.max_position_embeddings, cfg.hidden_size))
         self.token_type_embeddings = nn.Parameter(
             torch.empty(cfg.type_vocab_size, cfg.hidden_size))
         self.ln = LayerNorm(cfg.hidden_size, cfg.layer_norm_eps, dtype=dtype)
 
-    def forward(self, input_ids, token_type_ids, word_table):
+    def forward(self, input_ids, token_type_ids, word_table,
+                rng: Optional[DropoutRNG] = None):
         seq_len = input_ids.shape[1]
         x = (
             word_table[input_ids.long()].to(self.dtype)
             + self.position_embeddings[:seq_len][None].to(self.dtype)
             + self.token_type_embeddings[token_type_ids.long()].to(self.dtype)
         )
-        return self.ln(x)
+        x = self.ln(x)
+        if rng is not None and self.hidden_dropout > 0.0:
+            x = dropout(x, self.hidden_dropout, rng.device)
+        return x
 
 
 class CLIPLayer(nn.Module):
@@ -163,14 +176,17 @@ class CLIPLayer(nn.Module):
         super().__init__()
         self.ln1 = LayerNorm(cfg.hidden_size, cfg.layer_norm_eps, dtype=dtype)
         self.attn = AttentionCore(cfg.hidden_size, cfg.num_heads, cfg.head_dim,
-                                  dtype=dtype, fused=fused)
+                                  dtype=dtype, fused=fused,
+                                  dropout_rate=cfg.attention_dropout)
         self.ln2 = LayerNorm(cfg.hidden_size, cfg.layer_norm_eps, dtype=dtype)
         self.fc1 = Dense(cfg.hidden_size, cfg.intermediate_size, dtype=dtype)
         self.fc2 = Dense(cfg.intermediate_size, cfg.hidden_size, dtype=dtype)
         self.act = get_activation(cfg.hidden_act)
 
-    def forward(self, x, extra_kv=None, extra_kv_bias=None):
-        h, _ = self.attn(self.ln1(x), extra_kv=extra_kv, extra_kv_bias=extra_kv_bias)
+    def forward(self, x, extra_kv=None, extra_kv_bias=None,
+                rng: Optional[DropoutRNG] = None):
+        h, _ = self.attn(self.ln1(x), extra_kv=extra_kv, extra_kv_bias=extra_kv_bias,
+                         rng=rng)
         x = x + h
         return x + self.fc2(self.act(self.fc1(self.ln2(x))))
 
@@ -201,7 +217,9 @@ class BertLayer(nn.Module):
         self.adaptive_w0 = nn.Parameter(torch.empty(1))
         self.adaptive_w1 = nn.Parameter(torch.empty(1))
         self.attn = AttentionCore(cfg.hidden_size, cfg.num_heads, cfg.head_dim,
-                                  dtype=dtype, fused=fused)
+                                  dtype=dtype, fused=fused,
+                                  dropout_rate=cfg.attention_dropout)
+        self.hidden_dropout = cfg.hidden_dropout
         self.attn_ln = LayerNorm(cfg.hidden_size, cfg.layer_norm_eps, dtype=dtype)
         self.intermediate = Dense(cfg.hidden_size, cfg.intermediate_size, dtype=dtype)
         if has_fusion:
@@ -213,14 +231,18 @@ class BertLayer(nn.Module):
         self.act = get_activation(cfg.hidden_act, gelu_impl)
 
     def forward(self, x, attn_bias, boundary=None, vision_hidden=None,
-                output_kv=False):
+                output_kv=False, rng: Optional[DropoutRNG] = None):
         analogy = None
         if boundary is not None:
             # UniMo geometry: rows from 0, full text coords
             # (modeling_unimo.py:342-349)
             analogy = (boundary, self.adaptive_w0, self.adaptive_w1, 0, None, 0)
         out, kv, raw_ctx = self.attn(x, attention_bias=attn_bias, analogy=analogy,
-                                     output_kv=output_kv, output_context=True)
+                                     output_kv=output_kv, output_context=True,
+                                     rng=rng)
+        drop = rng is not None and self.hidden_dropout > 0.0
+        if drop:
+            out = dropout(out, self.hidden_dropout, rng.device)
         attn_out = self.attn_ln(out + x)
         h = self.intermediate(attn_out)
         if vision_hidden is not None:
@@ -228,6 +250,8 @@ class BertLayer(nn.Module):
             # (modeling_unimo.py:367-373)
             h = h + self.fusion_dense(self.fusion(raw_ctx, vision_hidden))
         h = self.output(self.act(h))
+        if drop:
+            h = dropout(h, self.hidden_dropout, rng.device)
         return self.out_ln(h + attn_out), kv
 
 
@@ -247,7 +271,8 @@ class UnimoEncoder(nn.Module):
                 cfg.text, dtype, cfg.fused_attention,
                 has_fusion=idx >= cfg.fusion_start, gelu_impl=cfg.gelu_impl))
 
-    def forward(self, vision_embeds, text_embeds, attn_bias, boundary=None):
+    def forward(self, vision_embeds, text_embeds, attn_bias, boundary=None,
+                rng: Optional[DropoutRNG] = None):
         cfg = self.cfg
         vision_h, text_h = vision_embeds, text_embeds
         prev_text_kv: Optional[Tuple] = None
@@ -256,11 +281,12 @@ class UnimoEncoder(nn.Module):
             # text layer's K/V (exported from idx >= fusion_start - 1).
             extra_kv = prev_text_kv if idx >= cfg.fusion_start else None
             vision_h = getattr(self, f"vision_{idx}")(
-                vision_h, extra_kv, attn_bias if extra_kv is not None else None)
+                vision_h, extra_kv, attn_bias if extra_kv is not None else None,
+                rng=rng)
             vision_for_text = vision_h if idx >= cfg.fusion_start else None
             text_h, prev_text_kv = getattr(self, f"text_{idx}")(
                 text_h, attn_bias, boundary, vision_for_text,
-                output_kv=idx >= cfg.fusion_start - 1)
+                output_kv=idx >= cfg.fusion_start - 1, rng=rng)
         return text_h, vision_h
 
 
@@ -318,20 +344,29 @@ class UnimoForMaskedLM(nn.Module):
         self.mlm_bias.zero_()
 
     def encode(self, input_ids, attention_mask, token_type_ids, pixel_values,
-               boundary=None):
+               boundary=None, deterministic=True, rng: Optional[DropoutRNG] = None):
+        if deterministic:
+            rng = None
+        elif rng is None:
+            raise ValueError("a training forward (deterministic=False) needs a "
+                             "DropoutRNG")
         vis = self.vision_pre_ln(self.vision_embeddings(pixel_values))
-        txt = self.text_embeddings(input_ids, token_type_ids, self.word_embeddings)
+        txt = self.text_embeddings(input_ids, token_type_ids, self.word_embeddings,
+                                   rng=rng)
         bias = attention_bias(attention_mask, dtype=torch.float32)
-        text_h, _ = self.encoder(vis, txt, bias, boundary=boundary)
+        text_h, _ = self.encoder(vis, txt, bias, boundary=boundary, rng=rng)
         return text_h
 
     def forward(self, input_ids, attention_mask, token_type_ids, pixel_values,
-                positions, boundary=None, visual_attention_mask=None):
+                positions, boundary=None, visual_attention_mask=None,
+                deterministic=True, rng: Optional[DropoutRNG] = None):
         """Transformed hidden states at ``positions`` (B, P, H); feed slices
         of them to :meth:`logits`. ``visual_attention_mask`` is unused: UniMo
-        consumes raw pixels."""
+        consumes raw pixels. ``deterministic=False`` is a training forward,
+        with dropout drawn from ``rng``."""
         seq = self.encode(input_ids, attention_mask, token_type_ids,
-                          pixel_values, boundary=boundary)
+                          pixel_values, boundary=boundary,
+                          deterministic=deterministic, rng=rng)
         return self.mlm_transform(gather_positions(seq, positions))
 
     def logits(self, trans_hidden, vocab_ids=None, vocab_start=None, vocab_end=None):

@@ -1,18 +1,26 @@
-"""MarT trainer, evaluation half (``mkg_analogy_tpu/train/trainer.py``).
+"""MarT trainer (``mkg_analogy_tpu/train/trainer.py``), fine-tuning and
+evaluation, on one device.
 
-Evaluation ranks the masked-entity logits over the 2,063 analogy entities
-with the stable-sort rank of ops/ranking.py and reports Hits@k / MR / MRR,
-tie statistics and per-mode metrics under the reference's metric names
-(lit_models/transformer.py:129-166). Batches run on the trainer's device;
-ranks stay there until one transfer at the end of the split.
+- fine-tune loss = label-smoothed CE over the 2,063 analogy-entity logits
+                   + alpha * relaxation loss (transformer.py:92-109);
+- eval           = ranks -> Hits@k / MR / MRR, tie statistics and per-mode
+                   metrics under the reference's metric names
+                   (transformer.py:129-166); ranks stay on the device until
+                   one transfer at the end of the split;
+- early stopping on Eval_entity/mrr (patience 5) and best-checkpoint on
+  Eval_entity/hits10 (main.py:141-148).
 
-Training (losses, AdamW, checkpoints, the attention backward kernel) is the
-next slice of the port; ``fit`` says so.
+Each training step draws its dropout from generators seeded by (seed,
+step), as the JAX step folds the step into its key, so a step's masks do
+not depend on what ran before it. The pre-train formats (``triple``,
+``analogy``, ``mixed``) are a later slice of the port.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
+import time
 from dataclasses import dataclass
 from typing import Dict, Optional
 
@@ -20,13 +28,46 @@ import numpy as np
 import torch
 
 from ..data.batching import BatchIterator
+from ..models.common import DropoutRNG
+from ..ops.losses import label_smoothing_cross_entropy, relaxation_loss
 from ..ops.ranking import rank_metrics, ranks_from_scores, tie_counts
 from ..utils.logging import MetricLogger
+from ..utils.profiling import StepTimer, trace
+from .optim import global_norm, make_optimizer
 
 
 @dataclass
 class TrainConfig:
+    lr: float = 5e-5
+    max_epochs: int = 15
+    batch_size: int = 32
     eval_batch_size: int = 128
+    alpha: float = 0.43
+    label_smoothing: float = 0.1
+    warmup_ratio: float = 0.1
+    weight_decay: float = 0.01
+    grad_accum_steps: int = 1
+    seed: int = 7
+    patience: int = 5
+    check_val_every_n_epoch: int = 1
+    log_every: int = 50
+    max_grad_norm: Optional[float] = None
+    # pl parity: no grad-norm metric unless asked (--track_grad_norm)
+    track_grad_norm: bool = False
+    profile_dir: Optional[str] = None  # torch.profiler trace of steps 5..10
+    # pl parity: float in (0,1] = epoch fraction; int = exact batch count
+    limit_train_batches: Optional[float] = None
+    fused_adamw: bool = False
+
+
+def step_seed(seed: int, step: int) -> int:
+    """A 63-bit seed for (seed, step), as ``jax.random.fold_in`` derives a
+    key: a splitmix64 finaliser of the pair, so neighbouring steps get
+    unrelated streams."""
+    x = (seed * 0x9E3779B97F4A7C15 + step + 1) & 0xFFFFFFFFFFFFFFFF
+    x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) & 0xFFFFFFFFFFFFFFFF
+    x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) & 0xFFFFFFFFFFFFFFFF
+    return (x ^ (x >> 31)) >> 1
 
 
 def finetune_positions(batch: Dict[str, torch.Tensor]) -> torch.Tensor:
@@ -98,6 +139,7 @@ class MarTTrainer:
         return feats, None
 
     def _model_inputs(self, batch, image_table=None):
+        """The model's keyword inputs for a fine-tune batch."""
         if image_table is not None:
             pixel_values, vam = self._gather_images(batch, image_table)
         else:
@@ -118,6 +160,33 @@ class MarTTrainer:
     def _answer_logits(self, trans_cls):
         """Masked-entity decoder slice: the 2,063 analogy entities."""
         return self.model.logits(trans_cls, vocab_ids=self.analogy_entity_ids)
+
+    # ---------------------------------------------------------------- losses
+    def _finetune_loss(self, batch, rng: DropoutRNG, image_table=None):
+        """Label-smoothed CE over the analogy entities + alpha * relaxation
+        over the gathered [mask, rel_ex, rel_q, q_head, a_head] states."""
+        cfg = self.config
+        inputs = self._model_inputs(batch, image_table=image_table)
+        trans = self.model(**inputs, deterministic=False, rng=rng)
+        logits = self._answer_logits(trans[:, 0])
+        ce = label_smoothing_cross_entropy(logits, batch["label"], cfg.label_smoothing)
+        sim = relaxation_loss(trans[:, 3], trans[:, 4], trans[:, 1], trans[:, 2])
+        loss = ce + cfg.alpha * sim
+        return loss, {"loss": loss, "ce": ce, "sim": sim}
+
+    def _train_step(self, optimizer, batch, step: int, image_table=None):
+        """One micro-batch: forward and backward with the dropout of (seed,
+        step), then ``optimizer.step()``. Returns the metrics as device
+        tensors (no sync)."""
+        cfg = self.config
+        rng = DropoutRNG.from_seed(step_seed(cfg.seed, step), self.device)
+        loss, metrics = self._finetune_loss(batch, rng, image_table=image_table)
+        loss.backward()
+        if cfg.track_grad_norm:
+            metrics["grad_norm"] = global_norm(
+                [p.grad for p in self.model.parameters() if p.grad is not None])
+        optimizer.step()
+        return {k: v.detach() for k, v in metrics.items()}
 
     def _eval_step(self, batch, image_table=None):
         inputs = self._model_inputs(batch, image_table=image_table)
@@ -180,9 +249,98 @@ class MarTTrainer:
                      **({"mode": modes} if modes is not None else {}))
         return metrics
 
-    def fit(self, *args, **kwargs):
-        raise NotImplementedError(
-            "training is not ported to PyTorch yet: the losses, AdamW, "
-            "checkpoints and the fused-attention backward kernel are the "
-            "next slice of the port (ROADMAP.md); run with --only_test"
-        )
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def fit(self, train_features, dev_features, attach=None, checkpointer=None,
+            eval_attach=None, init_params_fn=None):
+        """Fine-tune the model in place from its current parameters
+        (``init_params_fn``: state dict -> state dict, applied first, for a
+        transfer from a checkpoint). Returns (the number of steps taken, the
+        dev metrics of the best-Hits@10 evaluation)."""
+        cfg = self.config
+        train_it = BatchIterator(train_features, cfg.batch_size, shuffle=True,
+                                 seed=cfg.seed, attach=attach)
+        steps_per_epoch = len(train_it)
+        limit_batches = cfg.limit_train_batches
+        if limit_batches and isinstance(limit_batches, float) and limit_batches <= 1.0:
+            # only FLOATS in (0, 1] are fractions; an int 1 means exactly one
+            # batch (pl.Trainer semantics, base.py:79-82)
+            limit_batches = max(1, int(steps_per_epoch * limit_batches))
+        limit_batches = int(limit_batches) if limit_batches else None
+        if limit_batches:
+            steps_per_epoch = min(steps_per_epoch, limit_batches)
+        total_steps = steps_per_epoch * cfg.max_epochs
+        if init_params_fn is not None:
+            # pretrain->finetune transfer (main.py:133-134 strict=False parity)
+            self.model.load_state_dict(init_params_fn(self.model.state_dict()))
+        optimizer = make_optimizer(
+            self.model, cfg.lr, total_steps, cfg.warmup_ratio, cfg.weight_decay,
+            grad_accum_steps=cfg.grad_accum_steps, max_grad_norm=cfg.max_grad_norm,
+            fused=cfg.fused_adamw)
+        optimizer.zero_grad()
+
+        best_mrr, best_hits10, since_best = -1.0, -1.0, 0
+        best_metrics: Dict[str, float] = {}
+        global_step = 0
+        timer = StepTimer()
+        with contextlib.ExitStack() as profile:  # the trace of steps 5..10
+            for epoch in range(cfg.max_epochs):
+                t_epoch = time.time()
+                n_examples = 0
+                metrics = {}
+                for epoch_steps, batch in enumerate(train_it):
+                    if limit_batches and epoch_steps >= limit_batches:
+                        break
+                    if global_step == 0 and hasattr(self.vocab, "decode"):
+                        # decoded-sample print at batch 0 (transformer.py:111)
+                        for row in batch["input_ids"][:2]:
+                            print(self.vocab.decode(row[row != 0][:48]))
+                    if cfg.profile_dir and global_step == 5:
+                        profile.enter_context(trace(cfg.profile_dir))
+                    batch.pop("valid")
+                    dbatch = self._put_batch(batch)
+                    timer.start()
+                    metrics = self._train_step(optimizer, dbatch, global_step,
+                                               self.image_table)
+                    timer.stop()
+                    global_step += 1
+                    n_examples += cfg.batch_size
+                    if global_step == 1:
+                        # the first step's one-off costs (kernel builds, cuBLAS
+                        # set-up) stay out of the epoch-0 throughput
+                        self._sync()
+                        t_epoch = time.time()
+                        n_examples = 0
+                    if global_step == 10:
+                        profile.close()
+                    if global_step % cfg.log_every == 0:
+                        self.logger.log(global_step, {k: float(v) for k, v in metrics.items()},
+                                        prefix="train/")
+                self._sync()
+                dt = time.time() - t_epoch
+                epoch_stats = {"epoch": epoch, "examples_per_sec": n_examples / max(dt, 1e-9)}
+                epoch_stats.update(timer.stats())
+                # the epoch's last step, so a run's losses can be compared
+                epoch_stats.update({f"last_{k}": float(v) for k, v in metrics.items()})
+                self.logger.log(global_step, epoch_stats, prefix="train/")
+                if (epoch + 1) % cfg.check_val_every_n_epoch == 0:
+                    eval_metrics = self.evaluate(dev_features, attach=eval_attach or attach)
+                    self.logger.log(global_step, eval_metrics)
+                    mrr = eval_metrics.get("Eval_entity/mrr", 0.0)
+                    hits10 = eval_metrics.get("Eval_entity/hits10", 0.0)
+                    if hits10 > best_hits10:
+                        best_hits10 = hits10
+                        best_metrics = eval_metrics
+                        if checkpointer is not None:
+                            checkpointer.save(global_step, self.model.state_dict(),
+                                              metrics=eval_metrics)
+                    if mrr > best_mrr:
+                        best_mrr, since_best = mrr, 0
+                    else:
+                        since_best += 1
+                        if since_best >= cfg.patience:
+                            self.logger.log(global_step, {"early_stop": 1.0})
+                            break
+        return global_step, best_metrics

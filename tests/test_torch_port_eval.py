@@ -124,17 +124,16 @@ def test_cli_cuda_without_gpu_raises(dataset, tmp_path):
 
 
 @pytest.mark.parametrize("extra", [
-    ["--checkpoint", "ckpt"], ["--fused_attention", "flash"], ["--pretrain", "1"],
-    ["--dp", "2"], "train",
+    ["--export_torch", "model.pt"], ["--fused_attention", "flash"], ["--pretrain", "1"],
+    ["--dp", "2"], ["--qk_bf16_grad", "1", "--fused_attention", "0"],
 ])
 def test_cli_refuses_what_later_slices_bring(dataset, tmp_path, extra):
-    flags = cli_flags(dataset, tmp_path) + ["--device", "cpu"]
-    if extra == "train":
-        flags.remove("--only_test")
-    else:
-        flags += extra
-    with pytest.raises(NotImplementedError):
-        port_cli.main(flags)
+    """Training and --checkpoint are ported (tests/test_torch_port_train.py);
+    these raise, with or without --only_test."""
+    for flags in (cli_flags(dataset, tmp_path),
+                  [f for f in cli_flags(dataset, tmp_path) if f != "--only_test"]):
+        with pytest.raises(NotImplementedError):
+            port_cli.main(flags + ["--device", "cpu"] + extra)
 
 
 @pytest.mark.parametrize("name", ["VisualBertKGC", "ViltKGC", "FlavaKGC", "VilBertKGC"])
