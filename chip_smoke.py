@@ -41,12 +41,35 @@ exits non-zero:
                 through the kernel: finite metrics, 24 launches per eval
                 batch; then in fp32 through the kernel and through the plain
                 attention (``--fused_attention 0``): identical ranks;
-8. cli_train  — the main path of this slice: the CLI fine-tune
+8. cli_train  — the main path of the fine-tune slice: the CLI fine-tune
                 (``--max_epochs 1 --batch_size 32``, bf16, through the
                 kernels) with dev and test evaluation and the best-dev
                 checkpoint, launches counted from 0; then ``--only_test
                 --checkpoint`` on that checkpoint reproduces the fit's test
-                ranks exactly.
+                ranks exactly;
+9. flash_kernel — the three flash kernels (forward, dK/dV, dQ) against
+                their plain versions at the triple pre-train shapes (B=64:
+                text 96x96, vision 99x99, vision-text 99x195), the analogy
+                ones (128x128 with the geometry, 99x227), two Q tiles
+                (512x512, B=8), two K tiles with a ragged second (99x611,
+                B=8) and L=2048 (B=8, 8 x 4 tiles), fp32 and bf16, dropout 0
+                and 0.1; the times of each kernel, the plain versions and
+                SDPA (where no analogy multiplier applies), and the bounds;
+10. pretrain  — the full-width triple pre-train step (B=64, L=96) through
+                the flash kernels: fp32 against the plain attention (loss
+                within 1e-5 relative, every gradient leaf within its bound),
+                then 8 bf16 steps on one batch: the loss falls, 24 + 24 + 24
+                launches a step, step time and a device profile;
+11. long      — a full-width bf16 fine-tune step at B=8, L=512 through the
+                flash kernels (multi-tile and ragged shapes inside the
+                model), and a forward at L=512 on the plain route that takes
+                the flash forward in the 12 text layers only (the
+                auto-route);
+12. cli_pretrain — the main path of this slice: ``--pretrain 1
+                --fused_attention flash`` through the CLI for the triple,
+                analogy and mixed formats (3 steps each, dev and test), the
+                counts set to 0 before the three runs and read after them;
+                then a fine-tune from the triple run's checkpoint.
 
 Then the ``{"kernels": [...]}`` line, the card line, and the last line
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -348,7 +371,6 @@ def model_phase(device):
     import torch
 
     from mkg_analogy_tpu_torch.kernels import attention as attn
-    from mkg_analogy_tpu_torch.models.common import AttentionCore
     from mkg_analogy_tpu_torch.models.unimo import UnimoConfig, UnimoForMaskedLM
 
     b, length = 32, 128
@@ -376,9 +398,7 @@ def model_phase(device):
             model.load_state_dict(state)
         results = {}
         for fused in (True, False):
-            for m in model.modules():
-                if isinstance(m, AttentionCore):
-                    m.fused = fused
+            set_backend(model, "single" if fused else "plain")
             with torch.inference_mode():
                 before = attn.LAUNCHES
                 logits = model.logits(model(**batch)[:, 0], vocab_ids=vocab_ids)
@@ -456,7 +476,7 @@ def train_phase(device):
     import torch
 
     from mkg_analogy_tpu_torch.kernels import attention as attn
-    from mkg_analogy_tpu_torch.models.common import AttentionCore, DropoutRNG
+    from mkg_analogy_tpu_torch.models.common import DropoutRNG
     from mkg_analogy_tpu_torch.models.unimo import UnimoConfig, UnimoForMaskedLM
     from mkg_analogy_tpu_torch.train.optim import make_optimizer
     from mkg_analogy_tpu_torch.train.trainer import MarTTrainer, TrainConfig
@@ -471,9 +491,7 @@ def train_phase(device):
     runs = {}
     for fused in (True, False):
         model.load_state_dict(state)
-        for m in model.modules():
-            if isinstance(m, AttentionCore):
-                m.fused = fused
+        set_backend(model, "single" if fused else "plain")
         model.zero_grad(set_to_none=True)
         attn.LAUNCHES = attn.LAUNCHES_BWD = 0
         loss, _ = trainer._finetune_loss(batch, DropoutRNG.from_seed(5, device))
@@ -700,6 +718,562 @@ def cli_train_phase():
     return launches
 
 
+# The flash kernels' shapes: (name, B, Lq, Lk, mask kind, analogy geometry,
+# launches per triple pre-train step). The triple pre-train step (B=64,
+# L=96) runs 12 text, 8 vision and 4 vision-over-text calls; the analogy
+# pre-train shapes (B=64, L=128; its vision shape is the one above); two Q
+# tiles (512 x 512) and two K tiles, the second ragged (99 x 611), at B=8;
+# attention alone at L=2048 (8 Q tiles x 4 K tiles).
+FLASH_SHAPES = [
+    ("triple_text", 64, 96, 96, "text", False, 12),
+    ("vision", 64, 99, 99, "vision", False, 8),
+    ("triple_vision_text", 64, 99, 195, "vision_text", False, 4),
+    ("analogy_text", 64, 128, 128, "text", True, 0),
+    ("analogy_vision_text", 64, 99, 227, "vision_text", False, 0),
+    ("long_text", 8, 512, 512, "text", True, 0),
+    ("long_vision_text", 8, 99, 611, "vision_text", False, 0),
+    ("attention_2048", 8, 2048, 2048, "text", False, 0),
+]
+PRETRAIN_BATCH, PRETRAIN_LEN = 64, 96  # scripts/run_pretrain_mkgformer.sh
+
+
+def flash_inputs(b, lq, lk, kind, geometry, dtype, device, seed):
+    """q, k, v, a cotangent, the (B, Lk) mask and the geometry arguments:
+    text keys padded to a random length, vision keys unpadded, vision over
+    [text K/V ; vision] with the text part padded."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    hd = HEADS * HEAD_DIM
+    q, k, v, go = (torch.randn(b, n, hd, generator=g).to(device, dtype)
+                   for n in (lq, lk, lk, lq))
+    if kind == "vision":
+        mask = torch.ones(b, lk)
+    else:
+        n_text = lk if kind == "text" else lk - lq
+        lens = torch.randint(int(0.4 * n_text), n_text + 1, (b,), generator=g)
+        mask = (torch.arange(n_text)[None] < lens[:, None]).float()
+        if kind == "vision_text":
+            mask = torch.cat([mask, torch.ones(b, lq)], dim=1)
+    kw = {}
+    if geometry:
+        kw = dict(boundary=(lens // 2).to(device, torch.int32),
+                  w0=torch.tensor([0.3], device=device), w1=torch.tensor([0.7], device=device))
+    return q, k, v, go, mask.to(device), kw
+
+
+def flash_bound_times(kernel, b, lq, lk, dtype_bytes):
+    """(ms for the bytes, ms for the operations) of one call of a flash
+    kernel: each input read once and each output written once over the HBM
+    rate (q, k, v and the (B, heads, Lq) fp32 lse out for the forward; q, k,
+    v, g, lse and delta in and dk, dv or dq out for the backward kernels;
+    the fp32 mask and the int32 boundary), and the products it does, each
+    2·B·heads·Lq·Lk·64 flops (forward QKᵀ and PV: 2; dK/dV QKᵀ, dV, dP and
+    dK: 4; dQ QKᵀ, dP and dQ: 3) over the bf16 tensor-core peak."""
+    hd = HEADS * HEAD_DIM
+    stat = b * HEADS * lq * 4
+    small = b * lk * 4 + b * 4
+    tensors, stats, products = {"fwd": ((2 * lq + 2 * lk), 1, 2),
+                                "dkv": ((2 * lq + 4 * lk), 2, 4),
+                                "dq": ((3 * lq + 2 * lk), 2, 3)}[kernel]
+    nbytes = b * tensors * hd * dtype_bytes + stats * stat + small
+    flops = products * 2 * b * HEADS * lq * lk * HEAD_DIM
+    return nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS_PER_S * 1e3
+
+
+def flash_dw_scales(fa, q, k, v, mask, go, lse, delta, bnd, w, geo, rate, seed):
+    """sum |dS · S_raw| over each analogy region, walking the logical tiles
+    as the plain backward does: the scale of the dw0/dw1 sums."""
+    import torch
+
+    tiles = fa._Tiles(q.float(), k.float(), mask, HEADS, bnd, w, geo, rate, seed,
+                      fa.BLOCK_Q, fa.BLOCK_K)
+    qh, kh, vh, gh = (fa._split_heads(x, HEADS, torch.float32) for x in (q, k, v, go))
+    scales = [0.0, 0.0]
+    for qb in range(tiles.n_qblk):
+        r0, r1 = tiles.rows(qb, q.shape[1])
+        for kb in range(tiles.n_kblk):
+            s_raw, planes, s = tiles.scores(qh[:, :, r0:r1], tiles.keys(kh, kb), qb, kb, r0, r1)
+            p = torch.exp(s - lse[:, :, r0:r1, None])
+            dp = torch.matmul(gh[:, :, r0:r1], tiles.keys(vh, kb).transpose(-1, -2))
+            keep = tiles.keep(qb, kb, r0, r1, q.device)
+            if keep is not None:
+                dp = torch.where(keep, dp / (1.0 - rate), 0.0)
+            terms = (p * (dp - delta[:, :, r0:r1, None]) * s_raw).abs()
+            scales[0] += (terms * planes[1]).sum().item()
+            scales[1] += (terms * planes[2]).sum().item()
+    return scales
+
+
+def flash_kernel_phase(device):
+    """The three flash kernels against their plain versions at every shape
+    of FLASH_SHAPES, in fp32 (TF32 off) and bf16, dropout 0 and 0.1 (the
+    same seed, so the masks must agree). Bars: forward 2e-5 fp32 / 2e-2
+    bf16 absolute (the forward bars of the single-block kernel), lse 1e-5;
+    backward, from the kernel forward's out and lse, 2e-5 fp32 / 2^-7 bf16
+    of each result's largest |value| (a term rounded at a cast point can
+    land one bf16 ulp apart), dw within 1e-5 of its sum of |terms|. Then
+    the times in bf16 (dropout 0.1 on text keys as the text tower trains):
+    each kernel, the plain forward and the plain backward (one walk computes
+    dq, dk and dv, so both backward kernels' rows carry its time), SDPA's
+    forward and backward (forward-and-backward minus forward) where no
+    analogy multiplier applies, and the bounds."""
+    import torch
+    import torch.nn.functional as F
+
+    from mkg_analogy_tpu_torch.kernels import flash_attention as fa
+
+    rows = []
+    for name, b, lq, lk, kind, geometry, per_step in FLASH_SHAPES:
+        row = dict(shape=name, B=b, Lq=lq, Lk=lk, heads=HEADS, head_dim=HEAD_DIM,
+                   geometry=geometry, launches_per_triple_step=per_step,
+                   tiles=list(fa._blocks(lq, lk, fa.BLOCK_Q, fa.BLOCK_K)))
+        for tag, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+            for rate in (0.0, 0.1):
+                key = f"{tag}{'_dropout' if rate else ''}"
+                q, k, v, go, mask, kw = flash_inputs(b, lq, lk, kind, geometry, dtype,
+                                                     device, seed=lq + lk)
+                kw = dict(kw, compute_dtype=dtype, dropout_rate=rate,
+                          deterministic=rate == 0.0, dropout_seed=4321)
+                args = (HEADS, *fa._resolve(q, kw.get("boundary"), kw.get("w0"),
+                                            kw.get("w1"), None, 0, 0, rate, rate == 0.0,
+                                            4321), fa.BLOCK_Q, fa.BLOCK_K)
+                out, lse = fa._launch_fwd(q, k, v, mask, *args)
+                delta = fa._delta(go, out, HEADS)
+                got = fa._launch_bwd(q, k, v, mask, go, lse, delta, *args)
+                want_out, want_lse = fa._plain_fwd(q, k, v, mask, *args[:6], dtype,
+                                                   *args[6:])
+                want = fa.flash_attention_bwd_reference(q, k, v, mask, go, HEADS, out=out,
+                                                        lse=lse, **kw)
+                torch.cuda.synchronize()
+                err = (out.float() - want_out.float()).abs().max().item()
+                lse_err = (lse - want_lse).abs().max().item()
+                row[f"fwd_max_abs_err_{key}"] = err
+                row[f"lse_max_abs_err_{key}"] = lse_err
+                bar = 2e-5 if dtype == torch.float32 else 2e-2
+                if not (err <= bar and lse_err <= 1e-5):
+                    raise AssertionError(f"flash fwd {name} {key}: out {err} > {bar} "
+                                         f"or lse {lse_err} > 1e-5")
+                bar = 2e-5 if dtype == torch.float32 else 2.0 ** -7
+                for t_name, a, c in zip(("dq", "dk", "dv"), got[:3], want[:3]):
+                    err = (a.float() - c.float()).abs().max().item()
+                    top = c.float().abs().max().item()
+                    row[f"max_abs_err_{t_name}_{key}"] = err
+                    if not err <= bar * top:
+                        raise AssertionError(f"flash bwd {name} {key} {t_name}: {err} > "
+                                             f"{bar} * {top}")
+                if geometry:
+                    scales = flash_dw_scales(fa, q, k, v, mask, go, lse, delta, *args[1:6])
+                    for i in range(2):
+                        err = abs(got[3][i].item() - want[3][i].item())
+                        row[f"dw{i}_err_{key}"] = err
+                        if not err <= 1e-5 * scales[i]:
+                            raise AssertionError(f"flash bwd {name} {key} dw{i}: {err} > "
+                                                 f"1e-5 * {scales[i]}")
+                elif got[3].abs().max().item() != 0.0:
+                    raise AssertionError(f"flash bwd {name}: dw without a geometry")
+                del q, k, v, go, out, lse, delta, got, want, want_out
+        # timing in the main path's dtype
+        rate = 0.1 if kind == "text" else 0.0
+        q, k, v, go, mask, kw = flash_inputs(b, lq, lk, kind, geometry, torch.bfloat16,
+                                             device, seed=7)
+        kw = dict(kw, compute_dtype=torch.bfloat16, dropout_rate=rate,
+                  deterministic=rate == 0.0, dropout_seed=99)
+        args = (HEADS, *fa._resolve(q, kw.get("boundary"), kw.get("w0"), kw.get("w1"), None,
+                                    0, 0, rate, rate == 0.0, 99), fa.BLOCK_Q, fa.BLOCK_K)
+        out, lse = fa._launch_fwd(q, k, v, mask, *args)
+        delta = fa._delta(go, out, HEADS)
+        n = dict(samples=7, per_sample=3) if lq >= 2048 else {}
+        row["fwd_ms"] = time_ms(lambda: fa._launch_fwd(q, k, v, mask, *args), **n)
+        row["dkv_ms"] = time_ms(lambda: fa._launch_bwd_dkv(q, k, v, mask, go, lse, delta,
+                                                           *args), **n)
+        row["dq_ms"] = time_ms(lambda: fa._launch_bwd_dq(q, k, v, mask, go, lse, delta,
+                                                         *args), **n)
+        row["plain_fwd_ms"] = time_ms(
+            lambda: fa.flash_attention_reference(q, k, v, mask, HEADS, **kw), **n)
+        row["plain_bwd_ms"] = time_ms(lambda: fa.flash_attention_bwd_reference(
+            q, k, v, mask, go, HEADS, out=out, lse=lse, **kw), **n)
+        row["library_fwd_ms"] = row["library_bwd_ms"] = None
+        if geometry:
+            row["library_note"] = "no single PyTorch call applies the analogy multiplier"
+        else:
+            def heads(x):
+                return x.view(b, x.shape[1], HEADS, HEAD_DIM).transpose(1, 2)
+
+            qh, kh, vh = (heads(x).detach().requires_grad_(True) for x in (q, k, v))
+            gh = heads(go)
+            bias = None
+            if kind != "vision":
+                bias = ((1.0 - mask) * -10000.0).to(torch.bfloat16)[:, None, None, :]
+
+            def sdpa():
+                return F.scaled_dot_product_attention(qh, kh, vh, attn_mask=bias,
+                                                      dropout_p=0.0)
+
+            def sdpa_fwd_bwd():
+                torch.autograd.grad(sdpa(), (qh, kh, vh), gh)
+
+            row["library_fwd_ms"] = time_ms(sdpa, **n)
+            row["library_bwd_ms"] = time_ms(sdpa_fwd_bwd, **n) - row["library_fwd_ms"]
+            row["library_note"] = ("SDPA without dropout" + (" with the padding mask as a "
+                                   "bias" if bias is not None else ""))
+        for kernel in ("fwd", "dkv", "dq"):
+            t_bytes, t_ops = flash_bound_times(kernel, b, lq, lk, 2)
+            row[f"{kernel}_bytes_ms"], row[f"{kernel}_operations_ms"] = t_bytes, t_ops
+            row[f"{kernel}_bound_ms"] = max(t_bytes, t_ops)
+            row[f"{kernel}_bound_by"] = bound_by(t_bytes, t_ops)
+        rows.append(row)
+        emit(dict(phase="flash_kernel", **row))
+        del q, k, v, go, out, lse, delta
+        torch.cuda.empty_cache()
+    return rows
+
+
+class _PretrainVocab:
+    """What MarTTrainer reads of a KGVocab for a triple pre-train step: the
+    MarKG id ranges (a 30,522-token wordpiece base, 11,292 entities, 192
+    relations; SURVEY.md)."""
+    entity_id_st, entity_id_ed = 30522, 30522 + 11292
+    relation_id_st, relation_id_ed = 30522 + 11292, 30522 + 11292 + 192
+    analogy_entity_ids = list(range(entity_id_st, entity_id_st + 2063))
+
+
+def pretrain_batch(device, b=PRETRAIN_BATCH, length=PRETRAIN_LEN, seed=2):
+    """A full-width triple pre-train batch in the feature layout of
+    data/prompt.py: padded prompts, the mask position, pre_type 1 (link
+    prediction, an entity label) or 2 (relation prediction, a relation
+    label), two 224-px images per example."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    lens = torch.randint(16, length + 1, (b,), generator=g)
+    pre_type = torch.randint(1, 3, (b,), generator=g)
+    label = torch.where(pre_type == 2, torch.randint(0, 192, (b,), generator=g),
+                        torch.randint(0, 11292, (b,), generator=g))
+    batch = dict(
+        input_ids=torch.randint(0, 42112, (b, length), generator=g),
+        attention_mask=(torch.arange(length)[None] < lens[:, None]).int(),
+        token_type_ids=torch.zeros(b, length, dtype=torch.int32),
+        pixel_values=torch.randn(b, 2, 3, 224, 224, generator=g),
+        mask_idx=torch.randint(1, 16, (b,), generator=g), pre_type=pre_type.int(),
+        label=label.int(),
+    )
+    return {k: v.to(device) for k, v in batch.items()}
+
+
+def flash_counts():
+    from mkg_analogy_tpu_torch.kernels import flash_attention as fa
+
+    return dict(fwd=fa.LAUNCHES_FLASH, dkv=fa.LAUNCHES_FLASH_DKV, dq=fa.LAUNCHES_FLASH_DQ)
+
+
+def reset_counts():
+    from mkg_analogy_tpu_torch.kernels import attention as attn
+    from mkg_analogy_tpu_torch.kernels import flash_attention as fa
+
+    attn.LAUNCHES = attn.LAUNCHES_BWD = 0
+    fa.LAUNCHES_FLASH = fa.LAUNCHES_FLASH_DKV = fa.LAUNCHES_FLASH_DQ = 0
+
+
+def set_backend(model, backend):
+    from mkg_analogy_tpu_torch.models.common import AttentionCore
+
+    for m in model.modules():
+        if isinstance(m, AttentionCore):
+            m.backend = backend
+
+
+def leaf_ratios(got, want):
+    """The largest of err / bar over the gradient leaves, and its leaf, for
+    the bar 1e-3 of the leaf's largest |gradient| plus 1e-6 of the model's
+    largest (PR 2's fine-tune-step bar); leaves without a gradient (the
+    adaptive scalars: the triple prompt has no analogy boundary) must lack
+    one on both sides."""
+    top = max(g.abs().max().item() for g in want.values() if g is not None)
+    worst, worst_name = 0.0, ""
+    for name, w in want.items():
+        if w is None or got[name] is None:
+            if (w is None) != (got[name] is None):
+                raise AssertionError(f"gradient of {name} on one side only")
+            continue
+        ratio = (got[name] - w).abs().max().item() / (1e-3 * w.abs().max().item() + 1e-6 * top)
+        if ratio > worst:
+            worst, worst_name = ratio, name
+    return worst, worst_name
+
+
+def pretrain_phase(device):
+    """The full-width triple pre-train step (B=64, L=96, entity + relation
+    CE over one decoder product, AdamW), dropout on. (1) fp32, from one
+    state dict, batch and seeds, through the flash kernels, through autograd
+    of the kernels' plain version (flash_attention_reference: the same
+    tiles, the same cast points) and through the plain attention of
+    --fused_attention 0 (the einsum path). Gates: the kernels' loss within
+    1e-5 relative of both; each gradient leaf within 1e-3 of that leaf's
+    largest |gradient| plus 1e-6 of the model's largest against the kernels'
+    plain version. Against the einsum path the leaves are reported, as is
+    the single-block kernel's ratio there: with random weights the network
+    amplifies last-bit differences of any attention formulation (BertFusion's
+    unscaled softmax), so that ratio measures the model, not the kernel.
+    (2) bf16 through the flash kernels, 8 steps on one batch: the loss finite
+    and falling, 24 forward, 24 dK/dV and 24 dQ launches a step, the median
+    step over steps 3-8, a device profile of one step."""
+    import torch
+
+    from mkg_analogy_tpu_torch.kernels import flash_attention as fa
+    from mkg_analogy_tpu_torch.models import common
+    from mkg_analogy_tpu_torch.models.common import DropoutRNG
+    from mkg_analogy_tpu_torch.models.unimo import UnimoConfig, UnimoForMaskedLM
+    from mkg_analogy_tpu_torch.train.optim import make_optimizer
+    from mkg_analogy_tpu_torch.train.trainer import MarTTrainer, TrainConfig
+
+    batch = pretrain_batch(device)
+    out = {}
+    with torch.device(device):
+        model = UnimoForMaskedLM(UnimoConfig(dtype="float32"))
+    model.init_params(torch.Generator(device=device).manual_seed(0))
+    state = {k: v.clone() for k, v in model.state_dict().items()}
+    trainer = MarTTrainer(model, _PretrainVocab(), TrainConfig(pretrain=True), device=device)
+    runs = {}
+    common.ATTENTION_BACKENDS["flash_plain"] = fa.flash_attention_reference
+    try:
+        for backend in ("flash", "flash_plain", "plain", "single"):
+            model.load_state_dict(state)
+            set_backend(model, backend)
+            model.zero_grad(set_to_none=True)
+            reset_counts()
+            loss, _ = trainer._pretrain_loss(batch, DropoutRNG.from_seed(5, device))
+            loss.backward()
+            torch.cuda.synchronize()
+            n = 24 if backend == "flash" else 0
+            if flash_counts() != dict(fwd=n, dkv=n, dq=n):
+                raise AssertionError(f"fp32 pre-train step {backend}: launches {flash_counts()}")
+            runs[backend] = (loss.item(), {k: None if p.grad is None else p.grad.clone()
+                                           for k, p in model.named_parameters()})
+    finally:
+        del common.ATTENTION_BACKENDS["flash_plain"]
+    lk = runs["flash"][0]
+    for ref in ("flash_plain", "plain"):
+        if not (math.isfinite(lk) and abs(lk - runs[ref][0]) <= 1e-5 * abs(runs[ref][0])):
+            raise AssertionError(f"fp32 pre-train loss: kernels {lk} vs {ref} {runs[ref][0]}")
+    worst, worst_name = leaf_ratios(runs["flash"][1], runs["flash_plain"][1])
+    if not worst <= 1.0:
+        raise AssertionError(f"fp32 pre-train grad {worst_name}: kernels vs their plain "
+                             f"version at {worst} of the bar")
+    vs_plain = leaf_ratios(runs["flash"][1], runs["plain"][1])
+    single_vs_plain = leaf_ratios(runs["single"][1], runs["plain"][1])
+    out["fp32"] = dict(
+        loss_kernels=lk, loss_kernels_plain_version=runs["flash_plain"][0],
+        loss_plain_attention=runs["plain"][0],
+        loss_rel_diff_plain_attention=abs(lk - runs["plain"][0]) / abs(runs["plain"][0]),
+        worst_err_over_bar_vs_plain_version=worst, worst_leaf=worst_name,
+        worst_err_over_bar_vs_plain_attention=vs_plain,
+        single_block_kernels_worst_err_over_bar_vs_plain_attention=single_vs_plain)
+    del runs, model, trainer
+    torch.cuda.empty_cache()
+
+    with torch.device(device):
+        model = UnimoForMaskedLM(UnimoConfig(dtype="bfloat16", attention="flash"))
+    model.load_state_dict(state)
+    trainer = MarTTrainer(model, _PretrainVocab(), TrainConfig(pretrain=True, seed=3),
+                          device=device)
+    opt = make_optimizer(model, 1e-4, 100, warmup_ratio=0.0)
+    losses, times, launches = [], [], []
+    torch.cuda.reset_peak_memory_stats()
+    for step in range(8):
+        reset_counts()
+        t0 = time.perf_counter()
+        metrics = trainer._train_step(opt, batch, step)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        launches.append(flash_counts())
+        losses.append(metrics["loss"].item())
+    if any(n != dict(fwd=24, dkv=24, dq=24) for n in launches):
+        raise AssertionError(f"bf16 pre-train steps: launches {launches}, expected 24 each")
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"bf16 pre-train loss did not fall: {losses}")
+    step_ms = statistics.median(times[2:])
+    out["bf16"] = dict(losses=losses, step_ms=times, median_step_ms=step_ms,
+                       examples_per_sec=PRETRAIN_BATCH / step_ms * 1e3,
+                       launches_per_step=launches[-1],
+                       peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+                       device_profile_step=device_profile(
+                           lambda: trainer._train_step(opt, batch, 8), top=15))
+    emit(dict(phase="pretrain", B=PRETRAIN_BATCH, L=PRETRAIN_LEN, format="triple", **out))
+    del model, trainer, opt
+    torch.cuda.empty_cache()
+    return out
+
+
+def long_phase(device):
+    """Two Q tiles and a ragged second K tile inside the model: a full-width
+    bf16 fine-tune step at B=8, L=512 through the flash kernels (text
+    512 x 512 with the analogy geometry, vision over [text K/V ; vision]
+    99 x 611), 24 + 24 + 24 launches a step, 3 steps; then a forward at
+    L=512 on the plain route (--fused_attention 0): the 12 text layers take
+    the flash forward (the auto-route from FLASH_AUTO_MIN_LEN), the 12
+    vision layers (99 queries) the plain attention, the single-block kernel
+    none."""
+    import torch
+
+    from mkg_analogy_tpu_torch.kernels import attention as attn
+    from mkg_analogy_tpu_torch.models.unimo import UnimoConfig, UnimoForMaskedLM
+    from mkg_analogy_tpu_torch.train.optim import make_optimizer
+    from mkg_analogy_tpu_torch.train.trainer import MarTTrainer, TrainConfig, finetune_positions
+
+    b, length = 8, 512
+    batch = train_batch(device, b=b, length=length, seed=4)
+    with torch.device(device):
+        model = UnimoForMaskedLM(UnimoConfig(dtype="bfloat16", attention="flash"))
+    model.init_params(torch.Generator(device=device).manual_seed(0))
+    trainer = MarTTrainer(model, _AnalogyVocab(), TrainConfig(seed=3), device=device)
+    opt = make_optimizer(model, 1e-4, 100, warmup_ratio=0.0)
+    losses, times = [], []
+    for step in range(3):
+        reset_counts()
+        t0 = time.perf_counter()
+        metrics = trainer._train_step(opt, batch, step)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(metrics["loss"].item())
+        if flash_counts() != dict(fwd=24, dkv=24, dq=24) or attn.LAUNCHES or attn.LAUNCHES_BWD:
+            raise AssertionError(f"L=512 step: flash {flash_counts()}, single "
+                                 f"{attn.LAUNCHES}/{attn.LAUNCHES_BWD}")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"L=512 step: losses {losses}")
+    set_backend(model, "plain")
+    reset_counts()
+    with torch.inference_mode():
+        trans = model(input_ids=batch["input_ids"], attention_mask=batch["attention_mask"],
+                      token_type_ids=batch["token_type_ids"],
+                      pixel_values=batch["pixel_values"], positions=finetune_positions(batch),
+                      boundary=batch["sep_idx"][:, 2])
+        torch.cuda.synchronize()
+    auto = dict(flash_counts(), single=attn.LAUNCHES)
+    if auto != dict(fwd=12, dkv=0, dq=0, single=0) or not torch.isfinite(trans).all():
+        raise AssertionError(f"L=512 plain-route forward: launches {auto}")
+    emit(dict(phase="long", B=b, L=length, dtype="bfloat16", losses=losses, step_ms=times,
+              launches_per_step=dict(fwd=24, dkv=24, dq=24),
+              plain_route_forward_launches=auto))
+    del model, trainer, opt
+    torch.cuda.empty_cache()
+
+
+def cli_pretrain_phase():
+    """The main path of this slice: ``--pretrain 1 --fused_attention flash``
+    through the CLI, bf16, on the dataset of write_dataset (400 triple-format
+    and ~400 pseudo-analogy examples), for each of triple (L=96), analogy
+    and mixed (L=128), at B=64 and 3 steps each (--limit_train_batches 3),
+    with the dev and test evaluation on the training features; the counts
+    set to 0 before each run and read after it. Then a fine-tune on MARS
+    from the triple run's checkpoint (--checkpoint), through the flash
+    kernels: 4 steps, dev and test."""
+    import numpy as np
+
+    from mkg_analogy_tpu_torch.cli import main as cli
+    from mkg_analogy_tpu_torch.kernels import attention as attn
+    from mkg_analogy_tpu_torch.train import checkpoint
+
+    runs = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_pretrain_", dir=".") as root:
+        markg, mars = write_dataset(root)
+
+        def argv(out_dir, *extra):
+            return ["--data_dir", mars, "--pretrain_path", markg, "--device", "cuda",
+                    "--dtype", "bfloat16", "--fused_attention", "flash",
+                    "--image_features", "synthetic", "--output_dir", out_dir,
+                    "--log_dir", os.path.join(root, "logs"),
+                    "--cache_dir", os.path.join(root, "cache"), *extra]
+
+        reset_counts()
+        for fmt, length in (("triple", 96), ("analogy", 128), ("mixed", 128)):
+            out_dir = os.path.join(root, fmt)
+            before = flash_counts()
+            t0 = time.perf_counter()
+            metrics = cli.main(argv(out_dir, "--pretrain", "1", "--pretrain_format", fmt,
+                                    "--max_seq_length", str(length), "--batch_size", "64",
+                                    "--max_epochs", "1", "--limit_train_batches", "3"))
+            seconds = time.perf_counter() - t0
+            launches = {k: n - before[k] for k, n in flash_counts().items()}
+            n_eval = len(np.load(os.path.join(out_dir, "test_ranks.npz"))["ranks"])
+            # 3 steps; the dev and the test evaluation on n_eval examples
+            expect = dict(fwd=24 * (3 + 2 * math.ceil(n_eval / 128)), dkv=24 * 3, dq=24 * 3)
+            if launches != expect or attn.LAUNCHES or attn.LAUNCHES_BWD:
+                raise AssertionError(f"cli pretrain {fmt}: flash {launches} (expected "
+                                     f"{expect}), single {attn.LAUNCHES}/{attn.LAUNCHES_BWD}")
+            if not all(math.isfinite(v) for v in metrics.values()):
+                raise AssertionError(f"cli pretrain {fmt}: non-finite metrics {metrics}")
+            if ("Eval_relation/mrr" in metrics) != (fmt == "triple"):
+                raise AssertionError(f"cli pretrain {fmt}: metric names {sorted(metrics)}")
+            if len(checkpoint.list_steps(os.path.join(out_dir, "ckpt"))) != 1:
+                raise AssertionError(f"cli pretrain {fmt}: no checkpoint")
+            runs[fmt] = dict(launches=launches, eval_examples=n_eval, seconds=seconds,
+                             mrr=metrics["Eval_entity/mrr"],
+                             relation_mrr=metrics.get("Eval_relation/mrr"))
+        total = flash_counts()  # the main path's launches, all three formats
+
+        ft_dir = os.path.join(root, "finetune")
+        reset_counts()
+        metrics = cli.main(argv(ft_dir, "--checkpoint", os.path.join(root, "triple", "ckpt"),
+                                "--max_seq_length", "128", "--batch_size", "32",
+                                "--max_epochs", "1"))
+        launches = flash_counts()
+        expect = dict(fwd=24 * (4 + 1 + 2), dkv=24 * 4, dq=24 * 4)
+        if launches != expect or attn.LAUNCHES or attn.LAUNCHES_BWD:
+            raise AssertionError(f"cli fine-tune from the pre-train checkpoint: {launches}")
+        if not all(math.isfinite(v) for v in metrics.values()):
+            raise AssertionError(f"cli fine-tune from the pre-train checkpoint: {metrics}")
+        runs["finetune_from_triple"] = dict(launches=launches, mrr=metrics["Eval_entity/mrr"])
+    emit(dict(phase="cli_pretrain", dtype="bfloat16", batch_size=64, steps_per_format=3,
+              launches=total, **runs))
+    return total
+
+
+FLASH_KERNELS = {
+    "fwd": ("flash_attention_fwd", "flash_attention_fwd.cu", 98),
+    "dkv": ("flash_attention_bwd_dkv", "flash_attention_bwd.cu", 183),
+    "dq": ("flash_attention_bwd_dq", "flash_attention_bwd.cu", 271),
+}
+
+
+def flash_entry(rows, kernel, launches):
+    """One flash kernel's entry of the {"kernels": ...} line. Its times and
+    bounds are per triple pre-train step at B=64 (12 text 96 x 96, 8 vision
+    99 x 99 and 4 vision-text 99 x 195 calls, no analogy multiplier, so SDPA
+    is the library yardstick of every call); plain_ms is the plain forward,
+    or for both backward kernels the plain backward, which computes dq, dk
+    and dv in one walk; library_ms likewise SDPA's forward or its whole
+    backward. Errors are the largest over every shape."""
+    name, source, line = FLASH_KERNELS[kernel]
+    step = [r for r in rows if r["launches_per_triple_step"]]
+
+    def per_step(key):
+        return sum(r[key] * r["launches_per_triple_step"] for r in step)
+
+    t_bytes, t_ops = per_step(f"{kernel}_bytes_ms"), per_step(f"{kernel}_operations_ms")
+    if kernel == "fwd":
+        err = [r[f"fwd_max_abs_err_{d}"] for r in rows for d in ("bf16", "bf16_dropout")]
+        err32 = [r[f"fwd_max_abs_err_{d}"] for r in rows for d in ("fp32", "fp32_dropout")]
+    else:
+        grads = ("dq",) if kernel == "dq" else ("dk", "dv")
+        err = [r[f"max_abs_err_{t}_{d}"] for r in rows for t in grads
+               for d in ("bf16", "bf16_dropout")]
+        err32 = [r[f"max_abs_err_{t}_{d}"] for r in rows for t in grads
+                 for d in ("fp32", "fp32_dropout")]
+    plain = "plain_fwd_ms" if kernel == "fwd" else "plain_bwd_ms"
+    library = "library_fwd_ms" if kernel == "fwd" else "library_bwd_ms"
+    return dict(
+        name=name, route="cuda", source=f"mkg_analogy_tpu_torch/csrc/{source}",
+        replaces=f"mkg_analogy_tpu/kernels/flash_attention.py:{line}", ok=True,
+        launches=launches, max_abs_err=max(err), max_abs_err_fp32=max(err32),
+        ms=per_step(f"{kernel}_ms"), plain_ms=per_step(plain),
+        bound_ms=max(t_bytes, t_ops), bound_by=bound_by(t_bytes, t_ops),
+        library_ms=per_step(library),
+        shapes=[{k: v for k, v in r.items()
+                 if k.startswith((kernel, "shape", "B", "L", "tiles", plain, library))}
+                for r in rows])
+
+
 def main() -> int:
     import torch
 
@@ -732,6 +1306,12 @@ def main() -> int:
     launches = cli_train_phase()
     if not launches["fwd"] or not launches["bwd"]:
         raise AssertionError(f"the main path launched no kernel: {launches}")
+    flash_rows = flash_kernel_phase(device)
+    pretrain_phase(device)
+    long_phase(device)
+    flash_launches = cli_pretrain_phase()
+    if not all(flash_launches.values()):
+        raise AssertionError(f"the pre-train path launched no flash kernel: {flash_launches}")
 
     def per_call_set(rows, key, n):
         return sum(r[key] * r[n] for r in rows)
@@ -768,7 +1348,8 @@ def main() -> int:
         bound_ms=max(b_bytes, b_ops), bound_by=bound_by(b_bytes, b_ops),
         library_ms=None,  # per shape below: SDPA's backward at the vision shapes
         shapes=bwd_rows,
-    )]})
+    )] + [flash_entry(flash_rows, kernel, flash_launches[kernel]) for kernel in
+          ("fwd", "dkv", "dq")]})
     print(card)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -3,16 +3,18 @@ for one NVIDIA H100 (Hopper, sm_90a).
 
 It keeps the JAX package's module paths and names, so each piece has an
 obvious counterpart there, and imports nothing of it (nor JAX). Ported so
-far: fine-tuning and evaluation of ``MKGformerKGC``.
+far: fine-tuning, MarKG pre-training and evaluation of ``MKGformerKGC``.
 
 - ``models``   — UniMo (MKGformer) as ``nn.Module``s, the Flax weight map.
-- ``kernels``  — hand-written CUDA kernels (``csrc/``): the fused-attention
-                 forward and backward, each with its plain PyTorch version;
+- ``kernels``  — hand-written CUDA kernels (``csrc/``): the single-block
+                 fused-attention forward and backward, the flash (K-blocked)
+                 forward, dK/dV and dQ, each with its plain PyTorch version;
                  the build and ``ctypes`` loader.
-- ``data``     — MarKG/MARS readers, fine-tune prompts, batching.
+- ``data``     — MarKG/MARS readers, fine-tune and pre-train prompts,
+                 batching.
 - ``text``     — self-contained WordPiece tokenizer (offline-first).
 - ``ops``      — analogy masks, losses and ranking metrics.
-- ``train``    — the MarT trainer (fine-tune and evaluation), AdamW with its
+- ``train``    — the MarT trainer (fine-tune, pre-train, evaluation), AdamW with its
                  schedule, checkpoints.
 - ``utils``    — metric logging, step timing and ``torch.profiler`` traces.
 - ``cli``      — ``python -m mkg_analogy_tpu_torch.cli.main``.

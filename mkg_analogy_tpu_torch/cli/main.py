@@ -2,8 +2,9 @@
 ``mkg_analogy_tpu/cli/main.py`` (MarT/main.py:20-60 parity) plus
 ``--device``.
 
-Ported so far: fine-tuning and evaluation of ``MKGformerKGC``
-(MarT/scripts/run_finetune_mkgformer.sh parity), e.g.
+Ported so far: fine-tuning, pre-training and evaluation of
+``MKGformerKGC``. Fine-tuning (MarT/scripts/run_finetune_mkgformer.sh
+parity), e.g.
 
   python -m mkg_analogy_tpu_torch.cli.main \\
       --model_class MKGformerKGC --batch_size 32 --lr 5e-5 --alpha 0.43 \\
@@ -13,14 +14,22 @@ Ported so far: fine-tuning and evaluation of ``MKGformerKGC``
 fits with dev evaluation each epoch, keeps the best-dev-Hits@10 checkpoint
 under ``<output_dir>/ckpt`` and tests with it; ``--only_test`` evaluates
 only, from ``--checkpoint <dir>`` (a checkpoint directory of this port) or
-from the seed's random weights. ``--checkpoint`` also initialises a fit.
+from the seed's random weights. ``--checkpoint`` also initialises a fit,
+e.g. a fine-tune from a pre-train checkpoint. Pre-training on MarKG
+(``--pretrain 1``, scripts/run_pretrain_mkgformer.sh and
+run_pretrain_analogy.sh) takes ``--pretrain_format triple`` (link and
+relation prediction prompts), ``analogy`` (pseudo-analogies in the
+fine-tune layout) or ``mixed`` (both, interleaved each epoch); it evaluates
+on its training features, as the JAX package does.
 
 It runs on CUDA unless ``--device cpu`` is given; with ``--device cuda`` and
 no GPU it raises instead of falling back to the CPU. On CUDA every attention
-call, forward and backward, goes through the hand-written kernels
-(``--fused_attention 1``, the default); ``--fused_attention 0`` runs the
-plain PyTorch attention instead. The pre-train formats, ``--export_torch``,
-the flash kernels, parallelism and the other model families raise until
+call, forward and backward, goes through hand-written kernels: the
+single-block kernels with ``--fused_attention 1`` (the default), the
+K-blocked flash kernels with ``--fused_attention flash``;
+``--fused_attention 0`` runs the plain PyTorch attention, except that a
+sequence of 512 or more takes the flash kernels, as in JAX.
+``--export_torch``, parallelism and the other model families raise until
 their slices land. The JAX package's ``--prng`` is accepted and changes
 nothing; ``--xla_opt`` raises.
 """
@@ -121,10 +130,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--profile", action="store_true", default=False)
     p.add_argument("--fused_attention", type=str, default=None,
                    choices=["0", "1", "flash"],
-                   help="1 (default) -> the hand-written CUDA fused-attention "
-                        "kernel (its plain version on the CPU); 0 -> the plain "
-                        "PyTorch attention on every device; flash -> not "
-                        "ported yet")
+                   help="1 (default) -> the hand-written CUDA single-block "
+                        "fused-attention kernels; flash -> the K-blocked "
+                        "(online-softmax) CUDA kernels, any sequence length; "
+                        "0 -> the plain PyTorch attention (flash from L=512); "
+                        "on the CPU each kernel's plain version")
     p.add_argument("--exact_gelu", type=int, default=None, choices=[0, 1],
                    help="1 -> exact erf gelu in every dtype; 0 -> tanh "
                         "approximation under bf16")
@@ -164,11 +174,6 @@ def resolve_device(name: str) -> torch.device:
 
 def _refuse_unported(args) -> None:
     """Fail fast on what later slices of the port bring."""
-    if args.pretrain:
-        raise NotImplementedError(
-            f"--pretrain (format {args.pretrain_format}): the pre-training "
-            "formats triple / analogy / mixed are not ported yet (ROADMAP.md "
-            "queue 1, the rest of the training slice)")
     if args.export_torch:
         raise NotImplementedError(
             "--export_torch: the reference-format converters "
@@ -179,10 +184,6 @@ def _refuse_unported(args) -> None:
             "--qk_bf16_grad 1 with --fused_attention 0: the bf16 dq/dk "
             "backward of the plain attention is not ported yet (ROADMAP.md "
             "queue 1, the default-off knobs)")
-    if args.fused_attention == "flash":
-        raise NotImplementedError(
-            "--fused_attention flash: the flash-attention kernels "
-            "(kernels/flash_attention.py) are a later slice of the port")
     if (args.dp or 1) * args.tp > 1:
         raise NotImplementedError(
             "--dp/--tp: data and tensor parallelism are a later slice of the "
@@ -201,9 +202,10 @@ def make_model(args, vocab_size: int):
     }
     gelu_impl = args.gelu_impl or (
         {None: "poly", 1: "erf", 0: "tanh"}[args.exact_gelu])
+    attention = {None: "single", "1": "single", "0": "plain",
+                 "flash": "flash"}[args.fused_attention]
     return create_model(args.model_class, vocab_size=vocab_size, dtype=args.dtype,
-                        fused_attention=args.fused_attention != "0",
-                        gelu_impl=gelu_impl, **overrides)
+                        attention=attention, gelu_impl=gelu_impl, **overrides)
 
 
 def synthetic_image_table(mode: str, num_entities: int, size: int,
@@ -227,6 +229,20 @@ def synthetic_image_table(mode: str, num_entities: int, size: int,
         tab = tab[:, :, :size, :size]
     tab = tab.to(torch.bfloat16)
     return torch.cat([tab, tab.new_zeros((1,) + shape)], dim=0)
+
+
+def pretrain_splits(data, fmt: str):
+    """The train / dev / test features of a pre-training run. The mixed diet
+    trains on (triple, analogy) features, each cached under its
+    single-format key, and evaluates in the analogy geometry, the downstream
+    task; a single format evaluates on its training features, as the JAX CLI
+    does."""
+    if fmt == "mixed":
+        analogy = data.features("train", fmt="analogy")
+        return dict(train=(data.features("train", fmt="triple"), analogy),
+                    dev=analogy, test=analogy)
+    feats = data.features("train")
+    return dict(train=feats, dev=feats, test=feats)
 
 
 def main(argv=None):
@@ -263,6 +279,7 @@ def main(argv=None):
         data_dir=args.data_dir,
         pretrain_path=args.pretrain_path or args.data_dir,
         max_seq_length=args.max_seq_length,
+        pretrain=bool(args.pretrain),
         vocab_file=vocab_file,
         text_vocab_size=args.text_vocab_size,
         cache_dir=args.cache_dir,
@@ -271,6 +288,7 @@ def main(argv=None):
         image_kind=kind,
         overwrite_cache=args.overwrite_cache,
         seed=args.seed,
+        pretrain_format=args.pretrain_format,
     )
     with torch.device(device):
         model = make_model(args, data.vocab.padded_vocab_size)
@@ -284,6 +302,10 @@ def main(argv=None):
         warmup_ratio=args.warm_up_radio,
         weight_decay=args.weight_decay,
         grad_accum_steps=args.accumulate_grad_batches,
+        pretrain=bool(args.pretrain),
+        analogy_pretrain=bool(args.pretrain)
+        and args.pretrain_format in ("analogy", "mixed"),
+        mixed_pretrain=bool(args.pretrain) and args.pretrain_format == "mixed",
         seed=args.seed,
         track_grad_norm=args.track_grad_norm != -1,
         check_val_every_n_epoch=args.check_val_every_n_epoch,
@@ -314,13 +336,14 @@ def main(argv=None):
             return checkpoint.partial_restore(state, checkpoint.load(directory))
         return init_params_fn
 
+    split = (pretrain_splits(data, args.pretrain_format).__getitem__ if args.pretrain
+             else data.features)
     dump_path = (os.path.join(args.output_dir, "test_ranks.npz")
                  if args.output_dir else None)
     if args.only_test:
         if args.checkpoint:
             model.load_state_dict(restore_from(args.checkpoint)(model.state_dict()))
-        metrics = trainer.evaluate(data.features("test"), attach=attach,
-                                   dump_path=dump_path)
+        metrics = trainer.evaluate(split("test"), attach=attach, dump_path=dump_path)
         logger.log(0, metrics, prefix="test/")
         logger.close()
         print(metrics)
@@ -329,8 +352,7 @@ def main(argv=None):
     ckpt = checkpoint.Checkpointer(os.path.join(args.output_dir, "ckpt"))
     try:
         steps, _ = trainer.fit(
-            data.features("train"), data.features("dev"), attach=attach,
-            checkpointer=ckpt,
+            split("train"), split("dev"), attach=attach, checkpointer=ckpt,
             init_params_fn=restore_from(args.checkpoint) if args.checkpoint else None)
         # test with the best-Hits@10 checkpoint of THIS fit (main.py:157-159
         # parity: a stale checkpoint directory of an older run is not used)
@@ -338,8 +360,7 @@ def main(argv=None):
             model.load_state_dict(ckpt.restore(step=ckpt.saved_steps[-1]))
     finally:
         ckpt.close()
-    test_metrics = trainer.evaluate(data.features("test"), attach=attach,
-                                    dump_path=dump_path)
+    test_metrics = trainer.evaluate(split("test"), attach=attach, dump_path=dump_path)
     logger.log(steps, test_metrics, prefix="test/")
     logger.close()
     print(test_metrics)

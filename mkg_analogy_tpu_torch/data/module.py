@@ -1,12 +1,14 @@
 """KGC data module: ties together tokenizer, vocab, features, image stores
 and batch iterators (MarT/data/data_module.py:185 KGC).
 
-The port's own copy of ``mkg_analogy_tpu/data/module.py``, fine-tune
-features only; the pre-train formats come with the training slice.
+The port's own copy of ``mkg_analogy_tpu/data/module.py``: fine-tune
+features and the pre-train formats ("triple", "analogy", and "mixed", the
+diet of both).
 
 Feature caching: stacked feature dicts are persisted as ``.npz`` keyed by
-(split, pretrain flag, max_seq, corpus fingerprint) — the replacement for
-the reference's pickle ``cache_results`` decorator (processor.py:26-80).
+(split, pretrain flag, max_seq, corpus fingerprint, and for pre-training the
+seed and the format) — the replacement for the reference's pickle
+``cache_results`` decorator (processor.py:26-80).
 """
 
 from __future__ import annotations
@@ -19,7 +21,11 @@ import numpy as np
 
 from .batching import BatchIterator
 from .images import RegionStore, open_store
-from .prompt import build_finetune_features
+from .prompt import (
+    build_finetune_features,
+    build_pretrain_features,
+    build_pseudo_analogy_features,
+)
 from .readers import MARS, MarKG
 from .vocab import KGVocab, build_tokenizer
 
@@ -30,6 +36,7 @@ class KGCDataModule:
         data_dir: str,
         pretrain_path: str,
         max_seq_length: int = 128,
+        pretrain: bool = False,
         vocab_file: Optional[str] = None,
         text_vocab_size: int = 8192,
         cache_dir: Optional[str] = None,
@@ -38,8 +45,11 @@ class KGCDataModule:
         image_kind: str = "pixels",  # "pixels" | "regions"
         overwrite_cache: bool = False,
         seed: int = 1,
+        pretrain_format: str = "triple",  # "triple" | "analogy" | "mixed"
     ):
         self.data_dir = data_dir
+        self.pretrain = pretrain
+        self.pretrain_format = pretrain_format
         self.max_seq_length = max_seq_length
         self.cache_dir = cache_dir
         self.overwrite_cache = overwrite_cache
@@ -73,25 +83,48 @@ class KGCDataModule:
                     h.update(f"{name}:{st.st_size}:{int(st.st_mtime)}".encode())
         return h.hexdigest()[:10]
 
-    def _cache_path(self, split: str) -> Optional[str]:
+    def _cache_path(self, split: str, fmt: Optional[str] = None) -> Optional[str]:
         if not self.cache_dir:
             return None
+        fmt = fmt or self.pretrain_format
         key = (
-            f"{split}_pre0_L{self.max_seq_length}"
+            f"{split}_pre{int(self.pretrain)}_L{self.max_seq_length}"
             f"_V{self.vocab.base_size}_C{self._corpus_fingerprint()}"
         )
+        if self.pretrain:
+            key += f"_S{self.seed}"  # the seed drives the pretrain draws
+            if fmt != "triple":
+                key += f"_F{fmt}"
         h = hashlib.sha256(key.encode()).hexdigest()[:12]
         return os.path.join(self.cache_dir, f"features_{key}_{h}.npz")
 
-    def features(self, split: str) -> Dict[str, np.ndarray]:
-        """Stacked fine-tune features for ``split``."""
-        path = self._cache_path(split)
+    def features(self, split: str, fmt: Optional[str] = None) -> Dict[str, np.ndarray]:
+        """Stacked features for ``split``. ``fmt`` overrides the module's
+        pretrain format for one call: the "mixed" diet fetches its two
+        components as fmt="triple" and fmt="analogy" (each cached under its
+        own key, shared with the single-format runs)."""
+        fmt = fmt or self.pretrain_format
+        if self.pretrain and fmt == "mixed":
+            raise ValueError(
+                "mixed is a diet, not a feature format: fetch its components"
+                " with fmt='triple' and fmt='analogy'"
+            )
+        path = self._cache_path(split, fmt=fmt)
         if path and os.path.exists(path) and not self.overwrite_cache:
             with np.load(path) as z:
                 return {k: z[k] for k in z.files}
-        feats = build_finetune_features(
-            self.mars, self.vocab, split, self.max_seq_length
-        )
+        if not self.pretrain:
+            feats = build_finetune_features(
+                self.mars, self.vocab, split, self.max_seq_length
+            )
+        elif fmt == "analogy":
+            feats = build_pseudo_analogy_features(
+                self.markg, self.vocab, self.max_seq_length, seed=self.seed
+            )
+        else:
+            feats = build_pretrain_features(
+                self.markg, self.vocab, self.max_seq_length, seed=self.seed
+            )
         if path:
             os.makedirs(os.path.dirname(path), exist_ok=True)
             np.savez_compressed(path, **feats)
@@ -131,8 +164,10 @@ class KGCDataModule:
     def iterator(
         self, split: str, batch_size: int, shuffle: bool, pad_tail: bool = False
     ) -> BatchIterator:
+        # the mixed diet evaluates and tests in the analogy geometry
+        fmt = "analogy" if self.pretrain and self.pretrain_format == "mixed" else None
         return BatchIterator(
-            self.features(split),
+            self.features(split, fmt=fmt),
             batch_size,
             shuffle=shuffle,
             seed=self.seed,

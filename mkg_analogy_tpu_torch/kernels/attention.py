@@ -64,20 +64,26 @@ def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
     return (x * lo + (((x * hi) & 0xFFFF) << 16)) & _M32
 
 
-def dropout_keep(batch: int, num_heads: int, lq: int, lk: int, rate: float,
-                 seed: int, device) -> torch.Tensor:
-    """(B, heads, Lq, Lk) keep mask of the JAX interpret-mode kernel
-    (attention.py:_dropout_keep with the seeds of ``_cell_seed``)."""
-    cell = torch.arange(batch * num_heads, device=device).reshape(batch, num_heads)
-    cell_seed = (cell + seed) & _M32
-    mix = _mul32(cell_seed, 0x9E3779B9)[:, :, None, None]
-    idx = (torch.arange(lq, device=device)[:, None] * lk
-           + torch.arange(lk, device=device)[None, :])
+def hash_keep(seeds: torch.Tensor, rows: int, cols: int, rate: float) -> torch.Tensor:
+    """(..., rows, cols) keep mask of the JAX interpret-mode ``_dropout_keep``
+    on a (rows, cols) plane for each int64 seed in ``seeds`` (any shape):
+    lowbias32 of ``row * cols + col`` xor ``seed * 0x9E3779B9``."""
+    mix = _mul32(seeds & _M32, 0x9E3779B9)[..., None, None]
+    idx = (torch.arange(rows, device=seeds.device)[:, None] * cols
+           + torch.arange(cols, device=seeds.device)[None, :])
     x = idx ^ mix
     x = _mul32(x ^ (x >> 16), 0x7FEB352D)
     x = _mul32(x ^ (x >> 15), 0x846CA68B)
     x = x ^ (x >> 16)
     return x >= int(rate * float(2 ** 32))
+
+
+def dropout_keep(batch: int, num_heads: int, lq: int, lk: int, rate: float,
+                 seed: int, device) -> torch.Tensor:
+    """(B, heads, Lq, Lk) keep mask of the JAX interpret-mode kernel
+    (attention.py:_dropout_keep with the seeds of ``_cell_seed``)."""
+    cell = torch.arange(batch * num_heads, device=device).reshape(batch, num_heads)
+    return hash_keep(cell + seed, lq, lk, rate)
 
 
 def _acc_dtype(x: torch.Tensor) -> torch.dtype:
@@ -311,38 +317,38 @@ def _check_tensor(name, t, q):
                          f"(B, L, heads*d) tensor, got {tuple(t.shape)}")
 
 
-def _check_inputs(q, k, v, mask, num_heads, compute_dtype):
+def _check_inputs(q, k, v, mask, num_heads, compute_dtype, kernel="fused_attention"):
     if q.device.type != "cuda":
-        raise ValueError(f"fused_attention kernel needs CUDA tensors, got {q.device}")
+        raise ValueError(f"{kernel} kernel needs CUDA tensors, got {q.device}")
     if q.dtype not in (torch.bfloat16, torch.float32):
-        raise ValueError(f"fused_attention kernel takes bfloat16 or float32, got {q.dtype}")
+        raise ValueError(f"{kernel} kernel takes bfloat16 or float32, got {q.dtype}")
     if compute_dtype != q.dtype:
         raise ValueError(
-            f"fused_attention kernel computes in the inputs' dtype ({q.dtype}), "
+            f"{kernel} kernel computes in the inputs' dtype ({q.dtype}), "
             f"got compute_dtype={compute_dtype}")
     for name, t in (("q", q), ("k", k), ("v", v)):
         _check_tensor(name, t, q)
     b, lq, hd = q.shape
     lk = k.shape[1]
     if hd != num_heads * HEAD_DIM:
-        raise ValueError(f"fused_attention kernel takes head_dim {HEAD_DIM}: "
+        raise ValueError(f"{kernel} kernel takes head_dim {HEAD_DIM}: "
                          f"width {hd} for {num_heads} heads")
     if k.shape != (b, lk, hd) or v.shape != k.shape:
         raise ValueError(f"k {tuple(k.shape)} / v {tuple(v.shape)} do not match q "
                          f"{tuple(q.shape)}")
     if lq < 1 or lk < 1:
-        raise ValueError("fused_attention needs at least one query and one key")
+        raise ValueError(f"{kernel} needs at least one query and one key")
     if mask.shape != (b, lk):
         raise ValueError(f"mask {tuple(mask.shape)} is not (B, Lk) = {(b, lk)}")
 
 
-def _check_smem(smem, q, what):
+def _check_smem(smem, q, what, hint="longer sequences take the flash kernels "
+                "(kernels/flash_attention.py, --fused_attention flash)"):
     limit = torch.cuda.get_device_properties(q.device).shared_memory_per_block_optin
     if smem > limit:
         raise ValueError(
             f"{what} needs {smem} bytes of shared memory per block, above the "
-            f"device's {limit}: longer sequences are the flash kernels' "
-            f"(kernels/flash_attention.py in the JAX package), a later slice")
+            f"device's {limit}: {hint}")
 
 
 def _geometry_args(geometry, lq):

@@ -19,6 +19,18 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..kernels.attention import fused_attention, fused_attention_reference
+from ..kernels.flash_attention import flash_attention
+
+# Attention at or above this query length takes the flash kernel even on the
+# plain route (``--fused_attention 0``), as the JAX AttentionCore routes it
+# (models/common.py:230-235, :331-338).
+FLASH_AUTO_MIN_LEN = 512
+
+# backend -> the attention function: "single" the single-block fused kernel
+# (``--fused_attention 1``), "flash" the K-blocked kernel (``--fused_attention
+# flash``), "plain" the plain forward under autograd (``--fused_attention 0``)
+ATTENTION_BACKENDS = {"single": fused_attention, "flash": flash_attention,
+                      "plain": fused_attention_reference}
 
 
 def quick_gelu(x: torch.Tensor) -> torch.Tensor:
@@ -213,11 +225,13 @@ class AttentionCore(nn.Module):
     the keys (UniMo feeds text K/V into the vision tower that way,
     modeling_unimo.py:227-229), with ``extra_kv_bias`` masking their padding.
 
-    ``fused``: True sends the attention through ``kernels.attention.
-    fused_attention`` (the CUDA kernels on a CUDA tensor, their plain
-    versions on the CPU); False through the plain forward on every device,
+    ``backend``: "single" sends the attention through ``kernels.attention.
+    fused_attention`` and "flash" through ``kernels.flash_attention.
+    flash_attention`` (the CUDA kernels on a CUDA tensor, their plain
+    versions on the CPU); "plain" through the plain forward on every device,
     differentiated by autograd (the JAX package's einsum path, the same
-    math).
+    math), except that a query length of ``FLASH_AUTO_MIN_LEN`` or more
+    takes the flash kernel there, as in JAX.
 
     ``dropout_rate`` is the attention dropout, applied when a ``DropoutRNG``
     is given (a training forward); each call draws the kernel's seed from it.
@@ -225,12 +239,15 @@ class AttentionCore(nn.Module):
 
     def __init__(self, hidden_size: int, num_heads: int, head_dim: int,
                  dtype: torch.dtype = torch.float32, out_bias: bool = True,
-                 fused: bool = True, dropout_rate: float = 0.0):
+                 backend: str = "single", dropout_rate: float = 0.0):
         super().__init__()
+        if backend not in ATTENTION_BACKENDS:
+            raise ValueError(f"attention backend {backend!r}: one of "
+                             f"{sorted(ATTENTION_BACKENDS)}")
         inner = num_heads * head_dim
         self.num_heads = num_heads
         self.dtype = dtype
-        self.fused = fused
+        self.backend = backend
         self.dropout_rate = dropout_rate
         self.query = Dense(hidden_size, inner, dtype=dtype)
         self.key = Dense(hidden_size, inner, dtype=dtype)
@@ -289,9 +306,11 @@ class AttentionCore(nn.Module):
         if rng is not None and self.dropout_rate > 0.0:
             kwargs.update(dropout_rate=self.dropout_rate, deterministic=False,
                           dropout_seed=rng.attention_seed())
-        attend = fused_attention if self.fused else fused_attention_reference
-        ctx = attend(q, k, v, mask, self.num_heads, compute_dtype=self.dtype,
-                     **kwargs)
+        backend = self.backend
+        if backend == "plain" and l >= FLASH_AUTO_MIN_LEN:
+            backend = "flash"
+        ctx = ATTENTION_BACKENDS[backend](q, k, v, mask, self.num_heads,
+                                          compute_dtype=self.dtype, **kwargs)
         out = self.out(ctx)
         if output_context:
             # raw pre-out-projection context (UniMo's BertFusion consumes

@@ -50,7 +50,7 @@ def register(name: str):
 
 @register("MKGformerKGC")
 def _mkgformer(vocab_size: int, dtype: str = "bfloat16",
-               fused_attention: bool = True, gelu_impl: str = "poly", **kw):
+               attention: str = "single", gelu_impl: str = "poly", **kw):
     text = _text_cfg(vocab_size, kw)
     # lockstep towers: vision mirrors any size overrides
     vision = VisionConfig(
@@ -60,7 +60,7 @@ def _mkgformer(vocab_size: int, dtype: str = "bfloat16",
     fusion_start = max(0, text.num_layers - 4)
     return UnimoForMaskedLM(
         UnimoConfig(text=text, vision=vision, fusion_start=fusion_start,
-                    dtype=dtype, fused_attention=fused_attention,
+                    dtype=dtype, attention=attention,
                     gelu_impl=gelu_impl)
     )
 

@@ -102,9 +102,10 @@ class UnimoConfig:
     vision: VisionConfig = field(default_factory=VisionConfig)
     fusion_start: int = 8  # first layer with cross-modal flow (idx >= 8)
     dtype: str = "bfloat16"
-    # True: attention through kernels.attention.fused_attention (the CUDA
-    # kernel on the card); False: its plain version (the einsum path).
-    fused_attention: bool = True
+    # attention backend of every layer (models/common.py:AttentionCore):
+    # "single" (the single-block CUDA kernel), "flash" (the K-blocked CUDA
+    # kernels) or "plain" (the einsum path; flash from FLASH_AUTO_MIN_LEN)
+    attention: str = "single"
     gelu_impl: str = "poly"  # gelu under non-fp32 compute (fp32: exact erf)
 
     @property
@@ -172,11 +173,11 @@ class CLIPLayer(nn.Module):
     """Pre-LN CLIP encoder layer, optionally attending over prepended text
     K/V (modeling_unimo.py:481-527)."""
 
-    def __init__(self, cfg: VisionConfig, dtype: torch.dtype, fused: bool):
+    def __init__(self, cfg: VisionConfig, dtype: torch.dtype, backend: str):
         super().__init__()
         self.ln1 = LayerNorm(cfg.hidden_size, cfg.layer_norm_eps, dtype=dtype)
         self.attn = AttentionCore(cfg.hidden_size, cfg.num_heads, cfg.head_dim,
-                                  dtype=dtype, fused=fused,
+                                  dtype=dtype, backend=backend,
                                   dropout_rate=cfg.attention_dropout)
         self.ln2 = LayerNorm(cfg.hidden_size, cfg.layer_norm_eps, dtype=dtype)
         self.fc1 = Dense(cfg.hidden_size, cfg.intermediate_size, dtype=dtype)
@@ -209,7 +210,7 @@ class BertLayer(nn.Module):
     448-464, 530-577). Only layers from ``fusion_start`` on carry
     ``fusion_dense``, as in the Flax tree."""
 
-    def __init__(self, cfg: TextConfig, dtype: torch.dtype, fused: bool,
+    def __init__(self, cfg: TextConfig, dtype: torch.dtype, backend: str,
                  has_fusion: bool, gelu_impl: str = "poly"):
         super().__init__()
         # adaptive analogy mask scalars: w0 ~ U(0, 0.5), w1 = 0.5
@@ -217,7 +218,7 @@ class BertLayer(nn.Module):
         self.adaptive_w0 = nn.Parameter(torch.empty(1))
         self.adaptive_w1 = nn.Parameter(torch.empty(1))
         self.attn = AttentionCore(cfg.hidden_size, cfg.num_heads, cfg.head_dim,
-                                  dtype=dtype, fused=fused,
+                                  dtype=dtype, backend=backend,
                                   dropout_rate=cfg.attention_dropout)
         self.hidden_dropout = cfg.hidden_dropout
         self.attn_ln = LayerNorm(cfg.hidden_size, cfg.layer_norm_eps, dtype=dtype)
@@ -266,9 +267,9 @@ class UnimoEncoder(nn.Module):
         dtype = cfg.compute_dtype
         for idx in range(cfg.text.num_layers):
             self.add_module(f"vision_{idx}", CLIPLayer(
-                cfg.vision, dtype, cfg.fused_attention))
+                cfg.vision, dtype, cfg.attention))
             self.add_module(f"text_{idx}", BertLayer(
-                cfg.text, dtype, cfg.fused_attention,
+                cfg.text, dtype, cfg.attention,
                 has_fusion=idx >= cfg.fusion_start, gelu_impl=cfg.gelu_impl))
 
     def forward(self, vision_embeds, text_embeds, attn_bias, boundary=None,

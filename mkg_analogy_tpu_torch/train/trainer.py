@@ -1,19 +1,25 @@
-"""MarT trainer (``mkg_analogy_tpu/train/trainer.py``), fine-tuning and
-evaluation, on one device.
+"""MarT trainer (``mkg_analogy_tpu/train/trainer.py``): fine-tuning,
+pre-training and evaluation, on one device.
 
 - fine-tune loss = label-smoothed CE over the 2,063 analogy-entity logits
                    + alpha * relaxation loss (transformer.py:92-109);
+- pre-train loss = entity-range CE (pre_type != 2) + relation-range CE
+                   (pre_type == 2) at the mask position, one decoder product
+                   over [entities ; relations] (transformer.py:72-90): the
+                   ``triple`` format. The ``analogy`` format is the
+                   fine-tune loss with the decoder over every MarKG entity;
+                   ``mixed`` interleaves batches of both in a seeded order;
 - eval           = ranks -> Hits@k / MR / MRR, tie statistics and per-mode
                    metrics under the reference's metric names
-                   (transformer.py:129-166); ranks stay on the device until
-                   one transfer at the end of the split;
+                   (transformer.py:129-166), entity and relation ranks in
+                   the triple format; ranks stay on the device until one
+                   transfer at the end of the split;
 - early stopping on Eval_entity/mrr (patience 5) and best-checkpoint on
   Eval_entity/hits10 (main.py:141-148).
 
 Each training step draws its dropout from generators seeded by (seed,
 step), as the JAX step folds the step into its key, so a step's masks do
-not depend on what ran before it. The pre-train formats (``triple``,
-``analogy``, ``mixed``) are a later slice of the port.
+not depend on what ran before it.
 """
 
 from __future__ import annotations
@@ -47,6 +53,14 @@ class TrainConfig:
     warmup_ratio: float = 0.1
     weight_decay: float = 0.01
     grad_accum_steps: int = 1
+    pretrain: bool = False
+    # pseudo-analogy pre-training: the fine-tune prompt geometry and losses,
+    # the masked-entity decoder over the whole MarKG entity range
+    analogy_pretrain: bool = False
+    # mixed diet: every epoch interleaves triple-format and pseudo-analogy
+    # batches in a seeded order; evaluation in the analogy geometry.
+    # Requires analogy_pretrain.
+    mixed_pretrain: bool = False
     seed: int = 7
     patience: int = 5
     check_val_every_n_epoch: int = 1
@@ -138,8 +152,20 @@ class MarTTrainer:
             return feats.reshape(b, 2 * n_reg, d), vam
         return feats, None
 
-    def _model_inputs(self, batch, image_table=None):
-        """The model's keyword inputs for a fine-tune batch."""
+    def _format(self) -> str:
+        """The prompt format of a single-format run: "triple" for triple
+        pre-training, else "finetune" (the analogy geometry)."""
+        cfg = self.config
+        return "triple" if cfg.pretrain and not cfg.analogy_pretrain else "finetune"
+
+    def _model_inputs(self, batch, image_table=None, fmt=None):
+        """The model's keyword inputs for a batch of format ``fmt`` (default
+        the run's): the triple format gathers the mask position only and has
+        no analogy boundary."""
+        if (fmt or self._format()) == "triple":
+            positions, boundary = batch["mask_idx"][:, None], None
+        else:
+            positions, boundary = finetune_positions(batch), batch["sep_idx"][:, 2]
         if image_table is not None:
             pixel_values, vam = self._gather_images(batch, image_table)
         else:
@@ -150,23 +176,38 @@ class MarTTrainer:
             attention_mask=batch["attention_mask"],
             token_type_ids=batch["token_type_ids"],
             pixel_values=pixel_values,
-            positions=finetune_positions(batch),
-            boundary=batch["sep_idx"][:, 2],
+            positions=positions,
+            boundary=boundary,
         )
         if vam is not None:
             inputs["visual_attention_mask"] = vam
         return inputs
 
     def _answer_logits(self, trans_cls):
-        """Masked-entity decoder slice: the 2,063 analogy entities."""
+        """Masked-entity decoder slice: the 2,063 analogy entities for
+        fine-tuning, the whole MarKG entity range for pseudo-analogy
+        pre-training."""
+        if self.config.analogy_pretrain:
+            v = self.vocab
+            return self.model.logits(trans_cls, vocab_start=v.entity_id_st,
+                                     vocab_end=v.entity_id_ed)
         return self.model.logits(trans_cls, vocab_ids=self.analogy_entity_ids)
+
+    def _triple_logits(self, trans_cls):
+        """(entity logits, relation logits) of one contiguous decoder
+        product over [entities ; relations]."""
+        v = self.vocab
+        logits = self.model.logits(trans_cls, vocab_start=v.entity_id_st,
+                                   vocab_end=v.relation_id_ed)
+        n_ent = v.entity_id_ed - v.entity_id_st
+        return logits[:, :n_ent], logits[:, n_ent:]
 
     # ---------------------------------------------------------------- losses
     def _finetune_loss(self, batch, rng: DropoutRNG, image_table=None):
         """Label-smoothed CE over the analogy entities + alpha * relaxation
         over the gathered [mask, rel_ex, rel_q, q_head, a_head] states."""
         cfg = self.config
-        inputs = self._model_inputs(batch, image_table=image_table)
+        inputs = self._model_inputs(batch, image_table=image_table, fmt="finetune")
         trans = self.model(**inputs, deterministic=False, rng=rng)
         logits = self._answer_logits(trans[:, 0])
         ce = label_smoothing_cross_entropy(logits, batch["label"], cfg.label_smoothing)
@@ -174,13 +215,38 @@ class MarTTrainer:
         loss = ce + cfg.alpha * sim
         return loss, {"loss": loss, "ce": ce, "sim": sim}
 
-    def _train_step(self, optimizer, batch, step: int, image_table=None):
+    def _pretrain_loss(self, batch, rng: DropoutRNG, image_table=None):
+        """Triple pre-training: label-smoothed CE over the entity range for
+        link prediction (pre_type 1) plus over the relation range for
+        relation prediction (pre_type 2), labels -100 where a row belongs to
+        the other term; a batch without rows of one kind adds 0 for it."""
+        cfg = self.config
+        inputs = self._model_inputs(batch, image_table=image_table, fmt="triple")
+        trans = self.model(**inputs, deterministic=False, rng=rng)
+        ent_logits, rel_logits = self._triple_logits(trans[:, 0])
+        label = batch["label"]
+        is_rel = batch["pre_type"] == 2
+        ignore = torch.full_like(label, -100)
+        ent_loss = label_smoothing_cross_entropy(
+            ent_logits, torch.where(is_rel, ignore, label), cfg.label_smoothing)
+        rel_loss = label_smoothing_cross_entropy(
+            rel_logits, torch.where(is_rel, label, ignore), cfg.label_smoothing)
+        zero = ent_loss.new_zeros(())
+        ent_loss = torch.where((~is_rel).any(), ent_loss, zero)
+        rel_loss = torch.where(is_rel.any(), rel_loss, zero)
+        loss = ent_loss + rel_loss
+        return loss, {"loss": loss, "ent_loss": ent_loss, "rel_loss": rel_loss}
+
+    def _train_step(self, optimizer, batch, step: int, image_table=None, loss_kind=None):
         """One micro-batch: forward and backward with the dropout of (seed,
-        step), then ``optimizer.step()``. Returns the metrics as device
-        tensors (no sync)."""
+        step), then ``optimizer.step()``. ``loss_kind`` "triple" takes the
+        pre-train loss, "finetune" the fine-tune loss (default: the run's
+        format). Returns the metrics as device tensors (no sync)."""
         cfg = self.config
         rng = DropoutRNG.from_seed(step_seed(cfg.seed, step), self.device)
-        loss, metrics = self._finetune_loss(batch, rng, image_table=image_table)
+        loss_fn = (self._pretrain_loss if (loss_kind or self._format()) == "triple"
+                   else self._finetune_loss)
+        loss, metrics = loss_fn(batch, rng, image_table=image_table)
         loss.backward()
         if cfg.track_grad_norm:
             metrics["grad_norm"] = global_norm(
@@ -191,6 +257,18 @@ class MarTTrainer:
     def _eval_step(self, batch, image_table=None):
         inputs = self._model_inputs(batch, image_table=image_table)
         trans = self.model(**inputs)
+        if self._format() == "triple":
+            ent_logits, rel_logits = self._triple_logits(trans[:, 0])
+            label = batch["label"]
+            ent_ranks = ranks_from_scores(ent_logits, label)
+            # labels mix entity indices (pre_type 1) and relation indices
+            # (pre_type 2); the clip only keeps entity labels in range in the
+            # relation lane, whose ranks those rows discard
+            rel_ranks = ranks_from_scores(
+                rel_logits, label.clamp(0, rel_logits.shape[1] - 1))
+            is_rel = batch["pre_type"] == 2
+            return {"ranks": torch.where(is_rel, rel_ranks, ent_ranks),
+                    "is_rel": is_rel, "valid": batch["valid"]}
         logits = self._answer_logits(trans[:, 0])
         ranks = ranks_from_scores(logits, batch["label"])
         out = {"ranks": ranks, "is_rel": torch.zeros_like(ranks, dtype=torch.bool),
@@ -221,7 +299,8 @@ class MarTTrainer:
             outs = [{k: v.cpu().numpy() for k, v in o.items()} for o in outs]
         ranks = np.concatenate([o["ranks"][o["valid"]] for o in outs])
         is_rel = np.concatenate([o["is_rel"][o["valid"]] for o in outs])
-        ties = np.concatenate([o["tie"][o["valid"]] for o in outs])
+        ties = (np.concatenate([o["tie"][o["valid"]] for o in outs])
+                if "tie" in outs[0] else None)
         modes = (np.concatenate([o["mode"][o["valid"]] for o in outs])
                  if "mode" in outs[0] else None)
         metrics: Dict[str, float] = {}
@@ -229,9 +308,10 @@ class MarTTrainer:
         if ent_ranks.size:
             for k, val in rank_metrics(torch.from_numpy(ent_ranks)).items():
                 metrics[f"Eval_entity/{k}"] = float(val)
-            ent_ties = ties[~is_rel]
-            metrics["Eval_entity/tie_mean"] = float(ent_ties.mean())
-            metrics["Eval_entity/tie_frac"] = float((ent_ties > 1).mean())
+            if ties is not None:
+                ent_ties = ties[~is_rel]
+                metrics["Eval_entity/tie_mean"] = float(ent_ties.mean())
+                metrics["Eval_entity/tie_frac"] = float((ent_ties > 1).mean())
             if modes is not None:
                 # per-mode anatomy of the Hits@k curve (modes 0/1/2,
                 # dataset/README.md:49-58)
@@ -242,10 +322,15 @@ class MarTTrainer:
                         mm = rank_metrics(torch.from_numpy(sel), ks=(1, 10))
                         for k in ("hits1", "hits10", "mrr"):
                             metrics[f"Eval_entity/{k}_mode{m}"] = float(mm[k])
+        rel_ranks = ranks[is_rel]
+        if rel_ranks.size:
+            for k, val in rank_metrics(torch.from_numpy(rel_ranks)).items():
+                metrics[f"Eval_relation/{k}"] = float(val)
         if dump_path:
             # raw per-example ranks for offline histogram analysis
             os.makedirs(os.path.dirname(dump_path) or ".", exist_ok=True)
-            np.savez(dump_path, ranks=ranks, is_rel=is_rel, tie=ties,
+            np.savez(dump_path, ranks=ranks, is_rel=is_rel,
+                     **({"tie": ties} if ties is not None else {}),
                      **({"mode": modes} if modes is not None else {}))
         return metrics
 
@@ -253,16 +338,55 @@ class MarTTrainer:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
+    def _epoch_schedule(self, train_features, attach=None):
+        """(the number of batches an epoch, a function that yields one
+        epoch's (loss kind, batch) pairs). The mixed diet
+        (``train_features`` = (triple, analogy) features) keeps one iterator
+        per format, seeds ``seed`` and ``seed + 1``, and takes them in the
+        order of a seeded shuffle of their batch tags each epoch; a single
+        format yields (None, batch). As the JAX trainer draws one batch to
+        shape its state before the first epoch, this draws one too, so the
+        two take their batches in the same order."""
+        cfg = self.config
+        if cfg.mixed_pretrain:
+            triple_feats, analogy_feats = train_features
+            it_t = BatchIterator(triple_feats, cfg.batch_size, shuffle=True,
+                                 seed=cfg.seed, attach=attach)
+            it_a = BatchIterator(analogy_feats, cfg.batch_size, shuffle=True,
+                                 seed=cfg.seed + 1, attach=attach)
+            sched_rng = np.random.default_rng(cfg.seed)
+
+            def epoch_batches():
+                tags = np.concatenate([np.zeros(len(it_t), np.int8),
+                                       np.ones(len(it_a), np.int8)])
+                sched_rng.shuffle(tags)
+                gen_t, gen_a = iter(it_t), iter(it_a)
+                for tag in tags:
+                    yield ("finetune" if tag else "triple"), next(gen_a if tag else gen_t)
+
+            first, steps = it_a, len(it_t) + len(it_a)
+        else:
+            train_it = BatchIterator(train_features, cfg.batch_size, shuffle=True,
+                                     seed=cfg.seed, attach=attach)
+
+            def epoch_batches():
+                for b in train_it:
+                    yield None, b
+
+            first, steps = train_it, len(train_it)
+        next(iter(first))  # the JAX trainer's init_state sample
+        return steps, epoch_batches
+
     def fit(self, train_features, dev_features, attach=None, checkpointer=None,
             eval_attach=None, init_params_fn=None):
-        """Fine-tune the model in place from its current parameters
+        """Train the model in place from its current parameters
         (``init_params_fn``: state dict -> state dict, applied first, for a
-        transfer from a checkpoint). Returns (the number of steps taken, the
-        dev metrics of the best-Hits@10 evaluation)."""
+        transfer from a checkpoint): fine-tuning, or pre-training in the
+        config's format (``train_features`` a (triple, analogy) pair for the
+        mixed diet). Returns (the number of steps taken, the dev metrics of
+        the best-Hits@10 evaluation)."""
         cfg = self.config
-        train_it = BatchIterator(train_features, cfg.batch_size, shuffle=True,
-                                 seed=cfg.seed, attach=attach)
-        steps_per_epoch = len(train_it)
+        steps_per_epoch, epoch_batches = self._epoch_schedule(train_features, attach)
         limit_batches = cfg.limit_train_batches
         if limit_batches and isinstance(limit_batches, float) and limit_batches <= 1.0:
             # only FLOATS in (0, 1] are fractions; an int 1 means exactly one
@@ -290,7 +414,7 @@ class MarTTrainer:
                 t_epoch = time.time()
                 n_examples = 0
                 metrics = {}
-                for epoch_steps, batch in enumerate(train_it):
+                for epoch_steps, (kind, batch) in enumerate(epoch_batches()):
                     if limit_batches and epoch_steps >= limit_batches:
                         break
                     if global_step == 0 and hasattr(self.vocab, "decode"):
@@ -303,7 +427,7 @@ class MarTTrainer:
                     dbatch = self._put_batch(batch)
                     timer.start()
                     metrics = self._train_step(optimizer, dbatch, global_step,
-                                               self.image_table)
+                                               self.image_table, loss_kind=kind)
                     timer.stop()
                     global_step += 1
                     n_examples += cfg.batch_size

@@ -124,11 +124,12 @@ def test_cli_cuda_without_gpu_raises(dataset, tmp_path):
 
 
 @pytest.mark.parametrize("extra", [
-    ["--export_torch", "model.pt"], ["--fused_attention", "flash"], ["--pretrain", "1"],
+    ["--export_torch", "model.pt"], ["--tp", "2"], ["--model_class", "ViltKGC"],
     ["--dp", "2"], ["--qk_bf16_grad", "1", "--fused_attention", "0"],
 ])
 def test_cli_refuses_what_later_slices_bring(dataset, tmp_path, extra):
-    """Training and --checkpoint are ported (tests/test_torch_port_train.py);
+    """Training, --checkpoint, --pretrain and --fused_attention flash are
+    ported (tests/test_torch_port_train.py, tests/test_torch_port_pretrain.py);
     these raise, with or without --only_test."""
     for flags in (cli_flags(dataset, tmp_path),
                   [f for f in cli_flags(dataset, tmp_path) if f != "--only_test"]):
