@@ -11,9 +11,12 @@ exits non-zero:
 2. build      — nvcc builds every kernel under mkg_analogy_tpu_torch/csrc
                 (one process per source, all started together);
 3. kernel     — the fused-attention forward kernel against its plain PyTorch
-                version at the three main-path shapes, B=128: fp32 (TF32
-                off) at atol 2e-5, bf16 at 2e-2, and fp32 with dropout (same
-                seed, so the masks must agree) at 2e-5; times of the kernel,
+                version at the three MKGformer shapes and at ViLT's (418 x
+                418: 128 text and 290 image tokens, the multiplier over the
+                text block from row 1, and with the boundary shifted by 290;
+                bf16 only, above the kernel's 400 fp32 keys), B=128: fp32
+                (TF32 off) at atol 2e-5, bf16 at 2e-2, each also with dropout
+                (same seed, so the masks must agree); times of the kernel,
                 the plain version and scaled_dot_product_attention (a
                 yardstick only, at the two vision shapes; no single PyTorch
                 call applies the analogy multiplier of the text shape), and
@@ -52,7 +55,9 @@ exits non-zero:
                 text 96x96, vision 99x99, vision-text 99x195), the analogy
                 ones (128x128 with the geometry, 99x227), two Q tiles
                 (512x512, B=8), two K tiles with a ragged second (99x611,
-                B=8) and L=2048 (B=8, 8 x 4 tiles), fp32 and bf16, dropout 0
+                B=8), L=2048 (B=8, 8 x 4 tiles), FLAVA's three towers (B=24:
+                393x393, 128x128 with the multiplier from row 1, 522x522)
+                and ViLT's fp32 route (B=32, 418x418), fp32 and bf16, dropout 0
                 and 0.1; the times of each kernel, the plain versions and
                 SDPA (where no analogy multiplier applies), and the bounds;
 10. pretrain  — the full-width triple pre-train step (B=64, L=96) through
@@ -69,7 +74,38 @@ exits non-zero:
                 --fused_attention flash`` through the CLI for the triple,
                 analogy and mixed formats (3 steps each, dev and test), the
                 counts set to 0 before the three runs and read after them;
-                then a fine-tune from the triple run's checkpoint.
+                then a fine-tune from the triple run's checkpoint;
+13. image_kernel — the resize-and-normalise kernel against its plain version
+                (interpolation matrices and two einsums) at the image tool's
+                shapes: B=64 to 224 px (CLIP statistics) with every image the
+                full 512 x 512 canvas and with mixed extents, B=64 to 384 px
+                (ViLT statistics), B=1; within 1e-5 absolute; the kernel's
+                time, the plain version's, the bound from this run's
+                extents, and one F.interpolate call where every image has
+                the same extent (the full canvases, B=1);
+14. image_tool — ``mkg_analogy_tpu_torch.tools.encode_images`` over an
+                entity-image tree written here with PIL (PNG and JPEG, 1 x 1
+                to 700 x 600): ``pixels`` at 224 and 384 px (equal to the
+                plain version's output for the same files within 1e-5),
+                ``vgg`` (VGG16, full width) and ``vit`` (ViT-B/16, full width,
+                its attention through the single-block kernel; equal to the
+                plain attention's store within 1e-4 of its largest value);
+                launches counted from 0 in each mode;
+15. vilt, flava — a full-width fine-tune step of each family at its recipe
+                (ViLT B=32, 384 px, 418 tokens; FLAVA B=24, 224 px, towers of
+                393, 128 and 522 tokens), L=128: fp32 through the flash
+                kernels against their plain version and the plain attention
+                (loss within 1e-5 relative, every gradient leaf within its
+                bound), then a bf16 forward and 6 bf16 steps through the
+                family's default kernels (ViLT the single-block ones, 12 + 12
+                launches a step; FLAVA the flash ones, 30 + 30 + 30): the
+                loss falls, step time and a device profile;
+16. cli_image — the main path of the image slice: the tool writes a pixel
+                store for a dataset written here, ``cli.main --model_class
+                ViltKGC|FlavaKGC --image_features <store>`` fine-tunes one
+                epoch in bf16 and tests, ``--only_test --checkpoint``
+                reproduces the ranks; the counts set to 0 before each
+                family's run and read after it.
 
 Then the ``{"kernels": [...]}`` line, the card line, and the last line
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -94,10 +130,19 @@ BF16_FLOPS_PER_S = 989e12   # H100 SXM data sheet, dense bf16 tensor cores
 BATCH = 128                 # --eval_batch_size default
 TRAIN_BATCH = 32            # --batch_size default
 HEADS, HEAD_DIM = 12, 64
-# (name, Lq, Lk, analogy geometry, launches per forward): 12 text layers,
-# 8 vision layers, 4 vision layers over the previous text layer's K/V
-SHAPES = [("text", 128, 128, True, 12), ("vision", 99, 99, False, 8),
-          ("vision_text", 99, 227, False, 4)]
+# (name, Lq, Lk, analogy geometry, launches per MKGformer forward). The
+# geometry is None or (row_start, text_len, offset); text_len None is Lq.
+# MKGformer: 12 text layers, 8 vision layers, 4 vision layers over the
+# previous text layer's K/V. ViLT (the image path, 12 layers a forward):
+# 128 text + 2 x 145 image tokens, the multiplier over the text block from
+# row 1, and with compat_ref_mask_offset the boundary shifted by the 290
+# image tokens over the whole sequence.
+SHAPES = [("text", 128, 128, (0, None, 0), 12), ("vision", 99, 99, None, 8),
+          ("vision_text", 99, 227, None, 4),
+          ("vilt", 418, 418, (1, 128, 0), 0),
+          ("vilt_compat_offset", 418, 418, (1, None, 290), 0)]
+TEXT_LEN = 128       # text keys of SHAPES, padded to 40-128
+FP32_MAX_KEYS = 400  # the single-block kernels hold 400 keys in fp32 (717 in bf16)
 
 
 def emit(obj) -> None:
@@ -188,20 +233,28 @@ def attention_inputs(lq, lk, geometry, dtype, device, seed, batch=BATCH):
     hd = HEADS * HEAD_DIM
     q, k, v = (torch.randn(batch, n, hd, generator=g).to(device, dtype)
                for n in (lq, lk, lk))
-    text_len = torch.randint(40, 129, (batch,), generator=g)
-    text_mask = (torch.arange(128)[None] < text_len[:, None]).float()
-    if geometry:                       # text self-attention, padded prompts
-        mask = text_mask
-    elif lk == lq:                     # vision self-attention
+    text_len = torch.randint(40, TEXT_LEN + 1, (batch,), generator=g)
+    text_mask = (torch.arange(TEXT_LEN)[None] < text_len[:, None]).float()
+    if geometry is None and lk == lq:  # vision self-attention
         mask = torch.ones(batch, lk)
-    else:                              # vision over [text K/V ; vision]
-        mask = torch.cat([text_mask, torch.ones(batch, lq)], dim=1)
+    else:  # padded text keys, then (vision over text K/V, ViLT) unpadded image keys
+        mask = torch.cat([text_mask, torch.ones(batch, lk - TEXT_LEN)], dim=1)
     kw = {}
-    if geometry:
+    if geometry is not None:
+        row_start, geo_len, offset = geometry
         kw = dict(boundary=(text_len // 2).to(device, torch.int32),
                   w0=torch.tensor([0.3], device=device),
-                  w1=torch.tensor([0.7], device=device))
+                  w1=torch.tensor([0.7], device=device),
+                  row_start=row_start, text_len=geo_len, offset=offset)
     return q, k, v, mask.to(device), kw
+
+
+def resolve_geometry(mod, q, kw, rate, seed):
+    """(boundary, w, geometry, rate, seed) of a call with the keyword
+    arguments ``kw``, as the wrapper of ``mod`` resolves them."""
+    return mod._resolve(q, kw.get("boundary"), kw.get("w0"), kw.get("w1"),
+                        kw.get("text_len"), kw.get("row_start", 0), kw.get("offset", 0),
+                        rate, rate == 0.0, seed)
 
 
 def kernel_phase(device):
@@ -213,15 +266,22 @@ def kernel_phase(device):
     rows = []
     for name, lq, lk, geometry, per_fwd in SHAPES:
         row = dict(shape=name, B=BATCH, Lq=lq, Lk=lk, heads=HEADS,
-                   head_dim=HEAD_DIM, launches_per_forward=per_fwd)
+                   head_dim=HEAD_DIM, geometry=geometry, launches_per_forward=per_fwd)
+        dropout = dict(dropout_rate=0.1, deterministic=False, dropout_seed=1234)
         checks = [("fp32", torch.float32, 2e-5, {}),
                   ("bf16", torch.bfloat16, 2e-2, {}),
-                  ("fp32_dropout", torch.float32, 2e-5,
-                   dict(dropout_rate=0.1, deterministic=False, dropout_seed=1234))]
+                  ("fp32_dropout", torch.float32, 2e-5, dropout),
+                  ("bf16_dropout", torch.bfloat16, 2e-2, dropout)]
+        if lk > FP32_MAX_KEYS:
+            checks = [c for c in checks if c[1] != torch.float32]
+            row["fp32"] = f"not run: above the kernel's {FP32_MAX_KEYS} fp32 keys"
         for tag, dtype, atol, extra in checks:
             q, k, v, mask, kw = attention_inputs(lq, lk, geometry, dtype, device, seed=lq + lk)
             kw = dict(kw, compute_dtype=dtype, **extra)
+            before = attn.LAUNCHES
             got = attn.fused_attention(q, k, v, mask, HEADS, **kw)
+            if attn.LAUNCHES != before + 1:
+                raise AssertionError(f"{name} {tag}: the wrapper counted no launch")
             want = attn.fused_attention_reference(q, k, v, mask, HEADS, **kw)
             torch.cuda.synchronize()
             err = (got.float() - want.float()).abs().max().item()
@@ -235,7 +295,7 @@ def kernel_phase(device):
         row["plain_ms"] = time_ms(
             lambda: attn.fused_attention_reference(q, k, v, mask, HEADS, **kw))
         row["library_ms"] = None
-        if not geometry:
+        if geometry is None:
             def heads(x):
                 return x.view(BATCH, x.shape[1], HEADS, HEAD_DIM).transpose(1, 2)
 
@@ -277,8 +337,12 @@ def kernel_bwd_phase(device):
     rows = []
     for name, lq, lk, geometry, per_fwd in SHAPES:
         row = dict(shape=name, B=TRAIN_BATCH, Lq=lq, Lk=lk, heads=HEADS,
-                   head_dim=HEAD_DIM, launches_per_step=per_fwd)
-        for tag, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+                   head_dim=HEAD_DIM, geometry=geometry, launches_per_step=per_fwd)
+        dtypes = (("fp32", torch.float32), ("bf16", torch.bfloat16))
+        if lk > FP32_MAX_KEYS:
+            dtypes = dtypes[1:]
+            row["fp32"] = f"not run: above the kernel's {FP32_MAX_KEYS} fp32 keys"
+        for tag, dtype in dtypes:
             for rate in (0.0, 0.1):
                 q, k, v, mask, kw = attention_inputs(lq, lk, geometry, dtype, device,
                                                      seed=lq + lk, batch=TRAIN_BATCH)
@@ -286,10 +350,11 @@ def kernel_bwd_phase(device):
                                 ).to(device, dtype)
                 kw = dict(kw, compute_dtype=dtype, dropout_rate=rate,
                           deterministic=rate == 0.0, dropout_seed=4321)
-                bnd, w, geo, r, seed = attn._resolve(
-                    q, kw.get("boundary"), kw.get("w0"), kw.get("w1"), None, 0, 0,
-                    rate, rate == 0.0, 4321)
+                bnd, w, geo, r, seed = resolve_geometry(attn, q, kw, rate, 4321)
+                before = attn.LAUNCHES_BWD
                 got = attn._launch_bwd(q, k, v, mask, g, HEADS, bnd, w, geo, r, seed)
+                if attn.LAUNCHES_BWD != before + 1:
+                    raise AssertionError(f"bwd {name} {tag}: the wrapper counted no launch")
                 want = attn.fused_attention_bwd_reference(q, k, v, mask, g, HEADS, **kw)
                 torch.cuda.synchronize()
                 key = f"{tag}{'_dropout' if rate else ''}"
@@ -301,7 +366,7 @@ def kernel_bwd_phase(device):
                     if not err <= bar * top:
                         raise AssertionError(f"bwd {name} {key} {t_name}: kernel vs plain "
                                              f"{err} > {bar} * {top}")
-                if geometry:
+                if geometry is not None:
                     # the scale of the dw sums: sum |ds * s_raw| over the regions
                     with torch.no_grad():
                         qf, kf = q.float(), k.float()
@@ -329,18 +394,16 @@ def kernel_bwd_phase(device):
                                              seed=7, batch=TRAIN_BATCH)
         g = torch.randn(q.shape, generator=torch.Generator().manual_seed(8)
                         ).to(device, torch.bfloat16)
-        rate = 0.1 if geometry else 0.0
+        rate = 0.1 if geometry is not None else 0.0
         kw = dict(kw, compute_dtype=torch.bfloat16, dropout_rate=rate,
                   deterministic=rate == 0.0, dropout_seed=99)
-        bnd, w, geo, r, seed = attn._resolve(q, kw.get("boundary"), kw.get("w0"),
-                                             kw.get("w1"), None, 0, 0, rate,
-                                             rate == 0.0, 99)
+        bnd, w, geo, r, seed = resolve_geometry(attn, q, kw, rate, 99)
         row["kernel_ms"] = time_ms(
             lambda: attn._launch_bwd(q, k, v, mask, g, HEADS, bnd, w, geo, r, seed))
         row["plain_ms"] = time_ms(
             lambda: attn.fused_attention_bwd_reference(q, k, v, mask, g, HEADS, **kw))
         row["library_ms"] = None
-        if not geometry:
+        if geometry is None:
             def heads(x):
                 return x.view(TRAIN_BATCH, x.shape[1], HEADS, HEAD_DIM).transpose(1, 2)
 
@@ -723,16 +786,25 @@ def cli_train_phase():
 # L=96) runs 12 text, 8 vision and 4 vision-over-text calls; the analogy
 # pre-train shapes (B=64, L=128; its vision shape is the one above); two Q
 # tiles (512 x 512) and two K tiles, the second ragged (99 x 611), at B=8;
-# attention alone at L=2048 (8 Q tiles x 4 K tiles).
+# attention alone at L=2048 (8 Q tiles x 4 K tiles). The image path: FLAVA's
+# fine-tune step (B=24) runs 12 image layers over 393 unpadded tokens, 12
+# text layers over 128 with the multiplier from row 1, and 6 multimodal
+# layers over 1 + 393 + 128 tokens without a mask; ViLT in fp32 takes these
+# kernels over its 128 padded text + 290 image tokens (B=32). The geometry
+# is None or (row_start, text_len, offset); text_len None is Lq.
 FLASH_SHAPES = [
-    ("triple_text", 64, 96, 96, "text", False, 12),
-    ("vision", 64, 99, 99, "vision", False, 8),
-    ("triple_vision_text", 64, 99, 195, "vision_text", False, 4),
-    ("analogy_text", 64, 128, 128, "text", True, 0),
-    ("analogy_vision_text", 64, 99, 227, "vision_text", False, 0),
-    ("long_text", 8, 512, 512, "text", True, 0),
-    ("long_vision_text", 8, 99, 611, "vision_text", False, 0),
-    ("attention_2048", 8, 2048, 2048, "text", False, 0),
+    ("triple_text", 64, 96, 96, "text", None, 12),
+    ("vision", 64, 99, 99, "vision", None, 8),
+    ("triple_vision_text", 64, 99, 195, "vision_text", None, 4),
+    ("analogy_text", 64, 128, 128, "text", (0, None, 0), 0),
+    ("analogy_vision_text", 64, 99, 227, "vision_text", None, 0),
+    ("long_text", 8, 512, 512, "text", (0, None, 0), 0),
+    ("long_vision_text", 8, 99, 611, "vision_text", None, 0),
+    ("attention_2048", 8, 2048, 2048, "text", None, 0),
+    ("flava_image", 24, 393, 393, "vision", None, 0),
+    ("flava_text", 24, 128, 128, "text", (1, None, 0), 0),
+    ("flava_multimodal", 24, 522, 522, "vision", None, 0),
+    ("vilt_fp32_route", 32, 418, 418, "text_image", (1, 128, 0), 0),
 ]
 PRETRAIN_BATCH, PRETRAIN_LEN = 64, 96  # scripts/run_pretrain_mkgformer.sh
 
@@ -750,15 +822,16 @@ def flash_inputs(b, lq, lk, kind, geometry, dtype, device, seed):
     if kind == "vision":
         mask = torch.ones(b, lk)
     else:
-        n_text = lk if kind == "text" else lk - lq
+        n_text = {"text": lk, "vision_text": lk - lq, "text_image": TEXT_LEN}[kind]
         lens = torch.randint(int(0.4 * n_text), n_text + 1, (b,), generator=g)
         mask = (torch.arange(n_text)[None] < lens[:, None]).float()
-        if kind == "vision_text":
-            mask = torch.cat([mask, torch.ones(b, lq)], dim=1)
+        mask = torch.cat([mask, torch.ones(b, lk - n_text)], dim=1)
     kw = {}
-    if geometry:
+    if geometry is not None:
+        row_start, geo_len, offset = geometry
         kw = dict(boundary=(lens // 2).to(device, torch.int32),
-                  w0=torch.tensor([0.3], device=device), w1=torch.tensor([0.7], device=device))
+                  w0=torch.tensor([0.3], device=device), w1=torch.tensor([0.7], device=device),
+                  row_start=row_start, text_len=geo_len, offset=offset)
     return q, k, v, go, mask.to(device), kw
 
 
@@ -835,12 +908,14 @@ def flash_kernel_phase(device):
                                                      device, seed=lq + lk)
                 kw = dict(kw, compute_dtype=dtype, dropout_rate=rate,
                           deterministic=rate == 0.0, dropout_seed=4321)
-                args = (HEADS, *fa._resolve(q, kw.get("boundary"), kw.get("w0"),
-                                            kw.get("w1"), None, 0, 0, rate, rate == 0.0,
-                                            4321), fa.BLOCK_Q, fa.BLOCK_K)
+                args = (HEADS, *resolve_geometry(fa, q, kw, rate, 4321),
+                        fa.BLOCK_Q, fa.BLOCK_K)
+                before = flash_counts()
                 out, lse = fa._launch_fwd(q, k, v, mask, *args)
                 delta = fa._delta(go, out, HEADS)
                 got = fa._launch_bwd(q, k, v, mask, go, lse, delta, *args)
+                if flash_counts() != {kernel: n + 1 for kernel, n in before.items()}:
+                    raise AssertionError(f"flash {name} {key}: a wrapper counted no launch")
                 want_out, want_lse = fa._plain_fwd(q, k, v, mask, *args[:6], dtype,
                                                    *args[6:])
                 want = fa.flash_attention_bwd_reference(q, k, v, mask, go, HEADS, out=out,
@@ -862,7 +937,7 @@ def flash_kernel_phase(device):
                     if not err <= bar * top:
                         raise AssertionError(f"flash bwd {name} {key} {t_name}: {err} > "
                                              f"{bar} * {top}")
-                if geometry:
+                if geometry is not None:
                     scales = flash_dw_scales(fa, q, k, v, mask, go, lse, delta, *args[1:6])
                     for i in range(2):
                         err = abs(got[3][i].item() - want[3][i].item())
@@ -874,13 +949,12 @@ def flash_kernel_phase(device):
                     raise AssertionError(f"flash bwd {name}: dw without a geometry")
                 del q, k, v, go, out, lse, delta, got, want, want_out
         # timing in the main path's dtype
-        rate = 0.1 if kind == "text" else 0.0
+        rate = 0.1 if kind in ("text", "text_image") else 0.0
         q, k, v, go, mask, kw = flash_inputs(b, lq, lk, kind, geometry, torch.bfloat16,
                                              device, seed=7)
         kw = dict(kw, compute_dtype=torch.bfloat16, dropout_rate=rate,
                   deterministic=rate == 0.0, dropout_seed=99)
-        args = (HEADS, *fa._resolve(q, kw.get("boundary"), kw.get("w0"), kw.get("w1"), None,
-                                    0, 0, rate, rate == 0.0, 99), fa.BLOCK_Q, fa.BLOCK_K)
+        args = (HEADS, *resolve_geometry(fa, q, kw, rate, 99), fa.BLOCK_Q, fa.BLOCK_K)
         out, lse = fa._launch_fwd(q, k, v, mask, *args)
         delta = fa._delta(go, out, HEADS)
         n = dict(samples=7, per_sample=3) if lq >= 2048 else {}
@@ -894,7 +968,7 @@ def flash_kernel_phase(device):
         row["plain_bwd_ms"] = time_ms(lambda: fa.flash_attention_bwd_reference(
             q, k, v, mask, go, HEADS, out=out, lse=lse, **kw), **n)
         row["library_fwd_ms"] = row["library_bwd_ms"] = None
-        if geometry:
+        if geometry is not None:
             row["library_note"] = "no single PyTorch call applies the analogy multiplier"
         else:
             def heads(x):
@@ -970,9 +1044,11 @@ def flash_counts():
 def reset_counts():
     from mkg_analogy_tpu_torch.kernels import attention as attn
     from mkg_analogy_tpu_torch.kernels import flash_attention as fa
+    from mkg_analogy_tpu_torch.kernels import image_prep as ip
 
     attn.LAUNCHES = attn.LAUNCHES_BWD = 0
     fa.LAUNCHES_FLASH = fa.LAUNCHES_FLASH_DKV = fa.LAUNCHES_FLASH_DQ = 0
+    ip.LAUNCHES_RESIZE = 0
 
 
 def set_backend(model, backend):
@@ -1229,6 +1305,515 @@ def cli_pretrain_phase():
     return total
 
 
+# The resize kernel's shapes: (name, B, out size, statistics, extents). The
+# image tool resizes 64 decoded canvases a launch (fewer in the last chunk of
+# a run and for an entity's few images) and one in its vit mode; 224 px with
+# the CLIP or ImageNet statistics, 384 px with ViLT's. "full": every image
+# fills the 512 x 512 canvas; "mixed": the true extents vary (full canvas,
+# 1 x 1, one row, one column, narrower than the output, non-square) and the
+# canvas outside the extent holds 255 in every other image, which must not
+# be read; "one": one image of 300 x 200 px, 255 outside. A single
+# F.interpolate call computes the same where every image has one extent.
+RESIZE_SHAPES = [
+    ("full_224_clip", 64, 224, "clip", "full"),
+    ("mixed_224_clip", 64, 224, "clip", "mixed"),
+    ("mixed_384_vilt", 64, 384, "vilt", "mixed"),
+    ("single_224_clip", 1, 224, "clip", "one"),
+]
+RESIZE_OPS_PER_PIXEL = 70   # fp32 operations of one output pixel (two taps, 3 channels)
+FP32_FLOPS_PER_S = 67e12    # H100 SXM data sheet, fp32 outside the tensor cores
+
+
+def resize_inputs(b, extents, device, seed):
+    import numpy as np
+    import torch
+
+    from mkg_analogy_tpu_torch.kernels.image_prep import CANVAS
+
+    rng = np.random.default_rng(seed)
+    canvas = rng.integers(0, 256, (b, CANVAS, CANVAS, 3), dtype=np.uint8)
+    if extents == "full":
+        sizes = np.full((b, 2), CANVAS, np.int32)
+    elif extents == "one":
+        sizes = np.tile(np.array([[300, 200]], np.int32), (b, 1))
+        canvas[:, 300:] = 255
+        canvas[:, :, 200:] = 255
+    else:
+        sizes = np.stack([rng.integers(1, CANVAS + 1, b), rng.integers(1, CANVAS + 1, b)],
+                         1).astype(np.int32)
+        fixed = [(CANVAS, CANVAS), (1, 1), (1, CANVAS), (CANVAS, 1), (100, 37), (37, 300),
+                 (223, 225), (500, 3)]
+        sizes[: len(fixed)] = fixed[:b]
+        for i, (h, w) in enumerate(sizes):
+            outside = 255 if i % 2 else 0
+            canvas[i, h:] = outside
+            canvas[i, :, w:] = outside
+    return torch.from_numpy(canvas).to(device), torch.from_numpy(sizes).to(device)
+
+
+def image_kernel_phase(device):
+    """The resize-and-normalise kernel against resize_normalize_reference
+    (the interpolation matrices and two einsums, fp32 without TF32) at
+    RESIZE_SHAPES, within 1e-5 absolute: where the source coordinate lands
+    within an ulp of an integer the two may floor to neighbouring pixels, and
+    the result is continuous there. Times of the kernel and of the plain
+    version; the bound from this run's extents (an image: min(h, 2S) x
+    min(w, 2S) x 3 bytes read, since an output pixel takes a 2 x 2 tap and
+    above 2S the taps of neighbouring outputs no longer touch, the two int32
+    extents read, 3 x S x S fp32 written; the operations bound nothing); and,
+    where every image has the same extent (h, w), one F.interpolate call
+    (bilinear, align_corners=False, antialias=False) on the (h, w) corner of
+    the canvases as fp32 (B, 3, h, w) in [0, 1]: the yardstick's time is that
+    call alone, its error is taken after the same normalisation."""
+    import torch
+    import torch.nn.functional as F
+
+    from mkg_analogy_tpu_torch.kernels import image_prep as ip
+
+    stats = dict(clip=(ip.CLIP_MEAN, ip.CLIP_STD), vilt=(ip.VILT_MEAN, ip.VILT_STD))
+    rows = []
+    for name, b, size, stat, extents in RESIZE_SHAPES:
+        mean, std = stats[stat]
+        canvas, sizes = resize_inputs(b, extents, device, seed=size + b)
+        before = ip.LAUNCHES_RESIZE
+        got = ip.resize_normalize(canvas, sizes, size, mean, std)
+        if ip.LAUNCHES_RESIZE != before + 1:
+            raise AssertionError(f"resize {name}: the wrapper counted no launch")
+        want = ip.resize_normalize_reference(canvas, sizes, size, mean, std)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        if got.shape != (b, 3, size, size) or not torch.isfinite(got).all() or not err <= 1e-5:
+            raise AssertionError(f"resize {name}: kernel vs plain {err} > 1e-5")
+        row = dict(shape=name, B=b, out_size=size, stats=stat, extents=extents,
+                   max_abs_err=err)
+        row["kernel_ms"] = time_ms(lambda: ip.resize_normalize(canvas, sizes, size, mean, std))
+        row["plain_ms"] = time_ms(
+            lambda: ip.resize_normalize_reference(canvas, sizes, size, mean, std),
+            samples=7, per_sample=2)
+        hw = sizes.long().clamp(max=2 * size).prod(dim=1).sum().item()
+        row["bytes_ms"] = (3 * hw + 8 * b + b * 3 * size * size * 4) / HBM_BYTES_PER_S * 1e3
+        row["operations_ms"] = (b * size * size * RESIZE_OPS_PER_PIXEL
+                                / FP32_FLOPS_PER_S * 1e3)
+        row["bound_ms"] = max(row["bytes_ms"], row["operations_ms"])
+        row["bound_by"] = bound_by(row["bytes_ms"], row["operations_ms"])
+        if extents in ("full", "one"):
+            h, w = sizes[0].tolist()
+            x = (canvas[:, :h, :w].permute(0, 3, 1, 2).float() / 255.0).contiguous()
+
+            def interpolate():
+                return F.interpolate(x, size=(size, size), mode="bilinear",
+                                     align_corners=False, antialias=False)
+
+            m = torch.tensor(mean, device=device).view(1, 3, 1, 1)
+            s = torch.tensor(std, device=device).view(1, 3, 1, 1)
+            row["library_max_abs_err"] = ((interpolate() - m) / s - want).abs().max().item()
+            row["library_ms"] = time_ms(interpolate)
+            # the same function up to its own rounding of the source coordinate,
+            # which near coordinate 300 moves a noisy image by several 1e-5
+            if not row["library_max_abs_err"] <= 1e-3:
+                raise AssertionError(f"resize {name}: F.interpolate is not the same function "
+                                     f"({row['library_max_abs_err']} from the plain version)")
+            row["library_note"] = ("F.interpolate alone, on images already fp32 NCHW in "
+                                   "[0, 1]; the conversion and the normalisation are not timed")
+        else:
+            row["library_ms"] = None
+            row["library_note"] = ("no single PyTorch call resizes images of different "
+                                   "extents in one batch")
+        rows.append(row)
+        emit(dict(phase="image_kernel", **row))
+        del canvas, sizes, got, want
+    torch.cuda.empty_cache()
+    return rows
+
+
+def write_image_tree(images_dir, entities, seed=0):
+    """One folder of 1-5 image files per entity, PNG and JPEG, heights and
+    widths from 8 to 320 px; the first entity also gets a 700 x 600 file
+    (larger than the canvas: the host downsizes it), a 512 x 512 one and a
+    1 x 1 one. Smooth random content (coarse noise, enlarged), so the
+    resized values vary."""
+    import numpy as np
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    n_files = 0
+    for i, e in enumerate(entities):
+        os.makedirs(os.path.join(images_dir, e))
+        shapes = [tuple(rng.integers(8, 321, 2)) for _ in range(rng.integers(1, 6))]
+        if i == 0:
+            shapes += [(700, 600), (512, 512), (1, 1)]
+        for j, (h, w) in enumerate(shapes):
+            coarse = rng.integers(0, 256, (-(-h // 8), -(-w // 8), 3), dtype=np.uint8)
+            arr = np.kron(coarse, np.ones((8, 8, 1), np.uint8))[:h, :w]
+            ext = "jpg" if j % 3 == 2 else "png"
+            Image.fromarray(arr).save(os.path.join(images_dir, e, f"{j}.{ext}"))
+            n_files += 1
+    return n_files
+
+
+def image_tool_phase(device):
+    """The image tool (``mkg_analogy_tpu_torch.tools.encode_images.main``)
+    over an entity-image tree written here with PIL: 40 of 48 entities have
+    images. ``pixels`` at 224 px (CLIP statistics) and at 384 px (ViLT's),
+    ``vgg`` (VGG16 through fc7 at full width, fp32) and ``vit`` (ViT-B/16 at
+    full width, fp32, attention through the single-block kernel), the
+    encoders from seeded random weights; the launch counts set to 0 before
+    each run and read after it. Each store has its shape, is finite, is what
+    ``numpy.load`` reads back, has zero rows exactly for the entities without
+    images; the pixel stores equal the plain version's output for the same
+    files within 1e-5; the vit store equals, within 1e-4 of its largest
+    value, the store of the same encoder with the plain attention."""
+    import numpy as np
+    import torch
+
+    from mkg_analogy_tpu_torch.data.images import open_store
+    from mkg_analogy_tpu_torch.data.readers import MarKG
+    from mkg_analogy_tpu_torch.kernels import attention as attn
+    from mkg_analogy_tpu_torch.kernels import image_prep as ip
+    from mkg_analogy_tpu_torch.tools import encode_images as tool
+
+    n_ent, n_with = 48, 40
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_images_", dir=".") as root:
+        markg_dir, _ = write_dataset(root, n_ent=n_ent)
+        images = os.path.join(root, "images")
+        n_files = write_image_tree(images, [f"Q{i}" for i in range(n_with)], seed=1)
+        markg = MarKG(markg_dir)
+        entity_files = tool.list_entity_images(images, markg.entities)
+        with_images = sorted(markg.ent2id[e] for e in entity_files)
+        without = sorted(set(range(n_ent)) - set(with_images))
+        t0 = time.perf_counter()
+        decoded = {e: [tool.decode_to_canvas(p) for p in files]
+                   for e, files in entity_files.items()}
+        decode_seconds = time.perf_counter() - t0
+
+        def run(tag, *flags):
+            path = os.path.join(root, f"{tag}.npy")
+            reset_counts()
+            t0 = time.perf_counter()
+            store = tool.main(["--images_dir", images, "--markg", markg_dir, "--out", path,
+                               "--device", "cuda", *flags])
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            launches = dict(resize=ip.LAUNCHES_RESIZE, attention_fwd=attn.LAUNCHES)
+            if not np.array_equal(np.load(path), store) or not np.isfinite(store).all():
+                raise AssertionError(f"image tool {tag}: the store on disk is not finite or "
+                                     "not what main returned")
+            rows = np.abs(store).reshape(store.shape[0], -1).max(axis=1)
+            if not (rows[with_images] > 0).all() or rows[without].any():
+                raise AssertionError(f"image tool {tag}: zero rows where images are, or "
+                                     "values where none is")
+            return path, store, seconds, launches
+
+        for tag, size, stat in (("pixels_224_clip", 224, "clip"), ("pixels_384_vilt", 384, "vilt")):
+            path, store, seconds, launches = run(tag, "--mode", "pixels", "--size", str(size),
+                                                 "--stats", stat, "--seed", "1")
+            if store.shape != (n_ent, 3, size, size):
+                raise AssertionError(f"image tool {tag}: store {store.shape}")
+            if launches != dict(resize=math.ceil(n_with / 64), attention_fwd=0):
+                raise AssertionError(f"image tool {tag}: launches {launches}")
+            rng = np.random.default_rng(1)
+            mean, std = ((ip.CLIP_MEAN, ip.CLIP_STD) if stat == "clip"
+                         else (ip.VILT_MEAN, ip.VILT_STD))
+            err = 0.0
+            for e, files in entity_files.items():
+                canvas, hw = decoded[e][rng.integers(len(files))]
+                want = ip.resize_normalize_reference(
+                    torch.from_numpy(canvas)[None].to(device),
+                    torch.tensor([hw], dtype=torch.int32, device=device), size, mean, std)
+                err = max(err, float(np.abs(want[0].cpu().numpy()
+                                            - store[markg.ent2id[e]]).max()))
+            if not err <= 1e-5:
+                raise AssertionError(f"image tool {tag}: store vs plain version {err} > 1e-5")
+            opened = open_store(path, n_ent, size).gather(np.asarray(with_images[:2]))
+            if opened.shape != (2, 1, 3, size, size):
+                raise AssertionError(f"image tool {tag}: open_store gathers {opened.shape}")
+            out[tag] = dict(store=list(store.shape), images=n_with, seconds=seconds,
+                            images_per_sec=n_with / seconds, launches=launches,
+                            max_abs_err_vs_plain=err)
+
+        path, store, seconds, launches = run("vgg", "--mode", "vgg")
+        if store.shape != (n_ent + 1, 4096) or store[n_ent].any():
+            raise AssertionError(f"image tool vgg: store {store.shape} or a pad row with values")
+        if launches != dict(resize=n_with, attention_fwd=0):
+            raise AssertionError(f"image tool vgg: launches {launches}")
+        out["vgg"] = dict(store=list(store.shape), images=n_files, seconds=seconds,
+                          images_per_sec=n_files / seconds, launches=launches)
+
+        path, store, seconds, launches = run("vit", "--mode", "vit", "--seed", "1")
+        if store.shape != (n_ent, 1000):
+            raise AssertionError(f"image tool vit: store {store.shape}")
+        if launches != dict(resize=n_with, attention_fwd=12 * n_with):
+            raise AssertionError(f"image tool vit: launches {launches}")
+        model = tool.make_encoder("vit", device)
+        set_backend(model, "plain")
+        plain = tool.vit_store(((markg.ent2id[e], d[:8]) for e, d in decoded.items()), n_ent,
+                               model, ip.CLIP_MEAN, ip.CLIP_STD, device)
+        err, top = float(np.abs(plain - store).max()), float(np.abs(plain).max())
+        if not err <= 1e-4 * top:
+            raise AssertionError(f"image tool vit: kernel attention vs plain {err} > 1e-4 * {top}")
+        n_decoded = sum(min(len(f), 8) for f in entity_files.values())
+        out["vit"] = dict(store=list(store.shape), entities=n_with, images_decoded=n_decoded,
+                          seconds=seconds, entities_per_sec=n_with / seconds,
+                          launches=launches, max_abs_err_vs_plain_attention=err,
+                          largest_value=top)
+        del model
+    torch.cuda.empty_cache()
+    total = dict(resize=sum(r["launches"]["resize"] for r in out.values()),
+                 attention_fwd=out["vit"]["launches"]["attention_fwd"])
+    emit(dict(phase="image_tool", pil=True, entities=n_ent, entities_with_images=n_with,
+              image_files=n_files, host_decode_seconds=decode_seconds,
+              host_decode_images_per_sec=n_files / decode_seconds, launches=total, **out))
+    return total
+
+
+def all_counts():
+    from mkg_analogy_tpu_torch.kernels import attention as attn
+
+    return dict(single_fwd=attn.LAUNCHES, single_bwd=attn.LAUNCHES_BWD,
+                **{f"flash_{k}": n for k, n in flash_counts().items()})
+
+
+# The two families that read the tool's pixel stores, at the recipes of
+# scripts/run_finetune_vilt.sh and scripts/run_finetune_flava.sh (L=128).
+# ``calls``: attention calls of one forward (ViLT 12 layers over 128 + 290
+# tokens; FLAVA 12 image layers over 393, 12 text layers over 128 and 6
+# multimodal layers over 522). ``auto_flash``: the calls whose query length
+# reaches FLASH_AUTO_MIN_LEN, which the plain route sends to the flash
+# kernels. ``backend``: the card's default (models/registry.py).
+FAMILIES = {
+    "vilt": dict(model_class="ViltKGC", batch=32, image=384, alpha=0.3, lr=4e-5,
+                 stats="vilt", backend="single", calls=12, auto_flash=0),
+    "flava": dict(model_class="FlavaKGC", batch=24, image=224, alpha=0.45, lr=5e-5,
+                  stats="clip", backend="flash", calls=30, auto_flash=6),
+}
+
+
+def family_counts(backend, calls, backward=True):
+    n_b = calls if backward else 0
+    zero = dict(single_fwd=0, single_bwd=0, flash_fwd=0, flash_dkv=0, flash_dq=0)
+    if backend == "single":
+        return dict(zero, single_fwd=calls, single_bwd=n_b)
+    return dict(zero, flash_fwd=calls, flash_dkv=n_b, flash_dq=n_b)
+
+
+def family_phase(device, name):
+    """A full-width ViLT or FLAVA fine-tune step at its recipe's batch,
+    L=128, dropout on. (1) fp32, from one state dict, batch and seeds,
+    through the flash kernels (the single-block kernel holds 400 keys in
+    fp32, fewer than either family attends over) and through autograd of
+    the kernels' plain version. Gates: the loss within 1e-5 relative; each
+    gradient leaf within 1e-3 of that leaf's largest |gradient| plus 1e-6 of
+    the model's largest. Then, with the attention dropout off and the
+    hidden dropout on, through the flash kernels and through the plain
+    attention: over more than 256 queries the flash kernels draw their
+    dropout mask per (256, 512) tile and the plain attention draws one over
+    the whole block, so with attention dropout the two are different draws.
+    The plain attention sends FLAVA's 522-token multimodal tower to the
+    flash kernels, as in JAX. Gate: the loss within 1e-5 relative; the
+    leaves' ratio is printed. (2) bf16 through the family's default
+    kernels, the main path: a forward, then 6 AdamW steps on one batch, the
+    loss finite and falling, the launches of every step, the median step
+    over steps 3-6 and a device profile of one step."""
+    import torch
+
+    from mkg_analogy_tpu_torch.kernels import flash_attention as fa
+    from mkg_analogy_tpu_torch.models import common
+    from mkg_analogy_tpu_torch.models.common import DropoutRNG
+    from mkg_analogy_tpu_torch.models.registry import create_model
+    from mkg_analogy_tpu_torch.train.optim import make_optimizer
+    from mkg_analogy_tpu_torch.train.trainer import MarTTrainer, TrainConfig, finetune_positions
+
+    fam = FAMILIES[name]
+    b, calls = fam["batch"], fam["calls"]
+    batch = train_batch(device, b=b, seed=6)
+    g = torch.Generator().manual_seed(7)
+    batch["pixel_values"] = torch.randn(b, 2, 3, fam["image"], fam["image"],
+                                        generator=g).to(device)
+    out = {}
+    with torch.device(device):
+        model = create_model(fam["model_class"], vocab_size=42112, dtype="float32",
+                             attention="flash")
+    model.init_params(torch.Generator(device=device).manual_seed(0))
+    state = {k: v.clone() for k, v in model.state_dict().items()}
+    trainer = MarTTrainer(model, _AnalogyVocab(), TrainConfig(alpha=fam["alpha"]),
+                          device=device)
+    runs = {}
+    common.ATTENTION_BACKENDS["flash_plain"] = fa.flash_attention_reference
+    try:
+        # (run, backend, attention dropout, flash launches of each kind)
+        for run, backend, rate, n in (
+                ("flash", "flash", 0.1, calls), ("flash_plain", "flash_plain", 0.1, 0),
+                ("flash_nodrop", "flash", 0.0, calls),
+                ("plain_nodrop", "plain", 0.0, fam["auto_flash"])):
+            model.load_state_dict(state)
+            for m in model.modules():
+                if isinstance(m, common.AttentionCore):
+                    m.backend, m.dropout_rate = backend, rate
+            model.zero_grad(set_to_none=True)
+            reset_counts()
+            loss, _ = trainer._finetune_loss(batch, DropoutRNG.from_seed(5, device))
+            loss.backward()
+            torch.cuda.synchronize()
+            if all_counts() != family_counts("flash", n):
+                raise AssertionError(f"{name} fp32 step {run}: launches {all_counts()}")
+            runs[run] = (loss.item(), {k: None if p.grad is None else p.grad.clone()
+                                       for k, p in model.named_parameters()})
+    finally:
+        del common.ATTENTION_BACKENDS["flash_plain"]
+    for got, ref in (("flash", "flash_plain"), ("flash_nodrop", "plain_nodrop")):
+        a, c = runs[got][0], runs[ref][0]
+        if not (math.isfinite(a) and abs(a - c) <= 1e-5 * abs(c)):
+            raise AssertionError(f"{name} fp32 loss: {got} {a} vs {ref} {c}")
+    worst, worst_name = leaf_ratios(runs["flash"][1], runs["flash_plain"][1])
+    if not worst <= 1.0:
+        raise AssertionError(f"{name} fp32 grad {worst_name}: kernels vs their plain version "
+                             f"at {worst} of the bar")
+    no_grad = sorted(k for k, g in runs["flash"][1].items() if g is None)
+    if no_grad:
+        raise AssertionError(f"{name} fp32 step: no gradient reached {no_grad}")
+    lk, lp = runs["flash_nodrop"][0], runs["plain_nodrop"][0]
+    out["fp32"] = dict(
+        loss_kernels=runs["flash"][0], loss_kernels_plain_version=runs["flash_plain"][0],
+        grad_leaves=len(runs["flash"][1]),
+        worst_err_over_bar_vs_plain_version=worst, worst_leaf=worst_name,
+        loss_kernels_no_attention_dropout=lk, loss_plain_attention_no_attention_dropout=lp,
+        loss_rel_diff_plain_attention=abs(lk - lp) / abs(lp),
+        worst_err_over_bar_vs_plain_attention=leaf_ratios(runs["flash_nodrop"][1],
+                                                          runs["plain_nodrop"][1]),
+        launches=family_counts("flash", calls))
+    del runs, model, trainer
+    torch.cuda.empty_cache()
+
+    with torch.device(device):
+        model = create_model(fam["model_class"], vocab_size=42112, dtype="bfloat16",
+                             attention=fam["backend"])
+    model.load_state_dict(state)
+    del state
+    reset_counts()
+    with torch.inference_mode():
+        trans = model(input_ids=batch["input_ids"], attention_mask=batch["attention_mask"],
+                      token_type_ids=batch["token_type_ids"],
+                      pixel_values=batch["pixel_values"], positions=finetune_positions(batch),
+                      boundary=batch["sep_idx"][:, 2])
+        logits = model.logits(trans[:, 0], vocab_ids=torch.arange(20000, 22063, device=device))
+        torch.cuda.synchronize()
+    if all_counts() != family_counts(fam["backend"], calls, backward=False) \
+            or logits.shape != (b, 2063) or not torch.isfinite(logits).all():
+        raise AssertionError(f"{name} bf16 forward: launches {all_counts()}, logits "
+                             f"{tuple(logits.shape)}")
+    trainer = MarTTrainer(model, _AnalogyVocab(), TrainConfig(alpha=fam["alpha"], seed=3),
+                          device=device)
+    opt = make_optimizer(model, 1e-4, 100, warmup_ratio=0.0)
+    losses, times = [], []
+    torch.cuda.reset_peak_memory_stats()
+    expect = family_counts(fam["backend"], calls)
+    for step in range(6):
+        reset_counts()
+        t0 = time.perf_counter()
+        metrics = trainer._train_step(opt, batch, step)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        if all_counts() != expect:
+            raise AssertionError(f"{name} bf16 step {step}: launches {all_counts()}, "
+                                 f"expected {expect}")
+        losses.append(metrics["loss"].item())
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"{name} bf16 loss did not fall: {losses}")
+    step_ms = statistics.median(times[2:])
+    out["bf16"] = dict(backend=fam["backend"], losses=losses, step_ms=times,
+                       median_step_ms=step_ms, examples_per_sec=b / step_ms * 1e3,
+                       launches_per_step=expect,
+                       peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+                       device_profile_step=device_profile(
+                           lambda: trainer._train_step(opt, batch, 6), top=12))
+    emit(dict(phase=name, B=b, L=128, image_size=fam["image"], **out))
+    del model, trainer, opt
+    torch.cuda.empty_cache()
+    return expect
+
+
+def cli_image_phase():
+    """The main path of the image slice, end to end, for ViLT (384-px store,
+    ViLT statistics) and FLAVA (224-px store, CLIP statistics): the image
+    tool's ``pixels`` mode writes a store for the dataset of write_dataset
+    from an image tree written here (56 of its 64 entities have images);
+    ``cli.main --model_class ... --image_features <that store>`` fine-tunes
+    one epoch in bf16 at the family's recipe (128 examples: 4 steps at B=32,
+    5 at B=24, the last batch dropped), evaluates dev (1 batch) and test (2
+    batches) and tests the best-dev checkpoint; ``--only_test --checkpoint``
+    reproduces the ranks. The counts are set to 0 before each family's run
+    (tool and fine-tune) and read after it."""
+    import numpy as np
+    import torch
+
+    from mkg_analogy_tpu_torch.cli import main as cli
+    from mkg_analogy_tpu_torch.kernels import image_prep as ip
+    from mkg_analogy_tpu_torch.tools import encode_images as tool
+
+    n_train, n_test, n_with = 128, 200, 56
+    runs = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_image_cli_", dir=".") as root:
+        markg, mars = write_dataset(root, n_train=n_train, n_test=n_test)
+        images = os.path.join(root, "images")
+        write_image_tree(images, [f"Q{i}" for i in range(n_with)], seed=2)
+        for name, fam in FAMILIES.items():
+            store = os.path.join(root, f"{name}_pixels.npy")
+
+            def argv(out_dir, *extra):
+                return ["--data_dir", mars, "--pretrain_path", markg, "--device", "cuda",
+                        "--model_class", fam["model_class"], "--image_features", store,
+                        "--dtype", "bfloat16", "--max_seq_length", "128",
+                        "--output_dir", out_dir, "--log_dir", os.path.join(root, f"logs_{name}"),
+                        "--cache_dir", os.path.join(root, "cache"), *extra]
+
+            reset_counts()
+            t0 = time.perf_counter()
+            tool.main(["--images_dir", images, "--markg", markg, "--out", store,
+                       "--mode", "pixels", "--size", str(fam["image"]),
+                       "--stats", fam["stats"], "--device", "cuda"])
+            tool_seconds = time.perf_counter() - t0
+            fit_dir = os.path.join(root, f"{name}_fit")
+            t0 = time.perf_counter()
+            metrics = cli.main(argv(fit_dir, "--max_epochs", "1",
+                                    "--batch_size", str(fam["batch"]), "--lr", str(fam["lr"]),
+                                    "--alpha", str(fam["alpha"])))
+            seconds = time.perf_counter() - t0
+            launches = dict(all_counts(), resize=ip.LAUNCHES_RESIZE)
+            steps = n_train // fam["batch"]
+            fwd_only = family_counts(fam["backend"], fam["calls"], backward=False)
+            both = family_counts(fam["backend"], fam["calls"])
+            expect = {k: both[k] * steps + fwd_only[k] * (1 + math.ceil(n_test / 128))
+                      for k in both}
+            expect["resize"] = math.ceil(n_with / 64)
+            if launches != expect:
+                raise AssertionError(f"cli {name}: launches {launches}, expected {expect}")
+            if not all(math.isfinite(v) for v in metrics.values()):
+                raise AssertionError(f"cli {name}: non-finite test metrics {metrics}")
+            ranks = np.load(os.path.join(fit_dir, "test_ranks.npz"))["ranks"]
+            test_dir = os.path.join(root, f"{name}_retest")
+            retest = cli.main(argv(test_dir, "--only_test", "--checkpoint",
+                                   os.path.join(fit_dir, "ckpt")))
+            again = np.load(os.path.join(test_dir, "test_ranks.npz"))["ranks"]
+            if len(ranks) != n_test or not np.array_equal(again, ranks) or retest != metrics:
+                raise AssertionError(f"cli {name}: --only_test --checkpoint did not reproduce "
+                                     f"the fit's test ranks ({float((again == ranks).mean())} "
+                                     "alike)")
+            with open(os.path.join(root, f"logs_{name}", "train_metrics.jsonl")) as f:
+                epoch = next(r for r in map(json.loads, f) if "train/examples_per_sec" in r)
+            runs[name] = dict(
+                store=[64, 3, fam["image"], fam["image"]], tool_seconds=tool_seconds,
+                batch_size=fam["batch"], steps=steps, launches=launches, seconds=seconds,
+                test_mrr=metrics["Eval_entity/mrr"], test_hits10=metrics["Eval_entity/hits10"],
+                examples_per_sec_after_step_1=epoch["train/examples_per_sec"],
+                last_loss=epoch["train/last_loss"], retest_ranks_identical=True)
+            torch.cuda.empty_cache()
+    total = {k: sum(r["launches"][k] for r in runs.values()) for k in runs["vilt"]["launches"]}
+    emit(dict(phase="cli_image", dtype="bfloat16", train_examples=n_train,
+              entities_with_images=n_with, launches=total, **runs))
+    return total
+
+
 FLASH_KERNELS = {
     "fwd": ("flash_attention_fwd", "flash_attention_fwd.cu", 98),
     "dkv": ("flash_attention_bwd_dkv", "flash_attention_bwd.cu", 183),
@@ -1312,6 +1897,14 @@ def main() -> int:
     flash_launches = cli_pretrain_phase()
     if not all(flash_launches.values()):
         raise AssertionError(f"the pre-train path launched no flash kernel: {flash_launches}")
+    resize_rows = image_kernel_phase(device)
+    tool_launches = image_tool_phase(device)
+    for name in FAMILIES:
+        family_phase(device, name)
+    image_launches = cli_image_phase()
+    if not all(tool_launches.values()) or not all(image_launches.values()):
+        raise AssertionError("the image path launched no kernel somewhere: tool "
+                             f"{tool_launches}, fine-tune {image_launches}")
 
     def per_call_set(rows, key, n):
         return sum(r[key] * r[n] for r in rows)
@@ -1325,8 +1918,10 @@ def main() -> int:
         source="mkg_analogy_tpu_torch/csrc/fused_attention_fwd.cu",
         replaces="mkg_analogy_tpu/kernels/attention.py:124",
         ok=True, launches=launches["fwd"], launches_eval_path=eval_launches,
-        max_abs_err=max(r["max_abs_err_bf16"] for r in rows),
-        max_abs_err_fp32=max(r["max_abs_err_fp32"] for r in rows),
+        launches_image_path=image_launches["single_fwd"],
+        launches_image_tool=tool_launches["attention_fwd"],
+        max_abs_err=max(r[f"max_abs_err_bf16{d}"] for r in rows for d in ("", "_dropout")),
+        max_abs_err_fp32=max(r["max_abs_err_fp32"] for r in rows if "fp32" not in r),
         # per full-width forward at B=128: 12 text + 8 vision + 4 vision-text calls
         ms=per_call_set(rows, "kernel_ms", "launches_per_forward"),
         plain_ms=per_call_set(rows, "plain_ms", "launches_per_forward"),
@@ -1338,9 +1933,11 @@ def main() -> int:
         source="mkg_analogy_tpu_torch/csrc/fused_attention_bwd.cu",
         replaces="mkg_analogy_tpu/kernels/attention.py:159",
         ok=True, launches=launches["bwd"],
+        launches_image_path=image_launches["single_bwd"],
         max_abs_err=max(r[f"max_abs_err_{t}_bf16{d}"] for r in bwd_rows
                         for t in ("dq", "dk", "dv") for d in ("", "_dropout")),
         max_abs_err_fp32=max(r[f"max_abs_err_{t}_fp32{d}"] for r in bwd_rows
+                             if "fp32" not in r
                              for t in ("dq", "dk", "dv") for d in ("", "_dropout")),
         # per full-width train step at B=32: 12 text + 8 vision + 4 vision-text calls
         ms=per_call_set(bwd_rows, "kernel_ms", "launches_per_step"),
@@ -1348,8 +1945,20 @@ def main() -> int:
         bound_ms=max(b_bytes, b_ops), bound_by=bound_by(b_bytes, b_ops),
         library_ms=None,  # per shape below: SDPA's backward at the vision shapes
         shapes=bwd_rows,
-    )] + [flash_entry(flash_rows, kernel, flash_launches[kernel]) for kernel in
-          ("fwd", "dkv", "dq")]})
+    )] + [dict(flash_entry(flash_rows, kernel, flash_launches[kernel]),
+               launches_image_path=image_launches[f"flash_{kernel}"])
+          for kernel in ("fwd", "dkv", "dq")] + [dict(
+        name="resize_normalize", route="cuda",
+        source="mkg_analogy_tpu_torch/csrc/resize_normalize.cu",
+        replaces="mkg_analogy_tpu/kernels/image_prep.py:84",
+        ok=True, launches=image_launches["resize"],
+        launches_image_tool=tool_launches["resize"],
+        max_abs_err=max(r["max_abs_err"] for r in resize_rows),
+        # one call at B=64, every image the full 512 x 512 canvas, to 224 px:
+        # the shape at which one F.interpolate call computes the same
+        **{k: resize_rows[0][k] for k in ("plain_ms", "bound_ms", "bound_by", "library_ms")},
+        ms=resize_rows[0]["kernel_ms"], shapes=resize_rows,
+    )]})
     print(card)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -2,9 +2,13 @@
 ``mkg_analogy_tpu/cli/main.py`` (MarT/main.py:20-60 parity) plus
 ``--device``.
 
-Ported so far: fine-tuning, pre-training and evaluation of
-``MKGformerKGC``. Fine-tuning (MarT/scripts/run_finetune_mkgformer.sh
-parity), e.g.
+Ported so far: fine-tuning, pre-training and evaluation of the three
+families that read pixel stores, ``MKGformerKGC``, ``ViltKGC`` (384-px
+stores, scripts/run_finetune_vilt.sh: ``--batch_size 32 --lr 4e-5 --alpha
+0.3``) and ``FlavaKGC`` (224-px stores, scripts/run_finetune_flava.sh:
+``--batch_size 24 --lr 5e-5 --alpha 0.45``); ``--image_features`` names a
+store that ``python -m mkg_analogy_tpu_torch.tools.encode_images`` wrote.
+Fine-tuning (MarT/scripts/run_finetune_mkgformer.sh parity), e.g.
 
   python -m mkg_analogy_tpu_torch.cli.main \\
       --model_class MKGformerKGC --batch_size 32 --lr 5e-5 --alpha 0.43 \\
@@ -25,13 +29,18 @@ on its training features, as the JAX package does.
 It runs on CUDA unless ``--device cpu`` is given; with ``--device cuda`` and
 no GPU it raises instead of falling back to the CPU. On CUDA every attention
 call, forward and backward, goes through hand-written kernels: the
-single-block kernels with ``--fused_attention 1`` (the default), the
-K-blocked flash kernels with ``--fused_attention flash``;
-``--fused_attention 0`` runs the plain PyTorch attention, except that a
-sequence of 512 or more takes the flash kernels, as in JAX.
-``--export_torch``, parallelism and the other model families raise until
-their slices land. The JAX package's ``--prng`` is accepted and changes
-nothing; ``--xla_opt`` raises.
+single-block kernels with ``--fused_attention 1``, the K-blocked flash
+kernels with ``--fused_attention flash``; without the flag each family
+takes its default (models/registry.py:DEFAULT_ATTENTION: single for
+MKGformer and ViLT, flash for FLAVA, whose multimodal tower attends over
+394 + L tokens). The single-block kernels hold up to 717 keys in bf16 and
+400 in fp32 and raise above, naming the flash kernels: ViLT's L + 290
+tokens fit in bf16 only. ``--fused_attention 0`` runs the plain PyTorch
+attention, except that a sequence of 512 or more takes the flash kernels,
+as in JAX. ``--export_torch``, parallelism and the two region-feature
+families (VisualBertKGC, VilBertKGC) raise until their slices land. The
+JAX package's ``--prng`` is accepted and changes nothing; ``--xla_opt``
+raises.
 """
 
 from __future__ import annotations
@@ -130,11 +139,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--profile", action="store_true", default=False)
     p.add_argument("--fused_attention", type=str, default=None,
                    choices=["0", "1", "flash"],
-                   help="1 (default) -> the hand-written CUDA single-block "
+                   help="1 -> the hand-written CUDA single-block "
                         "fused-attention kernels; flash -> the K-blocked "
                         "(online-softmax) CUDA kernels, any sequence length; "
                         "0 -> the plain PyTorch attention (flash from L=512); "
-                        "on the CPU each kernel's plain version")
+                        "default: 1 for MKGformerKGC and ViltKGC, flash for "
+                        "FlavaKGC; on the CPU each kernel's plain version")
     p.add_argument("--exact_gelu", type=int, default=None, choices=[0, 1],
                    help="1 -> exact erf gelu in every dtype; 0 -> tanh "
                         "approximation under bf16")
@@ -178,7 +188,7 @@ def _refuse_unported(args) -> None:
         raise NotImplementedError(
             "--export_torch: the reference-format converters "
             "(models/export_torch.py) are a later slice of the port "
-            "(ROADMAP.md queue 2)")
+            "(ROADMAP.md, Open items 1, item 2)")
     if args.qk_bf16_grad and args.fused_attention == "0":
         raise NotImplementedError(
             "--qk_bf16_grad 1 with --fused_attention 0: the bf16 dq/dk "
@@ -193,7 +203,7 @@ def _refuse_unported(args) -> None:
 
 
 def make_model(args, vocab_size: int):
-    from ..models.registry import create_model
+    from ..models.registry import DEFAULT_ATTENTION, create_model
 
     overrides = {
         k: getattr(args, k)
@@ -202,8 +212,8 @@ def make_model(args, vocab_size: int):
     }
     gelu_impl = args.gelu_impl or (
         {None: "poly", 1: "erf", 0: "tanh"}[args.exact_gelu])
-    attention = {None: "single", "1": "single", "0": "plain",
-                 "flash": "flash"}[args.fused_attention]
+    attention = {None: DEFAULT_ATTENTION.get(args.model_class, "single"), "1": "single",
+                 "0": "plain", "flash": "flash"}[args.fused_attention]
     return create_model(args.model_class, vocab_size=vocab_size, dtype=args.dtype,
                         attention=attention, gelu_impl=gelu_impl, **overrides)
 

@@ -11,6 +11,7 @@ global one: a training forward takes one, an evaluation none.
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import Optional
 
@@ -317,6 +318,128 @@ class AttentionCore(nn.Module):
             # this, modeling_unimo.py:367-373)
             return out, kv_out, ctx
         return out, kv_out
+
+
+def init_flax_defaults(model: nn.Module, generator: torch.Generator) -> None:
+    """Random parameters with the Flax modules' default initializers, for
+    every submodule of the standard types: Dense/conv kernels lecun-normal
+    (a truncated normal of variance 1/fan_in), biases zero, LayerNorm and
+    BatchNorm scale one and bias zero (running mean 0, variance 1), the
+    adaptive analogy scalars w0 ~ U(0, 0.5) and w1 = 0.5
+    (modeling_unimo.py:305-310). Embedding tables and class tokens are the
+    owning model's to draw. In place, under ``torch.no_grad``."""
+    with torch.no_grad():
+        for module in model.modules():
+            if isinstance(module, (nn.Linear, nn.Conv2d)):
+                fan_in = module.weight[0].numel()
+                # flax lecun_normal: a standard normal truncated at +-2 (by
+                # inverse CDF), variance-corrected to 1/fan_in
+                lim = math.erf(2.0 / math.sqrt(2.0))
+                module.weight.uniform_(-lim, lim, generator=generator)
+                module.weight.erfinv_().mul_(
+                    math.sqrt(2.0) * fan_in ** -0.5 / 0.87962566103423978)
+                if module.bias is not None:
+                    module.bias.zero_()
+            elif isinstance(module, (nn.LayerNorm, nn.BatchNorm2d)):
+                module.weight.fill_(1.0)
+                module.bias.zero_()
+                if isinstance(module, nn.BatchNorm2d):
+                    module.running_mean.zero_()
+                    module.running_var.fill_(1.0)
+            if hasattr(module, "adaptive_w0"):
+                module.adaptive_w0.uniform_(0.0, 0.5, generator=generator)
+                module.adaptive_w1.fill_(0.5)
+
+
+def adaptive_weights(module: nn.Module) -> None:
+    """Declare the per-layer adaptive analogy-mask scalars on ``module``
+    (``adaptive_w0``, ``adaptive_w1``, shape (1,)); ``init_flax_defaults``
+    draws them."""
+    module.adaptive_w0 = nn.Parameter(torch.empty(1))
+    module.adaptive_w1 = nn.Parameter(torch.empty(1))
+
+
+class EncoderLayer(nn.Module):
+    """Generic transformer layer: post-LN (BERT) or pre-LN (ViT) residual
+    wiring, optional adaptive analogy score multiplier. Hidden dropout
+    follows the attention's output projection and the FFN, attention dropout
+    sits in the attention; both run only when a ``DropoutRNG`` is given."""
+
+    def __init__(self, hidden_size: int, num_heads: int, intermediate_size: int,
+                 hidden_act: str = "gelu", layer_norm_eps: float = 1e-12,
+                 dtype: torch.dtype = torch.float32, pre_norm: bool = False,
+                 hidden_dropout: float = 0.1, attention_dropout: float = 0.1,
+                 backend: str = "single", gelu_impl: str = "poly"):
+        super().__init__()
+        self.pre_norm = pre_norm
+        self.hidden_dropout = hidden_dropout
+        self.attn = AttentionCore(hidden_size, num_heads, hidden_size // num_heads,
+                                  dtype=dtype, backend=backend,
+                                  dropout_rate=attention_dropout)
+        self.ln1 = LayerNorm(hidden_size, layer_norm_eps, dtype=dtype)
+        self.ln2 = LayerNorm(hidden_size, layer_norm_eps, dtype=dtype)
+        self.fc1 = Dense(hidden_size, intermediate_size, dtype=dtype)
+        self.fc2 = Dense(intermediate_size, hidden_size, dtype=dtype)
+        self.act = get_activation(hidden_act, gelu_impl)
+
+    def _drop(self, h, rng):
+        if rng is not None and self.hidden_dropout > 0.0:
+            return dropout(h, self.hidden_dropout, rng.device)
+        return h
+
+    def forward(self, x, attn_bias=None, analogy=None,
+                rng: Optional[DropoutRNG] = None):
+        if self.pre_norm:
+            h, _ = self.attn(self.ln1(x), attention_bias=attn_bias, analogy=analogy,
+                             rng=rng)
+            x = x + self._drop(h, rng)
+            h = self.fc2(self.act(self.fc1(self.ln2(x))))
+            return x + self._drop(h, rng)
+        h, _ = self.attn(x, attention_bias=attn_bias, analogy=analogy, rng=rng)
+        x = self.ln1(x + self._drop(h, rng))
+        h = self.fc2(self.act(self.fc1(x)))
+        return self.ln2(x + self._drop(h, rng))
+
+
+class AnalogyEncoderLayer(nn.Module):
+    """EncoderLayer + per-layer adaptive analogy mask over the text block.
+
+    ``row_start`` follows the reference's per-family slice start (0 for
+    UniMo-style, 1 for ViLBERT/FLAVA which skip the CLS row).
+    ``compat_img_offset`` (a static image length) opts into the reference's
+    shifted mask geometry for single-stream models; see ops/masks.py.
+    """
+
+    def __init__(self, *args, row_start: int = 0,
+                 compat_img_offset: Optional[int] = None, **kwargs):
+        super().__init__()
+        self.row_start = row_start
+        self.compat_img_offset = compat_img_offset
+        adaptive_weights(self)
+        self.layer = EncoderLayer(*args, **kwargs)
+
+    def forward(self, x, attn_bias=None, boundary=None, text_len=None,
+                rng: Optional[DropoutRNG] = None):
+        analogy = None
+        if boundary is not None:
+            if self.compat_img_offset is not None:
+                text_len, offset = None, self.compat_img_offset
+            else:
+                offset = 0
+            analogy = (boundary, self.adaptive_w0, self.adaptive_w1, self.row_start,
+                       text_len, offset)
+        return self.layer(x, attn_bias=attn_bias, analogy=analogy, rng=rng)
+
+
+def training_rng(deterministic: bool, rng: Optional[DropoutRNG]) -> Optional[DropoutRNG]:
+    """The generators a forward draws from: none for an evaluation
+    (``deterministic``), the given ones for a training forward, which must
+    have them."""
+    if deterministic:
+        return None
+    if rng is None:
+        raise ValueError("a training forward (deterministic=False) needs a DropoutRNG")
+    return rng
 
 
 def gather_positions(seq: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:

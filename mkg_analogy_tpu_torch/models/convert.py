@@ -1,20 +1,26 @@
 """Carry JAX-package weights into the port.
 
-``unimo_params_from_jax`` maps a Flax ``UnimoForMaskedLM`` param tree, as
-nested dicts of numpy arrays (``jax.device_get`` of the tree), onto the
-port's ``UnimoForMaskedLM.state_dict()`` names. The port names its
-parameters after the Flax tree, so the map is mechanical (the same
-transposes as ``mkg_analogy_tpu/models/export_torch.py:37``):
+``params_from_jax`` maps a Flax param tree, as nested dicts of numpy arrays
+(``jax.device_get`` of the tree), onto the ``state_dict()`` names of the
+port's module of the same name: ``UnimoForMaskedLM``, ``ViltForMaskedLM``,
+``FlavaForMaskedLM``, ``VGG16Features``, ``ViTClassifier``,
+``ResNet50Features``. The port names its parameters after the Flax tree, so
+the map is mechanical (the same transposes as
+``mkg_analogy_tpu/models/export_torch.py:37``):
 
 - a Dense ``kernel`` (in, out) becomes a Linear ``weight`` (out, in);
-- the PatchEmbed conv ``kernel`` (P, P, C, H) becomes a Conv2d ``weight``
-  (H, C, P, P);
-- a LayerNorm ``scale`` becomes ``weight``;
-- everything else (embeddings, ``mlm_bias``, ``adaptive_w0/w1``, biases)
-  keeps its name and layout.
+- a Conv or PatchEmbed ``kernel`` (kh, kw, I, O) becomes a Conv2d ``weight``
+  (O, I, kh, kw);
+- a LayerNorm or BatchNorm ``scale`` becomes ``weight``; a BatchNorm's
+  ``mean`` and ``var`` of the ``batch_stats`` collection become
+  ``running_mean`` and ``running_var`` beside it;
+- everything else (embeddings, ``mlm_bias``, ``adaptive_w0/w1``, class
+  tokens, biases) keeps its name and layout.
 
-Pre-fusion text layers carry no ``fusion_dense`` in either tree. An orbax
-checkpoint on disk needs JAX to read; restore it there, then convert.
+``VGG16Features`` flattens its last feature map in the JAX module's (h, w,
+c) order, so fc6 needs no permutation here. Pre-fusion UniMo text layers
+carry no ``fusion_dense`` in either tree. An orbax checkpoint on disk needs
+JAX to read; restore it there, then convert.
 """
 
 from __future__ import annotations
@@ -23,6 +29,8 @@ from typing import Any, Dict
 
 import numpy as np
 import torch
+
+_RENAMED = {"scale": "weight", "mean": "running_mean", "var": "running_var"}
 
 
 def _flatten(tree: Dict[str, Any], prefix: str = ""):
@@ -34,19 +42,25 @@ def _flatten(tree: Dict[str, Any], prefix: str = ""):
             yield path, np.asarray(value)
 
 
-def unimo_params_from_jax(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-    """Flax UnimoForMaskedLM params (``{"params": ...}`` or the inner dict)
-    -> the port's state_dict (fp32 tensors), for ``load_state_dict(strict=
-    True)``."""
-    params = tree["params"] if "params" in tree else tree
+def params_from_jax(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """Flax variables (``{"params": ..., "batch_stats": ...}``, or the inner
+    params dict) -> the port's state_dict (fp32 tensors), for
+    ``load_state_dict``: ``strict=True`` holds for every module but those
+    with BatchNorm, whose ``num_batches_tracked`` counters Flax does not
+    have."""
+    collections = [tree[c] for c in ("params", "batch_stats") if c in tree] or [tree]
     sd: Dict[str, torch.Tensor] = {}
-    for path, value in _flatten(params):
-        value = value.astype(np.float32)
-        head, _, leaf = path.rpartition(".")
-        if leaf == "kernel":
-            value = value.T if value.ndim == 2 else value.transpose(3, 2, 0, 1)
-            path = f"{head}.weight"
-        elif leaf == "scale":
-            path = f"{head}.weight"
-        sd[path] = torch.from_numpy(np.ascontiguousarray(value))
+    for collection in collections:
+        for path, value in _flatten(collection):
+            value = value.astype(np.float32)
+            head, dot, leaf = path.rpartition(".")
+            if leaf == "kernel":
+                value = value.T if value.ndim == 2 else value.transpose(3, 2, 0, 1)
+                path = f"{head}{dot}weight"
+            elif leaf in _RENAMED:
+                path = f"{head}{dot}{_RENAMED[leaf]}"
+            sd[path] = torch.from_numpy(np.ascontiguousarray(value))
     return sd
+
+
+unimo_params_from_jax = params_from_jax  # the name of the first slices

@@ -9,15 +9,26 @@ Each model shares the interface::
     model.logits(trans_hidden, vocab_ids|vocab_start/end) -> logits
 
 ``IMAGE_INPUT`` describes the visual features each family consumes (the
-collator contract, data_module.py:121-161). Only MKGformerKGC is ported so
-far; the other four families come with a later slice of the port.
+collator contract, data_module.py:121-161). The three pixel families are
+ported: MKGformerKGC, ViltKGC and FlavaKGC. VisualBertKGC and VilBertKGC
+read detector region features and come with a later slice of the port.
+
+``DEFAULT_ATTENTION`` is the attention backend each family takes when the
+caller names none (models/common.py:AttentionCore). ViLT attends over L +
+290 tokens (418 at L=128), within the single-block kernel's shared memory in
+bf16 (717 keys; 400 in fp32, where the kernel's wrapper raises and names
+the flash kernels). FLAVA's multimodal tower attends over 394 + L tokens
+(522 at L=128), at the length from which the plain route takes the flash
+kernels, so flash is its default, in either dtype.
 """
 
 from __future__ import annotations
 
 from typing import Callable, Dict
 
+from .flava import FlavaConfig, FlavaForMaskedLM
 from .unimo import TextConfig, UnimoConfig, UnimoForMaskedLM, VisionConfig
+from .vilt import ViltConfig, ViltForMaskedLM
 
 _REGISTRY: Dict[str, Callable] = {}
 
@@ -29,6 +40,8 @@ IMAGE_INPUT = {
     "VisualBertKGC": ("regions", None),
     "VilBertKGC": ("regions", None),
 }
+
+DEFAULT_ATTENTION = {"MKGformerKGC": "single", "ViltKGC": "single", "FlavaKGC": "flash"}
 
 
 def _text_cfg(vocab_size: int, kw: dict) -> TextConfig:
@@ -65,18 +78,37 @@ def _mkgformer(vocab_size: int, dtype: str = "bfloat16",
     )
 
 
+@register("ViltKGC")
+def _vilt(vocab_size: int, dtype: str = "bfloat16", attention: str = "single",
+          gelu_impl: str = "poly", **kw):
+    return ViltForMaskedLM(
+        ViltConfig(text=_text_cfg(vocab_size, kw), dtype=dtype, attention=attention,
+                   gelu_impl=gelu_impl)
+    )
+
+
+@register("FlavaKGC")
+def _flava(vocab_size: int, dtype: str = "bfloat16", attention: str = "flash",
+           gelu_impl: str = "poly", **kw):
+    return FlavaForMaskedLM(
+        FlavaConfig(text=_text_cfg(vocab_size, kw), dtype=dtype, attention=attention,
+                    gelu_impl=gelu_impl)
+    )
+
+
 def _later_slice(name: str):
     def ctor(**kw):
         raise NotImplementedError(
-            f"{name} is not ported to PyTorch yet: the other four MarT "
-            "families (models/visualbert.py, vilt.py, flava.py, vilbert.py) "
-            "come after the training slice (ROADMAP.md, queue 1)"
+            f"{name} is not ported to PyTorch yet: the two region-feature "
+            "families (models/visualbert.py, models/vilbert.py) and the "
+            "region store path come with a later slice (ROADMAP.md, Open "
+            "items 1, item 2)"
         )
 
     return ctor
 
 
-for _name in ("VisualBertKGC", "ViltKGC", "FlavaKGC", "VilBertKGC"):
+for _name in ("VisualBertKGC", "VilBertKGC"):
     register(_name)(_later_slice(_name))
 
 

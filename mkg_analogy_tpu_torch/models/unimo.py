@@ -27,7 +27,6 @@ with a ``DropoutRNG``); evaluation is deterministic.
 
 from __future__ import annotations
 
-import math
 from dataclasses import dataclass, field
 from typing import Optional, Tuple
 
@@ -46,7 +45,9 @@ from .common import (
     dropout,
     gather_positions,
     get_activation,
+    init_flax_defaults,
     tied_logits,
+    training_rng,
 )
 
 
@@ -320,23 +321,7 @@ class UnimoForMaskedLM(nn.Module):
         the CLS embedding normal(1), w0 ~ U(0, 0.5), w1 = 0.5. The draws
         differ from JAX's: a converted Flax tree is how to get JAX's."""
         std = self.cfg.text.initializer_range
-        for module in self.modules():
-            if isinstance(module, (nn.Linear, nn.Conv2d)):
-                fan_in = module.weight[0].numel()
-                # flax lecun_normal: a standard normal truncated at +-2 (by
-                # inverse CDF), variance-corrected to 1/fan_in
-                lim = math.erf(2.0 / math.sqrt(2.0))
-                module.weight.uniform_(-lim, lim, generator=generator)
-                module.weight.erfinv_().mul_(
-                    math.sqrt(2.0) * fan_in ** -0.5 / 0.87962566103423978)
-                if module.bias is not None:
-                    module.bias.zero_()
-            elif isinstance(module, nn.LayerNorm):
-                module.weight.fill_(1.0)
-                module.bias.zero_()
-            elif isinstance(module, BertLayer):
-                module.adaptive_w0.uniform_(0.0, 0.5, generator=generator)
-                module.adaptive_w1.fill_(0.5)
+        init_flax_defaults(self, generator)
         te, ve = self.text_embeddings, self.vision_embeddings
         for p, s in ((self.word_embeddings, std), (te.position_embeddings, std),
                      (te.token_type_embeddings, std), (ve.class_embedding, 1.0),
@@ -346,11 +331,7 @@ class UnimoForMaskedLM(nn.Module):
 
     def encode(self, input_ids, attention_mask, token_type_ids, pixel_values,
                boundary=None, deterministic=True, rng: Optional[DropoutRNG] = None):
-        if deterministic:
-            rng = None
-        elif rng is None:
-            raise ValueError("a training forward (deterministic=False) needs a "
-                             "DropoutRNG")
+        rng = training_rng(deterministic, rng)
         vis = self.vision_pre_ln(self.vision_embeddings(pixel_values))
         txt = self.text_embeddings(input_ids, token_type_ids, self.word_embeddings,
                                    rng=rng)
