@@ -9,23 +9,32 @@ exits non-zero:
 
 1. card       — name and power limit (nvidia-smi);
 2. build      — nvcc builds every kernel under mkg_analogy_tpu_torch/csrc
-                (one process per source, all started together);
-3. kernel     — the fused-attention forward kernel against its plain PyTorch
-                version at the three MKGformer shapes and at ViLT's (418 x
-                418: 128 text and 290 image tokens, the multiplier over the
-                text block from row 1, and with the boundary shifted by 290;
-                bf16 only, above the kernel's 400 fp32 keys), B=128: fp32
-                (TF32 off) at atol 2e-5, bf16 at 2e-2, each also with dropout
-                (same seed, so the masks must agree); times of the kernel,
-                the plain version and scaled_dot_product_attention (a
+                (one process per source, all started together); what
+                ``ptxas -v`` said of the tensor-core attention kernels
+                (registers a thread, spill bytes, static shared memory);
+3. kernel     — the fused-attention forward kernels against their plain
+                PyTorch version at the three MKGformer shapes and at ViLT's
+                (418 x 418: 128 text and 290 image tokens, the multiplier
+                over the text block from row 1, and with the boundary
+                shifted by 290; bf16 only, above the 400 fp32 keys), B=128:
+                fp32 (the CUDA-core kernel, TF32 off) at atol 2e-5, bf16 (the
+                tensor-core kernel) at 2e-2, each also with dropout (same
+                seed, so the masks must agree); then the tensor-core kernel
+                at the ragged edges (EDGE_CASES: lengths of 1, 15, 17, 99,
+                227 and 418, a row whose keys are all masked, the boundary
+                on the geometry's edges, B=1); times of the kernel, of the
+                CUDA-core kernel it took over from in bf16 (``earlier_ms``,
+                which it must beat), of the plain version (which it must
+                beat at 418 keys) and of scaled_dot_product_attention (a
                 yardstick only, at the two vision shapes; no single PyTorch
                 call applies the analogy multiplier of the text shape), and
                 the bound;
-4. kernel_bwd — the backward kernel against its plain version at the same
-                shapes and B=32 (the training batch): dq, dk, dv and dw in
-                fp32 and bf16, with and without dropout; its times, the
-                plain version's, the bound, and the backward of
-                scaled_dot_product_attention at the vision shapes;
+4. kernel_bwd — the backward kernels against their plain version at the same
+                shapes and B=32 (the training batch) and at the same edge
+                cases: dq, dk, dv and dw in fp32 (CUDA cores) and bf16
+                (tensor cores), with and without dropout; the times as in
+                phase 3, and the backward of scaled_dot_product_attention
+                at the vision shapes;
 5. model      — a full-width UnimoForMaskedLM (random weights from a seed,
                 B=32, L=128, two 224-px images) forward through the kernel
                 and through the plain version: fp32 logits within 1e-3, bf16
@@ -99,7 +108,8 @@ exits non-zero:
                 bound), then a bf16 forward and 6 bf16 steps through the
                 family's default kernels (ViLT the single-block ones, 12 + 12
                 launches a step; FLAVA the flash ones, 30 + 30 + 30): the
-                loss falls, step time and a device profile;
+                loss falls, step time and a device profile; ViLT's step also
+                through the flash kernels, for comparison;
 16. cli_image — the main path of the image slice: the tool writes a pixel
                 store for a dataset written here, ``cli.main --model_class
                 ViltKGC|FlavaKGC --image_features <store>`` fine-tunes one
@@ -142,7 +152,23 @@ SHAPES = [("text", 128, 128, (0, None, 0), 12), ("vision", 99, 99, None, 8),
           ("vilt", 418, 418, (1, 128, 0), 0),
           ("vilt_compat_offset", 418, 418, (1, None, 290), 0)]
 TEXT_LEN = 128       # text keys of SHAPES, padded to 40-128
-FP32_MAX_KEYS = 400  # the single-block kernels hold 400 keys in fp32 (717 in bf16)
+FP32_MAX_KEYS = 400  # the single-block kernels take 400 keys in fp32 (717 in bf16)
+# The ragged edges of the tensor-core kernels' 64-row tiles and 64-key
+# chunks: (name, B, Lq, Lk, geometry or None as (boundary per batch row,
+# row_start, text_len, offset), batch row whose keys are all masked or None).
+# The boundary at row_start, at text_len and past it; row_start 1; the +290
+# offset; B=1.
+EDGE_CASES = [
+    ("1x1", 1, 1, 1, None, None),
+    ("15x17_boundary_at_row_start_and_text_len", 2, 15, 17, ((1, 15), 1, None, 0), 0),
+    ("17x15_boundary_at_and_past_text_len", 2, 17, 15, ((15, 20), 0, 15, 0), 1),
+    ("99x99", 2, 99, 99, None, 0),
+    ("99x227", 2, 99, 227, None, 1),
+    ("1x227", 2, 1, 227, None, None),
+    ("227x1", 2, 227, 1, ((0, 5), 1, None, 0), None),
+    ("418x418_rows_from_1_text_128", 1, 418, 418, ((60,), 1, 128, 0), None),
+    ("418x418_offset_290", 2, 418, 418, ((1, 128), 1, None, 290), 0),
+]
 
 
 def emit(obj) -> None:
@@ -158,8 +184,9 @@ def card_line() -> str:
 def time_ms(fn, samples=21, per_sample=10):
     """Median over ``samples`` of the mean time of ``per_sample``
     back-to-back calls, by CUDA events. A device-side sleep ahead of each
-    sample lets the host enqueue the calls before the card reaches them,
-    so host launch overhead is not timed."""
+    sample (~5 ms: ten calls of several launches each take the host up to a
+    few ms to enqueue) lets the host enqueue the calls before the card
+    reaches them, so host launch overhead is not timed."""
     import torch
 
     for _ in range(3):
@@ -169,7 +196,7 @@ def time_ms(fn, samples=21, per_sample=10):
     for _ in range(samples):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(2_000_000)
+        torch.cuda._sleep(10_000_000)
         start.record()
         for _ in range(per_sample):
             fn()
@@ -249,6 +276,29 @@ def attention_inputs(lq, lk, geometry, dtype, device, seed, batch=BATCH):
     return q, k, v, mask.to(device), kw
 
 
+def edge_inputs(case, device):
+    """(q, k, v, g, mask, geometry keywords) of an edge case, bf16, from a
+    seed: the last eighth of the keys padded, one batch row fully masked."""
+    import torch
+
+    name, b, lq, lk, geometry, masked_row = case
+    gen = torch.Generator().manual_seed(sum(map(ord, name)))
+    hd = HEADS * HEAD_DIM
+    q, k, v, g = (torch.randn(b, n, hd, generator=gen).to(device, torch.bfloat16)
+                  for n in (lq, lk, lk, lq))
+    mask = torch.ones(b, lk)
+    mask[:, lk - lk // 8:] = 0.0
+    if masked_row is not None:
+        mask[masked_row] = 0.0
+    kw = {}
+    if geometry is not None:
+        boundary, row_start, text_len, offset = geometry
+        kw = dict(boundary=torch.tensor(boundary, dtype=torch.int32, device=device),
+                  w0=torch.tensor([0.3], device=device), w1=torch.tensor([0.7], device=device),
+                  row_start=row_start, text_len=text_len, offset=offset)
+    return q, k, v, g, mask.to(device), kw
+
+
 def resolve_geometry(mod, q, kw, rate, seed):
     """(boundary, w, geometry, rate, seed) of a call with the keyword
     arguments ``kw``, as the wrapper of ``mod`` resolves them."""
@@ -288,12 +338,24 @@ def kernel_phase(device):
             row[f"max_abs_err_{tag}"] = err
             if not err <= atol:
                 raise AssertionError(f"{name} {tag}: kernel vs plain {err} > {atol}")
-        # timing in the main path's dtype
+        # timing in the main path's dtype: the tensor-core kernel, the
+        # CUDA-core kernel it took over from (bf16 reaches it only here), the
+        # plain version
         q, k, v, mask, kw = attention_inputs(lq, lk, geometry, torch.bfloat16, device, seed=7)
         kw = dict(kw, compute_dtype=torch.bfloat16)
+        resolved = resolve_geometry(attn, q, kw, 0.0, 0)
         row["kernel_ms"] = time_ms(lambda: attn.fused_attention(q, k, v, mask, HEADS, **kw))
+        row["earlier_ms"] = time_ms(
+            lambda: attn._launch_fwd_cuda_cores(q, k, v, mask, HEADS, *resolved),
+            samples=7, per_sample=4)
         row["plain_ms"] = time_ms(
             lambda: attn.fused_attention_reference(q, k, v, mask, HEADS, **kw))
+        if not row["kernel_ms"] < row["earlier_ms"]:
+            raise AssertionError(f"{name}: the tensor-core forward ({row['kernel_ms']} ms) is "
+                                 f"no faster than the CUDA-core one ({row['earlier_ms']} ms)")
+        if lk > FP32_MAX_KEYS and not row["kernel_ms"] < row["plain_ms"]:
+            raise AssertionError(f"{name}: the forward kernel ({row['kernel_ms']} ms) is no "
+                                 f"faster than its plain version ({row['plain_ms']} ms)")
         row["library_ms"] = None
         if geometry is None:
             def heads(x):
@@ -316,7 +378,69 @@ def kernel_phase(device):
         row["bound_by"] = bound_by(row["bytes_ms"], row["operations_ms"])
         rows.append(row)
         emit(dict(phase="kernel", **row))
-    return rows
+    edges = {}
+    for case in EDGE_CASES:
+        q, k, v, _, mask, kw = edge_inputs(case, device)
+        for rate in (0.0, 0.1):
+            call = dict(kw, compute_dtype=torch.bfloat16, dropout_rate=rate,
+                        deterministic=rate == 0.0, dropout_seed=21)
+            before = attn.LAUNCHES
+            got = attn.fused_attention(q, k, v, mask, HEADS, **call)
+            want = attn.fused_attention_reference(q, k, v, mask, HEADS, **call)
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs().max().item()
+            if attn.LAUNCHES != before + 1 or not err <= 2e-2:
+                raise AssertionError(f"edge {case[0]} rate {rate}: kernel vs plain {err} > 2e-2 "
+                                     f"(launches {attn.LAUNCHES - before})")
+            edges[f"{case[0]}{'_dropout' if rate else ''}"] = err
+    emit(dict(phase="kernel", edges_bf16_max_abs_err=edges))
+    return rows, max(edges.values())
+
+
+def bwd_errors(attn, what, key, q, k, v, mask, g, kw, rate, seed, bar):
+    """One backward launch against fused_attention_bwd_reference: the
+    errors of dq, dk, dv (each within ``bar`` of its largest |value|) and of
+    dw0/dw1 (within 1e-5 of the sum of |ds * s_raw| over their region), as
+    ``{name_key: value}``; raises beyond a bar."""
+    import torch
+
+    out = {}
+    bnd, w, geo, r, seed = resolve_geometry(attn, q, kw, rate, seed)
+    before = attn.LAUNCHES_BWD
+    got = attn._launch_bwd(q, k, v, mask, g, HEADS, bnd, w, geo, r, seed)
+    if attn.LAUNCHES_BWD != before + 1:
+        raise AssertionError(f"bwd {what}: the wrapper counted no launch")
+    want = attn.fused_attention_bwd_reference(q, k, v, mask, g, HEADS, **kw)
+    torch.cuda.synchronize()
+    for t_name, a, b in zip(("dq", "dk", "dv"), got[:3], want[:3]):
+        err = (a.float() - b.float()).abs().max().item()
+        top = b.float().abs().max().item()
+        out[f"max_abs_err_{t_name}_{key}"] = err
+        if not err <= bar * top:
+            raise AssertionError(f"bwd {what} {t_name}: kernel vs plain {err} > {bar} * {top}")
+    if geo is not None:
+        # the scale of the dw sums: sum |ds * s_raw| over the regions
+        with torch.no_grad():
+            qf, kf = q.float(), k.float()
+            s_raw, planes, p = attn._scores(qf, kf, mask, HEADS, bnd, w, geo)
+            gh = attn._split_heads(g, HEADS, torch.float32)
+            dp = gh @ attn._split_heads(v, HEADS, torch.float32).transpose(-1, -2)
+            if r > 0.0:
+                keep = attn.dropout_keep(q.shape[0], HEADS, q.shape[1], k.shape[1], r, seed,
+                                         q.device)
+                dp = torch.where(keep, dp / (1.0 - r), 0.0)
+            ds = p * (dp - (dp * p).sum(-1, keepdim=True))
+            terms = (ds * s_raw).abs()
+            scales = [(terms * planes[1]).sum().item(), (terms * planes[2]).sum().item()]
+        for i in range(2):
+            err = abs(got[3][i].item() - want[3][i].item())
+            out[f"dw{i}_err_{key}"] = err
+            out[f"dw{i}_{key}"] = want[3][i].item()
+            if not err <= 1e-5 * scales[i]:
+                raise AssertionError(f"bwd {what} dw{i}: {err} > 1e-5 * {scales[i]}")
+    elif got[3].abs().max().item() != 0.0:
+        raise AssertionError(f"bwd {what}: dw without a geometry")
+    return out
 
 
 def kernel_bwd_phase(device):
@@ -350,45 +474,9 @@ def kernel_bwd_phase(device):
                                 ).to(device, dtype)
                 kw = dict(kw, compute_dtype=dtype, dropout_rate=rate,
                           deterministic=rate == 0.0, dropout_seed=4321)
-                bnd, w, geo, r, seed = resolve_geometry(attn, q, kw, rate, 4321)
-                before = attn.LAUNCHES_BWD
-                got = attn._launch_bwd(q, k, v, mask, g, HEADS, bnd, w, geo, r, seed)
-                if attn.LAUNCHES_BWD != before + 1:
-                    raise AssertionError(f"bwd {name} {tag}: the wrapper counted no launch")
-                want = attn.fused_attention_bwd_reference(q, k, v, mask, g, HEADS, **kw)
-                torch.cuda.synchronize()
                 key = f"{tag}{'_dropout' if rate else ''}"
-                bar = 2e-5 if dtype == torch.float32 else 2.0 ** -7
-                for t_name, a, b in zip(("dq", "dk", "dv"), got[:3], want[:3]):
-                    err = (a.float() - b.float()).abs().max().item()
-                    top = b.float().abs().max().item()
-                    row[f"max_abs_err_{t_name}_{key}"] = err
-                    if not err <= bar * top:
-                        raise AssertionError(f"bwd {name} {key} {t_name}: kernel vs plain "
-                                             f"{err} > {bar} * {top}")
-                if geometry is not None:
-                    # the scale of the dw sums: sum |ds * s_raw| over the regions
-                    with torch.no_grad():
-                        qf, kf = q.float(), k.float()
-                        s_raw, planes, p = attn._scores(qf, kf, mask, HEADS, bnd, w, geo)
-                        gh = attn._split_heads(g, HEADS, torch.float32)
-                        dp = gh @ attn._split_heads(v, HEADS, torch.float32).transpose(-1, -2)
-                        if r > 0.0:
-                            keep = attn.dropout_keep(TRAIN_BATCH, HEADS, lq, lk, r, seed, device)
-                            dp = torch.where(keep, dp / (1.0 - r), 0.0)
-                        ds = p * (dp - (dp * p).sum(-1, keepdim=True))
-                        terms = (ds * s_raw).abs()
-                        scales = [(terms * planes[1]).sum().item(),
-                                  (terms * planes[2]).sum().item()]
-                    for i in range(2):
-                        err = abs(got[3][i].item() - want[3][i].item())
-                        row[f"dw{i}_err_{key}"] = err
-                        row[f"dw{i}_{key}"] = want[3][i].item()
-                        if not err <= 1e-5 * scales[i]:
-                            raise AssertionError(f"bwd {name} {key} dw{i}: {err} > 1e-5 * "
-                                                 f"{scales[i]}")
-                elif got[3].abs().max().item() != 0.0:
-                    raise AssertionError(f"bwd {name}: dw without a geometry")
+                row.update(bwd_errors(attn, f"{name} {key}", key, q, k, v, mask, g, kw, rate,
+                                      4321, 2e-5 if dtype == torch.float32 else 2.0 ** -7))
         # timing in the main path's dtype, dropout as the text tower trains
         q, k, v, mask, kw = attention_inputs(lq, lk, geometry, torch.bfloat16, device,
                                              seed=7, batch=TRAIN_BATCH)
@@ -400,8 +488,21 @@ def kernel_bwd_phase(device):
         bnd, w, geo, r, seed = resolve_geometry(attn, q, kw, rate, 99)
         row["kernel_ms"] = time_ms(
             lambda: attn._launch_bwd(q, k, v, mask, g, HEADS, bnd, w, geo, r, seed))
+        row["earlier_ms"] = time_ms(
+            lambda: attn._launch_bwd_cuda_cores(q, k, v, mask, g, HEADS, bnd, w, geo, r, seed),
+            samples=7, per_sample=4)
         row["plain_ms"] = time_ms(
             lambda: attn.fused_attention_bwd_reference(q, k, v, mask, g, HEADS, **kw))
+        if not row["kernel_ms"] < row["earlier_ms"]:
+            raise AssertionError(f"{name}: the tensor-core backward ({row['kernel_ms']} ms) is "
+                                 f"no faster than the CUDA-core one ({row['earlier_ms']} ms)")
+        # the call's device time by kernel: the dq pass, the dk/dv pass, the
+        # sum of the dw partials
+        row["device_ms_by_kernel"] = {
+            t["name"].replace("(anonymous namespace)::", "")[:40]: t["ms"]
+            for t in device_profile(
+                lambda: attn._launch_bwd(q, k, v, mask, g, HEADS, bnd, w, geo, r, seed),
+                top=4)["top"]}
         row["library_ms"] = None
         if geometry is None:
             def heads(x):
@@ -427,7 +528,18 @@ def kernel_bwd_phase(device):
         row["bound_by"] = bound_by(row["bytes_ms"], row["operations_ms"])
         rows.append(row)
         emit(dict(phase="kernel_bwd", **row))
-    return rows
+    edges = {}
+    for case in EDGE_CASES:
+        q, k, v, g, mask, kw = edge_inputs(case, device)
+        for rate in (0.0, 0.1):
+            call = dict(kw, compute_dtype=torch.bfloat16, dropout_rate=rate,
+                        deterministic=rate == 0.0, dropout_seed=23)
+            key = f"{case[0]}{'_dropout' if rate else ''}"
+            errs = bwd_errors(attn, f"edge {key}", key, q, k, v, mask, g, call, rate, 23,
+                              2.0 ** -7)
+            edges.update({n: e for n, e in errs.items() if "err" in n})
+    emit(dict(phase="kernel_bwd", edges_bf16=edges))
+    return rows, max(e for n, e in edges.items() if n.startswith("max_abs_err"))
 
 
 def model_phase(device):
@@ -1614,7 +1726,9 @@ def family_phase(device, name):
     leaves' ratio is printed. (2) bf16 through the family's default
     kernels, the main path: a forward, then 6 AdamW steps on one batch, the
     loss finite and falling, the launches of every step, the median step
-    over steps 3-6 and a device profile of one step."""
+    over steps 3-6 and a device profile of one step; for ViLT then four more
+    steps of the same model through the flash kernels, the other route its
+    418 tokens could take."""
     import torch
 
     from mkg_analogy_tpu_torch.kernels import flash_attention as fa
@@ -1727,6 +1841,24 @@ def family_phase(device, name):
                        peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
                        device_profile_step=device_profile(
                            lambda: trainer._train_step(opt, batch, 6), top=12))
+    if fam["backend"] == "single":
+        # the same model and optimizer state through the flash kernels: which
+        # route is the faster default at this family's lengths
+        set_backend(model, "flash")
+        flash_times = []
+        for step in range(6, 10):
+            reset_counts()
+            t0 = time.perf_counter()
+            trainer._train_step(opt, batch, step)
+            torch.cuda.synchronize()
+            flash_times.append((time.perf_counter() - t0) * 1e3)
+            if all_counts() != family_counts("flash", calls):
+                raise AssertionError(f"{name} bf16 flash step: launches {all_counts()}")
+        out["bf16_through_flash"] = dict(
+            step_ms=flash_times, median_step_ms=statistics.median(flash_times[1:]),
+            device_profile_step=device_profile(
+                lambda: trainer._train_step(opt, batch, 10), top=6))
+        set_backend(model, "single")
     emit(dict(phase=name, B=b, L=128, image_size=fam["image"], **out))
     del model, trainer, opt
     torch.cuda.empty_cache()
@@ -1882,9 +2014,13 @@ def main() -> int:
     t0 = time.perf_counter()
     build.build()
     emit(dict(phase="build", seconds=time.perf_counter() - t0,
-              kernels=sorted(p.stem for p in build.CSRC.glob("*.cu"))))
-    rows = kernel_phase(device)
-    bwd_rows = kernel_bwd_phase(device)
+              kernels=sorted(p.stem for p in build.CSRC.glob("*.cu")),
+              # what ptxas -v said of the tensor-core kernels (no profiler of
+              # kernel internals runs everywhere)
+              resources={name: build.resource_usage(name)
+                         for name in ("fused_attention_fwd_mma", "fused_attention_bwd_mma")}))
+    rows, edge_err = kernel_phase(device)
+    bwd_rows, bwd_edge_err = kernel_bwd_phase(device)
     model_phase(device)
     train_phase(device)
     eval_launches = cli_phase()
@@ -1915,32 +2051,39 @@ def main() -> int:
     b_ops = per_call_set(bwd_rows, "operations_ms", "launches_per_step")
     emit({"kernels": [dict(
         name="fused_attention_fwd", route="cuda",
-        source="mkg_analogy_tpu_torch/csrc/fused_attention_fwd.cu",
+        source="mkg_analogy_tpu_torch/csrc/fused_attention_fwd_mma.cu",  # bf16, every main path
+        source_fp32="mkg_analogy_tpu_torch/csrc/fused_attention_fwd.cu",
         replaces="mkg_analogy_tpu/kernels/attention.py:124",
         ok=True, launches=launches["fwd"], launches_eval_path=eval_launches,
         launches_image_path=image_launches["single_fwd"],
         launches_image_tool=tool_launches["attention_fwd"],
         max_abs_err=max(r[f"max_abs_err_bf16{d}"] for r in rows for d in ("", "_dropout")),
+        max_abs_err_edges=edge_err,
         max_abs_err_fp32=max(r["max_abs_err_fp32"] for r in rows if "fp32" not in r),
         # per full-width forward at B=128: 12 text + 8 vision + 4 vision-text calls
         ms=per_call_set(rows, "kernel_ms", "launches_per_forward"),
+        # the CUDA-core kernel in bf16, which these calls ran before
+        earlier_ms=per_call_set(rows, "earlier_ms", "launches_per_forward"),
         plain_ms=per_call_set(rows, "plain_ms", "launches_per_forward"),
         bound_ms=max(t_bytes, t_ops), bound_by=bound_by(t_bytes, t_ops),
         library_ms=None,  # no single PyTorch call applies the analogy multiplier
         shapes=rows,
     ), dict(
         name="fused_attention_bwd", route="cuda",
-        source="mkg_analogy_tpu_torch/csrc/fused_attention_bwd.cu",
+        source="mkg_analogy_tpu_torch/csrc/fused_attention_bwd_mma.cu",  # bf16, every main path
+        source_fp32="mkg_analogy_tpu_torch/csrc/fused_attention_bwd.cu",
         replaces="mkg_analogy_tpu/kernels/attention.py:159",
         ok=True, launches=launches["bwd"],
         launches_image_path=image_launches["single_bwd"],
         max_abs_err=max(r[f"max_abs_err_{t}_bf16{d}"] for r in bwd_rows
                         for t in ("dq", "dk", "dv") for d in ("", "_dropout")),
+        max_abs_err_edges=bwd_edge_err,
         max_abs_err_fp32=max(r[f"max_abs_err_{t}_fp32{d}"] for r in bwd_rows
                              if "fp32" not in r
                              for t in ("dq", "dk", "dv") for d in ("", "_dropout")),
         # per full-width train step at B=32: 12 text + 8 vision + 4 vision-text calls
         ms=per_call_set(bwd_rows, "kernel_ms", "launches_per_step"),
+        earlier_ms=per_call_set(bwd_rows, "earlier_ms", "launches_per_step"),
         plain_ms=per_call_set(bwd_rows, "plain_ms", "launches_per_step"),
         bound_ms=max(b_bytes, b_ops), bound_by=bound_by(b_bytes, b_ops),
         library_ms=None,  # per shape below: SDPA's backward at the vision shapes

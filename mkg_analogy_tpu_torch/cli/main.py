@@ -33,9 +33,12 @@ single-block kernels with ``--fused_attention 1``, the K-blocked flash
 kernels with ``--fused_attention flash``; without the flag each family
 takes its default (models/registry.py:DEFAULT_ATTENTION: single for
 MKGformer and ViLT, flash for FLAVA, whose multimodal tower attends over
-394 + L tokens). The single-block kernels hold up to 717 keys in bf16 and
-400 in fp32 and raise above, naming the flash kernels: ViLT's L + 290
-tokens fit in bf16 only. ``--fused_attention 0`` runs the plain PyTorch
+394 + L tokens). The single-block kernels are two sets, picked by the
+dtype alone: in bf16 tensor-core kernels (``mma.sync`` products, keys
+streamed in chunks of 64), in fp32 CUDA-core kernels that hold a head's
+whole K and V in shared memory. They take up to 717 keys in bf16 (where the
+route's limit has always been) and 400 in fp32 (shared memory) and raise
+above, naming the flash kernels: ViLT's L + 290 tokens fit in bf16 only. ``--fused_attention 0`` runs the plain PyTorch
 attention, except that a sequence of 512 or more takes the flash kernels,
 as in JAX. ``--export_torch``, parallelism and the two region-feature
 families (VisualBertKGC, VilBertKGC) raise until their slices land. The

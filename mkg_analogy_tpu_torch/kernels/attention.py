@@ -15,11 +15,15 @@ to the compute dtype before the product with V, on the packed
   differentiable: a ``torch.autograd.Function`` that saves q, k, v, the
   mask, the boundary, (w0, w1) and the dropout seed — never the
   probabilities — and recomputes them in the backward, as the JAX custom VJP
-  does. A CUDA tensor launches the hand-written kernels
-  (``csrc/fused_attention_fwd.cu``, ``csrc/fused_attention_bwd.cu``, built at
-  first use by ``kernels/build.py``); a CPU tensor takes the plain versions.
-  Nothing falls back from one to the other. The clamps of w0/w1 stay
-  outside, so autograd chains them.
+  does. A CUDA tensor launches the hand-written kernels, built at first use
+  by ``kernels/build.py``, and the dtype alone picks them: bf16, which every
+  main path runs, the tensor-core kernels (``csrc/fused_attention_fwd_mma.cu``,
+  ``csrc/fused_attention_bwd_mma.cu``: ``mma.sync`` products on ``ldmatrix``
+  fragments, ``cp.async`` staging, helpers in ``csrc/attention_mma.cuh``);
+  fp32, whose bar of 2e-5 TF32 cannot meet, the CUDA-core kernels
+  (``csrc/fused_attention_fwd.cu``, ``csrc/fused_attention_bwd.cu``). A CPU
+  tensor takes the plain versions. Nothing falls back from one to another.
+  The clamps of w0/w1 stay outside, so autograd chains them.
 - ``fused_attention_reference`` is the plain forward (the
   ``AttentionCore._einsum`` math on the packed layout) and
   ``fused_attention_bwd_reference`` the plain backward: the formula of
@@ -50,7 +54,13 @@ from . import build
 
 NEG_BIAS = -10000.0  # reference padding bias (modeling_unimo.py:56)
 HEAD_DIM = 64        # the kernels' head width (BERT-base and ViT-B/32)
-ROWS_PER_BLOCK = 64  # query rows per block of both kernels (csrc kRowsPerBlock)
+ROWS_PER_BLOCK = 64  # query rows per block of every kernel (csrc kRowsPerBlock, kTile)
+# The single-block route's longest bf16 key sequence. The CUDA-core kernels'
+# shared memory set it; the tensor-core kernels stream their keys in chunks
+# and have no such limit of their own, but each 64-row tile walks every key
+# twice, and the set of calls the route accepts stays what it was: longer
+# sequences are the flash kernels' work.
+MAX_KEYS_BF16 = 717
 LAUNCHES = 0         # forward kernel launches since import (or a caller's reset)
 LAUNCHES_BWD = 0     # backward kernel launches, likewise
 
@@ -309,6 +319,43 @@ def _lib_bwd() -> ctypes.CDLL:
     return lib
 
 
+@functools.cache
+def _lib_mma() -> ctypes.CDLL:
+    lib = build.load("fused_attention_fwd_mma")
+    p, i, f, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint
+    lib.mkg_fused_attention_fwd_mma.argtypes = [
+        p, p, p, p, p, p, p,        # q k v mask boundary w out
+        i, i, i, i,                 # batch lq lk num_heads
+        f,                          # scale
+        i, i, i, i,                 # has_geometry row_start text_len offset
+        i, u, f, u,                 # dropout threshold inv_keep seed
+        p,                          # stream
+    ]
+    lib.mkg_fused_attention_fwd_mma.restype = ctypes.c_int
+    lib.mkg_cuda_error_string.argtypes = [i]
+    lib.mkg_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+@functools.cache
+def _lib_bwd_mma() -> ctypes.CDLL:
+    lib = build.load("fused_attention_bwd_mma")
+    p, i, f, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint
+    lib.mkg_fused_attention_bwd_mma.argtypes = [
+        p, p, p, p, p, p, p,        # q k v g mask boundary w
+        p, p, p, p, p,              # dq dk dv stats dw_part
+        i, i, i, i,                 # batch lq lk num_heads
+        f,                          # scale
+        i, i, i, i,                 # has_geometry row_start text_len offset
+        i, u, f, u,                 # dropout threshold inv_keep seed
+        p,                          # stream
+    ]
+    lib.mkg_fused_attention_bwd_mma.restype = ctypes.c_int
+    lib.mkg_cuda_error_string.argtypes = [i]
+    lib.mkg_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
 def _check_tensor(name, t, q):
     if t.device != q.device or t.dtype != q.dtype:
         raise ValueError(f"{name}: {t.dtype} on {t.device}, q: {q.dtype} on {q.device}")
@@ -342,8 +389,11 @@ def _check_inputs(q, k, v, mask, num_heads, compute_dtype, kernel="fused_attenti
         raise ValueError(f"mask {tuple(mask.shape)} is not (B, Lk) = {(b, lk)}")
 
 
-def _check_smem(smem, q, what, hint="longer sequences take the flash kernels "
-                "(kernels/flash_attention.py, --fused_attention flash)"):
+FLASH_HINT = ("longer sequences take the flash kernels "
+              "(kernels/flash_attention.py, --fused_attention flash)")
+
+
+def _check_smem(smem, q, what, hint=FLASH_HINT):
     limit = torch.cuda.get_device_properties(q.device).shared_memory_per_block_optin
     if smem > limit:
         raise ValueError(
@@ -351,12 +401,41 @@ def _check_smem(smem, q, what, hint="longer sequences take the flash kernels "
             f"device's {limit}: {hint}")
 
 
+def _check_keys_bf16(lk):
+    if lk > MAX_KEYS_BF16:
+        raise ValueError(f"Lk={lk} is above the single-block kernels' {MAX_KEYS_BF16} "
+                         f"bf16 keys: {FLASH_HINT}")
+
+
 def _geometry_args(geometry, lq):
     row_start, text_len, offset = geometry if geometry is not None else (0, lq, 0)
     return int(geometry is not None), row_start, text_len, offset
 
 
-def _launch_fwd(q, k, v, mask, num_heads, bnd, w, geometry, rate, seed):
+def _raise_if(err, lib, what):
+    if err != 0:
+        raise RuntimeError(f"{what} launch failed: " + lib.mkg_cuda_error_string(err).decode())
+
+
+def _call_tail(q, geometry, rate, seed, keep):
+    """The arguments every launcher ends with: scale, the geometry, the
+    dropout flag, threshold and ``keep`` (how the kernel scales a kept
+    probability: its divisor 1 - rate or its factor 1 / (1 - rate)), the
+    seed, the stream."""
+    return (float(HEAD_DIM) ** -0.5, *_geometry_args(geometry, q.shape[1]),
+            int(rate > 0.0), int(rate * float(2 ** 32)), keep, seed & _M32,
+            torch.cuda.current_stream(q.device).cuda_stream)
+
+
+def _inv_keep(rate):
+    return (1.0 / (1.0 - rate)) if rate > 0.0 else 1.0
+
+
+def _launch_fwd_cuda_cores(q, k, v, mask, num_heads, bnd, w, geometry, rate, seed):
+    """The CUDA-core forward (csrc/fused_attention_fwd.cu): the fp32 route.
+    It also takes bf16, which :func:`_launch_fwd` never sends it; only a
+    measurement that wants the earlier kernel's time beside the new one's
+    calls it so."""
     global LAUNCHES
     b, lq, _ = q.shape
     lk = k.shape[1]
@@ -367,53 +446,102 @@ def _launch_fwd(q, k, v, mask, num_heads, bnd, w, geometry, rate, seed):
     with torch.cuda.device(q.device):
         err = lib.mkg_fused_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
-            bnd.data_ptr(), w.data_ptr(), out.data_ptr(),
-            b, lq, lk, num_heads, is_bf16, float(HEAD_DIM) ** -0.5,
-            *_geometry_args(geometry, lq),
-            int(rate > 0.0), int(rate * float(2 ** 32)), 1.0 - rate,
-            seed & _M32, torch.cuda.current_stream(q.device).cuda_stream,
-        )
-    if err != 0:
-        raise RuntimeError("fused_attention_fwd launch failed: "
-                           + lib.mkg_cuda_error_string(err).decode())
+            bnd.data_ptr(), w.data_ptr(), out.data_ptr(), b, lq, lk, num_heads, is_bf16,
+            *_call_tail(q, geometry, rate, seed, 1.0 - rate))
+    _raise_if(err, lib, "fused_attention_fwd")
     LAUNCHES += 1
     return out
 
 
-def _launch_bwd(q, k, v, mask, g, num_heads, bnd, w, geometry, rate, seed):
-    """dq, dk, dv and the (2,) dw of one backward. The kernel writes one
-    (dw0, dw1) partial per (b, head, query tile) and this sums them, so no
-    float atomics run and fp32 results repeat from run to run."""
-    global LAUNCHES_BWD
+def _launch_fwd_mma(q, k, v, mask, num_heads, bnd, w, geometry, rate, seed):
+    """The tensor-core forward (csrc/fused_attention_fwd_mma.cu), bf16."""
+    global LAUNCHES
     b, lq, _ = q.shape
     lk = k.shape[1]
+    _check_keys_bf16(lk)
+    lib = _lib_mma()
+    out = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        err = lib.mkg_fused_attention_fwd_mma(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
+            bnd.data_ptr(), w.data_ptr(), out.data_ptr(), b, lq, lk, num_heads,
+            *_call_tail(q, geometry, rate, seed, _inv_keep(rate)))
+    _raise_if(err, lib, "fused_attention_fwd_mma")
+    LAUNCHES += 1
+    return out
+
+
+def _launch_fwd(q, k, v, mask, num_heads, bnd, w, geometry, rate, seed):
+    """One forward launch; the dtype alone picks the kernel."""
+    launch = _launch_fwd_mma if q.dtype == torch.bfloat16 else _launch_fwd_cuda_cores
+    return launch(q, k, v, mask, num_heads, bnd, w, geometry, rate, seed)
+
+
+def _bwd_buffers(q, k, v, g, num_heads, stats_width):
+    """(dq, dk, dv, stats, dw_part) of one backward: the results, the
+    ``stats_width`` fp32 row statistics that the dq pass hands the dk/dv
+    pass, and one (dw0, dw1) partial per (b, head, query tile)."""
     _check_tensor("g", g, q)
     if g.shape != q.shape:
         raise ValueError(f"g {tuple(g.shape)} is not q's shape {tuple(q.shape)}")
+    b, lq, _ = q.shape
+    stats = torch.empty(b, num_heads, lq, stats_width, dtype=torch.float32, device=q.device)
+    tiles = -(-lq // ROWS_PER_BLOCK)
+    dw_part = torch.empty(b, num_heads, tiles, 2, dtype=torch.float32, device=q.device)
+    return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v), stats, dw_part
+
+
+def _bwd_pointers(q, k, v, g, mask, bnd, w, buffers):
+    return [t.data_ptr() for t in (q, k, v, g, mask, bnd, w, *buffers)]
+
+
+def _launch_bwd_cuda_cores(q, k, v, mask, g, num_heads, bnd, w, geometry, rate, seed):
+    """The CUDA-core backward (csrc/fused_attention_bwd.cu): the fp32 route
+    (bf16 only for a measurement, as :func:`_launch_fwd_cuda_cores`)."""
+    global LAUNCHES_BWD
+    b, lq, _ = q.shape
+    lk = k.shape[1]
+    buffers = _bwd_buffers(q, k, v, g, num_heads, 3)  # m, l, delta a row
     lib = _lib_bwd()
     is_bf16 = int(q.dtype == torch.bfloat16)
     _check_smem(lib.mkg_fused_attention_bwd_smem(lq, lk, is_bf16), q,
                 f"the backward at Lq={lq}, Lk={lk}")
-    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    stats = torch.empty(b, num_heads, lq, 3, dtype=torch.float32, device=q.device)
-    tiles = -(-lq // ROWS_PER_BLOCK)
-    dw_part = torch.empty(b, num_heads, tiles, 2, dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         err = lib.mkg_fused_attention_bwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), mask.data_ptr(),
-            bnd.data_ptr(), w.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), stats.data_ptr(), dw_part.data_ptr(),
-            b, lq, lk, num_heads, is_bf16, float(HEAD_DIM) ** -0.5,
-            *_geometry_args(geometry, lq),
-            int(rate > 0.0), int(rate * float(2 ** 32)),
-            (1.0 / (1.0 - rate)) if rate > 0.0 else 1.0,
-            seed & _M32, torch.cuda.current_stream(q.device).cuda_stream,
-        )
-    if err != 0:
-        raise RuntimeError("fused_attention_bwd launch failed: "
-                           + lib.mkg_cuda_error_string(err).decode())
+            *_bwd_pointers(q, k, v, g, mask, bnd, w, buffers), b, lq, lk, num_heads, is_bf16,
+            *_call_tail(q, geometry, rate, seed, _inv_keep(rate)))
+    _raise_if(err, lib, "fused_attention_bwd")
     LAUNCHES_BWD += 1
+    dq, dk, dv, _, dw_part = buffers
     return dq, dk, dv, dw_part.sum(dim=(0, 1, 2)).to(w.dtype)
+
+
+def _launch_bwd_mma(q, k, v, mask, g, num_heads, bnd, w, geometry, rate, seed):
+    """The tensor-core backward (csrc/fused_attention_bwd_mma.cu), bf16."""
+    global LAUNCHES_BWD
+    b, lq, _ = q.shape
+    lk = k.shape[1]
+    _check_keys_bf16(lk)
+    # m, 1 / l, delta and the row's multiplier: 16 bytes a row
+    buffers = _bwd_buffers(q, k, v, g, num_heads, 4)
+    lib = _lib_bwd_mma()
+    with torch.cuda.device(q.device):
+        err = lib.mkg_fused_attention_bwd_mma(
+            *_bwd_pointers(q, k, v, g, mask, bnd, w, buffers), b, lq, lk, num_heads,
+            *_call_tail(q, geometry, rate, seed, _inv_keep(rate)))
+    _raise_if(err, lib, "fused_attention_bwd_mma")
+    LAUNCHES_BWD += 1
+    dq, dk, dv, _, dw_part = buffers
+    return dq, dk, dv, dw_part.sum(dim=(0, 1, 2)).to(w.dtype)
+
+
+def _launch_bwd(q, k, v, mask, g, num_heads, bnd, w, geometry, rate, seed):
+    """dq, dk, dv and the (2,) dw of one backward; the dtype alone picks the
+    kernels. They write one (dw0, dw1) partial per (b, head, query tile) and
+    the launcher sums them, so no float atomics run and fp32 results repeat
+    from run to run."""
+    launch = _launch_bwd_mma if q.dtype == torch.bfloat16 else _launch_bwd_cuda_cores
+    return launch(q, k, v, mask, g, num_heads, bnd, w, geometry, rate, seed)
 
 
 class _FusedAttention(torch.autograd.Function):

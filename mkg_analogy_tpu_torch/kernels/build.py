@@ -4,9 +4,12 @@ Each ``csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` into its own
 shared library with a plain C interface (no PyTorch headers, so a build
 takes seconds), which ``ctypes`` loads. The build runs at first use, never
 at import; its output goes to ``build/kernels/`` beside the package (listed
-in ``.gitignore``), named by a hash of the source and the flags, so an
-edited source rebuilds and an unchanged one is reused. A failed build
-raises with the compiler's output.
+in ``.gitignore``), named by a hash of the source, of every header under
+``csrc/`` and of the flags, so an edited source or shared header rebuilds
+and an unchanged one is reused. A failed build raises with the compiler's
+output; a successful one keeps it beside the library (``-Xptxas -v``: each
+kernel's registers, spills and static shared memory, see
+:func:`resource_usage`).
 """
 
 from __future__ import annotations
@@ -14,17 +17,18 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
 import threading
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, List
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
@@ -46,9 +50,27 @@ def find_nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    """Where the library of ``csrc/<name>.cu`` is built: its name carries a
+    hash of that source, of every header under ``csrc/`` (a source may
+    include any of them) and of the flags."""
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(p for ext in ("*.cuh", "*.h") for p in CSRC.glob(ext)):
+        digest.update(header.name.encode() + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}_{digest.hexdigest()[:12]}.so"
+
+
+def resource_usage(name: str) -> List[dict]:
+    """What ``ptxas -v`` said of each kernel of the built ``csrc/<name>.cu``:
+    entry, registers a thread, spill bytes and static shared memory (dynamic
+    shared memory is the launcher's and not in it)."""
+    log = library_path(name).with_suffix(".log").read_text()
+    entries = re.findall(
+        r"Compiling entry function '(\w+)'.*?(\d+) bytes spill stores, (\d+) bytes spill "
+        r"loads.*?Used (\d+) registers(?:[^\n]*?(\d+) bytes smem)?", log, flags=re.S)
+    return [dict(entry=e, registers=int(r), spill_store_bytes=int(ss),
+                 spill_load_bytes=int(sl), static_smem_bytes=int(sm or 0))
+            for e, ss, sl, r, sm in entries]
 
 
 def build(names: Iterable[str] = ()) -> None:
@@ -75,6 +97,7 @@ def build(names: Iterable[str] = ()) -> None:
     for name, tmp, proc in jobs:
         log, _ = proc.communicate()
         if proc.returncode == 0:
+            library_path(name).with_suffix(".log").write_text(log)
             os.replace(tmp, library_path(name))
         else:
             os.unlink(tmp)

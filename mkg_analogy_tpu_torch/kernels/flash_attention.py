@@ -64,6 +64,7 @@ from .attention import (
     _check_tensor,
     _geometry_args,
     _merge_heads,
+    _raise_if,
     _resolve,
     _split_heads,
     hash_keep,
@@ -370,11 +371,6 @@ def _call_args(q, k, num_heads, geometry, rate, seed, block_q, block_k):
             *_geometry_args(geometry, lq), int(rate > 0.0), int(rate * float(2 ** 32)),
             (1.0 / (1.0 - rate)) if rate > 0.0 else 1.0, seed & _M32,
             bq, bk, n_qblk, n_kblk, torch.cuda.current_stream(q.device).cuda_stream)
-
-
-def _raise_if(err, lib, what):
-    if err != 0:
-        raise RuntimeError(f"{what} launch failed: " + lib.mkg_cuda_error_string(err).decode())
 
 
 def _launch_fwd(q, k, v, mask, num_heads, bnd, w, geometry, rate, seed, block_q, block_k):

@@ -192,10 +192,78 @@ def test_kernel_matches_plain_version(cuda, lq, lk, geometry, dtype, atol):
     torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=0)
 
 
+# The ragged edges of the 64-row tiles and 64-key chunks of the tensor-core
+# kernels: (name, B, Lq, Lk, geometry keywords or None, batch row whose keys
+# are all masked or None). Lengths of 1, 15, 17, 99, 227 and 418; the
+# boundary at row_start, at text_len and past it; row_start 1; the +290
+# offset of the single-stream families; B=1.
+EDGE_CASES = [
+    ("1x1", 1, 1, 1, None, None),
+    ("15x17_boundary_at_row_start_and_text_len", 2, 15, 17,
+     dict(boundary=(1, 15), row_start=1), 0),
+    ("17x15_boundary_at_and_past_text_len", 2, 17, 15,
+     dict(boundary=(15, 20), row_start=0, text_len=15), 1),
+    ("99x99", 2, 99, 99, None, 0),
+    ("99x227", 2, 99, 227, None, 1),
+    ("1x227", 2, 1, 227, None, None),
+    ("227x1", 2, 227, 1, dict(boundary=(0, 5), row_start=1), None),
+    ("418x418_rows_from_1_text_128", 1, 418, 418,
+     dict(boundary=(60,), row_start=1, text_len=128), None),
+    ("418x418_offset_290", 2, 418, 418,
+     dict(boundary=(1, 128), row_start=1, offset=290), 0),
+]
+EDGE_IDS = [c[0] for c in EDGE_CASES]
+
+
+def edge_inputs(case, heads, head_dim):
+    """numpy (q, k, v, g, mask) of an edge case from a fixed seed; the mask
+    pads the last keys of every row and all keys of the case's masked row."""
+    name, b, lq, lk, _, masked_row = case
+    rng = np.random.default_rng(sum(map(ord, name)))
+    q, k, v, g = (rng.standard_normal((b, n, heads * head_dim)).astype(np.float32)
+                  for n in (lq, lk, lk, lq))
+    mask = np.ones((b, lk), np.float32)
+    mask[:, lk - lk // 8:] = 0.0
+    if masked_row is not None:
+        mask[masked_row] = 0.0
+    return q, k, v, g, mask
+
+
+def edge_kwargs(case, device="cpu"):
+    """The port's keyword arguments of an edge case's geometry."""
+    geometry = case[4]
+    if geometry is None:
+        return {}
+    return dict(geometry, boundary=torch.tensor(geometry["boundary"], device=device),
+                w0=torch.tensor([0.3], device=device), w1=torch.tensor([0.7], device=device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("case", EDGE_CASES, ids=EDGE_IDS)
+def test_tensor_core_kernel_at_the_ragged_edges(cuda, case, rate):
+    """The bf16 tensor-core forward against the plain version on the card
+    (12 heads of 64) where tiles and chunks are ragged, a row's keys are all
+    masked and the boundary sits on the geometry's edges; the same seed, so
+    the dropout masks must agree. The bf16 bar of the main shapes."""
+    q, k, v, _, mask = (torch.from_numpy(a).to(cuda) for a in edge_inputs(case, 12, 64))
+    q, k, v = (x.bfloat16() for x in (q, k, v))
+    kw = dict(edge_kwargs(case, cuda), compute_dtype=torch.bfloat16, dropout_rate=rate,
+              deterministic=rate == 0.0, dropout_seed=21)
+    before = port.LAUNCHES
+    got = port.fused_attention(q, k, v, mask, 12, **kw)
+    torch.cuda.synchronize()
+    assert port.LAUNCHES == before + 1
+    want = port.fused_attention_reference(q, k, v, mask, 12, **kw)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=0)
+
+
 @pytest.mark.cuda
 def test_kernel_raises_beyond_shared_memory(cuda):
-    """Keys that do not fit one block's shared memory (bf16: Lk > 717)
-    raise and name the flash kernel; nothing falls back."""
+    """Keys beyond the single-block route's limit (bf16: Lk > 717, where the
+    CUDA-core kernels' shared memory ended) raise and name the flash kernel;
+    nothing falls back."""
     q = torch.zeros(1, 4, 768, device=cuda, dtype=torch.bfloat16)
     k = torch.zeros(1, 1024, 768, device=cuda, dtype=torch.bfloat16)
     mask = torch.ones(1, 1024, device=cuda)

@@ -12,7 +12,8 @@ import pytest
 import torch
 
 from mkg_analogy_tpu_torch.kernels import attention as port
-from test_torch_port_attention import CASES, H, MAIN_SHAPES, cuda, make_inputs  # noqa: F401
+from test_torch_port_attention import (  # noqa: F401
+    CASES, EDGE_CASES, EDGE_IDS, H, MAIN_SHAPES, cuda, edge_inputs, edge_kwargs, make_inputs)
 
 # JAX is imported where it is used: the card's machine runs the `cuda`
 # tests of this file without it.
@@ -265,6 +266,35 @@ def test_bwd_kernel_matches_plain_version(cuda, lq, lk, geometry, dtype):  # noq
     for a, b_ in zip(got, want):
         torch.testing.assert_close(a.float(), b_.float(),
                                    atol=rel * b_.float().abs().max().item() + 1e-30,
+                                   rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("case", EDGE_CASES, ids=EDGE_IDS)
+def test_tensor_core_bwd_at_the_ragged_edges(cuda, case, rate):  # noqa: F811
+    """The bf16 tensor-core backward against the plain backward on the card
+    (12 heads of 64) at the ragged edges of its tiles and chunks: dq, dk and
+    dv within 2 bf16 ulps (2^-7) of each tensor's largest value, dw within
+    2^-7 of the larger of the two (a handful of rounded terms at these
+    sizes), every value finite."""
+    q, k, v, g, mask = (torch.from_numpy(a).to(cuda) for a in edge_inputs(case, 12, 64))
+    q, k, v, g = (x.bfloat16() for x in (q, k, v, g))
+    kw = edge_kwargs(case, cuda)
+    bnd, w, geo, r, seed = port._resolve(
+        q, kw.get("boundary"), kw.get("w0"), kw.get("w1"), kw.get("text_len"),
+        kw.get("row_start", 0), kw.get("offset", 0), rate, rate == 0.0, 23)
+    before = port.LAUNCHES_BWD
+    got = port._launch_bwd(q, k, v, mask, g, 12, bnd, w, geo, r, seed)
+    torch.cuda.synchronize()
+    assert port.LAUNCHES_BWD == before + 1
+    want = port.fused_attention_bwd_reference(
+        q, k, v, mask, g, 12, compute_dtype=torch.bfloat16, dropout_rate=rate,
+        deterministic=rate == 0.0, dropout_seed=23, **kw)
+    for a, b_ in zip(got, want):
+        assert torch.isfinite(a).all()
+        torch.testing.assert_close(a.float(), b_.float(),
+                                   atol=2 ** -7 * b_.float().abs().max().item() + 1e-30,
                                    rtol=0)
 
 
