@@ -10,8 +10,9 @@ exits non-zero:
 1. card       — name and power limit (nvidia-smi);
 2. build      — nvcc builds every kernel under mkg_analogy_tpu_torch/csrc
                 (one process per source, all started together); what
-                ``ptxas -v`` said of the tensor-core attention kernels
-                (registers a thread, spill bytes, static shared memory);
+                ``ptxas -v`` said of the tensor-core attention kernels, the
+                single-block and the flash backward (registers a thread,
+                spill bytes, static shared memory);
 3. kernel     — the fused-attention forward kernels against their plain
                 PyTorch version at the three MKGformer shapes and at ViLT's
                 (418 x 418: 128 text and 290 image tokens, the multiplier
@@ -59,21 +60,30 @@ exits non-zero:
                 checkpoint, launches counted from 0; then ``--only_test
                 --checkpoint`` on that checkpoint reproduces the fit's test
                 ranks exactly;
-9. flash_kernel — the three flash kernels (forward, dK/dV, dQ) against
-                their plain versions at the triple pre-train shapes (B=64:
-                text 96x96, vision 99x99, vision-text 99x195), the analogy
-                ones (128x128 with the geometry, 99x227), two Q tiles
-                (512x512, B=8), two K tiles with a ragged second (99x611,
-                B=8), L=2048 (B=8, 8 x 4 tiles), FLAVA's three towers (B=24:
-                393x393, 128x128 with the multiplier from row 1, 522x522)
-                and ViLT's fp32 route (B=32, 418x418), fp32 and bf16, dropout 0
-                and 0.1; the times of each kernel, the plain versions and
-                SDPA (where no analogy multiplier applies), and the bounds;
+9. flash_kernel — the three flash kernels (forward, dK/dV, dQ; the
+                backward pair on the tensor cores in bf16, on the CUDA cores
+                in fp32) against their plain versions at the triple
+                pre-train shapes (B=64: text 96x96, vision 99x99,
+                vision-text 99x195), the analogy ones (128x128 with the
+                geometry, 99x227), two Q tiles (512x512, B=8), two K tiles
+                with a ragged second (99x611, B=8), L=2048 (B=8, 8 x 4
+                tiles), FLAVA's three towers (B=24: 393x393, 128x128 with the
+                multiplier from row 1, 522x522) and ViLT's fp32 route (B=32,
+                418x418), fp32 and bf16, dropout 0 and 0.1; the times of each
+                kernel, of the CUDA-core backward pair in bf16
+                (``earlier_ms``, which the tensor-core pair must beat at
+                every shape), the plain versions and SDPA (where no analogy
+                multiplier applies), and the bounds; then the tensor-core
+                backward at the flash edge cases (FLASH_EDGE_CASES: Lq and
+                Lk of 1, 255, 257, 511, 513 and 611, a row whose keys are all
+                masked, row_start 1, the +290 offset, 64-row chunks that
+                straddle logical tiles of 96 x 160), bf16, dropout 0 and 0.1;
 10. pretrain  — the full-width triple pre-train step (B=64, L=96) through
                 the flash kernels: fp32 against the plain attention (loss
                 within 1e-5 relative, every gradient leaf within its bound),
                 then 8 bf16 steps on one batch: the loss falls, 24 + 24 + 24
-                launches a step, step time and a device profile;
+                launches a step (the backward pair's on the tensor cores),
+                step time and a device profile;
 11. long      — a full-width bf16 fine-tune step at B=8, L=512 through the
                 flash kernels (multi-tile and ragged shapes inside the
                 model), and a forward at L=512 on the plain route that takes
@@ -966,13 +976,15 @@ def flash_bound_times(kernel, b, lq, lk, dtype_bytes):
     return nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS_PER_S * 1e3
 
 
-def flash_dw_scales(fa, q, k, v, mask, go, lse, delta, bnd, w, geo, rate, seed):
+def flash_dw_scales(fa, q, k, v, mask, go, lse, delta, bnd, w, geo, rate, seed,
+                    block_q=None, block_k=None):
     """sum |dS · S_raw| over each analogy region, walking the logical tiles
-    as the plain backward does: the scale of the dw0/dw1 sums."""
+    (by default JAX's (256, 512)) as the plain backward does: the scale of
+    the dw0/dw1 sums."""
     import torch
 
     tiles = fa._Tiles(q.float(), k.float(), mask, HEADS, bnd, w, geo, rate, seed,
-                      fa.BLOCK_Q, fa.BLOCK_K)
+                      block_q or fa.BLOCK_Q, block_k or fa.BLOCK_K)
     qh, kh, vh, gh = (fa._split_heads(x, HEADS, torch.float32) for x in (q, k, v, go))
     scales = [0.0, 0.0]
     for qb in range(tiles.n_qblk):
@@ -999,10 +1011,12 @@ def flash_kernel_phase(device):
     of each result's largest |value| (a term rounded at a cast point can
     land one bf16 ulp apart), dw within 1e-5 of its sum of |terms|. Then
     the times in bf16 (dropout 0.1 on text keys as the text tower trains):
-    each kernel, the plain forward and the plain backward (one walk computes
-    dq, dk and dv, so both backward kernels' rows carry its time), SDPA's
-    forward and backward (forward-and-backward minus forward) where no
-    analogy multiplier applies, and the bounds."""
+    each kernel, the CUDA-core backward pair in bf16 (``earlier_ms``: FAIL
+    where a tensor-core kernel is not faster), the plain forward and the
+    plain backward (one walk computes dq, dk and dv, so both backward
+    kernels' rows carry its time), SDPA's forward and backward
+    (forward-and-backward minus forward) where no analogy multiplier
+    applies, and the bounds."""
     import torch
     import torch.nn.functional as F
 
@@ -1022,12 +1036,15 @@ def flash_kernel_phase(device):
                           deterministic=rate == 0.0, dropout_seed=4321)
                 args = (HEADS, *resolve_geometry(fa, q, kw, rate, 4321),
                         fa.BLOCK_Q, fa.BLOCK_K)
-                before = flash_counts()
+                before, before_mma = flash_counts(), flash_mma_counts()
                 out, lse = fa._launch_fwd(q, k, v, mask, *args)
                 delta = fa._delta(go, out, HEADS)
                 got = fa._launch_bwd(q, k, v, mask, go, lse, delta, *args)
-                if flash_counts() != {kernel: n + 1 for kernel, n in before.items()}:
-                    raise AssertionError(f"flash {name} {key}: a wrapper counted no launch")
+                mma = int(dtype == torch.bfloat16)  # the dtype alone picks the route
+                if (flash_counts() != {kernel: n + 1 for kernel, n in before.items()}
+                        or flash_mma_counts() != {k_: n + mma for k_, n in before_mma.items()}):
+                    raise AssertionError(f"flash {name} {key}: a wrapper counted no launch, or "
+                                         "the backward took the other route")
                 want_out, want_lse = fa._plain_fwd(q, k, v, mask, *args[:6], dtype,
                                                    *args[6:])
                 want = fa.flash_attention_bwd_reference(q, k, v, mask, go, HEADS, out=out,
@@ -1075,6 +1092,20 @@ def flash_kernel_phase(device):
                                                            *args), **n)
         row["dq_ms"] = time_ms(lambda: fa._launch_bwd_dq(q, k, v, mask, go, lse, delta,
                                                          *args), **n)
+        # the CUDA-core pair in bf16, which these calls ran before: the
+        # tensor-core pair must beat it at every shape
+        slow = dict(samples=7, per_sample=3)
+        row["dkv_earlier_ms"] = time_ms(lambda: fa._launch_bwd_dkv_cuda_cores(
+            q, k, v, mask, go, lse, delta, *args), **slow)
+        row["dq_earlier_ms"] = time_ms(lambda: fa._launch_bwd_dq_cuda_cores(
+            q, k, v, mask, go, lse, delta, *args), **slow)
+        for kernel in ("dkv", "dq"):
+            if not row[f"{kernel}_ms"] < row[f"{kernel}_earlier_ms"]:
+                print(f"FAIL flash {name}: the tensor-core {kernel} kernel "
+                      f"({row[f'{kernel}_ms']} ms) is no faster than the CUDA-core one "
+                      f"({row[f'{kernel}_earlier_ms']} ms)", flush=True)
+                raise AssertionError(f"flash {name}: {kernel} no faster than the CUDA-core "
+                                     "kernel")
         row["plain_fwd_ms"] = time_ms(
             lambda: fa.flash_attention_reference(q, k, v, mask, HEADS, **kw), **n)
         row["plain_bwd_ms"] = time_ms(lambda: fa.flash_attention_bwd_reference(
@@ -1115,6 +1146,97 @@ def flash_kernel_phase(device):
     return rows
 
 
+# The flash kernels' ragged edges, above all the tensor-core backward's
+# 64-row chunks against the logical tiles (tests/test_torch_port_flash_edges
+# .py holds the plain versions to JAX at the same cases): (name, B, Lq, Lk,
+# geometry or None as (boundary per batch row, row_start, text_len, offset),
+# batch row whose keys are all masked or None, (block_q, block_k)). Lq and
+# Lk of 1, 255, 257, 511, 513 and 611; row_start 1 and the +290 offset; at
+# 393 x 393 logical tiles of 96 x 160, which 64-row chunks straddle.
+FLASH_EDGE_CASES = [
+    ("1x1", 1, 1, 1, None, None, (256, 512)),
+    ("255x257_masked_row", 2, 255, 257, None, 1, (256, 512)),
+    ("257x255_rows_from_1", 2, 257, 255, ((100, 200), 1, None, 0), 0, (256, 512)),
+    ("511x513", 2, 511, 513, None, 0, (256, 512)),
+    ("513x511_offset_290", 2, 513, 511, ((1, 128), 1, None, 290), 1, (256, 512)),
+    ("611x1", 2, 611, 1, None, None, (256, 512)),
+    ("1x611", 2, 1, 611, ((0, 300), 0, 611, 0), 0, (256, 512)),
+    ("393x393_tiles_96x160", 2, 393, 393, ((60, 100), 1, None, 0), 1, (96, 160)),
+]
+
+
+def flash_bwd_sizes(want, q, k, v, go, lk):
+    """The size each of dq, dk and dv is held to 2^-7 of: its largest
+    |value|. With one key (Lk = 1) p is 1 and every dS = dP - delta cancels
+    to fp32 rounding noise on both sides (delta = rowsum(g * out) is summed
+    outside the kernels, as JAX does, dP inside them), so dq and dk are held
+    to the size they would have without the cancellation, scale·max|dP|·
+    max(|q|, |k|)."""
+    sizes = [c.float().abs().max().item() for c in want[:3]]
+    if lk == 1:
+        dp = (go.float().unflatten(-1, (HEADS, HEAD_DIM))
+              * v.float().unflatten(-1, (HEADS, HEAD_DIM))).sum(-1).abs().max().item()
+        top = HEAD_DIM ** -0.5 * dp * max(q.float().abs().max().item(),
+                                          k.float().abs().max().item())
+        sizes[0], sizes[1] = max(sizes[0], top), max(sizes[1], top)
+    return sizes
+
+
+def flash_edge_phase(device):
+    """The flash kernels in bf16 (the backward pair on the tensor cores)
+    against their plain versions at FLASH_EDGE_CASES (12 heads of 64; the
+    last eighth of the keys padded), dropout 0 and 0.1 with the same seed,
+    so the masks must agree: the forward within 2e-2 absolute; the backward,
+    from the kernel forward's out and lse, within 2^-7 of each result's size
+    (flash_bwd_sizes), dw within 1e-5 of its sum of |terms|. Returns the
+    largest backward error."""
+    import torch
+
+    from mkg_analogy_tpu_torch.kernels import flash_attention as fa
+
+    errs = {}
+    for case in FLASH_EDGE_CASES:
+        name, lq, lk, (bq, bk) = case[0], case[2], case[3], case[6]
+        q, k, v, go, mask, kw = edge_inputs(case[:6], device)
+        for rate in (0.0, 0.1):
+            key = f"{name}{'_dropout' if rate else ''}"
+            call = dict(kw, compute_dtype=torch.bfloat16, dropout_rate=rate,
+                        deterministic=rate == 0.0, dropout_seed=23, block_q=bq, block_k=bk)
+            args = (HEADS, *resolve_geometry(fa, q, kw, rate, 23), bq, bk)
+            before = flash_mma_counts()
+            out, lse = fa._launch_fwd(q, k, v, mask, *args)
+            delta = fa._delta(go, out, HEADS)
+            got = fa._launch_bwd(q, k, v, mask, go, lse, delta, *args)
+            if flash_mma_counts() != {n: c + 1 for n, c in before.items()}:
+                raise AssertionError(f"flash edge {key}: the tensor-core pair was not launched")
+            want_out, _ = fa._plain_fwd(q, k, v, mask, *args[:6], torch.bfloat16, bq, bk)
+            want = fa.flash_attention_bwd_reference(q, k, v, mask, go, HEADS, out=out, lse=lse,
+                                                    **call)
+            torch.cuda.synchronize()
+            err = (out.float() - want_out.float()).abs().max().item()
+            errs[f"fwd_max_abs_err_{key}"] = err
+            if not err <= 2e-2:
+                raise AssertionError(f"flash edge fwd {key}: {err} > 2e-2")
+            sizes = flash_bwd_sizes(want, q, k, v, go, lk)
+            for t_name, a, c, size in zip(("dq", "dk", "dv"), got[:3], want[:3], sizes):
+                err = (a.float() - c.float()).abs().max().item()
+                errs[f"max_abs_err_{t_name}_{key}"] = err
+                if not err <= 2.0 ** -7 * size:
+                    raise AssertionError(f"flash edge bwd {key} {t_name}: {err} > 2^-7 * {size}")
+            if kw:
+                scales = flash_dw_scales(fa, q, k, v, mask, go, lse, delta, *args[1:6], bq, bk)
+                for i in range(2):
+                    err = abs(got[3][i].item() - want[3][i].item())
+                    errs[f"dw{i}_err_{key}"] = err
+                    if not err <= 1e-5 * scales[i]:
+                        raise AssertionError(f"flash edge bwd {key} dw{i}: {err} > "
+                                             f"1e-5 * {scales[i]}")
+            elif got[3].abs().max().item() != 0.0:
+                raise AssertionError(f"flash edge bwd {key}: dw without a geometry")
+    emit(dict(phase="flash_edges", dtype="bfloat16", **errs))
+    return max(e for n, e in errs.items() if n.startswith("max_abs_err"))
+
+
 class _PretrainVocab:
     """What MarTTrainer reads of a KGVocab for a triple pre-train step: the
     MarKG id ranges (a 30,522-token wordpiece base, 11,292 entities, 192
@@ -1153,6 +1275,14 @@ def flash_counts():
     return dict(fwd=fa.LAUNCHES_FLASH, dkv=fa.LAUNCHES_FLASH_DKV, dq=fa.LAUNCHES_FLASH_DQ)
 
 
+def flash_mma_counts():
+    """Launches of the tensor-core (bf16) flash backward pair alone; the
+    dK/dV and dQ counts of flash_counts take either route."""
+    from mkg_analogy_tpu_torch.kernels import flash_attention as fa
+
+    return dict(dkv=fa.LAUNCHES_FLASH_DKV_MMA, dq=fa.LAUNCHES_FLASH_DQ_MMA)
+
+
 def reset_counts():
     from mkg_analogy_tpu_torch.kernels import attention as attn
     from mkg_analogy_tpu_torch.kernels import flash_attention as fa
@@ -1160,6 +1290,7 @@ def reset_counts():
 
     attn.LAUNCHES = attn.LAUNCHES_BWD = 0
     fa.LAUNCHES_FLASH = fa.LAUNCHES_FLASH_DKV = fa.LAUNCHES_FLASH_DQ = 0
+    fa.LAUNCHES_FLASH_DKV_MMA = fa.LAUNCHES_FLASH_DQ_MMA = 0
     ip.LAUNCHES_RESIZE = 0
 
 
@@ -1234,8 +1365,9 @@ def pretrain_phase(device):
             loss.backward()
             torch.cuda.synchronize()
             n = 24 if backend == "flash" else 0
-            if flash_counts() != dict(fwd=n, dkv=n, dq=n):
-                raise AssertionError(f"fp32 pre-train step {backend}: launches {flash_counts()}")
+            if flash_counts() != dict(fwd=n, dkv=n, dq=n) or any(flash_mma_counts().values()):
+                raise AssertionError(f"fp32 pre-train step {backend}: launches {flash_counts()}, "
+                                     f"tensor-core {flash_mma_counts()}")
             runs[backend] = (loss.item(), {k: None if p.grad is None else p.grad.clone()
                                            for k, p in model.named_parameters()})
     finally:
@@ -1274,10 +1406,12 @@ def pretrain_phase(device):
         metrics = trainer._train_step(opt, batch, step)
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
-        launches.append(flash_counts())
+        launches.append(dict(flash_counts(), **{f"{k}_mma": n
+                                                for k, n in flash_mma_counts().items()}))
         losses.append(metrics["loss"].item())
-    if any(n != dict(fwd=24, dkv=24, dq=24) for n in launches):
-        raise AssertionError(f"bf16 pre-train steps: launches {launches}, expected 24 each")
+    if any(n != dict(fwd=24, dkv=24, dq=24, dkv_mma=24, dq_mma=24) for n in launches):
+        raise AssertionError(f"bf16 pre-train steps: launches {launches}, expected 24 each, "
+                             "the backward pair's on the tensor cores")
     if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
         raise AssertionError(f"bf16 pre-train loss did not fall: {losses}")
     step_ms = statistics.median(times[2:])
@@ -1324,8 +1458,10 @@ def long_phase(device):
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
         losses.append(metrics["loss"].item())
-        if flash_counts() != dict(fwd=24, dkv=24, dq=24) or attn.LAUNCHES or attn.LAUNCHES_BWD:
-            raise AssertionError(f"L=512 step: flash {flash_counts()}, single "
+        if (flash_counts() != dict(fwd=24, dkv=24, dq=24) or attn.LAUNCHES or attn.LAUNCHES_BWD
+                or flash_mma_counts() != dict(dkv=24, dq=24)):
+            raise AssertionError(f"L=512 step: flash {flash_counts()}, tensor-core "
+                                 f"{flash_mma_counts()}, single "
                                  f"{attn.LAUNCHES}/{attn.LAUNCHES_BWD}")
     if not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"L=512 step: losses {losses}")
@@ -1398,7 +1534,11 @@ def cli_pretrain_phase():
             runs[fmt] = dict(launches=launches, eval_examples=n_eval, seconds=seconds,
                              mrr=metrics["Eval_entity/mrr"],
                              relation_mrr=metrics.get("Eval_relation/mrr"))
-        total = flash_counts()  # the main path's launches, all three formats
+        # the main path's launches, all three formats; the backward pair's
+        # all on the tensor cores
+        total = dict(flash_counts(), **{f"{k}_mma": n for k, n in flash_mma_counts().items()})
+        if (total["dkv_mma"], total["dq_mma"]) != (total["dkv"], total["dq"]):
+            raise AssertionError(f"cli pretrain: a bf16 backward left the tensor cores: {total}")
 
         ft_dir = os.path.join(root, "finetune")
         reset_counts()
@@ -1407,7 +1547,8 @@ def cli_pretrain_phase():
                                 "--max_epochs", "1"))
         launches = flash_counts()
         expect = dict(fwd=24 * (4 + 1 + 2), dkv=24 * 4, dq=24 * 4)
-        if launches != expect or attn.LAUNCHES or attn.LAUNCHES_BWD:
+        if (launches != expect or attn.LAUNCHES or attn.LAUNCHES_BWD
+                or flash_mma_counts() != dict(dkv=24 * 4, dq=24 * 4)):
             raise AssertionError(f"cli fine-tune from the pre-train checkpoint: {launches}")
         if not all(math.isfinite(v) for v in metrics.values()):
             raise AssertionError(f"cli fine-tune from the pre-train checkpoint: {metrics}")
@@ -1683,7 +1824,8 @@ def all_counts():
     from mkg_analogy_tpu_torch.kernels import attention as attn
 
     return dict(single_fwd=attn.LAUNCHES, single_bwd=attn.LAUNCHES_BWD,
-                **{f"flash_{k}": n for k, n in flash_counts().items()})
+                **{f"flash_{k}": n for k, n in flash_counts().items()},
+                **{f"flash_{k}_mma": n for k, n in flash_mma_counts().items()})
 
 
 # The two families that read the tool's pixel stores, at the recipes of
@@ -1701,12 +1843,17 @@ FAMILIES = {
 }
 
 
-def family_counts(backend, calls, backward=True):
+def family_counts(backend, calls, backward=True, bf16=True):
+    """all_counts of a step (or a forward) through ``backend``; in bf16 the
+    flash backward pair runs on the tensor cores."""
     n_b = calls if backward else 0
-    zero = dict(single_fwd=0, single_bwd=0, flash_fwd=0, flash_dkv=0, flash_dq=0)
+    zero = dict(single_fwd=0, single_bwd=0, flash_fwd=0, flash_dkv=0, flash_dq=0,
+                flash_dkv_mma=0, flash_dq_mma=0)
     if backend == "single":
         return dict(zero, single_fwd=calls, single_bwd=n_b)
-    return dict(zero, flash_fwd=calls, flash_dkv=n_b, flash_dq=n_b)
+    n_mma = n_b if bf16 else 0
+    return dict(zero, flash_fwd=calls, flash_dkv=n_b, flash_dq=n_b, flash_dkv_mma=n_mma,
+                flash_dq_mma=n_mma)
 
 
 def family_phase(device, name):
@@ -1769,7 +1916,7 @@ def family_phase(device, name):
             loss, _ = trainer._finetune_loss(batch, DropoutRNG.from_seed(5, device))
             loss.backward()
             torch.cuda.synchronize()
-            if all_counts() != family_counts("flash", n):
+            if all_counts() != family_counts("flash", n, bf16=False):
                 raise AssertionError(f"{name} fp32 step {run}: launches {all_counts()}")
             runs[run] = (loss.item(), {k: None if p.grad is None else p.grad.clone()
                                        for k, p in model.named_parameters()})
@@ -1795,7 +1942,7 @@ def family_phase(device, name):
         loss_rel_diff_plain_attention=abs(lk - lp) / abs(lp),
         worst_err_over_bar_vs_plain_attention=leaf_ratios(runs["flash_nodrop"][1],
                                                           runs["plain_nodrop"][1]),
-        launches=family_counts("flash", calls))
+        launches=family_counts("flash", calls, bf16=False))
     del runs, model, trainer
     torch.cuda.empty_cache()
 
@@ -1946,22 +2093,28 @@ def cli_image_phase():
     return total
 
 
+# (name, source of the main paths' kernel, source of the fp32 route's or
+# None, line of the Pallas kernel body it replaces)
 FLASH_KERNELS = {
-    "fwd": ("flash_attention_fwd", "flash_attention_fwd.cu", 98),
-    "dkv": ("flash_attention_bwd_dkv", "flash_attention_bwd.cu", 183),
-    "dq": ("flash_attention_bwd_dq", "flash_attention_bwd.cu", 271),
+    "fwd": ("flash_attention_fwd", "flash_attention_fwd.cu", None, 98),
+    "dkv": ("flash_attention_bwd_dkv", "flash_attention_bwd_mma.cu", "flash_attention_bwd.cu",
+            183),
+    "dq": ("flash_attention_bwd_dq", "flash_attention_bwd_mma.cu", "flash_attention_bwd.cu",
+           271),
 }
 
 
-def flash_entry(rows, kernel, launches):
+def flash_entry(rows, kernel, launches, edge_err):
     """One flash kernel's entry of the {"kernels": ...} line. Its times and
     bounds are per triple pre-train step at B=64 (12 text 96 x 96, 8 vision
     99 x 99 and 4 vision-text 99 x 195 calls, no analogy multiplier, so SDPA
     is the library yardstick of every call); plain_ms is the plain forward,
     or for both backward kernels the plain backward, which computes dq, dk
     and dv in one walk; library_ms likewise SDPA's forward or its whole
-    backward. Errors are the largest over every shape."""
-    name, source, line = FLASH_KERNELS[kernel]
+    backward; a backward kernel's earlier_ms is the CUDA-core kernel's in
+    bf16. Errors are the largest over every shape (and, of the backward
+    pair, over the edge cases)."""
+    name, source, source_fp32, line = FLASH_KERNELS[kernel]
     step = [r for r in rows if r["launches_per_triple_step"]]
 
     def per_step(key):
@@ -1979,7 +2132,7 @@ def flash_entry(rows, kernel, launches):
                  for d in ("fp32", "fp32_dropout")]
     plain = "plain_fwd_ms" if kernel == "fwd" else "plain_bwd_ms"
     library = "library_fwd_ms" if kernel == "fwd" else "library_bwd_ms"
-    return dict(
+    entry = dict(
         name=name, route="cuda", source=f"mkg_analogy_tpu_torch/csrc/{source}",
         replaces=f"mkg_analogy_tpu/kernels/flash_attention.py:{line}", ok=True,
         launches=launches, max_abs_err=max(err), max_abs_err_fp32=max(err32),
@@ -1989,6 +2142,10 @@ def flash_entry(rows, kernel, launches):
         shapes=[{k: v for k, v in r.items()
                  if k.startswith((kernel, "shape", "B", "L", "tiles", plain, library))}
                 for r in rows])
+    if source_fp32:  # bf16 on the tensor cores, fp32 on the CUDA cores
+        entry.update(source_fp32=f"mkg_analogy_tpu_torch/csrc/{source_fp32}",
+                     earlier_ms=per_step(f"{kernel}_earlier_ms"), max_abs_err_edges=edge_err)
+    return entry
 
 
 def main() -> int:
@@ -2018,7 +2175,8 @@ def main() -> int:
               # what ptxas -v said of the tensor-core kernels (no profiler of
               # kernel internals runs everywhere)
               resources={name: build.resource_usage(name)
-                         for name in ("fused_attention_fwd_mma", "fused_attention_bwd_mma")}))
+                         for name in ("fused_attention_fwd_mma", "fused_attention_bwd_mma",
+                                      "flash_attention_bwd_mma")}))
     rows, edge_err = kernel_phase(device)
     bwd_rows, bwd_edge_err = kernel_bwd_phase(device)
     model_phase(device)
@@ -2028,6 +2186,7 @@ def main() -> int:
     if not launches["fwd"] or not launches["bwd"]:
         raise AssertionError(f"the main path launched no kernel: {launches}")
     flash_rows = flash_kernel_phase(device)
+    flash_edge_err = flash_edge_phase(device)
     pretrain_phase(device)
     long_phase(device)
     flash_launches = cli_pretrain_phase()
@@ -2088,9 +2247,10 @@ def main() -> int:
         bound_ms=max(b_bytes, b_ops), bound_by=bound_by(b_bytes, b_ops),
         library_ms=None,  # per shape below: SDPA's backward at the vision shapes
         shapes=bwd_rows,
-    )] + [dict(flash_entry(flash_rows, kernel, flash_launches[kernel]),
-               launches_image_path=image_launches[f"flash_{kernel}"])
-          for kernel in ("fwd", "dkv", "dq")] + [dict(
+    )] + [dict(flash_entry(flash_rows, kernel, flash_launches[mma], flash_edge_err),
+               launches_image_path=image_launches[f"flash_{mma}"])
+          # the bf16 main paths' launches: the backward pair's on the tensor cores
+          for kernel, mma in (("fwd", "fwd"), ("dkv", "dkv_mma"), ("dq", "dq_mma"))] + [dict(
         name="resize_normalize", route="cuda",
         source="mkg_analogy_tpu_torch/csrc/resize_normalize.cu",
         replaces="mkg_analogy_tpu/kernels/image_prep.py:84",

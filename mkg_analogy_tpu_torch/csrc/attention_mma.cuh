@@ -138,24 +138,26 @@ __device__ __forceinline__ void load_a(uint32_t (&a)[4][4], const bf16* rows) {
 }
 
 // Both products walk the depth in steps of 16 and, within a step, first
-// load the four B fragments and then run the eight mma.sync, one for each
-// accumulator tile: eight independent accumulations stand between two uses
-// of the same accumulator, which hides the tensor pipe's latency (the asm
+// load the B fragments and then run the mma.sync, one for each accumulator
+// tile: up to eight independent accumulations stand between two uses of the
+// same accumulator, which hides the tensor pipe's latency (the asm
 // statements are volatile, so this order is the order executed).
 
-// c[nt] (16 x 8 each, 64 columns in all) += A * tile^T: column n of the
-// result is row n of the tile, the depth is the head dimension.
-__device__ __forceinline__ void product_nt(float (&c)[8][4], const uint32_t (&a)[4][4],
+// c[nt] (16 x 8 each, 8 NT columns in all: 64, or 32 for half a tile) +=
+// A * tile^T: column n of the result is row n of the tile, the depth is the
+// head dimension.
+template <int NT>
+__device__ __forceinline__ void product_nt(float (&c)[NT][4], const uint32_t (&a)[4][4],
                                            const bf16* tile) {
   const int lane = threadIdx.x & 31;
   const bf16* p = tile + ((lane & 7) + 8 * (lane >> 4)) * kStride + 8 * ((lane >> 3) & 1);
 #pragma unroll
   for (int ks = 0; ks < 4; ++ks) {
-    uint32_t b[4][4];
+    uint32_t b[NT / 2][4];
 #pragma unroll
-    for (int np = 0; np < 4; ++np) ldmatrix_x4(b[np], p + np * 16 * kStride + ks * 16);
+    for (int np = 0; np < NT / 2; ++np) ldmatrix_x4(b[np], p + np * 16 * kStride + ks * 16);
 #pragma unroll
-    for (int np = 0; np < 4; ++np) {
+    for (int np = 0; np < NT / 2; ++np) {
       mma_bf16(c[2 * np], a[ks], b[np][0], b[np][1]);
       mma_bf16(c[2 * np + 1], a[ks], b[np][2], b[np][3]);
     }
@@ -163,13 +165,15 @@ __device__ __forceinline__ void product_nt(float (&c)[8][4], const uint32_t (&a)
 }
 
 // c[nt] (16 x 8 each, the 64 head columns) += A * tile: the depth is the
-// tile's 64 rows, a[ks] covering rows 16 ks .. 16 ks + 15.
-__device__ __forceinline__ void product_nn(float (&c)[8][4], const uint32_t (&a)[4][4],
+// tile's first 16 KS rows (64, or 32 for half a tile), a[ks] covering rows
+// 16 ks .. 16 ks + 15.
+template <int KS>
+__device__ __forceinline__ void product_nn(float (&c)[8][4], const uint32_t (&a)[KS][4],
                                            const bf16* tile) {
   const int lane = threadIdx.x & 31;
   const bf16* p = tile + (lane & 15) * kStride + 8 * (lane >> 4);
 #pragma unroll
-  for (int ks = 0; ks < 4; ++ks) {
+  for (int ks = 0; ks < KS; ++ks) {
     uint32_t b[4][4];
 #pragma unroll
     for (int dp = 0; dp < 4; ++dp) ldmatrix_x4_trans(b[dp], p + ks * 16 * kStride + dp * 16);
@@ -186,11 +190,13 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&h);
 }
 
-// Eight 16 x 8 fp32 tiles (16 x 64), rounded to bf16 (nearest even: the
-// cast to the compute dtype), as the four A fragments of the next product.
-__device__ __forceinline__ void pack_a(uint32_t (&a)[4][4], const float (&c)[8][4]) {
+// 2 KS 16 x 8 fp32 tiles (16 x 64, or 16 x 32), rounded to bf16 (nearest
+// even: the cast to the compute dtype), as the KS A fragments of the next
+// product.
+template <int KS>
+__device__ __forceinline__ void pack_a(uint32_t (&a)[KS][4], const float (&c)[2 * KS][4]) {
 #pragma unroll
-  for (int ks = 0; ks < 4; ++ks) {
+  for (int ks = 0; ks < KS; ++ks) {
     a[ks][0] = pack_bf16(c[2 * ks][0], c[2 * ks][1]);
     a[ks][1] = pack_bf16(c[2 * ks][2], c[2 * ks][3]);
     a[ks][2] = pack_bf16(c[2 * ks + 1][0], c[2 * ks + 1][1]);
@@ -308,13 +314,15 @@ __device__ __forceinline__ Geometry load_geometry(int has, int row_start, int te
 // with c = scale (* the row's multiplier at an answer column) and bias =
 // (1 - mask) * -1e4, or -inf for the padding of a chunk beyond Lk, whose
 // probability is thereby exactly 0 and which no max sees. The plain version
-// rounds acc * scale, * w and + bias one by one; the FMA lands on the same
-// fp32 value but for rare double roundings. That matters where every key of
-// a row is masked: its scores sit at -1e4, where an fp32 ulp is 9.8e-4, and
-// only scores quantised on the plain version's grid give its probabilities
-// (base-2 scores, log2(e) folded into c and bias, land on another grid,
-// and a fifth of such a row's probabilities then round to the neighbouring
-// bf16). exp(s - m) is ex2.approx of (s - m) * log2(e): the difference
+// (kernels/attention.py:_score) rounds as XLA does inside the JAX kernels,
+// acc * scale + bias in one FMA, or s_raw * w + bias with s_raw = acc *
+// scale; at head_dim 64 the scale is 2^-3, so s_raw and scale * w are exact
+// and this FMA is the plain version's, given the same acc. That matters
+// where every key of a row is masked: its scores sit at -1e4, where an fp32
+// ulp is 9.8e-4, and only scores quantised on the plain version's grid give
+// its probabilities (base-2 scores, log2(e) folded into c and bias, land on
+// another grid, and a fifth of such a row's probabilities then round to the
+// neighbouring bf16). exp(s - m) is ex2.approx of (s - m) * log2(e): the difference
 // first, so that the row's largest score gives exactly 1.
 constexpr float kLog2e = 1.4426950408889634f;
 
@@ -358,9 +366,10 @@ __device__ __forceinline__ void scores(float (&s)[8][4], uint32_t abits, float c
   }
 }
 
-__device__ __forceinline__ void zero(float (&c)[8][4]) {
+template <int NT>
+__device__ __forceinline__ void zero(float (&c)[NT][4]) {
 #pragma unroll
-  for (int nt = 0; nt < 8; ++nt) c[nt][0] = c[nt][1] = c[nt][2] = c[nt][3] = 0.0f;
+  for (int nt = 0; nt < NT; ++nt) c[nt][0] = c[nt][1] = c[nt][2] = c[nt][3] = 0.0f;
 }
 
 }  // namespace attention_mma

@@ -154,21 +154,50 @@ def _merge_heads(x, dtype):
     return x.transpose(1, 2).reshape(b, length, h * d).to(dtype)
 
 
+def _score(products, scale, mult, bias):
+    """(s_raw, s) of the raw q·k products as XLA computes the JAX kernels'
+    ``s_raw = dot * scale; s = s_raw * mult + bias`` inside them (their
+    interpret mode, on the CPU): s_raw rounded, and s contracted into one
+    multiply-add, ``dot * scale + bias`` without the analogy multiplier,
+    ``s_raw * mult + bias`` with it. Where a row's keys are all masked its
+    scores sit at -1e4, where an fp32 ulp is 9.8e-4, and a product rounded
+    first moves a score there by a whole ulp now and then. The port's
+    products themselves still sum in torch.matmul's order, not XLA's dot's,
+    which no plain PyTorch call reproduces."""
+    s_raw = products * scale
+    if mult is None:
+        return s_raw, _fma(products, scale, bias)
+    return s_raw, _fma(s_raw, mult, bias)
+
+
+def _fma(a, b, c):
+    """a * b + c rounded once to a's dtype: the product of two fp32 values
+    is exact in fp64, and the fp64 sum rounds to another fp32 value than
+    the exact one only where 29 bits below fp32's last one happen to read
+    1000...0. fp64 inputs (the gradient checks) take a plain a * b + c."""
+    if a.dtype == torch.float64:
+        return a * b + c
+    b = torch.as_tensor(b, dtype=a.dtype, device=a.device)
+    return (a.double() * b.double() + c.double()).to(a.dtype)
+
+
 def _scores(q, k, mask, num_heads, bnd, w, geometry):
     """(s_raw, planes or None, p): the scaled scores, the geometry planes
     and the softmax, (B, heads, Lq, Lk) in the accumulation dtype."""
     acc = _acc_dtype(q)
-    lq, lk = q.shape[1], k.shape[1]
-    scale = float(q.shape[2] // num_heads) ** -0.5
     # products of the (possibly bf16) inputs, summed in fp32
-    s_raw = torch.matmul(_split_heads(q, num_heads, acc),
-                         _split_heads(k, num_heads, acc).transpose(-1, -2)) * scale
-    planes = None
-    s = s_raw
-    if geometry is not None:
-        planes = _geometry_planes(bnd, w, lq, lk, geometry)
-        s = s_raw * planes[0]
-    s = s + ((1.0 - mask.to(acc)) * NEG_BIAS)[:, None, None, :]
+    products = torch.matmul(_split_heads(q, num_heads, acc),
+                            _split_heads(k, num_heads, acc).transpose(-1, -2))
+    return _softmax_scores(products, mask, bnd, w, geometry,
+                           float(q.shape[2] // num_heads) ** -0.5)
+
+
+def _softmax_scores(products, mask, bnd, w, geometry, scale):
+    """_scores from the raw (B, heads, Lq, Lk) q·k products."""
+    lq, lk = products.shape[-2:]
+    planes = None if geometry is None else _geometry_planes(bnd, w, lq, lk, geometry)
+    bias = ((1.0 - mask.to(products.dtype)) * NEG_BIAS)[:, None, None, :]
+    s_raw, s = _score(products, scale, None if planes is None else planes[0], bias)
     return s_raw, planes, torch.softmax(s, dim=-1)
 
 

@@ -32,16 +32,19 @@ dK/dV (JAX zeroes their q, g, lse and delta).
   (w0, w1), the seed, the output and the per-row log-sum-exp. Its backward
   computes ``delta = rowsum(g · out)`` in fp32 (outside any kernel, as JAX
   does) and runs the dK/dV and the dQ kernels. A CUDA tensor launches the
-  hand-written kernels (``csrc/flash_attention_fwd.cu``,
-  ``csrc/flash_attention_bwd.cu``, built at first use by
-  ``kernels/build.py``); a CPU tensor takes the plain versions. Nothing
-  falls back from one to the other.
+  hand-written kernels, built at first use by ``kernels/build.py``: the
+  forward ``csrc/flash_attention_fwd.cu``; the backward, by the dtype alone,
+  ``csrc/flash_attention_bwd_mma.cu`` for bf16 (tensor cores) and
+  ``csrc/flash_attention_bwd.cu`` for fp32 (CUDA cores). A CPU tensor takes
+  the plain versions. Nothing falls back from one to the other.
 - ``flash_attention_reference`` and ``flash_attention_bwd_reference`` are
   the plain versions: they walk the logical tiles as the three kernel bodies
   do. The CPU tests hold them to the JAX kernels in interpret mode, and
   ``chip_smoke.py`` holds the CUDA kernels to them on the card.
 - ``LAUNCHES_FLASH``, ``LAUNCHES_FLASH_DKV`` and ``LAUNCHES_FLASH_DQ``
-  count kernel launches.
+  count kernel launches (a dK/dV or dQ launch on either route);
+  ``LAUNCHES_FLASH_DKV_MMA`` and ``LAUNCHES_FLASH_DQ_MMA`` count those of
+  the tensor-core kernels alone.
 """
 
 from __future__ import annotations
@@ -66,16 +69,21 @@ from .attention import (
     _merge_heads,
     _raise_if,
     _resolve,
+    _score,
     _split_heads,
     hash_keep,
 )
 
 HARD_MASK = -1e30    # exact exclusion of out-of-range K columns (exp -> 0)
 BLOCK_Q, BLOCK_K = 256, 512  # logical tile defaults (flash_attention.py:533-534)
-KEYS_PER_BLOCK = 32  # keys per dK/dV block (csrc kKeysPerBlock)
+# keys per dK/dV block, one (dw0, dw1) partial each: the CUDA-core kernel
+# (csrc/flash_attention_bwd.cu kPerBlock) and the tensor-core one (kTile)
+KEYS_PER_BLOCK_CUDA_CORES, KEYS_PER_BLOCK_MMA = 32, 64
 LAUNCHES_FLASH = 0      # forward kernel launches since import (or a caller's reset)
-LAUNCHES_FLASH_DKV = 0  # dK/dV kernel launches, likewise
-LAUNCHES_FLASH_DQ = 0   # dQ kernel launches, likewise
+LAUNCHES_FLASH_DKV = 0  # dK/dV kernel launches, either route, likewise
+LAUNCHES_FLASH_DQ = 0   # dQ kernel launches, either route, likewise
+LAUNCHES_FLASH_DKV_MMA = 0  # of those, the tensor-core (bf16) kernels'
+LAUNCHES_FLASH_DQ_MMA = 0
 
 
 def _blocks(lq, lk, block_q, block_k):
@@ -141,17 +149,17 @@ class _Tiles:
     def scores(self, qt, kt, qb, kb, r0, r1):
         """(s_raw, planes or None, s) of the tile, (B, heads, r1 - r0, bk)."""
         c0 = kb * self.bk
-        s_raw = torch.matmul(qt, kt.transpose(-1, -2)) * self.scale
-        planes, s = None, s_raw
+        planes = None
         if self.geometry is not None:
             dev = qt.device
             planes = _geometry_planes(self.bnd, self.w, torch.arange(r0, r1, device=dev),
                                       torch.arange(c0, c0 + self.bk, device=dev),
                                       self.geometry)
-            s = s_raw * planes[0]
         bias = self.bias[:, c0:c0 + self.bk]
         bias = F.pad(bias, (0, self.bk - bias.shape[1]), value=HARD_MASK)  # _col_bias
-        return s_raw, planes, s + bias[:, None, None, :]
+        s_raw, s = _score(torch.matmul(qt, kt.transpose(-1, -2)), self.scale,
+                          None if planes is None else planes[0], bias[:, None, None, :])
+        return s_raw, planes, s
 
     def keep(self, qb, kb, r0, r1, device):
         """The tile's keep mask on its real rows, or None without dropout."""
@@ -338,9 +346,9 @@ def _lib_fwd() -> ctypes.CDLL:
     return lib
 
 
-@functools.cache
-def _lib_bwd() -> ctypes.CDLL:
-    lib = build.load("flash_attention_bwd")
+def _bind_bwd(lib, suffix):
+    """argtypes of a backward library's two launchers, ``suffix`` "" or
+    "_mma"."""
     p, i, f, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint
     common = [
         i, i, i, i, i,              # batch lq lk num_heads is_bf16
@@ -351,14 +359,30 @@ def _lib_bwd() -> ctypes.CDLL:
         p,                          # stream
     ]
     # q k v g mask boundary w lse delta, then dk dv dw_part / dq
-    lib.mkg_flash_attention_bwd_dkv.argtypes = [p] * 12 + common
-    lib.mkg_flash_attention_bwd_dkv.restype = ctypes.c_int
-    lib.mkg_flash_attention_bwd_dq.argtypes = [p] * 10 + common
-    lib.mkg_flash_attention_bwd_dq.restype = ctypes.c_int
-    lib.mkg_flash_attention_bwd_smem.argtypes = [i]
-    lib.mkg_flash_attention_bwd_smem.restype = ctypes.c_size_t
+    dkv, dq = (getattr(lib, f"mkg_flash_attention_bwd_{n}{suffix}") for n in ("dkv", "dq"))
+    dkv.argtypes = [p] * 12 + common
+    dq.argtypes = [p] * 10 + common
+    dkv.restype = dq.restype = ctypes.c_int
     lib.mkg_cuda_error_string.argtypes = [i]
     lib.mkg_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+@functools.cache
+def _lib_bwd() -> ctypes.CDLL:
+    """The CUDA-core backward kernels (csrc/flash_attention_bwd.cu)."""
+    lib = _bind_bwd(build.load("flash_attention_bwd"), "")
+    lib.mkg_flash_attention_bwd_smem.argtypes = [ctypes.c_int]
+    lib.mkg_flash_attention_bwd_smem.restype = ctypes.c_size_t
+    return lib
+
+
+@functools.cache
+def _lib_bwd_mma() -> ctypes.CDLL:
+    """The tensor-core backward kernels (csrc/flash_attention_bwd_mma.cu)."""
+    lib = _bind_bwd(build.load("flash_attention_bwd_mma"), "_mma")
+    lib.mkg_flash_attention_bwd_mma_smem.argtypes = []
+    lib.mkg_flash_attention_bwd_mma_smem.restype = ctypes.c_size_t
     return lib
 
 
@@ -392,7 +416,9 @@ def _launch_fwd(q, k, v, mask, num_heads, bnd, w, geometry, rate, seed, block_q,
     return out, lse
 
 
-def _check_bwd(q, k, g, lse, delta, num_heads):
+def _bwd_lib(q, g, lse, delta, num_heads, mma):
+    """The backward library of a route, its inputs checked: the tensor-core
+    kernels (``mma``, bf16) or the CUDA-core ones."""
     _check_tensor("g", g, q)
     if g.shape != q.shape:
         raise ValueError(f"g {tuple(g.shape)} is not q's shape {tuple(q.shape)}")
@@ -400,46 +426,106 @@ def _check_bwd(q, k, g, lse, delta, num_heads):
         if (t.shape != (q.shape[0], num_heads, q.shape[1]) or t.dtype != torch.float32
                 or not t.is_contiguous()):
             raise ValueError(f"{name} must be a contiguous fp32 (B, heads, Lq) tensor")
-    lib = _lib_bwd()
-    _check_smem(lib.mkg_flash_attention_bwd_smem(int(q.dtype == torch.bfloat16)), q,
-                "flash_attention_bwd", hint="the device is not an H100-class card")
+    if mma:
+        lib = _lib_bwd_mma()
+        smem, what = lib.mkg_flash_attention_bwd_mma_smem(), "flash_attention_bwd_mma"
+    else:
+        lib = _lib_bwd()
+        smem = lib.mkg_flash_attention_bwd_smem(int(q.dtype == torch.bfloat16))
+        what = "flash_attention_bwd"
+    _check_smem(smem, q, what, hint="the device is not an H100-class card")
     return lib
 
 
-def _launch_bwd_dkv(q, k, v, mask, g, lse, delta, num_heads, bnd, w, geometry, rate, seed,
-                    block_q, block_k):
-    """dk, dv and the (2,) dw: the dK/dV kernel writes one (dw0, dw1)
-    partial per (b, head, block of 32 keys) and this sums them, so no float
-    atomics run and fp32 results repeat from run to run."""
-    global LAUNCHES_FLASH_DKV
-    lib = _check_bwd(q, k, g, lse, delta, num_heads)
+def _dkv(mma, q, k, v, mask, g, lse, delta, num_heads, bnd, w, geometry, rate, seed, block_q,
+         block_k):
+    """dk, dv and the (2,) dw of one dK/dV launch on a route: the kernel
+    writes one (dw0, dw1) partial per (b, head, block of keys) and this sums
+    them, so no float atomics run and fp32 results repeat from run to run."""
+    lib = _bwd_lib(q, g, lse, delta, num_heads, mma)
+    launcher = "mkg_flash_attention_bwd_dkv" + ("_mma" if mma else "")
+    keys_per_block = KEYS_PER_BLOCK_MMA if mma else KEYS_PER_BLOCK_CUDA_CORES
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    dw_part = torch.empty(q.shape[0], num_heads, -(-k.shape[1] // KEYS_PER_BLOCK), 2,
+    dw_part = torch.empty(q.shape[0], num_heads, -(-k.shape[1] // keys_per_block), 2,
                           dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
-        err = lib.mkg_flash_attention_bwd_dkv(
+        err = getattr(lib, launcher)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), mask.data_ptr(),
             bnd.data_ptr(), w.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
             dv.data_ptr(), dw_part.data_ptr(),
             *_call_args(q, k, num_heads, geometry, rate, seed, block_q, block_k))
-    _raise_if(err, lib, "flash_attention_bwd_dkv")
-    LAUNCHES_FLASH_DKV += 1
+    _raise_if(err, lib, launcher)
     return dk, dv, dw_part.sum(dim=(0, 1, 2)).to(w.dtype)
+
+
+def _dq(mma, q, k, v, mask, g, lse, delta, num_heads, bnd, w, geometry, rate, seed, block_q,
+        block_k):
+    """dq of one dQ launch on a route."""
+    lib = _bwd_lib(q, g, lse, delta, num_heads, mma)
+    launcher = "mkg_flash_attention_bwd_dq" + ("_mma" if mma else "")
+    dq = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        err = getattr(lib, launcher)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), mask.data_ptr(),
+            bnd.data_ptr(), w.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            *_call_args(q, k, num_heads, geometry, rate, seed, block_q, block_k))
+    _raise_if(err, lib, launcher)
+    return dq
+
+
+def _launch_bwd_dkv_cuda_cores(*args):
+    """The CUDA-core dK/dV kernel (csrc/flash_attention_bwd.cu): the fp32
+    route. It also takes bf16, which :func:`_launch_bwd_dkv` never sends it;
+    only a measurement that wants the earlier kernel's time beside the new
+    one's calls it so. Arguments as :func:`_launch_bwd_dkv`."""
+    global LAUNCHES_FLASH_DKV
+    out = _dkv(False, *args)
+    LAUNCHES_FLASH_DKV += 1
+    return out
+
+
+def _launch_bwd_dq_cuda_cores(*args):
+    """The CUDA-core dQ kernel: the fp32 route (bf16 only for a measurement,
+    as :func:`_launch_bwd_dkv_cuda_cores`)."""
+    global LAUNCHES_FLASH_DQ
+    out = _dq(False, *args)
+    LAUNCHES_FLASH_DQ += 1
+    return out
+
+
+def _launch_bwd_dkv_mma(*args):
+    """The tensor-core dK/dV kernel (csrc/flash_attention_bwd_mma.cu), bf16."""
+    global LAUNCHES_FLASH_DKV, LAUNCHES_FLASH_DKV_MMA
+    out = _dkv(True, *args)
+    LAUNCHES_FLASH_DKV += 1
+    LAUNCHES_FLASH_DKV_MMA += 1
+    return out
+
+
+def _launch_bwd_dq_mma(*args):
+    """The tensor-core dQ kernel (csrc/flash_attention_bwd_mma.cu), bf16."""
+    global LAUNCHES_FLASH_DQ, LAUNCHES_FLASH_DQ_MMA
+    out = _dq(True, *args)
+    LAUNCHES_FLASH_DQ += 1
+    LAUNCHES_FLASH_DQ_MMA += 1
+    return out
+
+
+def _launch_bwd_dkv(q, k, v, mask, g, lse, delta, num_heads, bnd, w, geometry, rate, seed,
+                    block_q, block_k):
+    """dk, dv and the (2,) dw of one dK/dV launch; the dtype alone picks the
+    kernel."""
+    launch = _launch_bwd_dkv_mma if q.dtype == torch.bfloat16 else _launch_bwd_dkv_cuda_cores
+    return launch(q, k, v, mask, g, lse, delta, num_heads, bnd, w, geometry, rate, seed,
+                  block_q, block_k)
 
 
 def _launch_bwd_dq(q, k, v, mask, g, lse, delta, num_heads, bnd, w, geometry, rate, seed,
                    block_q, block_k):
-    global LAUNCHES_FLASH_DQ
-    lib = _check_bwd(q, k, g, lse, delta, num_heads)
-    dq = torch.empty_like(q)
-    with torch.cuda.device(q.device):
-        err = lib.mkg_flash_attention_bwd_dq(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), mask.data_ptr(),
-            bnd.data_ptr(), w.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-            *_call_args(q, k, num_heads, geometry, rate, seed, block_q, block_k))
-    _raise_if(err, lib, "flash_attention_bwd_dq")
-    LAUNCHES_FLASH_DQ += 1
-    return dq
+    """dq of one dQ launch; the dtype alone picks the kernel."""
+    launch = _launch_bwd_dq_mma if q.dtype == torch.bfloat16 else _launch_bwd_dq_cuda_cores
+    return launch(q, k, v, mask, g, lse, delta, num_heads, bnd, w, geometry, rate, seed,
+                  block_q, block_k)
 
 
 def _launch_bwd(*args):

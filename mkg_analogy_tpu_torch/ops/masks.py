@@ -18,6 +18,8 @@ from typing import Optional
 
 import torch
 
+from ..models.common import clip
+
 NEG_BIAS = -10000.0  # reference padding bias (modeling_unimo.py:56)
 
 
@@ -46,8 +48,9 @@ def analogy_score_multiplier(
     ``compat_img_offset`` reproduces the reference's shifted single-stream
     geometry and is mutually exclusive with ``text_len``.
     """
-    w0 = w_example_to_answer.clamp(0.0, 0.5).to(dtype)
-    w1 = w_answer_to_answer.clamp(0.5, 1.0).to(dtype)
+    # jnp.clip's gradient: a tie with a bound (w1 starts at 0.5) gets half
+    w0 = clip(w_example_to_answer, 0.0, 0.5).to(dtype)
+    w1 = clip(w_answer_to_answer, 0.5, 1.0).to(dtype)
     pos = torch.arange(seq_len, device=boundary.device)
     if compat_img_offset is not None:
         if text_len is not None:

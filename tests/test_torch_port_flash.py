@@ -16,6 +16,8 @@ from mkg_analogy_tpu_torch.kernels import attention as single
 from mkg_analogy_tpu_torch.kernels import build
 from mkg_analogy_tpu_torch.kernels import flash_attention as port
 from test_torch_port_attention import CASES, H, cuda, make_inputs  # noqa: F401
+from test_torch_port_flash_edges import (FLASH_EDGE_CASES, flash_edge_inputs,
+                                         flash_edge_kwargs, one_key_size)
 
 # JAX is imported where it is used: the card's machine runs the `cuda`
 # tests of this file without it.
@@ -299,6 +301,12 @@ def test_flash_build_without_nvcc_raises(monkeypatch, tmp_path, name):
 KERNEL_SHAPES = [(96, 96, False, 256, 512), (99, 195, False, 256, 512),
                  (128, 128, True, 256, 512), (512, 512, True, 256, 512),
                  (99, 611, False, 256, 512), (130, 200, True, 48, 72)]
+# each shape in fp32 (the CUDA-core backward) and bf16 (the tensor-core
+# one); then the flash edge cases, by name, in bf16: the tensor-core
+# backward's 64-row chunks against the logical tiles
+KERNEL_PARAMS = ([(shape, dtype) for shape in KERNEL_SHAPES
+                  for dtype in (torch.float32, torch.bfloat16)]
+                 + [(case[0], torch.bfloat16) for case in FLASH_EDGE_CASES])
 
 
 def _card_inputs(device, lq, lk, geometry, dtype, seed=0, b=2):
@@ -314,37 +322,63 @@ def _card_inputs(device, lq, lk, geometry, dtype, seed=0, b=2):
     return q, k, v, go, mask.to(device), kw
 
 
+def _card_case(device, shape, dtype):
+    """(q, k, v, g, mask, keyword arguments with the blocks, Lk) of a kernel
+    shape or an edge case's name, at 12 heads of 64."""
+    if isinstance(shape, str):
+        case = next(c for c in FLASH_EDGE_CASES if c[0] == shape)
+        q, k, v, go, mask = (torch.from_numpy(x).to(device) for x in
+                             flash_edge_inputs(case, heads=12, head_dim=64))
+        q, k, v, go = (x.to(dtype) for x in (q, k, v, go))
+        return q, k, v, go, mask, flash_edge_kwargs(case, torch, device), case[3]
+    lq, lk, geometry, bq, bk = shape
+    q, k, v, go, mask, kw = _card_inputs(device, lq, lk, geometry, dtype)
+    return q, k, v, go, mask, dict(kw, block_q=bq, block_k=bk), lk
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("lq,lk,geometry,bq,bk", KERNEL_SHAPES)
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_flash_kernels_match_plain_versions(cuda, lq, lk, geometry, bq, bk, dtype):  # noqa: F811
+@pytest.mark.parametrize("shape,dtype", KERNEL_PARAMS)
+def test_flash_kernels_match_plain_versions(cuda, shape, dtype):  # noqa: F811
     """The three CUDA kernels against the plain versions on the card (B=2,
-    12 heads of 64), dropout on with the same seed. Forward: 2e-5 fp32 (the
-    same math summed in another order), 2e-2 bf16 (one bf16 ulp of outputs
-    ~1); lse 1e-5. Backward, from the kernel forward's out and lse: 2e-5 of
-    each result's largest value in fp32, 2^-7 (2 bf16 ulps) in bf16."""
-    q, k, v, go, mask, kw = _card_inputs(cuda, lq, lk, geometry, dtype)
-    kw.update(compute_dtype=dtype, dropout_rate=0.1, deterministic=False,
-              dropout_seed=11, block_q=bq, block_k=bk)
+    12 heads of 64), dropout on with the same seed: the backward on the
+    CUDA cores in fp32 and on the tensor cores in bf16, by the dtype alone.
+    Forward: 2e-5 fp32 (the same math summed in another order), 2e-2 bf16
+    (one bf16 ulp of outputs ~1); lse 1e-5 where no batch row has all its
+    keys masked (there lse sits at -1e4, where an fp32 ulp is 9.8e-4).
+    Backward, from the kernel forward's out and lse: 2e-5 of each result's
+    largest value in fp32, 2^-7 (2 bf16 ulps) in bf16; with one key dq and
+    dk of test_torch_port_flash_edges.one_key_size (they cancel to rounding
+    noise on both sides)."""
+    q, k, v, go, mask, kw, lk = _card_case(cuda, shape, dtype)
+    bq, bk = kw["block_q"], kw["block_k"]
+    kw.update(compute_dtype=dtype, dropout_rate=0.1, deterministic=False, dropout_seed=11)
     bnd, w, geo, rate, seed = single._resolve(
-        q, kw.get("boundary"), kw.get("w0"), kw.get("w1"), None, 0, 0, 0.1, False, 11)
-    before = (port.LAUNCHES_FLASH, port.LAUNCHES_FLASH_DKV, port.LAUNCHES_FLASH_DQ)
+        q, kw.get("boundary"), kw.get("w0"), kw.get("w1"), kw.get("text_len"),
+        kw.get("row_start", 0), kw.get("offset", 0), 0.1, False, 11)
+    counts = (lambda: (port.LAUNCHES_FLASH, port.LAUNCHES_FLASH_DKV, port.LAUNCHES_FLASH_DQ,
+                       port.LAUNCHES_FLASH_DKV_MMA, port.LAUNCHES_FLASH_DQ_MMA))
+    before = counts()
     out, lse = port._launch_fwd(q, k, v, mask, 12, bnd, w, geo, rate, seed, bq, bk)
     got = port._launch_bwd(q, k, v, mask, go, lse, port._delta(go, out, 12), 12, bnd, w,
                            geo, rate, seed, bq, bk)
     torch.cuda.synchronize()
-    assert (port.LAUNCHES_FLASH, port.LAUNCHES_FLASH_DKV, port.LAUNCHES_FLASH_DQ) == (
-        before[0] + 1, before[1] + 1, before[2] + 1)
+    mma = int(dtype == torch.bfloat16)
+    assert counts() == (before[0] + 1, before[1] + 1, before[2] + 1, before[3] + mma,
+                        before[4] + mma)
     want_out, want_lse = port._plain_fwd(q, k, v, mask, 12, bnd, w, geo, rate, seed, dtype,
                                          bq, bk)
     atol = 2e-5 if dtype == torch.float32 else 2e-2
     torch.testing.assert_close(out.float(), want_out.float(), atol=atol, rtol=0)
-    torch.testing.assert_close(lse, want_lse, atol=1e-5, rtol=0)
+    if mask.any(dim=1).all():
+        torch.testing.assert_close(lse, want_lse, atol=1e-5, rtol=0)
     want = port.flash_attention_bwd_reference(q, k, v, mask, go, 12, out=out, lse=lse, **kw)
     rel = 2e-5 if dtype == torch.float32 else 2 ** -7
-    for a, b_ in zip(got[:3], want[:3]):
-        torch.testing.assert_close(a.float(), b_.float(),
-                                   atol=rel * b_.float().abs().max().item(), rtol=0)
+    for name, a, b_ in zip(("dq", "dk", "dv"), got[:3], want[:3]):
+        size = b_.float().abs().max().item()
+        if lk == 1 and name != "dv":
+            size = max(size, one_key_size(*(x.float().cpu().numpy() for x in (q, k, v, go)),
+                                          heads=12, head_dim=64))
+        torch.testing.assert_close(a.float(), b_.float(), atol=rel * size, rtol=0)
 
 
 @pytest.mark.cuda

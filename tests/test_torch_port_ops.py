@@ -52,6 +52,29 @@ def test_analogy_score_multiplier_matches_jax(geom, w0, w1):
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))  # selections only
 
 
+@pytest.mark.parametrize("w0,w1", [(0.5, 0.5), (0.0, 1.0)])  # each on a bound of its clip
+def test_analogy_score_multiplier_gradient_at_the_ties_matches_jax(w0, w1):
+    """At a tie with a clip bound (``adaptive_w1`` starts at 0.5) ``jnp.clip``
+    passes half the slope to w and ``torch.clamp`` all of it: the port's
+    gradients of the multiplier against ``jax.grad`` of the JAX function."""
+    import jax
+
+    boundary = np.asarray([5, 7], np.int32)
+    weight = np.random.default_rng(3).standard_normal((2, 1, 12, 12)).astype(np.float32)
+
+    def jax_loss(a, b):
+        mult = jmasks.analogy_score_multiplier(jnp.asarray(boundary), 12, a, b, row_start=1)
+        return jnp.sum(mult * weight)
+
+    want = jax.grad(jax_loss, argnums=(0, 1))(jnp.asarray([w0]), jnp.asarray([w1]))
+    got = [torch.tensor([x], requires_grad=True) for x in (w0, w1)]
+    mult = masks.analogy_score_multiplier(torch.from_numpy(boundary), 12, *got, row_start=1)
+    (mult * torch.from_numpy(weight)).sum().backward()
+    for name, g, w in zip(("w0", "w1"), got, want):
+        assert float(w[0]) != 0.0, name
+        np.testing.assert_allclose(g.grad.numpy(), np.asarray(w), rtol=1e-6, err_msg=name)
+
+
 def _scores_with_ties(seed):
     rng = np.random.default_rng(seed)
     # few distinct values, so ties are everywhere, including at the label
