@@ -286,15 +286,16 @@ def attention_inputs(lq, lk, geometry, dtype, device, seed, batch=BATCH):
     return q, k, v, mask.to(device), kw
 
 
-def edge_inputs(case, device):
-    """(q, k, v, g, mask, geometry keywords) of an edge case, bf16, from a
-    seed: the last eighth of the keys padded, one batch row fully masked."""
+def edge_inputs(case, device, dtype=None):
+    """(q, k, v, g, mask, geometry keywords) of an edge case, bf16 (or
+    ``dtype``), from a seed: the last eighth of the keys padded, one batch
+    row fully masked."""
     import torch
 
     name, b, lq, lk, geometry, masked_row = case
     gen = torch.Generator().manual_seed(sum(map(ord, name)))
     hd = HEADS * HEAD_DIM
-    q, k, v, g = (torch.randn(b, n, hd, generator=gen).to(device, torch.bfloat16)
+    q, k, v, g = (torch.randn(b, n, hd, generator=gen).to(device, dtype or torch.bfloat16)
                   for n in (lq, lk, lk, lq))
     mask = torch.ones(b, lk)
     mask[:, lk - lk // 8:] = 0.0
@@ -1182,47 +1183,71 @@ def flash_bwd_sizes(want, q, k, v, go, lk):
     return sizes
 
 
-def flash_edge_phase(device):
-    """The flash kernels in bf16 (the backward pair on the tensor cores)
-    against their plain versions at FLASH_EDGE_CASES (12 heads of 64; the
-    last eighth of the keys padded), dropout 0 and 0.1 with the same seed,
-    so the masks must agree: the forward within 2e-2 absolute; the backward,
+def lse_bars(lse, mask):
+    """The bar of each lse entry: 1e-5 on a batch row with a key to attend;
+    on a row whose keys are all masked two fp32 ulps of the value (its
+    scores, max and lse sit at -1e4, where an ulp is 9.8e-4, and the
+    products' summation order moves the max by one ulp now and then)."""
+    import torch
+
+    bars = torch.clamp(lse.abs() * 2.0 ** -22, min=1e-5)
+    return torch.where(mask.any(dim=1)[:, None, None], torch.full_like(lse, 1e-5), bars)
+
+
+def flash_edge_phase(device, dtype=None, cases=FLASH_EDGE_CASES):
+    """The flash kernels against their plain versions at ``cases`` (12
+    heads of 64; the last eighth of the keys padded), dropout 0 and 0.1 with
+    the same seed, so the masks must agree. bf16 (the default; the
+    tensor-core kernels): the forward within 2e-2 absolute, the backward,
     from the kernel forward's out and lse, within 2^-7 of each result's size
-    (flash_bwd_sizes), dw within 1e-5 of its sum of |terms|. Returns the
-    largest backward error."""
+    (flash_bwd_sizes); fp32 (the CUDA-core kernels): 2e-5 absolute and 2e-5
+    of the size. lse within lse_bars; dw within 1e-5 of its sum of |terms|.
+    Returns the errors by name."""
     import torch
 
     from mkg_analogy_tpu_torch.kernels import flash_attention as fa
 
+    dtype = dtype or torch.bfloat16
+    fwd_bar, bwd_bar = (2e-2, 2.0 ** -7) if dtype == torch.bfloat16 else (2e-5, 2e-5)
+    mma = int(dtype == torch.bfloat16)  # the dtype alone picks the route
     errs = {}
-    for case in FLASH_EDGE_CASES:
+    for case in cases:
         name, lq, lk, (bq, bk) = case[0], case[2], case[3], case[6]
-        q, k, v, go, mask, kw = edge_inputs(case[:6], device)
+        q, k, v, go, mask, kw = edge_inputs(case[:6], device, dtype)
         for rate in (0.0, 0.1):
             key = f"{name}{'_dropout' if rate else ''}"
-            call = dict(kw, compute_dtype=torch.bfloat16, dropout_rate=rate,
+            call = dict(kw, compute_dtype=dtype, dropout_rate=rate,
                         deterministic=rate == 0.0, dropout_seed=23, block_q=bq, block_k=bk)
             args = (HEADS, *resolve_geometry(fa, q, kw, rate, 23), bq, bk)
-            before = flash_mma_counts()
+            before, before_mma = flash_counts(), flash_mma_counts()
             out, lse = fa._launch_fwd(q, k, v, mask, *args)
             delta = fa._delta(go, out, HEADS)
             got = fa._launch_bwd(q, k, v, mask, go, lse, delta, *args)
-            if flash_mma_counts() != {n: c + 1 for n, c in before.items()}:
-                raise AssertionError(f"flash edge {key}: the tensor-core pair was not launched")
-            want_out, _ = fa._plain_fwd(q, k, v, mask, *args[:6], torch.bfloat16, bq, bk)
+            if (flash_counts() != {n: c + 1 for n, c in before.items()}
+                    or flash_mma_counts() != {n: c + mma for n, c in before_mma.items()}):
+                raise AssertionError(f"flash edge {key}: a wrapper counted no launch, or a "
+                                     "kernel of the other route ran")
+            want_out, want_lse = fa._plain_fwd(q, k, v, mask, *args[:6], dtype, bq, bk)
             want = fa.flash_attention_bwd_reference(q, k, v, mask, go, HEADS, out=out, lse=lse,
                                                     **call)
             torch.cuda.synchronize()
             err = (out.float() - want_out.float()).abs().max().item()
             errs[f"fwd_max_abs_err_{key}"] = err
-            if not err <= 2e-2:
-                raise AssertionError(f"flash edge fwd {key}: {err} > 2e-2")
+            if not err <= fwd_bar:
+                raise AssertionError(f"flash edge fwd {key}: {err} > {fwd_bar}")
+            lse_err = (lse - want_lse).abs()
+            errs[f"lse_max_abs_err_{key}"] = lse_err.max().item()
+            errs[f"lse_max_err_over_bar_{key}"] = (lse_err / lse_bars(want_lse, mask)).max().item()
+            if errs[f"lse_max_err_over_bar_{key}"] > 1.0:
+                raise AssertionError(f"flash edge lse {key}: {lse_err.max().item()} beyond its "
+                                     "bar")
             sizes = flash_bwd_sizes(want, q, k, v, go, lk)
             for t_name, a, c, size in zip(("dq", "dk", "dv"), got[:3], want[:3], sizes):
                 err = (a.float() - c.float()).abs().max().item()
                 errs[f"max_abs_err_{t_name}_{key}"] = err
-                if not err <= 2.0 ** -7 * size:
-                    raise AssertionError(f"flash edge bwd {key} {t_name}: {err} > 2^-7 * {size}")
+                if not err <= bwd_bar * size:
+                    raise AssertionError(f"flash edge bwd {key} {t_name}: {err} > {bwd_bar} * "
+                                         f"{size}")
             if kw:
                 scales = flash_dw_scales(fa, q, k, v, mask, go, lse, delta, *args[1:6], bq, bk)
                 for i in range(2):
@@ -1233,8 +1258,50 @@ def flash_edge_phase(device):
                                              f"1e-5 * {scales[i]}")
             elif got[3].abs().max().item() != 0.0:
                 raise AssertionError(f"flash edge bwd {key}: dw without a geometry")
-    emit(dict(phase="flash_edges", dtype="bfloat16", **errs))
-    return max(e for n, e in errs.items() if n.startswith("max_abs_err"))
+    emit(dict(phase="flash_edges", dtype=str(dtype).replace("torch.", ""), **errs))
+    return errs
+
+
+def fp32_masked_row_phase(device):
+    """The four fp32 CUDA-core kernels at the edge cases with a batch row
+    whose keys are all masked: there every score sits at -1e4, where an fp32
+    ulp is 9.8e-4, so a score rounded in two steps, where the plain versions
+    round it in one FMA (kernels/attention.py:_score), moves a probability
+    by 1e-3 of itself. The single-block pair at EDGE_CASES (up to the
+    kernels' 400 fp32 keys), the flash kernels at FLASH_EDGE_CASES
+    (flash_edge_phase in fp32), dropout 0 and 0.1, at the fp32 bars: the
+    forward within 2e-5 absolute, the backward within 2e-5 of each result's
+    largest |value|, dw within 1e-5 of its sum of |terms|."""
+    import torch
+
+    from mkg_analogy_tpu_torch.kernels import attention as attn
+
+    errs = {}
+    for case in EDGE_CASES:
+        if case[5] is None or case[3] > FP32_MAX_KEYS:
+            continue
+        q, k, v, g, mask, kw = edge_inputs(case, device, torch.float32)
+        for rate in (0.0, 0.1):
+            key = f"single_{case[0]}{'_dropout' if rate else ''}"
+            call = dict(kw, compute_dtype=torch.float32, dropout_rate=rate,
+                        deterministic=rate == 0.0, dropout_seed=29)
+            before = attn.LAUNCHES
+            got = attn.fused_attention(q, k, v, mask, HEADS, **call)
+            want = attn.fused_attention_reference(q, k, v, mask, HEADS, **call)
+            torch.cuda.synchronize()
+            err = (got - want).abs().max().item()
+            errs[f"fwd_max_abs_err_{key}"] = err
+            if attn.LAUNCHES != before + 1 or not err <= 2e-5:
+                raise AssertionError(f"fp32 edge {key}: kernel vs plain {err} > 2e-5 "
+                                     f"(launches {attn.LAUNCHES - before})")
+            errs.update({n: e for n, e in bwd_errors(
+                attn, f"fp32 edge {key}", key, q, k, v, mask, g, call, rate, 29, 2e-5).items()
+                if "err" in n})
+    emit(dict(phase="fp32_masked_rows", dtype="float32", single=errs))
+    flash = flash_edge_phase(device, torch.float32,
+                             [c for c in FLASH_EDGE_CASES if c[5] is not None])
+    return max([e for n, e in errs.items() if "max_abs_err" in n]
+               + [e for n, e in flash.items() if n.startswith(("fwd_", "max_abs_err"))])
 
 
 class _PretrainVocab:
@@ -2186,7 +2253,9 @@ def main() -> int:
     if not launches["fwd"] or not launches["bwd"]:
         raise AssertionError(f"the main path launched no kernel: {launches}")
     flash_rows = flash_kernel_phase(device)
-    flash_edge_err = flash_edge_phase(device)
+    flash_edge_err = max(e for n, e in flash_edge_phase(device).items()
+                         if n.startswith("max_abs_err"))
+    fp32_masked_row_err = fp32_masked_row_phase(device)
     pretrain_phase(device)
     long_phase(device)
     flash_launches = cli_pretrain_phase()

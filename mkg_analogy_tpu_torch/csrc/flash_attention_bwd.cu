@@ -46,7 +46,7 @@
 //     registers; for each row, lane j computes keys j, j + 32, ...: p, dP,
 //     dS_raw, then every lane accumulates its dq columns.
 // Both kernels form a score with the forward's operations in the forward's
-// order (the fmaf dot product, then __fmul_rn / __fadd_rn), so all three see
+// order (the fmaf dot product, then __fmul_rn and one fmaf), so all three see
 // the same scores bit for bit. The products run on the CUDA cores (no
 // mma.sync, wgmma or TMA yet): a simple kernel that is right first.
 // head_dim is fixed at 64.
@@ -168,9 +168,12 @@ struct Geometry {
   }
 };
 
-// s = (acc * scale) (* w in the region) + bias, rounded step by step
+// s = s_raw (* w in the region) + bias in one FMA, as the plain version
+// rounds it (kernels/attention.py:_score, XLA's contraction inside the JAX
+// kernels); s_raw = acc * scale is exact at head_dim 64 (scale 2^-3), so
+// outside the region this is fmaf(acc, scale, bias)
 __device__ __forceinline__ float score(float s_raw, bool region, float w, float bias) {
-  return __fadd_rn(region ? __fmul_rn(s_raw, w) : s_raw, bias);
+  return fmaf(s_raw, region ? w : 1.0f, bias);
 }
 
 // The logical tiles of the call, for the dropout masks.

@@ -170,10 +170,13 @@ struct Geometry {
   }
 };
 
-// s = (acc * scale) (* w in the region) + bias, rounded step by step (the
-// backward kernels form the same score with the same operations)
+// s = s_raw (* w in the region) + bias in one FMA, as the plain version
+// rounds it (kernels/attention.py:_score, XLA's contraction inside the JAX
+// kernels); s_raw = acc * scale is exact at head_dim 64 (scale 2^-3), so
+// outside the region this is fmaf(acc, scale, bias); the backward
+// kernels form the same score with the same operations
 __device__ __forceinline__ float score(float s_raw, bool region, float w, float bias) {
-  return __fadd_rn(region ? __fmul_rn(s_raw, w) : s_raw, bias);
+  return fmaf(s_raw, region ? w : 1.0f, bias);
 }
 
 template <typename T>

@@ -44,7 +44,7 @@
 //      delta), and lane l accumulates dk and dv columns 2l and 2l+1 over
 //      all query rows.
 // Both passes compute a score with the same operations in the same order
-// (explicit __fmul_rn/__fadd_rn, so the compiler contracts nothing
+// (explicit __fmul_rn, then one fmaf, so the compiler contracts nothing
 // differently), so pass 2's probabilities are pass 1's bit for bit. The
 // products run on the CUDA cores (no mma.sync, wgmma or TMA yet): a simple
 // kernel that is right first.
@@ -178,9 +178,12 @@ struct Geometry {
   }
 };
 
-// s = (acc * scale) (* w in the region) + bias, rounded step by step
+// s = s_raw (* w in the region) + bias in one FMA, as the plain version
+// rounds it (kernels/attention.py:_score, XLA's contraction inside the JAX
+// kernels); s_raw = acc * scale is exact at head_dim 64 (scale 2^-3), so
+// outside the region this is fmaf(acc, scale, bias)
 __device__ __forceinline__ float score(float s_raw, bool region, float w, float bias) {
-  return __fadd_rn(region ? __fmul_rn(s_raw, w) : s_raw, bias);
+  return fmaf(s_raw, region ? w : 1.0f, bias);
 }
 
 template <typename T>

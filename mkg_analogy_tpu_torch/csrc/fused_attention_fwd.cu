@@ -198,9 +198,10 @@ fused_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
         for (int i = 0; i < kChunk; ++i) acc = fmaf(qf[c + i], kf[i], acc);
       }
-      float s = acc * scale;
-      if (row_in_scope && j >= bnd && j < text_len) s *= row_w;
-      s += bias_s[j];
+      // one FMA, as the plain version rounds the score
+      // (kernels/attention.py:_score); acc * scale is exact (scale 2^-3)
+      const bool region = row_in_scope && j >= bnd && j < text_len;
+      const float s = fmaf(__fmul_rn(acc, scale), region ? row_w : 1.0f, bias_s[j]);
       srow[j] = s;
       mx = fmaxf(mx, s);
     }

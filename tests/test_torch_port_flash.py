@@ -16,6 +16,7 @@ from mkg_analogy_tpu_torch.kernels import attention as single
 from mkg_analogy_tpu_torch.kernels import build
 from mkg_analogy_tpu_torch.kernels import flash_attention as port
 from test_torch_port_attention import CASES, H, cuda, make_inputs  # noqa: F401
+from test_torch_port_attention import EDGE_CASES, edge_inputs, edge_kwargs
 from test_torch_port_flash_edges import (FLASH_EDGE_CASES, flash_edge_inputs,
                                          flash_edge_kwargs, one_key_size)
 
@@ -393,3 +394,52 @@ def test_flash_launches_counted_through_autograd(cuda):  # noqa: F811
     assert (port.LAUNCHES_FLASH, port.LAUNCHES_FLASH_DKV, port.LAUNCHES_FLASH_DQ) == (
         before[0] + 1, before[1] + 1, before[2] + 1)
     assert torch.isfinite(q.grad).all() and torch.isfinite(k.grad).all()
+
+
+# the edge cases whose batch row has all its keys masked, for each kernel
+# family: the single-block pair (csrc/fused_attention_fwd.cu, _bwd.cu) and
+# the flash kernels (csrc/flash_attention_fwd.cu, _bwd.cu), in fp32
+MASKED_ROW_PARAMS = ([("single", c[0]) for c in EDGE_CASES if c[5] is not None and c[3] <= 400]
+                     + [("flash", c[0]) for c in FLASH_EDGE_CASES if c[5] is not None])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family,name", MASKED_ROW_PARAMS)
+def test_fp32_kernels_hold_an_all_masked_row(cuda, family, name):  # noqa: F811
+    """The fp32 CUDA-core kernels at a batch row whose keys are all masked
+    (12 heads of 64, dropout on): every score of that row sits at -1e4, where
+    an fp32 ulp is 9.8e-4, so a score rounded in two steps, where the plain
+    versions round it in one FMA (kernels/attention.py:_score), moves a
+    probability by 1e-3 of itself. The fp32 bars: forward 2e-5 absolute,
+    dq, dk and dv 2e-5 of each result's largest value."""
+    kw = dict(compute_dtype=torch.float32, dropout_rate=0.1, deterministic=False,
+              dropout_seed=11)
+    if family == "single":
+        case = next(c for c in EDGE_CASES if c[0] == name)
+        q, k, v, go, mask = (torch.from_numpy(x).to(cuda) for x in edge_inputs(case, 12, 64))
+        kw.update(edge_kwargs(case, cuda))
+        out = single.fused_attention(q, k, v, mask, 12, **kw)
+        want_out = single.fused_attention_reference(q, k, v, mask, 12, **kw)
+        bnd, w, geo, rate, seed = single._resolve(
+            q, kw.get("boundary"), kw.get("w0"), kw.get("w1"), kw.get("text_len"),
+            kw.get("row_start", 0), kw.get("offset", 0), 0.1, False, 11)
+        got = single._launch_bwd(q, k, v, mask, go, 12, bnd, w, geo, rate, seed)
+        want = single.fused_attention_bwd_reference(q, k, v, mask, go, 12, **kw)
+    else:
+        q, k, v, go, mask, extra, _ = _card_case(cuda, name, torch.float32)
+        kw.update(extra)
+        bnd, w, geo, rate, seed = single._resolve(
+            q, kw.get("boundary"), kw.get("w0"), kw.get("w1"), kw.get("text_len"),
+            kw.get("row_start", 0), kw.get("offset", 0), 0.1, False, 11)
+        blocks = (kw["block_q"], kw["block_k"])
+        out, lse = port._launch_fwd(q, k, v, mask, 12, bnd, w, geo, rate, seed, *blocks)
+        want_out, _ = port._plain_fwd(q, k, v, mask, 12, bnd, w, geo, rate, seed,
+                                      torch.float32, *blocks)
+        got = port._launch_bwd(q, k, v, mask, go, lse, port._delta(go, out, 12), 12, bnd, w,
+                               geo, rate, seed, *blocks)
+        want = port.flash_attention_bwd_reference(q, k, v, mask, go, 12, out=out, lse=lse, **kw)
+    torch.cuda.synchronize()
+    assert not mask.any(dim=1).all()
+    torch.testing.assert_close(out, want_out, atol=2e-5, rtol=0)
+    for a, b_ in zip(got[:3], want[:3]):
+        torch.testing.assert_close(a, b_, atol=2e-5 * b_.abs().max().item(), rtol=0)
