@@ -11,8 +11,8 @@ exits non-zero:
 2. build      — nvcc builds every kernel under mkg_analogy_tpu_torch/csrc
                 (one process per source, all started together); what
                 ``ptxas -v`` said of the tensor-core attention kernels, the
-                single-block and the flash backward (registers a thread,
-                spill bytes, static shared memory);
+                single-block pair and the flash forward and backward
+                (registers a thread, spill bytes, static shared memory);
 3. kernel     — the fused-attention forward kernels against their plain
                 PyTorch version at the three MKGformer shapes and at ViLT's
                 (418 x 418: 128 text and 290 image tokens, the multiplier
@@ -60,9 +60,9 @@ exits non-zero:
                 checkpoint, launches counted from 0; then ``--only_test
                 --checkpoint`` on that checkpoint reproduces the fit's test
                 ranks exactly;
-9. flash_kernel — the three flash kernels (forward, dK/dV, dQ; the
-                backward pair on the tensor cores in bf16, on the CUDA cores
-                in fp32) against their plain versions at the triple
+9. flash_kernel — the three flash kernels (forward, dK/dV, dQ; on the
+                tensor cores in bf16, on the CUDA cores in fp32; out and
+                lse of the forward) against their plain versions at the triple
                 pre-train shapes (B=64: text 96x96, vision 99x99,
                 vision-text 99x195), the analogy ones (128x128 with the
                 geometry, 99x227), two Q tiles (512x512, B=8), two K tiles
@@ -70,19 +70,22 @@ exits non-zero:
                 tiles), FLAVA's three towers (B=24: 393x393, 128x128 with the
                 multiplier from row 1, 522x522) and ViLT's fp32 route (B=32,
                 418x418), fp32 and bf16, dropout 0 and 0.1; the times of each
-                kernel, of the CUDA-core backward pair in bf16
-                (``earlier_ms``, which the tensor-core pair must beat at
-                every shape), the plain versions and SDPA (where no analogy
-                multiplier applies), and the bounds; then the tensor-core
-                backward at the flash edge cases (FLASH_EDGE_CASES: Lq and
-                Lk of 1, 255, 257, 511, 513 and 611, a row whose keys are all
-                masked, row_start 1, the +290 offset, 64-row chunks that
-                straddle logical tiles of 96 x 160), bf16, dropout 0 and 0.1;
+                kernel, of the CUDA-core kernels in bf16 (``earlier_ms``,
+                which each tensor-core kernel must beat at every shape), the
+                plain versions and SDPA (where no analogy multiplier
+                applies), and the bounds; then the tensor-core kernels at
+                the flash edge cases (FLASH_EDGE_CASES: Lq and Lk of 1, 255,
+                257, 511, 513 and 611, a row whose keys are all masked,
+                row_start 1, the +290 offset, 64-row blocks and 64-key
+                chunks against logical tiles of 96 x 160), bf16, dropout 0
+                and 0.1, lse included; then the four fp32 CUDA-core kernels
+                (single-block and flash) at the edge cases with an
+                all-masked row, at the fp32 bars (``fp32_masked_rows``);
 10. pretrain  — the full-width triple pre-train step (B=64, L=96) through
                 the flash kernels: fp32 against the plain attention (loss
                 within 1e-5 relative, every gradient leaf within its bound),
                 then 8 bf16 steps on one batch: the loss falls, 24 + 24 + 24
-                launches a step (the backward pair's on the tensor cores),
+                launches a step (all on the tensor cores),
                 step time and a device profile;
 11. long      — a full-width bf16 fine-tune step at B=8, L=512 through the
                 flash kernels (multi-tile and ragged shapes inside the
@@ -1045,7 +1048,7 @@ def flash_kernel_phase(device):
                 if (flash_counts() != {kernel: n + 1 for kernel, n in before.items()}
                         or flash_mma_counts() != {k_: n + mma for k_, n in before_mma.items()}):
                     raise AssertionError(f"flash {name} {key}: a wrapper counted no launch, or "
-                                         "the backward took the other route")
+                                         "a kernel of the other route ran")
                 want_out, want_lse = fa._plain_fwd(q, k, v, mask, *args[:6], dtype,
                                                    *args[6:])
                 want = fa.flash_attention_bwd_reference(q, k, v, mask, go, HEADS, out=out,
@@ -1089,18 +1092,23 @@ def flash_kernel_phase(device):
         delta = fa._delta(go, out, HEADS)
         n = dict(samples=7, per_sample=3) if lq >= 2048 else {}
         row["fwd_ms"] = time_ms(lambda: fa._launch_fwd(q, k, v, mask, *args), **n)
+        # the tensor-core forward's design: the keys' scores in registers
+        # where they are one logical tile of up to 256, else two sweeps
+        row["fwd_design"] = "resident" if row["tiles"][3] == 1 and lk <= 256 else "streaming"
         row["dkv_ms"] = time_ms(lambda: fa._launch_bwd_dkv(q, k, v, mask, go, lse, delta,
                                                            *args), **n)
         row["dq_ms"] = time_ms(lambda: fa._launch_bwd_dq(q, k, v, mask, go, lse, delta,
                                                          *args), **n)
-        # the CUDA-core pair in bf16, which these calls ran before: the
-        # tensor-core pair must beat it at every shape
+        # the CUDA-core kernels in bf16, which these calls ran before: the
+        # tensor-core kernels must beat them at every shape
         slow = dict(samples=7, per_sample=3)
+        row["fwd_earlier_ms"] = time_ms(lambda: fa._launch_fwd_cuda_cores(q, k, v, mask, *args),
+                                        **slow)
         row["dkv_earlier_ms"] = time_ms(lambda: fa._launch_bwd_dkv_cuda_cores(
             q, k, v, mask, go, lse, delta, *args), **slow)
         row["dq_earlier_ms"] = time_ms(lambda: fa._launch_bwd_dq_cuda_cores(
             q, k, v, mask, go, lse, delta, *args), **slow)
-        for kernel in ("dkv", "dq"):
+        for kernel in ("fwd", "dkv", "dq"):
             if not row[f"{kernel}_ms"] < row[f"{kernel}_earlier_ms"]:
                 print(f"FAIL flash {name}: the tensor-core {kernel} kernel "
                       f"({row[f'{kernel}_ms']} ms) is no faster than the CUDA-core one "
@@ -1268,10 +1276,14 @@ def fp32_masked_row_phase(device):
     ulp is 9.8e-4, so a score rounded in two steps, where the plain versions
     round it in one FMA (kernels/attention.py:_score), moves a probability
     by 1e-3 of itself. The single-block pair at EDGE_CASES (up to the
-    kernels' 400 fp32 keys), the flash kernels at FLASH_EDGE_CASES
-    (flash_edge_phase in fp32), dropout 0 and 0.1, at the fp32 bars: the
-    forward within 2e-5 absolute, the backward within 2e-5 of each result's
-    largest |value|, dw within 1e-5 of its sum of |terms|."""
+    kernels' 400 fp32 keys), the flash kernels at FLASH_EDGE_CASES of JAX's
+    (256, 512) tiles (flash_edge_phase in fp32), dropout 0 and 0.1, at the
+    fp32 bars: the forward within 2e-5 absolute, the backward within 2e-5
+    of each result's largest |value|, dw within 1e-5 of its sum of |terms|.
+    (At 96 x 160 tiles cuBLAS sums the plain version's q·k products in
+    another order than the kernels' chain of FMAs, and at -1e4 a product
+    one ulp apart moves a score by a whole step of 9.8e-4: there the check
+    would measure the products' order, not the score's rounding.)"""
     import torch
 
     from mkg_analogy_tpu_torch.kernels import attention as attn
@@ -1298,8 +1310,8 @@ def fp32_masked_row_phase(device):
                 attn, f"fp32 edge {key}", key, q, k, v, mask, g, call, rate, 29, 2e-5).items()
                 if "err" in n})
     emit(dict(phase="fp32_masked_rows", dtype="float32", single=errs))
-    flash = flash_edge_phase(device, torch.float32,
-                             [c for c in FLASH_EDGE_CASES if c[5] is not None])
+    flash = flash_edge_phase(device, torch.float32, [
+        c for c in FLASH_EDGE_CASES if c[5] is not None and c[6] == (256, 512)])
     return max([e for n, e in errs.items() if "max_abs_err" in n]
                + [e for n, e in flash.items() if n.startswith(("fwd_", "max_abs_err"))])
 
@@ -1343,11 +1355,12 @@ def flash_counts():
 
 
 def flash_mma_counts():
-    """Launches of the tensor-core (bf16) flash backward pair alone; the
-    dK/dV and dQ counts of flash_counts take either route."""
+    """Launches of the tensor-core (bf16) flash kernels alone; the counts of
+    flash_counts take either route."""
     from mkg_analogy_tpu_torch.kernels import flash_attention as fa
 
-    return dict(dkv=fa.LAUNCHES_FLASH_DKV_MMA, dq=fa.LAUNCHES_FLASH_DQ_MMA)
+    return dict(fwd=fa.LAUNCHES_FLASH_FWD_MMA, dkv=fa.LAUNCHES_FLASH_DKV_MMA,
+                dq=fa.LAUNCHES_FLASH_DQ_MMA)
 
 
 def reset_counts():
@@ -1357,7 +1370,7 @@ def reset_counts():
 
     attn.LAUNCHES = attn.LAUNCHES_BWD = 0
     fa.LAUNCHES_FLASH = fa.LAUNCHES_FLASH_DKV = fa.LAUNCHES_FLASH_DQ = 0
-    fa.LAUNCHES_FLASH_DKV_MMA = fa.LAUNCHES_FLASH_DQ_MMA = 0
+    fa.LAUNCHES_FLASH_FWD_MMA = fa.LAUNCHES_FLASH_DKV_MMA = fa.LAUNCHES_FLASH_DQ_MMA = 0
     ip.LAUNCHES_RESIZE = 0
 
 
@@ -1476,9 +1489,10 @@ def pretrain_phase(device):
         launches.append(dict(flash_counts(), **{f"{k}_mma": n
                                                 for k, n in flash_mma_counts().items()}))
         losses.append(metrics["loss"].item())
-    if any(n != dict(fwd=24, dkv=24, dq=24, dkv_mma=24, dq_mma=24) for n in launches):
+    if any(n != dict(fwd=24, dkv=24, dq=24, fwd_mma=24, dkv_mma=24, dq_mma=24)
+           for n in launches):
         raise AssertionError(f"bf16 pre-train steps: launches {launches}, expected 24 each, "
-                             "the backward pair's on the tensor cores")
+                             "all on the tensor cores")
     if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
         raise AssertionError(f"bf16 pre-train loss did not fall: {losses}")
     step_ms = statistics.median(times[2:])
@@ -1526,7 +1540,7 @@ def long_phase(device):
         times.append((time.perf_counter() - t0) * 1e3)
         losses.append(metrics["loss"].item())
         if (flash_counts() != dict(fwd=24, dkv=24, dq=24) or attn.LAUNCHES or attn.LAUNCHES_BWD
-                or flash_mma_counts() != dict(dkv=24, dq=24)):
+                or flash_mma_counts() != dict(fwd=24, dkv=24, dq=24)):
             raise AssertionError(f"L=512 step: flash {flash_counts()}, tensor-core "
                                  f"{flash_mma_counts()}, single "
                                  f"{attn.LAUNCHES}/{attn.LAUNCHES_BWD}")
@@ -1540,8 +1554,9 @@ def long_phase(device):
                       pixel_values=batch["pixel_values"], positions=finetune_positions(batch),
                       boundary=batch["sep_idx"][:, 2])
         torch.cuda.synchronize()
-    auto = dict(flash_counts(), single=attn.LAUNCHES)
-    if auto != dict(fwd=12, dkv=0, dq=0, single=0) or not torch.isfinite(trans).all():
+    auto = dict(flash_counts(), fwd_mma=flash_mma_counts()["fwd"], single=attn.LAUNCHES)
+    if (auto != dict(fwd=12, dkv=0, dq=0, fwd_mma=12, single=0)
+            or not torch.isfinite(trans).all()):
         raise AssertionError(f"L=512 plain-route forward: launches {auto}")
     emit(dict(phase="long", B=b, L=length, dtype="bfloat16", losses=losses, step_ms=times,
               launches_per_step=dict(fwd=24, dkv=24, dq=24),
@@ -1601,11 +1616,11 @@ def cli_pretrain_phase():
             runs[fmt] = dict(launches=launches, eval_examples=n_eval, seconds=seconds,
                              mrr=metrics["Eval_entity/mrr"],
                              relation_mrr=metrics.get("Eval_relation/mrr"))
-        # the main path's launches, all three formats; the backward pair's
-        # all on the tensor cores
+        # the main path's launches, all three formats; all on the tensor
+        # cores
         total = dict(flash_counts(), **{f"{k}_mma": n for k, n in flash_mma_counts().items()})
-        if (total["dkv_mma"], total["dq_mma"]) != (total["dkv"], total["dq"]):
-            raise AssertionError(f"cli pretrain: a bf16 backward left the tensor cores: {total}")
+        if any(total[f"{k}_mma"] != total[k] for k in ("fwd", "dkv", "dq")):
+            raise AssertionError(f"cli pretrain: a bf16 launch left the tensor cores: {total}")
 
         ft_dir = os.path.join(root, "finetune")
         reset_counts()
@@ -1615,7 +1630,7 @@ def cli_pretrain_phase():
         launches = flash_counts()
         expect = dict(fwd=24 * (4 + 1 + 2), dkv=24 * 4, dq=24 * 4)
         if (launches != expect or attn.LAUNCHES or attn.LAUNCHES_BWD
-                or flash_mma_counts() != dict(dkv=24 * 4, dq=24 * 4)):
+                or flash_mma_counts() != dict(fwd=24 * 7, dkv=24 * 4, dq=24 * 4)):
             raise AssertionError(f"cli fine-tune from the pre-train checkpoint: {launches}")
         if not all(math.isfinite(v) for v in metrics.values()):
             raise AssertionError(f"cli fine-tune from the pre-train checkpoint: {metrics}")
@@ -1912,15 +1927,15 @@ FAMILIES = {
 
 def family_counts(backend, calls, backward=True, bf16=True):
     """all_counts of a step (or a forward) through ``backend``; in bf16 the
-    flash backward pair runs on the tensor cores."""
+    flash kernels run on the tensor cores."""
     n_b = calls if backward else 0
     zero = dict(single_fwd=0, single_bwd=0, flash_fwd=0, flash_dkv=0, flash_dq=0,
-                flash_dkv_mma=0, flash_dq_mma=0)
+                flash_fwd_mma=0, flash_dkv_mma=0, flash_dq_mma=0)
     if backend == "single":
         return dict(zero, single_fwd=calls, single_bwd=n_b)
     n_mma = n_b if bf16 else 0
-    return dict(zero, flash_fwd=calls, flash_dkv=n_b, flash_dq=n_b, flash_dkv_mma=n_mma,
-                flash_dq_mma=n_mma)
+    return dict(zero, flash_fwd=calls, flash_dkv=n_b, flash_dq=n_b,
+                flash_fwd_mma=calls if bf16 else 0, flash_dkv_mma=n_mma, flash_dq_mma=n_mma)
 
 
 def family_phase(device, name):
@@ -2163,7 +2178,7 @@ def cli_image_phase():
 # (name, source of the main paths' kernel, source of the fp32 route's or
 # None, line of the Pallas kernel body it replaces)
 FLASH_KERNELS = {
-    "fwd": ("flash_attention_fwd", "flash_attention_fwd.cu", None, 98),
+    "fwd": ("flash_attention_fwd", "flash_attention_fwd_mma.cu", "flash_attention_fwd.cu", 98),
     "dkv": ("flash_attention_bwd_dkv", "flash_attention_bwd_mma.cu", "flash_attention_bwd.cu",
             183),
     "dq": ("flash_attention_bwd_dq", "flash_attention_bwd_mma.cu", "flash_attention_bwd.cu",
@@ -2171,16 +2186,16 @@ FLASH_KERNELS = {
 }
 
 
-def flash_entry(rows, kernel, launches, edge_err):
+def flash_entry(rows, kernel, launches, edges):
     """One flash kernel's entry of the {"kernels": ...} line. Its times and
     bounds are per triple pre-train step at B=64 (12 text 96 x 96, 8 vision
     99 x 99 and 4 vision-text 99 x 195 calls, no analogy multiplier, so SDPA
     is the library yardstick of every call); plain_ms is the plain forward,
     or for both backward kernels the plain backward, which computes dq, dk
     and dv in one walk; library_ms likewise SDPA's forward or its whole
-    backward; a backward kernel's earlier_ms is the CUDA-core kernel's in
-    bf16. Errors are the largest over every shape (and, of the backward
-    pair, over the edge cases)."""
+    backward; earlier_ms is the CUDA-core kernel's in bf16. Errors are the
+    largest over every shape, and over the bf16 edge cases (``edges``, the
+    errors of flash_edge_phase) in max_abs_err_edges."""
     name, source, source_fp32, line = FLASH_KERNELS[kernel]
     step = [r for r in rows if r["launches_per_triple_step"]]
 
@@ -2191,12 +2206,16 @@ def flash_entry(rows, kernel, launches, edge_err):
     if kernel == "fwd":
         err = [r[f"fwd_max_abs_err_{d}"] for r in rows for d in ("bf16", "bf16_dropout")]
         err32 = [r[f"fwd_max_abs_err_{d}"] for r in rows for d in ("fp32", "fp32_dropout")]
+        edge_err = max(e for n, e in edges.items() if n.startswith("fwd_max_abs_err"))
+        lse_err = max(e for r in rows for n, e in r.items() if n.startswith("lse_max_abs_err"))
     else:
         grads = ("dq",) if kernel == "dq" else ("dk", "dv")
         err = [r[f"max_abs_err_{t}_{d}"] for r in rows for t in grads
                for d in ("bf16", "bf16_dropout")]
         err32 = [r[f"max_abs_err_{t}_{d}"] for r in rows for t in grads
                  for d in ("fp32", "fp32_dropout")]
+        edge_err = max(e for n, e in edges.items()
+                       if n.startswith(tuple(f"max_abs_err_{t}" for t in grads)))
     plain = "plain_fwd_ms" if kernel == "fwd" else "plain_bwd_ms"
     library = "library_fwd_ms" if kernel == "fwd" else "library_bwd_ms"
     entry = dict(
@@ -2209,9 +2228,11 @@ def flash_entry(rows, kernel, launches, edge_err):
         shapes=[{k: v for k, v in r.items()
                  if k.startswith((kernel, "shape", "B", "L", "tiles", plain, library))}
                 for r in rows])
-    if source_fp32:  # bf16 on the tensor cores, fp32 on the CUDA cores
-        entry.update(source_fp32=f"mkg_analogy_tpu_torch/csrc/{source_fp32}",
-                     earlier_ms=per_step(f"{kernel}_earlier_ms"), max_abs_err_edges=edge_err)
+    # bf16 on the tensor cores, fp32 on the CUDA cores
+    entry.update(source_fp32=f"mkg_analogy_tpu_torch/csrc/{source_fp32}",
+                 earlier_ms=per_step(f"{kernel}_earlier_ms"), max_abs_err_edges=edge_err)
+    if kernel == "fwd":
+        entry["lse_max_abs_err"] = lse_err
     return entry
 
 
@@ -2243,7 +2264,7 @@ def main() -> int:
               # kernel internals runs everywhere)
               resources={name: build.resource_usage(name)
                          for name in ("fused_attention_fwd_mma", "fused_attention_bwd_mma",
-                                      "flash_attention_bwd_mma")}))
+                                      "flash_attention_fwd_mma", "flash_attention_bwd_mma")}))
     rows, edge_err = kernel_phase(device)
     bwd_rows, bwd_edge_err = kernel_bwd_phase(device)
     model_phase(device)
@@ -2253,8 +2274,7 @@ def main() -> int:
     if not launches["fwd"] or not launches["bwd"]:
         raise AssertionError(f"the main path launched no kernel: {launches}")
     flash_rows = flash_kernel_phase(device)
-    flash_edge_err = max(e for n, e in flash_edge_phase(device).items()
-                         if n.startswith("max_abs_err"))
+    flash_edges = flash_edge_phase(device)
     fp32_masked_row_err = fp32_masked_row_phase(device)
     pretrain_phase(device)
     long_phase(device)
@@ -2288,6 +2308,8 @@ def main() -> int:
         max_abs_err=max(r[f"max_abs_err_bf16{d}"] for r in rows for d in ("", "_dropout")),
         max_abs_err_edges=edge_err,
         max_abs_err_fp32=max(r["max_abs_err_fp32"] for r in rows if "fp32" not in r),
+        # the four fp32 CUDA-core kernels at rows whose keys are all masked
+        max_abs_err_fp32_masked_rows=fp32_masked_row_err,
         # per full-width forward at B=128: 12 text + 8 vision + 4 vision-text calls
         ms=per_call_set(rows, "kernel_ms", "launches_per_forward"),
         # the CUDA-core kernel in bf16, which these calls ran before
@@ -2309,6 +2331,7 @@ def main() -> int:
         max_abs_err_fp32=max(r[f"max_abs_err_{t}_fp32{d}"] for r in bwd_rows
                              if "fp32" not in r
                              for t in ("dq", "dk", "dv") for d in ("", "_dropout")),
+        max_abs_err_fp32_masked_rows=fp32_masked_row_err,
         # per full-width train step at B=32: 12 text + 8 vision + 4 vision-text calls
         ms=per_call_set(bwd_rows, "kernel_ms", "launches_per_step"),
         earlier_ms=per_call_set(bwd_rows, "earlier_ms", "launches_per_step"),
@@ -2316,10 +2339,11 @@ def main() -> int:
         bound_ms=max(b_bytes, b_ops), bound_by=bound_by(b_bytes, b_ops),
         library_ms=None,  # per shape below: SDPA's backward at the vision shapes
         shapes=bwd_rows,
-    )] + [dict(flash_entry(flash_rows, kernel, flash_launches[mma], flash_edge_err),
-               launches_image_path=image_launches[f"flash_{mma}"])
-          # the bf16 main paths' launches: the backward pair's on the tensor cores
-          for kernel, mma in (("fwd", "fwd"), ("dkv", "dkv_mma"), ("dq", "dq_mma"))] + [dict(
+    )] + [dict(flash_entry(flash_rows, kernel, flash_launches[f"{kernel}_mma"], flash_edges),
+               launches_image_path=image_launches[f"flash_{kernel}_mma"],
+               max_abs_err_fp32_masked_rows=fp32_masked_row_err)
+          # the bf16 main paths' launches, all on the tensor cores
+          for kernel in ("fwd", "dkv", "dq")] + [dict(
         name="resize_normalize", route="cuda",
         source="mkg_analogy_tpu_torch/csrc/resize_normalize.cu",
         replaces="mkg_analogy_tpu/kernels/image_prep.py:84",

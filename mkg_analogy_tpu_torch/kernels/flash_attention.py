@@ -32,19 +32,20 @@ dK/dV (JAX zeroes their q, g, lse and delta).
   (w0, w1), the seed, the output and the per-row log-sum-exp. Its backward
   computes ``delta = rowsum(g · out)`` in fp32 (outside any kernel, as JAX
   does) and runs the dK/dV and the dQ kernels. A CUDA tensor launches the
-  hand-written kernels, built at first use by ``kernels/build.py``: the
-  forward ``csrc/flash_attention_fwd.cu``; the backward, by the dtype alone,
-  ``csrc/flash_attention_bwd_mma.cu`` for bf16 (tensor cores) and
-  ``csrc/flash_attention_bwd.cu`` for fp32 (CUDA cores). A CPU tensor takes
-  the plain versions. Nothing falls back from one to the other.
+  hand-written kernels, built at first use by ``kernels/build.py`` and
+  picked by the dtype alone: bf16 takes the tensor-core kernels
+  (``csrc/flash_attention_fwd_mma.cu``, ``csrc/flash_attention_bwd_mma.cu``),
+  fp32 the CUDA-core ones (``csrc/flash_attention_fwd.cu``,
+  ``csrc/flash_attention_bwd.cu``). A CPU tensor takes the plain versions.
+  Nothing falls back from one to the other.
 - ``flash_attention_reference`` and ``flash_attention_bwd_reference`` are
   the plain versions: they walk the logical tiles as the three kernel bodies
   do. The CPU tests hold them to the JAX kernels in interpret mode, and
   ``chip_smoke.py`` holds the CUDA kernels to them on the card.
 - ``LAUNCHES_FLASH``, ``LAUNCHES_FLASH_DKV`` and ``LAUNCHES_FLASH_DQ``
-  count kernel launches (a dK/dV or dQ launch on either route);
-  ``LAUNCHES_FLASH_DKV_MMA`` and ``LAUNCHES_FLASH_DQ_MMA`` count those of
-  the tensor-core kernels alone.
+  count kernel launches (a forward, dK/dV or dQ launch on either route);
+  ``LAUNCHES_FLASH_FWD_MMA``, ``LAUNCHES_FLASH_DKV_MMA`` and
+  ``LAUNCHES_FLASH_DQ_MMA`` count those of the tensor-core kernels alone.
 """
 
 from __future__ import annotations
@@ -82,7 +83,8 @@ KEYS_PER_BLOCK_CUDA_CORES, KEYS_PER_BLOCK_MMA = 32, 64
 LAUNCHES_FLASH = 0      # forward kernel launches since import (or a caller's reset)
 LAUNCHES_FLASH_DKV = 0  # dK/dV kernel launches, either route, likewise
 LAUNCHES_FLASH_DQ = 0   # dQ kernel launches, either route, likewise
-LAUNCHES_FLASH_DKV_MMA = 0  # of those, the tensor-core (bf16) kernels'
+LAUNCHES_FLASH_FWD_MMA = 0  # of those, the tensor-core (bf16) kernels'
+LAUNCHES_FLASH_DKV_MMA = 0
 LAUNCHES_FLASH_DQ_MMA = 0
 
 
@@ -325,11 +327,11 @@ def flash_attention_bwd_reference(
                       w, geometry, rate, seed, compute_dtype, block_q, block_k)
 
 
-@functools.cache
-def _lib_fwd() -> ctypes.CDLL:
-    lib = build.load("flash_attention_fwd")
+def _bind_fwd(lib, suffix):
+    """argtypes of a forward library's launcher, ``suffix`` "" or "_mma"."""
     p, i, f, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint
-    lib.mkg_flash_attention_fwd.argtypes = [
+    launcher = getattr(lib, f"mkg_flash_attention_fwd{suffix}")
+    launcher.argtypes = [
         p, p, p, p, p, p, p, p,     # q k v mask boundary w out lse
         i, i, i, i, i,              # batch lq lk num_heads is_bf16
         f,                          # scale
@@ -338,11 +340,27 @@ def _lib_fwd() -> ctypes.CDLL:
         i, i, i, i,                 # bq bk n_qblk n_kblk
         p,                          # stream
     ]
-    lib.mkg_flash_attention_fwd.restype = ctypes.c_int
-    lib.mkg_flash_attention_fwd_smem.argtypes = [i, i]
-    lib.mkg_flash_attention_fwd_smem.restype = ctypes.c_size_t
+    launcher.restype = ctypes.c_int
     lib.mkg_cuda_error_string.argtypes = [i]
     lib.mkg_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+@functools.cache
+def _lib_fwd() -> ctypes.CDLL:
+    """The CUDA-core forward kernel (csrc/flash_attention_fwd.cu)."""
+    lib = _bind_fwd(build.load("flash_attention_fwd"), "")
+    lib.mkg_flash_attention_fwd_smem.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.mkg_flash_attention_fwd_smem.restype = ctypes.c_size_t
+    return lib
+
+
+@functools.cache
+def _lib_fwd_mma() -> ctypes.CDLL:
+    """The tensor-core forward kernel (csrc/flash_attention_fwd_mma.cu)."""
+    lib = _bind_fwd(build.load("flash_attention_fwd_mma"), "_mma")
+    lib.mkg_flash_attention_fwd_mma_smem.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.mkg_flash_attention_fwd_mma_smem.restype = ctypes.c_size_t
     return lib
 
 
@@ -397,23 +415,53 @@ def _call_args(q, k, num_heads, geometry, rate, seed, block_q, block_k):
             bq, bk, n_qblk, n_kblk, torch.cuda.current_stream(q.device).cuda_stream)
 
 
-def _launch_fwd(q, k, v, mask, num_heads, bnd, w, geometry, rate, seed, block_q, block_k):
-    global LAUNCHES_FLASH
-    lib = _lib_fwd()
+def _fwd(mma, q, k, v, mask, num_heads, bnd, w, geometry, rate, seed, block_q, block_k):
+    """(out, lse) of one forward launch on a route: the tensor-core kernel
+    (``mma``, bf16) or the CUDA-core one."""
     _, bk, _, _ = _blocks(q.shape[1], k.shape[1], block_q, block_k)
-    _check_smem(lib.mkg_flash_attention_fwd_smem(bk, int(q.dtype == torch.bfloat16)), q,
-                f"flash_attention_fwd at block_k={bk}", hint="pass a smaller block_k")
+    if mma:
+        lib, launcher = _lib_fwd_mma(), "mkg_flash_attention_fwd_mma"
+        smem = lib.mkg_flash_attention_fwd_mma_smem(k.shape[1], bk)
+    else:
+        lib, launcher = _lib_fwd(), "mkg_flash_attention_fwd"
+        smem = lib.mkg_flash_attention_fwd_smem(bk, int(q.dtype == torch.bfloat16))
+    _check_smem(smem, q, f"{launcher[4:]} at block_k={bk}", hint="pass a smaller block_k")
     out = torch.empty_like(q)
     lse = torch.empty(q.shape[0], num_heads, q.shape[1], dtype=torch.float32,
                       device=q.device)
     with torch.cuda.device(q.device):
-        err = lib.mkg_flash_attention_fwd(
+        err = getattr(lib, launcher)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(), bnd.data_ptr(),
             w.data_ptr(), out.data_ptr(), lse.data_ptr(),
             *_call_args(q, k, num_heads, geometry, rate, seed, block_q, block_k))
-    _raise_if(err, lib, "flash_attention_fwd")
-    LAUNCHES_FLASH += 1
+    _raise_if(err, lib, launcher[4:])
     return out, lse
+
+
+def _launch_fwd_cuda_cores(*args):
+    """The CUDA-core forward (csrc/flash_attention_fwd.cu): the fp32 route.
+    It also takes bf16, which :func:`_launch_fwd` never sends it; only a
+    measurement that wants the earlier kernel's time beside the new one's
+    calls it so. Arguments as :func:`_launch_fwd`."""
+    global LAUNCHES_FLASH
+    out = _fwd(False, *args)
+    LAUNCHES_FLASH += 1
+    return out
+
+
+def _launch_fwd_mma(*args):
+    """The tensor-core forward (csrc/flash_attention_fwd_mma.cu), bf16."""
+    global LAUNCHES_FLASH, LAUNCHES_FLASH_FWD_MMA
+    out = _fwd(True, *args)
+    LAUNCHES_FLASH += 1
+    LAUNCHES_FLASH_FWD_MMA += 1
+    return out
+
+
+def _launch_fwd(q, k, v, mask, num_heads, bnd, w, geometry, rate, seed, block_q, block_k):
+    """(out, lse) of one forward launch; the dtype alone picks the kernel."""
+    launch = _launch_fwd_mma if q.dtype == torch.bfloat16 else _launch_fwd_cuda_cores
+    return launch(q, k, v, mask, num_heads, bnd, w, geometry, rate, seed, block_q, block_k)
 
 
 def _bwd_lib(q, g, lse, delta, num_heads, mma):
