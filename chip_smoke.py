@@ -1280,10 +1280,12 @@ def fp32_masked_row_phase(device):
     (256, 512) tiles (flash_edge_phase in fp32), dropout 0 and 0.1, at the
     fp32 bars: the forward within 2e-5 absolute, the backward within 2e-5
     of each result's largest |value|, dw within 1e-5 of its sum of |terms|.
-    (At 96 x 160 tiles cuBLAS sums the plain version's q·k products in
-    another order than the kernels' chain of FMAs, and at -1e4 a product
-    one ulp apart moves a score by a whole step of 9.8e-4: there the check
-    would measure the products' order, not the score's rounding.)"""
+    (The plain version's q·k products come from cuBLAS, which sums some
+    tiles in another order than the kernels' chain of FMAs, and at -1e4 a
+    product one ulp apart moves a score by a whole step of 9.8e-4. At JAX's
+    tiles the all-masked rows' products agree; at 96 x 160 tiles they do
+    not, and the check would measure the products' order, not the score's
+    rounding.)"""
     import torch
 
     from mkg_analogy_tpu_torch.kernels import attention as attn

@@ -2,8 +2,9 @@
 //
 // Replaces the TPU kernel mkg_analogy_tpu/kernels/flash_attention.py:
 // _flash_fwd_kernel (launched by _flash_attention_fwd, the pl.pallas_call at
-// :393). Contract, per (batch row, head), on the packed (B, L, heads * 64)
-// layout in and out:
+// :393) for fp32 inputs (bf16 takes the tensor-core kernel of
+// flash_attention_fwd_mma.cu). Contract, per (batch row, head), on the
+// packed (B, L, heads * 64) layout in and out:
 //
 //   out = softmax(scale * Q K^T (*) analogy multiplier + (1 - mask) * -1e4) V
 //   lse = the per-row log-sum-exp of those scores, (B, heads, Lq) fp32

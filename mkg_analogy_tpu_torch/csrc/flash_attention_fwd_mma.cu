@@ -48,16 +48,16 @@
 //     running max moves once, from -1e30 (the rescaling by exp(-1e30 - m)
 //     of an empty sum and accumulator is exactly nothing). Any other walk
 //     (512, 522, 611 and 2048 tokens at bk = 512; 393 and 418; tiles
-//     shorter than Lk) is streamed through a ring of two buffers
+//     shorter than Lk) is streamed through two buffers
 //     (fwd_streaming_kernel, 46 KB a block whatever the length): two sweeps
 //     over each logical tile's chunks, the first streaming K alone for the
 //     tile max, the second K and V, recomputing the same score fragments
 //     with the same instructions, bit for bit. The second Q K^T costs
 //     tensor-core time that a byte-bound kernel has to spare; holding a
 //     512-key score row instead would take 128 KB of shared memory a block
-//     and leave one block an SM. (A resident walk over several tiles kept
-//     the accumulator and the Q fragments live beside the score row: 255
-//     registers and spills at 256 keys.)
+//     and leave one block an SM. (A resident walk over several tiles, tried
+//     first, kept the accumulator and the Q fragments live beside the score
+//     row and spilled at 256 keys.)
 //   - bias, multiplier, max, exp, sum, dropout and rounding work on the
 //     accumulator fragment: a lane holds rows g and g + 8 (g = lane / 4),
 //     columns 2t and 2t + 1 (t = lane % 4) of each 16 x 8 tile.
@@ -91,9 +91,7 @@ namespace {
 constexpr uint32_t kGolden = 0x9E3779B9u;
 constexpr float kHardMask = -1e30f;          // flash_attention.py:HARD_MASK, the first max
 constexpr int kMaxResidentKeys = 4 * kTile;  // longer keys are streamed
-constexpr int kStages = 2;                   // the streaming kernel's ring of chunk buffers
-constexpr int kStreamingSmem =
-    (1 + 2 * kStages) * kTileBytes + kStages * kTile * int(sizeof(float));
+constexpr int kStreamingSmem = 5 * kTileBytes + 2 * kTile * int(sizeof(float));
 
 constexpr int resident_smem(int nc) {
   return (1 + 2 * nc) * kTileBytes + nc * kTile * int(sizeof(float));
@@ -344,13 +342,14 @@ struct Walk {
   }
 };
 
-// Any walk: two sweeps over each logical tile's chunks through a ring of
-// kStages buffers.
+// Any walk: two sweeps over each logical tile's chunks through two
+// buffers. (Blocks of 128 rows, eight warps sharing each chunk, were slower
+// at every streamed shape, with two buffers or three.)
 __global__ void __launch_bounds__(kThreads) fwd_streaming_kernel(const Args a) {
   __shared__ __align__(16) bf16 q_s[kTileElems];
-  __shared__ __align__(16) bf16 k_s[kStages][kTileElems];
-  __shared__ __align__(16) bf16 v_s[kStages][kTileElems];
-  __shared__ __align__(8) float bias_s[kStages][kTile];
+  __shared__ __align__(16) bf16 k_s[2][kTileElems];
+  __shared__ __align__(16) bf16 v_s[2][kTileElems];
+  __shared__ __align__(8) float bias_s[2][kTile];
 
   const int h = blockIdx.y, b = blockIdx.z;
   const int hd = a.num_heads * kHeadDim;
@@ -368,17 +367,18 @@ __global__ void __launch_bounds__(kThreads) fwd_streaming_kernel(const Args a) {
     if (!ahead.done(a)) {
       const int c0 = ahead.chunk_key0();
       stage_tile(k_s[ahead_buf], k_bh + size_t(c0) * hd, ahead.tile_end - c0, hd);
-      if (ahead.sweep) stage_tile(v_s[ahead_buf], v_bh + size_t(c0) * hd, ahead.tile_end - c0, hd);
+      if (ahead.sweep) {
+        stage_tile(v_s[ahead_buf], v_bh + size_t(c0) * hd, ahead.tile_end - c0, hd);
+      }
       stage_bias(bias_s[ahead_buf], mask_b, c0, ahead.tile_end);
       ahead.next(a);
-      ahead_buf = ahead_buf + 1 == kStages ? 0 : ahead_buf + 1;
+      ahead_buf ^= 1;
     }
     cp_async_commit();
   };
 
   stage_tile(q_s, a.q + (size_t(b) * a.lq + row0) * hd + h * kHeadDim, a.lq - row0, hd);
-#pragma unroll
-  for (int i = 0; i < kStages - 1; ++i) load_next();  // the first group holds the Q tile
+  load_next();  // one group with the Q tile
   const Lane ln(a, b, h, row0);
 
   uint32_t qa[4][4];
@@ -391,7 +391,7 @@ __global__ void __launch_bounds__(kThreads) fwd_streaming_kernel(const Args a) {
 
   for (int buf = 0, first = 1; !wk.done(a); wk.next(a), first = 0) {
     load_next();  // into the buffer the previous item was read from
-    cp_async_wait<kStages - 1>();
+    cp_async_wait<1>();
     __syncthreads();
     if (first) load_a(qa, q_s + warp * 16 * kStride);
 
@@ -416,7 +416,7 @@ __global__ void __launch_bounds__(kThreads) fwd_streaming_kernel(const Args a) {
         cmax[0] = cmax[1] = -FLT_MAX;
       }
     }
-    buf = buf + 1 == kStages ? 0 : buf + 1;
+    buf ^= 1;
     __syncthreads();  // the buffer is refilled by the next load
   }
   finish(a, b, h, row0, ln, m, l, o, q_s);

@@ -412,9 +412,10 @@ def test_flash_launches_counted_through_autograd(cuda, dtype):  # noqa: F811
 # the edge cases whose batch row has all its keys masked, for each kernel
 # family: the single-block pair (csrc/fused_attention_fwd.cu, _bwd.cu) and
 # the flash kernels (csrc/flash_attention_fwd.cu, _bwd.cu), in fp32; the
-# flash ones at JAX's (256, 512) tiles (at 96 x 160 tiles cuBLAS sums the
-# plain version's q·k products in another order than the kernels, which
-# moves a score at -1e4 by a whole step of 9.8e-4 now and then)
+# flash ones at JAX's (256, 512) tiles: the plain version's q·k products
+# come from cuBLAS, which sums some tiles in another order than the
+# kernels' chain of FMAs, and at 96 x 160 tiles that moves a score of the
+# all-masked row at -1e4 by a whole step of 9.8e-4 now and then
 MASKED_ROW_PARAMS = ([("single", c[0]) for c in EDGE_CASES if c[5] is not None and c[3] <= 400]
                      + [("flash", c[0]) for c in FLASH_EDGE_CASES
                         if c[5] is not None and c[6] == (256, 512)])
