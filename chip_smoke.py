@@ -128,7 +128,31 @@ exits non-zero:
                 ViltKGC|FlavaKGC --image_features <store>`` fine-tunes one
                 epoch in bf16 and tests, ``--only_test --checkpoint``
                 reproduces the ranks; the counts set to 0 before each
-                family's run and read after it.
+                family's run and read after it;
+17. region_kernel — rows 1-2 at the region families' shapes (REGION_SHAPES):
+                the four head_dim-128 instantiations (fp32 CUDA-core, bf16
+                tensor-core, forward and backward) at ViLBERT's visual
+                stream (B=64, 72 x 72, 8 heads of 128, keys half and all
+                masked in a quarter of the rows each) and at ragged Lk of
+                1, 37 and 130, VisualBERT's 200 x 200 and ViLBERT's text
+                stream at head_dim 64; fp32 and bf16, dropout 0 and 0.1, at
+                the bars of rows 1-2 (the fp32 all-masked rows at head_dim
+                128 among them, ``fp32_masked_rows``); times, plain and SDPA
+                times, bounds, registers and spills; the flash kernels'
+                refusal of head_dim 128;
+18. visualbert, vilbert — a full-width fine-tune step of each region family
+                at its recipe (B=64, L=128, 72 regions of 2048): fp32
+                through the single-block kernels against the plain
+                attention (loss within 1e-5 relative, every gradient leaf
+                within its bound), then a bf16 forward and 6 bf16 steps
+                (12 + 12 launches a step for VisualBERT, 18 + 18 for
+                ViLBERT, 6 + 6 of them at head_dim 128): the loss falls,
+                step time and a device profile;
+19. cli_region — the main path of the region slice: ``cli.main
+                --model_class VisualBertKGC|VilBertKGC --image_features
+                synthetic`` fine-tunes one epoch in bf16 at B=64 and tests,
+                ``--only_test --checkpoint`` reproduces the ranks; the
+                counts set to 0 before each family's run and read after it.
 
 Then the ``{"kernels": [...]}`` line, the card line, and the last line
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -240,14 +264,14 @@ def device_profile(fn, top=12):
                 top=[dict(name=n[:90], ms=ms, calls=c) for n, ms, c in rows[:top]])
 
 
-def bound_times(b, lq, lk, dtype_bytes):
+def bound_times(b, lq, lk, dtype_bytes, heads=HEADS, head_dim=HEAD_DIM):
     """(ms for the bytes, ms for the operations) of one call: each input
     read once (q, k, v, the fp32 mask, the int32 boundary) and the output
     written once, over the HBM rate; the QK^T and PV products over the bf16
     tensor-core peak. The bound is the larger of the two."""
-    hd = HEADS * HEAD_DIM
+    hd = heads * head_dim
     nbytes = (b * lq * hd + 2 * b * lk * hd + b * lq * hd) * dtype_bytes + b * lk * 4 + b * 4
-    flops = 4 * b * HEADS * lq * lk * HEAD_DIM
+    flops = 4 * b * heads * lq * lk * head_dim
     return nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS_PER_S * 1e3
 
 
@@ -255,14 +279,14 @@ def bound_by(t_bytes, t_ops):
     return "bytes" if t_bytes >= t_ops else "operations"
 
 
-def bwd_bound_times(b, lq, lk, dtype_bytes):
+def bwd_bound_times(b, lq, lk, dtype_bytes, heads=HEADS, head_dim=HEAD_DIM):
     """(ms for the bytes, ms for the operations) of one backward: q, k, v
     and g read once, dq, dk and dv written once, plus the fp32 mask and the
-    int32 boundary, over the HBM rate; 10·B·heads·Lq·Lk·64 flops (QKᵀ
+    int32 boundary, over the HBM rate; 10·B·heads·Lq·Lk·d flops (QKᵀ
     recomputed, dv, dp, dq, dk) over the bf16 tensor-core peak."""
-    hd = HEADS * HEAD_DIM
+    hd = heads * head_dim
     nbytes = (3 * b * lq * hd + 4 * b * lk * hd) * dtype_bytes + b * lk * 4 + b * 4
-    flops = 10 * b * HEADS * lq * lk * HEAD_DIM
+    flops = 10 * b * heads * lq * lk * head_dim
     return nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS_PER_S * 1e3
 
 
@@ -411,7 +435,7 @@ def kernel_phase(device):
     return rows, max(edges.values())
 
 
-def bwd_errors(attn, what, key, q, k, v, mask, g, kw, rate, seed, bar):
+def bwd_errors(attn, what, key, q, k, v, mask, g, kw, rate, seed, bar, heads=HEADS):
     """One backward launch against fused_attention_bwd_reference: the
     errors of dq, dk, dv (each within ``bar`` of its largest |value|) and of
     dw0/dw1 (within 1e-5 of the sum of |ds * s_raw| over their region), as
@@ -421,10 +445,10 @@ def bwd_errors(attn, what, key, q, k, v, mask, g, kw, rate, seed, bar):
     out = {}
     bnd, w, geo, r, seed = resolve_geometry(attn, q, kw, rate, seed)
     before = attn.LAUNCHES_BWD
-    got = attn._launch_bwd(q, k, v, mask, g, HEADS, bnd, w, geo, r, seed)
+    got = attn._launch_bwd(q, k, v, mask, g, heads, bnd, w, geo, r, seed)
     if attn.LAUNCHES_BWD != before + 1:
         raise AssertionError(f"bwd {what}: the wrapper counted no launch")
-    want = attn.fused_attention_bwd_reference(q, k, v, mask, g, HEADS, **kw)
+    want = attn.fused_attention_bwd_reference(q, k, v, mask, g, heads, **kw)
     torch.cuda.synchronize()
     for t_name, a, b in zip(("dq", "dk", "dv"), got[:3], want[:3]):
         err = (a.float() - b.float()).abs().max().item()
@@ -436,11 +460,11 @@ def bwd_errors(attn, what, key, q, k, v, mask, g, kw, rate, seed, bar):
         # the scale of the dw sums: sum |ds * s_raw| over the regions
         with torch.no_grad():
             qf, kf = q.float(), k.float()
-            s_raw, planes, p = attn._scores(qf, kf, mask, HEADS, bnd, w, geo)
-            gh = attn._split_heads(g, HEADS, torch.float32)
-            dp = gh @ attn._split_heads(v, HEADS, torch.float32).transpose(-1, -2)
+            s_raw, planes, p = attn._scores(qf, kf, mask, heads, bnd, w, geo)
+            gh = attn._split_heads(g, heads, torch.float32)
+            dp = gh @ attn._split_heads(v, heads, torch.float32).transpose(-1, -2)
             if r > 0.0:
-                keep = attn.dropout_keep(q.shape[0], HEADS, q.shape[1], k.shape[1], r, seed,
+                keep = attn.dropout_keep(q.shape[0], heads, q.shape[1], k.shape[1], r, seed,
                                          q.device)
                 dp = torch.where(keep, dp / (1.0 - r), 0.0)
             ds = p * (dp - (dp * p).sum(-1, keepdim=True))
@@ -1318,6 +1342,192 @@ def fp32_masked_row_phase(device):
                + [e for n, e in flash.items() if n.startswith(("fwd_", "max_abs_err"))])
 
 
+# The single-block attention shapes of the region families (the recipes of
+# scripts/run_finetune_vilbert.sh and run_finetune_visualbert.sh: B=64, L=128,
+# 2 images x 36 regions of 2048): (name, B, Lq, Lk, heads, head_dim, analogy
+# geometry or None as (row_start, text_len, offset), key layout, launches
+# per forward). ViLBERT's visual stream attends over the 72 regions at
+# head_dim 128 (1024 wide, 8 heads), its text stream over 128 tokens with
+# the multiplier from row 1; VisualBERT over 128 text + 72 region tokens,
+# the multiplier over the text block from row 1. Then the head_dim-128
+# kernels at ragged lengths (Lk 1, 37 and 130). Key layouts: "regions" 72
+# region keys, a quarter of the batch rows missing their second image (36
+# masked) and a quarter both (all 72 masked, as the trainer's region gather
+# builds them); "text" 128 text keys padded to 40-128; "text_regions" both;
+# "ragged" the last keys of batch row 0 padded, every key of row 1 masked.
+REGION_SHAPES = [
+    ("vilbert_visual", 64, 72, 72, 8, 128, None, "regions", 6),
+    ("vilbert_text", 64, 128, 128, 12, 64, (1, None, 0), "text", 12),
+    ("visualbert", 64, 200, 200, 12, 64, (1, 128, 0), "text_regions", 12),
+    ("d128_ragged_72x1", 4, 72, 1, 8, 128, None, "ragged", 0),
+    ("d128_ragged_37", 4, 37, 37, 8, 128, (1, None, 0), "ragged", 0),
+    ("d128_ragged_130", 4, 130, 130, 8, 128, None, "ragged", 0),
+]
+
+
+def region_mask(b, n_regions=72):
+    """(B, 72) region mask of the trainer's gather: batch rows 1, 5, ...
+    miss their second image, rows 2, 6, ... both."""
+    import torch
+
+    mask = torch.ones(b, n_regions)
+    rows = torch.arange(b)
+    mask[(rows % 4 == 1)[:, None] & (torch.arange(n_regions) >= n_regions // 2)[None]] = 0.0
+    mask[rows % 4 == 2] = 0.0
+    return mask
+
+
+def region_attention_inputs(shape, dtype, device, seed):
+    """(q, k, v, g, mask, geometry keywords) of a REGION_SHAPES entry."""
+    import torch
+
+    _, b, lq, lk, heads, head_dim, geometry, layout, _ = shape
+    gen = torch.Generator().manual_seed(seed)
+    hd = heads * head_dim
+    q, g = (torch.randn(b, lq, hd, generator=gen).to(device, dtype) for _ in range(2))
+    k, v = (torch.randn(b, lk, hd, generator=gen).to(device, dtype) for _ in range(2))
+    text_len = torch.randint(40, TEXT_LEN + 1, (b,), generator=gen)
+    text_mask = (torch.arange(TEXT_LEN)[None] < text_len[:, None]).float()
+    if layout == "regions":
+        mask = region_mask(b)
+    elif layout == "text":
+        mask = text_mask
+    elif layout == "text_regions":
+        mask = torch.cat([text_mask, region_mask(b)], dim=1)
+    else:
+        mask = torch.ones(b, lk)
+        mask[0, lk - lk // 4:] = 0.0
+        mask[1] = 0.0
+    kw = {}
+    if geometry is not None:
+        row_start, geo_len, offset = geometry
+        kw = dict(boundary=(text_len // 2).clamp(max=lq - 1).to(device, torch.int32),
+                  w0=torch.tensor([0.3], device=device), w1=torch.tensor([0.7], device=device),
+                  row_start=row_start, text_len=geo_len, offset=offset)
+    return q, k, v, g, mask.to(device), kw
+
+
+def region_kernel_phase(device):
+    """Rows 1-2 at the region families' shapes (REGION_SHAPES), above all
+    the head_dim-128 instantiations of all four kernels (fp32 CUDA-core,
+    bf16 tensor-core, forward and backward) at ViLBERT's visual stream, B=64,
+    72 x 72, 8 heads of 128, with a quarter of the rows' keys half masked and
+    a quarter's all masked; fp32 and bf16, dropout 0 and 0.1 (the same
+    seed, so the masks must agree), at the bars of rows 1-2: the forward
+    within 2e-5 fp32 / 2e-2 bf16 absolute, the backward within 2e-5 fp32 /
+    2^-7 bf16 of each result's largest |value|, dw within 1e-5 of its sum of
+    |terms|. Every head_dim-128 launch must be counted as one. Then per
+    shape, bf16: the kernels' times, the plain versions', SDPA's where no
+    multiplier applies (forward, and its backward as forward-plus-backward
+    minus forward), the bounds; and what ptxas said of the head_dim-128
+    instantiations."""
+    import torch
+    import torch.nn.functional as F
+
+    from mkg_analogy_tpu_torch.kernels import attention as attn
+    from mkg_analogy_tpu_torch.kernels import build
+
+    rows, masked_fp32 = [], {}
+    for shape in REGION_SHAPES:
+        name, b, lq, lk, heads, head_dim, geometry, layout, per_fwd = shape
+        row = dict(shape=name, B=b, Lq=lq, Lk=lk, heads=heads, head_dim=head_dim,
+                   geometry=geometry, keys=layout, launches_per_forward=per_fwd)
+        for tag, dtype, fwd_bar, bwd_bar in (("fp32", torch.float32, 2e-5, 2e-5),
+                                             ("bf16", torch.bfloat16, 2e-2, 2.0 ** -7)):
+            for rate in (0.0, 0.1):
+                key = f"{tag}{'_dropout' if rate else ''}"
+                q, k, v, g, mask, kw = region_attention_inputs(shape, dtype, device, lq + lk)
+                call = dict(kw, compute_dtype=dtype, dropout_rate=rate,
+                            deterministic=rate == 0.0, dropout_seed=77)
+                before = (attn.LAUNCHES, attn.LAUNCHES_D128, attn.LAUNCHES_BWD_D128)
+                got = attn.fused_attention(q, k, v, mask, heads, **call)
+                want = attn.fused_attention_reference(q, k, v, mask, heads, **call)
+                torch.cuda.synchronize()
+                err = (got.float() - want.float()).abs().max().item()
+                row[f"fwd_max_abs_err_{key}"] = err
+                if not err <= fwd_bar:
+                    raise AssertionError(f"{name} {key}: forward kernel vs plain {err} > "
+                                         f"{fwd_bar}")
+                errs = bwd_errors(attn, f"{name} {key}", key, q, k, v, mask, g, call, rate, 77,
+                                  bwd_bar, heads=heads)
+                row.update(errs)
+                d128 = int(head_dim == 128)
+                after = (attn.LAUNCHES, attn.LAUNCHES_D128, attn.LAUNCHES_BWD_D128)
+                if after != (before[0] + 1, before[1] + d128, before[2] + d128):
+                    raise AssertionError(f"{name} {key}: launches {before} -> {after}")
+                if tag == "fp32" and head_dim == 128:
+                    # the fp32 all-masked-row check at head_dim 128
+                    masked_fp32[f"{name}_{key}_fwd"] = err
+                    masked_fp32.update({f"{name}_{n}": e for n, e in errs.items()
+                                        if n.startswith("max_abs_err")})
+        q, k, v, g, mask, kw = region_attention_inputs(shape, torch.bfloat16, device, 7)
+        fwd_kw = dict(kw, compute_dtype=torch.bfloat16)
+        row["kernel_ms"] = time_ms(lambda: attn.fused_attention(q, k, v, mask, heads, **fwd_kw))
+        row["plain_ms"] = time_ms(
+            lambda: attn.fused_attention_reference(q, k, v, mask, heads, **fwd_kw))
+        rate = 0.1 if per_fwd else 0.0  # the training shapes train with attention dropout
+        bwd_kw = dict(fwd_kw, dropout_rate=rate, deterministic=rate == 0.0, dropout_seed=99)
+        resolved = resolve_geometry(attn, q, bwd_kw, rate, 99)
+        row["bwd_kernel_ms"] = time_ms(
+            lambda: attn._launch_bwd(q, k, v, mask, g, heads, *resolved))
+        row["bwd_plain_ms"] = time_ms(
+            lambda: attn.fused_attention_bwd_reference(q, k, v, mask, g, heads, **bwd_kw))
+        row["library_ms"] = row["bwd_library_ms"] = None
+        if geometry is None:
+            def split(x):
+                return x.view(b, x.shape[1], heads, head_dim).transpose(1, 2)
+
+            qh, kh, vh = (split(x).detach().requires_grad_(True) for x in (q, k, v))
+            gh = split(g)
+            bias = ((1.0 - mask) * -10000.0).to(torch.bfloat16)[:, None, None, :]
+
+            def sdpa():
+                return F.scaled_dot_product_attention(qh, kh, vh, attn_mask=bias)
+
+            def sdpa_fwd_bwd():
+                torch.autograd.grad(sdpa(), (qh, kh, vh), gh)
+
+            want = attn.fused_attention_reference(q, k, v, mask, heads, **fwd_kw)
+            lib = sdpa().transpose(1, 2).reshape(want.shape)
+            row["library_max_abs_err_bf16"] = (lib.float() - want.float()).abs().max().item()
+            row["library_ms"] = time_ms(sdpa)
+            row["bwd_library_fwd_bwd_ms"] = time_ms(sdpa_fwd_bwd)
+            row["bwd_library_ms"] = row["bwd_library_fwd_bwd_ms"] - row["library_ms"]
+        row["bytes_ms"], row["operations_ms"] = bound_times(b, lq, lk, 2, heads, head_dim)
+        row["bound_ms"] = max(row["bytes_ms"], row["operations_ms"])
+        row["bound_by"] = bound_by(row["bytes_ms"], row["operations_ms"])
+        row["bwd_bytes_ms"], row["bwd_operations_ms"] = bwd_bound_times(b, lq, lk, 2, heads,
+                                                                       head_dim)
+        row["bwd_bound_ms"] = max(row["bwd_bytes_ms"], row["bwd_operations_ms"])
+        row["bwd_bound_by"] = bound_by(row["bwd_bytes_ms"], row["bwd_operations_ms"])
+        rows.append(row)
+        emit(dict(phase="region_kernel", **row))
+    resources = {name: [r for r in build.resource_usage(name) if "Li128E" in r["entry"]]
+                 for name in ("fused_attention_fwd_mma", "fused_attention_bwd_mma",
+                              "fused_attention_fwd", "fused_attention_bwd")}
+    emit(dict(phase="fp32_masked_rows", dtype="float32", head_dim=128, single=masked_fp32,
+              resources_d128=resources))
+    flash_d128_refusal()
+    return rows, max(masked_fp32.values())
+
+
+def flash_d128_refusal():
+    """The flash kernels take head_dim 64 only: at 128 the wrapper raises
+    and names the ROADMAP.md item that queues them; nothing falls back."""
+    import torch
+
+    from mkg_analogy_tpu_torch.kernels.flash_attention import flash_attention
+
+    q = torch.zeros(1, 8, 8 * 128, device="cuda", dtype=torch.bfloat16)
+    try:
+        flash_attention(q, q, q, torch.ones(1, 8, device="cuda"), 8)
+    except ValueError as err:
+        if "ROADMAP.md queue 2" not in str(err):
+            raise
+    else:
+        raise AssertionError("the flash kernels took head_dim 128")
+
+
 class _PretrainVocab:
     """What MarTTrainer reads of a KGVocab for a triple pre-train step: the
     MarKG id ranges (a 30,522-token wordpiece base, 11,292 entities, 192
@@ -1371,6 +1581,7 @@ def reset_counts():
     from mkg_analogy_tpu_torch.kernels import image_prep as ip
 
     attn.LAUNCHES = attn.LAUNCHES_BWD = 0
+    attn.LAUNCHES_D128 = attn.LAUNCHES_BWD_D128 = 0
     fa.LAUNCHES_FLASH = fa.LAUNCHES_FLASH_DKV = fa.LAUNCHES_FLASH_DQ = 0
     fa.LAUNCHES_FLASH_FWD_MMA = fa.LAUNCHES_FLASH_DKV_MMA = fa.LAUNCHES_FLASH_DQ_MMA = 0
     ip.LAUNCHES_RESIZE = 0
@@ -1908,43 +2119,73 @@ def all_counts():
     from mkg_analogy_tpu_torch.kernels import attention as attn
 
     return dict(single_fwd=attn.LAUNCHES, single_bwd=attn.LAUNCHES_BWD,
+                single_fwd_d128=attn.LAUNCHES_D128, single_bwd_d128=attn.LAUNCHES_BWD_D128,
                 **{f"flash_{k}": n for k, n in flash_counts().items()},
                 **{f"flash_{k}_mma": n for k, n in flash_mma_counts().items()})
 
 
 # The two families that read the tool's pixel stores, at the recipes of
-# scripts/run_finetune_vilt.sh and scripts/run_finetune_flava.sh (L=128).
-# ``calls``: attention calls of one forward (ViLT 12 layers over 128 + 290
-# tokens; FLAVA 12 image layers over 393, 12 text layers over 128 and 6
-# multimodal layers over 522). ``auto_flash``: the calls whose query length
-# reaches FLASH_AUTO_MIN_LEN, which the plain route sends to the flash
-# kernels. ``backend``: the card's default (models/registry.py).
+# scripts/run_finetune_vilt.sh and scripts/run_finetune_flava.sh (L=128),
+# and the two that read region features, at run_finetune_visualbert.sh's
+# and run_finetune_vilbert.sh's (B=64, L=128, 2 images x 36 regions of
+# 2048). ``calls``: attention calls of one forward (ViLT 12 layers over 128
+# + 290 tokens; FLAVA 12 image layers over 393, 12 text layers over 128 and
+# 6 multimodal layers over 522; VisualBERT 12 layers over 128 + 72; ViLBERT
+# 12 text layers over 128 and 6 visual ones over 72, its cross-attention in
+# plain PyTorch), ``d128`` those at head_dim 128 (ViLBERT's visual stream),
+# ``unread`` those whose output the loss never reads, so that no backward
+# runs for them (ViLBERT's last visual layer, after its last connection
+# layer; JAX's jit drops its forward too, the eager port runs it).
+# ``auto_flash``: the calls whose query length reaches FLASH_AUTO_MIN_LEN,
+# which the plain route sends to the flash kernels. ``backend``: the card's
+# default (models/registry.py). ``fp32``: the kernels of the fp32 step
+# (the single-block ones hold 400 keys in fp32, fewer than the pixel
+# families attend over).
 FAMILIES = {
     "vilt": dict(model_class="ViltKGC", batch=32, image=384, alpha=0.3, lr=4e-5,
-                 stats="vilt", backend="single", calls=12, auto_flash=0),
+                 stats="vilt", backend="single", calls=12, auto_flash=0, fp32="flash"),
     "flava": dict(model_class="FlavaKGC", batch=24, image=224, alpha=0.45, lr=5e-5,
-                  stats="clip", backend="flash", calls=30, auto_flash=6),
+                  stats="clip", backend="flash", calls=30, auto_flash=6, fp32="flash"),
+}
+REGION_FAMILIES = {
+    "visualbert": dict(model_class="VisualBertKGC", batch=64, image=None, alpha=0.43,
+                       lr=5e-5, backend="single", calls=12, auto_flash=0, fp32="single"),
+    "vilbert": dict(model_class="VilBertKGC", batch=64, image=None, alpha=0.43, lr=5e-5,
+                    backend="single", calls=18, d128=6, unread=1, auto_flash=0,
+                    fp32="single"),
 }
 
 
-def family_counts(backend, calls, backward=True, bf16=True):
+def family_counts(backend, calls, backward=True, bf16=True, d128=0, unread=0):
     """all_counts of a step (or a forward) through ``backend``; in bf16 the
-    flash kernels run on the tensor cores."""
-    n_b = calls if backward else 0
-    zero = dict(single_fwd=0, single_bwd=0, flash_fwd=0, flash_dkv=0, flash_dq=0,
+    flash kernels run on the tensor cores; ``d128`` of the single-block
+    calls are at head_dim 128, ``unread`` of those have no backward."""
+    n_b = calls - unread if backward else 0
+    zero = dict(single_fwd=0, single_bwd=0, single_fwd_d128=0, single_bwd_d128=0,
+                flash_fwd=0, flash_dkv=0, flash_dq=0,
                 flash_fwd_mma=0, flash_dkv_mma=0, flash_dq_mma=0)
     if backend == "single":
-        return dict(zero, single_fwd=calls, single_bwd=n_b)
+        return dict(zero, single_fwd=calls, single_bwd=n_b, single_fwd_d128=d128,
+                    single_bwd_d128=d128 - unread if backward else 0)
     n_mma = n_b if bf16 else 0
     return dict(zero, flash_fwd=calls, flash_dkv=n_b, flash_dq=n_b,
                 flash_fwd_mma=calls if bf16 else 0, flash_dkv_mma=n_mma, flash_dq_mma=n_mma)
 
 
 def family_phase(device, name):
-    """A full-width ViLT or FLAVA fine-tune step at its recipe's batch,
-    L=128, dropout on. (1) fp32, from one state dict, batch and seeds,
-    through the flash kernels (the single-block kernel holds 400 keys in
-    fp32, fewer than either family attends over) and through autograd of
+    """A full-width fine-tune step of a family other than MKGformer at its
+    recipe's batch, L=128, dropout on. For VisualBERT and ViLBERT (region
+    features, a quarter of the rows missing one image and a quarter both):
+    (1) fp32, from one state dict, batch and seeds, through the
+    single-block kernels (ViLBERT's visual stream at head_dim 128) and
+    through the plain attention under autograd, which draws the same
+    attention dropout masks from the same seeds. Gates: the loss within
+    1e-5 relative; each gradient leaf within 1e-3 of that leaf's largest
+    |gradient| plus 1e-6 of the model's largest; no gradient only where the
+    loss reads nothing (ViLBERT's visual stream after its last connection
+    layer). For ViLT and FLAVA: (1) fp32, from one state dict, batch and
+    seeds, through the flash kernels (the single-block kernel holds 400 keys
+    in fp32, fewer than either family attends over) and through autograd of
     the kernels' plain version. Gates: the loss within 1e-5 relative; each
     gradient leaf within 1e-3 of that leaf's largest |gradient| plus 1e-6 of
     the model's largest. Then, with the attention dropout off and the
@@ -1959,7 +2200,8 @@ def family_phase(device, name):
     loss finite and falling, the launches of every step, the median step
     over steps 3-6 and a device profile of one step; for ViLT then four more
     steps of the same model through the flash kernels, the other route its
-    418 tokens could take."""
+    418 tokens could take. ViLBERT's launches at head_dim 128 are counted
+    apart (6 of its 18 a step, each way)."""
     import torch
 
     from mkg_analogy_tpu_torch.kernels import flash_attention as fa
@@ -1969,16 +2211,21 @@ def family_phase(device, name):
     from mkg_analogy_tpu_torch.train.optim import make_optimizer
     from mkg_analogy_tpu_torch.train.trainer import MarTTrainer, TrainConfig, finetune_positions
 
-    fam = FAMILIES[name]
+    fam = {**FAMILIES, **REGION_FAMILIES}[name]
     b, calls = fam["batch"], fam["calls"]
+    d128 = dict(d128=fam.get("d128", 0), unread=fam.get("unread", 0))
     batch = train_batch(device, b=b, seed=6)
     g = torch.Generator().manual_seed(7)
-    batch["pixel_values"] = torch.randn(b, 2, 3, fam["image"], fam["image"],
-                                        generator=g).to(device)
+    if fam["image"] is None:  # region features
+        batch["pixel_values"] = torch.randn(b, 72, 2048, generator=g).to(device)
+        batch["visual_attention_mask"] = region_mask(b).to(device)
+    else:
+        batch["pixel_values"] = torch.randn(b, 2, 3, fam["image"], fam["image"],
+                                            generator=g).to(device)
     out = {}
     with torch.device(device):
         model = create_model(fam["model_class"], vocab_size=42112, dtype="float32",
-                             attention="flash")
+                             attention=fam["fp32"])
     model.init_params(torch.Generator(device=device).manual_seed(0))
     state = {k: v.clone() for k, v in model.state_dict().items()}
     trainer = MarTTrainer(model, _AnalogyVocab(), TrainConfig(alpha=fam["alpha"]),
@@ -1986,11 +2233,18 @@ def family_phase(device, name):
     runs = {}
     common.ATTENTION_BACKENDS["flash_plain"] = fa.flash_attention_reference
     try:
-        # (run, backend, attention dropout, flash launches of each kind)
-        for run, backend, rate, n in (
-                ("flash", "flash", 0.1, calls), ("flash_plain", "flash_plain", 0.1, 0),
-                ("flash_nodrop", "flash", 0.0, calls),
-                ("plain_nodrop", "plain", 0.0, fam["auto_flash"])):
+        # (run, backend, attention dropout, route and launches of each kind)
+        if fam["fp32"] == "single":
+            plan = (("kernels", "single", 0.1, ("single", calls)),
+                    ("plain", "plain", 0.1, ("single", 0)))
+            pairs = (("kernels", "plain"),)
+        else:
+            plan = (("kernels", "flash", 0.1, ("flash", calls)),
+                    ("flash_plain", "flash_plain", 0.1, ("flash", 0)),
+                    ("flash_nodrop", "flash", 0.0, ("flash", calls)),
+                    ("plain_nodrop", "plain", 0.0, ("flash", fam["auto_flash"])))
+            pairs = (("kernels", "flash_plain"), ("flash_nodrop", "plain_nodrop"))
+        for run, backend, rate, (route, n) in plan:
             model.load_state_dict(state)
             for m in model.modules():
                 if isinstance(m, common.AttentionCore):
@@ -2000,33 +2254,44 @@ def family_phase(device, name):
             loss, _ = trainer._finetune_loss(batch, DropoutRNG.from_seed(5, device))
             loss.backward()
             torch.cuda.synchronize()
-            if all_counts() != family_counts("flash", n, bf16=False):
-                raise AssertionError(f"{name} fp32 step {run}: launches {all_counts()}")
+            expect = family_counts(route, n, bf16=False, **(d128 if n else {}))
+            if all_counts() != expect:
+                raise AssertionError(f"{name} fp32 step {run}: launches {all_counts()}, "
+                                     f"expected {expect}")
             runs[run] = (loss.item(), {k: None if p.grad is None else p.grad.clone()
                                        for k, p in model.named_parameters()})
     finally:
         del common.ATTENTION_BACKENDS["flash_plain"]
-    for got, ref in (("flash", "flash_plain"), ("flash_nodrop", "plain_nodrop")):
+    for got, ref in pairs:
         a, c = runs[got][0], runs[ref][0]
         if not (math.isfinite(a) and abs(a - c) <= 1e-5 * abs(c)):
             raise AssertionError(f"{name} fp32 loss: {got} {a} vs {ref} {c}")
-    worst, worst_name = leaf_ratios(runs["flash"][1], runs["flash_plain"][1])
+    worst, worst_name = leaf_ratios(runs["kernels"][1], runs[pairs[0][1]][1])
     if not worst <= 1.0:
-        raise AssertionError(f"{name} fp32 grad {worst_name}: kernels vs their plain version "
+        raise AssertionError(f"{name} fp32 grad {worst_name}: kernels vs {pairs[0][1]} "
                              f"at {worst} of the bar")
-    no_grad = sorted(k for k, g in runs["flash"][1].items() if g is None)
-    if no_grad:
+    no_grad = sorted(k for k, g in runs["kernels"][1].items() if g is None)
+    # ViLBERT's visual stream after its last connection layer feeds nothing
+    # the loss reads
+    last = len(getattr(model.cfg, "v_biattention_id", ())) - 1
+    unread = (f"v_layer_{last}.", f"c_layer_{last}.img_")
+    if any(not (name == "vilbert" and k.startswith(unread)) for k in no_grad):
         raise AssertionError(f"{name} fp32 step: no gradient reached {no_grad}")
-    lk, lp = runs["flash_nodrop"][0], runs["plain_nodrop"][0]
     out["fp32"] = dict(
-        loss_kernels=runs["flash"][0], loss_kernels_plain_version=runs["flash_plain"][0],
-        grad_leaves=len(runs["flash"][1]),
-        worst_err_over_bar_vs_plain_version=worst, worst_leaf=worst_name,
-        loss_kernels_no_attention_dropout=lk, loss_plain_attention_no_attention_dropout=lp,
-        loss_rel_diff_plain_attention=abs(lk - lp) / abs(lp),
-        worst_err_over_bar_vs_plain_attention=leaf_ratios(runs["flash_nodrop"][1],
-                                                          runs["plain_nodrop"][1]),
-        launches=family_counts("flash", calls, bf16=False))
+        route=fam["fp32"], loss_kernels=runs["kernels"][0],
+        loss_reference=runs[pairs[0][1]][0], reference=pairs[0][1],
+        loss_rel_diff=abs(runs["kernels"][0] - runs[pairs[0][1]][0]) / abs(
+            runs[pairs[0][1]][0]),
+        grad_leaves=len(runs["kernels"][1]), leaves_without_gradient=len(no_grad),
+        worst_err_over_bar=worst, worst_leaf=worst_name,
+        launches=family_counts(fam["fp32"], calls, bf16=False, **d128))
+    if fam["fp32"] == "flash":
+        lk, lp = runs["flash_nodrop"][0], runs["plain_nodrop"][0]
+        out["fp32"].update(
+            loss_kernels_no_attention_dropout=lk, loss_plain_attention_no_attention_dropout=lp,
+            loss_rel_diff_plain_attention=abs(lk - lp) / abs(lp),
+            worst_err_over_bar_vs_plain_attention=leaf_ratios(runs["flash_nodrop"][1],
+                                                              runs["plain_nodrop"][1]))
     del runs, model, trainer
     torch.cuda.empty_cache()
 
@@ -2036,14 +2301,15 @@ def family_phase(device, name):
     model.load_state_dict(state)
     del state
     reset_counts()
+    extra = {k: batch[k] for k in ("visual_attention_mask",) if k in batch}
     with torch.inference_mode():
         trans = model(input_ids=batch["input_ids"], attention_mask=batch["attention_mask"],
                       token_type_ids=batch["token_type_ids"],
                       pixel_values=batch["pixel_values"], positions=finetune_positions(batch),
-                      boundary=batch["sep_idx"][:, 2])
+                      boundary=batch["sep_idx"][:, 2], **extra)
         logits = model.logits(trans[:, 0], vocab_ids=torch.arange(20000, 22063, device=device))
         torch.cuda.synchronize()
-    if all_counts() != family_counts(fam["backend"], calls, backward=False) \
+    if all_counts() != family_counts(fam["backend"], calls, backward=False, **d128) \
             or logits.shape != (b, 2063) or not torch.isfinite(logits).all():
         raise AssertionError(f"{name} bf16 forward: launches {all_counts()}, logits "
                              f"{tuple(logits.shape)}")
@@ -2052,7 +2318,7 @@ def family_phase(device, name):
     opt = make_optimizer(model, 1e-4, 100, warmup_ratio=0.0)
     losses, times = [], []
     torch.cuda.reset_peak_memory_stats()
-    expect = family_counts(fam["backend"], calls)
+    expect = family_counts(fam["backend"], calls, **d128)
     for step in range(6):
         reset_counts()
         t0 = time.perf_counter()
@@ -2072,7 +2338,7 @@ def family_phase(device, name):
                        peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
                        device_profile_step=device_profile(
                            lambda: trainer._train_step(opt, batch, 6), top=12))
-    if fam["backend"] == "single":
+    if name == "vilt":
         # the same model and optimizer state through the flash kernels: which
         # route is the faster default at this family's lengths
         set_backend(model, "flash")
@@ -2177,6 +2443,74 @@ def cli_image_phase():
     return total
 
 
+def cli_region_phase():
+    """The main path of the region slice, end to end, for VisualBERT and
+    ViLBERT: ``cli.main --model_class VisualBertKGC|VilBertKGC
+    --image_features synthetic`` (each entity's 36 regions one 2048-d code,
+    built on the card from a seeded generator) fine-tunes one epoch in bf16
+    at the recipes' batch (128 examples: 2 steps at B=64), evaluates dev
+    (1 batch) and test (2 batches at B=128) and tests the best-dev
+    checkpoint; ``--only_test --checkpoint`` reproduces the ranks. The
+    counts are set to 0 just before each family's fit and read just after
+    it; ViLBERT's head_dim-128 launches must be among them."""
+    import numpy as np
+    import torch
+
+    from mkg_analogy_tpu_torch.cli import main as cli
+
+    n_train, n_test = 128, 200
+    runs = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_region_cli_", dir=".") as root:
+        markg, mars = write_dataset(root, n_train=n_train, n_test=n_test)
+        for name, fam in REGION_FAMILIES.items():
+            def argv(out_dir, *extra):
+                return ["--data_dir", mars, "--pretrain_path", markg, "--device", "cuda",
+                        "--model_class", fam["model_class"], "--image_features", "synthetic",
+                        "--dtype", "bfloat16", "--max_seq_length", "128",
+                        "--eval_batch_size", "128",
+                        "--output_dir", out_dir, "--log_dir", os.path.join(root, f"logs_{name}"),
+                        "--cache_dir", os.path.join(root, "cache"), *extra]
+
+            fit_dir = os.path.join(root, f"{name}_fit")
+            reset_counts()
+            t0 = time.perf_counter()
+            metrics = cli.main(argv(fit_dir, "--max_epochs", "1",
+                                    "--batch_size", str(fam["batch"]), "--lr", str(fam["lr"]),
+                                    "--alpha", str(fam["alpha"])))
+            seconds = time.perf_counter() - t0
+            launches = all_counts()
+            steps = n_train // fam["batch"]
+            d128 = dict(d128=fam.get("d128", 0), unread=fam.get("unread", 0))
+            fwd_only = family_counts(fam["backend"], fam["calls"], backward=False, **d128)
+            both = family_counts(fam["backend"], fam["calls"], **d128)
+            expect = {k: both[k] * steps + fwd_only[k] * (1 + math.ceil(n_test / 128))
+                      for k in both}
+            if launches != expect:
+                raise AssertionError(f"cli {name}: launches {launches}, expected {expect}")
+            if not all(math.isfinite(v) for v in metrics.values()):
+                raise AssertionError(f"cli {name}: non-finite test metrics {metrics}")
+            ranks = np.load(os.path.join(fit_dir, "test_ranks.npz"))["ranks"]
+            test_dir = os.path.join(root, f"{name}_retest")
+            retest = cli.main(argv(test_dir, "--only_test", "--checkpoint",
+                                   os.path.join(fit_dir, "ckpt")))
+            again = np.load(os.path.join(test_dir, "test_ranks.npz"))["ranks"]
+            if len(ranks) != n_test or not np.array_equal(again, ranks) or retest != metrics:
+                raise AssertionError(f"cli {name}: --only_test --checkpoint did not reproduce "
+                                     f"the fit's test ranks ({float((again == ranks).mean())} "
+                                     "alike)")
+            with open(os.path.join(root, f"logs_{name}", "train_metrics.jsonl")) as f:
+                epoch = next(r for r in map(json.loads, f) if "train/examples_per_sec" in r)
+            runs[name] = dict(
+                batch_size=fam["batch"], steps=steps, launches=launches, seconds=seconds,
+                test_mrr=metrics["Eval_entity/mrr"], test_hits10=metrics["Eval_entity/hits10"],
+                examples_per_sec_after_step_1=epoch["train/examples_per_sec"],
+                last_loss=epoch["train/last_loss"], retest_ranks_identical=True)
+            torch.cuda.empty_cache()
+    emit(dict(phase="cli_region", dtype="bfloat16", train_examples=n_train,
+              image_features="synthetic", **runs))
+    return {name: r["launches"] for name, r in runs.items()}
+
+
 # (name, source of the main paths' kernel, source of the fp32 route's or
 # None, line of the Pallas kernel body it replaces)
 FLASH_KERNELS = {
@@ -2266,7 +2600,8 @@ def main() -> int:
               # kernel internals runs everywhere)
               resources={name: build.resource_usage(name)
                          for name in ("fused_attention_fwd_mma", "fused_attention_bwd_mma",
-                                      "flash_attention_fwd_mma", "flash_attention_bwd_mma")}))
+                                      "flash_attention_fwd_mma", "flash_attention_bwd_mma",
+                                      "fused_attention_fwd", "fused_attention_bwd")}))
     rows, edge_err = kernel_phase(device)
     bwd_rows, bwd_edge_err = kernel_bwd_phase(device)
     model_phase(device)
@@ -2288,9 +2623,50 @@ def main() -> int:
     for name in FAMILIES:
         family_phase(device, name)
     image_launches = cli_image_phase()
-    if not all(tool_launches.values()) or not all(image_launches.values()):
+    if not all(tool_launches.values()) \
+            or not all(n for k, n in image_launches.items() if not k.endswith("_d128")):
         raise AssertionError("the image path launched no kernel somewhere: tool "
                              f"{tool_launches}, fine-tune {image_launches}")
+    region_rows, d128_masked_err = region_kernel_phase(device)
+    for name in REGION_FAMILIES:
+        family_phase(device, name)
+    region_launches = cli_region_phase()
+    vil = region_launches["vilbert"]
+    if not all(n for launches in region_launches.values()
+               for n in (launches["single_fwd"], launches["single_bwd"])) \
+            or not vil["single_fwd_d128"] or not vil["single_bwd_d128"]:
+        raise AssertionError(f"the region path launched no kernel somewhere: {region_launches}")
+    region_d64 = {k: sum(r[k] - r[f"{k}_d128"] for r in region_launches.values())
+                  for k in ("single_fwd", "single_bwd")}
+    d128_rows = [r for r in region_rows if r["head_dim"] == 128]
+    visual = next(r for r in region_rows if r["shape"] == "vilbert_visual")
+
+    def d128_entry(kernel, line, launches):
+        """A head_dim-128 instantiation's entry: times and bounds of 6 calls
+        at ViLBERT's visual stream (B=64, 72 x 72: a forward's 6 calls; a
+        step's backward runs 5 of them); errors the largest over the
+        head_dim-128 shapes."""
+        pre = "" if kernel == "fwd" else "bwd_"
+        n = visual["launches_per_forward"]
+        if kernel == "fwd":
+            err = [r[f"fwd_max_abs_err_{d}"] for r in d128_rows for d in ("bf16", "bf16_dropout")]
+            err32 = [r[f"fwd_max_abs_err_{d}"] for r in d128_rows
+                     for d in ("fp32", "fp32_dropout")]
+        else:
+            err = [r[f"max_abs_err_{t}_{d}"] for r in d128_rows for t in ("dq", "dk", "dv")
+                   for d in ("bf16", "bf16_dropout")]
+            err32 = [r[f"max_abs_err_{t}_{d}"] for r in d128_rows for t in ("dq", "dk", "dv")
+                     for d in ("fp32", "fp32_dropout")]
+        return dict(
+            name=f"fused_attention_{kernel}_d128", route="cuda",
+            source=f"mkg_analogy_tpu_torch/csrc/fused_attention_{kernel}_mma.cu",
+            source_fp32=f"mkg_analogy_tpu_torch/csrc/fused_attention_{kernel}.cu",
+            replaces=f"mkg_analogy_tpu/kernels/attention.py:{line}", head_dim=128, ok=True,
+            launches=launches, max_abs_err=max(err), max_abs_err_fp32=max(err32),
+            max_abs_err_fp32_masked_rows=d128_masked_err,
+            ms=visual[f"{pre}kernel_ms"] * n, plain_ms=visual[f"{pre}plain_ms"] * n,
+            bound_ms=visual[f"{pre}bound_ms"] * n, bound_by=visual[f"{pre}bound_by"],
+            library_ms=visual[f"{pre}library_ms"] * n, shapes=d128_rows)
 
     def per_call_set(rows, key, n):
         return sum(r[key] * r[n] for r in rows)
@@ -2306,6 +2682,7 @@ def main() -> int:
         replaces="mkg_analogy_tpu/kernels/attention.py:124",
         ok=True, launches=launches["fwd"], launches_eval_path=eval_launches,
         launches_image_path=image_launches["single_fwd"],
+        launches_region_path=region_d64["single_fwd"],
         launches_image_tool=tool_launches["attention_fwd"],
         max_abs_err=max(r[f"max_abs_err_bf16{d}"] for r in rows for d in ("", "_dropout")),
         max_abs_err_edges=edge_err,
@@ -2319,7 +2696,7 @@ def main() -> int:
         plain_ms=per_call_set(rows, "plain_ms", "launches_per_forward"),
         bound_ms=max(t_bytes, t_ops), bound_by=bound_by(t_bytes, t_ops),
         library_ms=None,  # no single PyTorch call applies the analogy multiplier
-        shapes=rows,
+        shapes=rows, shapes_region=[r for r in region_rows if r["head_dim"] == 64],
     ), dict(
         name="fused_attention_bwd", route="cuda",
         source="mkg_analogy_tpu_torch/csrc/fused_attention_bwd_mma.cu",  # bf16, every main path
@@ -2327,6 +2704,7 @@ def main() -> int:
         replaces="mkg_analogy_tpu/kernels/attention.py:159",
         ok=True, launches=launches["bwd"],
         launches_image_path=image_launches["single_bwd"],
+        launches_region_path=region_d64["single_bwd"],
         max_abs_err=max(r[f"max_abs_err_{t}_bf16{d}"] for r in bwd_rows
                         for t in ("dq", "dk", "dv") for d in ("", "_dropout")),
         max_abs_err_edges=bwd_edge_err,
@@ -2341,7 +2719,8 @@ def main() -> int:
         bound_ms=max(b_bytes, b_ops), bound_by=bound_by(b_bytes, b_ops),
         library_ms=None,  # per shape below: SDPA's backward at the vision shapes
         shapes=bwd_rows,
-    )] + [dict(flash_entry(flash_rows, kernel, flash_launches[f"{kernel}_mma"], flash_edges),
+    ), d128_entry("fwd", 124, vil["single_fwd_d128"]),
+        d128_entry("bwd", 159, vil["single_bwd_d128"])] + [dict(flash_entry(flash_rows, kernel, flash_launches[f"{kernel}_mma"], flash_edges),
                launches_image_path=image_launches[f"flash_{kernel}_mma"],
                max_abs_err_fp32_masked_rows=fp32_masked_row_err)
           # the bf16 main paths' launches, all on the tensor cores

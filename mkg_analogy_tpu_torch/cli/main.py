@@ -2,12 +2,17 @@
 ``mkg_analogy_tpu/cli/main.py`` (MarT/main.py:20-60 parity) plus
 ``--device``.
 
-Ported so far: fine-tuning, pre-training and evaluation of the three
-families that read pixel stores, ``MKGformerKGC``, ``ViltKGC`` (384-px
+Ported: fine-tuning, pre-training and evaluation of the five families:
+the three that read pixel stores, ``MKGformerKGC``, ``ViltKGC`` (384-px
 stores, scripts/run_finetune_vilt.sh: ``--batch_size 32 --lr 4e-5 --alpha
 0.3``) and ``FlavaKGC`` (224-px stores, scripts/run_finetune_flava.sh:
-``--batch_size 24 --lr 5e-5 --alpha 0.45``); ``--image_features`` names a
-store that ``python -m mkg_analogy_tpu_torch.tools.encode_images`` wrote.
+``--batch_size 24 --lr 5e-5 --alpha 0.45``), where ``--image_features``
+names a store that ``python -m mkg_analogy_tpu_torch.tools.encode_images``
+wrote; and the two that read detector region features (2 images x 36
+regions of 2048), ``VisualBertKGC`` and ``VilBertKGC``
+(scripts/run_finetune_visualbert.sh, run_finetune_vilbert.sh: ``--batch_size
+64 --lr 5e-5 --alpha 0.43``), from a region store or the seeded
+``--image_features synthetic`` / ``synthetic_noise`` tables.
 Fine-tuning (MarT/scripts/run_finetune_mkgformer.sh parity), e.g.
 
   python -m mkg_analogy_tpu_torch.cli.main \\
@@ -38,12 +43,15 @@ dtype alone: in bf16 tensor-core kernels (``mma.sync`` products, keys
 streamed in chunks of 64), in fp32 CUDA-core kernels that hold a head's
 whole K and V in shared memory. They take up to 717 keys in bf16 (where the
 route's limit has always been) and 400 in fp32 (shared memory) and raise
-above, naming the flash kernels: ViLT's L + 290 tokens fit in bf16 only. ``--fused_attention 0`` runs the plain PyTorch
-attention, except that a sequence of 512 or more takes the flash kernels,
-as in JAX. ``--export_torch``, parallelism and the two region-feature
-families (VisualBertKGC, VilBertKGC) raise until their slices land. The
-JAX package's ``--prng`` is accepted and changes nothing; ``--xla_opt``
-raises.
+above, naming the flash kernels: ViLT's L + 290 tokens fit in bf16 only.
+They take head_dim 64 and, for ViLBERT's 1024-wide visual stream, 128; the
+flash kernels take 64 only and raise at 128. ``--fused_attention 0`` runs
+the plain PyTorch attention, except that a sequence of 512 or more takes
+the flash kernels, as in JAX. ``--export_torch <file>`` writes the fit's
+best MKGformerKGC weights as a reference-layout checkpoint
+(``torch.save({"state_dict": ...})``, models/export_torch.py), as the JAX
+CLI does. Parallelism raises until its slice lands. The JAX package's
+``--prng`` is accepted and changes nothing; ``--xla_opt`` raises.
 """
 
 from __future__ import annotations
@@ -86,7 +94,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--alpha", type=float, default=0.4,
                    help="weight of the relaxation (similarity) loss")
     p.add_argument("--only_test", action="store_true", default=False)
-    p.add_argument("--export_torch", type=str, default=None)
+    p.add_argument("--export_torch", type=str, default=None,
+                   help="after a fit of MKGformerKGC, write its best weights as a "
+                        "reference-format torch checkpoint to this file")
     # Trainer args (pl.Trainer surface used by the run scripts)
     p.add_argument("--max_epochs", type=int, default=15)
     p.add_argument("--gpus", type=str, default=None,
@@ -186,12 +196,12 @@ def resolve_device(name: str) -> torch.device:
 
 
 def _refuse_unported(args) -> None:
-    """Fail fast on what later slices of the port bring."""
-    if args.export_torch:
-        raise NotImplementedError(
-            "--export_torch: the reference-format converters "
-            "(models/export_torch.py) are a later slice of the port "
-            "(ROADMAP.md, Open items 1, item 2)")
+    """Fail fast on what later slices of the port bring, and on flags the
+    run would not honour."""
+    if args.export_torch and args.model_class != "MKGformerKGC":
+        raise ValueError(
+            "--export_torch writes MKGformerKGC checkpoints (the JAX CLI's "
+            f"export), not {args.model_class}")
     if args.qk_bf16_grad and args.fused_attention == "0":
         raise NotImplementedError(
             "--qk_bf16_grad 1 with --fused_attention 0: the bf16 dq/dk "
@@ -217,18 +227,39 @@ def make_model(args, vocab_size: int):
         {None: "poly", 1: "erf", 0: "tanh"}[args.exact_gelu])
     attention = {None: DEFAULT_ATTENTION.get(args.model_class, "single"), "1": "single",
                  "0": "plain", "flash": "flash"}[args.fused_attention]
+    if args.vilbert_ablate_img_to_txt:
+        overrides["vilbert_ablate_img_to_txt"] = True
     return create_model(args.model_class, vocab_size=vocab_size, dtype=args.dtype,
                         attention=attention, gelu_impl=gelu_impl, **overrides)
 
 
-def synthetic_image_table(mode: str, num_entities: int, size: int,
-                          device: torch.device) -> torch.Tensor:
-    """(N + 1, 3, size, size) bf16 identity-signal table built on the device
-    from ``torch.Generator`` seed 314159, last row the zero pad row.
-    "synthetic": each (size/7)^2 block is one per-entity Gaussian value (a
-    3x7x7 code a ViT-B/32 patch embedding reads); "synthetic_noise":
-    per-pixel white noise. Same construction as the JAX CLI's; the values
-    differ, since the generators differ."""
+def synthetic_image_table(mode: str, num_entities: int, size, device: torch.device,
+                          kind: str = "pixels") -> torch.Tensor:
+    """The identity-signal table of ``--image_features synthetic`` /
+    ``synthetic_noise``, bf16, built on the device from a seeded
+    ``torch.Generator``, last row the zero pad row. Same construction as the
+    JAX CLI's (cli/main.py:343-370 for regions); the values differ, since
+    the generators differ.
+
+    Pixels (seed 314159): (N + 1, 3, size, size); "synthetic": each
+    (size/7)^2 block is one per-entity Gaussian value (a 3x7x7 code a
+    ViT-B/32 patch embedding reads); "synthetic_noise": per-pixel white noise.
+    Regions (seed 271828, ``size`` unused): (N + 1, 36, 2048); "synthetic":
+    each entity's 36 regions carry the same 2048-d Gaussian code (rank one,
+    which the region projection reads in one linear map);
+    "synthetic_noise": independent draws per (entity, region, dim)."""
+    if kind == "regions":
+        from ..data.images import RegionStore
+
+        gen = torch.Generator(device=device).manual_seed(271828)
+        shape = (RegionStore.num_regions, RegionStore.feat_dim)
+        if mode == "synthetic_noise":
+            tab = torch.randn((num_entities,) + shape, generator=gen, device=device)
+        else:
+            code = torch.randn((num_entities, 1, shape[1]), generator=gen, device=device)
+            tab = code.expand(-1, shape[0], -1)
+        tab = tab.to(torch.bfloat16)
+        return torch.cat([tab, tab.new_zeros((1,) + shape)], dim=0)
     gen = torch.Generator(device=device).manual_seed(314159)
     shape = (3, size, size)
     if mode == "synthetic_noise":
@@ -334,8 +365,8 @@ def main(argv=None):
     attach = None
     if args.image_features in ("synthetic", "synthetic_noise"):
         trainer.set_image_table(synthetic_image_table(
-            args.image_features, data.markg.num_entities, img_size or 224,
-            device), kind=kind)
+            args.image_features, data.markg.num_entities, img_size, device, kind=kind),
+            kind=kind)
     elif args.host_gather:
         attach = data.pixel_attach()
     else:
@@ -377,6 +408,16 @@ def main(argv=None):
     logger.log(steps, test_metrics, prefix="test/")
     logger.close()
     print(test_metrics)
+    if args.export_torch:
+        # reference-format torch checkpoint of the best weights
+        # (models/export_torch.py; loadable by MarT main.py --checkpoint)
+        from ..models.export_torch import state_dict_to_torch, unimo_params_to_reference
+
+        sd = unimo_params_to_reference(model.state_dict(),
+                                       num_layers=model.cfg.text.num_layers,
+                                       vocab_rows=data.vocab.vocab_size)
+        torch.save({"state_dict": state_dict_to_torch(sd)}, args.export_torch)
+        print(f"exported reference-format checkpoint to {args.export_torch}")
     return test_metrics
 
 

@@ -25,12 +25,17 @@
 //   C (16 x 8, fp32)        c0, c1 (g, 2t..2t+1)    c2, c3 (g + 8, 2t..2t+1)
 // So two neighbouring 16 x 8 accumulator tiles, rounded to bf16 and packed
 // in pairs, are the A fragment of the next product (pack_a): probabilities
-// and dS never pass through shared memory. A tile is 64 rows of 64 bf16 in
-// shared memory, rows padded to 72 (144 bytes), so the eight 16-byte rows
-// one ldmatrix phase reads fall in eight different 16-byte bank groups.
-// The same tile feeds a product as "rows x depth" (ldmatrix, product_nt:
-// Q K^T, g V^T, K Q^T, V g^T) and as "depth x columns" (ldmatrix.trans,
-// product_nn: P V, dS K, P^T g, dS^T Q).
+// and dS never pass through shared memory. A tile is 64 rows of D bf16 in
+// shared memory (D the head width: 64, or 128 for ViLBERT's visual stream),
+// rows padded to D + 8 (144 or 272 bytes, 9 or 17 16-byte units), so the
+// eight 16-byte rows one ldmatrix phase reads fall in eight different
+// 16-byte bank groups. The same tile feeds a product as "rows x depth"
+// (ldmatrix, product_nt: Q K^T, g V^T, K Q^T, V g^T; the depth is the head
+// width) and as "depth x columns" (ldmatrix.trans, product_nn: P V, dS K,
+// P^T g, dS^T Q; 64 of the head's columns, so at D = 128 a block computes
+// one half of its head's result columns). Every helper that addresses a
+// tile takes D as its first template argument, 64 by default (the flash
+// kernels take 64 only).
 //
 // Cast points live in the kernels, not here. fp32 inputs do not come this
 // way: TF32 keeps ~3 decimal digits and the fp32 kernels are held to 2e-5,
@@ -48,14 +53,31 @@ namespace attention_mma {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int kHeadDim = 64;
+constexpr int kHeadDim = 64;          // the default head width
 constexpr int kTile = 64;            // rows of a block's tile and of a streamed chunk
 constexpr int kWarps = 4;            // 16 rows of the tile each
 constexpr int kThreads = kWarps * 32;
-constexpr int kStride = kHeadDim + 8;            // padded shared-memory row, bf16
-constexpr int kTileElems = kTile * kStride;
-constexpr int kTileBytes = kTileElems * int(sizeof(bf16));
 constexpr float kNegBias = -10000.0f;            // reference padding bias
+
+// The padded shared-memory row of a tile of head width D, in bf16; a tile's
+// elements and bytes.
+template <int D>
+__host__ __device__ constexpr int stride_of() { return D + 8; }
+template <int D>
+__host__ __device__ constexpr int tile_elems() { return kTile * stride_of<D>(); }
+template <int D>
+__host__ __device__ constexpr int tile_bytes() { return tile_elems<D>() * int(sizeof(bf16)); }
+
+constexpr int kStride = stride_of<kHeadDim>();
+constexpr int kTileElems = tile_elems<kHeadDim>();
+constexpr int kTileBytes = tile_bytes<kHeadDim>();
+
+// 64-column halves of a head of width D (the result columns a block owns).
+template <int D>
+__host__ __device__ constexpr int halves_of() {
+  static_assert(D == 64 || D == 128, "head width 64 or 128");
+  return D / 64;
+}
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -117,24 +139,30 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// Stage up to 64 rows of one head (64 bf16 each, `ld` elements apart in
+// Stage up to 64 rows of D columns of one head (`ld` elements apart in
 // global memory) into a padded tile with 16-byte cp.async; rows from
 // `rows_valid` on are zero-filled. src points at the tile's first row, which
 // is always valid. The caller commits.
+// The index is unsigned: a signed one costs the division and the modulo
+// their sign fix-ups (3% of the forward's time at 64, measured).
+template <int D = kHeadDim>
 __device__ __forceinline__ void stage_tile(bf16* dst, const bf16* src, int rows_valid, int ld) {
-  for (int i = threadIdx.x; i < kTile * (kHeadDim / 8); i += kThreads) {
-    const int r = i >> 3, c = (i & 7) * 8;
+  constexpr unsigned kPieces = D / 8;  // 16-byte pieces a row
+  for (unsigned i = threadIdx.x; i < kTile * kPieces; i += kThreads) {
+    const int r = int(i / kPieces), c = int(i % kPieces) * 8;
     const bool valid = r < rows_valid;
-    cp_async_16(dst + r * kStride + c, src + size_t(valid ? r : 0) * ld + c, valid);
+    cp_async_16(dst + r * stride_of<D>() + c, src + size_t(valid ? r : 0) * ld + c, valid);
   }
 }
 
-// The A fragments (four depth steps of 16) of a warp's 16 rows of a tile.
-__device__ __forceinline__ void load_a(uint32_t (&a)[4][4], const bf16* rows) {
+// The A fragments (KD depth steps of 16: the head width D / 16) of a warp's
+// 16 rows of a tile.
+template <int D = kHeadDim, int KD>
+__device__ __forceinline__ void load_a(uint32_t (&a)[KD][4], const bf16* rows) {
   const int lane = threadIdx.x & 31;
-  const bf16* p = rows + (lane & 15) * kStride + (lane >> 4) * 8;
+  const bf16* p = rows + (lane & 15) * stride_of<D>() + (lane >> 4) * 8;
 #pragma unroll
-  for (int ks = 0; ks < 4; ++ks) ldmatrix_x4(a[ks], p + ks * 16);
+  for (int ks = 0; ks < KD; ++ks) ldmatrix_x4(a[ks], p + ks * 16);
 }
 
 // Both products walk the depth in steps of 16 and, within a step, first
@@ -145,17 +173,18 @@ __device__ __forceinline__ void load_a(uint32_t (&a)[4][4], const bf16* rows) {
 
 // c[nt] (16 x 8 each, 8 NT columns in all: 64, or 32 for half a tile) +=
 // A * tile^T: column n of the result is row n of the tile, the depth is the
-// head dimension.
-template <int NT>
-__device__ __forceinline__ void product_nt(float (&c)[NT][4], const uint32_t (&a)[4][4],
+// head dimension (16 KD of the tile's columns).
+template <int D = kHeadDim, int NT, int KD>
+__device__ __forceinline__ void product_nt(float (&c)[NT][4], const uint32_t (&a)[KD][4],
                                            const bf16* tile) {
+  constexpr int kS = stride_of<D>();
   const int lane = threadIdx.x & 31;
-  const bf16* p = tile + ((lane & 7) + 8 * (lane >> 4)) * kStride + 8 * ((lane >> 3) & 1);
+  const bf16* p = tile + ((lane & 7) + 8 * (lane >> 4)) * kS + 8 * ((lane >> 3) & 1);
 #pragma unroll
-  for (int ks = 0; ks < 4; ++ks) {
+  for (int ks = 0; ks < KD; ++ks) {
     uint32_t b[NT / 2][4];
 #pragma unroll
-    for (int np = 0; np < NT / 2; ++np) ldmatrix_x4(b[np], p + np * 16 * kStride + ks * 16);
+    for (int np = 0; np < NT / 2; ++np) ldmatrix_x4(b[np], p + np * 16 * kS + ks * 16);
 #pragma unroll
     for (int np = 0; np < NT / 2; ++np) {
       mma_bf16(c[2 * np], a[ks], b[np][0], b[np][1]);
@@ -164,19 +193,20 @@ __device__ __forceinline__ void product_nt(float (&c)[NT][4], const uint32_t (&a
   }
 }
 
-// c[nt] (16 x 8 each, the 64 head columns) += A * tile: the depth is the
-// tile's first 16 KS rows (64, or 32 for half a tile), a[ks] covering rows
-// 16 ks .. 16 ks + 15.
-template <int KS>
+// c[nt] (16 x 8 each, 64 head columns from `tile`, which may point at a
+// tile's second half) += A * tile: the depth is the tile's first 16 KS rows
+// (64, or 32 for half a tile), a[ks] covering rows 16 ks .. 16 ks + 15.
+template <int D = kHeadDim, int KS>
 __device__ __forceinline__ void product_nn(float (&c)[8][4], const uint32_t (&a)[KS][4],
                                            const bf16* tile) {
+  constexpr int kS = stride_of<D>();
   const int lane = threadIdx.x & 31;
-  const bf16* p = tile + (lane & 15) * kStride + 8 * (lane >> 4);
+  const bf16* p = tile + (lane & 15) * kS + 8 * (lane >> 4);
 #pragma unroll
   for (int ks = 0; ks < KS; ++ks) {
     uint32_t b[4][4];
 #pragma unroll
-    for (int dp = 0; dp < 4; ++dp) ldmatrix_x4_trans(b[dp], p + ks * 16 * kStride + dp * 16);
+    for (int dp = 0; dp < 4; ++dp) ldmatrix_x4_trans(b[dp], p + ks * 16 * kS + dp * 16);
 #pragma unroll
     for (int dp = 0; dp < 4; ++dp) {
       mma_bf16(c[2 * dp], a[ks], b[dp][0], b[dp][1]);
@@ -222,17 +252,20 @@ __device__ __forceinline__ float warp_sum(float x) {
 }
 
 // A warp's 16 x 64 fp32 result, rounded to bf16, through its own 16 rows of
-// a tile in shared memory (which no other warp touches) to global memory in
-// 16-byte pieces; rows from `rows_valid` on are not stored.
+// a tile of width D in shared memory (which no other warp touches; its
+// first 64 columns) to global memory in 16-byte pieces; rows from
+// `rows_valid` on are not stored.
+template <int D = kHeadDim>
 __device__ __forceinline__ void store_rows(bf16* dst, int ld, int rows_valid, bf16* rows,
                                            const float (&c)[8][4]) {
+  constexpr int kS = stride_of<D>();
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   __syncwarp();
 #pragma unroll
   for (int nt = 0; nt < 8; ++nt) {
-    *reinterpret_cast<uint32_t*>(rows + g * kStride + nt * 8 + 2 * t) =
+    *reinterpret_cast<uint32_t*>(rows + g * kS + nt * 8 + 2 * t) =
         pack_bf16(c[nt][0], c[nt][1]);
-    *reinterpret_cast<uint32_t*>(rows + (g + 8) * kStride + nt * 8 + 2 * t) =
+    *reinterpret_cast<uint32_t*>(rows + (g + 8) * kS + nt * 8 + 2 * t) =
         pack_bf16(c[nt][2], c[nt][3]);
   }
   __syncwarp();
@@ -241,7 +274,7 @@ __device__ __forceinline__ void store_rows(bf16* dst, int ld, int rows_valid, bf
     const int r = i >> 3, col = (i & 7) * 8;
     if (r < rows_valid) {
       *reinterpret_cast<uint4*>(dst + size_t(r) * ld + col) =
-          *reinterpret_cast<const uint4*>(rows + r * kStride + col);
+          *reinterpret_cast<const uint4*>(rows + r * kS + col);
     }
   }
 }
@@ -324,6 +357,38 @@ __device__ __forceinline__ Geometry load_geometry(int has, int row_start, int te
 // another grid, and a fifth of such a row's probabilities then round to the
 // neighbouring bf16). exp(s - m) is ex2.approx of (s - m) * log2(e): the difference
 // first, so that the row's largest score gives exactly 1.
+//
+// At head_dim 128 the scale is 2^-3.5 and that fold leaves the plain
+// version's grid where a multiplier applies, so ScoreRule<128> keeps the
+// plain version's two roundings there: without a geometry s = fmaf(acc,
+// scale, bias), as at 64; with one s_raw = acc * scale is rounded first
+// (pre = scale) and s = fmaf(s_raw, w or 1, bias) (c = w or 1).
+template <int D>
+__device__ __forceinline__ float score_of(float acc, float pre, float c, float bias) {
+  if constexpr (D == 64) {
+    return fmaf(acc, c, bias);
+  } else {
+    return fmaf(__fmul_rn(acc, pre), c, bias);
+  }
+}
+
+template <int D>
+struct ScoreRule {
+  float pre;      // the factor rounded into acc first (D = 128 with a geometry)
+  float c_plain;  // c outside the answer region
+
+  __device__ __forceinline__ ScoreRule(float scale, int has_geometry) {
+    const bool two_step = D != 64 && has_geometry;
+    pre = two_step ? scale : 1.0f;
+    c_plain = two_step ? 1.0f : scale;
+  }
+  // c at an answer column of a row whose multiplier is w (exact at 64)
+  __device__ __forceinline__ float c_answer(float w) const { return c_plain * w; }
+  __device__ __forceinline__ float score(float acc, float c, float bias) const {
+    return score_of<D>(acc, pre, c, bias);
+  }
+};
+
 constexpr float kLog2e = 1.4426950408889634f;
 
 __device__ __forceinline__ float ex2(float x) {
@@ -346,12 +411,14 @@ __device__ __forceinline__ void stage_bias(float* bias_chunk, const float* mask_
   }
 }
 
-// s = acc * c + bias on a 16 x 64 fragment, in place; c is c_row[r] at the
-// lane's answer columns (abits) and c_plain elsewhere. Folds the max of
-// each of the lane's two rows over its columns into cmax.
+// s = acc * c + bias on a 16 x 64 fragment, in place (by ScoreRule<D> with
+// `pre` at D = 128); c is c_row[r] at the lane's answer columns (abits) and
+// c_plain elsewhere. Folds the max of each of the lane's two rows over its
+// columns into cmax.
+template <int D = kHeadDim>
 __device__ __forceinline__ void scores(float (&s)[8][4], uint32_t abits, float c_plain,
                                        const float (&c_row)[2], const float* bias_chunk,
-                                       float (&cmax)[2]) {
+                                       float (&cmax)[2], float pre = 1.0f) {
   const int t = threadIdx.x & 3;
 #pragma unroll
   for (int nt = 0; nt < 8; ++nt) {
@@ -360,7 +427,7 @@ __device__ __forceinline__ void scores(float (&s)[8][4], uint32_t abits, float c
     for (int e = 0; e < 4; ++e) {
       const int r = e >> 1, j = e & 1;
       const float c = (abits >> (2 * nt + j)) & 1u ? c_row[r] : c_plain;
-      s[nt][e] = fmaf(s[nt][e], c, j ? bias.y : bias.x);
+      s[nt][e] = score_of<D>(s[nt][e], pre, c, j ? bias.y : bias.x);
       cmax[r] = fmaxf(cmax[r], s[nt][e]);
     }
   }

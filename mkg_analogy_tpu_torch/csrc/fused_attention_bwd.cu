@@ -13,7 +13,8 @@
 //   dw0 / dw1 = sum(dS * S_raw) over the two analogy regions
 //
 // with the cast points of _bwd_kernel (:199, :208-217), on the packed
-// (B, L, heads * 64) layout in and out. Scores, softmax and every sum are in
+// (B, L, heads * D) layout in and out, D = 64 or 128 (ViLBERT's visual
+// stream), each width its own instantiation. Scores, softmax and every sum are in
 // fp32; q, k, v, g and the results are bf16 or fp32. The dropout mask is
 // the counter hash of fused_attention_fwd.cu (the JAX interpret-mode
 // _dropout_keep with the per-(b, head) seed of _cell_seed), so it is the
@@ -53,7 +54,9 @@
 // warp (146 KB at Lk = 227 in fp32, under the H100's 227 KB); pass 2 holds Q
 // and g for Lq rows plus two fp32 rows per warp (80 KB at Lq = 128 in fp32).
 // The wrapper checks mkg_fused_attention_bwd_smem against the device and
-// raises above it. head_dim is fixed at 64.
+// raises above it. At D = 128 the rows double (201 keys and 205 query rows
+// fit in fp32), and a lane accumulates four result columns, 2l, 2l + 1 of
+// each 64-column half.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -62,7 +65,6 @@
 
 namespace {
 
-constexpr int kHeadDim = 64;
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
 constexpr int kRowsPerBlock = 64;  // query rows per dq block
@@ -128,13 +130,13 @@ __device__ __forceinline__ bool dropout_keep(uint32_t idx, uint32_t seed_mix,
   return x >= threshold;
 }
 
-// fp32 dot product of a row held in registers with a 64-wide row of T
-template <typename T>
+// fp32 dot product of a row held in registers with a D-wide row of T
+template <int D, typename T>
 __device__ __forceinline__ float dot_row(const float* a, const T* b) {
   constexpr int kChunk = 16 / sizeof(T);
   float acc = 0.0f;
 #pragma unroll
-  for (int c = 0; c < kHeadDim; c += kChunk) {
+  for (int c = 0; c < D; c += kChunk) {
     float bf[kChunk];
     load_chunk(b + c, bf);
 #pragma unroll
@@ -143,11 +145,11 @@ __device__ __forceinline__ float dot_row(const float* a, const T* b) {
   return acc;
 }
 
-template <typename T>
+template <int D, typename T>
 __device__ __forceinline__ void load_row(const T* p, float* f) {
   constexpr int kChunk = 16 / sizeof(T);
 #pragma unroll
-  for (int c = 0; c < kHeadDim; c += kChunk) load_chunk(p + c, f + c);
+  for (int c = 0; c < D; c += kChunk) load_chunk(p + c, f + c);
 }
 
 // The analogy geometry of attention.py:_geometry_planes, per row: whether
@@ -178,18 +180,20 @@ struct Geometry {
   }
 };
 
-// s = s_raw (* w in the region) + bias in one FMA, as the plain version
-// rounds it (kernels/attention.py:_score, XLA's contraction inside the JAX
-// kernels); s_raw = acc * scale is exact at head_dim 64 (scale 2^-3), so
-// outside the region this is fmaf(acc, scale, bias)
-__device__ __forceinline__ float score(float s_raw, bool region, float w, float bias) {
-  return fmaf(s_raw, region ? w : 1.0f, bias);
+// The score as the plain version rounds it (kernels/attention.py:_score,
+// XLA's contraction inside the JAX kernels): one FMA, fmaf(acc, scale,
+// bias) without a geometry, fmaf(s_raw, w or 1, bias) with one, s_raw =
+// acc * scale rounded first. At head_dim 64 (scale 2^-3) s_raw is exact and
+// the two agree; at 128 (2^-3.5) they do not.
+__device__ __forceinline__ float score(float acc, float s_raw, float scale, int has_geometry,
+                                       bool region, float w, float bias) {
+  return has_geometry ? fmaf(s_raw, region ? w : 1.0f, bias) : fmaf(acc, scale, bias);
 }
 
-template <typename T>
+template <typename T, int D>
 struct Layout {
   static constexpr int kChunk = 16 / sizeof(T);              // elements per 16 B
-  static constexpr int kStride = kHeadDim + kChunk;          // padded smem row
+  static constexpr int kStride = D + kChunk;                 // padded smem row
   static size_t round4(int n) { return size_t((n + 3) & ~3); }
   // pass 1: K, V (lk rows), the bias row, three fp32 rows per warp
   static size_t dq_bytes(int lk) {
@@ -201,14 +205,14 @@ struct Layout {
   }
 };
 
-// Stage the (rows x 64) slice of head h of batch row b from the packed
+// Stage the (rows x D) slice of head h of batch row b from the packed
 // (B, rows, hd) tensor x into padded shared-memory rows.
-template <typename T>
+template <int D, typename T>
 __device__ __forceinline__ void stage(T* dst, const T* x, int b, int rows, int hd, int h) {
-  constexpr int kChunk = Layout<T>::kChunk;
-  constexpr int kStride = Layout<T>::kStride;
-  constexpr int kChunksPerRow = kHeadDim / kChunk;
-  const T* src = x + size_t(b) * rows * hd + h * kHeadDim;
+  constexpr int kChunk = Layout<T, D>::kChunk;
+  constexpr int kStride = Layout<T, D>::kStride;
+  constexpr int kChunksPerRow = D / kChunk;
+  const T* src = x + size_t(b) * rows * hd + h * D;
   for (int i = threadIdx.x; i < rows * kChunksPerRow; i += kThreads) {
     const int j = i / kChunksPerRow, c = (i % kChunksPerRow) * kChunk;
     *reinterpret_cast<uint4*>(dst + j * kStride + c) =
@@ -216,7 +220,7 @@ __device__ __forceinline__ void stage(T* dst, const T* x, int b, int rows, int h
   }
 }
 
-template <typename T>
+template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
 attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v, const T* __restrict__ g,
@@ -226,7 +230,7 @@ attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         int lq, int lk, int num_heads, float scale, int has_geometry,
                         int row_start, int text_len, int offset, int dropout,
                         uint32_t threshold, float inv_keep, uint32_t seed) {
-  constexpr int kStride = Layout<T>::kStride;
+  constexpr int kStride = Layout<T, D>::kStride;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ float dw_s[kWarps][2];
   T* ks = reinterpret_cast<T*>(smem_raw);
@@ -235,14 +239,14 @@ attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int lk4 = (lk + 3) & ~3;
 
   const int tile = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int hd = num_heads * kHeadDim;
+  const int hd = num_heads * D;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   float* sraw_row = bias_s + lk4 * (1 + 3 * warp);  // s_raw
   float* p_row = sraw_row + lk4;                    // s, then exp, then p
   float* d_row = p_row + lk4;                       // dP, then dS_raw
 
-  stage(ks, k, b, lk, hd, h);
-  stage(vs, v, b, lk, hd, h);
+  stage<D>(ks, k, b, lk, hd, h);
+  stage<D>(vs, v, b, lk, hd, h);
   for (int j = threadIdx.x; j < lk; j += kThreads) {
     bias_s[j] = (1.0f - mask[size_t(b) * lk + j]) * kNegBias;
   }
@@ -256,17 +260,19 @@ attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float dw0 = 0.0f, dw1 = 0.0f;  // this lane's partials
 
   for (int r = tile * kRowsPerBlock + warp; r < r_end; r += kWarps) {
-    const size_t row_off = (size_t(b) * lq + r) * hd + h * kHeadDim;
+    const size_t row_off = (size_t(b) * lq + r) * hd + h * D;
     const RowGeometry rg = geo.row(r);
 
     // Scores and their max, the query row in registers.
     float mx = -FLT_MAX;
     {
-      float qf[kHeadDim];
-      load_row(q + row_off, qf);
+      float qf[D];
+      load_row<D>(q + row_off, qf);
       for (int j = lane; j < lk; j += 32) {
-        const float s_raw = __fmul_rn(dot_row(qf, ks + j * kStride), scale);
-        const float s = score(s_raw, rg.in_scope && geo.col_is_answer(j), rg.w, bias_s[j]);
+        const float acc = dot_row<D>(qf, ks + j * kStride);
+        const float s_raw = __fmul_rn(acc, scale);
+        const float s = score(acc, s_raw, scale, has_geometry,
+                              rg.in_scope && geo.col_is_answer(j), rg.w, bias_s[j]);
         sraw_row[j] = s_raw;
         p_row[j] = s;
         mx = fmaxf(mx, s);
@@ -285,11 +291,11 @@ attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     // delta = rowsum(dP * P), the cotangent row in registers.
     float delta = 0.0f;
     {
-      float gf[kHeadDim];
-      load_row(g + row_off, gf);
+      float gf[D];
+      load_row<D>(g + row_off, gf);
       for (int j = lane; j < lk; j += 32) {
         const float p = p_row[j] / sum;
-        float dp = dot_row(gf, vs + j * kStride);
+        float dp = dot_row<D>(gf, vs + j * kStride);
         if (dropout) {
           dp = dropout_keep(uint32_t(r) * uint32_t(lk) + uint32_t(j), seed_mix, threshold)
                    ? __fmul_rn(dp, inv_keep)
@@ -317,17 +323,20 @@ attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
     __syncwarp();
 
-    // dq row: lane l owns columns 2l and 2l+1.
-    float a0 = 0.0f, a1 = 0.0f;
-    const T* kcol = ks + 2 * lane;
+    // dq row: lane l owns columns 2l and 2l+1 of each 64-column half.
+#pragma unroll
+    for (int c0 = 0; c0 < D; c0 += 64) {
+      float a0 = 0.0f, a1 = 0.0f;
+      const T* kcol = ks + c0 + 2 * lane;
 #pragma unroll 4
-    for (int j = 0; j < lk; ++j) {
-      const float d = d_row[j];
-      const float2 kk = load_pair(kcol + j * kStride);
-      a0 = fmaf(d, kk.x, a0);
-      a1 = fmaf(d, kk.y, a1);
+      for (int j = 0; j < lk; ++j) {
+        const float d = d_row[j];
+        const float2 kk = load_pair(kcol + j * kStride);
+        a0 = fmaf(d, kk.x, a0);
+        a1 = fmaf(d, kk.y, a1);
+      }
+      store_pair(dq + row_off + c0 + 2 * lane, a0, a1);
     }
-    store_pair(dq + row_off + 2 * lane, a0, a1);
     if (lane == 0) {
       float* st = stats + ((size_t(b) * num_heads + h) * lq + r) * 3;
       st[0] = mx;
@@ -356,7 +365,7 @@ attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T>
+template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
 attention_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                          const T* __restrict__ v, const T* __restrict__ g,
@@ -366,7 +375,7 @@ attention_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                          int num_heads, float scale, int has_geometry, int row_start,
                          int text_len, int offset, int dropout, uint32_t threshold,
                          float inv_keep, uint32_t seed) {
-  constexpr int kStride = Layout<T>::kStride;
+  constexpr int kStride = Layout<T, D>::kStride;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* qs = reinterpret_cast<T*>(smem_raw);
   T* gs = qs + size_t(lq) * kStride;
@@ -376,13 +385,13 @@ attention_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* delta_s = l_s + lq4;
 
   const int tile = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int hd = num_heads * kHeadDim;
+  const int hd = num_heads * D;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   float* pc_row = delta_s + lq4 * (1 + 2 * warp);  // P, then P_cast
   float* ds_row = pc_row + lq4;                    // dS_raw
 
-  stage(qs, q, b, lq, hd, h);
-  stage(gs, g, b, lq, hd, h);
+  stage<D>(qs, q, b, lq, hd, h);
+  stage<D>(gs, g, b, lq, hd, h);
   const float* st = stats + (size_t(b) * num_heads + h) * lq * 3;
   for (int i = threadIdx.x; i < lq; i += kThreads) {
     m_s[i] = st[3 * i];
@@ -398,18 +407,19 @@ attention_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int j_end = min(lk, (tile + 1) * kKeysPerBlock);
 
   for (int j = tile * kKeysPerBlock + warp; j < j_end; j += kWarps) {
-    const size_t col_off = (size_t(b) * lk + j) * hd + h * kHeadDim;
+    const size_t col_off = (size_t(b) * lk + j) * hd + h * D;
     const float bias = (1.0f - mask[size_t(b) * lk + j]) * kNegBias;
     const bool col_answer = geo.col_is_answer(j);
 
     // P for this key column, the key row in registers; P_cast for dv.
     {
-      float kf[kHeadDim];
-      load_row(k + col_off, kf);
+      float kf[D];
+      load_row<D>(k + col_off, kf);
       for (int i = lane; i < lq; i += 32) {
         const RowGeometry rg = geo.row(i);
-        const float s_raw = __fmul_rn(dot_row(kf, qs + i * kStride), scale);
-        const float s = score(s_raw, rg.in_scope && col_answer, rg.w, bias);
+        const float acc = dot_row<D>(kf, qs + i * kStride);
+        const float s = score(acc, __fmul_rn(acc, scale), scale, has_geometry,
+                              rg.in_scope && col_answer, rg.w, bias);
         const float p = expf(s - m_s[i]) / l_s[i];
         float p_drop = p;
         if (dropout) {
@@ -423,11 +433,11 @@ attention_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
     // dP and dS_raw for this column, the value row in registers.
     {
-      float vf[kHeadDim];
-      load_row(v + col_off, vf);
+      float vf[D];
+      load_row<D>(v + col_off, vf);
       for (int i = lane; i < lq; i += 32) {
         const RowGeometry rg = geo.row(i);
-        float dp = dot_row(vf, gs + i * kStride);
+        float dp = dot_row<D>(vf, gs + i * kStride);
         if (dropout) {
           dp = dropout_keep(uint32_t(i) * uint32_t(lk) + uint32_t(j), seed_mix, threshold)
                    ? __fmul_rn(dp, inv_keep)
@@ -441,40 +451,43 @@ attention_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
     __syncwarp();
 
-    // dk and dv rows: lane l owns columns 2l and 2l+1.
-    float k0 = 0.0f, k1 = 0.0f, v0 = 0.0f, v1 = 0.0f;
-    const T* qcol = qs + 2 * lane;
-    const T* gcol = gs + 2 * lane;
+    // dk and dv rows: lane l owns columns 2l and 2l+1 of each 64-column half.
+#pragma unroll
+    for (int c0 = 0; c0 < D; c0 += 64) {
+      float k0 = 0.0f, k1 = 0.0f, v0 = 0.0f, v1 = 0.0f;
+      const T* qcol = qs + c0 + 2 * lane;
+      const T* gcol = gs + c0 + 2 * lane;
 #pragma unroll 4
-    for (int i = 0; i < lq; ++i) {
-      const float d = ds_row[i], pc = pc_row[i];
-      const float2 qq = load_pair(qcol + i * kStride);
-      const float2 gg = load_pair(gcol + i * kStride);
-      k0 = fmaf(d, qq.x, k0);
-      k1 = fmaf(d, qq.y, k1);
-      v0 = fmaf(pc, gg.x, v0);
-      v1 = fmaf(pc, gg.y, v1);
+      for (int i = 0; i < lq; ++i) {
+        const float d = ds_row[i], pc = pc_row[i];
+        const float2 qq = load_pair(qcol + i * kStride);
+        const float2 gg = load_pair(gcol + i * kStride);
+        k0 = fmaf(d, qq.x, k0);
+        k1 = fmaf(d, qq.y, k1);
+        v0 = fmaf(pc, gg.x, v0);
+        v1 = fmaf(pc, gg.y, v1);
+      }
+      store_pair(dk + col_off + c0 + 2 * lane, k0, k1);
+      store_pair(dv + col_off + c0 + 2 * lane, v0, v1);
     }
-    store_pair(dk + col_off + 2 * lane, k0, k1);
-    store_pair(dv + col_off + 2 * lane, v0, v1);
     __syncwarp();  // the rows are rewritten by this warp's next key
   }
 }
 
-template <typename T>
+template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, const void* g, const void* mask,
            const void* boundary, const void* w, void* dq, void* dk, void* dv,
            void* stats, void* dw_part, int batch, int lq, int lk, int num_heads,
            float scale, int has_geometry, int row_start, int text_len, int offset,
            int dropout, uint32_t threshold, float inv_keep, uint32_t seed,
            cudaStream_t stream) {
-  const size_t smem_dq = Layout<T>::dq_bytes(lk);
-  const size_t smem_dkv = Layout<T>::dkv_bytes(lq);
-  cudaError_t err = cudaFuncSetAttribute(attention_bwd_dq_kernel<T>,
+  const size_t smem_dq = Layout<T, D>::dq_bytes(lk);
+  const size_t smem_dkv = Layout<T, D>::dkv_bytes(lq);
+  cudaError_t err = cudaFuncSetAttribute(attention_bwd_dq_kernel<T, D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          int(smem_dq));
   if (err != cudaSuccess) return int(err);
-  err = cudaFuncSetAttribute(attention_bwd_dkv_kernel<T>,
+  err = cudaFuncSetAttribute(attention_bwd_dkv_kernel<T, D>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem_dkv));
   if (err != cudaSuccess) return int(err);
   const T* qt = static_cast<const T*>(q);
@@ -485,18 +498,24 @@ int launch(const void* q, const void* k, const void* v, const void* g, const voi
   const int* bnd = static_cast<const int*>(boundary);
   const float* wf = static_cast<const float*>(w);
   const dim3 grid_dq((lq + kRowsPerBlock - 1) / kRowsPerBlock, num_heads, batch);
-  attention_bwd_dq_kernel<T><<<grid_dq, kThreads, smem_dq, stream>>>(
+  attention_bwd_dq_kernel<T, D><<<grid_dq, kThreads, smem_dq, stream>>>(
       qt, kt, vt, gt, maskf, bnd, wf, static_cast<T*>(dq), static_cast<float*>(stats),
       static_cast<float*>(dw_part), lq, lk, num_heads, scale, has_geometry, row_start,
       text_len, offset, dropout, threshold, inv_keep, seed);
   err = cudaGetLastError();
   if (err != cudaSuccess) return int(err);
   const dim3 grid_dkv((lk + kKeysPerBlock - 1) / kKeysPerBlock, num_heads, batch);
-  attention_bwd_dkv_kernel<T><<<grid_dkv, kThreads, smem_dkv, stream>>>(
+  attention_bwd_dkv_kernel<T, D><<<grid_dkv, kThreads, smem_dkv, stream>>>(
       qt, kt, vt, gt, maskf, bnd, wf, static_cast<const float*>(stats),
       static_cast<T*>(dk), static_cast<T*>(dv), lq, lk, num_heads, scale, has_geometry,
       row_start, text_len, offset, dropout, threshold, inv_keep, seed);
   return int(cudaGetLastError());
+}
+
+template <typename T, int D>
+size_t smem_bytes(int lq, int lk) {
+  const size_t a = Layout<T, D>::dq_bytes(lk), b = Layout<T, D>::dkv_bytes(lq);
+  return a > b ? a : b;
 }
 
 }  // namespace
@@ -508,37 +527,39 @@ const char* mkg_cuda_error_string(int err) {
 }
 
 // Dynamic shared memory of the larger of the two passes' blocks (the
-// wrapper holds it against the device's opt-in limit before launching).
-size_t mkg_fused_attention_bwd_smem(int lq, int lk, int is_bf16) {
-  if (is_bf16) {
-    const size_t a = Layout<__nv_bfloat16>::dq_bytes(lk);
-    const size_t b = Layout<__nv_bfloat16>::dkv_bytes(lq);
-    return a > b ? a : b;
+// wrapper holds it against the device's opt-in limit before launching); 0
+// for a head width the kernels do not take.
+size_t mkg_fused_attention_bwd_smem(int lq, int lk, int is_bf16, int head_dim) {
+  if (head_dim == 64) {
+    return is_bf16 ? smem_bytes<__nv_bfloat16, 64>(lq, lk) : smem_bytes<float, 64>(lq, lk);
   }
-  const size_t a = Layout<float>::dq_bytes(lk), b = Layout<float>::dkv_bytes(lq);
-  return a > b ? a : b;
+  if (head_dim == 128) {
+    return is_bf16 ? smem_bytes<__nv_bfloat16, 128>(lq, lk) : smem_bytes<float, 128>(lq, lk);
+  }
+  return 0;
 }
 
 // Launches both passes on `stream` without synchronising; returns
-// cudaGetLastError(). stats is (B, heads, Lq, 3) fp32 scratch, dw_part
-// (B, heads, ceil(Lq / 64), 2) fp32 partials of (dw0, dw1).
+// cudaGetLastError(). head_dim is 64 or 128; stats is (B, heads, Lq, 3)
+// fp32 scratch, dw_part (B, heads, ceil(Lq / 64), 2) fp32 partials of (dw0,
+// dw1).
 int mkg_fused_attention_bwd(const void* q, const void* k, const void* v, const void* g,
                             const void* mask, const void* boundary, const void* w,
                             void* dq, void* dk, void* dv, void* stats, void* dw_part,
-                            int batch, int lq, int lk, int num_heads, int is_bf16,
-                            float scale, int has_geometry, int row_start, int text_len,
-                            int offset, int dropout, unsigned int threshold,
+                            int batch, int lq, int lk, int num_heads, int head_dim,
+                            int is_bf16, float scale, int has_geometry, int row_start,
+                            int text_len, int offset, int dropout, unsigned int threshold,
                             float inv_keep, unsigned int seed, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16) {
-    return launch<__nv_bfloat16>(q, k, v, g, mask, boundary, w, dq, dk, dv, stats,
-                                 dw_part, batch, lq, lk, num_heads, scale, has_geometry,
-                                 row_start, text_len, offset, dropout, threshold,
-                                 inv_keep, seed, s);
+  if (head_dim != 64 && head_dim != 128) return int(cudaErrorInvalidValue);
+  decltype(&launch<float, 64>) fn;
+  if (head_dim == 64) {
+    fn = is_bf16 ? &launch<__nv_bfloat16, 64> : &launch<float, 64>;
+  } else {
+    fn = is_bf16 ? &launch<__nv_bfloat16, 128> : &launch<float, 128>;
   }
-  return launch<float>(q, k, v, g, mask, boundary, w, dq, dk, dv, stats, dw_part, batch,
-                       lq, lk, num_heads, scale, has_geometry, row_start, text_len, offset,
-                       dropout, threshold, inv_keep, seed, s);
+  return fn(q, k, v, g, mask, boundary, w, dq, dk, dv, stats, dw_part, batch, lq, lk,
+            num_heads, scale, has_geometry, row_start, text_len, offset, dropout, threshold,
+            inv_keep, seed, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -14,7 +14,8 @@
 //   dw0 / dw1 = sum(dS * S_raw) over the two analogy regions          (:212-213)
 //
 // with those cast points of _bwd_kernel, fp32 scores, softmax and sums, on
-// the packed (B, L, heads * 64) layout.
+// the packed (B, L, heads * D) layout, D = 64 or 128 (ViLBERT's visual
+// stream), each width its own instantiation.
 //
 // What bounds it: bytes (attention_mma.cuh has the count). The CUDA-core
 // kernels it takes over from (fused_attention_bwd.cu, which keeps fp32) ran
@@ -22,7 +23,7 @@
 // rows a warp in shared memory. Here all five products are mma.sync
 // m16n8k16 on ldmatrix fragments, a warp owns 16 rows, and operands come in
 // chunks of 64 rows by 16-byte cp.async (55 KB a block whatever the
-// lengths). Blocks carry nothing between them and no float atomics run, so
+// lengths at D = 64, 103 KB at 128). Blocks carry nothing between them and no float atomics run, so
 // the two passes stay:
 //   1. dq pass, per (64 query rows, head, batch row): S = Q K^T and
 //      dP = g V^T as accumulator tiles; each row's max m, sum l and
@@ -46,6 +47,15 @@
 //      comes out a last bit above 1 does no harm (nothing takes its
 //      logarithm or root), and the bars (2^-7 of each result's largest
 //      value) hold the passes together.
+// At D = 128 each block of either pass owns 64 of its head's 128 result
+// columns (a half, from blockIdx.x): the score and dP tiles take the whole
+// depth of 128 and are computed by both halves' blocks, while a thread's
+// result accumulators stay those of D = 64. The dq pass then always streams
+// (its resident form would hold 64 more registers of Q and g fragments), and
+// only the first half's block writes a row's statistics and the dw
+// partials. The score keeps the plain version's two roundings where a
+// multiplier applies (attention_mma.cuh: ScoreRule), and dS_raw is rounded
+// as (dS * multiplier) * scale, in the plain version's order.
 // A lane holds rows g and g + 8 (g = lane / 4) and columns 2t, 2t + 1
 // (t = lane % 4) of each 16 x 8 tile; geometry and dropout index come from
 // those coordinates (in pass 2 the tile's rows are keys, its columns query
@@ -63,8 +73,18 @@ using namespace attention_mma;
 namespace {
 
 constexpr int kDqResidentChunks = 2;
-constexpr int kDqSmem = 6 * kTileBytes + 2 * kTile * int(sizeof(float));
-constexpr int kDkvSmem = 6 * kTileBytes + 2 * 4 * kTile * int(sizeof(float));
+
+// Q, g, two chunks (or buffers) of K and of V, two rows of biases.
+template <int D>
+constexpr int dq_smem() {
+  return 6 * tile_bytes<D>() + 2 * kTile * int(sizeof(float));
+}
+
+// K, V, two buffers of Q and of g, two blocks of 64 row statistics.
+template <int D>
+constexpr int dkv_smem() {
+  return 6 * tile_bytes<D>() + 2 * 4 * kTile * int(sizeof(float));
+}
 
 struct Args {
   const bf16 *q, *k, *v, *go;
@@ -82,27 +102,40 @@ struct Args {
   uint32_t seed;
 };
 
+// The block's coordinates: its tile of 64 rows (query rows in the dq pass,
+// keys in the dk/dv pass), its half of the head's columns (always 0 at
+// D = 64), head and batch row.
+template <int D>
+struct Block {
+  int tile, half, h, b;
+  __device__ __forceinline__ Block()
+      : tile(blockIdx.x / halves_of<D>()), half(blockIdx.x % halves_of<D>()), h(blockIdx.y),
+        b(blockIdx.z) {}
+};
+
 // What a lane of the dq pass knows of its two rows (row_g, row_g + 8).
+template <int D>
 struct Lane {
   Geometry geo;
   uint32_t seed_mix;
   int row_g;
-  float c_plain, c_row[2];  // scale (* the row's multiplier)
+  ScoreRule<D> rule;
+  float c_row[2];           // c at the rows' answer columns
   float w_row[2];           // the row's multiplier at answer columns
   bool in_region[2];        // a valid row in scope: its answer columns enter dw
   bool is_example[2];       // ... dw0 (example rows) or dw1
 
-  __device__ __forceinline__ Lane(const Args& a, int b, int h, int row0) {
+  __device__ __forceinline__ Lane(const Args& a, int b, int h, int row0)
+      : rule(a.scale, a.has_geometry) {
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
     geo = load_geometry(a.has_geometry, a.row_start, a.text_len, a.offset, a.boundary, a.w, b);
     seed_mix = (a.seed + uint32_t(b * a.num_heads + h)) * 0x9E3779B9u;
     row_g = row0 + warp * 16 + (lane >> 2);
-    c_plain = a.scale;
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const RowGeometry rg = geo.row(row_g + 8 * r);
       w_row[r] = rg.w;
-      c_row[r] = c_plain * rg.w;
+      c_row[r] = rule.c_answer(rg.w);
       is_example[r] = rg.is_example;
       in_region[r] = rg.in_scope && row_g + 8 * r < a.lq;
     }
@@ -116,18 +149,21 @@ struct Chunk {
   const float* bias;  // the chunk's 64 biases
   int key0;
 
-  __device__ __forceinline__ float c(const Lane& ln, int nt, int e) const {
-    return (abits >> (2 * nt + (e & 1))) & 1u ? ln.c_row[e >> 1] : ln.c_plain;
+  template <int D>
+  __device__ __forceinline__ float score(const Lane<D>& ln, float acc, int nt, int e) const {
+    const float2 b2 = *reinterpret_cast<const float2*>(bias + nt * 8 + 2 * (threadIdx.x & 3));
+    const float c = (abits >> (2 * nt + (e & 1))) & 1u ? ln.c_row[e >> 1] : ln.rule.c_plain;
+    return ln.rule.score(acc, c, e & 1 ? b2.y : b2.x);
   }
 
   // dP under the forward's keep mask, in place; the rows' max score.
+  template <int D>
   __device__ __forceinline__ void mask_and_max(const float (&s)[8][4], float (&dp)[8][4],
                                                float (&cmax)[2], const Args& a,
-                                               const Lane& ln) const {
+                                               const Lane<D>& ln) const {
     const int t = threadIdx.x & 3;
 #pragma unroll
     for (int nt = 0; nt < 8; ++nt) {
-      const float2 b2 = *reinterpret_cast<const float2*>(bias + nt * 8 + 2 * t);
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int r = e >> 1;
@@ -137,23 +173,21 @@ struct Chunk {
           dp[nt][e] = dropout_keep(idx, ln.seed_mix, a.threshold) ? dp[nt][e] * a.inv_keep
                                                                    : 0.0f;
         }
-        cmax[r] = fmaxf(cmax[r], fmaf(s[nt][e], c(ln, nt, e), e & 1 ? b2.y : b2.x));
+        cmax[r] = fmaxf(cmax[r], score(ln, s[nt][e], nt, e));
       }
     }
   }
 
   // sum(e) and sum(dP * e) of row r with e = exp(s - m): a lane's share
+  template <int D>
   __device__ __forceinline__ void sums(const float (&s)[8][4], const float (&dp)[8][4], int r,
                                        float m, float& sum, float& dsum,
-                                       const Lane& ln) const {
-    const int t = threadIdx.x & 3;
+                                       const Lane<D>& ln) const {
 #pragma unroll
     for (int nt = 0; nt < 8; ++nt) {
-      const float2 b2 = *reinterpret_cast<const float2*>(bias + nt * 8 + 2 * t);
 #pragma unroll
       for (int e = 2 * r; e < 2 * r + 2; ++e) {
-        const float ex =
-            exp_minus_max(fmaf(s[nt][e], c(ln, nt, e), e & 1 ? b2.y : b2.x), m);
+        const float ex = exp_minus_max(score(ln, s[nt][e], nt, e), m);
         sum += ex;
         dsum = fmaf(dp[nt][e], ex, dsum);
       }
@@ -162,25 +196,23 @@ struct Chunk {
 
   // s <- dS_raw = p * (dP - delta) * mult * scale (rounded by pack_a); the dw
   // partials of the lane's valid rows.
+  template <int D>
   __device__ __forceinline__ void ds_raw(float (&s)[8][4], const float (&dp)[8][4],
                                          const float (&m)[2], const float (&inv_l)[2],
                                          const float (&delta)[2], float& dw0, float& dw1,
-                                         const Args& a, const Lane& ln) const {
-    const int t = threadIdx.x & 3;
+                                         const Args& a, const Lane<D>& ln) const {
 #pragma unroll
     for (int nt = 0; nt < 8; ++nt) {
-      const float2 b2 = *reinterpret_cast<const float2*>(bias + nt * 8 + 2 * t);
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int r = e >> 1;
         const float acc = s[nt][e];
-        const float p =
-            exp_minus_max(fmaf(acc, c(ln, nt, e), e & 1 ? b2.y : b2.x), m[r]) * inv_l[r];
+        const float p = exp_minus_max(score(ln, acc, nt, e), m[r]) * inv_l[r];
         float ds = p * (dp[nt][e] - delta[r]);
         if ((abits >> (2 * nt + (e & 1))) & 1u) {
           // an answer column: in a region of the dw sums if the row is in
           // scope (w_row is 1 otherwise)
-          const float term = ds * (acc * a.scale);
+          const float term = ds * __fmul_rn(acc, a.scale);
           if (ln.in_region[r] && ln.is_example[r]) dw0 += term;
           if (ln.in_region[r] && !ln.is_example[r]) dw1 += term;
           ds *= ln.w_row[r];
@@ -191,16 +223,19 @@ struct Chunk {
   }
 };
 
-__device__ __forceinline__ void finish_dq(const Args& a, const Lane& ln, int b, int h,
-                                          int tile, bf16* q_rows, const float (&acc)[8][4],
+template <int D>
+__device__ __forceinline__ void finish_dq(const Args& a, const Lane<D>& ln, const Block<D>& blk,
+                                          bf16* q_rows, const float (&acc)[8][4],
                                           const float (&m)[2], const float (&inv_l)[2],
                                           const float (&delta)[2], float dw0, float dw1) {
   __shared__ float dw_s[kWarps][2];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int hd = a.num_heads * kHeadDim;
-  const int row_w = tile * kTile + warp * 16;
-  store_rows(a.dq + (size_t(b) * a.lq + row_w) * hd + h * kHeadDim, hd, a.lq - row_w, q_rows,
-             acc);
+  const int h = blk.h, b = blk.b;
+  const int hd = a.num_heads * D;
+  const int row_w = blk.tile * kTile + warp * 16;
+  store_rows<D>(a.dq + (size_t(b) * a.lq + row_w) * hd + h * D + blk.half * 64, hd,
+                a.lq - row_w, q_rows, acc);
+  if (blk.half != 0) return;  // the statistics and dw are the first half's to write
   if ((lane & 3) == 0) {
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
@@ -224,16 +259,18 @@ __device__ __forceinline__ void finish_dq(const Args& a, const Lane& ln, int b, 
       t0 += dw_s[i][0];
       t1 += dw_s[i][1];
     }
-    float* dst = a.dw_part + ((size_t(b) * a.num_heads + h) * gridDim.x + tile) * 2;
+    const int tiles = gridDim.x / halves_of<D>();
+    float* dst = a.dw_part + ((size_t(b) * a.num_heads + h) * tiles + blk.tile) * 2;
     dst[0] = t0;
     dst[1] = t1;
   }
 }
 
-// dq pass up to 128 keys: both accumulator tiles of the whole row in
-// registers, every chunk in shared memory, one sweep.
+// dq pass up to 128 keys at D = 64: both accumulator tiles of the whole row
+// in registers, every chunk in shared memory, one sweep.
 __global__ void __launch_bounds__(kThreads) dq_resident_kernel(const Args a) {
   constexpr int NC = kDqResidentChunks;
+  constexpr int D = 64;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* q_s = reinterpret_cast<bf16*>(smem_raw);
   bf16* g_s = q_s + kTileElems;
@@ -241,10 +278,11 @@ __global__ void __launch_bounds__(kThreads) dq_resident_kernel(const Args a) {
   bf16* v_s = k_s + NC * kTileElems;  // NC chunks
   float* bias_s = reinterpret_cast<float*>(v_s + NC * kTileElems);  // NC rows of 64
 
-  const int tile = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const Block<D> blk;
+  const int h = blk.h, b = blk.b;
   const int hd = a.num_heads * kHeadDim;
   const int warp = threadIdx.x >> 5, t = threadIdx.x & 3;
-  const int row0 = tile * kTile;
+  const int row0 = blk.tile * kTile;
   const int n_chunks = (a.lk + kTile - 1) / kTile;  // <= NC
 
   const size_t tile_off = (size_t(b) * a.lq + row0) * hd + h * kHeadDim;
@@ -261,7 +299,7 @@ __global__ void __launch_bounds__(kThreads) dq_resident_kernel(const Args a) {
     cp_async_commit();
     stage_bias(bias_s + c * kTile, a.mask + size_t(b) * a.lk, c * kTile, a.lk);
   }
-  const Lane ln(a, b, h, row0);
+  const Lane<D> ln(a, b, h, row0);
 
   uint32_t qa[4][4], ga[4][4];
   float s[NC][8][4], dp[NC][8][4];
@@ -308,25 +346,27 @@ __global__ void __launch_bounds__(kThreads) dq_resident_kernel(const Args a) {
       product_nn(acc, da, k_s + c * kTileElems);
     }
   }
-  finish_dq(a, ln, b, h, tile, q_s + warp * 16 * kStride, acc, m, inv_l, delta, dw0, dw1);
+  finish_dq(a, ln, blk, q_s + warp * 16 * kStride, acc, m, inv_l, delta, dw0, dw1);
 }
 
 // dq pass at any Lk: two sweeps over the keys through two buffers.
+template <int D>
 __global__ void __launch_bounds__(kThreads) dq_streaming_kernel(const Args a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* q_s = reinterpret_cast<bf16*>(smem_raw);
-  bf16* g_s = q_s + kTileElems;
-  bf16* k_s = g_s + kTileElems;       // two buffers
-  bf16* v_s = k_s + 2 * kTileElems;   // two buffers
-  float* bias_s = reinterpret_cast<float*>(v_s + 2 * kTileElems);  // two rows of 64
+  bf16* g_s = q_s + tile_elems<D>();
+  bf16* k_s = g_s + tile_elems<D>();       // two buffers
+  bf16* v_s = k_s + 2 * tile_elems<D>();   // two buffers
+  float* bias_s = reinterpret_cast<float*>(v_s + 2 * tile_elems<D>());  // two rows of 64
 
-  const int tile = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int hd = a.num_heads * kHeadDim;
+  const Block<D> blk;
+  const int h = blk.h, b = blk.b;
+  const int hd = a.num_heads * D;
   const int warp = threadIdx.x >> 5, t = threadIdx.x & 3;
-  const int row0 = tile * kTile;
+  const int row0 = blk.tile * kTile;
 
-  const bf16* kb = a.k + size_t(b) * a.lk * hd + h * kHeadDim;
-  const bf16* vb = a.v + size_t(b) * a.lk * hd + h * kHeadDim;
+  const bf16* kb = a.k + size_t(b) * a.lk * hd + h * D;
+  const bf16* vb = a.v + size_t(b) * a.lk * hd + h * D;
   const float* mask_b = a.mask + size_t(b) * a.lk;
   const int n_chunks = (a.lk + kTile - 1) / kTile;
   const int n_items = 2 * n_chunks;  // sweep 0 then sweep 1
@@ -334,19 +374,19 @@ __global__ void __launch_bounds__(kThreads) dq_streaming_kernel(const Args a) {
   auto load_item = [&](int it) {
     const int buf = it & 1;
     const int key0 = (it >= n_chunks ? it - n_chunks : it) * kTile;
-    stage_tile(k_s + buf * kTileElems, kb + size_t(key0) * hd, a.lk - key0, hd);
-    stage_tile(v_s + buf * kTileElems, vb + size_t(key0) * hd, a.lk - key0, hd);
+    stage_tile<D>(k_s + buf * tile_elems<D>(), kb + size_t(key0) * hd, a.lk - key0, hd);
+    stage_tile<D>(v_s + buf * tile_elems<D>(), vb + size_t(key0) * hd, a.lk - key0, hd);
     stage_bias(bias_s + buf * kTile, mask_b, key0, a.lk);
     cp_async_commit();
   };
 
-  const size_t tile_off = (size_t(b) * a.lq + row0) * hd + h * kHeadDim;
-  stage_tile(q_s, a.q + tile_off, a.lq - row0, hd);
-  stage_tile(g_s, a.go + tile_off, a.lq - row0, hd);
+  const size_t tile_off = (size_t(b) * a.lq + row0) * hd + h * D;
+  stage_tile<D>(q_s, a.q + tile_off, a.lq - row0, hd);
+  stage_tile<D>(g_s, a.go + tile_off, a.lq - row0, hd);
   load_item(0);  // one group with the Q and g tiles
-  const Lane ln(a, b, h, row0);
+  const Lane<D> ln(a, b, h, row0);
 
-  uint32_t qa[4][4], ga[4][4];
+  uint32_t qa[D / 16][4], ga[D / 16][4];
   float m[2] = {-FLT_MAX, -FLT_MAX};
   float l[2] = {0.0f, 0.0f}, dsum[2] = {0.0f, 0.0f};
   float inv_l[2] = {0.0f, 0.0f}, delta[2] = {0.0f, 0.0f};
@@ -363,21 +403,21 @@ __global__ void __launch_bounds__(kThreads) dq_streaming_kernel(const Args a) {
     }
     __syncthreads();
     if (it == 0) {
-      load_a(qa, q_s + warp * 16 * kStride);
-      load_a(ga, g_s + warp * 16 * kStride);
+      load_a<D>(qa, q_s + warp * 16 * stride_of<D>());
+      load_a<D>(ga, g_s + warp * 16 * stride_of<D>());
     }
     const int buf = it & 1;
     const bool second = it >= n_chunks;
     const int key0 = (second ? it - n_chunks : it) * kTile;
-    const bf16* kc = k_s + buf * kTileElems;
+    const bf16* kc = k_s + buf * tile_elems<D>();
     const Chunk ch{ln.geo.answer_bits(key0 + 2 * t), bias_s + buf * kTile, key0};
 
     float s[8][4], dp[8][4];
     float cmax[2] = {-FLT_MAX, -FLT_MAX};
     zero(s);
     zero(dp);
-    product_nt(s, qa, kc);
-    product_nt(dp, ga, v_s + buf * kTileElems);
+    product_nt<D>(s, qa, kc);
+    product_nt<D>(dp, ga, v_s + buf * tile_elems<D>());
     ch.mask_and_max(s, dp, cmax, a, ln);
 
     if (!second) {
@@ -404,39 +444,41 @@ __global__ void __launch_bounds__(kThreads) dq_streaming_kernel(const Args a) {
       ch.ds_raw(s, dp, m, inv_l, delta, dw0, dw1, a, ln);
       uint32_t da[4][4];
       pack_a(da, s);
-      product_nn(acc, da, kc);
+      product_nn<D>(acc, da, kc + blk.half * 64);
     }
     __syncthreads();  // the buffer is refilled by the load after next
   }
-  finish_dq(a, ln, b, h, tile, q_s + warp * 16 * kStride, acc, m, inv_l, delta, dw0, dw1);
+  finish_dq(a, ln, blk, q_s + warp * 16 * stride_of<D>(), acc, m, inv_l, delta, dw0, dw1);
 }
 
 // dk/dv pass, per 64 keys: one sweep over the Q and g chunks and the rows'
 // statistics through two buffers.
+template <int D>
 __global__ void __launch_bounds__(kThreads) dkv_kernel(const Args a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* k_s = reinterpret_cast<bf16*>(smem_raw);
-  bf16* v_s = k_s + kTileElems;
-  bf16* q_s = v_s + kTileElems;       // two buffers
-  bf16* g_s = q_s + 2 * kTileElems;   // two buffers
-  float4* st_s = reinterpret_cast<float4*>(g_s + 2 * kTileElems);  // two blocks of 64 rows
+  bf16* v_s = k_s + tile_elems<D>();
+  bf16* q_s = v_s + tile_elems<D>();       // two buffers
+  bf16* g_s = q_s + 2 * tile_elems<D>();   // two buffers
+  float4* st_s = reinterpret_cast<float4*>(g_s + 2 * tile_elems<D>());  // two blocks of 64 rows
 
-  const int tile = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int hd = a.num_heads * kHeadDim;
+  const Block<D> blk;
+  const int h = blk.h, b = blk.b;
+  const int hd = a.num_heads * D;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;
-  const int key0 = tile * kTile;
+  const int key0 = blk.tile * kTile;
 
-  const bf16* qb = a.q + size_t(b) * a.lq * hd + h * kHeadDim;
-  const bf16* gb = a.go + size_t(b) * a.lq * hd + h * kHeadDim;
+  const bf16* qb = a.q + size_t(b) * a.lq * hd + h * D;
+  const bf16* gb = a.go + size_t(b) * a.lq * hd + h * D;
   const float4* st_b = reinterpret_cast<const float4*>(a.stats) +
                        (size_t(b) * a.num_heads + h) * a.lq;
   const int n_chunks = (a.lq + kTile - 1) / kTile;
 
   auto load_item = [&](int it) {
     const int buf = it & 1, r0 = it * kTile;
-    stage_tile(q_s + buf * kTileElems, qb + size_t(r0) * hd, a.lq - r0, hd);
-    stage_tile(g_s + buf * kTileElems, gb + size_t(r0) * hd, a.lq - r0, hd);
+    stage_tile<D>(q_s + buf * tile_elems<D>(), qb + size_t(r0) * hd, a.lq - r0, hd);
+    stage_tile<D>(g_s + buf * tile_elems<D>(), gb + size_t(r0) * hd, a.lq - r0, hd);
     if (threadIdx.x < kTile) {  // zeros beyond Lq: 1 / l = 0, so p = 0 there
       const bool valid = r0 + threadIdx.x < a.lq;
       cp_async_16(st_s + buf * kTile + threadIdx.x, st_b + (valid ? r0 + threadIdx.x : 0),
@@ -445,15 +487,15 @@ __global__ void __launch_bounds__(kThreads) dkv_kernel(const Args a) {
     cp_async_commit();
   };
 
-  const size_t tile_off = (size_t(b) * a.lk + key0) * hd + h * kHeadDim;
-  stage_tile(k_s, a.k + tile_off, a.lk - key0, hd);
-  stage_tile(v_s, a.v + tile_off, a.lk - key0, hd);
+  const size_t tile_off = (size_t(b) * a.lk + key0) * hd + h * D;
+  stage_tile<D>(k_s, a.k + tile_off, a.lk - key0, hd);
+  stage_tile<D>(v_s, a.v + tile_off, a.lk - key0, hd);
   load_item(0);  // one group with the K and V tiles
 
   const Geometry geo =
       load_geometry(a.has_geometry, a.row_start, a.text_len, a.offset, a.boundary, a.w, b);
   const uint32_t seed_mix = (a.seed + uint32_t(b * a.num_heads + h)) * 0x9E3779B9u;
-  const float c_plain = a.scale;
+  const ScoreRule<D> rule(a.scale, a.has_geometry);
   const int key_g = key0 + warp * 16 + g;  // this lane's keys: key_g and key_g + 8
   bool key_answer[2];
   float bias[2];
@@ -477,8 +519,8 @@ __global__ void __launch_bounds__(kThreads) dkv_kernel(const Args a) {
     }
     __syncthreads();
     const int buf = it & 1, r0 = it * kTile;
-    const bf16* qc = q_s + buf * kTileElems;
-    const bf16* gc = g_s + buf * kTileElems;
+    const bf16* qc = q_s + buf * tile_elems<D>();
+    const bf16* gc = g_s + buf * tile_elems<D>();
     const float4* st = st_s + buf * kTile;
 
     // S^T = K Q^T: P (kept in pt) and P_cast^T; dv += P_cast^T g. keep_bits
@@ -486,11 +528,11 @@ __global__ void __launch_bounds__(kThreads) dkv_kernel(const Args a) {
     float pt[8][4];
     uint32_t keep_bits = 0u;
     {
-      uint32_t ka[4][4], pa[4][4];  // K's fragments are reloaded a chunk: registers
+      uint32_t ka[D / 16][4], pa[4][4];  // K's fragments are reloaded a chunk: registers
       float pc[8][4];
-      load_a(ka, k_s + warp * 16 * kStride);
+      load_a<D>(ka, k_s + warp * 16 * stride_of<D>());
       zero(pt);
-      product_nt(pt, ka, qc);
+      product_nt<D>(pt, ka, qc);
 #pragma unroll
       for (int nt = 0; nt < 8; ++nt) {
 #pragma unroll
@@ -498,8 +540,8 @@ __global__ void __launch_bounds__(kThreads) dkv_kernel(const Args a) {
           const int r = e >> 1, il = nt * 8 + 2 * t + (e & 1);
           // m, 1 / l, delta, multiplier of query row r0 + il
           const float4 row = st[il];
-          const float c = key_answer[r] ? c_plain * row.w : c_plain;
-          const float p = exp_minus_max(fmaf(pt[nt][e], c, bias[r]), row.x) * row.y;
+          const float c = key_answer[r] ? rule.c_answer(row.w) : rule.c_plain;
+          const float p = exp_minus_max(rule.score(pt[nt][e], c, bias[r]), row.x) * row.y;
           float p_drop = p;
           if (a.dropout) {
             const uint32_t idx =
@@ -513,16 +555,16 @@ __global__ void __launch_bounds__(kThreads) dkv_kernel(const Args a) {
         }
       }
       pack_a(pa, pc);
-      product_nn(dv_acc, pa, gc);
+      product_nn<D>(dv_acc, pa, gc + blk.half * 64);
     }
 
     // dP^T = V g^T: dS_raw^T; dk += dS_raw^T Q
     {
-      uint32_t va[4][4];
+      uint32_t va[D / 16][4];
       float dpt[8][4];
-      load_a(va, v_s + warp * 16 * kStride);
+      load_a<D>(va, v_s + warp * 16 * stride_of<D>());
       zero(dpt);
-      product_nt(dpt, va, gc);
+      product_nt<D>(dpt, va, gc);
 #pragma unroll
       for (int nt = 0; nt < 8; ++nt) {
 #pragma unroll
@@ -532,21 +574,42 @@ __global__ void __launch_bounds__(kThreads) dkv_kernel(const Args a) {
           float dp = dpt[nt][e];
           if (a.dropout) dp = (keep_bits >> (nt * 4 + e)) & 1u ? dp * a.inv_keep : 0.0f;
           const float ds = pt[nt][e] * (dp - row.z);
-          dpt[nt][e] = ds * (key_answer[r] ? a.scale * row.w : a.scale);
+          dpt[nt][e] = (ds * (key_answer[r] ? row.w : 1.0f)) * a.scale;
         }
       }
       uint32_t da[4][4];
       pack_a(da, dpt);
-      product_nn(dk_acc, da, qc);
+      product_nn<D>(dk_acc, da, qc + blk.half * 64);
     }
     __syncthreads();  // the buffer is refilled by the load after next
   }
 
   const int keys_valid = a.lk - key0 - warp * 16;
-  store_rows(a.dk + tile_off + size_t(warp) * 16 * hd, hd, keys_valid,
-             k_s + warp * 16 * kStride, dk_acc);
-  store_rows(a.dv + tile_off + size_t(warp) * 16 * hd, hd, keys_valid,
-             v_s + warp * 16 * kStride, dv_acc);
+  const size_t out_off = tile_off + size_t(warp) * 16 * hd + blk.half * 64;
+  store_rows<D>(a.dk + out_off, hd, keys_valid, k_s + warp * 16 * stride_of<D>(), dk_acc);
+  store_rows<D>(a.dv + out_off, hd, keys_valid, v_s + warp * 16 * stride_of<D>(), dv_acc);
+}
+
+int launch_kernel(void (*kernel)(const Args), dim3 grid, int smem, const Args& a,
+                  cudaStream_t stream) {
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return int(err);
+  kernel<<<grid, kThreads, smem, stream>>>(a);
+  return int(cudaGetLastError());
+}
+
+template <int D>
+int launch(const Args& a, int batch, cudaStream_t s) {
+  const dim3 grid_dq((a.lq + kTile - 1) / kTile * halves_of<D>(), a.num_heads, batch);
+  void (*dq_kernel)(const Args) = dq_streaming_kernel<D>;
+  if constexpr (D == 64) {
+    if (a.lk <= kDqResidentChunks * kTile) dq_kernel = dq_resident_kernel;
+  }
+  const int err = launch_kernel(dq_kernel, grid_dq, dq_smem<D>(), a, s);
+  if (err != 0) return err;
+  const dim3 grid_dkv((a.lk + kTile - 1) / kTile * halves_of<D>(), a.num_heads, batch);
+  return launch_kernel(dkv_kernel<D>, grid_dkv, dkv_smem<D>(), a, s);
 }
 
 }  // namespace
@@ -559,16 +622,16 @@ const char* mkg_cuda_error_string(int err) {
 
 // Launches both passes on `stream` without synchronising; returns
 // cudaGetLastError(). q, k, v, g, dq, dk and dv are bf16, packed (B, L,
-// heads * 64); stats is (B, heads, Lq, 4) fp32 scratch, 16-byte aligned;
-// dw_part (B, heads, ceil(Lq / 64), 2) fp32 partials of (dw0, dw1);
-// inv_keep is 1 / (1 - rate).
+// heads * head_dim), head_dim 64 or 128; stats is (B, heads, Lq, 4) fp32
+// scratch, 16-byte aligned; dw_part (B, heads, ceil(Lq / 64), 2) fp32
+// partials of (dw0, dw1); inv_keep is 1 / (1 - rate).
 int mkg_fused_attention_bwd_mma(const void* q, const void* k, const void* v, const void* g,
                                 const void* mask, const void* boundary, const void* w,
                                 void* dq, void* dk, void* dv, void* stats, void* dw_part,
-                                int batch, int lq, int lk, int num_heads, float scale,
-                                int has_geometry, int row_start, int text_len, int offset,
-                                int dropout, unsigned int threshold, float inv_keep,
-                                unsigned int seed, void* stream) {
+                                int batch, int lq, int lk, int num_heads, int head_dim,
+                                float scale, int has_geometry, int row_start, int text_len,
+                                int offset, int dropout, unsigned int threshold,
+                                float inv_keep, unsigned int seed, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Args a{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
                static_cast<const bf16*>(v), static_cast<const bf16*>(g),
@@ -577,21 +640,9 @@ int mkg_fused_attention_bwd_mma(const void* q, const void* k, const void* v, con
                static_cast<bf16*>(dv), static_cast<float*>(stats),
                static_cast<float*>(dw_part), lq, lk, num_heads, scale, has_geometry,
                row_start, text_len, offset, dropout, threshold, inv_keep, seed};
-  const bool resident = lk <= kDqResidentChunks * kTile;
-  auto dq_kernel = resident ? dq_resident_kernel : dq_streaming_kernel;
-  cudaError_t err = cudaFuncSetAttribute(dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         kDqSmem);
-  if (err != cudaSuccess) return int(err);
-  err = cudaFuncSetAttribute(dkv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             kDkvSmem);
-  if (err != cudaSuccess) return int(err);
-  const dim3 grid_dq((lq + kTile - 1) / kTile, num_heads, batch);
-  dq_kernel<<<grid_dq, kThreads, kDqSmem, s>>>(a);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return int(err);
-  const dim3 grid_dkv((lk + kTile - 1) / kTile, num_heads, batch);
-  dkv_kernel<<<grid_dkv, kThreads, kDkvSmem, s>>>(a);
-  return int(cudaGetLastError());
+  if (head_dim == 64) return launch<64>(a, batch, s);
+  if (head_dim == 128) return launch<128>(a, batch, s);
+  return int(cudaErrorInvalidValue);
 }
 
 }  // extern "C"

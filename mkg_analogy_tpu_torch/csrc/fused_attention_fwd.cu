@@ -5,8 +5,10 @@
 //
 //   out = softmax(scale * Q K^T (*) analogy multiplier + (1 - mask) * -1e4) V
 //
-// per (batch row, head), on the packed (B, L, heads * 64) layout that the
-// projection GEMMs produce, for input and output. Scores and softmax are in
+// per (batch row, head), on the packed (B, L, heads * D) layout that the
+// projection GEMMs produce, for input and output; D, the head width, is 64
+// (BERT-base, ViT-B) or 128 (ViLBERT's visual stream), each its own
+// instantiation. Scores and softmax are in
 // fp32; the probabilities are rounded to the compute dtype (the dtype of
 // q/k/v) before the product with V, which accumulates in fp32. The analogy
 // multiplier is computed inline from (row, col, boundary[b]) with the
@@ -39,9 +41,15 @@
 // wgmma or TMA yet): a simple kernel that is right first.
 //
 // Whole K/V slices in shared memory bound Lk: with the H100's 227 KB per
-// block, up to 717 keys in bf16 and 400 in fp32 (the wrapper checks
-// mkg_fused_attention_fwd_smem against the device and raises above it;
-// longer keys are the flash kernels' work). head_dim is fixed at 64.
+// block, up to 717 keys in bf16 and 400 in fp32 at D = 64, 400 and 212 at
+// D = 128 (the wrapper checks mkg_fused_attention_fwd_smem against the
+// device and raises above it). At D = 128 a lane accumulates four output
+// columns, 2l, 2l + 1 of each 64-column half.
+//
+// The score is rounded as the plain version rounds it
+// (kernels/attention.py:_score): fmaf(acc, scale, bias) without a geometry,
+// fmaf(acc * scale, w or 1, bias) with one, acc * scale rounded first. At
+// D = 64 (scale 2^-3) the two agree; at D = 128 (2^-3.5) they do not.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -50,7 +58,6 @@
 
 namespace {
 
-constexpr int kHeadDim = 64;
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
 constexpr int kRowsPerBlock = 64;
@@ -115,17 +122,24 @@ __device__ __forceinline__ bool dropout_keep(uint32_t idx, uint32_t seed_mix,
   return x >= threshold;
 }
 
-template <typename T>
+// The score of an fp32 product sum, as the plain version rounds it.
+__device__ __forceinline__ float score(float acc, float scale, int has_geometry, bool region,
+                                       float w, float bias) {
+  return has_geometry ? fmaf(__fmul_rn(acc, scale), region ? w : 1.0f, bias)
+                      : fmaf(acc, scale, bias);
+}
+
+template <typename T, int D>
 struct Layout {
   static constexpr int kChunk = 16 / sizeof(T);              // elements per 16 B
-  static constexpr int kStride = kHeadDim + kChunk;          // padded smem row
+  static constexpr int kStride = D + kChunk;                 // padded smem row
   static size_t smem_bytes(int lk) {
     const size_t lk4 = (lk + 3) & ~3;
     return 2 * size_t(lk) * kStride * sizeof(T) + lk4 * sizeof(float) * (1 + kWarps);
   }
 };
 
-template <typename T>
+template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
 fused_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                            const T* __restrict__ v, const float* __restrict__ mask,
@@ -135,8 +149,8 @@ fused_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                            int has_geometry, int row_start, int text_len, int offset,
                            int dropout, uint32_t threshold, float keep_div,
                            uint32_t seed) {
-  constexpr int kChunk = Layout<T>::kChunk;
-  constexpr int kStride = Layout<T>::kStride;
+  constexpr int kChunk = Layout<T, D>::kChunk;
+  constexpr int kStride = Layout<T, D>::kStride;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* ks = reinterpret_cast<T*>(smem_raw);
   T* vs = ks + size_t(lk) * kStride;
@@ -144,14 +158,14 @@ fused_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int lk4 = (lk + 3) & ~3;
 
   const int tile = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int hd = num_heads * kHeadDim;
+  const int hd = num_heads * D;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   float* srow = bias_s + lk4 * (1 + warp);
 
   // Stage this head's K and V slices and the padding bias row.
-  const T* kb = k + size_t(b) * lk * hd + h * kHeadDim;
-  const T* vb = v + size_t(b) * lk * hd + h * kHeadDim;
-  constexpr int kChunksPerRow = kHeadDim / kChunk;
+  const T* kb = k + size_t(b) * lk * hd + h * D;
+  const T* vb = v + size_t(b) * lk * hd + h * D;
+  constexpr int kChunksPerRow = D / kChunk;
   for (int i = threadIdx.x; i < lk * kChunksPerRow; i += kThreads) {
     const int j = i / kChunksPerRow, c = (i % kChunksPerRow) * kChunk;
     *reinterpret_cast<uint4*>(ks + j * kStride + c) =
@@ -172,10 +186,10 @@ fused_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   for (int r = tile * kRowsPerBlock + warp; r < r_end; r += kWarps) {
     // The query row, in registers, in every lane.
-    const T* qr = q + (size_t(b) * lq + r) * hd + h * kHeadDim;
-    float qf[kHeadDim];
+    const T* qr = q + (size_t(b) * lq + r) * hd + h * D;
+    float qf[D];
 #pragma unroll
-    for (int c = 0; c < kHeadDim; c += kChunk) load_chunk(qr + c, qf + c);
+    for (int c = 0; c < D; c += kChunk) load_chunk(qr + c, qf + c);
 
     // Row half of the analogy geometry (attention.py:_geometry_planes).
     bool row_in_scope = false;
@@ -192,16 +206,14 @@ fused_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const T* kr = ks + j * kStride;
       float acc = 0.0f;
 #pragma unroll
-      for (int c = 0; c < kHeadDim; c += kChunk) {
+      for (int c = 0; c < D; c += kChunk) {
         float kf[kChunk];
         load_chunk(kr + c, kf);
 #pragma unroll
         for (int i = 0; i < kChunk; ++i) acc = fmaf(qf[c + i], kf[i], acc);
       }
-      // one FMA, as the plain version rounds the score
-      // (kernels/attention.py:_score); acc * scale is exact (scale 2^-3)
       const bool region = row_in_scope && j >= bnd && j < text_len;
-      const float s = fmaf(__fmul_rn(acc, scale), region ? row_w : 1.0f, bias_s[j]);
+      const float s = score(acc, scale, has_geometry, region, row_w, bias_s[j]);
       srow[j] = s;
       mx = fmaxf(mx, s);
     }
@@ -224,33 +236,36 @@ fused_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
     __syncwarp();
 
-    float a0 = 0.0f, a1 = 0.0f;
-    const T* vcol = vs + 2 * lane;
+#pragma unroll
+    for (int c0 = 0; c0 < D; c0 += 64) {
+      float a0 = 0.0f, a1 = 0.0f;
+      const T* vcol = vs + c0 + 2 * lane;
 #pragma unroll 4
-    for (int j = 0; j < lk; ++j) {
-      const float p = srow[j];
-      const float2 vv = load_pair(vcol + j * kStride);
-      a0 = fmaf(p, vv.x, a0);
-      a1 = fmaf(p, vv.y, a1);
+      for (int j = 0; j < lk; ++j) {
+        const float p = srow[j];
+        const float2 vv = load_pair(vcol + j * kStride);
+        a0 = fmaf(p, vv.x, a0);
+        a1 = fmaf(p, vv.y, a1);
+      }
+      store_pair(out + (size_t(b) * lq + r) * hd + h * D + c0 + 2 * lane, a0, a1);
     }
-    store_pair(out + (size_t(b) * lq + r) * hd + h * kHeadDim + 2 * lane, a0, a1);
     __syncwarp();  // srow is rewritten by this warp's next row
   }
 }
 
-template <typename T>
+template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, const void* mask,
            const void* boundary, const void* w, void* out, int batch, int lq,
            int lk, int num_heads, float scale, int has_geometry, int row_start,
            int text_len, int offset, int dropout, uint32_t threshold,
            float keep_div, uint32_t seed, cudaStream_t stream) {
-  const size_t smem = Layout<T>::smem_bytes(lk);
-  cudaError_t err = cudaFuncSetAttribute(fused_attention_fwd_kernel<T>,
+  const size_t smem = Layout<T, D>::smem_bytes(lk);
+  cudaError_t err = cudaFuncSetAttribute(fused_attention_fwd_kernel<T, D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          int(smem));
   if (err != cudaSuccess) return int(err);
   const dim3 grid((lq + kRowsPerBlock - 1) / kRowsPerBlock, num_heads, batch);
-  fused_attention_fwd_kernel<T><<<grid, kThreads, smem, stream>>>(
+  fused_attention_fwd_kernel<T, D><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const float*>(mask), static_cast<const int*>(boundary),
       static_cast<const float*>(w), static_cast<T*>(out), lq, lk, num_heads, scale,
@@ -267,28 +282,38 @@ const char* mkg_cuda_error_string(int err) {
 }
 
 // Dynamic shared memory one block needs for Lk keys (the wrapper holds it
-// against the device's opt-in limit before launching).
-size_t mkg_fused_attention_fwd_smem(int lk, int is_bf16) {
-  return is_bf16 ? Layout<__nv_bfloat16>::smem_bytes(lk) : Layout<float>::smem_bytes(lk);
+// against the device's opt-in limit before launching); 0 for a head width
+// the kernel does not take.
+size_t mkg_fused_attention_fwd_smem(int lk, int is_bf16, int head_dim) {
+  if (head_dim == 64) {
+    return is_bf16 ? Layout<__nv_bfloat16, 64>::smem_bytes(lk) : Layout<float, 64>::smem_bytes(lk);
+  }
+  if (head_dim == 128) {
+    return is_bf16 ? Layout<__nv_bfloat16, 128>::smem_bytes(lk)
+                   : Layout<float, 128>::smem_bytes(lk);
+  }
+  return 0;
 }
 
 // Launches on `stream` without synchronising; returns cudaGetLastError().
+// head_dim is 64 or 128.
 int mkg_fused_attention_fwd(const void* q, const void* k, const void* v,
                             const void* mask, const void* boundary, const void* w,
                             void* out, int batch, int lq, int lk, int num_heads,
-                            int is_bf16, float scale, int has_geometry, int row_start,
-                            int text_len, int offset, int dropout,
+                            int head_dim, int is_bf16, float scale, int has_geometry,
+                            int row_start, int text_len, int offset, int dropout,
                             unsigned int threshold, float keep_div, unsigned int seed,
                             void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16) {
-    return launch<__nv_bfloat16>(q, k, v, mask, boundary, w, out, batch, lq, lk,
-                                 num_heads, scale, has_geometry, row_start, text_len,
-                                 offset, dropout, threshold, keep_div, seed, s);
+  if (head_dim != 64 && head_dim != 128) return int(cudaErrorInvalidValue);
+  decltype(&launch<float, 64>) fn;
+  if (head_dim == 64) {
+    fn = is_bf16 ? &launch<__nv_bfloat16, 64> : &launch<float, 64>;
+  } else {
+    fn = is_bf16 ? &launch<__nv_bfloat16, 128> : &launch<float, 128>;
   }
-  return launch<float>(q, k, v, mask, boundary, w, out, batch, lq, lk, num_heads,
-                       scale, has_geometry, row_start, text_len, offset, dropout,
-                       threshold, keep_div, seed, s);
+  return fn(q, k, v, mask, boundary, w, out, batch, lq, lk, num_heads, scale, has_geometry,
+            row_start, text_len, offset, dropout, threshold, keep_div, seed,
+            static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

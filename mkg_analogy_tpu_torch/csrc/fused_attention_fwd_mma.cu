@@ -2,8 +2,9 @@
 //
 // Replaces the TPU kernel mkg_analogy_tpu/kernels/attention.py:_fwd_kernel
 // (launched by _fused_attention_fwd) for bf16 inputs, which every main path
-// runs. Contract, per (batch row, head), on the packed (B, L, heads * 64)
-// layout in and out:
+// runs. Contract, per (batch row, head), on the packed (B, L, heads * D)
+// layout in and out, D = 64 (BERT-base, ViT-B) or 128 (ViLBERT's visual
+// stream: 1024 wide, 8 heads), each width its own instantiation:
 //
 //   out = softmax(scale * Q K^T (*) analogy multiplier + (1 - mask) * -1e4) V
 //
@@ -25,10 +26,11 @@
 //     its first P V step. Up to 256 keys (the three MKGformer shapes, the
 //     image tool's ViT) the whole score row stays in accumulator registers
 //     (16 x Lk fp32 a warp, 32 registers a thread a chunk) and every chunk
-//     of K and V in shared memory (fwd_resident_kernel<2>: 45.5 KB a block,
-//     <4>: 82.5 KB): one Q K^T, one exponential an element. Above that
+//     of K and V in shared memory (fwd_resident_kernel<64, 2>: 45.5 KB a
+//     block, <64, 4>: 82.5 KB, <128, 2>: 69.5 KB): one Q K^T, one
+//     exponential an element. Above that
 //     (ViLT's 418) the keys are swept twice through two buffers
-//     (fwd_streaming_kernel, 45.5 KB a block whatever Lk, so several blocks
+//     (fwd_streaming_kernel<64>, 45.5 KB a block whatever Lk, so several blocks
 //     stay resident an SM): sweep 0 streams K alone and keeps each row's
 //     running max and sum, rescaled when the max moves; sweep 1 streams K
 //     and V and recomputes the same score tiles with the same instructions,
@@ -44,6 +46,13 @@
 //     the geometry and the dropout index from those coordinates. A score
 //     is one FMA from the accumulator, on the plain version's fp32 grid
 //     (attention_mma.cuh: scores).
+//   - at D = 128 a block owns 64 of its head's 128 output columns (a half,
+//     from blockIdx.x): it computes the whole score row (the depth is 128)
+//     and stages only its half of V, so the accumulators a thread holds are
+//     those of D = 64 and the score row's cost is paid twice. Up to 128
+//     keys are resident (fwd_resident_kernel<128, 2>), longer rows stream.
+//     The score keeps the plain version's two roundings where a multiplier
+//     applies (attention_mma.cuh: ScoreRule).
 // Ragged edges: rows beyond Lq are zero-filled and not stored; keys beyond
 // Lk are padding of the chunk, not masked keys: they are zero-filled, their
 // bias is -inf, so they take no part in max or sum and their probability is
@@ -58,8 +67,17 @@ namespace {
 
 constexpr int kMaxResidentKeys = 4 * kTile;
 
+// Q, NC chunks of K (D columns) and of the block's 64 columns of V, and NC
+// rows of 64 biases.
+template <int D>
 constexpr int resident_smem(int nc) {
-  return (1 + 2 * nc) * kTileBytes + nc * kTile * int(sizeof(float));
+  return (1 + nc) * tile_bytes<D>() + nc * tile_bytes<64>() + nc * kTile * int(sizeof(float));
+}
+
+// Q, two buffers of K and of V's 64 columns, two rows of biases.
+template <int D>
+constexpr int streaming_smem() {
+  return 3 * tile_bytes<D>() + 2 * tile_bytes<64>() + 2 * kTile * int(sizeof(float));
 }
 
 struct Args {
@@ -77,29 +95,31 @@ struct Args {
 };
 
 // What a lane knows of its two rows (row_g and row_g + 8 of the tile).
+template <int D>
 struct Lane {
   Geometry geo;
   uint32_t seed_mix;
   int row_g;
-  float c_plain;   // scale
-  float c_row[2];  // scale times the row's multiplier at answer columns
+  ScoreRule<D> rule;
+  float c_row[2];  // c at the rows' answer columns
 
-  __device__ __forceinline__ Lane(const Args& a, int b, int h, int row0) {
+  __device__ __forceinline__ Lane(const Args& a, int b, int h, int row0)
+      : rule(a.scale, a.has_geometry) {
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
     geo = load_geometry(a.has_geometry, a.row_start, a.text_len, a.offset, a.boundary, a.w, b);
     seed_mix = (a.seed + uint32_t(b * a.num_heads + h)) * 0x9E3779B9u;
     row_g = row0 + warp * 16 + (lane >> 2);
-    c_plain = a.scale;
-    c_row[0] = c_plain * geo.row(row_g).w;
-    c_row[1] = c_plain * geo.row(row_g + 8).w;
+    c_row[0] = rule.c_answer(geo.row(row_g).w);
+    c_row[1] = rule.c_answer(geo.row(row_g + 8).w);
   }
 };
 
 // One chunk's scores -> probabilities: normalised, dropped, in place, ready
 // for the rounding of pack_a.
+template <int D>
 __device__ __forceinline__ void probabilities(float (&s)[8][4], const float (&m)[2],
                                               const float (&inv_l)[2], const Args& a,
-                                              const Lane& ln, int key0) {
+                                              const Lane<D>& ln, int key0) {
   const int t = threadIdx.x & 3;
 #pragma unroll
   for (int nt = 0; nt < 8; ++nt) {
@@ -126,37 +146,50 @@ __device__ __forceinline__ float row_exp_sum(const float (&s)[8][4], int r, floa
   return sum;
 }
 
+// The block's coordinates: its tile of 64 query rows, its half of the head's
+// columns (always 0 at D = 64), head and batch row.
+template <int D>
+struct Block {
+  int tile, half, h, b;
+  __device__ __forceinline__ Block()
+      : tile(blockIdx.x / halves_of<D>()), half(blockIdx.x % halves_of<D>()), h(blockIdx.y),
+        b(blockIdx.z) {}
+};
+
 // Up to 64 NC keys: the score row in registers, every chunk in shared
 // memory, one sweep.
-template <int NC>
+template <int D, int NC>
 __global__ void __launch_bounds__(kThreads) fwd_resident_kernel(const Args a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* q_s = reinterpret_cast<bf16*>(smem_raw);
-  bf16* k_s = q_s + kTileElems;       // NC chunks
-  bf16* v_s = k_s + NC * kTileElems;  // NC chunks
-  float* bias_s = reinterpret_cast<float*>(v_s + NC * kTileElems);  // NC rows of 64
+  bf16* k_s = q_s + tile_elems<D>();       // NC chunks
+  bf16* v_s = k_s + NC * tile_elems<D>();  // NC chunks of the block's 64 columns
+  float* bias_s = reinterpret_cast<float*>(v_s + NC * tile_elems<64>());  // NC rows of 64
 
-  const int tile = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int hd = a.num_heads * kHeadDim;
+  const Block<D> blk;
+  const int h = blk.h, b = blk.b;
+  const int hd = a.num_heads * D;
   const int warp = threadIdx.x >> 5, t = threadIdx.x & 3;
-  const int row0 = tile * kTile;
+  const int row0 = blk.tile * kTile;
   const int n_chunks = (a.lk + kTile - 1) / kTile;  // <= NC
 
   // every load of the block, one commit group a chunk: Q with K's first
-  const bf16* kb = a.k + size_t(b) * a.lk * hd + h * kHeadDim;
-  const bf16* vb = a.v + size_t(b) * a.lk * hd + h * kHeadDim;
-  stage_tile(q_s, a.q + (size_t(b) * a.lq + row0) * hd + h * kHeadDim, a.lq - row0, hd);
+  const bf16* kb = a.k + size_t(b) * a.lk * hd + h * D;
+  const bf16* vb = a.v + size_t(b) * a.lk * hd + h * D + blk.half * 64;
+  stage_tile<D>(q_s, a.q + (size_t(b) * a.lq + row0) * hd + h * D, a.lq - row0, hd);
 #pragma unroll
   for (int c = 0; c < NC; ++c) {
     if (c < n_chunks) {
-      stage_tile(k_s + c * kTileElems, kb + size_t(c) * kTile * hd, a.lk - c * kTile, hd);
+      stage_tile<D>(k_s + c * tile_elems<D>(), kb + size_t(c) * kTile * hd, a.lk - c * kTile,
+                    hd);
     }
     cp_async_commit();
   }
 #pragma unroll
   for (int c = 0; c < NC; ++c) {
     if (c < n_chunks) {
-      stage_tile(v_s + c * kTileElems, vb + size_t(c) * kTile * hd, a.lk - c * kTile, hd);
+      stage_tile<64>(v_s + c * tile_elems<64>(), vb + size_t(c) * kTile * hd, a.lk - c * kTile,
+                     hd);
     }
     cp_async_commit();
   }
@@ -164,21 +197,21 @@ __global__ void __launch_bounds__(kThreads) fwd_resident_kernel(const Args a) {
   for (int c = 0; c < NC; ++c) {
     stage_bias(bias_s + c * kTile, a.mask + size_t(b) * a.lk, c * kTile, a.lk);
   }
-  const Lane ln(a, b, h, row0);
+  const Lane<D> ln(a, b, h, row0);
 
-  uint32_t qa[4][4];
+  uint32_t qa[D / 16][4];
   float s[NC][8][4];
   float m[2] = {-FLT_MAX, -FLT_MAX};
 #pragma unroll
   for (int c = 0; c < NC; ++c) {
     cp_async_wait_pending(2 * NC - 1 - c);
     __syncthreads();
-    if (c == 0) load_a(qa, q_s + warp * 16 * kStride);
+    if (c == 0) load_a<D>(qa, q_s + warp * 16 * stride_of<D>());
     if (c < n_chunks) {
       zero(s[c]);
-      product_nt(s[c], qa, k_s + c * kTileElems);
-      scores(s[c], ln.geo.answer_bits(c * kTile + 2 * t), ln.c_plain, ln.c_row,
-                  bias_s + c * kTile, m);
+      product_nt<D>(s[c], qa, k_s + c * tile_elems<D>());
+      scores<D>(s[c], ln.geo.answer_bits(c * kTile + 2 * t), ln.rule.c_plain, ln.c_row,
+                bias_s + c * kTile, m, ln.rule.pre);
     }
   }
   float inv_l[2];
@@ -203,27 +236,30 @@ __global__ void __launch_bounds__(kThreads) fwd_resident_kernel(const Args a) {
       probabilities(s[c], m, inv_l, a, ln, c * kTile);
       uint32_t pa[4][4];
       pack_a(pa, s[c]);
-      product_nn(o, pa, v_s + c * kTileElems);
+      product_nn<64>(o, pa, v_s + c * tile_elems<64>());
     }
   }
-  store_rows(a.out + (size_t(b) * a.lq + row0 + warp * 16) * hd + h * kHeadDim, hd,
-             a.lq - row0 - warp * 16, q_s + warp * 16 * kStride, o);
+  store_rows<D>(a.out + (size_t(b) * a.lq + row0 + warp * 16) * hd + h * D + blk.half * 64, hd,
+                a.lq - row0 - warp * 16, q_s + warp * 16 * stride_of<D>(), o);
 }
 
 // Any Lk: two sweeps over the keys through two buffers.
+template <int D>
 __global__ void __launch_bounds__(kThreads) fwd_streaming_kernel(const Args a) {
-  __shared__ __align__(16) bf16 q_s[kTileElems];
-  __shared__ __align__(16) bf16 k_s[2][kTileElems];
-  __shared__ __align__(16) bf16 v_s[2][kTileElems];
-  __shared__ __align__(8) float bias_s[2][kTile];
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* q_s = reinterpret_cast<bf16*>(smem_raw);
+  bf16* k_s = q_s + tile_elems<D>();       // two buffers
+  bf16* v_s = k_s + 2 * tile_elems<D>();   // two buffers of the block's 64 columns
+  float* bias_s = reinterpret_cast<float*>(v_s + 2 * tile_elems<64>());  // two rows of 64
 
-  const int tile = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int hd = a.num_heads * kHeadDim;
+  const Block<D> blk;
+  const int h = blk.h, b = blk.b;
+  const int hd = a.num_heads * D;
   const int warp = threadIdx.x >> 5, t = threadIdx.x & 3;
-  const int row0 = tile * kTile;
+  const int row0 = blk.tile * kTile;
 
-  const bf16* kb = a.k + size_t(b) * a.lk * hd + h * kHeadDim;
-  const bf16* vb = a.v + size_t(b) * a.lk * hd + h * kHeadDim;
+  const bf16* kb = a.k + size_t(b) * a.lk * hd + h * D;
+  const bf16* vb = a.v + size_t(b) * a.lk * hd + h * D + blk.half * 64;
   const float* mask_b = a.mask + size_t(b) * a.lk;
   const int n_chunks = (a.lk + kTile - 1) / kTile;
   const int n_items = 2 * n_chunks;  // sweep 0 then sweep 1
@@ -231,17 +267,19 @@ __global__ void __launch_bounds__(kThreads) fwd_streaming_kernel(const Args a) {
   auto load_item = [&](int it) {
     const int buf = it & 1;
     const int key0 = (it >= n_chunks ? it - n_chunks : it) * kTile;
-    stage_tile(k_s[buf], kb + size_t(key0) * hd, a.lk - key0, hd);
-    if (it >= n_chunks) stage_tile(v_s[buf], vb + size_t(key0) * hd, a.lk - key0, hd);
-    stage_bias(bias_s[buf], mask_b, key0, a.lk);
+    stage_tile<D>(k_s + buf * tile_elems<D>(), kb + size_t(key0) * hd, a.lk - key0, hd);
+    if (it >= n_chunks) {
+      stage_tile<64>(v_s + buf * tile_elems<64>(), vb + size_t(key0) * hd, a.lk - key0, hd);
+    }
+    stage_bias(bias_s + buf * kTile, mask_b, key0, a.lk);
     cp_async_commit();
   };
 
-  stage_tile(q_s, a.q + (size_t(b) * a.lq + row0) * hd + h * kHeadDim, a.lq - row0, hd);
+  stage_tile<D>(q_s, a.q + (size_t(b) * a.lq + row0) * hd + h * D, a.lq - row0, hd);
   load_item(0);  // one group with the Q tile
-  const Lane ln(a, b, h, row0);
+  const Lane<D> ln(a, b, h, row0);
 
-  uint32_t qa[4][4];
+  uint32_t qa[D / 16][4];
   float m[2] = {-FLT_MAX, -FLT_MAX};
   float l[2] = {0.0f, 0.0f}, inv_l[2] = {0.0f, 0.0f};
   float o[8][4];
@@ -255,7 +293,7 @@ __global__ void __launch_bounds__(kThreads) fwd_streaming_kernel(const Args a) {
       cp_async_wait<0>();
     }
     __syncthreads();
-    if (it == 0) load_a(qa, q_s + warp * 16 * kStride);
+    if (it == 0) load_a<D>(qa, q_s + warp * 16 * stride_of<D>());
     const int buf = it & 1;
     const bool second = it >= n_chunks;
     const int key0 = (second ? it - n_chunks : it) * kTile;
@@ -263,8 +301,9 @@ __global__ void __launch_bounds__(kThreads) fwd_streaming_kernel(const Args a) {
     float s[8][4];
     float cmax[2] = {-FLT_MAX, -FLT_MAX};
     zero(s);
-    product_nt(s, qa, k_s[buf]);
-    scores(s, ln.geo.answer_bits(key0 + 2 * t), ln.c_plain, ln.c_row, bias_s[buf], cmax);
+    product_nt<D>(s, qa, k_s + buf * tile_elems<D>());
+    scores<D>(s, ln.geo.answer_bits(key0 + 2 * t), ln.rule.c_plain, ln.c_row,
+              bias_s + buf * kTile, cmax, ln.rule.pre);
 
     if (!second) {
       // sweep 0: running max and sum of each row (a lane's share of the sum)
@@ -283,22 +322,36 @@ __global__ void __launch_bounds__(kThreads) fwd_streaming_kernel(const Args a) {
       probabilities(s, m, inv_l, a, ln, key0);
       uint32_t pa[4][4];
       pack_a(pa, s);
-      product_nn(o, pa, v_s[buf]);
+      product_nn<64>(o, pa, v_s + buf * tile_elems<64>());
     }
     __syncthreads();  // the buffer is refilled by the load after next
   }
-  store_rows(a.out + (size_t(b) * a.lq + row0 + warp * 16) * hd + h * kHeadDim, hd,
-             a.lq - row0 - warp * 16, q_s + warp * 16 * kStride, o);
+  store_rows<D>(a.out + (size_t(b) * a.lq + row0 + warp * 16) * hd + h * D + blk.half * 64, hd,
+                a.lq - row0 - warp * 16, q_s + warp * 16 * stride_of<D>(), o);
 }
 
-template <int NC>
-int launch_resident(const Args& a, dim3 grid, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(fwd_resident_kernel<NC>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         resident_smem(NC));
+int launch_kernel(void (*kernel)(const Args), dim3 grid, int smem, const Args& a,
+                  cudaStream_t stream) {
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return int(err);
-  fwd_resident_kernel<NC><<<grid, kThreads, resident_smem(NC), stream>>>(a);
+  kernel<<<grid, kThreads, smem, stream>>>(a);
   return int(cudaGetLastError());
+}
+
+template <int D>
+int launch(const Args& a, int batch, cudaStream_t s) {
+  const dim3 grid((a.lq + kTile - 1) / kTile * halves_of<D>(), a.num_heads, batch);
+  if (a.lk <= 2 * kTile) {
+    return launch_kernel(fwd_resident_kernel<D, 2>, grid, resident_smem<D>(2), a, s);
+  }
+  if constexpr (D == 64) {
+    // a 16 x 256 score row and 128 head columns of Q fragments would spill
+    if (a.lk <= kMaxResidentKeys) {
+      return launch_kernel(fwd_resident_kernel<D, 4>, grid, resident_smem<D>(4), a, s);
+    }
+  }
+  return launch_kernel(fwd_streaming_kernel<D>, grid, streaming_smem<D>(), a, s);
 }
 
 }  // namespace
@@ -310,25 +363,23 @@ const char* mkg_cuda_error_string(int err) {
 }
 
 // Launches on `stream` without synchronising; returns cudaGetLastError().
-// q, k, v and out are bf16, packed (B, L, heads * 64); inv_keep is
-// 1 / (1 - rate).
+// q, k, v and out are bf16, packed (B, L, heads * head_dim), head_dim 64 or
+// 128; inv_keep is 1 / (1 - rate).
 int mkg_fused_attention_fwd_mma(const void* q, const void* k, const void* v, const void* mask,
                                 const void* boundary, const void* w, void* out, int batch,
-                                int lq, int lk, int num_heads, float scale, int has_geometry,
-                                int row_start, int text_len, int offset, int dropout,
-                                unsigned int threshold, float inv_keep, unsigned int seed,
-                                void* stream) {
+                                int lq, int lk, int num_heads, int head_dim, float scale,
+                                int has_geometry, int row_start, int text_len, int offset,
+                                int dropout, unsigned int threshold, float inv_keep,
+                                unsigned int seed, void* stream) {
   const Args a{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
                static_cast<const bf16*>(v), static_cast<const float*>(mask),
                static_cast<const int*>(boundary), static_cast<const float*>(w),
                static_cast<bf16*>(out), lq, lk, num_heads, scale, has_geometry, row_start,
                text_len, offset, dropout, threshold, inv_keep, seed};
-  const dim3 grid((lq + kTile - 1) / kTile, num_heads, batch);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (lk <= 2 * kTile) return launch_resident<2>(a, grid, s);
-  if (lk <= kMaxResidentKeys) return launch_resident<4>(a, grid, s);
-  fwd_streaming_kernel<<<grid, kThreads, 0, s>>>(a);
-  return int(cudaGetLastError());
+  if (head_dim == 64) return launch<64>(a, batch, s);
+  if (head_dim == 128) return launch<128>(a, batch, s);
+  return int(cudaErrorInvalidValue);
 }
 
 }  // extern "C"

@@ -30,8 +30,13 @@ to the compute dtype before the product with V, on the packed
   ``_bwd_kernel`` written out, with its cast points, not autograd through the
   forward. The CPU tests hold both to the JAX kernels in interpret mode, and
   ``chip_smoke.py`` holds the CUDA kernels to them on the card.
+- The kernels take head_dim 64 (BERT-base, ViT-B) and 128 (ViLBERT's
+  visual stream, 1024 wide with 8 heads): each CUDA library exports both
+  instantiations, and the launchers pass the width of the call
+  (``hd // num_heads``); any other width raises.
 - ``LAUNCHES`` and ``LAUNCHES_BWD`` count kernel launches, so a run can show
-  that its main path went through the kernels.
+  that its main path went through the kernels; ``LAUNCHES_D128`` and
+  ``LAUNCHES_BWD_D128`` count the head_dim-128 ones among them.
 
 Dropout masks come from the counter hash of the JAX kernel's interpret mode
 (``_dropout_keep``: lowbias32 on ``row * Lk + col`` xor ``seed *
@@ -53,16 +58,19 @@ import torch
 from . import build
 
 NEG_BIAS = -10000.0  # reference padding bias (modeling_unimo.py:56)
-HEAD_DIM = 64        # the kernels' head width (BERT-base and ViT-B/32)
+HEAD_DIMS = (64, 128)  # the kernels' head widths (BERT-base, ViT-B; ViLBERT's visual stream)
 ROWS_PER_BLOCK = 64  # query rows per block of every kernel (csrc kRowsPerBlock, kTile)
-# The single-block route's longest bf16 key sequence. The CUDA-core kernels'
-# shared memory set it; the tensor-core kernels stream their keys in chunks
-# and have no such limit of their own, but each 64-row tile walks every key
-# twice, and the set of calls the route accepts stays what it was: longer
-# sequences are the flash kernels' work.
-MAX_KEYS_BF16 = 717
+# The single-block route's longest bf16 key sequence at each head width. The
+# CUDA-core kernels' shared memory set it (K and V of Lk keys a block); the
+# tensor-core kernels stream their keys in chunks and have no such limit of
+# their own, but each 64-row tile walks every key twice, and the set of calls
+# the route accepts stays what it was: longer sequences are the flash
+# kernels' work at head_dim 64, and no kernel's yet at 128.
+MAX_KEYS_BF16 = {64: 717, 128: 400}
 LAUNCHES = 0         # forward kernel launches since import (or a caller's reset)
 LAUNCHES_BWD = 0     # backward kernel launches, likewise
+LAUNCHES_D128 = 0    # the head_dim-128 forward launches among LAUNCHES
+LAUNCHES_BWD_D128 = 0  # the head_dim-128 backward launches among LAUNCHES_BWD
 
 _M32 = 0xFFFFFFFF
 
@@ -313,14 +321,14 @@ def _lib() -> ctypes.CDLL:
     p, i, f, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint
     lib.mkg_fused_attention_fwd.argtypes = [
         p, p, p, p, p, p, p,        # q k v mask boundary w out
-        i, i, i, i, i,              # batch lq lk num_heads is_bf16
+        i, i, i, i, i, i,           # batch lq lk num_heads head_dim is_bf16
         f,                          # scale
         i, i, i, i,                 # has_geometry row_start text_len offset
         i, u, f, u,                 # dropout threshold keep_div seed
         p,                          # stream
     ]
     lib.mkg_fused_attention_fwd.restype = ctypes.c_int
-    lib.mkg_fused_attention_fwd_smem.argtypes = [i, i]
+    lib.mkg_fused_attention_fwd_smem.argtypes = [i, i, i]
     lib.mkg_fused_attention_fwd_smem.restype = ctypes.c_size_t
     lib.mkg_cuda_error_string.argtypes = [i]
     lib.mkg_cuda_error_string.restype = ctypes.c_char_p
@@ -334,14 +342,14 @@ def _lib_bwd() -> ctypes.CDLL:
     lib.mkg_fused_attention_bwd.argtypes = [
         p, p, p, p, p, p, p,        # q k v g mask boundary w
         p, p, p, p, p,              # dq dk dv stats dw_part
-        i, i, i, i, i,              # batch lq lk num_heads is_bf16
+        i, i, i, i, i, i,           # batch lq lk num_heads head_dim is_bf16
         f,                          # scale
         i, i, i, i,                 # has_geometry row_start text_len offset
         i, u, f, u,                 # dropout threshold inv_keep seed
         p,                          # stream
     ]
     lib.mkg_fused_attention_bwd.restype = ctypes.c_int
-    lib.mkg_fused_attention_bwd_smem.argtypes = [i, i, i]
+    lib.mkg_fused_attention_bwd_smem.argtypes = [i, i, i, i]
     lib.mkg_fused_attention_bwd_smem.restype = ctypes.c_size_t
     lib.mkg_cuda_error_string.argtypes = [i]
     lib.mkg_cuda_error_string.restype = ctypes.c_char_p
@@ -354,7 +362,7 @@ def _lib_mma() -> ctypes.CDLL:
     p, i, f, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint
     lib.mkg_fused_attention_fwd_mma.argtypes = [
         p, p, p, p, p, p, p,        # q k v mask boundary w out
-        i, i, i, i,                 # batch lq lk num_heads
+        i, i, i, i, i,              # batch lq lk num_heads head_dim
         f,                          # scale
         i, i, i, i,                 # has_geometry row_start text_len offset
         i, u, f, u,                 # dropout threshold inv_keep seed
@@ -373,7 +381,7 @@ def _lib_bwd_mma() -> ctypes.CDLL:
     lib.mkg_fused_attention_bwd_mma.argtypes = [
         p, p, p, p, p, p, p,        # q k v g mask boundary w
         p, p, p, p, p,              # dq dk dv stats dw_part
-        i, i, i, i,                 # batch lq lk num_heads
+        i, i, i, i, i,              # batch lq lk num_heads head_dim
         f,                          # scale
         i, i, i, i,                 # has_geometry row_start text_len offset
         i, u, f, u,                 # dropout threshold inv_keep seed
@@ -393,7 +401,8 @@ def _check_tensor(name, t, q):
                          f"(B, L, heads*d) tensor, got {tuple(t.shape)}")
 
 
-def _check_inputs(q, k, v, mask, num_heads, compute_dtype, kernel="fused_attention"):
+def _check_inputs(q, k, v, mask, num_heads, compute_dtype, kernel="fused_attention",
+                  head_dims=HEAD_DIMS, width_hint=""):
     if q.device.type != "cuda":
         raise ValueError(f"{kernel} kernel needs CUDA tensors, got {q.device}")
     if q.dtype not in (torch.bfloat16, torch.float32):
@@ -406,9 +415,10 @@ def _check_inputs(q, k, v, mask, num_heads, compute_dtype, kernel="fused_attenti
         _check_tensor(name, t, q)
     b, lq, hd = q.shape
     lk = k.shape[1]
-    if hd != num_heads * HEAD_DIM:
-        raise ValueError(f"{kernel} kernel takes head_dim {HEAD_DIM}: "
-                         f"width {hd} for {num_heads} heads")
+    if hd % num_heads or hd // num_heads not in head_dims:
+        raise ValueError(f"{kernel} kernel takes head_dim "
+                         f"{' or '.join(map(str, head_dims))}: width {hd} for "
+                         f"{num_heads} heads{width_hint}")
     if k.shape != (b, lk, hd) or v.shape != k.shape:
         raise ValueError(f"k {tuple(k.shape)} / v {tuple(v.shape)} do not match q "
                          f"{tuple(q.shape)}")
@@ -420,6 +430,17 @@ def _check_inputs(q, k, v, mask, num_heads, compute_dtype, kernel="fused_attenti
 
 FLASH_HINT = ("longer sequences take the flash kernels "
               "(kernels/flash_attention.py, --fused_attention flash)")
+# the flash kernels take head_dim 64 only (ROADMAP.md queue 2)
+D128_HINT = ("no kernel takes longer sequences at head_dim 128 yet (the flash "
+             "kernels take head_dim 64 only: ROADMAP.md queue 2)")
+
+
+def _length_hint(head_dim):
+    return FLASH_HINT if head_dim == 64 else D128_HINT
+
+
+def _head_dim(q, num_heads):
+    return q.shape[2] // num_heads
 
 
 def _check_smem(smem, q, what, hint=FLASH_HINT):
@@ -430,10 +451,11 @@ def _check_smem(smem, q, what, hint=FLASH_HINT):
             f"device's {limit}: {hint}")
 
 
-def _check_keys_bf16(lk):
-    if lk > MAX_KEYS_BF16:
-        raise ValueError(f"Lk={lk} is above the single-block kernels' {MAX_KEYS_BF16} "
-                         f"bf16 keys: {FLASH_HINT}")
+def _check_keys_bf16(lk, head_dim):
+    if lk > MAX_KEYS_BF16[head_dim]:
+        raise ValueError(f"Lk={lk} is above the single-block kernels' "
+                         f"{MAX_KEYS_BF16[head_dim]} bf16 keys at head_dim {head_dim}: "
+                         f"{_length_hint(head_dim)}")
 
 
 def _geometry_args(geometry, lq):
@@ -446,12 +468,12 @@ def _raise_if(err, lib, what):
         raise RuntimeError(f"{what} launch failed: " + lib.mkg_cuda_error_string(err).decode())
 
 
-def _call_tail(q, geometry, rate, seed, keep):
-    """The arguments every launcher ends with: scale, the geometry, the
-    dropout flag, threshold and ``keep`` (how the kernel scales a kept
-    probability: its divisor 1 - rate or its factor 1 / (1 - rate)), the
-    seed, the stream."""
-    return (float(HEAD_DIM) ** -0.5, *_geometry_args(geometry, q.shape[1]),
+def _call_tail(q, head_dim, geometry, rate, seed, keep):
+    """The arguments every launcher ends with: the scale of the head width,
+    the geometry, the dropout flag, threshold and ``keep`` (how the kernel
+    scales a kept probability: its divisor 1 - rate or its factor
+    1 / (1 - rate)), the seed, the stream."""
+    return (float(head_dim) ** -0.5, *_geometry_args(geometry, q.shape[1]),
             int(rate > 0.0), int(rate * float(2 ** 32)), keep, seed & _M32,
             torch.cuda.current_stream(q.device).cuda_stream)
 
@@ -460,43 +482,56 @@ def _inv_keep(rate):
     return (1.0 / (1.0 - rate)) if rate > 0.0 else 1.0
 
 
+def _count_fwd(head_dim):
+    global LAUNCHES, LAUNCHES_D128
+    LAUNCHES += 1
+    LAUNCHES_D128 += head_dim == 128
+
+
+def _count_bwd(head_dim):
+    global LAUNCHES_BWD, LAUNCHES_BWD_D128
+    LAUNCHES_BWD += 1
+    LAUNCHES_BWD_D128 += head_dim == 128
+
+
 def _launch_fwd_cuda_cores(q, k, v, mask, num_heads, bnd, w, geometry, rate, seed):
     """The CUDA-core forward (csrc/fused_attention_fwd.cu): the fp32 route.
     It also takes bf16, which :func:`_launch_fwd` never sends it; only a
     measurement that wants the earlier kernel's time beside the new one's
     calls it so."""
-    global LAUNCHES
     b, lq, _ = q.shape
     lk = k.shape[1]
+    d = _head_dim(q, num_heads)
     lib = _lib()
     is_bf16 = int(q.dtype == torch.bfloat16)
-    _check_smem(lib.mkg_fused_attention_fwd_smem(lk, is_bf16), q, f"Lk={lk}")
+    _check_smem(lib.mkg_fused_attention_fwd_smem(lk, is_bf16, d), q,
+                f"Lk={lk} at head_dim {d}", _length_hint(d))
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         err = lib.mkg_fused_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
-            bnd.data_ptr(), w.data_ptr(), out.data_ptr(), b, lq, lk, num_heads, is_bf16,
-            *_call_tail(q, geometry, rate, seed, 1.0 - rate))
+            bnd.data_ptr(), w.data_ptr(), out.data_ptr(), b, lq, lk, num_heads, d, is_bf16,
+            *_call_tail(q, d, geometry, rate, seed, 1.0 - rate))
     _raise_if(err, lib, "fused_attention_fwd")
-    LAUNCHES += 1
+    _count_fwd(d)
     return out
 
 
 def _launch_fwd_mma(q, k, v, mask, num_heads, bnd, w, geometry, rate, seed):
     """The tensor-core forward (csrc/fused_attention_fwd_mma.cu), bf16."""
-    global LAUNCHES
     b, lq, _ = q.shape
     lk = k.shape[1]
-    _check_keys_bf16(lk)
+    d = _head_dim(q, num_heads)
+    _check_keys_bf16(lk, d)
     lib = _lib_mma()
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         err = lib.mkg_fused_attention_fwd_mma(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
-            bnd.data_ptr(), w.data_ptr(), out.data_ptr(), b, lq, lk, num_heads,
-            *_call_tail(q, geometry, rate, seed, _inv_keep(rate)))
+            bnd.data_ptr(), w.data_ptr(), out.data_ptr(), b, lq, lk, num_heads, d,
+            *_call_tail(q, d, geometry, rate, seed, _inv_keep(rate)))
     _raise_if(err, lib, "fused_attention_fwd_mma")
-    LAUNCHES += 1
+    _count_fwd(d)
     return out
 
 
@@ -527,39 +562,39 @@ def _bwd_pointers(q, k, v, g, mask, bnd, w, buffers):
 def _launch_bwd_cuda_cores(q, k, v, mask, g, num_heads, bnd, w, geometry, rate, seed):
     """The CUDA-core backward (csrc/fused_attention_bwd.cu): the fp32 route
     (bf16 only for a measurement, as :func:`_launch_fwd_cuda_cores`)."""
-    global LAUNCHES_BWD
     b, lq, _ = q.shape
     lk = k.shape[1]
+    d = _head_dim(q, num_heads)
     buffers = _bwd_buffers(q, k, v, g, num_heads, 3)  # m, l, delta a row
     lib = _lib_bwd()
     is_bf16 = int(q.dtype == torch.bfloat16)
-    _check_smem(lib.mkg_fused_attention_bwd_smem(lq, lk, is_bf16), q,
-                f"the backward at Lq={lq}, Lk={lk}")
+    _check_smem(lib.mkg_fused_attention_bwd_smem(lq, lk, is_bf16, d), q,
+                f"the backward at Lq={lq}, Lk={lk}, head_dim {d}", _length_hint(d))
     with torch.cuda.device(q.device):
         err = lib.mkg_fused_attention_bwd(
-            *_bwd_pointers(q, k, v, g, mask, bnd, w, buffers), b, lq, lk, num_heads, is_bf16,
-            *_call_tail(q, geometry, rate, seed, _inv_keep(rate)))
+            *_bwd_pointers(q, k, v, g, mask, bnd, w, buffers), b, lq, lk, num_heads, d,
+            is_bf16, *_call_tail(q, d, geometry, rate, seed, _inv_keep(rate)))
     _raise_if(err, lib, "fused_attention_bwd")
-    LAUNCHES_BWD += 1
+    _count_bwd(d)
     dq, dk, dv, _, dw_part = buffers
     return dq, dk, dv, dw_part.sum(dim=(0, 1, 2)).to(w.dtype)
 
 
 def _launch_bwd_mma(q, k, v, mask, g, num_heads, bnd, w, geometry, rate, seed):
     """The tensor-core backward (csrc/fused_attention_bwd_mma.cu), bf16."""
-    global LAUNCHES_BWD
     b, lq, _ = q.shape
     lk = k.shape[1]
-    _check_keys_bf16(lk)
+    d = _head_dim(q, num_heads)
+    _check_keys_bf16(lk, d)
     # m, 1 / l, delta and the row's multiplier: 16 bytes a row
     buffers = _bwd_buffers(q, k, v, g, num_heads, 4)
     lib = _lib_bwd_mma()
     with torch.cuda.device(q.device):
         err = lib.mkg_fused_attention_bwd_mma(
-            *_bwd_pointers(q, k, v, g, mask, bnd, w, buffers), b, lq, lk, num_heads,
-            *_call_tail(q, geometry, rate, seed, _inv_keep(rate)))
+            *_bwd_pointers(q, k, v, g, mask, bnd, w, buffers), b, lq, lk, num_heads, d,
+            *_call_tail(q, d, geometry, rate, seed, _inv_keep(rate)))
     _raise_if(err, lib, "fused_attention_bwd_mma")
-    LAUNCHES_BWD += 1
+    _count_bwd(d)
     dq, dk, dv, _, dw_part = buffers
     return dq, dk, dv, dw_part.sum(dim=(0, 1, 2)).to(w.dtype)
 
@@ -627,8 +662,8 @@ def fused_attention(
     ``boundary``/``w0``/``w1`` enable the analogy multiplier with the
     ops/masks.py geometry (row_start / text_len / compat offset); w0 and w1
     arrive clamped. On CPU tensors this is the plain forward and backward; on
-    CUDA tensors it launches the kernels (bf16 or fp32, head_dim 64, compute
-    dtype = the inputs' dtype) or raises.
+    CUDA tensors it launches the kernels (bf16 or fp32, head_dim 64 or 128,
+    compute dtype = the inputs' dtype) or raises.
     """
     if not 0.0 <= dropout_rate < 1.0:
         raise ValueError(f"dropout_rate must be in [0, 1), got {dropout_rate}")

@@ -59,7 +59,6 @@ import torch.nn.functional as F
 
 from . import build
 from .attention import (
-    HEAD_DIM,
     NEG_BIAS,
     _M32,
     _acc_dtype,
@@ -76,6 +75,12 @@ from .attention import (
 )
 
 HARD_MASK = -1e30    # exact exclusion of out-of-range K columns (exp -> 0)
+HEAD_DIM = 64        # the flash kernels' head width
+# ViLBERT's visual stream (head_dim 128) with --fused_attention flash: the
+# plain versions take any width, the CUDA kernels 64 only
+WIDTH_HINT = ("; the flash kernels at head_dim 128 are queued in ROADMAP.md "
+              "queue 2 (flash rows 3-5 at head_dim 128); the single-block "
+              "kernels (--fused_attention 1) take it")
 BLOCK_Q, BLOCK_K = 256, 512  # logical tile defaults (flash_attention.py:533-534)
 # keys per dK/dV block, one (dw0, dw1) partial each: the CUDA-core kernel
 # (csrc/flash_attention_bwd.cu kPerBlock) and the tensor-core one (kTile)
@@ -650,7 +655,8 @@ def flash_attention(
                                             dropout_seed)
     maskf = mask.to(device=q.device, dtype=_acc_dtype(q)).contiguous()
     if q.device.type != "cpu":
-        _check_inputs(q, k, v, maskf, num_heads, compute_dtype, kernel="flash_attention")
+        _check_inputs(q, k, v, maskf, num_heads, compute_dtype, kernel="flash_attention",
+                      head_dims=(HEAD_DIM,), width_hint=WIDTH_HINT)
     return _FlashAttention.apply(q, k, v, maskf, bnd.contiguous(), w.contiguous(),
                                  num_heads, geometry, rate, seed, compute_dtype,
                                  int(block_q), int(block_k))

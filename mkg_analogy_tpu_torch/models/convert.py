@@ -3,8 +3,8 @@
 ``params_from_jax`` maps a Flax param tree, as nested dicts of numpy arrays
 (``jax.device_get`` of the tree), onto the ``state_dict()`` names of the
 port's module of the same name: ``UnimoForMaskedLM``, ``ViltForMaskedLM``,
-``FlavaForMaskedLM``, ``VGG16Features``, ``ViTClassifier``,
-``ResNet50Features``. The port names its parameters after the Flax tree, so
+``FlavaForMaskedLM``, ``VisualBertForMaskedLM``, ``VilBertForMaskedLM``,
+``VGG16Features``, ``ViTClassifier``, ``ResNet50Features``. The port names its parameters after the Flax tree, so
 the map is mechanical (the same transposes as
 ``mkg_analogy_tpu/models/export_torch.py:37``):
 

@@ -9,9 +9,9 @@ Each model shares the interface::
     model.logits(trans_hidden, vocab_ids|vocab_start/end) -> logits
 
 ``IMAGE_INPUT`` describes the visual features each family consumes (the
-collator contract, data_module.py:121-161). The three pixel families are
-ported: MKGformerKGC, ViltKGC and FlavaKGC. VisualBertKGC and VilBertKGC
-read detector region features and come with a later slice of the port.
+collator contract, data_module.py:121-161): pixels for MKGformerKGC,
+ViltKGC and FlavaKGC, detector region features (2 images x 36 regions of
+2048) for VisualBertKGC and VilBertKGC.
 
 ``DEFAULT_ATTENTION`` is the attention backend each family takes when the
 caller names none (models/common.py:AttentionCore). ViLT attends over L +
@@ -19,7 +19,10 @@ caller names none (models/common.py:AttentionCore). ViLT attends over L +
 bf16 (717 keys; 400 in fp32, where the kernel's wrapper raises and names
 the flash kernels). FLAVA's multimodal tower attends over 394 + L tokens
 (522 at L=128), at the length from which the plain route takes the flash
-kernels, so flash is its default, in either dtype.
+kernels, so flash is its default, in either dtype. VisualBERT attends over
+L + 72 tokens (200 at L=128) and ViLBERT's streams over L and 72 tokens,
+the visual one at head_dim 128, which the single-block kernels take and the
+flash kernels do not yet.
 """
 
 from __future__ import annotations
@@ -28,7 +31,9 @@ from typing import Callable, Dict
 
 from .flava import FlavaConfig, FlavaForMaskedLM
 from .unimo import TextConfig, UnimoConfig, UnimoForMaskedLM, VisionConfig
+from .vilbert import VilBertConfig, VilBertForMaskedLM
 from .vilt import ViltConfig, ViltForMaskedLM
+from .visualbert import VisualBertConfig, VisualBertForMaskedLM
 
 _REGISTRY: Dict[str, Callable] = {}
 
@@ -41,7 +46,8 @@ IMAGE_INPUT = {
     "VilBertKGC": ("regions", None),
 }
 
-DEFAULT_ATTENTION = {"MKGformerKGC": "single", "ViltKGC": "single", "FlavaKGC": "flash"}
+DEFAULT_ATTENTION = {"MKGformerKGC": "single", "ViltKGC": "single", "FlavaKGC": "flash",
+                     "VisualBertKGC": "single", "VilBertKGC": "single"}
 
 
 def _text_cfg(vocab_size: int, kw: dict) -> TextConfig:
@@ -96,20 +102,36 @@ def _flava(vocab_size: int, dtype: str = "bfloat16", attention: str = "flash",
     )
 
 
-def _later_slice(name: str):
-    def ctor(**kw):
-        raise NotImplementedError(
-            f"{name} is not ported to PyTorch yet: the two region-feature "
-            "families (models/visualbert.py, models/vilbert.py) and the "
-            "region store path come with a later slice (ROADMAP.md, Open "
-            "items 1, item 2)"
+@register("VisualBertKGC")
+def _visualbert(vocab_size: int, dtype: str = "bfloat16", attention: str = "single",
+                gelu_impl: str = "poly", **kw):
+    return VisualBertForMaskedLM(
+        VisualBertConfig(text=_text_cfg(vocab_size, kw), dtype=dtype, attention=attention,
+                         gelu_impl=gelu_impl)
+    )
+
+
+@register("VilBertKGC")
+def _vilbert(vocab_size: int, dtype: str = "bfloat16", attention: str = "single",
+             gelu_impl: str = "poly", **kw):
+    text = _text_cfg(vocab_size, kw)
+    ablate = bool(kw.get("vilbert_ablate_img_to_txt", False))
+    # scale the rendezvous schedule to a reduced depth (tiny/test configs):
+    # the default 6-connection schedule indexes text layers 6..11
+    # (vilbert.py config bert_base_6layer_6conect)
+    n_conn = min(6, text.num_layers // 2, max(1, text.num_layers - 1))
+    v_num_layers = max(n_conn, 6 if text.num_layers >= 12 else n_conn)
+    t_start = text.num_layers - n_conn
+    return VilBertForMaskedLM(
+        VilBertConfig(
+            text=text, dtype=dtype,
+            v_num_layers=v_num_layers,
+            v_biattention_id=tuple(range(n_conn)),
+            t_biattention_id=tuple(range(t_start, text.num_layers)),
+            ablate_img_to_txt=ablate,
+            attention=attention, gelu_impl=gelu_impl,
         )
-
-    return ctor
-
-
-for _name in ("VisualBertKGC", "VilBertKGC"):
-    register(_name)(_later_slice(_name))
+    )
 
 
 def create_model(name: str, **kw):
@@ -117,6 +139,10 @@ def create_model(name: str, **kw):
         ctor = _REGISTRY[name]
     except KeyError:
         raise KeyError(
-            f"unknown model_class {name!r}; available: {sorted(_REGISTRY)}"
+            f"unknown model_class {name!r}; available: {available_models()}"
         ) from None
     return ctor(**kw)
+
+
+def available_models():
+    return sorted(_REGISTRY)

@@ -1,0 +1,103 @@
+"""Time the single-block attention kernels of one checkout on the card, to
+compare two checkouts in one call (run it for each, in turns):
+
+    python3 mkg_analogy_tpu_torch/tools/time_attention.py --root <checkout>
+
+bf16, the tensor-core kernels, at the MKGformer main path's shapes (12
+heads of 64: text 128 x 128 with the analogy multiplier, vision 99 x 99,
+vision over text K/V 99 x 227; the forward at B=128, the backward at B=32
+with dropout 0.1 where the multiplier applies), and with ``--head_dim 128``
+at ViLBERT's visual stream too (8 heads of 128, 72 x 72, B=64). Prints one
+JSON line: the card, each shape's forward and backward ms (median of 21
+samples of 10 calls, by CUDA events), and each set's sum weighted by its
+calls a forward (12 / 8 / 4). Imports the ``mkg_analogy_tpu_torch`` of
+``--root``, whose kernels it builds there.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import statistics
+import subprocess
+import sys
+
+SHAPES = [("text", 128, 128, True, 12, 64, 12), ("vision", 99, 99, False, 8, 64, 12),
+          ("vision_text", 99, 227, False, 4, 64, 12)]
+D128_SHAPE = ("vilbert_visual", 72, 72, False, 6, 128, 8)
+
+
+def time_ms(fn, samples=21, per_sample=10):
+    import torch
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(samples):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(10_000_000)
+        start.record()
+        for _ in range(per_sample):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / per_sample)
+    return statistics.median(times)
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--root", default=os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__)))))
+    p.add_argument("--head_dim", type=int, choices=[64, 128], default=64,
+                   help="128 also times ViLBERT's visual stream")
+    args = p.parse_args(argv)
+    sys.path.insert(0, os.path.abspath(args.root))
+    import torch
+
+    if not torch.cuda.is_available():
+        print("time_attention: no CUDA device", file=sys.stderr)
+        return 1
+    from mkg_analogy_tpu_torch.kernels import attention as attn
+
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          check=True).stdout.strip().splitlines()[0]
+    shapes = SHAPES + ([D128_SHAPE] if args.head_dim == 128 else [])
+    rows, sets = [], {}
+    for name, lq, lk, geometry, calls, d, heads in shapes:
+        gen = torch.Generator().manual_seed(7)
+        row = dict(shape=name, Lq=lq, Lk=lk, head_dim=d)
+        for kind, b in (("fwd", 128 if d == 64 else 64), ("bwd", 32 if d == 64 else 64)):
+            q, g = (torch.randn(b, lq, heads * d, generator=gen).to("cuda", torch.bfloat16)
+                    for _ in range(2))
+            k, v = (torch.randn(b, lk, heads * d, generator=gen).to("cuda", torch.bfloat16)
+                    for _ in range(2))
+            mask = torch.ones(b, lk, device="cuda")
+            mask[:, lk - 9:] = 0.0
+            kw = {}
+            if geometry:
+                kw = dict(boundary=torch.full((b,), lq // 3, dtype=torch.int32, device="cuda"),
+                          w0=torch.tensor([0.3], device="cuda"),
+                          w1=torch.tensor([0.7], device="cuda"))
+            rate = 0.1 if geometry and kind == "bwd" else 0.0
+            bnd, w, geo, rate, seed = attn._resolve(q, kw.get("boundary"), kw.get("w0"),
+                                                    kw.get("w1"), None, 0, 0, rate,
+                                                    rate == 0.0, 99)
+            if kind == "fwd":
+                row["fwd_ms"] = time_ms(
+                    lambda: attn._launch_fwd(q, k, v, mask, heads, bnd, w, geo, rate, seed))
+            else:
+                row["bwd_ms"] = time_ms(
+                    lambda: attn._launch_bwd(q, k, v, mask, g, heads, bnd, w, geo, rate, seed))
+            sets[f"{kind}_d{d}"] = sets.get(f"{kind}_d{d}", 0.0) + row[f"{kind}_ms"] * calls
+        rows.append(row)
+    print(json.dumps(dict(card=card, root=args.root, shapes=rows, per_set_ms=sets)))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -124,14 +124,14 @@ def test_cli_cuda_without_gpu_raises(dataset, tmp_path):
 
 
 @pytest.mark.parametrize("extra", [
-    ["--export_torch", "model.pt"], ["--tp", "2"], ["--model_class", "VisualBertKGC"],
-    ["--dp", "2"], ["--qk_bf16_grad", "1", "--fused_attention", "0"],
+    ["--tp", "2"], ["--dp", "2"], ["--qk_bf16_grad", "1", "--fused_attention", "0"],
 ])
 def test_cli_refuses_what_later_slices_bring(dataset, tmp_path, extra):
-    """Training, --checkpoint, --pretrain, --fused_attention flash and the
-    ViLT and FLAVA families are ported (tests/test_torch_port_train.py,
-    tests/test_torch_port_pretrain.py, tests/test_torch_port_families.py);
-    these raise, with or without --only_test."""
+    """Training, --checkpoint, --pretrain, --fused_attention flash, the five
+    families and --export_torch are ported (tests/test_torch_port_train.py,
+    tests/test_torch_port_pretrain.py, tests/test_torch_port_families.py,
+    tests/test_torch_port_region_families.py, test_cli_export_torch_round_trips
+    below); these raise, with or without --only_test."""
     for flags in (cli_flags(dataset, tmp_path),
                   [f for f in cli_flags(dataset, tmp_path) if f != "--only_test"]):
         with pytest.raises(NotImplementedError):
@@ -140,15 +140,44 @@ def test_cli_refuses_what_later_slices_bring(dataset, tmp_path, extra):
 
 @pytest.mark.parametrize("name", ["VisualBertKGC", "ViltKGC", "FlavaKGC", "VilBertKGC"])
 def test_other_families_name_their_slice(name):
-    """The region-feature families raise and name where they are queued;
-    the pixel families are constructed."""
-    assert name in registry.IMAGE_INPUT
-    if registry.IMAGE_INPUT[name][0] == "regions":
-        with pytest.raises(NotImplementedError, match="later slice"):
-            registry.create_model(name, vocab_size=256)
-    else:
-        with torch.device("meta"):
-            assert hasattr(registry.create_model(name, vocab_size=256), "logits")
+    """Every family beside MKGformer is constructed, the region-feature ones
+    (VisualBERT, ViLBERT) as well as the pixel ones, each with its image
+    input kind and ``logits``."""
+    kind = registry.IMAGE_INPUT[name][0]
+    assert kind == ("regions" if name in ("VisualBertKGC", "VilBertKGC") else "pixels")
+    with torch.device("meta"):
+        assert hasattr(registry.create_model(name, vocab_size=256), "logits")
+
+
+def test_cli_export_torch_round_trips(dataset, tmp_path):
+    """``--export_torch`` after a fit writes the best MKGformer weights as a
+    reference-format checkpoint that ``torch.load`` reads and that
+    ``import_torch.unimo_params_from_reference`` maps back onto the
+    checkpoint the fit kept, exactly (the vocabulary's alignment rows, which
+    the export strips, come back as zeros); another family refuses the flag
+    before any work."""
+    from mkg_analogy_tpu_torch.models.import_torch import unimo_params_from_reference
+    from mkg_analogy_tpu_torch.train import checkpoint
+
+    path = tmp_path / "export.pt"
+    flags = [f for f in cli_flags(dataset, tmp_path) if f != "--only_test"]
+    flags += ["--device", "cpu", "--max_epochs", "1", "--batch_size", "8",
+              "--export_torch", str(path)]
+    port_cli.main(flags)
+    sd = torch.load(path)["state_dict"]
+    assert all(v.dtype == torch.float32 for v in sd.values())
+    want = checkpoint.load(str(tmp_path / "out" / "ckpt"))  # the fit's best, as the CLI tests
+    rows = sd["unimo.text_embeddings.word_embeddings.weight"].shape[0]
+    got = unimo_params_from_reference(sd, num_layers=2, vocab_rows=want["mlm_bias"].shape[0],
+                                      fusion_start=0)
+    assert set(got) == set(want) and rows < want["mlm_bias"].shape[0]
+    for key, value in want.items():
+        if key in ("word_embeddings", "mlm_bias"):
+            assert torch.equal(got[key][:rows], value[:rows]) and not got[key][rows:].any()
+        else:
+            assert torch.equal(got[key], value), key
+    with pytest.raises(ValueError, match="MKGformerKGC"):
+        port_cli.main(flags + ["--model_class", "ViltKGC"])
 
 
 def test_synthetic_image_table():

@@ -281,7 +281,8 @@ def test_registry_creates_the_pixel_families():
     """Full-width constructors (on the meta device: no memory), with the
     attention backend of each family's default and an explicit one."""
     assert registry.DEFAULT_ATTENTION == {"MKGformerKGC": "single", "ViltKGC": "single",
-                                          "FlavaKGC": "flash"}
+                                          "FlavaKGC": "flash", "VisualBertKGC": "single",
+                                          "VilBertKGC": "single"}
     with torch.device("meta"):
         v = registry.create_model("ViltKGC", vocab_size=256)
         f = registry.create_model("FlavaKGC", vocab_size=256, attention="single")
