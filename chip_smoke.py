@@ -152,7 +152,26 @@ exits non-zero:
                 --model_class VisualBertKGC|VilBertKGC --image_features
                 synthetic`` fine-tunes one epoch in bf16 at B=64 and tests,
                 ``--only_test --checkpoint`` reproduces the ranks; the
-                counts set to 0 before each family's run and read after it.
+                counts set to 0 before each family's run and read after it;
+20. kge_ikrl  — the IKRL silo in fp32 on a synthetic MarKG at the real
+                counts (11,292 entities, 192 relations, 33,307 triples; a
+                (E+1, 4096) VGG store): IKRL TransE (d=400), IKRL ANALOGY
+                (d=200) and TransAE (d=200) pre-train steps at the recipe's
+                333 x 51 rows, each on the card against the port on the CPU
+                (loss within 1e-5 relative, every gradient leaf within 1e-5
+                of its largest value), then timed; link prediction on 640
+                triples, both sides, B=64 (energies within 1e-5, ranks equal
+                but for near ties); a fine-tune step at B=128; peak GB;
+21. kge_rsme  — RSME ComplEx at rank 1000, B=1000, Adagrad over the
+                reciprocal triples: a step against the CPU (same bars),
+                timed steps and one epoch; eval_both_sides on the 1% test
+                split against the CPU; the Analogy fine-tune forward and
+                ranking at B=500; peak GB;
+22. cli_kge   — ``cli.ikrl`` and ``cli.rsme`` end to end on the card
+                (pre-train, ``--finetune``, each reproduced exactly by
+                ``--eval_only --ckpt``; IKRL once more with
+                ``--use_native_sampler``). No TPU kernel lies on the KGE
+                path, so these phases count no launches.
 
 Then the ``{"kernels": [...]}`` line, the card line, and the last line
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -2511,6 +2530,469 @@ def cli_region_phase():
     return {name: r["launches"] for name, r in runs.items()}
 
 
+KGE_COUNTS = dict(entities=11292, relations=192, triples=33307, mars=(10641, 1020, 1362))
+KGE_VOCAB = 3000  # synthetic glossary words for PV-DM
+
+
+def kge_data(counts=KGE_COUNTS, seed=0):
+    """A synthetic MarKG at the real counts (SURVEY.md section 0: 11,292
+    entities, 192 relations, 33,307 distinct triples), MARS 6-tuples at the
+    splits' sizes, a (E+1, 4096) VGG store (ReLU-like, U[0, 1)), a (E, 1000)
+    ViT store and 8-30-word glossaries; all from numpy at ``seed``."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    E, R, T = counts["entities"], counts["relations"], counts["triples"]
+    code = rng.integers(0, E * R * E, size=int(T * 1.1) + 64, dtype=np.int64)
+    _, first = np.unique(code, return_index=True)
+    code = code[np.sort(first)][:T]
+    triples = np.stack([code // (R * E), code // E % R, code % E], axis=1)  # (h, r, t)
+    mars = {}
+    for split, n in zip(("train", "dev", "test"), counts["mars"]):
+        cols = [rng.integers(0, E, n) for _ in range(4)] + [rng.integers(0, R, n),
+                                                             np.arange(n) % 3]
+        mars[split] = np.stack(cols, axis=1).astype(np.int64)
+    texts = [" ".join(f"w{chr(97 + w % 26)}{chr(97 + w // 26 % 26)}{chr(97 + w // 676)}"
+                      for w in rng.integers(0, KGE_VOCAB, rng.integers(8, 31)))
+             for _ in range(E)]
+    return dict(E=E, R=R, triples=triples, mars=mars, texts=texts,
+                vgg=rng.random((E + 1, 4096), dtype=np.float32),
+                vit=rng.standard_normal((E, 1000), dtype=np.float32))
+
+
+def kge_grad_ratio(got_model, want_model, rel=1e-5):
+    """The largest of err / (rel * the leaf's largest |gradient|) over the
+    parameters, and its leaf (every leaf must have a gradient on both
+    sides)."""
+    want = dict(want_model.named_parameters())
+    worst, worst_name = 0.0, ""
+    for name, p in got_model.named_parameters():
+        g, w = p.grad, want[name].grad
+        if g is None or w is None:
+            raise AssertionError(f"gradient of {name} missing")
+        ratio = (g.cpu() - w).abs().max().item() / (rel * w.abs().max().item() + 1e-30)
+        if ratio > worst:
+            worst, worst_name = ratio, name
+    return worst, worst_name
+
+
+def kge_host_ms(step, n=8, warm=2):
+    """Median host ms of ``step()`` over ``n`` calls after ``warm``, each
+    call ended by a synchronise."""
+    import torch
+
+    times = []
+    for i in range(warm + n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        if i >= warm:
+            times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def rank_agreement(gpu_scores, cpu_scores, golds, gpu_ranks, cpu_ranks, rel=1e-5):
+    """The card's scores within ``rel`` of the CPU's largest |score| per
+    batch; the ranks equal except in rows where some other candidate lies
+    within that tolerance of the gold (a near tie, whose order the
+    summation order may flip). Returns (largest err / bar, near-tie rows,
+    rows whose ranks differ)."""
+    import numpy as np
+
+    worst, near = 0.0, []
+    for g, c, gold in zip(gpu_scores, cpu_scores, golds):
+        tol = rel * np.abs(c).max()
+        worst = max(worst, float(np.abs(g - c).max() / tol))
+        gap = np.abs(c - c[np.arange(len(gold)), gold][:, None]) <= tol
+        gap[np.arange(len(gold)), gold] = False
+        near.append(gap.any(axis=1))
+    near = np.concatenate(near)
+    differ = np.asarray(gpu_ranks) != np.asarray(cpu_ranks)
+    if worst > 1.0 or (differ & ~near).any():
+        raise AssertionError(f"ranks or scores disagree: scores at {worst} of the bar, "
+                             f"{int((differ & ~near).sum())} ranks apart without a near tie")
+    return worst, int(near.sum()), int(differ.sum())
+
+
+def kge_ikrl_phase(device, data, lp_triples=640, pvdm_epochs=2):
+    """The IKRL silo at full width (MarKG's counts, the recipe's batch of
+    33,307 // 100 = 333 triples x (1 + 25 + 25) rows). For IKRL TransE
+    (d=400, margin 5, SGD lr 1), IKRL ANALOGY (d=200, softplus + regul 1)
+    and TransAE (d=200; its PV-DM text table trained here for
+    ``pvdm_epochs`` epochs, not the recipe's 40): one pre-train step on the
+    card against the port on the CPU from the same weights, sampler batch
+    and task modes (loss within 1e-5 relative, every gradient leaf within
+    1e-5 of its largest value), then 8 timed steps (median host ms after
+    two). Then IKRL TransE's filtered link prediction on the first
+    ``lp_triples`` triples, both sides, B=64: energies within 1e-5 of the
+    CPU's, ranks equal but for near ties; its time; and one fine-tune step
+    at B=128 (Adam) on the card against the CPU. Peak GB of each."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from mkg_analogy_tpu_torch.kge import eval as keval
+    from mkg_analogy_tpu_torch.kge.ikrl import IKRLConfig, create_ikrl
+    from mkg_analogy_tpu_torch.kge.pvdm import PVDMConfig, train_pvdm
+    from mkg_analogy_tpu_torch.kge.sampling import NegativeSampler, TripleStore
+    from mkg_analogy_tpu_torch.kge.trainer import KGETrainConfig, KGETrainer, draw_task_mode
+    from mkg_analogy_tpu_torch.kge.transae import TransAEConfig, TransAETransE
+
+    E, R = data["E"], data["R"]
+    store = TripleStore.from_arrays(data["triples"], E, R)
+    bs = len(store) // 100
+    sampler = iter(NegativeSampler(store, batch_size=bs, neg_ent=25, neg_rel=25, seed=0))
+    batches = [next(sampler) for _ in range(13)]  # 1 compared, 10 timed, 2 profiled
+    t0 = time.perf_counter()
+    text = np.zeros((E + 1, 100), np.float32)
+    text[:E] = train_pvdm(data["texts"], PVDMConfig(epochs=pvdm_epochs), device=device)
+    pvdm_seconds = time.perf_counter() - t0
+    gen = torch.Generator().manual_seed
+    cases = {
+        "ikrl_transe": (lambda: create_ikrl(IKRLConfig(E, R, dim=400), data["vgg"], gen(0)),
+                        KGETrainConfig(loss="margin", margin=5.0)),
+        "ikrl_analogy": (lambda: create_ikrl(IKRLConfig(E, R, dim=200, scorer="analogy"),
+                                             data["vgg"], gen(1)),
+                         KGETrainConfig(loss="softplus", regul_rate=1.0)),
+        "transae": (lambda: TransAETransE(TransAEConfig(E, R, dim=200), text, data["vgg"],
+                                          gen(2)), KGETrainConfig(loss="margin", margin=5.0)),
+    }
+    out, models = {}, {}
+    modes = draw_task_mode(torch.Generator().manual_seed(3), bs * 51)
+    for name, (build, cfg) in cases.items():
+        cpu = build()
+        gpu = copy.deepcopy(cpu).to(device)
+        losses, pre = [], []
+        for m in (cpu, gpu):
+            tr = KGETrainer(m, cfg, bs, 50)
+            state = tr.init_state()
+            dev = next(m.parameters()).device
+            hooks = []
+            if name == "transae":  # the pre-activations of each ReLU, each side
+                acts = {}
+                pre.append(acts)
+                for lname, layer in m.encoder.named_children():
+                    hooks.append(layer.register_forward_hook(
+                        lambda mod, i, o, lname=lname: acts.__setitem__(lname, o.detach().cpu())))
+            losses.append(tr.pretrain_step(state, tr.device_batch(batches[0], dev),
+                                           modes.to(dev)).item())
+            for hook in hooks:
+                hook.remove()
+        loss_rel = abs(losses[1] - losses[0]) / abs(losses[0])
+        ratio, leaf = kge_grad_ratio(gpu, cpu)
+        extra, bar_ok = {}, ratio <= 1.0
+        if name == "transae":
+            # Every encoder and decoder layer ends in a ReLU: a pre-activation
+            # within rounding of 0 takes the kink on one side only and moves
+            # that row's whole contribution to the weight gradient, ~1e-4 of
+            # the leaf at 16,983 rows. So TransAE's leaves are held to the
+            # bar of the deep fp32 steps (1e-3 of the leaf's largest |gradient|
+            # plus 1e-6 of the model's largest), and the kinks are counted.
+            flips = {k: int(((pre[0][k] > 0) != (pre[1][k] > 0)).sum()) for k in pre[0]}
+            deep, deep_leaf = leaf_ratios(
+                {n: p.grad.cpu() for n, p in gpu.named_parameters()},
+                {n: p.grad for n, p in cpu.named_parameters()})
+            extra = dict(relu_kink_flips=flips, grad_ratio_deep_bar=deep,
+                         grad_worst_leaf_deep_bar=deep_leaf)
+            bar_ok = deep <= 1.0
+            del pre
+        if not loss_rel <= 1e-5 or not bar_ok or not math.isfinite(losses[0]):
+            raise AssertionError(f"kge_ikrl {name}: loss {losses} ({loss_rel} apart), "
+                                 f"gradient {leaf} at {ratio} of its bar {extra}")
+        tr = KGETrainer(gpu, cfg, bs, 50)
+        state = tr.init_state()
+        task_gen = torch.Generator(device=device).manual_seed(0)
+        it = iter(batches[1:])
+        step_losses = []
+
+        def step():
+            b = tr.device_batch(next(it), device)
+            step_losses.append(tr.pretrain_step(state, b, draw_task_mode(task_gen, bs * 51)))
+
+        torch.cuda.reset_peak_memory_stats()
+        ms = kge_host_ms(step)
+        prof = device_profile(step, top=6)
+        out[name] = dict(device_ms=prof["device_ms"], top_kernels=prof["top"],loss_cpu=losses[0], loss_rel_err=loss_rel, grad_ratio=ratio,
+                         grad_worst_leaf=leaf, **extra, ms_per_step=ms,
+                         triples_per_s=bs / ms * 1e3, rows_per_s=bs * 51 / ms * 1e3,
+                         peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                         timed_loss_first=float(step_losses[0]),
+                         timed_loss_last=float(step_losses[-1]),
+                         timed_losses_finite=bool(torch.isfinite(torch.stack(step_losses)).all()))
+        models[name] = (cpu, gpu)
+        del tr, state
+        torch.cuda.empty_cache()
+    out["transae"]["pvdm_epochs"] = pvdm_epochs
+    out["transae"]["pvdm_seconds"] = pvdm_seconds
+
+    # link prediction with IKRL TransE, the card's weights on both sides
+    cpu, gpu = models["ikrl_transe"]
+    cpu.load_state_dict(gpu.state_dict())
+    for name in ("ikrl_analogy", "transae"):
+        del models[name]
+    gpu.eval()
+    cpu.eval()
+    test = TripleStore(store.heads[:lp_triples], store.tails[:lp_triples],
+                       store.rels[:lp_triples], E, R)
+    filters = keval.build_filters(store)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    keval.link_prediction(gpu.candidate_energies, test, filters, E, device=device)
+    torch.cuda.synchronize()
+    lp_seconds = time.perf_counter() - t0
+    lp_peak = torch.cuda.max_memory_allocated() / 1e9
+    seen = {"gpu": [], "cpu": []}
+
+    def recorded(m, who):
+        def fn(h, r, tm, corrupt):
+            e = m.candidate_energies(h, r, tm, corrupt)
+            seen[who].append(e.float().cpu().numpy())
+            return e
+        return fn
+
+    m_gpu, r_gpu = keval.link_prediction(recorded(gpu, "gpu"), test, filters, E,
+                                         device=device, return_ranks=True)
+    m_cpu, r_cpu = keval.link_prediction(recorded(cpu, "cpu"), test, filters, E,
+                                         return_ranks=True)
+    golds = [g for s in range(0, lp_triples, 64)
+             for g in (test.tails[s:s + 64], test.heads[s:s + 64])]
+    lp = {}
+    for kind in ("raw", "filter"):
+        lp[kind] = rank_agreement(seen["gpu"], seen["cpu"], golds, r_gpu[kind], r_cpu[kind])
+    out["link_prediction"] = dict(
+        triples=lp_triples, queries=2 * lp_triples, batch=64, seconds=lp_seconds,
+        queries_per_s=2 * lp_triples / lp_seconds, peak_gb=lp_peak,
+        energy_err_over_bar=lp["filter"][0], near_tie_ranks=lp["filter"][1],
+        ranks_apart={k: v[2] for k, v in lp.items()},
+        mrr=m_gpu["mrr"], mrr_cpu=m_cpu["mrr"], hit10=m_gpu["hit10"])
+
+    # one fine-tune step at B=128 (Adam), card against CPU; then 5 timed
+    rows = data["mars"]["train"][:128]
+    losses = []
+    for m in (cpu, gpu):
+        m.train()
+        tr = KGETrainer(m, KGETrainConfig(finetune_batch_size=128), bs, 50)
+        state = tr.init_state(finetune=True)
+        ft_batch = tr.tuple_batch(rows, next(m.parameters()).device)
+        losses.append(tr.finetune_step(state, ft_batch).item())
+    loss_rel = abs(losses[1] - losses[0]) / abs(losses[0])
+    # The fine-tune's gradients reach the tables through 4 x 578M |h + r - t|
+    # terms (128 x 11,292 x 400), whose sign at a kink (a difference within
+    # rounding of 0) the two sides take apart, and through the CE's
+    # gradient, which sums to 0 over the 11,292 candidates: held to the
+    # deep fp32 steps' bar, as TransAE's; the 1e-5 ratio is reported.
+    ratio, leaf = kge_grad_ratio(gpu, cpu)
+    deep, deep_leaf = leaf_ratios({n: p.grad.cpu() for n, p in gpu.named_parameters()},
+                                  {n: p.grad for n, p in cpu.named_parameters()})
+    if not loss_rel <= 1e-5 or deep > 1.0:
+        raise AssertionError(f"kge_ikrl fine-tune: loss {losses} ({loss_rel} apart), "
+                             f"gradient {deep_leaf} at {deep} of its bar")
+    torch.cuda.reset_peak_memory_stats()
+    ft_ms = kge_host_ms(lambda: tr.finetune_step(state, ft_batch), n=5, warm=1)
+    out["finetune_step"] = dict(batch=128, loss_rel_err=loss_rel, grad_ratio=ratio,
+                                grad_worst_leaf=leaf, grad_ratio_deep_bar=deep,
+                                grad_worst_leaf_deep_bar=deep_leaf,
+                                ms_per_step=ft_ms, examples_per_s=128 / ft_ms * 1e3,
+                                peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    del tr, state, ft_batch
+    del models, cpu, gpu
+    torch.cuda.empty_cache()
+    emit(dict(phase="kge_ikrl", entities=E, relations=R, triples=len(store),
+              batch=bs, rows_per_step=bs * 51, **out))
+
+
+def kge_rsme_phase(device, data, finetune_batch=500):
+    """The RSME silo at full width: ComplEx at rank 1000 over MarKG's
+    reciprocal triples (98% of 33,307, doubled), B=1000, Adagrad lr 1e-2,
+    the (E, 1000) ViT table fused at alpha 0.7 with a seeded binary forget
+    gate: one step on the card against the port on the CPU from the same
+    weights (loss within 1e-5 relative, every gradient leaf within 1e-5 of
+    its largest value), 8 timed steps and one timed epoch; then
+    eval_both_sides on the 1% test split (333 triples) on the card and the
+    CPU with the card's weights: scores within 1e-5, ranks equal but for
+    near ties; then the Analogy fine-tune forward and its ranking at
+    B=``finetune_batch``, card against CPU. Peak GB of each."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from mkg_analogy_tpu_torch.kge.rsme import (RSMEConfig, RSMEModel, RSMETrainConfig,
+                                                RSMETrainer, assign_modes, build_to_skip,
+                                                filtered_eval, reciprocal_augment)
+    from mkg_analogy_tpu_torch.ops.ranking import ranks_from_scores
+
+    E, R = data["E"], data["R"]
+    rng = np.random.default_rng(1)
+    data4 = np.column_stack([data["triples"], assign_modes(len(data["triples"]), rng)])
+    perm = rng.permutation(len(data4))
+    n_valid = len(data4) // 100
+    test4 = data4[perm[n_valid:2 * n_valid]]
+    train_aug = reciprocal_augment(data4[perm[2 * n_valid:]], R)
+    to_skip = build_to_skip(reciprocal_augment(data4, R)[:, :3])["rhs"]
+    pd = rng.integers(0, 2, size=(2 * R,)).astype(np.float32)
+    cfg = RSMEConfig(E, R, rank=1000, img_dim=1000, model="complex")
+    cpu = RSMEModel(cfg, img_vec=data["vit"], rel_pd=pd,
+                    generator=torch.Generator().manual_seed(4))
+    gpu = copy.deepcopy(cpu).to(device)
+    tcfg = RSMETrainConfig(lr=1e-2, batch_size=1000)
+    batch = train_aug[rng.permutation(len(train_aug))[:1000]]
+    losses = []
+    for m in (cpu, gpu):
+        tr = RSMETrainer(m, tcfg)
+        dev = next(m.parameters()).device
+        losses.append(tr.step(tr.init_state(), torch.from_numpy(batch).to(dev)).item())
+    loss_rel = abs(losses[1] - losses[0]) / abs(losses[0])
+    ratio, leaf = kge_grad_ratio(gpu, cpu)
+    if not loss_rel <= 1e-5 or ratio > 1.0:
+        raise AssertionError(f"kge_rsme: loss {losses} ({loss_rel} apart), gradient "
+                             f"{leaf} at {ratio} of its bar")
+    tr = RSMETrainer(gpu, tcfg)
+    state = tr.init_state()
+    order = rng.permutation(len(train_aug))
+    k = iter(range(100))
+
+    def step():
+        rows = train_aug[order[next(k) * 1000:][:1000]]
+        tr.step(state, torch.from_numpy(rows).to(device))
+
+    torch.cuda.reset_peak_memory_stats()
+    ms = kge_host_ms(step)
+    step_peak = torch.cuda.max_memory_allocated() / 1e9
+    prof = device_profile(step, top=6)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, epoch_loss = tr.epoch(state, train_aug, np.random.default_rng(2))
+    epoch_seconds = time.perf_counter() - t0
+    out = dict(step=dict(rank=1000, batch=1000, loss_cpu=losses[0], loss_rel_err=loss_rel,
+                         grad_ratio=ratio, grad_worst_leaf=leaf, ms_per_step=ms,
+                         examples_per_s=1000 / ms * 1e3, peak_gb=step_peak,
+                         device_ms=prof["device_ms"], top_kernels=prof["top"],
+                         epoch_steps=len(train_aug) // 1000, epoch_seconds=epoch_seconds,
+                         epoch_loss=epoch_loss))
+
+    # filtered evaluation on both sides with the card's weights
+    cpu.load_state_dict(gpu.state_dict())
+    sides = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for side in ("rhs", "lhs"):
+        q = test4.copy()
+        if side == "lhs":
+            q[:, [0, 2]] = q[:, [2, 0]]
+            q[:, 1] += R
+        sides[side] = (q, filtered_eval(gpu, q, to_skip))
+    eval_seconds = time.perf_counter() - t0
+    eval_peak = torch.cuda.max_memory_allocated() / 1e9
+    agree = {}
+    with torch.no_grad():
+        for side, (q, r_gpu) in sides.items():
+            s = [m.ranking_scores(torch.from_numpy(q).to(next(m.parameters()).device))
+                 .cpu().numpy() for m in (gpu, cpu)]
+            agree[side] = rank_agreement([s[0]], [s[1]], [q[:, 2]], r_gpu,
+                                         filtered_eval(cpu, q, to_skip))
+    ranks = np.concatenate([sides["rhs"][1], sides["lhs"][1]])
+    out["eval_both_sides"] = dict(
+        triples=len(test4), queries=2 * len(test4), seconds=eval_seconds,
+        queries_per_s=2 * len(test4) / eval_seconds, peak_gb=eval_peak,
+        score_err_over_bar=max(a[0] for a in agree.values()),
+        near_tie_ranks=sum(a[1] for a in agree.values()),
+        ranks_apart=sum(a[2] for a in agree.values()), mrr=float(np.mean(1.0 / ranks)))
+    del tr, state, cpu, gpu
+    torch.cuda.empty_cache()
+
+    # the Analogy fine-tune forward and its ranking
+    cfg = RSMEConfig(E, R, rank=1000, img_dim=1000, model="analogy", init_size=0.1)
+    cpu = RSMEModel(cfg, img_vec=data["vit"], rel_pd=pd,
+                    generator=torch.Generator().manual_seed(5))
+    gpu = copy.deepcopy(cpu).to(device).eval()
+    rows = data["mars"]["test"][:finetune_batch]
+    with torch.no_grad():
+        x = torch.from_numpy(rows).to(device)
+        torch.cuda.reset_peak_memory_stats()
+        fwd_ms = kge_host_ms(lambda: ranks_from_scores(gpu.finetune_forward(x)[0], x[:, 3]))
+        ft_peak = torch.cuda.max_memory_allocated() / 1e9
+        preds = gpu.finetune_forward(x)[0]
+        want = cpu.finetune_forward(torch.from_numpy(rows))[0]
+        r_gpu = ranks_from_scores(preds, x[:, 3]).cpu().numpy()
+        r_cpu = ranks_from_scores(want, torch.from_numpy(rows[:, 3])).numpy()
+        err, near, apart = rank_agreement([preds.cpu().numpy()], [want.numpy()],
+                                          [rows[:, 3]], r_gpu, r_cpu)
+    out["finetune_forward"] = dict(model="analogy", batch=finetune_batch, ms=fwd_ms,
+                                   examples_per_s=finetune_batch / fwd_ms * 1e3,
+                                   peak_gb=ft_peak, score_err_over_bar=err,
+                                   near_tie_ranks=near, ranks_apart=apart)
+    del cpu, gpu
+    torch.cuda.empty_cache()
+    emit(dict(phase="kge_rsme", entities=E, relations=R, train_examples=len(train_aug),
+              test_triples=len(test4), **out))
+
+
+def cli_kge_phase():
+    """The KGE CLIs end to end on the card, on the small dataset of
+    ``write_dataset``: ``cli.ikrl`` pre-trains (TransE, d=400), fine-tunes
+    from its checkpoint (rank dump with tie counts) and ``--eval_only
+    --ckpt`` reproduces each fit's metrics and ranks exactly; once more with
+    ``--use_native_sampler --in_path <OpenKE dir>`` (builds the port's
+    sampler with g++); ``cli.rsme`` pre-trains ComplEx and fine-tunes
+    Analogy (rank 1000), each reproduced by ``--eval_only --ckpt``."""
+    import numpy as np
+
+    from mkg_analogy_tpu_torch.cli import ikrl, rsme
+    from mkg_analogy_tpu_torch.data.openke_tools import write_id_files
+    from mkg_analogy_tpu_torch.data.readers import MarKG
+
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_kge_cli_", dir=".") as root:
+        markg, mars = write_dataset(root)
+        base = ["--data_dir", mars, "--pretrain_path", markg, "--device", "cuda",
+                "--log_dir", os.path.join(root, "logs")]
+
+        def run(name, cli, args, retest=(), dump=False):
+            out_dir = os.path.join(root, name)
+            extra = ["--dump_ranks", os.path.join(root, f"{name}.npz")] if dump else []
+            t0 = time.perf_counter()
+            metrics = cli.main(base + args + ["--output_dir", out_dir] + extra)
+            seconds = time.perf_counter() - t0
+            if not all(math.isfinite(v) for v in metrics.values()) \
+                    or not 0.0 < metrics["mrr"] <= 1.0:
+                raise AssertionError(f"cli_kge {name}: metrics {metrics}")
+            again = cli.main(base + args + list(retest) + [
+                "--eval_only", "--ckpt", os.path.join(out_dir, "ckpt"),
+                "--output_dir", out_dir + "_again"]
+                + (["--dump_ranks", os.path.join(root, f"{name}_again.npz")] if dump else []))
+            if again != metrics:
+                raise AssertionError(f"cli_kge {name}: --eval_only gave {again}, the fit "
+                                     f"{metrics}")
+            row = dict(seconds=seconds, mrr=metrics["mrr"], eval_only_identical=True)
+            if dump:
+                a, b = (np.load(os.path.join(root, f"{n}.npz")) for n in (name, f"{name}_again"))
+                if not (np.array_equal(a["ranks"], b["ranks"])
+                        and np.array_equal(a["tie"], b["tie"]) and (a["tie"] >= 1).all()):
+                    raise AssertionError(f"cli_kge {name}: the dumps differ")
+                row["ties_above_1"] = int((a["tie"] > 1).sum())
+            out[name] = row
+            return out_dir
+
+        pre = run("ikrl", ikrl, ["--dim", "400", "--nbatches", "4", "--train_times", "3"])
+        run("ikrl_ft", ikrl, ["--dim", "400", "--finetune", "--finetune_epochs", "2",
+                              "--finetune_bsz", "32", "--ckpt", os.path.join(pre, "ckpt")],
+            dump=True)
+        in_path = os.path.join(root, "openke")
+        write_id_files(in_path, MarKG(markg))
+        run("ikrl_native", ikrl, ["--dim", "400", "--nbatches", "4", "--train_times", "3",
+                                  "--use_native_sampler", "--in_path", in_path])
+        run("rsme", rsme, ["--model", "ComplEx", "--max_epochs", "4", "--valid", "4",
+                           "--batch_size", "100"])
+        run("rsme_ft", rsme, ["--model", "Analogy", "--finetune", "--max_epochs", "2",
+                              "--batch_size", "32"], dump=True)
+    emit(dict(phase="cli_kge", **out))
+
+
 # (name, source of the main paths' kernel, source of the fp32 route's or
 # None, line of the Pallas kernel body it replaces)
 FLASH_KERNELS = {
@@ -2636,6 +3118,12 @@ def main() -> int:
                for n in (launches["single_fwd"], launches["single_bwd"])) \
             or not vil["single_fwd_d128"] or not vil["single_bwd_d128"]:
         raise AssertionError(f"the region path launched no kernel somewhere: {region_launches}")
+    # the KGE silos: plain PyTorch (no TPU kernel lies on their path)
+    kge = kge_data()
+    kge_ikrl_phase(device, kge)
+    kge_rsme_phase(device, kge)
+    del kge
+    cli_kge_phase()
     region_d64 = {k: sum(r[k] - r[f"{k}_d128"] for r in region_launches.values())
                   for k in ("single_fwd", "single_bwd")}
     d128_rows = [r for r in region_rows if r["head_dim"] == 128]

@@ -4,8 +4,10 @@
 (``jax.device_get`` of the tree), onto the ``state_dict()`` names of the
 port's module of the same name: ``UnimoForMaskedLM``, ``ViltForMaskedLM``,
 ``FlavaForMaskedLM``, ``VisualBertForMaskedLM``, ``VilBertForMaskedLM``,
-``VGG16Features``, ``ViTClassifier``, ``ResNet50Features``. The port names its parameters after the Flax tree, so
-the map is mechanical (the same transposes as
+``VGG16Features``, ``ViTClassifier``, ``ResNet50Features``, and the KGE
+models ``IKRLTransE``, ``IKRLAnalogy``, ``TransAETransE``, ``RSMEModel`` and
+``CPModel``. The port names its parameters after the Flax tree, so the map
+is mechanical (the same transposes as
 ``mkg_analogy_tpu/models/export_torch.py:37``):
 
 - a Dense ``kernel`` (in, out) becomes a Linear ``weight`` (out, in);
@@ -14,6 +16,8 @@ the map is mechanical (the same transposes as
 - a LayerNorm or BatchNorm ``scale`` becomes ``weight``; a BatchNorm's
   ``mean`` and ``var`` of the ``batch_stats`` collection become
   ``running_mean`` and ``running_var`` beside it;
+- the KGE models' ``frozen`` collection (feature tables, the forget gate)
+  becomes the buffers of the same names;
 - everything else (embeddings, ``mlm_bias``, ``adaptive_w0/w1``, class
   tokens, biases) keeps its name and layout.
 
@@ -43,12 +47,13 @@ def _flatten(tree: Dict[str, Any], prefix: str = ""):
 
 
 def params_from_jax(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-    """Flax variables (``{"params": ..., "batch_stats": ...}``, or the inner
-    params dict) -> the port's state_dict (fp32 tensors), for
-    ``load_state_dict``: ``strict=True`` holds for every module but those
-    with BatchNorm, whose ``num_batches_tracked`` counters Flax does not
-    have."""
-    collections = [tree[c] for c in ("params", "batch_stats") if c in tree] or [tree]
+    """Flax variables (``{"params": ..., "batch_stats": ...}``, ``{"params":
+    ..., "frozen": ...}``, or the inner params dict) -> the port's
+    state_dict (fp32 tensors), for ``load_state_dict``: ``strict=True`` holds
+    for every module but those with BatchNorm, whose ``num_batches_tracked``
+    counters Flax does not have."""
+    collections = [tree[c] for c in ("params", "batch_stats", "frozen")
+                   if c in tree] or [tree]
     sd: Dict[str, torch.Tensor] = {}
     for collection in collections:
         for path, value in _flatten(collection):

@@ -144,3 +144,16 @@ def make_optimizer(
         lr, max(1, total_steps // max(1, grad_accum_steps)), warmup_ratio)
     return Optimizer(model, schedule, weight_decay, eps=eps,
                      accumulate=grad_accum_steps, max_grad_norm=max_grad_norm)
+
+
+def torch_adagrad(params, lr: float, eps: float = 1e-10,
+                  initial_accumulator_value: float = 0.0) -> torch.optim.Adagrad:
+    """The JAX package's ``torch_adagrad`` (RSME, and ``KGETrainer``'s
+    ``adagrad``): ``p -= lr * g / (sqrt(acc) + eps)`` with ``acc += g * g``
+    first, eps OUTSIDE the sqrt and a zero accumulator. That is exactly what
+    ``torch.optim.Adagrad(lr, lr_decay=0, eps=1e-10,
+    initial_accumulator_value=0)`` computes, which this returns. Its first
+    step is ``lr * g / (|g| + eps)``: ``lr * sign(g)`` wherever |g| is well
+    above eps."""
+    return torch.optim.Adagrad(params, lr=lr, eps=eps,
+                               initial_accumulator_value=initial_accumulator_value)

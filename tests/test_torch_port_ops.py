@@ -154,7 +154,19 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                       "models/vilt.py", "models/flava.py", "tools/encode_images.py",
                       "tools/__init__.py", "models/visualbert.py", "models/vilbert.py",
                       "models/export_torch.py", "models/import_torch.py",
-                      "models/registry.py", "models/convert.py"}
+                      "models/registry.py", "models/convert.py",
+                      "kge/__init__.py", "kge/scorers.py", "kge/sampling.py",
+                      "kge/ikrl.py", "kge/pvdm.py", "kge/transae.py", "kge/trainer.py",
+                      "kge/eval.py", "kge/rsme.py", "native/__init__.py", "native/api.py",
+                      "native/build.py", "cli/ikrl.py", "cli/rsme.py"}
     bad = [(str(f.relative_to(ROOT)), name) for f in files for name in _imports(f)
            if name.split(".")[0] in FORBIDDEN]
     assert not bad, bad
+    # the native sampler builds from the port's own source into build/native
+    from mkg_analogy_tpu_torch.native import build as native_build
+
+    port = ROOT / "mkg_analogy_tpu_torch"
+    assert native_build.SRC.parent == port / "native"
+    assert native_build.library_path().parent == ROOT / "build" / "native"
+    for f in (port / "native").glob("*.py"):
+        assert "mkg_analogy_tpu/" not in f.read_text(), f
