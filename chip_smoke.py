@@ -138,21 +138,35 @@ exits non-zero:
                 stream at head_dim 64; fp32 and bf16, dropout 0 and 0.1, at
                 the bars of rows 1-2 (the fp32 all-masked rows at head_dim
                 128 among them, ``fp32_masked_rows``); times, plain and SDPA
-                times, bounds, registers and spills; the flash kernels'
-                refusal of head_dim 128;
+                times, bounds, registers and spills;
+    flash_d128_kernel — rows 3-5 at head_dim 128: the six instances (the
+                three flash kernels, fp32 on the CUDA cores and bf16 on the
+                tensor cores) against their plain versions at
+                FLASH_D128_SHAPES (ViLBERT's visual stream, B=64, 72 x 72,
+                with and without the analogy geometry; two Q tiles, 512 x
+                512, B=8; a ragged second K tile, 99 x 611, B=8; L=2048,
+                B=8), fp32 and bf16, dropout 0 and 0.1, at the flash bars;
+                each instance's time, the plain and SDPA times, the bounds
+                of each dtype, registers and spills;
 18. visualbert, vilbert — a full-width fine-tune step of each region family
                 at its recipe (B=64, L=128, 72 regions of 2048): fp32
                 through the single-block kernels against the plain
                 attention (loss within 1e-5 relative, every gradient leaf
-                within its bound), then a bf16 forward and 6 bf16 steps
+                within its bound; ViLBERT also through the flash kernels,
+                at the same bars), then a bf16 forward and 6 bf16 steps
                 (12 + 12 launches a step for VisualBERT, 18 + 18 for
                 ViLBERT, 6 + 6 of them at head_dim 128): the loss falls,
-                step time and a device profile;
+                step time and a device profile; ViLBERT then 4 more steps
+                through the flash kernels (18 + 17 + 17 launches, 6 + 5 + 5
+                at head_dim 128, on the tensor cores): the loss falls, step
+                time, peak memory and a device profile;
 19. cli_region — the main path of the region slice: ``cli.main
                 --model_class VisualBertKGC|VilBertKGC --image_features
                 synthetic`` fine-tunes one epoch in bf16 at B=64 and tests,
-                ``--only_test --checkpoint`` reproduces the ranks; the
-                counts set to 0 before each family's run and read after it;
+                ``--only_test --checkpoint`` reproduces the ranks; then
+                ViLBERT so with ``--fused_attention flash`` (the head_dim-128
+                tensor-core flash kernels must be launched); the counts set
+                to 0 before each run and read after it;
 20. kge_ikrl  — the IKRL silo in fp32 on a synthetic MarKG at the real
                 counts (11,292 entities, 192 relations, 33,307 triples; a
                 (E+1, 4096) VGG store): IKRL TransE (d=400), IKRL ANALOGY
@@ -262,9 +276,16 @@ def time_ms(fn, samples=21, per_sample=10):
     return statistics.median(times)
 
 
+# substrings of the attention kernels' names (single-block and flash, either
+# route), whose device time device_profile sums
+ATTENTION_KERNELS = ("attention", "fwd_resident_kernel", "fwd_streaming_kernel", "dkv_kernel",
+                     "dq_kernel", "dq_resident_kernel", "dq_streaming_kernel")
+
+
 def device_profile(fn, top=12):
     """Device time of one call of ``fn`` by kernel name (torch.profiler):
-    the total and the ``top`` names with their ms and call counts."""
+    the total, the attention kernels' (ATTENTION_KERNELS) and the ``top``
+    names with their ms and call counts."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -280,6 +301,7 @@ def device_profile(fn, top=12):
             rows.append((e.key, us / 1e3, e.count))
     rows.sort(key=lambda r: -r[1])
     return dict(device_ms=sum(r[1] for r in rows),
+                attention_ms=sum(r[1] for r in rows if any(a in r[0] for a in ATTENTION_KERNELS)),
                 top=[dict(name=n[:90], ms=ms, calls=c) for n, ms, c in rows[:top]])
 
 
@@ -1004,35 +1026,38 @@ def flash_inputs(b, lq, lk, kind, geometry, dtype, device, seed):
     return q, k, v, go, mask.to(device), kw
 
 
-def flash_bound_times(kernel, b, lq, lk, dtype_bytes):
+def flash_bound_times(kernel, b, lq, lk, dtype_bytes, heads=HEADS, head_dim=HEAD_DIM,
+                      flops_per_s=BF16_FLOPS_PER_S):
     """(ms for the bytes, ms for the operations) of one call of a flash
     kernel: each input read once and each output written once over the HBM
     rate (q, k, v and the (B, heads, Lq) fp32 lse out for the forward; q, k,
     v, g, lse and delta in and dk, dv or dq out for the backward kernels;
     the fp32 mask and the int32 boundary), and the products it does, each
-    2·B·heads·Lq·Lk·64 flops (forward QKᵀ and PV: 2; dK/dV QKᵀ, dV, dP and
-    dK: 4; dQ QKᵀ, dP and dQ: 3) over the bf16 tensor-core peak."""
-    hd = HEADS * HEAD_DIM
-    stat = b * HEADS * lq * 4
+    2·B·heads·Lq·Lk·d flops (forward QKᵀ and PV: 2; dK/dV QKᵀ, dV, dP and
+    dK: 4; dQ QKᵀ, dP and dQ: 3) over ``flops_per_s`` (the bf16 tensor-core
+    peak by default)."""
+    hd = heads * head_dim
+    stat = b * heads * lq * 4
     small = b * lk * 4 + b * 4
     tensors, stats, products = {"fwd": ((2 * lq + 2 * lk), 1, 2),
                                 "dkv": ((2 * lq + 4 * lk), 2, 4),
                                 "dq": ((3 * lq + 2 * lk), 2, 3)}[kernel]
     nbytes = b * tensors * hd * dtype_bytes + stats * stat + small
-    flops = products * 2 * b * HEADS * lq * lk * HEAD_DIM
-    return nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS_PER_S * 1e3
+    flops = products * 2 * b * heads * lq * lk * head_dim
+    return nbytes / HBM_BYTES_PER_S * 1e3, flops / flops_per_s * 1e3
 
 
 def flash_dw_scales(fa, q, k, v, mask, go, lse, delta, bnd, w, geo, rate, seed,
-                    block_q=None, block_k=None):
+                    block_q=None, block_k=None, heads=HEADS, head_dim=HEAD_DIM):
     """sum |dS · S_raw| over each analogy region, walking the logical tiles
     (by default JAX's (256, 512)) as the plain backward does: the scale of
     the dw0/dw1 sums."""
     import torch
 
-    tiles = fa._Tiles(q.float(), k.float(), mask, HEADS, bnd, w, geo, rate, seed,
+    assert q.shape[2] == heads * head_dim
+    tiles = fa._Tiles(q.float(), k.float(), mask, heads, bnd, w, geo, rate, seed,
                       block_q or fa.BLOCK_Q, block_k or fa.BLOCK_K)
-    qh, kh, vh, gh = (fa._split_heads(x, HEADS, torch.float32) for x in (q, k, v, go))
+    qh, kh, vh, gh = (fa._split_heads(x, heads, torch.float32) for x in (q, k, v, go))
     scales = [0.0, 0.0]
     for qb in range(tiles.n_qblk):
         r0, r1 = tiles.rows(qb, q.shape[1])
@@ -1526,25 +1551,212 @@ def region_kernel_phase(device):
                               "fused_attention_fwd", "fused_attention_bwd")}
     emit(dict(phase="fp32_masked_rows", dtype="float32", head_dim=128, single=masked_fp32,
               resources_d128=resources))
-    flash_d128_refusal()
     return rows, max(masked_fp32.values())
 
 
-def flash_d128_refusal():
-    """The flash kernels take head_dim 64 only: at 128 the wrapper raises
-    and names the ROADMAP.md item that queues them; nothing falls back."""
+# The flash kernels at head_dim 128 (8 heads of 128: ViLBERT's visual stream
+# through --fused_attention flash): (name, B, Lq, Lk, key layout, geometry
+# or None as (row_start, text_len, offset), launches per ViLBERT step:
+# forward, backward). ViLBERT's 72 x 72 (a quarter of the rows missing one
+# image, a quarter both: rows whose keys are all masked), the same with the
+# analogy geometry (the two-rounding score of ScoreRule<128>), two Q tiles,
+# a ragged second K tile and L=2048 (8 x 4 logical tiles, streamed,
+# operations-bound).
+FLASH_D128_HEADS = 8
+FLASH_D128_SHAPES = [
+    ("vilbert_visual", 64, 72, 72, "regions", None, (6, 5)),
+    ("visual_geometry", 64, 72, 72, "regions", (1, None, 0), (0, 0)),
+    ("two_q_tiles", 8, 512, 512, "text", None, (0, 0)),
+    ("ragged_k", 8, 99, 611, "text", None, (0, 0)),
+    ("attention_2048", 8, 2048, 2048, "vision", None, (0, 0)),
+]
+FP32_FLOPS_PER_S = 67e12  # H100 SXM data sheet, fp32 outside the tensor cores
+
+
+def flash_d128_inputs(shape, dtype, device, seed):
+    """q, k, v, a cotangent, the (B, Lk) mask and the geometry keywords of a
+    FLASH_D128_SHAPES entry: "regions" the trainer's region mask (72 keys),
+    "text" keys padded to a random 40-100% of Lk, "vision" none padded."""
     import torch
 
-    from mkg_analogy_tpu_torch.kernels.flash_attention import flash_attention
-
-    q = torch.zeros(1, 8, 8 * 128, device="cuda", dtype=torch.bfloat16)
-    try:
-        flash_attention(q, q, q, torch.ones(1, 8, device="cuda"), 8)
-    except ValueError as err:
-        if "ROADMAP.md queue 2" not in str(err):
-            raise
+    _, b, lq, lk, layout, geometry, _ = shape
+    gen = torch.Generator().manual_seed(seed)
+    hd = FLASH_D128_HEADS * 128
+    q, k, v, go = (torch.randn(b, n, hd, generator=gen).to(device, dtype)
+                   for n in (lq, lk, lk, lq))
+    lens = torch.randint(int(0.4 * lk), lk + 1, (b,), generator=gen)
+    if layout == "regions":
+        mask = region_mask(b, lk)
+    elif layout == "text":
+        mask = (torch.arange(lk)[None] < lens[:, None]).float()
     else:
-        raise AssertionError("the flash kernels took head_dim 128")
+        mask = torch.ones(b, lk)
+    kw = {}
+    if geometry is not None:
+        row_start, geo_len, offset = geometry
+        kw = dict(boundary=(lens // 2).clamp(max=lq - 1).to(device, torch.int32),
+                  w0=torch.tensor([0.3], device=device), w1=torch.tensor([0.7], device=device),
+                  row_start=row_start, text_len=geo_len, offset=offset)
+    return q, k, v, go, mask.to(device), kw
+
+
+def flash_d128_counts():
+    from mkg_analogy_tpu_torch.kernels import flash_attention as fa
+
+    return {f"{k}_d128": getattr(fa, f"LAUNCHES_FLASH{n}_D128")
+            for k, n in (("fwd", ""), ("dkv", "_DKV"), ("dq", "_DQ"), ("fwd_mma", "_FWD_MMA"),
+                         ("dkv_mma", "_DKV_MMA"), ("dq_mma", "_DQ_MMA"))}
+
+
+def flash_d128_kernel_phase(device):
+    """The six head_dim-128 instances of the flash kernels (forward, dK/dV
+    and dQ; fp32 on the CUDA cores, bf16 on the tensor cores) against their
+    plain versions at FLASH_D128_SHAPES, 8 heads of 128, dropout 0 and 0.1
+    (the same seed, so the masks must agree), at the bars of the head_dim-64
+    flash kernels (flash_kernel_phase): forward 2e-5 fp32 / 2e-2 bf16
+    absolute, lse 1e-5 (two fp32 ulps at -1e4 on rows whose keys are all
+    masked), dq, dk and dv 2e-5 fp32 / 2^-7 bf16 of each result's largest
+    |value|, dw 1e-5 of its sum of |terms|. Every launch must be counted in
+    its ``_D128`` count, the tensor-core ones in bf16 alone. Then per shape
+    the times of the six instances, the plain forward and backward (bf16),
+    SDPA's forward and backward (forward-and-backward minus forward) with
+    the padding mask as a bias where no multiplier applies, the bounds of
+    each dtype (bf16 operations over the tensor cores' peak, fp32 over the
+    CUDA cores'), and what ptxas said of the head_dim-128 instances."""
+    import torch
+    import torch.nn.functional as F
+
+    from mkg_analogy_tpu_torch.kernels import build
+    from mkg_analogy_tpu_torch.kernels import flash_attention as fa
+
+    heads = FLASH_D128_HEADS
+    rows, masked = [], {}
+    for shape in FLASH_D128_SHAPES:
+        name, b, lq, lk, layout, geometry, per_step = shape
+        row = dict(shape=name, B=b, Lq=lq, Lk=lk, heads=heads, head_dim=128,
+                   geometry=geometry, keys=layout, launches_per_vilbert_step=list(per_step),
+                   tiles=list(fa._blocks(lq, lk, fa.BLOCK_Q, fa.BLOCK_K)))
+        for tag, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+            for rate in (0.0, 0.1):
+                key = f"{tag}{'_dropout' if rate else ''}"
+                q, k, v, go, mask, kw = flash_d128_inputs(shape, dtype, device, lq + lk)
+                kw = dict(kw, compute_dtype=dtype, dropout_rate=rate,
+                          deterministic=rate == 0.0, dropout_seed=4321)
+                args = (heads, *resolve_geometry(fa, q, kw, rate, 4321),
+                        fa.BLOCK_Q, fa.BLOCK_K)
+                before = flash_d128_counts()
+                out, lse = fa._launch_fwd(q, k, v, mask, *args)
+                delta = fa._delta(go, out, heads)
+                got = fa._launch_bwd(q, k, v, mask, go, lse, delta, *args)
+                mma = int(dtype == torch.bfloat16)
+                want_counts = {c: n + (mma if "mma" in c else 1) for c, n in before.items()}
+                if flash_d128_counts() != want_counts:
+                    raise AssertionError(f"flash d128 {name} {key}: launches {before} -> "
+                                         f"{flash_d128_counts()}")
+                want_out, want_lse = fa._plain_fwd(q, k, v, mask, *args[:6], dtype, *args[6:])
+                want = fa.flash_attention_bwd_reference(q, k, v, mask, go, heads, out=out,
+                                                        lse=lse, **kw)
+                torch.cuda.synchronize()
+                err = (out.float() - want_out.float()).abs().max().item()
+                keys = mask.any(dim=1)
+                lse_err = (lse[keys] - want_lse[keys]).abs().max().item()
+                lse_err_masked = ((lse[~keys] - want_lse[~keys]).abs().max().item()
+                                  if (~keys).any() else 0.0)
+                row[f"fwd_max_abs_err_{key}"] = err
+                row[f"lse_max_abs_err_{key}"] = lse_err
+                row[f"lse_max_abs_err_masked_rows_{key}"] = lse_err_masked
+                bar = 2e-5 if dtype == torch.float32 else 2e-2
+                if not (err <= bar and lse_err <= 1e-5 and lse_err_masked <= 2.0 ** -9):
+                    raise AssertionError(f"flash d128 fwd {name} {key}: out {err} > {bar} or "
+                                         f"lse {lse_err} > 1e-5 or {lse_err_masked} > 2^-9")
+                bar = 2e-5 if dtype == torch.float32 else 2.0 ** -7
+                for t_name, a, c in zip(("dq", "dk", "dv"), got[:3], want[:3]):
+                    err = (a.float() - c.float()).abs().max().item()
+                    top = c.float().abs().max().item()
+                    row[f"max_abs_err_{t_name}_{key}"] = err
+                    if not (math.isfinite(err) and err <= bar * top):
+                        raise AssertionError(f"flash d128 bwd {name} {key} {t_name}: {err} > "
+                                             f"{bar} * {top}")
+                if geometry is not None:
+                    scales = flash_dw_scales(fa, q, k, v, mask, go, lse, delta, *args[1:6],
+                                             heads=heads, head_dim=128)
+                    for i in range(2):
+                        err = abs(got[3][i].item() - want[3][i].item())
+                        row[f"dw{i}_err_{key}"] = err
+                        if not err <= 1e-5 * scales[i]:
+                            raise AssertionError(f"flash d128 bwd {name} {key} dw{i}: {err} "
+                                                 f"> 1e-5 * {scales[i]}")
+                elif got[3].abs().max().item() != 0.0:
+                    raise AssertionError(f"flash d128 bwd {name}: dw without a geometry")
+                if tag == "fp32" and not keys.all():
+                    masked.update({f"{name}_{n}": e for n, e in row.items() if n.endswith(key)
+                                   and n.startswith(("fwd_max_abs_err", "max_abs_err"))})
+                del q, k, v, go, out, lse, delta, got, want, want_out
+        n = dict(samples=7, per_sample=3) if lq >= 2048 else {}
+        for tag, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+            rate = 0.1 if layout == "regions" else 0.0  # the visual stream trains with dropout
+            q, k, v, go, mask, kw = flash_d128_inputs(shape, dtype, device, seed=7)
+            kw = dict(kw, compute_dtype=dtype, dropout_rate=rate,
+                      deterministic=rate == 0.0, dropout_seed=99)
+            args = (heads, *resolve_geometry(fa, q, kw, rate, 99), fa.BLOCK_Q, fa.BLOCK_K)
+            out, lse = fa._launch_fwd(q, k, v, mask, *args)
+            delta = fa._delta(go, out, heads)
+            sfx = "" if tag == "bf16" else "_fp32"
+            row[f"fwd_ms{sfx}"] = time_ms(lambda: fa._launch_fwd(q, k, v, mask, *args), **n)
+            row[f"dkv_ms{sfx}"] = time_ms(lambda: fa._launch_bwd_dkv(
+                q, k, v, mask, go, lse, delta, *args), **n)
+            row[f"dq_ms{sfx}"] = time_ms(lambda: fa._launch_bwd_dq(
+                q, k, v, mask, go, lse, delta, *args), **n)
+            for kernel in ("fwd", "dkv", "dq"):
+                t_bytes, t_ops = flash_bound_times(
+                    kernel, b, lq, lk, 2 if tag == "bf16" else 4, heads=heads, head_dim=128,
+                    flops_per_s=BF16_FLOPS_PER_S if tag == "bf16" else FP32_FLOPS_PER_S)
+                row[f"{kernel}_bytes_ms{sfx}"], row[f"{kernel}_operations_ms{sfx}"] = (
+                    t_bytes, t_ops)
+                row[f"{kernel}_bound_ms{sfx}"] = max(t_bytes, t_ops)
+                row[f"{kernel}_bound_by{sfx}"] = bound_by(t_bytes, t_ops)
+            if tag == "fp32":
+                continue
+            row["fwd_design"] = ("resident" if row["tiles"][3] == 1 and lk <= 128
+                                 else "streaming")
+            row["plain_fwd_ms"] = time_ms(
+                lambda: fa.flash_attention_reference(q, k, v, mask, heads, **kw), **n)
+            row["plain_bwd_ms"] = time_ms(lambda: fa.flash_attention_bwd_reference(
+                q, k, v, mask, go, heads, out=out, lse=lse, **kw), **n)
+            row["library_fwd_ms"] = row["library_bwd_ms"] = None
+            if geometry is not None:
+                row["library_note"] = "no single PyTorch call applies the analogy multiplier"
+            else:
+                def split(x):
+                    return x.view(b, x.shape[1], heads, 128).transpose(1, 2)
+
+                qh, kh, vh = (split(x).detach().requires_grad_(True) for x in (q, k, v))
+                gh = split(go)
+                bias = None
+                if layout != "vision":
+                    bias = ((1.0 - mask) * -10000.0).to(torch.bfloat16)[:, None, None, :]
+
+                def sdpa():
+                    return F.scaled_dot_product_attention(qh, kh, vh, attn_mask=bias,
+                                                          dropout_p=0.0)
+
+                def sdpa_fwd_bwd():
+                    torch.autograd.grad(sdpa(), (qh, kh, vh), gh)
+
+                row["library_fwd_ms"] = time_ms(sdpa, **n)
+                row["library_bwd_ms"] = time_ms(sdpa_fwd_bwd, **n) - row["library_fwd_ms"]
+                row["library_note"] = ("SDPA without dropout" + (" with the padding mask as "
+                                       "a bias" if bias is not None else ""))
+            del q, k, v, go, out, lse, delta
+        rows.append(row)
+        emit(dict(phase="flash_d128_kernel", **row))
+        torch.cuda.empty_cache()
+    resources = {name: [r for r in build.resource_usage(name) if "Li128E" in r["entry"]]
+                 for name in ("flash_attention_fwd_mma", "flash_attention_bwd_mma",
+                              "flash_attention_fwd", "flash_attention_bwd")}
+    emit(dict(phase="flash_d128_resources", resources_d128=resources,
+              fp32_masked_rows=masked))
+    return rows, max(masked.values())
 
 
 class _PretrainVocab:
@@ -1603,6 +1815,9 @@ def reset_counts():
     attn.LAUNCHES_D128 = attn.LAUNCHES_BWD_D128 = 0
     fa.LAUNCHES_FLASH = fa.LAUNCHES_FLASH_DKV = fa.LAUNCHES_FLASH_DQ = 0
     fa.LAUNCHES_FLASH_FWD_MMA = fa.LAUNCHES_FLASH_DKV_MMA = fa.LAUNCHES_FLASH_DQ_MMA = 0
+    fa.LAUNCHES_FLASH_D128 = fa.LAUNCHES_FLASH_DKV_D128 = fa.LAUNCHES_FLASH_DQ_D128 = 0
+    fa.LAUNCHES_FLASH_FWD_MMA_D128 = fa.LAUNCHES_FLASH_DKV_MMA_D128 = 0
+    fa.LAUNCHES_FLASH_DQ_MMA_D128 = 0
     ip.LAUNCHES_RESIZE = 0
 
 
@@ -2140,7 +2355,8 @@ def all_counts():
     return dict(single_fwd=attn.LAUNCHES, single_bwd=attn.LAUNCHES_BWD,
                 single_fwd_d128=attn.LAUNCHES_D128, single_bwd_d128=attn.LAUNCHES_BWD_D128,
                 **{f"flash_{k}": n for k, n in flash_counts().items()},
-                **{f"flash_{k}_mma": n for k, n in flash_mma_counts().items()})
+                **{f"flash_{k}_mma": n for k, n in flash_mma_counts().items()},
+                **{f"flash_{k}": n for k, n in flash_d128_counts().items()})
 
 
 # The two families that read the tool's pixel stores, at the recipes of
@@ -2159,10 +2375,14 @@ def all_counts():
 # which the plain route sends to the flash kernels. ``backend``: the card's
 # default (models/registry.py). ``fp32``: the kernels of the fp32 step
 # (the single-block ones hold 400 keys in fp32, fewer than the pixel
-# families attend over).
+# families attend over). ``also_flash``: the bf16 steps also run through
+# the flash kernels, the other route the family could take (for ViLBERT,
+# whose visual stream is at head_dim 128, its fp32 step too, against the
+# plain attention, and a CLI fit with --fused_attention flash).
 FAMILIES = {
     "vilt": dict(model_class="ViltKGC", batch=32, image=384, alpha=0.3, lr=4e-5,
-                 stats="vilt", backend="single", calls=12, auto_flash=0, fp32="flash"),
+                 stats="vilt", backend="single", calls=12, auto_flash=0, fp32="flash",
+                 also_flash=True),
     "flava": dict(model_class="FlavaKGC", batch=24, image=224, alpha=0.45, lr=5e-5,
                   stats="clip", backend="flash", calls=30, auto_flash=6, fp32="flash"),
 }
@@ -2171,24 +2391,28 @@ REGION_FAMILIES = {
                        lr=5e-5, backend="single", calls=12, auto_flash=0, fp32="single"),
     "vilbert": dict(model_class="VilBertKGC", batch=64, image=None, alpha=0.43, lr=5e-5,
                     backend="single", calls=18, d128=6, unread=1, auto_flash=0,
-                    fp32="single"),
+                    fp32="single", also_flash=True),
 }
 
 
 def family_counts(backend, calls, backward=True, bf16=True, d128=0, unread=0):
     """all_counts of a step (or a forward) through ``backend``; in bf16 the
-    flash kernels run on the tensor cores; ``d128`` of the single-block
-    calls are at head_dim 128, ``unread`` of those have no backward."""
+    flash kernels run on the tensor cores; ``d128`` of the calls are at
+    head_dim 128, ``unread`` of those have no backward."""
     n_b = calls - unread if backward else 0
+    d128_b = d128 - unread if backward else 0
     zero = dict(single_fwd=0, single_bwd=0, single_fwd_d128=0, single_bwd_d128=0,
-                flash_fwd=0, flash_dkv=0, flash_dq=0,
-                flash_fwd_mma=0, flash_dkv_mma=0, flash_dq_mma=0)
+                **{f"flash_{k}{m}{w}": 0 for k in ("fwd", "dkv", "dq") for m in ("", "_mma")
+                   for w in ("", "_d128")})
     if backend == "single":
         return dict(zero, single_fwd=calls, single_bwd=n_b, single_fwd_d128=d128,
-                    single_bwd_d128=d128 - unread if backward else 0)
-    n_mma = n_b if bf16 else 0
+                    single_bwd_d128=d128_b)
+    mma = int(bf16)
     return dict(zero, flash_fwd=calls, flash_dkv=n_b, flash_dq=n_b,
-                flash_fwd_mma=calls if bf16 else 0, flash_dkv_mma=n_mma, flash_dq_mma=n_mma)
+                flash_fwd_mma=calls * mma, flash_dkv_mma=n_b * mma, flash_dq_mma=n_b * mma,
+                flash_fwd_d128=d128, flash_dkv_d128=d128_b, flash_dq_d128=d128_b,
+                flash_fwd_mma_d128=d128 * mma, flash_dkv_mma_d128=d128_b * mma,
+                flash_dq_mma_d128=d128_b * mma)
 
 
 def family_phase(device, name):
@@ -2257,6 +2481,11 @@ def family_phase(device, name):
             plan = (("kernels", "single", 0.1, ("single", calls)),
                     ("plain", "plain", 0.1, ("single", 0)))
             pairs = (("kernels", "plain"),)
+            if fam.get("also_flash"):
+                # every call of L=128 and 72 is one logical tile, whose
+                # dropout seed is the single block's: the same masks
+                plan += (("flash", "flash", 0.1, ("flash", calls)),)
+                pairs += (("flash", "plain"),)
         else:
             plan = (("kernels", "flash", 0.1, ("flash", calls)),
                     ("flash_plain", "flash_plain", 0.1, ("flash", 0)),
@@ -2304,6 +2533,16 @@ def family_phase(device, name):
         grad_leaves=len(runs["kernels"][1]), leaves_without_gradient=len(no_grad),
         worst_err_over_bar=worst, worst_leaf=worst_name,
         launches=family_counts(fam["fp32"], calls, bf16=False, **d128))
+    if "flash" in runs:
+        worst_flash, worst_flash_name = leaf_ratios(runs["flash"][1], runs["plain"][1])
+        if not worst_flash <= 1.0:
+            raise AssertionError(f"{name} fp32 grad {worst_flash_name}: flash vs plain at "
+                                 f"{worst_flash} of the bar")
+        out["fp32"]["through_flash"] = dict(
+            loss_kernels=runs["flash"][0], loss_reference=runs["plain"][0],
+            loss_rel_diff=abs(runs["flash"][0] - runs["plain"][0]) / abs(runs["plain"][0]),
+            worst_err_over_bar=worst_flash, worst_leaf=worst_flash_name,
+            launches=family_counts("flash", calls, bf16=False, **d128))
     if fam["fp32"] == "flash":
         lk, lp = runs["flash_nodrop"][0], runs["plain_nodrop"][0]
         out["fp32"].update(
@@ -2351,30 +2590,39 @@ def family_phase(device, name):
     if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
         raise AssertionError(f"{name} bf16 loss did not fall: {losses}")
     step_ms = statistics.median(times[2:])
+    profile = device_profile(lambda: trainer._train_step(opt, batch, 6), top=12)
     out["bf16"] = dict(backend=fam["backend"], losses=losses, step_ms=times,
                        median_step_ms=step_ms, examples_per_sec=b / step_ms * 1e3,
                        launches_per_step=expect,
                        peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
-                       device_profile_step=device_profile(
-                           lambda: trainer._train_step(opt, batch, 6), top=12))
-    if name == "vilt":
+                       idle_share=1.0 - profile["device_ms"] / step_ms,
+                       device_profile_step=profile)
+    if fam.get("also_flash"):
         # the same model and optimizer state through the flash kernels: which
         # route is the faster default at this family's lengths
         set_backend(model, "flash")
-        flash_times = []
-        for step in range(6, 10):
+        torch.cuda.reset_peak_memory_stats()
+        flash_times, flash_losses = [], []
+        for step in range(7, 11):
             reset_counts()
             t0 = time.perf_counter()
-            trainer._train_step(opt, batch, step)
+            metrics = trainer._train_step(opt, batch, step)
             torch.cuda.synchronize()
             flash_times.append((time.perf_counter() - t0) * 1e3)
-            if all_counts() != family_counts("flash", calls):
+            if all_counts() != family_counts("flash", calls, **d128):
                 raise AssertionError(f"{name} bf16 flash step: launches {all_counts()}")
+            flash_losses.append(metrics["loss"].item())
+        if not all(math.isfinite(x) for x in flash_losses) \
+                or not flash_losses[-1] < flash_losses[0]:
+            raise AssertionError(f"{name} bf16 loss through flash did not fall: {flash_losses}")
+        flash_ms = statistics.median(flash_times[1:])
+        profile = device_profile(lambda: trainer._train_step(opt, batch, 11), top=6)
         out["bf16_through_flash"] = dict(
-            step_ms=flash_times, median_step_ms=statistics.median(flash_times[1:]),
-            device_profile_step=device_profile(
-                lambda: trainer._train_step(opt, batch, 10), top=6))
-        set_backend(model, "single")
+            step_ms=flash_times, median_step_ms=flash_ms, losses=flash_losses,
+            launches_per_step=family_counts("flash", calls, **d128),
+            peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+            idle_share=1.0 - profile["device_ms"] / flash_ms, device_profile_step=profile)
+        set_backend(model, fam["backend"])
     emit(dict(phase=name, B=b, L=128, image_size=fam["image"], **out))
     del model, trainer, opt
     torch.cuda.empty_cache()
@@ -2469,9 +2717,12 @@ def cli_region_phase():
     built on the card from a seeded generator) fine-tunes one epoch in bf16
     at the recipes' batch (128 examples: 2 steps at B=64), evaluates dev
     (1 batch) and test (2 batches at B=128) and tests the best-dev
-    checkpoint; ``--only_test --checkpoint`` reproduces the ranks. The
-    counts are set to 0 just before each family's fit and read just after
-    it; ViLBERT's head_dim-128 launches must be among them."""
+    checkpoint; ``--only_test --checkpoint`` reproduces the ranks. Then
+    ViLBERT once more with ``--fused_attention flash`` (``vilbert_flash``):
+    its text layers launch the head_dim-64 flash kernels, its visual layers
+    the head_dim-128 ones, on the tensor cores. The counts are set to 0 just
+    before each fit and read just after it; ViLBERT's head_dim-128 launches
+    must be among them."""
     import numpy as np
     import torch
 
@@ -2479,14 +2730,17 @@ def cli_region_phase():
 
     n_train, n_test = 128, 200
     runs = {}
+    plan = [(name, fam, []) for name, fam in REGION_FAMILIES.items()]
+    plan.append(("vilbert_flash", dict(REGION_FAMILIES["vilbert"], backend="flash"),
+                 ["--fused_attention", "flash"]))
     with tempfile.TemporaryDirectory(prefix="chip_smoke_region_cli_", dir=".") as root:
         markg, mars = write_dataset(root, n_train=n_train, n_test=n_test)
-        for name, fam in REGION_FAMILIES.items():
+        for name, fam, route in plan:
             def argv(out_dir, *extra):
                 return ["--data_dir", mars, "--pretrain_path", markg, "--device", "cuda",
                         "--model_class", fam["model_class"], "--image_features", "synthetic",
                         "--dtype", "bfloat16", "--max_seq_length", "128",
-                        "--eval_batch_size", "128",
+                        "--eval_batch_size", "128", *route,
                         "--output_dir", out_dir, "--log_dir", os.path.join(root, f"logs_{name}"),
                         "--cache_dir", os.path.join(root, "cache"), *extra]
 
@@ -2520,8 +2774,9 @@ def cli_region_phase():
             with open(os.path.join(root, f"logs_{name}", "train_metrics.jsonl")) as f:
                 epoch = next(r for r in map(json.loads, f) if "train/examples_per_sec" in r)
             runs[name] = dict(
-                batch_size=fam["batch"], steps=steps, launches=launches, seconds=seconds,
-                test_mrr=metrics["Eval_entity/mrr"], test_hits10=metrics["Eval_entity/hits10"],
+                backend=fam["backend"], batch_size=fam["batch"], steps=steps, launches=launches,
+                seconds=seconds, test_mrr=metrics["Eval_entity/mrr"],
+                test_hits10=metrics["Eval_entity/hits10"],
                 examples_per_sec_after_step_1=epoch["train/examples_per_sec"],
                 last_loss=epoch["train/last_loss"], retest_ranks_identical=True)
             torch.cuda.empty_cache()
@@ -3110,13 +3365,16 @@ def main() -> int:
         raise AssertionError("the image path launched no kernel somewhere: tool "
                              f"{tool_launches}, fine-tune {image_launches}")
     region_rows, d128_masked_err = region_kernel_phase(device)
+    flash_d128_rows, flash_d128_masked_err = flash_d128_kernel_phase(device)
     for name in REGION_FAMILIES:
         family_phase(device, name)
     region_launches = cli_region_phase()
-    vil = region_launches["vilbert"]
-    if not all(n for launches in region_launches.values()
-               for n in (launches["single_fwd"], launches["single_bwd"])) \
-            or not vil["single_fwd_d128"] or not vil["single_bwd_d128"]:
+    vil, vil_flash = region_launches["vilbert"], region_launches["vilbert_flash"]
+    if not all(region_launches[name][f"single_{k}"] for name in REGION_FAMILIES
+               for k in ("fwd", "bwd")) \
+            or not vil["single_fwd_d128"] or not vil["single_bwd_d128"] \
+            or not all(vil_flash[f"flash_{k}_mma{w}"] for k in ("fwd", "dkv", "dq")
+                       for w in ("", "_d128")):
         raise AssertionError(f"the region path launched no kernel somewhere: {region_launches}")
     # the KGE silos: plain PyTorch (no TPU kernel lies on their path)
     kge = kge_data()
@@ -3155,6 +3413,42 @@ def main() -> int:
             ms=visual[f"{pre}kernel_ms"] * n, plain_ms=visual[f"{pre}plain_ms"] * n,
             bound_ms=visual[f"{pre}bound_ms"] * n, bound_by=visual[f"{pre}bound_by"],
             library_ms=visual[f"{pre}library_ms"] * n, shapes=d128_rows)
+
+    def flash_d128_entry(kernel):
+        """A flash kernel's head_dim-128 instances: times and bounds of the
+        calls of one ViLBERT step at its visual stream (B=64, 72 x 72: 6
+        forward calls, 5 of each backward kernel; plain_ms the plain forward
+        or the plain backward, which computes dq, dk and dv in one walk,
+        library_ms SDPA's forward or its whole backward); launches the
+        ``--fused_attention flash`` CLI fit's; errors the largest over
+        FLASH_D128_SHAPES."""
+        name, source, source_fp32, line = FLASH_KERNELS[kernel]
+        visual = flash_d128_rows[0]
+        n = visual["launches_per_vilbert_step"][0 if kernel == "fwd" else 1]
+        grads = ("dq",) if kernel == "dq" else ("dk", "dv")
+
+        def errors(tag):
+            keys = [f"fwd_max_abs_err_{tag}"] if kernel == "fwd" else [
+                f"max_abs_err_{t}_{tag}" for t in grads]
+            return max(r[k_ + d] for r in flash_d128_rows for k_ in keys
+                       for d in ("", "_dropout"))
+
+        plain, library = ("plain_fwd_ms", "library_fwd_ms") if kernel == "fwd" else (
+            "plain_bwd_ms", "library_bwd_ms")
+        return dict(
+            name=f"{name}_d128", route="cuda", source=f"mkg_analogy_tpu_torch/csrc/{source}",
+            source_fp32=f"mkg_analogy_tpu_torch/csrc/{source_fp32}",
+            replaces=f"mkg_analogy_tpu/kernels/flash_attention.py:{line}", head_dim=128,
+            ok=True, launches=vil_flash[f"flash_{kernel}_mma_d128"], max_abs_err=errors("bf16"),
+            max_abs_err_fp32=errors("fp32"), max_abs_err_fp32_masked_rows=flash_d128_masked_err,
+            ms=visual[f"{kernel}_ms"] * n, ms_fp32=visual[f"{kernel}_ms_fp32"] * n,
+            plain_ms=visual[plain] * n, bound_ms=visual[f"{kernel}_bound_ms"] * n,
+            bound_by=visual[f"{kernel}_bound_by"],
+            bound_ms_fp32=visual[f"{kernel}_bound_ms_fp32"] * n,
+            library_ms=visual[library] * n,
+            shapes=[{k: v for k, v in r.items()
+                     if k.startswith((kernel, "shape", "B", "L", "tiles", "keys", "geometry",
+                                      plain, library))} for r in flash_d128_rows])
 
     def per_call_set(rows, key, n):
         return sum(r[key] * r[n] for r in rows)
@@ -3210,9 +3504,12 @@ def main() -> int:
     ), d128_entry("fwd", 124, vil["single_fwd_d128"]),
         d128_entry("bwd", 159, vil["single_bwd_d128"])] + [dict(flash_entry(flash_rows, kernel, flash_launches[f"{kernel}_mma"], flash_edges),
                launches_image_path=image_launches[f"flash_{kernel}_mma"],
+               launches_region_path=vil_flash[f"flash_{kernel}_mma"]
+               - vil_flash[f"flash_{kernel}_mma_d128"],
                max_abs_err_fp32_masked_rows=fp32_masked_row_err)
           # the bf16 main paths' launches, all on the tensor cores
-          for kernel in ("fwd", "dkv", "dq")] + [dict(
+          for kernel in ("fwd", "dkv", "dq")] + [
+        flash_d128_entry(kernel) for kernel in ("fwd", "dkv", "dq")] + [dict(
         name="resize_normalize", route="cuda",
         source="mkg_analogy_tpu_torch/csrc/resize_normalize.cu",
         replaces="mkg_analogy_tpu/kernels/image_prep.py:84",

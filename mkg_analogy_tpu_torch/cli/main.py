@@ -44,8 +44,8 @@ streamed in chunks of 64), in fp32 CUDA-core kernels that hold a head's
 whole K and V in shared memory. They take up to 717 keys in bf16 (where the
 route's limit has always been) and 400 in fp32 (shared memory) and raise
 above, naming the flash kernels: ViLT's L + 290 tokens fit in bf16 only.
-They take head_dim 64 and, for ViLBERT's 1024-wide visual stream, 128; the
-flash kernels take 64 only and raise at 128. ``--fused_attention 0`` runs
+Both kernel sets take head_dim 64 and, for ViLBERT's 1024-wide visual
+stream, 128, and raise at any other width. ``--fused_attention 0`` runs
 the plain PyTorch attention, except that a sequence of 512 or more takes
 the flash kernels, as in JAX. ``--export_torch <file>`` writes the fit's
 best MKGformerKGC weights as a reference-layout checkpoint

@@ -34,8 +34,8 @@
 // width) and as "depth x columns" (ldmatrix.trans, product_nn: P V, dS K,
 // P^T g, dS^T Q; 64 of the head's columns, so at D = 128 a block computes
 // one half of its head's result columns). Every helper that addresses a
-// tile takes D as its first template argument, 64 by default (the flash
-// kernels take 64 only).
+// tile takes D as its first template argument, 64 by default; the
+// single-block and the flash kernels instantiate both widths.
 //
 // Cast points live in the kernels, not here. fp32 inputs do not come this
 // way: TF32 keeps ~3 decimal digits and the fp32 kernels are held to 2e-5,

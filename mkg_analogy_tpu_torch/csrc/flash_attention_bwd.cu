@@ -16,7 +16,8 @@
 //   dw0 / dw1 = sum(dS * S_raw) over the two analogy regions
 //
 // with the cast points of the Pallas bodies (:233-254, :320), on the packed
-// (B, L, heads * 64) layout in and out. Every sum is fp32; q, k, v, g and the
+// (B, L, heads * D) layout in and out, D = 64 or 128 (ViLBERT's visual
+// stream), each width its own instantiation. Every sum is fp32; q, k, v, g and the
 // results are bf16 or fp32. The dropout masks are the forward's
 // (flash_attention_fwd.cu): the interpret-mode hash keyed to the logical
 // (bq, bk) tiles, idx = row_in_tile * bk + col_in_tile, tile seed
@@ -25,8 +26,8 @@
 // rows in chunks of any size and compute each (row, key) on its own. The
 // plain version is kernels/flash_attention.py:flash_attention_bwd_reference.
 //
-// What bounds it: at the main-path shapes (L <= 611, head_dim 64) bytes; at
-// L = 2048 the products (4 * Lq * Lk * 64 flops per (b, head) for dK/dV
+// What bounds it: at the main-path shapes (L <= 611) bytes; at L = 2048 the
+// products (4 * Lq * Lk * D flops per (b, head) for dK/dV
 // with its recomputed scores, 3 for dQ) pass the H100's balance point. A
 // Pallas grid carries sums from one step to the next; Hopper blocks carry
 // nothing, so the two kernels split the work by what they sum over, as the
@@ -37,7 +38,8 @@
 //     and dv columns in registers (lane l owns columns 2l and 2l+1); for each
 //     key, lane i computes rows i, i + 32, ...: s_raw, p, P_drop, dP, dS, the
 //     dw partials and dS_raw into per-warp shared rows, then every lane
-//     accumulates its columns over the chunk. Rows past Lq are never read
+//     accumulates its columns over the chunk (columns 2l and 2l+1 of each
+//     64: two at D = 64, four at 128). Rows past Lq are never read
 //     (JAX zeroes them to the same effect, :215-220). It writes one
 //     (dw0, dw1) partial per (b, head, key block), which the wrapper sums.
 //   - dQ: one block per (32 query rows, head, batch row). The block stages
@@ -46,10 +48,11 @@
 //     registers; for each row, lane j computes keys j, j + 32, ...: p, dP,
 //     dS_raw, then every lane accumulates its dq columns.
 // Both kernels form a score with the forward's operations in the forward's
-// order (the fmaf dot product, then __fmul_rn and one fmaf), so all three see
-// the same scores bit for bit. The products run on the CUDA cores (no
-// mma.sync, wgmma or TMA yet): a simple kernel that is right first.
-// head_dim is fixed at 64.
+// order (the fmaf dot product, then score()), so all three see the same
+// scores bit for bit. The products run on the CUDA cores (no mma.sync,
+// wgmma or TMA yet): a simple kernel that is right first. At D = 128 a
+// lane's key or query row takes 128 registers and the staged rows 178 KB
+// (dK/dV) and 174 KB (dQ) of shared memory, one block an SM.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -57,7 +60,6 @@
 
 namespace {
 
-constexpr int kHeadDim = 64;
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
 constexpr int kPerBlock = 32;          // keys per dK/dV block, rows per dQ block
@@ -118,13 +120,13 @@ __device__ __forceinline__ bool dropout_keep(uint32_t idx, uint32_t seed_mix,
   return x >= threshold;
 }
 
-// fp32 dot product of a row held in registers with a 64-wide row of T
-template <typename T>
+// fp32 dot product of a row held in registers with a D-wide row of T
+template <int D, typename T>
 __device__ __forceinline__ float dot_row(const float* a, const T* b) {
   constexpr int kVec = 16 / sizeof(T);
   float acc = 0.0f;
 #pragma unroll
-  for (int c = 0; c < kHeadDim; c += kVec) {
+  for (int c = 0; c < D; c += kVec) {
     float bf[kVec];
     load_chunk(b + c, bf);
 #pragma unroll
@@ -133,11 +135,11 @@ __device__ __forceinline__ float dot_row(const float* a, const T* b) {
   return acc;
 }
 
-template <typename T>
+template <int D, typename T>
 __device__ __forceinline__ void load_row(const T* p, float* f) {
   constexpr int kVec = 16 / sizeof(T);
 #pragma unroll
-  for (int c = 0; c < kHeadDim; c += kVec) load_chunk(p + c, f + c);
+  for (int c = 0; c < D; c += kVec) load_chunk(p + c, f + c);
 }
 
 // The analogy geometry of attention.py:_geometry_planes, per row: whether
@@ -168,12 +170,14 @@ struct Geometry {
   }
 };
 
-// s = s_raw (* w in the region) + bias in one FMA, as the plain version
-// rounds it (kernels/attention.py:_score, XLA's contraction inside the JAX
-// kernels); s_raw = acc * scale is exact at head_dim 64 (scale 2^-3), so
-// outside the region this is fmaf(acc, scale, bias)
-__device__ __forceinline__ float score(float s_raw, bool region, float w, float bias) {
-  return fmaf(s_raw, region ? w : 1.0f, bias);
+// The score of the fp32 product sum acc, as the plain version rounds it
+// (kernels/attention.py:_score): without a geometry fmaf(acc, scale, bias),
+// with one fmaf(s_raw, w in the region or 1, bias), s_raw = acc * scale
+// rounded first (flash_attention_fwd.cu says why both forms matter at 128).
+__device__ __forceinline__ float score(float acc, float scale, int has_geometry, bool region,
+                                       float w, float bias) {
+  if (!has_geometry) return fmaf(acc, scale, bias);
+  return fmaf(__fmul_rn(acc, scale), region ? w : 1.0f, bias);
 }
 
 // The logical tiles of the call, for the dropout masks.
@@ -192,10 +196,10 @@ struct Tiles {
   }
 };
 
-template <typename T>
+template <typename T, int D>
 struct Layout {
   static constexpr int kVec = 16 / sizeof(T);                // elements per 16 B
-  static constexpr int kStride = kHeadDim + kVec;            // padded smem row
+  static constexpr int kStride = D + kVec;                   // padded smem row
   // dK/dV: K and V of the block's keys, q and g of a row chunk, its lse
   // and delta, three fp32 rows per warp
   static constexpr size_t dkv_bytes =
@@ -208,13 +212,13 @@ struct Layout {
       size_t(kChunk) * sizeof(float) * (1 + 2 * kWarps);
 };
 
-// Stage `rows` rows of 64 elements from global memory (row stride hd) into
+// Stage `rows` rows of D elements from global memory (row stride hd) into
 // padded shared-memory rows.
-template <typename T>
+template <int D, typename T>
 __device__ __forceinline__ void stage(T* dst, const T* src, int rows, int hd) {
-  constexpr int kVec = Layout<T>::kVec;
-  constexpr int kStride = Layout<T>::kStride;
-  constexpr int kVecsPerRow = kHeadDim / kVec;
+  constexpr int kVec = Layout<T, D>::kVec;
+  constexpr int kStride = Layout<T, D>::kStride;
+  constexpr int kVecsPerRow = D / kVec;
   for (int i = threadIdx.x; i < rows * kVecsPerRow; i += kThreads) {
     const int j = i / kVecsPerRow, c = (i % kVecsPerRow) * kVec;
     *reinterpret_cast<uint4*>(dst + j * kStride + c) =
@@ -230,7 +234,7 @@ struct Args {
   Tiles tiles;
 };
 
-template <typename T>
+template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
 flash_attention_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                                const T* __restrict__ v, const T* __restrict__ g,
@@ -239,7 +243,8 @@ flash_attention_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                                const float* __restrict__ w, const float* __restrict__ lse,
                                const float* __restrict__ delta, T* __restrict__ dk,
                                T* __restrict__ dv, float* __restrict__ dw_part, Args a) {
-  constexpr int kStride = Layout<T>::kStride;
+  constexpr int kStride = Layout<T, D>::kStride;
+  constexpr int kPairs = D / 64;  // column pairs a lane owns: 2 lane + 64 c, c < kPairs
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ float dw_s[kWarps][2];
   T* ks = reinterpret_cast<T*>(smem_raw);
@@ -255,12 +260,12 @@ flash_attention_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   const int h = blockIdx.y, b = blockIdx.z;
   const int lq = a.lq, lk = a.lk;
-  const int hd = a.num_heads * kHeadDim;
-  const size_t head_off = size_t(h) * kHeadDim;
+  const int hd = a.num_heads * D;
+  const size_t head_off = size_t(h) * D;
   const int j_begin = blockIdx.x * kPerBlock;
   const int n_keys = min(kPerBlock, lk - j_begin);
-  stage(ks, k + (size_t(b) * lk + j_begin) * hd + head_off, n_keys, hd);
-  stage(vs, v + (size_t(b) * lk + j_begin) * hd + head_off, n_keys, hd);
+  stage<D>(ks, k + (size_t(b) * lk + j_begin) * hd + head_off, n_keys, hd);
+  stage<D>(vs, v + (size_t(b) * lk + j_begin) * hd + head_off, n_keys, hd);
 
   const Geometry geo{a.has_geometry, a.row_start, a.text_len,
                      a.has_geometry ? boundary[b] + a.offset : 0,
@@ -270,16 +275,19 @@ flash_attention_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const float* lse_bh = lse + (size_t(b) * a.num_heads + h) * lq;
   const float* delta_bh = delta + (size_t(b) * a.num_heads + h) * lq;
 
-  float k0[kPerWarp], k1[kPerWarp], v0[kPerWarp], v1[kPerWarp];
+  float2 kacc[kPerWarp][kPairs], vacc[kPerWarp][kPairs];
 #pragma unroll
-  for (int t = 0; t < kPerWarp; ++t) k0[t] = k1[t] = v0[t] = v1[t] = 0.0f;
+  for (int t = 0; t < kPerWarp; ++t) {
+#pragma unroll
+    for (int c = 0; c < kPairs; ++c) kacc[t][c] = vacc[t][c] = make_float2(0.0f, 0.0f);
+  }
   float dw0 = 0.0f, dw1 = 0.0f;  // this lane's partials
 
   for (int r0 = 0; r0 < lq; r0 += kChunk) {
     const int n = min(kChunk, lq - r0);
     __syncthreads();  // the row chunk is free (and ks / vs published)
-    stage(qs, q + (size_t(b) * lq + r0) * hd + head_off, n, hd);
-    stage(gs, g + (size_t(b) * lq + r0) * hd + head_off, n, hd);
+    stage<D>(qs, q + (size_t(b) * lq + r0) * hd + head_off, n, hd);
+    stage<D>(gs, g + (size_t(b) * lq + r0) * hd + head_off, n, hd);
     for (int i = threadIdx.x; i < n; i += kThreads) {
       lse_s[i] = lse_bh[r0 + i];
       delta_s[i] = delta_bh[r0 + i];
@@ -295,29 +303,30 @@ flash_attention_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const bool col_answer = geo.col_is_answer(j);
       // s_raw, P and P_drop for this key column, the key row in registers.
       {
-        float kf[kHeadDim];
-        load_row(ks + jl * kStride, kf);
+        float kf[D];
+        load_row<D>(ks + jl * kStride, kf);
         for (int i = lane; i < n; i += 32) {
           const int r = r0 + i;
           const RowGeometry rg = geo.row(r);
-          const float s_raw = __fmul_rn(dot_row(kf, qs + i * kStride), a.scale);
-          const float p =
-              expf(score(s_raw, rg.in_scope && col_answer, rg.w, bias) - lse_s[i]);
+          const float acc = dot_row<D>(kf, qs + i * kStride);
+          const float p = expf(score(acc, a.scale, a.has_geometry, rg.in_scope && col_answer,
+                                     rg.w, bias) -
+                               lse_s[i]);
           float p_drop = p;
           if (a.dropout) p_drop = tiles.keep(r, j) ? __fmul_rn(p, a.inv_keep) : 0.0f;
-          sraw_row[i] = s_raw;
+          sraw_row[i] = __fmul_rn(acc, a.scale);
           d_row[i] = p;
           pc_row[i] = round_to(p_drop, q);
         }
       }
       // dP, dS, the dw partials and dS_raw, the value row in registers.
       {
-        float vf[kHeadDim];
-        load_row(vs + jl * kStride, vf);
+        float vf[D];
+        load_row<D>(vs + jl * kStride, vf);
         for (int i = lane; i < n; i += 32) {
           const int r = r0 + i;
           const RowGeometry rg = geo.row(r);
-          float dp = dot_row(vf, gs + i * kStride);
+          float dp = dot_row<D>(vf, gs + i * kStride);
           if (a.dropout) dp = tiles.keep(r, j) ? __fmul_rn(dp, a.inv_keep) : 0.0f;
           float ds = d_row[i] * (dp - delta_s[i]);
           if (rg.in_scope && col_answer) {
@@ -332,24 +341,34 @@ flash_attention_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
         }
       }
       __syncwarp();
-      // dk and dv rows of this key: lane l owns columns 2l and 2l+1.
-      float x0 = k0[t], x1 = k1[t], y0 = v0[t], y1 = v1[t];
+      // dk and dv rows of this key: lane l owns columns 2l + 64 c and
+      // 2l + 1 + 64 c.
+      float2 x[kPairs], y[kPairs];
+#pragma unroll
+      for (int c = 0; c < kPairs; ++c) {
+        x[c] = kacc[t][c];
+        y[c] = vacc[t][c];
+      }
       const T* qcol = qs + 2 * lane;
       const T* gcol = gs + 2 * lane;
 #pragma unroll 4
       for (int i = 0; i < n; ++i) {
         const float d = d_row[i], pc = pc_row[i];
-        const float2 qq = load_pair(qcol + i * kStride);
-        const float2 gg = load_pair(gcol + i * kStride);
-        x0 = fmaf(d, qq.x, x0);
-        x1 = fmaf(d, qq.y, x1);
-        y0 = fmaf(pc, gg.x, y0);
-        y1 = fmaf(pc, gg.y, y1);
+#pragma unroll
+        for (int c = 0; c < kPairs; ++c) {
+          const float2 qq = load_pair(qcol + i * kStride + 64 * c);
+          const float2 gg = load_pair(gcol + i * kStride + 64 * c);
+          x[c].x = fmaf(d, qq.x, x[c].x);
+          x[c].y = fmaf(d, qq.y, x[c].y);
+          y[c].x = fmaf(pc, gg.x, y[c].x);
+          y[c].y = fmaf(pc, gg.y, y[c].y);
+        }
       }
-      k0[t] = x0;
-      k1[t] = x1;
-      v0[t] = y0;
-      v1[t] = y1;
+#pragma unroll
+      for (int c = 0; c < kPairs; ++c) {
+        kacc[t][c] = x[c];
+        vacc[t][c] = y[c];
+      }
       __syncwarp();  // the rows are rewritten for this warp's next key
     }
   }
@@ -359,8 +378,11 @@ flash_attention_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int jl = warp + kWarps * t;
     if (jl < n_keys) {
       const size_t off = (size_t(b) * lk + j_begin + jl) * hd + head_off + 2 * lane;
-      store_pair(dk + off, k0[t], k1[t]);
-      store_pair(dv + off, v0[t], v1[t]);
+#pragma unroll
+      for (int c = 0; c < kPairs; ++c) {
+        store_pair(dk + off + 64 * c, kacc[t][c].x, kacc[t][c].y);
+        store_pair(dv + off + 64 * c, vacc[t][c].x, vacc[t][c].y);
+      }
     }
   }
   dw0 = warp_sum(dw0);
@@ -382,7 +404,7 @@ flash_attention_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T>
+template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
 flash_attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                               const T* __restrict__ v, const T* __restrict__ g,
@@ -390,7 +412,8 @@ flash_attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                               const int* __restrict__ boundary,
                               const float* __restrict__ w, const float* __restrict__ lse,
                               const float* __restrict__ delta, T* __restrict__ dq, Args a) {
-  constexpr int kStride = Layout<T>::kStride;
+  constexpr int kStride = Layout<T, D>::kStride;
+  constexpr int kPairs = D / 64;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* qs = reinterpret_cast<T*>(smem_raw);
   T* gs = qs + kPerBlock * kStride;
@@ -403,12 +426,12 @@ flash_attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   const int h = blockIdx.y, b = blockIdx.z;
   const int lq = a.lq, lk = a.lk;
-  const int hd = a.num_heads * kHeadDim;
-  const size_t head_off = size_t(h) * kHeadDim;
+  const int hd = a.num_heads * D;
+  const size_t head_off = size_t(h) * D;
   const int r_begin = blockIdx.x * kPerBlock;
   const int n_rows = min(kPerBlock, lq - r_begin);
-  stage(qs, q + (size_t(b) * lq + r_begin) * hd + head_off, n_rows, hd);
-  stage(gs, g + (size_t(b) * lq + r_begin) * hd + head_off, n_rows, hd);
+  stage<D>(qs, q + (size_t(b) * lq + r_begin) * hd + head_off, n_rows, hd);
+  stage<D>(gs, g + (size_t(b) * lq + r_begin) * hd + head_off, n_rows, hd);
 
   const Geometry geo{a.has_geometry, a.row_start, a.text_len,
                      a.has_geometry ? boundary[b] + a.offset : 0,
@@ -417,11 +440,13 @@ flash_attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   tiles.cell = uint32_t(b * a.num_heads + h);
   const size_t stat_off = (size_t(b) * a.num_heads + h) * lq + r_begin;
 
-  float d0[kPerWarp], d1[kPerWarp], lse_r[kPerWarp], delta_r[kPerWarp];
+  float2 dacc[kPerWarp][kPairs];
+  float lse_r[kPerWarp], delta_r[kPerWarp];
 #pragma unroll
   for (int t = 0; t < kPerWarp; ++t) {
     const int il = warp + kWarps * t;
-    d0[t] = d1[t] = 0.0f;
+#pragma unroll
+    for (int c = 0; c < kPairs; ++c) dacc[t][c] = make_float2(0.0f, 0.0f);
     lse_r[t] = il < n_rows ? lse[stat_off + il] : 0.0f;
     delta_r[t] = il < n_rows ? delta[stat_off + il] : 0.0f;
   }
@@ -429,8 +454,8 @@ flash_attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int c0 = 0; c0 < lk; c0 += kChunk) {
     const int n = min(kChunk, lk - c0);
     __syncthreads();  // the key chunk is free (and qs / gs published)
-    stage(ks, k + (size_t(b) * lk + c0) * hd + head_off, n, hd);
-    stage(vs, v + (size_t(b) * lk + c0) * hd + head_off, n, hd);
+    stage<D>(ks, k + (size_t(b) * lk + c0) * hd + head_off, n, hd);
+    stage<D>(vs, v + (size_t(b) * lk + c0) * hd + head_off, n, hd);
     for (int j = threadIdx.x; j < n; j += kThreads) {
       bias_s[j] = (1.0f - mask[size_t(b) * lk + c0 + j]) * kNegBias;
     }
@@ -444,21 +469,20 @@ flash_attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const RowGeometry rg = geo.row(r);
       // P for this row over the chunk, the query row in registers.
       {
-        float qf[kHeadDim];
-        load_row(qs + il * kStride, qf);
+        float qf[D];
+        load_row<D>(qs + il * kStride, qf);
         for (int j = lane; j < n; j += 32) {
-          const float s_raw = __fmul_rn(dot_row(qf, ks + j * kStride), a.scale);
-          p_row[j] = expf(score(s_raw, rg.in_scope && geo.col_is_answer(c0 + j), rg.w,
-                                bias_s[j]) -
+          p_row[j] = expf(score(dot_row<D>(qf, ks + j * kStride), a.scale, a.has_geometry,
+                                rg.in_scope && geo.col_is_answer(c0 + j), rg.w, bias_s[j]) -
                           lse_r[t]);
         }
       }
       // dP, dS and dS_raw, the cotangent row in registers.
       {
-        float gf[kHeadDim];
-        load_row(gs + il * kStride, gf);
+        float gf[D];
+        load_row<D>(gs + il * kStride, gf);
         for (int j = lane; j < n; j += 32) {
-          float dp = dot_row(gf, vs + j * kStride);
+          float dp = dot_row<D>(gf, vs + j * kStride);
           if (a.dropout) dp = tiles.keep(r, c0 + j) ? __fmul_rn(dp, a.inv_keep) : 0.0f;
           float ds = p_row[j] * (dp - delta_r[t]);
           if (rg.in_scope && geo.col_is_answer(c0 + j)) ds = ds * rg.w;
@@ -466,18 +490,23 @@ flash_attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
         }
       }
       __syncwarp();
-      // dq row: lane l owns columns 2l and 2l+1.
-      float x0 = d0[t], x1 = d1[t];
+      // dq row: lane l owns columns 2l + 64 c and 2l + 1 + 64 c.
+      float2 x[kPairs];
+#pragma unroll
+      for (int c = 0; c < kPairs; ++c) x[c] = dacc[t][c];
       const T* kcol = ks + 2 * lane;
 #pragma unroll 4
       for (int j = 0; j < n; ++j) {
         const float d = d_row[j];
-        const float2 kk = load_pair(kcol + j * kStride);
-        x0 = fmaf(d, kk.x, x0);
-        x1 = fmaf(d, kk.y, x1);
+#pragma unroll
+        for (int c = 0; c < kPairs; ++c) {
+          const float2 kk = load_pair(kcol + j * kStride + 64 * c);
+          x[c].x = fmaf(d, kk.x, x[c].x);
+          x[c].y = fmaf(d, kk.y, x[c].y);
+        }
       }
-      d0[t] = x0;
-      d1[t] = x1;
+#pragma unroll
+      for (int c = 0; c < kPairs; ++c) dacc[t][c] = x[c];
       __syncwarp();  // the rows are rewritten for this warp's next row
     }
   }
@@ -486,8 +515,9 @@ flash_attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int t = 0; t < kPerWarp; ++t) {
     const int il = warp + kWarps * t;
     if (il < n_rows) {
-      store_pair(dq + (size_t(b) * lq + r_begin + il) * hd + head_off + 2 * lane, d0[t],
-                 d1[t]);
+      T* drow = dq + (size_t(b) * lq + r_begin + il) * hd + head_off + 2 * lane;
+#pragma unroll
+      for (int c = 0; c < kPairs; ++c) store_pair(drow + 64 * c, dacc[t][c].x, dacc[t][c].y);
     }
   }
 }
@@ -510,18 +540,18 @@ Args make_args(int lq, int lk, int num_heads, float scale, int has_geometry, int
   return a;
 }
 
-template <typename T>
+template <typename T, int D>
 int launch_dkv(const void* q, const void* k, const void* v, const void* g, const void* mask,
                const void* boundary, const void* w, const void* lse, const void* delta,
                void* dk, void* dv, void* dw_part, int batch, const Args& a,
                cudaStream_t stream) {
-  const size_t smem = Layout<T>::dkv_bytes;
-  cudaError_t err = cudaFuncSetAttribute(flash_attention_bwd_dkv_kernel<T>,
+  const size_t smem = Layout<T, D>::dkv_bytes;
+  cudaError_t err = cudaFuncSetAttribute(flash_attention_bwd_dkv_kernel<T, D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          int(smem));
   if (err != cudaSuccess) return int(err);
   const dim3 grid((a.lk + kPerBlock - 1) / kPerBlock, a.num_heads, batch);
-  flash_attention_bwd_dkv_kernel<T><<<grid, kThreads, smem, stream>>>(
+  flash_attention_bwd_dkv_kernel<T, D><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(g), static_cast<const float*>(mask),
       static_cast<const int*>(boundary), static_cast<const float*>(w),
@@ -530,23 +560,29 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* g, const
   return int(cudaGetLastError());
 }
 
-template <typename T>
+template <typename T, int D>
 int launch_dq(const void* q, const void* k, const void* v, const void* g, const void* mask,
               const void* boundary, const void* w, const void* lse, const void* delta,
               void* dq, int batch, const Args& a, cudaStream_t stream) {
-  const size_t smem = Layout<T>::dq_bytes;
-  cudaError_t err = cudaFuncSetAttribute(flash_attention_bwd_dq_kernel<T>,
+  const size_t smem = Layout<T, D>::dq_bytes;
+  cudaError_t err = cudaFuncSetAttribute(flash_attention_bwd_dq_kernel<T, D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          int(smem));
   if (err != cudaSuccess) return int(err);
   const dim3 grid((a.lq + kPerBlock - 1) / kPerBlock, a.num_heads, batch);
-  flash_attention_bwd_dq_kernel<T><<<grid, kThreads, smem, stream>>>(
+  flash_attention_bwd_dq_kernel<T, D><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(g), static_cast<const float*>(mask),
       static_cast<const int*>(boundary), static_cast<const float*>(w),
       static_cast<const float*>(lse), static_cast<const float*>(delta), static_cast<T*>(dq),
       a);
   return int(cudaGetLastError());
+}
+
+template <typename T, int D>
+size_t smem_of() {
+  const size_t a = Layout<T, D>::dkv_bytes, b = Layout<T, D>::dq_bytes;
+  return a > b ? a : b;
 }
 
 }  // namespace
@@ -557,59 +593,67 @@ const char* mkg_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// Dynamic shared memory of the larger of the two kernels' blocks (the
-// wrapper holds it against the device's opt-in limit before launching).
-size_t mkg_flash_attention_bwd_smem(int is_bf16) {
-  if (is_bf16) {
-    const size_t a = Layout<__nv_bfloat16>::dkv_bytes, b = Layout<__nv_bfloat16>::dq_bytes;
-    return a > b ? a : b;
-  }
-  const size_t a = Layout<float>::dkv_bytes, b = Layout<float>::dq_bytes;
-  return a > b ? a : b;
+// Dynamic shared memory of the larger of the two kernels' blocks at
+// head_dim 64 or 128 (the wrapper holds it against the device's opt-in
+// limit before launching); 0 for another width.
+size_t mkg_flash_attention_bwd_smem(int is_bf16, int head_dim) {
+  if (head_dim == 64) return is_bf16 ? smem_of<__nv_bfloat16, 64>() : smem_of<float, 64>();
+  if (head_dim == 128) return is_bf16 ? smem_of<__nv_bfloat16, 128>() : smem_of<float, 128>();
+  return 0;
 }
 
 // dK/dV and the dw partials: launches on `stream` without synchronising and
-// returns cudaGetLastError(). lse and delta are (B, heads, Lq) fp32, dw_part
+// returns cudaGetLastError() (cudaErrorInvalidValue for a head_dim other
+// than 64 or 128). lse and delta are (B, heads, Lq) fp32, dw_part
 // (B, heads, ceil(Lk / 32), 2) fp32 partials of (dw0, dw1).
 int mkg_flash_attention_bwd_dkv(const void* q, const void* k, const void* v, const void* g,
                                 const void* mask, const void* boundary, const void* w,
                                 const void* lse, const void* delta, void* dk, void* dv,
                                 void* dw_part, int batch, int lq, int lk, int num_heads,
-                                int is_bf16, float scale, int has_geometry, int row_start,
-                                int text_len, int offset, int dropout,
+                                int head_dim, int is_bf16, float scale, int has_geometry,
+                                int row_start, int text_len, int offset, int dropout,
                                 unsigned int threshold, float inv_keep, unsigned int seed,
                                 int bq, int bk, int n_qblk, int n_kblk, void* stream) {
   const Args a = make_args(lq, lk, num_heads, scale, has_geometry, row_start, text_len,
                            offset, dropout, threshold, inv_keep, seed, bq, bk, n_qblk,
                            n_kblk);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16) {
-    return launch_dkv<__nv_bfloat16>(q, k, v, g, mask, boundary, w, lse, delta, dk, dv,
-                                     dw_part, batch, a, s);
+#define MKG_FLASH_DKV(T, D) \
+  launch_dkv<T, D>(q, k, v, g, mask, boundary, w, lse, delta, dk, dv, dw_part, batch, a, s)
+  if (head_dim == 64) {
+    return is_bf16 ? MKG_FLASH_DKV(__nv_bfloat16, 64) : MKG_FLASH_DKV(float, 64);
   }
-  return launch_dkv<float>(q, k, v, g, mask, boundary, w, lse, delta, dk, dv, dw_part,
-                           batch, a, s);
+  if (head_dim == 128) {
+    return is_bf16 ? MKG_FLASH_DKV(__nv_bfloat16, 128) : MKG_FLASH_DKV(float, 128);
+  }
+#undef MKG_FLASH_DKV
+  return int(cudaErrorInvalidValue);
 }
 
 // dQ: launches on `stream` without synchronising and returns
-// cudaGetLastError().
+// cudaGetLastError(), as above.
 int mkg_flash_attention_bwd_dq(const void* q, const void* k, const void* v, const void* g,
                                const void* mask, const void* boundary, const void* w,
                                const void* lse, const void* delta, void* dq, int batch,
-                               int lq, int lk, int num_heads, int is_bf16, float scale,
-                               int has_geometry, int row_start, int text_len, int offset,
-                               int dropout, unsigned int threshold, float inv_keep,
-                               unsigned int seed, int bq, int bk, int n_qblk, int n_kblk,
-                               void* stream) {
+                               int lq, int lk, int num_heads, int head_dim, int is_bf16,
+                               float scale, int has_geometry, int row_start, int text_len,
+                               int offset, int dropout, unsigned int threshold,
+                               float inv_keep, unsigned int seed, int bq, int bk, int n_qblk,
+                               int n_kblk, void* stream) {
   const Args a = make_args(lq, lk, num_heads, scale, has_geometry, row_start, text_len,
                            offset, dropout, threshold, inv_keep, seed, bq, bk, n_qblk,
                            n_kblk);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16) {
-    return launch_dq<__nv_bfloat16>(q, k, v, g, mask, boundary, w, lse, delta, dq, batch, a,
-                                    s);
+#define MKG_FLASH_DQ(T, D) \
+  launch_dq<T, D>(q, k, v, g, mask, boundary, w, lse, delta, dq, batch, a, s)
+  if (head_dim == 64) {
+    return is_bf16 ? MKG_FLASH_DQ(__nv_bfloat16, 64) : MKG_FLASH_DQ(float, 64);
   }
-  return launch_dq<float>(q, k, v, g, mask, boundary, w, lse, delta, dq, batch, a, s);
+  if (head_dim == 128) {
+    return is_bf16 ? MKG_FLASH_DQ(__nv_bfloat16, 128) : MKG_FLASH_DQ(float, 128);
+  }
+#undef MKG_FLASH_DQ
+  return int(cudaErrorInvalidValue);
 }
 
 }  // extern "C"

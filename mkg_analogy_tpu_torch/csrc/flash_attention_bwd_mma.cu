@@ -15,13 +15,14 @@
 //   dk = dS_raw^T q,  dq = dS_raw K,   dS_raw = (dS * mult * scale) rounded (:250, :320)
 //   dw0 / dw1 = sum(dS * S_raw) over the two analogy regions            (:245-246)
 //
-// with those cast points, every sum in fp32, on the packed (B, L, heads * 64)
-// layout. The plain version is kernels/flash_attention.py:_plain_bwd; fp32
+// with those cast points, every sum in fp32, on the packed (B, L, heads * D)
+// layout, D = 64 or 128 (ViLBERT's visual stream), each width its own
+// instantiation. The plain version is kernels/flash_attention.py:_plain_bwd; fp32
 // inputs stay on the CUDA-core kernels of flash_attention_bwd.cu
 // (attention_mma.cuh says why).
 //
 // What bounds it: bytes at the main-path shapes (L <= 611), the products at
-// L = 2048 (dK/dV 4 products of 2 * Lq * Lk * 64 flops per (b, head), dQ 3).
+// L = 2048 (dK/dV 4 products of 2 * Lq * Lk * D flops per (b, head), dQ 3).
 // The CUDA-core kernels it takes over from ran one warp per key (dK/dV) or
 // query row (dQ) and re-read every staged row from shared memory for each,
 // 19-103x above their bounds, the dQ kernel at 153-165 registers, one block
@@ -52,6 +53,17 @@
 // A lane holds rows g and g + 8 (g = lane / 4) and columns 2t, 2t + 1
 // (t = lane % 4) of each 16 x 8 tile; in the dK/dV kernel the tile's rows
 // are keys and its columns query rows.
+// At D = 128 a block of either kernel owns 64 of its head's 128 result
+// columns (a half, from blockIdx.x), as the single-block backward does
+// (fused_attention_bwd_mma.cu): S^T, dP^T (dK/dV) and S, dP (dQ) take the
+// whole depth of 128 and are computed by both halves' blocks, while a
+// thread's result accumulators stay those of D = 64. The A fragments of K
+// and V (dK/dV) and of Q and g (dQ), 64 registers each pair at 128, are
+// loaded from shared memory again for each product instead of held for the
+// sweep (held, they came to 251 and 206 registers at 64 already). Only the
+// first half's dK/dV block writes the (dw0, dw1) partial of its keys, so
+// the wrapper's sum counts each once. Shared memory is 106 KB a block at
+// 128 (55 KB at 64), so two blocks still fit an SM.
 //
 // Dropout is the forward's mask (flash_attention_fwd.cu): the interpret-mode
 // hash keyed to the logical (bq, bk) tiles, idx = (r - qb * bq) * bk +
@@ -61,7 +73,7 @@
 // derived once per row and once per key, so a 64-row chunk may straddle
 // logical tiles of any size (the row stride stays bk in a ragged last tile).
 // A score is one FMA from the accumulator in the natural domain
-// (attention_mma.cuh: scores) and p = ex2((s - lse) * log2 e), the
+// (attention_mma.cuh: ScoreRule<D>) and p = ex2((s - lse) * log2 e), the
 // difference first. Padding is a value, not a predicate: a key beyond Lk
 // has bias -inf (p exactly 0, as JAX's HARD_MASK gives), a query row beyond
 // Lq is given lse = +inf and delta = 0 (p and dS exactly 0); they enter no
@@ -77,10 +89,16 @@ constexpr uint32_t kGolden = 0x9E3779B9u;
 // dK/dV: K, V; q and g in two buffers; two buffers of 64 row records
 // (lse, delta, dropout base, row mix) and row geometries (multiplier,
 // dw0 region, dw1 region, 0)
-constexpr int kDkvSmem = 6 * kTileBytes + 2 * 2 * kTile * int(sizeof(float4));
+template <int D>
+constexpr int dkv_smem() {
+  return 6 * tile_bytes<D>() + 2 * 2 * kTile * int(sizeof(float4));
+}
 // dQ: Q, g; K and V in two buffers; two buffers of 64 key records (bias,
 // dropout column, key mix, answer column)
-constexpr int kDqSmem = 6 * kTileBytes + 2 * kTile * int(sizeof(float4));
+template <int D>
+constexpr int dq_smem() {
+  return 6 * tile_bytes<D>() + 2 * kTile * int(sizeof(float4));
+}
 
 struct Args {
   const bf16 *q, *k, *v, *go;
@@ -115,36 +133,52 @@ __device__ __forceinline__ void row_part(const Args& a, int row, uint32_t& base,
   mix = uint32_t(qb) * uint32_t(a.n_kblk) * kGolden;
 }
 
-// dK/dV, per 64 keys: one sweep over the query rows.
+// The block's coordinates: its tile of 64 rows (keys in the dK/dV kernel,
+// query rows in the dQ kernel), its half of the head's result columns
+// (always 0 at D = 64), head and batch row.
+template <int D>
+struct Block {
+  int tile, half, h, b;
+  __device__ __forceinline__ Block()
+      : tile(blockIdx.x / halves_of<D>()), half(blockIdx.x % halves_of<D>()), h(blockIdx.y),
+        b(blockIdx.z) {}
+};
+
+// dK/dV, per 64 keys (and at D = 128 one half of their columns): one sweep
+// over the query rows.
+template <int D>
 __global__ void __launch_bounds__(kThreads, 2) dkv_kernel(const Args a) {
+  constexpr bool kHold = D == 64;  // K's and V's A fragments held for the sweep
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ float dw_s[kWarps][2];
   bf16* k_s = reinterpret_cast<bf16*>(smem_raw);
-  bf16* v_s = k_s + kTileElems;
-  bf16* q_s = v_s + kTileElems;      // two buffers
-  bf16* g_s = q_s + 2 * kTileElems;  // two buffers
-  float4* rec_s = reinterpret_cast<float4*>(g_s + 2 * kTileElems);  // two buffers of 64
-  float4* geo_s = rec_s + 2 * kTile;                                 // two buffers of 64
+  bf16* v_s = k_s + tile_elems<D>();
+  bf16* q_s = v_s + tile_elems<D>();       // two buffers
+  bf16* g_s = q_s + 2 * tile_elems<D>();   // two buffers
+  float4* rec_s = reinterpret_cast<float4*>(g_s + 2 * tile_elems<D>());  // two buffers of 64
+  float4* geo_s = rec_s + 2 * kTile;                                     // two buffers of 64
 
-  const int tile = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int hd = a.num_heads * kHeadDim;
+  const Block<D> blk;
+  const int h = blk.h, b = blk.b;
+  const int hd = a.num_heads * D;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;
-  const int key0 = tile * kTile;
+  const int key0 = blk.tile * kTile;
   const uint32_t cell = uint32_t(b * a.num_heads + h);
   const Geometry geo =
       load_geometry(a.has_geometry, a.row_start, a.text_len, a.offset, a.boundary, a.w, b);
+  const ScoreRule<D> rule(a.scale, a.has_geometry);
 
-  const bf16* qb = a.q + size_t(b) * a.lq * hd + h * kHeadDim;
-  const bf16* gb = a.go + size_t(b) * a.lq * hd + h * kHeadDim;
+  const bf16* qb = a.q + size_t(b) * a.lq * hd + h * D;
+  const bf16* gb = a.go + size_t(b) * a.lq * hd + h * D;
   const float* lse_bh = a.lse + size_t(cell) * a.lq;
   const float* delta_bh = a.delta + size_t(cell) * a.lq;
   const int n_chunks = (a.lq + kTile - 1) / kTile;
 
   auto load_chunk = [&](int it) {
     const int buf = it & 1, r0 = it * kTile;
-    stage_tile(q_s + buf * kTileElems, qb + size_t(r0) * hd, a.lq - r0, hd);
-    stage_tile(g_s + buf * kTileElems, gb + size_t(r0) * hd, a.lq - r0, hd);
+    stage_tile<D>(q_s + buf * tile_elems<D>(), qb + size_t(r0) * hd, a.lq - r0, hd);
+    stage_tile<D>(g_s + buf * tile_elems<D>(), gb + size_t(r0) * hd, a.lq - r0, hd);
     cp_async_commit();
   };
   // Thread i < 64 writes the record of row i of each chunk; its lse and
@@ -165,9 +199,9 @@ __global__ void __launch_bounds__(kThreads, 2) dkv_kernel(const Args a) {
                               rg.in_scope && !rg.is_example ? 1.0f : 0.0f, 0.0f);
   };
 
-  const size_t tile_off = (size_t(b) * a.lk + key0) * hd + h * kHeadDim;
-  stage_tile(k_s, a.k + tile_off, a.lk - key0, hd);
-  stage_tile(v_s, a.v + tile_off, a.lk - key0, hd);
+  const size_t tile_off = (size_t(b) * a.lk + key0) * hd + h * D;
+  stage_tile<D>(k_s, a.k + tile_off, a.lk - key0, hd);
+  stage_tile<D>(v_s, a.v + tile_off, a.lk - key0, hd);
   load_chunk(0);  // one group with the K and V tiles
   if (threadIdx.x < kTile) {
     fetch(0);
@@ -188,11 +222,13 @@ __global__ void __launch_bounds__(kThreads, 2) dkv_kernel(const Args a) {
     key_part(a, cell, key, col[r], key_mix[r]);
   }
 
-  uint32_t ka[4][4], va[4][4];
+  uint32_t ka[D / 16][4], va[D / 16][4];
   float dk_acc[8][4], dv_acc[8][4];
   zero(dk_acc);
   zero(dv_acc);
   float dw0 = 0.0f, dw1 = 0.0f;
+  const bf16* k_rows = k_s + warp * 16 * stride_of<D>();
+  const bf16* v_rows = v_s + warp * 16 * stride_of<D>();
 
   for (int it = 0; it < n_chunks; ++it) {
     if (it + 1 < n_chunks) {
@@ -206,25 +242,27 @@ __global__ void __launch_bounds__(kThreads, 2) dkv_kernel(const Args a) {
       cp_async_wait<0>();
     }
     __syncthreads();
-    if (it == 0) {
-      load_a(ka, k_s + warp * 16 * kStride);
-      load_a(va, v_s + warp * 16 * kStride);
+    if (kHold && it == 0) {
+      load_a<D>(ka, k_rows);
+      load_a<D>(va, v_rows);
     }
     const int buf = it & 1;
-    // query rows 32 half .. 32 half + 31 of the chunk; the loop is kept
+    // query rows 32 rh .. 32 rh + 31 of the chunk; the loop is kept
     // rolled, or the two halves' tiles are scheduled side by side again
 #pragma unroll 1
-    for (int half = 0; half < 2; ++half) {
-      const bf16* qc = q_s + buf * kTileElems + half * 32 * kStride;
-      const bf16* gc = g_s + buf * kTileElems + half * 32 * kStride;
-      const float4* rec = rec_s + buf * kTile + half * 32;
-      const float4* rgeo = geo_s + buf * kTile + half * 32;
+    for (int rh = 0; rh < 2; ++rh) {
+      const bf16* qc = q_s + buf * tile_elems<D>() + rh * 32 * stride_of<D>();
+      const bf16* gc = g_s + buf * tile_elems<D>() + rh * 32 * stride_of<D>();
+      const float4* rec = rec_s + buf * kTile + rh * 32;
+      const float4* rgeo = geo_s + buf * kTile + rh * 32;
 
       float st[4][4], dpt[4][4];
+      if (!kHold) load_a<D>(va, v_rows);
       zero(dpt);
-      product_nt(dpt, va, gc);  // dP^T = V g^T
+      product_nt<D>(dpt, va, gc);  // dP^T = V g^T
+      if (!kHold) load_a<D>(ka, k_rows);
       zero(st);
-      product_nt(st, ka, qc);  // S^T = K Q^T
+      product_nt<D>(st, ka, qc);  // S^T = K Q^T
 #pragma unroll
       for (int nt = 0; nt < 4; ++nt) {
 #pragma unroll
@@ -234,7 +272,8 @@ __global__ void __launch_bounds__(kThreads, 2) dkv_kernel(const Args a) {
           float4 rg = make_float4(1.0f, 0.0f, 0.0f, 0.0f);
           if (key_answer[r]) rg = rgeo[il];
           const float acc = st[nt][e];
-          const float p = exp_minus_max(fmaf(acc, a.scale * rg.x, bias[r]), row.x);
+          const float c = key_answer[r] ? rule.c_answer(rg.x) : rule.c_plain;
+          const float p = exp_minus_max(rule.score(acc, c, bias[r]), row.x);
           float p_drop = p, dp = dpt[nt][e];
           if (a.dropout) {
             const bool keep = dropout_keep(__float_as_uint(row.z) + col[r],
@@ -256,17 +295,17 @@ __global__ void __launch_bounds__(kThreads, 2) dkv_kernel(const Args a) {
       uint32_t pa[2][4], da[2][4];
       pack_a(pa, st);
       pack_a(da, dpt);
-      product_nn(dv_acc, pa, gc);  // dv += P_drop^T g
-      product_nn(dk_acc, da, qc);  // dk += dS_raw^T Q
+      product_nn<D>(dv_acc, pa, gc + blk.half * 64);  // dv += P_drop^T g
+      product_nn<D>(dk_acc, da, qc + blk.half * 64);  // dk += dS_raw^T Q
     }
     __syncthreads();  // the buffers are refilled by the load after next
   }
 
   const int keys_valid = a.lk - key0 - warp * 16;
-  store_rows(a.dk + tile_off + size_t(warp) * 16 * hd, hd, keys_valid,
-             k_s + warp * 16 * kStride, dk_acc);
-  store_rows(a.dv + tile_off + size_t(warp) * 16 * hd, hd, keys_valid,
-             v_s + warp * 16 * kStride, dv_acc);
+  const size_t out_off = tile_off + size_t(warp) * 16 * hd + blk.half * 64;
+  store_rows<D>(a.dk + out_off, hd, keys_valid, k_s + warp * 16 * stride_of<D>(), dk_acc);
+  store_rows<D>(a.dv + out_off, hd, keys_valid, v_s + warp * 16 * stride_of<D>(), dv_acc);
+  if (blk.half != 0) return;  // the first half's block writes the keys' dw partial
   dw0 = warp_sum(dw0);
   dw1 = warp_sum(dw1);
   if (lane == 0) {
@@ -280,39 +319,44 @@ __global__ void __launch_bounds__(kThreads, 2) dkv_kernel(const Args a) {
       t0 += dw_s[i][0];
       t1 += dw_s[i][1];
     }
-    float* dst = a.dw_part + (size_t(cell) * gridDim.x + tile) * 2;
+    float* dst = a.dw_part + (size_t(cell) * (gridDim.x / halves_of<D>()) + blk.tile) * 2;
     dst[0] = t0;
     dst[1] = t1;
   }
 }
 
-// dQ, per 64 query rows: one sweep over the keys.
+// dQ, per 64 query rows (and at D = 128 one half of their columns): one
+// sweep over the keys.
+template <int D>
 __global__ void __launch_bounds__(kThreads, 2) dq_kernel(const Args a) {
+  constexpr bool kHold = D == 64;  // Q's and g's A fragments held for the sweep
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* q_s = reinterpret_cast<bf16*>(smem_raw);
-  bf16* g_s = q_s + kTileElems;
-  bf16* k_s = g_s + kTileElems;      // two buffers
-  bf16* v_s = k_s + 2 * kTileElems;  // two buffers
-  float4* key_s = reinterpret_cast<float4*>(v_s + 2 * kTileElems);  // two buffers of 64
+  bf16* g_s = q_s + tile_elems<D>();
+  bf16* k_s = g_s + tile_elems<D>();       // two buffers
+  bf16* v_s = k_s + 2 * tile_elems<D>();   // two buffers
+  float4* key_s = reinterpret_cast<float4*>(v_s + 2 * tile_elems<D>());  // two buffers of 64
 
-  const int tile = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int hd = a.num_heads * kHeadDim;
+  const Block<D> blk;
+  const int h = blk.h, b = blk.b;
+  const int hd = a.num_heads * D;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int t = lane & 3;
-  const int row0 = tile * kTile;
+  const int row0 = blk.tile * kTile;
   const uint32_t cell = uint32_t(b * a.num_heads + h);
   const Geometry geo =
       load_geometry(a.has_geometry, a.row_start, a.text_len, a.offset, a.boundary, a.w, b);
+  const ScoreRule<D> rule(a.scale, a.has_geometry);
 
-  const bf16* kb = a.k + size_t(b) * a.lk * hd + h * kHeadDim;
-  const bf16* vb = a.v + size_t(b) * a.lk * hd + h * kHeadDim;
+  const bf16* kb = a.k + size_t(b) * a.lk * hd + h * D;
+  const bf16* vb = a.v + size_t(b) * a.lk * hd + h * D;
   const float* mask_b = a.mask + size_t(b) * a.lk;
   const int n_chunks = (a.lk + kTile - 1) / kTile;
 
   auto load_chunk = [&](int it) {
     const int buf = it & 1, key0 = it * kTile;
-    stage_tile(k_s + buf * kTileElems, kb + size_t(key0) * hd, a.lk - key0, hd);
-    stage_tile(v_s + buf * kTileElems, vb + size_t(key0) * hd, a.lk - key0, hd);
+    stage_tile<D>(k_s + buf * tile_elems<D>(), kb + size_t(key0) * hd, a.lk - key0, hd);
+    stage_tile<D>(v_s + buf * tile_elems<D>(), vb + size_t(key0) * hd, a.lk - key0, hd);
     cp_async_commit();
   };
   // Thread j < 64 writes the record of key j of each chunk; its mask value
@@ -332,9 +376,9 @@ __global__ void __launch_bounds__(kThreads, 2) dq_kernel(const Args a) {
                     geo.col_is_answer(key) ? 1.0f : 0.0f);
   };
 
-  const size_t tile_off = (size_t(b) * a.lq + row0) * hd + h * kHeadDim;
-  stage_tile(q_s, a.q + tile_off, a.lq - row0, hd);
-  stage_tile(g_s, a.go + tile_off, a.lq - row0, hd);
+  const size_t tile_off = (size_t(b) * a.lq + row0) * hd + h * D;
+  stage_tile<D>(q_s, a.q + tile_off, a.lq - row0, hd);
+  stage_tile<D>(g_s, a.go + tile_off, a.lq - row0, hd);
   load_chunk(0);  // one group with the Q and g tiles
   if (threadIdx.x < kTile) {
     fetch(0);
@@ -353,13 +397,15 @@ __global__ void __launch_bounds__(kThreads, 2) dq_kernel(const Args a) {
     lse[r] = valid ? a.lse[size_t(cell) * a.lq + row] : INFINITY;
     delta[r] = valid ? a.delta[size_t(cell) * a.lq + row] : 0.0f;
     w_row[r] = geo.row(row).w;  // the row's multiplier at answer columns
-    c_row[r] = a.scale * w_row[r];
+    c_row[r] = rule.c_answer(w_row[r]);
     row_part(a, row, row_base[r], row_mix[r]);
   }
 
-  uint32_t qa[4][4], ga[4][4];
+  uint32_t qa[D / 16][4], ga[D / 16][4];
   float acc[8][4];
   zero(acc);
+  const bf16* q_rows = q_s + warp * 16 * stride_of<D>();
+  const bf16* g_rows = g_s + warp * 16 * stride_of<D>();
 
   for (int it = 0; it < n_chunks; ++it) {
     if (it + 1 < n_chunks) {
@@ -373,19 +419,21 @@ __global__ void __launch_bounds__(kThreads, 2) dq_kernel(const Args a) {
       cp_async_wait<0>();
     }
     __syncthreads();
-    if (it == 0) {
-      load_a(qa, q_s + warp * 16 * kStride);
-      load_a(ga, g_s + warp * 16 * kStride);
+    if (kHold && it == 0) {
+      load_a<D>(qa, q_rows);
+      load_a<D>(ga, g_rows);
     }
     const int buf = it & 1;
-    const bf16* kc = k_s + buf * kTileElems;
+    const bf16* kc = k_s + buf * tile_elems<D>();
     const float4* keys = key_s + buf * kTile;
 
     float s[8][4], dp[8][4];
+    if (!kHold) load_a<D>(qa, q_rows);
     zero(s);
-    product_nt(s, qa, kc);  // S = Q K^T
+    product_nt<D>(s, qa, kc);  // S = Q K^T
+    if (!kHold) load_a<D>(ga, g_rows);
     zero(dp);
-    product_nt(dp, ga, v_s + buf * kTileElems);  // dP = g V^T
+    product_nt<D>(dp, ga, v_s + buf * tile_elems<D>());  // dP = g V^T
 #pragma unroll
     for (int nt = 0; nt < 8; ++nt) {
 #pragma unroll
@@ -394,7 +442,7 @@ __global__ void __launch_bounds__(kThreads, 2) dq_kernel(const Args a) {
         const float4 kr = keys[j];  // bias, dropout column, key mix, answer column
         const bool answer = kr.w != 0.0f;
         const float p =
-            exp_minus_max(fmaf(s[nt][e], answer ? c_row[r] : a.scale, kr.x), lse[r]);
+            exp_minus_max(rule.score(s[nt][e], answer ? c_row[r] : rule.c_plain, kr.x), lse[r]);
         float d = dp[nt][e];
         if (a.dropout) {
           const bool keep = dropout_keep(row_base[r] + __float_as_uint(kr.y),
@@ -408,12 +456,21 @@ __global__ void __launch_bounds__(kThreads, 2) dq_kernel(const Args a) {
     }
     uint32_t da[4][4];
     pack_a(da, s);
-    product_nn(acc, da, kc);  // dq += dS_raw K
+    product_nn<D>(acc, da, kc + blk.half * 64);  // dq += dS_raw K
     __syncthreads();  // the buffers are refilled by the load after next
   }
 
-  store_rows(a.dq + tile_off + size_t(warp) * 16 * hd, hd, a.lq - row0 - warp * 16,
-             q_s + warp * 16 * kStride, acc);
+  store_rows<D>(a.dq + tile_off + size_t(warp) * 16 * hd + blk.half * 64, hd,
+                a.lq - row0 - warp * 16, q_s + warp * 16 * stride_of<D>(), acc);
+}
+
+int launch_kernel(void (*kernel)(const Args), dim3 grid, int smem, const Args& a,
+                  cudaStream_t stream) {
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return int(err);
+  kernel<<<grid, kThreads, smem, stream>>>(a);
+  return int(cudaGetLastError());
 }
 
 Args make_args(const void* q, const void* k, const void* v, const void* g, const void* mask,
@@ -458,57 +515,62 @@ const char* mkg_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// Dynamic shared memory of the larger of the two kernels' blocks.
-size_t mkg_flash_attention_bwd_mma_smem() { return kDkvSmem > kDqSmem ? kDkvSmem : kDqSmem; }
+// Dynamic shared memory of the larger of the two kernels' blocks at
+// head_dim 64 or 128; 0 for another width.
+size_t mkg_flash_attention_bwd_mma_smem(int head_dim) {
+  if (head_dim != 64 && head_dim != 128) return 0;
+  const int dkv = head_dim == 64 ? dkv_smem<64>() : dkv_smem<128>();
+  const int dq = head_dim == 64 ? dq_smem<64>() : dq_smem<128>();
+  return size_t(dkv > dq ? dkv : dq);
+}
 
 // dK/dV and the dw partials: launches on `stream` without synchronising and
-// returns cudaGetLastError() (cudaErrorInvalidValue for anything but bf16:
-// fp32 takes the CUDA-core kernels). q, k, v, g, dk and dv are bf16, packed
-// (B, L, heads * 64); lse and delta (B, heads, Lq) fp32; dw_part
-// (B, heads, ceil(Lk / 64), 2) fp32 partials of (dw0, dw1).
+// returns cudaGetLastError() (cudaErrorInvalidValue for anything but bf16,
+// where fp32 takes the CUDA-core kernels, or for a head_dim other than 64 or
+// 128). q, k, v, g, dk and dv are bf16, packed (B, L, heads * head_dim); lse
+// and delta (B, heads, Lq) fp32; dw_part (B, heads, ceil(Lk / 64), 2) fp32
+// partials of (dw0, dw1).
 int mkg_flash_attention_bwd_dkv_mma(const void* q, const void* k, const void* v, const void* g,
                                     const void* mask, const void* boundary, const void* w,
                                     const void* lse, const void* delta, void* dk, void* dv,
                                     void* dw_part, int batch, int lq, int lk, int num_heads,
-                                    int is_bf16, float scale, int has_geometry, int row_start,
-                                    int text_len, int offset, int dropout,
+                                    int head_dim, int is_bf16, float scale, int has_geometry,
+                                    int row_start, int text_len, int offset, int dropout,
                                     unsigned int threshold, float inv_keep, unsigned int seed,
                                     int bq, int bk, int n_qblk, int n_kblk, void* stream) {
-  if (!is_bf16) return int(cudaErrorInvalidValue);
+  if (!is_bf16 || (head_dim != 64 && head_dim != 128)) return int(cudaErrorInvalidValue);
   Args a = make_args(q, k, v, g, mask, boundary, w, lse, delta, lq, lk, num_heads, scale,
                      has_geometry, row_start, text_len, offset, dropout, threshold, inv_keep,
                      seed, bq, bk, n_qblk, n_kblk);
   a.dk = static_cast<bf16*>(dk);
   a.dv = static_cast<bf16*>(dv);
   a.dw_part = static_cast<float*>(dw_part);
-  cudaError_t err =
-      cudaFuncSetAttribute(dkv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kDkvSmem);
-  if (err != cudaSuccess) return int(err);
-  const dim3 grid((lk + kTile - 1) / kTile, num_heads, batch);
-  dkv_kernel<<<grid, kThreads, kDkvSmem, static_cast<cudaStream_t>(stream)>>>(a);
-  return int(cudaGetLastError());
+  const int halves = head_dim / 64;
+  const dim3 grid((lk + kTile - 1) / kTile * halves, num_heads, batch);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (head_dim == 64) return launch_kernel(dkv_kernel<64>, grid, dkv_smem<64>(), a, s);
+  return launch_kernel(dkv_kernel<128>, grid, dkv_smem<128>(), a, s);
 }
 
 // dQ: as above, without dw.
 int mkg_flash_attention_bwd_dq_mma(const void* q, const void* k, const void* v, const void* g,
                                    const void* mask, const void* boundary, const void* w,
                                    const void* lse, const void* delta, void* dq, int batch,
-                                   int lq, int lk, int num_heads, int is_bf16, float scale,
-                                   int has_geometry, int row_start, int text_len, int offset,
-                                   int dropout, unsigned int threshold, float inv_keep,
-                                   unsigned int seed, int bq, int bk, int n_qblk, int n_kblk,
-                                   void* stream) {
-  if (!is_bf16) return int(cudaErrorInvalidValue);
+                                   int lq, int lk, int num_heads, int head_dim, int is_bf16,
+                                   float scale, int has_geometry, int row_start, int text_len,
+                                   int offset, int dropout, unsigned int threshold,
+                                   float inv_keep, unsigned int seed, int bq, int bk, int n_qblk,
+                                   int n_kblk, void* stream) {
+  if (!is_bf16 || (head_dim != 64 && head_dim != 128)) return int(cudaErrorInvalidValue);
   Args a = make_args(q, k, v, g, mask, boundary, w, lse, delta, lq, lk, num_heads, scale,
                      has_geometry, row_start, text_len, offset, dropout, threshold, inv_keep,
                      seed, bq, bk, n_qblk, n_kblk);
   a.dq = static_cast<bf16*>(dq);
-  cudaError_t err =
-      cudaFuncSetAttribute(dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kDqSmem);
-  if (err != cudaSuccess) return int(err);
-  const dim3 grid((lq + kTile - 1) / kTile, num_heads, batch);
-  dq_kernel<<<grid, kThreads, kDqSmem, static_cast<cudaStream_t>(stream)>>>(a);
-  return int(cudaGetLastError());
+  const int halves = head_dim / 64;
+  const dim3 grid((lq + kTile - 1) / kTile * halves, num_heads, batch);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (head_dim == 64) return launch_kernel(dq_kernel<64>, grid, dq_smem<64>(), a, s);
+  return launch_kernel(dq_kernel<128>, grid, dq_smem<128>(), a, s);
 }
 
 }  // extern "C"

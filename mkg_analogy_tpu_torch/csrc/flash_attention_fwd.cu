@@ -4,7 +4,9 @@
 // _flash_fwd_kernel (launched by _flash_attention_fwd, the pl.pallas_call at
 // :393) for fp32 inputs (bf16 takes the tensor-core kernel of
 // flash_attention_fwd_mma.cu). Contract, per (batch row, head), on the
-// packed (B, L, heads * 64) layout in and out:
+// packed (B, L, heads * D) layout in and out, D = 64 (BERT-base, ViT-B) or
+// 128 (ViLBERT's visual stream: 1024 wide, 8 heads), each width its own
+// instantiation:
 //
 //   out = softmax(scale * Q K^T (*) analogy multiplier + (1 - mask) * -1e4) V
 //   lse = the per-row log-sum-exp of those scores, (B, heads, Lq) fp32
@@ -32,8 +34,8 @@
 // they change neither the tile max nor the sums: leaving them out gives the
 // same numbers. The running max starts at -1e30 (:113), not -inf.
 //
-// What bounds it: at the main-path shapes (L <= 611, head_dim 64) bytes;
-// at L = 2048 the 4 * Lq * Lk * 64 flops per (b, head) pass the H100's
+// What bounds it: at the main-path shapes (L <= 611) bytes; at L = 2048
+// the 4 * Lq * Lk * D flops per (b, head) pass the H100's
 // balance point. The design reads q, k, v once per block from device memory
 // (K/V again from L2 for every 32-row block) and writes out and lse once;
 // scores and probabilities stay in shared memory and registers:
@@ -45,11 +47,12 @@
 //     in chunks of 128 keys and accumulates p V;
 //   - each warp owns 4 rows for the whole kernel, with their running max,
 //     sum and accumulator in registers (lane l owns output columns 2l and
-//     2l+1); lane j scores keys j, j + 32, ... of a chunk.
+//     2l+1 of each 64 columns: two at D = 64, four at 128); lane j scores
+//     keys j, j + 32, ... of a chunk, its query row in D registers.
 // Chunked staging keeps fp32 at bk = 512 within one block's shared memory
-// (108.5 KB; a whole 512-key K + V tile would be 256 KB). The products run on
-// the CUDA cores (no mma.sync, wgmma or TMA yet): a simple kernel that is
-// right first. head_dim is fixed at 64.
+// (108.5 KB at D = 64, 148.5 KB at 128; a whole 512-key K + V tile would be
+// 256 KB or 512 KB). The products run on the CUDA cores (no mma.sync, wgmma
+// or TMA yet): a simple kernel that is right first.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -57,7 +60,6 @@
 
 namespace {
 
-constexpr int kHeadDim = 64;
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
 constexpr int kRowsPerBlock = 32;
@@ -125,13 +127,13 @@ __device__ __forceinline__ bool dropout_keep(uint32_t idx, uint32_t seed_mix,
   return x >= threshold;
 }
 
-// fp32 dot product of a row held in registers with a 64-wide row of T
-template <typename T>
+// fp32 dot product of a row held in registers with a D-wide row of T
+template <int D, typename T>
 __device__ __forceinline__ float dot_row(const float* a, const T* b) {
   constexpr int kVec = 16 / sizeof(T);
   float acc = 0.0f;
 #pragma unroll
-  for (int c = 0; c < kHeadDim; c += kVec) {
+  for (int c = 0; c < D; c += kVec) {
     float bf[kVec];
     load_chunk(b + c, bf);
 #pragma unroll
@@ -140,11 +142,11 @@ __device__ __forceinline__ float dot_row(const float* a, const T* b) {
   return acc;
 }
 
-template <typename T>
+template <int D, typename T>
 __device__ __forceinline__ void load_row(const T* p, float* f) {
   constexpr int kVec = 16 / sizeof(T);
 #pragma unroll
-  for (int c = 0; c < kHeadDim; c += kVec) load_chunk(p + c, f + c);
+  for (int c = 0; c < D; c += kVec) load_chunk(p + c, f + c);
 }
 
 // The analogy geometry of attention.py:_geometry_planes for row r.
@@ -171,19 +173,25 @@ struct Geometry {
   }
 };
 
-// s = s_raw (* w in the region) + bias in one FMA, as the plain version
-// rounds it (kernels/attention.py:_score, XLA's contraction inside the JAX
-// kernels); s_raw = acc * scale is exact at head_dim 64 (scale 2^-3), so
-// outside the region this is fmaf(acc, scale, bias); the backward
-// kernels form the same score with the same operations
-__device__ __forceinline__ float score(float s_raw, bool region, float w, float bias) {
-  return fmaf(s_raw, region ? w : 1.0f, bias);
+// The score of the fp32 product sum acc, as the plain version rounds it
+// (kernels/attention.py:_score, XLA's contraction inside the JAX kernels):
+// without a geometry one FMA, fmaf(acc, scale, bias); with one, s_raw =
+// acc * scale rounded first, then fmaf(s_raw, w in the region or 1, bias).
+// At head_dim 64 (scale 2^-3) s_raw is exact and the two forms agree; at
+// 128 (2^-3.5) they do not, and where every key of a row is masked (scores
+// at -1e4, an fp32 ulp 9.8e-4) the other form would move a probability by
+// 1e-3 of itself. The backward kernels form the same score with the same
+// operations.
+__device__ __forceinline__ float score(float acc, float scale, int has_geometry, bool region,
+                                       float w, float bias) {
+  if (!has_geometry) return fmaf(acc, scale, bias);
+  return fmaf(__fmul_rn(acc, scale), region ? w : 1.0f, bias);
 }
 
-template <typename T>
+template <typename T, int D>
 struct Layout {
   static constexpr int kVec = 16 / sizeof(T);                // elements per 16 B
-  static constexpr int kStride = kHeadDim + kVec;            // padded smem row
+  static constexpr int kStride = D + kVec;                   // padded smem row
   // the block's q rows, one K or V chunk, the tile's bias row and the
   // tile's scores of every row
   static size_t smem_bytes(int bk) {
@@ -192,13 +200,13 @@ struct Layout {
   }
 };
 
-// Stage `rows` rows of 64 elements from global memory (row stride hd) into
+// Stage `rows` rows of D elements from global memory (row stride hd) into
 // padded shared-memory rows.
-template <typename T>
+template <int D, typename T>
 __device__ __forceinline__ void stage(T* dst, const T* src, int rows, int hd) {
-  constexpr int kVec = Layout<T>::kVec;
-  constexpr int kStride = Layout<T>::kStride;
-  constexpr int kVecsPerRow = kHeadDim / kVec;
+  constexpr int kVec = Layout<T, D>::kVec;
+  constexpr int kStride = Layout<T, D>::kStride;
+  constexpr int kVecsPerRow = D / kVec;
   for (int i = threadIdx.x; i < rows * kVecsPerRow; i += kThreads) {
     const int j = i / kVecsPerRow, c = (i % kVecsPerRow) * kVec;
     *reinterpret_cast<uint4*>(dst + j * kStride + c) =
@@ -206,7 +214,7 @@ __device__ __forceinline__ void stage(T* dst, const T* src, int rows, int hd) {
   }
 }
 
-template <typename T>
+template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
 flash_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                            const T* __restrict__ v, const float* __restrict__ mask,
@@ -216,7 +224,8 @@ flash_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                            float scale, int has_geometry, int row_start, int text_len,
                            int offset, int dropout, uint32_t threshold, float inv_keep,
                            uint32_t seed, int bq, int bk, int n_qblk, int n_kblk) {
-  constexpr int kStride = Layout<T>::kStride;
+  constexpr int kStride = Layout<T, D>::kStride;
+  constexpr int kPairs = D / 64;  // column pairs a lane owns: 2 lane + 64 c, c < kPairs
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* qs = reinterpret_cast<T*>(smem_raw);
   T* cs = qs + kRowsPerBlock * kStride;                      // K or V chunk
@@ -224,13 +233,13 @@ flash_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* s_tile = bias_s + bk;                               // kRowsPerBlock x bk
 
   const int h = blockIdx.y, b = blockIdx.z;
-  const int hd = num_heads * kHeadDim;
+  const int hd = num_heads * D;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int r_begin = blockIdx.x * kRowsPerBlock;
   const int n_rows = min(kRowsPerBlock, lq - r_begin);
-  const size_t head_off = size_t(h) * kHeadDim;
+  const size_t head_off = size_t(h) * D;
 
-  stage(qs, q + (size_t(b) * lq + r_begin) * hd + head_off, n_rows, hd);
+  stage<D>(qs, q + (size_t(b) * lq + r_begin) * hd + head_off, n_rows, hd);
   // (the first chunk's barrier publishes qs)
 
   const Geometry geo{has_geometry, row_start, text_len,
@@ -239,12 +248,14 @@ flash_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const uint32_t cell = uint32_t(b * num_heads + h);
 
   // this warp's rows: local row il = warp + kWarps * t
-  float m[kRowsPerWarp], l[kRowsPerWarp], a0[kRowsPerWarp], a1[kRowsPerWarp];
-  float alpha[kRowsPerWarp], pv0[kRowsPerWarp], pv1[kRowsPerWarp];
+  float m[kRowsPerWarp], l[kRowsPerWarp], alpha[kRowsPerWarp];
+  float2 acc[kRowsPerWarp][kPairs], pv[kRowsPerWarp][kPairs];
 #pragma unroll
   for (int t = 0; t < kRowsPerWarp; ++t) {
     m[t] = kHardMask;
-    l[t] = a0[t] = a1[t] = 0.0f;
+    l[t] = 0.0f;
+#pragma unroll
+    for (int c = 0; c < kPairs; ++c) acc[t][c] = make_float2(0.0f, 0.0f);
   }
 
   for (int kb = 0; kb < n_kblk; ++kb) {
@@ -255,7 +266,7 @@ flash_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int c0 = 0; c0 < width; c0 += kChunk) {
       const int n = min(kChunk, width - c0);
       __syncthreads();  // the chunk buffer is free
-      stage(cs, k + (size_t(b) * lk + c_begin + c0) * hd + head_off, n, hd);
+      stage<D>(cs, k + (size_t(b) * lk + c_begin + c0) * hd + head_off, n, hd);
       for (int j = threadIdx.x; j < n; j += kThreads) {
         bias_s[c0 + j] = (1.0f - mask[size_t(b) * lk + c_begin + c0 + j]) * kNegBias;
       }
@@ -265,13 +276,13 @@ flash_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const int il = warp + kWarps * t;
         if (il < n_rows) {
           const RowGeometry rg = geo.row(r_begin + il);
-          float qf[kHeadDim];
-          load_row(qs + il * kStride, qf);
+          float qf[D];
+          load_row<D>(qs + il * kStride, qf);
           float* srow = s_tile + il * bk;
           for (int j = lane; j < n; j += 32) {
-            const float s_raw = __fmul_rn(dot_row(qf, cs + j * kStride), scale);
-            srow[c0 + j] = score(s_raw, rg.in_scope && geo.col_is_answer(c_begin + c0 + j),
-                                 rg.w, bias_s[c0 + j]);
+            srow[c0 + j] = score(dot_row<D>(qf, cs + j * kStride), scale, has_geometry,
+                                 rg.in_scope && geo.col_is_answer(c_begin + c0 + j), rg.w,
+                                 bias_s[c0 + j]);
           }
         }
       }
@@ -309,14 +320,15 @@ flash_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         l[t] = l[t] * alpha[t] + warp_sum(sum);
         m[t] = m_new;
       }
-      pv0[t] = pv1[t] = 0.0f;
+#pragma unroll
+      for (int c = 0; c < kPairs; ++c) pv[t][c] = make_float2(0.0f, 0.0f);
     }
 
     // 3. p V over the tile, V staged chunk by chunk.
     for (int c0 = 0; c0 < width; c0 += kChunk) {
       const int n = min(kChunk, width - c0);
       __syncthreads();  // the chunk buffer is free; step 2 is done
-      stage(cs, v + (size_t(b) * lk + c_begin + c0) * hd + head_off, n, hd);
+      stage<D>(cs, v + (size_t(b) * lk + c_begin + c0) * hd + head_off, n, hd);
       __syncthreads();
 #pragma unroll
       for (int t = 0; t < kRowsPerWarp; ++t) {
@@ -324,23 +336,31 @@ flash_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         if (il < n_rows) {
           const float* prow = s_tile + il * bk + c0;
           const T* vcol = cs + 2 * lane;
-          float x0 = pv0[t], x1 = pv1[t];
+          float2 x[kPairs];
+#pragma unroll
+          for (int c = 0; c < kPairs; ++c) x[c] = pv[t][c];
 #pragma unroll 4
           for (int j = 0; j < n; ++j) {
             const float p = prow[j];
-            const float2 vv = load_pair(vcol + j * kStride);
-            x0 = fmaf(p, vv.x, x0);
-            x1 = fmaf(p, vv.y, x1);
+#pragma unroll
+            for (int c = 0; c < kPairs; ++c) {
+              const float2 vv = load_pair(vcol + j * kStride + 64 * c);
+              x[c].x = fmaf(p, vv.x, x[c].x);
+              x[c].y = fmaf(p, vv.y, x[c].y);
+            }
           }
-          pv0[t] = x0;
-          pv1[t] = x1;
+#pragma unroll
+          for (int c = 0; c < kPairs; ++c) pv[t][c] = x[c];
         }
       }
     }
 #pragma unroll
     for (int t = 0; t < kRowsPerWarp; ++t) {
-      a0[t] = a0[t] * alpha[t] + pv0[t];
-      a1[t] = a1[t] * alpha[t] + pv1[t];
+#pragma unroll
+      for (int c = 0; c < kPairs; ++c) {
+        acc[t][c].x = acc[t][c].x * alpha[t] + pv[t][c].x;
+        acc[t][c].y = acc[t][c].y * alpha[t] + pv[t][c].y;
+      }
     }
   }
 
@@ -350,32 +370,40 @@ flash_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int il = warp + kWarps * t;
     if (il < n_rows) {
       const int r = r_begin + il;
-      store_pair(out + (size_t(b) * lq + r) * hd + head_off + 2 * lane, a0[t] / l[t],
-                 a1[t] / l[t]);
+      T* orow = out + (size_t(b) * lq + r) * hd + head_off + 2 * lane;
+#pragma unroll
+      for (int c = 0; c < kPairs; ++c) {
+        store_pair(orow + 64 * c, acc[t][c].x / l[t], acc[t][c].y / l[t]);
+      }
       if (lane == 0) lse[(size_t(b) * num_heads + h) * lq + r] = m[t] + logf(l[t]);
     }
   }
 }
 
-template <typename T>
+template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, const void* mask,
            const void* boundary, const void* w, void* out, void* lse, int batch, int lq,
            int lk, int num_heads, float scale, int has_geometry, int row_start,
            int text_len, int offset, int dropout, uint32_t threshold, float inv_keep,
            uint32_t seed, int bq, int bk, int n_qblk, int n_kblk, cudaStream_t stream) {
-  const size_t smem = Layout<T>::smem_bytes(bk);
-  cudaError_t err = cudaFuncSetAttribute(flash_attention_fwd_kernel<T>,
+  const size_t smem = Layout<T, D>::smem_bytes(bk);
+  cudaError_t err = cudaFuncSetAttribute(flash_attention_fwd_kernel<T, D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          int(smem));
   if (err != cudaSuccess) return int(err);
   const dim3 grid((lq + kRowsPerBlock - 1) / kRowsPerBlock, num_heads, batch);
-  flash_attention_fwd_kernel<T><<<grid, kThreads, smem, stream>>>(
+  flash_attention_fwd_kernel<T, D><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const float*>(mask), static_cast<const int*>(boundary),
       static_cast<const float*>(w), static_cast<T*>(out), static_cast<float*>(lse), lq, lk,
       num_heads, scale, has_geometry, row_start, text_len, offset, dropout, threshold,
       inv_keep, seed, bq, bk, n_qblk, n_kblk);
   return int(cudaGetLastError());
+}
+
+template <int D>
+size_t smem_of(int bk, int is_bf16) {
+  return is_bf16 ? Layout<__nv_bfloat16, D>::smem_bytes(bk) : Layout<float, D>::smem_bytes(bk);
 }
 
 }  // namespace
@@ -386,31 +414,38 @@ const char* mkg_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// Dynamic shared memory of one block for logical K tiles of bk keys (the
-// wrapper holds it against the device's opt-in limit before launching).
-size_t mkg_flash_attention_fwd_smem(int bk, int is_bf16) {
-  return is_bf16 ? Layout<__nv_bfloat16>::smem_bytes(bk) : Layout<float>::smem_bytes(bk);
+// Dynamic shared memory of one block for logical K tiles of bk keys at
+// head_dim 64 or 128 (the wrapper holds it against the device's opt-in
+// limit before launching); 0 for another width.
+size_t mkg_flash_attention_fwd_smem(int bk, int is_bf16, int head_dim) {
+  if (head_dim == 64) return smem_of<64>(bk, is_bf16);
+  if (head_dim == 128) return smem_of<128>(bk, is_bf16);
+  return 0;
 }
 
-// Launches on `stream` without synchronising; returns cudaGetLastError().
-// out is (B, Lq, heads * 64) in the inputs' dtype, lse (B, heads, Lq) fp32.
+// Launches on `stream` without synchronising; returns cudaGetLastError()
+// (cudaErrorInvalidValue for a head_dim other than 64 or 128). out is
+// (B, Lq, heads * head_dim) in the inputs' dtype, lse (B, heads, Lq) fp32.
 int mkg_flash_attention_fwd(const void* q, const void* k, const void* v, const void* mask,
                             const void* boundary, const void* w, void* out, void* lse,
-                            int batch, int lq, int lk, int num_heads, int is_bf16,
-                            float scale, int has_geometry, int row_start, int text_len,
-                            int offset, int dropout, unsigned int threshold, float inv_keep,
-                            unsigned int seed, int bq, int bk, int n_qblk, int n_kblk,
-                            void* stream) {
+                            int batch, int lq, int lk, int num_heads, int head_dim,
+                            int is_bf16, float scale, int has_geometry, int row_start,
+                            int text_len, int offset, int dropout, unsigned int threshold,
+                            float inv_keep, unsigned int seed, int bq, int bk, int n_qblk,
+                            int n_kblk, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16) {
-    return launch<__nv_bfloat16>(q, k, v, mask, boundary, w, out, lse, batch, lq, lk,
-                                 num_heads, scale, has_geometry, row_start, text_len,
-                                 offset, dropout, threshold, inv_keep, seed, bq, bk, n_qblk,
-                                 n_kblk, s);
+#define MKG_FLASH_FWD(T, D)                                                                  \
+  launch<T, D>(q, k, v, mask, boundary, w, out, lse, batch, lq, lk, num_heads, scale,        \
+               has_geometry, row_start, text_len, offset, dropout, threshold, inv_keep, seed, \
+               bq, bk, n_qblk, n_kblk, s)
+  if (head_dim == 64) {
+    return is_bf16 ? MKG_FLASH_FWD(__nv_bfloat16, 64) : MKG_FLASH_FWD(float, 64);
   }
-  return launch<float>(q, k, v, mask, boundary, w, out, lse, batch, lq, lk, num_heads,
-                       scale, has_geometry, row_start, text_len, offset, dropout, threshold,
-                       inv_keep, seed, bq, bk, n_qblk, n_kblk, s);
+  if (head_dim == 128) {
+    return is_bf16 ? MKG_FLASH_FWD(__nv_bfloat16, 128) : MKG_FLASH_FWD(float, 128);
+  }
+#undef MKG_FLASH_FWD
+  return int(cudaErrorInvalidValue);
 }
 
 }  // extern "C"

@@ -3,7 +3,9 @@
 // Replaces, for bf16 inputs, the TPU kernel mkg_analogy_tpu/kernels/
 // flash_attention.py:_flash_fwd_kernel (:98; launched by
 // _flash_attention_fwd, the pl.pallas_call at :393). Contract, per (batch
-// row, head), on the packed (B, L, heads * 64) layout in and out:
+// row, head), on the packed (B, L, heads * D) layout in and out, D = 64 or
+// 128 (ViLBERT's visual stream: 1024 wide, 8 heads), each width its own
+// instantiation:
 //
 //   out = softmax(scale * Q K^T (*) analogy multiplier + (1 - mask) * -1e4) V
 //   lse = the per-row log-sum-exp of those scores, (B, heads, Lq) fp32
@@ -43,14 +45,14 @@
 //     the pre-train shapes' 96, 99 and 195 keys, the analogy shapes' 128
 //     and 227), the tile is resident: all its chunks of K and V staged at
 //     once and its score row kept in accumulator registers
-//     (fwd_resident_kernel<2> to 128 keys, 47 KB of shared memory a block;
-//     <4> to 256, 84 KB), one Q K^T and one exponential an element, and the
-//     running max moves once, from -1e30 (the rescaling by exp(-1e30 - m)
-//     of an empty sum and accumulator is exactly nothing). Any other walk
-//     (512, 522, 611 and 2048 tokens at bk = 512; 393 and 418; tiles
-//     shorter than Lk) is streamed through two buffers
-//     (fwd_streaming_kernel, 46 KB a block whatever the length): two sweeps
-//     over each logical tile's chunks, the first streaming K alone for the
+//     (fwd_resident_kernel<64, 2> to 128 keys, 47 KB of shared memory a
+//     block; <64, 4> to 256, 84 KB), one Q K^T and one exponential an
+//     element, and the running max moves once, from -1e30 (the rescaling
+//     by exp(-1e30 - m) of an empty sum and accumulator is exactly
+//     nothing). Any other walk (512, 522, 611 and 2048 tokens at bk = 512;
+//     393 and 418; tiles shorter than Lk) is streamed through two buffers
+//     (fwd_streaming_kernel<64>, 46 KB a block whatever the length): two
+//     sweeps over each logical tile's chunks, the first streaming K alone for the
 //     tile max, the second K and V, recomputing the same score fragments
 //     with the same instructions, bit for bit. The second Q K^T costs
 //     tensor-core time that a byte-bound kernel has to spare; holding a
@@ -60,10 +62,20 @@
 //     row and spilled at 256 keys.)
 //   - bias, multiplier, max, exp, sum, dropout and rounding work on the
 //     accumulator fragment: a lane holds rows g and g + 8 (g = lane / 4),
-//     columns 2t and 2t + 1 (t = lane % 4) of each 16 x 8 tile.
-// A score is one FMA from the accumulator, s = acc * c + bias with c = scale
-// or scale * w at answer columns (attention_mma.cuh: scores), on the plain
-// version's fp32 grid; exp(s - m) is ex2.approx of (s - m) * log2 e, the
+//     columns 2t and 2t + 1 (t = lane % 4) of each 16 x 8 tile;
+//   - at D = 128 a block owns 64 of its head's 128 output columns (a half,
+//     from blockIdx.x), as the single-block kernels do
+//     (fused_attention_fwd_mma.cu): it computes the whole score row (the
+//     depth is 128) and stages only its half of V, so its accumulators are
+//     those of D = 64 and the score row is paid for twice; the first half's
+//     block writes lse. Up to 128 keys are resident
+//     (fwd_resident_kernel<128, 2>, 70 KB), longer walks stream
+//     (fwd_streaming_kernel<128>, 70 KB: over the 48 KB of static shared
+//     memory, so both widths take theirs dynamically). A 16 x 256 score row
+//     beside 128 columns of Q fragments would spill.
+// A score is one FMA from the accumulator on the plain version's fp32 grid
+// (attention_mma.cuh: scores, ScoreRule<D>: at 128 with a geometry s_raw is
+// rounded first); exp(s - m) is ex2.approx of (s - m) * log2 e, the
 // difference first; lse takes an accurate logf, as the backward pair reads
 // it (held to 1e-5).
 //
@@ -90,11 +102,19 @@ namespace {
 
 constexpr uint32_t kGolden = 0x9E3779B9u;
 constexpr float kHardMask = -1e30f;          // flash_attention.py:HARD_MASK, the first max
-constexpr int kMaxResidentKeys = 4 * kTile;  // longer keys are streamed
-constexpr int kStreamingSmem = 5 * kTileBytes + 2 * kTile * int(sizeof(float));
+constexpr int kMaxResidentKeys = 4 * kTile;  // longer keys are streamed (2 kTile at D = 128)
 
+// Q, NC chunks of K (D columns) and of the block's 64 columns of V, and NC
+// rows of 64 biases.
+template <int D>
 constexpr int resident_smem(int nc) {
-  return (1 + 2 * nc) * kTileBytes + nc * kTile * int(sizeof(float));
+  return (1 + nc) * tile_bytes<D>() + nc * tile_bytes<64>() + nc * kTile * int(sizeof(float));
+}
+
+// Q, two buffers of K and of V's 64 columns, two rows of biases.
+template <int D>
+constexpr int streaming_smem() {
+  return 3 * tile_bytes<D>() + 2 * tile_bytes<64>() + 2 * kTile * int(sizeof(float));
 }
 
 struct Args {
@@ -114,25 +134,26 @@ struct Args {
 };
 
 // What a lane knows of its two rows, row_g and row_g + 8 of the block.
+template <int D>
 struct Lane {
   Geometry geo;
   int row_g;
-  float c_plain;          // scale
-  float c_row[2];         // scale times the row's multiplier at answer columns
+  ScoreRule<D> rule;
+  float c_row[2];         // c at the rows' answer columns
   uint32_t row_base[2];   // (r - qb * bq) * bk: the row's part of the dropout index
   uint32_t row_mix[2];    // (seed + (cell * n_qblk + qb) * n_kblk) * 0x9E3779B9
 
-  __device__ __forceinline__ Lane(const Args& a, int b, int h, int row0) {
+  __device__ __forceinline__ Lane(const Args& a, int b, int h, int row0)
+      : rule(a.scale, a.has_geometry) {
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
     const uint32_t cell = uint32_t(b * a.num_heads + h);
     geo = load_geometry(a.has_geometry, a.row_start, a.text_len, a.offset, a.boundary, a.w, b);
     row_g = row0 + warp * 16 + (lane >> 2);
-    c_plain = a.scale;
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int row = row_g + 8 * r;
       const int qb = row / a.bq;
-      c_row[r] = a.scale * geo.row(row).w;
+      c_row[r] = rule.c_answer(geo.row(row).w);
       row_base[r] = uint32_t(row - qb * a.bq) * uint32_t(a.bk);
       row_mix[r] =
           (a.seed + (cell * uint32_t(a.n_qblk) + uint32_t(qb)) * uint32_t(a.n_kblk)) * kGolden;
@@ -169,8 +190,9 @@ __device__ __forceinline__ void open_tile(const float (&cmax)[2], const float (&
 // One chunk's scores -> the weights p = exp(s - m_new), their sum (before
 // dropout) folded into the lane's sum, then dropped in place, ready for the
 // rounding of pack_a. col0: the chunk's first key, counted in its tile.
+template <int D>
 __device__ __forceinline__ void weights(float (&s)[8][4], const float (&m_new)[2],
-                                        float (&sum)[2], const Args& a, const Lane& ln,
+                                        float (&sum)[2], const Args& a, const Lane<D>& ln,
                                         const uint32_t (&mix)[2], int col0) {
   const int t = threadIdx.x & 3;
 #pragma unroll
@@ -200,14 +222,27 @@ __device__ __forceinline__ void close_tile(const float (&sum)[2], const float (&
   }
 }
 
-// out = acc / l (fp32, then rounded to bf16) and lse = m + log(l) of the
-// lane's rows; rows beyond Lq are not stored. `stage`: the block's Q tile,
-// whose rows of a warp no other warp reads.
-__device__ __forceinline__ void finish(const Args& a, int b, int h, int row0, const Lane& ln,
-                                       const float (&m)[2], const float (&l)[2],
-                                       float (&o)[8][4], bf16* stage) {
+// The block's coordinates: its tile of 64 query rows, its half of the head's
+// output columns (always 0 at D = 64), head and batch row.
+template <int D>
+struct Block {
+  int tile, half, h, b;
+  __device__ __forceinline__ Block()
+      : tile(blockIdx.x / halves_of<D>()), half(blockIdx.x % halves_of<D>()), h(blockIdx.y),
+        b(blockIdx.z) {}
+};
+
+// out = acc / l (fp32, then rounded to bf16) of the block's 64 columns and,
+// from the first half's block, lse = m + log(l) of the lane's rows; rows
+// beyond Lq are not stored. `stage`: the block's Q tile, whose rows of a
+// warp no other warp reads.
+template <int D>
+__device__ __forceinline__ void finish(const Args& a, const Block<D>& blk, int row0,
+                                       const Lane<D>& ln, const float (&m)[2],
+                                       const float (&l)[2], float (&o)[8][4], bf16* stage) {
   const int warp = threadIdx.x >> 5;
-  const int hd = a.num_heads * kHeadDim;
+  const int hd = a.num_heads * D;
+  const int h = blk.h, b = blk.b;
 #pragma unroll
   for (int nt = 0; nt < 8; ++nt) {
     o[nt][0] = o[nt][0] / l[0];
@@ -215,9 +250,9 @@ __device__ __forceinline__ void finish(const Args& a, int b, int h, int row0, co
     o[nt][2] = o[nt][2] / l[1];
     o[nt][3] = o[nt][3] / l[1];
   }
-  store_rows(a.out + (size_t(b) * a.lq + row0 + warp * 16) * hd + h * kHeadDim, hd,
-             a.lq - row0 - warp * 16, stage + warp * 16 * kStride, o);
-  if ((threadIdx.x & 3) == 0) {
+  store_rows<D>(a.out + (size_t(b) * a.lq + row0 + warp * 16) * hd + h * D + blk.half * 64, hd,
+                a.lq - row0 - warp * 16, stage + warp * 16 * stride_of<D>(), o);
+  if (blk.half == 0 && (threadIdx.x & 3) == 0) {
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int row = ln.row_g + 8 * r;
@@ -227,36 +262,40 @@ __device__ __forceinline__ void finish(const Args& a, int b, int h, int row0, co
 }
 
 // Keys that are one logical tile of at most 64 NC (Lk <= bk): every chunk
-// of K and V in shared memory, the score row in registers, one sweep.
-template <int NC>
+// of K and of the block's columns of V in shared memory, the score row in
+// registers, one sweep.
+template <int D, int NC>
 __global__ void __launch_bounds__(kThreads) fwd_resident_kernel(const Args a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* q_s = reinterpret_cast<bf16*>(smem_raw);
-  bf16* k_s = q_s + kTileElems;       // NC chunks
-  bf16* v_s = k_s + NC * kTileElems;  // NC chunks
-  float* bias_s = reinterpret_cast<float*>(v_s + NC * kTileElems);  // NC rows of 64
+  bf16* k_s = q_s + tile_elems<D>();       // NC chunks
+  bf16* v_s = k_s + NC * tile_elems<D>();  // NC chunks of the block's 64 columns
+  float* bias_s = reinterpret_cast<float*>(v_s + NC * tile_elems<64>());  // NC rows of 64
 
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int hd = a.num_heads * kHeadDim;
+  const Block<D> blk;
+  const int h = blk.h, b = blk.b;
+  const int hd = a.num_heads * D;
   const int warp = threadIdx.x >> 5, t = threadIdx.x & 3;
-  const int row0 = blockIdx.x * kTile;
+  const int row0 = blk.tile * kTile;
   const int n_chunks = (a.lk + kTile - 1) / kTile;  // <= NC
-  const bf16* k_bh = a.k + size_t(b) * a.lk * hd + h * kHeadDim;
-  const bf16* v_bh = a.v + size_t(b) * a.lk * hd + h * kHeadDim;
+  const bf16* k_bh = a.k + size_t(b) * a.lk * hd + h * D;
+  const bf16* v_bh = a.v + size_t(b) * a.lk * hd + h * D + blk.half * 64;
 
   // every load of the block, one commit group a chunk: Q with K's first
-  stage_tile(q_s, a.q + (size_t(b) * a.lq + row0) * hd + h * kHeadDim, a.lq - row0, hd);
+  stage_tile<D>(q_s, a.q + (size_t(b) * a.lq + row0) * hd + h * D, a.lq - row0, hd);
 #pragma unroll
   for (int c = 0; c < NC; ++c) {
     if (c < n_chunks) {
-      stage_tile(k_s + c * kTileElems, k_bh + size_t(c) * kTile * hd, a.lk - c * kTile, hd);
+      stage_tile<D>(k_s + c * tile_elems<D>(), k_bh + size_t(c) * kTile * hd, a.lk - c * kTile,
+                    hd);
     }
     cp_async_commit();
   }
 #pragma unroll
   for (int c = 0; c < NC; ++c) {
     if (c < n_chunks) {
-      stage_tile(v_s + c * kTileElems, v_bh + size_t(c) * kTile * hd, a.lk - c * kTile, hd);
+      stage_tile<64>(v_s + c * tile_elems<64>(), v_bh + size_t(c) * kTile * hd,
+                     a.lk - c * kTile, hd);
     }
     cp_async_commit();
   }
@@ -264,22 +303,22 @@ __global__ void __launch_bounds__(kThreads) fwd_resident_kernel(const Args a) {
   for (int c = 0; c < NC; ++c) {
     stage_bias(bias_s + c * kTile, a.mask + size_t(b) * a.lk, c * kTile, a.lk);
   }
-  const Lane ln(a, b, h, row0);
+  const Lane<D> ln(a, b, h, row0);
 
   float s[NC][8][4];
   float cmax[2] = {-FLT_MAX, -FLT_MAX};
   {
-    uint32_t qa[4][4];
+    uint32_t qa[D / 16][4];
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
       cp_async_wait_pending(2 * NC - 1 - c);
       __syncthreads();
-      if (c == 0) load_a(qa, q_s + warp * 16 * kStride);
+      if (c == 0) load_a<D>(qa, q_s + warp * 16 * stride_of<D>());
       if (c < n_chunks) {
         zero(s[c]);
-        product_nt(s[c], qa, k_s + c * kTileElems);
-        scores(s[c], ln.geo.answer_bits(c * kTile + 2 * t), ln.c_plain, ln.c_row,
-               bias_s + c * kTile, cmax);
+        product_nt<D>(s[c], qa, k_s + c * tile_elems<D>());
+        scores<D>(s[c], ln.geo.answer_bits(c * kTile + 2 * t), ln.rule.c_plain, ln.c_row,
+                  bias_s + c * kTile, cmax, ln.rule.pre);
       }
     }
   }
@@ -306,10 +345,10 @@ __global__ void __launch_bounds__(kThreads) fwd_resident_kernel(const Args a) {
     if (c < n_chunks) {
       uint32_t pa[4][4];
       pack_a(pa, s[c]);
-      product_nn(o, pa, v_s + c * kTileElems);
+      product_nn<64>(o, pa, v_s + c * tile_elems<64>());
     }
   }
-  finish(a, b, h, row0, ln, m, l, o, q_s);
+  finish(a, blk, row0, ln, m, l, o, q_s);
 }
 
 // Where a walk over the keys stands: logical tile kb (keys key0 ..
@@ -345,18 +384,21 @@ struct Walk {
 // Any walk: two sweeps over each logical tile's chunks through two
 // buffers. (Blocks of 128 rows, eight warps sharing each chunk, were slower
 // at every streamed shape, with two buffers or three.)
+template <int D>
 __global__ void __launch_bounds__(kThreads) fwd_streaming_kernel(const Args a) {
-  __shared__ __align__(16) bf16 q_s[kTileElems];
-  __shared__ __align__(16) bf16 k_s[2][kTileElems];
-  __shared__ __align__(16) bf16 v_s[2][kTileElems];
-  __shared__ __align__(8) float bias_s[2][kTile];
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* q_s = reinterpret_cast<bf16*>(smem_raw);
+  bf16* k_s = q_s + tile_elems<D>();       // two buffers
+  bf16* v_s = k_s + 2 * tile_elems<D>();   // two buffers of the block's 64 columns
+  float* bias_s = reinterpret_cast<float*>(v_s + 2 * tile_elems<64>());  // two rows of 64
 
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int hd = a.num_heads * kHeadDim;
+  const Block<D> blk;
+  const int h = blk.h, b = blk.b;
+  const int hd = a.num_heads * D;
   const int warp = threadIdx.x >> 5, t = threadIdx.x & 3;
-  const int row0 = blockIdx.x * kTile;
-  const bf16* k_bh = a.k + size_t(b) * a.lk * hd + h * kHeadDim;
-  const bf16* v_bh = a.v + size_t(b) * a.lk * hd + h * kHeadDim;
+  const int row0 = blk.tile * kTile;
+  const bf16* k_bh = a.k + size_t(b) * a.lk * hd + h * D;
+  const bf16* v_bh = a.v + size_t(b) * a.lk * hd + h * D + blk.half * 64;
   const float* mask_b = a.mask + size_t(b) * a.lk;
 
   // One commit group a chunk: K (and in the second sweep V) and its bias;
@@ -366,22 +408,24 @@ __global__ void __launch_bounds__(kThreads) fwd_streaming_kernel(const Args a) {
   auto load_next = [&]() {
     if (!ahead.done(a)) {
       const int c0 = ahead.chunk_key0();
-      stage_tile(k_s[ahead_buf], k_bh + size_t(c0) * hd, ahead.tile_end - c0, hd);
+      stage_tile<D>(k_s + ahead_buf * tile_elems<D>(), k_bh + size_t(c0) * hd,
+                    ahead.tile_end - c0, hd);
       if (ahead.sweep) {
-        stage_tile(v_s[ahead_buf], v_bh + size_t(c0) * hd, ahead.tile_end - c0, hd);
+        stage_tile<64>(v_s + ahead_buf * tile_elems<64>(), v_bh + size_t(c0) * hd,
+                       ahead.tile_end - c0, hd);
       }
-      stage_bias(bias_s[ahead_buf], mask_b, c0, ahead.tile_end);
+      stage_bias(bias_s + ahead_buf * kTile, mask_b, c0, ahead.tile_end);
       ahead.next(a);
       ahead_buf ^= 1;
     }
     cp_async_commit();
   };
 
-  stage_tile(q_s, a.q + (size_t(b) * a.lq + row0) * hd + h * kHeadDim, a.lq - row0, hd);
+  stage_tile<D>(q_s, a.q + (size_t(b) * a.lq + row0) * hd + h * D, a.lq - row0, hd);
   load_next();  // one group with the Q tile
-  const Lane ln(a, b, h, row0);
+  const Lane<D> ln(a, b, h, row0);
 
-  uint32_t qa[4][4];
+  uint32_t qa[D / 16][4];
   float m[2] = {kHardMask, kHardMask}, l[2] = {0.0f, 0.0f};
   float m_new[2] = {kHardMask, kHardMask}, alpha[2] = {1.0f, 1.0f}, sum[2] = {0.0f, 0.0f};
   float cmax[2] = {-FLT_MAX, -FLT_MAX};
@@ -393,13 +437,13 @@ __global__ void __launch_bounds__(kThreads) fwd_streaming_kernel(const Args a) {
     load_next();  // into the buffer the previous item was read from
     cp_async_wait<1>();
     __syncthreads();
-    if (first) load_a(qa, q_s + warp * 16 * kStride);
+    if (first) load_a<D>(qa, q_s + warp * 16 * stride_of<D>());
 
     float s[8][4];
     zero(s);
-    product_nt(s, qa, k_s[buf]);
-    scores(s, ln.geo.answer_bits(wk.chunk_key0() + 2 * t), ln.c_plain, ln.c_row, bias_s[buf],
-           cmax);
+    product_nt<D>(s, qa, k_s + buf * tile_elems<D>());
+    scores<D>(s, ln.geo.answer_bits(wk.chunk_key0() + 2 * t), ln.rule.c_plain, ln.c_row,
+              bias_s + buf * kTile, cmax, ln.rule.pre);
     if (wk.sweep == 0) {
       if (wk.last_chunk()) {  // the tile max is known
         open_tile(cmax, m, m_new, alpha, o);
@@ -410,7 +454,7 @@ __global__ void __launch_bounds__(kThreads) fwd_streaming_kernel(const Args a) {
       weights(s, m_new, sum, a, ln, mix, wk.chunk * kTile);
       uint32_t pa[4][4];
       pack_a(pa, s);
-      product_nn(o, pa, v_s[buf]);
+      product_nn<64>(o, pa, v_s + buf * tile_elems<64>());
       if (wk.last_chunk()) {
         close_tile(sum, alpha, m_new, m, l);
         cmax[0] = cmax[1] = -FLT_MAX;
@@ -419,17 +463,43 @@ __global__ void __launch_bounds__(kThreads) fwd_streaming_kernel(const Args a) {
     buf ^= 1;
     __syncthreads();  // the buffer is refilled by the next load
   }
-  finish(a, b, h, row0, ln, m, l, o, q_s);
+  finish(a, blk, row0, ln, m, l, o, q_s);
 }
 
-template <int NC>
-int launch_resident(const Args& a, dim3 grid, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(fwd_resident_kernel<NC>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         resident_smem(NC));
+int launch_kernel(void (*kernel)(const Args), dim3 grid, int smem, const Args& a,
+                  cudaStream_t stream) {
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return int(err);
-  fwd_resident_kernel<NC><<<grid, kThreads, resident_smem(NC), stream>>>(a);
+  kernel<<<grid, kThreads, smem, stream>>>(a);
   return int(cudaGetLastError());
+}
+
+// The kernel of a call at head width D and its shared memory: resident
+// where the keys are one logical tile of at most 128 (NC = 2) or, at
+// D = 64, 256 (NC = 4); streaming otherwise.
+template <int D>
+void (*pick(int lk, int bk, int& smem))(const Args) {
+  if (lk <= bk && lk <= 2 * kTile) {
+    smem = resident_smem<D>(2);
+    return fwd_resident_kernel<D, 2>;
+  }
+  if constexpr (D == 64) {
+    if (lk <= bk && lk <= kMaxResidentKeys) {
+      smem = resident_smem<D>(4);
+      return fwd_resident_kernel<D, 4>;
+    }
+  }
+  smem = streaming_smem<D>();
+  return fwd_streaming_kernel<D>;
+}
+
+template <int D>
+int launch(const Args& a, int batch, cudaStream_t s) {
+  const dim3 grid((a.lq + kTile - 1) / kTile * halves_of<D>(), a.num_heads, batch);
+  int smem = 0;
+  void (*kernel)(const Args) = pick<D>(a.lk, a.bk, smem);
+  return launch_kernel(kernel, grid, smem, a, s);
 }
 
 }  // namespace
@@ -440,22 +510,26 @@ const char* mkg_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// Shared memory of one block for Lk keys in logical tiles of bk (the
-// wrapper holds it against the device's opt-in limit before launching).
-size_t mkg_flash_attention_fwd_mma_smem(int lk, int bk) {
-  if (lk > bk || lk > kMaxResidentKeys) return kStreamingSmem;
-  return resident_smem(lk <= 2 * kTile ? 2 : 4);
+// Shared memory of one block for Lk keys in logical tiles of bk at head_dim
+// 64 or 128 (the wrapper holds it against the device's opt-in limit before
+// launching); 0 for another width.
+size_t mkg_flash_attention_fwd_mma_smem(int lk, int bk, int head_dim) {
+  int smem = 0;
+  if (head_dim == 64) pick<64>(lk, bk, smem);
+  if (head_dim == 128) pick<128>(lk, bk, smem);
+  return size_t(smem);
 }
 
 // Launches on `stream` without synchronising and returns cudaGetLastError()
-// (cudaErrorInvalidValue for anything but bf16: fp32 takes the CUDA-core
-// kernel). q, k, v and out are bf16, packed (B, L, heads * 64); lse
-// (B, heads, Lq) fp32; inv_keep is 1 / (1 - rate).
+// (cudaErrorInvalidValue for anything but bf16, where fp32 takes the
+// CUDA-core kernel, or for a head_dim other than 64 or 128). q, k, v and
+// out are bf16, packed (B, L, heads * head_dim); lse (B, heads, Lq) fp32;
+// inv_keep is 1 / (1 - rate).
 int mkg_flash_attention_fwd_mma(const void* q, const void* k, const void* v, const void* mask,
                                 const void* boundary, const void* w, void* out, void* lse,
-                                int batch, int lq, int lk, int num_heads, int is_bf16,
-                                float scale, int has_geometry, int row_start, int text_len,
-                                int offset, int dropout, unsigned int threshold,
+                                int batch, int lq, int lk, int num_heads, int head_dim,
+                                int is_bf16, float scale, int has_geometry, int row_start,
+                                int text_len, int offset, int dropout, unsigned int threshold,
                                 float inv_keep, unsigned int seed, int bq, int bk, int n_qblk,
                                 int n_kblk, void* stream) {
   if (!is_bf16) return int(cudaErrorInvalidValue);
@@ -465,12 +539,10 @@ int mkg_flash_attention_fwd_mma(const void* q, const void* k, const void* v, con
                static_cast<bf16*>(out), static_cast<float*>(lse), lq, lk, num_heads, scale,
                has_geometry, row_start, text_len, offset, dropout, threshold, inv_keep, seed,
                bq, bk, n_qblk, n_kblk};
-  const dim3 grid((lq + kTile - 1) / kTile, num_heads, batch);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (lk <= bk && lk <= 2 * kTile) return launch_resident<2>(a, grid, s);
-  if (lk <= bk && lk <= kMaxResidentKeys) return launch_resident<4>(a, grid, s);
-  fwd_streaming_kernel<<<grid, kThreads, 0, s>>>(a);
-  return int(cudaGetLastError());
+  if (head_dim == 64) return launch<64>(a, batch, s);
+  if (head_dim == 128) return launch<128>(a, batch, s);
+  return int(cudaErrorInvalidValue);
 }
 
 }  // extern "C"

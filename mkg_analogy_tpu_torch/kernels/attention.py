@@ -65,7 +65,7 @@ ROWS_PER_BLOCK = 64  # query rows per block of every kernel (csrc kRowsPerBlock,
 # tensor-core kernels stream their keys in chunks and have no such limit of
 # their own, but each 64-row tile walks every key twice, and the set of calls
 # the route accepts stays what it was: longer sequences are the flash
-# kernels' work at head_dim 64, and no kernel's yet at 128.
+# kernels' work, at either width.
 MAX_KEYS_BF16 = {64: 717, 128: 400}
 LAUNCHES = 0         # forward kernel launches since import (or a caller's reset)
 LAUNCHES_BWD = 0     # backward kernel launches, likewise
@@ -401,8 +401,7 @@ def _check_tensor(name, t, q):
                          f"(B, L, heads*d) tensor, got {tuple(t.shape)}")
 
 
-def _check_inputs(q, k, v, mask, num_heads, compute_dtype, kernel="fused_attention",
-                  head_dims=HEAD_DIMS, width_hint=""):
+def _check_inputs(q, k, v, mask, num_heads, compute_dtype, kernel="fused_attention"):
     if q.device.type != "cuda":
         raise ValueError(f"{kernel} kernel needs CUDA tensors, got {q.device}")
     if q.dtype not in (torch.bfloat16, torch.float32):
@@ -415,10 +414,10 @@ def _check_inputs(q, k, v, mask, num_heads, compute_dtype, kernel="fused_attenti
         _check_tensor(name, t, q)
     b, lq, hd = q.shape
     lk = k.shape[1]
-    if hd % num_heads or hd // num_heads not in head_dims:
+    if hd % num_heads or hd // num_heads not in HEAD_DIMS:
         raise ValueError(f"{kernel} kernel takes head_dim "
-                         f"{' or '.join(map(str, head_dims))}: width {hd} for "
-                         f"{num_heads} heads{width_hint}")
+                         f"{' or '.join(map(str, HEAD_DIMS))}: width {hd} for "
+                         f"{num_heads} heads")
     if k.shape != (b, lk, hd) or v.shape != k.shape:
         raise ValueError(f"k {tuple(k.shape)} / v {tuple(v.shape)} do not match q "
                          f"{tuple(q.shape)}")
@@ -430,13 +429,6 @@ def _check_inputs(q, k, v, mask, num_heads, compute_dtype, kernel="fused_attenti
 
 FLASH_HINT = ("longer sequences take the flash kernels "
               "(kernels/flash_attention.py, --fused_attention flash)")
-# the flash kernels take head_dim 64 only (ROADMAP.md queue 2)
-D128_HINT = ("no kernel takes longer sequences at head_dim 128 yet (the flash "
-             "kernels take head_dim 64 only: ROADMAP.md queue 2)")
-
-
-def _length_hint(head_dim):
-    return FLASH_HINT if head_dim == 64 else D128_HINT
 
 
 def _head_dim(q, num_heads):
@@ -455,7 +447,7 @@ def _check_keys_bf16(lk, head_dim):
     if lk > MAX_KEYS_BF16[head_dim]:
         raise ValueError(f"Lk={lk} is above the single-block kernels' "
                          f"{MAX_KEYS_BF16[head_dim]} bf16 keys at head_dim {head_dim}: "
-                         f"{_length_hint(head_dim)}")
+                         f"{FLASH_HINT}")
 
 
 def _geometry_args(geometry, lq):
@@ -505,7 +497,7 @@ def _launch_fwd_cuda_cores(q, k, v, mask, num_heads, bnd, w, geometry, rate, see
     lib = _lib()
     is_bf16 = int(q.dtype == torch.bfloat16)
     _check_smem(lib.mkg_fused_attention_fwd_smem(lk, is_bf16, d), q,
-                f"Lk={lk} at head_dim {d}", _length_hint(d))
+                f"Lk={lk} at head_dim {d}")
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         err = lib.mkg_fused_attention_fwd(
@@ -569,7 +561,7 @@ def _launch_bwd_cuda_cores(q, k, v, mask, g, num_heads, bnd, w, geometry, rate, 
     lib = _lib_bwd()
     is_bf16 = int(q.dtype == torch.bfloat16)
     _check_smem(lib.mkg_fused_attention_bwd_smem(lq, lk, is_bf16, d), q,
-                f"the backward at Lq={lq}, Lk={lk}, head_dim {d}", _length_hint(d))
+                f"the backward at Lq={lq}, Lk={lk}, head_dim {d}")
     with torch.cuda.device(q.device):
         err = lib.mkg_fused_attention_bwd(
             *_bwd_pointers(q, k, v, g, mask, bnd, w, buffers), b, lq, lk, num_heads, d,

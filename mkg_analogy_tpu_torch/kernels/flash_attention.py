@@ -42,10 +42,15 @@ dK/dV (JAX zeroes their q, g, lse and delta).
   the plain versions: they walk the logical tiles as the three kernel bodies
   do. The CPU tests hold them to the JAX kernels in interpret mode, and
   ``chip_smoke.py`` holds the CUDA kernels to them on the card.
+- The kernels take head_dim 64 (BERT-base, ViT-B) and 128 (ViLBERT's
+  visual stream, 1024 wide with 8 heads): each CUDA library exports both
+  instantiations, and the launchers pass the width of the call
+  (``hd // num_heads``) and its scale; any other width raises.
 - ``LAUNCHES_FLASH``, ``LAUNCHES_FLASH_DKV`` and ``LAUNCHES_FLASH_DQ``
   count kernel launches (a forward, dK/dV or dQ launch on either route);
   ``LAUNCHES_FLASH_FWD_MMA``, ``LAUNCHES_FLASH_DKV_MMA`` and
-  ``LAUNCHES_FLASH_DQ_MMA`` count those of the tensor-core kernels alone.
+  ``LAUNCHES_FLASH_DQ_MMA`` count those of the tensor-core kernels alone;
+  each has a ``_D128`` sibling that counts its head_dim-128 launches.
 """
 
 from __future__ import annotations
@@ -66,6 +71,7 @@ from .attention import (
     _check_smem,
     _check_tensor,
     _geometry_args,
+    _head_dim,
     _merge_heads,
     _raise_if,
     _resolve,
@@ -75,12 +81,6 @@ from .attention import (
 )
 
 HARD_MASK = -1e30    # exact exclusion of out-of-range K columns (exp -> 0)
-HEAD_DIM = 64        # the flash kernels' head width
-# ViLBERT's visual stream (head_dim 128) with --fused_attention flash: the
-# plain versions take any width, the CUDA kernels 64 only
-WIDTH_HINT = ("; the flash kernels at head_dim 128 are queued in ROADMAP.md "
-              "queue 2 (flash rows 3-5 at head_dim 128); the single-block "
-              "kernels (--fused_attention 1) take it")
 BLOCK_Q, BLOCK_K = 256, 512  # logical tile defaults (flash_attention.py:533-534)
 # keys per dK/dV block, one (dw0, dw1) partial each: the CUDA-core kernel
 # (csrc/flash_attention_bwd.cu kPerBlock) and the tensor-core one (kTile)
@@ -91,6 +91,12 @@ LAUNCHES_FLASH_DQ = 0   # dQ kernel launches, either route, likewise
 LAUNCHES_FLASH_FWD_MMA = 0  # of those, the tensor-core (bf16) kernels'
 LAUNCHES_FLASH_DKV_MMA = 0
 LAUNCHES_FLASH_DQ_MMA = 0
+LAUNCHES_FLASH_D128 = 0      # the head_dim-128 launches among each count above
+LAUNCHES_FLASH_DKV_D128 = 0
+LAUNCHES_FLASH_DQ_D128 = 0
+LAUNCHES_FLASH_FWD_MMA_D128 = 0
+LAUNCHES_FLASH_DKV_MMA_D128 = 0
+LAUNCHES_FLASH_DQ_MMA_D128 = 0
 
 
 def _blocks(lq, lk, block_q, block_k):
@@ -338,7 +344,7 @@ def _bind_fwd(lib, suffix):
     launcher = getattr(lib, f"mkg_flash_attention_fwd{suffix}")
     launcher.argtypes = [
         p, p, p, p, p, p, p, p,     # q k v mask boundary w out lse
-        i, i, i, i, i,              # batch lq lk num_heads is_bf16
+        i, i, i, i, i, i,           # batch lq lk num_heads head_dim is_bf16
         f,                          # scale
         i, i, i, i,                 # has_geometry row_start text_len offset
         i, u, f, u,                 # dropout threshold inv_keep seed
@@ -355,7 +361,7 @@ def _bind_fwd(lib, suffix):
 def _lib_fwd() -> ctypes.CDLL:
     """The CUDA-core forward kernel (csrc/flash_attention_fwd.cu)."""
     lib = _bind_fwd(build.load("flash_attention_fwd"), "")
-    lib.mkg_flash_attention_fwd_smem.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.mkg_flash_attention_fwd_smem.argtypes = [ctypes.c_int] * 3  # bk is_bf16 head_dim
     lib.mkg_flash_attention_fwd_smem.restype = ctypes.c_size_t
     return lib
 
@@ -364,7 +370,7 @@ def _lib_fwd() -> ctypes.CDLL:
 def _lib_fwd_mma() -> ctypes.CDLL:
     """The tensor-core forward kernel (csrc/flash_attention_fwd_mma.cu)."""
     lib = _bind_fwd(build.load("flash_attention_fwd_mma"), "_mma")
-    lib.mkg_flash_attention_fwd_mma_smem.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.mkg_flash_attention_fwd_mma_smem.argtypes = [ctypes.c_int] * 3  # lk bk head_dim
     lib.mkg_flash_attention_fwd_mma_smem.restype = ctypes.c_size_t
     return lib
 
@@ -374,7 +380,7 @@ def _bind_bwd(lib, suffix):
     "_mma"."""
     p, i, f, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint
     common = [
-        i, i, i, i, i,              # batch lq lk num_heads is_bf16
+        i, i, i, i, i, i,           # batch lq lk num_heads head_dim is_bf16
         f,                          # scale
         i, i, i, i,                 # has_geometry row_start text_len offset
         i, u, f, u,                 # dropout threshold inv_keep seed
@@ -395,7 +401,7 @@ def _bind_bwd(lib, suffix):
 def _lib_bwd() -> ctypes.CDLL:
     """The CUDA-core backward kernels (csrc/flash_attention_bwd.cu)."""
     lib = _bind_bwd(build.load("flash_attention_bwd"), "")
-    lib.mkg_flash_attention_bwd_smem.argtypes = [ctypes.c_int]
+    lib.mkg_flash_attention_bwd_smem.argtypes = [ctypes.c_int, ctypes.c_int]  # is_bf16 head_dim
     lib.mkg_flash_attention_bwd_smem.restype = ctypes.c_size_t
     return lib
 
@@ -404,17 +410,19 @@ def _lib_bwd() -> ctypes.CDLL:
 def _lib_bwd_mma() -> ctypes.CDLL:
     """The tensor-core backward kernels (csrc/flash_attention_bwd_mma.cu)."""
     lib = _bind_bwd(build.load("flash_attention_bwd_mma"), "_mma")
-    lib.mkg_flash_attention_bwd_mma_smem.argtypes = []
+    lib.mkg_flash_attention_bwd_mma_smem.argtypes = [ctypes.c_int]  # head_dim
     lib.mkg_flash_attention_bwd_mma_smem.restype = ctypes.c_size_t
     return lib
 
 
 def _call_args(q, k, num_heads, geometry, rate, seed, block_q, block_k):
-    """The scalar arguments every flash kernel takes, after its pointers."""
+    """The scalar arguments every flash kernel takes, after its pointers:
+    the head width of the call picks the instantiation and sets the scale."""
     b, lq, _ = q.shape
     lk = k.shape[1]
+    d = _head_dim(q, num_heads)
     bq, bk, n_qblk, n_kblk = _blocks(lq, lk, block_q, block_k)
-    return (b, lq, lk, num_heads, int(q.dtype == torch.bfloat16), float(HEAD_DIM) ** -0.5,
+    return (b, lq, lk, num_heads, d, int(q.dtype == torch.bfloat16), float(d) ** -0.5,
             *_geometry_args(geometry, lq), int(rate > 0.0), int(rate * float(2 ** 32)),
             (1.0 / (1.0 - rate)) if rate > 0.0 else 1.0, seed & _M32,
             bq, bk, n_qblk, n_kblk, torch.cuda.current_stream(q.device).cuda_stream)
@@ -424,13 +432,15 @@ def _fwd(mma, q, k, v, mask, num_heads, bnd, w, geometry, rate, seed, block_q, b
     """(out, lse) of one forward launch on a route: the tensor-core kernel
     (``mma``, bf16) or the CUDA-core one."""
     _, bk, _, _ = _blocks(q.shape[1], k.shape[1], block_q, block_k)
+    d = _head_dim(q, num_heads)
     if mma:
         lib, launcher = _lib_fwd_mma(), "mkg_flash_attention_fwd_mma"
-        smem = lib.mkg_flash_attention_fwd_mma_smem(k.shape[1], bk)
+        smem = lib.mkg_flash_attention_fwd_mma_smem(k.shape[1], bk, d)
     else:
         lib, launcher = _lib_fwd(), "mkg_flash_attention_fwd"
-        smem = lib.mkg_flash_attention_fwd_smem(bk, int(q.dtype == torch.bfloat16))
-    _check_smem(smem, q, f"{launcher[4:]} at block_k={bk}", hint="pass a smaller block_k")
+        smem = lib.mkg_flash_attention_fwd_smem(bk, int(q.dtype == torch.bfloat16), d)
+    _check_smem(smem, q, f"{launcher[4:]} at block_k={bk}, head_dim {d}",
+                hint="pass a smaller block_k")
     out = torch.empty_like(q)
     lse = torch.empty(q.shape[0], num_heads, q.shape[1], dtype=torch.float32,
                       device=q.device)
@@ -443,23 +453,32 @@ def _fwd(mma, q, k, v, mask, num_heads, bnd, w, geometry, rate, seed, block_q, b
     return out, lse
 
 
-def _launch_fwd_cuda_cores(*args):
+def _count(kernel, mma, q, num_heads):
+    """One launch of ``kernel`` ("FWD", "DKV" or "DQ") counted: in its
+    count of either route, on the tensor cores (``mma``) in its ``_MMA``
+    count too, and at head_dim 128 in the ``_D128`` sibling of each."""
+    names = ["LAUNCHES_FLASH" + ("" if kernel == "FWD" else f"_{kernel}")]
+    if mma:
+        names.append(f"LAUNCHES_FLASH_{kernel}_MMA")
+    d128 = _head_dim(q, num_heads) == 128
+    for name in names + [f"{n}_D128" for n in names if d128]:
+        globals()[name] += 1
+
+
+def _launch_fwd_cuda_cores(q, k, v, mask, num_heads, *args):
     """The CUDA-core forward (csrc/flash_attention_fwd.cu): the fp32 route.
     It also takes bf16, which :func:`_launch_fwd` never sends it; only a
     measurement that wants the earlier kernel's time beside the new one's
     calls it so. Arguments as :func:`_launch_fwd`."""
-    global LAUNCHES_FLASH
-    out = _fwd(False, *args)
-    LAUNCHES_FLASH += 1
+    out = _fwd(False, q, k, v, mask, num_heads, *args)
+    _count("FWD", False, q, num_heads)
     return out
 
 
-def _launch_fwd_mma(*args):
+def _launch_fwd_mma(q, k, v, mask, num_heads, *args):
     """The tensor-core forward (csrc/flash_attention_fwd_mma.cu), bf16."""
-    global LAUNCHES_FLASH, LAUNCHES_FLASH_FWD_MMA
-    out = _fwd(True, *args)
-    LAUNCHES_FLASH += 1
-    LAUNCHES_FLASH_FWD_MMA += 1
+    out = _fwd(True, q, k, v, mask, num_heads, *args)
+    _count("FWD", True, q, num_heads)
     return out
 
 
@@ -479,14 +498,15 @@ def _bwd_lib(q, g, lse, delta, num_heads, mma):
         if (t.shape != (q.shape[0], num_heads, q.shape[1]) or t.dtype != torch.float32
                 or not t.is_contiguous()):
             raise ValueError(f"{name} must be a contiguous fp32 (B, heads, Lq) tensor")
+    d = _head_dim(q, num_heads)
     if mma:
         lib = _lib_bwd_mma()
-        smem, what = lib.mkg_flash_attention_bwd_mma_smem(), "flash_attention_bwd_mma"
+        smem, what = lib.mkg_flash_attention_bwd_mma_smem(d), "flash_attention_bwd_mma"
     else:
         lib = _lib_bwd()
-        smem = lib.mkg_flash_attention_bwd_smem(int(q.dtype == torch.bfloat16))
+        smem = lib.mkg_flash_attention_bwd_smem(int(q.dtype == torch.bfloat16), d)
         what = "flash_attention_bwd"
-    _check_smem(smem, q, what, hint="the device is not an H100-class card")
+    _check_smem(smem, q, f"{what} at head_dim {d}", hint="the device is not an H100-class card")
     return lib
 
 
@@ -526,41 +546,35 @@ def _dq(mma, q, k, v, mask, g, lse, delta, num_heads, bnd, w, geometry, rate, se
     return dq
 
 
-def _launch_bwd_dkv_cuda_cores(*args):
+def _launch_bwd_dkv_cuda_cores(q, k, v, mask, g, lse, delta, num_heads, *args):
     """The CUDA-core dK/dV kernel (csrc/flash_attention_bwd.cu): the fp32
     route. It also takes bf16, which :func:`_launch_bwd_dkv` never sends it;
     only a measurement that wants the earlier kernel's time beside the new
     one's calls it so. Arguments as :func:`_launch_bwd_dkv`."""
-    global LAUNCHES_FLASH_DKV
-    out = _dkv(False, *args)
-    LAUNCHES_FLASH_DKV += 1
+    out = _dkv(False, q, k, v, mask, g, lse, delta, num_heads, *args)
+    _count("DKV", False, q, num_heads)
     return out
 
 
-def _launch_bwd_dq_cuda_cores(*args):
+def _launch_bwd_dq_cuda_cores(q, k, v, mask, g, lse, delta, num_heads, *args):
     """The CUDA-core dQ kernel: the fp32 route (bf16 only for a measurement,
     as :func:`_launch_bwd_dkv_cuda_cores`)."""
-    global LAUNCHES_FLASH_DQ
-    out = _dq(False, *args)
-    LAUNCHES_FLASH_DQ += 1
+    out = _dq(False, q, k, v, mask, g, lse, delta, num_heads, *args)
+    _count("DQ", False, q, num_heads)
     return out
 
 
-def _launch_bwd_dkv_mma(*args):
+def _launch_bwd_dkv_mma(q, k, v, mask, g, lse, delta, num_heads, *args):
     """The tensor-core dK/dV kernel (csrc/flash_attention_bwd_mma.cu), bf16."""
-    global LAUNCHES_FLASH_DKV, LAUNCHES_FLASH_DKV_MMA
-    out = _dkv(True, *args)
-    LAUNCHES_FLASH_DKV += 1
-    LAUNCHES_FLASH_DKV_MMA += 1
+    out = _dkv(True, q, k, v, mask, g, lse, delta, num_heads, *args)
+    _count("DKV", True, q, num_heads)
     return out
 
 
-def _launch_bwd_dq_mma(*args):
+def _launch_bwd_dq_mma(q, k, v, mask, g, lse, delta, num_heads, *args):
     """The tensor-core dQ kernel (csrc/flash_attention_bwd_mma.cu), bf16."""
-    global LAUNCHES_FLASH_DQ, LAUNCHES_FLASH_DQ_MMA
-    out = _dq(True, *args)
-    LAUNCHES_FLASH_DQ += 1
-    LAUNCHES_FLASH_DQ_MMA += 1
+    out = _dq(True, q, k, v, mask, g, lse, delta, num_heads, *args)
+    _count("DQ", True, q, num_heads)
     return out
 
 
@@ -644,8 +658,9 @@ def flash_attention(
 ) -> torch.Tensor:
     """Blocked fused attention: the contract of ``fused_attention`` at any
     sequence length, differentiable in q, k, v, w0 and w1. On CPU tensors the
-    plain forward and backward; on CUDA tensors the kernels (bf16 or fp32,
-    head_dim 64, compute dtype = the inputs' dtype) or an error."""
+    plain forward and backward (any head width); on CUDA tensors the kernels
+    (bf16 or fp32, head_dim 64 or 128, compute dtype = the inputs' dtype) or
+    an error."""
     if not 0.0 <= dropout_rate < 1.0:
         raise ValueError(f"dropout_rate must be in [0, 1), got {dropout_rate}")
     if block_q < 1 or block_k < 1:
@@ -655,8 +670,7 @@ def flash_attention(
                                             dropout_seed)
     maskf = mask.to(device=q.device, dtype=_acc_dtype(q)).contiguous()
     if q.device.type != "cpu":
-        _check_inputs(q, k, v, maskf, num_heads, compute_dtype, kernel="flash_attention",
-                      head_dims=(HEAD_DIM,), width_hint=WIDTH_HINT)
+        _check_inputs(q, k, v, maskf, num_heads, compute_dtype, kernel="flash_attention")
     return _FlashAttention.apply(q, k, v, maskf, bnd.contiguous(), w.contiguous(),
                                  num_heads, geometry, rate, seed, compute_dtype,
                                  int(block_q), int(block_k))

@@ -21,8 +21,8 @@ the flash kernels). FLAVA's multimodal tower attends over 394 + L tokens
 (522 at L=128), at the length from which the plain route takes the flash
 kernels, so flash is its default, in either dtype. VisualBERT attends over
 L + 72 tokens (200 at L=128) and ViLBERT's streams over L and 72 tokens,
-the visual one at head_dim 128, which the single-block kernels take and the
-flash kernels do not yet.
+the visual one at head_dim 128, which both kernel sets take; both keep the
+single-block kernels.
 """
 
 from __future__ import annotations

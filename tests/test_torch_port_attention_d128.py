@@ -5,8 +5,8 @@ the JAX kernel in interpret mode (``fused_attention`` and ``jax.vjp`` of it),
 on the same numpy inputs at B=2, Lq=Lk=72, 8 heads of 128: without and with
 the analogy geometry, one image's 36 regions masked, every key of a row
 masked, and dropout 0.1 with the keep masks compared bit for bit. Plus the
-four CUDA kernels at head_dim 128 against their plain versions (needs a
-card)."""
+four CUDA kernels at head_dim 128 against their plain versions, and a width
+neither kernel set takes (need a card)."""
 
 import numpy as np
 import pytest
@@ -256,14 +256,15 @@ def test_d128_backward_kernels_match_plain_version(cuda, case, dtype, rel):  # n
 
 
 @pytest.mark.cuda
-def test_d128_flash_and_other_widths_raise(cuda):  # noqa: F811
-    """The flash kernels take head_dim 64 only: at 128 they raise and name
-    their ROADMAP.md item; a width neither kernel set takes raises too."""
+def test_other_widths_raise(cuda):  # noqa: F811
+    """Both kernel sets take head_dim 64 and 128 only (the flash kernels'
+    128 instances are held to their plain versions in
+    test_torch_port_flash_d128.py): a width neither takes raises, on the
+    single-block and on the flash route, and nothing falls back."""
     from mkg_analogy_tpu_torch.kernels.flash_attention import flash_attention
 
     q = torch.zeros(1, 8, H * D, device=cuda, dtype=torch.bfloat16)
     mask = torch.ones(1, 8, device=cuda)
-    with pytest.raises(ValueError, match="ROADMAP.md queue 2"):
-        flash_attention(q, q, q, mask, H)
-    with pytest.raises(ValueError, match="head_dim 64 or 128"):
-        port.fused_attention(q, q, q, mask, 32)  # head_dim 32
+    for attention in (port.fused_attention, flash_attention):
+        with pytest.raises(ValueError, match="head_dim 64 or 128"):
+            attention(q, q, q, mask, 32)  # head_dim 32

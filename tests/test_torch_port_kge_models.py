@@ -27,6 +27,18 @@ torch.set_num_threads(1)
 E, R, DIM, VIS = 64, 6, 16, 32
 
 
+@pytest.fixture(autouse=True)
+def _threefry():
+    """Pin JAX's PRNG implementation to its default: the JAX CLI sets a
+    process-wide ``jax_default_prng_impl`` (``--prng``, default unsafe_rbg),
+    so a CLI test run earlier in the same worker would change the task modes
+    drawn below (tests/test_quirks.py pins it likewise)."""
+    prev = jax.config.jax_default_prng_impl
+    jax.config.update("jax_default_prng_impl", "threefry2x32")
+    yield
+    jax.config.update("jax_default_prng_impl", prev)
+
+
 # ------------------------------------------------------------------ models
 def _visual(seed=0):
     return np.random.default_rng(seed).standard_normal((E + 1, VIS)).astype(np.float32)

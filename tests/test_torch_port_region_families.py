@@ -7,12 +7,16 @@ so its visual self-attention runs at head_dim 128, the second width of the
 single-block kernels. The region inputs are (B, 72, 2048) with one image's
 36 regions masked in one batch row and all 72 in another, as the trainer's
 region gather builds them. Covered: the forward through each attention
-backend, VisualBERT's reference mask geometry off and on, ViLBERT's
+backend (``flash`` against the Flax model on JAX's own flash route, its
+Pallas kernels in interpret mode), VisualBERT's reference mask geometry
+off and on, ViLBERT's
 ``ablate_img_to_txt`` off and on, one fp32 fine-tune step each (loss and
 every gradient leaf against ``jax.grad`` of the JAX trainer's
 ``_finetune_loss``), the registry (its connection schedule against JAX's,
 ``available_models``) and the CLI on the CPU with ``--image_features
 synthetic``."""
+
+import contextlib
 
 import jax
 import jax.numpy as jnp
@@ -20,6 +24,7 @@ import numpy as np
 import pytest
 import torch
 
+from mkg_analogy_tpu.models import common as jcommon
 from mkg_analogy_tpu.models import registry as jregistry
 from mkg_analogy_tpu.models import vilbert as jvilbert
 from mkg_analogy_tpu.models import visualbert as jvisualbert
@@ -106,10 +111,26 @@ def pair(request):
     return (request.param,) + build_pair(request.param)
 
 
-def flax_trans(flax_model, params, batch):
-    return np.asarray(flax_model.apply(
-        params, **{k: None if v is None else jnp.asarray(v) for k, v in batch.items()},
-        deterministic=True))
+@contextlib.contextmanager
+def jax_attention(backend):
+    """The Flax models' attention route for a port backend: ``flash`` takes
+    JAX's flash kernels (``--fused_attention flash``: the Pallas kernels, in
+    interpret mode on the CPU), the others its einsum path."""
+    saved = (jcommon.USE_FUSED_ATTENTION, jcommon.FUSED_INTERPRET, jcommon.FUSED_BACKEND)
+    try:
+        if backend == "flash":
+            jcommon.set_fused_attention(True, interpret=True, backend="flash")
+        yield
+    finally:
+        (jcommon.USE_FUSED_ATTENTION, jcommon.FUSED_INTERPRET,
+         jcommon.FUSED_BACKEND) = saved
+
+
+def flax_trans(flax_model, params, batch, backend="plain"):
+    with jax_attention(backend):
+        return np.asarray(flax_model.apply(
+            params, **{k: None if v is None else jnp.asarray(v) for k, v in batch.items()},
+            deterministic=True))
 
 
 def port_trans(model, batch):
@@ -124,14 +145,16 @@ def set_backend(model, backend):
             m.backend = backend
 
 
-@pytest.mark.parametrize("backend", ["single", "plain"])
+@pytest.mark.parametrize("backend", ["single", "plain", "flash"])
 def test_forward_matches_jax(pair, backend):
     """Transformed states and tied logits through each attention backend
-    (on the CPU each kernel's plain version) against the Flax model."""
+    (on the CPU each kernel's plain version; ViLBERT's visual layers at
+    head_dim 128) against the Flax model, through JAX's flash kernels where
+    the port takes its own."""
     name, flax_model, params, model = pair
     batch = make_batch()
     set_backend(model, backend)
-    want = flax_trans(flax_model, params, batch)
+    want = flax_trans(flax_model, params, batch, backend)
     got = port_trans(model, batch)
     assert got.shape == want.shape == (B, 5, H)
     np.testing.assert_allclose(got, want, atol=MODEL_ATOL)
@@ -186,7 +209,7 @@ def test_regions_and_multiplier_have_effect(pair):
     np.testing.assert_allclose(got, flax_trans(flax_model, params, unmasked), atol=MODEL_ATOL)
 
 
-@pytest.mark.parametrize("backend", ["single", "plain"])
+@pytest.mark.parametrize("backend", ["single", "plain", "flash"])
 def test_visualbert_reference_mask_offset_matches_jax(backend):
     """``compat_ref_mask_offset``: the geometry shifted by the 72 regions
     (rows from 73, the boundary at sep + 72, columns to the sequence end),
@@ -196,14 +219,15 @@ def test_visualbert_reference_mask_offset_matches_jax(backend):
     set_backend(model, backend)
     batch = make_batch()
     got = port_trans(model, batch)
-    np.testing.assert_allclose(got, flax_trans(flax_model, params, batch), atol=MODEL_ATOL)
+    np.testing.assert_allclose(got, flax_trans(flax_model, params, batch, backend),
+                               atol=MODEL_ATOL)
     default = visualbert.VisualBertForMaskedLM(
         visualbert.VisualBertConfig(text=model.cfg.text, dtype="float32"))
     default.load_state_dict(model.state_dict())
     assert np.abs(port_trans(default, batch) - got).max() > 1e-4
 
 
-@pytest.mark.parametrize("backend", ["single", "plain"])
+@pytest.mark.parametrize("backend", ["single", "plain", "flash"])
 def test_vilbert_ablate_img_to_txt_matches_jax(backend):
     """``ablate_img_to_txt``: the image->text co-attention context dropped,
     against the Flax model; the regions then no longer reach the text."""
@@ -211,7 +235,8 @@ def test_vilbert_ablate_img_to_txt_matches_jax(backend):
     set_backend(model, backend)
     batch = make_batch()
     got = port_trans(model, batch)
-    np.testing.assert_allclose(got, flax_trans(flax_model, params, batch), atol=MODEL_ATOL)
+    np.testing.assert_allclose(got, flax_trans(flax_model, params, batch, backend),
+                               atol=MODEL_ATOL)
     dark = dict(batch, pixel_values=batch["pixel_values"] * 0.0)
     np.testing.assert_array_equal(port_trans(model, dark), got)
 
