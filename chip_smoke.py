@@ -2048,7 +2048,7 @@ def cli_pretrain_phase():
                                     "--max_epochs", "1", "--limit_train_batches", "3"))
             seconds = time.perf_counter() - t0
             launches = {k: n - before[k] for k, n in flash_counts().items()}
-            n_eval = len(np.load(os.path.join(out_dir, "test_ranks.npz"))["ranks"])
+            n_eval = len(np.load(os.path.join(out_dir, "test_ranks_pretrain.npz"))["ranks"])
             # 3 steps; the dev and the test evaluation on n_eval examples
             expect = dict(fwd=24 * (3 + 2 * math.ceil(n_eval / 128)), dkv=24 * 3, dq=24 * 3)
             if launches != expect or attn.LAUNCHES or attn.LAUNCHES_BWD:

@@ -382,8 +382,11 @@ def main(argv=None):
 
     split = (pretrain_splits(data, args.pretrain_format).__getitem__ if args.pretrain
              else data.features)
-    dump_path = (os.path.join(args.output_dir, "test_ranks.npz")
-                 if args.output_dir else None)
+    # test_ranks.npz is always a MARS split, the file tools/analyze_ranks.py
+    # reads; a pre-training run's ranks mix entity and relation rows and go
+    # to a file of their own (ranks, is_rel)
+    dump_name = "test_ranks_pretrain.npz" if args.pretrain else "test_ranks.npz"
+    dump_path = os.path.join(args.output_dir, dump_name) if args.output_dir else None
     if args.only_test:
         if args.checkpoint:
             model.load_state_dict(restore_from(args.checkpoint)(model.state_dict()))

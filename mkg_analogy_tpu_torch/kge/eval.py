@@ -11,6 +11,10 @@ l_filter semantics) is a host-built boolean matrix per batch.
 Rank convention: energies — lower is better; rank = 1 + #{strictly better}
 (OpenKE counts strictly smaller scores). The fine-tune path ranks CE-trained
 logits descending with ``ops.ranking.ranks_from_scores`` (IKRL.py:299-316).
+Unlike the JAX package, a gold score that is not finite (a diverged fit)
+ranks last, at the candidate count, in both conventions, and each result
+counts such rows under ``nonfinite_gold``: no comparison with NaN is true,
+so the counts above would rank it 1.
 """
 
 from __future__ import annotations
@@ -20,7 +24,7 @@ from typing import Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from ..ops.ranking import rank_metrics, ranks_from_scores, tie_counts
+from ..ops.ranking import nonfinite_gold, rank_metrics, ranks_from_scores, tie_counts
 from .sampling import TripleStore
 
 
@@ -81,6 +85,7 @@ def link_prediction(
     t_of_hr, h_of_tr = filters
     rng = np.random.default_rng(seed)
     all_ranks = {"raw": [], "filter": []}
+    n_nonfinite = 0
     n = len(test)
     for start in range(0, n, batch_size):
         sl = slice(start, min(start + batch_size, n))
@@ -99,10 +104,13 @@ def link_prediction(
                                     _ids(tm, device), corrupt)
             energies = energies.to(torch.float32).cpu().numpy()
             gold_e = energies[np.arange(len(gold)), gold]
-            raw_rank = 1 + (energies < gold_e[:, None]).sum(axis=1)
+            # a non-finite gold energy ranks last, at the candidate count
+            last = np.where(np.isfinite(gold_e), 0, energies.shape[1])
+            n_nonfinite += int((last > 0).sum())
+            raw_rank = np.maximum(1 + (energies < gold_e[:, None]).sum(axis=1), last)
             fmask = _filter_mask(list(zip(anchor, rs)), gold, filt, num_entities)
             filt_e = np.where(fmask, np.inf, energies)
-            filt_rank = 1 + (filt_e < gold_e[:, None]).sum(axis=1)
+            filt_rank = np.maximum(1 + (filt_e < gold_e[:, None]).sum(axis=1), last)
             all_ranks["raw"].append(raw_rank)
             all_ranks["filter"].append(filt_rank)
     out = {}
@@ -114,7 +122,7 @@ def link_prediction(
     out.update(
         mrr=out["filter/mrr"], mr=out["filter/mean_rank"],
         hit10=out["filter/hits10"], hit3=out["filter/hits3"],
-        hit1=out["filter/hits1"],
+        hit1=out["filter/hits1"], nonfinite_gold=float(n_nonfinite),
     )
     if return_ranks:
         return out, ranks
@@ -134,7 +142,7 @@ def analogical_reasoning(
     ranks and the size of the score tie group holding the answer (tuples
     order; ``ops.ranking.tie_counts``) — the KGE-silo counterpart of the
     MarT trainer's test_ranks.npz dump (tools/analyze_ranks.py)."""
-    ranks, ties = [], []
+    ranks, ties, n_nonfinite = [], [], 0
     for start in range(0, len(tuples), batch_size):
         rows = tuples[start : start + batch_size]
         scores = finetune_scores_fn(_ids(rows[:, 0], device), _ids(rows[:, 1], device),
@@ -142,8 +150,10 @@ def analogical_reasoning(
         labels = _ids(rows[:, 3], device)
         ranks.append(ranks_from_scores(scores, labels).cpu().numpy())
         ties.append(tie_counts(scores, labels).cpu().numpy())
+        n_nonfinite += int(nonfinite_gold(scores, labels).sum())
     r = np.concatenate(ranks)
     metrics = rank_metrics_of(r, (1, 3, 5, 10))
+    metrics["nonfinite_gold"] = float(n_nonfinite)
     if return_ranks:
         return metrics, r, np.concatenate(ties)
     return metrics

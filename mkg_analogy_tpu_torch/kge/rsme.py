@@ -365,14 +365,19 @@ def filtered_eval(
     queries: np.ndarray,
     to_skip: Dict[Tuple[int, int], set],
     batch_size: int = 500,
-) -> np.ndarray:
+    return_nonfinite: bool = False,
+):
     """Filtered ranks, reference counting convention: rank = 1 + #{scores >=
     target} excluding known positives (models.py:83-97 uses >=, which
     counts ties against the gold). The scores come from the device; the
-    ranking is the JAX package's numpy code. ``CPModel`` (no
-    ``compat_ref_mode1_gold``, no ``gold_scores``) takes the gold's score
-    from its candidate row."""
+    ranking is the JAX package's numpy code, but for a target that is not
+    finite (a diverged fit), which ranks last, at the candidate count: no
+    comparison with NaN is true, so JAX's count gives it rank 0. With
+    ``return_nonfinite`` also returns the (Q,) bool mask of such targets.
+    ``CPModel`` (no ``compat_ref_mode1_gold``, no ``gold_scores``) takes the
+    gold's score from its candidate row."""
     ranks = np.ones(len(queries))
+    nonfinite = np.zeros(len(queries), bool)
     device = next(model.parameters()).device
     mode1_gold = getattr(getattr(model, "cfg", None), "compat_ref_mode1_gold", False)
     model.eval()
@@ -392,8 +397,11 @@ def filtered_eval(
                 cols = np.fromiter(skip, int)
                 scores[i, cols] = -1e6
             scores[i, row[2]] = target[i]
-        ranks[b : b + len(rows)] += (scores >= target[:, None]).sum(1) - 1
-    return ranks
+        bad = ~np.isfinite(target)
+        nonfinite[b : b + len(rows)] = bad
+        ranks[b : b + len(rows)] += np.where(bad, scores.shape[1],
+                                             (scores >= target[:, None]).sum(1)) - 1
+    return (ranks, nonfinite) if return_nonfinite else ranks
 
 
 def eval_both_sides(model: nn.Module, test: np.ndarray, to_skip,
@@ -402,16 +410,19 @@ def eval_both_sides(model: nn.Module, test: np.ndarray, to_skip,
     (datasets.py:43-75 + learn.py avg_both)."""
     out = {}
     ranks_all = []
+    n_nonfinite = 0
     for side in ("rhs", "lhs"):
         q = test.copy()
         if side == "lhs":
             q[:, [0, 2]] = q[:, [2, 0]]
             q[:, 1] += n_rel
-        ranks = filtered_eval(model, q, to_skip[side])
+        ranks, nonfinite = filtered_eval(model, q, to_skip[side], return_nonfinite=True)
         ranks_all.append(ranks)
+        n_nonfinite += int(nonfinite.sum())
         for k, v in rank_metrics_of(ranks, (1, 3, 5, 10)).items():
             out[f"{side}/{k}"] = v
     out.update(rank_metrics_of(np.concatenate(ranks_all), (1, 3, 5, 10)))
+    out["nonfinite_gold"] = float(n_nonfinite)
     return out
 
 

@@ -13,7 +13,9 @@ pre-training and evaluation, on one device.
                    metrics under the reference's metric names
                    (transformer.py:129-166), entity and relation ranks in
                    the triple format; ranks stay on the device until one
-                   transfer at the end of the split;
+                   transfer at the end of the split; unlike JAX, a row whose
+                   gold logit is not finite ranks last (ops/ranking.py) and
+                   ``Eval_*/nonfinite_gold`` counts such rows;
 - early stopping on Eval_entity/mrr (patience 5) and best-checkpoint on
   Eval_entity/hits10 (main.py:141-148).
 
@@ -36,7 +38,7 @@ import torch
 from ..data.batching import BatchIterator
 from ..models.common import DropoutRNG
 from ..ops.losses import label_smoothing_cross_entropy, relaxation_loss
-from ..ops.ranking import rank_metrics, ranks_from_scores, tie_counts
+from ..ops.ranking import nonfinite_gold, rank_metrics, ranks_from_scores, tie_counts
 from ..utils.logging import MetricLogger
 from ..utils.profiling import StepTimer, trace
 from .optim import global_norm, make_optimizer
@@ -264,16 +266,19 @@ class MarTTrainer:
             # labels mix entity indices (pre_type 1) and relation indices
             # (pre_type 2); the clip only keeps entity labels in range in the
             # relation lane, whose ranks those rows discard
-            rel_ranks = ranks_from_scores(
-                rel_logits, label.clamp(0, rel_logits.shape[1] - 1))
+            rel_label = label.clamp(0, rel_logits.shape[1] - 1)
+            rel_ranks = ranks_from_scores(rel_logits, rel_label)
             is_rel = batch["pre_type"] == 2
             return {"ranks": torch.where(is_rel, rel_ranks, ent_ranks),
-                    "is_rel": is_rel, "valid": batch["valid"]}
+                    "is_rel": is_rel, "valid": batch["valid"],
+                    "nonfinite": torch.where(is_rel, nonfinite_gold(rel_logits, rel_label),
+                                             nonfinite_gold(ent_logits, label))}
         logits = self._answer_logits(trans[:, 0])
         ranks = ranks_from_scores(logits, batch["label"])
         out = {"ranks": ranks, "is_rel": torch.zeros_like(ranks, dtype=torch.bool),
                "valid": batch["valid"],
-               "tie": tie_counts(logits, batch["label"])}
+               "tie": tie_counts(logits, batch["label"]),
+               "nonfinite": nonfinite_gold(logits, batch["label"])}
         if "mode" in batch:  # per-mode rank diagnostics (Hits@k anatomy)
             out["mode"] = batch["mode"]
         return out
@@ -299,6 +304,7 @@ class MarTTrainer:
             outs = [{k: v.cpu().numpy() for k, v in o.items()} for o in outs]
         ranks = np.concatenate([o["ranks"][o["valid"]] for o in outs])
         is_rel = np.concatenate([o["is_rel"][o["valid"]] for o in outs])
+        nonfinite = np.concatenate([o["nonfinite"][o["valid"]] for o in outs])
         ties = (np.concatenate([o["tie"][o["valid"]] for o in outs])
                 if "tie" in outs[0] else None)
         modes = (np.concatenate([o["mode"][o["valid"]] for o in outs])
@@ -308,6 +314,7 @@ class MarTTrainer:
         if ent_ranks.size:
             for k, val in rank_metrics(torch.from_numpy(ent_ranks)).items():
                 metrics[f"Eval_entity/{k}"] = float(val)
+            metrics["Eval_entity/nonfinite_gold"] = float(nonfinite[~is_rel].sum())
             if ties is not None:
                 ent_ties = ties[~is_rel]
                 metrics["Eval_entity/tie_mean"] = float(ent_ties.mean())
@@ -326,6 +333,7 @@ class MarTTrainer:
         if rel_ranks.size:
             for k, val in rank_metrics(torch.from_numpy(rel_ranks)).items():
                 metrics[f"Eval_relation/{k}"] = float(val)
+            metrics["Eval_relation/nonfinite_gold"] = float(nonfinite[is_rel].sum())
         if dump_path:
             # raw per-example ranks for offline histogram analysis
             os.makedirs(os.path.dirname(dump_path) or ".", exist_ok=True)

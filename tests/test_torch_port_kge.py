@@ -284,8 +284,11 @@ def assert_metrics_equal(got, want):
     torch and XLA sum in other orders (and XLA multiplies by 1/n where torch
     divides), so each is held to 1e-6 relative (about 8 ulps; a sequential
     fp32 sum of n terms may be off by up to n ulps); the ranks themselves
-    are compared exactly where the test has them."""
-    assert set(got) == set(want)
+    are compared exactly where the test has them. The port adds one key,
+    ``nonfinite_gold``, the count of rows whose gold score is not finite
+    (none here)."""
+    assert set(got) == set(want) | {"nonfinite_gold"}
+    assert got["nonfinite_gold"] == 0.0
     for k in want:
         np.testing.assert_allclose(got[k], want[k], rtol=1e-6, atol=0, err_msg=k)
 
