@@ -53,13 +53,30 @@ exits non-zero:
                 on a small MARS/MarKG-format dataset written here, in bf16
                 through the kernel: finite metrics, 24 launches per eval
                 batch; then in fp32 through the kernel and through the plain
-                attention (``--fused_attention 0``): identical ranks;
+                attention (``--fused_attention 0``): identical ranks; every
+                run builds the kernels before its first batch;
 8. cli_train  — the main path of the fine-tune slice: the CLI fine-tune
                 (``--max_epochs 1 --batch_size 32``, bf16, through the
                 kernels) with dev and test evaluation and the best-dev
-                checkpoint, launches counted from 0; then ``--only_test
-                --checkpoint`` on that checkpoint reproduces the fit's test
-                ranks exactly;
+                checkpoint, launches counted from 0, from an empty build
+                directory: the CLI compiles every kernel before its first
+                batch, and its first step's ms is printed; then
+                ``--only_test --checkpoint`` on that checkpoint reproduces
+                the fit's test ranks exactly;
+    fit_prefetch — ``MarTTrainer.fit`` and ``evaluate`` through
+                ``_prefetch`` (pinned memory, a side stream) against the
+                loop before it, at full width (bf16, B=32, L=128, 24 steps,
+                MARS's 1,020 dev examples at B=128): host and device ms a
+                step, idle share, eval examples/s, peak GB of each; equal
+                losses and dev ranks; no worker left after ``fit``;
+    qk_bf16_grad — the plain attention's bf16 dq/dk backward
+                (``qk_bf16_grad``) on the full-width fine-tune step: the
+                loss bit-equal, each gradient leaf within the bf16 run's
+                own distance from fp32; then the CLI fit with
+                ``--qk_bf16_grad 1 --fused_attention 0``;
+    fused_qkv — the fused Q/K/V projection on weights from
+                ``convert.fuse_qkv``: fp32 forward and step against the
+                unfused model, then 6 bf16 steps of each;
 9. flash_kernel — the three flash kernels (forward, dK/dV, dQ; on the
                 tensor cores in bf16, on the CUDA cores in fp32; out and
                 lse of the forward) against their plain versions at the triple
@@ -185,7 +202,10 @@ exits non-zero:
                 (pre-train, ``--finetune``, each reproduced exactly by
                 ``--eval_only --ckpt``; IKRL once more with
                 ``--use_native_sampler``). No TPU kernel lies on the KGE
-                path, so these phases count no launches.
+                path, so these phases count no launches. Every KGE metrics
+                line carries ``nonfinite_gold``, the rows whose gold score
+                is not finite (ranked last); the ANALOGY recipe, which
+                diverges, must report Hits@1 of at most 0.5.
 
 Then the ``{"kernels": [...]}`` line, the card line, and the last line
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -807,7 +827,7 @@ WORDS = ("alpha beta gamma delta epsilon zeta eta theta iota kappa lamda mu nu "
 
 
 def write_dataset(root, n_ent=64, n_rel=8, n_triples=200, n_train=128, n_test=200,
-                  seed=0):
+                  seed=0, n_dev=16):
     """A small MarKG + MARS in the reference file formats (the layout of
     tests/util.make_tiny_dataset, larger)."""
     rng = random.Random(seed)
@@ -830,7 +850,7 @@ def write_dataset(root, n_ent=64, n_rel=8, n_triples=200, n_train=128, n_test=20
         f.write("\n".join(analogy_ents) + "\n")
     with open(os.path.join(mars, "analogy_relations.txt"), "w") as f:
         f.write("\n".join(analogy_rels) + "\n")
-    for split, n in (("train", n_train), ("dev", 16), ("test", n_test)):
+    for split, n in (("train", n_train), ("dev", n_dev), ("test", n_test)):
         with open(os.path.join(mars, f"{split}.json"), "w") as f:
             for i in range(n):
                 f.write(json.dumps(dict(
@@ -838,6 +858,64 @@ def write_dataset(root, n_ent=64, n_rel=8, n_triples=200, n_train=128, n_test=20
                     question=rng.choice(ents), answer=rng.choice(analogy_ents),
                     relation=rng.choice(analogy_rels), mode=i % 3)) + "\n")
     return markg, mars
+
+
+class BuildOrder:
+    """Records, in a CLI run, the calls of ``kernels.build.build`` (the CLI's
+    ``core/cache.enable_compilation_cache``) and the batches the data
+    pipeline assembles (``BatchIterator.__iter__`` yielding), so a phase can
+    check that every kernel was built before the first batch. On entry
+    with ``fresh_dir`` the build directory is a new empty one, so the CLI
+    compiles every kernel itself; on exit the build directory and the
+    loaded libraries are restored."""
+
+    def __init__(self, fresh_dir=None):
+        self.fresh_dir = fresh_dir
+        self.events = []
+
+    def __enter__(self):
+        from mkg_analogy_tpu_torch.data import batching
+        from mkg_analogy_tpu_torch.kernels import build
+
+        self._saved = (build.build, batching.BatchIterator.__iter__, build.BUILD_DIR,
+                       build._LOADED)
+        real_build, real_iter = self._saved[:2]
+        events = self.events
+
+        def recorded_build(names=()):
+            t0 = time.perf_counter()
+            real_build(names)
+            names = list(names) or sorted(p.stem for p in build.CSRC.glob("*.cu"))
+            events.append(("build", time.perf_counter() - t0,
+                           all(build.library_path(n).exists() for n in names)))
+
+        def recorded_iter(it):
+            for batch in real_iter(it):
+                events.append(("batch",))
+                yield batch
+
+        build.build = recorded_build
+        batching.BatchIterator.__iter__ = recorded_iter
+        if self.fresh_dir:
+            build.BUILD_DIR = build.Path(self.fresh_dir)
+            build._LOADED = {}
+        return self
+
+    def __exit__(self, *exc):
+        from mkg_analogy_tpu_torch.data import batching
+        from mkg_analogy_tpu_torch.kernels import build
+
+        (build.build, batching.BatchIterator.__iter__, build.BUILD_DIR,
+         build._LOADED) = self._saved
+
+    def check(self, what):
+        """(build seconds) where the first event is a build that left every
+        library in place and a batch follows; raises otherwise."""
+        if not self.events or self.events[0][0] != "build" or not self.events[0][2] \
+                or ("batch",) not in self.events:
+            raise AssertionError(f"{what}: the kernels were not built before the first "
+                                 f"batch: {self.events[:3]}")
+        return self.events[0][1]
 
 
 def cli_phase():
@@ -870,8 +948,10 @@ def cli_phase():
                     "--cache_dir", os.path.join(root, "cache")]
             attn.LAUNCHES = 0
             t0 = time.perf_counter()
-            metrics = cli.main(argv)
+            with BuildOrder() as order:
+                metrics = cli.main(argv)
             seconds = time.perf_counter() - t0
+            order.check(f"cli {dtype} --fused_attention {fused}")
             launches = attn.LAUNCHES
             ranks = np.load(os.path.join(out_dir, "test_ranks.npz"))["ranks"]
             runs[dtype, fused] = (metrics, launches, ranks, seconds)
@@ -899,7 +979,8 @@ def cli_phase():
               fp32_mrr=runs["float32", "1"][0]["Eval_entity/mrr"],
               bf16_plain_mrr=plain_metrics["Eval_entity/mrr"],
               bf16_rank_agreement_kernel_vs_plain=float((ranks == plain_ranks).mean()),
-              bf16_plain_seconds=plain_seconds))
+              bf16_plain_seconds=plain_seconds, kernels_built_before_first_batch=True,
+              nonfinite_gold=metrics["Eval_entity/nonfinite_gold"]))
     return launches
 
 
@@ -910,12 +991,16 @@ def cli_train_phase():
     dev split (16) is one eval batch and the test split (200) two, 24
     forward launches each. The best-dev checkpoint is written and restored
     for the test; ``--only_test --checkpoint`` on it must give the same
-    ranks."""
+    ranks. The fit runs with an empty build directory: the CLI must compile
+    every kernel before the first batch is assembled, and its first step
+    (its ms printed) then includes no nvcc."""
     import numpy as np
+    import torch
 
     from mkg_analogy_tpu_torch.cli import main as cli
     from mkg_analogy_tpu_torch.kernels import attention as attn
     from mkg_analogy_tpu_torch.train import checkpoint
+    from mkg_analogy_tpu_torch.train.trainer import MarTTrainer
 
     n_train, n_test = 128, 200
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train_", dir=".") as root:
@@ -929,10 +1014,31 @@ def cli_train_phase():
                     "--cache_dir", os.path.join(root, "cache"), *extra]
 
         fit_dir = os.path.join(root, "fit")
+        step_ms = []
+        real_step = MarTTrainer._train_step
+
+        def timed_step(self, *args, **kwargs):
+            # the fit's first step, synchronised on both sides: it must not
+            # include nvcc, which the CLI ran before the first batch
+            if step_ms:
+                return real_step(self, *args, **kwargs)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            metrics = real_step(self, *args, **kwargs)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t1) * 1e3)
+            return metrics
+
         attn.LAUNCHES = attn.LAUNCHES_BWD = 0
         t0 = time.perf_counter()
-        metrics = cli.main(argv(fit_dir, "--max_epochs", "1", "--batch_size", "32"))
+        MarTTrainer._train_step = timed_step
+        try:
+            with BuildOrder(fresh_dir=os.path.join(root, "kernels")) as order:
+                metrics = cli.main(argv(fit_dir, "--max_epochs", "1", "--batch_size", "32"))
+        finally:
+            MarTTrainer._train_step = real_step
         seconds = time.perf_counter() - t0
+        build_seconds = order.check("cli fine-tune")
         launches = dict(fwd=attn.LAUNCHES, bwd=attn.LAUNCHES_BWD)
         steps = n_train // 32
         expect = dict(fwd=24 * (steps + 1 + math.ceil(n_test / 128)), bwd=24 * steps)
@@ -968,8 +1074,427 @@ def cli_train_phase():
               test_hits10=metrics["Eval_entity/hits10"],
               examples_per_sec_after_step_1=epoch["train/examples_per_sec"],
               last_loss=epoch["train/last_loss"], retest_launches=retest_launches,
-              retest_ranks_identical=True))
+              retest_ranks_identical=True, nonfinite_gold=metrics["Eval_entity/nonfinite_gold"],
+              kernels_built_before_first_batch=True, cli_build_seconds=build_seconds,
+              step_1_ms=step_ms[0]))
     return launches
+
+
+FIT_TRAIN, FIT_DEV = 768, 1020  # 24 steps at B=32; MARS's dev split
+
+
+def prefetch_threads():
+    import threading
+
+    return [t for t in threading.enumerate() if t.name == "mkg-prefetch" and t.is_alive()]
+
+
+class _EpochClock:
+    """A MetricLogger for ``fit`` that keeps what it logs and the host clock
+    of each call: fit logs its epoch's stats right after the end-of-epoch
+    synchronisation, which ends the timed window."""
+
+    def __init__(self):
+        self.records = []
+
+    def log(self, step, metrics, prefix=""):
+        self.records.append((time.perf_counter(), prefix, dict(metrics)))
+
+    def epoch_end(self):
+        return next(t for t, prefix, m in self.records if prefix == "train/" and "epoch" in m)
+
+    def close(self):
+        pass
+
+
+def legacy_fit(trainer, features, on_step):
+    """The loop ``MarTTrainer.fit`` ran before ``_prefetch`` (one epoch,
+    evaluation left out): each batch assembled by the epoch generator and
+    copied with the blocking ``_put_batch`` on this thread, then stepped,
+    with the optimizer ``fit`` builds. ``on_step(step)`` runs before each
+    step; the loop ends with a synchronisation."""
+    from mkg_analogy_tpu_torch.train.optim import make_optimizer
+
+    cfg = trainer.config
+    steps, epoch_batches = trainer._epoch_schedule(features)
+    limit = cfg.limit_train_batches
+    optimizer = make_optimizer(trainer.model, cfg.lr, min(steps, limit or steps) * cfg.max_epochs,
+                               cfg.warmup_ratio, cfg.weight_decay)
+    optimizer.zero_grad()
+    losses = []
+    for step, (kind, batch) in enumerate(epoch_batches()):
+        if limit and step >= limit:
+            break
+        batch.pop("valid")
+        dbatch = trainer._put_batch(batch)
+        on_step(step)
+        metrics = trainer._train_step(optimizer, dbatch, step, trainer.image_table,
+                                      loss_kind=kind)
+        losses.append(metrics["loss"])
+    trainer._sync()
+    return losses
+
+
+def legacy_evaluate(trainer, features):
+    """The evaluation loop before ``_prefetch``: each batch copied with
+    ``_put_batch`` on this thread, one transfer of the ranks at the end;
+    the valid ranks in order."""
+    import numpy as np
+    import torch
+
+    from mkg_analogy_tpu_torch.data.batching import BatchIterator
+
+    it = BatchIterator(features, trainer.config.eval_batch_size, shuffle=False, pad_tail=True)
+    with torch.inference_mode():
+        outs = [trainer._eval_step(trainer._put_batch(b), trainer.image_table) for b in it]
+        outs = [{k: v.cpu().numpy() for k, v in o.items()} for o in outs]
+    return np.concatenate([o["ranks"][o["valid"]] for o in outs])
+
+
+def fit_prefetch_phase(device):
+    """``_prefetch`` on the fine-tune path at full width: MKGformer, bf16,
+    B=32, L=128, dropout on, the single-block kernels; ``write_dataset``
+    with 4,126 entities (MARS's 2,063 analogy entities), FIT_TRAIN training
+    examples (24 steps) and a dev split of FIT_DEV examples (MARS's)
+    evaluated at B=128. Two loops on the same batch sequence from the same
+    weights, run prefetch, old, prefetch, old: ``MarTTrainer.fit`` (one
+    epoch, then its dev evaluation) and ``evaluate``, both through
+    ``_prefetch``; and the loop before it (``legacy_fit``,
+    ``legacy_evaluate``). For each: host ms a step over steps 3-24 (the
+    epoch's wall clock from a synchronisation before step 3 to the one
+    that ends the epoch, none between), device ms a step from a profiled
+    window of 6 steps (torch.profiler, copies included), the idle share
+    1 - device / host, eval examples/s (the second of two evaluations) and
+    peak GB. Gates: the two loops' losses equal step by step (same weights,
+    batches and dropout seeds), their dev ranks equal, every loss finite,
+    and no prefetch worker alive after ``fit`` returns, also after a
+    ``limit_train_batches`` break."""
+    import numpy as np
+    import torch
+
+    from mkg_analogy_tpu_torch.cli.main import synthetic_image_table
+    from mkg_analogy_tpu_torch.data.module import KGCDataModule
+    from mkg_analogy_tpu_torch.kernels import attention as attn
+    from mkg_analogy_tpu_torch.models.registry import create_model
+    from mkg_analogy_tpu_torch.train.trainer import MarTTrainer, TrainConfig
+
+    n_ent = 4126
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_prefetch_", dir=".") as root:
+        markg, mars = write_dataset(root, n_ent=n_ent, n_train=FIT_TRAIN, n_test=16,
+                                    n_dev=FIT_DEV)
+        data = KGCDataModule(data_dir=mars, pretrain_path=markg, max_seq_length=128,
+                             cache_dir=os.path.join(root, "cache"))
+        train, dev = data.features("train"), data.features("dev")
+    with torch.device(device):
+        model = create_model("MKGformerKGC", vocab_size=data.vocab.padded_vocab_size,
+                             dtype="bfloat16", attention="single")
+    clock = _EpochClock()
+    trainer = MarTTrainer(model, data.vocab, TrainConfig(batch_size=32, eval_batch_size=128,
+                                                         max_epochs=1, alpha=0.43),
+                          device=device, logger=clock)
+    trainer.set_image_table(synthetic_image_table("synthetic", n_ent, 224, device))
+    trainer.init_params(7)
+    state = {k: v.clone() for k, v in model.state_dict().items()}
+    steps = FIT_TRAIN // 32
+    marks = {}
+
+    def mark(step):
+        if step == 2:
+            torch.cuda.synchronize()
+            marks["t2"] = time.perf_counter()
+
+    def run_prefetch():
+        model.load_state_dict(state)
+        clock.records.clear()
+        losses = []
+        real = MarTTrainer._train_step
+
+        def step_fn(optimizer, batch, step, image_table=None, loss_kind=None):
+            mark(step)
+            metrics = real(trainer, optimizer, batch, step, image_table, loss_kind=loss_kind)
+            losses.append(metrics["loss"])
+            return metrics
+
+        trainer._train_step = step_fn
+        try:
+            torch.cuda.reset_peak_memory_stats()
+            trainer.fit(train, dev)
+        finally:
+            del trainer._train_step
+        host_ms = (clock.epoch_end() - marks["t2"]) / (steps - 2) * 1e3
+        if prefetch_threads():
+            raise AssertionError(f"fit_prefetch: workers alive after fit: {prefetch_threads()}")
+        times = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            trainer.evaluate(dev, dump_path=os.path.join(scratch, "ranks.npz"))
+            times.append(time.perf_counter() - t0)
+        ranks = np.load(os.path.join(scratch, "ranks.npz"))["ranks"]
+        return losses, host_ms, FIT_DEV / times[-1], ranks, torch.cuda.max_memory_allocated()
+
+    def run_legacy():
+        model.load_state_dict(state)
+        torch.cuda.reset_peak_memory_stats()
+        losses = legacy_fit(trainer, train, mark)
+        host_ms = (time.perf_counter() - marks["t2"]) / (steps - 2) * 1e3
+        times = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ranks = legacy_evaluate(trainer, dev)
+            times.append(time.perf_counter() - t0)
+        return losses, host_ms, FIT_DEV / times[-1], ranks, torch.cuda.max_memory_allocated()
+
+    def device_ms(loop):
+        """Device ms a step over a window of 6 steps (no evaluation)."""
+        trainer.config.limit_train_batches, trainer.config.check_val_every_n_epoch = 6, 100
+        try:
+            if loop == "prefetch":
+                prof = device_profile(lambda: trainer.fit(train, dev), top=8)
+            else:
+                prof = device_profile(lambda: legacy_fit(trainer, train, lambda step: None),
+                                      top=8)
+        finally:
+            trainer.config.limit_train_batches, trainer.config.check_val_every_n_epoch = None, 1
+        if prefetch_threads():
+            raise AssertionError("fit_prefetch: workers alive after a limit_train_batches "
+                                 f"break: {prefetch_threads()}")
+        return prof["device_ms"] / 6, prof["top"]
+
+    runs = {"prefetch": [], "old": []}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_prefetch_ranks_", dir=".") as scratch:
+        for loop in ("prefetch", "old", "prefetch", "old"):
+            attn.LAUNCHES = attn.LAUNCHES_BWD = 0
+            runs[loop].append((run_prefetch if loop == "prefetch" else run_legacy)()
+                              + ((attn.LAUNCHES, attn.LAUNCHES_BWD),))
+    losses = {loop: [float(x) for x in r[0][0]] for loop, r in runs.items()}
+    for loop, r in runs.items():
+        for run in r:
+            if [float(x) for x in run[0]] != losses[loop]:
+                raise AssertionError(f"fit_prefetch {loop}: losses differ between repeats")
+    if losses["prefetch"] != losses["old"] or len(losses["old"]) != steps \
+            or not all(math.isfinite(x) for x in losses["old"]):
+        raise AssertionError(f"fit_prefetch: losses {losses}")
+    if not all(np.array_equal(r[3], runs["old"][0][3]) for rr in runs.values() for r in rr):
+        raise AssertionError("fit_prefetch: the dev ranks differ between the loops")
+    out = {}
+    for loop, rr in runs.items():
+        dev_ms, top = device_ms(loop)
+        host = [r[1] for r in rr]
+        out[loop] = dict(host_ms_per_step=host, device_ms_per_step=dev_ms,
+                         idle_share=[1.0 - dev_ms / h for h in host],
+                         eval_examples_per_s=[r[2] for r in rr],
+                         peak_gb=max(r[4] for r in rr) / 1e9,
+                         launches_fit_and_evals=rr[0][5], device_top=top)
+    emit(dict(phase="fit_prefetch", B=32, L=128, dtype="bfloat16", train_examples=FIT_TRAIN,
+              steps=steps, dev_examples=FIT_DEV, eval_batch=128,
+              analogy_entities=len(data.vocab.analogy_entity_ids), losses=losses["old"],
+              losses_equal=True, dev_ranks_equal=True, workers_alive_after_fit=0,
+              card=card_line(), **out))
+    del trainer, model, state
+    torch.cuda.empty_cache()
+    return out
+
+
+def alternating_step_ms(runs, batch, rounds=2, steps=6):
+    """Host ms a step of each (trainer, optimizer) of ``runs``, taken in
+    turn ``rounds`` times (A B A B), so that the card's clocks and the
+    allocator's state fall on each alike: a list of medians of steps 3-6
+    of each window, and each run's losses in order."""
+    import torch
+
+    medians = {name: [] for name in runs}
+    losses = {name: [] for name in runs}
+    for _ in range(rounds):
+        for name, (trainer, opt) in runs.items():
+            times = []
+            for _ in range(steps):
+                t0 = time.perf_counter()
+                metrics = trainer._train_step(opt, batch, len(losses[name]))
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+                losses[name].append(metrics["loss"].item())
+            medians[name].append(statistics.median(times[2:]))
+    return medians, losses
+
+
+def qk_bf16_grad_phase(device):
+    """``qk_bf16_grad`` (JAX's QK_BF16_GRAD) on the full-width MKGformer
+    fine-tune step through the plain attention, from one state dict and
+    batch, dropout on: bf16 with the field on and off, and fp32 as the
+    yardstick. Gates: the bf16 loss bit-equal with and without (the
+    forward is untouched); each gradient leaf's change with the field on
+    within twice the bf16 run's own largest distance from the fp32
+    gradient of that leaf (two rounding schedules, each that far from
+    fp32, can be as far apart as the sum), plus one bf16 ulp (2^-8) of
+    the model's largest fp32 gradient, the bf16 counterpart of the fp32
+    steps' 1e-6 floor (the key biases' exact gradient is 0, so theirs is
+    round-off in every run); and, as JAX's test holds it, the whole
+    gradient with the field on no farther from fp32 than 1.15x the
+    distance without. Then the
+    median bf16 step ms (steps 3-6) with and without, and the CLI fit
+    ``--qk_bf16_grad 1 --fused_attention 0`` (4 steps at B=32): finite
+    metrics, no attention kernel launched, the products through
+    ``_qk_scores_bf16grad``. The step times alternate off, on, off, on
+    (``alternating_step_ms``)."""
+    import torch
+
+    from mkg_analogy_tpu_torch.cli import main as cli
+    from mkg_analogy_tpu_torch.kernels import attention as attn
+    from mkg_analogy_tpu_torch.models import common
+    from mkg_analogy_tpu_torch.models.common import DropoutRNG
+    from mkg_analogy_tpu_torch.models.unimo import UnimoConfig, UnimoForMaskedLM
+    from mkg_analogy_tpu_torch.train.optim import make_optimizer
+    from mkg_analogy_tpu_torch.train.trainer import MarTTrainer, TrainConfig
+
+    batch = train_batch(device)
+    with torch.device(device):
+        model = UnimoForMaskedLM(UnimoConfig(dtype="float32", attention="plain"))
+    model.init_params(torch.Generator(device=device).manual_seed(0))
+    state = {k: v.clone() for k, v in model.state_dict().items()}
+    del model
+    runs, timed = {}, {}
+    for dtype, flag in (("float32", False), ("bfloat16", False), ("bfloat16", True)):
+        with torch.device(device):
+            model = UnimoForMaskedLM(UnimoConfig(dtype=dtype, attention="plain",
+                                                 qk_bf16_grad=flag))
+        model.load_state_dict(state)
+        trainer = MarTTrainer(model, _AnalogyVocab(), TrainConfig(), device=device)
+        loss, _ = trainer._finetune_loss(batch, DropoutRNG.from_seed(5, device))
+        loss.backward()
+        runs[dtype, flag] = (loss.item(), {n: p.grad.clone() for n, p in model.named_parameters()})
+        model.zero_grad(set_to_none=True)
+        if dtype == "bfloat16":
+            timed[flag] = (trainer, make_optimizer(model, 1e-4, 100, warmup_ratio=0.0))
+        del model, trainer
+        torch.cuda.empty_cache()
+    step_ms, _ = alternating_step_ms(timed, batch)
+    del timed
+    (l32, g32), (l_off, g_off), (l_on, g_on) = (runs["float32", False], runs["bfloat16", False],
+                                                runs["bfloat16", True])
+    if l_on != l_off or not math.isfinite(l_on):
+        raise AssertionError(f"qk_bf16_grad: bf16 loss {l_on} with the field, {l_off} without")
+    top = max(g.abs().max().item() for g in g32.values())
+    worst, worst_leaf = 0.0, ""
+    for name, ref in g32.items():
+        change = (g_on[name] - g_off[name]).abs().max().item()
+        bar = 2 * (g_off[name] - ref).abs().max().item() + 2 ** -8 * top
+        if change / bar > worst:
+            worst, worst_leaf = change / bar, name
+    dist = {flag: math.sqrt(sum(((g[n] - g32[n]) ** 2).sum().item() for n in g32))
+            for flag, g in ((False, g_off), (True, g_on))}
+    norm = math.sqrt(sum((g ** 2).sum().item() for g in g32.values()))
+    if not worst <= 1.0 or not dist[True] <= 1.15 * dist[False]:
+        raise AssertionError(f"qk_bf16_grad: leaf {worst_leaf} at {worst} of its bar; "
+                             f"distance from fp32 {dist}")
+    del runs, g32, g_on, g_off
+
+    calls = []
+    real = common._qk_scores_bf16grad
+
+    def spy(q, k):
+        calls.append(torch.is_grad_enabled())
+        return real(q, k)
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_qk_", dir=".") as root:
+        markg, mars = write_dataset(root)
+        common._qk_scores_bf16grad = spy
+        attn.LAUNCHES = attn.LAUNCHES_BWD = 0
+        reset_counts()
+        try:
+            metrics = cli.main(["--data_dir", mars, "--pretrain_path", markg, "--device", "cuda",
+                                "--dtype", "bfloat16", "--max_seq_length", "128",
+                                "--image_features", "synthetic", "--max_epochs", "1",
+                                "--batch_size", "32", "--qk_bf16_grad", "1",
+                                "--fused_attention", "0",
+                                "--output_dir", os.path.join(root, "out"),
+                                "--log_dir", os.path.join(root, "logs"),
+                                "--cache_dir", os.path.join(root, "cache")])
+        finally:
+            common._qk_scores_bf16grad = real
+    kernels = all_counts()
+    if not all(math.isfinite(v) for v in metrics.values()) or any(kernels.values()) \
+            or sum(calls) != 4 * 24:
+        raise AssertionError(f"qk_bf16_grad CLI: metrics {metrics}, launches {kernels}, "
+                             f"{sum(calls)} products under autograd (4 steps x 24 expected)")
+    emit(dict(phase="qk_bf16_grad", B=TRAIN_BATCH, L=128, attention="plain",
+              loss_bf16=l_on, loss_fp32=l32, loss_bit_equal=True,
+              worst_leaf_change_over_bar=worst, worst_leaf=worst_leaf,
+              rel_distance_from_fp32_off=dist[False] / norm,
+              rel_distance_from_fp32_on=dist[True] / norm,
+              step_ms_off=step_ms[False], step_ms_on=step_ms[True],
+              cli_mrr=metrics["Eval_entity/mrr"],
+              cli_nonfinite_gold=metrics["Eval_entity/nonfinite_gold"],
+              cli_products_under_autograd=sum(calls), cli_products_in_evaluation=len(calls)
+              - sum(calls), card=card_line()))
+
+
+def fused_qkv_phase(device):
+    """``fused_qkv`` (JAX's USE_FUSED_QKV) on the full-width MKGformer, the
+    fused model's weights from ``models/convert.py:fuse_qkv`` of the
+    unfused state dict, through the single-block kernels. fp32 for the
+    bars: the forward's masked-position states within 1e-3 of the
+    unfused model's (the model phase's bar: 24 layers of fp32 GEMMs summed
+    in other orders), one fine-tune step's loss within 1e-5 relative and
+    each gradient leaf, the unfused ones fused the same way, at the bar of
+    ``leaf_ratios``. bf16 for the run: 12 steps of each, the loss finite
+    and falling, the step ms of each (``alternating_step_ms``: unfused,
+    fused, unfused, fused)."""
+    import torch
+
+    from mkg_analogy_tpu_torch.models.common import DropoutRNG
+    from mkg_analogy_tpu_torch.models.convert import fuse_qkv
+    from mkg_analogy_tpu_torch.models.unimo import UnimoConfig, UnimoForMaskedLM
+    from mkg_analogy_tpu_torch.train.optim import make_optimizer
+    from mkg_analogy_tpu_torch.train.trainer import MarTTrainer, TrainConfig
+
+    batch = train_batch(device)
+    with torch.device(device):
+        model = UnimoForMaskedLM(UnimoConfig(dtype="float32"))
+    model.init_params(torch.Generator(device=device).manual_seed(0))
+    state = {k: v.clone() for k, v in model.state_dict().items()}
+    fused_state = fuse_qkv(state)
+    del model
+    out, fp32, timed = {}, {}, {}
+    for fused in (False, True):
+        with torch.device(device):
+            model = UnimoForMaskedLM(UnimoConfig(dtype="float32", fused_qkv=fused))
+        model.load_state_dict(fused_state if fused else state, strict=True)
+        trainer = MarTTrainer(model, _AnalogyVocab(), TrainConfig(), device=device)
+        with torch.no_grad():
+            states = model(**trainer._model_inputs(batch, fmt="finetune"))
+        loss, _ = trainer._finetune_loss(batch, DropoutRNG.from_seed(5, device))
+        loss.backward()
+        grads = {n: p.grad.clone() for n, p in model.named_parameters()}
+        fp32[fused] = (states, loss.item(), grads if fused else fuse_qkv(grads))
+        del model, trainer
+        torch.cuda.empty_cache()
+    err = (fp32[True][0] - fp32[False][0]).abs().max().item()
+    loss_rel = abs(fp32[True][1] - fp32[False][1]) / abs(fp32[False][1])
+    worst, worst_leaf = leaf_ratios(fp32[True][2], fp32[False][2])
+    if not (err <= 1e-3 and loss_rel <= 1e-5 and worst <= 1.0):
+        raise AssertionError(f"fused_qkv fp32: states {err} apart, loss {loss_rel}, "
+                             f"gradient {worst_leaf} at {worst} of its bar")
+    out["fp32"] = dict(max_abs_err_states=err, loss_rel_diff=loss_rel,
+                       worst_err_over_bar=worst, worst_leaf=worst_leaf)
+    del fp32
+    for fused in (False, True):
+        with torch.device(device):
+            model = UnimoForMaskedLM(UnimoConfig(dtype="bfloat16", fused_qkv=fused))
+        model.load_state_dict(fused_state if fused else state, strict=True)
+        trainer = MarTTrainer(model, _AnalogyVocab(), TrainConfig(seed=3), device=device)
+        timed[fused] = (trainer, make_optimizer(model, 1e-4, 100, warmup_ratio=0.0))
+    step_ms, losses = alternating_step_ms(timed, batch)
+    for fused, run in losses.items():
+        if not all(math.isfinite(x) for x in run) or not run[-1] < run[0]:
+            raise AssertionError(f"fused_qkv bf16 fused={fused}: losses {run}")
+        out["bf16_fused" if fused else "bf16_unfused"] = dict(
+            losses=run, median_step_ms=step_ms[fused])
+    del timed, model, trainer
+    torch.cuda.empty_cache()
+    emit(dict(phase="fused_qkv", B=TRAIN_BATCH, L=128, attention="single", card=card_line(),
+              **out))
 
 
 # The flash kernels' shapes: (name, B, Lq, Lk, mask kind, analogy geometry,
@@ -2879,7 +3404,9 @@ def kge_ikrl_phase(device, data, lp_triples=640, pvdm_epochs=2):
     card against the port on the CPU from the same weights, sampler batch
     and task modes (loss within 1e-5 relative, every gradient leaf within
     1e-5 of its largest value), then 8 timed steps (median host ms after
-    two). Then IKRL TransE's filtered link prediction on the first
+    two); the ANALOGY recipe, which diverges there, then ranks the first
+    128 triples' queries (Hits@1 at most 0.5, its non-finite rows counted).
+    Then IKRL TransE's filtered link prediction on the first
     ``lp_triples`` triples, both sides, B=64: energies within 1e-5 of the
     CPU's, ranks equal but for near ties; its time; and one fine-tune step
     at B=128 (Adam) on the card against the CPU. Peak GB of each."""
@@ -2982,6 +3509,20 @@ def kge_ikrl_phase(device, data, lp_triples=640, pvdm_epochs=2):
     out["transae"]["pvdm_epochs"] = pvdm_epochs
     out["transae"]["pvdm_seconds"] = pvdm_seconds
 
+    # the ANALOGY recipe (SGD at lr 1) after its timed steps: where it
+    # diverged, its energies are NaN, and each such query ranks last
+    filters = keval.build_filters(store)
+    head = TripleStore(store.heads[:128], store.tails[:128], store.rels[:128], E, R)
+    models["ikrl_analogy"][1].eval()
+    diverged = keval.link_prediction(models["ikrl_analogy"][1].candidate_energies, head,
+                                     filters, E, device=device)
+    if not diverged["hit1"] <= 0.5:
+        raise AssertionError(f"kge_ikrl: the ANALOGY recipe after its timed steps reports "
+                             f"Hits@1 {diverged['hit1']}")
+    out["ikrl_analogy"]["link_prediction_after_timed_steps"] = dict(
+        queries=2 * len(head), hit1=diverged["hit1"], mrr=diverged["mrr"],
+        nonfinite_gold=diverged["nonfinite_gold"])
+
     # link prediction with IKRL TransE, the card's weights on both sides
     cpu, gpu = models["ikrl_transe"]
     cpu.load_state_dict(gpu.state_dict())
@@ -2991,7 +3532,6 @@ def kge_ikrl_phase(device, data, lp_triples=640, pvdm_epochs=2):
     cpu.eval()
     test = TripleStore(store.heads[:lp_triples], store.tails[:lp_triples],
                        store.rels[:lp_triples], E, R)
-    filters = keval.build_filters(store)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -3022,7 +3562,8 @@ def kge_ikrl_phase(device, data, lp_triples=640, pvdm_epochs=2):
         queries_per_s=2 * lp_triples / lp_seconds, peak_gb=lp_peak,
         energy_err_over_bar=lp["filter"][0], near_tie_ranks=lp["filter"][1],
         ranks_apart={k: v[2] for k, v in lp.items()},
-        mrr=m_gpu["mrr"], mrr_cpu=m_cpu["mrr"], hit10=m_gpu["hit10"])
+        mrr=m_gpu["mrr"], mrr_cpu=m_cpu["mrr"], hit10=m_gpu["hit10"],
+        nonfinite_gold=m_gpu["nonfinite_gold"])
 
     # one fine-tune step at B=128 (Adam), card against CPU; then 5 timed
     rows = data["mars"]["train"][:128]
@@ -3078,7 +3619,7 @@ def kge_rsme_phase(device, data, finetune_batch=500):
     from mkg_analogy_tpu_torch.kge.rsme import (RSMEConfig, RSMEModel, RSMETrainConfig,
                                                 RSMETrainer, assign_modes, build_to_skip,
                                                 filtered_eval, reciprocal_augment)
-    from mkg_analogy_tpu_torch.ops.ranking import ranks_from_scores
+    from mkg_analogy_tpu_torch.ops.ranking import nonfinite_gold, ranks_from_scores
 
     E, R = data["E"], data["R"]
     rng = np.random.default_rng(1)
@@ -3140,12 +3681,12 @@ def kge_rsme_phase(device, data, finetune_batch=500):
         if side == "lhs":
             q[:, [0, 2]] = q[:, [2, 0]]
             q[:, 1] += R
-        sides[side] = (q, filtered_eval(gpu, q, to_skip))
+        sides[side] = (q, *filtered_eval(gpu, q, to_skip, return_nonfinite=True))
     eval_seconds = time.perf_counter() - t0
     eval_peak = torch.cuda.max_memory_allocated() / 1e9
     agree = {}
     with torch.no_grad():
-        for side, (q, r_gpu) in sides.items():
+        for side, (q, r_gpu, _) in sides.items():
             s = [m.ranking_scores(torch.from_numpy(q).to(next(m.parameters()).device))
                  .cpu().numpy() for m in (gpu, cpu)]
             agree[side] = rank_agreement([s[0]], [s[1]], [q[:, 2]], r_gpu,
@@ -3156,7 +3697,8 @@ def kge_rsme_phase(device, data, finetune_batch=500):
         queries_per_s=2 * len(test4) / eval_seconds, peak_gb=eval_peak,
         score_err_over_bar=max(a[0] for a in agree.values()),
         near_tie_ranks=sum(a[1] for a in agree.values()),
-        ranks_apart=sum(a[2] for a in agree.values()), mrr=float(np.mean(1.0 / ranks)))
+        ranks_apart=sum(a[2] for a in agree.values()), mrr=float(np.mean(1.0 / ranks)),
+        nonfinite_gold=int(sum(side[2].sum() for side in sides.values())))
     del tr, state, cpu, gpu
     torch.cuda.empty_cache()
 
@@ -3180,7 +3722,8 @@ def kge_rsme_phase(device, data, finetune_batch=500):
     out["finetune_forward"] = dict(model="analogy", batch=finetune_batch, ms=fwd_ms,
                                    examples_per_s=finetune_batch / fwd_ms * 1e3,
                                    peak_gb=ft_peak, score_err_over_bar=err,
-                                   near_tie_ranks=near, ranks_apart=apart)
+                                   near_tie_ranks=near, ranks_apart=apart,
+                                   nonfinite_gold=int(nonfinite_gold(preds, x[:, 3]).sum()))
     del cpu, gpu
     torch.cuda.empty_cache()
     emit(dict(phase="kge_rsme", entities=E, relations=R, train_examples=len(train_aug),
@@ -3223,7 +3766,8 @@ def cli_kge_phase():
             if again != metrics:
                 raise AssertionError(f"cli_kge {name}: --eval_only gave {again}, the fit "
                                      f"{metrics}")
-            row = dict(seconds=seconds, mrr=metrics["mrr"], eval_only_identical=True)
+            row = dict(seconds=seconds, mrr=metrics["mrr"], eval_only_identical=True,
+                       nonfinite_gold=metrics["nonfinite_gold"])
             if dump:
                 a, b = (np.load(os.path.join(root, f"{n}.npz")) for n in (name, f"{name}_again"))
                 if not (np.array_equal(a["ranks"], b["ranks"])
@@ -3347,6 +3891,9 @@ def main() -> int:
     launches = cli_train_phase()
     if not launches["fwd"] or not launches["bwd"]:
         raise AssertionError(f"the main path launched no kernel: {launches}")
+    fit_prefetch_phase(device)
+    qk_bf16_grad_phase(device)
+    fused_qkv_phase(device)
     flash_rows = flash_kernel_phase(device)
     flash_edges = flash_edge_phase(device)
     fp32_masked_row_err = fp32_masked_row_phase(device)

@@ -99,6 +99,12 @@ def main(argv=None):
         raise ValueError("--eval_only needs --ckpt")
     if args.use_native_sampler and not args.in_path:
         raise ValueError("--use_native_sampler needs --in_path")
+    from ..core.cache import enable_compilation_cache
+
+    # the JAX CLI's first call: here the one native library this path
+    # launches, the sampler, built before the first batch (no CUDA kernel)
+    enable_compilation_cache(device, kernels=False,
+                             native_sampler=args.use_native_sampler)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 

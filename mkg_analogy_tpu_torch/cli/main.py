@@ -50,7 +50,10 @@ the plain PyTorch attention, except that a sequence of 512 or more takes
 the flash kernels, as in JAX. ``--export_torch <file>`` writes the fit's
 best MKGformerKGC weights as a reference-layout checkpoint
 (``torch.save({"state_dict": ...})``, models/export_torch.py), as the JAX
-CLI does. Parallelism raises until its slice lands. The JAX package's
+CLI does. ``--qk_bf16_grad 1`` runs the plain attention's dq/dk backward in
+the compute dtype (models/common.py:_qk_scores_bf16grad). On CUDA the CLI
+builds every kernel first (core/cache.py), before the first batch.
+Parallelism raises until its slice lands. The JAX package's
 ``--prng`` is accepted and changes nothing; ``--xla_opt`` raises.
 """
 
@@ -169,10 +172,12 @@ def build_parser() -> argparse.ArgumentParser:
                         "--exact_gelu when given.")
     p.add_argument("--qk_bf16_grad", type=int, default=None, choices=[0, 1],
                    help="1 -> dq/dk GEMMs of the plain attention's backward "
-                        "in the compute dtype: not ported yet (with "
-                        "--fused_attention 1 it changes nothing, as in JAX)")
+                        "in the compute dtype (bf16); exact forward. Applies "
+                        "with --fused_attention 0 below 512 tokens; elsewhere "
+                        "it changes nothing, as in JAX")
     p.add_argument("--fused_adamw", action="store_true", default=False,
-                   help="accepted; the same numbers as the default AdamW")
+                   help="AdamW through train/optim.py:fused_adamw: the same "
+                        "numbers as the default AdamW")
     p.add_argument("--host_gather", action="store_true", default=False,
                    help="gather image features on the host per batch instead "
                         "of the device-resident table")
@@ -202,11 +207,6 @@ def _refuse_unported(args) -> None:
         raise ValueError(
             "--export_torch writes MKGformerKGC checkpoints (the JAX CLI's "
             f"export), not {args.model_class}")
-    if args.qk_bf16_grad and args.fused_attention == "0":
-        raise NotImplementedError(
-            "--qk_bf16_grad 1 with --fused_attention 0: the bf16 dq/dk "
-            "backward of the plain attention is not ported yet (ROADMAP.md "
-            "queue 1, the default-off knobs)")
     if (args.dp or 1) * args.tp > 1:
         raise NotImplementedError(
             "--dp/--tp: data and tensor parallelism are a later slice of the "
@@ -230,7 +230,8 @@ def make_model(args, vocab_size: int):
     if args.vilbert_ablate_img_to_txt:
         overrides["vilbert_ablate_img_to_txt"] = True
     return create_model(args.model_class, vocab_size=vocab_size, dtype=args.dtype,
-                        attention=attention, gelu_impl=gelu_impl, **overrides)
+                        attention=attention, gelu_impl=gelu_impl,
+                        qk_bf16_grad=bool(args.qk_bf16_grad), **overrides)
 
 
 def synthetic_image_table(mode: str, num_entities: int, size, device: torch.device,
@@ -294,6 +295,11 @@ def main(argv=None):
     print(args)
     device = resolve_device(args.device)
     _refuse_unported(args)
+    from ..core.cache import enable_compilation_cache
+
+    # the JAX CLI's first call: on a CUDA device every csrc/ kernel is built
+    # here, before the first batch, so no step pays for nvcc
+    enable_compilation_cache(device)
 
     from ..data.module import KGCDataModule
     from ..models.registry import IMAGE_INPUT

@@ -82,6 +82,10 @@ def main(argv=None):
     if args.finetune and args.model == "CP":
         raise ValueError("--finetune needs --model ComplEx or Analogy: CPModel "
                          "has no fine-tune forward")
+    from ..core.cache import enable_compilation_cache
+
+    # the JAX CLI's first call; this path launches no native library
+    enable_compilation_cache(device, kernels=False)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 

@@ -22,6 +22,18 @@ class Policy:
     compute_dtype: torch.dtype = torch.bfloat16
     output_dtype: torch.dtype = torch.float32
 
+    def cast_to_compute(self, tree):
+        """``tree`` (a tensor, or dicts, lists and tuples of them) with
+        every floating tensor cast to the compute dtype; other leaves as
+        they are."""
+        if isinstance(tree, torch.Tensor):
+            return tree.to(self.compute_dtype) if tree.is_floating_point() else tree
+        if isinstance(tree, dict):
+            return {k: self.cast_to_compute(v) for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return type(tree)(self.cast_to_compute(v) for v in tree)
+        return tree
+
 
 DEFAULT_POLICY = Policy()
 FP32_POLICY = Policy(compute_dtype=torch.float32)

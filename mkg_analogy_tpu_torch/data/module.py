@@ -68,6 +68,20 @@ class KGCDataModule:
             entities=self.markg.entities,
         )
 
+    # ----------------------------------------------------------- reference
+    def get_config(self) -> Dict[str, object]:
+        """Id-range export, KGC.get_config parity (data_module.py:245-251)."""
+        v = self.vocab
+        return dict(
+            entity_id_st=v.entity_id_st,
+            entity_id_ed=v.entity_id_ed,
+            relation_id_st=v.relation_id_st,
+            relation_id_ed=v.relation_id_ed,
+            analogy_entity_ids=v.analogy_entity_ids,
+            analogy_relation_ids=v.analogy_relation_ids,
+            vocab_size=v.padded_vocab_size,
+        )
+
     # ------------------------------------------------------------- features
     def _corpus_fingerprint(self) -> str:
         """Cheap content hash over the source text files so edited datasets

@@ -189,13 +189,20 @@ def _fma(a, b, c):
     return (a.double() * b.double() + c.double()).to(a.dtype)
 
 
-def _scores(q, k, mask, num_heads, bnd, w, geometry):
+def _qk_products(qh, kh):
+    """The raw q·k products of (B, heads, L, d) heads: the (possibly bf16)
+    inputs upcast to the accumulation dtype, multiplied and summed there."""
+    acc = _acc_dtype(qh)
+    return torch.matmul(qh.to(acc), kh.to(acc).transpose(-1, -2))
+
+
+def _scores(q, k, mask, num_heads, bnd, w, geometry, qk_products=_qk_products):
     """(s_raw, planes or None, p): the scaled scores, the geometry planes
-    and the softmax, (B, heads, Lq, Lk) in the accumulation dtype."""
-    acc = _acc_dtype(q)
-    # products of the (possibly bf16) inputs, summed in fp32
-    products = torch.matmul(_split_heads(q, num_heads, acc),
-                            _split_heads(k, num_heads, acc).transpose(-1, -2))
+    and the softmax, (B, heads, Lq, Lk) in the accumulation dtype.
+    ``qk_products`` forms the raw products from the heads (the plain route
+    may give one with another backward, models/common.py:_qk_scores_bf16grad)."""
+    products = qk_products(_split_heads(q, num_heads, q.dtype),
+                           _split_heads(k, num_heads, k.dtype))
     return _softmax_scores(products, mask, bnd, w, geometry,
                            float(q.shape[2] // num_heads) ** -0.5)
 
@@ -210,10 +217,10 @@ def _softmax_scores(products, mask, bnd, w, geometry, scale):
 
 
 def _plain_fwd(q, k, v, mask, num_heads, bnd, w, geometry, rate, seed,
-               compute_dtype):
+               compute_dtype, qk_products=_qk_products):
     b, lq, _ = q.shape
     lk = k.shape[1]
-    _, _, p = _scores(q, k, mask, num_heads, bnd, w, geometry)
+    _, _, p = _scores(q, k, mask, num_heads, bnd, w, geometry, qk_products)
     if rate > 0.0:
         keep = dropout_keep(b, num_heads, lq, lk, rate, seed, q.device)
         p = torch.where(keep, p / (1.0 - rate), torch.zeros((), dtype=p.dtype,
@@ -276,15 +283,17 @@ def fused_attention_reference(
     deterministic: bool = True,
     dropout_seed: Optional[int] = None,
     compute_dtype: torch.dtype = torch.bfloat16,
+    qk_products=_qk_products,
 ) -> torch.Tensor:
     """Plain PyTorch version of :func:`fused_attention` (same arguments).
     Autograd differentiates it as it stands: the attention of
-    ``--fused_attention 0``."""
+    ``--fused_attention 0``. ``qk_products`` forms the raw q·k products of
+    the (B, heads, L, d) heads (default: upcast and multiplied in fp32)."""
     bnd, w, geometry, rate, seed = _resolve(q, boundary, w0, w1, text_len, row_start,
                                             offset, dropout_rate, deterministic,
                                             dropout_seed)
     return _plain_fwd(q, k, v, mask, num_heads, bnd, w, geometry, rate, seed,
-                      compute_dtype)
+                      compute_dtype, qk_products)
 
 
 def fused_attention_bwd_reference(

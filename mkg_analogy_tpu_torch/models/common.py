@@ -19,7 +19,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..kernels.attention import fused_attention, fused_attention_reference
+from ..kernels.attention import _qk_products, fused_attention, fused_attention_reference
 from ..kernels.flash_attention import flash_attention
 
 # Attention at or above this query length takes the flash kernel even on the
@@ -32,6 +32,37 @@ FLASH_AUTO_MIN_LEN = 512
 # flash``), "plain" the plain forward under autograd (``--fused_attention 0``)
 ATTENTION_BACKENDS = {"single": fused_attention, "flash": flash_attention,
                       "plain": fused_attention_reference}
+
+
+class _QKScoresBF16Grad(torch.autograd.Function):
+    """The JAX package's ``_qk_scores_bf16grad`` custom VJP
+    (models/common.py:60-100, its ``QK_BF16_GRAD``), on (B, heads, L, d)
+    heads. The forward is the plain route's product as it stands
+    (``kernels.attention._qk_products``: upcast to fp32 and multiplied), so
+    it is bit-identical. The backward casts the fp32 score cotangent to the
+    inputs' dtype and computes dq and dk as products in that dtype, cast to
+    the inputs' dtypes (``_qk_scores_bwd``), where autograd would run them
+    in fp32: the cotangent's signal is already bf16-grained, as it comes out
+    of the bf16 probabilities' backward."""
+
+    @staticmethod
+    def forward(ctx, q, k):
+        ctx.save_for_backward(q, k)
+        return _qk_products(q, k)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k = ctx.saved_tensors
+        gc = g.to(q.dtype)
+        dq = torch.matmul(gc, k)
+        dk = torch.matmul(gc.transpose(-1, -2), q)
+        return dq.to(q.dtype), dk.to(k.dtype)
+
+
+def _qk_scores_bf16grad(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """fp32 q·k products of (B, heads, L, d) heads whose backward runs in
+    the inputs' dtype (``_QKScoresBF16Grad``)."""
+    return _QKScoresBF16Grad.apply(q, k)
 
 
 def quick_gelu(x: torch.Tensor) -> torch.Tensor:
@@ -236,11 +267,21 @@ class AttentionCore(nn.Module):
 
     ``dropout_rate`` is the attention dropout, applied when a ``DropoutRNG``
     is given (a training forward); each call draws the kernel's seed from it.
+
+    ``qk_bf16_grad`` (JAX's ``QK_BF16_GRAD``, default off): on the plain
+    route, below ``FLASH_AUTO_MIN_LEN`` and in a compute dtype other than
+    fp32, the q·k products take ``_qk_scores_bf16grad``, whose dq/dk
+    backward runs in the compute dtype; elsewhere it changes nothing.
+    ``fused_qkv`` (JAX's ``USE_FUSED_QKV``, default off): one (H, 3·inner)
+    projection named ``qkv`` in place of ``query``, ``key`` and ``value``,
+    split into those three in that order (``models/convert.py:fuse_qkv``
+    maps an unfused tree onto it).
     """
 
     def __init__(self, hidden_size: int, num_heads: int, head_dim: int,
                  dtype: torch.dtype = torch.float32, out_bias: bool = True,
-                 backend: str = "single", dropout_rate: float = 0.0):
+                 backend: str = "single", dropout_rate: float = 0.0,
+                 qk_bf16_grad: bool = False, fused_qkv: bool = False):
         super().__init__()
         if backend not in ATTENTION_BACKENDS:
             raise ValueError(f"attention backend {backend!r}: one of "
@@ -250,9 +291,14 @@ class AttentionCore(nn.Module):
         self.dtype = dtype
         self.backend = backend
         self.dropout_rate = dropout_rate
-        self.query = Dense(hidden_size, inner, dtype=dtype)
-        self.key = Dense(hidden_size, inner, dtype=dtype)
-        self.value = Dense(hidden_size, inner, dtype=dtype)
+        self.qk_bf16_grad = qk_bf16_grad
+        self.fused_qkv = fused_qkv
+        if fused_qkv:
+            self.qkv = Dense(hidden_size, 3 * inner, dtype=dtype)
+        else:
+            self.query = Dense(hidden_size, inner, dtype=dtype)
+            self.key = Dense(hidden_size, inner, dtype=dtype)
+            self.value = Dense(hidden_size, inner, dtype=dtype)
         self.out = Dense(inner, inner, bias=out_bias, dtype=dtype)
 
     def forward(
@@ -267,9 +313,13 @@ class AttentionCore(nn.Module):
         rng: Optional[DropoutRNG] = None,
     ):
         b, l, _ = hidden_states.shape
-        q = self.query(hidden_states)
-        k = self.key(hidden_states)
-        v = self.value(hidden_states)
+        if self.fused_qkv:
+            # contiguous copies: the kernels read packed (B, L, heads·d) rows
+            q, k, v = (t.contiguous() for t in self.qkv(hidden_states).chunk(3, dim=-1))
+        else:
+            q = self.query(hidden_states)
+            k = self.key(hidden_states)
+            v = self.value(hidden_states)
         kv_out = (k, v) if output_kv else None
         if extra_kv is not None:
             k = torch.cat([extra_kv[0].to(k.dtype), k], dim=1)
@@ -310,6 +360,8 @@ class AttentionCore(nn.Module):
         backend = self.backend
         if backend == "plain" and l >= FLASH_AUTO_MIN_LEN:
             backend = "flash"
+        if backend == "plain" and self.qk_bf16_grad and self.dtype != torch.float32:
+            kwargs["qk_products"] = _qk_scores_bf16grad
         ctx = ATTENTION_BACKENDS[backend](q, k, v, mask, self.num_heads,
                                           compute_dtype=self.dtype, **kwargs)
         out = self.out(ctx)
@@ -318,6 +370,12 @@ class AttentionCore(nn.Module):
             # this, modeling_unimo.py:367-373)
             return out, kv_out, ctx
         return out, kv_out
+
+
+def attention_options(cfg) -> dict:
+    """The AttentionCore switches a model config carries beside its backend
+    and gelu implementation: ``qk_bf16_grad`` and ``fused_qkv``."""
+    return dict(qk_bf16_grad=cfg.qk_bf16_grad, fused_qkv=cfg.fused_qkv)
 
 
 def init_flax_defaults(model: nn.Module, generator: torch.Generator) -> None:
@@ -369,13 +427,15 @@ class EncoderLayer(nn.Module):
                  hidden_act: str = "gelu", layer_norm_eps: float = 1e-12,
                  dtype: torch.dtype = torch.float32, pre_norm: bool = False,
                  hidden_dropout: float = 0.1, attention_dropout: float = 0.1,
-                 backend: str = "single", gelu_impl: str = "poly"):
+                 backend: str = "single", gelu_impl: str = "poly",
+                 qk_bf16_grad: bool = False, fused_qkv: bool = False):
         super().__init__()
         self.pre_norm = pre_norm
         self.hidden_dropout = hidden_dropout
         self.attn = AttentionCore(hidden_size, num_heads, hidden_size // num_heads,
                                   dtype=dtype, backend=backend,
-                                  dropout_rate=attention_dropout)
+                                  dropout_rate=attention_dropout,
+                                  qk_bf16_grad=qk_bf16_grad, fused_qkv=fused_qkv)
         self.ln1 = LayerNorm(hidden_size, layer_norm_eps, dtype=dtype)
         self.ln2 = LayerNorm(hidden_size, layer_norm_eps, dtype=dtype)
         self.fc1 = Dense(hidden_size, intermediate_size, dtype=dtype)

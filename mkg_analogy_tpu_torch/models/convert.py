@@ -25,6 +25,10 @@ is mechanical (the same transposes as
 c) order, so fc6 needs no permutation here. Pre-fusion UniMo text layers
 carry no ``fusion_dense`` in either tree. An orbax checkpoint on disk needs
 JAX to read; restore it there, then convert.
+
+A tree of JAX's ``USE_FUSED_QKV`` experiment, whose attention projects with
+one ``qkv`` Dense, maps as it stands onto a model built with ``fused_qkv``;
+``fuse_qkv`` maps an unfused tree or state dict into that layout.
 """
 
 from __future__ import annotations
@@ -69,3 +73,36 @@ def params_from_jax(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
 
 
 unimo_params_from_jax = params_from_jax  # the name of the first slices
+
+
+_QKV = ("query", "key", "value")
+
+
+def _fuse_tree(tree: Dict[str, Any], name: str = "") -> Dict[str, Any]:
+    out = {k: _fuse_tree(v, k) if isinstance(v, dict) else v for k, v in tree.items()}
+    if name == "attn" and set(_QKV) <= set(out):
+        parts = [out.pop(p) for p in _QKV]
+        out["qkv"] = {leaf: np.concatenate([np.asarray(p[leaf]) for p in parts], axis=-1)
+                      for leaf in parts[0]}
+    return out
+
+
+def fuse_qkv(params: Dict[str, Any]) -> Dict[str, Any]:
+    """An unfused parameter set in the layout of ``fused_qkv`` (JAX's
+    ``USE_FUSED_QKV``): in every attention core (a module named ``attn``),
+    ``query``, ``key`` and ``value`` become one ``qkv`` whose outputs are
+    theirs concatenated in that order, as ``jnp.split(qkv, 3)`` and
+    ``chunk(3)`` read them back. Takes a Flax tree (nested dicts: a Dense
+    ``kernel`` (in, out) and ``bias`` joined on their last axis) or a
+    port state dict (flat names: a Linear ``weight`` (out, in) and ``bias``
+    joined on their first). ViLBERT's cross-attention keeps its three."""
+    if any(isinstance(v, dict) for v in params.values()):
+        return _fuse_tree(params)
+    out = dict(params)
+    for key in params:
+        head, _, leaf = key.rpartition(".")
+        scope, _, proj = head.rpartition(".")
+        if proj == "query" and scope.rpartition(".")[2] == "attn":
+            parts = [out.pop(f"{scope}.{p}.{leaf}") for p in _QKV]
+            out[f"{scope}.qkv.{leaf}"] = torch.cat(parts, dim=0)
+    return out

@@ -45,6 +45,7 @@ from .common import (
     LayerNorm,
     MLMTransform,
     PatchEmbed,
+    attention_options,
     dropout,
     gather_positions,
     init_flax_defaults,
@@ -65,6 +66,10 @@ class FlavaConfig:
     dtype: str = "bfloat16"
     attention: str = "flash"  # attention backend (models/common.py:AttentionCore)
     gelu_impl: str = "poly"   # gelu under non-fp32 compute (fp32: exact erf)
+    # AttentionCore switches (models/common.py), default off: the plain
+    # route's bf16 dq/dk backward, one fused Q/K/V projection
+    qk_bf16_grad: bool = False
+    fused_qkv: bool = False
 
     @property
     def compute_dtype(self) -> torch.dtype:
@@ -136,7 +141,7 @@ class FlavaForMaskedLM(nn.Module):
                 hidden, t.num_heads, t.intermediate_size, hidden_act="gelu",
                 layer_norm_eps=cfg.layer_norm_eps, dtype=dtype, pre_norm=True,
                 hidden_dropout=t.hidden_dropout, attention_dropout=t.attention_dropout,
-                backend=cfg.attention, gelu_impl=cfg.gelu_impl, **extra)
+                backend=cfg.attention, gelu_impl=cfg.gelu_impl, **attention_options(cfg), **extra)
 
         for i in range(cfg.image_layers):
             self.add_module(f"image_{i}", vit_layer())

@@ -59,6 +59,12 @@ def _text_cfg(vocab_size: int, kw: dict) -> TextConfig:
     return TextConfig(vocab_size=vocab_size, **fields)
 
 
+def _switches(kw: dict) -> dict:
+    """The AttentionCore switches among a constructor's keywords
+    (``qk_bf16_grad``, ``fused_qkv``; each config's default where absent)."""
+    return {k: bool(kw[k]) for k in ("qk_bf16_grad", "fused_qkv") if k in kw}
+
+
 def register(name: str):
     def deco(fn):
         _REGISTRY[name] = fn
@@ -80,7 +86,7 @@ def _mkgformer(vocab_size: int, dtype: str = "bfloat16",
     return UnimoForMaskedLM(
         UnimoConfig(text=text, vision=vision, fusion_start=fusion_start,
                     dtype=dtype, attention=attention,
-                    gelu_impl=gelu_impl)
+                    gelu_impl=gelu_impl, **_switches(kw))
     )
 
 
@@ -89,7 +95,7 @@ def _vilt(vocab_size: int, dtype: str = "bfloat16", attention: str = "single",
           gelu_impl: str = "poly", **kw):
     return ViltForMaskedLM(
         ViltConfig(text=_text_cfg(vocab_size, kw), dtype=dtype, attention=attention,
-                   gelu_impl=gelu_impl)
+                   gelu_impl=gelu_impl, **_switches(kw))
     )
 
 
@@ -98,7 +104,7 @@ def _flava(vocab_size: int, dtype: str = "bfloat16", attention: str = "flash",
            gelu_impl: str = "poly", **kw):
     return FlavaForMaskedLM(
         FlavaConfig(text=_text_cfg(vocab_size, kw), dtype=dtype, attention=attention,
-                    gelu_impl=gelu_impl)
+                    gelu_impl=gelu_impl, **_switches(kw))
     )
 
 
@@ -107,7 +113,7 @@ def _visualbert(vocab_size: int, dtype: str = "bfloat16", attention: str = "sing
                 gelu_impl: str = "poly", **kw):
     return VisualBertForMaskedLM(
         VisualBertConfig(text=_text_cfg(vocab_size, kw), dtype=dtype, attention=attention,
-                         gelu_impl=gelu_impl)
+                         gelu_impl=gelu_impl, **_switches(kw))
     )
 
 
@@ -129,7 +135,7 @@ def _vilbert(vocab_size: int, dtype: str = "bfloat16", attention: str = "single"
             v_biattention_id=tuple(range(n_conn)),
             t_biattention_id=tuple(range(t_start, text.num_layers)),
             ablate_img_to_txt=ablate,
-            attention=attention, gelu_impl=gelu_impl,
+            attention=attention, gelu_impl=gelu_impl, **_switches(kw),
         )
     )
 

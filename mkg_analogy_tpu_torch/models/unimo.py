@@ -42,6 +42,7 @@ from .common import (
     LayerNorm,
     MLMTransform,
     PatchEmbed,
+    attention_options,
     dropout,
     gather_positions,
     get_activation,
@@ -108,6 +109,10 @@ class UnimoConfig:
     # kernels) or "plain" (the einsum path; flash from FLASH_AUTO_MIN_LEN)
     attention: str = "single"
     gelu_impl: str = "poly"  # gelu under non-fp32 compute (fp32: exact erf)
+    # AttentionCore switches (models/common.py), default off: the plain
+    # route's bf16 dq/dk backward, one fused Q/K/V projection
+    qk_bf16_grad: bool = False
+    fused_qkv: bool = False
 
     @property
     def compute_dtype(self) -> torch.dtype:
@@ -174,12 +179,13 @@ class CLIPLayer(nn.Module):
     """Pre-LN CLIP encoder layer, optionally attending over prepended text
     K/V (modeling_unimo.py:481-527)."""
 
-    def __init__(self, cfg: VisionConfig, dtype: torch.dtype, backend: str):
+    def __init__(self, cfg: VisionConfig, dtype: torch.dtype, backend: str,
+                 **attn_options):
         super().__init__()
         self.ln1 = LayerNorm(cfg.hidden_size, cfg.layer_norm_eps, dtype=dtype)
         self.attn = AttentionCore(cfg.hidden_size, cfg.num_heads, cfg.head_dim,
                                   dtype=dtype, backend=backend,
-                                  dropout_rate=cfg.attention_dropout)
+                                  dropout_rate=cfg.attention_dropout, **attn_options)
         self.ln2 = LayerNorm(cfg.hidden_size, cfg.layer_norm_eps, dtype=dtype)
         self.fc1 = Dense(cfg.hidden_size, cfg.intermediate_size, dtype=dtype)
         self.fc2 = Dense(cfg.intermediate_size, cfg.hidden_size, dtype=dtype)
@@ -212,7 +218,7 @@ class BertLayer(nn.Module):
     ``fusion_dense``, as in the Flax tree."""
 
     def __init__(self, cfg: TextConfig, dtype: torch.dtype, backend: str,
-                 has_fusion: bool, gelu_impl: str = "poly"):
+                 has_fusion: bool, gelu_impl: str = "poly", **attn_options):
         super().__init__()
         # adaptive analogy mask scalars: w0 ~ U(0, 0.5), w1 = 0.5
         # (modeling_unimo.py:305-310)
@@ -220,7 +226,7 @@ class BertLayer(nn.Module):
         self.adaptive_w1 = nn.Parameter(torch.empty(1))
         self.attn = AttentionCore(cfg.hidden_size, cfg.num_heads, cfg.head_dim,
                                   dtype=dtype, backend=backend,
-                                  dropout_rate=cfg.attention_dropout)
+                                  dropout_rate=cfg.attention_dropout, **attn_options)
         self.hidden_dropout = cfg.hidden_dropout
         self.attn_ln = LayerNorm(cfg.hidden_size, cfg.layer_norm_eps, dtype=dtype)
         self.intermediate = Dense(cfg.hidden_size, cfg.intermediate_size, dtype=dtype)
@@ -268,10 +274,11 @@ class UnimoEncoder(nn.Module):
         dtype = cfg.compute_dtype
         for idx in range(cfg.text.num_layers):
             self.add_module(f"vision_{idx}", CLIPLayer(
-                cfg.vision, dtype, cfg.attention))
+                cfg.vision, dtype, cfg.attention, **attention_options(cfg)))
             self.add_module(f"text_{idx}", BertLayer(
                 cfg.text, dtype, cfg.attention,
-                has_fusion=idx >= cfg.fusion_start, gelu_impl=cfg.gelu_impl))
+                has_fusion=idx >= cfg.fusion_start, gelu_impl=cfg.gelu_impl,
+                **attention_options(cfg)))
 
     def forward(self, vision_embeds, text_embeds, attn_bias, boundary=None,
                 rng: Optional[DropoutRNG] = None):

@@ -44,6 +44,7 @@ from .common import (
     EncoderLayer,
     LayerNorm,
     MLMTransform,
+    attention_options,
     dropout,
     gather_positions,
     get_activation,
@@ -73,6 +74,10 @@ class VilBertConfig:
     ablate_img_to_txt: bool = False
     attention: str = "single"  # attention backend (models/common.py:AttentionCore)
     gelu_impl: str = "poly"    # gelu under non-fp32 compute (fp32: exact erf)
+    # AttentionCore switches (models/common.py), default off: the plain
+    # route's bf16 dq/dk backward, one fused Q/K/V projection
+    qk_bf16_grad: bool = False
+    fused_qkv: bool = False
 
     @property
     def compute_dtype(self) -> torch.dtype:
@@ -182,14 +187,14 @@ class VilBertForMaskedLM(nn.Module):
                 t.hidden_size, t.num_heads, t.intermediate_size, hidden_act=t.hidden_act,
                 layer_norm_eps=eps, dtype=dtype, hidden_dropout=t.hidden_dropout,
                 attention_dropout=t.attention_dropout, backend=cfg.attention,
-                gelu_impl=cfg.gelu_impl,
+                gelu_impl=cfg.gelu_impl, **attention_options(cfg),
                 row_start=1))  # vilbert.py:452 scales rows 1:idx2
         for i in range(cfg.v_num_layers):
             self.add_module(f"v_layer_{i}", EncoderLayer(
                 cfg.v_hidden_size, cfg.v_num_heads, cfg.v_intermediate_size,
                 hidden_act="gelu", layer_norm_eps=eps, dtype=dtype,
                 hidden_dropout=t.hidden_dropout, attention_dropout=t.attention_dropout,
-                backend=cfg.attention, gelu_impl=cfg.gelu_impl))
+                backend=cfg.attention, gelu_impl=cfg.gelu_impl, **attention_options(cfg)))
         for i in range(len(cfg.v_biattention_id)):
             self.add_module(f"c_layer_{i}", ConnectionLayer(cfg))
         self.mlm_transform = MLMTransform(t.hidden_size, t.hidden_act, eps, dtype=dtype,

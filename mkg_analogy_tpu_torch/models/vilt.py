@@ -43,6 +43,7 @@ from .common import (
     LayerNorm,
     MLMTransform,
     PatchEmbed,
+    attention_options,
     dropout,
     gather_positions,
     init_flax_defaults,
@@ -65,6 +66,10 @@ class ViltConfig:
     compat_ref_mask_offset: bool = False
     attention: str = "single"  # attention backend (models/common.py:AttentionCore)
     gelu_impl: str = "poly"    # gelu under non-fp32 compute (fp32: exact erf)
+    # AttentionCore switches (models/common.py), default off: the plain
+    # route's bf16 dq/dk backward, one fused Q/K/V projection
+    qk_bf16_grad: bool = False
+    fused_qkv: bool = False
 
     @property
     def compute_dtype(self) -> torch.dtype:
@@ -122,7 +127,7 @@ class ViltForMaskedLM(nn.Module):
                 t.hidden_size, t.num_heads, t.intermediate_size, hidden_act="gelu",
                 layer_norm_eps=cfg.layer_norm_eps, dtype=dtype, pre_norm=True,
                 hidden_dropout=t.hidden_dropout, attention_dropout=t.attention_dropout,
-                backend=cfg.attention, gelu_impl=cfg.gelu_impl,
+                backend=cfg.attention, gelu_impl=cfg.gelu_impl, **attention_options(cfg),
                 # corrected default: text coordinates, rows from 1 (the
                 # reference's img_length+1 slice start, modeling_vilt.py:371)
                 row_start=1,

@@ -37,6 +37,7 @@ from .common import (
     DropoutRNG,
     LayerNorm,
     MLMTransform,
+    attention_options,
     dropout,
     gather_positions,
     init_flax_defaults,
@@ -57,6 +58,10 @@ class VisualBertConfig:
     compat_ref_mask_offset: bool = False
     attention: str = "single"  # attention backend (models/common.py:AttentionCore)
     gelu_impl: str = "poly"    # gelu under non-fp32 compute (fp32: exact erf)
+    # AttentionCore switches (models/common.py), default off: the plain
+    # route's bf16 dq/dk backward, one fused Q/K/V projection
+    qk_bf16_grad: bool = False
+    fused_qkv: bool = False
 
     @property
     def compute_dtype(self) -> torch.dtype:
@@ -116,7 +121,7 @@ class VisualBertForMaskedLM(nn.Module):
                 t.hidden_size, t.num_heads, t.intermediate_size, hidden_act=t.hidden_act,
                 layer_norm_eps=t.layer_norm_eps, dtype=dtype,
                 hidden_dropout=t.hidden_dropout, attention_dropout=t.attention_dropout,
-                backend=cfg.attention, gelu_impl=cfg.gelu_impl,
+                backend=cfg.attention, gelu_impl=cfg.gelu_impl, **attention_options(cfg),
                 # corrected default: true text coordinates, rows from 1 (the
                 # reference's img_length+1 slice start); the compat flag
                 # reproduces the shifted reference geometry instead

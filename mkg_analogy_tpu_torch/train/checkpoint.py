@@ -117,6 +117,13 @@ class Checkpointer:
         self._pending.put((step, snapshot, metrics))
         self.saved_steps.append(step)
 
+    def latest_step(self) -> Optional[int]:
+        """The newest step on disk (None where there is none), after the
+        pending save, if any, has landed."""
+        self.flush()
+        steps = list_steps(self.directory)
+        return steps[-1] if steps else None
+
     def restore(self, step: Optional[int] = None,
                 map_location=None) -> Dict[str, torch.Tensor]:
         """The state dict saved at ``step`` (default: the latest)."""

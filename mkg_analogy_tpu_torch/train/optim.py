@@ -58,7 +58,7 @@ class Optimizer:
 
     def __init__(self, model: nn.Module, schedule: Callable[[int], float],
                  weight_decay: float, eps: float = 1e-8, accumulate: int = 1,
-                 max_grad_norm: Optional[float] = None):
+                 max_grad_norm: Optional[float] = None, betas=(0.9, 0.999)):
         decay = no_decay_mask(model)
         named = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
         groups = [
@@ -66,7 +66,7 @@ class Optimizer:
             {"params": [p for n, p in named if not decay[n]], "weight_decay": 0.0},
         ]
         # base lr 1.0: LambdaLR's factor is the learning rate itself
-        self.adamw = torch.optim.AdamW(groups, lr=1.0, betas=(0.9, 0.999), eps=eps)
+        self.adamw = torch.optim.AdamW(groups, lr=1.0, betas=betas, eps=eps)
         self.schedule = torch.optim.lr_scheduler.LambdaLR(self.adamw, schedule)
         self.params = [p for _, p in named]
         self.accumulate = max(1, int(accumulate))
@@ -122,6 +122,18 @@ def global_norm(tensors) -> torch.Tensor:
     return torch.sqrt(sum(torch.sum(t.to(torch.float32) ** 2) for t in tensors))
 
 
+def fused_adamw(model: nn.Module, schedule: Callable[[int], float], b1: float = 0.9,
+                b2: float = 0.999, eps: float = 1e-8, weight_decay: float = 0.01,
+                accumulate: int = 1, max_grad_norm: Optional[float] = None) -> Optimizer:
+    """The JAX ``fused_adamw`` (``--fused_adamw``): optax.adamw's numbers
+    with the small leaves' moments batched into one vector, to save the
+    TPU's per-leaf dispatches. PyTorch's AdamW already updates every leaf
+    in one multi-tensor pass on the card, so this is ``make_optimizer``'s
+    ``Optimizer``, the same update."""
+    return Optimizer(model, schedule, weight_decay, eps=eps, accumulate=accumulate,
+                     max_grad_norm=max_grad_norm, betas=(b1, b2))
+
+
 def make_optimizer(
     model: nn.Module,
     lr: float,
@@ -135,13 +147,13 @@ def make_optimizer(
 ) -> Optimizer:
     """The JAX ``make_optimizer``. The schedule horizon is optimizer steps,
     like the reference's num_training_steps // accumulate_grad_batches
-    (base.py:90). ``fused`` (``--fused_adamw``) is accepted and changes
-    nothing: the JAX package's fused AdamW is optax.adamw's numbers with its
-    small leaves batched into one vector, and PyTorch's AdamW already updates
-    every leaf in one multi-tensor pass on the card."""
-    del fused
+    (base.py:90). ``fused`` (``--fused_adamw``) builds it through
+    ``fused_adamw``, which gives the same update."""
     schedule = linear_warmup_linear_decay(
         lr, max(1, total_steps // max(1, grad_accum_steps)), warmup_ratio)
+    if fused:
+        return fused_adamw(model, schedule, eps=eps, weight_decay=weight_decay,
+                           accumulate=grad_accum_steps, max_grad_norm=max_grad_norm)
     return Optimizer(model, schedule, weight_decay, eps=eps,
                      accumulate=grad_accum_steps, max_grad_norm=max_grad_norm)
 

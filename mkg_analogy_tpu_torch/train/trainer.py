@@ -22,12 +22,20 @@ pre-training and evaluation, on one device.
 Each training step draws its dropout from generators seeded by (seed,
 step), as the JAX step folds the step into its key, so a step's masks do
 not depend on what ran before it.
+
+``fit`` and ``evaluate`` take their batches through ``_prefetch``, as the
+JAX trainer does: a worker thread assembles each batch and starts its copy
+to the device two steps ahead. On a CUDA device the copy runs from pinned
+memory on a side stream, and the step's stream waits on its event.
 """
 
 from __future__ import annotations
 
 import contextlib
+import itertools
 import os
+import queue
+import threading
 import time
 from dataclasses import dataclass
 from typing import Dict, Optional
@@ -112,6 +120,7 @@ class MarTTrainer:
             vocab.analogy_entity_ids, device=self.device).long()
         self.image_table = None  # optional device-resident feature table
         self.image_kind = "pixels"
+        self._copy_stream = None  # the prefetch worker's CUDA stream, made at first use
 
     def set_image_table(self, table, kind: str = "pixels") -> None:
         """Keep the entity image features on the device (bf16) and gather
@@ -293,13 +302,98 @@ class MarTTrainer:
                           else t.dtype)
         return out
 
+    def _put_batch_async(self, batch: Dict[str, np.ndarray]):
+        """``_put_batch`` for the prefetch worker: (tensors, ready event or
+        None). On a CUDA device each array is staged in pinned memory (fp32
+        rounded to bf16 on the host, the same rounding) and copied on the
+        side stream without blocking; ``ready`` marks the copies' end. The
+        pinned buffers come from PyTorch's caching host allocator, which
+        reuses none before the copy that reads it has run. Elsewhere the
+        plain ``_put_batch``."""
+        if self.device.type != "cuda":
+            return self._put_batch(batch), None
+        if self._copy_stream is None:
+            self._copy_stream = torch.cuda.Stream(device=self.device)
+        out = {}
+        with torch.cuda.stream(self._copy_stream):
+            for k, v in batch.items():
+                t = torch.from_numpy(np.ascontiguousarray(v))
+                if t.dtype == torch.float32:
+                    t = t.to(torch.bfloat16)
+                out[k] = t.pin_memory().to(self.device, non_blocking=True)
+            ready = torch.cuda.Event()
+            ready.record(self._copy_stream)
+        return out, ready
+
+    def _ready(self, staged) -> Dict[str, torch.Tensor]:
+        """On the loop's thread: the tensors of a ``_put_batch_async``
+        result, with the current stream made to wait for their copies. Each
+        tensor is recorded on that stream, so the caching allocator, which
+        allocated it on the side stream, reuses its memory only once the
+        work queued here has passed."""
+        tensors, ready = staged
+        if ready is not None:
+            stream = torch.cuda.current_stream(self.device)
+            stream.wait_event(ready)
+            for t in tensors.values():
+                t.record_stream(stream)
+        return tensors
+
+    def _prefetch(self, iterable, transform, lookahead: int = 2):
+        """Yield ``transform(b)`` for each ``b`` of ``iterable``, computed on
+        a worker thread up to ``lookahead`` items ahead (the JAX trainer's
+        ``_prefetch``: batch assembly and the copy to the device leave the
+        loop's thread). An error in the worker is raised here. Close the
+        generator when leaving early (``contextlib.closing``): closing stops
+        and joins the worker, so none outlives its loop, where the JAX
+        version leaves its thread blocked on the full queue."""
+        q: "queue.Queue" = queue.Queue(maxsize=lookahead)
+        stop = threading.Event()
+
+        def put(item) -> bool:
+            while not stop.is_set():
+                try:
+                    q.put(item, timeout=0.05)
+                    return True
+                except queue.Full:
+                    pass
+            return False
+
+        def worker():
+            try:
+                for b in iterable:
+                    if not put(("item", transform(b))):
+                        return
+                put(("end", None))
+            except BaseException as e:  # surfaced in the loop
+                put(("err", e))
+            finally:
+                close = getattr(iterable, "close", None)
+                if close is not None:
+                    close()
+
+        thread = threading.Thread(target=worker, name="mkg-prefetch", daemon=True)
+        thread.start()
+        try:
+            while True:
+                kind, payload = q.get()
+                if kind == "end":
+                    return
+                if kind == "err":
+                    raise payload
+                yield payload
+        finally:
+            stop.set()
+            thread.join()
+
     # ------------------------------------------------------------------- loops
     def evaluate(self, features, attach=None, dump_path=None) -> Dict[str, float]:
         cfg = self.config
         it = BatchIterator(features, cfg.eval_batch_size, shuffle=False,
                            attach=attach, pad_tail=True)
-        with torch.inference_mode():
-            outs = [self._eval_step(self._put_batch(b), self.image_table) for b in it]
+        with torch.inference_mode(), contextlib.closing(
+                self._prefetch(it, self._put_batch_async)) as batches:
+            outs = [self._eval_step(self._ready(b), self.image_table) for b in batches]
             # one device-to-host transfer per output at the end of the split
             outs = [{k: v.cpu().numpy() for k, v in o.items()} for o in outs]
         ranks = np.concatenate([o["ranks"][o["valid"]] for o in outs])
@@ -417,39 +511,54 @@ class MarTTrainer:
         best_metrics: Dict[str, float] = {}
         global_step = 0
         timer = StepTimer()
+
+        def stage(tagged):
+            # on the prefetch worker: host assembly and the copy to the device
+            kind, batch = tagged
+            ids_preview = batch["input_ids"][:2]
+            batch = {k: v for k, v in batch.items() if k != "valid"}
+            return kind, ids_preview, self._put_batch_async(batch)
+
         with contextlib.ExitStack() as profile:  # the trace of steps 5..10
             for epoch in range(cfg.max_epochs):
                 t_epoch = time.time()
                 n_examples = 0
                 metrics = {}
-                for epoch_steps, (kind, batch) in enumerate(epoch_batches()):
-                    if limit_batches and epoch_steps >= limit_batches:
-                        break
-                    if global_step == 0 and hasattr(self.vocab, "decode"):
-                        # decoded-sample print at batch 0 (transformer.py:111)
-                        for row in batch["input_ids"][:2]:
-                            print(self.vocab.decode(row[row != 0][:48]))
-                    if cfg.profile_dir and global_step == 5:
-                        profile.enter_context(trace(cfg.profile_dir))
-                    batch.pop("valid")
-                    dbatch = self._put_batch(batch)
-                    timer.start()
-                    metrics = self._train_step(optimizer, dbatch, global_step,
-                                               self.image_table, loss_kind=kind)
-                    timer.stop()
-                    global_step += 1
-                    n_examples += cfg.batch_size
-                    if global_step == 1:
-                        # the first step's one-off costs (kernel builds, cuBLAS
-                        # set-up) stay out of the epoch-0 throughput
-                        self._sync()
-                        t_epoch = time.time()
-                        n_examples = 0
-                    if global_step == 10:
-                        profile.close()
-                    if global_step % cfg.log_every == 0:
-                        self.logger.log(global_step, {k: float(v) for k, v in metrics.items()},
-                                        prefix="train/")
+                batches = epoch_batches()
+                if limit_batches:
+                    # the worker assembles one batch past the limit, as the
+                    # loop did before it, so the iterators' seeded draws of
+                    # the next epoch stay where they were
+                    batches = itertools.islice(batches, limit_batches + 1)
+                with contextlib.closing(self._prefetch(batches, stage)) as prefetched:
+                    for epoch_steps, (kind, ids_preview, sbatch) in enumerate(prefetched):
+                        if limit_batches and epoch_steps >= limit_batches:
+                            break
+                        if global_step == 0 and hasattr(self.vocab, "decode"):
+                            # decoded-sample print at batch 0 (transformer.py:111)
+                            for row in ids_preview:
+                                print(self.vocab.decode(row[row != 0][:48]))
+                        if cfg.profile_dir and global_step == 5:
+                            profile.enter_context(trace(cfg.profile_dir))
+                        dbatch = self._ready(sbatch)
+                        timer.start()
+                        metrics = self._train_step(optimizer, dbatch, global_step,
+                                                   self.image_table, loss_kind=kind)
+                        timer.stop()
+                        global_step += 1
+                        n_examples += cfg.batch_size
+                        if global_step == 1:
+                            # the first step's one-off costs (kernel builds, cuBLAS
+                            # set-up) stay out of the epoch-0 throughput
+                            self._sync()
+                            t_epoch = time.time()
+                            n_examples = 0
+                        if global_step == 10:
+                            profile.close()
+                        if global_step % cfg.log_every == 0:
+                            self.logger.log(global_step,
+                                            {k: float(v) for k, v in metrics.items()},
+                                            prefix="train/")
                 self._sync()
                 dt = time.time() - t_epoch
                 epoch_stats = {"epoch": epoch, "examples_per_sec": n_examples / max(dt, 1e-9)}

@@ -126,14 +126,15 @@ def test_cli_cuda_without_gpu_raises(dataset, tmp_path):
 
 
 @pytest.mark.parametrize("extra", [
-    ["--tp", "2"], ["--dp", "2"], ["--qk_bf16_grad", "1", "--fused_attention", "0"],
+    ["--tp", "2"], ["--dp", "2"], ["--dp", "2", "--tp", "2"],
 ])
 def test_cli_refuses_what_later_slices_bring(dataset, tmp_path, extra):
     """Training, --checkpoint, --pretrain, --fused_attention flash, the five
-    families and --export_torch are ported (tests/test_torch_port_train.py,
-    tests/test_torch_port_pretrain.py, tests/test_torch_port_families.py,
-    tests/test_torch_port_region_families.py, test_cli_export_torch_round_trips
-    below); these raise, with or without --only_test."""
+    families, --export_torch and --qk_bf16_grad are ported
+    (tests/test_torch_port_train.py, tests/test_torch_port_pretrain.py,
+    tests/test_torch_port_families.py, tests/test_torch_port_region_families.py,
+    test_cli_export_torch_round_trips below, tests/test_torch_port_leftovers.py);
+    these raise, with or without --only_test."""
     for flags in (cli_flags(dataset, tmp_path),
                   [f for f in cli_flags(dataset, tmp_path) if f != "--only_test"]):
         with pytest.raises(NotImplementedError):

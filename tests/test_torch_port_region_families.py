@@ -445,7 +445,9 @@ def test_cli_finetunes_on_synthetic_regions(dataset, jax_metric_keys, tmp_path, 
                 "--cache_dir", str(tmp_path / "cache"), *extra]
 
     got = port_cli.main(flags("fit"))
-    assert set(got) == jax_metric_keys
+    # the port's one extra key: rows whose gold logit is not finite, none here
+    assert set(got) == jax_metric_keys | {"Eval_entity/nonfinite_gold"}
+    assert got["Eval_entity/nonfinite_gold"] == 0.0
     assert all(np.isfinite(v) for v in got.values()) and 0.0 < got["Eval_entity/mrr"] <= 1.0
     ckpt = tmp_path / "out_fit" / "ckpt"
     assert checkpoint.list_steps(str(ckpt)) == [3]  # 24 examples / 8 a batch
