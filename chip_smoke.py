@@ -1157,7 +1157,8 @@ def fit_prefetch_phase(device):
     with 4,126 entities (MARS's 2,063 analogy entities), FIT_TRAIN training
     examples (24 steps) and a dev split of FIT_DEV examples (MARS's)
     evaluated at B=128. Two loops on the same batch sequence from the same
-    weights, run prefetch, old, prefetch, old: ``MarTTrainer.fit`` (one
+    weights, each run three times, alternated (the host's clock varies
+    between runs more than the loops differ): ``MarTTrainer.fit`` (one
     epoch, then its dev evaluation) and ``evaluate``, both through
     ``_prefetch``; and the loop before it (``legacy_fit``,
     ``legacy_evaluate``). For each: host ms a step over steps 3-24 (the
@@ -1264,7 +1265,7 @@ def fit_prefetch_phase(device):
 
     runs = {"prefetch": [], "old": []}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_prefetch_ranks_", dir=".") as scratch:
-        for loop in ("prefetch", "old", "prefetch", "old"):
+        for loop in ("prefetch", "old") * 3:
             attn.LAUNCHES = attn.LAUNCHES_BWD = 0
             runs[loop].append((run_prefetch if loop == "prefetch" else run_legacy)()
                               + ((attn.LAUNCHES, attn.LAUNCHES_BWD),))
@@ -1297,9 +1298,9 @@ def fit_prefetch_phase(device):
     return out
 
 
-def alternating_step_ms(runs, batch, rounds=2, steps=6):
+def alternating_step_ms(runs, batch, rounds=3, steps=6):
     """Host ms a step of each (trainer, optimizer) of ``runs``, taken in
-    turn ``rounds`` times (A B A B), so that the card's clocks and the
+    turn ``rounds`` times (A B A B A B), so that the card's clocks and the
     allocator's state fall on each alike: a list of medians of steps 3-6
     of each window, and each run's losses in order."""
     import torch
@@ -1336,7 +1337,7 @@ def qk_bf16_grad_phase(device):
     median bf16 step ms (steps 3-6) with and without, and the CLI fit
     ``--qk_bf16_grad 1 --fused_attention 0`` (4 steps at B=32): finite
     metrics, no attention kernel launched, the products through
-    ``_qk_scores_bf16grad``. The step times alternate off, on, off, on
+    ``_qk_scores_bf16grad``. The step times alternate off and on
     (``alternating_step_ms``)."""
     import torch
 
@@ -1438,9 +1439,9 @@ def fused_qkv_phase(device):
     unfused model's (the model phase's bar: 24 layers of fp32 GEMMs summed
     in other orders), one fine-tune step's loss within 1e-5 relative and
     each gradient leaf, the unfused ones fused the same way, at the bar of
-    ``leaf_ratios``. bf16 for the run: 12 steps of each, the loss finite
-    and falling, the step ms of each (``alternating_step_ms``: unfused,
-    fused, unfused, fused)."""
+    ``leaf_ratios``. bf16 for the run: 18 steps of each, the loss finite
+    and falling, the step ms of each (``alternating_step_ms``, unfused and
+    fused in turn)."""
     import torch
 
     from mkg_analogy_tpu_torch.models.common import DropoutRNG
