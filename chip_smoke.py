@@ -77,6 +77,19 @@ exits non-zero:
     fused_qkv — the fused Q/K/V projection on weights from
                 ``convert.fuse_qkv``: fp32 forward and step against the
                 unfused model, then 6 bf16 steps of each;
+    mesh_1x1 — the fine-tune through the mesh code (core/mesh.make_mesh)
+                on a world-size-1 NCCL group, full width, B=32, L=128, bf16,
+                dropout on, 6 steps and 64 dev examples, in turns with the
+                same steps on no mesh: losses and dev ranks bit-equal, the
+                step times of each;
+    gloo_meshes — dp2, tp2 and dp2tp2: 2, 2 and 4 gloo processes on the
+                one card over the same model and global batch in fp32, 3
+                steps each, held on every rank against a single process
+                that sums as the mesh's tp does: the losses within 1e-5
+                relative, every gradient leaf within the train phase's
+                gradient bar, the dev ranks equal but for near ties, rows
+                1-2's launches counted on each rank; step times printed,
+                which are no scaling figure (ranks share one card);
 9. flash_kernel — the three flash kernels (forward, dK/dV, dQ; on the
                 tensor cores in bf16, on the CUDA cores in fp32; out and
                 lse of the forward) against their plain versions at the triple
@@ -261,7 +274,14 @@ EDGE_CASES = [
 ]
 
 
+START = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """One JSON line; a phase's line also says when it ended (seconds since
+    the script started: the phases' share of the time budget)."""
+    if "phase" in obj:
+        obj = dict(obj, elapsed_s=round(time.perf_counter() - START, 1))
     print(json.dumps(obj), flush=True)
 
 
@@ -3804,6 +3824,525 @@ FLASH_KERNELS = {
 }
 
 
+MESH_STEPS = 3     # fine-tune steps of each gloo mesh phase (the first at lr 0)
+MESH_1X1_STEPS = 6  # of mesh_1x1 and its no-mesh runs (the median of steps 3-6)
+MESH_EVAL = 64     # dev examples each mesh phase ranks, at B=32
+# AdamW's eps in the gloo phases: a leaf whose gradient is round-off (the key
+# biases: a softmax ignores a per-row constant) then moves by its gradient
+# over 1e-3, not by +-lr whichever the sign of its noise, which the mesh's
+# other summation order flips (with the recipe's 1e-8, tp2's third loss
+# moved 1e-4 relative from the single process's)
+GLOO_EPS = 1e-3
+# (phase, dp, tp): the gloo meshes of ranks sharing cuda:0
+GLOO_MESHES = [("dp2", 2, 1), ("tp2", 1, 2), ("dp2tp2", 2, 2)]
+
+
+def mesh_features(n=MESH_EVAL, seed=4):
+    """Dev features in the layout of data/prompt.py (numpy, as
+    ``MarTTrainer.evaluate`` takes them), from ``train_batch``'s
+    generator."""
+    import torch
+
+    b = train_batch(torch.device("cpu"), b=n, seed=seed)
+    return {k: v.numpy() for k, v in b.items()}
+
+
+def mesh_trainer(device, dtype, mesh=None, eps=1e-8):
+    """The full-width MKGformer at the recipe (B=32 train, 32 eval), random
+    weights from seed 0, dropout on, on ``mesh`` (None: one device), and
+    its AdamW (``eps``: the recipe's 1e-8, or larger where a run is held to
+    another)."""
+    import torch
+
+    from mkg_analogy_tpu_torch.models.unimo import UnimoConfig, UnimoForMaskedLM
+    from mkg_analogy_tpu_torch.train.optim import make_optimizer
+    from mkg_analogy_tpu_torch.train.trainer import MarTTrainer, TrainConfig
+
+    with torch.device(device):
+        model = UnimoForMaskedLM(UnimoConfig(dtype=dtype))
+    model.init_params(torch.Generator(device=device).manual_seed(0))
+    trainer = MarTTrainer(model, _AnalogyVocab(), TrainConfig(seed=3, eval_batch_size=32),
+                          device=device, mesh=mesh)
+    trainer._parallelize()
+    return trainer, make_optimizer(model, 1e-4, 100, warmup_ratio=0.0, eps=eps, mesh=mesh)
+
+
+def whole_grads(model):
+    """Every parameter's gradient, whole: a tp rank's part written into
+    zeros and summed over tp (every rank calls it)."""
+    from mkg_analogy_tpu_torch.parallel.collectives import shard_of, whole
+
+    return {name: None if p.grad is None else whole(p.grad, shard_of(p)).detach().clone()
+            for name, p in model.named_parameters()}
+
+
+def mesh_steps(trainer, opt, batch_np, dev_np, ranks_path, steps=MESH_STEPS):
+    """The dev evaluation of the starting weights, then ``steps`` train
+    steps on the global batch (each rank its rows), the attention counts
+    set to 0 just before and read just after: (losses, the first step's
+    whole gradients after the dp sum, host ms a step, (forward, backward)
+    launches, dev metrics); the dev ranks go to ``ranks_path``. (After
+    AdamW's updates, leaves whose gradient is round-off move by +-lr
+    whichever its sign, so ranks after the steps would show that noise.)"""
+    import torch
+
+    from mkg_analogy_tpu_torch.kernels import attention as attn
+
+    grads = {}
+    real_step = opt.step
+
+    def step_keeping_grads():
+        opt.sync_gradients()
+        if not grads:
+            grads.update(whole_grads(trainer.model))
+        return real_step()
+
+    opt.step = step_keeping_grads
+    losses, times = [], []
+    reset_counts()
+    dev = trainer.evaluate(dev_np, dump_path=ranks_path)
+    for step in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics = trainer._train_step(opt, trainer._put_batch(batch_np), step)
+        losses.append(metrics["loss"].item())
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    launches = (attn.LAUNCHES, attn.LAUNCHES_BWD)
+    opt.step = real_step
+    return losses, grads, times, launches, dev
+
+
+def mesh_rank_agreement(got, want, logits, rel=1e-5):
+    """The ranks equal but where some other candidate's single-process
+    logit lies within ``rel`` of the row's largest |logit| of the gold's (a
+    near tie, which another summation order may flip): (near-tie rows,
+    rows whose ranks differ)."""
+    import numpy as np
+
+    gold = logits[np.arange(len(logits)), want["label"]][:, None]
+    near = np.abs(logits - gold) <= rel * np.abs(logits).max(axis=1, keepdims=True)
+    near[np.arange(len(logits)), want["label"]] = False
+    near = near.any(axis=1)
+    differ = got != want["ranks"]
+    if (differ & ~near).any():
+        raise AssertionError(f"dev ranks: {int((differ & ~near).sum())} rows apart "
+                             "without a near tie")
+    return int(near.sum()), int(differ.sum())
+
+
+def _gloo_mesh_rank(rank, name, dp, tp, work):
+    """One rank of a gloo mesh on cuda:0: the reference's weights, batch and
+    dropout seeds, MESH_STEPS fp32 steps and the dev ranks; held against
+    the single-process reference on the card (every rank checks; a rank
+    that raises fails the phase). Each rank writes its launches and times."""
+    import numpy as np
+    import torch
+
+    from mkg_analogy_tpu_torch.core.mesh import make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = torch.device("cuda", 0)
+    ref = torch.load(os.path.join(work, f"reference_{name}.pt"), map_location=device,
+                     weights_only=False)
+    mesh = make_mesh(dp=dp, tp=tp, devices=[device] * (dp * tp))
+    trainer, opt = mesh_trainer(device, "float32", mesh, eps=GLOO_EPS)
+    ranks_path = os.path.join(work, f"{name}_ranks.npz")
+    losses, grads, times, launches, dev = mesh_steps(trainer, opt, ref["batch"], ref["dev"],
+                                                    ranks_path)
+    failed = []
+    worst, worst_leaf = leaf_ratios(grads, ref["grads"])
+    if worst > 1.0:
+        failed.append(f"gradient {worst_leaf} at {worst} of its bar")
+    if not all(abs(g - w) <= 1e-5 * abs(w) for g, w in zip(losses, ref["losses"])):
+        failed.append(f"losses {losses}, single {ref['losses']}")
+    got = np.load(ranks_path)["ranks"]
+    try:
+        near, differ = mesh_rank_agreement(got, ref["ranks"], ref["logits"])
+    except AssertionError as e:
+        failed.append(str(e))
+        near = differ = None
+    per_pass = (MESH_STEPS + MESH_EVAL // 32) * 24, MESH_STEPS * 24
+    if launches != per_pass:
+        failed.append(f"launches {launches}, expected {per_pass}")
+    with open(os.path.join(work, f"{name}_rank{rank}.json"), "w") as f:
+        json.dump(dict(losses=losses, worst_grad_over_bar=worst, worst_leaf=worst_leaf,
+                       dev_rank_rows_differ=differ, dev_near_tie_rows=near,
+                       dev_mrr=dev["Eval_entity/mrr"], step_ms=times,
+                       launches=dict(fwd=launches[0], bwd=launches[1]),
+                       gloo_cuda=gloo_cuda_collectives(device) if name == "dp2" else None,
+                       failed=failed), f)
+    if failed:
+        raise AssertionError(f"{name} rank {rank}: " + "; ".join(failed))
+
+
+def gloo_cuda_collectives(device):
+    """Which collectives gloo takes on CUDA tensors of ranks sharing a card:
+    each tried once on the world group, "ok" or the error's first line."""
+    import torch
+    import torch.distributed as dist
+
+    import datetime
+
+    world = dist.get_world_size()
+    # a group of its own with a short timeout: a refused call fails, not hangs
+    g = dist.new_group(backend="gloo", timeout=datetime.timedelta(seconds=60))
+    x = torch.ones(4, device=device)
+    tries = {
+        "all_reduce": lambda: dist.all_reduce(x.clone(), group=g),
+        "broadcast": lambda: dist.broadcast(x.clone(), src=0, group=g),
+        "barrier": lambda: dist.barrier(group=g),
+        "all_gather": lambda: dist.all_gather([torch.empty_like(x) for _ in range(world)], x,
+                                              group=g),
+        "all_gather_into_tensor": lambda: dist.all_gather_into_tensor(
+            torch.empty(4 * world, device=device), x, group=g),
+        "reduce_scatter_tensor": lambda: dist.reduce_scatter_tensor(
+            torch.empty(4, device=device), torch.ones(4 * world, device=device), group=g),
+    }
+    out = {}
+    for name, fn in tries.items():
+        try:
+            fn()
+            torch.cuda.synchronize()
+            out[name] = "ok"
+        except Exception as e:  # the finding: what gloo refuses on the card
+            out[name] = f"{type(e).__name__}: {str(e).splitlines()[0][:160]}"
+    return out
+
+
+def mesh_1x1_phase(device):
+    """The MKGformer fine-tune through the mesh code on a world-size-1 NCCL
+    group (``core/mesh.make_mesh`` of 1 x 1: a DeviceMesh), at full width,
+    B=32, L=128, bf16, dropout on, 6 steps, in turns with the same steps
+    with no mesh from the same weights (no mesh, mesh, no mesh, mesh): the
+    losses and the dev ranks bit-equal, and the step times of each run (the
+    median of steps 3-6; the mesh of one rank calls no collective)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from mkg_analogy_tpu_torch.core.mesh import make_mesh
+
+    t0 = time.perf_counter()
+    batch_np = {k: v.cpu().numpy() for k, v in train_batch(torch.device("cpu")).items()}
+    dev_np = mesh_features()
+    runs = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_", dir=".") as work:
+        torch.cuda.set_device(device.index or 0)  # before the DeviceMesh, as a launcher would
+        dist.init_process_group("nccl", init_method=f"file://{os.path.abspath(work)}/rdv",
+                                rank=0, world_size=1)
+        try:
+            mesh = make_mesh(dp=1, tp=1, devices=[device])
+            if type(mesh).__name__ != "DeviceMesh" or mesh.mesh_dim_names != ("dp", "tp"):
+                raise AssertionError(f"mesh_1x1: make_mesh gave {mesh!r}")
+            for tag, m in (("no_mesh", None), ("mesh_1x1", mesh), ("no_mesh_again", None),
+                           ("mesh_1x1_again", mesh)):
+                trainer, opt = mesh_trainer(device, "bfloat16", m)
+                path = os.path.join(work, f"{tag}.npz")
+                losses, _, times, launches, _ = mesh_steps(trainer, opt, batch_np, dev_np, path,
+                                                           steps=MESH_1X1_STEPS)
+                runs[tag] = (losses, np.load(path)["ranks"], times, launches)
+                del trainer, opt
+                torch.cuda.empty_cache()
+        finally:
+            dist.destroy_process_group()
+    base = runs["no_mesh"]
+    for tag, (losses, ranks, _, launches) in runs.items():
+        if losses != base[0] or not np.array_equal(ranks, base[1]) or launches != base[3]:
+            raise AssertionError(f"mesh_1x1: {tag} differs from no mesh: {losses} vs {base[0]}")
+    if not all(math.isfinite(x) for x in base[0]):
+        raise AssertionError(f"mesh_1x1: losses {base[0]}")
+    emit(dict(phase="mesh_1x1", B=TRAIN_BATCH, L=128, dtype="bfloat16", dropout=0.1,
+              steps=MESH_1X1_STEPS, dev_examples=MESH_EVAL, backend="nccl", world_size=1,
+              losses=base[0], losses_bit_equal=True, dev_ranks_bit_equal=True,
+              launches=dict(fwd=base[3][0], bwd=base[3][1]),
+              median_step_ms={tag: statistics.median(r[2][2:]) for tag, r in runs.items()},
+              step_ms={tag: r[2] for tag, r in runs.items()},
+              seconds=time.perf_counter() - t0, card=card_line()))
+
+
+def sum_like_mesh(model, dp, tp):
+    """Make the single process compute its products as a rank of a (dp, tp)
+    mesh and the mesh's all-reduces do (in place). Every Dense takes the
+    batch in ``dp`` blocks of rows, one product each (a rank's GEMM: cuBLAS
+    may pick another kernel, and another summation order, for another row
+    count; ``gemm_row_dependence`` measures it), concatenated, so a weight's
+    gradient is the sum of the blocks' as the dp all-reduce sums the ranks'.
+    Each Dense the rules split computes ``tp`` partial products and adds
+    them (row-parallel: over its inputs' pieces, then the bias) or
+    concatenates them (column-parallel: its outputs' pieces, so the input's
+    gradient is summed over them). A reference for that mesh: a
+    random-weight fp32 model amplifies the summation order alone far past
+    the train phase's gradient bar (gloo_mesh_phases measures how far)."""
+    import torch
+    import torch.nn.functional as F
+
+    from mkg_analogy_tpu_torch.models.common import Dense
+    from mkg_analogy_tpu_torch.parallel.shardings import _bounds, shard_params_spec
+
+    spec = shard_params_spec(model) if tp > 1 else {}
+    for name, m in model.named_modules():
+        split = spec.get(f"{name}.weight")
+        if not isinstance(m, Dense) or not (split or dp > 1):
+            continue
+        dim = None if not split else 0 if split[0] == "tp" else 1
+        pieces = [] if dim is None else [_bounds(m.weight.shape[dim], tp, r) for r in range(tp)]
+
+        def product(x, m=m, dim=dim, pieces=pieces):
+            dt = m.compute_dtype
+            x, w = x.to(dt), m.weight.to(dt)
+            b = None if m.bias is None else m.bias.to(dt)
+            if dim is None:
+                return F.linear(x, w, b)
+            if dim == 0:
+                return torch.cat([F.linear(x, w[a:z], None if b is None else b[a:z])
+                                  for a, z in pieces], dim=-1)
+            y = sum(F.linear(x[..., a:z], w[:, a:z]) for a, z in pieces)
+            return y if b is None else y + b
+
+        def forward(x, product=product):
+            return torch.cat([product(rows) for rows in x.chunk(dp, dim=0)], dim=0)
+
+        m.forward = forward
+
+
+def gemm_row_dependence(device):
+    """Whether a row of an fp32 product (TF32 off) depends on the row count
+    of its call, at the Dense shapes of the meshes' ranks: x (B·L, in) @
+    w (out, in)ᵀ over the B=32 batch's 4096 rows, against its first 2048
+    rows alone (a dp2 rank's); {"out x in": max |difference| of those
+    rows} (0: the same bits)."""
+    import torch
+    import torch.nn.functional as F
+
+    g = torch.Generator(device=device).manual_seed(5)
+    x = torch.randn(TRAIN_BATCH * 128, 3072, generator=g, device=device)
+    w = torch.randn(3072, 3072, generator=g, device=device)
+    half, out = x.shape[0] // 2, {}
+    for n, k in ((768, 768), (384, 768), (768, 384), (3072, 768), (1536, 768), (768, 3072),
+                 (768, 1536)):
+        xs, ws = x[:, :k].contiguous(), w[:n, :k].contiguous()
+        whole = F.linear(xs, ws)[:half]
+        part = F.linear(xs[:half].contiguous(), ws)
+        out[f"{n}x{k}"] = (whole - part).abs().max().item()
+    return out
+
+
+def gloo_reference(device, name, dp, tp, batch_np, dev_np, work):
+    """The single process's MESH_STEPS fp32 steps, computing its products as
+    a rank of the (dp, tp) mesh ``name`` does (``sum_like_mesh``; "single":
+    as it stands), saved for the ranks of ``name`` (not "single"): losses,
+    the first step's gradients, the dev ranks and logits of the starting
+    weights. Returns (losses, gradients, ms a step, launches)."""
+    import numpy as np
+    import torch
+
+    trainer, opt = mesh_trainer(device, "float32", eps=GLOO_EPS)
+    if dp * tp > 1:
+        sum_like_mesh(trainer.model, dp, tp)
+    ranks_path = os.path.join(work, f"single_{name}_ranks.npz")
+    with torch.inference_mode():  # the dev logits of the starting weights, for the near ties
+        logits = []
+        for i in range(0, MESH_EVAL, 32):
+            b = trainer._put_batch({k: v[i:i + 32] for k, v in dev_np.items()})
+            trans = trainer.model(**trainer._model_inputs(b))
+            logits.append(trainer._answer_logits(trans[:, 0]).float().cpu().numpy())
+    losses, grads, times, launches, _ = mesh_steps(trainer, opt, batch_np, dev_np, ranks_path)
+    grads = {k: None if v is None else v.cpu() for k, v in grads.items()}
+    if name != "single":
+        torch.save(dict(batch=batch_np, dev=dev_np, losses=losses, grads=grads,
+                        ranks=dict(ranks=np.load(ranks_path)["ranks"], label=dev_np["label"]),
+                        logits=np.concatenate(logits)),
+                   os.path.join(work, f"reference_{name}.pt"))
+    del trainer, opt
+    torch.cuda.empty_cache()
+    return losses, grads, times, launches
+
+
+def gloo_mesh_phases(device):
+    """dp2, tp2 and dp2tp2: 2, 2 and 4 gloo ranks on cuda:0 (one process a
+    rank, parallel/launch.spawn; the three meshes at once) over the
+    full-width MKGformer and global batch of mesh_1x1, in fp32 (the
+    CUDA-core kernels of rows 1-2, TF32 off), dropout on, MESH_STEPS steps
+    each, held on every rank against the single process's steps on the same
+    weights, batch and seeds, computing its products as that mesh's ranks do
+    (``sum_like_mesh``: dp row blocks, tp pieces): each step's loss within
+    1e-5 relative, every gradient leaf of the first step within 1e-3 of its
+    largest |gradient| plus 1e-6 of the model's (the train phase's bar), the
+    dev ranks of the starting weights equal but for near ties (another
+    candidate within 1e-5 of the row's largest |logit|). The order alone
+    moves this random-weight model's gradients up to a few times that bar:
+    ``single`` reports, for each mesh, how far the plain single process
+    lands from its order-matched copy (the order noise the bar cannot tell
+    from a fault), and ``gemm_row_dependence`` whether cuBLAS's result for a
+    row depends on the call's row count. Rows 1-2's launches are checked on
+    each rank: 24 forward a train step and an eval batch, 24 backward a
+    step. Step times: gloo, ranks sharing one card, not a scaling figure.
+    AdamW's eps is GLOO_EPS in these runs. Returns the launches of every
+    rank."""
+    import threading
+
+    import torch
+
+    from mkg_analogy_tpu_torch.parallel.launch import spawn
+
+    out, launches, single = {}, {}, {}
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_gloo_", dir=".") as work:
+        batch_np = {k: v.cpu().numpy() for k, v in train_batch(torch.device("cpu")).items()}
+        dev_np = mesh_features()
+        t0 = time.perf_counter()
+        refs = {name: gloo_reference(device, name, dp, tp, batch_np, dev_np, work)
+                for name, dp, tp in [("single", 1, 1)] + GLOO_MESHES}
+        for name, (losses, grads, times, n) in refs.items():
+            single[name] = dict(losses=losses, step_ms=times, launches=dict(fwd=n[0], bwd=n[1]))
+            if name != "single":
+                worst, leaf = leaf_ratios(refs["single"][1], grads)
+                single[name]["plain_vs_this_worst_grad_over_bar"] = worst
+                single[name]["plain_vs_this_leaf"] = leaf
+        single.update(seconds=time.perf_counter() - t0)
+        del refs
+        rows = gemm_row_dependence(device)
+        errors = []
+
+        def run(name, dp, tp):
+            try:
+                t = time.perf_counter()
+                spawn(_gloo_mesh_rank, [str(device)] * (dp * tp), work,
+                      args=(name, dp, tp, work))
+                out[name] = dict(dp=dp, tp=tp, seconds=time.perf_counter() - t)
+            except BaseException as e:  # raised below
+                errors.append((name, e))
+
+        threads = [threading.Thread(target=run, args=m) for m in GLOO_MESHES]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        if errors:
+            raise AssertionError(f"gloo meshes: {errors}") from errors[0][1]
+        for name, dp, tp in GLOO_MESHES:
+            ranks = []
+            for r in range(dp * tp):
+                with open(os.path.join(work, f"{name}_rank{r}.json")) as f:
+                    ranks.append(json.load(f))
+            launches[name] = [r["launches"] for r in ranks]
+            out[name].update(
+                ranks=ranks, losses=ranks[0]["losses"],
+                median_step_ms=statistics.median(ranks[0]["step_ms"][1:]),
+                timing_note="gloo, ranks sharing one card: not a scaling figure")
+    emit(dict(phase="gloo_meshes", B=TRAIN_BATCH, L=128, dtype="float32", dropout=0.1,
+              steps=MESH_STEPS, dev_examples=MESH_EVAL, backend="gloo", device=str(device),
+              adamw_eps=GLOO_EPS, single=single, gemm_row_dependence=rows,
+              seconds=time.perf_counter() - t_phase,
+              bars=dict(loss_rel=1e-5, grad="1e-3 of the leaf's largest |grad| + 1e-6 of "
+                        "the model's", dev_ranks="equal but near ties (1e-5)",
+                        reference="the single process computing its products as the "
+                        "mesh's ranks do (dp row blocks, tp pieces)"),
+              card=card_line(), **out))
+    return launches
+
+
+# a rank of a 2 x 2 mesh at MKGformer's B=32 and 12 heads: the second dp
+# half of the rows and the second tp half of the heads
+MESH_RANK_ROWS, MESH_RANK_HEADS = slice(16, 32), slice(6, 12)
+# (shape, Lq, Lk, geometry, flash tiles): the text tower with its analogy
+# geometry (flash in 2 x 2 logical tiles of 64) and the vision tower
+MESH_RANK_SHAPES = [("text", 128, 128, (0, None, 0), (64, 64)),
+                    ("vision", 99, 99, None, (256, 512))]
+
+
+def mesh_kernel_phase(device):
+    """Rows 1-5's eight kernel sources as a rank of a 2 x 2 mesh calls them
+    at MKGformer's shapes (B=32, 12 heads of 64): that rank's 16 rows and 6
+    heads, dropout 0.1, ``cell_stride`` 12 and ``cell_offset`` 16 * 12 + 6;
+    forward and backward through each wrapper's autograd (fused_attention,
+    flash_attention), bf16 (the tensor-core kernels) and fp32 (the
+    CUDA-core ones). Held against the plain version on the slice at the
+    kernel phases' bars (forward 2e-5 fp32 / 2e-2 bf16 absolute; dq, dk
+    and dv 2e-5 fp32 / 2^-7 bf16 of their largest |value|) and against the
+    same kernels on the whole call, bit for bit on the rank's slice (its
+    masks are the whole call's). Returns {kernel source: largest
+    |difference| from the plain version}."""
+    import torch
+
+    from mkg_analogy_tpu_torch.kernels import attention as attn
+    from mkg_analogy_tpu_torch.kernels import flash_attention as fa
+
+    t0 = time.perf_counter()
+    rows, heads = MESH_RANK_ROWS, MESH_RANK_HEADS
+    offset = rows.start * HEADS + heads.start
+    n_heads = heads.stop - heads.start
+
+    def part(x):
+        return x[rows, :, heads.start * HEAD_DIM:heads.stop * HEAD_DIM].contiguous()
+
+    def run(fn, q, k, v, mask, g, h, kw):
+        leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+        out = fn(*leaves, mask, h, **kw)
+        out.backward(g)
+        return [out.detach()] + [t.grad for t in leaves]
+
+    errors, checks = {}, []
+    for shape, lq, lk, geometry, tiles in MESH_RANK_SHAPES:
+        for route in ("single", "flash"):
+            fn = attn.fused_attention if route == "single" else fa.flash_attention
+            ref_fwd = (attn.fused_attention_reference if route == "single"
+                       else fa.flash_attention_reference)
+            ref_bwd = (attn.fused_attention_bwd_reference if route == "single"
+                       else fa.flash_attention_bwd_reference)
+            for dtype, tag in ((torch.bfloat16, "bf16"), (torch.float32, "fp32")):
+                q, k, v, mask, kw = attention_inputs(lq, lk, geometry, dtype, device,
+                                                     seed=lq + 3, batch=TRAIN_BATCH)
+                g = torch.randn(q.shape, generator=torch.Generator().manual_seed(lk)
+                                ).to(device, dtype)
+                kw = dict(kw, compute_dtype=dtype, dropout_rate=0.1, deterministic=False,
+                          dropout_seed=2024)
+                if route == "flash":
+                    kw.update(block_q=tiles[0], block_k=tiles[1])
+                pkw = dict(kw, cell_stride=HEADS, cell_offset=offset)
+                if geometry is not None:
+                    pkw["boundary"] = kw["boundary"][rows]
+                pq, pk, pv, pg, pmask = part(q), part(k), part(v), part(g), mask[rows]
+                whole = run(fn, q, k, v, mask, g, HEADS, kw)
+                reset_counts()
+                got = run(fn, pq, pk, pv, pmask, pg, n_heads, pkw)
+                torch.cuda.synchronize()
+                counts = all_counts()
+                mma = int(tag == "bf16")
+                launched = ((counts["single_fwd"], counts["single_bwd"]) if route == "single"
+                            else (counts["flash_fwd"], counts["flash_dkv"], counts["flash_dq"],
+                                  counts["flash_fwd_mma"], counts["flash_dkv_mma"],
+                                  counts["flash_dq_mma"]))
+                if launched != ((1, 1) if route == "single" else (1, 1, 1, mma, mma, mma)):
+                    raise AssertionError(f"mesh_kernel {shape} {route} {tag}: launches {counts}")
+                for name, a, b in zip(("out", "dq", "dk", "dv"), got, whole):
+                    if not torch.equal(a, part(b)):
+                        raise AssertionError(f"mesh_kernel {shape} {route} {tag} {name}: the "
+                                             "rank's slice differs from the whole call's")
+                want = [ref_fwd(pq, pk, pv, pmask, n_heads, **pkw)]
+                want += list(ref_bwd(pq, pk, pv, pmask, pg, n_heads, **pkw)[:3])
+                for i, (name, a, b) in enumerate(zip(("out", "dq", "dk", "dv"), got, want)):
+                    err = (a.float() - b.float()).abs().max().item()
+                    top = 1.0 if i == 0 else b.float().abs().max().item()
+                    bar = (2e-5 if dtype == torch.float32 else 2e-2) if i == 0 else (
+                        2e-5 if dtype == torch.float32 else 2.0 ** -7) * top
+                    kernel = (f"{'fused' if route == 'single' else 'flash'}_attention_"
+                              f"{'fwd' if i == 0 else 'bwd'}{'_mma' if tag == 'bf16' else ''}")
+                    errors[kernel] = max(errors.get(kernel, 0.0), err)
+                    checks.append(dict(shape=shape, route=route, dtype=tag, result=name,
+                                       max_abs_err=err, bar=bar))
+                    if not err <= bar:
+                        raise AssertionError(f"mesh_kernel {shape} {route} {tag} {name}: "
+                                             f"kernel vs plain {err} > {bar}")
+    emit(dict(phase="mesh_kernel", B=TRAIN_BATCH, heads=HEADS, rank_rows=[rows.start, rows.stop],
+              rank_heads=[heads.start, heads.stop], cell_stride=HEADS, cell_offset=offset,
+              dropout=0.1, slice_bit_equal_to_whole_call=True, max_abs_err=errors,
+              checks=checks, seconds=time.perf_counter() - t0))
+    return errors
+
+
 def flash_entry(rows, kernel, launches, edges):
     """One flash kernel's entry of the {"kernels": ...} line. Its times and
     bounds are per triple pre-train step at B=64 (12 text 96 x 96, 8 vision
@@ -3895,6 +4434,9 @@ def main() -> int:
     fit_prefetch_phase(device)
     qk_bf16_grad_phase(device)
     fused_qkv_phase(device)
+    mesh_1x1_phase(device)
+    mesh_launches = gloo_mesh_phases(device)
+    mesh_kernel_errors = mesh_kernel_phase(device)
     flash_rows = flash_kernel_phase(device)
     flash_edges = flash_edge_phase(device)
     fp32_masked_row_err = fp32_masked_row_phase(device)
@@ -4011,11 +4553,16 @@ def main() -> int:
         source_fp32="mkg_analogy_tpu_torch/csrc/fused_attention_fwd.cu",
         replaces="mkg_analogy_tpu/kernels/attention.py:124",
         ok=True, launches=launches["fwd"], launches_eval_path=eval_launches,
+        # each rank's forward launches on the gloo meshes (fp32, CUDA cores)
+        launches_mesh_path={k: [r["fwd"] for r in v] for k, v in mesh_launches.items()},
         launches_image_path=image_launches["single_fwd"],
         launches_region_path=region_d64["single_fwd"],
         launches_image_tool=tool_launches["attention_fwd"],
         max_abs_err=max(r[f"max_abs_err_bf16{d}"] for r in rows for d in ("", "_dropout")),
         max_abs_err_edges=edge_err,
+        # on a 2 x 2 mesh rank's rows and heads (mesh_kernel_phase)
+        max_abs_err_mesh_rank=mesh_kernel_errors["fused_attention_fwd_mma"],
+        max_abs_err_mesh_rank_fp32=mesh_kernel_errors["fused_attention_fwd"],
         max_abs_err_fp32=max(r["max_abs_err_fp32"] for r in rows if "fp32" not in r),
         # the four fp32 CUDA-core kernels at rows whose keys are all masked
         max_abs_err_fp32_masked_rows=fp32_masked_row_err,
@@ -4033,11 +4580,14 @@ def main() -> int:
         source_fp32="mkg_analogy_tpu_torch/csrc/fused_attention_bwd.cu",
         replaces="mkg_analogy_tpu/kernels/attention.py:159",
         ok=True, launches=launches["bwd"],
+        launches_mesh_path={k: [r["bwd"] for r in v] for k, v in mesh_launches.items()},
         launches_image_path=image_launches["single_bwd"],
         launches_region_path=region_d64["single_bwd"],
         max_abs_err=max(r[f"max_abs_err_{t}_bf16{d}"] for r in bwd_rows
                         for t in ("dq", "dk", "dv") for d in ("", "_dropout")),
         max_abs_err_edges=bwd_edge_err,
+        max_abs_err_mesh_rank=mesh_kernel_errors["fused_attention_bwd_mma"],
+        max_abs_err_mesh_rank_fp32=mesh_kernel_errors["fused_attention_bwd"],
         max_abs_err_fp32=max(r[f"max_abs_err_{t}_fp32{d}"] for r in bwd_rows
                              if "fp32" not in r
                              for t in ("dq", "dk", "dv") for d in ("", "_dropout")),
@@ -4054,7 +4604,11 @@ def main() -> int:
                launches_image_path=image_launches[f"flash_{kernel}_mma"],
                launches_region_path=vil_flash[f"flash_{kernel}_mma"]
                - vil_flash[f"flash_{kernel}_mma_d128"],
-               max_abs_err_fp32_masked_rows=fp32_masked_row_err)
+               max_abs_err_fp32_masked_rows=fp32_masked_row_err,
+               max_abs_err_mesh_rank=mesh_kernel_errors[
+                   f"flash_attention_{'fwd' if kernel == 'fwd' else 'bwd'}_mma"],
+               max_abs_err_mesh_rank_fp32=mesh_kernel_errors[
+                   f"flash_attention_{'fwd' if kernel == 'fwd' else 'bwd'}"])
           # the bf16 main paths' launches, all on the tensor cores
           for kernel in ("fwd", "dkv", "dq")] + [
         flash_d128_entry(kernel) for kernel in ("fwd", "dkv", "dq")] + [dict(

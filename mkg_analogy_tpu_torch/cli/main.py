@@ -52,17 +52,29 @@ best MKGformerKGC weights as a reference-layout checkpoint
 (``torch.save({"state_dict": ...})``, models/export_torch.py), as the JAX
 CLI does. ``--qk_bf16_grad 1`` runs the plain attention's dq/dk backward in
 the compute dtype (models/common.py:_qk_scores_bf16grad). On CUDA the CLI
-builds every kernel first (core/cache.py), before the first batch.
-Parallelism raises until its slice lands. The JAX package's
-``--prng`` is accepted and changes nothing; ``--xla_opt`` raises.
+builds every kernel first (core/cache.py), before the first batch. The JAX
+package's ``--prng`` is accepted and changes nothing; ``--xla_opt`` raises.
+
+``--dp``/``--tp`` run the fit and the evaluations on a (dp, tp) mesh
+(core/mesh.py, parallel/), one process a rank: the CLI spawns them
+(file rendezvous under ``--output_dir``), or, started by ``torchrun``
+(``RANK``/``WORLD_SIZE`` set), joins the group that is there. As in the JAX
+CLI, under ``--device cuda`` dp * tp must equal the visible GPU count (dp
+defaults to that count over tp); under ``--device cpu`` the ranks are
+processes, any count (dp defaults to 1). Rank 0 logs, prints, dumps ranks
+and writes checkpoints, and the spawning process returns its test metrics.
+With neither flag the run is the single-device one.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import os
+import sys
 
 import torch
+import torch.distributed as dist
 
 
 def _int_or_float(token: str):
@@ -201,18 +213,66 @@ def resolve_device(name: str) -> torch.device:
 
 
 def _refuse_unported(args) -> None:
-    """Fail fast on what later slices of the port bring, and on flags the
-    run would not honour."""
+    """Fail fast on flags the run would not honour."""
     if args.export_torch and args.model_class != "MKGformerKGC":
         raise ValueError(
             "--export_torch writes MKGformerKGC checkpoints (the JAX CLI's "
             f"export), not {args.model_class}")
-    if (args.dp or 1) * args.tp > 1:
-        raise NotImplementedError(
-            "--dp/--tp: data and tensor parallelism are a later slice of the "
-            "port; it runs on one device")
     if args.xla_opt:
         raise ValueError("--xla_opt: XLA options have no PyTorch counterpart")
+
+
+def mesh_devices(args, device: torch.device):
+    """The mesh's devices, one a rank: [device] with neither --dp nor --tp;
+    under cuda the visible GPUs, whose count dp * tp must equal (JAX's
+    rule); under cpu dp * tp processes."""
+    from ..core.mesh import default_devices
+
+    if args.dp is None and args.tp == 1:
+        return [device]
+    if device.type == "cuda":
+        devices = default_devices()
+        dp = args.dp if args.dp is not None else len(devices) // args.tp
+        if dp * args.tp != len(devices):
+            raise ValueError(f"dp({dp}) * tp({args.tp}) != devices({len(devices)}): under "
+                             "--device cuda the mesh takes every visible GPU, one a rank")
+        return devices
+    return [device] * ((args.dp or 1) * args.tp)
+
+
+def _rank_main(rank: int, argv, metrics_path: str) -> None:
+    """One rank of a spawned run: ``main`` in the process group; rank 0
+    writes the test metrics for the spawning process."""
+    metrics = main(argv)
+    if rank == 0:
+        with open(metrics_path, "w") as f:
+            json.dump(metrics, f)
+
+
+def _spawn_ranks(argv, args, devices):
+    from ..parallel.launch import spawn
+
+    os.makedirs(args.output_dir, exist_ok=True)
+    metrics_path = os.path.join(args.output_dir, "metrics_rank0.json")
+    threads = max(1, torch.get_num_threads() // len(devices))
+    spawn(_rank_main, devices, args.output_dir, args=(argv, metrics_path), threads=threads)
+    with open(metrics_path) as f:
+        metrics = json.load(f)
+    print(metrics)
+    return metrics
+
+
+def _rank0_first(fn):
+    """``fn()`` on rank 0, then on the other ranks (which read the caches
+    it wrote); once where there is no process group."""
+    if not dist.is_initialized() or dist.get_world_size() == 1:
+        return fn()
+    if dist.get_rank() == 0:
+        out = fn()
+        dist.barrier()
+        return out
+    dist.barrier()
+    return fn()
 
 
 def make_model(args, vocab_size: int):
@@ -292,14 +352,39 @@ def pretrain_splits(data, fmt: str):
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    print(args)
     device = resolve_device(args.device)
     _refuse_unported(args)
+    devices = mesh_devices(args, device)
+    if len(devices) == 1 or dist.is_initialized():
+        return _run(args, device, devices)
+    from ..parallel.launch import join_from_env, launched_by_env
+
+    if not launched_by_env():
+        print(args)
+        return _spawn_ranks(sys.argv[1:] if argv is None else argv, args, devices)
+    join_from_env(devices)
+    try:
+        return _run(args, device, devices)
+    finally:
+        dist.destroy_process_group()
+
+
+def _run(args, device, devices):
+    """The run of one process: the whole of a single-device run, or one
+    rank of a mesh whose process group is up."""
+    from ..core.mesh import is_main, make_mesh
+
+    mesh = make_mesh(dp=len(devices) // args.tp, tp=args.tp, devices=devices)
+    main_rank = is_main(mesh)
+    if main_rank:
+        print(args)
+    if mesh is not None:
+        device = torch.device(devices[dist.get_rank()])
     from ..core.cache import enable_compilation_cache
 
     # the JAX CLI's first call: on a CUDA device every csrc/ kernel is built
     # here, before the first batch, so no step pays for nvcc
-    enable_compilation_cache(device)
+    _rank0_first(lambda: enable_compilation_cache(device))
 
     from ..data.module import KGCDataModule
     from ..models.registry import IMAGE_INPUT
@@ -325,7 +410,7 @@ def main(argv=None):
             "synthetic mode (synthetic, synthetic_noise) nor an existing "
             "feature-cache path"
         )
-    data = KGCDataModule(
+    data = _rank0_first(lambda: KGCDataModule(
         data_dir=args.data_dir,
         pretrain_path=args.pretrain_path or args.data_dir,
         max_seq_length=args.max_seq_length,
@@ -336,10 +421,10 @@ def main(argv=None):
         image_features=args.image_features,
         image_size=img_size or 224,
         image_kind=kind,
-        overwrite_cache=args.overwrite_cache,
+        overwrite_cache=args.overwrite_cache and main_rank,
         seed=args.seed,
         pretrain_format=args.pretrain_format,
-    )
+    ))
     with torch.device(device):
         model = make_model(args, data.vocab.padded_vocab_size)
     cfg = TrainConfig(
@@ -364,9 +449,10 @@ def main(argv=None):
         limit_train_batches=args.limit_train_batches or None,
         fused_adamw=args.fused_adamw,
     )
-    logger = MetricLogger(args.log_dir, wandb=args.wandb,
-                          config=vars(args) if args.wandb else None)
-    trainer = MarTTrainer(model, data.vocab, cfg, device=device, logger=logger)
+    logger = (MetricLogger(args.log_dir, wandb=args.wandb,
+                           config=vars(args) if args.wandb else None)
+              if main_rank else MetricLogger())
+    trainer = MarTTrainer(model, data.vocab, cfg, device=device, logger=logger, mesh=mesh)
 
     attach = None
     if args.image_features in ("synthetic", "synthetic_noise"):
@@ -388,6 +474,9 @@ def main(argv=None):
 
     split = (pretrain_splits(data, args.pretrain_format).__getitem__ if args.pretrain
              else data.features)
+    if mesh is not None:  # the features of every split, built (and cached) by rank 0 first
+        _rank0_first(lambda: [split(name) for name in
+                              (("test",) if args.only_test else ("train", "dev", "test"))])
     # test_ranks.npz is always a MARS split, the file tools/analyze_ranks.py
     # reads; a pre-training run's ranks mix entity and relation rows and go
     # to a file of their own (ranks, is_rel)
@@ -395,14 +484,15 @@ def main(argv=None):
     dump_path = os.path.join(args.output_dir, dump_name) if args.output_dir else None
     if args.only_test:
         if args.checkpoint:
-            model.load_state_dict(restore_from(args.checkpoint)(model.state_dict()))
+            trainer.load_state_dict(restore_from(args.checkpoint)(trainer.state_dict()))
         metrics = trainer.evaluate(split("test"), attach=attach, dump_path=dump_path)
-        logger.log(0, metrics, prefix="test/")
+        if main_rank:
+            logger.log(0, metrics, prefix="test/")
+            print(metrics)
         logger.close()
-        print(metrics)
         return metrics
 
-    ckpt = checkpoint.Checkpointer(os.path.join(args.output_dir, "ckpt"))
+    ckpt = checkpoint.Checkpointer(os.path.join(args.output_dir, "ckpt"), mesh=mesh)
     try:
         steps, _ = trainer.fit(
             split("train"), split("dev"), attach=attach, checkpointer=ckpt,
@@ -410,23 +500,25 @@ def main(argv=None):
         # test with the best-Hits@10 checkpoint of THIS fit (main.py:157-159
         # parity: a stale checkpoint directory of an older run is not used)
         if ckpt.saved_steps:
-            model.load_state_dict(ckpt.restore(step=ckpt.saved_steps[-1]))
+            trainer.load_state_dict(ckpt.restore(step=ckpt.saved_steps[-1]))
     finally:
         ckpt.close()
     test_metrics = trainer.evaluate(split("test"), attach=attach, dump_path=dump_path)
-    logger.log(steps, test_metrics, prefix="test/")
+    if main_rank:
+        logger.log(steps, test_metrics, prefix="test/")
+        print(test_metrics)
     logger.close()
-    print(test_metrics)
     if args.export_torch:
         # reference-format torch checkpoint of the best weights
         # (models/export_torch.py; loadable by MarT main.py --checkpoint)
         from ..models.export_torch import state_dict_to_torch, unimo_params_to_reference
 
-        sd = unimo_params_to_reference(model.state_dict(),
-                                       num_layers=model.cfg.text.num_layers,
-                                       vocab_rows=data.vocab.vocab_size)
-        torch.save({"state_dict": state_dict_to_torch(sd)}, args.export_torch)
-        print(f"exported reference-format checkpoint to {args.export_torch}")
+        state = trainer.state_dict()  # whole tensors: every rank takes part
+        if main_rank:
+            sd = unimo_params_to_reference(state, num_layers=model.cfg.text.num_layers,
+                                           vocab_rows=data.vocab.vocab_size)
+            torch.save({"state_dict": state_dict_to_torch(sd)}, args.export_torch)
+            print(f"exported reference-format checkpoint to {args.export_torch}")
     return test_metrics
 
 

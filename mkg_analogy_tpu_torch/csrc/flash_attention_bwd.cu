@@ -21,7 +21,9 @@
 // results are bf16 or fp32. The dropout masks are the forward's
 // (flash_attention_fwd.cu): the interpret-mode hash keyed to the logical
 // (bq, bk) tiles, idx = row_in_tile * bk + col_in_tile, tile seed
-// seed + ((b * heads + head) * n_qblk + qb) * n_kblk + kb. Nothing here
+// seed + (cell * n_qblk + qb) * n_kblk + kb, cell = b * cell_stride +
+// head (b * heads + head on one device; a rank of a mesh passes the
+// global head count and folds its first cell into the seed). Nothing here
 // depends on the online softmax's grouping, so the kernels stage keys and
 // rows in chunks of any size and compute each (row, key) on its own. The
 // plain version is kernels/flash_attention.py:flash_attention_bwd_reference.
@@ -231,6 +233,7 @@ struct Args {
   float scale;
   int has_geometry, row_start, text_len, offset, dropout;
   float inv_keep;
+  uint32_t cell_stride;  // dropout cell of (b, h): b * cell_stride + h
   Tiles tiles;
 };
 
@@ -271,7 +274,7 @@ flash_attention_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      a.has_geometry ? boundary[b] + a.offset : 0,
                      a.has_geometry ? w[0] : 1.0f, a.has_geometry ? w[1] : 1.0f};
   Tiles tiles = a.tiles;
-  tiles.cell = uint32_t(b * a.num_heads + h);
+  tiles.cell = uint32_t(b) * a.cell_stride + uint32_t(h);
   const float* lse_bh = lse + (size_t(b) * a.num_heads + h) * lq;
   const float* delta_bh = delta + (size_t(b) * a.num_heads + h) * lq;
 
@@ -437,7 +440,7 @@ flash_attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      a.has_geometry ? boundary[b] + a.offset : 0,
                      a.has_geometry ? w[0] : 1.0f, a.has_geometry ? w[1] : 1.0f};
   Tiles tiles = a.tiles;
-  tiles.cell = uint32_t(b * a.num_heads + h);
+  tiles.cell = uint32_t(b) * a.cell_stride + uint32_t(h);
   const size_t stat_off = (size_t(b) * a.num_heads + h) * lq + r_begin;
 
   float2 dacc[kPerWarp][kPairs];
@@ -524,7 +527,8 @@ flash_attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 Args make_args(int lq, int lk, int num_heads, float scale, int has_geometry, int row_start,
                int text_len, int offset, int dropout, uint32_t threshold, float inv_keep,
-               uint32_t seed, int bq, int bk, int n_qblk, int n_kblk) {
+               uint32_t seed, uint32_t cell_stride, int bq, int bk,
+               int n_qblk, int n_kblk) {
   Args a;
   a.lq = lq;
   a.lk = lk;
@@ -536,6 +540,7 @@ Args make_args(int lq, int lk, int num_heads, float scale, int has_geometry, int
   a.offset = offset;
   a.dropout = dropout;
   a.inv_keep = inv_keep;
+  a.cell_stride = cell_stride;
   a.tiles = Tiles{bq, bk, n_qblk, n_kblk, seed, 0u, threshold};
   return a;
 }
@@ -613,10 +618,11 @@ int mkg_flash_attention_bwd_dkv(const void* q, const void* k, const void* v, con
                                 int head_dim, int is_bf16, float scale, int has_geometry,
                                 int row_start, int text_len, int offset, int dropout,
                                 unsigned int threshold, float inv_keep, unsigned int seed,
-                                int bq, int bk, int n_qblk, int n_kblk, void* stream) {
+                                unsigned int cell_stride, int bq,
+                                int bk, int n_qblk, int n_kblk, void* stream) {
   const Args a = make_args(lq, lk, num_heads, scale, has_geometry, row_start, text_len,
-                           offset, dropout, threshold, inv_keep, seed, bq, bk, n_qblk,
-                           n_kblk);
+                           offset, dropout, threshold, inv_keep, seed, cell_stride,
+                           bq, bk, n_qblk, n_kblk);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define MKG_FLASH_DKV(T, D) \
   launch_dkv<T, D>(q, k, v, g, mask, boundary, w, lse, delta, dk, dv, dw_part, batch, a, s)
@@ -638,11 +644,11 @@ int mkg_flash_attention_bwd_dq(const void* q, const void* k, const void* v, cons
                                int lq, int lk, int num_heads, int head_dim, int is_bf16,
                                float scale, int has_geometry, int row_start, int text_len,
                                int offset, int dropout, unsigned int threshold,
-                               float inv_keep, unsigned int seed, int bq, int bk, int n_qblk,
-                               int n_kblk, void* stream) {
+                               float inv_keep, unsigned int seed, unsigned int cell_stride, int bq,
+                               int bk, int n_qblk, int n_kblk, void* stream) {
   const Args a = make_args(lq, lk, num_heads, scale, has_geometry, row_start, text_len,
-                           offset, dropout, threshold, inv_keep, seed, bq, bk, n_qblk,
-                           n_kblk);
+                           offset, dropout, threshold, inv_keep, seed, cell_stride,
+                           bq, bk, n_qblk, n_kblk);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define MKG_FLASH_DQ(T, D) \
   launch_dq<T, D>(q, k, v, g, mask, boundary, w, lse, delta, dq, batch, a, s)

@@ -67,9 +67,11 @@
 //
 // Dropout is the forward's mask (flash_attention_fwd.cu): the interpret-mode
 // hash keyed to the logical (bq, bk) tiles, idx = (r - qb * bq) * bk +
-// (c - kb * bk), tile seed seed + ((b * heads + h) * n_qblk + qb) * n_kblk +
-// kb, times 0x9E3779B9 (mod 2^32). Both split into a part of the row and a
-// part of the key, idx = row_base + col and mix = row_mix + key_mix, each
+// (c - kb * bk), tile seed seed + (cell * n_qblk + qb) * n_kblk + kb, cell =
+// b * cell_stride + h (b * heads + h on one device; a rank of a mesh folds
+// its first cell into the seed), times
+// 0x9E3779B9 (mod 2^32). Both split into a part of the row and a part of
+// the key, idx = row_base + col and mix = row_mix + key_mix, each
 // derived once per row and once per key, so a 64-row chunk may straddle
 // logical tiles of any size (the row stride stays bk in a ragged last tile).
 // A score is one FMA from the accumulator in the natural domain
@@ -114,6 +116,7 @@ struct Args {
   uint32_t threshold;
   float inv_keep;
   uint32_t seed;
+  uint32_t cell_stride;  // dropout cell of (b, h): b * cell_stride + h
   int bq, bk, n_qblk, n_kblk;
 };
 
@@ -165,6 +168,7 @@ __global__ void __launch_bounds__(kThreads, 2) dkv_kernel(const Args a) {
   const int g = lane >> 2, t = lane & 3;
   const int key0 = blk.tile * kTile;
   const uint32_t cell = uint32_t(b * a.num_heads + h);
+  const uint32_t seed_cell = uint32_t(b) * a.cell_stride + uint32_t(h);
   const Geometry geo =
       load_geometry(a.has_geometry, a.row_start, a.text_len, a.offset, a.boundary, a.w, b);
   const ScoreRule<D> rule(a.scale, a.has_geometry);
@@ -219,7 +223,7 @@ __global__ void __launch_bounds__(kThreads, 2) dkv_kernel(const Args a) {
     const int key = key_g + 8 * r;
     bias[r] = key < a.lk ? (1.0f - a.mask[size_t(b) * a.lk + key]) * kNegBias : -INFINITY;
     key_answer[r] = geo.col_is_answer(key);
-    key_part(a, cell, key, col[r], key_mix[r]);
+    key_part(a, seed_cell, key, col[r], key_mix[r]);
   }
 
   uint32_t ka[D / 16][4], va[D / 16][4];
@@ -344,6 +348,7 @@ __global__ void __launch_bounds__(kThreads, 2) dq_kernel(const Args a) {
   const int t = lane & 3;
   const int row0 = blk.tile * kTile;
   const uint32_t cell = uint32_t(b * a.num_heads + h);
+  const uint32_t seed_cell = uint32_t(b) * a.cell_stride + uint32_t(h);
   const Geometry geo =
       load_geometry(a.has_geometry, a.row_start, a.text_len, a.offset, a.boundary, a.w, b);
   const ScoreRule<D> rule(a.scale, a.has_geometry);
@@ -369,7 +374,7 @@ __global__ void __launch_bounds__(kThreads, 2) dq_kernel(const Args a) {
   auto put_record = [&](int it) {
     const int key = it * kTile + threadIdx.x;
     uint32_t col, mix;
-    key_part(a, cell, key, col, mix);
+    key_part(a, seed_cell, key, col, mix);
     key_s[(it & 1) * kTile + threadIdx.x] =
         make_float4(key < a.lk ? (1.0f - next_mask) * kNegBias : -INFINITY,
                     __uint_as_float(col), __uint_as_float(mix),
@@ -477,7 +482,8 @@ Args make_args(const void* q, const void* k, const void* v, const void* g, const
                const void* boundary, const void* w, const void* lse, const void* delta,
                int lq, int lk, int num_heads, float scale, int has_geometry, int row_start,
                int text_len, int offset, int dropout, uint32_t threshold, float inv_keep,
-               uint32_t seed, int bq, int bk, int n_qblk, int n_kblk) {
+               uint32_t seed, uint32_t cell_stride, int bq, int bk,
+               int n_qblk, int n_kblk) {
   Args a{};
   a.q = static_cast<const bf16*>(q);
   a.k = static_cast<const bf16*>(k);
@@ -500,6 +506,7 @@ Args make_args(const void* q, const void* k, const void* v, const void* g, const
   a.threshold = threshold;
   a.inv_keep = inv_keep;
   a.seed = seed;
+  a.cell_stride = cell_stride;
   a.bq = bq;
   a.bk = bk;
   a.n_qblk = n_qblk;
@@ -537,11 +544,12 @@ int mkg_flash_attention_bwd_dkv_mma(const void* q, const void* k, const void* v,
                                     int head_dim, int is_bf16, float scale, int has_geometry,
                                     int row_start, int text_len, int offset, int dropout,
                                     unsigned int threshold, float inv_keep, unsigned int seed,
+                                    unsigned int cell_stride,
                                     int bq, int bk, int n_qblk, int n_kblk, void* stream) {
   if (!is_bf16 || (head_dim != 64 && head_dim != 128)) return int(cudaErrorInvalidValue);
   Args a = make_args(q, k, v, g, mask, boundary, w, lse, delta, lq, lk, num_heads, scale,
                      has_geometry, row_start, text_len, offset, dropout, threshold, inv_keep,
-                     seed, bq, bk, n_qblk, n_kblk);
+                     seed, cell_stride, bq, bk, n_qblk, n_kblk);
   a.dk = static_cast<bf16*>(dk);
   a.dv = static_cast<bf16*>(dv);
   a.dw_part = static_cast<float*>(dw_part);
@@ -559,12 +567,12 @@ int mkg_flash_attention_bwd_dq_mma(const void* q, const void* k, const void* v, 
                                    int lq, int lk, int num_heads, int head_dim, int is_bf16,
                                    float scale, int has_geometry, int row_start, int text_len,
                                    int offset, int dropout, unsigned int threshold,
-                                   float inv_keep, unsigned int seed, int bq, int bk, int n_qblk,
-                                   int n_kblk, void* stream) {
+                                   float inv_keep, unsigned int seed, unsigned int cell_stride,
+                                   int bq, int bk, int n_qblk, int n_kblk, void* stream) {
   if (!is_bf16 || (head_dim != 64 && head_dim != 128)) return int(cudaErrorInvalidValue);
   Args a = make_args(q, k, v, g, mask, boundary, w, lse, delta, lq, lk, num_heads, scale,
                      has_geometry, row_start, text_len, offset, dropout, threshold, inv_keep,
-                     seed, bq, bk, n_qblk, n_kblk);
+                     seed, cell_stride, bq, bk, n_qblk, n_kblk);
   a.dq = static_cast<bf16*>(dq);
   const int halves = head_dim / 64;
   const dim3 grid((lq + kTile - 1) / kTile * halves, num_heads, batch);

@@ -24,7 +24,9 @@
 // Dropout: the counter hash of the JAX kernel's interpret mode
 // (attention.py:_dropout_keep), keyed to the logical (bq, bk) tiles:
 // idx = row_in_tile * bk + col_in_tile (bk even in a ragged last tile),
-// seed = seed + ((b * heads + head) * n_qblk + qb) * n_kblk + kb
+// seed = seed + (cell * n_qblk + qb) * n_kblk + kb, cell = b * cell_stride
+// + head (b * heads + head on one device; a rank of a mesh folds its first
+// cell into the seed)
 // (flash_attention.py:_tile_seed), applied to the unnormalised p after the
 // sum. The plain version (kernels/flash_attention.py:flash_attention_reference)
 // and the two backward kernels draw the same masks.
@@ -223,7 +225,8 @@ flash_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                            float* __restrict__ lse, int lq, int lk, int num_heads,
                            float scale, int has_geometry, int row_start, int text_len,
                            int offset, int dropout, uint32_t threshold, float inv_keep,
-                           uint32_t seed, int bq, int bk, int n_qblk, int n_kblk) {
+                           uint32_t seed, uint32_t cell_stride, int bq,
+                           int bk, int n_qblk, int n_kblk) {
   constexpr int kStride = Layout<T, D>::kStride;
   constexpr int kPairs = D / 64;  // column pairs a lane owns: 2 lane + 64 c, c < kPairs
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -245,7 +248,7 @@ flash_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const Geometry geo{has_geometry, row_start, text_len,
                      has_geometry ? boundary[b] + offset : 0,
                      has_geometry ? w[0] : 1.0f, has_geometry ? w[1] : 1.0f};
-  const uint32_t cell = uint32_t(b * num_heads + h);
+  const uint32_t cell = uint32_t(b) * cell_stride + uint32_t(h);
 
   // this warp's rows: local row il = warp + kWarps * t
   float m[kRowsPerWarp], l[kRowsPerWarp], alpha[kRowsPerWarp];
@@ -385,7 +388,8 @@ int launch(const void* q, const void* k, const void* v, const void* mask,
            const void* boundary, const void* w, void* out, void* lse, int batch, int lq,
            int lk, int num_heads, float scale, int has_geometry, int row_start,
            int text_len, int offset, int dropout, uint32_t threshold, float inv_keep,
-           uint32_t seed, int bq, int bk, int n_qblk, int n_kblk, cudaStream_t stream) {
+           uint32_t seed, uint32_t cell_stride, int bq, int bk,
+           int n_qblk, int n_kblk, cudaStream_t stream) {
   const size_t smem = Layout<T, D>::smem_bytes(bk);
   cudaError_t err = cudaFuncSetAttribute(flash_attention_fwd_kernel<T, D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -397,7 +401,7 @@ int launch(const void* q, const void* k, const void* v, const void* mask,
       static_cast<const float*>(mask), static_cast<const int*>(boundary),
       static_cast<const float*>(w), static_cast<T*>(out), static_cast<float*>(lse), lq, lk,
       num_heads, scale, has_geometry, row_start, text_len, offset, dropout, threshold,
-      inv_keep, seed, bq, bk, n_qblk, n_kblk);
+      inv_keep, seed, cell_stride, bq, bk, n_qblk, n_kblk);
   return int(cudaGetLastError());
 }
 
@@ -431,13 +435,13 @@ int mkg_flash_attention_fwd(const void* q, const void* k, const void* v, const v
                             int batch, int lq, int lk, int num_heads, int head_dim,
                             int is_bf16, float scale, int has_geometry, int row_start,
                             int text_len, int offset, int dropout, unsigned int threshold,
-                            float inv_keep, unsigned int seed, int bq, int bk, int n_qblk,
-                            int n_kblk, void* stream) {
+                            float inv_keep, unsigned int seed, unsigned int cell_stride, int bq,
+                            int bk, int n_qblk, int n_kblk, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define MKG_FLASH_FWD(T, D)                                                                  \
   launch<T, D>(q, k, v, mask, boundary, w, out, lse, batch, lq, lk, num_heads, scale,        \
                has_geometry, row_start, text_len, offset, dropout, threshold, inv_keep, seed, \
-               bq, bk, n_qblk, n_kblk, s)
+               cell_stride, bq, bk, n_qblk, n_kblk, s)
   if (head_dim == 64) {
     return is_bf16 ? MKG_FLASH_FWD(__nv_bfloat16, 64) : MKG_FLASH_FWD(float, 64);
   }

@@ -81,13 +81,14 @@
 //
 // Dropout: the interpret-mode hash keyed to the logical (bq, bk) tiles, as
 // flash_attention_bwd_mma.cu draws it: idx = (r - qb * bq) * bk + (c - kb *
-// bk), tile seed seed + ((b * heads + h) * n_qblk + qb) * n_kblk + kb, times
-// 0x9E3779B9 (mod 2^32). A row's part of each (its index base, its seed
-// times the constant) is derived once a lane, so a 64-row block may
-// straddle logical Q tiles (bq not a multiple of 64); since chunks start
-// inside their tile, a key's part is its offset in the tile and kb *
-// 0x9E3779B9: no division in the loop. Applied to the unnormalised p after
-// the sum, as p * (1 / (1 - rate)).
+// bk), tile seed seed + (cell * n_qblk + qb) * n_kblk + kb, cell = b *
+// cell_stride + h (b * heads + h on one device; a rank of a mesh folds its
+// first cell into the seed), times 0x9E3779B9 (mod 2^32). A row's part of
+// each (its index base, its seed times the constant) is derived once a
+// lane, so a 64-row block may straddle logical Q tiles (bq not a multiple of
+// 64); since chunks start inside their tile, a key's part is its offset in
+// the tile and kb * 0x9E3779B9: no division in the loop. Applied to the
+// unnormalised p after the sum, as p * (1 / (1 - rate)).
 //
 // Padding is a value, not a predicate: a key beyond its tile (or Lk) is
 // zero-filled and has bias -inf, so it takes no part in max or sum and its
@@ -126,12 +127,21 @@ struct Args {
   float* lse;  // (B, heads, Lq)
   int lq, lk, num_heads;
   float scale;
-  int has_geometry, row_start, text_len, offset, dropout;
+  int row_start, text_len, offset;
+  int flags;  // bit 0: the analogy geometry applies; bit 1: dropout
   uint32_t threshold;
   float inv_keep;
   uint32_t seed;
+  uint32_t cell_stride;  // dropout cell of (b, h): b * cell_stride + h
   int bq, bk, n_qblk, n_kblk;
+
+  __device__ __forceinline__ int has_geometry() const { return flags & 1; }
+  __device__ __forceinline__ bool dropout() const { return flags & 2; }
 };
+// 128 bytes: grown to 136 (the two flags and a cell offset as fields of
+// their own), the kernels ran 17-28% slower at every shape, with and without
+// dropout (mkg_analogy_tpu_torch/tools/time_attention.py --flash, H100).
+static_assert(sizeof(Args) == 128, "keep the forward's arguments at 128 bytes");
 
 // What a lane knows of its two rows, row_g and row_g + 8 of the block.
 template <int D>
@@ -144,10 +154,10 @@ struct Lane {
   uint32_t row_mix[2];    // (seed + (cell * n_qblk + qb) * n_kblk) * 0x9E3779B9
 
   __device__ __forceinline__ Lane(const Args& a, int b, int h, int row0)
-      : rule(a.scale, a.has_geometry) {
+      : rule(a.scale, a.has_geometry()) {
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    const uint32_t cell = uint32_t(b * a.num_heads + h);
-    geo = load_geometry(a.has_geometry, a.row_start, a.text_len, a.offset, a.boundary, a.w, b);
+    const uint32_t cell = uint32_t(b) * a.cell_stride + uint32_t(h);
+    geo = load_geometry(a.has_geometry(), a.row_start, a.text_len, a.offset, a.boundary, a.w, b);
     row_g = row0 + warp * 16 + (lane >> 2);
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
@@ -202,7 +212,7 @@ __device__ __forceinline__ void weights(float (&s)[8][4], const float (&m_new)[2
       const int r = e >> 1;
       float p = exp_minus_max(s[nt][e], m_new[r]);
       sum[r] += p;
-      if (a.dropout) {
+      if (a.dropout()) {
         const uint32_t idx = ln.row_base[r] + uint32_t(col0 + nt * 8 + 2 * t + (e & 1));
         p = dropout_keep(idx, mix[r], a.threshold) ? p * a.inv_keep : 0.0f;
       }
@@ -530,14 +540,16 @@ int mkg_flash_attention_fwd_mma(const void* q, const void* k, const void* v, con
                                 int batch, int lq, int lk, int num_heads, int head_dim,
                                 int is_bf16, float scale, int has_geometry, int row_start,
                                 int text_len, int offset, int dropout, unsigned int threshold,
-                                float inv_keep, unsigned int seed, int bq, int bk, int n_qblk,
-                                int n_kblk, void* stream) {
+                                float inv_keep, unsigned int seed, unsigned int cell_stride, int bq,
+                                int bk, int n_qblk, int n_kblk, void* stream) {
   if (!is_bf16) return int(cudaErrorInvalidValue);
   const Args a{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
                static_cast<const bf16*>(v), static_cast<const float*>(mask),
                static_cast<const int*>(boundary), static_cast<const float*>(w),
                static_cast<bf16*>(out), static_cast<float*>(lse), lq, lk, num_heads, scale,
-               has_geometry, row_start, text_len, offset, dropout, threshold, inv_keep, seed,
+               row_start, text_len, offset, (has_geometry ? 1 : 0) | (dropout ? 2 : 0),
+               threshold, inv_keep,
+               seed, cell_stride,
                bq, bk, n_qblk, n_kblk};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (head_dim == 64) return launch<64>(a, batch, s);

@@ -17,7 +17,8 @@
 // stream), each width its own instantiation. Scores, softmax and every sum are in
 // fp32; q, k, v, g and the results are bf16 or fp32. The dropout mask is
 // the counter hash of fused_attention_fwd.cu (the JAX interpret-mode
-// _dropout_keep with the per-(b, head) seed of _cell_seed), so it is the
+// _dropout_keep with the per-(b, head) seed of _cell_seed, seed + b *
+// cell_stride + head: b * heads + head on one device), so it is the
 // forward's mask bit for bit. The plain PyTorch version is
 // kernels/attention.py:fused_attention_bwd_reference.
 //
@@ -229,7 +230,8 @@ attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         float* __restrict__ stats, float* __restrict__ dw_part,
                         int lq, int lk, int num_heads, float scale, int has_geometry,
                         int row_start, int text_len, int offset, int dropout,
-                        uint32_t threshold, float inv_keep, uint32_t seed) {
+                        uint32_t threshold, float inv_keep, uint32_t seed,
+                        uint32_t cell_stride) {
   constexpr int kStride = Layout<T, D>::kStride;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ float dw_s[kWarps][2];
@@ -255,7 +257,8 @@ attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const Geometry geo{has_geometry, row_start, text_len,
                      has_geometry ? boundary[b] + offset : 0,
                      has_geometry ? w[0] : 1.0f, has_geometry ? w[1] : 1.0f};
-  const uint32_t seed_mix = (seed + uint32_t(b * num_heads + h)) * 0x9E3779B9u;
+  const uint32_t seed_mix =
+      (seed + uint32_t(b) * cell_stride + uint32_t(h)) * 0x9E3779B9u;
   const int r_end = min(lq, (tile + 1) * kRowsPerBlock);
   float dw0 = 0.0f, dw1 = 0.0f;  // this lane's partials
 
@@ -374,7 +377,7 @@ attention_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                          T* __restrict__ dk, T* __restrict__ dv, int lq, int lk,
                          int num_heads, float scale, int has_geometry, int row_start,
                          int text_len, int offset, int dropout, uint32_t threshold,
-                         float inv_keep, uint32_t seed) {
+                         float inv_keep, uint32_t seed, uint32_t cell_stride) {
   constexpr int kStride = Layout<T, D>::kStride;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* qs = reinterpret_cast<T*>(smem_raw);
@@ -403,7 +406,8 @@ attention_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const Geometry geo{has_geometry, row_start, text_len,
                      has_geometry ? boundary[b] + offset : 0,
                      has_geometry ? w[0] : 1.0f, has_geometry ? w[1] : 1.0f};
-  const uint32_t seed_mix = (seed + uint32_t(b * num_heads + h)) * 0x9E3779B9u;
+  const uint32_t seed_mix =
+      (seed + uint32_t(b) * cell_stride + uint32_t(h)) * 0x9E3779B9u;
   const int j_end = min(lk, (tile + 1) * kKeysPerBlock);
 
   for (int j = tile * kKeysPerBlock + warp; j < j_end; j += kWarps) {
@@ -480,7 +484,7 @@ int launch(const void* q, const void* k, const void* v, const void* g, const voi
            void* stats, void* dw_part, int batch, int lq, int lk, int num_heads,
            float scale, int has_geometry, int row_start, int text_len, int offset,
            int dropout, uint32_t threshold, float inv_keep, uint32_t seed,
-           cudaStream_t stream) {
+           uint32_t cell_stride, cudaStream_t stream) {
   const size_t smem_dq = Layout<T, D>::dq_bytes(lk);
   const size_t smem_dkv = Layout<T, D>::dkv_bytes(lq);
   cudaError_t err = cudaFuncSetAttribute(attention_bwd_dq_kernel<T, D>,
@@ -501,14 +505,16 @@ int launch(const void* q, const void* k, const void* v, const void* g, const voi
   attention_bwd_dq_kernel<T, D><<<grid_dq, kThreads, smem_dq, stream>>>(
       qt, kt, vt, gt, maskf, bnd, wf, static_cast<T*>(dq), static_cast<float*>(stats),
       static_cast<float*>(dw_part), lq, lk, num_heads, scale, has_geometry, row_start,
-      text_len, offset, dropout, threshold, inv_keep, seed);
+      text_len, offset, dropout, threshold, inv_keep, seed,
+      cell_stride);
   err = cudaGetLastError();
   if (err != cudaSuccess) return int(err);
   const dim3 grid_dkv((lk + kKeysPerBlock - 1) / kKeysPerBlock, num_heads, batch);
   attention_bwd_dkv_kernel<T, D><<<grid_dkv, kThreads, smem_dkv, stream>>>(
       qt, kt, vt, gt, maskf, bnd, wf, static_cast<const float*>(stats),
       static_cast<T*>(dk), static_cast<T*>(dv), lq, lk, num_heads, scale, has_geometry,
-      row_start, text_len, offset, dropout, threshold, inv_keep, seed);
+      row_start, text_len, offset, dropout, threshold, inv_keep, seed,
+      cell_stride);
   return int(cudaGetLastError());
 }
 
@@ -549,7 +555,8 @@ int mkg_fused_attention_bwd(const void* q, const void* k, const void* v, const v
                             int batch, int lq, int lk, int num_heads, int head_dim,
                             int is_bf16, float scale, int has_geometry, int row_start,
                             int text_len, int offset, int dropout, unsigned int threshold,
-                            float inv_keep, unsigned int seed, void* stream) {
+                            float inv_keep, unsigned int seed, unsigned int cell_stride,
+                            void* stream) {
   if (head_dim != 64 && head_dim != 128) return int(cudaErrorInvalidValue);
   decltype(&launch<float, 64>) fn;
   if (head_dim == 64) {
@@ -559,7 +566,7 @@ int mkg_fused_attention_bwd(const void* q, const void* k, const void* v, const v
   }
   return fn(q, k, v, g, mask, boundary, w, dq, dk, dv, stats, dw_part, batch, lq, lk,
             num_heads, scale, has_geometry, row_start, text_len, offset, dropout, threshold,
-            inv_keep, seed, static_cast<cudaStream_t>(stream));
+            inv_keep, seed, cell_stride, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -100,6 +100,7 @@ struct Args {
   uint32_t threshold;
   float inv_keep;
   uint32_t seed;
+  uint32_t cell_stride;  // dropout cell of (b, h): b * cell_stride + h
 };
 
 // The block's coordinates: its tile of 64 rows (query rows in the dq pass,
@@ -129,7 +130,7 @@ struct Lane {
       : rule(a.scale, a.has_geometry) {
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
     geo = load_geometry(a.has_geometry, a.row_start, a.text_len, a.offset, a.boundary, a.w, b);
-    seed_mix = (a.seed + uint32_t(b * a.num_heads + h)) * 0x9E3779B9u;
+    seed_mix = (a.seed + uint32_t(b) * a.cell_stride + uint32_t(h)) * 0x9E3779B9u;
     row_g = row0 + warp * 16 + (lane >> 2);
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
@@ -494,7 +495,8 @@ __global__ void __launch_bounds__(kThreads) dkv_kernel(const Args a) {
 
   const Geometry geo =
       load_geometry(a.has_geometry, a.row_start, a.text_len, a.offset, a.boundary, a.w, b);
-  const uint32_t seed_mix = (a.seed + uint32_t(b * a.num_heads + h)) * 0x9E3779B9u;
+  const uint32_t seed_mix =
+      (a.seed + uint32_t(b) * a.cell_stride + uint32_t(h)) * 0x9E3779B9u;
   const ScoreRule<D> rule(a.scale, a.has_geometry);
   const int key_g = key0 + warp * 16 + g;  // this lane's keys: key_g and key_g + 8
   bool key_answer[2];
@@ -631,7 +633,8 @@ int mkg_fused_attention_bwd_mma(const void* q, const void* k, const void* v, con
                                 int batch, int lq, int lk, int num_heads, int head_dim,
                                 float scale, int has_geometry, int row_start, int text_len,
                                 int offset, int dropout, unsigned int threshold,
-                                float inv_keep, unsigned int seed, void* stream) {
+                                float inv_keep, unsigned int seed, unsigned int cell_stride,
+                                void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Args a{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
                static_cast<const bf16*>(v), static_cast<const bf16*>(g),
@@ -639,7 +642,7 @@ int mkg_fused_attention_bwd_mma(const void* q, const void* k, const void* v, con
                static_cast<const float*>(w), static_cast<bf16*>(dq), static_cast<bf16*>(dk),
                static_cast<bf16*>(dv), static_cast<float*>(stats),
                static_cast<float*>(dw_part), lq, lk, num_heads, scale, has_geometry,
-               row_start, text_len, offset, dropout, threshold, inv_keep, seed};
+               row_start, text_len, offset, dropout, threshold, inv_keep, seed, cell_stride};
   if (head_dim == 64) return launch<64>(a, batch, s);
   if (head_dim == 128) return launch<128>(a, batch, s);
   return int(cudaErrorInvalidValue);

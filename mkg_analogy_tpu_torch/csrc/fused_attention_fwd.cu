@@ -18,7 +18,10 @@
 // Dropout uses the counter hash of the JAX kernel's interpret mode
 // (attention.py:_dropout_keep): idx = row * Lk + col, x = idx ^ (seed *
 // 0x9E3779B9), two lowbias32 rounds, keep where x >= uint32(rate * 2^32),
-// with the per-(b, head) seed of attention.py:_cell_seed. The plain PyTorch
+// with the per-(b, head) seed of attention.py:_cell_seed, seed + b *
+// cell_stride + head (b * heads + head on one device; a rank of a mesh
+// passes the global head count as the stride and folds the global cell of
+// its first row and head into the seed). The plain PyTorch
 // version (kernels/attention.py:fused_attention_reference) uses the same
 // hash, so the two agree mask for mask. The TPU's hardware random bits are
 // not reproduced.
@@ -148,7 +151,7 @@ fused_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                            int lq, int lk, int num_heads, float scale,
                            int has_geometry, int row_start, int text_len, int offset,
                            int dropout, uint32_t threshold, float keep_div,
-                           uint32_t seed) {
+                           uint32_t seed, uint32_t cell_stride) {
   constexpr int kChunk = Layout<T, D>::kChunk;
   constexpr int kStride = Layout<T, D>::kStride;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -181,7 +184,8 @@ fused_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int bnd = has_geometry ? boundary[b] + offset : 0;
   const float w0 = has_geometry ? w[0] : 1.0f;
   const float w1 = has_geometry ? w[1] : 1.0f;
-  const uint32_t seed_mix = (seed + uint32_t(b * num_heads + h)) * 0x9E3779B9u;
+  const uint32_t seed_mix =
+      (seed + uint32_t(b) * cell_stride + uint32_t(h)) * 0x9E3779B9u;
   const int r_end = min(lq, (tile + 1) * kRowsPerBlock);
 
   for (int r = tile * kRowsPerBlock + warp; r < r_end; r += kWarps) {
@@ -258,7 +262,8 @@ int launch(const void* q, const void* k, const void* v, const void* mask,
            const void* boundary, const void* w, void* out, int batch, int lq,
            int lk, int num_heads, float scale, int has_geometry, int row_start,
            int text_len, int offset, int dropout, uint32_t threshold,
-           float keep_div, uint32_t seed, cudaStream_t stream) {
+           float keep_div, uint32_t seed, uint32_t cell_stride,
+           cudaStream_t stream) {
   const size_t smem = Layout<T, D>::smem_bytes(lk);
   cudaError_t err = cudaFuncSetAttribute(fused_attention_fwd_kernel<T, D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -269,7 +274,8 @@ int launch(const void* q, const void* k, const void* v, const void* mask,
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const float*>(mask), static_cast<const int*>(boundary),
       static_cast<const float*>(w), static_cast<T*>(out), lq, lk, num_heads, scale,
-      has_geometry, row_start, text_len, offset, dropout, threshold, keep_div, seed);
+      has_geometry, row_start, text_len, offset, dropout, threshold, keep_div, seed,
+      cell_stride);
   return int(cudaGetLastError());
 }
 
@@ -303,7 +309,7 @@ int mkg_fused_attention_fwd(const void* q, const void* k, const void* v,
                             int head_dim, int is_bf16, float scale, int has_geometry,
                             int row_start, int text_len, int offset, int dropout,
                             unsigned int threshold, float keep_div, unsigned int seed,
-                            void* stream) {
+                            unsigned int cell_stride, void* stream) {
   if (head_dim != 64 && head_dim != 128) return int(cudaErrorInvalidValue);
   decltype(&launch<float, 64>) fn;
   if (head_dim == 64) {
@@ -313,7 +319,7 @@ int mkg_fused_attention_fwd(const void* q, const void* k, const void* v,
   }
   return fn(q, k, v, mask, boundary, w, out, batch, lq, lk, num_heads, scale, has_geometry,
             row_start, text_len, offset, dropout, threshold, keep_div, seed,
-            static_cast<cudaStream_t>(stream));
+            cell_stride, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -92,6 +92,7 @@ struct Args {
   uint32_t threshold;
   float inv_keep;
   uint32_t seed;
+  uint32_t cell_stride;  // dropout cell of (b, h): b * cell_stride + h
 };
 
 // What a lane knows of its two rows (row_g and row_g + 8 of the tile).
@@ -107,7 +108,7 @@ struct Lane {
       : rule(a.scale, a.has_geometry) {
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
     geo = load_geometry(a.has_geometry, a.row_start, a.text_len, a.offset, a.boundary, a.w, b);
-    seed_mix = (a.seed + uint32_t(b * a.num_heads + h)) * 0x9E3779B9u;
+    seed_mix = (a.seed + uint32_t(b) * a.cell_stride + uint32_t(h)) * 0x9E3779B9u;
     row_g = row0 + warp * 16 + (lane >> 2);
     c_row[0] = rule.c_answer(geo.row(row_g).w);
     c_row[1] = rule.c_answer(geo.row(row_g + 8).w);
@@ -370,12 +371,12 @@ int mkg_fused_attention_fwd_mma(const void* q, const void* k, const void* v, con
                                 int lq, int lk, int num_heads, int head_dim, float scale,
                                 int has_geometry, int row_start, int text_len, int offset,
                                 int dropout, unsigned int threshold, float inv_keep,
-                                unsigned int seed, void* stream) {
+                                unsigned int seed, unsigned int cell_stride, void* stream) {
   const Args a{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
                static_cast<const bf16*>(v), static_cast<const float*>(mask),
                static_cast<const int*>(boundary), static_cast<const float*>(w),
                static_cast<bf16*>(out), lq, lk, num_heads, scale, has_geometry, row_start,
-               text_len, offset, dropout, threshold, inv_keep, seed};
+               text_len, offset, dropout, threshold, inv_keep, seed, cell_stride};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (head_dim == 64) return launch<64>(a, batch, s);
   if (head_dim == 128) return launch<128>(a, batch, s);

@@ -42,9 +42,16 @@ Dropout masks come from the counter hash of the JAX kernel's interpret mode
 (``_dropout_keep``: lowbias32 on ``row * Lk + col`` xor ``seed *
 0x9E3779B9``, per-(b, head) seed ``seed + b * heads + head``), in the plain
 versions and in both kernels, so the backward regenerates the forward's
-mask. The plain versions match the JAX interpret-mode kernels bit for bit
-in their masks, and the CUDA kernels match the plain versions; none
-reproduces the TPU's hardware random bits.
+mask. A rank of a mesh holds a slice of the batch rows and of the heads: it
+passes ``cell_stride`` (the global head count) and ``cell_offset`` (the
+global cell of its first row and head), and its (b, head) takes the seed
+``seed + cell_offset + b * cell_stride + head``, the one the whole call
+gives that global row and head; without them a call keys its own rows and
+heads. The offset is folded into the seed on the host (``_resolve``), so
+the kernels and the plain versions take the seed and the stride. The plain
+versions match the JAX interpret-mode kernels bit for bit in their masks,
+and the CUDA kernels match the plain versions; none reproduces the TPU's
+hardware random bits.
 """
 
 from __future__ import annotations
@@ -96,12 +103,22 @@ def hash_keep(seeds: torch.Tensor, rows: int, cols: int, rate: float) -> torch.T
     return x >= int(rate * float(2 ** 32))
 
 
+def dropout_cells(batch: int, num_heads: int, stride, device) -> torch.Tensor:
+    """(B, heads) int64 dropout cells ``b * stride + head`` of a call's (b,
+    head); ``stride`` None: the call's own heads."""
+    stride = num_heads if stride is None else stride
+    return (torch.arange(batch, device=device)[:, None] * stride
+            + torch.arange(num_heads, device=device)[None, :])
+
+
 def dropout_keep(batch: int, num_heads: int, lq: int, lk: int, rate: float,
-                 seed: int, device) -> torch.Tensor:
+                 seed: int, device, stride=None) -> torch.Tensor:
     """(B, heads, Lq, Lk) keep mask of the JAX interpret-mode kernel
-    (attention.py:_dropout_keep with the seeds of ``_cell_seed``)."""
-    cell = torch.arange(batch * num_heads, device=device).reshape(batch, num_heads)
-    return hash_keep(cell + seed, lq, lk, rate)
+    (attention.py:_dropout_keep with the seeds of ``_cell_seed``). A slice of
+    a larger call's rows and heads passes that call's head count as
+    ``stride`` and, folded into ``seed``, the cell of its first row and
+    head."""
+    return hash_keep(dropout_cells(batch, num_heads, stride, device) + seed, lq, lk, rate)
 
 
 def _acc_dtype(x: torch.Tensor) -> torch.dtype:
@@ -130,11 +147,13 @@ def _geometry_planes(boundary, w, lq, lk, geometry):
 
 
 def _resolve(q, boundary, w0, w1, text_len, row_start, offset, dropout_rate,
-             deterministic, dropout_seed):
+             deterministic, dropout_seed, cell_offset=0, seeds_per_cell=1):
     """The call's normalised arguments, as attention.py:fused_attention
     resolves them: the int32 boundary (zeros when absent), (w0, w1) as one
     tensor (ones when absent), the geometry (row_start, text_len, offset) or
-    None, the dropout rate in effect (0 when deterministic) and the seed."""
+    None, the dropout rate in effect (0 when deterministic) and the seed,
+    with ``cell_offset`` cells of ``seeds_per_cell`` seeds each (1 here; a
+    flash call's tile count) folded in."""
     b, lq = q.shape[0], q.shape[1]
     acc = _acc_dtype(q)
     if w0 is None:
@@ -149,7 +168,8 @@ def _resolve(q, boundary, w0, w1, text_len, row_start, offset, dropout_rate,
         geometry = (int(row_start), lq if text_len is None else int(text_len),
                     int(offset))
     rate = 0.0 if deterministic else float(dropout_rate)
-    return bnd, w, geometry, rate, int(dropout_seed or 0)
+    seed = int(dropout_seed or 0) + int(cell_offset) * seeds_per_cell
+    return bnd, w, geometry, rate, seed
 
 
 def _split_heads(x, num_heads, dtype):
@@ -217,12 +237,12 @@ def _softmax_scores(products, mask, bnd, w, geometry, scale):
 
 
 def _plain_fwd(q, k, v, mask, num_heads, bnd, w, geometry, rate, seed,
-               compute_dtype, qk_products=_qk_products):
+               compute_dtype, qk_products=_qk_products, stride=None):
     b, lq, _ = q.shape
     lk = k.shape[1]
     _, _, p = _scores(q, k, mask, num_heads, bnd, w, geometry, qk_products)
     if rate > 0.0:
-        keep = dropout_keep(b, num_heads, lq, lk, rate, seed, q.device)
+        keep = dropout_keep(b, num_heads, lq, lk, rate, seed, q.device, stride)
         p = torch.where(keep, p / (1.0 - rate), torch.zeros((), dtype=p.dtype,
                                                            device=q.device))
     ctx = torch.matmul(p.to(compute_dtype), _split_heads(v, num_heads, compute_dtype))
@@ -230,7 +250,7 @@ def _plain_fwd(q, k, v, mask, num_heads, bnd, w, geometry, rate, seed,
 
 
 def _plain_bwd(q, k, v, mask, g, num_heads, bnd, w, geometry, rate, seed,
-               compute_dtype):
+               compute_dtype, stride=None):
     """attention.py:_bwd_kernel :163-233, written out with its cast points."""
     b, lq, _ = q.shape
     lk = k.shape[1]
@@ -241,7 +261,7 @@ def _plain_bwd(q, k, v, mask, g, num_heads, bnd, w, geometry, rate, seed,
     keep = None
     p_drop = p
     if rate > 0.0:
-        keep = dropout_keep(b, num_heads, lq, lk, rate, seed, q.device)
+        keep = dropout_keep(b, num_heads, lq, lk, rate, seed, q.device, stride)
         inv = 1.0 / (1.0 - rate)
         p_drop = torch.where(keep, p * inv, zero)
     gh = _split_heads(g, num_heads, acc)
@@ -282,6 +302,8 @@ def fused_attention_reference(
     dropout_rate: float = 0.0,
     deterministic: bool = True,
     dropout_seed: Optional[int] = None,
+    cell_stride: Optional[int] = None,
+    cell_offset: int = 0,
     compute_dtype: torch.dtype = torch.bfloat16,
     qk_products=_qk_products,
 ) -> torch.Tensor:
@@ -291,9 +313,9 @@ def fused_attention_reference(
     the (B, heads, L, d) heads (default: upcast and multiplied in fp32)."""
     bnd, w, geometry, rate, seed = _resolve(q, boundary, w0, w1, text_len, row_start,
                                             offset, dropout_rate, deterministic,
-                                            dropout_seed)
+                                            dropout_seed, cell_offset)
     return _plain_fwd(q, k, v, mask, num_heads, bnd, w, geometry, rate, seed,
-                      compute_dtype, qk_products)
+                      compute_dtype, qk_products, cell_stride)
 
 
 def fused_attention_bwd_reference(
@@ -313,15 +335,17 @@ def fused_attention_bwd_reference(
     dropout_rate: float = 0.0,
     deterministic: bool = True,
     dropout_seed: Optional[int] = None,
+    cell_stride: Optional[int] = None,
+    cell_offset: int = 0,
     compute_dtype: torch.dtype = torch.bfloat16,
 ):
     """Plain PyTorch version of the backward: (dq, dk, dv, dw), dw the (2,)
     gradient of the clamped (w0, w1) (zeros without a geometry)."""
     bnd, w, geometry, rate, seed = _resolve(q, boundary, w0, w1, text_len, row_start,
                                             offset, dropout_rate, deterministic,
-                                            dropout_seed)
+                                            dropout_seed, cell_offset)
     return _plain_bwd(q, k, v, mask, g, num_heads, bnd, w, geometry, rate, seed,
-                      compute_dtype)
+                      compute_dtype, cell_stride)
 
 
 @functools.cache
@@ -334,6 +358,7 @@ def _lib() -> ctypes.CDLL:
         f,                          # scale
         i, i, i, i,                 # has_geometry row_start text_len offset
         i, u, f, u,                 # dropout threshold keep_div seed
+        u,                          # cell_stride
         p,                          # stream
     ]
     lib.mkg_fused_attention_fwd.restype = ctypes.c_int
@@ -355,6 +380,7 @@ def _lib_bwd() -> ctypes.CDLL:
         f,                          # scale
         i, i, i, i,                 # has_geometry row_start text_len offset
         i, u, f, u,                 # dropout threshold inv_keep seed
+        u,                          # cell_stride
         p,                          # stream
     ]
     lib.mkg_fused_attention_bwd.restype = ctypes.c_int
@@ -375,6 +401,7 @@ def _lib_mma() -> ctypes.CDLL:
         f,                          # scale
         i, i, i, i,                 # has_geometry row_start text_len offset
         i, u, f, u,                 # dropout threshold inv_keep seed
+        u,                          # cell_stride
         p,                          # stream
     ]
     lib.mkg_fused_attention_fwd_mma.restype = ctypes.c_int
@@ -394,6 +421,7 @@ def _lib_bwd_mma() -> ctypes.CDLL:
         f,                          # scale
         i, i, i, i,                 # has_geometry row_start text_len offset
         i, u, f, u,                 # dropout threshold inv_keep seed
+        u,                          # cell_stride
         p,                          # stream
     ]
     lib.mkg_fused_attention_bwd_mma.restype = ctypes.c_int
@@ -469,13 +497,20 @@ def _raise_if(err, lib, what):
         raise RuntimeError(f"{what} launch failed: " + lib.mkg_cuda_error_string(err).decode())
 
 
-def _call_tail(q, head_dim, geometry, rate, seed, keep):
+def _seed_args(seed, stride, num_heads):
+    """(seed, cell stride) as the kernels take them, mod 2^32; ``stride``
+    None: the call's own heads."""
+    return seed & _M32, (num_heads if stride is None else stride) & _M32
+
+
+def _call_tail(q, head_dim, geometry, rate, seed, stride, keep):
     """The arguments every launcher ends with: the scale of the head width,
     the geometry, the dropout flag, threshold and ``keep`` (how the kernel
     scales a kept probability: its divisor 1 - rate or its factor
-    1 / (1 - rate)), the seed, the stream."""
+    1 / (1 - rate)), the seed and the cell stride, the stream."""
     return (float(head_dim) ** -0.5, *_geometry_args(geometry, q.shape[1]),
-            int(rate > 0.0), int(rate * float(2 ** 32)), keep, seed & _M32,
+            int(rate > 0.0), int(rate * float(2 ** 32)), keep,
+            *_seed_args(seed, stride, q.shape[2] // head_dim),
             torch.cuda.current_stream(q.device).cuda_stream)
 
 
@@ -495,7 +530,7 @@ def _count_bwd(head_dim):
     LAUNCHES_BWD_D128 += head_dim == 128
 
 
-def _launch_fwd_cuda_cores(q, k, v, mask, num_heads, bnd, w, geometry, rate, seed):
+def _launch_fwd_cuda_cores(q, k, v, mask, num_heads, bnd, w, geometry, rate, seed, stride=None):
     """The CUDA-core forward (csrc/fused_attention_fwd.cu): the fp32 route.
     It also takes bf16, which :func:`_launch_fwd` never sends it; only a
     measurement that wants the earlier kernel's time beside the new one's
@@ -512,13 +547,13 @@ def _launch_fwd_cuda_cores(q, k, v, mask, num_heads, bnd, w, geometry, rate, see
         err = lib.mkg_fused_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
             bnd.data_ptr(), w.data_ptr(), out.data_ptr(), b, lq, lk, num_heads, d, is_bf16,
-            *_call_tail(q, d, geometry, rate, seed, 1.0 - rate))
+            *_call_tail(q, d, geometry, rate, seed, stride, 1.0 - rate))
     _raise_if(err, lib, "fused_attention_fwd")
     _count_fwd(d)
     return out
 
 
-def _launch_fwd_mma(q, k, v, mask, num_heads, bnd, w, geometry, rate, seed):
+def _launch_fwd_mma(q, k, v, mask, num_heads, bnd, w, geometry, rate, seed, stride=None):
     """The tensor-core forward (csrc/fused_attention_fwd_mma.cu), bf16."""
     b, lq, _ = q.shape
     lk = k.shape[1]
@@ -530,16 +565,16 @@ def _launch_fwd_mma(q, k, v, mask, num_heads, bnd, w, geometry, rate, seed):
         err = lib.mkg_fused_attention_fwd_mma(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
             bnd.data_ptr(), w.data_ptr(), out.data_ptr(), b, lq, lk, num_heads, d,
-            *_call_tail(q, d, geometry, rate, seed, _inv_keep(rate)))
+            *_call_tail(q, d, geometry, rate, seed, stride, _inv_keep(rate)))
     _raise_if(err, lib, "fused_attention_fwd_mma")
     _count_fwd(d)
     return out
 
 
-def _launch_fwd(q, k, v, mask, num_heads, bnd, w, geometry, rate, seed):
+def _launch_fwd(q, k, v, mask, num_heads, bnd, w, geometry, rate, seed, stride=None):
     """One forward launch; the dtype alone picks the kernel."""
     launch = _launch_fwd_mma if q.dtype == torch.bfloat16 else _launch_fwd_cuda_cores
-    return launch(q, k, v, mask, num_heads, bnd, w, geometry, rate, seed)
+    return launch(q, k, v, mask, num_heads, bnd, w, geometry, rate, seed, stride)
 
 
 def _bwd_buffers(q, k, v, g, num_heads, stats_width):
@@ -560,7 +595,7 @@ def _bwd_pointers(q, k, v, g, mask, bnd, w, buffers):
     return [t.data_ptr() for t in (q, k, v, g, mask, bnd, w, *buffers)]
 
 
-def _launch_bwd_cuda_cores(q, k, v, mask, g, num_heads, bnd, w, geometry, rate, seed):
+def _launch_bwd_cuda_cores(q, k, v, mask, g, num_heads, bnd, w, geometry, rate, seed, stride=None):
     """The CUDA-core backward (csrc/fused_attention_bwd.cu): the fp32 route
     (bf16 only for a measurement, as :func:`_launch_fwd_cuda_cores`)."""
     b, lq, _ = q.shape
@@ -574,14 +609,14 @@ def _launch_bwd_cuda_cores(q, k, v, mask, g, num_heads, bnd, w, geometry, rate, 
     with torch.cuda.device(q.device):
         err = lib.mkg_fused_attention_bwd(
             *_bwd_pointers(q, k, v, g, mask, bnd, w, buffers), b, lq, lk, num_heads, d,
-            is_bf16, *_call_tail(q, d, geometry, rate, seed, _inv_keep(rate)))
+            is_bf16, *_call_tail(q, d, geometry, rate, seed, stride, _inv_keep(rate)))
     _raise_if(err, lib, "fused_attention_bwd")
     _count_bwd(d)
     dq, dk, dv, _, dw_part = buffers
     return dq, dk, dv, dw_part.sum(dim=(0, 1, 2)).to(w.dtype)
 
 
-def _launch_bwd_mma(q, k, v, mask, g, num_heads, bnd, w, geometry, rate, seed):
+def _launch_bwd_mma(q, k, v, mask, g, num_heads, bnd, w, geometry, rate, seed, stride=None):
     """The tensor-core backward (csrc/fused_attention_bwd_mma.cu), bf16."""
     b, lq, _ = q.shape
     lk = k.shape[1]
@@ -593,20 +628,20 @@ def _launch_bwd_mma(q, k, v, mask, g, num_heads, bnd, w, geometry, rate, seed):
     with torch.cuda.device(q.device):
         err = lib.mkg_fused_attention_bwd_mma(
             *_bwd_pointers(q, k, v, g, mask, bnd, w, buffers), b, lq, lk, num_heads, d,
-            *_call_tail(q, d, geometry, rate, seed, _inv_keep(rate)))
+            *_call_tail(q, d, geometry, rate, seed, stride, _inv_keep(rate)))
     _raise_if(err, lib, "fused_attention_bwd_mma")
     _count_bwd(d)
     dq, dk, dv, _, dw_part = buffers
     return dq, dk, dv, dw_part.sum(dim=(0, 1, 2)).to(w.dtype)
 
 
-def _launch_bwd(q, k, v, mask, g, num_heads, bnd, w, geometry, rate, seed):
+def _launch_bwd(q, k, v, mask, g, num_heads, bnd, w, geometry, rate, seed, stride=None):
     """dq, dk, dv and the (2,) dw of one backward; the dtype alone picks the
     kernels. They write one (dw0, dw1) partial per (b, head, query tile) and
     the launcher sums them, so no float atomics run and fp32 results repeat
     from run to run."""
     launch = _launch_bwd_mma if q.dtype == torch.bfloat16 else _launch_bwd_cuda_cores
-    return launch(q, k, v, mask, g, num_heads, bnd, w, geometry, rate, seed)
+    return launch(q, k, v, mask, g, num_heads, bnd, w, geometry, rate, seed, stride)
 
 
 class _FusedAttention(torch.autograd.Function):
@@ -616,26 +651,26 @@ class _FusedAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, mask, bnd, w, num_heads, geometry, rate, seed,
-                compute_dtype):
+                compute_dtype, stride):
         ctx.save_for_backward(q, k, v, mask, bnd, w)
-        ctx.call = (num_heads, geometry, rate, seed, compute_dtype)
+        ctx.call = (num_heads, geometry, rate, seed, compute_dtype, stride)
         if q.device.type == "cpu":
             return _plain_fwd(q, k, v, mask, num_heads, bnd, w, geometry, rate,
-                              seed, compute_dtype)
-        return _launch_fwd(q, k, v, mask, num_heads, bnd, w, geometry, rate, seed)
+                              seed, compute_dtype, stride=stride)
+        return _launch_fwd(q, k, v, mask, num_heads, bnd, w, geometry, rate, seed, stride)
 
     @staticmethod
     def backward(ctx, g):
         q, k, v, mask, bnd, w = ctx.saved_tensors
-        num_heads, geometry, rate, seed, compute_dtype = ctx.call
+        num_heads, geometry, rate, seed, compute_dtype, stride = ctx.call
         if q.device.type == "cpu":
             dq, dk, dv, dw = _plain_bwd(q, k, v, mask, g, num_heads, bnd, w,
-                                        geometry, rate, seed, compute_dtype)
+                                        geometry, rate, seed, compute_dtype, stride)
         else:
             # g comes from the out-projection's backward
             dq, dk, dv, dw = _launch_bwd(q, k, v, mask, g.to(q.dtype).contiguous(),
-                                         num_heads, bnd, w, geometry, rate, seed)
-        return dq, dk, dv, None, None, dw, None, None, None, None, None
+                                         num_heads, bnd, w, geometry, rate, seed, stride)
+        return dq, dk, dv, None, None, dw, None, None, None, None, None, None
 
 
 def fused_attention(
@@ -654,6 +689,8 @@ def fused_attention(
     dropout_rate: float = 0.0,
     deterministic: bool = True,
     dropout_seed: Optional[int] = None,
+    cell_stride: Optional[int] = None,
+    cell_offset: int = 0,
     compute_dtype: torch.dtype = torch.bfloat16,
 ) -> torch.Tensor:
     """softmax(scale·QKᵀ ∘ analogy_mult + pad_bias) @ V, fused, in the
@@ -670,9 +707,9 @@ def fused_attention(
         raise ValueError(f"dropout_rate must be in [0, 1), got {dropout_rate}")
     bnd, w, geometry, rate, seed = _resolve(q, boundary, w0, w1, text_len, row_start,
                                             offset, dropout_rate, deterministic,
-                                            dropout_seed)
+                                            dropout_seed, cell_offset)
     maskf = mask.to(device=q.device, dtype=_acc_dtype(q)).contiguous()
     if q.device.type != "cpu":
         _check_inputs(q, k, v, maskf, num_heads, compute_dtype)
     return _FusedAttention.apply(q, k, v, maskf, bnd.contiguous(), w.contiguous(),
-                                 num_heads, geometry, rate, seed, compute_dtype)
+                                 num_heads, geometry, rate, seed, compute_dtype, cell_stride)

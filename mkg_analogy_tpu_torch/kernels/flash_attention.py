@@ -17,7 +17,10 @@ result, so the kernels keep them whatever they stage:
 - the dropout mask of a (q-tile, k-tile) is the JAX interpret-mode hash
   (``_dropout_keep``) of ``row_in_tile * bk + col_in_tile`` with the tile
   seed ``seed + ((b·heads + head)·n_qblk + qb)·n_kblk + kb`` (``_tile_seed``),
-  the row stride ``bk`` even in a ragged last tile;
+  the row stride ``bk`` even in a ragged last tile; a rank of a mesh passes
+  ``cell_stride`` and ``cell_offset`` (kernels/attention.py), so that
+  ``b·heads + head`` is the global cell of its row and head (the offset
+  folded into the seed on the host, ``cell_offset·n_qblk·n_kblk``);
 - the online softmax updates its running max once per K tile, and the
   exp-weights ``exp(s - m)`` are rounded to the compute dtype against that
   max before ·V, then the sum divides in fp32 at the end (the single-block
@@ -65,7 +68,6 @@ import torch.nn.functional as F
 from . import build
 from .attention import (
     NEG_BIAS,
-    _M32,
     _acc_dtype,
     _check_inputs,
     _check_smem,
@@ -76,7 +78,9 @@ from .attention import (
     _raise_if,
     _resolve,
     _score,
+    _seed_args,
     _split_heads,
+    dropout_cells,
     hash_keep,
 )
 
@@ -105,11 +109,20 @@ def _blocks(lq, lk, block_q, block_k):
     return bq, bk, -(-lq // bq), -(-lk // bk)
 
 
-def _dropout_keep(batch, num_heads, bq, bk, rate, seed, qb, kb, n_qblk, n_kblk, device):
+def _tile_count(q, k, block_q, block_k):
+    """The logical tiles of one (b, head): the seeds a dropout cell spans."""
+    _, _, n_qblk, n_kblk = _blocks(q.shape[1], k.shape[1], block_q, block_k)
+    return n_qblk * n_kblk
+
+
+def _dropout_keep(batch, num_heads, bq, bk, rate, seed, qb, kb, n_qblk, n_kblk, device,
+                  stride=None):
     """(B, heads, bq, bk) keep mask of the logical tile (qb, kb): the hash
     of attention.py:_dropout_keep with the seed of flash_attention.py:
-    _tile_seed."""
-    cell = torch.arange(batch * num_heads, device=device).reshape(batch, num_heads)
+    _tile_seed, the cells ``b * stride + head`` (``stride`` None: the call's
+    own heads; a slice of a larger call's rows and heads folds the cell of
+    its first row and head, times ``n_qblk * n_kblk``, into ``seed``)."""
+    cell = dropout_cells(batch, num_heads, stride, device)
     return hash_keep(seed + (cell * n_qblk + qb) * n_kblk + kb, bq, bk, rate)
 
 
@@ -139,14 +152,14 @@ class _Tiles:
     and JAX's zeroed out-of-range rows add exact zeros to dK/dV)."""
 
     def __init__(self, q, k, mask, num_heads, bnd, w, geometry, rate, seed,
-                 block_q, block_k):
+                 block_q, block_k, stride=None):
         b, lq, hd = q.shape
         self.lk = k.shape[1]
         self.acc = _acc_dtype(q)
         self.scale = float(hd // num_heads) ** -0.5
         self.bq, self.bk, self.n_qblk, self.n_kblk = _blocks(lq, self.lk, block_q, block_k)
         self.num_heads, self.bnd, self.w, self.geometry = num_heads, bnd, w, geometry
-        self.rate, self.seed = rate, seed
+        self.rate, self.seed, self.stride = rate, seed, stride
         self.bias = (1.0 - mask.to(self.acc)) * NEG_BIAS              # (B, Lk)
 
     def rows(self, qb, lq):
@@ -179,16 +192,18 @@ class _Tiles:
         if self.rate <= 0.0:
             return None
         keep = _dropout_keep(self.bnd.shape[0], self.num_heads, self.bq, self.bk,
-                             self.rate, self.seed, qb, kb, self.n_qblk, self.n_kblk, device)
+                             self.rate, self.seed, qb, kb, self.n_qblk, self.n_kblk, device,
+                             self.stride)
         return keep[:, :, :r1 - r0]
 
 
 def _plain_fwd(q, k, v, mask, num_heads, bnd, w, geometry, rate, seed, compute_dtype,
-               block_q, block_k):
+               block_q, block_k, stride=None):
     """(out (B, Lq, heads·d), lse (B, heads, Lq)): _flash_fwd_kernel :98-170
     tile by tile, its running max, sum and accumulator per row."""
     b, lq, _ = q.shape
-    tiles = _Tiles(q, k, mask, num_heads, bnd, w, geometry, rate, seed, block_q, block_k)
+    tiles = _Tiles(q, k, mask, num_heads, bnd, w, geometry, rate, seed, block_q, block_k,
+                   stride)
     acc = tiles.acc
     qh = _split_heads(q, num_heads, acc)
     kh = _split_heads(k, num_heads, acc)
@@ -229,14 +244,15 @@ def _delta(g, out, num_heads):
 
 
 def _plain_bwd(q, k, v, mask, g, lse, delta, num_heads, bnd, w, geometry, rate, seed,
-               compute_dtype, block_q, block_k):
+               compute_dtype, block_q, block_k, stride=None):
     """(dq, dk, dv, dw): the two backward kernel bodies, _flash_bwd_kv_kernel
     :183-268 and _flash_bwd_q_kernel :271-328, over the same tiles in one
     walk (their per-tile p and dS_raw are the same values), with their cast
     points: p_drop and dS_raw rounded to the compute dtype before the
     products, every sum in fp32."""
     b, lq, _ = q.shape
-    tiles = _Tiles(q, k, mask, num_heads, bnd, w, geometry, rate, seed, block_q, block_k)
+    tiles = _Tiles(q, k, mask, num_heads, bnd, w, geometry, rate, seed, block_q, block_k,
+                   stride)
     acc, lk, bk = tiles.acc, tiles.lk, tiles.bk
     qh, kh, vh, gh = (_split_heads(x, num_heads, acc) for x in (q, k, v, g))
     dq, dk, dv = torch.zeros_like(qh), torch.zeros_like(kh), torch.zeros_like(vh)
@@ -289,6 +305,8 @@ def flash_attention_reference(
     dropout_rate: float = 0.0,
     deterministic: bool = True,
     dropout_seed: Optional[int] = None,
+    cell_stride: Optional[int] = None,
+    cell_offset: int = 0,
     compute_dtype: torch.dtype = torch.bfloat16,
     block_q: int = BLOCK_Q,
     block_k: int = BLOCK_K,
@@ -296,9 +314,10 @@ def flash_attention_reference(
     """Plain PyTorch version of :func:`flash_attention` (same arguments)."""
     bnd, w, geometry, rate, seed = _resolve(q, boundary, w0, w1, text_len, row_start,
                                             offset, dropout_rate, deterministic,
-                                            dropout_seed)
+                                            dropout_seed, cell_offset,
+                                            _tile_count(q, k, block_q, block_k))
     return _plain_fwd(q, k, v, mask, num_heads, bnd, w, geometry, rate, seed,
-                      compute_dtype, block_q, block_k)[0]
+                      compute_dtype, block_q, block_k, cell_stride)[0]
 
 
 def flash_attention_bwd_reference(
@@ -320,6 +339,8 @@ def flash_attention_bwd_reference(
     dropout_rate: float = 0.0,
     deterministic: bool = True,
     dropout_seed: Optional[int] = None,
+    cell_stride: Optional[int] = None,
+    cell_offset: int = 0,
     compute_dtype: torch.dtype = torch.bfloat16,
     block_q: int = BLOCK_Q,
     block_k: int = BLOCK_K,
@@ -329,13 +350,14 @@ def flash_attention_bwd_reference(
     rowsum(g · out) of the given (or recomputed) output."""
     bnd, w, geometry, rate, seed = _resolve(q, boundary, w0, w1, text_len, row_start,
                                             offset, dropout_rate, deterministic,
-                                            dropout_seed)
+                                            dropout_seed, cell_offset,
+                                            _tile_count(q, k, block_q, block_k))
     if out is None or lse is None:
         out, lse = _plain_fwd(q, k, v, mask, num_heads, bnd, w, geometry, rate, seed,
-                              compute_dtype, block_q, block_k)
+                              compute_dtype, block_q, block_k, cell_stride)
     g = g.to(q.dtype)
     return _plain_bwd(q, k, v, mask, g, lse, _delta(g, out, num_heads), num_heads, bnd,
-                      w, geometry, rate, seed, compute_dtype, block_q, block_k)
+                      w, geometry, rate, seed, compute_dtype, block_q, block_k, cell_stride)
 
 
 def _bind_fwd(lib, suffix):
@@ -348,6 +370,7 @@ def _bind_fwd(lib, suffix):
         f,                          # scale
         i, i, i, i,                 # has_geometry row_start text_len offset
         i, u, f, u,                 # dropout threshold inv_keep seed
+        u,                          # cell_stride
         i, i, i, i,                 # bq bk n_qblk n_kblk
         p,                          # stream
     ]
@@ -384,6 +407,7 @@ def _bind_bwd(lib, suffix):
         f,                          # scale
         i, i, i, i,                 # has_geometry row_start text_len offset
         i, u, f, u,                 # dropout threshold inv_keep seed
+        u,                          # cell_stride
         i, i, i, i,                 # bq bk n_qblk n_kblk
         p,                          # stream
     ]
@@ -415,7 +439,7 @@ def _lib_bwd_mma() -> ctypes.CDLL:
     return lib
 
 
-def _call_args(q, k, num_heads, geometry, rate, seed, block_q, block_k):
+def _call_args(q, k, num_heads, geometry, rate, seed, block_q, block_k, stride=None):
     """The scalar arguments every flash kernel takes, after its pointers:
     the head width of the call picks the instantiation and sets the scale."""
     b, lq, _ = q.shape
@@ -424,11 +448,12 @@ def _call_args(q, k, num_heads, geometry, rate, seed, block_q, block_k):
     bq, bk, n_qblk, n_kblk = _blocks(lq, lk, block_q, block_k)
     return (b, lq, lk, num_heads, d, int(q.dtype == torch.bfloat16), float(d) ** -0.5,
             *_geometry_args(geometry, lq), int(rate > 0.0), int(rate * float(2 ** 32)),
-            (1.0 / (1.0 - rate)) if rate > 0.0 else 1.0, seed & _M32,
+            (1.0 / (1.0 - rate)) if rate > 0.0 else 1.0, *_seed_args(seed, stride, num_heads),
             bq, bk, n_qblk, n_kblk, torch.cuda.current_stream(q.device).cuda_stream)
 
 
-def _fwd(mma, q, k, v, mask, num_heads, bnd, w, geometry, rate, seed, block_q, block_k):
+def _fwd(mma, q, k, v, mask, num_heads, bnd, w, geometry, rate, seed, block_q, block_k,
+         stride=None):
     """(out, lse) of one forward launch on a route: the tensor-core kernel
     (``mma``, bf16) or the CUDA-core one."""
     _, bk, _, _ = _blocks(q.shape[1], k.shape[1], block_q, block_k)
@@ -448,7 +473,7 @@ def _fwd(mma, q, k, v, mask, num_heads, bnd, w, geometry, rate, seed, block_q, b
         err = getattr(lib, launcher)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(), bnd.data_ptr(),
             w.data_ptr(), out.data_ptr(), lse.data_ptr(),
-            *_call_args(q, k, num_heads, geometry, rate, seed, block_q, block_k))
+            *_call_args(q, k, num_heads, geometry, rate, seed, block_q, block_k, stride))
     _raise_if(err, lib, launcher[4:])
     return out, lse
 
@@ -482,10 +507,12 @@ def _launch_fwd_mma(q, k, v, mask, num_heads, *args):
     return out
 
 
-def _launch_fwd(q, k, v, mask, num_heads, bnd, w, geometry, rate, seed, block_q, block_k):
+def _launch_fwd(q, k, v, mask, num_heads, bnd, w, geometry, rate, seed, block_q, block_k,
+                stride=None):
     """(out, lse) of one forward launch; the dtype alone picks the kernel."""
     launch = _launch_fwd_mma if q.dtype == torch.bfloat16 else _launch_fwd_cuda_cores
-    return launch(q, k, v, mask, num_heads, bnd, w, geometry, rate, seed, block_q, block_k)
+    return launch(q, k, v, mask, num_heads, bnd, w, geometry, rate, seed, block_q, block_k,
+                  stride)
 
 
 def _bwd_lib(q, g, lse, delta, num_heads, mma):
@@ -511,7 +538,7 @@ def _bwd_lib(q, g, lse, delta, num_heads, mma):
 
 
 def _dkv(mma, q, k, v, mask, g, lse, delta, num_heads, bnd, w, geometry, rate, seed, block_q,
-         block_k):
+         block_k, stride=None):
     """dk, dv and the (2,) dw of one dK/dV launch on a route: the kernel
     writes one (dw0, dw1) partial per (b, head, block of keys) and this sums
     them, so no float atomics run and fp32 results repeat from run to run."""
@@ -526,13 +553,13 @@ def _dkv(mma, q, k, v, mask, g, lse, delta, num_heads, bnd, w, geometry, rate, s
             q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), mask.data_ptr(),
             bnd.data_ptr(), w.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
             dv.data_ptr(), dw_part.data_ptr(),
-            *_call_args(q, k, num_heads, geometry, rate, seed, block_q, block_k))
+            *_call_args(q, k, num_heads, geometry, rate, seed, block_q, block_k, stride))
     _raise_if(err, lib, launcher)
     return dk, dv, dw_part.sum(dim=(0, 1, 2)).to(w.dtype)
 
 
 def _dq(mma, q, k, v, mask, g, lse, delta, num_heads, bnd, w, geometry, rate, seed, block_q,
-        block_k):
+        block_k, stride=None):
     """dq of one dQ launch on a route."""
     lib = _bwd_lib(q, g, lse, delta, num_heads, mma)
     launcher = "mkg_flash_attention_bwd_dq" + ("_mma" if mma else "")
@@ -541,7 +568,7 @@ def _dq(mma, q, k, v, mask, g, lse, delta, num_heads, bnd, w, geometry, rate, se
         err = getattr(lib, launcher)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), mask.data_ptr(),
             bnd.data_ptr(), w.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-            *_call_args(q, k, num_heads, geometry, rate, seed, block_q, block_k))
+            *_call_args(q, k, num_heads, geometry, rate, seed, block_q, block_k, stride))
     _raise_if(err, lib, launcher)
     return dq
 
@@ -579,20 +606,20 @@ def _launch_bwd_dq_mma(q, k, v, mask, g, lse, delta, num_heads, *args):
 
 
 def _launch_bwd_dkv(q, k, v, mask, g, lse, delta, num_heads, bnd, w, geometry, rate, seed,
-                    block_q, block_k):
+                    block_q, block_k, stride=None):
     """dk, dv and the (2,) dw of one dK/dV launch; the dtype alone picks the
     kernel."""
     launch = _launch_bwd_dkv_mma if q.dtype == torch.bfloat16 else _launch_bwd_dkv_cuda_cores
     return launch(q, k, v, mask, g, lse, delta, num_heads, bnd, w, geometry, rate, seed,
-                  block_q, block_k)
+                  block_q, block_k, stride)
 
 
 def _launch_bwd_dq(q, k, v, mask, g, lse, delta, num_heads, bnd, w, geometry, rate, seed,
-                   block_q, block_k):
+                   block_q, block_k, stride=None):
     """dq of one dQ launch; the dtype alone picks the kernel."""
     launch = _launch_bwd_dq_mma if q.dtype == torch.bfloat16 else _launch_bwd_dq_cuda_cores
     return launch(q, k, v, mask, g, lse, delta, num_heads, bnd, w, geometry, rate, seed,
-                  block_q, block_k)
+                  block_q, block_k, stride)
 
 
 def _launch_bwd(*args):
@@ -610,30 +637,31 @@ class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, mask, bnd, w, num_heads, geometry, rate, seed,
-                compute_dtype, block_q, block_k):
+                compute_dtype, block_q, block_k, stride):
         args = (num_heads, bnd, w, geometry, rate, seed)
         if q.device.type == "cpu":
-            out, lse = _plain_fwd(q, k, v, mask, *args, compute_dtype, block_q, block_k)
+            out, lse = _plain_fwd(q, k, v, mask, *args, compute_dtype, block_q, block_k,
+                                  stride)
         else:
-            out, lse = _launch_fwd(q, k, v, mask, *args, block_q, block_k)
+            out, lse = _launch_fwd(q, k, v, mask, *args, block_q, block_k, stride)
         ctx.save_for_backward(q, k, v, mask, bnd, w, out, lse)
-        ctx.call = (num_heads, geometry, rate, seed, compute_dtype, block_q, block_k)
+        ctx.call = (num_heads, geometry, rate, seed, compute_dtype, block_q, block_k, stride)
         return out
 
     @staticmethod
     def backward(ctx, g):
         q, k, v, mask, bnd, w, out, lse = ctx.saved_tensors
-        num_heads, geometry, rate, seed, compute_dtype, block_q, block_k = ctx.call
+        num_heads, geometry, rate, seed, compute_dtype, block_q, block_k, stride = ctx.call
         g = g.to(q.dtype).contiguous()  # from the out-projection's backward
         delta = _delta(g, out, num_heads)
         args = (num_heads, bnd, w, geometry, rate, seed)
         if q.device.type == "cpu":
             dq, dk, dv, dw = _plain_bwd(q, k, v, mask, g, lse, delta, *args,
-                                        compute_dtype, block_q, block_k)
+                                        compute_dtype, block_q, block_k, stride)
         else:
             dq, dk, dv, dw = _launch_bwd(q, k, v, mask, g, lse, delta, *args,
-                                         block_q, block_k)
-        return dq, dk, dv, None, None, dw, None, None, None, None, None, None, None
+                                         block_q, block_k, stride)
+        return dq, dk, dv, None, None, dw, None, None, None, None, None, None, None, None
 
 
 def flash_attention(
@@ -652,6 +680,8 @@ def flash_attention(
     dropout_rate: float = 0.0,
     deterministic: bool = True,
     dropout_seed: Optional[int] = None,
+    cell_stride: Optional[int] = None,
+    cell_offset: int = 0,
     compute_dtype: torch.dtype = torch.bfloat16,
     block_q: int = BLOCK_Q,
     block_k: int = BLOCK_K,
@@ -667,10 +697,11 @@ def flash_attention(
         raise ValueError(f"block_q / block_k must be positive, got {block_q} / {block_k}")
     bnd, w, geometry, rate, seed = _resolve(q, boundary, w0, w1, text_len, row_start,
                                             offset, dropout_rate, deterministic,
-                                            dropout_seed)
+                                            dropout_seed, cell_offset,
+                                            _tile_count(q, k, block_q, block_k))
     maskf = mask.to(device=q.device, dtype=_acc_dtype(q)).contiguous()
     if q.device.type != "cpu":
         _check_inputs(q, k, v, maskf, num_heads, compute_dtype, kernel="flash_attention")
     return _FlashAttention.apply(q, k, v, maskf, bnd.contiguous(), w.contiguous(),
                                  num_heads, geometry, rate, seed, compute_dtype,
-                                 int(block_q), int(block_k))
+                                 int(block_q), int(block_k), cell_stride)

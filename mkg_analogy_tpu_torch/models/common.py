@@ -7,13 +7,23 @@ are used, as the Flax layers with ``dtype=`` do.
 
 Dropout draws from explicit generators (``DropoutRNG``), never from the
 global one: a training forward takes one, an evaluation none.
+
+Tensor parallelism (``parallel/shardings.py:shard_module``) splits the
+leaves JAX's rules split and marks the blocks that hold them: a ``Dense``
+becomes column-parallel (its outputs split; its input enters through
+``copy_to``) or row-parallel (its inputs split; its partial products summed
+over ``tp`` before the bias), an ``AttentionCore`` runs its rank's heads, and
+the vocab-parallel word table is looked up by ``gather_rows`` and decoded by
+``tied_logits`` into ``ShardedLogits``. Under data parallelism a rank holds
+a slice of the batch rows (``DropoutRNG.rows``): its dropout masks are the
+global batch's rows, as the attention kernels' are its global cells.
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -21,6 +31,7 @@ from torch import nn
 
 from ..kernels.attention import _qk_products, fused_attention, fused_attention_reference
 from ..kernels.flash_attention import flash_attention
+from ..parallel.collectives import ShardedLogits, copy_to, reduce_from, shard_of
 
 # Attention at or above this query length takes the flash kernel even on the
 # plain route (``--fused_attention 0``), as the JAX AttentionCore routes it
@@ -193,17 +204,26 @@ class DropoutRNG:
     """The generators one training forward draws from: ``device`` for the
     hidden-dropout masks (``torch.rand`` on the activations' device) and
     ``seeds``, on the CPU, for the attention kernel's per-call seeds, drawn
-    as Python ints so that no device sync occurs."""
+    as Python ints so that no device sync occurs. ``rows`` (first row,
+    global row count) where the batch is a slice of a global one (data
+    parallelism): masks are drawn for the global batch and sliced, so each
+    row's mask is the one a single process draws for it."""
 
     device: torch.Generator
     seeds: torch.Generator
+    rows: Optional[Tuple[int, int]] = None
 
     @classmethod
-    def from_seed(cls, seed: int, device) -> "DropoutRNG":
+    def from_seed(cls, seed: int, device, rows: Optional[Tuple[int, int]] = None
+                  ) -> "DropoutRNG":
         device = torch.device(device)
         # the xor gives the seed stream its own seed, unrelated to the masks'
         return cls(torch.Generator(device=device).manual_seed(seed),
-                   torch.Generator().manual_seed(seed ^ 0x5DEECE66D))
+                   torch.Generator().manual_seed(seed ^ 0x5DEECE66D), rows)
+
+    @property
+    def row_offset(self) -> int:
+        return 0 if self.rows is None else self.rows[0]
 
     def attention_seed(self) -> int:
         """A seed in [0, 2^31 - 1), the range of the JAX model's
@@ -211,17 +231,34 @@ class DropoutRNG:
         return int(torch.randint(0, 2 ** 31 - 1, (), generator=self.seeds))
 
 
-def dropout(x: torch.Tensor, rate: float, generator: torch.Generator) -> torch.Tensor:
+def dropout(x: torch.Tensor, rate: float, rng) -> torch.Tensor:
     """Flax ``nn.Dropout``: keep where a uniform draw is >= rate, kept
-    values scaled by 1/(1-rate), in x's dtype."""
-    keep = torch.rand(x.shape, generator=generator, device=x.device) >= rate
+    values scaled by 1/(1-rate), in x's dtype. ``rng`` a ``DropoutRNG``
+    (its ``device`` generator; with ``rows``, x's rows are those rows of the
+    global batch, drawn whole and sliced) or a generator."""
+    if isinstance(rng, DropoutRNG) and rng.rows is not None:
+        first, total = rng.rows
+        draw = torch.rand((total,) + tuple(x.shape[1:]), generator=rng.device,
+                          device=x.device)
+        keep = draw[first:first + x.shape[0]] >= rate
+    else:
+        generator = rng.device if isinstance(rng, DropoutRNG) else rng
+        keep = torch.rand(x.shape, generator=generator, device=x.device) >= rate
     return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype,
                                                            device=x.device))
 
 
 class Dense(nn.Linear):
     """``nn.Linear`` that computes in ``dtype`` from fp32 parameters (Flax
-    ``nn.Dense(dtype=...)``: inputs, kernel and bias cast, then the GEMM)."""
+    ``nn.Dense(dtype=...)``: inputs, kernel and bias cast, then the GEMM).
+
+    ``tp`` (set by ``parallel/shardings.py:shard_module``): None, or
+    ("column", group) where this rank holds a slice of the outputs (the
+    replicated input enters through ``copy_to``), or ("row", group) where it
+    holds a slice of the inputs (the partial products are summed over the
+    group, then the replicated bias is added)."""
+
+    tp = None
 
     def __init__(self, in_features: int, out_features: int, bias: bool = True,
                  dtype: torch.dtype = torch.float32):
@@ -231,7 +268,13 @@ class Dense(nn.Linear):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
         bias = None if self.bias is None else self.bias.to(dt)
-        return F.linear(x.to(dt), self.weight.to(dt), bias)
+        if self.tp is None:
+            return F.linear(x.to(dt), self.weight.to(dt), bias)
+        mode, group = self.tp
+        if mode == "column":
+            return F.linear(copy_to(x, group).to(dt), self.weight.to(dt), bias)
+        y = reduce_from(F.linear(x.to(dt), self.weight.to(dt)), group)
+        return y if bias is None else y + bias
 
 
 class LayerNorm(nn.LayerNorm):
@@ -276,7 +319,17 @@ class AttentionCore(nn.Module):
     projection named ``qkv`` in place of ``query``, ``key`` and ``value``,
     split into those three in that order (``models/convert.py:fuse_qkv``
     maps an unfused tree onto it).
+
+    ``tp`` (set by ``parallel/shardings.py:shard_module``, with ``num_heads``
+    then this rank's heads): None, or (group, first head, global heads).
+    Q/K/V are column-parallel and ``out`` row-parallel, so the attention
+    runs on the rank's heads; the adaptive analogy scalars enter through
+    ``copy_to``, since each rank's heads give only part of their gradient.
+    On a mesh the dropout cells are the global row's and head's
+    (``cell_stride``/``cell_offset`` of the kernels).
     """
+
+    tp = None
 
     def __init__(self, hidden_size: int, num_heads: int, head_dim: int,
                  dtype: torch.dtype = torch.float32, out_bias: bool = True,
@@ -343,6 +396,8 @@ class AttentionCore(nn.Module):
         kwargs = {}
         if analogy is not None:
             boundary, w0, w1, row_start, text_len, offset = analogy
+            if self.tp is not None:
+                w0, w1 = copy_to(w0, self.tp[0]), copy_to(w1, self.tp[0])
             w0, w1 = clip(w0, 0.0, 0.5), clip(w1, 0.5, 1.0)
             if offset:
                 # compat geometry: boundary shifts, rows start at
@@ -357,6 +412,10 @@ class AttentionCore(nn.Module):
         if rng is not None and self.dropout_rate > 0.0:
             kwargs.update(dropout_rate=self.dropout_rate, deterministic=False,
                           dropout_seed=rng.attention_seed())
+            if self.tp is not None or rng.rows is not None:
+                _, first_head, heads = self.tp or (None, 0, self.num_heads)
+                kwargs.update(cell_stride=heads,
+                              cell_offset=rng.row_offset * heads + first_head)
         backend = self.backend
         if backend == "plain" and l >= FLASH_AUTO_MIN_LEN:
             backend = "flash"
@@ -444,7 +503,7 @@ class EncoderLayer(nn.Module):
 
     def _drop(self, h, rng):
         if rng is not None and self.hidden_dropout > 0.0:
-            return dropout(h, self.hidden_dropout, rng.device)
+            return dropout(h, self.hidden_dropout, rng)
         return h
 
     def forward(self, x, attn_bias=None, analogy=None,
@@ -524,10 +583,38 @@ class MLMTransform(nn.Module):
         return self.ln(self.act(self.dense(x)))
 
 
+def _sharded_tied_logits(word_embeddings, mlm_bias, trans_hidden, compute_dtype,
+                         vocab_ids, vocab_start, vocab_end) -> ShardedLogits:
+    """``tied_logits`` over a table split by rows: this rank's columns of
+    the slice (the ids it holds, or its part of the range)."""
+    shard = shard_of(word_embeddings)
+    dev = word_embeddings.device
+    if vocab_ids is not None:
+        ids = torch.as_tensor(vocab_ids, device=dev).long()
+        cols = torch.nonzero((ids >= shard.start) & (ids < shard.stop)).flatten()
+        rows, width = ids[cols] - shard.start, ids.numel()
+    else:
+        start = vocab_start or 0
+        end = shard.whole if vocab_end is None else vocab_end
+        lo, hi = max(start, shard.start), min(end, shard.stop)
+        cols = torch.arange(lo, max(hi, lo), device=dev) - start
+        rows, width = cols + (start - shard.start), end - start
+    # each rank's columns give part of the hidden states' gradient
+    x = copy_to(trans_hidden, shard.group).to(compute_dtype).to(torch.float32)
+    table = word_embeddings[rows].to(compute_dtype).to(torch.float32)
+    values = torch.matmul(x, table.T) + mlm_bias[rows].to(torch.float32)
+    return ShardedLogits(values, cols, width, shard.group)
+
+
 def tied_logits(word_embeddings, mlm_bias, trans_hidden, compute_dtype,
                 vocab_ids=None, vocab_start=None, vocab_end=None):
     """Tied-decoder logits over a vocab slice, fp32 out: the products of
-    compute-dtype operands summed in fp32 (``preferred_element_type``)."""
+    compute-dtype operands summed in fp32 (``preferred_element_type``).
+    Over a vocab-parallel table (``word_embeddings.tp_shard``) this rank's
+    columns, as ``ShardedLogits``."""
+    if shard_of(word_embeddings) is not None:
+        return _sharded_tied_logits(word_embeddings, mlm_bias, trans_hidden, compute_dtype,
+                                    vocab_ids, vocab_start, vocab_end)
     table, bias = word_embeddings, mlm_bias
     if vocab_ids is not None:
         ids = torch.as_tensor(vocab_ids, device=table.device).long()

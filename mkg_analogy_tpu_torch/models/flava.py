@@ -118,7 +118,7 @@ class FlavaImageEmbeddings(nn.Module):
         full_pos = torch.cat([pos, pos[: cfg.patches_per_image]], dim=0)
         tokens = tokens + full_pos[None]
         if rng is not None and cfg.text.hidden_dropout > 0.0:
-            tokens = dropout(tokens, cfg.text.hidden_dropout, rng.device)
+            tokens = dropout(tokens, cfg.text.hidden_dropout, rng)
         return tokens
 
 

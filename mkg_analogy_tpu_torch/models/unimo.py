@@ -35,6 +35,7 @@ from torch import nn
 
 from ..core.precision import to_dtype
 from ..ops.masks import attention_bias
+from ..parallel.collectives import gather_from, gather_rows
 from .common import (
     AttentionCore,
     Dense,
@@ -165,13 +166,13 @@ class TextEmbeddings(nn.Module):
                 rng: Optional[DropoutRNG] = None):
         seq_len = input_ids.shape[1]
         x = (
-            word_table[input_ids.long()].to(self.dtype)
+            gather_rows(word_table, input_ids).to(self.dtype)
             + self.position_embeddings[:seq_len][None].to(self.dtype)
             + self.token_type_embeddings[token_type_ids.long()].to(self.dtype)
         )
         x = self.ln(x)
         if rng is not None and self.hidden_dropout > 0.0:
-            x = dropout(x, self.hidden_dropout, rng.device)
+            x = dropout(x, self.hidden_dropout, rng)
         return x
 
 
@@ -250,16 +251,20 @@ class BertLayer(nn.Module):
                                      rng=rng)
         drop = rng is not None and self.hidden_dropout > 0.0
         if drop:
-            out = dropout(out, self.hidden_dropout, rng.device)
+            out = dropout(out, self.hidden_dropout, rng)
         attn_out = self.attn_ln(out + x)
         h = self.intermediate(attn_out)
         if vision_hidden is not None:
             # fusion consumes the RAW attention context, pre out-projection
-            # (modeling_unimo.py:367-373)
+            # (modeling_unimo.py:367-373): under tp, every rank's heads
+            if self.attn.tp is not None:
+                group, first_head, heads = self.attn.tp
+                width = raw_ctx.shape[-1] // self.attn.num_heads
+                raw_ctx = gather_from(raw_ctx, group, -1, first_head * width, heads * width)
             h = h + self.fusion_dense(self.fusion(raw_ctx, vision_hidden))
         h = self.output(self.act(h))
         if drop:
-            h = dropout(h, self.hidden_dropout, rng.device)
+            h = dropout(h, self.hidden_dropout, rng)
         return self.out_ln(h + attn_out), kv
 
 

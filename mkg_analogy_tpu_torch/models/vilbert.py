@@ -120,7 +120,7 @@ class CrossAttention(nn.Module):
             scores = scores + kv_bias.to(scores.dtype)
         probs = torch.softmax(scores, dim=-1).to(self.dtype)
         if rng is not None and self.dropout_rate > 0.0:
-            probs = dropout(probs, self.dropout_rate, rng.device)
+            probs = dropout(probs, self.dropout_rate, rng)
         ctx = torch.matmul(probs, v).transpose(1, 2).reshape(b, lq, self.bi_hidden)
         return self.out(ctx)
 
@@ -153,7 +153,7 @@ class ConnectionLayer(nn.Module):
     def _drop(self, h, rng):
         rate = self.cfg.text.hidden_dropout
         if rng is not None and rate > 0.0:
-            return dropout(h, rate, rng.device)
+            return dropout(h, rate, rng)
         return h
 
     def forward(self, img, txt, img_bias, txt_bias, rng: Optional[DropoutRNG] = None):

@@ -106,7 +106,7 @@ class ViltImageEmbeddings(nn.Module):
         tokens = tokens + self.position_embeddings[None].to(dtype)
         # embedding dropout on the image path (modeling_vilt.py:189-192)
         if rng is not None and cfg.text.hidden_dropout > 0.0:
-            tokens = dropout(tokens, cfg.text.hidden_dropout, rng.device)
+            tokens = dropout(tokens, cfg.text.hidden_dropout, rng)
         return tokens.reshape(b, n_img * cfg.tokens_per_image, hidden)
 
 

@@ -31,6 +31,7 @@ from torch import nn
 
 from ..core.precision import to_dtype
 from ..ops.masks import attention_bias
+from ..parallel.collectives import gather_rows
 from .common import (
     AnalogyEncoderLayer,
     Dense,
@@ -93,7 +94,7 @@ class VisualBertEmbeddings(nn.Module):
         t = self.cfg.text
         dtype = self.cfg.compute_dtype
         length = input_ids.shape[1]
-        txt = (word_table[input_ids.long()].to(dtype)
+        txt = (gather_rows(word_table, input_ids).to(dtype)
                + self.token_type_embeddings[token_type_ids.long()].to(dtype)
                + self.position_embeddings[:length][None].to(dtype))
         vis = self.visual_projection(visual_feats.to(dtype))
@@ -103,7 +104,7 @@ class VisualBertEmbeddings(nn.Module):
                + self.visual_token_type_embeddings[1].to(dtype))
         x = self.ln(torch.cat([txt, vis], dim=1))
         if rng is not None and t.hidden_dropout > 0.0:
-            x = dropout(x, t.hidden_dropout, rng.device)
+            x = dropout(x, t.hidden_dropout, rng)
         return x
 
 

@@ -7,11 +7,14 @@ bf16, the tensor-core kernels, at the MKGformer main path's shapes (12
 heads of 64: text 128 x 128 with the analogy multiplier, vision 99 x 99,
 vision over text K/V 99 x 227; the forward at B=128, the backward at B=32
 with dropout 0.1 where the multiplier applies), and with ``--head_dim 128``
-at ViLBERT's visual stream too (8 heads of 128, 72 x 72, B=64). Prints one
-JSON line: the card, each shape's forward and backward ms (median of 21
-samples of 10 calls, by CUDA events), and each set's sum weighted by its
-calls a forward (12 / 8 / 4). Imports the ``mkg_analogy_tpu_torch`` of
-``--root``, whose kernels it builds there.
+at ViLBERT's visual stream too (8 heads of 128, 72 x 72, B=64). With
+``--flash``, the three tensor-core flash kernels instead (forward, dK/dV,
+dQ) at the triple pre-train shapes (B=64, 12 heads of 64: text 96 x 96,
+vision 99 x 99, vision over text K/V 99 x 195, the logical tiles of one
+call), with dropout 0 and 0.1. Prints one JSON line: the card, each
+shape's ms (median of 21 samples of 10 calls, by CUDA events), and each
+set's sum weighted by its calls a forward or step (12 / 8 / 4). Imports the
+``mkg_analogy_tpu_torch`` of ``--root``, whose kernels it builds there.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ import sys
 SHAPES = [("text", 128, 128, True, 12, 64, 12), ("vision", 99, 99, False, 8, 64, 12),
           ("vision_text", 99, 227, False, 4, 64, 12)]
 D128_SHAPE = ("vilbert_visual", 72, 72, False, 6, 128, 8)
+FLASH_SHAPES = [("text", 96, 96, 12), ("vision", 99, 99, 8), ("vision_text", 99, 195, 4)]
 
 
 def time_ms(fn, samples=21, per_sample=10):
@@ -54,6 +58,8 @@ def main(argv=None) -> int:
         os.path.abspath(__file__)))))
     p.add_argument("--head_dim", type=int, choices=[64, 128], default=64,
                    help="128 also times ViLBERT's visual stream")
+    p.add_argument("--flash", action="store_true",
+                   help="time the tensor-core flash kernels instead")
     args = p.parse_args(argv)
     sys.path.insert(0, os.path.abspath(args.root))
     import torch
@@ -66,6 +72,11 @@ def main(argv=None) -> int:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True,
                           check=True).stdout.strip().splitlines()[0]
+    if args.flash:
+        rows, sets = time_flash()
+        print(json.dumps(dict(card=card, root=args.root, flash=True, shapes=rows,
+                              per_set_ms=sets)))
+        return 0
     shapes = SHAPES + ([D128_SHAPE] if args.head_dim == 128 else [])
     rows, sets = [], {}
     for name, lq, lk, geometry, calls, d, heads in shapes:
@@ -97,6 +108,45 @@ def main(argv=None) -> int:
         rows.append(row)
     print(json.dumps(dict(card=card, root=args.root, shapes=rows, per_set_ms=sets)))
     return 0
+
+
+def time_flash():
+    """(rows, per-set sums) of the three tensor-core flash kernels at
+    FLASH_SHAPES, bf16, B=64, dropout 0 and 0.1."""
+    import torch
+
+    from mkg_analogy_tpu_torch.kernels import attention as attn
+    from mkg_analogy_tpu_torch.kernels import flash_attention as fa
+
+    rows, sets = [], {}
+    for name, lq, lk, calls in FLASH_SHAPES:
+        gen = torch.Generator().manual_seed(7)
+        b, heads = 64, 12
+        q, go = (torch.randn(b, lq, heads * 64, generator=gen).to("cuda", torch.bfloat16)
+                 for _ in range(2))
+        k, v = (torch.randn(b, lk, heads * 64, generator=gen).to("cuda", torch.bfloat16)
+                for _ in range(2))
+        mask = torch.ones(b, lk, device="cuda")
+        mask[:, lk - 9:] = 0.0
+        row = dict(shape=name, Lq=lq, Lk=lk)
+        for rate in (0.0, 0.1):
+            bnd, w, geo, rate, seed = attn._resolve(q, None, None, None, None, 0, 0, rate,
+                                                    rate == 0.0, 99)
+            tiles = (fa.BLOCK_Q, fa.BLOCK_K)
+            out, lse = fa._launch_fwd(q, k, v, mask, heads, bnd, w, geo, rate, seed, *tiles)
+            delta = fa._delta(go, out, heads)
+            tail = (heads, bnd, w, geo, rate, seed, *tiles)
+            timed = {
+                "fwd": lambda: fa._launch_fwd(q, k, v, mask, *tail),
+                "dkv": lambda: fa._launch_bwd_dkv(q, k, v, mask, go, lse, delta, *tail),
+                "dq": lambda: fa._launch_bwd_dq(q, k, v, mask, go, lse, delta, *tail),
+            }
+            for kernel, fn in timed.items():
+                key = f"{kernel}_ms_dropout_{rate}"
+                row[key] = time_ms(fn)
+                sets[key] = sets.get(key, 0.0) + row[key] * calls
+        rows.append(row)
+    return rows, sets
 
 
 if __name__ == "__main__":

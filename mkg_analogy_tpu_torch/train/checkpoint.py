@@ -5,6 +5,13 @@ save_weights_only) and the strict=False partial restore of
 pretrain->finetune transfer (MarT/main.py:133-148). The format is
 ``torch.save`` of the model's state dict, ``step_<n>.pt``, with
 ``metrics_<n>.json`` beside it; it needs neither JAX nor orbax to read.
+
+A checkpoint's tensors are whole, whatever the mesh it was written under:
+the trainer gathers a split model's parts (``MarTTrainer.state_dict``,
+every rank), and on a mesh only rank 0's ``Checkpointer`` writes. Its
+``restore`` waits for rank 0's write on every rank and slices the tensors
+to the caller's model (``model=``), so a checkpoint written under one mesh
+restores under any other.
 """
 
 from __future__ import annotations
@@ -17,6 +24,9 @@ import threading
 from typing import Dict, List, Optional
 
 import torch
+import torch.distributed as dist
+
+from ..core.mesh import is_main
 
 _STEP_FILE = re.compile(r"^step_(\d+)\.pt$")
 
@@ -54,14 +64,19 @@ class Checkpointer:
     drained before the next save, before a restore, and in ``close``. At most ``max_to_keep`` steps stay on disk (the newest).
     """
 
-    def __init__(self, directory: str, max_to_keep: int = 2):
+    def __init__(self, directory: str, max_to_keep: int = 2, mesh=None):
         self.directory = os.path.abspath(directory)
-        os.makedirs(self.directory, exist_ok=True)
+        self.mesh = mesh
+        # on a mesh, rank 0 writes; the others record the steps it saves
+        self.writes = is_main(mesh)
+        if self.writes:
+            os.makedirs(self.directory, exist_ok=True)
         self.max_to_keep = max_to_keep
         self._pending: "queue.Queue" = queue.Queue(maxsize=1)
         self._errors: List[BaseException] = []
         self._worker = threading.Thread(target=self._drain, daemon=True)
-        self._worker.start()
+        if self.writes:
+            self._worker.start()
         # Steps saved through this instance (pl.ModelCheckpoint tracks
         # best_model_path per fit; a stale directory from an earlier run
         # must not be restored as this run's best).
@@ -103,18 +118,27 @@ class Checkpointer:
             finally:
                 self._pending.task_done()
 
-    def flush(self) -> None:
-        """Block until the enqueued save, if any, is on disk; raise its
-        error if it failed."""
+    def _landed(self) -> None:
+        """Block until this process's enqueued save, if any, is on disk;
+        raise its error if it failed."""
         self._pending.join()
         if self._errors:
             raise self._errors.pop()
 
+    def flush(self) -> None:
+        """Block until the enqueued save, if any, is on disk; raise its
+        error if it failed. On a mesh every rank waits for rank 0's (a
+        barrier: every rank calls it)."""
+        self._landed()
+        if self.mesh is not None:
+            dist.barrier()
+
     def save(self, step: int, state: Dict[str, torch.Tensor],
              metrics: Optional[Dict] = None) -> None:
-        self.flush()  # one save in flight; also surfaces errors
-        snapshot = {k: v.detach().clone() for k, v in state.items()}
-        self._pending.put((step, snapshot, metrics))
+        self._landed()  # one save in flight; also surfaces errors
+        if self.writes:
+            snapshot = {k: v.detach().clone() for k, v in state.items()}
+            self._pending.put((step, snapshot, metrics))
         self.saved_steps.append(step)
 
     def latest_step(self) -> Optional[int]:
@@ -124,15 +148,23 @@ class Checkpointer:
         steps = list_steps(self.directory)
         return steps[-1] if steps else None
 
-    def restore(self, step: Optional[int] = None,
-                map_location=None) -> Dict[str, torch.Tensor]:
-        """The state dict saved at ``step`` (default: the latest)."""
+    def restore(self, step: Optional[int] = None, map_location=None,
+                model=None) -> Dict[str, torch.Tensor]:
+        """The state dict saved at ``step`` (default: the latest): whole
+        tensors, or with ``model`` sliced to its parts
+        (``parallel/shardings.shard_state_dict``), for its
+        ``load_state_dict``."""
         self.flush()
-        return load(self.directory, step, map_location=map_location)
+        state = load(self.directory, step, map_location=map_location)
+        if model is not None:
+            from ..parallel.shardings import shard_state_dict
+
+            state = shard_state_dict(model, state)
+        return state
 
     def close(self) -> None:
         if self._worker.is_alive():
-            self.flush()
+            self._landed()
             self._pending.put(None)
             self._worker.join(timeout=60)
 

@@ -8,6 +8,16 @@ with a ``warm_up_radio`` warmup fraction; ``--accumulate_grad_batches``
 averages k micro-batches as ``optax.MultiSteps`` does, with the schedule
 counted in optimizer steps (``total_steps // k``); ``max_grad_norm`` is
 ``optax.clip_by_global_norm``'s formula.
+
+On a (dp, tp) mesh (``mesh``): each rank's loss is its share of the global
+batch's mean, so its gradients are summed over ``dp`` (``sync_gradients``,
+coalesced into a few all-reduces) before they are accumulated or clipped.
+A parameter split over ``tp`` (``p.tp_shard``) holds the whole gradient of
+its part; a replicated one holds the whole gradient on every rank (the
+blocks route the gradients of replicated leaves that sharded activations
+feed, the adaptive analogy scalars, through ``copy_to``, which sums them).
+So the global norm sums the squares of the split leaves over ``tp`` and
+counts each replicated leaf once, and AdamW, elementwise, runs on the parts.
 """
 
 from __future__ import annotations
@@ -16,6 +26,12 @@ from typing import Callable, Dict, Optional
 
 import torch
 from torch import nn
+
+from ..core.mesh import AXES, axis_group
+from ..parallel.collectives import all_reduce_, shard_of
+
+# elements of one coalesced gradient all-reduce (256 MB of fp32)
+_BUCKET = 64 * 1024 * 1024
 
 
 def linear_warmup_linear_decay(lr: float, total_steps: int,
@@ -58,7 +74,7 @@ class Optimizer:
 
     def __init__(self, model: nn.Module, schedule: Callable[[int], float],
                  weight_decay: float, eps: float = 1e-8, accumulate: int = 1,
-                 max_grad_norm: Optional[float] = None, betas=(0.9, 0.999)):
+                 max_grad_norm: Optional[float] = None, betas=(0.9, 0.999), mesh=None):
         decay = no_decay_mask(model)
         named = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
         groups = [
@@ -73,14 +89,46 @@ class Optimizer:
         self.max_grad_norm = max_grad_norm
         self.mini_step = 0
         self._acc = None
+        self.dp_group = axis_group(mesh, AXES.dp)
+        self._synced = False
 
     def zero_grad(self) -> None:
         self.adamw.zero_grad(set_to_none=True)
 
+    def sync_gradients(self) -> None:
+        """Sum this micro-batch's gradients over dp (once; nothing without
+        dp). A parameter without a gradient takes zeros, so every rank
+        reduces the same buffers."""
+        if self.dp_group is None or self._synced:
+            return
+        for p in self.params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        grads = [p.grad for p in self.params]
+        i = 0
+        while i < len(grads):
+            bucket, n = [], 0
+            while i < len(grads) and (not bucket or n + grads[i].numel() <= _BUCKET):
+                bucket.append(grads[i])
+                n += grads[i].numel()
+                i += 1
+            flat = all_reduce_(torch.cat([g.reshape(-1).to(torch.float32) for g in bucket]),
+                               self.dp_group)
+            for g, part in zip(bucket, flat.split([g.numel() for g in bucket])):
+                g.copy_(part.view_as(g))
+        self._synced = True
+
+    def grad_norm(self, grads=None) -> torch.Tensor:
+        """The global norm of ``grads`` (default: the parameters' own),
+        each split leaf's part counted on its rank, summed over tp."""
+        grads = grads if grads is not None else [
+            p.grad if p.grad is not None else torch.zeros_like(p) for p in self.params]
+        return global_norm(grads, shards=[shard_of(p) for p in self.params])
+
     def _clip(self, grads) -> None:
         """optax.clip_by_global_norm: g / norm * max_norm where the global
         norm reaches max_norm, in place and on the device."""
-        norm = global_norm(grads)
+        norm = self.grad_norm(grads)
         trigger = norm < self.max_grad_norm
         for g in grads:
             g.copy_(torch.where(trigger, g, g / norm * self.max_grad_norm))
@@ -88,6 +136,8 @@ class Optimizer:
     def step(self) -> bool:
         """Take this micro-batch's gradients (``.grad``, then cleared);
         return True where the parameters were updated."""
+        self.sync_gradients()
+        self._synced = False
         grads = [p.grad if p.grad is not None else torch.zeros_like(p)
                  for p in self.params]
         if self.accumulate > 1:
@@ -116,22 +166,31 @@ class Optimizer:
         return True
 
 
-def global_norm(tensors) -> torch.Tensor:
+def global_norm(tensors, shards=None) -> torch.Tensor:
     """sqrt of the sum of squares of every element (optax.global_norm), as a
-    0-d fp32 tensor on the tensors' device."""
-    return torch.sqrt(sum(torch.sum(t.to(torch.float32) ** 2) for t in tensors))
+    0-d fp32 tensor on the tensors' device. ``shards``: the ``Shard`` (or
+    None) of each tensor, where some are a rank's part of a split leaf: the
+    parts' squares are summed over their group, the others counted once."""
+    squares = [torch.sum(t.to(torch.float32) ** 2) for t in tensors]
+    if shards is None or all(s is None for s in shards):
+        return torch.sqrt(sum(squares))
+    whole = sum(q for q, s in zip(squares, shards) if s is None)
+    parts = sum(q for q, s in zip(squares, shards) if s is not None)
+    group = next(s.group for s in shards if s is not None)
+    return torch.sqrt(whole + all_reduce_(parts.clone(), group))
 
 
 def fused_adamw(model: nn.Module, schedule: Callable[[int], float], b1: float = 0.9,
                 b2: float = 0.999, eps: float = 1e-8, weight_decay: float = 0.01,
-                accumulate: int = 1, max_grad_norm: Optional[float] = None) -> Optimizer:
+                accumulate: int = 1, max_grad_norm: Optional[float] = None,
+                mesh=None) -> Optimizer:
     """The JAX ``fused_adamw`` (``--fused_adamw``): optax.adamw's numbers
     with the small leaves' moments batched into one vector, to save the
     TPU's per-leaf dispatches. PyTorch's AdamW already updates every leaf
     in one multi-tensor pass on the card, so this is ``make_optimizer``'s
     ``Optimizer``, the same update."""
     return Optimizer(model, schedule, weight_decay, eps=eps, accumulate=accumulate,
-                     max_grad_norm=max_grad_norm, betas=(b1, b2))
+                     max_grad_norm=max_grad_norm, betas=(b1, b2), mesh=mesh)
 
 
 def make_optimizer(
@@ -144,6 +203,7 @@ def make_optimizer(
     grad_accum_steps: int = 1,
     max_grad_norm: Optional[float] = None,
     fused: bool = False,
+    mesh=None,
 ) -> Optimizer:
     """The JAX ``make_optimizer``. The schedule horizon is optimizer steps,
     like the reference's num_training_steps // accumulate_grad_batches
@@ -153,9 +213,10 @@ def make_optimizer(
         lr, max(1, total_steps // max(1, grad_accum_steps)), warmup_ratio)
     if fused:
         return fused_adamw(model, schedule, eps=eps, weight_decay=weight_decay,
-                           accumulate=grad_accum_steps, max_grad_norm=max_grad_norm)
+                           accumulate=grad_accum_steps, max_grad_norm=max_grad_norm,
+                           mesh=mesh)
     return Optimizer(model, schedule, weight_decay, eps=eps,
-                     accumulate=grad_accum_steps, max_grad_norm=max_grad_norm)
+                     accumulate=grad_accum_steps, max_grad_norm=max_grad_norm, mesh=mesh)
 
 
 def torch_adagrad(params, lr: float, eps: float = 1e-10,

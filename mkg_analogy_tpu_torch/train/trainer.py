@@ -1,5 +1,5 @@
 """MarT trainer (``mkg_analogy_tpu/train/trainer.py``): fine-tuning,
-pre-training and evaluation, on one device.
+pre-training and evaluation, on one device or a (dp, tp) mesh.
 
 - fine-tune loss = label-smoothed CE over the 2,063 analogy-entity logits
                    + alpha * relaxation loss (transformer.py:92-109);
@@ -27,6 +27,23 @@ not depend on what ran before it.
 JAX trainer does: a worker thread assembles each batch and starts its copy
 to the device two steps ahead. On a CUDA device the copy runs from pinned
 memory on a side stream, and the step's stream waits on its event.
+
+On a mesh (``mesh``, ``core/mesh.py``; one process a rank) the trainer does
+what JAX's GSPMD does for its sharded step:
+- the model's parameters are split over ``tp`` by the rules of
+  ``parallel/shardings.py`` before its first forward (``_parallelize``), so
+  it is built, initialised and loaded whole; ``state_dict`` and
+  ``load_state_dict`` take whole tensors whatever the mesh;
+- each rank takes its ``batch_size / dp`` rows of every global batch, in
+  the single-process order (``batch_size % dp`` must be 0), and draws the
+  dropout of the global batch's rows (``DropoutRNG.rows``);
+- each rank's loss is its share of the global mean, its gradients are
+  summed over ``dp`` before clipping (``train/optim.py``), and the logged
+  metrics are the sums of the shares;
+- evaluation splits each padded eval batch over ``dp`` and brings every
+  rank's ranks to every rank once per split, by an all-reduce into zeros,
+  so every rank takes the same early-stopping and checkpoint decisions;
+- only rank 0 logs, prints, dumps ranks and writes checkpoints.
 """
 
 from __future__ import annotations
@@ -43,13 +60,18 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from ..core import mesh as meshes
+from ..core.mesh import AXES, axis_group, axis_rank, axis_size
 from ..data.batching import BatchIterator
 from ..models.common import DropoutRNG
 from ..ops.losses import label_smoothing_cross_entropy, relaxation_loss
 from ..ops.ranking import nonfinite_gold, rank_metrics, ranks_from_scores, tie_counts
+from ..parallel.collectives import ShardedLogits, all_reduce_, gather_rows, shard_of
+from ..parallel.shardings import (
+    batch_spec, gather_state_dict, make_shardings, shard_module, shard_state_dict)
 from ..utils.logging import MetricLogger
 from ..utils.profiling import StepTimer, trace
-from .optim import global_norm, make_optimizer
+from .optim import make_optimizer
 
 
 @dataclass
@@ -109,13 +131,22 @@ def finetune_positions(batch: Dict[str, torch.Tensor]) -> torch.Tensor:
 
 
 class MarTTrainer:
+    # one device unless ``mesh`` says otherwise
+    mesh, dp, dp_rank, dp_group, is_main = None, 1, 0, None, True
+
     def __init__(self, model, vocab, config: TrainConfig, device="cuda",
-                 logger: Optional[MetricLogger] = None):
+                 logger: Optional[MetricLogger] = None, mesh=None):
         self.model = model
         self.vocab = vocab
         self.config = config
         self.device = torch.device(device)
         self.logger = logger or MetricLogger()
+        self.mesh = mesh  # a (dp, tp) DeviceMesh (core/mesh.make_mesh) or None
+        self.dp = axis_size(mesh, AXES.dp)
+        self.dp_rank = axis_rank(mesh, AXES.dp)
+        self.dp_group = axis_group(mesh, AXES.dp)
+        self.is_main = meshes.is_main(mesh)
+        self._sharded = False
         self.analogy_entity_ids = torch.as_tensor(
             vocab.analogy_entity_ids, device=self.device).long()
         self.image_table = None  # optional device-resident feature table
@@ -132,7 +163,11 @@ class MarTTrainer:
     # ------------------------------------------------------------------ init
     def init_params(self, seed: int) -> None:
         """Random parameters from a seeded ``torch.Generator`` on the
-        trainer's device, then the [R] embedding init."""
+        trainer's device, then the [R] embedding init. The same draws on
+        every rank: the model is whole until its first forward."""
+        if self._sharded:
+            raise RuntimeError("init_params draws whole parameters: call it before the "
+                               "first step or evaluation, or load_state_dict after")
         gen = torch.Generator(device=self.device).manual_seed(seed)
         self.model.init_params(gen)
         self._init_r_token()
@@ -140,12 +175,34 @@ class MarTTrainer:
     @torch.no_grad()
     def _init_r_token(self) -> None:
         """[R] embedding <- mean of analogy-relation embeddings
-        (transformer.py:41-54)."""
+        (transformer.py:41-54). Over a vocab-parallel table the rows come
+        from every rank's shard, and the rank that holds [R] writes it."""
         if self.vocab.analogy_relation_ids.size == 0:
             return
         table = self.model.word_embeddings
         ids = torch.as_tensor(self.vocab.analogy_relation_ids, device=table.device)
-        table[self.vocab.r_token_id] = table[ids.long()].mean(dim=0)
+        mean = gather_rows(table, ids).mean(dim=0)
+        row, shard = self.vocab.r_token_id, shard_of(table)
+        if shard is None:
+            table[row] = mean
+        elif shard.start <= row < shard.stop:
+            table[row - shard.start] = mean
+
+    def _parallelize(self) -> None:
+        """Split the model over the mesh's tp axis (once, before its first
+        forward)."""
+        if not self._sharded:
+            shard_module(self.model, self.mesh)
+            self._sharded = True
+
+    def state_dict(self) -> Dict[str, torch.Tensor]:
+        """The model's state with whole tensors, whatever the mesh (a
+        collective under tp: every rank calls it)."""
+        return gather_state_dict(self.model)
+
+    def load_state_dict(self, state: Dict[str, torch.Tensor]) -> None:
+        """Load whole tensors onto the model, split as the model is."""
+        self.model.load_state_dict(shard_state_dict(self.model, state))
 
     # ---------------------------------------------------------------- model io
     def _gather_images(self, batch, image_table):
@@ -211,6 +268,8 @@ class MarTTrainer:
         logits = self.model.logits(trans_cls, vocab_start=v.entity_id_st,
                                    vocab_end=v.relation_id_ed)
         n_ent = v.entity_id_ed - v.entity_id_st
+        if isinstance(logits, ShardedLogits):  # a tp rank's columns
+            return logits.split(n_ent)
         return logits[:, :n_ent], logits[:, n_ent:]
 
     # ---------------------------------------------------------------- losses
@@ -218,11 +277,14 @@ class MarTTrainer:
         """Label-smoothed CE over the analogy entities + alpha * relaxation
         over the gathered [mask, rel_ex, rel_q, q_head, a_head] states."""
         cfg = self.config
+        self._parallelize()
         inputs = self._model_inputs(batch, image_table=image_table, fmt="finetune")
         trans = self.model(**inputs, deterministic=False, rng=rng)
         logits = self._answer_logits(trans[:, 0])
-        ce = label_smoothing_cross_entropy(logits, batch["label"], cfg.label_smoothing)
-        sim = relaxation_loss(trans[:, 3], trans[:, 4], trans[:, 1], trans[:, 2])
+        ce = label_smoothing_cross_entropy(logits, batch["label"], cfg.label_smoothing,
+                                           dp_group=self.dp_group)
+        sim = relaxation_loss(trans[:, 3], trans[:, 4], trans[:, 1], trans[:, 2],
+                              dp_group=self.dp_group)
         loss = ce + cfg.alpha * sim
         return loss, {"loss": loss, "ce": ce, "sim": sim}
 
@@ -230,8 +292,11 @@ class MarTTrainer:
         """Triple pre-training: label-smoothed CE over the entity range for
         link prediction (pre_type 1) plus over the relation range for
         relation prediction (pre_type 2), labels -100 where a row belongs to
-        the other term; a batch without rows of one kind adds 0 for it."""
+        the other term; a batch without rows of one kind adds 0 for it.
+        Under dp each term is this rank's share of the global batch's mean,
+        whatever share of the -100 rows the rank holds."""
         cfg = self.config
+        self._parallelize()
         inputs = self._model_inputs(batch, image_table=image_table, fmt="triple")
         trans = self.model(**inputs, deterministic=False, rng=rng)
         ent_logits, rel_logits = self._triple_logits(trans[:, 0])
@@ -239,12 +304,16 @@ class MarTTrainer:
         is_rel = batch["pre_type"] == 2
         ignore = torch.full_like(label, -100)
         ent_loss = label_smoothing_cross_entropy(
-            ent_logits, torch.where(is_rel, ignore, label), cfg.label_smoothing)
+            ent_logits, torch.where(is_rel, ignore, label), cfg.label_smoothing,
+            dp_group=self.dp_group)
         rel_loss = label_smoothing_cross_entropy(
-            rel_logits, torch.where(is_rel, label, ignore), cfg.label_smoothing)
+            rel_logits, torch.where(is_rel, label, ignore), cfg.label_smoothing,
+            dp_group=self.dp_group)
         zero = ent_loss.new_zeros(())
-        ent_loss = torch.where((~is_rel).any(), ent_loss, zero)
-        rel_loss = torch.where(is_rel.any(), rel_loss, zero)
+        # whether the global batch has rows of each kind
+        n_rel = all_reduce_(is_rel.sum(), self.dp_group)
+        ent_loss = torch.where(n_rel < is_rel.numel() * self.dp, ent_loss, zero)
+        rel_loss = torch.where(n_rel > 0, rel_loss, zero)
         loss = ent_loss + rel_loss
         return loss, {"loss": loss, "ent_loss": ent_loss, "rel_loss": rel_loss}
 
@@ -254,18 +323,29 @@ class MarTTrainer:
         pre-train loss, "finetune" the fine-tune loss (default: the run's
         format). Returns the metrics as device tensors (no sync)."""
         cfg = self.config
-        rng = DropoutRNG.from_seed(step_seed(cfg.seed, step), self.device)
+        rows = None
+        if self.dp > 1:
+            n = batch["input_ids"].shape[0]
+            rows = (self.dp_rank * n, self.dp * n)
+        rng = DropoutRNG.from_seed(step_seed(cfg.seed, step), self.device, rows=rows)
         loss_fn = (self._pretrain_loss if (loss_kind or self._format()) == "triple"
                    else self._finetune_loss)
         loss, metrics = loss_fn(batch, rng, image_table=image_table)
         loss.backward()
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        if self.dp_group is not None:
+            # the global batch's losses: the sums of the ranks' shares
+            names = sorted(metrics)
+            summed = all_reduce_(torch.stack([metrics[k] for k in names]), self.dp_group)
+            metrics = dict(zip(names, summed.unbind()))
         if cfg.track_grad_norm:
-            metrics["grad_norm"] = global_norm(
-                [p.grad for p in self.model.parameters() if p.grad is not None])
+            optimizer.sync_gradients()
+            metrics["grad_norm"] = optimizer.grad_norm()
         optimizer.step()
-        return {k: v.detach() for k, v in metrics.items()}
+        return metrics
 
     def _eval_step(self, batch, image_table=None):
+        self._parallelize()
         inputs = self._model_inputs(batch, image_table=image_table)
         trans = self.model(**inputs)
         if self._format() == "triple":
@@ -292,11 +372,23 @@ class MarTTrainer:
             out["mode"] = batch["mode"]
         return out
 
+    def _rows(self, batch: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+        """This rank's rows of a global batch (batch_spec over dp); the
+        whole batch without dp. Raises where dp does not divide the batch,
+        as JAX's device_put does."""
+        if self.dp == 1:
+            return batch
+        n = len(next(iter(batch.values())))
+        if n % self.dp:
+            raise ValueError(f"a batch of {n} rows does not split over dp={self.dp}")
+        shardings = make_shardings(self.mesh, batch_spec(batch))
+        return {k: shardings[k].local(v) for k, v in batch.items()}
+
     def _put_batch(self, batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
         # float inputs (pixels) go to the device as bfloat16, as in the JAX
         # trainer: the model's inputs are rounded the same way on both.
         out = {}
-        for k, v in batch.items():
+        for k, v in self._rows(batch).items():
             t = torch.from_numpy(np.ascontiguousarray(v))
             out[k] = t.to(self.device, torch.bfloat16 if t.dtype == torch.float32
                           else t.dtype)
@@ -316,7 +408,7 @@ class MarTTrainer:
             self._copy_stream = torch.cuda.Stream(device=self.device)
         out = {}
         with torch.cuda.stream(self._copy_stream):
-            for k, v in batch.items():
+            for k, v in self._rows(batch).items():
                 t = torch.from_numpy(np.ascontiguousarray(v))
                 if t.dtype == torch.float32:
                     t = t.to(torch.bfloat16)
@@ -387,6 +479,20 @@ class MarTTrainer:
             thread.join()
 
     # ------------------------------------------------------------------- loops
+    def _every_ranks_rows(self, outs):
+        """Every rank's rows of each eval output, on every rank: the split's
+        (n_batches, local rows) stacked, written at the rank's rows of
+        zeros and summed over dp, in one all-reduce per output."""
+        gathered = []
+        for k in outs[0]:
+            local = torch.stack([o[k] for o in outs])
+            whole = torch.zeros(local.shape[0], local.shape[1] * self.dp,
+                                dtype=torch.int64, device=local.device)
+            n = local.shape[1]
+            whole[:, self.dp_rank * n:(self.dp_rank + 1) * n] = local
+            gathered.append((k, all_reduce_(whole, self.dp_group).to(local.dtype)))
+        return [{k: v[i] for k, v in gathered} for i in range(len(outs))]
+
     def evaluate(self, features, attach=None, dump_path=None) -> Dict[str, float]:
         cfg = self.config
         it = BatchIterator(features, cfg.eval_batch_size, shuffle=False,
@@ -394,6 +500,8 @@ class MarTTrainer:
         with torch.inference_mode(), contextlib.closing(
                 self._prefetch(it, self._put_batch_async)) as batches:
             outs = [self._eval_step(self._ready(b), self.image_table) for b in batches]
+            if self.dp_group is not None:
+                outs = self._every_ranks_rows(outs)
             # one device-to-host transfer per output at the end of the split
             outs = [{k: v.cpu().numpy() for k, v in o.items()} for o in outs]
         ranks = np.concatenate([o["ranks"][o["valid"]] for o in outs])
@@ -428,13 +536,17 @@ class MarTTrainer:
             for k, val in rank_metrics(torch.from_numpy(rel_ranks)).items():
                 metrics[f"Eval_relation/{k}"] = float(val)
             metrics["Eval_relation/nonfinite_gold"] = float(nonfinite[is_rel].sum())
-        if dump_path:
+        if dump_path and self.is_main:
             # raw per-example ranks for offline histogram analysis
             os.makedirs(os.path.dirname(dump_path) or ".", exist_ok=True)
             np.savez(dump_path, ranks=ranks, is_rel=is_rel,
                      **({"tie": ties} if ties is not None else {}),
                      **({"mode": modes} if modes is not None else {}))
         return metrics
+
+    def _log(self, step, metrics, prefix="") -> None:
+        if self.is_main:
+            self.logger.log(step, metrics, prefix=prefix)
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -500,11 +612,12 @@ class MarTTrainer:
         total_steps = steps_per_epoch * cfg.max_epochs
         if init_params_fn is not None:
             # pretrain->finetune transfer (main.py:133-134 strict=False parity)
-            self.model.load_state_dict(init_params_fn(self.model.state_dict()))
+            self.load_state_dict(init_params_fn(self.state_dict()))
+        self._parallelize()  # before the optimizer takes the parameters
         optimizer = make_optimizer(
             self.model, cfg.lr, total_steps, cfg.warmup_ratio, cfg.weight_decay,
             grad_accum_steps=cfg.grad_accum_steps, max_grad_norm=cfg.max_grad_norm,
-            fused=cfg.fused_adamw)
+            fused=cfg.fused_adamw, mesh=self.mesh)
         optimizer.zero_grad()
 
         best_mrr, best_hits10, since_best = -1.0, -1.0, 0
@@ -534,7 +647,7 @@ class MarTTrainer:
                     for epoch_steps, (kind, ids_preview, sbatch) in enumerate(prefetched):
                         if limit_batches and epoch_steps >= limit_batches:
                             break
-                        if global_step == 0 and hasattr(self.vocab, "decode"):
+                        if global_step == 0 and self.is_main and hasattr(self.vocab, "decode"):
                             # decoded-sample print at batch 0 (transformer.py:111)
                             for row in ids_preview:
                                 print(self.vocab.decode(row[row != 0][:48]))
@@ -555,7 +668,7 @@ class MarTTrainer:
                             n_examples = 0
                         if global_step == 10:
                             profile.close()
-                        if global_step % cfg.log_every == 0:
+                        if global_step % cfg.log_every == 0 and self.is_main:
                             self.logger.log(global_step,
                                             {k: float(v) for k, v in metrics.items()},
                                             prefix="train/")
@@ -565,23 +678,24 @@ class MarTTrainer:
                 epoch_stats.update(timer.stats())
                 # the epoch's last step, so a run's losses can be compared
                 epoch_stats.update({f"last_{k}": float(v) for k, v in metrics.items()})
-                self.logger.log(global_step, epoch_stats, prefix="train/")
+                self._log(global_step, epoch_stats, prefix="train/")
                 if (epoch + 1) % cfg.check_val_every_n_epoch == 0:
                     eval_metrics = self.evaluate(dev_features, attach=eval_attach or attach)
-                    self.logger.log(global_step, eval_metrics)
+                    self._log(global_step, eval_metrics)
                     mrr = eval_metrics.get("Eval_entity/mrr", 0.0)
                     hits10 = eval_metrics.get("Eval_entity/hits10", 0.0)
                     if hits10 > best_hits10:
                         best_hits10 = hits10
                         best_metrics = eval_metrics
                         if checkpointer is not None:
-                            checkpointer.save(global_step, self.model.state_dict(),
+                            # every rank gathers; the checkpointer of rank 0 writes
+                            checkpointer.save(global_step, self.state_dict(),
                                               metrics=eval_metrics)
                     if mrr > best_mrr:
                         best_mrr, since_best = mrr, 0
                     else:
                         since_best += 1
                         if since_best >= cfg.patience:
-                            self.logger.log(global_step, {"early_stop": 1.0})
+                            self._log(global_step, {"early_stop": 1.0})
                             break
         return global_step, best_metrics

@@ -125,20 +125,60 @@ def test_cli_cuda_without_gpu_raises(dataset, tmp_path):
         port_cli.main(cli_flags(dataset, tmp_path))
 
 
+@pytest.fixture(scope="module")
+def single_process_metrics(dataset, tmp_path_factory):
+    """The single-process CLI's test metrics, --only_test and after a
+    one-epoch fit (batch 4), on the CPU."""
+    tmp = tmp_path_factory.mktemp("port_cli_single")
+    return {only_test: port_cli.main(_mesh_cli_flags(dataset, tmp, only_test))
+            for only_test in (True, False)}
+
+
+def _mesh_cli_flags(dataset, tmp_path, only_test):
+    flags = [f for f in cli_flags(dataset, tmp_path) if f != "--only_test"] + ["--device", "cpu"]
+    if only_test:
+        return flags + ["--only_test"]
+    return flags + ["--max_epochs", "1", "--batch_size", "4", "--lr", "1e-3"]
+
+
 @pytest.mark.parametrize("extra", [
     ["--tp", "2"], ["--dp", "2"], ["--dp", "2", "--tp", "2"],
 ])
-def test_cli_refuses_what_later_slices_bring(dataset, tmp_path, extra):
-    """Training, --checkpoint, --pretrain, --fused_attention flash, the five
-    families, --export_torch and --qk_bf16_grad are ported
-    (tests/test_torch_port_train.py, tests/test_torch_port_pretrain.py,
-    tests/test_torch_port_families.py, tests/test_torch_port_region_families.py,
-    test_cli_export_torch_round_trips below, tests/test_torch_port_leftovers.py);
-    these raise, with or without --only_test."""
-    for flags in (cli_flags(dataset, tmp_path),
-                  [f for f in cli_flags(dataset, tmp_path) if f != "--only_test"]):
-        with pytest.raises(NotImplementedError):
-            port_cli.main(flags + ["--device", "cpu"] + extra)
+def test_cli_refuses_what_later_slices_bring(dataset, tmp_path, single_process_metrics,
+                                             capsys, extra):
+    """--dp/--tp, once refused, now run: under --device cpu the CLI spawns
+    one gloo process a rank and prints and returns the single-process test
+    metrics, with --only_test and after a one-epoch fit (the same ranks,
+    so the same metrics, to 1e-6)."""
+    for only_test in (True, False):
+        out = tmp_path / f"mesh_{only_test}"
+        got = port_cli.main(_mesh_cli_flags(dataset, out, only_test) + extra)
+        want = single_process_metrics[only_test]
+        assert set(got) == set(want)
+        for k in want:
+            assert abs(got[k] - want[k]) <= 1e-6, (only_test, k, got[k], want[k])
+        assert str(got) in capsys.readouterr().out
+        assert (out / "out" / "test_ranks.npz").exists()
+
+
+def test_cli_dp1_tp1_is_the_single_device_run(dataset, tmp_path, single_process_metrics):
+    """``--dp 1 --tp 1`` is the run without the flags: no process group, no
+    collective, the same test metrics exactly, with --only_test and after a
+    fit."""
+    for only_test in (True, False):
+        got = port_cli.main(_mesh_cli_flags(dataset, tmp_path / f"dp1_{only_test}", only_test)
+                            + ["--dp", "1", "--tp", "1"])
+        assert got == single_process_metrics[only_test]
+
+
+def test_cli_cuda_mesh_needs_as_many_gpus(dataset, tmp_path, monkeypatch):
+    """Under --device cuda dp * tp must equal the visible GPU count, as in
+    the JAX CLI: on one card --dp 2 raises (the card is faked here; the mesh
+    is refused before anything touches it)."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(ValueError, match=r"dp\(2\) \* tp\(1\) != devices\(1\)"):
+        port_cli.main(cli_flags(dataset, tmp_path) + ["--device", "cuda", "--dp", "2"])
 
 
 @pytest.mark.parametrize("name", ["VisualBertKGC", "ViltKGC", "FlavaKGC", "VilBertKGC"])
