@@ -8,8 +8,10 @@ Phases, one JSON line each; any failure raises, prints its traceback and
 exits non-zero:
 
 1. card       — name and power limit (nvidia-smi);
-2. build      — nvcc builds every kernel under mkg_analogy_tpu_torch/csrc
-                (one process per source, all started together); what
+2. build      — nvcc builds every kernel under mkg_analogy_tpu_torch/csrc,
+                and the eight attention sources at each padded width of
+                phase 23's head widths (one process per library, all
+                started together, before any timed phase); what
                 ``ptxas -v`` said of the tensor-core attention kernels, the
                 single-block pair and the flash forward and backward
                 (registers a thread, spill bytes, static shared memory);
@@ -203,7 +205,7 @@ exits non-zero:
                 (d=200) and TransAE (d=200) pre-train steps at the recipe's
                 333 x 51 rows, each on the card against the port on the CPU
                 (loss within 1e-5 relative, every gradient leaf within 1e-5
-                of its largest value), then timed; link prediction on 640
+                of its largest value), then timed; link prediction on 256
                 triples, both sides, B=64 (energies within 1e-5, ranks equal
                 but for near ties); a fine-tune step at B=128; peak GB;
 21. kge_rsme  — RSME ComplEx at rank 1000, B=1000, Adagrad over the
@@ -219,6 +221,23 @@ exits non-zero:
                 line carries ``nonfinite_gold``, the rows whose gold score
                 is not finite (ranked last); the ANALOGY recipe, which
                 diverges, must report Hits@1 of at most 0.5.
+23. head_widths — rows 1-5 at head widths 8, 13, 16, 20, 24, 32, 40, 56,
+                80, 96, 112, 116 and 120 (HEAD_WIDTHS), each through the
+                library of its padded width (a multiple of 16; the 64
+                libraries built in phase 2 with the nine), fp32 and bf16,
+                without and with the analogy geometry and
+                dropout, against the plain versions at the kernel phases'
+                bars, each launch counted under its width; the times of each
+                instance, its plain version, SDPA (widths that are multiples
+                of 8) and its bounds; registers and spills; head_dim 129
+                raises;
+24. cli_widths — the slice's main paths at those widths: (a) the verify
+                recipe's model (head_dim 16) through the CLI, a fine-tune
+                and ``--only_test --checkpoint``, under ``--fused_attention
+                1`` and ``flash`` in fp32 and bf16, the fp32 losses against
+                ``--fused_attention 0``'s; (b) MiniLM-L12-H384's widths (head_dim
+                32), a full-length step through ``single`` and ``flash``,
+                fp32 against the plain attention, then bf16 steps.
 
 Then the ``{"kernels": [...]}`` line, the card line, and the last line
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -291,7 +310,7 @@ def card_line() -> str:
         check=True, capture_output=True, text=True).stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, samples=21, per_sample=10):
+def time_ms(fn, samples=7, per_sample=10):
     """Median over ``samples`` of the mean time of ``per_sample``
     back-to-back calls, by CUDA events. A device-side sleep ahead of each
     sample (~5 ms: ten calls of several launches each take the host up to a
@@ -371,11 +390,11 @@ def bwd_bound_times(b, lq, lk, dtype_bytes, heads=HEADS, head_dim=HEAD_DIM):
     return nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS_PER_S * 1e3
 
 
-def attention_inputs(lq, lk, geometry, dtype, device, seed, batch=BATCH):
+def attention_inputs(lq, lk, geometry, dtype, device, seed, batch=BATCH, head_dim=HEAD_DIM):
     import torch
 
     g = torch.Generator().manual_seed(seed)
-    hd = HEADS * HEAD_DIM
+    hd = HEADS * head_dim
     q, k, v = (torch.randn(batch, n, hd, generator=g).to(device, dtype)
                for n in (lq, lk, lk))
     text_len = torch.randint(40, TEXT_LEN + 1, (batch,), generator=g)
@@ -881,10 +900,11 @@ def write_dataset(root, n_ent=64, n_rel=8, n_triples=200, n_train=128, n_test=20
 
 
 class BuildOrder:
-    """Records, in a CLI run, the calls of ``kernels.build.build`` (the CLI's
-    ``core/cache.enable_compilation_cache``) and the batches the data
-    pipeline assembles (``BatchIterator.__iter__`` yielding), so a phase can
-    check that every kernel was built before the first batch. On entry
+    """Records, in a CLI run, the calls of ``kernels.build.build`` and
+    ``build_widths`` (the CLI's ``core/cache.enable_compilation_cache``) and
+    the batches the data pipeline assembles (``BatchIterator.__iter__``
+    yielding), so a phase can check that every kernel was built before the
+    first batch. On entry
     with ``fresh_dir`` the build directory is a new empty one, so the CLI
     compiles every kernel itself; on exit the build directory and the
     loaded libraries are restored."""
@@ -898,9 +918,19 @@ class BuildOrder:
         from mkg_analogy_tpu_torch.kernels import build
 
         self._saved = (build.build, batching.BatchIterator.__iter__, build.BUILD_DIR,
-                       build._LOADED)
+                       build._LOADED, build.build_widths)
         real_build, real_iter = self._saved[:2]
+        real_widths = self._saved[4]
         events = self.events
+
+        def recorded_widths(head_dims, names=build.ATTENTION_SOURCES):
+            head_dims = list(head_dims)
+            t0 = time.perf_counter()
+            real_widths(head_dims, names)
+            widths = {build.library_width(d) for d in head_dims} - {None}
+            events.append(("build_widths", time.perf_counter() - t0, sorted(widths),
+                           all(build.library_path(n, w).exists() for n in names
+                               for w in widths)))
 
         def recorded_build(names=()):
             t0 = time.perf_counter()
@@ -915,6 +945,7 @@ class BuildOrder:
                 yield batch
 
         build.build = recorded_build
+        build.build_widths = recorded_widths
         batching.BatchIterator.__iter__ = recorded_iter
         if self.fresh_dir:
             build.BUILD_DIR = build.Path(self.fresh_dir)
@@ -926,7 +957,7 @@ class BuildOrder:
         from mkg_analogy_tpu_torch.kernels import build
 
         (build.build, batching.BatchIterator.__iter__, build.BUILD_DIR,
-         build._LOADED) = self._saved
+         build._LOADED, build.build_widths) = self._saved
 
     def check(self, what):
         """(build seconds) where the first event is a build that left every
@@ -936,6 +967,16 @@ class BuildOrder:
             raise AssertionError(f"{what}: the kernels were not built before the first "
                                  f"batch: {self.events[:3]}")
         return self.events[0][1]
+
+    def check_widths(self, what, widths):
+        """(build seconds) where the libraries of the padded ``widths`` were
+        all in place before the first batch; raises otherwise."""
+        first_batch = self.events.index(("batch",)) if ("batch",) in self.events else 0
+        built = [e for e in self.events[:first_batch] if e[0] == "build_widths"]
+        if not built or built[0][2] != sorted(widths) or not built[0][3]:
+            raise AssertionError(f"{what}: the libraries of padded widths {widths} were not "
+                                 f"built before the first batch: {self.events[:4]}")
+        return built[0][1]
 
 
 def cli_phase():
@@ -1177,7 +1218,7 @@ def fit_prefetch_phase(device):
     with 4,126 entities (MARS's 2,063 analogy entities), FIT_TRAIN training
     examples (24 steps) and a dev split of FIT_DEV examples (MARS's)
     evaluated at B=128. Two loops on the same batch sequence from the same
-    weights, each run three times, alternated (the host's clock varies
+    weights, each run twice, alternated (the host's clock varies
     between runs more than the loops differ): ``MarTTrainer.fit`` (one
     epoch, then its dev evaluation) and ``evaluate``, both through
     ``_prefetch``; and the loop before it (``legacy_fit``,
@@ -1285,7 +1326,7 @@ def fit_prefetch_phase(device):
 
     runs = {"prefetch": [], "old": []}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_prefetch_ranks_", dir=".") as scratch:
-        for loop in ("prefetch", "old") * 3:
+        for loop in ("prefetch", "old") * 2:
             attn.LAUNCHES = attn.LAUNCHES_BWD = 0
             runs[loop].append((run_prefetch if loop == "prefetch" else run_legacy)()
                               + ((attn.LAUNCHES, attn.LAUNCHES_BWD),))
@@ -1546,14 +1587,14 @@ FLASH_SHAPES = [
 PRETRAIN_BATCH, PRETRAIN_LEN = 64, 96  # scripts/run_pretrain_mkgformer.sh
 
 
-def flash_inputs(b, lq, lk, kind, geometry, dtype, device, seed):
+def flash_inputs(b, lq, lk, kind, geometry, dtype, device, seed, head_dim=HEAD_DIM):
     """q, k, v, a cotangent, the (B, Lk) mask and the geometry arguments:
     text keys padded to a random length, vision keys unpadded, vision over
     [text K/V ; vision] with the text part padded."""
     import torch
 
     g = torch.Generator().manual_seed(seed)
-    hd = HEADS * HEAD_DIM
+    hd = HEADS * head_dim
     q, k, v, go = (torch.randn(b, n, hd, generator=g).to(device, dtype)
                    for n in (lq, lk, lk, lq))
     if kind == "vision":
@@ -1620,6 +1661,61 @@ def flash_dw_scales(fa, q, k, v, mask, go, lse, delta, bnd, w, geo, rate, seed,
     return scales
 
 
+def flash_errors(fa, what, key, q, k, v, go, mask, kw, rate, seed, head_dim=HEAD_DIM,
+                 heads=HEADS):
+    """One forward and one backward launch of the flash kernels against
+    their plain versions (at JAX's logical tiles, dropout ``rate`` from
+    ``seed``, the dtype of q): out within 2e-5 fp32 / 2e-2 bf16, lse within
+    1e-5; dq, dk, dv, from the kernel forward's out and lse, within 2e-5 /
+    2^-7 of each result's largest |value|; dw within 1e-5 of its sum of
+    |terms|. Each wrapper must count its launch, on the route of the
+    dtype. ``{name_key: error}``; raises beyond a bar."""
+    import torch
+
+    dtype = q.dtype
+    kw = dict(kw, compute_dtype=dtype, dropout_rate=rate, deterministic=rate == 0.0,
+              dropout_seed=seed)
+    args = (heads, *resolve_geometry(fa, q, kw, rate, seed), fa.BLOCK_Q, fa.BLOCK_K)
+    before, before_mma = flash_counts(), flash_mma_counts()
+    out, lse = fa._launch_fwd(q, k, v, mask, *args)
+    delta = fa._delta(go, out, heads)
+    got = fa._launch_bwd(q, k, v, mask, go, lse, delta, *args)
+    mma = int(dtype == torch.bfloat16)  # the dtype alone picks the route
+    if (flash_counts() != {kernel: n + 1 for kernel, n in before.items()}
+            or flash_mma_counts() != {k_: n + mma for k_, n in before_mma.items()}):
+        raise AssertionError(f"flash {what}: a wrapper counted no launch, or a kernel of the "
+                             "other route ran")
+    want_out, want_lse = fa._plain_fwd(q, k, v, mask, *args[:6], dtype, *args[6:])
+    want = fa.flash_attention_bwd_reference(q, k, v, mask, go, heads, out=out, lse=lse, **kw)
+    torch.cuda.synchronize()
+    row = {}
+    err = (out.float() - want_out.float()).abs().max().item()
+    lse_err = (lse - want_lse).abs().max().item()
+    row[f"fwd_max_abs_err_{key}"] = err
+    row[f"lse_max_abs_err_{key}"] = lse_err
+    bar = 2e-5 if dtype == torch.float32 else 2e-2
+    if not (err <= bar and lse_err <= 1e-5):
+        raise AssertionError(f"flash fwd {what}: out {err} > {bar} or lse {lse_err} > 1e-5")
+    bar = 2e-5 if dtype == torch.float32 else 2.0 ** -7
+    for t_name, a, c in zip(("dq", "dk", "dv"), got[:3], want[:3]):
+        err = (a.float() - c.float()).abs().max().item()
+        top = c.float().abs().max().item()
+        row[f"max_abs_err_{t_name}_{key}"] = err
+        if not err <= bar * top:
+            raise AssertionError(f"flash bwd {what} {t_name}: {err} > {bar} * {top}")
+    if args[3] is not None:  # the geometry
+        scales = flash_dw_scales(fa, q, k, v, mask, go, lse, delta, *args[1:6],
+                                 heads=heads, head_dim=head_dim)
+        for i in range(2):
+            err = abs(got[3][i].item() - want[3][i].item())
+            row[f"dw{i}_err_{key}"] = err
+            if not err <= 1e-5 * scales[i]:
+                raise AssertionError(f"flash bwd {what} dw{i}: {err} > 1e-5 * {scales[i]}")
+    elif got[3].abs().max().item() != 0.0:
+        raise AssertionError(f"flash bwd {what}: dw without a geometry")
+    return row
+
+
 def flash_kernel_phase(device):
     """The three flash kernels against their plain versions at every shape
     of FLASH_SHAPES, in fp32 (TF32 off) and bf16, dropout 0 and 0.1 (the
@@ -1650,51 +1746,9 @@ def flash_kernel_phase(device):
                 key = f"{tag}{'_dropout' if rate else ''}"
                 q, k, v, go, mask, kw = flash_inputs(b, lq, lk, kind, geometry, dtype,
                                                      device, seed=lq + lk)
-                kw = dict(kw, compute_dtype=dtype, dropout_rate=rate,
-                          deterministic=rate == 0.0, dropout_seed=4321)
-                args = (HEADS, *resolve_geometry(fa, q, kw, rate, 4321),
-                        fa.BLOCK_Q, fa.BLOCK_K)
-                before, before_mma = flash_counts(), flash_mma_counts()
-                out, lse = fa._launch_fwd(q, k, v, mask, *args)
-                delta = fa._delta(go, out, HEADS)
-                got = fa._launch_bwd(q, k, v, mask, go, lse, delta, *args)
-                mma = int(dtype == torch.bfloat16)  # the dtype alone picks the route
-                if (flash_counts() != {kernel: n + 1 for kernel, n in before.items()}
-                        or flash_mma_counts() != {k_: n + mma for k_, n in before_mma.items()}):
-                    raise AssertionError(f"flash {name} {key}: a wrapper counted no launch, or "
-                                         "a kernel of the other route ran")
-                want_out, want_lse = fa._plain_fwd(q, k, v, mask, *args[:6], dtype,
-                                                   *args[6:])
-                want = fa.flash_attention_bwd_reference(q, k, v, mask, go, HEADS, out=out,
-                                                        lse=lse, **kw)
-                torch.cuda.synchronize()
-                err = (out.float() - want_out.float()).abs().max().item()
-                lse_err = (lse - want_lse).abs().max().item()
-                row[f"fwd_max_abs_err_{key}"] = err
-                row[f"lse_max_abs_err_{key}"] = lse_err
-                bar = 2e-5 if dtype == torch.float32 else 2e-2
-                if not (err <= bar and lse_err <= 1e-5):
-                    raise AssertionError(f"flash fwd {name} {key}: out {err} > {bar} "
-                                         f"or lse {lse_err} > 1e-5")
-                bar = 2e-5 if dtype == torch.float32 else 2.0 ** -7
-                for t_name, a, c in zip(("dq", "dk", "dv"), got[:3], want[:3]):
-                    err = (a.float() - c.float()).abs().max().item()
-                    top = c.float().abs().max().item()
-                    row[f"max_abs_err_{t_name}_{key}"] = err
-                    if not err <= bar * top:
-                        raise AssertionError(f"flash bwd {name} {key} {t_name}: {err} > "
-                                             f"{bar} * {top}")
-                if geometry is not None:
-                    scales = flash_dw_scales(fa, q, k, v, mask, go, lse, delta, *args[1:6])
-                    for i in range(2):
-                        err = abs(got[3][i].item() - want[3][i].item())
-                        row[f"dw{i}_err_{key}"] = err
-                        if not err <= 1e-5 * scales[i]:
-                            raise AssertionError(f"flash bwd {name} {key} dw{i}: {err} > "
-                                                 f"1e-5 * {scales[i]}")
-                elif got[3].abs().max().item() != 0.0:
-                    raise AssertionError(f"flash bwd {name}: dw without a geometry")
-                del q, k, v, go, out, lse, delta, got, want, want_out
+                row.update(flash_errors(fa, f"{name} {key}", key, q, k, v, go, mask, kw, rate,
+                                        4321))
+                del q, k, v, go
         # timing in the main path's dtype
         rate = 0.1 if kind in ("text", "text_image") else 0.0
         q, k, v, go, mask, kw = flash_inputs(b, lq, lk, kind, geometry, torch.bfloat16,
@@ -3416,7 +3470,7 @@ def rank_agreement(gpu_scores, cpu_scores, golds, gpu_ranks, cpu_ranks, rel=1e-5
     return worst, int(near.sum()), int(differ.sum())
 
 
-def kge_ikrl_phase(device, data, lp_triples=640, pvdm_epochs=2):
+def kge_ikrl_phase(device, data, lp_triples=256, pvdm_epochs=2):
     """The IKRL silo at full width (MarKG's counts, the recipe's batch of
     33,307 // 100 = 333 triples x (1 + 25 + 25) rows). For IKRL TransE
     (d=400, margin 5, SGD lr 1), IKRL ANALOGY (d=200, softplus + regul 1)
@@ -3443,6 +3497,7 @@ def kge_ikrl_phase(device, data, lp_triples=640, pvdm_epochs=2):
     from mkg_analogy_tpu_torch.kge.trainer import KGETrainConfig, KGETrainer, draw_task_mode
     from mkg_analogy_tpu_torch.kge.transae import TransAEConfig, TransAETransE
 
+    t_start = time.perf_counter()
     E, R = data["E"], data["R"]
     store = TripleStore.from_arrays(data["triples"], E, R)
     bs = len(store) // 100
@@ -3545,6 +3600,7 @@ def kge_ikrl_phase(device, data, lp_triples=640, pvdm_epochs=2):
         nonfinite_gold=diverged["nonfinite_gold"])
 
     # link prediction with IKRL TransE, the card's weights on both sides
+    t_lp = time.perf_counter()
     cpu, gpu = models["ikrl_transe"]
     cpu.load_state_dict(gpu.state_dict())
     for name in ("ikrl_analogy", "transae"):
@@ -3587,6 +3643,7 @@ def kge_ikrl_phase(device, data, lp_triples=640, pvdm_epochs=2):
         nonfinite_gold=m_gpu["nonfinite_gold"])
 
     # one fine-tune step at B=128 (Adam), card against CPU; then 5 timed
+    t_ft = time.perf_counter()
     rows = data["mars"]["train"][:128]
     losses = []
     for m in (cpu, gpu):
@@ -3617,8 +3674,12 @@ def kge_ikrl_phase(device, data, lp_triples=640, pvdm_epochs=2):
     del tr, state, ft_batch
     del models, cpu, gpu
     torch.cuda.empty_cache()
+    # the wall clock of the phase's parts (the CPU's side of each comparison
+    # included)
+    seconds = dict(pretrain_steps=t_lp - t_start, link_prediction=t_ft - t_lp,
+                   finetune=time.perf_counter() - t_ft)
     emit(dict(phase="kge_ikrl", entities=E, relations=R, triples=len(store),
-              batch=bs, rows_per_step=bs * 51, **out))
+              batch=bs, rows_per_step=bs * 51, seconds=seconds, **out))
 
 
 def kge_rsme_phase(device, data, finetune_batch=500):
@@ -4343,6 +4404,547 @@ def mesh_kernel_phase(device):
     return errors
 
 
+# Head widths other than 64 and 128 (csrc/attention_width.cuh: each runs
+# the instance of its padded width, from a library of its own): widths that
+# are not multiples of 8 (13, 20, 116: rows loaded element by element), the
+# repo's small recipe (16: --hidden_size 32 --num_heads 2), MiniLM-L12-H384
+# (32) and a width of each padded one up to 128: 56 (the padded library of
+# 64) and 116, 120 (that of 128, the one padded instance whose blocks split
+# a head into 64-column halves, the second of d - 64 columns). Rows 1-2 at
+# MKGformer's vision over text K/V (B=32, 99 x 227), rows 3-5 at the triple
+# pre-train's text calls (B=64, 96 x 96), 12 heads.
+HEAD_WIDTHS = (8, 13, 16, 20, 24, 32, 40, 56, 80, 96, 112, 116, 120)
+HEAD_WIDTH_SINGLE = ("vision_text", 32, 99, 227)
+HEAD_WIDTH_FLASH = ("triple_text", 64, 96, 96)
+
+
+def width_counts(d):
+    """Launches at head_dim ``d`` by kernel: rows 1-2 (either route) and
+    rows 3-5 (either route, and on the tensor cores)."""
+    from mkg_analogy_tpu_torch.kernels import attention as attn
+    from mkg_analogy_tpu_torch.kernels import flash_attention as fa
+
+    out = {k: attn.WIDTH_LAUNCHES[k, d] for k in ("fwd", "bwd")}
+    out.update({f"flash{k.lower()}": fa.WIDTH_LAUNCHES_FLASH[k, d]
+                for k in ("", "_DKV", "_DQ", "_FWD_MMA", "_DKV_MMA", "_DQ_MMA")})
+    return out
+
+
+def fp32_keys(attn, d, lq, lk, smem_optin):
+    """The most keys, up to ``lk``, that a block of the fp32 single-block
+    forward and backward (the CUDA-core kernels hold K and V of every key in
+    shared memory) takes at head_dim ``d``: (forward, backward)."""
+    from mkg_analogy_tpu_torch.kernels import build
+
+    width = build.library_width(d)
+    out = []
+    for smem in (lambda n: attn._lib(width).mkg_fused_attention_fwd_smem(n, 0, d),
+                 lambda n: attn._lib_bwd(width).mkg_fused_attention_bwd_smem(lq, n, 0, d)):
+        n = lk
+        while smem(n) > smem_optin:
+            n -= 1
+        out.append(n)
+    return tuple(out)
+
+
+def sdpa_times(q, k, v, go, mask, heads, head_dim, n):
+    """(forward ms, backward ms) of scaled_dot_product_attention on the same
+    heads (the padding mask as a bias; no dropout): a yardstick only."""
+    import torch
+    import torch.nn.functional as F
+
+    b = q.shape[0]
+
+    def split(x):
+        return x.view(b, x.shape[1], heads, head_dim).transpose(1, 2)
+
+    qh, kh, vh = (split(x).detach().requires_grad_(True) for x in (q, k, v))
+    gh = split(go)
+    bias = ((1.0 - mask) * -10000.0).to(q.dtype)[:, None, None, :]
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qh, kh, vh, attn_mask=bias)
+
+    def sdpa_fwd_bwd():
+        torch.autograd.grad(sdpa(), (qh, kh, vh), gh)
+
+    fwd = time_ms(sdpa, **n)
+    return fwd, time_ms(sdpa_fwd_bwd, **n) - fwd
+
+
+def head_widths_phase(device):
+    """Rows 1-5 at every width of HEAD_WIDTHS, each through the library of
+    its padded width (built in the build phase), in fp32 (CUDA cores) and
+    bf16 (tensor cores): without a geometry and dropout, and with the
+    analogy geometry and dropout 0.1, each against its plain version at the
+    bars of the kernel phases (forward 2e-5 / 2e-2, lse 1e-5; backward 2e-5
+    / 2^-7 of each result's largest, dw 1e-5 of its terms), each launch
+    counted under its width. The fp32 kernels of rows 1-2 hold K and V of
+    every key in shared memory: where 227 keys do not fit a block (the
+    backward from padded width 112, the forward at 128) they are compared
+    at the most keys that do. Then per width and
+    dtype the kernels' times, the plain
+    versions' (bf16), SDPA's where the width is a multiple of 8 (no
+    multiplier in the timed calls) and the bounds of the real width; the
+    registers and spills ptxas reported. A call at head_dim 129 raises a
+    ValueError naming the limit, on either route."""
+    import torch
+
+    from mkg_analogy_tpu_torch.kernels import attention as attn
+    from mkg_analogy_tpu_torch.kernels import build
+    from mkg_analogy_tpu_torch.kernels import flash_attention as fa
+
+    widths = sorted({build.library_width(d) for d in HEAD_WIDTHS})
+    resources = {}
+    for w in widths:
+        for name in build.ATTENTION_SOURCES:
+            for r in build.resource_usage(name, w):
+                resources[f"d{w}/{name}/{r['entry'][-48:]}"] = [
+                    r["registers"], r["spill_store_bytes"], r["spill_load_bytes"]]
+    emit(dict(phase="head_widths", padded_widths=widths,
+              libraries=len(widths) * len(build.ATTENTION_SOURCES),
+              registers_spill_store_load=resources))
+    for fn in (attn.fused_attention, fa.flash_attention):
+        q = torch.zeros(1, 4, 2 * 129, device=device, dtype=torch.bfloat16)
+        try:
+            fn(q, q, q, torch.ones(1, 4, device=device), 2, compute_dtype=torch.bfloat16)
+        except ValueError as e:
+            if "128" not in str(e):
+                raise AssertionError(f"{fn.__name__} at head_dim 129: {e}") from e
+        else:
+            raise AssertionError(f"{fn.__name__} took head_dim 129")
+    attn.WIDTH_LAUNCHES.clear()
+    fa.WIDTH_LAUNCHES_FLASH.clear()
+    n = dict(samples=7, per_sample=5)
+    smem_optin = torch.cuda.get_device_properties(device).shared_memory_per_block_optin
+    rows = []
+    for d in HEAD_WIDTHS:
+        row = dict(head_dim=d, padded_width=build.padded_width(d), heads=HEADS)
+        _, b, lq, lk = HEAD_WIDTH_SINGLE
+        _, fb, flq, flk = HEAD_WIDTH_FLASH
+        # K and V of 227 keys and the fp32 rows pass a block's shared memory
+        # from padded width 112 (the backward) and 128 (the forward): the
+        # fp32 comparisons there take the most keys that fit
+        fwd_keys, bwd_keys = fp32_keys(attn, d, lq, lk, smem_optin)
+        row.update({f"{k_}_fp32_keys": n_ for k_, n_ in (("fwd", fwd_keys), ("bwd", bwd_keys))
+                    if n_ != lk})
+        for tag, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+            for geometry, rate in ((None, 0.0), ((0, None, 0), 0.1)):
+                key = f"{tag}{'_geometry_dropout' if rate else ''}"
+                before = width_counts(d)
+
+                def inputs(keys):
+                    q, k, v, mask, kw = attention_inputs(lq, keys, geometry, dtype, device,
+                                                         seed=d + keys, batch=b, head_dim=d)
+                    return q, k, v, mask, dict(kw, compute_dtype=dtype, dropout_rate=rate,
+                                               deterministic=rate == 0.0, dropout_seed=77)
+
+                keys = lk if dtype == torch.bfloat16 else fwd_keys
+                q, k, v, mask, call = inputs(keys)
+                got = attn.fused_attention(q, k, v, mask, HEADS, **call)
+                want = attn.fused_attention_reference(q, k, v, mask, HEADS, **call)
+                torch.cuda.synchronize()
+                err = (got.float() - want.float()).abs().max().item()
+                row[f"fwd_max_abs_err_{key}"] = err
+                bar = 2e-5 if dtype == torch.float32 else 2e-2
+                if not err <= bar:
+                    raise AssertionError(f"head_dim {d} fwd {key}: kernel vs plain {err} > {bar}")
+                g = torch.randn(q.shape, generator=torch.Generator().manual_seed(d)
+                                ).to(device, dtype)
+                if dtype == torch.float32 and bwd_keys != keys:
+                    keys = bwd_keys
+                    q, k, v, mask, call = inputs(keys)
+                row.update(bwd_errors(attn, f"head_dim {d} {key} ({lq} x {keys})", key, q, k,
+                                      v, mask, g, call, rate, 77,
+                                      2e-5 if dtype == torch.float32 else 2.0 ** -7))
+                q, k, v, go, mask, kw = flash_inputs(fb, flq, flk, "text", geometry, dtype,
+                                                     device, seed=d + flk, head_dim=d)
+                row.update({f"flash_{n_}": e for n_, e in flash_errors(
+                    fa, f"head_dim {d} {key}", key, q, k, v, go, mask, kw, rate, 78,
+                    head_dim=d).items()})
+                after = width_counts(d)
+                mma = int(dtype == torch.bfloat16)
+                want_n = dict(fwd=1, bwd=1, flash=1, flash_dkv=1, flash_dq=1,
+                              flash_fwd_mma=mma, flash_dkv_mma=mma, flash_dq_mma=mma)
+                if {k_: after[k_] - before[k_] for k_ in after} != want_n:
+                    raise AssertionError(f"head_dim {d} {key}: launches by width "
+                                         f"{before} -> {after}")
+                del q, k, v, go, g, got, want
+        # times, without a geometry or dropout (SDPA's yardstick applies)
+        for tag, dtype in (("bf16", torch.bfloat16), ("fp32", torch.float32)):
+            nbytes = 2 if dtype == torch.bfloat16 else 4
+            flops = BF16_FLOPS_PER_S if dtype == torch.bfloat16 else FP32_FLOPS_PER_S
+            q, k, v, mask, kw = attention_inputs(lq, lk, None, dtype, device, seed=7, batch=b,
+                                                 head_dim=d)
+            g = torch.randn(q.shape, generator=torch.Generator().manual_seed(8)).to(device, dtype)
+            resolved = resolve_geometry(attn, q, kw, 0.0, 0)
+            # (fp32 at 227 keys only: None where they do not fit a block)
+            row[f"fwd_ms_{tag}"] = row[f"bwd_ms_{tag}"] = None
+            if dtype == torch.bfloat16 or fwd_keys == lk:
+                row[f"fwd_ms_{tag}"] = time_ms(
+                    lambda: attn._launch_fwd(q, k, v, mask, HEADS, *resolved), **n)
+            if dtype == torch.bfloat16 or bwd_keys == lk:
+                row[f"bwd_ms_{tag}"] = time_ms(
+                    lambda: attn._launch_bwd(q, k, v, mask, g, HEADS, *resolved), **n)
+            for kernel, times in (("fwd", bound_times), ("bwd", bwd_bound_times)):
+                t_bytes, t_ops = times(b, lq, lk, nbytes, HEADS, d)
+                t_ops *= BF16_FLOPS_PER_S / flops
+                row[f"{kernel}_bound_ms_{tag}"] = max(t_bytes, t_ops)
+                row[f"{kernel}_bound_by_{tag}"] = bound_by(t_bytes, t_ops)
+            if dtype == torch.bfloat16:
+                call = dict(compute_dtype=dtype)
+                row["fwd_plain_ms"] = time_ms(
+                    lambda: attn.fused_attention_reference(q, k, v, mask, HEADS, **call), **n)
+                row["bwd_plain_ms"] = time_ms(
+                    lambda: attn.fused_attention_bwd_reference(q, k, v, mask, g, HEADS, **call),
+                    **n)
+                row["fwd_library_ms"] = row["bwd_library_ms"] = None
+                if d % 8 == 0:
+                    row["fwd_library_ms"], row["bwd_library_ms"] = sdpa_times(
+                        q, k, v, g, mask, HEADS, d, n)
+            q, k, v, go, mask, kw = flash_inputs(fb, flq, flk, "text", None, dtype, device,
+                                                 seed=7, head_dim=d)
+            args = (HEADS, *resolve_geometry(fa, q, kw, 0.0, 0), fa.BLOCK_Q, fa.BLOCK_K)
+            out, lse = fa._launch_fwd(q, k, v, mask, *args)
+            delta = fa._delta(go, out, HEADS)
+            row[f"flash_fwd_ms_{tag}"] = time_ms(lambda: fa._launch_fwd(q, k, v, mask, *args),
+                                                 **n)
+            row[f"flash_dkv_ms_{tag}"] = time_ms(
+                lambda: fa._launch_bwd_dkv(q, k, v, mask, go, lse, delta, *args), **n)
+            row[f"flash_dq_ms_{tag}"] = time_ms(
+                lambda: fa._launch_bwd_dq(q, k, v, mask, go, lse, delta, *args), **n)
+            for kernel in ("fwd", "dkv", "dq"):
+                t_bytes, t_ops = flash_bound_times(kernel, fb, flq, flk, nbytes, HEADS, d,
+                                                   flops_per_s=flops)
+                row[f"flash_{kernel}_bound_ms_{tag}"] = max(t_bytes, t_ops)
+                row[f"flash_{kernel}_bound_by_{tag}"] = bound_by(t_bytes, t_ops)
+            if dtype == torch.bfloat16:
+                call = dict(compute_dtype=dtype)
+                row["flash_fwd_plain_ms"] = time_ms(
+                    lambda: fa.flash_attention_reference(q, k, v, mask, HEADS, **call), **n)
+                row["flash_bwd_plain_ms"] = time_ms(
+                    lambda: fa.flash_attention_bwd_reference(q, k, v, mask, go, HEADS, out=out,
+                                                             lse=lse, **call), **n)
+                row["flash_fwd_library_ms"] = row["flash_bwd_library_ms"] = None
+                if d % 8 == 0:
+                    row["flash_fwd_library_ms"], row["flash_bwd_library_ms"] = sdpa_times(
+                        q, k, v, go, mask, HEADS, d, n)
+            del q, k, v, go, g, out, lse, delta
+        row["launches"] = width_counts(d)
+        rows.append(row)
+        emit(dict(phase="head_widths", **row))
+        torch.cuda.empty_cache()
+    return rows
+
+
+class PathCalls:
+    """Within the block, keeps the first call of each kind that the models
+    send to the single-block and flash wrappers (models/common.py's
+    ATTENTION_BACKENDS, looked up at every call): its inputs, cloned, and
+    its keyword arguments, by route, dtype, shapes, heads, geometry and
+    dropout. The wrappers then run as they would: this launches nothing."""
+
+    def __init__(self):
+        self.calls = {}
+
+    def __enter__(self):
+        import torch
+
+        from mkg_analogy_tpu_torch.models import common
+
+        self._saved = dict(common.ATTENTION_BACKENDS)
+
+        def keeping(route, fn):
+            def call(q, k, v, mask, num_heads, **kw):
+                key = (route, str(q.dtype).split(".")[-1], tuple(q.shape), k.shape[1],
+                       num_heads, kw.get("boundary") is not None,
+                       kw.get("dropout_rate", 0.0) > 0.0)
+                if key not in self.calls:
+                    self.calls[key] = (
+                        [t.detach().clone() for t in (q, k, v, mask)], num_heads,
+                        {n: t.detach().clone() if torch.is_tensor(t) else t
+                         for n, t in kw.items()})
+                return fn(q, k, v, mask, num_heads, **kw)
+
+            return call
+
+        for route in ("single", "flash"):
+            common.ATTENTION_BACKENDS[route] = keeping(route, self._saved[route])
+        return self
+
+    def __exit__(self, *exc):
+        from mkg_analogy_tpu_torch.models import common
+
+        common.ATTENTION_BACKENDS.update(self._saved)
+        return False
+
+
+def path_call_errors(calls, what):
+    """Each call that PathCalls kept, with its own inputs, geometry, dropout
+    rate and seed, through its kernels against their plain versions at the
+    kernel phases' bars: rows 1-2 forward within 2e-5 fp32 / 2e-2 bf16 and
+    backward (bwd_errors, a cotangent from a seed) within 2e-5 / 2^-7 of
+    each result's largest; rows 3-5 by flash_errors. ``{call: errors}``;
+    raises beyond a bar."""
+    import torch
+
+    from mkg_analogy_tpu_torch.kernels import attention as attn
+    from mkg_analogy_tpu_torch.kernels import flash_attention as fa
+
+    out = {}
+    for i, (key, ((q, k, v, mask), heads, kw)) in enumerate(sorted(calls.items(), key=str)):
+        route, dtype, shape, lk, _, geometry, dropout = key
+        d = q.shape[2] // heads
+        name = (f"{route}_{dtype}_B{shape[0]}_{shape[1]}x{lk}_heads{heads}_d{d}"
+                f"{'_geometry' if geometry else ''}{'_dropout' if dropout else ''}")
+        rate, seed = kw.get("dropout_rate", 0.0), kw.get("dropout_seed") or 0
+        mask = mask.to(attn._acc_dtype(q)).contiguous()
+        g = torch.randn(q.shape, generator=torch.Generator().manual_seed(i)).to(q.device, q.dtype)
+        fp32 = q.dtype == torch.float32
+        if route == "single":
+            got = attn.fused_attention(q, k, v, mask, heads, **kw)
+            want = attn.fused_attention_reference(q, k, v, mask, heads, **kw)
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs().max().item()
+            bar = 2e-5 if fp32 else 2e-2
+            if not err <= bar:
+                raise AssertionError(f"{what} {name}: fwd kernel vs plain {err} > {bar}")
+            row = {f"fwd_max_abs_err_{dtype}": err}
+            row.update(bwd_errors(attn, f"{what} {name}", dtype, q, k, v, mask, g, kw, rate,
+                                  seed, 2e-5 if fp32 else 2.0 ** -7, heads=heads))
+        else:
+            row = {f"flash_{n}": e for n, e in flash_errors(
+                fa, f"{what} {name}", dtype, q, k, v, g, mask, kw, rate, seed, head_dim=d,
+                heads=heads).items()}
+        out[name] = row
+    return out
+
+
+def cli_widths_phase(device):
+    """The slice's main paths at head widths other than 64 and 128, the
+    launch counts set to 0 before each path and read after it.
+    (a) The verify recipe's model (``--hidden_size 32 --num_layers 2
+    --num_heads 2 --intermediate_size 64``: head_dim 16) through the CLI:
+    a 2-epoch fine-tune and ``--only_test --checkpoint`` on its checkpoint,
+    under ``--fused_attention 1`` and ``flash``, in fp32 and bf16, on a
+    synthetic MARS/MarKG; the CLI builds the head_dim-16 libraries before
+    its first batch; the retest gives the fit's ranks exactly; each fp32
+    fit's per-epoch losses within 1e-5 relative of ``--fused_attention 0``'s
+    (dropout on: the one logical tile of these lengths draws the
+    single-block kernel's masks). (b) MiniLM-L12-H384's widths (384 wide,
+    12 layers, 12 heads of 32, MLP 1536) in both towers, one full-length
+    fine-tune step (B=32, L=128, dropout on) through ``single`` and
+    ``flash``: fp32 against the plain attention at the train phase's bars,
+    then 4 bf16 steps each (the loss finite and falling), 24 launches of
+    each kernel a step, all at head_dim 32. Each path's calls, of each kind
+    the models sent the kernels (PathCalls: the first of each route, dtype,
+    shape, geometry and dropout), are then held against the plain versions
+    with their own inputs, after the counts were read (path_call_errors)."""
+    import numpy as np
+    import torch
+
+    from mkg_analogy_tpu_torch.cli import main as cli
+    from mkg_analogy_tpu_torch.kernels import attention as attn
+    from mkg_analogy_tpu_torch.kernels import flash_attention as fa
+    from mkg_analogy_tpu_torch.models.common import DropoutRNG
+    from mkg_analogy_tpu_torch.models.registry import create_model
+    from mkg_analogy_tpu_torch.train.optim import make_optimizer
+    from mkg_analogy_tpu_torch.train.trainer import MarTTrainer, TrainConfig
+
+    t_start = time.perf_counter()
+    out = dict(phase="cli_widths")
+    small = ["--hidden_size", "32", "--num_layers", "2", "--num_heads", "2",
+             "--intermediate_size", "64"]
+    runs = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_widths_", dir=".") as root:
+        markg, mars = write_dataset(root, n_train=64, n_test=48)
+
+        def argv(name, *extra):
+            return ["--data_dir", mars, "--pretrain_path", markg, "--device", "cuda",
+                    "--max_seq_length", "48", "--text_vocab_size", "256",
+                    "--batch_size", "8", "--eval_batch_size", "16", "--lr", "1e-3",
+                    "--image_features", "synthetic", *small,
+                    "--output_dir", os.path.join(root, name),
+                    "--log_dir", os.path.join(root, name, "logs"),
+                    "--cache_dir", os.path.join(root, "cache"), *extra]
+
+        reset_counts()
+        attn.WIDTH_LAUNCHES.clear()
+        fa.WIDTH_LAUNCHES_FLASH.clear()
+        calls_a = PathCalls()
+        for fused, dtype in (("1", "float32"), ("1", "bfloat16"), ("flash", "float32"),
+                             ("flash", "bfloat16"), ("0", "float32")):
+            with calls_a:
+                name = f"{fused}_{dtype}"
+                with BuildOrder() as order:
+                    metrics = cli.main(argv(name, "--fused_attention", fused, "--dtype", dtype,
+                                            "--max_epochs", "2"))
+                order.check(f"cli_widths {name}")
+                order.check_widths(f"cli_widths {name}", [16])
+                with open(os.path.join(root, name, "logs", "train_metrics.jsonl")) as f:
+                    losses = [json.loads(line)["train/last_loss"] for line in f
+                              if "train/last_loss" in line]
+                ranks = np.load(os.path.join(root, name, "test_ranks.npz"))["ranks"]
+                retest = cli.main(argv(name + "_retest", "--fused_attention", fused,
+                                       "--dtype", dtype, "--only_test", "--checkpoint",
+                                       os.path.join(root, name, "ckpt")))
+                again = np.load(os.path.join(root, name + "_retest", "test_ranks.npz"))["ranks"]
+                if not np.array_equal(again, ranks) or retest != metrics:
+                    raise AssertionError(f"cli_widths {name}: --only_test --checkpoint did not "
+                                         "reproduce the fit's test ranks")
+                if not (losses and all(map(math.isfinite, losses))
+                        and all(math.isfinite(v) for v in metrics.values())):
+                    raise AssertionError(f"cli_widths {name}: losses {losses}, {metrics}")
+                runs[name] = dict(losses=losses, test_mrr=metrics["Eval_entity/mrr"])
+        counts = width_counts(16)
+        out["path_a"] = dict(runs=runs, launches_head_dim_16=counts, widths=small)
+        if not (all(counts.values()) and attn.LAUNCHES_D128 == 0):
+            raise AssertionError(f"cli_widths (a): a kernel at head_dim 16 was not launched: "
+                                 f"{counts}")
+        plain = runs["0_float32"]["losses"]
+        for name in ("1_float32", "flash_float32"):
+            rel = max(abs(a - p) / abs(p) for a, p in zip(runs[name]["losses"], plain))
+            runs[name]["loss_rel_diff_vs_plain"] = rel
+            if not (len(runs[name]["losses"]) == len(plain) and rel <= 1e-5):
+                raise AssertionError(f"cli_widths {name}: losses {runs[name]['losses']} vs "
+                                     f"plain {plain}")
+
+    # (b) MiniLM-L12-H384's widths, one full-length step
+    batch = train_batch(device)
+    minilm = dict(hidden_size=384, num_layers=12, num_heads=12, intermediate_size=1536)
+    with torch.device(device):
+        model = create_model("MKGformerKGC", vocab_size=42112, dtype="float32", **minilm)
+    model.init_params(torch.Generator(device=device).manual_seed(0))
+    state = {k: v.clone() for k, v in model.state_dict().items()}
+    trainer = MarTTrainer(model, _AnalogyVocab(), TrainConfig(), device=device)
+    grads = {}
+    calls_b = PathCalls()
+    for backend in ("single", "flash", "plain"):
+        model.load_state_dict(state)
+        set_backend(model, backend)
+        model.zero_grad(set_to_none=True)
+        with calls_b:
+            loss, _ = trainer._finetune_loss(batch, DropoutRNG.from_seed(5, device))
+        loss.backward()
+        torch.cuda.synchronize()
+        grads[backend] = (loss.item(), {n_: p.grad.clone() for n_, p in model.named_parameters()})
+    lp, gp = grads.pop("plain")
+    top = max(g.abs().max().item() for g in gp.values())
+    fp32 = {}
+    for backend, (lk_, gk) in grads.items():
+        if not (math.isfinite(lk_) and abs(lk_ - lp) <= 1e-5 * abs(lp)):
+            raise AssertionError(f"cli_widths (b) fp32 {backend}: loss {lk_} vs plain {lp}")
+        worst = 0.0
+        for name, want in gp.items():
+            err = (gk[name] - want).abs().max().item()
+            bound = 1e-3 * want.abs().max().item() + 1e-6 * top
+            if not err <= bound:
+                raise AssertionError(f"cli_widths (b) fp32 {backend} grad {name}: {err} > "
+                                     f"{bound}")
+            worst = max(worst, err / bound)
+        fp32[backend] = dict(loss=lk_, loss_plain=lp, loss_rel_diff=abs(lk_ - lp) / abs(lp),
+                             worst_err_over_bound=worst)
+    del grads, gp, model, trainer
+    torch.cuda.empty_cache()
+    bf16 = {}
+    for backend in ("single", "flash"):
+        with torch.device(device):
+            model = create_model("MKGformerKGC", vocab_size=42112, dtype="bfloat16",
+                                 attention=backend, **minilm)
+        model.load_state_dict(state)
+        trainer = MarTTrainer(model, _AnalogyVocab(), TrainConfig(seed=3), device=device)
+        opt = make_optimizer(model, 1e-4, 100, warmup_ratio=0.0)
+        reset_counts()
+        attn.WIDTH_LAUNCHES.clear()
+        fa.WIDTH_LAUNCHES_FLASH.clear()
+        losses, times = [], []
+        for step in range(4):
+            t0 = time.perf_counter()
+            with calls_b:
+                metrics = trainer._train_step(opt, batch, step)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            losses.append(metrics["loss"].item())
+        counts = width_counts(32)
+        want = (dict(fwd=96, bwd=96) if backend == "single" else
+                dict(flash=96, flash_dkv=96, flash_dq=96, flash_fwd_mma=96,
+                     flash_dkv_mma=96, flash_dq_mma=96))
+        if {k_: counts[k_] for k_ in want} != want:
+            raise AssertionError(f"cli_widths (b) bf16 {backend}: launches at head_dim 32 "
+                                 f"{counts}, expected {want}")
+        if not all(map(math.isfinite, losses)) or not losses[-1] < losses[0]:
+            raise AssertionError(f"cli_widths (b) bf16 {backend}: the loss did not fall: "
+                                 f"{losses}")
+        bf16[backend] = dict(losses=losses, step_ms=times, launches_head_dim_32=counts)
+        del model, trainer, opt
+        torch.cuda.empty_cache()
+    out["path_b"] = dict(widths=minilm, B=TRAIN_BATCH, L=128, fp32=fp32, bf16=bf16)
+    # the kernels on each path's own calls (their launches are not the paths')
+    out["path_a"]["calls"] = path_call_errors(calls_a.calls, "cli_widths (a)")
+    out["path_b"]["calls"] = path_call_errors(calls_b.calls, "cli_widths (b)")
+    emit(dict(out, seconds=time.perf_counter() - t_start))
+    return dict(a=out["path_a"]["launches_head_dim_16"],
+                b={k: v["launches_head_dim_32"] for k, v in bf16.items()},
+                calls=[row for p in ("path_a", "path_b") for row in out[p]["calls"].values()])
+
+
+def width_entries(rows, launches):
+    """The {"kernels": ...} entries of rows 1-5 at the head widths of
+    HEAD_WIDTHS: per row its time, plain, library and bound at MiniLM's
+    width 32 (path (b)'s, at the phase's shapes), ``launches`` the main
+    paths' (cli_widths: head_dim 16 through the CLI, 32 through the step,
+    and in ``calls`` the errors on those paths' own calls), errors the
+    largest over the widths, and per width its numbers."""
+    at32 = next(r for r in rows if r["head_dim"] == 32)
+    entries = []
+    for kernel, source, line, pre, grads in (
+            ("fused_attention_fwd", "fused_attention_fwd", "attention.py:124", "fwd", None),
+            ("fused_attention_bwd", "fused_attention_bwd", "attention.py:159", "bwd",
+             ("dq", "dk", "dv")),
+            ("flash_attention_fwd", "flash_attention_fwd", "flash_attention.py:98",
+             "flash_fwd", None),
+            ("flash_attention_bwd_dkv", "flash_attention_bwd", "flash_attention.py:183",
+             "flash_dkv", ("dk", "dv")),
+            ("flash_attention_bwd_dq", "flash_attention_bwd", "flash_attention.py:271",
+             "flash_dq", ("dq",))):
+        flash = pre.startswith("flash")
+        lead = "flash_" if flash else ""
+        keys = ([f"{lead}fwd_max_abs_err_"] if grads is None else
+                [f"{lead}max_abs_err_{t}_" for t in grads])
+
+        count = {"fwd": "fwd", "bwd": "bwd", "flash_fwd": "flash_fwd_mma",
+                 "flash_dkv": "flash_dkv_mma", "flash_dq": "flash_dq_mma"}[pre]
+        plain = (f"{lead}fwd_plain_ms" if pre.endswith("fwd") else f"{lead}bwd_plain_ms")
+        library = plain.replace("plain", "library")
+        entries.append(dict(
+            name=f"{kernel}_padded_widths", route="cuda",
+            source=f"mkg_analogy_tpu_torch/csrc/{source}_mma.cu",
+            source_fp32=f"mkg_analogy_tpu_torch/csrc/{source}.cu",
+            replaces=f"mkg_analogy_tpu/kernels/{line}", ok=True,
+            head_dims=list(HEAD_WIDTHS),
+            launches=launches["a"][count] + sum(v[count] for v in launches["b"].values()),
+            max_abs_err=max(r[k_ + t] for r in rows for k_ in keys
+                            for t in ("bf16", "bf16_geometry_dropout")),
+            # (the fp32 backward from padded width 112 at fewer keys: bwd_fp32_keys)
+            max_abs_err_fp32=max(r[k_ + t] for r in rows for k_ in keys
+                                 for t in ("fp32", "fp32_geometry_dropout")),
+            # on the calls of paths (a) and (b), with their own inputs
+            max_abs_err_main_paths=max(r[k_ + "bfloat16"] for r in launches["calls"]
+                                       for k_ in keys if k_ + "bfloat16" in r),
+            max_abs_err_main_paths_fp32=max(r[k_ + "float32"] for r in launches["calls"]
+                                            for k_ in keys if k_ + "float32" in r),
+            ms=at32[f"{pre}_ms_bf16"], ms_fp32=at32[f"{pre}_ms_fp32"],
+            plain_ms=at32[plain], bound_ms=at32[f"{pre}_bound_ms_bf16"],
+            bound_by=at32[f"{pre}_bound_by_bf16"], library_ms=at32[library],
+            widths=[dict(head_dim=r["head_dim"], padded_width=r["padded_width"],
+                         ms=r[f"{pre}_ms_bf16"], ms_fp32=r[f"{pre}_ms_fp32"],
+                         bound_ms=r[f"{pre}_bound_ms_bf16"],
+                         bound_ms_fp32=r[f"{pre}_bound_ms_fp32"], plain_ms=r[plain],
+                         library_ms=r[library], launches=r["launches"][count])
+                    for r in rows]))
+    return entries
+
+
 def flash_entry(rows, kernel, launches, edges):
     """One flash kernel's entry of the {"kernels": ...} line. Its times and
     bounds are per triple pre-train step at B=64 (12 text 96 x 96, 8 vision
@@ -4414,9 +5016,14 @@ def main() -> int:
     emit(dict(phase="card", card=card, torch=torch.__version__,
               cuda=torch.version.cuda))
     t0 = time.perf_counter()
-    build.build()
-    emit(dict(phase="build", seconds=time.perf_counter() - t0,
-              kernels=sorted(p.stem for p in build.CSRC.glob("*.cu")),
+    # the nine libraries and the attention libraries of HEAD_WIDTHS' padded
+    # widths: one nvcc each, all started together, before any timed phase
+    kernels = sorted(p.stem for p in build.CSRC.glob("*.cu"))
+    widths = sorted({build.library_width(d) for d in HEAD_WIDTHS})
+    build.build_jobs([(name, None) for name in kernels]
+                     + [(name, w) for w in widths for name in build.ATTENTION_SOURCES])
+    emit(dict(phase="build", seconds=time.perf_counter() - t0, kernels=kernels,
+              padded_widths=widths, width_libraries=len(widths) * len(build.ATTENTION_SOURCES),
               # what ptxas -v said of the tensor-core kernels (no profiler of
               # kernel internals runs everywhere)
               resources={name: build.resource_usage(name)
@@ -4472,6 +5079,8 @@ def main() -> int:
     kge_rsme_phase(device, kge)
     del kge
     cli_kge_phase()
+    width_rows = head_widths_phase(device)
+    width_launches = cli_widths_phase(device)
     region_d64 = {k: sum(r[k] - r[f"{k}_d128"] for r in region_launches.values())
                   for k in ("single_fwd", "single_bwd")}
     d128_rows = [r for r in region_rows if r["head_dim"] == 128]
@@ -4622,7 +5231,7 @@ def main() -> int:
         # the shape at which one F.interpolate call computes the same
         **{k: resize_rows[0][k] for k in ("plain_ms", "bound_ms", "bound_by", "library_ms")},
         ms=resize_rows[0]["kernel_ms"], shapes=resize_rows,
-    )]})
+    )] + width_entries(width_rows, width_launches)})
     print(card)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -427,6 +427,12 @@ def _run(args, device, devices):
     ))
     with torch.device(device):
         model = make_model(args, data.vocab.padded_vocab_size)
+    # the attention libraries of the model's head widths other than 64 and
+    # 128 (kernels/build.py:build_widths), before the first batch too
+    from ..models.common import attention_head_dims
+
+    _rank0_first(lambda: enable_compilation_cache(
+        device, kernels=False, head_dims=attention_head_dims(model)))
     cfg = TrainConfig(
         lr=args.lr,
         max_epochs=args.max_epochs,

@@ -16,16 +16,21 @@ import torch
 
 
 def enable_compilation_cache(device="cuda", kernels: bool = True,
-                             native_sampler: bool = False) -> None:
+                             native_sampler: bool = False, head_dims=()) -> None:
     """Build, before the first step, the native libraries a run on
     ``device`` launches: with ``kernels``, every ``csrc/*.cu`` (one nvcc
-    process each, all started together), only where ``device`` is a CUDA
+    process each, all started together), and for ``head_dims`` the
+    attention libraries of each width other than 64 and 128
+    (``kernels/build.py:build_widths``), only where ``device`` is a CUDA
     device; with ``native_sampler``, the OpenKE sampler. Libraries already
     built are reused."""
-    if kernels and torch.device(device).type == "cuda":
+    if torch.device(device).type == "cuda" and (kernels or head_dims):
         from ..kernels import build
 
-        build.build()
+        if kernels:
+            build.build()
+        if head_dims:
+            build.build_widths(head_dims)
     if native_sampler:
         from ..native import build as native_build
 

@@ -26,16 +26,23 @@
 // So two neighbouring 16 x 8 accumulator tiles, rounded to bf16 and packed
 // in pairs, are the A fragment of the next product (pack_a): probabilities
 // and dS never pass through shared memory. A tile is 64 rows of D bf16 in
-// shared memory (D the head width: 64, or 128 for ViLBERT's visual stream),
-// rows padded to D + 8 (144 or 272 bytes, 9 or 17 16-byte units), so the
-// eight 16-byte rows one ldmatrix phase reads fall in eight different
-// 16-byte bank groups. The same tile feeds a product as "rows x depth"
-// (ldmatrix, product_nt: Q K^T, g V^T, K Q^T, V g^T; the depth is the head
-// width) and as "depth x columns" (ldmatrix.trans, product_nn: P V, dS K,
-// P^T g, dS^T Q; 64 of the head's columns, so at D = 128 a block computes
-// one half of its head's result columns). Every helper that addresses a
-// tile takes D as its first template argument, 64 by default; the
-// single-block and the flash kernels instantiate both widths.
+// shared memory (D the tile width: 64, 128 for ViLBERT's visual stream, or
+// another multiple of 16 up to 128, attention_width.cuh), rows padded to
+// D + 8 (144 or 272 bytes at 64 or 128, an odd count of 16-byte units at
+// every D), so the eight 16-byte rows one ldmatrix phase reads fall in
+// eight different 16-byte bank groups. The same tile feeds a product as
+// "rows x depth" (ldmatrix, product_nt: Q K^T, g V^T, K Q^T, V g^T; the
+// depth is the tile width) and as "depth x columns" (ldmatrix.trans,
+// product_nn: P V, dS K, P^T g, dS^T Q; the block's cols_of<D>() result
+// columns: all D, but 64 of 128, so at D = 128 a block computes one half of
+// its head's result columns). Every helper that addresses a tile takes D as
+// its first template argument, 64 by default.
+//
+// Tile widths other than 64 and 128 (registers by ptxas -v, PERF.md): a
+// block owns all its D result columns at every D up to 112, so its result
+// accumulators grow to 14 tiles of 16 x 8 at 112 (56 registers a thread)
+// where 128's halves keep 8; the halves' split would pay the score row
+// twice for a remainder of 16-48 columns.
 //
 // Cast points live in the kernels, not here. fp32 inputs do not come this
 // way: TF32 keeps ~3 decimal digits and the fp32 kernels are held to 2e-5,
@@ -49,9 +56,12 @@
 #include <cfloat>
 #include <cmath>
 
+#include "attention_width.cuh"
+
 namespace attention_mma {
 
 using bf16 = __nv_bfloat16;
+using attention_width::kRagged;
 
 constexpr int kHeadDim = 64;          // the default head width
 constexpr int kTile = 64;            // rows of a block's tile and of a streamed chunk
@@ -72,11 +82,28 @@ constexpr int kStride = stride_of<kHeadDim>();
 constexpr int kTileElems = tile_elems<kHeadDim>();
 constexpr int kTileBytes = tile_bytes<kHeadDim>();
 
-// 64-column halves of a head of width D (the result columns a block owns).
+// The blocks that share a head's result columns: two 64-column halves at
+// D = 128, one block otherwise; and the result columns a block owns.
 template <int D>
 __host__ __device__ constexpr int halves_of() {
-  static_assert(D == 64 || D == 128, "head width 64 or 128");
-  return D / 64;
+  static_assert(D % 16 == 0 && D >= 16 && D <= 128, "tile width: a multiple of 16 to 128");
+  return D == 128 ? 2 : 1;
+}
+template <int D>
+__host__ __device__ constexpr int cols_of() { return D / halves_of<D>(); }
+
+// The call's head width: D itself, or (in a library of one padded width)
+// the width the call passed in its arguments' `d`. The forwards keep the
+// constant D where the library is of 64 and 128, without this call: read
+// through it, the streaming forward at 128 took 148 registers, not 130,
+// and the forwards ran 1.4-1.9% slower (PERF.md).
+template <int D, class A>
+__device__ __forceinline__ int head_width(const A& a) {
+  if constexpr (kRagged) {
+    return a.d;
+  } else {
+    return D;
+  }
 }
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -141,17 +168,37 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], 
 
 // Stage up to 64 rows of D columns of one head (`ld` elements apart in
 // global memory) into a padded tile with 16-byte cp.async; rows from
-// `rows_valid` on are zero-filled. src points at the tile's first row, which
-// is always valid. The caller commits.
+// `rows_valid` on are zero-filled, and so are the columns from `cols_valid`
+// on (a library of one padded width: the head's real width ends there).
+// src points at the tile's first row, which is always valid. The caller
+// commits. Rows whose start is not 16-byte aligned (a width that is not a
+// multiple of 8) are copied element by element, synchronously: visible
+// after the same barrier as a cp.async, and the commit groups stay empty.
 // The index is unsigned: a signed one costs the division and the modulo
 // their sign fix-ups (3% of the forward's time at 64, measured).
 template <int D = kHeadDim>
-__device__ __forceinline__ void stage_tile(bf16* dst, const bf16* src, int rows_valid, int ld) {
+__device__ __forceinline__ void stage_tile(bf16* dst, const bf16* src, int rows_valid, int ld,
+                                           int cols_valid = D) {
   constexpr unsigned kPieces = D / 8;  // 16-byte pieces a row
-  for (unsigned i = threadIdx.x; i < kTile * kPieces; i += kThreads) {
-    const int r = int(i / kPieces), c = int(i % kPieces) * 8;
-    const bool valid = r < rows_valid;
-    cp_async_16(dst + r * stride_of<D>() + c, src + size_t(valid ? r : 0) * ld + c, valid);
+  if constexpr (!kRagged) {
+    for (unsigned i = threadIdx.x; i < kTile * kPieces; i += kThreads) {
+      const int r = int(i / kPieces), c = int(i % kPieces) * 8;
+      const bool valid = r < rows_valid;
+      cp_async_16(dst + r * stride_of<D>() + c, src + size_t(valid ? r : 0) * ld + c, valid);
+    }
+  } else if (attention_width::rows_aligned(src, ld, min(cols_valid, D), 2)) {
+    for (unsigned i = threadIdx.x; i < kTile * kPieces; i += kThreads) {
+      const int r = int(i / kPieces), c = int(i % kPieces) * 8;
+      const bool valid = r < rows_valid && c < cols_valid;
+      cp_async_16(dst + r * stride_of<D>() + c, src + (valid ? size_t(r) * ld + c : 0), valid);
+    }
+  } else {
+    const uint16_t* s = reinterpret_cast<const uint16_t*>(src);
+    uint16_t* t = reinterpret_cast<uint16_t*>(dst);
+    for (unsigned i = threadIdx.x; i < kTile * D; i += kThreads) {
+      const int r = int(i / D), c = int(i % D);
+      t[r * stride_of<D>() + c] = r < rows_valid && c < cols_valid ? s[size_t(r) * ld + c] : 0;
+    }
   }
 }
 
@@ -193,22 +240,24 @@ __device__ __forceinline__ void product_nt(float (&c)[NT][4], const uint32_t (&a
   }
 }
 
-// c[nt] (16 x 8 each, 64 head columns from `tile`, which may point at a
-// tile's second half) += A * tile: the depth is the tile's first 16 KS rows
-// (64, or 32 for half a tile), a[ks] covering rows 16 ks .. 16 ks + 15.
-template <int D = kHeadDim, int KS>
-__device__ __forceinline__ void product_nn(float (&c)[8][4], const uint32_t (&a)[KS][4],
+// c[nt] (16 x 8 each, 8 NT head columns from `tile`, which may point at a
+// tile's second half: 64 by default, a block's cols_of<D>() in general;
+// NT even) += A * tile: the depth is the tile's first 16 KS rows (64, or 32
+// for half a tile), a[ks] covering rows 16 ks .. 16 ks + 15.
+template <int D = kHeadDim, int KS, int NT>
+__device__ __forceinline__ void product_nn(float (&c)[NT][4], const uint32_t (&a)[KS][4],
                                            const bf16* tile) {
+  static_assert(NT % 2 == 0, "column tiles in pairs of 16 columns");
   constexpr int kS = stride_of<D>();
   const int lane = threadIdx.x & 31;
   const bf16* p = tile + (lane & 15) * kS + 8 * (lane >> 4);
 #pragma unroll
   for (int ks = 0; ks < KS; ++ks) {
-    uint32_t b[4][4];
+    uint32_t b[NT / 2][4];
 #pragma unroll
-    for (int dp = 0; dp < 4; ++dp) ldmatrix_x4_trans(b[dp], p + ks * 16 * kS + dp * 16);
+    for (int dp = 0; dp < NT / 2; ++dp) ldmatrix_x4_trans(b[dp], p + ks * 16 * kS + dp * 16);
 #pragma unroll
-    for (int dp = 0; dp < 4; ++dp) {
+    for (int dp = 0; dp < NT / 2; ++dp) {
       mma_bf16(c[2 * dp], a[ks], b[dp][0], b[dp][1]);
       mma_bf16(c[2 * dp + 1], a[ks], b[dp][2], b[dp][3]);
     }
@@ -251,30 +300,41 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-// A warp's 16 x 64 fp32 result, rounded to bf16, through its own 16 rows of
-// a tile of width D in shared memory (which no other warp touches; its
-// first 64 columns) to global memory in 16-byte pieces; rows from
-// `rows_valid` on are not stored.
-template <int D = kHeadDim>
+// A warp's 16 x 8 NT fp32 result (64 columns by default), rounded to bf16,
+// through its own 16 rows of a tile of width D in shared memory (which no
+// other warp touches; its first 8 NT columns) to global memory in 16-byte
+// pieces; rows from `rows_valid` on and columns from `cols_valid` on are
+// not stored (element by element where the rows are not 16-byte aligned,
+// as stage_tile loads them).
+template <int D = kHeadDim, int NT>
 __device__ __forceinline__ void store_rows(bf16* dst, int ld, int rows_valid, bf16* rows,
-                                           const float (&c)[8][4]) {
+                                           const float (&c)[NT][4], int cols_valid = 8 * NT) {
   constexpr int kS = stride_of<D>();
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   __syncwarp();
 #pragma unroll
-  for (int nt = 0; nt < 8; ++nt) {
+  for (int nt = 0; nt < NT; ++nt) {
     *reinterpret_cast<uint32_t*>(rows + g * kS + nt * 8 + 2 * t) =
         pack_bf16(c[nt][0], c[nt][1]);
     *reinterpret_cast<uint32_t*>(rows + (g + 8) * kS + nt * 8 + 2 * t) =
         pack_bf16(c[nt][2], c[nt][3]);
   }
   __syncwarp();
+  if (!kRagged || attention_width::rows_aligned(dst, ld, min(cols_valid, 8 * NT), 2)) {
 #pragma unroll
-  for (int i = lane; i < 16 * 8; i += 32) {
-    const int r = i >> 3, col = (i & 7) * 8;
-    if (r < rows_valid) {
-      *reinterpret_cast<uint4*>(dst + size_t(r) * ld + col) =
-          *reinterpret_cast<const uint4*>(rows + r * kS + col);
+    for (int i = lane; i < 16 * NT; i += 32) {
+      // (at NT = 8 the shifts of the 64-column form, whose registers the
+      // instances of 64 and 128 were tuned with)
+      const int r = NT == 8 ? i >> 3 : i / NT, col = (NT == 8 ? i & 7 : i % NT) * 8;
+      if (r < rows_valid && (!kRagged || col < cols_valid)) {
+        *reinterpret_cast<uint4*>(dst + size_t(r) * ld + col) =
+            *reinterpret_cast<const uint4*>(rows + r * kS + col);
+      }
+    }
+  } else {
+    for (int i = lane; i < 16 * 8 * NT; i += 32) {
+      const int r = i / (8 * NT), col = i % (8 * NT);
+      if (r < rows_valid && col < cols_valid) dst[size_t(r) * ld + col] = rows[r * kS + col];
     }
   }
 }
@@ -363,9 +423,14 @@ __device__ __forceinline__ Geometry load_geometry(int has, int row_start, int te
 // plain version's two roundings there: without a geometry s = fmaf(acc,
 // scale, bias), as at 64; with one s_raw = acc * scale is rounded first
 // (pre = scale) and s = fmaf(s_raw, w or 1, bias) (c = w or 1).
+//
+// A library of one padded width (attention_width.cuh) keeps the two
+// roundings at every width, 64 included: its scale is d^-1/2 of the real
+// width, a power of two only at d = 1, 4, 16 and 64, where the two forms
+// agree anyway.
 template <int D>
 __device__ __forceinline__ float score_of(float acc, float pre, float c, float bias) {
-  if constexpr (D == 64) {
+  if constexpr (D == 64 && !kRagged) {
     return fmaf(acc, c, bias);
   } else {
     return fmaf(__fmul_rn(acc, pre), c, bias);
@@ -378,7 +443,7 @@ struct ScoreRule {
   float c_plain;  // c outside the answer region
 
   __device__ __forceinline__ ScoreRule(float scale, int has_geometry) {
-    const bool two_step = D != 64 && has_geometry;
+    const bool two_step = (D != 64 || kRagged) && has_geometry;
     pre = two_step ? scale : 1.0f;
     c_plain = two_step ? 1.0f : scale;
   }

@@ -1,0 +1,100 @@
+// The head widths of the attention kernels (rows 1-5), shared by all eight
+// attention sources.
+//
+// The TPU kernels (mkg_analogy_tpu/kernels/attention.py :303,
+// flash_attention.py :379) take any head width d = hd / heads. Here a
+// kernel is a template on its tile width D, and a library carries either
+//   - built as it stands: the instances D = 64 and D = 128, for calls of
+//     exactly that width (BERT-base, ViT-B; ViLBERT's visual stream). Their
+//     code is what it was before other widths came: every row is the whole
+//     tile, every load and store 16 bytes;
+//   - built with -DMKG_ATTN_DP=<Dp> (kernels/build.py, one library a padded
+//     width): the one instance D = Dp, a multiple of 16 from 16 to 128, for
+//     every call whose width d rounds up to it (d in Dp - 15 .. Dp, d not 64
+//     or 128). The call passes d. The columns d .. Dp - 1 of every staged
+//     tile are zero: a zero column of Q and K leaves each score as it is, a
+//     zero column of V or of the output cotangent leaves P V, dP and delta as
+//     they are, so the products run over Dp columns as over d and the
+//     padded columns of a result are never stored. Rows of a head start
+//     h * d elements in: where that is not a multiple of 16 bytes (d not a
+//     multiple of 8 in bf16, of 4 in fp32) the kernel loads and stores
+//     element by element.
+// The scale is the wrapper's, d^-1/2 of the real width (never Dp's).
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include <type_traits>
+
+namespace attention_width {
+
+#ifdef MKG_ATTN_DP
+static_assert(MKG_ATTN_DP % 16 == 0 && MKG_ATTN_DP >= 16 && MKG_ATTN_DP <= 128,
+              "MKG_ATTN_DP: a multiple of 16 from 16 to 128");
+constexpr bool kRagged = true;  // the call's width may be below the tile's
+#else
+constexpr bool kRagged = false;
+#endif
+
+// The tile width of a call of width d.
+__host__ __device__ constexpr int padded_width(int d) { return (d + 15) / 16 * 16; }
+
+// f(std::integral_constant<int, D>{}) for the instance of this library that
+// takes a call of head width d, or `none` where it has none.
+template <class R, class F>
+R with_width(int d, R none, F&& f) {
+#ifdef MKG_ATTN_DP
+  if (d >= 1 && padded_width(d) == MKG_ATTN_DP) {
+    return f(std::integral_constant<int, MKG_ATTN_DP>{});
+  }
+#else
+  if (d == 64) return f(std::integral_constant<int, 64>{});
+  if (d == 128) return f(std::integral_constant<int, 128>{});
+#endif
+  return none;
+}
+
+// Whether every row of a head of `cols` columns that starts at p, rows
+// `ld` elements of `elem_bytes` apart, can move in 16-byte pieces.
+__device__ __forceinline__ bool rows_aligned(const void* p, int ld, int cols, int elem_bytes) {
+  return ((reinterpret_cast<uintptr_t>(p) | uintptr_t(ld) * elem_bytes |
+           uintptr_t(cols) * elem_bytes) & 15u) == 0;
+}
+
+// Element by element, for the CUDA-core kernels in a library of one
+// padded width (fused_attention_*.cu, flash_attention_*.cu): a head's rows
+// of d columns are staged into rows of D, zero from d on; a register row
+// likewise; a result pair (col, col + 1) stored where its columns are
+// below d.
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ void from_float(float* p, float x) { *p = x; }
+__device__ __forceinline__ void from_float(__nv_bfloat16* p, float x) {
+  *p = __float2bfloat16_rn(x);
+}
+
+template <int D, typename T>
+__device__ __forceinline__ void stage_rows(T* dst, int stride, const T* src, int rows, int ld,
+                                           int d) {
+  for (int i = threadIdx.x; i < rows * D; i += blockDim.x) {
+    const int j = i / D, c = i % D;
+    dst[j * stride + c] = c < d ? src[size_t(j) * ld + c] : static_cast<T>(0.0f);
+  }
+}
+
+template <int D, typename T>
+__device__ __forceinline__ void load_row(const T* p, float* f, int d) {
+#pragma unroll
+  for (int c = 0; c < D; ++c) f[c] = c < d ? to_float(p[c]) : 0.0f;
+}
+
+template <typename T>
+__device__ __forceinline__ void store_pair(T* row, int col, int d, float a, float b) {
+  if (col < d) from_float(row + col, a);
+  if (col + 1 < d) from_float(row + col + 1, b);
+}
+
+}  // namespace attention_width

@@ -17,7 +17,9 @@
 //
 // with the cast points of the Pallas bodies (:233-254, :320), on the packed
 // (B, L, heads * D) layout in and out, D = 64 or 128 (ViLBERT's visual
-// stream), each width its own instantiation. Every sum is fp32; q, k, v, g and the
+// stream), each width its own instantiation, or any other width up to 128
+// through the instance of its padded width, in a library of its own
+// (attention_width.cuh, as flash_attention_fwd.cu). Every sum is fp32; q, k, v, g and the
 // results are bf16 or fp32. The dropout masks are the forward's
 // (flash_attention_fwd.cu): the interpret-mode hash keyed to the logical
 // (bq, bk) tiles, idx = row_in_tile * bk + col_in_tile, tile seed
@@ -60,7 +62,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "attention_width.cuh"
+
 namespace {
+
+using attention_width::kRagged;
 
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
@@ -214,13 +220,17 @@ struct Layout {
       size_t(kChunk) * sizeof(float) * (1 + 2 * kWarps);
 };
 
-// Stage `rows` rows of D elements from global memory (row stride hd) into
-// padded shared-memory rows.
+// Stage `rows` rows of d elements from global memory (row stride hd) into
+// padded shared-memory rows of D (zero from d on).
 template <int D, typename T>
-__device__ __forceinline__ void stage(T* dst, const T* src, int rows, int hd) {
+__device__ __forceinline__ void stage(T* dst, const T* src, int rows, int hd, int d) {
   constexpr int kVec = Layout<T, D>::kVec;
   constexpr int kStride = Layout<T, D>::kStride;
   constexpr int kVecsPerRow = D / kVec;
+  if constexpr (kRagged) {
+    attention_width::stage_rows<D>(dst, kStride, src, rows, hd, d);
+    return;
+  }
   for (int i = threadIdx.x; i < rows * kVecsPerRow; i += kThreads) {
     const int j = i / kVecsPerRow, c = (i % kVecsPerRow) * kVec;
     *reinterpret_cast<uint4*>(dst + j * kStride + c) =
@@ -235,7 +245,18 @@ struct Args {
   float inv_keep;
   uint32_t cell_stride;  // dropout cell of (b, h): b * cell_stride + h
   Tiles tiles;
+  int head_dim;  // the call's (the tile's in a library of 64 and 128)
 };
+
+// A result pair at columns col, col + 1 of a row (those below d).
+template <typename T>
+__device__ __forceinline__ void store_cols(T* row, int col, int d, float x, float y) {
+  if constexpr (kRagged) {
+    attention_width::store_pair(row, col, d, x, y);
+  } else {
+    store_pair(row + col, x, y);
+  }
+}
 
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
@@ -247,7 +268,8 @@ flash_attention_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                                const float* __restrict__ delta, T* __restrict__ dk,
                                T* __restrict__ dv, float* __restrict__ dw_part, Args a) {
   constexpr int kStride = Layout<T, D>::kStride;
-  constexpr int kPairs = D / 64;  // column pairs a lane owns: 2 lane + 64 c, c < kPairs
+  // column pairs a lane owns: 2 lane + 64 c, c < kPairs (those below d)
+  constexpr int kPairs = (D + 63) / 64;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ float dw_s[kWarps][2];
   T* ks = reinterpret_cast<T*>(smem_raw);
@@ -263,12 +285,13 @@ flash_attention_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   const int h = blockIdx.y, b = blockIdx.z;
   const int lq = a.lq, lk = a.lk;
-  const int hd = a.num_heads * D;
-  const size_t head_off = size_t(h) * D;
+  const int d = kRagged ? a.head_dim : D;
+  const int hd = a.num_heads * d;
+  const size_t head_off = size_t(h) * d;
   const int j_begin = blockIdx.x * kPerBlock;
   const int n_keys = min(kPerBlock, lk - j_begin);
-  stage<D>(ks, k + (size_t(b) * lk + j_begin) * hd + head_off, n_keys, hd);
-  stage<D>(vs, v + (size_t(b) * lk + j_begin) * hd + head_off, n_keys, hd);
+  stage<D>(ks, k + (size_t(b) * lk + j_begin) * hd + head_off, n_keys, hd, d);
+  stage<D>(vs, v + (size_t(b) * lk + j_begin) * hd + head_off, n_keys, hd, d);
 
   const Geometry geo{a.has_geometry, a.row_start, a.text_len,
                      a.has_geometry ? boundary[b] + a.offset : 0,
@@ -289,8 +312,8 @@ flash_attention_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int r0 = 0; r0 < lq; r0 += kChunk) {
     const int n = min(kChunk, lq - r0);
     __syncthreads();  // the row chunk is free (and ks / vs published)
-    stage<D>(qs, q + (size_t(b) * lq + r0) * hd + head_off, n, hd);
-    stage<D>(gs, g + (size_t(b) * lq + r0) * hd + head_off, n, hd);
+    stage<D>(qs, q + (size_t(b) * lq + r0) * hd + head_off, n, hd, d);
+    stage<D>(gs, g + (size_t(b) * lq + r0) * hd + head_off, n, hd, d);
     for (int i = threadIdx.x; i < n; i += kThreads) {
       lse_s[i] = lse_bh[r0 + i];
       delta_s[i] = delta_bh[r0 + i];
@@ -356,13 +379,14 @@ flash_attention_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const T* gcol = gs + 2 * lane;
 #pragma unroll 4
       for (int i = 0; i < n; ++i) {
-        const float d = d_row[i], pc = pc_row[i];
+        const float dsr = d_row[i], pc = pc_row[i];
 #pragma unroll
         for (int c = 0; c < kPairs; ++c) {
+          if (kRagged && 2 * lane + 64 * c >= d) continue;  // beyond the head
           const float2 qq = load_pair(qcol + i * kStride + 64 * c);
           const float2 gg = load_pair(gcol + i * kStride + 64 * c);
-          x[c].x = fmaf(d, qq.x, x[c].x);
-          x[c].y = fmaf(d, qq.y, x[c].y);
+          x[c].x = fmaf(dsr, qq.x, x[c].x);
+          x[c].y = fmaf(dsr, qq.y, x[c].y);
           y[c].x = fmaf(pc, gg.x, y[c].x);
           y[c].y = fmaf(pc, gg.y, y[c].y);
         }
@@ -380,11 +404,11 @@ flash_attention_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int t = 0; t < kPerWarp; ++t) {
     const int jl = warp + kWarps * t;
     if (jl < n_keys) {
-      const size_t off = (size_t(b) * lk + j_begin + jl) * hd + head_off + 2 * lane;
+      const size_t off = (size_t(b) * lk + j_begin + jl) * hd + head_off;
 #pragma unroll
       for (int c = 0; c < kPairs; ++c) {
-        store_pair(dk + off + 64 * c, kacc[t][c].x, kacc[t][c].y);
-        store_pair(dv + off + 64 * c, vacc[t][c].x, vacc[t][c].y);
+        store_cols(dk + off, 2 * lane + 64 * c, d, kacc[t][c].x, kacc[t][c].y);
+        store_cols(dv + off, 2 * lane + 64 * c, d, vacc[t][c].x, vacc[t][c].y);
       }
     }
   }
@@ -416,7 +440,7 @@ flash_attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                               const float* __restrict__ w, const float* __restrict__ lse,
                               const float* __restrict__ delta, T* __restrict__ dq, Args a) {
   constexpr int kStride = Layout<T, D>::kStride;
-  constexpr int kPairs = D / 64;
+  constexpr int kPairs = (D + 63) / 64;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* qs = reinterpret_cast<T*>(smem_raw);
   T* gs = qs + kPerBlock * kStride;
@@ -429,12 +453,13 @@ flash_attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   const int h = blockIdx.y, b = blockIdx.z;
   const int lq = a.lq, lk = a.lk;
-  const int hd = a.num_heads * D;
-  const size_t head_off = size_t(h) * D;
+  const int d = kRagged ? a.head_dim : D;
+  const int hd = a.num_heads * d;
+  const size_t head_off = size_t(h) * d;
   const int r_begin = blockIdx.x * kPerBlock;
   const int n_rows = min(kPerBlock, lq - r_begin);
-  stage<D>(qs, q + (size_t(b) * lq + r_begin) * hd + head_off, n_rows, hd);
-  stage<D>(gs, g + (size_t(b) * lq + r_begin) * hd + head_off, n_rows, hd);
+  stage<D>(qs, q + (size_t(b) * lq + r_begin) * hd + head_off, n_rows, hd, d);
+  stage<D>(gs, g + (size_t(b) * lq + r_begin) * hd + head_off, n_rows, hd, d);
 
   const Geometry geo{a.has_geometry, a.row_start, a.text_len,
                      a.has_geometry ? boundary[b] + a.offset : 0,
@@ -457,8 +482,8 @@ flash_attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int c0 = 0; c0 < lk; c0 += kChunk) {
     const int n = min(kChunk, lk - c0);
     __syncthreads();  // the key chunk is free (and qs / gs published)
-    stage<D>(ks, k + (size_t(b) * lk + c0) * hd + head_off, n, hd);
-    stage<D>(vs, v + (size_t(b) * lk + c0) * hd + head_off, n, hd);
+    stage<D>(ks, k + (size_t(b) * lk + c0) * hd + head_off, n, hd, d);
+    stage<D>(vs, v + (size_t(b) * lk + c0) * hd + head_off, n, hd, d);
     for (int j = threadIdx.x; j < n; j += kThreads) {
       bias_s[j] = (1.0f - mask[size_t(b) * lk + c0 + j]) * kNegBias;
     }
@@ -500,12 +525,13 @@ flash_attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const T* kcol = ks + 2 * lane;
 #pragma unroll 4
       for (int j = 0; j < n; ++j) {
-        const float d = d_row[j];
+        const float dsr = d_row[j];
 #pragma unroll
         for (int c = 0; c < kPairs; ++c) {
+          if (kRagged && 2 * lane + 64 * c >= d) continue;  // beyond the head
           const float2 kk = load_pair(kcol + j * kStride + 64 * c);
-          x[c].x = fmaf(d, kk.x, x[c].x);
-          x[c].y = fmaf(d, kk.y, x[c].y);
+          x[c].x = fmaf(dsr, kk.x, x[c].x);
+          x[c].y = fmaf(dsr, kk.y, x[c].y);
         }
       }
 #pragma unroll
@@ -518,9 +544,11 @@ flash_attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int t = 0; t < kPerWarp; ++t) {
     const int il = warp + kWarps * t;
     if (il < n_rows) {
-      T* drow = dq + (size_t(b) * lq + r_begin + il) * hd + head_off + 2 * lane;
+      T* drow = dq + (size_t(b) * lq + r_begin + il) * hd + head_off;
 #pragma unroll
-      for (int c = 0; c < kPairs; ++c) store_pair(drow + 64 * c, dacc[t][c].x, dacc[t][c].y);
+      for (int c = 0; c < kPairs; ++c) {
+        store_cols(drow, 2 * lane + 64 * c, d, dacc[t][c].x, dacc[t][c].y);
+      }
     }
   }
 }
@@ -528,7 +556,7 @@ flash_attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 Args make_args(int lq, int lk, int num_heads, float scale, int has_geometry, int row_start,
                int text_len, int offset, int dropout, uint32_t threshold, float inv_keep,
                uint32_t seed, uint32_t cell_stride, int bq, int bk,
-               int n_qblk, int n_kblk) {
+               int n_qblk, int n_kblk, int head_dim) {
   Args a;
   a.lq = lq;
   a.lk = lk;
@@ -542,6 +570,7 @@ Args make_args(int lq, int lk, int num_heads, float scale, int has_geometry, int
   a.inv_keep = inv_keep;
   a.cell_stride = cell_stride;
   a.tiles = Tiles{bq, bk, n_qblk, n_kblk, seed, 0u, threshold};
+  a.head_dim = head_dim;
   return a;
 }
 
@@ -599,17 +628,19 @@ const char* mkg_cuda_error_string(int err) {
 }
 
 // Dynamic shared memory of the larger of the two kernels' blocks at
-// head_dim 64 or 128 (the wrapper holds it against the device's opt-in
-// limit before launching); 0 for another width.
+// head_dim 64 or 128 (or a width of this library's padded one; the wrapper
+// holds it against the device's opt-in limit before launching); 0 for
+// another width.
 size_t mkg_flash_attention_bwd_smem(int is_bf16, int head_dim) {
-  if (head_dim == 64) return is_bf16 ? smem_of<__nv_bfloat16, 64>() : smem_of<float, 64>();
-  if (head_dim == 128) return is_bf16 ? smem_of<__nv_bfloat16, 128>() : smem_of<float, 128>();
-  return 0;
+  return attention_width::with_width(head_dim, size_t(0), [&](auto width) {
+    constexpr int D = decltype(width)::value;
+    return is_bf16 ? smem_of<__nv_bfloat16, D>() : smem_of<float, D>();
+  });
 }
 
 // dK/dV and the dw partials: launches on `stream` without synchronising and
-// returns cudaGetLastError() (cudaErrorInvalidValue for a head_dim other
-// than 64 or 128). lse and delta are (B, heads, Lq) fp32, dw_part
+// returns cudaGetLastError() (cudaErrorInvalidValue for a head_dim this
+// library does not take). lse and delta are (B, heads, Lq) fp32, dw_part
 // (B, heads, ceil(Lk / 32), 2) fp32 partials of (dw0, dw1).
 int mkg_flash_attention_bwd_dkv(const void* q, const void* k, const void* v, const void* g,
                                 const void* mask, const void* boundary, const void* w,
@@ -622,18 +653,13 @@ int mkg_flash_attention_bwd_dkv(const void* q, const void* k, const void* v, con
                                 int bk, int n_qblk, int n_kblk, void* stream) {
   const Args a = make_args(lq, lk, num_heads, scale, has_geometry, row_start, text_len,
                            offset, dropout, threshold, inv_keep, seed, cell_stride,
-                           bq, bk, n_qblk, n_kblk);
+                           bq, bk, n_qblk, n_kblk, head_dim);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define MKG_FLASH_DKV(T, D) \
-  launch_dkv<T, D>(q, k, v, g, mask, boundary, w, lse, delta, dk, dv, dw_part, batch, a, s)
-  if (head_dim == 64) {
-    return is_bf16 ? MKG_FLASH_DKV(__nv_bfloat16, 64) : MKG_FLASH_DKV(float, 64);
-  }
-  if (head_dim == 128) {
-    return is_bf16 ? MKG_FLASH_DKV(__nv_bfloat16, 128) : MKG_FLASH_DKV(float, 128);
-  }
-#undef MKG_FLASH_DKV
-  return int(cudaErrorInvalidValue);
+  return attention_width::with_width(head_dim, int(cudaErrorInvalidValue), [&](auto width) {
+    constexpr int D = decltype(width)::value;
+    auto fn = is_bf16 ? &launch_dkv<__nv_bfloat16, D> : &launch_dkv<float, D>;
+    return fn(q, k, v, g, mask, boundary, w, lse, delta, dk, dv, dw_part, batch, a, s);
+  });
 }
 
 // dQ: launches on `stream` without synchronising and returns
@@ -648,18 +674,13 @@ int mkg_flash_attention_bwd_dq(const void* q, const void* k, const void* v, cons
                                int bk, int n_qblk, int n_kblk, void* stream) {
   const Args a = make_args(lq, lk, num_heads, scale, has_geometry, row_start, text_len,
                            offset, dropout, threshold, inv_keep, seed, cell_stride,
-                           bq, bk, n_qblk, n_kblk);
+                           bq, bk, n_qblk, n_kblk, head_dim);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define MKG_FLASH_DQ(T, D) \
-  launch_dq<T, D>(q, k, v, g, mask, boundary, w, lse, delta, dq, batch, a, s)
-  if (head_dim == 64) {
-    return is_bf16 ? MKG_FLASH_DQ(__nv_bfloat16, 64) : MKG_FLASH_DQ(float, 64);
-  }
-  if (head_dim == 128) {
-    return is_bf16 ? MKG_FLASH_DQ(__nv_bfloat16, 128) : MKG_FLASH_DQ(float, 128);
-  }
-#undef MKG_FLASH_DQ
-  return int(cudaErrorInvalidValue);
+  return attention_width::with_width(head_dim, int(cudaErrorInvalidValue), [&](auto width) {
+    constexpr int D = decltype(width)::value;
+    auto fn = is_bf16 ? &launch_dq<__nv_bfloat16, D> : &launch_dq<float, D>;
+    return fn(q, k, v, g, mask, boundary, w, lse, delta, dq, batch, a, s);
+  });
 }
 
 }  // extern "C"

@@ -17,7 +17,9 @@
 //
 // with those cast points, every sum in fp32, on the packed (B, L, heads * D)
 // layout, D = 64 or 128 (ViLBERT's visual stream), each width its own
-// instantiation. The plain version is kernels/flash_attention.py:_plain_bwd; fp32
+// instantiation, or any other width up to 128 through the instance of its
+// padded width, in a library of its own (attention_width.cuh). The plain
+// version is kernels/flash_attention.py:_plain_bwd; fp32
 // inputs stay on the CUDA-core kernels of flash_attention_bwd.cu
 // (attention_mma.cuh says why).
 //
@@ -63,7 +65,9 @@
 // sweep (held, they came to 251 and 206 registers at 64 already). Only the
 // first half's dK/dV block writes the (dw0, dw1) partial of its keys, so
 // the wrapper's sum counts each once. Shared memory is 106 KB a block at
-// 128 (55 KB at 64), so two blocks still fit an SM.
+// 128 (55 KB at 64), so two blocks still fit an SM. At the other tile
+// widths (16 to 112) a block owns all D result columns (cols_of<D>), and
+// the A fragments are held for the sweep up to D = 64, reloaded above.
 //
 // Dropout is the forward's mask (flash_attention_fwd.cu): the interpret-mode
 // hash keyed to the logical (bq, bk) tiles, idx = (r - qb * bq) * bk +
@@ -118,6 +122,9 @@ struct Args {
   uint32_t seed;
   uint32_t cell_stride;  // dropout cell of (b, h): b * cell_stride + h
   int bq, bk, n_qblk, n_kblk;
+#ifdef MKG_ATTN_DP
+  int d;  // the call's head width (the tile's is MKG_ATTN_DP)
+#endif
 };
 
 // The key's part of the dropout hash: its column in its logical K tile and
@@ -151,7 +158,8 @@ struct Block {
 // over the query rows.
 template <int D>
 __global__ void __launch_bounds__(kThreads, 2) dkv_kernel(const Args a) {
-  constexpr bool kHold = D == 64;  // K's and V's A fragments held for the sweep
+  constexpr bool kHold = D <= 64;  // K's and V's A fragments held for the sweep
+  constexpr int W = cols_of<D>(), NT = W / 8;  // the block's result columns
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ float dw_s[kWarps][2];
   bf16* k_s = reinterpret_cast<bf16*>(smem_raw);
@@ -163,7 +171,8 @@ __global__ void __launch_bounds__(kThreads, 2) dkv_kernel(const Args a) {
 
   const Block<D> blk;
   const int h = blk.h, b = blk.b;
-  const int hd = a.num_heads * D;
+  const int d = head_width<D>(a);
+  const int hd = a.num_heads * d;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;
   const int key0 = blk.tile * kTile;
@@ -173,16 +182,16 @@ __global__ void __launch_bounds__(kThreads, 2) dkv_kernel(const Args a) {
       load_geometry(a.has_geometry, a.row_start, a.text_len, a.offset, a.boundary, a.w, b);
   const ScoreRule<D> rule(a.scale, a.has_geometry);
 
-  const bf16* qb = a.q + size_t(b) * a.lq * hd + h * D;
-  const bf16* gb = a.go + size_t(b) * a.lq * hd + h * D;
+  const bf16* qb = a.q + size_t(b) * a.lq * hd + h * d;
+  const bf16* gb = a.go + size_t(b) * a.lq * hd + h * d;
   const float* lse_bh = a.lse + size_t(cell) * a.lq;
   const float* delta_bh = a.delta + size_t(cell) * a.lq;
   const int n_chunks = (a.lq + kTile - 1) / kTile;
 
   auto load_chunk = [&](int it) {
     const int buf = it & 1, r0 = it * kTile;
-    stage_tile<D>(q_s + buf * tile_elems<D>(), qb + size_t(r0) * hd, a.lq - r0, hd);
-    stage_tile<D>(g_s + buf * tile_elems<D>(), gb + size_t(r0) * hd, a.lq - r0, hd);
+    stage_tile<D>(q_s + buf * tile_elems<D>(), qb + size_t(r0) * hd, a.lq - r0, hd, d);
+    stage_tile<D>(g_s + buf * tile_elems<D>(), gb + size_t(r0) * hd, a.lq - r0, hd, d);
     cp_async_commit();
   };
   // Thread i < 64 writes the record of row i of each chunk; its lse and
@@ -203,9 +212,9 @@ __global__ void __launch_bounds__(kThreads, 2) dkv_kernel(const Args a) {
                               rg.in_scope && !rg.is_example ? 1.0f : 0.0f, 0.0f);
   };
 
-  const size_t tile_off = (size_t(b) * a.lk + key0) * hd + h * D;
-  stage_tile<D>(k_s, a.k + tile_off, a.lk - key0, hd);
-  stage_tile<D>(v_s, a.v + tile_off, a.lk - key0, hd);
+  const size_t tile_off = (size_t(b) * a.lk + key0) * hd + h * d;
+  stage_tile<D>(k_s, a.k + tile_off, a.lk - key0, hd, d);
+  stage_tile<D>(v_s, a.v + tile_off, a.lk - key0, hd, d);
   load_chunk(0);  // one group with the K and V tiles
   if (threadIdx.x < kTile) {
     fetch(0);
@@ -227,7 +236,7 @@ __global__ void __launch_bounds__(kThreads, 2) dkv_kernel(const Args a) {
   }
 
   uint32_t ka[D / 16][4], va[D / 16][4];
-  float dk_acc[8][4], dv_acc[8][4];
+  float dk_acc[NT][4], dv_acc[NT][4];
   zero(dk_acc);
   zero(dv_acc);
   float dw0 = 0.0f, dw1 = 0.0f;
@@ -299,16 +308,18 @@ __global__ void __launch_bounds__(kThreads, 2) dkv_kernel(const Args a) {
       uint32_t pa[2][4], da[2][4];
       pack_a(pa, st);
       pack_a(da, dpt);
-      product_nn<D>(dv_acc, pa, gc + blk.half * 64);  // dv += P_drop^T g
-      product_nn<D>(dk_acc, da, qc + blk.half * 64);  // dk += dS_raw^T Q
+      product_nn<D>(dv_acc, pa, gc + blk.half * W);  // dv += P_drop^T g
+      product_nn<D>(dk_acc, da, qc + blk.half * W);  // dk += dS_raw^T Q
     }
     __syncthreads();  // the buffers are refilled by the load after next
   }
 
-  const int keys_valid = a.lk - key0 - warp * 16;
-  const size_t out_off = tile_off + size_t(warp) * 16 * hd + blk.half * 64;
-  store_rows<D>(a.dk + out_off, hd, keys_valid, k_s + warp * 16 * stride_of<D>(), dk_acc);
-  store_rows<D>(a.dv + out_off, hd, keys_valid, v_s + warp * 16 * stride_of<D>(), dv_acc);
+  const int keys_valid = a.lk - key0 - warp * 16, cols_valid = d - blk.half * W;
+  const size_t out_off = tile_off + size_t(warp) * 16 * hd + blk.half * W;
+  store_rows<D>(a.dk + out_off, hd, keys_valid, k_s + warp * 16 * stride_of<D>(), dk_acc,
+                cols_valid);
+  store_rows<D>(a.dv + out_off, hd, keys_valid, v_s + warp * 16 * stride_of<D>(), dv_acc,
+                cols_valid);
   if (blk.half != 0) return;  // the first half's block writes the keys' dw partial
   dw0 = warp_sum(dw0);
   dw1 = warp_sum(dw1);
@@ -333,7 +344,8 @@ __global__ void __launch_bounds__(kThreads, 2) dkv_kernel(const Args a) {
 // sweep over the keys.
 template <int D>
 __global__ void __launch_bounds__(kThreads, 2) dq_kernel(const Args a) {
-  constexpr bool kHold = D == 64;  // Q's and g's A fragments held for the sweep
+  constexpr bool kHold = D <= 64;  // Q's and g's A fragments held for the sweep
+  constexpr int W = cols_of<D>(), NT = W / 8;  // the block's result columns
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* q_s = reinterpret_cast<bf16*>(smem_raw);
   bf16* g_s = q_s + tile_elems<D>();
@@ -343,7 +355,8 @@ __global__ void __launch_bounds__(kThreads, 2) dq_kernel(const Args a) {
 
   const Block<D> blk;
   const int h = blk.h, b = blk.b;
-  const int hd = a.num_heads * D;
+  const int d = head_width<D>(a);
+  const int hd = a.num_heads * d;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int t = lane & 3;
   const int row0 = blk.tile * kTile;
@@ -353,15 +366,15 @@ __global__ void __launch_bounds__(kThreads, 2) dq_kernel(const Args a) {
       load_geometry(a.has_geometry, a.row_start, a.text_len, a.offset, a.boundary, a.w, b);
   const ScoreRule<D> rule(a.scale, a.has_geometry);
 
-  const bf16* kb = a.k + size_t(b) * a.lk * hd + h * D;
-  const bf16* vb = a.v + size_t(b) * a.lk * hd + h * D;
+  const bf16* kb = a.k + size_t(b) * a.lk * hd + h * d;
+  const bf16* vb = a.v + size_t(b) * a.lk * hd + h * d;
   const float* mask_b = a.mask + size_t(b) * a.lk;
   const int n_chunks = (a.lk + kTile - 1) / kTile;
 
   auto load_chunk = [&](int it) {
     const int buf = it & 1, key0 = it * kTile;
-    stage_tile<D>(k_s + buf * tile_elems<D>(), kb + size_t(key0) * hd, a.lk - key0, hd);
-    stage_tile<D>(v_s + buf * tile_elems<D>(), vb + size_t(key0) * hd, a.lk - key0, hd);
+    stage_tile<D>(k_s + buf * tile_elems<D>(), kb + size_t(key0) * hd, a.lk - key0, hd, d);
+    stage_tile<D>(v_s + buf * tile_elems<D>(), vb + size_t(key0) * hd, a.lk - key0, hd, d);
     cp_async_commit();
   };
   // Thread j < 64 writes the record of key j of each chunk; its mask value
@@ -381,9 +394,9 @@ __global__ void __launch_bounds__(kThreads, 2) dq_kernel(const Args a) {
                     geo.col_is_answer(key) ? 1.0f : 0.0f);
   };
 
-  const size_t tile_off = (size_t(b) * a.lq + row0) * hd + h * D;
-  stage_tile<D>(q_s, a.q + tile_off, a.lq - row0, hd);
-  stage_tile<D>(g_s, a.go + tile_off, a.lq - row0, hd);
+  const size_t tile_off = (size_t(b) * a.lq + row0) * hd + h * d;
+  stage_tile<D>(q_s, a.q + tile_off, a.lq - row0, hd, d);
+  stage_tile<D>(g_s, a.go + tile_off, a.lq - row0, hd, d);
   load_chunk(0);  // one group with the Q and g tiles
   if (threadIdx.x < kTile) {
     fetch(0);
@@ -407,7 +420,7 @@ __global__ void __launch_bounds__(kThreads, 2) dq_kernel(const Args a) {
   }
 
   uint32_t qa[D / 16][4], ga[D / 16][4];
-  float acc[8][4];
+  float acc[NT][4];
   zero(acc);
   const bf16* q_rows = q_s + warp * 16 * stride_of<D>();
   const bf16* g_rows = g_s + warp * 16 * stride_of<D>();
@@ -448,25 +461,26 @@ __global__ void __launch_bounds__(kThreads, 2) dq_kernel(const Args a) {
         const bool answer = kr.w != 0.0f;
         const float p =
             exp_minus_max(rule.score(s[nt][e], answer ? c_row[r] : rule.c_plain, kr.x), lse[r]);
-        float d = dp[nt][e];
+        float dpv = dp[nt][e];
         if (a.dropout) {
           const bool keep = dropout_keep(row_base[r] + __float_as_uint(kr.y),
                                          row_mix[r] + __float_as_uint(kr.z), a.threshold);
-          d = keep ? d * a.inv_keep : 0.0f;
+          dpv = keep ? dpv * a.inv_keep : 0.0f;
         }
-        float ds = p * (d - delta[r]);
+        float ds = p * (dpv - delta[r]);
         if (answer) ds *= w_row[r];
         s[nt][e] = ds * a.scale;
       }
     }
     uint32_t da[4][4];
     pack_a(da, s);
-    product_nn<D>(acc, da, kc + blk.half * 64);  // dq += dS_raw K
+    product_nn<D>(acc, da, kc + blk.half * W);  // dq += dS_raw K
     __syncthreads();  // the buffers are refilled by the load after next
   }
 
-  store_rows<D>(a.dq + tile_off + size_t(warp) * 16 * hd + blk.half * 64, hd,
-                a.lq - row0 - warp * 16, q_s + warp * 16 * stride_of<D>(), acc);
+  store_rows<D>(a.dq + tile_off + size_t(warp) * 16 * hd + blk.half * W, hd,
+                a.lq - row0 - warp * 16, q_s + warp * 16 * stride_of<D>(), acc,
+                d - blk.half * W);
 }
 
 int launch_kernel(void (*kernel)(const Args), dim3 grid, int smem, const Args& a,
@@ -483,7 +497,7 @@ Args make_args(const void* q, const void* k, const void* v, const void* g, const
                int lq, int lk, int num_heads, float scale, int has_geometry, int row_start,
                int text_len, int offset, int dropout, uint32_t threshold, float inv_keep,
                uint32_t seed, uint32_t cell_stride, int bq, int bk,
-               int n_qblk, int n_kblk) {
+               int n_qblk, int n_kblk, int head_dim) {
   Args a{};
   a.q = static_cast<const bf16*>(q);
   a.k = static_cast<const bf16*>(k);
@@ -511,6 +525,9 @@ Args make_args(const void* q, const void* k, const void* v, const void* g, const
   a.bk = bk;
   a.n_qblk = n_qblk;
   a.n_kblk = n_kblk;
+#ifdef MKG_ATTN_DP
+  a.d = head_dim;
+#endif
   return a;
 }
 
@@ -523,18 +540,20 @@ const char* mkg_cuda_error_string(int err) {
 }
 
 // Dynamic shared memory of the larger of the two kernels' blocks at
-// head_dim 64 or 128; 0 for another width.
+// head_dim 64 or 128 (or a width of this library's padded one); 0 for
+// another width.
 size_t mkg_flash_attention_bwd_mma_smem(int head_dim) {
-  if (head_dim != 64 && head_dim != 128) return 0;
-  const int dkv = head_dim == 64 ? dkv_smem<64>() : dkv_smem<128>();
-  const int dq = head_dim == 64 ? dq_smem<64>() : dq_smem<128>();
-  return size_t(dkv > dq ? dkv : dq);
+  return attention_width::with_width(head_dim, size_t(0), [](auto width) {
+    constexpr int D = decltype(width)::value;
+    return size_t(dkv_smem<D>() > dq_smem<D>() ? dkv_smem<D>() : dq_smem<D>());
+  });
 }
 
 // dK/dV and the dw partials: launches on `stream` without synchronising and
 // returns cudaGetLastError() (cudaErrorInvalidValue for anything but bf16,
-// where fp32 takes the CUDA-core kernels, or for a head_dim other than 64 or
-// 128). q, k, v, g, dk and dv are bf16, packed (B, L, heads * head_dim); lse
+// where fp32 takes the CUDA-core kernels, or for a head_dim this library
+// does not take). q, k, v, g, dk and dv are bf16, packed (B, L, heads *
+// head_dim); lse
 // and delta (B, heads, Lq) fp32; dw_part (B, heads, ceil(Lk / 64), 2) fp32
 // partials of (dw0, dw1).
 int mkg_flash_attention_bwd_dkv_mma(const void* q, const void* k, const void* v, const void* g,
@@ -546,18 +565,19 @@ int mkg_flash_attention_bwd_dkv_mma(const void* q, const void* k, const void* v,
                                     unsigned int threshold, float inv_keep, unsigned int seed,
                                     unsigned int cell_stride,
                                     int bq, int bk, int n_qblk, int n_kblk, void* stream) {
-  if (!is_bf16 || (head_dim != 64 && head_dim != 128)) return int(cudaErrorInvalidValue);
+  if (!is_bf16) return int(cudaErrorInvalidValue);
   Args a = make_args(q, k, v, g, mask, boundary, w, lse, delta, lq, lk, num_heads, scale,
                      has_geometry, row_start, text_len, offset, dropout, threshold, inv_keep,
-                     seed, cell_stride, bq, bk, n_qblk, n_kblk);
+                     seed, cell_stride, bq, bk, n_qblk, n_kblk, head_dim);
   a.dk = static_cast<bf16*>(dk);
   a.dv = static_cast<bf16*>(dv);
   a.dw_part = static_cast<float*>(dw_part);
-  const int halves = head_dim / 64;
-  const dim3 grid((lk + kTile - 1) / kTile * halves, num_heads, batch);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (head_dim == 64) return launch_kernel(dkv_kernel<64>, grid, dkv_smem<64>(), a, s);
-  return launch_kernel(dkv_kernel<128>, grid, dkv_smem<128>(), a, s);
+  return attention_width::with_width(head_dim, int(cudaErrorInvalidValue), [&](auto width) {
+    constexpr int D = decltype(width)::value;
+    const dim3 grid((lk + kTile - 1) / kTile * halves_of<D>(), num_heads, batch);
+    return launch_kernel(dkv_kernel<D>, grid, dkv_smem<D>(), a, s);
+  });
 }
 
 // dQ: as above, without dw.
@@ -569,16 +589,17 @@ int mkg_flash_attention_bwd_dq_mma(const void* q, const void* k, const void* v, 
                                    int offset, int dropout, unsigned int threshold,
                                    float inv_keep, unsigned int seed, unsigned int cell_stride,
                                    int bq, int bk, int n_qblk, int n_kblk, void* stream) {
-  if (!is_bf16 || (head_dim != 64 && head_dim != 128)) return int(cudaErrorInvalidValue);
+  if (!is_bf16) return int(cudaErrorInvalidValue);
   Args a = make_args(q, k, v, g, mask, boundary, w, lse, delta, lq, lk, num_heads, scale,
                      has_geometry, row_start, text_len, offset, dropout, threshold, inv_keep,
-                     seed, cell_stride, bq, bk, n_qblk, n_kblk);
+                     seed, cell_stride, bq, bk, n_qblk, n_kblk, head_dim);
   a.dq = static_cast<bf16*>(dq);
-  const int halves = head_dim / 64;
-  const dim3 grid((lq + kTile - 1) / kTile * halves, num_heads, batch);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (head_dim == 64) return launch_kernel(dq_kernel<64>, grid, dq_smem<64>(), a, s);
-  return launch_kernel(dq_kernel<128>, grid, dq_smem<128>(), a, s);
+  return attention_width::with_width(head_dim, int(cudaErrorInvalidValue), [&](auto width) {
+    constexpr int D = decltype(width)::value;
+    const dim3 grid((lq + kTile - 1) / kTile * halves_of<D>(), num_heads, batch);
+    return launch_kernel(dq_kernel<D>, grid, dq_smem<D>(), a, s);
+  });
 }
 
 }  // extern "C"

@@ -6,7 +6,10 @@
 // flash_attention_fwd_mma.cu). Contract, per (batch row, head), on the
 // packed (B, L, heads * D) layout in and out, D = 64 (BERT-base, ViT-B) or
 // 128 (ViLBERT's visual stream: 1024 wide, 8 heads), each width its own
-// instantiation:
+// instantiation, or any other width up to 128 through the instance of its
+// padded width, in a library of its own (attention_width.cuh: rows staged
+// element by element, zero beyond the real width; a lane's column pairs
+// past it are neither summed nor stored):
 //
 //   out = softmax(scale * Q K^T (*) analogy multiplier + (1 - mask) * -1e4) V
 //   lse = the per-row log-sum-exp of those scores, (B, heads, Lq) fp32
@@ -60,7 +63,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "attention_width.cuh"
+
 namespace {
+
+using attention_width::kRagged;
 
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
@@ -202,13 +209,17 @@ struct Layout {
   }
 };
 
-// Stage `rows` rows of D elements from global memory (row stride hd) into
-// padded shared-memory rows.
+// Stage `rows` rows of d elements from global memory (row stride hd) into
+// padded shared-memory rows of D (zero from d on).
 template <int D, typename T>
-__device__ __forceinline__ void stage(T* dst, const T* src, int rows, int hd) {
+__device__ __forceinline__ void stage(T* dst, const T* src, int rows, int hd, int d) {
   constexpr int kVec = Layout<T, D>::kVec;
   constexpr int kStride = Layout<T, D>::kStride;
   constexpr int kVecsPerRow = D / kVec;
+  if constexpr (kRagged) {
+    attention_width::stage_rows<D>(dst, kStride, src, rows, hd, d);
+    return;
+  }
   for (int i = threadIdx.x; i < rows * kVecsPerRow; i += kThreads) {
     const int j = i / kVecsPerRow, c = (i % kVecsPerRow) * kVec;
     *reinterpret_cast<uint4*>(dst + j * kStride + c) =
@@ -226,9 +237,10 @@ flash_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                            float scale, int has_geometry, int row_start, int text_len,
                            int offset, int dropout, uint32_t threshold, float inv_keep,
                            uint32_t seed, uint32_t cell_stride, int bq,
-                           int bk, int n_qblk, int n_kblk) {
+                           int bk, int n_qblk, int n_kblk, int head_dim) {
   constexpr int kStride = Layout<T, D>::kStride;
-  constexpr int kPairs = D / 64;  // column pairs a lane owns: 2 lane + 64 c, c < kPairs
+  // column pairs a lane owns: 2 lane + 64 c, c < kPairs (those below d)
+  constexpr int kPairs = (D + 63) / 64;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* qs = reinterpret_cast<T*>(smem_raw);
   T* cs = qs + kRowsPerBlock * kStride;                      // K or V chunk
@@ -236,13 +248,14 @@ flash_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* s_tile = bias_s + bk;                               // kRowsPerBlock x bk
 
   const int h = blockIdx.y, b = blockIdx.z;
-  const int hd = num_heads * D;
+  const int d = kRagged ? head_dim : D;
+  const int hd = num_heads * d;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int r_begin = blockIdx.x * kRowsPerBlock;
   const int n_rows = min(kRowsPerBlock, lq - r_begin);
-  const size_t head_off = size_t(h) * D;
+  const size_t head_off = size_t(h) * d;
 
-  stage<D>(qs, q + (size_t(b) * lq + r_begin) * hd + head_off, n_rows, hd);
+  stage<D>(qs, q + (size_t(b) * lq + r_begin) * hd + head_off, n_rows, hd, d);
   // (the first chunk's barrier publishes qs)
 
   const Geometry geo{has_geometry, row_start, text_len,
@@ -269,7 +282,7 @@ flash_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int c0 = 0; c0 < width; c0 += kChunk) {
       const int n = min(kChunk, width - c0);
       __syncthreads();  // the chunk buffer is free
-      stage<D>(cs, k + (size_t(b) * lk + c_begin + c0) * hd + head_off, n, hd);
+      stage<D>(cs, k + (size_t(b) * lk + c_begin + c0) * hd + head_off, n, hd, d);
       for (int j = threadIdx.x; j < n; j += kThreads) {
         bias_s[c0 + j] = (1.0f - mask[size_t(b) * lk + c_begin + c0 + j]) * kNegBias;
       }
@@ -331,7 +344,7 @@ flash_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int c0 = 0; c0 < width; c0 += kChunk) {
       const int n = min(kChunk, width - c0);
       __syncthreads();  // the chunk buffer is free; step 2 is done
-      stage<D>(cs, v + (size_t(b) * lk + c_begin + c0) * hd + head_off, n, hd);
+      stage<D>(cs, v + (size_t(b) * lk + c_begin + c0) * hd + head_off, n, hd, d);
       __syncthreads();
 #pragma unroll
       for (int t = 0; t < kRowsPerWarp; ++t) {
@@ -347,6 +360,7 @@ flash_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
             const float p = prow[j];
 #pragma unroll
             for (int c = 0; c < kPairs; ++c) {
+              if (kRagged && 2 * lane + 64 * c >= d) continue;  // beyond the head
               const float2 vv = load_pair(vcol + j * kStride + 64 * c);
               x[c].x = fmaf(p, vv.x, x[c].x);
               x[c].y = fmaf(p, vv.y, x[c].y);
@@ -373,10 +387,15 @@ flash_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int il = warp + kWarps * t;
     if (il < n_rows) {
       const int r = r_begin + il;
-      T* orow = out + (size_t(b) * lq + r) * hd + head_off + 2 * lane;
+      T* orow = out + (size_t(b) * lq + r) * hd + head_off;
 #pragma unroll
       for (int c = 0; c < kPairs; ++c) {
-        store_pair(orow + 64 * c, acc[t][c].x / l[t], acc[t][c].y / l[t]);
+        const int col = 2 * lane + 64 * c;
+        if constexpr (kRagged) {
+          attention_width::store_pair(orow, col, d, acc[t][c].x / l[t], acc[t][c].y / l[t]);
+        } else {
+          store_pair(orow + col, acc[t][c].x / l[t], acc[t][c].y / l[t]);
+        }
       }
       if (lane == 0) lse[(size_t(b) * num_heads + h) * lq + r] = m[t] + logf(l[t]);
     }
@@ -389,7 +408,7 @@ int launch(const void* q, const void* k, const void* v, const void* mask,
            int lk, int num_heads, float scale, int has_geometry, int row_start,
            int text_len, int offset, int dropout, uint32_t threshold, float inv_keep,
            uint32_t seed, uint32_t cell_stride, int bq, int bk,
-           int n_qblk, int n_kblk, cudaStream_t stream) {
+           int n_qblk, int n_kblk, int head_dim, cudaStream_t stream) {
   const size_t smem = Layout<T, D>::smem_bytes(bk);
   cudaError_t err = cudaFuncSetAttribute(flash_attention_fwd_kernel<T, D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -401,7 +420,7 @@ int launch(const void* q, const void* k, const void* v, const void* mask,
       static_cast<const float*>(mask), static_cast<const int*>(boundary),
       static_cast<const float*>(w), static_cast<T*>(out), static_cast<float*>(lse), lq, lk,
       num_heads, scale, has_geometry, row_start, text_len, offset, dropout, threshold,
-      inv_keep, seed, cell_stride, bq, bk, n_qblk, n_kblk);
+      inv_keep, seed, cell_stride, bq, bk, n_qblk, n_kblk, head_dim);
   return int(cudaGetLastError());
 }
 
@@ -419,16 +438,17 @@ const char* mkg_cuda_error_string(int err) {
 }
 
 // Dynamic shared memory of one block for logical K tiles of bk keys at
-// head_dim 64 or 128 (the wrapper holds it against the device's opt-in
-// limit before launching); 0 for another width.
+// head_dim 64 or 128 (or a width of this library's padded one; the wrapper
+// holds it against the device's opt-in limit before launching); 0 for
+// another width.
 size_t mkg_flash_attention_fwd_smem(int bk, int is_bf16, int head_dim) {
-  if (head_dim == 64) return smem_of<64>(bk, is_bf16);
-  if (head_dim == 128) return smem_of<128>(bk, is_bf16);
-  return 0;
+  return attention_width::with_width(head_dim, size_t(0), [&](auto width) {
+    return smem_of<decltype(width)::value>(bk, is_bf16);
+  });
 }
 
 // Launches on `stream` without synchronising; returns cudaGetLastError()
-// (cudaErrorInvalidValue for a head_dim other than 64 or 128). out is
+// (cudaErrorInvalidValue for a head_dim this library does not take). out is
 // (B, Lq, heads * head_dim) in the inputs' dtype, lse (B, heads, Lq) fp32.
 int mkg_flash_attention_fwd(const void* q, const void* k, const void* v, const void* mask,
                             const void* boundary, const void* w, void* out, void* lse,
@@ -438,18 +458,13 @@ int mkg_flash_attention_fwd(const void* q, const void* k, const void* v, const v
                             float inv_keep, unsigned int seed, unsigned int cell_stride, int bq,
                             int bk, int n_qblk, int n_kblk, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define MKG_FLASH_FWD(T, D)                                                                  \
-  launch<T, D>(q, k, v, mask, boundary, w, out, lse, batch, lq, lk, num_heads, scale,        \
-               has_geometry, row_start, text_len, offset, dropout, threshold, inv_keep, seed, \
-               cell_stride, bq, bk, n_qblk, n_kblk, s)
-  if (head_dim == 64) {
-    return is_bf16 ? MKG_FLASH_FWD(__nv_bfloat16, 64) : MKG_FLASH_FWD(float, 64);
-  }
-  if (head_dim == 128) {
-    return is_bf16 ? MKG_FLASH_FWD(__nv_bfloat16, 128) : MKG_FLASH_FWD(float, 128);
-  }
-#undef MKG_FLASH_FWD
-  return int(cudaErrorInvalidValue);
+  return attention_width::with_width(head_dim, int(cudaErrorInvalidValue), [&](auto width) {
+    constexpr int D = decltype(width)::value;
+    auto fn = is_bf16 ? &launch<__nv_bfloat16, D> : &launch<float, D>;
+    return fn(q, k, v, mask, boundary, w, out, lse, batch, lq, lk, num_heads, scale,
+              has_geometry, row_start, text_len, offset, dropout, threshold, inv_keep, seed,
+              cell_stride, bq, bk, n_qblk, n_kblk, head_dim, s);
+  });
 }
 
 }  // extern "C"

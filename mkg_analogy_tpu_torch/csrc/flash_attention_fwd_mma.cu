@@ -5,7 +5,9 @@
 // _flash_attention_fwd, the pl.pallas_call at :393). Contract, per (batch
 // row, head), on the packed (B, L, heads * D) layout in and out, D = 64 or
 // 128 (ViLBERT's visual stream: 1024 wide, 8 heads), each width its own
-// instantiation:
+// instantiation, or any other width up to 128 through the instance of its
+// padded width, in a library of its own (attention_width.cuh; the call's
+// width rides in the flags' bits 8 and up, so the arguments stay 128 bytes):
 //
 //   out = softmax(scale * Q K^T (*) analogy multiplier + (1 - mask) * -1e4) V
 //   lse = the per-row log-sum-exp of those scores, (B, heads, Lq) fp32
@@ -72,7 +74,9 @@
 //     (fwd_resident_kernel<128, 2>, 70 KB), longer walks stream
 //     (fwd_streaming_kernel<128>, 70 KB: over the 48 KB of static shared
 //     memory, so both widths take theirs dynamically). A 16 x 256 score row
-//     beside 128 columns of Q fragments would spill.
+//     beside 128 columns of Q fragments would spill. At the other tile
+//     widths (16 to 112) a block owns all D output columns (cols_of<D>);
+//     keys stay resident up to 256 at D <= 64, up to 128 above.
 // A score is one FMA from the accumulator on the plain version's fp32 grid
 // (attention_mma.cuh: scores, ScoreRule<D>: at 128 with a geometry s_raw is
 // rounded first); exp(s - m) is ex2.approx of (s - m) * log2 e, the
@@ -105,17 +109,18 @@ constexpr uint32_t kGolden = 0x9E3779B9u;
 constexpr float kHardMask = -1e30f;          // flash_attention.py:HARD_MASK, the first max
 constexpr int kMaxResidentKeys = 4 * kTile;  // longer keys are streamed (2 kTile at D = 128)
 
-// Q, NC chunks of K (D columns) and of the block's 64 columns of V, and NC
+// Q, NC chunks of K (D columns) and of the block's columns of V, and NC
 // rows of 64 biases.
 template <int D>
 constexpr int resident_smem(int nc) {
-  return (1 + nc) * tile_bytes<D>() + nc * tile_bytes<64>() + nc * kTile * int(sizeof(float));
+  return (1 + nc) * tile_bytes<D>() + nc * tile_bytes<cols_of<D>()>() +
+         nc * kTile * int(sizeof(float));
 }
 
-// Q, two buffers of K and of V's 64 columns, two rows of biases.
+// Q, two buffers of K and of V's block columns, two rows of biases.
 template <int D>
 constexpr int streaming_smem() {
-  return 3 * tile_bytes<D>() + 2 * tile_bytes<64>() + 2 * kTile * int(sizeof(float));
+  return 3 * tile_bytes<D>() + 2 * tile_bytes<cols_of<D>()>() + 2 * kTile * int(sizeof(float));
 }
 
 struct Args {
@@ -128,7 +133,8 @@ struct Args {
   int lq, lk, num_heads;
   float scale;
   int row_start, text_len, offset;
-  int flags;  // bit 0: the analogy geometry applies; bit 1: dropout
+  int flags;  // bit 0: the analogy geometry applies; bit 1: dropout; bits 8-: the
+             // call's head width (a library of one padded width only)
   uint32_t threshold;
   float inv_keep;
   uint32_t seed;
@@ -180,16 +186,17 @@ struct Lane {
 // A tile's new running max of the lane's rows, from the lanes' maxima over
 // the tile's scores, and alpha = exp(m - m_new), by which the accumulator
 // is rescaled here, once a tile.
+template <int NT>
 __device__ __forceinline__ void open_tile(const float (&cmax)[2], const float (&m)[2],
                                           float (&m_new)[2], float (&alpha)[2],
-                                          float (&o)[8][4]) {
+                                          float (&o)[NT][4]) {
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     m_new[r] = fmaxf(m[r], quad_max(cmax[r]));
     alpha[r] = exp_minus_max(m[r], m_new[r]);
   }
 #pragma unroll
-  for (int nt = 0; nt < 8; ++nt) {
+  for (int nt = 0; nt < NT; ++nt) {
     o[nt][0] *= alpha[0];
     o[nt][1] *= alpha[0];
     o[nt][2] *= alpha[1];
@@ -242,26 +249,31 @@ struct Block {
         b(blockIdx.z) {}
 };
 
-// out = acc / l (fp32, then rounded to bf16) of the block's 64 columns and,
+// out = acc / l (fp32, then rounded to bf16) of the block's columns and,
 // from the first half's block, lse = m + log(l) of the lane's rows; rows
 // beyond Lq are not stored. `stage`: the block's Q tile, whose rows of a
 // warp no other warp reads.
 template <int D>
 __device__ __forceinline__ void finish(const Args& a, const Block<D>& blk, int row0,
                                        const Lane<D>& ln, const float (&m)[2],
-                                       const float (&l)[2], float (&o)[8][4], bf16* stage) {
+                                       const float (&l)[2], float (&o)[cols_of<D>() / 8][4],
+                                       bf16* stage) {
+  constexpr int W = cols_of<D>(), NT = W / 8;
   const int warp = threadIdx.x >> 5;
-  const int hd = a.num_heads * D;
+  int d = D;  // the head width: a constant in a library of 64 and 128 (PERF.md)
+  if constexpr (kRagged) d = a.flags >> 8;
+  const int hd = a.num_heads * d;
   const int h = blk.h, b = blk.b;
 #pragma unroll
-  for (int nt = 0; nt < 8; ++nt) {
+  for (int nt = 0; nt < NT; ++nt) {
     o[nt][0] = o[nt][0] / l[0];
     o[nt][1] = o[nt][1] / l[0];
     o[nt][2] = o[nt][2] / l[1];
     o[nt][3] = o[nt][3] / l[1];
   }
-  store_rows<D>(a.out + (size_t(b) * a.lq + row0 + warp * 16) * hd + h * D + blk.half * 64, hd,
-                a.lq - row0 - warp * 16, stage + warp * 16 * stride_of<D>(), o);
+  store_rows<D>(a.out + (size_t(b) * a.lq + row0 + warp * 16) * hd + h * d + blk.half * W, hd,
+                a.lq - row0 - warp * 16, stage + warp * 16 * stride_of<D>(), o,
+                d - blk.half * W);
   if (blk.half == 0 && (threadIdx.x & 3) == 0) {
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
@@ -276,36 +288,40 @@ __device__ __forceinline__ void finish(const Args& a, const Block<D>& blk, int r
 // registers, one sweep.
 template <int D, int NC>
 __global__ void __launch_bounds__(kThreads) fwd_resident_kernel(const Args a) {
+  constexpr int W = cols_of<D>(), NT = W / 8;  // the block's output columns
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* q_s = reinterpret_cast<bf16*>(smem_raw);
   bf16* k_s = q_s + tile_elems<D>();       // NC chunks
-  bf16* v_s = k_s + NC * tile_elems<D>();  // NC chunks of the block's 64 columns
-  float* bias_s = reinterpret_cast<float*>(v_s + NC * tile_elems<64>());  // NC rows of 64
+  bf16* v_s = k_s + NC * tile_elems<D>();  // NC chunks of the block's W columns
+  float* bias_s = reinterpret_cast<float*>(v_s + NC * tile_elems<W>());  // NC rows of 64
 
   const Block<D> blk;
   const int h = blk.h, b = blk.b;
-  const int hd = a.num_heads * D;
+  int d = D;  // the head width: a constant in a library of 64 and 128 (PERF.md)
+  if constexpr (kRagged) d = a.flags >> 8;
+  const int v_cols = d - blk.half * W;
+  const int hd = a.num_heads * d;
   const int warp = threadIdx.x >> 5, t = threadIdx.x & 3;
   const int row0 = blk.tile * kTile;
   const int n_chunks = (a.lk + kTile - 1) / kTile;  // <= NC
-  const bf16* k_bh = a.k + size_t(b) * a.lk * hd + h * D;
-  const bf16* v_bh = a.v + size_t(b) * a.lk * hd + h * D + blk.half * 64;
+  const bf16* k_bh = a.k + size_t(b) * a.lk * hd + h * d;
+  const bf16* v_bh = a.v + size_t(b) * a.lk * hd + h * d + blk.half * W;
 
   // every load of the block, one commit group a chunk: Q with K's first
-  stage_tile<D>(q_s, a.q + (size_t(b) * a.lq + row0) * hd + h * D, a.lq - row0, hd);
+  stage_tile<D>(q_s, a.q + (size_t(b) * a.lq + row0) * hd + h * d, a.lq - row0, hd, d);
 #pragma unroll
   for (int c = 0; c < NC; ++c) {
     if (c < n_chunks) {
       stage_tile<D>(k_s + c * tile_elems<D>(), k_bh + size_t(c) * kTile * hd, a.lk - c * kTile,
-                    hd);
+                    hd, d);
     }
     cp_async_commit();
   }
 #pragma unroll
   for (int c = 0; c < NC; ++c) {
     if (c < n_chunks) {
-      stage_tile<64>(v_s + c * tile_elems<64>(), v_bh + size_t(c) * kTile * hd,
-                     a.lk - c * kTile, hd);
+      stage_tile<W>(v_s + c * tile_elems<W>(), v_bh + size_t(c) * kTile * hd,
+                    a.lk - c * kTile, hd, v_cols);
     }
     cp_async_commit();
   }
@@ -346,7 +362,7 @@ __global__ void __launch_bounds__(kThreads) fwd_resident_kernel(const Args a) {
   l[0] = quad_sum(sum[0]);
   l[1] = quad_sum(sum[1]);
 
-  float o[8][4];
+  float o[NT][4];
   zero(o);
 #pragma unroll
   for (int c = 0; c < NC; ++c) {
@@ -355,7 +371,7 @@ __global__ void __launch_bounds__(kThreads) fwd_resident_kernel(const Args a) {
     if (c < n_chunks) {
       uint32_t pa[4][4];
       pack_a(pa, s[c]);
-      product_nn<64>(o, pa, v_s + c * tile_elems<64>());
+      product_nn<W>(o, pa, v_s + c * tile_elems<W>());
     }
   }
   finish(a, blk, row0, ln, m, l, o, q_s);
@@ -396,19 +412,23 @@ struct Walk {
 // at every streamed shape, with two buffers or three.)
 template <int D>
 __global__ void __launch_bounds__(kThreads) fwd_streaming_kernel(const Args a) {
+  constexpr int W = cols_of<D>(), NT = W / 8;  // the block's output columns
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* q_s = reinterpret_cast<bf16*>(smem_raw);
   bf16* k_s = q_s + tile_elems<D>();       // two buffers
-  bf16* v_s = k_s + 2 * tile_elems<D>();   // two buffers of the block's 64 columns
-  float* bias_s = reinterpret_cast<float*>(v_s + 2 * tile_elems<64>());  // two rows of 64
+  bf16* v_s = k_s + 2 * tile_elems<D>();   // two buffers of the block's W columns
+  float* bias_s = reinterpret_cast<float*>(v_s + 2 * tile_elems<W>());  // two rows of 64
 
   const Block<D> blk;
   const int h = blk.h, b = blk.b;
-  const int hd = a.num_heads * D;
+  int d = D;  // the head width: a constant in a library of 64 and 128 (PERF.md)
+  if constexpr (kRagged) d = a.flags >> 8;
+  const int v_cols = d - blk.half * W;
+  const int hd = a.num_heads * d;
   const int warp = threadIdx.x >> 5, t = threadIdx.x & 3;
   const int row0 = blk.tile * kTile;
-  const bf16* k_bh = a.k + size_t(b) * a.lk * hd + h * D;
-  const bf16* v_bh = a.v + size_t(b) * a.lk * hd + h * D + blk.half * 64;
+  const bf16* k_bh = a.k + size_t(b) * a.lk * hd + h * d;
+  const bf16* v_bh = a.v + size_t(b) * a.lk * hd + h * d + blk.half * W;
   const float* mask_b = a.mask + size_t(b) * a.lk;
 
   // One commit group a chunk: K (and in the second sweep V) and its bias;
@@ -419,10 +439,10 @@ __global__ void __launch_bounds__(kThreads) fwd_streaming_kernel(const Args a) {
     if (!ahead.done(a)) {
       const int c0 = ahead.chunk_key0();
       stage_tile<D>(k_s + ahead_buf * tile_elems<D>(), k_bh + size_t(c0) * hd,
-                    ahead.tile_end - c0, hd);
+                    ahead.tile_end - c0, hd, d);
       if (ahead.sweep) {
-        stage_tile<64>(v_s + ahead_buf * tile_elems<64>(), v_bh + size_t(c0) * hd,
-                       ahead.tile_end - c0, hd);
+        stage_tile<W>(v_s + ahead_buf * tile_elems<W>(), v_bh + size_t(c0) * hd,
+                      ahead.tile_end - c0, hd, v_cols);
       }
       stage_bias(bias_s + ahead_buf * kTile, mask_b, c0, ahead.tile_end);
       ahead.next(a);
@@ -431,7 +451,7 @@ __global__ void __launch_bounds__(kThreads) fwd_streaming_kernel(const Args a) {
     cp_async_commit();
   };
 
-  stage_tile<D>(q_s, a.q + (size_t(b) * a.lq + row0) * hd + h * D, a.lq - row0, hd);
+  stage_tile<D>(q_s, a.q + (size_t(b) * a.lq + row0) * hd + h * d, a.lq - row0, hd, d);
   load_next();  // one group with the Q tile
   const Lane<D> ln(a, b, h, row0);
 
@@ -440,7 +460,7 @@ __global__ void __launch_bounds__(kThreads) fwd_streaming_kernel(const Args a) {
   float m_new[2] = {kHardMask, kHardMask}, alpha[2] = {1.0f, 1.0f}, sum[2] = {0.0f, 0.0f};
   float cmax[2] = {-FLT_MAX, -FLT_MAX};
   uint32_t mix[2] = {0u, 0u};
-  float o[8][4];
+  float o[NT][4];
   zero(o);
 
   for (int buf = 0, first = 1; !wk.done(a); wk.next(a), first = 0) {
@@ -464,7 +484,7 @@ __global__ void __launch_bounds__(kThreads) fwd_streaming_kernel(const Args a) {
       weights(s, m_new, sum, a, ln, mix, wk.chunk * kTile);
       uint32_t pa[4][4];
       pack_a(pa, s);
-      product_nn<64>(o, pa, v_s + buf * tile_elems<64>());
+      product_nn<W>(o, pa, v_s + buf * tile_elems<W>());
       if (wk.last_chunk()) {
         close_tile(sum, alpha, m_new, m, l);
         cmax[0] = cmax[1] = -FLT_MAX;
@@ -485,16 +505,16 @@ int launch_kernel(void (*kernel)(const Args), dim3 grid, int smem, const Args& a
   return int(cudaGetLastError());
 }
 
-// The kernel of a call at head width D and its shared memory: resident
+// The kernel of a call at tile width D and its shared memory: resident
 // where the keys are one logical tile of at most 128 (NC = 2) or, at
-// D = 64, 256 (NC = 4); streaming otherwise.
+// D <= 64, 256 (NC = 4); streaming otherwise.
 template <int D>
 void (*pick(int lk, int bk, int& smem))(const Args) {
   if (lk <= bk && lk <= 2 * kTile) {
     smem = resident_smem<D>(2);
     return fwd_resident_kernel<D, 2>;
   }
-  if constexpr (D == 64) {
+  if constexpr (D <= 64) {
     if (lk <= bk && lk <= kMaxResidentKeys) {
       smem = resident_smem<D>(4);
       return fwd_resident_kernel<D, 4>;
@@ -521,18 +541,20 @@ const char* mkg_cuda_error_string(int err) {
 }
 
 // Shared memory of one block for Lk keys in logical tiles of bk at head_dim
-// 64 or 128 (the wrapper holds it against the device's opt-in limit before
-// launching); 0 for another width.
+// 64 or 128 (or a width of this library's padded one; the wrapper holds it
+// against the device's opt-in limit before launching); 0 for another width.
 size_t mkg_flash_attention_fwd_mma_smem(int lk, int bk, int head_dim) {
   int smem = 0;
-  if (head_dim == 64) pick<64>(lk, bk, smem);
-  if (head_dim == 128) pick<128>(lk, bk, smem);
+  attention_width::with_width(head_dim, 0, [&](auto width) {
+    pick<decltype(width)::value>(lk, bk, smem);
+    return 0;
+  });
   return size_t(smem);
 }
 
 // Launches on `stream` without synchronising and returns cudaGetLastError()
 // (cudaErrorInvalidValue for anything but bf16, where fp32 takes the
-// CUDA-core kernel, or for a head_dim other than 64 or 128). q, k, v and
+// CUDA-core kernel, or for a head_dim this library does not take). q, k, v and
 // out are bf16, packed (B, L, heads * head_dim); lse (B, heads, Lq) fp32;
 // inv_keep is 1 / (1 - rate).
 int mkg_flash_attention_fwd_mma(const void* q, const void* k, const void* v, const void* mask,
@@ -547,14 +569,15 @@ int mkg_flash_attention_fwd_mma(const void* q, const void* k, const void* v, con
                static_cast<const bf16*>(v), static_cast<const float*>(mask),
                static_cast<const int*>(boundary), static_cast<const float*>(w),
                static_cast<bf16*>(out), static_cast<float*>(lse), lq, lk, num_heads, scale,
-               row_start, text_len, offset, (has_geometry ? 1 : 0) | (dropout ? 2 : 0),
+               row_start, text_len, offset,
+               (has_geometry ? 1 : 0) | (dropout ? 2 : 0) | (kRagged ? head_dim << 8 : 0),
                threshold, inv_keep,
                seed, cell_stride,
                bq, bk, n_qblk, n_kblk};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (head_dim == 64) return launch<64>(a, batch, s);
-  if (head_dim == 128) return launch<128>(a, batch, s);
-  return int(cudaErrorInvalidValue);
+  return attention_width::with_width(head_dim, int(cudaErrorInvalidValue), [&](auto width) {
+    return launch<decltype(width)::value>(a, batch, s);
+  });
 }
 
 }  // extern "C"

@@ -14,7 +14,9 @@
 //
 // with the cast points of _bwd_kernel (:199, :208-217), on the packed
 // (B, L, heads * D) layout in and out, D = 64 or 128 (ViLBERT's visual
-// stream), each width its own instantiation. Scores, softmax and every sum are in
+// stream), each width its own instantiation, or any other width up to 128
+// through the instance of its padded width, in a library of its own
+// (attention_width.cuh, as fused_attention_fwd.cu). Scores, softmax and every sum are in
 // fp32; q, k, v, g and the results are bf16 or fp32. The dropout mask is
 // the counter hash of fused_attention_fwd.cu (the JAX interpret-mode
 // _dropout_keep with the per-(b, head) seed of _cell_seed, seed + b *
@@ -64,7 +66,11 @@
 #include <stdint.h>
 #include <cfloat>
 
+#include "attention_width.cuh"
+
 namespace {
+
+using attention_width::kRagged;
 
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
@@ -147,10 +153,24 @@ __device__ __forceinline__ float dot_row(const float* a, const T* b) {
 }
 
 template <int D, typename T>
-__device__ __forceinline__ void load_row(const T* p, float* f) {
+__device__ __forceinline__ void load_row(const T* p, float* f, int d) {
   constexpr int kChunk = 16 / sizeof(T);
+  if constexpr (kRagged) {
+    attention_width::load_row<D>(p, f, d);
+  } else {
 #pragma unroll
-  for (int c = 0; c < D; c += kChunk) load_chunk(p + c, f + c);
+    for (int c = 0; c < D; c += kChunk) load_chunk(p + c, f + c);
+  }
+}
+
+// A result pair at columns col, col + 1 of a row (those below d).
+template <typename T>
+__device__ __forceinline__ void store_cols(T* row, int col, int d, float a, float b) {
+  if constexpr (kRagged) {
+    attention_width::store_pair(row, col, d, a, b);
+  } else {
+    store_pair(row + col, a, b);
+  }
 }
 
 // The analogy geometry of attention.py:_geometry_planes, per row: whether
@@ -206,14 +226,20 @@ struct Layout {
   }
 };
 
-// Stage the (rows x D) slice of head h of batch row b from the packed
-// (B, rows, hd) tensor x into padded shared-memory rows.
+// Stage the (rows x d) slice of head h of batch row b from the packed
+// (B, rows, hd) tensor x into padded shared-memory rows of D (zero from d
+// on).
 template <int D, typename T>
-__device__ __forceinline__ void stage(T* dst, const T* x, int b, int rows, int hd, int h) {
+__device__ __forceinline__ void stage(T* dst, const T* x, int b, int rows, int hd, int h,
+                                      int d) {
   constexpr int kChunk = Layout<T, D>::kChunk;
   constexpr int kStride = Layout<T, D>::kStride;
   constexpr int kChunksPerRow = D / kChunk;
-  const T* src = x + size_t(b) * rows * hd + h * D;
+  const T* src = x + size_t(b) * rows * hd + h * d;
+  if constexpr (kRagged) {
+    attention_width::stage_rows<D>(dst, kStride, src, rows, hd, d);
+    return;
+  }
   for (int i = threadIdx.x; i < rows * kChunksPerRow; i += kThreads) {
     const int j = i / kChunksPerRow, c = (i % kChunksPerRow) * kChunk;
     *reinterpret_cast<uint4*>(dst + j * kStride + c) =
@@ -231,7 +257,7 @@ attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         int lq, int lk, int num_heads, float scale, int has_geometry,
                         int row_start, int text_len, int offset, int dropout,
                         uint32_t threshold, float inv_keep, uint32_t seed,
-                        uint32_t cell_stride) {
+                        uint32_t cell_stride, int head_dim) {
   constexpr int kStride = Layout<T, D>::kStride;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ float dw_s[kWarps][2];
@@ -241,14 +267,15 @@ attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int lk4 = (lk + 3) & ~3;
 
   const int tile = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int hd = num_heads * D;
+  const int d = kRagged ? head_dim : D;
+  const int hd = num_heads * d;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   float* sraw_row = bias_s + lk4 * (1 + 3 * warp);  // s_raw
   float* p_row = sraw_row + lk4;                    // s, then exp, then p
   float* d_row = p_row + lk4;                       // dP, then dS_raw
 
-  stage<D>(ks, k, b, lk, hd, h);
-  stage<D>(vs, v, b, lk, hd, h);
+  stage<D>(ks, k, b, lk, hd, h, d);
+  stage<D>(vs, v, b, lk, hd, h, d);
   for (int j = threadIdx.x; j < lk; j += kThreads) {
     bias_s[j] = (1.0f - mask[size_t(b) * lk + j]) * kNegBias;
   }
@@ -263,14 +290,14 @@ attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float dw0 = 0.0f, dw1 = 0.0f;  // this lane's partials
 
   for (int r = tile * kRowsPerBlock + warp; r < r_end; r += kWarps) {
-    const size_t row_off = (size_t(b) * lq + r) * hd + h * D;
+    const size_t row_off = (size_t(b) * lq + r) * hd + h * d;
     const RowGeometry rg = geo.row(r);
 
     // Scores and their max, the query row in registers.
     float mx = -FLT_MAX;
     {
       float qf[D];
-      load_row<D>(q + row_off, qf);
+      load_row<D>(q + row_off, qf, d);
       for (int j = lane; j < lk; j += 32) {
         const float acc = dot_row<D>(qf, ks + j * kStride);
         const float s_raw = __fmul_rn(acc, scale);
@@ -295,7 +322,7 @@ attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     float delta = 0.0f;
     {
       float gf[D];
-      load_row<D>(g + row_off, gf);
+      load_row<D>(g + row_off, gf, d);
       for (int j = lane; j < lk; j += 32) {
         const float p = p_row[j] / sum;
         float dp = dot_row<D>(gf, vs + j * kStride);
@@ -329,16 +356,18 @@ attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     // dq row: lane l owns columns 2l and 2l+1 of each 64-column half.
 #pragma unroll
     for (int c0 = 0; c0 < D; c0 += 64) {
+      const int col = c0 + 2 * lane;
+      if (kRagged && col >= d) continue;  // beyond the head's columns
       float a0 = 0.0f, a1 = 0.0f;
-      const T* kcol = ks + c0 + 2 * lane;
+      const T* kcol = ks + col;
 #pragma unroll 4
       for (int j = 0; j < lk; ++j) {
-        const float d = d_row[j];
+        const float dsr = d_row[j];
         const float2 kk = load_pair(kcol + j * kStride);
-        a0 = fmaf(d, kk.x, a0);
-        a1 = fmaf(d, kk.y, a1);
+        a0 = fmaf(dsr, kk.x, a0);
+        a1 = fmaf(dsr, kk.y, a1);
       }
-      store_pair(dq + row_off + c0 + 2 * lane, a0, a1);
+      store_cols(dq + row_off, col, d, a0, a1);
     }
     if (lane == 0) {
       float* st = stats + ((size_t(b) * num_heads + h) * lq + r) * 3;
@@ -377,7 +406,7 @@ attention_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                          T* __restrict__ dk, T* __restrict__ dv, int lq, int lk,
                          int num_heads, float scale, int has_geometry, int row_start,
                          int text_len, int offset, int dropout, uint32_t threshold,
-                         float inv_keep, uint32_t seed, uint32_t cell_stride) {
+                         float inv_keep, uint32_t seed, uint32_t cell_stride, int head_dim) {
   constexpr int kStride = Layout<T, D>::kStride;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* qs = reinterpret_cast<T*>(smem_raw);
@@ -388,13 +417,14 @@ attention_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* delta_s = l_s + lq4;
 
   const int tile = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int hd = num_heads * D;
+  const int d = kRagged ? head_dim : D;
+  const int hd = num_heads * d;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   float* pc_row = delta_s + lq4 * (1 + 2 * warp);  // P, then P_cast
   float* ds_row = pc_row + lq4;                    // dS_raw
 
-  stage<D>(qs, q, b, lq, hd, h);
-  stage<D>(gs, g, b, lq, hd, h);
+  stage<D>(qs, q, b, lq, hd, h, d);
+  stage<D>(gs, g, b, lq, hd, h, d);
   const float* st = stats + (size_t(b) * num_heads + h) * lq * 3;
   for (int i = threadIdx.x; i < lq; i += kThreads) {
     m_s[i] = st[3 * i];
@@ -411,14 +441,14 @@ attention_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int j_end = min(lk, (tile + 1) * kKeysPerBlock);
 
   for (int j = tile * kKeysPerBlock + warp; j < j_end; j += kWarps) {
-    const size_t col_off = (size_t(b) * lk + j) * hd + h * D;
+    const size_t col_off = (size_t(b) * lk + j) * hd + h * d;
     const float bias = (1.0f - mask[size_t(b) * lk + j]) * kNegBias;
     const bool col_answer = geo.col_is_answer(j);
 
     // P for this key column, the key row in registers; P_cast for dv.
     {
       float kf[D];
-      load_row<D>(k + col_off, kf);
+      load_row<D>(k + col_off, kf, d);
       for (int i = lane; i < lq; i += 32) {
         const RowGeometry rg = geo.row(i);
         const float acc = dot_row<D>(kf, qs + i * kStride);
@@ -438,7 +468,7 @@ attention_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     // dP and dS_raw for this column, the value row in registers.
     {
       float vf[D];
-      load_row<D>(v + col_off, vf);
+      load_row<D>(v + col_off, vf, d);
       for (int i = lane; i < lq; i += 32) {
         const RowGeometry rg = geo.row(i);
         float dp = dot_row<D>(vf, gs + i * kStride);
@@ -458,21 +488,23 @@ attention_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     // dk and dv rows: lane l owns columns 2l and 2l+1 of each 64-column half.
 #pragma unroll
     for (int c0 = 0; c0 < D; c0 += 64) {
+      const int col = c0 + 2 * lane;
+      if (kRagged && col >= d) continue;  // beyond the head's columns
       float k0 = 0.0f, k1 = 0.0f, v0 = 0.0f, v1 = 0.0f;
-      const T* qcol = qs + c0 + 2 * lane;
-      const T* gcol = gs + c0 + 2 * lane;
+      const T* qcol = qs + col;
+      const T* gcol = gs + col;
 #pragma unroll 4
       for (int i = 0; i < lq; ++i) {
-        const float d = ds_row[i], pc = pc_row[i];
+        const float dsr = ds_row[i], pc = pc_row[i];
         const float2 qq = load_pair(qcol + i * kStride);
         const float2 gg = load_pair(gcol + i * kStride);
-        k0 = fmaf(d, qq.x, k0);
-        k1 = fmaf(d, qq.y, k1);
+        k0 = fmaf(dsr, qq.x, k0);
+        k1 = fmaf(dsr, qq.y, k1);
         v0 = fmaf(pc, gg.x, v0);
         v1 = fmaf(pc, gg.y, v1);
       }
-      store_pair(dk + col_off + c0 + 2 * lane, k0, k1);
-      store_pair(dv + col_off + c0 + 2 * lane, v0, v1);
+      store_cols(dk + col_off, col, d, k0, k1);
+      store_cols(dv + col_off, col, d, v0, v1);
     }
     __syncwarp();  // the rows are rewritten by this warp's next key
   }
@@ -484,7 +516,7 @@ int launch(const void* q, const void* k, const void* v, const void* g, const voi
            void* stats, void* dw_part, int batch, int lq, int lk, int num_heads,
            float scale, int has_geometry, int row_start, int text_len, int offset,
            int dropout, uint32_t threshold, float inv_keep, uint32_t seed,
-           uint32_t cell_stride, cudaStream_t stream) {
+           uint32_t cell_stride, int head_dim, cudaStream_t stream) {
   const size_t smem_dq = Layout<T, D>::dq_bytes(lk);
   const size_t smem_dkv = Layout<T, D>::dkv_bytes(lq);
   cudaError_t err = cudaFuncSetAttribute(attention_bwd_dq_kernel<T, D>,
@@ -506,7 +538,7 @@ int launch(const void* q, const void* k, const void* v, const void* g, const voi
       qt, kt, vt, gt, maskf, bnd, wf, static_cast<T*>(dq), static_cast<float*>(stats),
       static_cast<float*>(dw_part), lq, lk, num_heads, scale, has_geometry, row_start,
       text_len, offset, dropout, threshold, inv_keep, seed,
-      cell_stride);
+      cell_stride, head_dim);
   err = cudaGetLastError();
   if (err != cudaSuccess) return int(err);
   const dim3 grid_dkv((lk + kKeysPerBlock - 1) / kKeysPerBlock, num_heads, batch);
@@ -514,7 +546,7 @@ int launch(const void* q, const void* k, const void* v, const void* g, const voi
       qt, kt, vt, gt, maskf, bnd, wf, static_cast<const float*>(stats),
       static_cast<T*>(dk), static_cast<T*>(dv), lq, lk, num_heads, scale, has_geometry,
       row_start, text_len, offset, dropout, threshold, inv_keep, seed,
-      cell_stride);
+      cell_stride, head_dim);
   return int(cudaGetLastError());
 }
 
@@ -534,19 +566,17 @@ const char* mkg_cuda_error_string(int err) {
 
 // Dynamic shared memory of the larger of the two passes' blocks (the
 // wrapper holds it against the device's opt-in limit before launching); 0
-// for a head width the kernels do not take.
+// for a head width the library does not take.
 size_t mkg_fused_attention_bwd_smem(int lq, int lk, int is_bf16, int head_dim) {
-  if (head_dim == 64) {
-    return is_bf16 ? smem_bytes<__nv_bfloat16, 64>(lq, lk) : smem_bytes<float, 64>(lq, lk);
-  }
-  if (head_dim == 128) {
-    return is_bf16 ? smem_bytes<__nv_bfloat16, 128>(lq, lk) : smem_bytes<float, 128>(lq, lk);
-  }
-  return 0;
+  return attention_width::with_width(head_dim, size_t(0), [&](auto width) {
+    constexpr int D = decltype(width)::value;
+    return is_bf16 ? smem_bytes<__nv_bfloat16, D>(lq, lk) : smem_bytes<float, D>(lq, lk);
+  });
 }
 
 // Launches both passes on `stream` without synchronising; returns
-// cudaGetLastError(). head_dim is 64 or 128; stats is (B, heads, Lq, 3)
+// cudaGetLastError(). head_dim is 64 or 128 (or, in a library of one padded
+// width, any width that rounds up to it); stats is (B, heads, Lq, 3)
 // fp32 scratch, dw_part (B, heads, ceil(Lq / 64), 2) fp32 partials of (dw0,
 // dw1).
 int mkg_fused_attention_bwd(const void* q, const void* k, const void* v, const void* g,
@@ -557,16 +587,13 @@ int mkg_fused_attention_bwd(const void* q, const void* k, const void* v, const v
                             int text_len, int offset, int dropout, unsigned int threshold,
                             float inv_keep, unsigned int seed, unsigned int cell_stride,
                             void* stream) {
-  if (head_dim != 64 && head_dim != 128) return int(cudaErrorInvalidValue);
-  decltype(&launch<float, 64>) fn;
-  if (head_dim == 64) {
-    fn = is_bf16 ? &launch<__nv_bfloat16, 64> : &launch<float, 64>;
-  } else {
-    fn = is_bf16 ? &launch<__nv_bfloat16, 128> : &launch<float, 128>;
-  }
-  return fn(q, k, v, g, mask, boundary, w, dq, dk, dv, stats, dw_part, batch, lq, lk,
-            num_heads, scale, has_geometry, row_start, text_len, offset, dropout, threshold,
-            inv_keep, seed, cell_stride, static_cast<cudaStream_t>(stream));
+  return attention_width::with_width(head_dim, int(cudaErrorInvalidValue), [&](auto width) {
+    constexpr int D = decltype(width)::value;
+    auto fn = is_bf16 ? &launch<__nv_bfloat16, D> : &launch<float, D>;
+    return fn(q, k, v, g, mask, boundary, w, dq, dk, dv, stats, dw_part, batch, lq, lk,
+              num_heads, scale, has_geometry, row_start, text_len, offset, dropout, threshold,
+              inv_keep, seed, cell_stride, head_dim, static_cast<cudaStream_t>(stream));
+  });
 }
 
 }  // extern "C"

@@ -15,7 +15,9 @@
 //
 // with those cast points of _bwd_kernel, fp32 scores, softmax and sums, on
 // the packed (B, L, heads * D) layout, D = 64 or 128 (ViLBERT's visual
-// stream), each width its own instantiation.
+// stream), each width its own instantiation, or any other width up to 128
+// through the instance of its padded width, in a library of its own
+// (attention_width.cuh).
 //
 // What bounds it: bytes (attention_mma.cuh has the count). The CUDA-core
 // kernels it takes over from (fused_attention_bwd.cu, which keeps fp32) ran
@@ -55,7 +57,9 @@
 // only the first half's block writes a row's statistics and the dw
 // partials. The score keeps the plain version's two roundings where a
 // multiplier applies (attention_mma.cuh: ScoreRule), and dS_raw is rounded
-// as (dS * multiplier) * scale, in the plain version's order.
+// as (dS * multiplier) * scale, in the plain version's order. At the other
+// tile widths (16 to 112) a block of either pass owns all D result columns
+// (cols_of<D>), and the dq pass keeps its resident form up to D = 64.
 // A lane holds rows g and g + 8 (g = lane / 4) and columns 2t, 2t + 1
 // (t = lane % 4) of each 16 x 8 tile; geometry and dropout index come from
 // those coordinates (in pass 2 the tile's rows are keys, its columns query
@@ -101,6 +105,9 @@ struct Args {
   float inv_keep;
   uint32_t seed;
   uint32_t cell_stride;  // dropout cell of (b, h): b * cell_stride + h
+#ifdef MKG_ATTN_DP
+  int d;  // the call's head width (the tile's is MKG_ATTN_DP)
+#endif
 };
 
 // The block's coordinates: its tile of 64 rows (query rows in the dq pass,
@@ -226,16 +233,18 @@ struct Chunk {
 
 template <int D>
 __device__ __forceinline__ void finish_dq(const Args& a, const Lane<D>& ln, const Block<D>& blk,
-                                          bf16* q_rows, const float (&acc)[8][4],
+                                          bf16* q_rows, const float (&acc)[cols_of<D>() / 8][4],
                                           const float (&m)[2], const float (&inv_l)[2],
                                           const float (&delta)[2], float dw0, float dw1) {
   __shared__ float dw_s[kWarps][2];
+  constexpr int W = cols_of<D>();
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int h = blk.h, b = blk.b;
-  const int hd = a.num_heads * D;
+  const int d = head_width<D>(a);
+  const int hd = a.num_heads * d;
   const int row_w = blk.tile * kTile + warp * 16;
-  store_rows<D>(a.dq + (size_t(b) * a.lq + row_w) * hd + h * D + blk.half * 64, hd,
-                a.lq - row_w, q_rows, acc);
+  store_rows<D>(a.dq + (size_t(b) * a.lq + row_w) * hd + h * d + blk.half * W, hd,
+                a.lq - row_w, q_rows, acc, d - blk.half * W);
   if (blk.half != 0) return;  // the statistics and dw are the first half's to write
   if ((lane & 3) == 0) {
 #pragma unroll
@@ -267,42 +276,47 @@ __device__ __forceinline__ void finish_dq(const Args& a, const Lane<D>& ln, cons
   }
 }
 
-// dq pass up to 128 keys at D = 64: both accumulator tiles of the whole row
-// in registers, every chunk in shared memory, one sweep.
+// dq pass up to 128 keys at D <= 64: both accumulator tiles of the whole
+// row in registers, every chunk in shared memory, one sweep.
+template <int D>
 __global__ void __launch_bounds__(kThreads) dq_resident_kernel(const Args a) {
   constexpr int NC = kDqResidentChunks;
-  constexpr int D = 64;
+  constexpr int NT = D / 8;  // the block's D result columns
+  static_assert(D <= 64, "the resident dq pass holds 2 x 64 keys of two tiles");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* q_s = reinterpret_cast<bf16*>(smem_raw);
-  bf16* g_s = q_s + kTileElems;
-  bf16* k_s = g_s + kTileElems;       // NC chunks
-  bf16* v_s = k_s + NC * kTileElems;  // NC chunks
-  float* bias_s = reinterpret_cast<float*>(v_s + NC * kTileElems);  // NC rows of 64
+  bf16* g_s = q_s + tile_elems<D>();
+  bf16* k_s = g_s + tile_elems<D>();       // NC chunks
+  bf16* v_s = k_s + NC * tile_elems<D>();  // NC chunks
+  float* bias_s = reinterpret_cast<float*>(v_s + NC * tile_elems<D>());  // NC rows of 64
 
   const Block<D> blk;
   const int h = blk.h, b = blk.b;
-  const int hd = a.num_heads * kHeadDim;
+  const int d = head_width<D>(a);
+  const int hd = a.num_heads * d;
   const int warp = threadIdx.x >> 5, t = threadIdx.x & 3;
   const int row0 = blk.tile * kTile;
   const int n_chunks = (a.lk + kTile - 1) / kTile;  // <= NC
 
-  const size_t tile_off = (size_t(b) * a.lq + row0) * hd + h * kHeadDim;
-  const bf16* kb = a.k + size_t(b) * a.lk * hd + h * kHeadDim;
-  const bf16* vb = a.v + size_t(b) * a.lk * hd + h * kHeadDim;
-  stage_tile(q_s, a.q + tile_off, a.lq - row0, hd);
-  stage_tile(g_s, a.go + tile_off, a.lq - row0, hd);
+  const size_t tile_off = (size_t(b) * a.lq + row0) * hd + h * d;
+  const bf16* kb = a.k + size_t(b) * a.lk * hd + h * d;
+  const bf16* vb = a.v + size_t(b) * a.lk * hd + h * d;
+  stage_tile<D>(q_s, a.q + tile_off, a.lq - row0, hd, d);
+  stage_tile<D>(g_s, a.go + tile_off, a.lq - row0, hd, d);
 #pragma unroll
   for (int c = 0; c < NC; ++c) {  // one commit group a chunk; Q and g with the first
     if (c < n_chunks) {
-      stage_tile(k_s + c * kTileElems, kb + size_t(c) * kTile * hd, a.lk - c * kTile, hd);
-      stage_tile(v_s + c * kTileElems, vb + size_t(c) * kTile * hd, a.lk - c * kTile, hd);
+      stage_tile<D>(k_s + c * tile_elems<D>(), kb + size_t(c) * kTile * hd, a.lk - c * kTile,
+                    hd, d);
+      stage_tile<D>(v_s + c * tile_elems<D>(), vb + size_t(c) * kTile * hd, a.lk - c * kTile,
+                    hd, d);
     }
     cp_async_commit();
     stage_bias(bias_s + c * kTile, a.mask + size_t(b) * a.lk, c * kTile, a.lk);
   }
   const Lane<D> ln(a, b, h, row0);
 
-  uint32_t qa[4][4], ga[4][4];
+  uint32_t qa[D / 16][4], ga[D / 16][4];
   float s[NC][8][4], dp[NC][8][4];
   Chunk ch[NC];
   float m[2] = {-FLT_MAX, -FLT_MAX};
@@ -311,15 +325,15 @@ __global__ void __launch_bounds__(kThreads) dq_resident_kernel(const Args a) {
     cp_async_wait_pending(NC - 1 - c);
     __syncthreads();
     if (c == 0) {
-      load_a(qa, q_s + warp * 16 * kStride);
-      load_a(ga, g_s + warp * 16 * kStride);
+      load_a<D>(qa, q_s + warp * 16 * stride_of<D>());
+      load_a<D>(ga, g_s + warp * 16 * stride_of<D>());
     }
     ch[c] = Chunk{ln.geo.answer_bits(c * kTile + 2 * t), bias_s + c * kTile, c * kTile};
     if (c < n_chunks) {
       zero(s[c]);
       zero(dp[c]);
-      product_nt(s[c], qa, k_s + c * kTileElems);
-      product_nt(dp[c], ga, v_s + c * kTileElems);
+      product_nt<D>(s[c], qa, k_s + c * tile_elems<D>());
+      product_nt<D>(dp[c], ga, v_s + c * tile_elems<D>());
       ch[c].mask_and_max(s[c], dp[c], m, a, ln);
     }
   }
@@ -336,7 +350,7 @@ __global__ void __launch_bounds__(kThreads) dq_resident_kernel(const Args a) {
     delta[r] = quad_sum(dsum) * inv_l[r];
   }
   float dw0 = 0.0f, dw1 = 0.0f;
-  float acc[8][4];
+  float acc[NT][4];
   zero(acc);
 #pragma unroll
   for (int c = 0; c < NC; ++c) {
@@ -344,15 +358,16 @@ __global__ void __launch_bounds__(kThreads) dq_resident_kernel(const Args a) {
       ch[c].ds_raw(s[c], dp[c], m, inv_l, delta, dw0, dw1, a, ln);
       uint32_t da[4][4];
       pack_a(da, s[c]);
-      product_nn(acc, da, k_s + c * kTileElems);
+      product_nn<D>(acc, da, k_s + c * tile_elems<D>());
     }
   }
-  finish_dq(a, ln, blk, q_s + warp * 16 * kStride, acc, m, inv_l, delta, dw0, dw1);
+  finish_dq(a, ln, blk, q_s + warp * 16 * stride_of<D>(), acc, m, inv_l, delta, dw0, dw1);
 }
 
 // dq pass at any Lk: two sweeps over the keys through two buffers.
 template <int D>
 __global__ void __launch_bounds__(kThreads) dq_streaming_kernel(const Args a) {
+  constexpr int W = cols_of<D>(), NT = W / 8;  // the block's result columns
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* q_s = reinterpret_cast<bf16*>(smem_raw);
   bf16* g_s = q_s + tile_elems<D>();
@@ -362,12 +377,13 @@ __global__ void __launch_bounds__(kThreads) dq_streaming_kernel(const Args a) {
 
   const Block<D> blk;
   const int h = blk.h, b = blk.b;
-  const int hd = a.num_heads * D;
+  const int d = head_width<D>(a);
+  const int hd = a.num_heads * d;
   const int warp = threadIdx.x >> 5, t = threadIdx.x & 3;
   const int row0 = blk.tile * kTile;
 
-  const bf16* kb = a.k + size_t(b) * a.lk * hd + h * D;
-  const bf16* vb = a.v + size_t(b) * a.lk * hd + h * D;
+  const bf16* kb = a.k + size_t(b) * a.lk * hd + h * d;
+  const bf16* vb = a.v + size_t(b) * a.lk * hd + h * d;
   const float* mask_b = a.mask + size_t(b) * a.lk;
   const int n_chunks = (a.lk + kTile - 1) / kTile;
   const int n_items = 2 * n_chunks;  // sweep 0 then sweep 1
@@ -375,15 +391,15 @@ __global__ void __launch_bounds__(kThreads) dq_streaming_kernel(const Args a) {
   auto load_item = [&](int it) {
     const int buf = it & 1;
     const int key0 = (it >= n_chunks ? it - n_chunks : it) * kTile;
-    stage_tile<D>(k_s + buf * tile_elems<D>(), kb + size_t(key0) * hd, a.lk - key0, hd);
-    stage_tile<D>(v_s + buf * tile_elems<D>(), vb + size_t(key0) * hd, a.lk - key0, hd);
+    stage_tile<D>(k_s + buf * tile_elems<D>(), kb + size_t(key0) * hd, a.lk - key0, hd, d);
+    stage_tile<D>(v_s + buf * tile_elems<D>(), vb + size_t(key0) * hd, a.lk - key0, hd, d);
     stage_bias(bias_s + buf * kTile, mask_b, key0, a.lk);
     cp_async_commit();
   };
 
-  const size_t tile_off = (size_t(b) * a.lq + row0) * hd + h * D;
-  stage_tile<D>(q_s, a.q + tile_off, a.lq - row0, hd);
-  stage_tile<D>(g_s, a.go + tile_off, a.lq - row0, hd);
+  const size_t tile_off = (size_t(b) * a.lq + row0) * hd + h * d;
+  stage_tile<D>(q_s, a.q + tile_off, a.lq - row0, hd, d);
+  stage_tile<D>(g_s, a.go + tile_off, a.lq - row0, hd, d);
   load_item(0);  // one group with the Q and g tiles
   const Lane<D> ln(a, b, h, row0);
 
@@ -392,7 +408,7 @@ __global__ void __launch_bounds__(kThreads) dq_streaming_kernel(const Args a) {
   float l[2] = {0.0f, 0.0f}, dsum[2] = {0.0f, 0.0f};
   float inv_l[2] = {0.0f, 0.0f}, delta[2] = {0.0f, 0.0f};
   float dw0 = 0.0f, dw1 = 0.0f;
-  float acc[8][4];
+  float acc[NT][4];
   zero(acc);
 
   for (int it = 0; it < n_items; ++it) {
@@ -445,7 +461,7 @@ __global__ void __launch_bounds__(kThreads) dq_streaming_kernel(const Args a) {
       ch.ds_raw(s, dp, m, inv_l, delta, dw0, dw1, a, ln);
       uint32_t da[4][4];
       pack_a(da, s);
-      product_nn<D>(acc, da, kc + blk.half * 64);
+      product_nn<D>(acc, da, kc + blk.half * W);
     }
     __syncthreads();  // the buffer is refilled by the load after next
   }
@@ -456,6 +472,7 @@ __global__ void __launch_bounds__(kThreads) dq_streaming_kernel(const Args a) {
 // statistics through two buffers.
 template <int D>
 __global__ void __launch_bounds__(kThreads) dkv_kernel(const Args a) {
+  constexpr int W = cols_of<D>(), NT = W / 8;  // the block's result columns
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* k_s = reinterpret_cast<bf16*>(smem_raw);
   bf16* v_s = k_s + tile_elems<D>();
@@ -465,21 +482,22 @@ __global__ void __launch_bounds__(kThreads) dkv_kernel(const Args a) {
 
   const Block<D> blk;
   const int h = blk.h, b = blk.b;
-  const int hd = a.num_heads * D;
+  const int d = head_width<D>(a);
+  const int hd = a.num_heads * d;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;
   const int key0 = blk.tile * kTile;
 
-  const bf16* qb = a.q + size_t(b) * a.lq * hd + h * D;
-  const bf16* gb = a.go + size_t(b) * a.lq * hd + h * D;
+  const bf16* qb = a.q + size_t(b) * a.lq * hd + h * d;
+  const bf16* gb = a.go + size_t(b) * a.lq * hd + h * d;
   const float4* st_b = reinterpret_cast<const float4*>(a.stats) +
                        (size_t(b) * a.num_heads + h) * a.lq;
   const int n_chunks = (a.lq + kTile - 1) / kTile;
 
   auto load_item = [&](int it) {
     const int buf = it & 1, r0 = it * kTile;
-    stage_tile<D>(q_s + buf * tile_elems<D>(), qb + size_t(r0) * hd, a.lq - r0, hd);
-    stage_tile<D>(g_s + buf * tile_elems<D>(), gb + size_t(r0) * hd, a.lq - r0, hd);
+    stage_tile<D>(q_s + buf * tile_elems<D>(), qb + size_t(r0) * hd, a.lq - r0, hd, d);
+    stage_tile<D>(g_s + buf * tile_elems<D>(), gb + size_t(r0) * hd, a.lq - r0, hd, d);
     if (threadIdx.x < kTile) {  // zeros beyond Lq: 1 / l = 0, so p = 0 there
       const bool valid = r0 + threadIdx.x < a.lq;
       cp_async_16(st_s + buf * kTile + threadIdx.x, st_b + (valid ? r0 + threadIdx.x : 0),
@@ -488,9 +506,9 @@ __global__ void __launch_bounds__(kThreads) dkv_kernel(const Args a) {
     cp_async_commit();
   };
 
-  const size_t tile_off = (size_t(b) * a.lk + key0) * hd + h * D;
-  stage_tile<D>(k_s, a.k + tile_off, a.lk - key0, hd);
-  stage_tile<D>(v_s, a.v + tile_off, a.lk - key0, hd);
+  const size_t tile_off = (size_t(b) * a.lk + key0) * hd + h * d;
+  stage_tile<D>(k_s, a.k + tile_off, a.lk - key0, hd, d);
+  stage_tile<D>(v_s, a.v + tile_off, a.lk - key0, hd, d);
   load_item(0);  // one group with the K and V tiles
 
   const Geometry geo =
@@ -508,7 +526,7 @@ __global__ void __launch_bounds__(kThreads) dkv_kernel(const Args a) {
     bias[r] = key < a.lk ? (1.0f - a.mask[size_t(b) * a.lk + key]) * kNegBias : -INFINITY;
   }
 
-  float dk_acc[8][4], dv_acc[8][4];
+  float dk_acc[NT][4], dv_acc[NT][4];
   zero(dk_acc);
   zero(dv_acc);
 
@@ -557,7 +575,7 @@ __global__ void __launch_bounds__(kThreads) dkv_kernel(const Args a) {
         }
       }
       pack_a(pa, pc);
-      product_nn<D>(dv_acc, pa, gc + blk.half * 64);
+      product_nn<D>(dv_acc, pa, gc + blk.half * W);
     }
 
     // dP^T = V g^T: dS_raw^T; dk += dS_raw^T Q
@@ -581,15 +599,17 @@ __global__ void __launch_bounds__(kThreads) dkv_kernel(const Args a) {
       }
       uint32_t da[4][4];
       pack_a(da, dpt);
-      product_nn<D>(dk_acc, da, qc + blk.half * 64);
+      product_nn<D>(dk_acc, da, qc + blk.half * W);
     }
     __syncthreads();  // the buffer is refilled by the load after next
   }
 
-  const int keys_valid = a.lk - key0 - warp * 16;
-  const size_t out_off = tile_off + size_t(warp) * 16 * hd + blk.half * 64;
-  store_rows<D>(a.dk + out_off, hd, keys_valid, k_s + warp * 16 * stride_of<D>(), dk_acc);
-  store_rows<D>(a.dv + out_off, hd, keys_valid, v_s + warp * 16 * stride_of<D>(), dv_acc);
+  const int keys_valid = a.lk - key0 - warp * 16, cols_valid = d - blk.half * W;
+  const size_t out_off = tile_off + size_t(warp) * 16 * hd + blk.half * W;
+  store_rows<D>(a.dk + out_off, hd, keys_valid, k_s + warp * 16 * stride_of<D>(), dk_acc,
+                cols_valid);
+  store_rows<D>(a.dv + out_off, hd, keys_valid, v_s + warp * 16 * stride_of<D>(), dv_acc,
+                cols_valid);
 }
 
 int launch_kernel(void (*kernel)(const Args), dim3 grid, int smem, const Args& a,
@@ -605,8 +625,8 @@ template <int D>
 int launch(const Args& a, int batch, cudaStream_t s) {
   const dim3 grid_dq((a.lq + kTile - 1) / kTile * halves_of<D>(), a.num_heads, batch);
   void (*dq_kernel)(const Args) = dq_streaming_kernel<D>;
-  if constexpr (D == 64) {
-    if (a.lk <= kDqResidentChunks * kTile) dq_kernel = dq_resident_kernel;
+  if constexpr (D <= 64) {
+    if (a.lk <= kDqResidentChunks * kTile) dq_kernel = dq_resident_kernel<D>;
   }
   const int err = launch_kernel(dq_kernel, grid_dq, dq_smem<D>(), a, s);
   if (err != 0) return err;
@@ -624,7 +644,8 @@ const char* mkg_cuda_error_string(int err) {
 
 // Launches both passes on `stream` without synchronising; returns
 // cudaGetLastError(). q, k, v, g, dq, dk and dv are bf16, packed (B, L,
-// heads * head_dim), head_dim 64 or 128; stats is (B, heads, Lq, 4) fp32
+// heads * head_dim), head_dim 64 or 128 (or, in a library of one padded
+// width, any width that rounds up to it); stats is (B, heads, Lq, 4) fp32
 // scratch, 16-byte aligned; dw_part (B, heads, ceil(Lq / 64), 2) fp32
 // partials of (dw0, dw1); inv_keep is 1 / (1 - rate).
 int mkg_fused_attention_bwd_mma(const void* q, const void* k, const void* v, const void* g,
@@ -636,16 +657,19 @@ int mkg_fused_attention_bwd_mma(const void* q, const void* k, const void* v, con
                                 float inv_keep, unsigned int seed, unsigned int cell_stride,
                                 void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Args a{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-               static_cast<const bf16*>(v), static_cast<const bf16*>(g),
-               static_cast<const float*>(mask), static_cast<const int*>(boundary),
-               static_cast<const float*>(w), static_cast<bf16*>(dq), static_cast<bf16*>(dk),
-               static_cast<bf16*>(dv), static_cast<float*>(stats),
-               static_cast<float*>(dw_part), lq, lk, num_heads, scale, has_geometry,
-               row_start, text_len, offset, dropout, threshold, inv_keep, seed, cell_stride};
-  if (head_dim == 64) return launch<64>(a, batch, s);
-  if (head_dim == 128) return launch<128>(a, batch, s);
-  return int(cudaErrorInvalidValue);
+  Args a{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+         static_cast<const bf16*>(v), static_cast<const bf16*>(g),
+         static_cast<const float*>(mask), static_cast<const int*>(boundary),
+         static_cast<const float*>(w), static_cast<bf16*>(dq), static_cast<bf16*>(dk),
+         static_cast<bf16*>(dv), static_cast<float*>(stats),
+         static_cast<float*>(dw_part), lq, lk, num_heads, scale, has_geometry,
+         row_start, text_len, offset, dropout, threshold, inv_keep, seed, cell_stride};
+#ifdef MKG_ATTN_DP
+  a.d = head_dim;
+#endif
+  return attention_width::with_width(head_dim, int(cudaErrorInvalidValue), [&](auto width) {
+    return launch<decltype(width)::value>(a, batch, s);
+  });
 }
 
 }  // extern "C"

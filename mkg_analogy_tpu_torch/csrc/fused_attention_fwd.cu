@@ -8,7 +8,10 @@
 // per (batch row, head), on the packed (B, L, heads * D) layout that the
 // projection GEMMs produce, for input and output; D, the head width, is 64
 // (BERT-base, ViT-B) or 128 (ViLBERT's visual stream), each its own
-// instantiation. Scores and softmax are in
+// instantiation, or any other width up to 128 through the instance of its
+// padded width, in a library of its own (attention_width.cuh: rows staged
+// and loaded element by element, zero beyond the real width, and a lane's
+// columns stored where they are below it). Scores and softmax are in
 // fp32; the probabilities are rounded to the compute dtype (the dtype of
 // q/k/v) before the product with V, which accumulates in fp32. The analogy
 // multiplier is computed inline from (row, col, boundary[b]) with the
@@ -59,7 +62,11 @@
 #include <stdint.h>
 #include <cfloat>
 
+#include "attention_width.cuh"
+
 namespace {
+
+using attention_width::kRagged;
 
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
@@ -151,7 +158,7 @@ fused_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                            int lq, int lk, int num_heads, float scale,
                            int has_geometry, int row_start, int text_len, int offset,
                            int dropout, uint32_t threshold, float keep_div,
-                           uint32_t seed, uint32_t cell_stride) {
+                           uint32_t seed, uint32_t cell_stride, int head_dim) {
   constexpr int kChunk = Layout<T, D>::kChunk;
   constexpr int kStride = Layout<T, D>::kStride;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -161,20 +168,26 @@ fused_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int lk4 = (lk + 3) & ~3;
 
   const int tile = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int hd = num_heads * D;
+  const int d = kRagged ? head_dim : D;
+  const int hd = num_heads * d;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   float* srow = bias_s + lk4 * (1 + warp);
 
   // Stage this head's K and V slices and the padding bias row.
-  const T* kb = k + size_t(b) * lk * hd + h * D;
-  const T* vb = v + size_t(b) * lk * hd + h * D;
-  constexpr int kChunksPerRow = D / kChunk;
-  for (int i = threadIdx.x; i < lk * kChunksPerRow; i += kThreads) {
-    const int j = i / kChunksPerRow, c = (i % kChunksPerRow) * kChunk;
-    *reinterpret_cast<uint4*>(ks + j * kStride + c) =
-        *reinterpret_cast<const uint4*>(kb + size_t(j) * hd + c);
-    *reinterpret_cast<uint4*>(vs + j * kStride + c) =
-        *reinterpret_cast<const uint4*>(vb + size_t(j) * hd + c);
+  const T* kb = k + size_t(b) * lk * hd + h * d;
+  const T* vb = v + size_t(b) * lk * hd + h * d;
+  if constexpr (kRagged) {
+    attention_width::stage_rows<D>(ks, kStride, kb, lk, hd, d);
+    attention_width::stage_rows<D>(vs, kStride, vb, lk, hd, d);
+  } else {
+    constexpr int kChunksPerRow = D / kChunk;
+    for (int i = threadIdx.x; i < lk * kChunksPerRow; i += kThreads) {
+      const int j = i / kChunksPerRow, c = (i % kChunksPerRow) * kChunk;
+      *reinterpret_cast<uint4*>(ks + j * kStride + c) =
+          *reinterpret_cast<const uint4*>(kb + size_t(j) * hd + c);
+      *reinterpret_cast<uint4*>(vs + j * kStride + c) =
+          *reinterpret_cast<const uint4*>(vb + size_t(j) * hd + c);
+    }
   }
   for (int j = threadIdx.x; j < lk; j += kThreads) {
     bias_s[j] = (1.0f - mask[size_t(b) * lk + j]) * kNegBias;
@@ -190,10 +203,14 @@ fused_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   for (int r = tile * kRowsPerBlock + warp; r < r_end; r += kWarps) {
     // The query row, in registers, in every lane.
-    const T* qr = q + (size_t(b) * lq + r) * hd + h * D;
+    const T* qr = q + (size_t(b) * lq + r) * hd + h * d;
     float qf[D];
+    if constexpr (kRagged) {
+      attention_width::load_row<D>(qr, qf, d);
+    } else {
 #pragma unroll
-    for (int c = 0; c < D; c += kChunk) load_chunk(qr + c, qf + c);
+      for (int c = 0; c < D; c += kChunk) load_chunk(qr + c, qf + c);
+    }
 
     // Row half of the analogy geometry (attention.py:_geometry_planes).
     bool row_in_scope = false;
@@ -242,8 +259,10 @@ fused_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 #pragma unroll
     for (int c0 = 0; c0 < D; c0 += 64) {
+      const int col = c0 + 2 * lane;
+      if (kRagged && col >= d) continue;  // beyond the head's columns
       float a0 = 0.0f, a1 = 0.0f;
-      const T* vcol = vs + c0 + 2 * lane;
+      const T* vcol = vs + col;
 #pragma unroll 4
       for (int j = 0; j < lk; ++j) {
         const float p = srow[j];
@@ -251,7 +270,12 @@ fused_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         a0 = fmaf(p, vv.x, a0);
         a1 = fmaf(p, vv.y, a1);
       }
-      store_pair(out + (size_t(b) * lq + r) * hd + h * D + c0 + 2 * lane, a0, a1);
+      T* orow = out + (size_t(b) * lq + r) * hd + h * d;
+      if constexpr (kRagged) {
+        attention_width::store_pair(orow, col, d, a0, a1);
+      } else {
+        store_pair(orow + col, a0, a1);
+      }
     }
     __syncwarp();  // srow is rewritten by this warp's next row
   }
@@ -262,7 +286,7 @@ int launch(const void* q, const void* k, const void* v, const void* mask,
            const void* boundary, const void* w, void* out, int batch, int lq,
            int lk, int num_heads, float scale, int has_geometry, int row_start,
            int text_len, int offset, int dropout, uint32_t threshold,
-           float keep_div, uint32_t seed, uint32_t cell_stride,
+           float keep_div, uint32_t seed, uint32_t cell_stride, int head_dim,
            cudaStream_t stream) {
   const size_t smem = Layout<T, D>::smem_bytes(lk);
   cudaError_t err = cudaFuncSetAttribute(fused_attention_fwd_kernel<T, D>,
@@ -275,7 +299,7 @@ int launch(const void* q, const void* k, const void* v, const void* mask,
       static_cast<const float*>(mask), static_cast<const int*>(boundary),
       static_cast<const float*>(w), static_cast<T*>(out), lq, lk, num_heads, scale,
       has_geometry, row_start, text_len, offset, dropout, threshold, keep_div, seed,
-      cell_stride);
+      cell_stride, head_dim);
   return int(cudaGetLastError());
 }
 
@@ -289,20 +313,17 @@ const char* mkg_cuda_error_string(int err) {
 
 // Dynamic shared memory one block needs for Lk keys (the wrapper holds it
 // against the device's opt-in limit before launching); 0 for a head width
-// the kernel does not take.
+// the library does not take.
 size_t mkg_fused_attention_fwd_smem(int lk, int is_bf16, int head_dim) {
-  if (head_dim == 64) {
-    return is_bf16 ? Layout<__nv_bfloat16, 64>::smem_bytes(lk) : Layout<float, 64>::smem_bytes(lk);
-  }
-  if (head_dim == 128) {
-    return is_bf16 ? Layout<__nv_bfloat16, 128>::smem_bytes(lk)
-                   : Layout<float, 128>::smem_bytes(lk);
-  }
-  return 0;
+  return attention_width::with_width(head_dim, size_t(0), [&](auto width) {
+    constexpr int D = decltype(width)::value;
+    return is_bf16 ? Layout<__nv_bfloat16, D>::smem_bytes(lk) : Layout<float, D>::smem_bytes(lk);
+  });
 }
 
 // Launches on `stream` without synchronising; returns cudaGetLastError().
-// head_dim is 64 or 128.
+// head_dim is 64 or 128 (or, in a library of one padded width, any width
+// that rounds up to it).
 int mkg_fused_attention_fwd(const void* q, const void* k, const void* v,
                             const void* mask, const void* boundary, const void* w,
                             void* out, int batch, int lq, int lk, int num_heads,
@@ -310,16 +331,13 @@ int mkg_fused_attention_fwd(const void* q, const void* k, const void* v,
                             int row_start, int text_len, int offset, int dropout,
                             unsigned int threshold, float keep_div, unsigned int seed,
                             unsigned int cell_stride, void* stream) {
-  if (head_dim != 64 && head_dim != 128) return int(cudaErrorInvalidValue);
-  decltype(&launch<float, 64>) fn;
-  if (head_dim == 64) {
-    fn = is_bf16 ? &launch<__nv_bfloat16, 64> : &launch<float, 64>;
-  } else {
-    fn = is_bf16 ? &launch<__nv_bfloat16, 128> : &launch<float, 128>;
-  }
-  return fn(q, k, v, mask, boundary, w, out, batch, lq, lk, num_heads, scale, has_geometry,
-            row_start, text_len, offset, dropout, threshold, keep_div, seed,
-            cell_stride, static_cast<cudaStream_t>(stream));
+  return attention_width::with_width(head_dim, int(cudaErrorInvalidValue), [&](auto width) {
+    constexpr int D = decltype(width)::value;
+    auto fn = is_bf16 ? &launch<__nv_bfloat16, D> : &launch<float, D>;
+    return fn(q, k, v, mask, boundary, w, out, batch, lq, lk, num_heads, scale, has_geometry,
+              row_start, text_len, offset, dropout, threshold, keep_div, seed, cell_stride,
+              head_dim, static_cast<cudaStream_t>(stream));
+  });
 }
 
 }  // extern "C"

@@ -4,7 +4,10 @@
 // (launched by _fused_attention_fwd) for bf16 inputs, which every main path
 // runs. Contract, per (batch row, head), on the packed (B, L, heads * D)
 // layout in and out, D = 64 (BERT-base, ViT-B) or 128 (ViLBERT's visual
-// stream: 1024 wide, 8 heads), each width its own instantiation:
+// stream: 1024 wide, 8 heads), each width its own instantiation, or any
+// other width up to 128 through the instance of its padded width, in a
+// library of its own (attention_width.cuh; MiniLM's 32, the small recipes'
+// 16):
 //
 //   out = softmax(scale * Q K^T (*) analogy multiplier + (1 - mask) * -1e4) V
 //
@@ -53,6 +56,9 @@
 //     keys are resident (fwd_resident_kernel<128, 2>), longer rows stream.
 //     The score keeps the plain version's two roundings where a multiplier
 //     applies (attention_mma.cuh: ScoreRule).
+//   - at the other tile widths (16 to 112) a block owns all D columns
+//     (cols_of<D>), with D / 8 accumulator tiles; up to 256 keys stay
+//     resident at D <= 64, up to 128 above.
 // Ragged edges: rows beyond Lq are zero-filled and not stored; keys beyond
 // Lk are padding of the chunk, not masked keys: they are zero-filled, their
 // bias is -inf, so they take no part in max or sum and their probability is
@@ -67,17 +73,18 @@ namespace {
 
 constexpr int kMaxResidentKeys = 4 * kTile;
 
-// Q, NC chunks of K (D columns) and of the block's 64 columns of V, and NC
+// Q, NC chunks of K (D columns) and of the block's columns of V, and NC
 // rows of 64 biases.
 template <int D>
 constexpr int resident_smem(int nc) {
-  return (1 + nc) * tile_bytes<D>() + nc * tile_bytes<64>() + nc * kTile * int(sizeof(float));
+  return (1 + nc) * tile_bytes<D>() + nc * tile_bytes<cols_of<D>()>() +
+         nc * kTile * int(sizeof(float));
 }
 
-// Q, two buffers of K and of V's 64 columns, two rows of biases.
+// Q, two buffers of K and of V's block columns, two rows of biases.
 template <int D>
 constexpr int streaming_smem() {
-  return 3 * tile_bytes<D>() + 2 * tile_bytes<64>() + 2 * kTile * int(sizeof(float));
+  return 3 * tile_bytes<D>() + 2 * tile_bytes<cols_of<D>()>() + 2 * kTile * int(sizeof(float));
 }
 
 struct Args {
@@ -93,6 +100,9 @@ struct Args {
   float inv_keep;
   uint32_t seed;
   uint32_t cell_stride;  // dropout cell of (b, h): b * cell_stride + h
+#ifdef MKG_ATTN_DP
+  int d;  // the call's head width (the tile's is MKG_ATTN_DP)
+#endif
 };
 
 // What a lane knows of its two rows (row_g and row_g + 8 of the tile).
@@ -161,36 +171,40 @@ struct Block {
 // memory, one sweep.
 template <int D, int NC>
 __global__ void __launch_bounds__(kThreads) fwd_resident_kernel(const Args a) {
+  constexpr int W = cols_of<D>(), NT = W / 8;  // the block's result columns
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* q_s = reinterpret_cast<bf16*>(smem_raw);
   bf16* k_s = q_s + tile_elems<D>();       // NC chunks
-  bf16* v_s = k_s + NC * tile_elems<D>();  // NC chunks of the block's 64 columns
-  float* bias_s = reinterpret_cast<float*>(v_s + NC * tile_elems<64>());  // NC rows of 64
+  bf16* v_s = k_s + NC * tile_elems<D>();  // NC chunks of the block's W columns
+  float* bias_s = reinterpret_cast<float*>(v_s + NC * tile_elems<W>());  // NC rows of 64
 
   const Block<D> blk;
   const int h = blk.h, b = blk.b;
-  const int hd = a.num_heads * D;
+  int d = D;  // the head width: a constant in a library of 64 and 128 (PERF.md)
+  if constexpr (kRagged) d = head_width<D>(a);
+  const int v_cols = d - blk.half * W;
+  const int hd = a.num_heads * d;
   const int warp = threadIdx.x >> 5, t = threadIdx.x & 3;
   const int row0 = blk.tile * kTile;
   const int n_chunks = (a.lk + kTile - 1) / kTile;  // <= NC
 
   // every load of the block, one commit group a chunk: Q with K's first
-  const bf16* kb = a.k + size_t(b) * a.lk * hd + h * D;
-  const bf16* vb = a.v + size_t(b) * a.lk * hd + h * D + blk.half * 64;
-  stage_tile<D>(q_s, a.q + (size_t(b) * a.lq + row0) * hd + h * D, a.lq - row0, hd);
+  const bf16* kb = a.k + size_t(b) * a.lk * hd + h * d;
+  const bf16* vb = a.v + size_t(b) * a.lk * hd + h * d + blk.half * W;
+  stage_tile<D>(q_s, a.q + (size_t(b) * a.lq + row0) * hd + h * d, a.lq - row0, hd, d);
 #pragma unroll
   for (int c = 0; c < NC; ++c) {
     if (c < n_chunks) {
       stage_tile<D>(k_s + c * tile_elems<D>(), kb + size_t(c) * kTile * hd, a.lk - c * kTile,
-                    hd);
+                    hd, d);
     }
     cp_async_commit();
   }
 #pragma unroll
   for (int c = 0; c < NC; ++c) {
     if (c < n_chunks) {
-      stage_tile<64>(v_s + c * tile_elems<64>(), vb + size_t(c) * kTile * hd, a.lk - c * kTile,
-                     hd);
+      stage_tile<W>(v_s + c * tile_elems<W>(), vb + size_t(c) * kTile * hd, a.lk - c * kTile,
+                    hd, v_cols);
     }
     cp_async_commit();
   }
@@ -227,7 +241,7 @@ __global__ void __launch_bounds__(kThreads) fwd_resident_kernel(const Args a) {
     inv_l[r] = 1.0f / quad_sum(sum);
   }
 
-  float o[8][4];
+  float o[NT][4];
   zero(o);
 #pragma unroll
   for (int c = 0; c < NC; ++c) {
@@ -237,30 +251,34 @@ __global__ void __launch_bounds__(kThreads) fwd_resident_kernel(const Args a) {
       probabilities(s[c], m, inv_l, a, ln, c * kTile);
       uint32_t pa[4][4];
       pack_a(pa, s[c]);
-      product_nn<64>(o, pa, v_s + c * tile_elems<64>());
+      product_nn<W>(o, pa, v_s + c * tile_elems<W>());
     }
   }
-  store_rows<D>(a.out + (size_t(b) * a.lq + row0 + warp * 16) * hd + h * D + blk.half * 64, hd,
-                a.lq - row0 - warp * 16, q_s + warp * 16 * stride_of<D>(), o);
+  store_rows<D>(a.out + (size_t(b) * a.lq + row0 + warp * 16) * hd + h * d + blk.half * W, hd,
+                a.lq - row0 - warp * 16, q_s + warp * 16 * stride_of<D>(), o, v_cols);
 }
 
 // Any Lk: two sweeps over the keys through two buffers.
 template <int D>
 __global__ void __launch_bounds__(kThreads) fwd_streaming_kernel(const Args a) {
+  constexpr int W = cols_of<D>(), NT = W / 8;  // the block's result columns
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* q_s = reinterpret_cast<bf16*>(smem_raw);
   bf16* k_s = q_s + tile_elems<D>();       // two buffers
-  bf16* v_s = k_s + 2 * tile_elems<D>();   // two buffers of the block's 64 columns
-  float* bias_s = reinterpret_cast<float*>(v_s + 2 * tile_elems<64>());  // two rows of 64
+  bf16* v_s = k_s + 2 * tile_elems<D>();   // two buffers of the block's W columns
+  float* bias_s = reinterpret_cast<float*>(v_s + 2 * tile_elems<W>());  // two rows of 64
 
   const Block<D> blk;
   const int h = blk.h, b = blk.b;
-  const int hd = a.num_heads * D;
+  int d = D;  // the head width: a constant in a library of 64 and 128 (PERF.md)
+  if constexpr (kRagged) d = head_width<D>(a);
+  const int v_cols = d - blk.half * W;
+  const int hd = a.num_heads * d;
   const int warp = threadIdx.x >> 5, t = threadIdx.x & 3;
   const int row0 = blk.tile * kTile;
 
-  const bf16* kb = a.k + size_t(b) * a.lk * hd + h * D;
-  const bf16* vb = a.v + size_t(b) * a.lk * hd + h * D + blk.half * 64;
+  const bf16* kb = a.k + size_t(b) * a.lk * hd + h * d;
+  const bf16* vb = a.v + size_t(b) * a.lk * hd + h * d + blk.half * W;
   const float* mask_b = a.mask + size_t(b) * a.lk;
   const int n_chunks = (a.lk + kTile - 1) / kTile;
   const int n_items = 2 * n_chunks;  // sweep 0 then sweep 1
@@ -268,22 +286,23 @@ __global__ void __launch_bounds__(kThreads) fwd_streaming_kernel(const Args a) {
   auto load_item = [&](int it) {
     const int buf = it & 1;
     const int key0 = (it >= n_chunks ? it - n_chunks : it) * kTile;
-    stage_tile<D>(k_s + buf * tile_elems<D>(), kb + size_t(key0) * hd, a.lk - key0, hd);
+    stage_tile<D>(k_s + buf * tile_elems<D>(), kb + size_t(key0) * hd, a.lk - key0, hd, d);
     if (it >= n_chunks) {
-      stage_tile<64>(v_s + buf * tile_elems<64>(), vb + size_t(key0) * hd, a.lk - key0, hd);
+      stage_tile<W>(v_s + buf * tile_elems<W>(), vb + size_t(key0) * hd, a.lk - key0, hd,
+                    v_cols);
     }
     stage_bias(bias_s + buf * kTile, mask_b, key0, a.lk);
     cp_async_commit();
   };
 
-  stage_tile<D>(q_s, a.q + (size_t(b) * a.lq + row0) * hd + h * D, a.lq - row0, hd);
+  stage_tile<D>(q_s, a.q + (size_t(b) * a.lq + row0) * hd + h * d, a.lq - row0, hd, d);
   load_item(0);  // one group with the Q tile
   const Lane<D> ln(a, b, h, row0);
 
   uint32_t qa[D / 16][4];
   float m[2] = {-FLT_MAX, -FLT_MAX};
   float l[2] = {0.0f, 0.0f}, inv_l[2] = {0.0f, 0.0f};
-  float o[8][4];
+  float o[NT][4];
   zero(o);
 
   for (int it = 0; it < n_items; ++it) {
@@ -323,12 +342,12 @@ __global__ void __launch_bounds__(kThreads) fwd_streaming_kernel(const Args a) {
       probabilities(s, m, inv_l, a, ln, key0);
       uint32_t pa[4][4];
       pack_a(pa, s);
-      product_nn<64>(o, pa, v_s + buf * tile_elems<64>());
+      product_nn<W>(o, pa, v_s + buf * tile_elems<W>());
     }
     __syncthreads();  // the buffer is refilled by the load after next
   }
-  store_rows<D>(a.out + (size_t(b) * a.lq + row0 + warp * 16) * hd + h * D + blk.half * 64, hd,
-                a.lq - row0 - warp * 16, q_s + warp * 16 * stride_of<D>(), o);
+  store_rows<D>(a.out + (size_t(b) * a.lq + row0 + warp * 16) * hd + h * d + blk.half * W, hd,
+                a.lq - row0 - warp * 16, q_s + warp * 16 * stride_of<D>(), o, v_cols);
 }
 
 int launch_kernel(void (*kernel)(const Args), dim3 grid, int smem, const Args& a,
@@ -346,7 +365,7 @@ int launch(const Args& a, int batch, cudaStream_t s) {
   if (a.lk <= 2 * kTile) {
     return launch_kernel(fwd_resident_kernel<D, 2>, grid, resident_smem<D>(2), a, s);
   }
-  if constexpr (D == 64) {
+  if constexpr (D <= 64) {
     // a 16 x 256 score row and 128 head columns of Q fragments would spill
     if (a.lk <= kMaxResidentKeys) {
       return launch_kernel(fwd_resident_kernel<D, 4>, grid, resident_smem<D>(4), a, s);
@@ -365,22 +384,26 @@ const char* mkg_cuda_error_string(int err) {
 
 // Launches on `stream` without synchronising; returns cudaGetLastError().
 // q, k, v and out are bf16, packed (B, L, heads * head_dim), head_dim 64 or
-// 128; inv_keep is 1 / (1 - rate).
+// 128 (or, in a library of one padded width, any width that rounds up to
+// it); inv_keep is 1 / (1 - rate).
 int mkg_fused_attention_fwd_mma(const void* q, const void* k, const void* v, const void* mask,
                                 const void* boundary, const void* w, void* out, int batch,
                                 int lq, int lk, int num_heads, int head_dim, float scale,
                                 int has_geometry, int row_start, int text_len, int offset,
                                 int dropout, unsigned int threshold, float inv_keep,
                                 unsigned int seed, unsigned int cell_stride, void* stream) {
-  const Args a{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-               static_cast<const bf16*>(v), static_cast<const float*>(mask),
-               static_cast<const int*>(boundary), static_cast<const float*>(w),
-               static_cast<bf16*>(out), lq, lk, num_heads, scale, has_geometry, row_start,
-               text_len, offset, dropout, threshold, inv_keep, seed, cell_stride};
+  Args a{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+         static_cast<const bf16*>(v), static_cast<const float*>(mask),
+         static_cast<const int*>(boundary), static_cast<const float*>(w),
+         static_cast<bf16*>(out), lq, lk, num_heads, scale, has_geometry, row_start,
+         text_len, offset, dropout, threshold, inv_keep, seed, cell_stride};
+#ifdef MKG_ATTN_DP
+  a.d = head_dim;
+#endif
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (head_dim == 64) return launch<64>(a, batch, s);
-  if (head_dim == 128) return launch<128>(a, batch, s);
-  return int(cudaErrorInvalidValue);
+  return attention_width::with_width(head_dim, int(cudaErrorInvalidValue), [&](auto width) {
+    return launch<decltype(width)::value>(a, batch, s);
+  });
 }
 
 }  // extern "C"

@@ -30,13 +30,19 @@ to the compute dtype before the product with V, on the packed
   ``_bwd_kernel`` written out, with its cast points, not autograd through the
   forward. The CPU tests hold both to the JAX kernels in interpret mode, and
   ``chip_smoke.py`` holds the CUDA kernels to them on the card.
-- The kernels take head_dim 64 (BERT-base, ViT-B) and 128 (ViLBERT's
-  visual stream, 1024 wide with 8 heads): each CUDA library exports both
-  instantiations, and the launchers pass the width of the call
-  (``hd // num_heads``); any other width raises.
+- The kernels take every head_dim d from 1 to 128 (``MAX_HEAD_DIM``; above
+  it the wrapper raises ``ValueError``). Each CUDA library exports the
+  instantiations at 64 (BERT-base, ViT-B) and 128 (ViLBERT's visual stream,
+  1024 wide with 8 heads); any other width runs the instance of its padded
+  width Dp (d rounded up to a multiple of 16: MiniLM's 32, the small
+  recipes' 16) from a library of its own (``kernels/build.py:
+  library_width``, ``csrc/attention_width.cuh``). The launchers pass the
+  width of the call (``hd // num_heads``) and its scale ``d ** -0.5``, of
+  the real width, never Dp's.
 - ``LAUNCHES`` and ``LAUNCHES_BWD`` count kernel launches, so a run can show
   that its main path went through the kernels; ``LAUNCHES_D128`` and
-  ``LAUNCHES_BWD_D128`` count the head_dim-128 ones among them.
+  ``LAUNCHES_BWD_D128`` count the head_dim-128 ones among them, and
+  ``WIDTH_LAUNCHES`` every launch by ("fwd" or "bwd", head_dim).
 
 Dropout masks come from the counter hash of the JAX kernel's interpret mode
 (``_dropout_keep``: lowbias32 on ``row * Lk + col`` xor ``seed *
@@ -56,6 +62,7 @@ hardware random bits.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 from typing import Optional
@@ -65,19 +72,37 @@ import torch
 from . import build
 
 NEG_BIAS = -10000.0  # reference padding bias (modeling_unimo.py:56)
-HEAD_DIMS = (64, 128)  # the kernels' head widths (BERT-base, ViT-B; ViLBERT's visual stream)
+MAX_HEAD_DIM = build.MAX_HEAD_DIM  # the widest head the kernels take
 ROWS_PER_BLOCK = 64  # query rows per block of every kernel (csrc kRowsPerBlock, kTile)
-# The single-block route's longest bf16 key sequence at each head width. The
-# CUDA-core kernels' shared memory set it (K and V of Lk keys a block); the
-# tensor-core kernels stream their keys in chunks and have no such limit of
-# their own, but each 64-row tile walks every key twice, and the set of calls
-# the route accepts stays what it was: longer sequences are the flash
-# kernels' work, at either width.
-MAX_KEYS_BF16 = {64: 717, 128: 400}
+SMEM_OPTIN_H100 = 232448  # shared memory a block may opt into on the H100 (227 KB)
+
+
+def max_keys_bf16(width: int) -> int:
+    """The single-block route's longest bf16 key sequence at padded head
+    width ``width``: the most keys whose K and V the CUDA-core forward
+    (csrc/fused_attention_fwd.cu, ``Layout<bf16, D>::smem_bytes``) holds in
+    one block of the H100, 2·Lk·(D + 8)·2 bytes of K and V rows plus
+    round4(Lk)·4·9 of fp32 bias and score rows <= 232,448. At 64,
+    288·717 + 36·720 = 232,416 (718 keys: 232,704); at 128, 544·400 +
+    36·400 = 232,000 (401: 232,688)."""
+    lk = 1
+    while 4 * (lk + 1) * (width + 8) + 36 * (-(-(lk + 1) // 4) * 4) <= SMEM_OPTIN_H100:
+        lk += 1
+    return lk
+
+
+# The single-block route's longest bf16 key sequence at each padded head
+# width (16: 1,760 ... 64: 717 ... 128: 400). The CUDA-core kernels' shared
+# memory set it (K and V of Lk keys a block); the tensor-core kernels stream
+# their keys in chunks and have no such limit of their own, but each 64-row
+# tile walks every key twice, and the set of calls the route accepts stays
+# what it was: longer sequences are the flash kernels' work, at every width.
+MAX_KEYS_BF16 = {width: max_keys_bf16(width) for width in range(16, MAX_HEAD_DIM + 1, 16)}
 LAUNCHES = 0         # forward kernel launches since import (or a caller's reset)
 LAUNCHES_BWD = 0     # backward kernel launches, likewise
 LAUNCHES_D128 = 0    # the head_dim-128 forward launches among LAUNCHES
 LAUNCHES_BWD_D128 = 0  # the head_dim-128 backward launches among LAUNCHES_BWD
+WIDTH_LAUNCHES = collections.Counter()  # ("fwd" | "bwd", head_dim) -> launches
 
 _M32 = 0xFFFFFFFF
 
@@ -349,8 +374,10 @@ def fused_attention_bwd_reference(
 
 
 @functools.cache
-def _lib() -> ctypes.CDLL:
-    lib = build.load("fused_attention_fwd")
+def _lib(width=None) -> ctypes.CDLL:
+    """The CUDA-core forward's library (at a padded head ``width``, or the
+    one of 64 and 128); so the three below."""
+    lib = build.load("fused_attention_fwd", width)
     p, i, f, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint
     lib.mkg_fused_attention_fwd.argtypes = [
         p, p, p, p, p, p, p,        # q k v mask boundary w out
@@ -370,8 +397,8 @@ def _lib() -> ctypes.CDLL:
 
 
 @functools.cache
-def _lib_bwd() -> ctypes.CDLL:
-    lib = build.load("fused_attention_bwd")
+def _lib_bwd(width=None) -> ctypes.CDLL:
+    lib = build.load("fused_attention_bwd", width)
     p, i, f, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint
     lib.mkg_fused_attention_bwd.argtypes = [
         p, p, p, p, p, p, p,        # q k v g mask boundary w
@@ -392,8 +419,8 @@ def _lib_bwd() -> ctypes.CDLL:
 
 
 @functools.cache
-def _lib_mma() -> ctypes.CDLL:
-    lib = build.load("fused_attention_fwd_mma")
+def _lib_mma(width=None) -> ctypes.CDLL:
+    lib = build.load("fused_attention_fwd_mma", width)
     p, i, f, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint
     lib.mkg_fused_attention_fwd_mma.argtypes = [
         p, p, p, p, p, p, p,        # q k v mask boundary w out
@@ -411,8 +438,8 @@ def _lib_mma() -> ctypes.CDLL:
 
 
 @functools.cache
-def _lib_bwd_mma() -> ctypes.CDLL:
-    lib = build.load("fused_attention_bwd_mma")
+def _lib_bwd_mma(width=None) -> ctypes.CDLL:
+    lib = build.load("fused_attention_bwd_mma", width)
     p, i, f, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint
     lib.mkg_fused_attention_bwd_mma.argtypes = [
         p, p, p, p, p, p, p,        # q k v g mask boundary w
@@ -451,10 +478,9 @@ def _check_inputs(q, k, v, mask, num_heads, compute_dtype, kernel="fused_attenti
         _check_tensor(name, t, q)
     b, lq, hd = q.shape
     lk = k.shape[1]
-    if hd % num_heads or hd // num_heads not in HEAD_DIMS:
-        raise ValueError(f"{kernel} kernel takes head_dim "
-                         f"{' or '.join(map(str, HEAD_DIMS))}: width {hd} for "
-                         f"{num_heads} heads")
+    if hd % num_heads or not 1 <= hd // num_heads <= MAX_HEAD_DIM:
+        raise ValueError(f"{kernel} kernel takes head_dim 1 to {MAX_HEAD_DIM}: width {hd} "
+                         f"for {num_heads} heads")
     if k.shape != (b, lk, hd) or v.shape != k.shape:
         raise ValueError(f"k {tuple(k.shape)} / v {tuple(v.shape)} do not match q "
                          f"{tuple(q.shape)}")
@@ -481,10 +507,10 @@ def _check_smem(smem, q, what, hint=FLASH_HINT):
 
 
 def _check_keys_bf16(lk, head_dim):
-    if lk > MAX_KEYS_BF16[head_dim]:
-        raise ValueError(f"Lk={lk} is above the single-block kernels' "
-                         f"{MAX_KEYS_BF16[head_dim]} bf16 keys at head_dim {head_dim}: "
-                         f"{FLASH_HINT}")
+    limit = MAX_KEYS_BF16[build.padded_width(head_dim)]
+    if lk > limit:
+        raise ValueError(f"Lk={lk} is above the single-block kernels' {limit} bf16 keys "
+                         f"at head_dim {head_dim}: {FLASH_HINT}")
 
 
 def _geometry_args(geometry, lq):
@@ -503,12 +529,18 @@ def _seed_args(seed, stride, num_heads):
     return seed & _M32, (num_heads if stride is None else stride) & _M32
 
 
+def scale_of(head_dim: int) -> float:
+    """The scores' scale: ``head_dim ** -0.5`` of the call's real width (a
+    padded instance's tile width never enters it)."""
+    return float(head_dim) ** -0.5
+
+
 def _call_tail(q, head_dim, geometry, rate, seed, stride, keep):
     """The arguments every launcher ends with: the scale of the head width,
     the geometry, the dropout flag, threshold and ``keep`` (how the kernel
     scales a kept probability: its divisor 1 - rate or its factor
     1 / (1 - rate)), the seed and the cell stride, the stream."""
-    return (float(head_dim) ** -0.5, *_geometry_args(geometry, q.shape[1]),
+    return (scale_of(head_dim), *_geometry_args(geometry, q.shape[1]),
             int(rate > 0.0), int(rate * float(2 ** 32)), keep,
             *_seed_args(seed, stride, q.shape[2] // head_dim),
             torch.cuda.current_stream(q.device).cuda_stream)
@@ -522,12 +554,14 @@ def _count_fwd(head_dim):
     global LAUNCHES, LAUNCHES_D128
     LAUNCHES += 1
     LAUNCHES_D128 += head_dim == 128
+    WIDTH_LAUNCHES["fwd", head_dim] += 1
 
 
 def _count_bwd(head_dim):
     global LAUNCHES_BWD, LAUNCHES_BWD_D128
     LAUNCHES_BWD += 1
     LAUNCHES_BWD_D128 += head_dim == 128
+    WIDTH_LAUNCHES["bwd", head_dim] += 1
 
 
 def _launch_fwd_cuda_cores(q, k, v, mask, num_heads, bnd, w, geometry, rate, seed, stride=None):
@@ -538,7 +572,7 @@ def _launch_fwd_cuda_cores(q, k, v, mask, num_heads, bnd, w, geometry, rate, see
     b, lq, _ = q.shape
     lk = k.shape[1]
     d = _head_dim(q, num_heads)
-    lib = _lib()
+    lib = _lib(build.library_width(d))
     is_bf16 = int(q.dtype == torch.bfloat16)
     _check_smem(lib.mkg_fused_attention_fwd_smem(lk, is_bf16, d), q,
                 f"Lk={lk} at head_dim {d}")
@@ -559,7 +593,7 @@ def _launch_fwd_mma(q, k, v, mask, num_heads, bnd, w, geometry, rate, seed, stri
     lk = k.shape[1]
     d = _head_dim(q, num_heads)
     _check_keys_bf16(lk, d)
-    lib = _lib_mma()
+    lib = _lib_mma(build.library_width(d))
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         err = lib.mkg_fused_attention_fwd_mma(
@@ -602,7 +636,7 @@ def _launch_bwd_cuda_cores(q, k, v, mask, g, num_heads, bnd, w, geometry, rate, 
     lk = k.shape[1]
     d = _head_dim(q, num_heads)
     buffers = _bwd_buffers(q, k, v, g, num_heads, 3)  # m, l, delta a row
-    lib = _lib_bwd()
+    lib = _lib_bwd(build.library_width(d))
     is_bf16 = int(q.dtype == torch.bfloat16)
     _check_smem(lib.mkg_fused_attention_bwd_smem(lq, lk, is_bf16, d), q,
                 f"the backward at Lq={lq}, Lk={lk}, head_dim {d}")
@@ -624,7 +658,7 @@ def _launch_bwd_mma(q, k, v, mask, g, num_heads, bnd, w, geometry, rate, seed, s
     _check_keys_bf16(lk, d)
     # m, 1 / l, delta and the row's multiplier: 16 bytes a row
     buffers = _bwd_buffers(q, k, v, g, num_heads, 4)
-    lib = _lib_bwd_mma()
+    lib = _lib_bwd_mma(build.library_width(d))
     with torch.cuda.device(q.device):
         err = lib.mkg_fused_attention_bwd_mma(
             *_bwd_pointers(q, k, v, g, mask, bnd, w, buffers), b, lq, lk, num_heads, d,
@@ -699,9 +733,9 @@ def fused_attention(
 
     ``boundary``/``w0``/``w1`` enable the analogy multiplier with the
     ops/masks.py geometry (row_start / text_len / compat offset); w0 and w1
-    arrive clamped. On CPU tensors this is the plain forward and backward; on
-    CUDA tensors it launches the kernels (bf16 or fp32, head_dim 64 or 128,
-    compute dtype = the inputs' dtype) or raises.
+    arrive clamped. On CPU tensors this is the plain forward and backward (any
+    head width); on CUDA tensors it launches the kernels (bf16 or fp32,
+    head_dim 1 to 128, compute dtype = the inputs' dtype) or raises.
     """
     if not 0.0 <= dropout_rate < 1.0:
         raise ValueError(f"dropout_rate must be in [0, 1), got {dropout_rate}")

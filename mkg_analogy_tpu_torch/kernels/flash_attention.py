@@ -45,19 +45,24 @@ dK/dV (JAX zeroes their q, g, lse and delta).
   the plain versions: they walk the logical tiles as the three kernel bodies
   do. The CPU tests hold them to the JAX kernels in interpret mode, and
   ``chip_smoke.py`` holds the CUDA kernels to them on the card.
-- The kernels take head_dim 64 (BERT-base, ViT-B) and 128 (ViLBERT's
-  visual stream, 1024 wide with 8 heads): each CUDA library exports both
-  instantiations, and the launchers pass the width of the call
-  (``hd // num_heads``) and its scale; any other width raises.
+- The kernels take every head_dim from 1 to 128, as the single-block ones
+  do (kernels/attention.py): 64 (BERT-base, ViT-B) and 128 (ViLBERT's
+  visual stream) from the libraries that export both instantiations, any
+  other width from the library of its padded width; the launchers pass the
+  width of the call (``hd // num_heads``) and its scale, of the real width.
 - ``LAUNCHES_FLASH``, ``LAUNCHES_FLASH_DKV`` and ``LAUNCHES_FLASH_DQ``
   count kernel launches (a forward, dK/dV or dQ launch on either route);
   ``LAUNCHES_FLASH_FWD_MMA``, ``LAUNCHES_FLASH_DKV_MMA`` and
   ``LAUNCHES_FLASH_DQ_MMA`` count those of the tensor-core kernels alone;
-  each has a ``_D128`` sibling that counts its head_dim-128 launches.
+  each has a ``_D128`` sibling that counts its head_dim-128 launches, and
+  ``WIDTH_LAUNCHES_FLASH`` counts every launch by (count name without
+  its ``LAUNCHES_FLASH`` prefix: "", "_DKV", "_DQ", "_FWD_MMA", "_DKV_MMA"
+  or "_DQ_MMA"; head_dim).
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 from typing import Optional
@@ -82,6 +87,7 @@ from .attention import (
     _split_heads,
     dropout_cells,
     hash_keep,
+    scale_of,
 )
 
 HARD_MASK = -1e30    # exact exclusion of out-of-range K columns (exp -> 0)
@@ -101,6 +107,7 @@ LAUNCHES_FLASH_DQ_D128 = 0
 LAUNCHES_FLASH_FWD_MMA_D128 = 0
 LAUNCHES_FLASH_DKV_MMA_D128 = 0
 LAUNCHES_FLASH_DQ_MMA_D128 = 0
+WIDTH_LAUNCHES_FLASH = collections.Counter()  # (count suffix, head_dim) -> launches
 
 
 def _blocks(lq, lk, block_q, block_k):
@@ -381,18 +388,20 @@ def _bind_fwd(lib, suffix):
 
 
 @functools.cache
-def _lib_fwd() -> ctypes.CDLL:
-    """The CUDA-core forward kernel (csrc/flash_attention_fwd.cu)."""
-    lib = _bind_fwd(build.load("flash_attention_fwd"), "")
+def _lib_fwd(width=None) -> ctypes.CDLL:
+    """The CUDA-core forward kernel (csrc/flash_attention_fwd.cu), at a
+    padded head ``width`` or in the library of 64 and 128; so the three
+    below."""
+    lib = _bind_fwd(build.load("flash_attention_fwd", width), "")
     lib.mkg_flash_attention_fwd_smem.argtypes = [ctypes.c_int] * 3  # bk is_bf16 head_dim
     lib.mkg_flash_attention_fwd_smem.restype = ctypes.c_size_t
     return lib
 
 
 @functools.cache
-def _lib_fwd_mma() -> ctypes.CDLL:
+def _lib_fwd_mma(width=None) -> ctypes.CDLL:
     """The tensor-core forward kernel (csrc/flash_attention_fwd_mma.cu)."""
-    lib = _bind_fwd(build.load("flash_attention_fwd_mma"), "_mma")
+    lib = _bind_fwd(build.load("flash_attention_fwd_mma", width), "_mma")
     lib.mkg_flash_attention_fwd_mma_smem.argtypes = [ctypes.c_int] * 3  # lk bk head_dim
     lib.mkg_flash_attention_fwd_mma_smem.restype = ctypes.c_size_t
     return lib
@@ -422,18 +431,18 @@ def _bind_bwd(lib, suffix):
 
 
 @functools.cache
-def _lib_bwd() -> ctypes.CDLL:
+def _lib_bwd(width=None) -> ctypes.CDLL:
     """The CUDA-core backward kernels (csrc/flash_attention_bwd.cu)."""
-    lib = _bind_bwd(build.load("flash_attention_bwd"), "")
+    lib = _bind_bwd(build.load("flash_attention_bwd", width), "")
     lib.mkg_flash_attention_bwd_smem.argtypes = [ctypes.c_int, ctypes.c_int]  # is_bf16 head_dim
     lib.mkg_flash_attention_bwd_smem.restype = ctypes.c_size_t
     return lib
 
 
 @functools.cache
-def _lib_bwd_mma() -> ctypes.CDLL:
+def _lib_bwd_mma(width=None) -> ctypes.CDLL:
     """The tensor-core backward kernels (csrc/flash_attention_bwd_mma.cu)."""
-    lib = _bind_bwd(build.load("flash_attention_bwd_mma"), "_mma")
+    lib = _bind_bwd(build.load("flash_attention_bwd_mma", width), "_mma")
     lib.mkg_flash_attention_bwd_mma_smem.argtypes = [ctypes.c_int]  # head_dim
     lib.mkg_flash_attention_bwd_mma_smem.restype = ctypes.c_size_t
     return lib
@@ -446,7 +455,7 @@ def _call_args(q, k, num_heads, geometry, rate, seed, block_q, block_k, stride=N
     lk = k.shape[1]
     d = _head_dim(q, num_heads)
     bq, bk, n_qblk, n_kblk = _blocks(lq, lk, block_q, block_k)
-    return (b, lq, lk, num_heads, d, int(q.dtype == torch.bfloat16), float(d) ** -0.5,
+    return (b, lq, lk, num_heads, d, int(q.dtype == torch.bfloat16), scale_of(d),
             *_geometry_args(geometry, lq), int(rate > 0.0), int(rate * float(2 ** 32)),
             (1.0 / (1.0 - rate)) if rate > 0.0 else 1.0, *_seed_args(seed, stride, num_heads),
             bq, bk, n_qblk, n_kblk, torch.cuda.current_stream(q.device).cuda_stream)
@@ -459,10 +468,10 @@ def _fwd(mma, q, k, v, mask, num_heads, bnd, w, geometry, rate, seed, block_q, b
     _, bk, _, _ = _blocks(q.shape[1], k.shape[1], block_q, block_k)
     d = _head_dim(q, num_heads)
     if mma:
-        lib, launcher = _lib_fwd_mma(), "mkg_flash_attention_fwd_mma"
+        lib, launcher = _lib_fwd_mma(build.library_width(d)), "mkg_flash_attention_fwd_mma"
         smem = lib.mkg_flash_attention_fwd_mma_smem(k.shape[1], bk, d)
     else:
-        lib, launcher = _lib_fwd(), "mkg_flash_attention_fwd"
+        lib, launcher = _lib_fwd(build.library_width(d)), "mkg_flash_attention_fwd"
         smem = lib.mkg_flash_attention_fwd_smem(bk, int(q.dtype == torch.bfloat16), d)
     _check_smem(smem, q, f"{launcher[4:]} at block_k={bk}, head_dim {d}",
                 hint="pass a smaller block_k")
@@ -481,13 +490,16 @@ def _fwd(mma, q, k, v, mask, num_heads, bnd, w, geometry, rate, seed, block_q, b
 def _count(kernel, mma, q, num_heads):
     """One launch of ``kernel`` ("FWD", "DKV" or "DQ") counted: in its
     count of either route, on the tensor cores (``mma``) in its ``_MMA``
-    count too, and at head_dim 128 in the ``_D128`` sibling of each."""
+    count too, at head_dim 128 in the ``_D128`` sibling of each, and by
+    head width in ``WIDTH_LAUNCHES_FLASH``."""
     names = ["LAUNCHES_FLASH" + ("" if kernel == "FWD" else f"_{kernel}")]
     if mma:
         names.append(f"LAUNCHES_FLASH_{kernel}_MMA")
-    d128 = _head_dim(q, num_heads) == 128
-    for name in names + [f"{n}_D128" for n in names if d128]:
+    d = _head_dim(q, num_heads)
+    for name in names + [f"{n}_D128" for n in names if d == 128]:
         globals()[name] += 1
+    for name in names:
+        WIDTH_LAUNCHES_FLASH[name[len("LAUNCHES_FLASH"):], d] += 1
 
 
 def _launch_fwd_cuda_cores(q, k, v, mask, num_heads, *args):
@@ -527,10 +539,10 @@ def _bwd_lib(q, g, lse, delta, num_heads, mma):
             raise ValueError(f"{name} must be a contiguous fp32 (B, heads, Lq) tensor")
     d = _head_dim(q, num_heads)
     if mma:
-        lib = _lib_bwd_mma()
+        lib = _lib_bwd_mma(build.library_width(d))
         smem, what = lib.mkg_flash_attention_bwd_mma_smem(d), "flash_attention_bwd_mma"
     else:
-        lib = _lib_bwd()
+        lib = _lib_bwd(build.library_width(d))
         smem = lib.mkg_flash_attention_bwd_smem(int(q.dtype == torch.bfloat16), d)
         what = "flash_attention_bwd"
     _check_smem(smem, q, f"{what} at head_dim {d}", hint="the device is not an H100-class card")
@@ -689,7 +701,7 @@ def flash_attention(
     """Blocked fused attention: the contract of ``fused_attention`` at any
     sequence length, differentiable in q, k, v, w0 and w1. On CPU tensors the
     plain forward and backward (any head width); on CUDA tensors the kernels
-    (bf16 or fp32, head_dim 64 or 128, compute dtype = the inputs' dtype) or
+    (bf16 or fp32, head_dim 1 to 128, compute dtype = the inputs' dtype) or
     an error."""
     if not 0.0 <= dropout_rate < 1.0:
         raise ValueError(f"dropout_rate must be in [0, 1), got {dropout_rate}")

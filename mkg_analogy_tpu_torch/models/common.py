@@ -325,6 +325,11 @@ class AttentionCore(nn.Module):
     Q/K/V are column-parallel and ``out`` row-parallel, so the attention
     runs on the rank's heads; the adaptive analogy scalars enter through
     ``copy_to``, since each rank's heads give only part of their gradient.
+    A fused ``qkv`` stays whole on every rank, as JAX keeps it (no rule
+    names it): the rank projects with its heads' rows of Q, K and V, and the
+    leaf enters through ``copy_to`` too, so its gradient is summed over tp
+    and every rank holds the whole one (the optimizer counts it once, as
+    any replicated leaf).
     On a mesh the dropout cells are the global row's and head's
     (``cell_stride``/``cell_offset`` of the kernels).
     """
@@ -341,6 +346,7 @@ class AttentionCore(nn.Module):
                              f"{sorted(ATTENTION_BACKENDS)}")
         inner = num_heads * head_dim
         self.num_heads = num_heads
+        self.head_dim = head_dim
         self.dtype = dtype
         self.backend = backend
         self.dropout_rate = dropout_rate
@@ -368,7 +374,7 @@ class AttentionCore(nn.Module):
         b, l, _ = hidden_states.shape
         if self.fused_qkv:
             # contiguous copies: the kernels read packed (B, L, heads·d) rows
-            q, k, v = (t.contiguous() for t in self.qkv(hidden_states).chunk(3, dim=-1))
+            q, k, v = (t.contiguous() for t in self._qkv(hidden_states).chunk(3, dim=-1))
         else:
             q = self.query(hidden_states)
             k = self.key(hidden_states)
@@ -429,6 +435,28 @@ class AttentionCore(nn.Module):
             # this, modeling_unimo.py:367-373)
             return out, kv_out, ctx
         return out, kv_out
+
+
+    def _qkv(self, x: torch.Tensor) -> torch.Tensor:
+        """The fused projection: the whole ``qkv``, or under tp the rank's
+        heads' rows of each of Q, K and V from the whole leaf."""
+        if self.tp is None:
+            return self.qkv(x)
+        group, first, heads = self.tp
+        inner, d = heads * self.head_dim, self.head_dim
+        rows = torch.cat([torch.arange(p * inner + first * d,
+                                       p * inner + (first + self.num_heads) * d)
+                          for p in range(3)]).to(x.device)
+        dt = self.qkv.compute_dtype
+        weight = copy_to(self.qkv.weight, group)[rows].to(dt)
+        bias = copy_to(self.qkv.bias, group)[rows].to(dt)
+        return F.linear(copy_to(x, group).to(dt), weight, bias)
+
+
+def attention_head_dims(model: nn.Module) -> list:
+    """The head widths of a model's attention cores, each once: the widths
+    whose kernels a run on a CUDA device launches."""
+    return sorted({m.head_dim for m in model.modules() if isinstance(m, AttentionCore)})
 
 
 def attention_options(cfg) -> dict:

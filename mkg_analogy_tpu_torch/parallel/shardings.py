@@ -188,21 +188,22 @@ def shard_module(model: nn.Module, mesh) -> nn.Module:
 
 def _shard_attention(name: str, core, group, tp: int) -> None:
     """Run ``core`` on its rank's heads: Q/K/V split by heads, ``out`` by
-    its inputs."""
+    its inputs. A fused ``qkv``, which no rule names, stays whole (as in
+    JAX): the core takes its heads' rows of it (models/common.py)."""
     projections = ([core.qkv] if core.fused_qkv else [core.query, core.key, core.value])
     split = [shard_of(p.weight) is not None for p in projections + [core.out]]
     if not any(split):
         return
     if core.fused_qkv:
-        raise NotImplementedError(
-            f"{name}: fused_qkv under tp (one qkv projection, which the rules keep "
-            "whole, beside a split out projection)")
-    if not all(split):
+        if split != [False, True]:
+            raise ValueError(f"{name}: fused_qkv under tp keeps qkv whole beside a split "
+                             "out projection")
+    elif not all(split):
         raise ValueError(f"{name}: the rules split only some of its projections")
     heads = core.num_heads
     if heads % tp:
         raise ValueError(f"{name}: tp={tp} does not divide its {heads} heads")
-    shard = shard_of(core.query.weight)
+    shard = shard_of(core.out.weight)  # row-parallel: its inputs are the heads' columns
     width = shard.whole // heads
     core.num_heads = heads // tp
     core.tp = (group, shard.start // width, heads)

@@ -1,0 +1,6 @@
+#!/usr/bin/env bash
+# The port on the GPU: MarT/scripts/run_finetune_flava.sh recipe parity (lr 5e-5, alpha 0.45, bsz 24)
+python -m mkg_analogy_tpu_torch.cli.main \
+    --model_class FlavaKGC --batch_size 24 --lr 5e-5 --alpha 0.45 \
+    --max_epochs 15 --max_seq_length 128 --eval_batch_size 128 \
+    --data_dir dataset/MARS --pretrain_path dataset/MarKG "$@"

@@ -11,7 +11,9 @@ at ViLBERT's visual stream too (8 heads of 128, 72 x 72, B=64). With
 ``--flash``, the three tensor-core flash kernels instead (forward, dK/dV,
 dQ) at the triple pre-train shapes (B=64, 12 heads of 64: text 96 x 96,
 vision 99 x 99, vision over text K/V 99 x 195, the logical tiles of one
-call), with dropout 0 and 0.1. Prints one JSON line: the card, each
+call), with dropout 0 and 0.1. Any other ``--head_dim`` from 1 to 127
+times the same shapes with 12 heads of that width (the instance of its
+padded width, kernels/build.py:library_width). Prints one JSON line: the card, each
 shape's ms (median of 21 samples of 10 calls, by CUDA events), and each
 set's sum weighted by its calls a forward or step (12 / 8 / 4). Imports the
 ``mkg_analogy_tpu_torch`` of ``--root``, whose kernels it builds there.
@@ -56,11 +58,14 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--root", default=os.path.dirname(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__)))))
-    p.add_argument("--head_dim", type=int, choices=[64, 128], default=64,
-                   help="128 also times ViLBERT's visual stream")
+    p.add_argument("--head_dim", type=int, default=64,
+                   help="1 to 128: the shapes' head width (128 also times ViLBERT's "
+                        "visual stream)")
     p.add_argument("--flash", action="store_true",
                    help="time the tensor-core flash kernels instead")
     args = p.parse_args(argv)
+    if not 1 <= args.head_dim <= 128:
+        p.error(f"--head_dim {args.head_dim}: the kernels take 1 to 128")
     sys.path.insert(0, os.path.abspath(args.root))
     import torch
 
@@ -73,16 +78,18 @@ def main(argv=None) -> int:
                            "--format=csv,noheader"], capture_output=True, text=True,
                           check=True).stdout.strip().splitlines()[0]
     if args.flash:
-        rows, sets = time_flash()
+        rows, sets = time_flash(args.head_dim)
         print(json.dumps(dict(card=card, root=args.root, flash=True, shapes=rows,
                               per_set_ms=sets)))
         return 0
     shapes = SHAPES + ([D128_SHAPE] if args.head_dim == 128 else [])
+    if args.head_dim not in (64, 128):
+        shapes = [shape[:5] + (args.head_dim,) + shape[6:] for shape in SHAPES]
     rows, sets = [], {}
     for name, lq, lk, geometry, calls, d, heads in shapes:
         gen = torch.Generator().manual_seed(7)
         row = dict(shape=name, Lq=lq, Lk=lk, head_dim=d)
-        for kind, b in (("fwd", 128 if d == 64 else 64), ("bwd", 32 if d == 64 else 64)):
+        for kind, b in (("fwd", 64 if d == 128 else 128), ("bwd", 64 if d == 128 else 32)):
             q, g = (torch.randn(b, lq, heads * d, generator=gen).to("cuda", torch.bfloat16)
                     for _ in range(2))
             k, v = (torch.randn(b, lk, heads * d, generator=gen).to("cuda", torch.bfloat16)
@@ -110,9 +117,9 @@ def main(argv=None) -> int:
     return 0
 
 
-def time_flash():
+def time_flash(d=64):
     """(rows, per-set sums) of the three tensor-core flash kernels at
-    FLASH_SHAPES, bf16, B=64, dropout 0 and 0.1."""
+    FLASH_SHAPES, bf16, B=64, 12 heads of ``d``, dropout 0 and 0.1."""
     import torch
 
     from mkg_analogy_tpu_torch.kernels import attention as attn
@@ -122,9 +129,9 @@ def time_flash():
     for name, lq, lk, calls in FLASH_SHAPES:
         gen = torch.Generator().manual_seed(7)
         b, heads = 64, 12
-        q, go = (torch.randn(b, lq, heads * 64, generator=gen).to("cuda", torch.bfloat16)
+        q, go = (torch.randn(b, lq, heads * d, generator=gen).to("cuda", torch.bfloat16)
                  for _ in range(2))
-        k, v = (torch.randn(b, lk, heads * 64, generator=gen).to("cuda", torch.bfloat16)
+        k, v = (torch.randn(b, lk, heads * d, generator=gen).to("cuda", torch.bfloat16)
                 for _ in range(2))
         mask = torch.ones(b, lk, device="cuda")
         mask[:, lk - 9:] = 0.0

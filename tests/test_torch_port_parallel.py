@@ -22,6 +22,11 @@ each; each mesh runs its processes in one spawn.
 - The tp-sharded ranking against ``ranks_from_scores`` on whole scores,
   with ties and a NaN gold.
 - A checkpoint written under 1x2 restores under 1x1 and 2x2.
+- With the fused Q/K/V projection (``fused_qkv``; JAX's ``USE_FUSED_QKV``,
+  set inside the fixture and restored after it), the 1x2 and 2x2 meshes,
+  dropout off: the ``qkv`` leaf whole on every tp rank, as JAX keeps it,
+  each rank projecting its heads' rows; the steps and ranks against the
+  fused single process and JAX's fused meshes at the same bars.
 
 The meshes' processes run on a thread of this process while it computes the
 single-process and the JAX steps. tests/test_torch_port_parallel_blocks.py
@@ -54,21 +59,29 @@ torch.set_num_threads(1)
 
 SEQ, B, LR = 48, 4, 1e-3
 MESHES = [(2, 1), (1, 2), (2, 2)]
+FUSED_MESHES = [(1, 2), (2, 2)]  # fused_qkv under tp
+# (dp, tp, fused_qkv) of the step and rank tests; the unfused cases keep the
+# ids they had before the fused ones came
+MESH_CASES = ([pytest.param(dp, tp, False, id=f"{dp}-{tp}") for dp, tp in MESHES]
+              + [pytest.param(dp, tp, True, id=f"{dp}-{tp}-fused_qkv")
+                 for dp, tp in FUSED_MESHES])
 KINDS = ("finetune", "triple")
 OPT = dict(lr=LR, total_steps=4, warmup_ratio=0.25, weight_decay=0.01, eps=1e-3,
            max_grad_norm=0.5)
 LOSS_RTOL, PARAM_ATOL = 1e-5, 2e-4
 
 
-def _trainer(inputs, kind, dropout, mesh=None, state="state"):
+def _trainer(inputs, kind, dropout, mesh=None, state="state", fused=False):
     """A port trainer on the inputs' weights: fp32, the tiny config with
-    ``dropout`` as both rates."""
+    ``dropout`` as both rates (``fused``: one qkv projection a core, on the
+    fused weights)."""
     text = dataclasses.replace(unimo.TextConfig(**inputs["text"]), hidden_dropout=dropout,
                                attention_dropout=dropout)
     cfg = unimo.UnimoConfig(text=text, vision=unimo.VisionConfig(**inputs["vision"]),
-                            fusion_start=inputs["fusion_start"], dtype="float32")
+                            fusion_start=inputs["fusion_start"], dtype="float32",
+                            fused_qkv=fused)
     model = unimo.UnimoForMaskedLM(cfg)
-    model.load_state_dict(inputs[state])
+    model.load_state_dict(inputs["state_fused" if fused and state == "state" else state])
     tcfg = TrainConfig(lr=LR, batch_size=B, eval_batch_size=4, alpha=0.43,
                        pretrain=kind == "triple", track_grad_norm=True)
     return MarTTrainer(model, inputs["vocab"][kind], tcfg, device="cpu", mesh=mesh)
@@ -114,10 +127,20 @@ def _sharded_ranking(scores, labels, mesh):
     return ranks_from_scores(sl, labels), tie_counts(sl, labels), nonfinite_gold(sl, labels)
 
 
-def _mesh_rank(rank, dp, tp, root, work):
+def _mesh_rank(rank, dp, tp, root, work, fused=False):
     inputs = torch.load(os.path.join(root, "inputs.pt"), weights_only=False)
     mesh = make_mesh(dp=dp, tp=tp, devices=["cpu"] * (dp * tp))
     out = {}
+    if fused:  # dropout off: the steps and the ranks
+        for kind in KINDS:
+            out[kind, 0.0] = _steps(_trainer(inputs, kind, 0.0, mesh, fused=True),
+                                    inputs["batch"][kind], kind)
+            dump = os.path.join(work, f"ranks_{dp}x{tp}_{kind}.npz")
+            out[kind, "eval"] = _trainer(inputs, kind, 0.0, mesh, fused=True).evaluate(
+                inputs["eval"][kind], dump_path=dump)
+        if rank == 0:
+            torch.save(out, os.path.join(work, "result.pt"))
+        return
     for kind in KINDS:
         for dropout in (0.0, 0.1):
             trainer = _trainer(inputs, kind, dropout, mesh)
@@ -154,7 +177,7 @@ def setup(tmp_path_factory):
     from mkg_analogy_tpu.data.module import KGCDataModule as JaxDataModule
     from mkg_analogy_tpu.models.unimo import UnimoForMaskedLM as FlaxUnimo
     from mkg_analogy_tpu_torch.data.module import KGCDataModule
-    from mkg_analogy_tpu_torch.models.convert import unimo_params_from_jax
+    from mkg_analogy_tpu_torch.models.convert import fuse_qkv, unimo_params_from_jax
     from tests.util import tiny_unimo_config
 
     root = tmp_path_factory.mktemp("port_parallel")
@@ -199,39 +222,51 @@ def setup(tmp_path_factory):
         text={f: getattr(cfg.text, f) for f in cfg.text.__dataclass_fields__},
         vision={f: getattr(cfg.vision, f) for f in cfg.vision.__dataclass_fields__},
         fusion_start=cfg.fusion_start, state=unimo_params_from_jax(params),
+        state_fused=fuse_qkv(unimo_params_from_jax(params)),
         vocab={k: data[k][1].vocab for k in KINDS}, batch=batch, eval=evals,
         scores=scores, labels=labels, ckpt_1x2=str(root / "ckpt_1x2"))
     torch.save(inputs, root / "inputs.pt")
-    return dict(root=root, inputs=inputs, data=data, flax_model=flax_model, params=params)
+    return dict(root=root, inputs=inputs, data=data, flax_model=flax_model, params=params,
+                params_fused=fuse_qkv(params))
 
 
 @pytest.fixture(scope="module")
 def single(setup):
     """The single-process port: each kind and dropout's steps, the eval."""
     inputs = setup["inputs"]
-    out = {"init": inputs["state"]}
+    out = {"init": inputs["state"], "init_fused": inputs["state_fused"]}
     for kind in KINDS:
         for dropout in (0.0, 0.1):
             out[kind, dropout] = _steps(_trainer(inputs, kind, dropout),
                                         inputs["batch"][kind], kind)
+        out[kind, "fused"] = _steps(_trainer(inputs, kind, 0.0, fused=True),
+                                    inputs["batch"][kind], kind)
         dump = str(setup["root"] / f"ranks_single_{kind}.npz")
         out[kind, "eval"] = _trainer(inputs, kind, 0.0).evaluate(inputs["eval"][kind],
                                                                   dump_path=dump)
+        out[kind, "eval_fused"] = _trainer(inputs, kind, 0.0, fused=True).evaluate(
+            inputs["eval"][kind],
+            dump_path=str(setup["root"] / f"ranks_single_fused_{kind}.npz"))
     return out
 
 
-def _spawn_mesh(setup, dp, tp):
-    work = str(setup["root"] / f"mesh_{dp}x{tp}")
+def _mesh_dir(setup, dp, tp, fused=False):
+    return setup["root"] / f"mesh_{dp}x{tp}{'_fused' if fused else ''}"
+
+
+def _spawn_mesh(setup, dp, tp, fused=False):
+    work = str(_mesh_dir(setup, dp, tp, fused))
     os.makedirs(work, exist_ok=True)
-    spawn(_mesh_rank, ["cpu"] * (dp * tp), work, args=(dp, tp, str(setup["root"]), work),
-          threads=1)
+    spawn(_mesh_rank, ["cpu"] * (dp * tp), work,
+          args=(dp, tp, str(setup["root"]), work, fused), threads=1)
     return torch.load(os.path.join(work, "result.pt"), weights_only=False)
 
 
 class _Background:
     """The meshes' spawns on a thread of their own, while this process
-    computes the single-process and the JAX steps: 1x2 and 2x1 together,
-    then 2x2, which restores 1x2's checkpoint."""
+    computes the single-process and the JAX steps: 1x2, 2x1 and the fused
+    1x2 together, then 2x2, which restores 1x2's checkpoint, and the fused
+    2x2."""
 
     def __init__(self, setup):
         self.results, self.errors = {}, []
@@ -240,12 +275,12 @@ class _Background:
 
     def _run(self, setup):
         try:
-            first = [threading.Thread(target=self._one, args=(setup, m)) for m in ((1, 2), (2, 1))]
-            for t in first:
-                t.start()
-            for t in first:
-                t.join()
-            self._one(setup, (2, 2))
+            for wave in (((1, 2), (2, 1), (1, 2, True)), ((2, 2), (2, 2, True))):
+                threads = [threading.Thread(target=self._one, args=(setup, m)) for m in wave]
+                for t in threads:
+                    t.start()
+                for t in threads:
+                    t.join()
         except BaseException as e:  # surfaced in the tests
             self.errors.append(e)
 
@@ -264,7 +299,8 @@ class _Background:
 
 @pytest.fixture(scope="module")
 def mesh_runs(setup):
-    """Each mesh's results (started first, read when a test needs them)."""
+    """Each mesh's results, by (dp, tp) or (dp, tp, True) for fused_qkv
+    (started first, read when a test needs them)."""
     runs = _Background(setup)
     yield runs
     runs.thread.join()
@@ -273,7 +309,31 @@ def mesh_runs(setup):
 @pytest.fixture(scope="module")
 def jax_runs(setup):
     """JAX's MarTTrainer on a make_mesh of each shape: the two steps of each
-    kind (dropout 0) and the eval ranks."""
+    kind (dropout 0) and the eval ranks; by (dp, tp, kind), and by (dp, tp,
+    kind, True) with ``USE_FUSED_QKV`` on (set for those runs, restored after
+    them) from the fused weights."""
+    import jax
+    from mkg_analogy_tpu.models import common as jcommon
+
+    out = {}
+    for dp, tp in MESHES:
+        out.update(_jax_mesh_runs(setup, dp, tp, setup["params"]))
+    saved = jcommon.USE_FUSED_QKV
+    jcommon.USE_FUSED_QKV = True
+    try:
+        for dp, tp in FUSED_MESHES:
+            jax.clear_caches()  # the flag is read while tracing
+            out.update({k + (True,): v for k, v in _jax_mesh_runs(
+                setup, dp, tp, setup["params_fused"], tag="_fused").items()})
+    finally:
+        jcommon.USE_FUSED_QKV = saved
+        jax.clear_caches()
+    return out
+
+
+def _jax_mesh_runs(setup, dp, tp, init_params, tag=""):
+    """{(dp, tp, kind): (losses, grad norms, updated params in the port's
+    names, eval ranks)} of JAX's trainer on a (dp, tp) mesh."""
     import jax
     import jax.numpy as jnp
     from mkg_analogy_tpu.core.mesh import make_mesh as jax_mesh
@@ -284,41 +344,40 @@ def jax_runs(setup):
 
     out = {}
     inputs = setup["inputs"]
-    for dp, tp in MESHES:
-        mesh = jax_mesh(dp=dp, tp=tp, devices=jax.devices()[:dp * tp])
-        for kind in KINDS:
-            jdata = setup["data"][kind][0]
-            jt = jtrainer.MarTTrainer(
-                setup["flax_model"], jdata.vocab,
-                jtrainer.TrainConfig(lr=LR, batch_size=B, eval_batch_size=4, alpha=0.43,
-                                     pretrain=kind == "triple", track_grad_norm=True),
-                mesh=mesh)
-            opt = {k: v for k, v in OPT.items() if k != "lr"}
-            tx = joptim.make_optimizer(LR, **opt)
-            with mesh:
-                params = jax.device_put(setup["params"], make_shardings(
-                    mesh, shard_params_spec(setup["params"])))
-                state = jtrainer.TrainState.create(apply_fn=setup["flax_model"].apply,
-                                                   params=params, tx=tx)
-                step = jax.jit(jt._train_step)
-                dbatch = jt._put_batch(inputs["batch"][kind])
-                like = (state.params, state.opt_state)
-                losses, norms = [], []
-                for i in (0, 1):
-                    if i:  # the first call's placement, so that no second compile runs
-                        params, opt_state = jax.tree.map(
-                            lambda x, x0: jax.device_put(x, x0.sharding) if x0.committed
-                            else jnp.asarray(np.asarray(x)), (state.params, state.opt_state),
-                            like)
-                        state = state.replace(step=i, params=params, opt_state=opt_state)
-                    state, m = step(state, dbatch, jax.random.PRNGKey(1))
-                    losses.append(float(m["loss"]))
-                    norms.append(float(m["grad_norm"]))
-            dump = str(setup["root"] / f"ranks_jax_{dp}x{tp}_{kind}.npz")
-            jt.evaluate(setup["params"], inputs["eval"][kind], dump_path=dump)
-            out[dp, tp, kind] = (losses, norms,
-                                 unimo_params_from_jax(jax.device_get(state.params)),
-                                 np.load(dump)["ranks"])
+    mesh = jax_mesh(dp=dp, tp=tp, devices=jax.devices()[:dp * tp])
+    for kind in KINDS:
+        jdata = setup["data"][kind][0]
+        jt = jtrainer.MarTTrainer(
+            setup["flax_model"], jdata.vocab,
+            jtrainer.TrainConfig(lr=LR, batch_size=B, eval_batch_size=4, alpha=0.43,
+                                 pretrain=kind == "triple", track_grad_norm=True),
+            mesh=mesh)
+        opt = {k: v for k, v in OPT.items() if k != "lr"}
+        tx = joptim.make_optimizer(LR, **opt)
+        with mesh:
+            params = jax.device_put(init_params, make_shardings(
+                mesh, shard_params_spec(init_params)))
+            state = jtrainer.TrainState.create(apply_fn=setup["flax_model"].apply,
+                                               params=params, tx=tx)
+            step = jax.jit(jt._train_step)
+            dbatch = jt._put_batch(inputs["batch"][kind])
+            like = (state.params, state.opt_state)
+            losses, norms = [], []
+            for i in (0, 1):
+                if i:  # the first call's placement, so that no second compile runs
+                    params, opt_state = jax.tree.map(
+                        lambda x, x0: jax.device_put(x, x0.sharding) if x0.committed
+                        else jnp.asarray(np.asarray(x)), (state.params, state.opt_state),
+                        like)
+                    state = state.replace(step=i, params=params, opt_state=opt_state)
+                state, m = step(state, dbatch, jax.random.PRNGKey(1))
+                losses.append(float(m["loss"]))
+                norms.append(float(m["grad_norm"]))
+        dump = str(setup["root"] / f"ranks_jax_{dp}x{tp}{tag}_{kind}.npz")
+        jt.evaluate(init_params, inputs["eval"][kind], dump_path=dump)
+        out[dp, tp, kind] = (losses, norms,
+                             unimo_params_from_jax(jax.device_get(state.params)),
+                             np.load(dump)["ranks"])
     return out
 
 
@@ -349,16 +408,20 @@ def _grads_close(got, want, what):
         assert err <= 1e-4 * float(w.abs().max()) + 1e-7 * top, (what, name, err)
 
 
-@pytest.mark.parametrize("dp,tp", MESHES)
+@pytest.mark.parametrize("dp,tp,fused", MESH_CASES)
 @pytest.mark.parametrize("kind", KINDS)
-def test_steps_match_single_process_and_jax(mesh_runs, single, jax_runs, dp, tp, kind):
+def test_steps_match_single_process_and_jax(mesh_runs, single, jax_runs, dp, tp, fused, kind):
     """Dropout off: the mesh's two steps against the single-process port and
     against JAX on a mesh of the same shape (losses, grad norms, updated
     parameters; the first step's gradients, leaf by leaf, against the single
-    process), and the parameters did move."""
-    losses, norms, state, grads = mesh_runs[dp, tp][kind, 0.0]
-    s_losses, s_norms, s_state, s_grads = single[kind, 0.0]
-    j_losses, j_norms, j_state, _ = jax_runs[dp, tp, kind]
+    process), and the parameters did move; with ``fused_qkv``, the fused
+    single process and JAX's fused mesh, the qkv leaf whole on the ranks."""
+    key = (dp, tp, True) if fused else (dp, tp)
+    losses, norms, state, grads = mesh_runs[key][kind, 0.0]
+    s_losses, s_norms, s_state, s_grads = single[kind, "fused" if fused else 0.0]
+    j_losses, j_norms, j_state, _ = jax_runs[(dp, tp, kind) + ((True,) if fused else ())]
+    if fused:
+        assert any(".attn.qkv." in name for name in state)
     _grads_close(grads, s_grads, "vs single")
     _close(losses, s_losses, LOSS_RTOL, "loss vs single")
     _close(norms, s_norms, LOSS_RTOL, "grad norm vs single")
@@ -366,7 +429,8 @@ def test_steps_match_single_process_and_jax(mesh_runs, single, jax_runs, dp, tp,
     _close(norms, j_norms, LOSS_RTOL, "grad norm vs jax")
     _params_close(state, s_state, "vs single")
     _params_close(state, j_state, "vs jax")
-    moved = max(float((state[k] - v).abs().max()) for k, v in single["init"].items())
+    init = single["init_fused" if fused else "init"]
+    moved = max(float((state[k] - v).abs().max()) for k, v in init.items())
     assert moved > 1e-4
 
 
@@ -388,19 +452,21 @@ def test_dropout_on_matches_single_process(mesh_runs, single, dp, tp, kind):
         assert losses[0] == s_losses[0]
 
 
-@pytest.mark.parametrize("dp,tp", MESHES)
+@pytest.mark.parametrize("dp,tp,fused", MESH_CASES)
 @pytest.mark.parametrize("kind", KINDS)
 def test_eval_ranks_match_single_process_and_jax(setup, mesh_runs, single, jax_runs,
-                                                 dp, tp, kind):
+                                                 dp, tp, fused, kind):
     """The padded eval batches split over dp, the decoder over tp: the ranks
-    are the single process's and JAX's, and so are the metrics."""
+    are the single process's and JAX's, and so are the metrics (with
+    ``fused_qkv``, the fused ones')."""
     root = setup["root"]
-    got = np.load(root / f"mesh_{dp}x{tp}" / f"ranks_{dp}x{tp}_{kind}.npz")["ranks"]
-    want = np.load(root / f"ranks_single_{kind}.npz")["ranks"]
+    got = np.load(_mesh_dir(setup, dp, tp, fused) / f"ranks_{dp}x{tp}_{kind}.npz")["ranks"]
+    want = np.load(root / f"ranks_single{'_fused' if fused else ''}_{kind}.npz")["ranks"]
     assert len(got) == 10
     np.testing.assert_array_equal(got, want)
-    np.testing.assert_array_equal(got, jax_runs[dp, tp, kind][3])
-    assert mesh_runs[dp, tp][kind, "eval"] == single[kind, "eval"]
+    np.testing.assert_array_equal(got, jax_runs[(dp, tp, kind) + ((True,) if fused else ())][3])
+    key = (dp, tp, True) if fused else (dp, tp)
+    assert mesh_runs[key][kind, "eval"] == single[kind, "eval_fused" if fused else "eval"]
 
 
 def test_global_count_ce_with_the_relation_rows_on_one_rank(setup, mesh_runs, single):

@@ -6,7 +6,8 @@ dry run, on the CPU (gloo processes, one thread each, file rendezvous under
   five families, on tiny configs;
 - the four families beside MKGformer (tests/test_torch_port_parallel.py)
   run under tp=2 through the shared blocks: their forward and the ranks of
-  their split decoder are the single process's;
+  their split decoder are the single process's; so does MKGformer with the
+  fused Q/K/V projection, its ``qkv`` leaf whole on each rank;
 - ``dryrun_multichip`` at 4 and 8 processes, as tests/test_graft_entry.py
   runs JAX's.
 """
@@ -76,21 +77,28 @@ def _family_rank(rank, work):
         model.load_state_dict(inputs["state"])
         shard_module(model, mesh)
         out[name] = _forward(model, inputs["batch"])
-    # the one projection of fused_qkv, which the rules keep whole, refuses tp
+    # the one projection of fused_qkv, which the rules keep whole
+    inputs = torch.load(os.path.join(work, "fused_qkv.pt"), weights_only=False)
+    fused = _fused_model()
+    fused.load_state_dict(inputs["state"])
+    shard_module(fused, mesh)
+    names = {n: getattr(p, "tp_shard", None) is not None for n, p in fused.named_parameters()}
+    out["fused_qkv"] = (_forward(fused, inputs["batch"]), names)
+    if rank == 0:
+        torch.save(out, os.path.join(work, "families_out.pt"))
+
+
+def _fused_model():
+    """A tiny MKGformer with the fused Q/K/V projection (JAX's
+    USE_FUSED_QKV), fp32, 2 heads of 16."""
     from mkg_analogy_tpu_torch.models.unimo import (
         TextConfig, UnimoConfig, UnimoForMaskedLM, VisionConfig)
 
-    small = dict(hidden_size=32, num_layers=1, num_heads=2, intermediate_size=64)
-    fused = UnimoForMaskedLM(UnimoConfig(text=TextConfig(vocab_size=64, **small),
-                                         vision=VisionConfig(**small), fusion_start=1,
-                                         dtype="float32", fused_qkv=True))
-    try:
-        shard_module(fused, mesh)
-        out["fused_qkv"] = None
-    except NotImplementedError as e:
-        out["fused_qkv"] = str(e)
-    if rank == 0:
-        torch.save(out, os.path.join(work, "families_out.pt"))
+    small = dict(hidden_size=32, num_layers=2, num_heads=2, intermediate_size=64)
+    return UnimoForMaskedLM(UnimoConfig(text=TextConfig(vocab_size=64, **small),
+                                        vision=VisionConfig(**small, image_size=32, patch_size=16),
+                                        fusion_start=1,
+                                        dtype="float32", fused_qkv=True))
 
 
 def _forward(model, batch):
@@ -128,6 +136,19 @@ def families(tmp_path_factory):
         want[name] = _forward(model, batch)
         torch.save({"cls": port_cls, "cfg": port_cfg, "state": model.state_dict(),
                     "batch": batch}, work / f"family_{name}.pt")
+    fused = _fused_model()
+    fused.init_params(torch.Generator().manual_seed(2))
+    rng = np.random.default_rng(3)
+    b, length = 2, 16
+    batch = dict(
+        input_ids=torch.from_numpy(rng.integers(0, 64, (b, length))),
+        attention_mask=torch.ones(b, length, dtype=torch.long),
+        token_type_ids=torch.zeros(b, length, dtype=torch.long),
+        pixel_values=torch.from_numpy(rng.standard_normal((b, 2, 3, 32, 32)).astype(np.float32)),
+        positions=torch.from_numpy(rng.integers(0, length, (b, 5))),
+        boundary=torch.full((b,), 6))
+    want["fused_qkv"] = _forward(fused, batch)
+    torch.save({"state": fused.state_dict(), "batch": batch}, work / "fused_qkv.pt")
     spawn(_family_rank, ["cpu", "cpu"], str(work), args=(str(work),), threads=1)
     return want, torch.load(work / "families_out.pt", weights_only=False)
 
@@ -143,12 +164,18 @@ def test_other_families_run_under_tp(families, name):
     assert torch.equal(got[name][1], want[name][1])
 
 
-def test_fused_qkv_refuses_tp(families):
-    """A model with the fused Q/K/V projection (JAX's USE_FUSED_QKV), whose
-    one ``qkv`` kernel the rules keep whole beside a split out projection,
-    raises NotImplementedError under tp and names the option."""
-    _, got = families
-    assert got["fused_qkv"] is not None and "fused_qkv" in got["fused_qkv"]
+def test_fused_qkv_runs_under_tp(families):
+    """A model with the fused Q/K/V projection (JAX's USE_FUSED_QKV) under
+    tp=2: its one ``qkv`` leaf stays whole on each rank, as JAX keeps it,
+    beside the split out projection, and its forward and ranks are the
+    single process's at the bar of the other families."""
+    want, got = families
+    (trans, ranks), split = got["fused_qkv"]
+    qkv = [n for n in split if ".attn.qkv." in n]
+    out = [n for n in split if ".attn.out.weight" in n]
+    assert qkv and out and not any(split[n] for n in qkv) and all(split[n] for n in out)
+    torch.testing.assert_close(trans, want["fused_qkv"][0], atol=2e-4, rtol=0)
+    assert torch.equal(ranks, want["fused_qkv"][1])
 
 
 @pytest.mark.parametrize("n", [4, 8])
