@@ -19,7 +19,8 @@ exits non-zero:
                 PyTorch version at the three MKGformer shapes and at ViLT's
                 (418 x 418: 128 text and 290 image tokens, the multiplier
                 over the text block from row 1, and with the boundary
-                shifted by 290; bf16 only, above the 400 fp32 keys), B=128:
+                shifted by 290; fp32 there through the CUDA-core kernels'
+                streaming form, whose shared memory no length passes), B=128:
                 fp32 (the CUDA-core kernel, TF32 off) at atol 2e-5, bf16 (the
                 tensor-core kernel) at 2e-2, each also with dropout (same
                 seed, so the masks must agree); then the tensor-core kernel
@@ -147,10 +148,13 @@ exits non-zero:
                 launches counted from 0 in each mode;
 15. vilt, flava — a full-width fine-tune step of each family at its recipe
                 (ViLT B=32, 384 px, 418 tokens; FLAVA B=24, 224 px, towers of
-                393, 128 and 522 tokens), L=128: fp32 through the flash
-                kernels against their plain version and the plain attention
-                (loss within 1e-5 relative, every gradient leaf within its
-                bound), then a bf16 forward and 6 bf16 steps through the
+                393, 128 and 522 tokens), L=128: fp32 through the
+                family's default kernels (ViLT the single-block ones, their
+                fp32 forms streaming its 418 keys; FLAVA the flash ones)
+                against the plain attention or the flash kernels' plain
+                version (loss within 1e-5 relative, every gradient leaf
+                within its bound), and through the flash kernels against the
+                plain attention without attention dropout, then a bf16 forward and 6 bf16 steps through the
                 family's default kernels (ViLT the single-block ones, 12 + 12
                 launches a step; FLAVA the flash ones, 30 + 30 + 30): the
                 loss falls, step time and a device profile; ViLT's step also
@@ -237,7 +241,12 @@ exits non-zero:
                 1`` and ``flash`` in fp32 and bf16, the fp32 losses against
                 ``--fused_attention 0``'s; (b) MiniLM-L12-H384's widths (head_dim
                 32), a full-length step through ``single`` and ``flash``,
-                fp32 against the plain attention, then bf16 steps.
+                fp32 against the plain attention, then bf16 steps;
+25. long_keys — rows 1-2 at 99 x 1100 and 1024 x 1024 (B=2), fp32 (the
+                CUDA-core kernels' streaming form) and bf16, dropout 0 and
+                0.1, against the plain versions at the kernel bars; times,
+                plain and SDPA times, bounds (ViLT's 418 x 418 in fp32 runs
+                in phases 3 and 4).
 
 Then the ``{"kernels": [...]}`` line, the card line, and the last line
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -274,7 +283,6 @@ SHAPES = [("text", 128, 128, (0, None, 0), 12), ("vision", 99, 99, None, 8),
           ("vilt", 418, 418, (1, 128, 0), 0),
           ("vilt_compat_offset", 418, 418, (1, None, 290), 0)]
 TEXT_LEN = 128       # text keys of SHAPES, padded to 40-128
-FP32_MAX_KEYS = 400  # the single-block kernels take 400 keys in fp32 (717 in bf16)
 # The ragged edges of the tensor-core kernels' 64-row tiles and 64-key
 # chunks: (name, B, Lq, Lk, geometry or None as (boundary per batch row,
 # row_start, text_len, offset), batch row whose keys are all masked or None).
@@ -390,13 +398,24 @@ def bwd_bound_times(b, lq, lk, dtype_bytes, heads=HEADS, head_dim=HEAD_DIM):
     return nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS_PER_S * 1e3
 
 
+def seeded_randn(shape, seed, device, dtype, gen=None):
+    """Standard normal values drawn on ``device`` from ``seed`` (or from the
+    device generator ``gen``), in ``dtype``: drawn on the host, the inputs
+    of the wide heads' calls took seconds a call."""
+    import torch
+
+    if gen is None:
+        gen = torch.Generator(device=device).manual_seed(seed)
+    return torch.randn(shape, generator=gen, device=device).to(dtype)
+
+
 def attention_inputs(lq, lk, geometry, dtype, device, seed, batch=BATCH, head_dim=HEAD_DIM):
     import torch
 
     g = torch.Generator().manual_seed(seed)
+    gd = torch.Generator(device=device).manual_seed(seed)
     hd = HEADS * head_dim
-    q, k, v = (torch.randn(batch, n, hd, generator=g).to(device, dtype)
-               for n in (lq, lk, lk))
+    q, k, v = (seeded_randn((batch, n, hd), seed, device, dtype, gd) for n in (lq, lk, lk))
     text_len = torch.randint(40, TEXT_LEN + 1, (batch,), generator=g)
     text_mask = (torch.arange(TEXT_LEN)[None] < text_len[:, None]).float()
     if geometry is None and lk == lq:  # vision self-attention
@@ -460,9 +479,6 @@ def kernel_phase(device):
                   ("bf16", torch.bfloat16, 2e-2, {}),
                   ("fp32_dropout", torch.float32, 2e-5, dropout),
                   ("bf16_dropout", torch.bfloat16, 2e-2, dropout)]
-        if lk > FP32_MAX_KEYS:
-            checks = [c for c in checks if c[1] != torch.float32]
-            row["fp32"] = f"not run: above the kernel's {FP32_MAX_KEYS} fp32 keys"
         for tag, dtype, atol, extra in checks:
             q, k, v, mask, kw = attention_inputs(lq, lk, geometry, dtype, device, seed=lq + lk)
             kw = dict(kw, compute_dtype=dtype, **extra)
@@ -491,9 +507,23 @@ def kernel_phase(device):
         if not row["kernel_ms"] < row["earlier_ms"]:
             raise AssertionError(f"{name}: the tensor-core forward ({row['kernel_ms']} ms) is "
                                  f"no faster than the CUDA-core one ({row['earlier_ms']} ms)")
-        if lk > FP32_MAX_KEYS and not row["kernel_ms"] < row["plain_ms"]:
+        if name.startswith("vilt") and not row["kernel_ms"] < row["plain_ms"]:
             raise AssertionError(f"{name}: the forward kernel ({row['kernel_ms']} ms) is no "
                                  f"faster than its plain version ({row['plain_ms']} ms)")
+        if name.startswith("vilt"):
+            # the fp32 route at 418 keys: the CUDA-core kernel's streaming form
+            q32, k32, v32, mask32, kw32 = attention_inputs(lq, lk, geometry, torch.float32,
+                                                           device, seed=7)
+            kw32 = dict(kw32, compute_dtype=torch.float32)
+            row["kernel_ms_fp32"] = time_ms(
+                lambda: attn.fused_attention(q32, k32, v32, mask32, HEADS, **kw32),
+                samples=5, per_sample=2)
+            row["plain_ms_fp32"] = time_ms(
+                lambda: attn.fused_attention_reference(q32, k32, v32, mask32, HEADS, **kw32),
+                samples=5, per_sample=2)
+            t_bytes, t_ops = bound_times(BATCH, lq, lk, 4)
+            row["bound_ms_fp32"] = max(t_bytes, t_ops * BF16_FLOPS_PER_S / FP32_FLOPS_PER_S)
+            del q32, k32, v32, mask32
         row["library_ms"] = None
         if geometry is None:
             def heads(x):
@@ -601,15 +631,11 @@ def kernel_bwd_phase(device):
         row = dict(shape=name, B=TRAIN_BATCH, Lq=lq, Lk=lk, heads=HEADS,
                    head_dim=HEAD_DIM, geometry=geometry, launches_per_step=per_fwd)
         dtypes = (("fp32", torch.float32), ("bf16", torch.bfloat16))
-        if lk > FP32_MAX_KEYS:
-            dtypes = dtypes[1:]
-            row["fp32"] = f"not run: above the kernel's {FP32_MAX_KEYS} fp32 keys"
         for tag, dtype in dtypes:
             for rate in (0.0, 0.1):
                 q, k, v, mask, kw = attention_inputs(lq, lk, geometry, dtype, device,
                                                      seed=lq + lk, batch=TRAIN_BATCH)
-                g = torch.randn(q.shape, generator=torch.Generator().manual_seed(lq)
-                                ).to(device, dtype)
+                g = seeded_randn(q.shape, lq, device, dtype)
                 kw = dict(kw, compute_dtype=dtype, dropout_rate=rate,
                           deterministic=rate == 0.0, dropout_seed=4321)
                 key = f"{tag}{'_dropout' if rate else ''}"
@@ -618,8 +644,7 @@ def kernel_bwd_phase(device):
         # timing in the main path's dtype, dropout as the text tower trains
         q, k, v, mask, kw = attention_inputs(lq, lk, geometry, torch.bfloat16, device,
                                              seed=7, batch=TRAIN_BATCH)
-        g = torch.randn(q.shape, generator=torch.Generator().manual_seed(8)
-                        ).to(device, torch.bfloat16)
+        g = seeded_randn(q.shape, 8, device, torch.bfloat16)
         rate = 0.1 if geometry is not None else 0.0
         kw = dict(kw, compute_dtype=torch.bfloat16, dropout_rate=rate,
                   deterministic=rate == 0.0, dropout_seed=99)
@@ -634,6 +659,23 @@ def kernel_bwd_phase(device):
         if not row["kernel_ms"] < row["earlier_ms"]:
             raise AssertionError(f"{name}: the tensor-core backward ({row['kernel_ms']} ms) is "
                                  f"no faster than the CUDA-core one ({row['earlier_ms']} ms)")
+        if name.startswith("vilt"):
+            # the fp32 route at 418 keys: both passes in the streaming form
+            q32, k32, v32, mask32, kw32 = attention_inputs(lq, lk, geometry, torch.float32,
+                                                           device, seed=7, batch=TRAIN_BATCH)
+            g32 = seeded_randn(q32.shape, 8, device, torch.float32)
+            kw32 = dict(kw32, compute_dtype=torch.float32, dropout_rate=rate,
+                        deterministic=rate == 0.0, dropout_seed=99)
+            args32 = resolve_geometry(attn, q32, kw32, rate, 99)
+            row["kernel_ms_fp32"] = time_ms(
+                lambda: attn._launch_bwd(q32, k32, v32, mask32, g32, HEADS, *args32),
+                samples=5, per_sample=2)
+            row["plain_ms_fp32"] = time_ms(
+                lambda: attn.fused_attention_bwd_reference(q32, k32, v32, mask32, g32, HEADS,
+                                                           **kw32), samples=5, per_sample=2)
+            t_bytes, t_ops = bwd_bound_times(TRAIN_BATCH, lq, lk, 4)
+            row["bound_ms_fp32"] = max(t_bytes, t_ops * BF16_FLOPS_PER_S / FP32_FLOPS_PER_S)
+            del q32, k32, v32, g32, mask32
         # the call's device time by kernel: the dq pass, the dk/dv pass, the
         # sum of the dw partials
         row["device_ms_by_kernel"] = {
@@ -1594,9 +1636,9 @@ def flash_inputs(b, lq, lk, kind, geometry, dtype, device, seed, head_dim=HEAD_D
     import torch
 
     g = torch.Generator().manual_seed(seed)
+    gd = torch.Generator(device=device).manual_seed(seed)
     hd = HEADS * head_dim
-    q, k, v, go = (torch.randn(b, n, hd, generator=g).to(device, dtype)
-                   for n in (lq, lk, lk, lq))
+    q, k, v, go = (seeded_randn((b, n, hd), seed, device, dtype, gd) for n in (lq, lk, lk, lq))
     if kind == "vision":
         mask = torch.ones(b, lk)
     else:
@@ -1943,8 +1985,8 @@ def fp32_masked_row_phase(device):
     whose keys are all masked: there every score sits at -1e4, where an fp32
     ulp is 9.8e-4, so a score rounded in two steps, where the plain versions
     round it in one FMA (kernels/attention.py:_score), moves a probability
-    by 1e-3 of itself. The single-block pair at EDGE_CASES (up to the
-    kernels' 400 fp32 keys), the flash kernels at FLASH_EDGE_CASES of JAX's
+    by 1e-3 of itself. The single-block pair at EDGE_CASES (at 418 keys
+    through their streaming form), the flash kernels at FLASH_EDGE_CASES of JAX's
     (256, 512) tiles (flash_edge_phase in fp32), dropout 0 and 0.1, at the
     fp32 bars: the forward within 2e-5 absolute, the backward within 2e-5
     of each result's largest |value|, dw within 1e-5 of its sum of |terms|.
@@ -1960,7 +2002,7 @@ def fp32_masked_row_phase(device):
 
     errs = {}
     for case in EDGE_CASES:
-        if case[5] is None or case[3] > FP32_MAX_KEYS:
+        if case[5] is None:
             continue
         q, k, v, g, mask, kw = edge_inputs(case, device, torch.float32)
         for rate in (0.0, 0.1):
@@ -2973,15 +3015,17 @@ def all_counts():
 # layer; JAX's jit drops its forward too, the eager port runs it).
 # ``auto_flash``: the calls whose query length reaches FLASH_AUTO_MIN_LEN,
 # which the plain route sends to the flash kernels. ``backend``: the card's
-# default (models/registry.py). ``fp32``: the kernels of the fp32 step
-# (the single-block ones hold 400 keys in fp32, fewer than the pixel
-# families attend over). ``also_flash``: the bf16 steps also run through
-# the flash kernels, the other route the family could take (for ViLBERT,
-# whose visual stream is at head_dim 128, its fp32 step too, against the
-# plain attention, and a CLI fit with --fused_attention flash).
+# default (models/registry.py). ``fp32``: the kernels of the fp32 step,
+# the family's default as JAX runs it. ``also_flash``: the steps also run
+# through the flash kernels, the other route the family could take: the
+# fp32 step against the plain attention (ViLBERT, whose calls of 128 and 72
+# tokens are each one logical tile with the single block's dropout masks,
+# with attention dropout; ViLT, whose 418 query rows the flash kernels
+# draw in tiles of 256, without), the bf16 steps timed (and for ViLBERT a
+# CLI fit with --fused_attention flash).
 FAMILIES = {
     "vilt": dict(model_class="ViltKGC", batch=32, image=384, alpha=0.3, lr=4e-5,
-                 stats="vilt", backend="single", calls=12, auto_flash=0, fp32="flash",
+                 stats="vilt", backend="single", calls=12, auto_flash=0, fp32="single",
                  also_flash=True),
     "flava": dict(model_class="FlavaKGC", batch=24, image=224, alpha=0.45, lr=5e-5,
                   stats="clip", backend="flash", calls=30, auto_flash=6, fp32="flash"),
@@ -2991,7 +3035,7 @@ REGION_FAMILIES = {
                        lr=5e-5, backend="single", calls=12, auto_flash=0, fp32="single"),
     "vilbert": dict(model_class="VilBertKGC", batch=64, image=None, alpha=0.43, lr=5e-5,
                     backend="single", calls=18, d128=6, unread=1, auto_flash=0,
-                    fp32="single", also_flash=True),
+                    fp32="single", also_flash=True, flash_same_masks=True),
 }
 
 
@@ -3026,13 +3070,14 @@ def family_phase(device, name):
     1e-5 relative; each gradient leaf within 1e-3 of that leaf's largest
     |gradient| plus 1e-6 of the model's largest; no gradient only where the
     loss reads nothing (ViLBERT's visual stream after its last connection
-    layer). For ViLT and FLAVA: (1) fp32, from one state dict, batch and
-    seeds, through the flash kernels (the single-block kernel holds 400 keys
-    in fp32, fewer than either family attends over) and through autograd of
-    the kernels' plain version. Gates: the loss within 1e-5 relative; each
-    gradient leaf within 1e-3 of that leaf's largest |gradient| plus 1e-6 of
-    the model's largest. Then, with the attention dropout off and the
-    hidden dropout on, through the flash kernels and through the plain
+    layer). ViLT likewise, through the single-block kernels over its 418
+    tokens (the fp32 ones stream K and V there), as JAX runs it. For FLAVA:
+    (1) fp32, from one state dict, batch and seeds, through the flash
+    kernels (its default) and through autograd of the kernels' plain
+    version. Gates: the loss within 1e-5 relative; each gradient leaf
+    within 1e-3 of that leaf's largest |gradient| plus 1e-6 of the model's
+    largest. Then, for FLAVA and ViLT, with the attention dropout off and
+    the hidden dropout on, through the flash kernels and through the plain
     attention: over more than 256 queries the flash kernels draw their
     dropout mask per (256, 512) tile and the plain attention draws one over
     the whole block, so with attention dropout the two are different draws.
@@ -3081,11 +3126,15 @@ def family_phase(device, name):
             plan = (("kernels", "single", 0.1, ("single", calls)),
                     ("plain", "plain", 0.1, ("single", 0)))
             pairs = (("kernels", "plain"),)
-            if fam.get("also_flash"):
+            if fam.get("flash_same_masks"):
                 # every call of L=128 and 72 is one logical tile, whose
                 # dropout seed is the single block's: the same masks
                 plan += (("flash", "flash", 0.1, ("flash", calls)),)
                 pairs += (("flash", "plain"),)
+            elif fam.get("also_flash"):
+                plan += (("flash_nodrop", "flash", 0.0, ("flash", calls)),
+                         ("plain_nodrop", "plain", 0.0, ("flash", fam["auto_flash"])))
+                pairs += (("flash_nodrop", "plain_nodrop"),)
         else:
             plan = (("kernels", "flash", 0.1, ("flash", calls)),
                     ("flash_plain", "flash_plain", 0.1, ("flash", 0)),
@@ -3143,7 +3192,7 @@ def family_phase(device, name):
             loss_rel_diff=abs(runs["flash"][0] - runs["plain"][0]) / abs(runs["plain"][0]),
             worst_err_over_bar=worst_flash, worst_leaf=worst_flash_name,
             launches=family_counts("flash", calls, bf16=False, **d128))
-    if fam["fp32"] == "flash":
+    if "flash_nodrop" in runs:
         lk, lp = runs["flash_nodrop"][0], runs["plain_nodrop"][0]
         out["fp32"].update(
             loss_kernels_no_attention_dropout=lk, loss_plain_attention_no_attention_dropout=lp,
@@ -4356,8 +4405,7 @@ def mesh_kernel_phase(device):
             for dtype, tag in ((torch.bfloat16, "bf16"), (torch.float32, "fp32")):
                 q, k, v, mask, kw = attention_inputs(lq, lk, geometry, dtype, device,
                                                      seed=lq + 3, batch=TRAIN_BATCH)
-                g = torch.randn(q.shape, generator=torch.Generator().manual_seed(lk)
-                                ).to(device, dtype)
+                g = seeded_randn(q.shape, lk, device, dtype)
                 kw = dict(kw, compute_dtype=dtype, dropout_rate=0.1, deterministic=False,
                           dropout_seed=2024)
                 if route == "flash":
@@ -4430,23 +4478,6 @@ def width_counts(d):
     return out
 
 
-def fp32_keys(attn, d, lq, lk, smem_optin):
-    """The most keys, up to ``lk``, that a block of the fp32 single-block
-    forward and backward (the CUDA-core kernels hold K and V of every key in
-    shared memory) takes at head_dim ``d``: (forward, backward)."""
-    from mkg_analogy_tpu_torch.kernels import build
-
-    width = build.library_width(d)
-    out = []
-    for smem in (lambda n: attn._lib(width).mkg_fused_attention_fwd_smem(n, 0, d),
-                 lambda n: attn._lib_bwd(width).mkg_fused_attention_bwd_smem(lq, n, 0, d)):
-        n = lk
-        while smem(n) > smem_optin:
-            n -= 1
-        out.append(n)
-    return tuple(out)
-
-
 def sdpa_times(q, k, v, go, mask, heads, head_dim, n):
     """(forward ms, backward ms) of scaled_dot_product_attention on the same
     heads (the padding mask as a bias; no dropout): a yardstick only."""
@@ -4479,11 +4510,8 @@ def head_widths_phase(device):
     analogy geometry and dropout 0.1, each against its plain version at the
     bars of the kernel phases (forward 2e-5 / 2e-2, lse 1e-5; backward 2e-5
     / 2^-7 of each result's largest, dw 1e-5 of its terms), each launch
-    counted under its width. The fp32 kernels of rows 1-2 hold K and V of
-    every key in shared memory: where 227 keys do not fit a block (the
-    backward from padded width 112, the forward at 128) they are compared
-    at the most keys that do. Then per width and
-    dtype the kernels' times, the plain
+    counted under its width (the fp32 kernels of rows 1-2 stream K and V
+    where 227 keys do not fit a block: from padded width 112). Then per width and dtype the kernels' times, the plain
     versions' (bf16), SDPA's where the width is a multiple of 8 (no
     multiplier in the timed calls) and the bounds of the real width; the
     registers and spills ptxas reported. A call at head_dim 129 raises a
@@ -4516,18 +4544,11 @@ def head_widths_phase(device):
     attn.WIDTH_LAUNCHES.clear()
     fa.WIDTH_LAUNCHES_FLASH.clear()
     n = dict(samples=7, per_sample=5)
-    smem_optin = torch.cuda.get_device_properties(device).shared_memory_per_block_optin
     rows = []
     for d in HEAD_WIDTHS:
         row = dict(head_dim=d, padded_width=build.padded_width(d), heads=HEADS)
         _, b, lq, lk = HEAD_WIDTH_SINGLE
         _, fb, flq, flk = HEAD_WIDTH_FLASH
-        # K and V of 227 keys and the fp32 rows pass a block's shared memory
-        # from padded width 112 (the backward) and 128 (the forward): the
-        # fp32 comparisons there take the most keys that fit
-        fwd_keys, bwd_keys = fp32_keys(attn, d, lq, lk, smem_optin)
-        row.update({f"{k_}_fp32_keys": n_ for k_, n_ in (("fwd", fwd_keys), ("bwd", bwd_keys))
-                    if n_ != lk})
         for tag, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
             for geometry, rate in ((None, 0.0), ((0, None, 0), 0.1)):
                 key = f"{tag}{'_geometry_dropout' if rate else ''}"
@@ -4539,7 +4560,7 @@ def head_widths_phase(device):
                     return q, k, v, mask, dict(kw, compute_dtype=dtype, dropout_rate=rate,
                                                deterministic=rate == 0.0, dropout_seed=77)
 
-                keys = lk if dtype == torch.bfloat16 else fwd_keys
+                keys = lk
                 q, k, v, mask, call = inputs(keys)
                 got = attn.fused_attention(q, k, v, mask, HEADS, **call)
                 want = attn.fused_attention_reference(q, k, v, mask, HEADS, **call)
@@ -4549,11 +4570,7 @@ def head_widths_phase(device):
                 bar = 2e-5 if dtype == torch.float32 else 2e-2
                 if not err <= bar:
                     raise AssertionError(f"head_dim {d} fwd {key}: kernel vs plain {err} > {bar}")
-                g = torch.randn(q.shape, generator=torch.Generator().manual_seed(d)
-                                ).to(device, dtype)
-                if dtype == torch.float32 and bwd_keys != keys:
-                    keys = bwd_keys
-                    q, k, v, mask, call = inputs(keys)
+                g = seeded_randn(q.shape, d, device, dtype)
                 row.update(bwd_errors(attn, f"head_dim {d} {key} ({lq} x {keys})", key, q, k,
                                       v, mask, g, call, rate, 77,
                                       2e-5 if dtype == torch.float32 else 2.0 ** -7))
@@ -4576,16 +4593,12 @@ def head_widths_phase(device):
             flops = BF16_FLOPS_PER_S if dtype == torch.bfloat16 else FP32_FLOPS_PER_S
             q, k, v, mask, kw = attention_inputs(lq, lk, None, dtype, device, seed=7, batch=b,
                                                  head_dim=d)
-            g = torch.randn(q.shape, generator=torch.Generator().manual_seed(8)).to(device, dtype)
+            g = seeded_randn(q.shape, 8, device, dtype)
             resolved = resolve_geometry(attn, q, kw, 0.0, 0)
-            # (fp32 at 227 keys only: None where they do not fit a block)
-            row[f"fwd_ms_{tag}"] = row[f"bwd_ms_{tag}"] = None
-            if dtype == torch.bfloat16 or fwd_keys == lk:
-                row[f"fwd_ms_{tag}"] = time_ms(
-                    lambda: attn._launch_fwd(q, k, v, mask, HEADS, *resolved), **n)
-            if dtype == torch.bfloat16 or bwd_keys == lk:
-                row[f"bwd_ms_{tag}"] = time_ms(
-                    lambda: attn._launch_bwd(q, k, v, mask, g, HEADS, *resolved), **n)
+            row[f"fwd_ms_{tag}"] = time_ms(
+                lambda: attn._launch_fwd(q, k, v, mask, HEADS, *resolved), **n)
+            row[f"bwd_ms_{tag}"] = time_ms(
+                lambda: attn._launch_bwd(q, k, v, mask, g, HEADS, *resolved), **n)
             for kernel, times in (("fwd", bound_times), ("bwd", bwd_bound_times)):
                 t_bytes, t_ops = times(b, lq, lk, nbytes, HEADS, d)
                 t_ops *= BF16_FLOPS_PER_S / flops
@@ -4888,6 +4901,78 @@ def cli_widths_phase(device):
                 calls=[row for p in ("path_a", "path_b") for row in out[p]["calls"].values()])
 
 
+# Rows 1-2 at key counts the fp32 kernels once refused (whole K and V in a
+# block): (name, B, Lq, Lk). Vision rows over a long text K/V (above the
+# 717 keys the bf16 route was once capped at) and a square 1024.
+LONG_KEY_SHAPES = [("vision_text_1100", 2, 99, 1100), ("square_1024", 2, 1024, 1024)]
+
+
+def long_keys_phase(device):
+    """Rows 1-2 at LONG_KEY_SHAPES (12 heads of 64, no geometry), fp32 (the
+    CUDA-core kernels' streaming form) and bf16 (the tensor-core kernels),
+    dropout 0 and 0.1, against the plain versions at the kernel phases'
+    bars (forward 2e-5 / 2e-2; backward 2e-5 / 2^-7 of each result's
+    largest), each launch counted; then per shape and dtype the kernels'
+    times, the plain versions', SDPA's (no multiplier: it computes the same
+    function) and the bounds. ViLT's 418 x 418 in fp32 runs in the kernel
+    and kernel_bwd phases."""
+    import torch
+
+    from mkg_analogy_tpu_torch.kernels import attention as attn
+
+    rows = []
+    n = dict(samples=5, per_sample=3)
+    for name, b, lq, lk in LONG_KEY_SHAPES:
+        row = dict(shape=name, B=b, Lq=lq, Lk=lk, heads=HEADS, head_dim=HEAD_DIM)
+        for tag, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+            fp32 = dtype == torch.float32
+            for rate in (0.0, 0.1):
+                key = f"{tag}{'_dropout' if rate else ''}"
+                q, k, v, mask, kw = attention_inputs(lq, lk, None, dtype, device, seed=lk,
+                                                     batch=b)
+                kw = dict(kw, compute_dtype=dtype, dropout_rate=rate,
+                          deterministic=rate == 0.0, dropout_seed=31)
+                before = attn.LAUNCHES
+                got = attn.fused_attention(q, k, v, mask, HEADS, **kw)
+                want = attn.fused_attention_reference(q, k, v, mask, HEADS, **kw)
+                torch.cuda.synchronize()
+                err = (got.float() - want.float()).abs().max().item()
+                row[f"max_abs_err_{key}"] = err
+                bar = 2e-5 if fp32 else 2e-2
+                if attn.LAUNCHES != before + 1 or not err <= bar:
+                    raise AssertionError(f"long keys {name} {key}: kernel vs plain {err} > "
+                                         f"{bar} (launches {attn.LAUNCHES - before})")
+                g = seeded_randn(q.shape, lq, device, dtype)
+                row.update(bwd_errors(attn, f"long keys {name} {key}", key, q, k, v, mask, g,
+                                      kw, rate, 31, 2e-5 if fp32 else 2.0 ** -7))
+            q, k, v, mask, kw = attention_inputs(lq, lk, None, dtype, device, seed=7, batch=b)
+            g = seeded_randn(q.shape, 8, device, dtype)
+            resolved = resolve_geometry(attn, q, kw, 0.0, 0)
+            row[f"fwd_ms_{tag}"] = time_ms(
+                lambda: attn._launch_fwd(q, k, v, mask, HEADS, *resolved), **n)
+            row[f"bwd_ms_{tag}"] = time_ms(
+                lambda: attn._launch_bwd(q, k, v, mask, g, HEADS, *resolved), **n)
+            call = dict(compute_dtype=dtype)
+            row[f"fwd_plain_ms_{tag}"] = time_ms(
+                lambda: attn.fused_attention_reference(q, k, v, mask, HEADS, **call), **n)
+            row[f"bwd_plain_ms_{tag}"] = time_ms(
+                lambda: attn.fused_attention_bwd_reference(q, k, v, mask, g, HEADS, **call),
+                **n)
+            row[f"fwd_library_ms_{tag}"], row[f"bwd_library_ms_{tag}"] = sdpa_times(
+                q, k, v, g, mask, HEADS, HEAD_DIM, n)
+            flops = BF16_FLOPS_PER_S if dtype == torch.bfloat16 else FP32_FLOPS_PER_S
+            for kernel, times in (("fwd", bound_times), ("bwd", bwd_bound_times)):
+                t_bytes, t_ops = times(b, lq, lk, 4 if fp32 else 2)
+                t_ops *= BF16_FLOPS_PER_S / flops
+                row[f"{kernel}_bound_ms_{tag}"] = max(t_bytes, t_ops)
+                row[f"{kernel}_bound_by_{tag}"] = bound_by(t_bytes, t_ops)
+            del q, k, v, g, mask
+        rows.append(row)
+        emit(dict(phase="long_keys", **row))
+        torch.cuda.empty_cache()
+    return rows
+
+
 def width_entries(rows, launches):
     """The {"kernels": ...} entries of rows 1-5 at the head widths of
     HEAD_WIDTHS: per row its time, plain, library and bound at MiniLM's
@@ -4925,7 +5010,6 @@ def width_entries(rows, launches):
             launches=launches["a"][count] + sum(v[count] for v in launches["b"].values()),
             max_abs_err=max(r[k_ + t] for r in rows for k_ in keys
                             for t in ("bf16", "bf16_geometry_dropout")),
-            # (the fp32 backward from padded width 112 at fewer keys: bwd_fp32_keys)
             max_abs_err_fp32=max(r[k_ + t] for r in rows for k_ in keys
                                  for t in ("fp32", "fp32_geometry_dropout")),
             # on the calls of paths (a) and (b), with their own inputs
@@ -5081,6 +5165,7 @@ def main() -> int:
     cli_kge_phase()
     width_rows = head_widths_phase(device)
     width_launches = cli_widths_phase(device)
+    long_rows = long_keys_phase(device)
     region_d64 = {k: sum(r[k] - r[f"{k}_d128"] for r in region_launches.values())
                   for k in ("single_fwd", "single_bwd")}
     d128_rows = [r for r in region_rows if r["head_dim"] == 128]
@@ -5183,6 +5268,13 @@ def main() -> int:
         bound_ms=max(t_bytes, t_ops), bound_by=bound_by(t_bytes, t_ops),
         library_ms=None,  # no single PyTorch call applies the analogy multiplier
         shapes=rows, shapes_region=[r for r in region_rows if r["head_dim"] == 64],
+        # both dtypes at 99 x 1100 and 1024 x 1024 (fp32 at 418 in ``shapes``)
+        max_abs_err_long_keys=max(r[f"max_abs_err_bf16{d}"] for r in long_rows
+                                  for d in ("", "_dropout")),
+        max_abs_err_long_keys_fp32=max(r[f"max_abs_err_fp32{d}"] for r in long_rows
+                                       for d in ("", "_dropout")),
+        shapes_long_keys=[{k: v for k, v in r.items() if not k.startswith("bwd")}
+                          for r in long_rows],
     ), dict(
         name="fused_attention_bwd", route="cuda",
         source="mkg_analogy_tpu_torch/csrc/fused_attention_bwd_mma.cu",  # bf16, every main path
@@ -5201,6 +5293,12 @@ def main() -> int:
                              if "fp32" not in r
                              for t in ("dq", "dk", "dv") for d in ("", "_dropout")),
         max_abs_err_fp32_masked_rows=fp32_masked_row_err,
+        max_abs_err_long_keys=max(r[f"max_abs_err_{t}_bf16{d}"] for r in long_rows
+                                  for t in ("dq", "dk", "dv") for d in ("", "_dropout")),
+        max_abs_err_long_keys_fp32=max(r[f"max_abs_err_{t}_fp32{d}"] for r in long_rows
+                                       for t in ("dq", "dk", "dv") for d in ("", "_dropout")),
+        shapes_long_keys=[{k: v for k, v in r.items() if not k.startswith("fwd")}
+                          for r in long_rows],
         # per full-width train step at B=32: 12 text + 8 vision + 4 vision-text calls
         ms=per_call_set(bwd_rows, "kernel_ms", "launches_per_step"),
         earlier_ms=per_call_set(bwd_rows, "earlier_ms", "launches_per_step"),

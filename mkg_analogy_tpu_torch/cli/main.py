@@ -41,11 +41,13 @@ MKGformer and ViLT, flash for FLAVA, whose multimodal tower attends over
 394 + L tokens). The single-block kernels are two sets, picked by the
 dtype alone: in bf16 tensor-core kernels (``mma.sync`` products, keys
 streamed in chunks of 64), in fp32 CUDA-core kernels that hold a head's
-whole K and V in shared memory. They take up to 717 keys in bf16 (where the
-route's limit has always been) and 400 in fp32 (shared memory) and raise
-above, naming the flash kernels: ViLT's L + 290 tokens fit in bf16 only.
-Both kernel sets take head_dim 64 and, for ViLBERT's 1024-wide visual
-stream, 128, and raise at any other width. ``--fused_attention 0`` runs
+whole K and V in shared memory where they fit a block and stream them in
+chunks of 32 where they do not. Both take any key count, as JAX's kernel
+does (ViLT's L + 290 tokens in either dtype). Both kernel sets take every
+head_dim from 1 to 128 (64 and, for ViLBERT's 1024-wide visual stream, 128
+from the nine libraries, any other width from the libraries of its padded
+width) and raise above.
+``--fused_attention 0`` runs
 the plain PyTorch attention, except that a sequence of 512 or more takes
 the flash kernels, as in JAX. ``--export_torch <file>`` writes the fit's
 best MKGformerKGC weights as a reference-layout checkpoint

@@ -97,4 +97,98 @@ __device__ __forceinline__ void store_pair(T* row, int col, int d, float a, floa
   if (col + 1 < d) from_float(row + col + 1, b);
 }
 
+// Stage `rows` rows of a head (d columns, `ld` elements apart) from src
+// into shared-memory rows of D, `stride` apart, zero from d on, with every
+// thread of the block: 16 bytes a copy in a library of 64 and 128, element
+// by element in one of a padded width (the CUDA-core kernels' streaming
+// forms, whose blocks are not those of their resident forms).
+template <int D, int stride, typename T>
+__device__ __forceinline__ void stage_block(T* dst, const T* src, int rows, int ld, int d) {
+  if constexpr (kRagged) {
+    stage_rows<D>(dst, stride, src, rows, ld, d);
+  } else {
+    constexpr int kVec = 16 / sizeof(T), kVecsPerRow = D / kVec;
+    for (int i = threadIdx.x; i < rows * kVecsPerRow; i += blockDim.x) {
+      const int j = i / kVecsPerRow, c = (i % kVecsPerRow) * kVec;
+      *reinterpret_cast<uint4*>(dst + j * stride + c) =
+          *reinterpret_cast<const uint4*>(src + size_t(j) * ld + c);
+    }
+  }
+}
+
+// 16 bytes of a staged row as floats (4 fp32 or 8 bf16 values).
+__device__ __forceinline__ void load16(const float* p, float* f) {
+  const float4 x = *reinterpret_cast<const float4*>(p);
+  f[0] = x.x; f[1] = x.y; f[2] = x.z; f[3] = x.w;
+}
+
+__device__ __forceinline__ void load16(const __nv_bfloat16* p, float* f) {
+  const uint4 x = *reinterpret_cast<const uint4*>(p);
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&x);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 t = __bfloat1622float2(h[i]);
+    f[2 * i] = t.x;
+    f[2 * i + 1] = t.y;
+  }
+}
+
+// A staged head row of D columns (shared memory, 16-byte aligned) that is
+// one operand of many dot products in the CUDA-core kernels: a warp's
+// query, key, value or cotangent row against the rows its lanes take. Up
+// to D = 128 its D floats are held in registers, as the kernels held them
+// before other widths came; above, where D registers a thread would pass
+// the 255 it may hold, it is read again from shared memory at every product
+// (a broadcast: every lane reads the same row). Either way a product is
+// fmaf(row[c], other[c], acc) over c in order, so the two forms give the
+// same sums bit for bit. (The single-block kernels' streaming forms, whose
+// blocks of 512 threads leave a thread 128 registers, never hold it.)
+template <int D, typename T, bool kHeld = (D <= 128)>
+struct HeadRow {
+  static constexpr int kVec = 16 / sizeof(T);
+  float f[kHeld ? D : 1];
+  const T* row;
+
+  __device__ __forceinline__ explicit HeadRow(const T* staged) : row(staged) {
+    if constexpr (kHeld) {
+#pragma unroll
+      for (int c = 0; c < D; c += kVec) load16(staged + c, f + c);
+    }
+  }
+
+  // the fp32 dot product with another staged row of D columns
+  __device__ __forceinline__ float dot(const T* other) const {
+    float acc = 0.0f;
+#pragma unroll
+    for (int c = 0; c < D; c += kVec) {
+      float bf[kVec];
+      load16(other + c, bf);
+      if constexpr (kHeld) {
+#pragma unroll
+        for (int i = 0; i < kVec; ++i) acc = fmaf(f[c + i], bf[i], acc);
+      } else {
+        float af[kVec];
+        load16(row + c, af);
+#pragma unroll
+        for (int i = 0; i < kVec; ++i) acc = fmaf(af[i], bf[i], acc);
+      }
+    }
+    return acc;
+  }
+};
+
+// The shared memory a block may opt into on the current device (227 KB on
+// an H100), read once: the CUDA-core single-block kernels hold a head's
+// whole K and V (or Q and g) where they fit in it and stream them where
+// they do not.
+inline int smem_optin() {
+  static const int bytes = [] {
+    int dev = 0, v = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&v, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    return v;
+  }();
+  return bytes;
+}
+
 }  // namespace attention_width

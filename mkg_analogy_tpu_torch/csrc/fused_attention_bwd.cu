@@ -56,10 +56,29 @@
 // Shared memory: pass 1 holds K and V for Lk keys plus three fp32 rows per
 // warp (146 KB at Lk = 227 in fp32, under the H100's 227 KB); pass 2 holds Q
 // and g for Lq rows plus two fp32 rows per warp (80 KB at Lq = 128 in fp32).
-// The wrapper checks mkg_fused_attention_bwd_smem against the device and
-// raises above it. At D = 128 the rows double (201 keys and 205 query rows
-// fit in fp32), and a lane accumulates four result columns, 2l, 2l + 1 of
-// each 64-column half.
+// At D = 128 the rows double (201 keys and 205 query rows fit in fp32), and
+// a lane accumulates four result columns, 2l, 2l + 1 of each 64-column
+// half.
+//
+// Each pass whose rows do not fit a block takes a streaming form beside it, whose shared memory depends on neither length:
+// the JAX kernel stages a head's whole K/V of any length (attention.py:
+// _specs), so the port takes every Lq and Lk too. Blocks of 16 warps take
+// the same 64 query rows (dq) or keys (dk/dv), 4 a warp, and stage those
+// rows once; the other side comes in chunks of 32, one a lane, staged by
+// the whole block:
+//   1. dq pass: four sweeps over the keys, each recomputing the scores with
+//      the same instructions: the row max; the sum of exp(s - max); P, dP
+//      and delta = rowsum(dP * P); then dS, the dw partials and dS_raw, and
+//      dq over the chunk;
+//   2. dk/dv pass: one sweep over the query rows with their (m, l, delta).
+// A lane takes keys (query rows) lane, lane + 32, ... in order and each
+// result runs over the other side in order, as in the resident forms, so
+// the two give the same dq, dk, dv and row statistics bit for bit; only the
+// dw partials are summed in another order. Either form fits any length in
+// 227 KB (59 KB and 67 KB a block at D = 64 in fp32).
+// mkg_fused_attention_bwd_smem reports the larger of the forms the two
+// passes take; the wrapper holds it against the device's limit all the
+// same.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -71,6 +90,7 @@
 namespace {
 
 using attention_width::kRagged;
+using attention_width::stage_block;
 
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
@@ -246,6 +266,41 @@ __device__ __forceinline__ void stage(T* dst, const T* x, int b, int rows, int h
         *reinterpret_cast<const uint4*>(src + size_t(j) * hd + c);
   }
 }
+
+// Whether a pass takes its resident form: its rows of the other side (Lk
+// keys for dq, Lq query rows for dk/dv) fit a block, and a row of D floats
+// fits a thread's registers.
+template <typename T, int D>
+bool dq_resident(int lk) {
+  return D <= 128 && Layout<T, D>::dq_bytes(lk) <= size_t(attention_width::smem_optin());
+}
+template <typename T, int D>
+bool dkv_resident(int lq) {
+  return D <= 128 && Layout<T, D>::dkv_bytes(lq) <= size_t(attention_width::smem_optin());
+}
+
+// The streaming forms: 16 warps of 4 rows (query rows or keys), the other
+// side in chunks of 32.
+constexpr int kStreamWarps = 16;
+constexpr int kStreamThreads = kStreamWarps * 32;
+constexpr int kStreamRows = kRowsPerBlock / kStreamWarps;
+constexpr int kSideChunk = 32;
+static_assert(kKeysPerBlock == kRowsPerBlock, "both streaming passes take 64 rows a block");
+
+template <typename T, int D>
+struct StreamLayout {
+  static constexpr int kStride = Layout<T, D>::kStride;
+  // dq: Q and g of the block's rows, K and V of a key chunk, its biases,
+  // a row of dS_raw for each (warp, query row)
+  static constexpr size_t dq_bytes =
+      size_t(2 * kRowsPerBlock + 2 * kSideChunk) * kStride * sizeof(T) +
+      size_t(kSideChunk) * sizeof(float) * (1 + kStreamWarps * kStreamRows);
+  // dk/dv: K and V of the block's keys, Q and g of a row chunk, its (m, l,
+  // delta), rows of dS_raw and P_cast for each (warp, key)
+  static constexpr size_t dkv_bytes =
+      size_t(2 * kKeysPerBlock + 2 * kSideChunk) * kStride * sizeof(T) +
+      size_t(kSideChunk) * sizeof(float) * (3 + 2 * kStreamWarps * kStreamRows);
+};
 
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
@@ -510,6 +565,320 @@ attention_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// dq pass at any Lk and any D up to 256: four sweeps over the keys in
+// chunks of 32.
+template <typename T, int D>
+__global__ void __launch_bounds__(kStreamThreads)
+attention_bwd_dq_streaming_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                                  const T* __restrict__ v, const T* __restrict__ g,
+                                  const float* __restrict__ mask,
+                                  const int* __restrict__ boundary,
+                                  const float* __restrict__ w, T* __restrict__ dq,
+                                  float* __restrict__ stats, float* __restrict__ dw_part,
+                                  int lq, int lk, int num_heads, float scale,
+                                  int has_geometry, int row_start, int text_len, int offset,
+                                  int dropout, uint32_t threshold, float inv_keep,
+                                  uint32_t seed, uint32_t cell_stride, int head_dim) {
+  constexpr int kStride = Layout<T, D>::kStride;
+  constexpr int kPairs = (D + 63) / 64;  // column pairs 2 lane + 64 c a lane owns
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ float dw_s[kStreamWarps][2];
+  T* qs = reinterpret_cast<T*>(smem_raw);
+  T* gs = qs + kRowsPerBlock * kStride;
+  T* ks = gs + kRowsPerBlock * kStride;
+  T* vs = ks + kSideChunk * kStride;
+  float* bias_s = reinterpret_cast<float*>(vs + kSideChunk * kStride);
+
+  const int tile = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int d = kRagged ? head_dim : D;
+  const int hd = num_heads * d;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  float* ds_s = bias_s + kSideChunk * (1 + kStreamRows * warp);  // kStreamRows rows of 32
+  const int row0 = tile * kRowsPerBlock;
+  const int n_rows = min(kRowsPerBlock, lq - row0);
+  const size_t tile_off = (size_t(b) * lq + row0) * hd + h * d;
+  stage_block<D, kStride>(qs, q + tile_off, n_rows, hd, d);
+  stage_block<D, kStride>(gs, g + tile_off, n_rows, hd, d);
+  // (the first chunk's barrier publishes qs and gs)
+
+  const Geometry geo{has_geometry, row_start, text_len,
+                     has_geometry ? boundary[b] + offset : 0,
+                     has_geometry ? w[0] : 1.0f, has_geometry ? w[1] : 1.0f};
+  const uint32_t seed_mix =
+      (seed + uint32_t(b) * cell_stride + uint32_t(h)) * 0x9E3779B9u;
+  const T* kb = k + size_t(b) * lk * hd + h * d;
+  const T* vb = v + size_t(b) * lk * hd + h * d;
+
+  // this warp's rows: local row il = warp + kStreamWarps * t
+  float mx[kStreamRows], sum[kStreamRows], delta[kStreamRows];
+  float2 acc[kStreamRows][kPairs];
+#pragma unroll
+  for (int t = 0; t < kStreamRows; ++t) {
+    mx[t] = -FLT_MAX;
+    sum[t] = 0.0f;
+    delta[t] = 0.0f;
+#pragma unroll
+    for (int c = 0; c < kPairs; ++c) acc[t][c] = make_float2(0.0f, 0.0f);
+  }
+  float dw0 = 0.0f, dw1 = 0.0f;  // this lane's partials
+
+  // sweep 0: max; 1: sum of exp(s - max); 2: delta; 3: dS_raw and dq
+  for (int sweep = 0; sweep < 4; ++sweep) {
+    for (int j0 = 0; j0 < lk; j0 += kSideChunk) {
+      const int n = min(kSideChunk, lk - j0);
+      __syncthreads();  // the chunk buffers are free
+      stage_block<D, kStride>(ks, kb + size_t(j0) * hd, n, hd, d);
+      if (sweep >= 2) stage_block<D, kStride>(vs, vb + size_t(j0) * hd, n, hd, d);
+      if (threadIdx.x < n) {
+        bias_s[threadIdx.x] = (1.0f - mask[size_t(b) * lk + j0 + threadIdx.x]) * kNegBias;
+      }
+      __syncthreads();
+      const int j = j0 + lane;  // this lane's key
+#pragma unroll
+      for (int t = 0; t < kStreamRows; ++t) {
+        const int il = warp + kStreamWarps * t;
+        if (il >= n_rows) continue;
+        const int r = row0 + il;
+        const RowGeometry rg = geo.row(r);
+        const bool region = rg.in_scope && geo.col_is_answer(j);
+        float dsr = 0.0f;
+        if (lane < n) {
+          const attention_width::HeadRow<D, T, false> qrow(qs + il * kStride);
+          const float acc_s = qrow.dot(ks + lane * kStride);
+          const float s_raw = __fmul_rn(acc_s, scale);
+          const float s = score(acc_s, s_raw, scale, has_geometry, region, rg.w, bias_s[lane]);
+          if (sweep == 0) {
+            mx[t] = fmaxf(mx[t], s);
+          } else if (sweep == 1) {
+            sum[t] += expf(s - mx[t]);
+          } else {
+            const float p = expf(s - mx[t]) / sum[t];
+            const attention_width::HeadRow<D, T, false> grow(gs + il * kStride);
+            float dp = grow.dot(vs + lane * kStride);
+            if (dropout) {
+              dp = dropout_keep(uint32_t(r) * uint32_t(lk) + uint32_t(j), seed_mix, threshold)
+                       ? __fmul_rn(dp, inv_keep)
+                       : 0.0f;
+            }
+            if (sweep == 2) {
+              delta[t] = fmaf(dp, p, delta[t]);
+            } else {
+              float ds = p * (dp - delta[t]);
+              if (region) {
+                if (rg.is_example) {
+                  dw0 = fmaf(ds, s_raw, dw0);
+                } else {
+                  dw1 = fmaf(ds, s_raw, dw1);
+                }
+                ds = ds * rg.w;
+              }
+              dsr = round_to(ds * scale, q);
+            }
+          }
+        }
+        if (sweep == 3) {
+          float* drow = ds_s + kSideChunk * t;
+          drow[lane] = dsr;
+          __syncwarp();
+#pragma unroll
+          for (int c = 0; c < kPairs; ++c) {
+            const int col = 64 * c + 2 * lane;
+            if (kRagged && col >= d) continue;  // beyond the head's columns
+            float2 x = acc[t][c];
+            const T* kcol = ks + col;
+#pragma unroll 4
+            for (int jj = 0; jj < n; ++jj) {
+              const float dj = drow[jj];
+              const float2 kk = load_pair(kcol + jj * kStride);
+              x.x = fmaf(dj, kk.x, x.x);
+              x.y = fmaf(dj, kk.y, x.y);
+            }
+            acc[t][c] = x;
+          }
+          __syncwarp();  // drow is rewritten for the next chunk
+        }
+      }
+    }
+#pragma unroll
+    for (int t = 0; t < kStreamRows; ++t) {
+      if (sweep == 0) mx[t] = warp_max(mx[t]);
+      if (sweep == 1) sum[t] = warp_sum(sum[t]);
+      if (sweep == 2) delta[t] = warp_sum(delta[t]);
+    }
+  }
+
+#pragma unroll
+  for (int t = 0; t < kStreamRows; ++t) {
+    const int il = warp + kStreamWarps * t;
+    if (il >= n_rows) continue;
+    const int r = row0 + il;
+    const size_t row_off = (size_t(b) * lq + r) * hd + h * d;
+#pragma unroll
+    for (int c = 0; c < kPairs; ++c) store_cols(dq + row_off, 64 * c + 2 * lane, d, acc[t][c].x,
+                                                acc[t][c].y);
+    if (lane == 0) {
+      float* st = stats + ((size_t(b) * num_heads + h) * lq + r) * 3;
+      st[0] = mx[t];
+      st[1] = sum[t];
+      st[2] = delta[t];
+    }
+  }
+  dw0 = warp_sum(dw0);
+  dw1 = warp_sum(dw1);
+  if (lane == 0) {
+    dw_s[warp][0] = dw0;
+    dw_s[warp][1] = dw1;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float t0 = 0.0f, t1 = 0.0f;
+    for (int i = 0; i < kStreamWarps; ++i) {
+      t0 += dw_s[i][0];
+      t1 += dw_s[i][1];
+    }
+    float* out = dw_part + ((size_t(b) * num_heads + h) * gridDim.x + tile) * 2;
+    out[0] = t0;
+    out[1] = t1;
+  }
+}
+
+// dk/dv pass at any Lq and any D up to 256: one sweep over the query rows
+// in chunks of 32.
+template <typename T, int D>
+__global__ void __launch_bounds__(kStreamThreads)
+attention_bwd_dkv_streaming_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                                   const T* __restrict__ v, const T* __restrict__ g,
+                                   const float* __restrict__ mask,
+                                   const int* __restrict__ boundary,
+                                   const float* __restrict__ w,
+                                   const float* __restrict__ stats, T* __restrict__ dk,
+                                   T* __restrict__ dv, int lq, int lk, int num_heads,
+                                   float scale, int has_geometry, int row_start,
+                                   int text_len, int offset, int dropout, uint32_t threshold,
+                                   float inv_keep, uint32_t seed, uint32_t cell_stride,
+                                   int head_dim) {
+  constexpr int kStride = Layout<T, D>::kStride;
+  constexpr int kPairs = (D + 63) / 64;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* ks = reinterpret_cast<T*>(smem_raw);
+  T* vs = ks + kKeysPerBlock * kStride;
+  T* qs = vs + kKeysPerBlock * kStride;
+  T* gs = qs + kSideChunk * kStride;
+  float* m_s = reinterpret_cast<float*>(gs + kSideChunk * kStride);
+  float* l_s = m_s + kSideChunk;
+  float* delta_s = l_s + kSideChunk;
+
+  const int tile = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int d = kRagged ? head_dim : D;
+  const int hd = num_heads * d;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  float* ds_s = delta_s + kSideChunk * (1 + 2 * kStreamRows * warp);  // dS_raw rows
+  float* pc_s = ds_s + kSideChunk * kStreamRows;                         // P_cast rows
+  const int key0 = tile * kKeysPerBlock;
+  const int n_keys = min(kKeysPerBlock, lk - key0);
+  const size_t tile_off = (size_t(b) * lk + key0) * hd + h * d;
+  stage_block<D, kStride>(ks, k + tile_off, n_keys, hd, d);
+  stage_block<D, kStride>(vs, v + tile_off, n_keys, hd, d);
+
+  const Geometry geo{has_geometry, row_start, text_len,
+                     has_geometry ? boundary[b] + offset : 0,
+                     has_geometry ? w[0] : 1.0f, has_geometry ? w[1] : 1.0f};
+  const uint32_t seed_mix =
+      (seed + uint32_t(b) * cell_stride + uint32_t(h)) * 0x9E3779B9u;
+  const T* qb = q + size_t(b) * lq * hd + h * d;
+  const T* gb = g + size_t(b) * lq * hd + h * d;
+  const float* st = stats + (size_t(b) * num_heads + h) * lq * 3;
+
+  // this warp's keys: local key jl = warp + kStreamWarps * t
+  float2 kacc[kStreamRows][kPairs], vacc[kStreamRows][kPairs];
+#pragma unroll
+  for (int t = 0; t < kStreamRows; ++t) {
+#pragma unroll
+    for (int c = 0; c < kPairs; ++c) kacc[t][c] = vacc[t][c] = make_float2(0.0f, 0.0f);
+  }
+
+  for (int i0 = 0; i0 < lq; i0 += kSideChunk) {
+    const int n = min(kSideChunk, lq - i0);
+    __syncthreads();  // the chunk buffers are free (and ks / vs published)
+    stage_block<D, kStride>(qs, qb + size_t(i0) * hd, n, hd, d);
+    stage_block<D, kStride>(gs, gb + size_t(i0) * hd, n, hd, d);
+    if (threadIdx.x < n) {
+      m_s[threadIdx.x] = st[3 * (i0 + threadIdx.x)];
+      l_s[threadIdx.x] = st[3 * (i0 + threadIdx.x) + 1];
+      delta_s[threadIdx.x] = st[3 * (i0 + threadIdx.x) + 2];
+    }
+    __syncthreads();
+    const int i = i0 + lane;  // this lane's query row
+    const RowGeometry rg = geo.row(i);
+#pragma unroll
+    for (int t = 0; t < kStreamRows; ++t) {
+      const int jl = warp + kStreamWarps * t;
+      if (jl >= n_keys) continue;
+      const int j = key0 + jl;
+      float dsr = 0.0f, pc = 0.0f;
+      if (lane < n) {
+        const float bias = (1.0f - mask[size_t(b) * lk + j]) * kNegBias;
+        const bool region = rg.in_scope && geo.col_is_answer(j);
+        const attention_width::HeadRow<D, T, false> krow(ks + jl * kStride);
+        const float acc_s = krow.dot(qs + lane * kStride);
+        const float s = score(acc_s, __fmul_rn(acc_s, scale), scale, has_geometry, region, rg.w,
+                              bias);
+        const float p = expf(s - m_s[lane]) / l_s[lane];
+        float p_drop = p;
+        const bool keep =
+            !dropout ||
+            dropout_keep(uint32_t(i) * uint32_t(lk) + uint32_t(j), seed_mix, threshold);
+        if (dropout) p_drop = keep ? __fmul_rn(p, inv_keep) : 0.0f;
+        const attention_width::HeadRow<D, T, false> vrow(vs + jl * kStride);
+        float dp = vrow.dot(gs + lane * kStride);
+        if (dropout) dp = keep ? __fmul_rn(dp, inv_keep) : 0.0f;
+        float ds = p * (dp - delta_s[lane]);
+        if (region) ds = ds * rg.w;
+        dsr = round_to(ds * scale, q);
+        pc = round_to(p_drop, q);
+      }
+      float* drow = ds_s + kSideChunk * t;
+      float* prow = pc_s + kSideChunk * t;
+      drow[lane] = dsr;
+      prow[lane] = pc;
+      __syncwarp();
+#pragma unroll
+      for (int c = 0; c < kPairs; ++c) {
+        const int col = 64 * c + 2 * lane;
+        if (kRagged && col >= d) continue;  // beyond the head's columns
+        float2 x = kacc[t][c], y = vacc[t][c];
+        const T* qcol = qs + col;
+        const T* gcol = gs + col;
+#pragma unroll 4
+        for (int ii = 0; ii < n; ++ii) {
+          const float di = drow[ii], pi = prow[ii];
+          const float2 qq = load_pair(qcol + ii * kStride);
+          const float2 gg = load_pair(gcol + ii * kStride);
+          x.x = fmaf(di, qq.x, x.x);
+          x.y = fmaf(di, qq.y, x.y);
+          y.x = fmaf(pi, gg.x, y.x);
+          y.y = fmaf(pi, gg.y, y.y);
+        }
+        kacc[t][c] = x;
+        vacc[t][c] = y;
+      }
+      __syncwarp();  // the rows are rewritten for the next key
+    }
+  }
+
+#pragma unroll
+  for (int t = 0; t < kStreamRows; ++t) {
+    const int jl = warp + kStreamWarps * t;
+    if (jl >= n_keys) continue;
+    const size_t col_off = tile_off + size_t(jl) * hd;
+#pragma unroll
+    for (int c = 0; c < kPairs; ++c) {
+      store_cols(dk + col_off, 64 * c + 2 * lane, d, kacc[t][c].x, kacc[t][c].y);
+      store_cols(dv + col_off, 64 * c + 2 * lane, d, vacc[t][c].x, vacc[t][c].y);
+    }
+  }
+}
+
 template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, const void* g, const void* mask,
            const void* boundary, const void* w, void* dq, void* dk, void* dv,
@@ -517,14 +886,21 @@ int launch(const void* q, const void* k, const void* v, const void* g, const voi
            float scale, int has_geometry, int row_start, int text_len, int offset,
            int dropout, uint32_t threshold, float inv_keep, uint32_t seed,
            uint32_t cell_stride, int head_dim, cudaStream_t stream) {
-  const size_t smem_dq = Layout<T, D>::dq_bytes(lk);
-  const size_t smem_dkv = Layout<T, D>::dkv_bytes(lq);
-  cudaError_t err = cudaFuncSetAttribute(attention_bwd_dq_kernel<T, D>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+  const bool dq_whole = dq_resident<T, D>(lk), dkv_whole = dkv_resident<T, D>(lq);
+  const size_t smem_dq = dq_whole ? Layout<T, D>::dq_bytes(lk) : StreamLayout<T, D>::dq_bytes;
+  const size_t smem_dkv =
+      dkv_whole ? Layout<T, D>::dkv_bytes(lq) : StreamLayout<T, D>::dkv_bytes;
+  auto dq_kernel = attention_bwd_dq_streaming_kernel<T, D>;
+  auto dkv_kernel = attention_bwd_dkv_streaming_kernel<T, D>;
+  if constexpr (D <= 128) {
+    if (dq_whole) dq_kernel = attention_bwd_dq_kernel<T, D>;
+    if (dkv_whole) dkv_kernel = attention_bwd_dkv_kernel<T, D>;
+  }
+  cudaError_t err = cudaFuncSetAttribute(dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          int(smem_dq));
   if (err != cudaSuccess) return int(err);
-  err = cudaFuncSetAttribute(attention_bwd_dkv_kernel<T, D>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem_dkv));
+  err = cudaFuncSetAttribute(dkv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             int(smem_dkv));
   if (err != cudaSuccess) return int(err);
   const T* qt = static_cast<const T*>(q);
   const T* kt = static_cast<const T*>(k);
@@ -534,7 +910,7 @@ int launch(const void* q, const void* k, const void* v, const void* g, const voi
   const int* bnd = static_cast<const int*>(boundary);
   const float* wf = static_cast<const float*>(w);
   const dim3 grid_dq((lq + kRowsPerBlock - 1) / kRowsPerBlock, num_heads, batch);
-  attention_bwd_dq_kernel<T, D><<<grid_dq, kThreads, smem_dq, stream>>>(
+  dq_kernel<<<grid_dq, dq_whole ? kThreads : kStreamThreads, smem_dq, stream>>>(
       qt, kt, vt, gt, maskf, bnd, wf, static_cast<T*>(dq), static_cast<float*>(stats),
       static_cast<float*>(dw_part), lq, lk, num_heads, scale, has_geometry, row_start,
       text_len, offset, dropout, threshold, inv_keep, seed,
@@ -542,7 +918,7 @@ int launch(const void* q, const void* k, const void* v, const void* g, const voi
   err = cudaGetLastError();
   if (err != cudaSuccess) return int(err);
   const dim3 grid_dkv((lk + kKeysPerBlock - 1) / kKeysPerBlock, num_heads, batch);
-  attention_bwd_dkv_kernel<T, D><<<grid_dkv, kThreads, smem_dkv, stream>>>(
+  dkv_kernel<<<grid_dkv, dkv_whole ? kThreads : kStreamThreads, smem_dkv, stream>>>(
       qt, kt, vt, gt, maskf, bnd, wf, static_cast<const float*>(stats),
       static_cast<T*>(dk), static_cast<T*>(dv), lq, lk, num_heads, scale, has_geometry,
       row_start, text_len, offset, dropout, threshold, inv_keep, seed,
@@ -552,7 +928,10 @@ int launch(const void* q, const void* k, const void* v, const void* g, const voi
 
 template <typename T, int D>
 size_t smem_bytes(int lq, int lk) {
-  const size_t a = Layout<T, D>::dq_bytes(lk), b = Layout<T, D>::dkv_bytes(lq);
+  const size_t a = dq_resident<T, D>(lk) ? Layout<T, D>::dq_bytes(lk)
+                                         : StreamLayout<T, D>::dq_bytes;
+  const size_t b = dkv_resident<T, D>(lq) ? Layout<T, D>::dkv_bytes(lq)
+                                          : StreamLayout<T, D>::dkv_bytes;
   return a > b ? a : b;
 }
 
@@ -564,9 +943,10 @@ const char* mkg_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// Dynamic shared memory of the larger of the two passes' blocks (the
-// wrapper holds it against the device's opt-in limit before launching); 0
-// for a head width the library does not take.
+// Dynamic shared memory of the larger of the two passes' blocks, in the
+// forms a call of Lq query rows and Lk keys takes (the wrapper holds it
+// against the device's opt-in limit before launching); 0 for a head width
+// the library does not take.
 size_t mkg_fused_attention_bwd_smem(int lq, int lk, int is_bf16, int head_dim) {
   return attention_width::with_width(head_dim, size_t(0), [&](auto width) {
     constexpr int D = decltype(width)::value;

@@ -48,9 +48,23 @@
 //
 // Whole K/V slices in shared memory bound Lk: with the H100's 227 KB per
 // block, up to 717 keys in bf16 and 400 in fp32 at D = 64, 400 and 212 at
-// D = 128 (the wrapper checks mkg_fused_attention_fwd_smem against the
-// device and raises above it). At D = 128 a lane accumulates four output
-// columns, 2l, 2l + 1 of each 64-column half.
+// D = 128. At D = 128 a lane accumulates four output columns, 2l, 2l + 1
+// of each 64-column half.
+//
+// Longer keys take the streaming form beside it
+// (fused_attention_fwd_streaming_kernel), whose shared memory does not
+// depend on Lk: the JAX kernel stages a head's whole K/V of any length
+// (attention.py:_specs), so the port takes every Lk too (ViLT's 418 keys in
+// fp32 at L = 128). A block of 16 warps takes the same 64 query rows, 4 a
+// warp, and stages its Q tile once; the keys come in chunks of 32, one a
+// lane, staged by the whole block, in three sweeps that recompute each
+// score with the same instructions: the rows' max over every key, then
+// their sums of exp(s - max), then p = exp(s - max) / sum, dropped and
+// rounded, and P V. A lane sums keys lane, lane + 32, ... in order and a
+// row's P V runs over the keys in order, as the resident form does, so the
+// two give the same numbers bit for bit (42 KB a block at D = 64 in fp32).
+// mkg_fused_attention_fwd_smem reports the form a call takes; the
+// wrapper holds it against the device's limit all the same.
 //
 // The score is rounded as the plain version rounds it
 // (kernels/attention.py:_score): fmaf(acc, scale, bias) without a geometry,
@@ -67,6 +81,7 @@
 namespace {
 
 using attention_width::kRagged;
+using attention_width::stage_block;
 
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
@@ -147,6 +162,29 @@ struct Layout {
     const size_t lk4 = (lk + 3) & ~3;
     return 2 * size_t(lk) * kStride * sizeof(T) + lk4 * sizeof(float) * (1 + kWarps);
   }
+};
+
+// Whether a call of Lk keys takes the resident form: the head's whole K
+// and V fit a block, and its query row fits a thread's registers.
+template <typename T, int D>
+bool resident(int lk) {
+  return D <= 128 && Layout<T, D>::smem_bytes(lk) <= size_t(attention_width::smem_optin());
+}
+
+// The streaming form: 16 warps of 4 query rows, keys in chunks of 32.
+constexpr int kStreamWarps = 16;
+constexpr int kStreamThreads = kStreamWarps * 32;
+constexpr int kStreamRows = kRowsPerBlock / kStreamWarps;  // query rows a warp
+constexpr int kKeyChunk = 32;                              // keys a chunk, one a lane
+
+template <typename T, int D>
+struct StreamLayout {
+  static constexpr int kStride = Layout<T, D>::kStride;
+  // the Q tile, one chunk of K and of V, the chunk's biases, and a row of a
+  // chunk's probabilities for each (warp, query row)
+  static constexpr size_t bytes =
+      size_t(kRowsPerBlock + 2 * kKeyChunk) * kStride * sizeof(T) +
+      size_t(kKeyChunk) * sizeof(float) * (1 + kStreamWarps * kStreamRows);
 };
 
 template <typename T, int D>
@@ -281,6 +319,149 @@ fused_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// Any Lk and any D up to 256: three sweeps over the keys in chunks of 32.
+template <typename T, int D>
+__global__ void __launch_bounds__(kStreamThreads)
+fused_attention_fwd_streaming_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                                     const T* __restrict__ v, const float* __restrict__ mask,
+                                     const int* __restrict__ boundary,
+                                     const float* __restrict__ w, T* __restrict__ out,
+                                     int lq, int lk, int num_heads, float scale,
+                                     int has_geometry, int row_start, int text_len,
+                                     int offset, int dropout, uint32_t threshold,
+                                     float keep_div, uint32_t seed, uint32_t cell_stride,
+                                     int head_dim) {
+  constexpr int kStride = Layout<T, D>::kStride;
+  constexpr int kPairs = (D + 63) / 64;  // column pairs 2 lane + 64 c a lane owns
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* qs = reinterpret_cast<T*>(smem_raw);
+  T* ks = qs + kRowsPerBlock * kStride;
+  T* vs = ks + kKeyChunk * kStride;
+  float* bias_s = reinterpret_cast<float*>(vs + kKeyChunk * kStride);
+
+  const int tile = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int d = kRagged ? head_dim : D;
+  const int hd = num_heads * d;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  float* p_s = bias_s + kKeyChunk * (1 + kStreamRows * warp);  // kStreamRows rows of 32
+  const int row0 = tile * kRowsPerBlock;
+  const int n_rows = min(kRowsPerBlock, lq - row0);
+  stage_block<D, kStride>(qs, q + (size_t(b) * lq + row0) * hd + h * d, n_rows, hd, d);
+  // (the first chunk's barrier publishes qs)
+
+  const int bnd = has_geometry ? boundary[b] + offset : 0;
+  const float w0 = has_geometry ? w[0] : 1.0f;
+  const float w1 = has_geometry ? w[1] : 1.0f;
+  const uint32_t seed_mix =
+      (seed + uint32_t(b) * cell_stride + uint32_t(h)) * 0x9E3779B9u;
+  const T* kb = k + size_t(b) * lk * hd + h * d;
+  const T* vb = v + size_t(b) * lk * hd + h * d;
+
+  // this warp's rows: local row il = warp + kStreamWarps * t
+  float mx[kStreamRows], sum[kStreamRows];
+  float2 acc[kStreamRows][kPairs];
+#pragma unroll
+  for (int t = 0; t < kStreamRows; ++t) {
+    mx[t] = -FLT_MAX;
+    sum[t] = 0.0f;
+#pragma unroll
+    for (int c = 0; c < kPairs; ++c) acc[t][c] = make_float2(0.0f, 0.0f);
+  }
+
+  // sweep 0: each row's max; 1: its sum of exp(s - max); 2: p, P V
+  for (int sweep = 0; sweep < 3; ++sweep) {
+    for (int j0 = 0; j0 < lk; j0 += kKeyChunk) {
+      const int n = min(kKeyChunk, lk - j0);
+      __syncthreads();  // the chunk buffers are free
+      stage_block<D, kStride>(ks, kb + size_t(j0) * hd, n, hd, d);
+      if (sweep == 2) stage_block<D, kStride>(vs, vb + size_t(j0) * hd, n, hd, d);
+      if (threadIdx.x < n) {
+        bias_s[threadIdx.x] = (1.0f - mask[size_t(b) * lk + j0 + threadIdx.x]) * kNegBias;
+      }
+      __syncthreads();
+      const int j = j0 + lane;  // this lane's key
+#pragma unroll
+      for (int t = 0; t < kStreamRows; ++t) {
+        const int il = warp + kStreamWarps * t;
+        if (il >= n_rows) continue;
+        const int r = row0 + il;
+        float s = 0.0f;
+        if (lane < n) {
+          // the row half of the analogy geometry, as the resident form has it
+          bool row_in_scope = false;
+          float row_w = 1.0f;
+          if (has_geometry) {
+            const bool row_is_example = r >= row_start && r < bnd;
+            const bool row_is_answer = r >= bnd;
+            row_in_scope = (row_is_example || row_is_answer) && r < text_len;
+            row_w = row_is_example ? w0 : w1;
+          }
+          const attention_width::HeadRow<D, T, false> qrow(qs + il * kStride);
+          const bool region = row_in_scope && j >= bnd && j < text_len;
+          s = score(qrow.dot(ks + lane * kStride), scale, has_geometry, region, row_w,
+                    bias_s[lane]);
+        }
+        if (sweep == 0) {
+          if (lane < n) mx[t] = fmaxf(mx[t], s);
+        } else if (sweep == 1) {
+          if (lane < n) sum[t] += expf(s - mx[t]);
+        } else {
+          float p = 0.0f;
+          if (lane < n) {
+            p = expf(s - mx[t]) / sum[t];
+            if (dropout) {
+              p = dropout_keep(uint32_t(r) * uint32_t(lk) + uint32_t(j), seed_mix, threshold)
+                      ? p / keep_div
+                      : 0.0f;
+            }
+            p = round_to(p, q);
+          }
+          float* prow = p_s + kKeyChunk * t;
+          prow[lane] = p;
+          __syncwarp();
+#pragma unroll
+          for (int c = 0; c < kPairs; ++c) {
+            const int col = 64 * c + 2 * lane;
+            if (kRagged && col >= d) continue;  // beyond the head's columns
+            float2 x = acc[t][c];
+            const T* vcol = vs + col;
+#pragma unroll 4
+            for (int jj = 0; jj < n; ++jj) {
+              const float pj = prow[jj];
+              const float2 vv = load_pair(vcol + jj * kStride);
+              x.x = fmaf(pj, vv.x, x.x);
+              x.y = fmaf(pj, vv.y, x.y);
+            }
+            acc[t][c] = x;
+          }
+          __syncwarp();  // prow is rewritten for the next chunk
+        }
+      }
+    }
+#pragma unroll
+    for (int t = 0; t < kStreamRows; ++t) {
+      if (sweep == 0) mx[t] = warp_max(mx[t]);
+      if (sweep == 1) sum[t] = warp_sum(sum[t]);
+    }
+  }
+
+#pragma unroll
+  for (int t = 0; t < kStreamRows; ++t) {
+    const int il = warp + kStreamWarps * t;
+    if (il >= n_rows) continue;
+    T* orow = out + (size_t(b) * lq + row0 + il) * hd + h * d;
+#pragma unroll
+    for (int c = 0; c < kPairs; ++c) {
+      const int col = 64 * c + 2 * lane;
+      if constexpr (kRagged) {
+        attention_width::store_pair(orow, col, d, acc[t][c].x, acc[t][c].y);
+      } else {
+        store_pair(orow + col, acc[t][c].x, acc[t][c].y);
+      }
+    }
+  }
+}
+
 template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, const void* mask,
            const void* boundary, const void* w, void* out, int batch, int lq,
@@ -288,19 +469,28 @@ int launch(const void* q, const void* k, const void* v, const void* mask,
            int text_len, int offset, int dropout, uint32_t threshold,
            float keep_div, uint32_t seed, uint32_t cell_stride, int head_dim,
            cudaStream_t stream) {
-  const size_t smem = Layout<T, D>::smem_bytes(lk);
-  cudaError_t err = cudaFuncSetAttribute(fused_attention_fwd_kernel<T, D>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+  const bool whole = resident<T, D>(lk);
+  const size_t smem = whole ? Layout<T, D>::smem_bytes(lk) : StreamLayout<T, D>::bytes;
+  auto kernel = fused_attention_fwd_streaming_kernel<T, D>;
+  if constexpr (D <= 128) {
+    if (whole) kernel = fused_attention_fwd_kernel<T, D>;
+  }
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          int(smem));
   if (err != cudaSuccess) return int(err);
   const dim3 grid((lq + kRowsPerBlock - 1) / kRowsPerBlock, num_heads, batch);
-  fused_attention_fwd_kernel<T, D><<<grid, kThreads, smem, stream>>>(
+  kernel<<<grid, whole ? kThreads : kStreamThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const float*>(mask), static_cast<const int*>(boundary),
       static_cast<const float*>(w), static_cast<T*>(out), lq, lk, num_heads, scale,
       has_geometry, row_start, text_len, offset, dropout, threshold, keep_div, seed,
       cell_stride, head_dim);
   return int(cudaGetLastError());
+}
+
+template <typename T, int D>
+size_t smem_bytes(int lk) {
+  return resident<T, D>(lk) ? Layout<T, D>::smem_bytes(lk) : StreamLayout<T, D>::bytes;
 }
 
 }  // namespace
@@ -311,13 +501,13 @@ const char* mkg_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// Dynamic shared memory one block needs for Lk keys (the wrapper holds it
-// against the device's opt-in limit before launching); 0 for a head width
-// the library does not take.
+// Dynamic shared memory one block of the form a call of Lk keys takes
+// needs (the wrapper holds it against the device's opt-in limit before
+// launching); 0 for a head width the library does not take.
 size_t mkg_fused_attention_fwd_smem(int lk, int is_bf16, int head_dim) {
   return attention_width::with_width(head_dim, size_t(0), [&](auto width) {
     constexpr int D = decltype(width)::value;
-    return is_bf16 ? Layout<__nv_bfloat16, D>::smem_bytes(lk) : Layout<float, D>::smem_bytes(lk);
+    return is_bf16 ? smem_bytes<__nv_bfloat16, D>(lk) : smem_bytes<float, D>(lk);
   });
 }
 

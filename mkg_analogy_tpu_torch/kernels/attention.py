@@ -21,8 +21,13 @@ to the compute dtype before the product with V, on the packed
   ``csrc/fused_attention_bwd_mma.cu``: ``mma.sync`` products on ``ldmatrix``
   fragments, ``cp.async`` staging, helpers in ``csrc/attention_mma.cuh``);
   fp32, whose bar of 2e-5 TF32 cannot meet, the CUDA-core kernels
-  (``csrc/fused_attention_fwd.cu``, ``csrc/fused_attention_bwd.cu``). A CPU
-  tensor takes the plain versions. Nothing falls back from one to another.
+  (``csrc/fused_attention_fwd.cu``, ``csrc/fused_attention_bwd.cu``). Both
+  take any key count, as the JAX kernel does (it stages a head's whole K/V
+  of any length): the tensor-core kernels stream their keys in chunks of
+  64, and the CUDA-core ones hold a head's whole K and V where they fit a
+  block and stream them in chunks of 32 where they do not (ViLT's 418 keys
+  in fp32). A CPU tensor takes the plain versions. Nothing falls back from
+  one to another.
   The clamps of w0/w1 stay outside, so autograd chains them.
 - ``fused_attention_reference`` is the plain forward (the
   ``AttentionCore._einsum`` math on the packed layout) and
@@ -74,30 +79,6 @@ from . import build
 NEG_BIAS = -10000.0  # reference padding bias (modeling_unimo.py:56)
 MAX_HEAD_DIM = build.MAX_HEAD_DIM  # the widest head the kernels take
 ROWS_PER_BLOCK = 64  # query rows per block of every kernel (csrc kRowsPerBlock, kTile)
-SMEM_OPTIN_H100 = 232448  # shared memory a block may opt into on the H100 (227 KB)
-
-
-def max_keys_bf16(width: int) -> int:
-    """The single-block route's longest bf16 key sequence at padded head
-    width ``width``: the most keys whose K and V the CUDA-core forward
-    (csrc/fused_attention_fwd.cu, ``Layout<bf16, D>::smem_bytes``) holds in
-    one block of the H100, 2·Lk·(D + 8)·2 bytes of K and V rows plus
-    round4(Lk)·4·9 of fp32 bias and score rows <= 232,448. At 64,
-    288·717 + 36·720 = 232,416 (718 keys: 232,704); at 128, 544·400 +
-    36·400 = 232,000 (401: 232,688)."""
-    lk = 1
-    while 4 * (lk + 1) * (width + 8) + 36 * (-(-(lk + 1) // 4) * 4) <= SMEM_OPTIN_H100:
-        lk += 1
-    return lk
-
-
-# The single-block route's longest bf16 key sequence at each padded head
-# width (16: 1,760 ... 64: 717 ... 128: 400). The CUDA-core kernels' shared
-# memory set it (K and V of Lk keys a block); the tensor-core kernels stream
-# their keys in chunks and have no such limit of their own, but each 64-row
-# tile walks every key twice, and the set of calls the route accepts stays
-# what it was: longer sequences are the flash kernels' work, at every width.
-MAX_KEYS_BF16 = {width: max_keys_bf16(width) for width in range(16, MAX_HEAD_DIM + 1, 16)}
 LAUNCHES = 0         # forward kernel launches since import (or a caller's reset)
 LAUNCHES_BWD = 0     # backward kernel launches, likewise
 LAUNCHES_D128 = 0    # the head_dim-128 forward launches among LAUNCHES
@@ -490,27 +471,20 @@ def _check_inputs(q, k, v, mask, num_heads, compute_dtype, kernel="fused_attenti
         raise ValueError(f"mask {tuple(mask.shape)} is not (B, Lk) = {(b, lk)}")
 
 
-FLASH_HINT = ("longer sequences take the flash kernels "
-              "(kernels/flash_attention.py, --fused_attention flash)")
-
-
 def _head_dim(q, num_heads):
     return q.shape[2] // num_heads
 
 
-def _check_smem(smem, q, what, hint=FLASH_HINT):
+def _check_smem(smem, q, what, hint="the device is not an H100-class card"):
+    """Raise where a block of the form a call takes needs more shared
+    memory than the device lets it have (the single-block kernels: never on
+    an H100, whose 227 KB each of their forms was sized for, at any
+    length)."""
     limit = torch.cuda.get_device_properties(q.device).shared_memory_per_block_optin
     if smem > limit:
         raise ValueError(
             f"{what} needs {smem} bytes of shared memory per block, above the "
             f"device's {limit}: {hint}")
-
-
-def _check_keys_bf16(lk, head_dim):
-    limit = MAX_KEYS_BF16[build.padded_width(head_dim)]
-    if lk > limit:
-        raise ValueError(f"Lk={lk} is above the single-block kernels' {limit} bf16 keys "
-                         f"at head_dim {head_dim}: {FLASH_HINT}")
 
 
 def _geometry_args(geometry, lq):
@@ -592,7 +566,6 @@ def _launch_fwd_mma(q, k, v, mask, num_heads, bnd, w, geometry, rate, seed, stri
     b, lq, _ = q.shape
     lk = k.shape[1]
     d = _head_dim(q, num_heads)
-    _check_keys_bf16(lk, d)
     lib = _lib_mma(build.library_width(d))
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
@@ -655,7 +628,6 @@ def _launch_bwd_mma(q, k, v, mask, g, num_heads, bnd, w, geometry, rate, seed, s
     b, lq, _ = q.shape
     lk = k.shape[1]
     d = _head_dim(q, num_heads)
-    _check_keys_bf16(lk, d)
     # m, 1 / l, delta and the row's multiplier: 16 bytes a row
     buffers = _bwd_buffers(q, k, v, g, num_heads, 4)
     lib = _lib_bwd_mma(build.library_width(d))
@@ -735,7 +707,8 @@ def fused_attention(
     ops/masks.py geometry (row_start / text_len / compat offset); w0 and w1
     arrive clamped. On CPU tensors this is the plain forward and backward (any
     head width); on CUDA tensors it launches the kernels (bf16 or fp32,
-    head_dim 1 to 128, compute dtype = the inputs' dtype) or raises.
+    head_dim 1 to 128, any key count, compute dtype = the inputs' dtype) or
+    raises.
     """
     if not 0.0 <= dropout_rate < 1.0:
         raise ValueError(f"dropout_rate must be in [0, 1), got {dropout_rate}")

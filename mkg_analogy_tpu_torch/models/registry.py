@@ -15,9 +15,10 @@ ViltKGC and FlavaKGC, detector region features (2 images x 36 regions of
 
 ``DEFAULT_ATTENTION`` is the attention backend each family takes when the
 caller names none (models/common.py:AttentionCore). ViLT attends over L +
-290 tokens (418 at L=128), within the single-block kernel's shared memory in
-bf16 (717 keys; 400 in fp32, where the kernel's wrapper raises and names
-the flash kernels). FLAVA's multimodal tower attends over 394 + L tokens
+290 tokens (418 at L=128) through the single-block kernels in either
+dtype, as JAX runs it: they take any key count (the bf16 ones stream their
+keys, the fp32 ones hold a head's K and V where it fits a block and stream
+it where it does not). FLAVA's multimodal tower attends over 394 + L tokens
 (522 at L=128), at the length from which the plain route takes the flash
 kernels, so flash is its default, in either dtype. VisualBERT attends over
 L + 72 tokens (200 at L=128) and ViLBERT's streams over L and 72 tokens,

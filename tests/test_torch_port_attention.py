@@ -260,12 +260,27 @@ def test_tensor_core_kernel_at_the_ragged_edges(cuda, case, rate):
 
 
 @pytest.mark.cuda
-def test_kernel_raises_beyond_shared_memory(cuda):
-    """Keys beyond the single-block route's limit (bf16: Lk > 717, where the
-    CUDA-core kernels' shared memory ended) raise and name the flash kernel;
-    nothing falls back."""
-    q = torch.zeros(1, 4, 768, device=cuda, dtype=torch.bfloat16)
-    k = torch.zeros(1, 1024, 768, device=cuda, dtype=torch.bfloat16)
-    mask = torch.ones(1, 1024, device=cuda)
-    with pytest.raises(ValueError, match="flash"):
-        port.fused_attention(q, k, k, mask, 12)
+def test_kernel_raises_beyond_shared_memory(cuda, monkeypatch):
+    """The single-block route takes any key count, as the JAX kernel does:
+    at 1024 keys (above the 717 bf16 and 400 fp32 keys whose K and V once
+    had to fit a block) both dtypes launch and match the plain version.
+    What still raises is a device whose shared memory a block of the fp32
+    kernels' form passes (never an H100's); nothing falls back."""
+    gen = torch.Generator().manual_seed(3)
+    for dtype, atol in ((torch.bfloat16, 2e-2), (torch.float32, 2e-5)):
+        q = torch.randn(1, 4, 768, generator=gen).to(cuda, dtype)
+        k = torch.randn(1, 1024, 768, generator=gen).to(cuda, dtype)
+        mask = torch.ones(1, 1024, device=cuda)
+        before = port.LAUNCHES
+        got = port.fused_attention(q, k, k, mask, 12, compute_dtype=dtype)
+        want = port.fused_attention_reference(q, k, k, mask, 12, compute_dtype=dtype)
+        torch.cuda.synchronize()
+        assert port.LAUNCHES == before + 1
+        torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=0)
+
+    class _Small:
+        shared_memory_per_block_optin = 32 * 1024
+
+    monkeypatch.setattr(torch.cuda, "get_device_properties", lambda device=None: _Small())
+    with pytest.raises(ValueError, match="not an H100-class card"):
+        port.fused_attention(q, k, k, mask, 12, compute_dtype=torch.float32)

@@ -10,9 +10,8 @@ same numpy inputs, B=2, 2 heads, 33 x 40: without a geometry or dropout, and
 with the analogy geometry and dropout 0.1; the flash ones in one tile and in
 ragged small tiles; the keep masks bit for bit. Then the wrappers' width
 logic as pure functions (the padded width, the scale of the real width, the
-single-block route's key limit, the libraries of other widths, head_dim 129
-raising), and the CUDA kernels of every width against their plain versions
-(need a card)."""
+libraries of other widths, head_dim 129 raising), and the CUDA kernels of
+every width against their plain versions (need a card)."""
 
 import re
 
@@ -216,26 +215,6 @@ def test_scale_is_the_real_widths(monkeypatch):
         assert single._call_tail(q, d, None, 0.0, 0, None, 1.0)[0] == float(d) ** -0.5
 
 
-def test_max_keys_bf16_from_the_fp32_kernels_shared_memory():
-    """The single-block route's bf16 key limit at each padded width is the
-    most keys whose K and V rows (2·Lk·(D + 8)·2 bytes) and fp32 bias and
-    score rows (round4(Lk)·36 bytes) fit the H100's 232,448 bytes a block:
-    717 at 64 and 400 at 128 as before, more at narrower widths."""
-    assert sorted(single.MAX_KEYS_BF16) == list(range(16, 129, 16))
-    assert single.MAX_KEYS_BF16[64] == 717 and single.MAX_KEYS_BF16[128] == 400
-
-    def smem(lk, width):
-        return 4 * lk * (width + 8) + 36 * (-(-lk // 4) * 4)
-
-    for width, lk in single.MAX_KEYS_BF16.items():
-        assert smem(lk, width) <= single.SMEM_OPTIN_H100 < smem(lk + 1, width), width
-    assert list(single.MAX_KEYS_BF16.values()) == sorted(single.MAX_KEYS_BF16.values(),
-                                                         reverse=True)
-    single._check_keys_bf16(1760, 13)
-    with pytest.raises(ValueError, match="1760 bf16 keys at head_dim 13"):
-        single._check_keys_bf16(1761, 13)
-
-
 def test_cpu_route_takes_the_plain_versions_at_any_width():
     """CPU tensors take the plain versions at any width, 129 included, and
     count no launch; nothing checks the kernels' limit there."""
@@ -318,9 +297,9 @@ def test_single_block_kernels_match_plain_version(cuda, d, dtype):  # noqa: F811
     dropout 0.1: the forward within 2e-5 fp32 / 2e-2 bf16, the backward
     within 2e-5 / 2^-7 of each result's largest; each launch counted under
     its width."""
-    # 99 x 160: the fp32 kernels hold K and V of every key, and from
-    # padded width 112 those of 227 keys pass a block's shared memory
-    q, k, v, g, mask = kernel_inputs(d, dtype, cuda, lk=160)
+    # 99 x 227: from padded width 112 the fp32 kernels' K and V of 227
+    # keys pass a block's shared memory, and they stream them
+    q, k, v, g, mask = kernel_inputs(d, dtype, cuda)
     kw = dict(port_kwargs(dict(GEOMETRY, text_len=None), cuda), compute_dtype=dtype,
               dropout_rate=0.1, deterministic=False, dropout_seed=5)
     before = (single.WIDTH_LAUNCHES["fwd", d], single.WIDTH_LAUNCHES["bwd", d])
