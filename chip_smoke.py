@@ -68,7 +68,7 @@ exits non-zero:
                 the fit's test ranks exactly;
     fit_prefetch — ``MarTTrainer.fit`` and ``evaluate`` through
                 ``_prefetch`` (pinned memory, a side stream) against the
-                loop before it, at full width (bf16, B=32, L=128, 24 steps,
+                loop before it, at full width (bf16, B=32, L=128, 12 steps,
                 MARS's 1,020 dev examples at B=128): host and device ms a
                 step, idle share, eval examples/s, peak GB of each; equal
                 losses and dev ranks; no worker left after ``fit``;
@@ -163,8 +163,9 @@ exits non-zero:
                 store for a dataset written here, ``cli.main --model_class
                 ViltKGC|FlavaKGC --image_features <store>`` fine-tunes one
                 epoch in bf16 and tests, ``--only_test --checkpoint``
-                reproduces the ranks; the counts set to 0 before each
-                family's run and read after it;
+                reproduces the ranks; then ViLT in fp32 through its default
+                single-block kernels (one step, dev and test); the counts set
+                to 0 before each run and read after it;
 17. region_kernel — rows 1-2 at the region families' shapes (REGION_SHAPES):
                 the four head_dim-128 instantiations (fp32 CUDA-core, bf16
                 tensor-core, forward and backward) at ViLBERT's visual
@@ -209,7 +210,7 @@ exits non-zero:
                 (d=200) and TransAE (d=200) pre-train steps at the recipe's
                 333 x 51 rows, each on the card against the port on the CPU
                 (loss within 1e-5 relative, every gradient leaf within 1e-5
-                of its largest value), then timed; link prediction on 256
+                of its largest value), then timed; link prediction on 128
                 triples, both sides, B=64 (energies within 1e-5, ranks equal
                 but for near ties); a fine-tune step at B=128; peak GB;
 21. kge_rsme  — RSME ComplEx at rank 1000, B=1000, Adagrad over the
@@ -225,15 +226,17 @@ exits non-zero:
                 line carries ``nonfinite_gold``, the rows whose gold score
                 is not finite (ranked last); the ANALOGY recipe, which
                 diverges, must report Hits@1 of at most 0.5.
-23. head_widths — rows 1-5 at head widths 8, 13, 16, 20, 24, 32, 40, 56,
-                80, 96, 112, 116 and 120 (HEAD_WIDTHS), each through the
-                library of its padded width (a multiple of 16; the 64
-                libraries built in phase 2 with the nine), fp32 and bf16,
+23. head_widths — rows 1-5 at head widths 8, 13, 16, 20, 24, 32, 56,
+                116, 120, 136, 192, 200, 250 and 256 (HEAD_WIDTHS), each
+                through the library of its padded width (16, 32, 64, 128,
+                192, 256: the 48 libraries built in phase 2 with the nine;
+                40, 80, 96 and 112, whose libraries no main path needs, run
+                in the `cuda` tests), fp32 and bf16,
                 without and with the analogy geometry and
                 dropout, against the plain versions at the kernel phases'
                 bars, each launch counted under its width; the times of each
                 instance, its plain version, SDPA (widths that are multiples
-                of 8) and its bounds; registers and spills; head_dim 129
+                of 8) and its bounds; registers and spills; head_dim 257
                 raises;
 24. cli_widths — the slice's main paths at those widths: (a) the verify
                 recipe's model (head_dim 16) through the CLI, a fine-tune
@@ -246,7 +249,14 @@ exits non-zero:
                 CUDA-core kernels' streaming form) and bf16, dropout 0 and
                 0.1, against the plain versions at the kernel bars; times,
                 plain and SDPA times, bounds (ViLT's 418 x 418 in fp32 runs
-                in phases 3 and 4).
+                in phases 3 and 4);
+26. cli_wide  — the slice's path at full width: the CLI fine-tune of
+                MKGformerKGC at width 768 with ``--num_heads 3`` (heads of
+                256), bf16 through ``--fused_attention 1`` and ``flash``,
+                fp32 ``1`` against ``0`` (one step, loss within 1e-5
+                relative), every kernel of the route launched at head_dim
+                256, the calls it sent the kernels held against the plain
+                versions.
 
 Then the ``{"kernels": [...]}`` line, the card line, and the last line
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -318,7 +328,7 @@ def card_line() -> str:
         check=True, capture_output=True, text=True).stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, samples=7, per_sample=10):
+def time_ms(fn, samples=5, per_sample=10):
     """Median over ``samples`` of the mean time of ``per_sample``
     back-to-back calls, by CUDA events. A device-side sleep ahead of each
     sample (~5 ms: ten calls of several launches each take the host up to a
@@ -501,7 +511,7 @@ def kernel_phase(device):
         row["kernel_ms"] = time_ms(lambda: attn.fused_attention(q, k, v, mask, HEADS, **kw))
         row["earlier_ms"] = time_ms(
             lambda: attn._launch_fwd_cuda_cores(q, k, v, mask, HEADS, *resolved),
-            samples=7, per_sample=4)
+            samples=5, per_sample=4)
         row["plain_ms"] = time_ms(
             lambda: attn.fused_attention_reference(q, k, v, mask, HEADS, **kw))
         if not row["kernel_ms"] < row["earlier_ms"]:
@@ -653,7 +663,7 @@ def kernel_bwd_phase(device):
             lambda: attn._launch_bwd(q, k, v, mask, g, HEADS, bnd, w, geo, r, seed))
         row["earlier_ms"] = time_ms(
             lambda: attn._launch_bwd_cuda_cores(q, k, v, mask, g, HEADS, bnd, w, geo, r, seed),
-            samples=7, per_sample=4)
+            samples=5, per_sample=4)
         row["plain_ms"] = time_ms(
             lambda: attn.fused_attention_bwd_reference(q, k, v, mask, g, HEADS, **kw))
         if not row["kernel_ms"] < row["earlier_ms"]:
@@ -1183,7 +1193,7 @@ def cli_train_phase():
     return launches
 
 
-FIT_TRAIN, FIT_DEV = 768, 1020  # 24 steps at B=32; MARS's dev split
+FIT_TRAIN, FIT_DEV = 384, 1020  # 12 steps at B=32; MARS's dev split
 
 
 def prefetch_threads():
@@ -1258,13 +1268,13 @@ def fit_prefetch_phase(device):
     """``_prefetch`` on the fine-tune path at full width: MKGformer, bf16,
     B=32, L=128, dropout on, the single-block kernels; ``write_dataset``
     with 4,126 entities (MARS's 2,063 analogy entities), FIT_TRAIN training
-    examples (24 steps) and a dev split of FIT_DEV examples (MARS's)
+    examples (12 steps) and a dev split of FIT_DEV examples (MARS's)
     evaluated at B=128. Two loops on the same batch sequence from the same
     weights, each run twice, alternated (the host's clock varies
     between runs more than the loops differ): ``MarTTrainer.fit`` (one
     epoch, then its dev evaluation) and ``evaluate``, both through
     ``_prefetch``; and the loop before it (``legacy_fit``,
-    ``legacy_evaluate``). For each: host ms a step over steps 3-24 (the
+    ``legacy_evaluate``). For each: host ms a step over steps 3-12 (the
     epoch's wall clock from a synchronisation before step 3 to the one
     that ends the epoch, none between), device ms a step from a profiled
     window of 6 steps (torch.profiler, copies included), the idle share
@@ -1800,7 +1810,7 @@ def flash_kernel_phase(device):
         args = (HEADS, *resolve_geometry(fa, q, kw, rate, 99), fa.BLOCK_Q, fa.BLOCK_K)
         out, lse = fa._launch_fwd(q, k, v, mask, *args)
         delta = fa._delta(go, out, HEADS)
-        n = dict(samples=7, per_sample=3) if lq >= 2048 else {}
+        n = dict(samples=5, per_sample=3) if lq >= 2048 else {}
         row["fwd_ms"] = time_ms(lambda: fa._launch_fwd(q, k, v, mask, *args), **n)
         # the tensor-core forward's design: the keys' scores in registers
         # where they are one logical tile of up to 256, else two sweeps
@@ -1811,7 +1821,7 @@ def flash_kernel_phase(device):
                                                          *args), **n)
         # the CUDA-core kernels in bf16, which these calls ran before: the
         # tensor-core kernels must beat them at every shape
-        slow = dict(samples=7, per_sample=3)
+        slow = dict(samples=5, per_sample=3)
         row["fwd_earlier_ms"] = time_ms(lambda: fa._launch_fwd_cuda_cores(q, k, v, mask, *args),
                                         **slow)
         row["dkv_earlier_ms"] = time_ms(lambda: fa._launch_bwd_dkv_cuda_cores(
@@ -2334,7 +2344,7 @@ def flash_d128_kernel_phase(device):
                     masked.update({f"{name}_{n}": e for n, e in row.items() if n.endswith(key)
                                    and n.startswith(("fwd_max_abs_err", "max_abs_err"))})
                 del q, k, v, go, out, lse, delta, got, want, want_out
-        n = dict(samples=7, per_sample=3) if lq >= 2048 else {}
+        n = dict(samples=5, per_sample=3) if lq >= 2048 else {}
         for tag, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
             rate = 0.1 if layout == "regions" else 0.0  # the visual stream trains with dropout
             q, k, v, go, mask, kw = flash_d128_inputs(shape, dtype, device, seed=7)
@@ -2813,7 +2823,7 @@ def image_kernel_phase(device):
         row["kernel_ms"] = time_ms(lambda: ip.resize_normalize(canvas, sizes, size, mean, std))
         row["plain_ms"] = time_ms(
             lambda: ip.resize_normalize_reference(canvas, sizes, size, mean, std),
-            samples=7, per_sample=2)
+            samples=5, per_sample=2)
         hw = sizes.long().clamp(max=2 * size).prod(dim=1).sum().item()
         row["bytes_ms"] = (3 * hw + 8 * b + b * 3 * size * size * 4) / HBM_BYTES_PER_S * 1e3
         row["operations_ms"] = (b * size * size * RESIZE_OPS_PER_PIXEL
@@ -3287,8 +3297,10 @@ def cli_image_phase():
     one epoch in bf16 at the family's recipe (128 examples: 4 steps at B=32,
     5 at B=24, the last batch dropped), evaluates dev (1 batch) and test (2
     batches) and tests the best-dev checkpoint; ``--only_test --checkpoint``
-    reproduces the ranks. The counts are set to 0 before each family's run
-    (tool and fine-tune) and read after it."""
+    reproduces the ranks. Then ViLT in fp32 through its default single-block
+    kernels (``vilt_fp32``: one step, dev and test; 12 + 12 launches a step,
+    12 a forward, none of the flash kernels). The counts are set to 0
+    before each run (tool and fine-tune) and read after it."""
     import numpy as np
     import torch
 
@@ -3353,9 +3365,33 @@ def cli_image_phase():
                 examples_per_sec_after_step_1=epoch["train/examples_per_sec"],
                 last_loss=epoch["train/last_loss"], retest_ranks_identical=True)
             torch.cuda.empty_cache()
+        # ViLT's fp32 route through the CLI, as JAX runs it: its default
+        # single-block kernels (the CUDA-core ones stream its 418 keys), one
+        # step from the same store, then dev and test
+        fam = FAMILIES["vilt"]
+        reset_counts()
+        t0 = time.perf_counter()
+        metrics = cli.main([
+            "--data_dir", mars, "--pretrain_path", markg, "--device", "cuda",
+            "--model_class", fam["model_class"],
+            "--image_features", os.path.join(root, "vilt_pixels.npy"), "--dtype", "float32",
+            "--max_seq_length", "128", "--output_dir", os.path.join(root, "vilt_fp32_fit"),
+            "--log_dir", os.path.join(root, "logs_vilt_fp32"),
+            "--cache_dir", os.path.join(root, "cache"), "--max_epochs", "1",
+            "--limit_train_batches", "1", "--batch_size", str(fam["batch"]),
+            "--lr", str(fam["lr"]), "--alpha", str(fam["alpha"])])
+        fwd_only = family_counts("single", fam["calls"], backward=False, bf16=False)
+        both = family_counts("single", fam["calls"], bf16=False)
+        expect = {k: both[k] + fwd_only[k] * (1 + math.ceil(n_test / 128)) for k in both}
+        if all_counts() != expect or not all(math.isfinite(v) for v in metrics.values()):
+            raise AssertionError(f"cli vilt fp32: launches {all_counts()}, expected {expect}, "
+                                 f"metrics {metrics}")
+        vilt_fp32 = dict(steps=1, launches=all_counts(), seconds=time.perf_counter() - t0,
+                         test_mrr=metrics["Eval_entity/mrr"])
+        torch.cuda.empty_cache()
     total = {k: sum(r["launches"][k] for r in runs.values()) for k in runs["vilt"]["launches"]}
     emit(dict(phase="cli_image", dtype="bfloat16", train_examples=n_train,
-              entities_with_images=n_with, launches=total, **runs))
+              entities_with_images=n_with, launches=total, **runs, vilt_fp32=vilt_fp32))
     return total
 
 
@@ -3519,7 +3555,7 @@ def rank_agreement(gpu_scores, cpu_scores, golds, gpu_ranks, cpu_ranks, rel=1e-5
     return worst, int(near.sum()), int(differ.sum())
 
 
-def kge_ikrl_phase(device, data, lp_triples=256, pvdm_epochs=2):
+def kge_ikrl_phase(device, data, lp_triples=128, pvdm_epochs=2):
     """The IKRL silo at full width (MarKG's counts, the recipe's batch of
     33,307 // 100 = 333 triples x (1 + 25 + 25) rows). For IKRL TransE
     (d=400, margin 5, SGD lr 1), IKRL ANALOGY (d=200, softplus + regul 1)
@@ -3936,7 +3972,7 @@ FLASH_KERNELS = {
 
 MESH_STEPS = 3     # fine-tune steps of each gloo mesh phase (the first at lr 0)
 MESH_1X1_STEPS = 6  # of mesh_1x1 and its no-mesh runs (the median of steps 3-6)
-MESH_EVAL = 64     # dev examples each mesh phase ranks, at B=32
+MESH_EVAL = 32     # dev examples each mesh phase ranks, at B=32
 # AdamW's eps in the gloo phases: a leaf whose gradient is round-off (the key
 # biases: a softmax ignores a per-row constant) then moves by its gradient
 # over 1e-3, not by +-lr whichever the sign of its noise, which the mesh's
@@ -4461,7 +4497,12 @@ def mesh_kernel_phase(device):
 # a head into 64-column halves, the second of d - 64 columns). Rows 1-2 at
 # MKGformer's vision over text K/V (B=32, 99 x 227), rows 3-5 at the triple
 # pre-train's text calls (B=64, 96 x 96), 12 heads.
-HEAD_WIDTHS = (8, 13, 16, 20, 24, 32, 40, 56, 80, 96, 112, 116, 120)
+# Above 128: 136 ragged and 192 exact in the library of 192; 200 aligned,
+# 250 not 16-byte aligned (element-wise staging) and 256 exact in that of 256.
+# (40, 80, 96 and 112, each the one width of its padded library here, left
+# to the `cuda` tests of tests/test_torch_port_head_widths.py: their 32
+# libraries took 30-40 s of the build.)
+HEAD_WIDTHS = (8, 13, 16, 20, 24, 32, 56, 116, 120, 136, 192, 200, 250, 256)
 HEAD_WIDTH_SINGLE = ("vision_text", 32, 99, 227)
 HEAD_WIDTH_FLASH = ("triple_text", 64, 96, 96)
 
@@ -4511,10 +4552,11 @@ def head_widths_phase(device):
     bars of the kernel phases (forward 2e-5 / 2e-2, lse 1e-5; backward 2e-5
     / 2^-7 of each result's largest, dw 1e-5 of its terms), each launch
     counted under its width (the fp32 kernels of rows 1-2 stream K and V
-    where 227 keys do not fit a block: from padded width 112). Then per width and dtype the kernels' times, the plain
+    where 227 keys do not fit a block: from padded width 112, and above
+    128 always). Then per width and dtype the kernels' times, the plain
     versions' (bf16), SDPA's where the width is a multiple of 8 (no
     multiplier in the timed calls) and the bounds of the real width; the
-    registers and spills ptxas reported. A call at head_dim 129 raises a
+    registers and spills ptxas reported. A call at head_dim 257 raises a
     ValueError naming the limit, on either route."""
     import torch
 
@@ -4533,17 +4575,17 @@ def head_widths_phase(device):
               libraries=len(widths) * len(build.ATTENTION_SOURCES),
               registers_spill_store_load=resources))
     for fn in (attn.fused_attention, fa.flash_attention):
-        q = torch.zeros(1, 4, 2 * 129, device=device, dtype=torch.bfloat16)
+        q = torch.zeros(1, 4, 2 * 257, device=device, dtype=torch.bfloat16)
         try:
             fn(q, q, q, torch.ones(1, 4, device=device), 2, compute_dtype=torch.bfloat16)
         except ValueError as e:
-            if "128" not in str(e):
-                raise AssertionError(f"{fn.__name__} at head_dim 129: {e}") from e
+            if "256" not in str(e):
+                raise AssertionError(f"{fn.__name__} at head_dim 257: {e}") from e
         else:
-            raise AssertionError(f"{fn.__name__} took head_dim 129")
+            raise AssertionError(f"{fn.__name__} took head_dim 257")
     attn.WIDTH_LAUNCHES.clear()
     fa.WIDTH_LAUNCHES_FLASH.clear()
-    n = dict(samples=7, per_sample=5)
+    n = dict(samples=5, per_sample=3)
     rows = []
     for d in HEAD_WIDTHS:
         row = dict(head_dim=d, padded_width=build.padded_width(d), heads=HEADS)
@@ -4973,12 +5015,90 @@ def long_keys_phase(device):
     return rows
 
 
-def width_entries(rows, launches):
+WIDE_HEADS = ["--hidden_size", "768", "--num_heads", "3"]  # MKGformer's width, heads of 256
+
+
+def cli_wide_phase():
+    """The slice's path at full width: the CLI fine-tune of MKGformerKGC at
+    width 768 with ``--num_heads 3`` (both towers: three heads of 256, the
+    libraries of padded width 256 built by the CLI before its first batch),
+    12 layers, on a synthetic MARS/MarKG (32 training examples at B=16,
+    L=64), the launch counts set to 0 before each run and read after it:
+    bf16 through ``--fused_attention 1`` and ``flash`` (2 steps each, the
+    losses finite; every kernel of the route launched at head_dim 256);
+    fp32 through ``1`` (the CUDA-core kernels' streaming form) and ``0``
+    (the plain attention), one step each from the same seed
+    (``--limit_train_batches 1``), the losses within 1e-5 relative (dropout
+    on: the plain attention draws the single-block kernels' masks; after an
+    AdamW update the two runs part by more, as each step's update divides
+    last-bit gradient differences by their root mean square, which is why
+    one step). Then each run's calls,
+    of each kind the model sent the kernels (PathCalls), against the plain
+    versions with their own inputs (path_call_errors)."""
+    from mkg_analogy_tpu_torch.cli import main as cli
+    from mkg_analogy_tpu_torch.kernels import attention as attn
+    from mkg_analogy_tpu_torch.kernels import flash_attention as fa
+
+    t_start = time.perf_counter()
+    runs = {}
+    calls = PathCalls()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_wide_", dir=".") as root:
+        markg, mars = write_dataset(root, n_train=32, n_test=32)
+
+        def argv(name, *extra):
+            return ["--data_dir", mars, "--pretrain_path", markg, "--device", "cuda",
+                    "--max_seq_length", "64", "--batch_size", "16", "--eval_batch_size", "32",
+                    "--image_features", "synthetic", *WIDE_HEADS,
+                    "--output_dir", os.path.join(root, name),
+                    "--log_dir", os.path.join(root, name, "logs"),
+                    "--cache_dir", os.path.join(root, "cache"), *extra]
+
+        for fused, dtype, steps in (("1", "bfloat16", 2), ("flash", "bfloat16", 2),
+                                    ("1", "float32", 1), ("0", "float32", 1)):
+            name = f"{fused}_{dtype}"
+            reset_counts()
+            attn.WIDTH_LAUNCHES.clear()
+            fa.WIDTH_LAUNCHES_FLASH.clear()
+            t0 = time.perf_counter()
+            with calls, BuildOrder() as order:
+                metrics = cli.main(argv(name, "--fused_attention", fused, "--dtype", dtype,
+                                        "--max_epochs", "1", "--limit_train_batches",
+                                        str(steps)))
+            seconds = time.perf_counter() - t0
+            order.check_widths(f"cli_wide {name}", [256])
+            counts = width_counts(256)
+            with open(os.path.join(root, name, "logs", "train_metrics.jsonl")) as f:
+                losses = [json.loads(line)["train/last_loss"] for line in f
+                          if "train/last_loss" in line]
+            if not (len(losses) == 1 and all(map(math.isfinite, losses))
+                    and all(math.isfinite(v) for v in metrics.values())):
+                raise AssertionError(f"cli_wide {name}: losses {losses}, {metrics}")
+            want = {"1": ("fwd", "bwd"), "0": (),
+                    "flash": ("flash", "flash_dkv", "flash_dq", "flash_fwd_mma",
+                              "flash_dkv_mma", "flash_dq_mma")}[fused]
+            if not all(counts[k] for k in want) or (fused == "0" and any(counts.values())):
+                raise AssertionError(f"cli_wide {name}: launches at head_dim 256 {counts}")
+            runs[name] = dict(steps=steps, losses=losses, test_mrr=metrics["Eval_entity/mrr"],
+                              launches_head_dim_256=counts, seconds=seconds)
+    plain = runs["0_float32"]["losses"]
+    rel = max(abs(a - p) / abs(p) for a, p in zip(runs["1_float32"]["losses"], plain))
+    runs["1_float32"]["loss_rel_diff_vs_plain"] = rel
+    if not rel <= 1e-5:
+        raise AssertionError(f"cli_wide fp32: losses {runs['1_float32']['losses']} vs plain "
+                             f"{plain}")
+    out = dict(phase="cli_wide", widths=WIDE_HEADS, head_dim=256, runs=runs,
+               calls=path_call_errors(calls.calls, "cli_wide"))
+    emit(dict(out, seconds=time.perf_counter() - t_start))
+    return out
+
+
+def width_entries(rows, launches, wide):
     """The {"kernels": ...} entries of rows 1-5 at the head widths of
     HEAD_WIDTHS: per row its time, plain, library and bound at MiniLM's
     width 32 (path (b)'s, at the phase's shapes), ``launches`` the main
     paths' (cli_widths: head_dim 16 through the CLI, 32 through the step,
-    and in ``calls`` the errors on those paths' own calls), errors the
+    and in ``calls`` the errors on those paths' own calls; cli_wide
+    (``wide``): head_dim 256 through the CLI at width 768), errors the
     largest over the widths, and per width its numbers."""
     at32 = next(r for r in rows if r["head_dim"] == 32)
     entries = []
@@ -4999,6 +5119,8 @@ def width_entries(rows, launches):
 
         count = {"fwd": "fwd", "bwd": "bwd", "flash_fwd": "flash_fwd_mma",
                  "flash_dkv": "flash_dkv_mma", "flash_dq": "flash_dq_mma"}[pre]
+        wide_launches = sum(r["launches_head_dim_256"][count] for r in wide["runs"].values())
+        path_calls = launches["calls"] + list(wide["calls"].values())
         plain = (f"{lead}fwd_plain_ms" if pre.endswith("fwd") else f"{lead}bwd_plain_ms")
         library = plain.replace("plain", "library")
         entries.append(dict(
@@ -5007,15 +5129,16 @@ def width_entries(rows, launches):
             source_fp32=f"mkg_analogy_tpu_torch/csrc/{source}.cu",
             replaces=f"mkg_analogy_tpu/kernels/{line}", ok=True,
             head_dims=list(HEAD_WIDTHS),
-            launches=launches["a"][count] + sum(v[count] for v in launches["b"].values()),
+            launches=launches["a"][count] + sum(v[count] for v in launches["b"].values())
+            + wide_launches, launches_wide_path=wide_launches,
             max_abs_err=max(r[k_ + t] for r in rows for k_ in keys
                             for t in ("bf16", "bf16_geometry_dropout")),
             max_abs_err_fp32=max(r[k_ + t] for r in rows for k_ in keys
                                  for t in ("fp32", "fp32_geometry_dropout")),
             # on the calls of paths (a) and (b), with their own inputs
-            max_abs_err_main_paths=max(r[k_ + "bfloat16"] for r in launches["calls"]
+            max_abs_err_main_paths=max(r[k_ + "bfloat16"] for r in path_calls
                                        for k_ in keys if k_ + "bfloat16" in r),
-            max_abs_err_main_paths_fp32=max(r[k_ + "float32"] for r in launches["calls"]
+            max_abs_err_main_paths_fp32=max(r[k_ + "float32"] for r in path_calls
                                             for k_ in keys if k_ + "float32" in r),
             ms=at32[f"{pre}_ms_bf16"], ms_fp32=at32[f"{pre}_ms_fp32"],
             plain_ms=at32[plain], bound_ms=at32[f"{pre}_bound_ms_bf16"],
@@ -5166,6 +5289,7 @@ def main() -> int:
     width_rows = head_widths_phase(device)
     width_launches = cli_widths_phase(device)
     long_rows = long_keys_phase(device)
+    wide = cli_wide_phase()
     region_d64 = {k: sum(r[k] - r[f"{k}_d128"] for r in region_launches.values())
                   for k in ("single_fwd", "single_bwd")}
     d128_rows = [r for r in region_rows if r["head_dim"] == 128]
@@ -5329,7 +5453,7 @@ def main() -> int:
         # the shape at which one F.interpolate call computes the same
         **{k: resize_rows[0][k] for k in ("plain_ms", "bound_ms", "bound_by", "library_ms")},
         ms=resize_rows[0]["kernel_ms"], shapes=resize_rows,
-    )] + width_entries(width_rows, width_launches)})
+    )] + width_entries(width_rows, width_launches, wide)})
     print(card)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -44,9 +44,9 @@ streamed in chunks of 64), in fp32 CUDA-core kernels that hold a head's
 whole K and V in shared memory where they fit a block and stream them in
 chunks of 32 where they do not. Both take any key count, as JAX's kernel
 does (ViLT's L + 290 tokens in either dtype). Both kernel sets take every
-head_dim from 1 to 128 (64 and, for ViLBERT's 1024-wide visual stream, 128
+head_dim from 1 to 256 (64 and, for ViLBERT's 1024-wide visual stream, 128
 from the nine libraries, any other width from the libraries of its padded
-width) and raise above.
+width; ``--num_heads 3`` at width 768 gives heads of 256) and raise above.
 ``--fused_attention 0`` runs
 the plain PyTorch attention, except that a sequence of 512 or more takes
 the flash kernels, as in JAX. ``--export_torch <file>`` writes the fit's

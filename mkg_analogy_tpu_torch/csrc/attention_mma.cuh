@@ -27,22 +27,28 @@
 // in pairs, are the A fragment of the next product (pack_a): probabilities
 // and dS never pass through shared memory. A tile is 64 rows of D bf16 in
 // shared memory (D the tile width: 64, 128 for ViLBERT's visual stream, or
-// another multiple of 16 up to 128, attention_width.cuh), rows padded to
-// D + 8 (144 or 272 bytes at 64 or 128, an odd count of 16-byte units at
-// every D), so the eight 16-byte rows one ldmatrix phase reads fall in
-// eight different 16-byte bank groups. The same tile feeds a product as
-// "rows x depth" (ldmatrix, product_nt: Q K^T, g V^T, K Q^T, V g^T; the
-// depth is the tile width) and as "depth x columns" (ldmatrix.trans,
+// another multiple of 16 up to 128, or 192 or 256, attention_width.cuh),
+// rows padded to D + 8 (144 or 272 bytes at 64 or 128, 528 at 256, an odd
+// count of 16-byte units at every D), so the eight 16-byte rows one
+// ldmatrix phase reads fall in eight different 16-byte bank groups. The
+// same tile feeds a product as "rows x depth" (ldmatrix, product_nt: Q K^T,
+// g V^T, K Q^T, V g^T; the depth is the tile width) and as "depth x
+// columns" (ldmatrix.trans,
 // product_nn: P V, dS K, P^T g, dS^T Q; the block's cols_of<D>() result
-// columns: all D, but 64 of 128, so at D = 128 a block computes one half of
-// its head's result columns). Every helper that addresses a tile takes D as
-// its first template argument, 64 by default.
+// columns: all D below 128, 64 from 128 up, so at D = 128 a block computes
+// one half of its head's result columns, at 256 one quarter). Every helper
+// that addresses a tile takes D as its first template argument, 64 by
+// default.
 //
 // Tile widths other than 64 and 128 (registers by ptxas -v, PERF.md): a
 // block owns all its D result columns at every D up to 112, so its result
 // accumulators grow to 14 tiles of 16 x 8 at 112 (56 registers a thread)
 // where 128's halves keep 8; the halves' split would pay the score row
-// twice for a remainder of 16-48 columns.
+// twice for a remainder of 16-48 columns. At 192 and 256 (the padded
+// widths above 128) a block owns 64 columns, as at 128, and no A fragments
+// are held for a sweep: each product over the depth loads them 64 columns
+// at a time (product_a), the score and dP tiles being recomputed by each of
+// the 3 or 4 blocks of a head.
 //
 // Cast points live in the kernels, not here. fp32 inputs do not come this
 // way: TF32 keeps ~3 decimal digits and the fp32 kernels are held to 2e-5,
@@ -82,15 +88,20 @@ constexpr int kStride = stride_of<kHeadDim>();
 constexpr int kTileElems = tile_elems<kHeadDim>();
 constexpr int kTileBytes = tile_bytes<kHeadDim>();
 
-// The blocks that share a head's result columns: two 64-column halves at
-// D = 128, one block otherwise; and the result columns a block owns.
+// The blocks that share a head's result columns (its column groups): from
+// D = 128 up, D / 64 blocks of 64 columns each (two halves at 128, three at
+// 192, four at 256), one block below 128; and the result columns a block
+// owns. Every block of a group computes the whole score row (its depth is
+// D), so a thread's result accumulators stay those of D = 64 however wide
+// the head.
 template <int D>
-__host__ __device__ constexpr int halves_of() {
-  static_assert(D % 16 == 0 && D >= 16 && D <= 128, "tile width: a multiple of 16 to 128");
-  return D == 128 ? 2 : 1;
+__host__ __device__ constexpr int groups_of() {
+  static_assert((D % 16 == 0 && D >= 16 && D <= 128) || D == 192 || D == 256,
+                "tile width: a multiple of 16 to 128, or 192 or 256");
+  return D < 128 ? 1 : D / 64;
 }
 template <int D>
-__host__ __device__ constexpr int cols_of() { return D / halves_of<D>(); }
+__host__ __device__ constexpr int cols_of() { return D / groups_of<D>(); }
 
 // The call's head width: D itself, or (in a library of one padded width)
 // the width the call passed in its arguments' `d`. The forwards keep the
@@ -236,6 +247,35 @@ __device__ __forceinline__ void product_nt(float (&c)[NT][4], const uint32_t (&a
     for (int np = 0; np < NT / 2; ++np) {
       mma_bf16(c[2 * np], a[ks], b[np][0], b[np][1]);
       mma_bf16(c[2 * np + 1], a[ks], b[np][2], b[np][3]);
+    }
+  }
+}
+
+// The A fragments of a warp's 16 rows that a product over the whole depth
+// D holds for its sweep: all D / 16 of them up to D = 128 (load_a); none
+// above, where 64 or more registers of them beside the score, dP and result
+// tiles would spill, and product_a reads them again 64 columns at a time.
+template <int D, int KD>
+__device__ __forceinline__ void load_a_held(uint32_t (&a)[KD][4], const bf16* rows) {
+  if constexpr (D <= 128) load_a<D>(a, rows);
+}
+
+// c += A * tile^T over the whole depth D (product_nt), A a warp's 16 rows
+// of a tile in shared memory (`rows`): from the held fragments `a` up to
+// D = 128, from depth slices of 64 columns loaded in turn above. The
+// slices walk the depth in the order product_nt walks it, so each
+// accumulator sees the same mma.sync in the same order either way.
+template <int D, int NT, int KD>
+__device__ __forceinline__ void product_a(float (&c)[NT][4], const uint32_t (&a)[KD][4],
+                                          const bf16* rows, const bf16* tile) {
+  if constexpr (D <= 128) {
+    product_nt<D>(c, a, tile);
+  } else {
+#pragma unroll
+    for (int d0 = 0; d0 < D; d0 += 64) {
+      uint32_t slice[4][4];
+      load_a<D>(slice, rows + d0);
+      product_nt<D>(c, slice, tile + d0);
     }
   }
 }

@@ -9,9 +9,11 @@
 //     code is what it was before other widths came: every row is the whole
 //     tile, every load and store 16 bytes;
 //   - built with -DMKG_ATTN_DP=<Dp> (kernels/build.py, one library a padded
-//     width): the one instance D = Dp, a multiple of 16 from 16 to 128, for
-//     every call whose width d rounds up to it (d in Dp - 15 .. Dp, d not 64
-//     or 128). The call passes d. The columns d .. Dp - 1 of every staged
+//     width): the one instance D = Dp, a multiple of 16 from 16 to 128, or
+//     192 or 256 (above 128 the tile widths are multiples of 64, as every
+//     block there owns 64 result columns), for every call whose width d
+//     rounds up to it (d in Dp - 15 .. Dp up to 128, Dp - 63 .. Dp above;
+//     d not 64 or 128). The call passes d. The columns d .. Dp - 1 of every staged
 //     tile are zero: a zero column of Q and K leaves each score as it is, a
 //     zero column of V or of the output cotangent leaves P V, dP and delta as
 //     they are, so the products run over Dp columns as over d and the
@@ -32,15 +34,19 @@
 namespace attention_width {
 
 #ifdef MKG_ATTN_DP
-static_assert(MKG_ATTN_DP % 16 == 0 && MKG_ATTN_DP >= 16 && MKG_ATTN_DP <= 128,
-              "MKG_ATTN_DP: a multiple of 16 from 16 to 128");
+static_assert((MKG_ATTN_DP % 16 == 0 && MKG_ATTN_DP >= 16 && MKG_ATTN_DP <= 128) ||
+                  MKG_ATTN_DP == 192 || MKG_ATTN_DP == 256,
+              "MKG_ATTN_DP: a multiple of 16 from 16 to 128, or 192 or 256");
 constexpr bool kRagged = true;  // the call's width may be below the tile's
 #else
 constexpr bool kRagged = false;
 #endif
 
-// The tile width of a call of width d.
-__host__ __device__ constexpr int padded_width(int d) { return (d + 15) / 16 * 16; }
+// The tile width of a call of width d: d rounded up to a multiple of 16 up
+// to 128, of 64 above (kernels/build.py:padded_width).
+__host__ __device__ constexpr int padded_width(int d) {
+  return d <= 128 ? (d + 15) / 16 * 16 : (d + 63) / 64 * 64;
+}
 
 // f(std::integral_constant<int, D>{}) for the instance of this library that
 // takes a call of head width d, or `none` where it has none.
@@ -55,6 +61,22 @@ R with_width(int d, R none, F&& f) {
   if (d == 128) return f(std::integral_constant<int, 128>{});
 #endif
   return none;
+}
+
+// f(T{}) for the element type T of a call to a CUDA-core kernel of this
+// library (fused_attention_*.cu, flash_attention_*.cu), or `none` where it
+// has none: fp32 and bf16 in a library of 64 and 128 (bf16 only for a
+// measurement of the CUDA-core kernel beside the tensor-core one), fp32
+// alone in a library of one padded width, whose bf16 calls the
+// tensor-core kernels take (so nvcc compiles half as many kernels there).
+template <class R, class F>
+R with_type(int is_bf16, R none, F&& f) {
+  if (!is_bf16) return f(float{});
+  if constexpr (kRagged) {
+    return none;
+  } else {
+    return f(__nv_bfloat16{});
+  }
 }
 
 // Whether every row of a head of `cols` columns that starts at p, rows

@@ -17,7 +17,7 @@
 //
 // with the cast points of the Pallas bodies (:233-254, :320), on the packed
 // (B, L, heads * D) layout in and out, D = 64 or 128 (ViLBERT's visual
-// stream), each width its own instantiation, or any other width up to 128
+// stream), each width its own instantiation, or any other width up to 256
 // through the instance of its padded width, in a library of its own
 // (attention_width.cuh, as flash_attention_fwd.cu). Every sum is fp32; q, k, v, g and the
 // results are bf16 or fp32. The dropout masks are the forward's
@@ -56,7 +56,10 @@
 // scores bit for bit. The products run on the CUDA cores (no mma.sync,
 // wgmma or TMA yet): a simple kernel that is right first. At D = 128 a
 // lane's key or query row takes 128 registers and the staged rows 178 KB
-// (dK/dV) and 174 KB (dQ) of shared memory, one block an SM.
+// (dK/dV) and 174 KB (dQ) of shared memory, one block an SM. Above 128
+// (192, 256) the row is read from shared memory at every product
+// (attention_width.cuh, HeadRow) and chunks are of 64 rows or keys: 201 KB
+// (dK/dV) and 199 KB (dQ) at 256.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -72,24 +75,12 @@ constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
 constexpr int kPerBlock = 32;          // keys per dK/dV block, rows per dQ block
 constexpr int kPerWarp = kPerBlock / kWarps;
-constexpr int kChunk = 128;            // rows (dK/dV) or keys (dQ) staged at a time
+// Rows (dK/dV) or keys (dQ) staged at a time: 128, or 64 above D = 128,
+// where two chunks of 128 rows of 192 or 256 fp32 columns would pass a
+// block's shared memory.
+template <int D>
+__host__ __device__ constexpr int chunk_of() { return D <= 128 ? 128 : 64; }
 constexpr float kNegBias = -10000.0f;  // reference padding bias
-
-__device__ __forceinline__ void load_chunk(const float* p, float* f) {
-  const float4 x = *reinterpret_cast<const float4*>(p);
-  f[0] = x.x; f[1] = x.y; f[2] = x.z; f[3] = x.w;
-}
-
-__device__ __forceinline__ void load_chunk(const __nv_bfloat16* p, float* f) {
-  const uint4 x = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&x);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 t = __bfloat1622float2(h[i]);
-    f[2 * i] = t.x;
-    f[2 * i + 1] = t.y;
-  }
-}
 
 __device__ __forceinline__ float2 load_pair(const float* p) {
   return *reinterpret_cast<const float2*>(p);
@@ -126,28 +117,6 @@ __device__ __forceinline__ bool dropout_keep(uint32_t idx, uint32_t seed_mix,
   x = (x ^ (x >> 15)) * 0x846CA68Bu;
   x = x ^ (x >> 16);
   return x >= threshold;
-}
-
-// fp32 dot product of a row held in registers with a D-wide row of T
-template <int D, typename T>
-__device__ __forceinline__ float dot_row(const float* a, const T* b) {
-  constexpr int kVec = 16 / sizeof(T);
-  float acc = 0.0f;
-#pragma unroll
-  for (int c = 0; c < D; c += kVec) {
-    float bf[kVec];
-    load_chunk(b + c, bf);
-#pragma unroll
-    for (int i = 0; i < kVec; ++i) acc = fmaf(a[c + i], bf[i], acc);
-  }
-  return acc;
-}
-
-template <int D, typename T>
-__device__ __forceinline__ void load_row(const T* p, float* f) {
-  constexpr int kVec = 16 / sizeof(T);
-#pragma unroll
-  for (int c = 0; c < D; c += kVec) load_chunk(p + c, f + c);
 }
 
 // The analogy geometry of attention.py:_geometry_planes, per row: whether
@@ -211,13 +180,13 @@ struct Layout {
   // dK/dV: K and V of the block's keys, q and g of a row chunk, its lse
   // and delta, three fp32 rows per warp
   static constexpr size_t dkv_bytes =
-      2 * size_t(kPerBlock + kChunk) * kStride * sizeof(T) +
-      size_t(kChunk) * sizeof(float) * (2 + 3 * kWarps);
+      2 * size_t(kPerBlock + chunk_of<D>()) * kStride * sizeof(T) +
+      size_t(chunk_of<D>()) * sizeof(float) * (2 + 3 * kWarps);
   // dQ: q and g of the block's rows, K and V of a key chunk, its bias row,
   // two fp32 rows per warp
   static constexpr size_t dq_bytes =
-      2 * size_t(kPerBlock + kChunk) * kStride * sizeof(T) +
-      size_t(kChunk) * sizeof(float) * (1 + 2 * kWarps);
+      2 * size_t(kPerBlock + chunk_of<D>()) * kStride * sizeof(T) +
+      size_t(chunk_of<D>()) * sizeof(float) * (1 + 2 * kWarps);
 };
 
 // Stage `rows` rows of d elements from global memory (row stride hd) into
@@ -268,6 +237,7 @@ flash_attention_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                                const float* __restrict__ delta, T* __restrict__ dk,
                                T* __restrict__ dv, float* __restrict__ dw_part, Args a) {
   constexpr int kStride = Layout<T, D>::kStride;
+  constexpr int kChunk = chunk_of<D>();
   // column pairs a lane owns: 2 lane + 64 c, c < kPairs (those below d)
   constexpr int kPairs = (D + 63) / 64;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -329,12 +299,11 @@ flash_attention_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const bool col_answer = geo.col_is_answer(j);
       // s_raw, P and P_drop for this key column, the key row in registers.
       {
-        float kf[D];
-        load_row<D>(ks + jl * kStride, kf);
+        const attention_width::HeadRow<D, T> kf(ks + jl * kStride);
         for (int i = lane; i < n; i += 32) {
           const int r = r0 + i;
           const RowGeometry rg = geo.row(r);
-          const float acc = dot_row<D>(kf, qs + i * kStride);
+          const float acc = kf.dot(qs + i * kStride);
           const float p = expf(score(acc, a.scale, a.has_geometry, rg.in_scope && col_answer,
                                      rg.w, bias) -
                                lse_s[i]);
@@ -347,12 +316,11 @@ flash_attention_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
       }
       // dP, dS, the dw partials and dS_raw, the value row in registers.
       {
-        float vf[D];
-        load_row<D>(vs + jl * kStride, vf);
+        const attention_width::HeadRow<D, T> vf(vs + jl * kStride);
         for (int i = lane; i < n; i += 32) {
           const int r = r0 + i;
           const RowGeometry rg = geo.row(r);
-          float dp = dot_row<D>(vf, gs + i * kStride);
+          float dp = vf.dot(gs + i * kStride);
           if (a.dropout) dp = tiles.keep(r, j) ? __fmul_rn(dp, a.inv_keep) : 0.0f;
           float ds = d_row[i] * (dp - delta_s[i]);
           if (rg.in_scope && col_answer) {
@@ -440,6 +408,7 @@ flash_attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                               const float* __restrict__ w, const float* __restrict__ lse,
                               const float* __restrict__ delta, T* __restrict__ dq, Args a) {
   constexpr int kStride = Layout<T, D>::kStride;
+  constexpr int kChunk = chunk_of<D>();
   constexpr int kPairs = (D + 63) / 64;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* qs = reinterpret_cast<T*>(smem_raw);
@@ -497,20 +466,18 @@ flash_attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const RowGeometry rg = geo.row(r);
       // P for this row over the chunk, the query row in registers.
       {
-        float qf[D];
-        load_row<D>(qs + il * kStride, qf);
+        const attention_width::HeadRow<D, T> qf(qs + il * kStride);
         for (int j = lane; j < n; j += 32) {
-          p_row[j] = expf(score(dot_row<D>(qf, ks + j * kStride), a.scale, a.has_geometry,
+          p_row[j] = expf(score(qf.dot(ks + j * kStride), a.scale, a.has_geometry,
                                 rg.in_scope && geo.col_is_answer(c0 + j), rg.w, bias_s[j]) -
                           lse_r[t]);
         }
       }
       // dP, dS and dS_raw, the cotangent row in registers.
       {
-        float gf[D];
-        load_row<D>(gs + il * kStride, gf);
+        const attention_width::HeadRow<D, T> gf(gs + il * kStride);
         for (int j = lane; j < n; j += 32) {
-          float dp = dot_row<D>(gf, vs + j * kStride);
+          float dp = gf.dot(vs + j * kStride);
           if (a.dropout) dp = tiles.keep(r, c0 + j) ? __fmul_rn(dp, a.inv_keep) : 0.0f;
           float ds = p_row[j] * (dp - delta_r[t]);
           if (rg.in_scope && geo.col_is_answer(c0 + j)) ds = ds * rg.w;
@@ -634,7 +601,8 @@ const char* mkg_cuda_error_string(int err) {
 size_t mkg_flash_attention_bwd_smem(int is_bf16, int head_dim) {
   return attention_width::with_width(head_dim, size_t(0), [&](auto width) {
     constexpr int D = decltype(width)::value;
-    return is_bf16 ? smem_of<__nv_bfloat16, D>() : smem_of<float, D>();
+    return attention_width::with_type(is_bf16, size_t(0),
+                                      [&](auto t) { return smem_of<decltype(t), D>(); });
   });
 }
 
@@ -657,8 +625,10 @@ int mkg_flash_attention_bwd_dkv(const void* q, const void* k, const void* v, con
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return attention_width::with_width(head_dim, int(cudaErrorInvalidValue), [&](auto width) {
     constexpr int D = decltype(width)::value;
-    auto fn = is_bf16 ? &launch_dkv<__nv_bfloat16, D> : &launch_dkv<float, D>;
-    return fn(q, k, v, g, mask, boundary, w, lse, delta, dk, dv, dw_part, batch, a, s);
+    return attention_width::with_type(is_bf16, int(cudaErrorInvalidValue), [&](auto t) {
+      return launch_dkv<decltype(t), D>(q, k, v, g, mask, boundary, w, lse, delta, dk, dv,
+                                        dw_part, batch, a, s);
+    });
   });
 }
 
@@ -678,8 +648,10 @@ int mkg_flash_attention_bwd_dq(const void* q, const void* k, const void* v, cons
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return attention_width::with_width(head_dim, int(cudaErrorInvalidValue), [&](auto width) {
     constexpr int D = decltype(width)::value;
-    auto fn = is_bf16 ? &launch_dq<__nv_bfloat16, D> : &launch_dq<float, D>;
-    return fn(q, k, v, g, mask, boundary, w, lse, delta, dq, batch, a, s);
+    return attention_width::with_type(is_bf16, int(cudaErrorInvalidValue), [&](auto t) {
+      return launch_dq<decltype(t), D>(q, k, v, g, mask, boundary, w, lse, delta, dq, batch,
+                                       a, s);
+    });
   });
 }
 

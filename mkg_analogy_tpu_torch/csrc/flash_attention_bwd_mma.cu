@@ -17,7 +17,7 @@
 //
 // with those cast points, every sum in fp32, on the packed (B, L, heads * D)
 // layout, D = 64 or 128 (ViLBERT's visual stream), each width its own
-// instantiation, or any other width up to 128 through the instance of its
+// instantiation, or any other width up to 256 through the instance of its
 // padded width, in a library of its own (attention_width.cuh). The plain
 // version is kernels/flash_attention.py:_plain_bwd; fp32
 // inputs stay on the CUDA-core kernels of flash_attention_bwd.cu
@@ -67,7 +67,11 @@
 // the wrapper's sum counts each once. Shared memory is 106 KB a block at
 // 128 (55 KB at 64), so two blocks still fit an SM. At the other tile
 // widths (16 to 112) a block owns all D result columns (cols_of<D>), and
-// the A fragments are held for the sweep up to D = 64, reloaded above.
+// the A fragments are held for the sweep up to D = 64, reloaded above. At
+// 192 and 256 three or four blocks own 64 columns each, as the halves at
+// 128 do, and each product over the depth loads its A fragments 64 columns
+// at a time (attention_mma.cuh: product_a); shared memory is 207 KB a block
+// at 256, one block an SM.
 //
 // Dropout is the forward's mask (flash_attention_fwd.cu): the interpret-mode
 // hash keyed to the logical (bq, bk) tiles, idx = (r - qb * bq) * bk +
@@ -144,17 +148,17 @@ __device__ __forceinline__ void row_part(const Args& a, int row, uint32_t& base,
 }
 
 // The block's coordinates: its tile of 64 rows (keys in the dK/dV kernel,
-// query rows in the dQ kernel), its half of the head's result columns
-// (always 0 at D = 64), head and batch row.
+// query rows in the dQ kernel), its group of the head's result columns
+// (always 0 below D = 128), head and batch row.
 template <int D>
 struct Block {
-  int tile, half, h, b;
+  int tile, group, h, b;
   __device__ __forceinline__ Block()
-      : tile(blockIdx.x / halves_of<D>()), half(blockIdx.x % halves_of<D>()), h(blockIdx.y),
+      : tile(blockIdx.x / groups_of<D>()), group(blockIdx.x % groups_of<D>()), h(blockIdx.y),
         b(blockIdx.z) {}
 };
 
-// dK/dV, per 64 keys (and at D = 128 one half of their columns): one sweep
+// dK/dV, per 64 keys (and from D = 128 up 64 of their columns): one sweep
 // over the query rows.
 template <int D>
 __global__ void __launch_bounds__(kThreads, 2) dkv_kernel(const Args a) {
@@ -256,8 +260,8 @@ __global__ void __launch_bounds__(kThreads, 2) dkv_kernel(const Args a) {
     }
     __syncthreads();
     if (kHold && it == 0) {
-      load_a<D>(ka, k_rows);
-      load_a<D>(va, v_rows);
+      load_a_held<D>(ka, k_rows);
+      load_a_held<D>(va, v_rows);
     }
     const int buf = it & 1;
     // query rows 32 rh .. 32 rh + 31 of the chunk; the loop is kept
@@ -270,12 +274,12 @@ __global__ void __launch_bounds__(kThreads, 2) dkv_kernel(const Args a) {
       const float4* rgeo = geo_s + buf * kTile + rh * 32;
 
       float st[4][4], dpt[4][4];
-      if (!kHold) load_a<D>(va, v_rows);
+      if (!kHold) load_a_held<D>(va, v_rows);
       zero(dpt);
-      product_nt<D>(dpt, va, gc);  // dP^T = V g^T
-      if (!kHold) load_a<D>(ka, k_rows);
+      product_a<D>(dpt, va, v_rows, gc);  // dP^T = V g^T
+      if (!kHold) load_a_held<D>(ka, k_rows);
       zero(st);
-      product_nt<D>(st, ka, qc);  // S^T = K Q^T
+      product_a<D>(st, ka, k_rows, qc);  // S^T = K Q^T
 #pragma unroll
       for (int nt = 0; nt < 4; ++nt) {
 #pragma unroll
@@ -308,19 +312,19 @@ __global__ void __launch_bounds__(kThreads, 2) dkv_kernel(const Args a) {
       uint32_t pa[2][4], da[2][4];
       pack_a(pa, st);
       pack_a(da, dpt);
-      product_nn<D>(dv_acc, pa, gc + blk.half * W);  // dv += P_drop^T g
-      product_nn<D>(dk_acc, da, qc + blk.half * W);  // dk += dS_raw^T Q
+      product_nn<D>(dv_acc, pa, gc + blk.group * W);  // dv += P_drop^T g
+      product_nn<D>(dk_acc, da, qc + blk.group * W);  // dk += dS_raw^T Q
     }
     __syncthreads();  // the buffers are refilled by the load after next
   }
 
-  const int keys_valid = a.lk - key0 - warp * 16, cols_valid = d - blk.half * W;
-  const size_t out_off = tile_off + size_t(warp) * 16 * hd + blk.half * W;
+  const int keys_valid = a.lk - key0 - warp * 16, cols_valid = d - blk.group * W;
+  const size_t out_off = tile_off + size_t(warp) * 16 * hd + blk.group * W;
   store_rows<D>(a.dk + out_off, hd, keys_valid, k_s + warp * 16 * stride_of<D>(), dk_acc,
                 cols_valid);
   store_rows<D>(a.dv + out_off, hd, keys_valid, v_s + warp * 16 * stride_of<D>(), dv_acc,
                 cols_valid);
-  if (blk.half != 0) return;  // the first half's block writes the keys' dw partial
+  if (blk.group != 0) return;  // the first group's block writes the keys' dw partial
   dw0 = warp_sum(dw0);
   dw1 = warp_sum(dw1);
   if (lane == 0) {
@@ -334,13 +338,13 @@ __global__ void __launch_bounds__(kThreads, 2) dkv_kernel(const Args a) {
       t0 += dw_s[i][0];
       t1 += dw_s[i][1];
     }
-    float* dst = a.dw_part + (size_t(cell) * (gridDim.x / halves_of<D>()) + blk.tile) * 2;
+    float* dst = a.dw_part + (size_t(cell) * (gridDim.x / groups_of<D>()) + blk.tile) * 2;
     dst[0] = t0;
     dst[1] = t1;
   }
 }
 
-// dQ, per 64 query rows (and at D = 128 one half of their columns): one
+// dQ, per 64 query rows (and from D = 128 up 64 of their columns): one
 // sweep over the keys.
 template <int D>
 __global__ void __launch_bounds__(kThreads, 2) dq_kernel(const Args a) {
@@ -438,20 +442,20 @@ __global__ void __launch_bounds__(kThreads, 2) dq_kernel(const Args a) {
     }
     __syncthreads();
     if (kHold && it == 0) {
-      load_a<D>(qa, q_rows);
-      load_a<D>(ga, g_rows);
+      load_a_held<D>(qa, q_rows);
+      load_a_held<D>(ga, g_rows);
     }
     const int buf = it & 1;
     const bf16* kc = k_s + buf * tile_elems<D>();
     const float4* keys = key_s + buf * kTile;
 
     float s[8][4], dp[8][4];
-    if (!kHold) load_a<D>(qa, q_rows);
+    if (!kHold) load_a_held<D>(qa, q_rows);
     zero(s);
-    product_nt<D>(s, qa, kc);  // S = Q K^T
-    if (!kHold) load_a<D>(ga, g_rows);
+    product_a<D>(s, qa, q_rows, kc);  // S = Q K^T
+    if (!kHold) load_a_held<D>(ga, g_rows);
     zero(dp);
-    product_nt<D>(dp, ga, v_s + buf * tile_elems<D>());  // dP = g V^T
+    product_a<D>(dp, ga, g_rows, v_s + buf * tile_elems<D>());  // dP = g V^T
 #pragma unroll
     for (int nt = 0; nt < 8; ++nt) {
 #pragma unroll
@@ -474,13 +478,13 @@ __global__ void __launch_bounds__(kThreads, 2) dq_kernel(const Args a) {
     }
     uint32_t da[4][4];
     pack_a(da, s);
-    product_nn<D>(acc, da, kc + blk.half * W);  // dq += dS_raw K
+    product_nn<D>(acc, da, kc + blk.group * W);  // dq += dS_raw K
     __syncthreads();  // the buffers are refilled by the load after next
   }
 
-  store_rows<D>(a.dq + tile_off + size_t(warp) * 16 * hd + blk.half * W, hd,
+  store_rows<D>(a.dq + tile_off + size_t(warp) * 16 * hd + blk.group * W, hd,
                 a.lq - row0 - warp * 16, q_s + warp * 16 * stride_of<D>(), acc,
-                d - blk.half * W);
+                d - blk.group * W);
 }
 
 int launch_kernel(void (*kernel)(const Args), dim3 grid, int smem, const Args& a,
@@ -575,7 +579,7 @@ int mkg_flash_attention_bwd_dkv_mma(const void* q, const void* k, const void* v,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return attention_width::with_width(head_dim, int(cudaErrorInvalidValue), [&](auto width) {
     constexpr int D = decltype(width)::value;
-    const dim3 grid((lk + kTile - 1) / kTile * halves_of<D>(), num_heads, batch);
+    const dim3 grid((lk + kTile - 1) / kTile * groups_of<D>(), num_heads, batch);
     return launch_kernel(dkv_kernel<D>, grid, dkv_smem<D>(), a, s);
   });
 }
@@ -597,7 +601,7 @@ int mkg_flash_attention_bwd_dq_mma(const void* q, const void* k, const void* v, 
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return attention_width::with_width(head_dim, int(cudaErrorInvalidValue), [&](auto width) {
     constexpr int D = decltype(width)::value;
-    const dim3 grid((lq + kTile - 1) / kTile * halves_of<D>(), num_heads, batch);
+    const dim3 grid((lq + kTile - 1) / kTile * groups_of<D>(), num_heads, batch);
     return launch_kernel(dq_kernel<D>, grid, dq_smem<D>(), a, s);
   });
 }

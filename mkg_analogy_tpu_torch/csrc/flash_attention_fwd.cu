@@ -6,7 +6,7 @@
 // flash_attention_fwd_mma.cu). Contract, per (batch row, head), on the
 // packed (B, L, heads * D) layout in and out, D = 64 (BERT-base, ViT-B) or
 // 128 (ViLBERT's visual stream: 1024 wide, 8 heads), each width its own
-// instantiation, or any other width up to 128 through the instance of its
+// instantiation, or any other width up to 256 through the instance of its
 // padded width, in a library of its own (attention_width.cuh: rows staged
 // element by element, zero beyond the real width; a lane's column pairs
 // past it are neither summed nor stored):
@@ -53,11 +53,14 @@
 //   - each warp owns 4 rows for the whole kernel, with their running max,
 //     sum and accumulator in registers (lane l owns output columns 2l and
 //     2l+1 of each 64 columns: two at D = 64, four at 128); lane j scores
-//     keys j, j + 32, ... of a chunk, its query row in D registers.
+//     keys j, j + 32, ... of a chunk, its query row in D registers (read
+//     from shared memory at every product above D = 128, where D registers
+//     would pass a thread's 255: attention_width.cuh, HeadRow).
 // Chunked staging keeps fp32 at bk = 512 within one block's shared memory
-// (108.5 KB at D = 64, 148.5 KB at 128; a whole 512-key K + V tile would be
-// 256 KB or 512 KB). The products run on the CUDA cores (no mma.sync, wgmma
-// or TMA yet): a simple kernel that is right first.
+// (108.5 KB at D = 64, 148.5 KB at 128, 163.5 KB at 256 with chunks of 64
+// keys; a whole 512-key K + V tile would be 256 KB or 512 KB). The
+// products run on the CUDA cores (no mma.sync, wgmma or TMA yet): a simple
+// kernel that is right first.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -73,25 +76,13 @@ constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
 constexpr int kRowsPerBlock = 32;
 constexpr int kRowsPerWarp = kRowsPerBlock / kWarps;
-constexpr int kChunk = 128;            // keys staged at a time
+// Keys staged at a time: 128, or 64 above D = 128, where 128 rows of 192
+// or 256 fp32 columns beside a 512-key tile's scores would pass a block's
+// shared memory.
+template <int D>
+__host__ __device__ constexpr int chunk_of() { return D <= 128 ? 128 : 64; }
 constexpr float kNegBias = -10000.0f;  // reference padding bias
 constexpr float kHardMask = -1e30f;    // flash_attention.py:HARD_MASK
-
-__device__ __forceinline__ void load_chunk(const float* p, float* f) {
-  const float4 x = *reinterpret_cast<const float4*>(p);
-  f[0] = x.x; f[1] = x.y; f[2] = x.z; f[3] = x.w;
-}
-
-__device__ __forceinline__ void load_chunk(const __nv_bfloat16* p, float* f) {
-  const uint4 x = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&x);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 t = __bfloat1622float2(h[i]);
-    f[2 * i] = t.x;
-    f[2 * i + 1] = t.y;
-  }
-}
 
 __device__ __forceinline__ float2 load_pair(const float* p) {
   return *reinterpret_cast<const float2*>(p);
@@ -134,28 +125,6 @@ __device__ __forceinline__ bool dropout_keep(uint32_t idx, uint32_t seed_mix,
   x = (x ^ (x >> 15)) * 0x846CA68Bu;
   x = x ^ (x >> 16);
   return x >= threshold;
-}
-
-// fp32 dot product of a row held in registers with a D-wide row of T
-template <int D, typename T>
-__device__ __forceinline__ float dot_row(const float* a, const T* b) {
-  constexpr int kVec = 16 / sizeof(T);
-  float acc = 0.0f;
-#pragma unroll
-  for (int c = 0; c < D; c += kVec) {
-    float bf[kVec];
-    load_chunk(b + c, bf);
-#pragma unroll
-    for (int i = 0; i < kVec; ++i) acc = fmaf(a[c + i], bf[i], acc);
-  }
-  return acc;
-}
-
-template <int D, typename T>
-__device__ __forceinline__ void load_row(const T* p, float* f) {
-  constexpr int kVec = 16 / sizeof(T);
-#pragma unroll
-  for (int c = 0; c < D; c += kVec) load_chunk(p + c, f + c);
 }
 
 // The analogy geometry of attention.py:_geometry_planes for row r.
@@ -204,7 +173,7 @@ struct Layout {
   // the block's q rows, one K or V chunk, the tile's bias row and the
   // tile's scores of every row
   static size_t smem_bytes(int bk) {
-    return size_t(kRowsPerBlock + kChunk) * kStride * sizeof(T) +
+    return size_t(kRowsPerBlock + chunk_of<D>()) * kStride * sizeof(T) +
            size_t(bk) * sizeof(float) * (1 + kRowsPerBlock);
   }
 };
@@ -239,6 +208,7 @@ flash_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                            uint32_t seed, uint32_t cell_stride, int bq,
                            int bk, int n_qblk, int n_kblk, int head_dim) {
   constexpr int kStride = Layout<T, D>::kStride;
+  constexpr int kChunk = chunk_of<D>();
   // column pairs a lane owns: 2 lane + 64 c, c < kPairs (those below d)
   constexpr int kPairs = (D + 63) / 64;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -292,11 +262,10 @@ flash_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const int il = warp + kWarps * t;
         if (il < n_rows) {
           const RowGeometry rg = geo.row(r_begin + il);
-          float qf[D];
-          load_row<D>(qs + il * kStride, qf);
+          const attention_width::HeadRow<D, T> qrow(qs + il * kStride);
           float* srow = s_tile + il * bk;
           for (int j = lane; j < n; j += 32) {
-            srow[c0 + j] = score(dot_row<D>(qf, cs + j * kStride), scale, has_geometry,
+            srow[c0 + j] = score(qrow.dot(cs + j * kStride), scale, has_geometry,
                                  rg.in_scope && geo.col_is_answer(c_begin + c0 + j), rg.w,
                                  bias_s[c0 + j]);
           }
@@ -426,7 +395,8 @@ int launch(const void* q, const void* k, const void* v, const void* mask,
 
 template <int D>
 size_t smem_of(int bk, int is_bf16) {
-  return is_bf16 ? Layout<__nv_bfloat16, D>::smem_bytes(bk) : Layout<float, D>::smem_bytes(bk);
+  return attention_width::with_type(
+      is_bf16, size_t(0), [&](auto t) { return Layout<decltype(t), D>::smem_bytes(bk); });
 }
 
 }  // namespace
@@ -460,10 +430,12 @@ int mkg_flash_attention_fwd(const void* q, const void* k, const void* v, const v
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return attention_width::with_width(head_dim, int(cudaErrorInvalidValue), [&](auto width) {
     constexpr int D = decltype(width)::value;
-    auto fn = is_bf16 ? &launch<__nv_bfloat16, D> : &launch<float, D>;
-    return fn(q, k, v, mask, boundary, w, out, lse, batch, lq, lk, num_heads, scale,
-              has_geometry, row_start, text_len, offset, dropout, threshold, inv_keep, seed,
-              cell_stride, bq, bk, n_qblk, n_kblk, head_dim, s);
+    return attention_width::with_type(is_bf16, int(cudaErrorInvalidValue), [&](auto t) {
+      return launch<decltype(t), D>(q, k, v, mask, boundary, w, out, lse, batch, lq, lk,
+                                    num_heads, scale, has_geometry, row_start, text_len, offset,
+                                    dropout, threshold, inv_keep, seed, cell_stride, bq, bk,
+                                    n_qblk, n_kblk, head_dim, s);
+    });
   });
 }
 

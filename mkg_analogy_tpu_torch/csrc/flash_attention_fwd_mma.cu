@@ -5,7 +5,7 @@
 // _flash_attention_fwd, the pl.pallas_call at :393). Contract, per (batch
 // row, head), on the packed (B, L, heads * D) layout in and out, D = 64 or
 // 128 (ViLBERT's visual stream: 1024 wide, 8 heads), each width its own
-// instantiation, or any other width up to 128 through the instance of its
+// instantiation, or any other width up to 256 through the instance of its
 // padded width, in a library of its own (attention_width.cuh; the call's
 // width rides in the flags' bits 8 and up, so the arguments stay 128 bytes):
 //
@@ -76,7 +76,10 @@
 //     memory, so both widths take theirs dynamically). A 16 x 256 score row
 //     beside 128 columns of Q fragments would spill. At the other tile
 //     widths (16 to 112) a block owns all D output columns (cols_of<D>);
-//     keys stay resident up to 256 at D <= 64, up to 128 above.
+//     keys stay resident up to 256 at D <= 64, up to 128 above. At 192 and
+//     256 three or four blocks own 64 output columns each, and the score
+//     takes its Q fragments 64 columns at a time (attention_mma.cuh:
+//     product_a): 118 KB of shared memory a block at 256.
 // A score is one FMA from the accumulator on the plain version's fp32 grid
 // (attention_mma.cuh: scores, ScoreRule<D>: at 128 with a geometry s_raw is
 // rounded first); exp(s - m) is ex2.approx of (s - m) * log2 e, the
@@ -239,18 +242,18 @@ __device__ __forceinline__ void close_tile(const float (&sum)[2], const float (&
   }
 }
 
-// The block's coordinates: its tile of 64 query rows, its half of the head's
-// output columns (always 0 at D = 64), head and batch row.
+// The block's coordinates: its tile of 64 query rows, its group of the
+// head's output columns (always 0 below D = 128), head and batch row.
 template <int D>
 struct Block {
-  int tile, half, h, b;
+  int tile, group, h, b;
   __device__ __forceinline__ Block()
-      : tile(blockIdx.x / halves_of<D>()), half(blockIdx.x % halves_of<D>()), h(blockIdx.y),
+      : tile(blockIdx.x / groups_of<D>()), group(blockIdx.x % groups_of<D>()), h(blockIdx.y),
         b(blockIdx.z) {}
 };
 
 // out = acc / l (fp32, then rounded to bf16) of the block's columns and,
-// from the first half's block, lse = m + log(l) of the lane's rows; rows
+// from the first group's block, lse = m + log(l) of the lane's rows; rows
 // beyond Lq are not stored. `stage`: the block's Q tile, whose rows of a
 // warp no other warp reads.
 template <int D>
@@ -271,10 +274,10 @@ __device__ __forceinline__ void finish(const Args& a, const Block<D>& blk, int r
     o[nt][2] = o[nt][2] / l[1];
     o[nt][3] = o[nt][3] / l[1];
   }
-  store_rows<D>(a.out + (size_t(b) * a.lq + row0 + warp * 16) * hd + h * d + blk.half * W, hd,
+  store_rows<D>(a.out + (size_t(b) * a.lq + row0 + warp * 16) * hd + h * d + blk.group * W, hd,
                 a.lq - row0 - warp * 16, stage + warp * 16 * stride_of<D>(), o,
-                d - blk.half * W);
-  if (blk.half == 0 && (threadIdx.x & 3) == 0) {
+                d - blk.group * W);
+  if (blk.group == 0 && (threadIdx.x & 3) == 0) {
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int row = ln.row_g + 8 * r;
@@ -299,13 +302,13 @@ __global__ void __launch_bounds__(kThreads) fwd_resident_kernel(const Args a) {
   const int h = blk.h, b = blk.b;
   int d = D;  // the head width: a constant in a library of 64 and 128 (PERF.md)
   if constexpr (kRagged) d = a.flags >> 8;
-  const int v_cols = d - blk.half * W;
+  const int v_cols = d - blk.group * W;
   const int hd = a.num_heads * d;
   const int warp = threadIdx.x >> 5, t = threadIdx.x & 3;
   const int row0 = blk.tile * kTile;
   const int n_chunks = (a.lk + kTile - 1) / kTile;  // <= NC
   const bf16* k_bh = a.k + size_t(b) * a.lk * hd + h * d;
-  const bf16* v_bh = a.v + size_t(b) * a.lk * hd + h * d + blk.half * W;
+  const bf16* v_bh = a.v + size_t(b) * a.lk * hd + h * d + blk.group * W;
 
   // every load of the block, one commit group a chunk: Q with K's first
   stage_tile<D>(q_s, a.q + (size_t(b) * a.lq + row0) * hd + h * d, a.lq - row0, hd, d);
@@ -423,12 +426,12 @@ __global__ void __launch_bounds__(kThreads) fwd_streaming_kernel(const Args a) {
   const int h = blk.h, b = blk.b;
   int d = D;  // the head width: a constant in a library of 64 and 128 (PERF.md)
   if constexpr (kRagged) d = a.flags >> 8;
-  const int v_cols = d - blk.half * W;
+  const int v_cols = d - blk.group * W;
   const int hd = a.num_heads * d;
   const int warp = threadIdx.x >> 5, t = threadIdx.x & 3;
   const int row0 = blk.tile * kTile;
   const bf16* k_bh = a.k + size_t(b) * a.lk * hd + h * d;
-  const bf16* v_bh = a.v + size_t(b) * a.lk * hd + h * d + blk.half * W;
+  const bf16* v_bh = a.v + size_t(b) * a.lk * hd + h * d + blk.group * W;
   const float* mask_b = a.mask + size_t(b) * a.lk;
 
   // One commit group a chunk: K (and in the second sweep V) and its bias;
@@ -467,11 +470,11 @@ __global__ void __launch_bounds__(kThreads) fwd_streaming_kernel(const Args a) {
     load_next();  // into the buffer the previous item was read from
     cp_async_wait<1>();
     __syncthreads();
-    if (first) load_a<D>(qa, q_s + warp * 16 * stride_of<D>());
+    if (first) load_a_held<D>(qa, q_s + warp * 16 * stride_of<D>());
 
     float s[8][4];
     zero(s);
-    product_nt<D>(s, qa, k_s + buf * tile_elems<D>());
+    product_a<D>(s, qa, q_s + warp * 16 * stride_of<D>(), k_s + buf * tile_elems<D>());
     scores<D>(s, ln.geo.answer_bits(wk.chunk_key0() + 2 * t), ln.rule.c_plain, ln.c_row,
               bias_s + buf * kTile, cmax, ln.rule.pre);
     if (wk.sweep == 0) {
@@ -526,7 +529,7 @@ void (*pick(int lk, int bk, int& smem))(const Args) {
 
 template <int D>
 int launch(const Args& a, int batch, cudaStream_t s) {
-  const dim3 grid((a.lq + kTile - 1) / kTile * halves_of<D>(), a.num_heads, batch);
+  const dim3 grid((a.lq + kTile - 1) / kTile * groups_of<D>(), a.num_heads, batch);
   int smem = 0;
   void (*kernel)(const Args) = pick<D>(a.lk, a.bk, smem);
   return launch_kernel(kernel, grid, smem, a, s);

@@ -14,7 +14,7 @@
 //
 // with the cast points of _bwd_kernel (:199, :208-217), on the packed
 // (B, L, heads * D) layout in and out, D = 64 or 128 (ViLBERT's visual
-// stream), each width its own instantiation, or any other width up to 128
+// stream), each width its own instantiation, or any other width up to 256
 // through the instance of its padded width, in a library of its own
 // (attention_width.cuh, as fused_attention_fwd.cu). Scores, softmax and every sum are in
 // fp32; q, k, v, g and the results are bf16 or fp32. The dropout mask is
@@ -60,7 +60,9 @@
 // a lane accumulates four result columns, 2l, 2l + 1 of each 64-column
 // half.
 //
-// Each pass whose rows do not fit a block takes a streaming form beside it, whose shared memory depends on neither length:
+// Each pass whose rows do not fit a block, and both passes above D = 128
+// (where a row of D floats would pass a thread's 255 registers), take a
+// streaming form beside it, whose shared memory depends on neither length:
 // the JAX kernel stages a head's whole K/V of any length (attention.py:
 // _specs), so the port takes every Lq and Lk too. Blocks of 16 warps take
 // the same 64 query rows (dq) or keys (dk/dv), 4 a warp, and stage those
@@ -75,7 +77,7 @@
 // result runs over the other side in order, as in the resident forms, so
 // the two give the same dq, dk, dv and row statistics bit for bit; only the
 // dw partials are summed in another order. Either form fits any length in
-// 227 KB (59 KB and 67 KB a block at D = 64 in fp32).
+// 227 KB (203 KB and 211 KB a block at D = 256 in fp32).
 // mkg_fused_attention_bwd_smem reports the larger of the forms the two
 // passes take; the wrapper holds it against the device's limit all the
 // same.
@@ -950,7 +952,8 @@ const char* mkg_cuda_error_string(int err) {
 size_t mkg_fused_attention_bwd_smem(int lq, int lk, int is_bf16, int head_dim) {
   return attention_width::with_width(head_dim, size_t(0), [&](auto width) {
     constexpr int D = decltype(width)::value;
-    return is_bf16 ? smem_bytes<__nv_bfloat16, D>(lq, lk) : smem_bytes<float, D>(lq, lk);
+    return attention_width::with_type(
+        is_bf16, size_t(0), [&](auto t) { return smem_bytes<decltype(t), D>(lq, lk); });
   });
 }
 
@@ -969,10 +972,12 @@ int mkg_fused_attention_bwd(const void* q, const void* k, const void* v, const v
                             void* stream) {
   return attention_width::with_width(head_dim, int(cudaErrorInvalidValue), [&](auto width) {
     constexpr int D = decltype(width)::value;
-    auto fn = is_bf16 ? &launch<__nv_bfloat16, D> : &launch<float, D>;
-    return fn(q, k, v, g, mask, boundary, w, dq, dk, dv, stats, dw_part, batch, lq, lk,
-              num_heads, scale, has_geometry, row_start, text_len, offset, dropout, threshold,
-              inv_keep, seed, cell_stride, head_dim, static_cast<cudaStream_t>(stream));
+    return attention_width::with_type(is_bf16, int(cudaErrorInvalidValue), [&](auto t) {
+      return launch<decltype(t), D>(q, k, v, g, mask, boundary, w, dq, dk, dv, stats, dw_part,
+                                    batch, lq, lk, num_heads, scale, has_geometry, row_start,
+                                    text_len, offset, dropout, threshold, inv_keep, seed,
+                                    cell_stride, head_dim, static_cast<cudaStream_t>(stream));
+    });
   });
 }
 

@@ -15,7 +15,7 @@
 //
 // with those cast points of _bwd_kernel, fp32 scores, softmax and sums, on
 // the packed (B, L, heads * D) layout, D = 64 or 128 (ViLBERT's visual
-// stream), each width its own instantiation, or any other width up to 128
+// stream), each width its own instantiation, or any other width up to 256
 // through the instance of its padded width, in a library of its own
 // (attention_width.cuh).
 //
@@ -59,7 +59,11 @@
 // multiplier applies (attention_mma.cuh: ScoreRule), and dS_raw is rounded
 // as (dS * multiplier) * scale, in the plain version's order. At the other
 // tile widths (16 to 112) a block of either pass owns all D result columns
-// (cols_of<D>), and the dq pass keeps its resident form up to D = 64.
+// (cols_of<D>), and the dq pass keeps its resident form up to D = 64. At
+// 192 and 256 three or four blocks own 64 result columns each, as the
+// halves at 128 do, and every product over the depth takes its A
+// fragments 64 columns at a time from shared memory (attention_mma.cuh:
+// product_a): 198 KB of shared memory a block at 256, one block an SM.
 // A lane holds rows g and g + 8 (g = lane / 4) and columns 2t, 2t + 1
 // (t = lane % 4) of each 16 x 8 tile; geometry and dropout index come from
 // those coordinates (in pass 2 the tile's rows are keys, its columns query
@@ -111,13 +115,13 @@ struct Args {
 };
 
 // The block's coordinates: its tile of 64 rows (query rows in the dq pass,
-// keys in the dk/dv pass), its half of the head's columns (always 0 at
-// D = 64), head and batch row.
+// keys in the dk/dv pass), its group of the head's columns (always 0 below
+// D = 128), head and batch row.
 template <int D>
 struct Block {
-  int tile, half, h, b;
+  int tile, group, h, b;
   __device__ __forceinline__ Block()
-      : tile(blockIdx.x / halves_of<D>()), half(blockIdx.x % halves_of<D>()), h(blockIdx.y),
+      : tile(blockIdx.x / groups_of<D>()), group(blockIdx.x % groups_of<D>()), h(blockIdx.y),
         b(blockIdx.z) {}
 };
 
@@ -243,9 +247,9 @@ __device__ __forceinline__ void finish_dq(const Args& a, const Lane<D>& ln, cons
   const int d = head_width<D>(a);
   const int hd = a.num_heads * d;
   const int row_w = blk.tile * kTile + warp * 16;
-  store_rows<D>(a.dq + (size_t(b) * a.lq + row_w) * hd + h * d + blk.half * W, hd,
-                a.lq - row_w, q_rows, acc, d - blk.half * W);
-  if (blk.half != 0) return;  // the statistics and dw are the first half's to write
+  store_rows<D>(a.dq + (size_t(b) * a.lq + row_w) * hd + h * d + blk.group * W, hd,
+                a.lq - row_w, q_rows, acc, d - blk.group * W);
+  if (blk.group != 0) return;  // the statistics and dw are the first group's to write
   if ((lane & 3) == 0) {
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
@@ -269,7 +273,7 @@ __device__ __forceinline__ void finish_dq(const Args& a, const Lane<D>& ln, cons
       t0 += dw_s[i][0];
       t1 += dw_s[i][1];
     }
-    const int tiles = gridDim.x / halves_of<D>();
+    const int tiles = gridDim.x / groups_of<D>();
     float* dst = a.dw_part + ((size_t(b) * a.num_heads + h) * tiles + blk.tile) * 2;
     dst[0] = t0;
     dst[1] = t1;
@@ -420,8 +424,8 @@ __global__ void __launch_bounds__(kThreads) dq_streaming_kernel(const Args a) {
     }
     __syncthreads();
     if (it == 0) {
-      load_a<D>(qa, q_s + warp * 16 * stride_of<D>());
-      load_a<D>(ga, g_s + warp * 16 * stride_of<D>());
+      load_a_held<D>(qa, q_s + warp * 16 * stride_of<D>());
+      load_a_held<D>(ga, g_s + warp * 16 * stride_of<D>());
     }
     const int buf = it & 1;
     const bool second = it >= n_chunks;
@@ -433,8 +437,8 @@ __global__ void __launch_bounds__(kThreads) dq_streaming_kernel(const Args a) {
     float cmax[2] = {-FLT_MAX, -FLT_MAX};
     zero(s);
     zero(dp);
-    product_nt<D>(s, qa, kc);
-    product_nt<D>(dp, ga, v_s + buf * tile_elems<D>());
+    product_a<D>(s, qa, q_s + warp * 16 * stride_of<D>(), kc);
+    product_a<D>(dp, ga, g_s + warp * 16 * stride_of<D>(), v_s + buf * tile_elems<D>());
     ch.mask_and_max(s, dp, cmax, a, ln);
 
     if (!second) {
@@ -461,7 +465,7 @@ __global__ void __launch_bounds__(kThreads) dq_streaming_kernel(const Args a) {
       ch.ds_raw(s, dp, m, inv_l, delta, dw0, dw1, a, ln);
       uint32_t da[4][4];
       pack_a(da, s);
-      product_nn<D>(acc, da, kc + blk.half * W);
+      product_nn<D>(acc, da, kc + blk.group * W);
     }
     __syncthreads();  // the buffer is refilled by the load after next
   }
@@ -550,9 +554,9 @@ __global__ void __launch_bounds__(kThreads) dkv_kernel(const Args a) {
     {
       uint32_t ka[D / 16][4], pa[4][4];  // K's fragments are reloaded a chunk: registers
       float pc[8][4];
-      load_a<D>(ka, k_s + warp * 16 * stride_of<D>());
+      load_a_held<D>(ka, k_s + warp * 16 * stride_of<D>());
       zero(pt);
-      product_nt<D>(pt, ka, qc);
+      product_a<D>(pt, ka, k_s + warp * 16 * stride_of<D>(), qc);
 #pragma unroll
       for (int nt = 0; nt < 8; ++nt) {
 #pragma unroll
@@ -575,16 +579,16 @@ __global__ void __launch_bounds__(kThreads) dkv_kernel(const Args a) {
         }
       }
       pack_a(pa, pc);
-      product_nn<D>(dv_acc, pa, gc + blk.half * W);
+      product_nn<D>(dv_acc, pa, gc + blk.group * W);
     }
 
     // dP^T = V g^T: dS_raw^T; dk += dS_raw^T Q
     {
       uint32_t va[D / 16][4];
       float dpt[8][4];
-      load_a<D>(va, v_s + warp * 16 * stride_of<D>());
+      load_a_held<D>(va, v_s + warp * 16 * stride_of<D>());
       zero(dpt);
-      product_nt<D>(dpt, va, gc);
+      product_a<D>(dpt, va, v_s + warp * 16 * stride_of<D>(), gc);
 #pragma unroll
       for (int nt = 0; nt < 8; ++nt) {
 #pragma unroll
@@ -599,13 +603,13 @@ __global__ void __launch_bounds__(kThreads) dkv_kernel(const Args a) {
       }
       uint32_t da[4][4];
       pack_a(da, dpt);
-      product_nn<D>(dk_acc, da, qc + blk.half * W);
+      product_nn<D>(dk_acc, da, qc + blk.group * W);
     }
     __syncthreads();  // the buffer is refilled by the load after next
   }
 
-  const int keys_valid = a.lk - key0 - warp * 16, cols_valid = d - blk.half * W;
-  const size_t out_off = tile_off + size_t(warp) * 16 * hd + blk.half * W;
+  const int keys_valid = a.lk - key0 - warp * 16, cols_valid = d - blk.group * W;
+  const size_t out_off = tile_off + size_t(warp) * 16 * hd + blk.group * W;
   store_rows<D>(a.dk + out_off, hd, keys_valid, k_s + warp * 16 * stride_of<D>(), dk_acc,
                 cols_valid);
   store_rows<D>(a.dv + out_off, hd, keys_valid, v_s + warp * 16 * stride_of<D>(), dv_acc,
@@ -623,14 +627,14 @@ int launch_kernel(void (*kernel)(const Args), dim3 grid, int smem, const Args& a
 
 template <int D>
 int launch(const Args& a, int batch, cudaStream_t s) {
-  const dim3 grid_dq((a.lq + kTile - 1) / kTile * halves_of<D>(), a.num_heads, batch);
+  const dim3 grid_dq((a.lq + kTile - 1) / kTile * groups_of<D>(), a.num_heads, batch);
   void (*dq_kernel)(const Args) = dq_streaming_kernel<D>;
   if constexpr (D <= 64) {
     if (a.lk <= kDqResidentChunks * kTile) dq_kernel = dq_resident_kernel<D>;
   }
   const int err = launch_kernel(dq_kernel, grid_dq, dq_smem<D>(), a, s);
   if (err != 0) return err;
-  const dim3 grid_dkv((a.lk + kTile - 1) / kTile * halves_of<D>(), a.num_heads, batch);
+  const dim3 grid_dkv((a.lk + kTile - 1) / kTile * groups_of<D>(), a.num_heads, batch);
   return launch_kernel(dkv_kernel<D>, grid_dkv, dkv_smem<D>(), a, s);
 }
 

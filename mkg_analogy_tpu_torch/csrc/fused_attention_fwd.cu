@@ -8,7 +8,7 @@
 // per (batch row, head), on the packed (B, L, heads * D) layout that the
 // projection GEMMs produce, for input and output; D, the head width, is 64
 // (BERT-base, ViT-B) or 128 (ViLBERT's visual stream), each its own
-// instantiation, or any other width up to 128 through the instance of its
+// instantiation, or any other width up to 256 through the instance of its
 // padded width, in a library of its own (attention_width.cuh: rows staged
 // and loaded element by element, zero beyond the real width, and a lane's
 // columns stored where they are below it). Scores and softmax are in
@@ -51,7 +51,8 @@
 // D = 128. At D = 128 a lane accumulates four output columns, 2l, 2l + 1
 // of each 64-column half.
 //
-// Longer keys take the streaming form beside it
+// Longer keys, and every call above D = 128 (where a query row of D floats
+// would pass a thread's 255 registers), take the streaming form beside it
 // (fused_attention_fwd_streaming_kernel), whose shared memory does not
 // depend on Lk: the JAX kernel stages a head's whole K/V of any length
 // (attention.py:_specs), so the port takes every Lk too (ViLT's 418 keys in
@@ -62,8 +63,8 @@
 // their sums of exp(s - max), then p = exp(s - max) / sum, dropped and
 // rounded, and P V. A lane sums keys lane, lane + 32, ... in order and a
 // row's P V runs over the keys in order, as the resident form does, so the
-// two give the same numbers bit for bit (42 KB a block at D = 64 in fp32).
-// mkg_fused_attention_fwd_smem reports the form a call takes; the
+// two give the same numbers bit for bit (138 KB a block at D = 256 in
+// fp32). mkg_fused_attention_fwd_smem reports the form a call takes; the
 // wrapper holds it against the device's limit all the same.
 //
 // The score is rounded as the plain version rounds it
@@ -507,7 +508,8 @@ const char* mkg_cuda_error_string(int err) {
 size_t mkg_fused_attention_fwd_smem(int lk, int is_bf16, int head_dim) {
   return attention_width::with_width(head_dim, size_t(0), [&](auto width) {
     constexpr int D = decltype(width)::value;
-    return is_bf16 ? smem_bytes<__nv_bfloat16, D>(lk) : smem_bytes<float, D>(lk);
+    return attention_width::with_type(is_bf16, size_t(0),
+                                      [&](auto t) { return smem_bytes<decltype(t), D>(lk); });
   });
 }
 
@@ -523,10 +525,12 @@ int mkg_fused_attention_fwd(const void* q, const void* k, const void* v,
                             unsigned int cell_stride, void* stream) {
   return attention_width::with_width(head_dim, int(cudaErrorInvalidValue), [&](auto width) {
     constexpr int D = decltype(width)::value;
-    auto fn = is_bf16 ? &launch<__nv_bfloat16, D> : &launch<float, D>;
-    return fn(q, k, v, mask, boundary, w, out, batch, lq, lk, num_heads, scale, has_geometry,
-              row_start, text_len, offset, dropout, threshold, keep_div, seed, cell_stride,
-              head_dim, static_cast<cudaStream_t>(stream));
+    return attention_width::with_type(is_bf16, int(cudaErrorInvalidValue), [&](auto t) {
+      return launch<decltype(t), D>(q, k, v, mask, boundary, w, out, batch, lq, lk, num_heads,
+                                    scale, has_geometry, row_start, text_len, offset, dropout,
+                                    threshold, keep_div, seed, cell_stride, head_dim,
+                                    static_cast<cudaStream_t>(stream));
+    });
   });
 }
 

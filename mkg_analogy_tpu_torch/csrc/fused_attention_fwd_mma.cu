@@ -5,7 +5,7 @@
 // runs. Contract, per (batch row, head), on the packed (B, L, heads * D)
 // layout in and out, D = 64 (BERT-base, ViT-B) or 128 (ViLBERT's visual
 // stream: 1024 wide, 8 heads), each width its own instantiation, or any
-// other width up to 128 through the instance of its padded width, in a
+// other width up to 256 through the instance of its padded width, in a
 // library of its own (attention_width.cuh; MiniLM's 32, the small recipes'
 // 16):
 //
@@ -58,7 +58,10 @@
 //     applies (attention_mma.cuh: ScoreRule).
 //   - at the other tile widths (16 to 112) a block owns all D columns
 //     (cols_of<D>), with D / 8 accumulator tiles; up to 256 keys stay
-//     resident at D <= 64, up to 128 above.
+//     resident at D <= 64, up to 128 above. At 192 and 256 (heads of 129
+//     to 256 columns) three or four blocks own 64 output columns each, as
+//     the halves at 128 do, and the score takes its Q fragments 64 columns
+//     at a time from shared memory (attention_mma.cuh: product_a).
 // Ragged edges: rows beyond Lq are zero-filled and not stored; keys beyond
 // Lk are padding of the chunk, not masked keys: they are zero-filled, their
 // bias is -inf, so they take no part in max or sum and their probability is
@@ -157,13 +160,13 @@ __device__ __forceinline__ float row_exp_sum(const float (&s)[8][4], int r, floa
   return sum;
 }
 
-// The block's coordinates: its tile of 64 query rows, its half of the head's
-// columns (always 0 at D = 64), head and batch row.
+// The block's coordinates: its tile of 64 query rows, its group of the
+// head's columns (always 0 below D = 128), head and batch row.
 template <int D>
 struct Block {
-  int tile, half, h, b;
+  int tile, group, h, b;
   __device__ __forceinline__ Block()
-      : tile(blockIdx.x / halves_of<D>()), half(blockIdx.x % halves_of<D>()), h(blockIdx.y),
+      : tile(blockIdx.x / groups_of<D>()), group(blockIdx.x % groups_of<D>()), h(blockIdx.y),
         b(blockIdx.z) {}
 };
 
@@ -182,7 +185,7 @@ __global__ void __launch_bounds__(kThreads) fwd_resident_kernel(const Args a) {
   const int h = blk.h, b = blk.b;
   int d = D;  // the head width: a constant in a library of 64 and 128 (PERF.md)
   if constexpr (kRagged) d = head_width<D>(a);
-  const int v_cols = d - blk.half * W;
+  const int v_cols = d - blk.group * W;
   const int hd = a.num_heads * d;
   const int warp = threadIdx.x >> 5, t = threadIdx.x & 3;
   const int row0 = blk.tile * kTile;
@@ -190,7 +193,7 @@ __global__ void __launch_bounds__(kThreads) fwd_resident_kernel(const Args a) {
 
   // every load of the block, one commit group a chunk: Q with K's first
   const bf16* kb = a.k + size_t(b) * a.lk * hd + h * d;
-  const bf16* vb = a.v + size_t(b) * a.lk * hd + h * d + blk.half * W;
+  const bf16* vb = a.v + size_t(b) * a.lk * hd + h * d + blk.group * W;
   stage_tile<D>(q_s, a.q + (size_t(b) * a.lq + row0) * hd + h * d, a.lq - row0, hd, d);
 #pragma unroll
   for (int c = 0; c < NC; ++c) {
@@ -221,10 +224,10 @@ __global__ void __launch_bounds__(kThreads) fwd_resident_kernel(const Args a) {
   for (int c = 0; c < NC; ++c) {
     cp_async_wait_pending(2 * NC - 1 - c);
     __syncthreads();
-    if (c == 0) load_a<D>(qa, q_s + warp * 16 * stride_of<D>());
+    if (c == 0) load_a_held<D>(qa, q_s + warp * 16 * stride_of<D>());
     if (c < n_chunks) {
       zero(s[c]);
-      product_nt<D>(s[c], qa, k_s + c * tile_elems<D>());
+      product_a<D>(s[c], qa, q_s + warp * 16 * stride_of<D>(), k_s + c * tile_elems<D>());
       scores<D>(s[c], ln.geo.answer_bits(c * kTile + 2 * t), ln.rule.c_plain, ln.c_row,
                 bias_s + c * kTile, m, ln.rule.pre);
     }
@@ -254,7 +257,7 @@ __global__ void __launch_bounds__(kThreads) fwd_resident_kernel(const Args a) {
       product_nn<W>(o, pa, v_s + c * tile_elems<W>());
     }
   }
-  store_rows<D>(a.out + (size_t(b) * a.lq + row0 + warp * 16) * hd + h * d + blk.half * W, hd,
+  store_rows<D>(a.out + (size_t(b) * a.lq + row0 + warp * 16) * hd + h * d + blk.group * W, hd,
                 a.lq - row0 - warp * 16, q_s + warp * 16 * stride_of<D>(), o, v_cols);
 }
 
@@ -272,13 +275,13 @@ __global__ void __launch_bounds__(kThreads) fwd_streaming_kernel(const Args a) {
   const int h = blk.h, b = blk.b;
   int d = D;  // the head width: a constant in a library of 64 and 128 (PERF.md)
   if constexpr (kRagged) d = head_width<D>(a);
-  const int v_cols = d - blk.half * W;
+  const int v_cols = d - blk.group * W;
   const int hd = a.num_heads * d;
   const int warp = threadIdx.x >> 5, t = threadIdx.x & 3;
   const int row0 = blk.tile * kTile;
 
   const bf16* kb = a.k + size_t(b) * a.lk * hd + h * d;
-  const bf16* vb = a.v + size_t(b) * a.lk * hd + h * d + blk.half * W;
+  const bf16* vb = a.v + size_t(b) * a.lk * hd + h * d + blk.group * W;
   const float* mask_b = a.mask + size_t(b) * a.lk;
   const int n_chunks = (a.lk + kTile - 1) / kTile;
   const int n_items = 2 * n_chunks;  // sweep 0 then sweep 1
@@ -313,7 +316,7 @@ __global__ void __launch_bounds__(kThreads) fwd_streaming_kernel(const Args a) {
       cp_async_wait<0>();
     }
     __syncthreads();
-    if (it == 0) load_a<D>(qa, q_s + warp * 16 * stride_of<D>());
+    if (it == 0) load_a_held<D>(qa, q_s + warp * 16 * stride_of<D>());
     const int buf = it & 1;
     const bool second = it >= n_chunks;
     const int key0 = (second ? it - n_chunks : it) * kTile;
@@ -321,7 +324,7 @@ __global__ void __launch_bounds__(kThreads) fwd_streaming_kernel(const Args a) {
     float s[8][4];
     float cmax[2] = {-FLT_MAX, -FLT_MAX};
     zero(s);
-    product_nt<D>(s, qa, k_s + buf * tile_elems<D>());
+    product_a<D>(s, qa, q_s + warp * 16 * stride_of<D>(), k_s + buf * tile_elems<D>());
     scores<D>(s, ln.geo.answer_bits(key0 + 2 * t), ln.rule.c_plain, ln.c_row,
               bias_s + buf * kTile, cmax, ln.rule.pre);
 
@@ -346,7 +349,7 @@ __global__ void __launch_bounds__(kThreads) fwd_streaming_kernel(const Args a) {
     }
     __syncthreads();  // the buffer is refilled by the load after next
   }
-  store_rows<D>(a.out + (size_t(b) * a.lq + row0 + warp * 16) * hd + h * d + blk.half * W, hd,
+  store_rows<D>(a.out + (size_t(b) * a.lq + row0 + warp * 16) * hd + h * d + blk.group * W, hd,
                 a.lq - row0 - warp * 16, q_s + warp * 16 * stride_of<D>(), o, v_cols);
 }
 
@@ -361,7 +364,7 @@ int launch_kernel(void (*kernel)(const Args), dim3 grid, int smem, const Args& a
 
 template <int D>
 int launch(const Args& a, int batch, cudaStream_t s) {
-  const dim3 grid((a.lq + kTile - 1) / kTile * halves_of<D>(), a.num_heads, batch);
+  const dim3 grid((a.lq + kTile - 1) / kTile * groups_of<D>(), a.num_heads, batch);
   if (a.lk <= 2 * kTile) {
     return launch_kernel(fwd_resident_kernel<D, 2>, grid, resident_smem<D>(2), a, s);
   }

@@ -35,15 +35,16 @@ to the compute dtype before the product with V, on the packed
   ``_bwd_kernel`` written out, with its cast points, not autograd through the
   forward. The CPU tests hold both to the JAX kernels in interpret mode, and
   ``chip_smoke.py`` holds the CUDA kernels to them on the card.
-- The kernels take every head_dim d from 1 to 128 (``MAX_HEAD_DIM``; above
+- The kernels take every head_dim d from 1 to 256 (``MAX_HEAD_DIM``; above
   it the wrapper raises ``ValueError``). Each CUDA library exports the
   instantiations at 64 (BERT-base, ViT-B) and 128 (ViLBERT's visual stream,
   1024 wide with 8 heads); any other width runs the instance of its padded
-  width Dp (d rounded up to a multiple of 16: MiniLM's 32, the small
-  recipes' 16) from a library of its own (``kernels/build.py:
-  library_width``, ``csrc/attention_width.cuh``). The launchers pass the
-  width of the call (``hd // num_heads``) and its scale ``d ** -0.5``, of
-  the real width, never Dp's.
+  width Dp (d rounded up to a multiple of 16 up to 128: MiniLM's 32, the
+  small recipes' 16; to 192 or 256 above: MKGformer's 768 over 3 heads)
+  from a library of its own (``kernels/build.py:library_width``,
+  ``csrc/attention_width.cuh``). The launchers pass the width of the call
+  (``hd // num_heads``) and its scale ``d ** -0.5``, of the real width,
+  never Dp's.
 - ``LAUNCHES`` and ``LAUNCHES_BWD`` count kernel launches, so a run can show
   that its main path went through the kernels; ``LAUNCHES_D128`` and
   ``LAUNCHES_BWD_D128`` count the head_dim-128 ones among them, and
@@ -540,9 +541,10 @@ def _count_bwd(head_dim):
 
 def _launch_fwd_cuda_cores(q, k, v, mask, num_heads, bnd, w, geometry, rate, seed, stride=None):
     """The CUDA-core forward (csrc/fused_attention_fwd.cu): the fp32 route.
-    It also takes bf16, which :func:`_launch_fwd` never sends it; only a
-    measurement that wants the earlier kernel's time beside the new one's
-    calls it so."""
+    It also takes bf16 at head_dim 64 and 128, which :func:`_launch_fwd`
+    never sends it; only a measurement that wants the earlier kernel's time
+    beside the new one's calls it so (a library of another width has the
+    fp32 instance alone, and its bf16 launch raises)."""
     b, lq, _ = q.shape
     lk = k.shape[1]
     d = _head_dim(q, num_heads)
@@ -707,7 +709,7 @@ def fused_attention(
     ops/masks.py geometry (row_start / text_len / compat offset); w0 and w1
     arrive clamped. On CPU tensors this is the plain forward and backward (any
     head width); on CUDA tensors it launches the kernels (bf16 or fp32,
-    head_dim 1 to 128, any key count, compute dtype = the inputs' dtype) or
+    head_dim 1 to 256, any key count, compute dtype = the inputs' dtype) or
     raises.
     """
     if not 0.0 <= dropout_rate < 1.0:

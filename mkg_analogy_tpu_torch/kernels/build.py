@@ -12,12 +12,13 @@ kernel's registers, spills and static shared memory, see
 :func:`resource_usage`).
 
 Head widths (``csrc/attention_width.cuh``): the nine libraries carry the
-attention kernels at head_dim 64 and 128. Any other width d up to 128 runs
-the instance of its padded width ``Dp`` (d rounded up to a multiple of 16),
-compiled from the same attention sources with ``-DMKG_ATTN_DP=<Dp>`` into a
-library of its own, ``lib<name>_d<Dp>_<hash>.so`` (the define in the hash),
-built at the first call that needs it or by :func:`build_widths` (the CLI,
-through ``core/cache.py``, before its first batch).
+attention kernels at head_dim 64 and 128. Any other width d up to 256 runs
+the instance of its padded width ``Dp`` (d rounded up to a multiple of 16
+up to 128, of 64 above: 192 or 256), compiled from the same attention
+sources with ``-DMKG_ATTN_DP=<Dp>`` into a library of its own,
+``lib<name>_d<Dp>_<hash>.so`` (the define in the hash), built at the first
+call that needs it or by :func:`build_widths` (the CLI, through
+``core/cache.py``, before its first batch).
 """
 
 from __future__ import annotations
@@ -44,7 +45,7 @@ ATTENTION_SOURCES = ("flash_attention_bwd", "flash_attention_bwd_mma", "flash_at
                      "fused_attention_bwd_mma", "fused_attention_fwd",
                      "fused_attention_fwd_mma")
 BASE_HEAD_DIMS = (64, 128)  # the instances of the nine libraries
-MAX_HEAD_DIM = 128
+MAX_HEAD_DIM = 256
 
 _LOADED: Dict[tuple, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
@@ -52,12 +53,15 @@ _LOCK = threading.Lock()
 
 def padded_width(head_dim: int) -> int:
     """The tile width of the attention kernels for a head of ``head_dim``
-    columns: ``head_dim`` rounded up to a multiple of 16. Above
+    columns: ``head_dim`` rounded up to a multiple of 16 up to 128, and to a
+    multiple of 64 above (every block of a head wider than 128 owns 64 of
+    its result columns, so 192 and 256 are the only tiles there). Above
     :data:`MAX_HEAD_DIM` (or below 1) it raises."""
     if not 1 <= head_dim <= MAX_HEAD_DIM:
         raise ValueError(f"the attention kernels take head_dim 1 to {MAX_HEAD_DIM}, "
                          f"got {head_dim}")
-    return -(-head_dim // 16) * 16
+    step = 16 if head_dim <= 128 else 64
+    return -(-head_dim // step) * step
 
 
 def library_width(head_dim: int) -> Optional[int]:

@@ -45,11 +45,12 @@ dK/dV (JAX zeroes their q, g, lse and delta).
   the plain versions: they walk the logical tiles as the three kernel bodies
   do. The CPU tests hold them to the JAX kernels in interpret mode, and
   ``chip_smoke.py`` holds the CUDA kernels to them on the card.
-- The kernels take every head_dim from 1 to 128, as the single-block ones
+- The kernels take every head_dim from 1 to 256, as the single-block ones
   do (kernels/attention.py): 64 (BERT-base, ViT-B) and 128 (ViLBERT's
   visual stream) from the libraries that export both instantiations, any
-  other width from the library of its padded width; the launchers pass the
-  width of the call (``hd // num_heads``) and its scale, of the real width.
+  other width from the library of its padded width (a multiple of 16 up to
+  128, 192 or 256 above); the launchers pass the width of the call
+  (``hd // num_heads``) and its scale, of the real width.
 - ``LAUNCHES_FLASH``, ``LAUNCHES_FLASH_DKV`` and ``LAUNCHES_FLASH_DQ``
   count kernel launches (a forward, dK/dV or dQ launch on either route);
   ``LAUNCHES_FLASH_FWD_MMA``, ``LAUNCHES_FLASH_DKV_MMA`` and
@@ -504,9 +505,10 @@ def _count(kernel, mma, q, num_heads):
 
 def _launch_fwd_cuda_cores(q, k, v, mask, num_heads, *args):
     """The CUDA-core forward (csrc/flash_attention_fwd.cu): the fp32 route.
-    It also takes bf16, which :func:`_launch_fwd` never sends it; only a
-    measurement that wants the earlier kernel's time beside the new one's
-    calls it so. Arguments as :func:`_launch_fwd`."""
+    It also takes bf16 at head_dim 64 and 128, which :func:`_launch_fwd`
+    never sends it; only a measurement that wants the earlier kernel's time
+    beside the new one's calls it so (a library of another width has the
+    fp32 instance alone). Arguments as :func:`_launch_fwd`."""
     out = _fwd(False, q, k, v, mask, num_heads, *args)
     _count("FWD", False, q, num_heads)
     return out
@@ -545,7 +547,7 @@ def _bwd_lib(q, g, lse, delta, num_heads, mma):
         lib = _lib_bwd(build.library_width(d))
         smem = lib.mkg_flash_attention_bwd_smem(int(q.dtype == torch.bfloat16), d)
         what = "flash_attention_bwd"
-    _check_smem(smem, q, f"{what} at head_dim {d}", hint="the device is not an H100-class card")
+    _check_smem(smem, q, f"{what} at head_dim {d}")
     return lib
 
 
@@ -587,8 +589,8 @@ def _dq(mma, q, k, v, mask, g, lse, delta, num_heads, bnd, w, geometry, rate, se
 
 def _launch_bwd_dkv_cuda_cores(q, k, v, mask, g, lse, delta, num_heads, *args):
     """The CUDA-core dK/dV kernel (csrc/flash_attention_bwd.cu): the fp32
-    route. It also takes bf16, which :func:`_launch_bwd_dkv` never sends it;
-    only a measurement that wants the earlier kernel's time beside the new
+    route. It also takes bf16 at head_dim 64 and 128, which
+    :func:`_launch_bwd_dkv` never sends it; only a measurement that wants the earlier kernel's time beside the new
     one's calls it so. Arguments as :func:`_launch_bwd_dkv`."""
     out = _dkv(False, q, k, v, mask, g, lse, delta, num_heads, *args)
     _count("DKV", False, q, num_heads)
@@ -701,7 +703,7 @@ def flash_attention(
     """Blocked fused attention: the contract of ``fused_attention`` at any
     sequence length, differentiable in q, k, v, w0 and w1. On CPU tensors the
     plain forward and backward (any head width); on CUDA tensors the kernels
-    (bf16 or fp32, head_dim 1 to 128, compute dtype = the inputs' dtype) or
+    (bf16 or fp32, head_dim 1 to 256, compute dtype = the inputs' dtype) or
     an error."""
     if not 0.0 <= dropout_rate < 1.0:
         raise ValueError(f"dropout_rate must be in [0, 1), got {dropout_rate}")

@@ -3,7 +3,8 @@ compare two checkouts in one call (run it for each, in turns):
 
     python3 mkg_analogy_tpu_torch/tools/time_attention.py --root <checkout>
 
-bf16, the tensor-core kernels, at the MKGformer main path's shapes (12
+bf16, the tensor-core kernels (or with ``--dtype float32`` the CUDA-core
+ones), at the MKGformer main path's shapes (12
 heads of 64: text 128 x 128 with the analogy multiplier, vision 99 x 99,
 vision over text K/V 99 x 227; the forward at B=128, the backward at B=32
 with dropout 0.1 where the multiplier applies), and with ``--head_dim 128``
@@ -11,9 +12,10 @@ at ViLBERT's visual stream too (8 heads of 128, 72 x 72, B=64). With
 ``--flash``, the three tensor-core flash kernels instead (forward, dK/dV,
 dQ) at the triple pre-train shapes (B=64, 12 heads of 64: text 96 x 96,
 vision 99 x 99, vision over text K/V 99 x 195, the logical tiles of one
-call), with dropout 0 and 0.1. Any other ``--head_dim`` from 1 to 127
+call), with dropout 0 and 0.1. Any other ``--head_dim`` from 1 to 256
 times the same shapes with 12 heads of that width (the instance of its
-padded width, kernels/build.py:library_width). Prints one JSON line: the card, each
+padded width, kernels/build.py:library_width; above 128 at half the
+batch). Prints one JSON line: the card, each
 shape's ms (median of 21 samples of 10 calls, by CUDA events), and each
 set's sum weighted by its calls a forward or step (12 / 8 / 4). Imports the
 ``mkg_analogy_tpu_torch`` of ``--root``, whose kernels it builds there.
@@ -59,13 +61,15 @@ def main(argv=None) -> int:
     p.add_argument("--root", default=os.path.dirname(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__)))))
     p.add_argument("--head_dim", type=int, default=64,
-                   help="1 to 128: the shapes' head width (128 also times ViLBERT's "
+                   help="1 to 256: the shapes' head width (128 also times ViLBERT's "
                         "visual stream)")
     p.add_argument("--flash", action="store_true",
                    help="time the tensor-core flash kernels instead")
+    p.add_argument("--dtype", choices=("bfloat16", "float32"), default="bfloat16",
+                   help="the single-block kernels' dtype (float32: the CUDA-core ones)")
     args = p.parse_args(argv)
-    if not 1 <= args.head_dim <= 128:
-        p.error(f"--head_dim {args.head_dim}: the kernels take 1 to 128")
+    if not 1 <= args.head_dim <= 256:
+        p.error(f"--head_dim {args.head_dim}: the kernels take 1 to 256")
     sys.path.insert(0, os.path.abspath(args.root))
     import torch
 
@@ -82,6 +86,7 @@ def main(argv=None) -> int:
         print(json.dumps(dict(card=card, root=args.root, flash=True, shapes=rows,
                               per_set_ms=sets)))
         return 0
+    dtype = getattr(torch, args.dtype)
     shapes = SHAPES + ([D128_SHAPE] if args.head_dim == 128 else [])
     if args.head_dim not in (64, 128):
         shapes = [shape[:5] + (args.head_dim,) + shape[6:] for shape in SHAPES]
@@ -89,10 +94,11 @@ def main(argv=None) -> int:
     for name, lq, lk, geometry, calls, d, heads in shapes:
         gen = torch.Generator().manual_seed(7)
         row = dict(shape=name, Lq=lq, Lk=lk, head_dim=d)
-        for kind, b in (("fwd", 64 if d == 128 else 128), ("bwd", 64 if d == 128 else 32)):
-            q, g = (torch.randn(b, lq, heads * d, generator=gen).to("cuda", torch.bfloat16)
+        for kind, b in (("fwd", 64 if d >= 128 else 128), ("bwd", 64 if d == 128 else
+                                                              16 if d > 128 else 32)):
+            q, g = (torch.randn(b, lq, heads * d, generator=gen).to("cuda", dtype)
                     for _ in range(2))
-            k, v = (torch.randn(b, lk, heads * d, generator=gen).to("cuda", torch.bfloat16)
+            k, v = (torch.randn(b, lk, heads * d, generator=gen).to("cuda", dtype)
                     for _ in range(2))
             mask = torch.ones(b, lk, device="cuda")
             mask[:, lk - 9:] = 0.0
@@ -113,7 +119,8 @@ def main(argv=None) -> int:
                     lambda: attn._launch_bwd(q, k, v, mask, g, heads, bnd, w, geo, rate, seed))
             sets[f"{kind}_d{d}"] = sets.get(f"{kind}_d{d}", 0.0) + row[f"{kind}_ms"] * calls
         rows.append(row)
-    print(json.dumps(dict(card=card, root=args.root, shapes=rows, per_set_ms=sets)))
+    print(json.dumps(dict(card=card, root=args.root, dtype=args.dtype, shapes=rows,
+                          per_set_ms=sets)))
     return 0
 
 

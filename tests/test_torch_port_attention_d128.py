@@ -257,14 +257,15 @@ def test_d128_backward_kernels_match_plain_version(cuda, case, dtype, rel):  # n
 
 @pytest.mark.cuda
 def test_other_widths_raise(cuda):  # noqa: F811
-    """Both kernel sets take head_dim 1 to 128 (the widths other than 64 and
-    128 are held to their plain versions in test_torch_port_head_widths.py):
-    a width above 128 raises, naming the limit, on the single-block and on
-    the flash route, and nothing falls back."""
+    """Both kernel sets take head_dim 1 to 256 (the widths other than 64 and
+    128 are held to their plain versions in test_torch_port_head_widths.py
+    and test_torch_port_wide_heads.py): a width above 256 raises, naming the
+    limit, on the single-block and on the flash route, and nothing falls
+    back."""
     from mkg_analogy_tpu_torch.kernels.flash_attention import flash_attention
 
-    q = torch.zeros(1, 8, H * D, device=cuda, dtype=torch.bfloat16)
+    q = torch.zeros(1, 8, 257 * 4, device=cuda, dtype=torch.bfloat16)
     mask = torch.ones(1, 8, device=cuda)
     for attention in (port.fused_attention, flash_attention):
-        with pytest.raises(ValueError, match="head_dim 1 to 128"):
-            attention(q, q, q, mask, 4)  # head_dim 256
+        with pytest.raises(ValueError, match="head_dim 1 to 256"):
+            attention(q, q, q, mask, 4)  # head_dim 257

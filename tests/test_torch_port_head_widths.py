@@ -10,7 +10,7 @@ same numpy inputs, B=2, 2 heads, 33 x 40: without a geometry or dropout, and
 with the analogy geometry and dropout 0.1; the flash ones in one tile and in
 ragged small tiles; the keep masks bit for bit. Then the wrappers' width
 logic as pure functions (the padded width, the scale of the real width, the
-libraries of other widths, head_dim 129 raising), and the CUDA kernels of
+libraries of other widths, head_dim 257 raising), and the CUDA kernels of
 every width against their plain versions (need a card)."""
 
 import re
@@ -176,15 +176,17 @@ def test_dropout_masks_match_jax_bit_for_bit():
 
 
 def test_padded_width_and_library():
-    """Every width from 1 to 128 runs the instance of its multiple of 16;
-    64 and 128 the nine libraries' own (no library of their own), the
-    others the library of their padded width, whose name and hash carry
-    the define."""
-    for d in range(1, 129):
-        assert build.padded_width(d) == -(-d // 16) * 16
+    """Every width from 1 to 128 runs the instance of its multiple of 16,
+    and from 129 to 256 that of its multiple of 64; 64 and 128 the nine
+    libraries' own (no library of their own), the others the library of
+    their padded width, whose name and hash carry the define."""
+    for d in range(1, 257):
+        step = 16 if d <= 128 else 64
+        assert build.padded_width(d) == -(-d // step) * step
         assert build.library_width(d) == (None if d in (64, 128) else build.padded_width(d))
-    assert [build.padded_width(d) for d in (8, 13, 16, 20, 24, 32, 40, 80, 96, 112)] == [
-        16, 16, 16, 32, 32, 32, 48, 80, 96, 112]
+    assert [build.padded_width(d) for d in (8, 13, 16, 20, 24, 32, 40, 80, 96, 112, 129, 192,
+                                            193, 256)] == [
+        16, 16, 16, 32, 32, 32, 48, 80, 96, 112, 192, 192, 256, 256]
     base = build.library_path("fused_attention_fwd")
     d16 = build.library_path("fused_attention_fwd", 16)
     assert re.fullmatch(r"libfused_attention_fwd_[0-9a-f]{12}\.so", base.name), base.name
@@ -192,10 +194,10 @@ def test_padded_width_and_library():
     assert d16.name[-15:] != base.name[-15:]  # the define is hashed
 
 
-@pytest.mark.parametrize("d", [0, 129, 256])
+@pytest.mark.parametrize("d", [0, 257, 300])
 def test_widths_beyond_the_limit_raise(d):
-    """head_dim 129 (or 0) has no instance: a ValueError naming the limit."""
-    with pytest.raises(ValueError, match="head_dim 1 to 128"):
+    """head_dim 257 (or 0) has no instance: a ValueError naming the limit."""
+    with pytest.raises(ValueError, match="head_dim 1 to 256"):
         build.padded_width(d)
 
 
@@ -216,9 +218,9 @@ def test_scale_is_the_real_widths(monkeypatch):
 
 
 def test_cpu_route_takes_the_plain_versions_at_any_width():
-    """CPU tensors take the plain versions at any width, 129 included, and
+    """CPU tensors take the plain versions at any width, 300 included, and
     count no launch; nothing checks the kernels' limit there."""
-    for d in (13, 129):
+    for d in (13, 300):
         q, k, v, g = (torch.from_numpy(x) for x in make_inputs(d))
         mask = torch.from_numpy(make_mask())
         counts = (single.LAUNCHES, flash.LAUNCHES_FLASH, dict(single.WIDTH_LAUNCHES),

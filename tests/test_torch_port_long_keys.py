@@ -222,6 +222,8 @@ def test_fp32_kernels_stream_only_where_the_resident_form_does_not_fit(cuda):  #
     the resident form (K and V of every key) up to 400 keys at head_dim 64,
     the streaming form (whatever the length) from 401, each within the
     device's limit; so MKGformer's 99 x 227 runs the kernel it always ran."""
+    from mkg_analogy_tpu_torch.kernels import build
+
     lib, lib_bwd = single._lib(), single._lib_bwd()
     limit = torch.cuda.get_device_properties(cuda).shared_memory_per_block_optin
     resident = [lib.mkg_fused_attention_fwd_smem(lk, 0, 64) for lk in (227, 400)]
@@ -229,3 +231,4 @@ def test_fp32_kernels_stream_only_where_the_resident_form_does_not_fit(cuda):  #
     streaming = {lib.mkg_fused_attention_fwd_smem(lk, 0, 64) for lk in (401, 1100, 100000)}
     assert len(streaming) == 1 and streaming.pop() <= limit
     assert lib_bwd.mkg_fused_attention_bwd_smem(100000, 100000, 0, 64) <= limit
+    assert build.MAX_HEAD_DIM == 256
