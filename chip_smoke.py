@@ -19,26 +19,28 @@ exits non-zero:
                 PyTorch version at the three MKGformer shapes and at ViLT's
                 (418 x 418: 128 text and 290 image tokens, the multiplier
                 over the text block from row 1, and with the boundary
-                shifted by 290; fp32 there through the CUDA-core kernels'
-                streaming form, whose shared memory no length passes), B=128:
-                fp32 (the CUDA-core kernel, TF32 off) at atol 2e-5, bf16 (the
+                shifted by 290), B=128: fp32 (the tiled CUDA-core kernel,
+                one sweep over the keys, TF32 off) at atol 2e-5, bf16 (the
                 tensor-core kernel) at 2e-2, each also with dropout (same
                 seed, so the masks must agree); then the tensor-core kernel
                 at the ragged edges (EDGE_CASES: lengths of 1, 15, 17, 99,
                 227 and 418, a row whose keys are all masked, the boundary
                 on the geometry's edges, B=1); times of the kernel, of the
-                CUDA-core kernel it took over from in bf16 (``earlier_ms``,
-                which it must beat), of the plain version (which it must
-                beat at 418 keys) and of scaled_dot_product_attention (a
-                yardstick only, at the two vision shapes; no single PyTorch
-                call applies the analogy multiplier of the text shape), and
-                the bound;
+                plain version (which it must beat at 418 keys) and of
+                scaled_dot_product_attention (a yardstick only, at the two
+                vision shapes; no single PyTorch call applies the analogy
+                multiplier of the text shape), and the bound; the same for
+                the fp32 route at every shape (``kernel_ms_fp32``,
+                ``plain_ms_fp32``, ``bound_ms_fp32`` at the fp32 peak,
+                ``library_ms_fp32``: SDPA on the fp32 inputs, with the
+                backend that ran);
 4. kernel_bwd — the backward kernels against their plain version at the same
                 shapes and B=32 (the training batch) and at the same edge
                 cases: dq, dk, dv and dw in fp32 (CUDA cores) and bf16
                 (tensor cores), with and without dropout; the times as in
-                phase 3, and the backward of scaled_dot_product_attention
-                at the vision shapes;
+                phase 3 (the fp32 backward from the forward's out and lse,
+                as the main path calls it), and the backward of
+                scaled_dot_product_attention at the vision shapes;
 5. model      — a full-width UnimoForMaskedLM (random weights from a seed,
                 B=32, L=128, two 224-px images) forward through the kernel
                 and through the plain version: fp32 logits within 1e-3, bf16
@@ -149,8 +151,8 @@ exits non-zero:
 15. vilt, flava — a full-width fine-tune step of each family at its recipe
                 (ViLT B=32, 384 px, 418 tokens; FLAVA B=24, 224 px, towers of
                 393, 128 and 522 tokens), L=128: fp32 through the
-                family's default kernels (ViLT the single-block ones, their
-                fp32 forms streaming its 418 keys; FLAVA the flash ones)
+                family's default kernels (ViLT the single-block ones over
+                its 418 keys; FLAVA the flash ones)
                 against the plain attention or the flash kernels' plain
                 version (loss within 1e-5 relative, every gradient leaf
                 within its bound), and through the flash kernels against the
@@ -158,7 +160,10 @@ exits non-zero:
                 family's default kernels (ViLT the single-block ones, 12 + 12
                 launches a step; FLAVA the flash ones, 30 + 30 + 30): the
                 loss falls, step time and a device profile; ViLT's step also
-                through the flash kernels, for comparison;
+                through the flash kernels, for comparison; and what ViLT's
+                fp32 step costs through the single-block kernels
+                (fp32_step_cost: step ms, device ms, the attention kernels'
+                share of it);
 16. cli_image — the main path of the image slice: the tool writes a pixel
                 store for a dataset written here, ``cli.main --model_class
                 ViltKGC|FlavaKGC --image_features <store>`` fine-tunes one
@@ -246,7 +251,7 @@ exits non-zero:
                 32), a full-length step through ``single`` and ``flash``,
                 fp32 against the plain attention, then bf16 steps;
 25. long_keys — rows 1-2 at 99 x 1100 and 1024 x 1024 (B=2), fp32 (the
-                CUDA-core kernels' streaming form) and bf16, dropout 0 and
+                tiled CUDA-core kernels) and bf16, dropout 0 and
                 0.1, against the plain versions at the kernel bars; times,
                 plain and SDPA times, bounds (ViLT's 418 x 418 in fp32 runs
                 in phases 3 and 4);
@@ -355,8 +360,8 @@ def time_ms(fn, samples=5, per_sample=10):
 
 # substrings of the attention kernels' names (single-block and flash, either
 # route), whose device time device_profile sums
-ATTENTION_KERNELS = ("attention", "fwd_resident_kernel", "fwd_streaming_kernel", "dkv_kernel",
-                     "dq_kernel", "dq_resident_kernel", "dq_streaming_kernel")
+ATTENTION_KERNELS = ("attention", "fwd_kernel", "fwd_resident_kernel", "fwd_streaming_kernel",
+                     "dkv_kernel", "dq_kernel", "dq_resident_kernel", "dq_streaming_kernel")
 
 
 def device_profile(fn, top=12):
@@ -474,6 +479,109 @@ def resolve_geometry(mod, q, kw, rate, seed):
                         rate, rate == 0.0, seed)
 
 
+def main_path_bwd(attn, q, k, v, mask, g, heads, resolved):
+    """A backward call as the main path makes it: on the fp32 route from the
+    forward's out and lse (computed here, once), which _FusedAttention saves;
+    bf16 from the inputs alone."""
+    import torch
+
+    residuals = ()
+    if q.dtype == torch.float32:
+        residuals = (None, *attn._launch_fwd_cuda_cores(q, k, v, mask, heads, *resolved))
+    return lambda: attn._launch_bwd(q, k, v, mask, g, heads, *resolved, *residuals)
+
+
+def sdpa_backend(fn):
+    """The name of the device kernel that takes most of one call of ``fn``
+    (which of scaled_dot_product_attention's backends ran)."""
+    return device_profile(fn, top=1)["top"][0]["name"]
+
+
+def sdpa_heads(q, k, v, mask, heads, head_dim, grad=False):
+    """(qh, kh, vh, bias) of SDPA on the same heads: the padding mask as a
+    bias in the inputs' dtype, None where no key is masked."""
+    b = q.shape[0]
+
+    def split(x):
+        x = x.view(b, x.shape[1], heads, head_dim).transpose(1, 2)
+        return x.detach().requires_grad_(True) if grad else x
+
+    bias = None
+    if not bool(mask.all()):
+        bias = ((1.0 - mask) * -10000.0).to(q.dtype)[:, None, None, :]
+    return split(q), split(k), split(v), bias
+
+
+def fp32_forward_times(attn, lq, lk, geometry, device, batch, heads=HEADS,
+                       head_dim=HEAD_DIM):
+    """The fp32 route of a forward shape: the tiled CUDA-core kernel's ms,
+    its plain version's, the bound (operations at the fp32 peak, bytes of
+    fp32 inputs), and where no multiplier applies SDPA on the same fp32
+    inputs, with the backend that ran."""
+    import torch
+    import torch.nn.functional as F
+
+    q, k, v, mask, kw = attention_inputs(lq, lk, geometry, torch.float32, device, seed=7,
+                                         batch=batch, head_dim=head_dim)
+    kw = dict(kw, compute_dtype=torch.float32)
+    few = dict(samples=5, per_sample=2)
+    out = dict(
+        kernel_ms_fp32=time_ms(lambda: attn.fused_attention(q, k, v, mask, heads, **kw), **few),
+        plain_ms_fp32=time_ms(lambda: attn.fused_attention_reference(q, k, v, mask, heads,
+                                                                     **kw), **few))
+    t_bytes, t_ops = bound_times(batch, lq, lk, 4, heads, head_dim)
+    t_ops *= BF16_FLOPS_PER_S / FP32_FLOPS_PER_S
+    out.update(bound_ms_fp32=max(t_bytes, t_ops), bound_by_fp32=bound_by(t_bytes, t_ops),
+               library_ms_fp32=None, library_backend_fp32=None)
+    if geometry is None:
+        qh, kh, vh, bias = sdpa_heads(q, k, v, mask, heads, head_dim)
+
+        def sdpa():
+            return F.scaled_dot_product_attention(qh, kh, vh, attn_mask=bias)
+
+        out.update(library_ms_fp32=time_ms(sdpa, **few), library_backend_fp32=sdpa_backend(sdpa))
+    return out
+
+
+def fp32_backward_times(attn, lq, lk, geometry, rate, device, batch, heads=HEADS,
+                        head_dim=HEAD_DIM):
+    """The fp32 route of a backward shape (dropout ``rate``): the two tiled
+    passes from the forward's out and lse, as the main path calls them; the
+    plain backward; the bound; SDPA's backward on the same fp32 inputs
+    (without dropout) where no multiplier applies, and its backend."""
+    import torch
+    import torch.nn.functional as F
+
+    q, k, v, mask, kw = attention_inputs(lq, lk, geometry, torch.float32, device, seed=7,
+                                         batch=batch, head_dim=head_dim)
+    g = seeded_randn(q.shape, 8, device, torch.float32)
+    kw = dict(kw, compute_dtype=torch.float32, dropout_rate=rate, deterministic=rate == 0.0,
+              dropout_seed=99)
+    few = dict(samples=5, per_sample=2)
+    out = dict(kernel_ms_fp32=time_ms(main_path_bwd(
+        attn, q, k, v, mask, g, heads, resolve_geometry(attn, q, kw, rate, 99)), **few),
+        plain_ms_fp32=time_ms(lambda: attn.fused_attention_bwd_reference(
+            q, k, v, mask, g, heads, **kw), **few))
+    t_bytes, t_ops = bwd_bound_times(batch, lq, lk, 4, heads, head_dim)
+    t_ops *= BF16_FLOPS_PER_S / FP32_FLOPS_PER_S
+    out.update(bound_ms_fp32=max(t_bytes, t_ops), bound_by_fp32=bound_by(t_bytes, t_ops),
+               library_ms_fp32=None, library_backend_fp32=None)
+    if geometry is None:
+        qh, kh, vh, bias = sdpa_heads(q, k, v, mask, heads, head_dim, grad=True)
+        gh = g.view(batch, lq, heads, head_dim).transpose(1, 2)
+
+        def sdpa():
+            return F.scaled_dot_product_attention(qh, kh, vh, attn_mask=bias)
+
+        def sdpa_fwd_bwd():
+            torch.autograd.grad(sdpa(), (qh, kh, vh), gh)
+
+        fwd_ms = time_ms(sdpa, **few)
+        out.update(library_ms_fp32=time_ms(sdpa_fwd_bwd, **few) - fwd_ms,
+                   library_backend_fp32=sdpa_backend(sdpa_fwd_bwd))
+    return out
+
+
 def kernel_phase(device):
     import torch
     import torch.nn.functional as F
@@ -502,38 +610,19 @@ def kernel_phase(device):
             row[f"max_abs_err_{tag}"] = err
             if not err <= atol:
                 raise AssertionError(f"{name} {tag}: kernel vs plain {err} > {atol}")
-        # timing in the main path's dtype: the tensor-core kernel, the
-        # CUDA-core kernel it took over from (bf16 reaches it only here), the
-        # plain version
+        # timing in the main path's dtype: the tensor-core kernel, the plain
+        # version
         q, k, v, mask, kw = attention_inputs(lq, lk, geometry, torch.bfloat16, device, seed=7)
         kw = dict(kw, compute_dtype=torch.bfloat16)
-        resolved = resolve_geometry(attn, q, kw, 0.0, 0)
         row["kernel_ms"] = time_ms(lambda: attn.fused_attention(q, k, v, mask, HEADS, **kw))
-        row["earlier_ms"] = time_ms(
-            lambda: attn._launch_fwd_cuda_cores(q, k, v, mask, HEADS, *resolved),
-            samples=5, per_sample=4)
         row["plain_ms"] = time_ms(
             lambda: attn.fused_attention_reference(q, k, v, mask, HEADS, **kw))
-        if not row["kernel_ms"] < row["earlier_ms"]:
-            raise AssertionError(f"{name}: the tensor-core forward ({row['kernel_ms']} ms) is "
-                                 f"no faster than the CUDA-core one ({row['earlier_ms']} ms)")
         if name.startswith("vilt") and not row["kernel_ms"] < row["plain_ms"]:
             raise AssertionError(f"{name}: the forward kernel ({row['kernel_ms']} ms) is no "
                                  f"faster than its plain version ({row['plain_ms']} ms)")
-        if name.startswith("vilt"):
-            # the fp32 route at 418 keys: the CUDA-core kernel's streaming form
-            q32, k32, v32, mask32, kw32 = attention_inputs(lq, lk, geometry, torch.float32,
-                                                           device, seed=7)
-            kw32 = dict(kw32, compute_dtype=torch.float32)
-            row["kernel_ms_fp32"] = time_ms(
-                lambda: attn.fused_attention(q32, k32, v32, mask32, HEADS, **kw32),
-                samples=5, per_sample=2)
-            row["plain_ms_fp32"] = time_ms(
-                lambda: attn.fused_attention_reference(q32, k32, v32, mask32, HEADS, **kw32),
-                samples=5, per_sample=2)
-            t_bytes, t_ops = bound_times(BATCH, lq, lk, 4)
-            row["bound_ms_fp32"] = max(t_bytes, t_ops * BF16_FLOPS_PER_S / FP32_FLOPS_PER_S)
-            del q32, k32, v32, mask32
+        # the fp32 route: the tiled CUDA-core kernel, its plain version, SDPA
+        # on the same fp32 inputs where no multiplier applies
+        row.update(fp32_forward_times(attn, lq, lk, geometry, device, BATCH))
         row["library_ms"] = None
         if geometry is None:
             def heads(x):
@@ -661,31 +750,9 @@ def kernel_bwd_phase(device):
         bnd, w, geo, r, seed = resolve_geometry(attn, q, kw, rate, 99)
         row["kernel_ms"] = time_ms(
             lambda: attn._launch_bwd(q, k, v, mask, g, HEADS, bnd, w, geo, r, seed))
-        row["earlier_ms"] = time_ms(
-            lambda: attn._launch_bwd_cuda_cores(q, k, v, mask, g, HEADS, bnd, w, geo, r, seed),
-            samples=5, per_sample=4)
         row["plain_ms"] = time_ms(
             lambda: attn.fused_attention_bwd_reference(q, k, v, mask, g, HEADS, **kw))
-        if not row["kernel_ms"] < row["earlier_ms"]:
-            raise AssertionError(f"{name}: the tensor-core backward ({row['kernel_ms']} ms) is "
-                                 f"no faster than the CUDA-core one ({row['earlier_ms']} ms)")
-        if name.startswith("vilt"):
-            # the fp32 route at 418 keys: both passes in the streaming form
-            q32, k32, v32, mask32, kw32 = attention_inputs(lq, lk, geometry, torch.float32,
-                                                           device, seed=7, batch=TRAIN_BATCH)
-            g32 = seeded_randn(q32.shape, 8, device, torch.float32)
-            kw32 = dict(kw32, compute_dtype=torch.float32, dropout_rate=rate,
-                        deterministic=rate == 0.0, dropout_seed=99)
-            args32 = resolve_geometry(attn, q32, kw32, rate, 99)
-            row["kernel_ms_fp32"] = time_ms(
-                lambda: attn._launch_bwd(q32, k32, v32, mask32, g32, HEADS, *args32),
-                samples=5, per_sample=2)
-            row["plain_ms_fp32"] = time_ms(
-                lambda: attn.fused_attention_bwd_reference(q32, k32, v32, mask32, g32, HEADS,
-                                                           **kw32), samples=5, per_sample=2)
-            t_bytes, t_ops = bwd_bound_times(TRAIN_BATCH, lq, lk, 4)
-            row["bound_ms_fp32"] = max(t_bytes, t_ops * BF16_FLOPS_PER_S / FP32_FLOPS_PER_S)
-            del q32, k32, v32, g32, mask32
+        row.update(fp32_backward_times(attn, lq, lk, geometry, rate, device, TRAIN_BATCH))
         # the call's device time by kernel: the dq pass, the dk/dv pass, the
         # sum of the dw partials
         row["device_ms_by_kernel"] = {
@@ -1995,8 +2062,8 @@ def fp32_masked_row_phase(device):
     whose keys are all masked: there every score sits at -1e4, where an fp32
     ulp is 9.8e-4, so a score rounded in two steps, where the plain versions
     round it in one FMA (kernels/attention.py:_score), moves a probability
-    by 1e-3 of itself. The single-block pair at EDGE_CASES (at 418 keys
-    through their streaming form), the flash kernels at FLASH_EDGE_CASES of JAX's
+    by 1e-3 of itself. The single-block pair at EDGE_CASES (the tiled
+    kernels, one sweep over the keys), the flash kernels at FLASH_EDGE_CASES of JAX's
     (256, 512) tiles (flash_edge_phase in fp32), dropout 0 and 0.1, at the
     fp32 bars: the forward within 2e-5 absolute, the backward within 2e-5
     of each result's largest |value|, dw within 1e-5 of its sum of |terms|.
@@ -3049,6 +3116,51 @@ REGION_FAMILIES = {
 }
 
 
+def fp32_step_cost(device, name="vilt", steps=5):
+    """What a full-width fp32 fine-tune step of a family costs through its
+    default fp32 attention (ViLT: the single-block kernels over its 418
+    tokens), from random weights (seed 0), one batch, dropout on, AdamW:
+    the host ms of each synchronised step, their median after the first,
+    the device ms of one profiled step, the attention kernels' device ms and
+    their share of it. tools/time_attention.py --fp32_step runs it on any
+    checkout, to compare two."""
+    import torch
+
+    from mkg_analogy_tpu_torch.models.registry import create_model
+    from mkg_analogy_tpu_torch.train.optim import make_optimizer
+    from mkg_analogy_tpu_torch.train.trainer import MarTTrainer, TrainConfig
+
+    fam = {**FAMILIES, **REGION_FAMILIES}[name]
+    b = fam["batch"]
+    batch = train_batch(device, b=b, seed=6)
+    g = torch.Generator().manual_seed(7)
+    batch["pixel_values"] = torch.randn(b, 2, 3, fam["image"], fam["image"],
+                                        generator=g).to(device)
+    with torch.device(device):
+        model = create_model(fam["model_class"], vocab_size=42112, dtype="float32",
+                             attention=fam["fp32"])
+    model.init_params(torch.Generator(device=device).manual_seed(0))
+    trainer = MarTTrainer(model, _AnalogyVocab(), TrainConfig(alpha=fam["alpha"], seed=3),
+                          device=device)
+    opt = make_optimizer(model, 1e-4, 100, warmup_ratio=0.0)
+    times, losses = [], []
+    for step in range(steps):
+        t0 = time.perf_counter()
+        metrics = trainer._train_step(opt, batch, step)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(metrics["loss"].item())
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"{name} fp32 steps: losses {losses}")
+    profile = device_profile(lambda: trainer._train_step(opt, batch, steps), top=8)
+    del model, trainer, opt
+    torch.cuda.empty_cache()
+    return dict(route=fam["fp32"], B=b, step_ms=times, median_step_ms=statistics.median(times[1:]),
+                device_ms=profile["device_ms"], attention_ms=profile["attention_ms"],
+                attention_share=profile["attention_ms"] / profile["device_ms"],
+                losses=losses, device_profile_top=profile["top"])
+
+
 def family_counts(backend, calls, backward=True, bf16=True, d128=0, unread=0):
     """all_counts of a step (or a forward) through ``backend``; in bf16 the
     flash kernels run on the tensor cores; ``d128`` of the calls are at
@@ -3081,7 +3193,7 @@ def family_phase(device, name):
     |gradient| plus 1e-6 of the model's largest; no gradient only where the
     loss reads nothing (ViLBERT's visual stream after its last connection
     layer). ViLT likewise, through the single-block kernels over its 418
-    tokens (the fp32 ones stream K and V there), as JAX runs it. For FLAVA:
+    tokens (the fp32 ones sweep them in key tiles), as JAX runs it. For FLAVA:
     (1) fp32, from one state dict, batch and seeds, through the flash
     kernels (its default) and through autograd of the kernels' plain
     version. Gates: the loss within 1e-5 relative; each gradient leaf
@@ -3211,6 +3323,9 @@ def family_phase(device, name):
                                                               runs["plain_nodrop"][1]))
     del runs, model, trainer
     torch.cuda.empty_cache()
+    if name == "vilt":
+        # what the fp32 step costs through the single-block kernels
+        out["fp32"]["step_cost"] = fp32_step_cost(device, name)
 
     with torch.device(device):
         model = create_model(fam["model_class"], vocab_size=42112, dtype="bfloat16",
@@ -4551,9 +4666,8 @@ def head_widths_phase(device):
     analogy geometry and dropout 0.1, each against its plain version at the
     bars of the kernel phases (forward 2e-5 / 2e-2, lse 1e-5; backward 2e-5
     / 2^-7 of each result's largest, dw 1e-5 of its terms), each launch
-    counted under its width (the fp32 kernels of rows 1-2 stream K and V
-    where 227 keys do not fit a block: from padded width 112, and above
-    128 always). Then per width and dtype the kernels' times, the plain
+    counted under its width (the fp32 kernels of rows 1-2 sweep K and V in
+    tiles at every width). Then per width and dtype the kernels' times, the plain
     versions' (bf16), SDPA's where the width is a multiple of 8 (no
     multiplier in the timed calls) and the bounds of the real width; the
     registers and spills ptxas reported. A call at head_dim 257 raises a
@@ -4640,7 +4754,7 @@ def head_widths_phase(device):
             row[f"fwd_ms_{tag}"] = time_ms(
                 lambda: attn._launch_fwd(q, k, v, mask, HEADS, *resolved), **n)
             row[f"bwd_ms_{tag}"] = time_ms(
-                lambda: attn._launch_bwd(q, k, v, mask, g, HEADS, *resolved), **n)
+                main_path_bwd(attn, q, k, v, mask, g, HEADS, resolved), **n)
             for kernel, times in (("fwd", bound_times), ("bwd", bwd_bound_times)):
                 t_bytes, t_ops = times(b, lq, lk, nbytes, HEADS, d)
                 t_ops *= BF16_FLOPS_PER_S / flops
@@ -4951,7 +5065,7 @@ LONG_KEY_SHAPES = [("vision_text_1100", 2, 99, 1100), ("square_1024", 2, 1024, 1
 
 def long_keys_phase(device):
     """Rows 1-2 at LONG_KEY_SHAPES (12 heads of 64, no geometry), fp32 (the
-    CUDA-core kernels' streaming form) and bf16 (the tensor-core kernels),
+    tiled CUDA-core kernels) and bf16 (the tensor-core kernels),
     dropout 0 and 0.1, against the plain versions at the kernel phases'
     bars (forward 2e-5 / 2e-2; backward 2e-5 / 2^-7 of each result's
     largest), each launch counted; then per shape and dtype the kernels'
@@ -4993,7 +5107,7 @@ def long_keys_phase(device):
             row[f"fwd_ms_{tag}"] = time_ms(
                 lambda: attn._launch_fwd(q, k, v, mask, HEADS, *resolved), **n)
             row[f"bwd_ms_{tag}"] = time_ms(
-                lambda: attn._launch_bwd(q, k, v, mask, g, HEADS, *resolved), **n)
+                main_path_bwd(attn, q, k, v, mask, g, HEADS, resolved), **n)
             call = dict(compute_dtype=dtype)
             row[f"fwd_plain_ms_{tag}"] = time_ms(
                 lambda: attn.fused_attention_reference(q, k, v, mask, HEADS, **call), **n)
@@ -5026,7 +5140,7 @@ def cli_wide_phase():
     L=64), the launch counts set to 0 before each run and read after it:
     bf16 through ``--fused_attention 1`` and ``flash`` (2 steps each, the
     losses finite; every kernel of the route launched at head_dim 256);
-    fp32 through ``1`` (the CUDA-core kernels' streaming form) and ``0``
+    fp32 through ``1`` (the tiled CUDA-core kernels) and ``0``
     (the plain attention), one step each from the same seed
     (``--limit_train_batches 1``), the losses within 1e-5 relative (dropout
     on: the plain attention draws the single-block kernels' masks; after an
@@ -5386,11 +5500,13 @@ def main() -> int:
         max_abs_err_fp32_masked_rows=fp32_masked_row_err,
         # per full-width forward at B=128: 12 text + 8 vision + 4 vision-text calls
         ms=per_call_set(rows, "kernel_ms", "launches_per_forward"),
-        # the CUDA-core kernel in bf16, which these calls ran before
-        earlier_ms=per_call_set(rows, "earlier_ms", "launches_per_forward"),
         plain_ms=per_call_set(rows, "plain_ms", "launches_per_forward"),
         bound_ms=max(t_bytes, t_ops), bound_by=bound_by(t_bytes, t_ops),
         library_ms=None,  # no single PyTorch call applies the analogy multiplier
+        # the same set of calls on the fp32 route (the tiled CUDA-core kernel)
+        ms_fp32=per_call_set(rows, "kernel_ms_fp32", "launches_per_forward"),
+        plain_ms_fp32=per_call_set(rows, "plain_ms_fp32", "launches_per_forward"),
+        bound_ms_fp32=per_call_set(rows, "bound_ms_fp32", "launches_per_forward"),
         shapes=rows, shapes_region=[r for r in region_rows if r["head_dim"] == 64],
         # both dtypes at 99 x 1100 and 1024 x 1024 (fp32 at 418 in ``shapes``)
         max_abs_err_long_keys=max(r[f"max_abs_err_bf16{d}"] for r in long_rows
@@ -5425,10 +5541,12 @@ def main() -> int:
                           for r in long_rows],
         # per full-width train step at B=32: 12 text + 8 vision + 4 vision-text calls
         ms=per_call_set(bwd_rows, "kernel_ms", "launches_per_step"),
-        earlier_ms=per_call_set(bwd_rows, "earlier_ms", "launches_per_step"),
         plain_ms=per_call_set(bwd_rows, "plain_ms", "launches_per_step"),
         bound_ms=max(b_bytes, b_ops), bound_by=bound_by(b_bytes, b_ops),
         library_ms=None,  # per shape below: SDPA's backward at the vision shapes
+        ms_fp32=per_call_set(bwd_rows, "kernel_ms_fp32", "launches_per_step"),
+        plain_ms_fp32=per_call_set(bwd_rows, "plain_ms_fp32", "launches_per_step"),
+        bound_ms_fp32=per_call_set(bwd_rows, "bound_ms_fp32", "launches_per_step"),
         shapes=bwd_rows,
     ), d128_entry("fwd", 124, vil["single_fwd_d128"]),
         d128_entry("bwd", 159, vil["single_bwd_d128"])] + [dict(flash_entry(flash_rows, kernel, flash_launches[f"{kernel}_mma"], flash_edges),

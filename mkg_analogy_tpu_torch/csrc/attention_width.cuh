@@ -63,12 +63,13 @@ R with_width(int d, R none, F&& f) {
   return none;
 }
 
-// f(T{}) for the element type T of a call to a CUDA-core kernel of this
-// library (fused_attention_*.cu, flash_attention_*.cu), or `none` where it
-// has none: fp32 and bf16 in a library of 64 and 128 (bf16 only for a
-// measurement of the CUDA-core kernel beside the tensor-core one), fp32
-// alone in a library of one padded width, whose bf16 calls the
-// tensor-core kernels take (so nvcc compiles half as many kernels there).
+// f(T{}) for the element type T of a call to a CUDA-core flash kernel of
+// this library (flash_attention_*.cu), or `none` where it has none: fp32
+// and bf16 in a library of 64 and 128 (bf16 only for a measurement of the
+// CUDA-core kernel beside the tensor-core one), fp32 alone in a library of
+// one padded width, whose bf16 calls the tensor-core kernels take (so nvcc
+// compiles half as many kernels there). The single-block fp32 kernels
+// (fused_attention_*.cu, attention_fp32.cuh) have an fp32 instance alone.
 template <class R, class F>
 R with_type(int is_bf16, R none, F&& f) {
   if (!is_bf16) return f(float{});
@@ -86,11 +87,10 @@ __device__ __forceinline__ bool rows_aligned(const void* p, int ld, int cols, in
            uintptr_t(cols) * elem_bytes) & 15u) == 0;
 }
 
-// Element by element, for the CUDA-core kernels in a library of one
-// padded width (fused_attention_*.cu, flash_attention_*.cu): a head's rows
-// of d columns are staged into rows of D, zero from d on; a register row
-// likewise; a result pair (col, col + 1) stored where its columns are
-// below d.
+// Element by element, for the CUDA-core flash kernels in a library of one
+// padded width (flash_attention_*.cu): a head's rows of d columns are
+// staged into rows of D, zero from d on; a result pair (col, col + 1)
+// stored where its columns are below d.
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ void from_float(float* p, float x) { *p = x; }
@@ -107,35 +107,10 @@ __device__ __forceinline__ void stage_rows(T* dst, int stride, const T* src, int
   }
 }
 
-template <int D, typename T>
-__device__ __forceinline__ void load_row(const T* p, float* f, int d) {
-#pragma unroll
-  for (int c = 0; c < D; ++c) f[c] = c < d ? to_float(p[c]) : 0.0f;
-}
-
 template <typename T>
 __device__ __forceinline__ void store_pair(T* row, int col, int d, float a, float b) {
   if (col < d) from_float(row + col, a);
   if (col + 1 < d) from_float(row + col + 1, b);
-}
-
-// Stage `rows` rows of a head (d columns, `ld` elements apart) from src
-// into shared-memory rows of D, `stride` apart, zero from d on, with every
-// thread of the block: 16 bytes a copy in a library of 64 and 128, element
-// by element in one of a padded width (the CUDA-core kernels' streaming
-// forms, whose blocks are not those of their resident forms).
-template <int D, int stride, typename T>
-__device__ __forceinline__ void stage_block(T* dst, const T* src, int rows, int ld, int d) {
-  if constexpr (kRagged) {
-    stage_rows<D>(dst, stride, src, rows, ld, d);
-  } else {
-    constexpr int kVec = 16 / sizeof(T), kVecsPerRow = D / kVec;
-    for (int i = threadIdx.x; i < rows * kVecsPerRow; i += blockDim.x) {
-      const int j = i / kVecsPerRow, c = (i % kVecsPerRow) * kVec;
-      *reinterpret_cast<uint4*>(dst + j * stride + c) =
-          *reinterpret_cast<const uint4*>(src + size_t(j) * ld + c);
-    }
-  }
 }
 
 // 16 bytes of a staged row as floats (4 fp32 or 8 bf16 values).
@@ -163,8 +138,7 @@ __device__ __forceinline__ void load16(const __nv_bfloat16* p, float* f) {
 // the 255 it may hold, it is read again from shared memory at every product
 // (a broadcast: every lane reads the same row). Either way a product is
 // fmaf(row[c], other[c], acc) over c in order, so the two forms give the
-// same sums bit for bit. (The single-block kernels' streaming forms, whose
-// blocks of 512 threads leave a thread 128 registers, never hold it.)
+// same sums bit for bit.
 template <int D, typename T, bool kHeld = (D <= 128)>
 struct HeadRow {
   static constexpr int kVec = 16 / sizeof(T);
@@ -198,19 +172,5 @@ struct HeadRow {
     return acc;
   }
 };
-
-// The shared memory a block may opt into on the current device (227 KB on
-// an H100), read once: the CUDA-core single-block kernels hold a head's
-// whole K and V (or Q and g) where they fit in it and stream them where
-// they do not.
-inline int smem_optin() {
-  static const int bytes = [] {
-    int dev = 0, v = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&v, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-    return v;
-  }();
-  return bytes;
-}
 
 }  // namespace attention_width

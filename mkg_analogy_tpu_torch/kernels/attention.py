@@ -20,13 +20,16 @@ to the compute dtype before the product with V, on the packed
   main path runs, the tensor-core kernels (``csrc/fused_attention_fwd_mma.cu``,
   ``csrc/fused_attention_bwd_mma.cu``: ``mma.sync`` products on ``ldmatrix``
   fragments, ``cp.async`` staging, helpers in ``csrc/attention_mma.cuh``);
-  fp32, whose bar of 2e-5 TF32 cannot meet, the CUDA-core kernels
-  (``csrc/fused_attention_fwd.cu``, ``csrc/fused_attention_bwd.cu``). Both
-  take any key count, as the JAX kernel does (it stages a head's whole K/V
-  of any length): the tensor-core kernels stream their keys in chunks of
-  64, and the CUDA-core ones hold a head's whole K and V where they fit a
-  block and stream them in chunks of 32 where they do not (ViLT's 418 keys
-  in fp32). A CPU tensor takes the plain versions. Nothing falls back from
+  fp32, whose bar of 2e-5 TF32 cannot meet, the tiled CUDA-core kernels
+  (``csrc/fused_attention_fwd.cu``, ``csrc/fused_attention_bwd.cu``, helpers
+  in ``csrc/attention_fp32.cuh``: register micro-tiles of exact fp32 FMAs,
+  one sweep over the keys with an online softmax, shared memory set by the
+  head width alone). The fp32 forward also writes each row's max and the log
+  of its sum (``lse``, (B, heads, Lq, 2)), and the fp32 route's autograd
+  function saves its output and that lse, from which the backward rebuilds
+  P and delta = rowsum(g · out) in one sweep of each pass. Both routes take
+  any key count, as the JAX kernel does (it stages a head's whole K/V of any
+  length). A CPU tensor takes the plain versions. Nothing falls back from
   one to another.
   The clamps of w0/w1 stay outside, so autograd chains them.
 - ``fused_attention_reference`` is the plain forward (the
@@ -35,6 +38,9 @@ to the compute dtype before the product with V, on the packed
   ``_bwd_kernel`` written out, with its cast points, not autograd through the
   forward. The CPU tests hold both to the JAX kernels in interpret mode, and
   ``chip_smoke.py`` holds the CUDA kernels to them on the card.
+  ``_tiled_fwd`` and ``_tiled_bwd`` mirror the fp32 kernels' algorithm in
+  plain PyTorch (key tiles, the online softmax and its lse, the backward
+  from lse and delta), for the tests alone.
 - The kernels take every head_dim d from 1 to 256 (``MAX_HEAD_DIM``; above
   it the wrapper raises ``ValueError``). Each CUDA library exports the
   instantiations at 64 (BERT-base, ViT-B) and 128 (ViLBERT's visual stream,
@@ -293,6 +299,118 @@ def _plain_bwd(q, k, v, mask, g, num_heads, bnd, w, geometry, rate, seed,
             _merge_heads(dv, v.dtype), dw.to(w.dtype))
 
 
+def _tiled_fwd(q, k, v, mask, num_heads, bnd, w, geometry, rate, seed, stride=None,
+               block_k=64):
+    """(out, lse) of the fp32 forward kernel's algorithm in plain PyTorch
+    (csrc/fused_attention_fwd.cu; the tests use it, no route does): the keys
+    in tiles of ``block_k``, an online softmax (each row's running max and
+    sum, its accumulator rescaled when the max moves), and lse (B, heads,
+    Lq, 2), each row's max and the log of its sum."""
+    b, lq, hd = q.shape
+    lk = k.shape[1]
+    acc = _acc_dtype(q)
+    qh, kh, vh = (_split_heads(x, num_heads, acc) for x in (q, k, v))
+    scale = float(hd // num_heads) ** -0.5
+    mult = None if geometry is None else _geometry_planes(bnd, w, lq, lk, geometry)[0]
+    bias = ((1.0 - mask.to(acc)) * NEG_BIAS)[:, None, None, :]
+    keep = None
+    if rate > 0.0:
+        keep = dropout_keep(b, num_heads, lq, lk, rate, seed, q.device, stride)
+    m = torch.full((b, num_heads, lq, 1), -float("inf"), dtype=acc, device=q.device)
+    l = torch.zeros_like(m)
+    o = torch.zeros_like(qh)
+    for j0 in range(0, lk, block_k):
+        j = slice(j0, min(lk, j0 + block_k))
+        _, s = _score(qh @ kh[:, :, j].transpose(-1, -2), scale,
+                      None if mult is None else mult[..., j], bias[..., j])
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        corr = torch.exp(m - m_new)
+        p = torch.exp(s - m_new)
+        l = l * corr + p.sum(dim=-1, keepdim=True)
+        if keep is not None:
+            p = torch.where(keep[..., j], p, torch.zeros((), dtype=acc, device=q.device))
+        o = o * corr + p @ vh[:, :, j]
+        m = m_new
+    o = o / l
+    if rate > 0.0:
+        o = o / (1.0 - rate)
+    return _merge_heads(o, q.dtype), torch.cat([m, torch.log(l)], dim=-1)
+
+
+def _tiled_bwd(q, k, v, mask, g, out, lse, num_heads, bnd, w, geometry, rate, seed,
+               stride=None, block=64):
+    """(dq, dk, dv, dw) of the fp32 backward kernels' algorithm in plain
+    PyTorch (csrc/fused_attention_bwd.cu; the tests use it): P rebuilt from
+    the forward's lse as exp((s - max) - log sum), delta = rowsum(g · out)
+    (rowsum(dP · P) where every key fits one tile, as the kernel takes it
+    there); the dq pass over key tiles (dq and the dw sums), the dK/dV pass
+    over query tiles, each tile of ``block`` (the kernels' 64 up to head_dim
+    64)."""
+    b, lq, hd = q.shape
+    lk = k.shape[1]
+    acc = _acc_dtype(q)
+    qh, kh, vh, gh, oh = (_split_heads(x, num_heads, acc) for x in (q, k, v, g, out))
+    scale = float(hd // num_heads) ** -0.5
+    planes = None if geometry is None else _geometry_planes(bnd, w, lq, lk, geometry)
+    bias = ((1.0 - mask.to(acc)) * NEG_BIAS)[:, None, None, :]
+    keep = None
+    if rate > 0.0:
+        keep = dropout_keep(b, num_heads, lq, lk, rate, seed, q.device, stride)
+    inv = 1.0 / (1.0 - rate) if rate > 0.0 else 1.0
+    zero = torch.zeros((), dtype=acc, device=q.device)
+    m, logl = lse[..., :1].to(acc), lse[..., 1:].to(acc)
+    # every pass computes a score and a dP with the same instructions (the
+    # kernels' row_dots), so here each product is formed once
+    products = qh @ kh.transpose(-1, -2)
+    gv = gh @ vh.transpose(-1, -2)
+
+    def tile(r, j):
+        """(s_raw, P, P~, dropped dP, dS, dS_raw, the region planes) of rows
+        r and keys j."""
+        mult = None if planes is None else planes[0][..., r, j]
+        s_raw, s = _score(products[:, :, r, j], scale, mult, bias[..., j])
+        p = torch.exp((s - m[:, :, r]) - logl[:, :, r])
+        dp = gv[:, :, r, j]
+        p_drop = p
+        if keep is not None:
+            kept = keep[:, :, r, j]
+            p_drop = torch.where(kept, p * inv, zero)
+            dp = torch.where(kept, dp * inv, zero)
+        ds = p * (dp - delta[:, :, r])
+        regions = None
+        ds_w = ds
+        if planes is not None:
+            regions = (planes[1][..., r, j], planes[2][..., r, j])
+            ds_w = ds * mult
+        return s_raw, p, p_drop, dp, ds, ds_w * scale, regions
+
+    rows = slice(0, lq)
+    if lk <= block:  # rowsum(dP · P) of the one key tile
+        delta = torch.zeros_like(m)  # (tile's dS, unused here, reads it)
+        _, p, _, dp, _, _, _ = tile(rows, slice(0, lk))
+        delta = (dp * p).sum(dim=-1, keepdim=True)
+    else:
+        delta = (gh * oh).sum(dim=-1, keepdim=True)
+
+    dq, dk, dv = torch.zeros_like(qh), torch.zeros_like(kh), torch.zeros_like(vh)
+    dw = torch.zeros(2, dtype=acc, device=q.device)
+    for j0 in range(0, lk, block):  # the dq pass
+        j = slice(j0, min(lk, j0 + block))
+        s_raw, _, _, _, ds, ds_raw, regions = tile(rows, j)
+        dq += ds_raw @ kh[:, :, j]
+        if regions is not None:
+            dw = dw + torch.stack([torch.sum(ds * s_raw * regions[0]),
+                                   torch.sum(ds * s_raw * regions[1])])
+    keys = slice(0, lk)
+    for i0 in range(0, lq, block):  # the dK/dV pass
+        r = slice(i0, min(lq, i0 + block))
+        _, _, p_drop, _, _, ds_raw, _ = tile(r, keys)
+        dv += p_drop.transpose(-1, -2) @ gh[:, :, r]
+        dk += ds_raw.transpose(-1, -2) @ qh[:, :, r]
+    return (_merge_heads(dq, q.dtype), _merge_heads(dk, k.dtype), _merge_heads(dv, v.dtype),
+            dw.to(w.dtype))
+
+
 def fused_attention_reference(
     q: torch.Tensor,              # (B, Lq, heads*d) packed
     k: torch.Tensor,              # (B, Lk, heads*d)
@@ -357,13 +475,13 @@ def fused_attention_bwd_reference(
 
 @functools.cache
 def _lib(width=None) -> ctypes.CDLL:
-    """The CUDA-core forward's library (at a padded head ``width``, or the
-    one of 64 and 128); so the three below."""
+    """The fp32 forward's library (at a padded head ``width``, or the one of
+    64 and 128); so the three below."""
     lib = build.load("fused_attention_fwd", width)
     p, i, f, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint
     lib.mkg_fused_attention_fwd.argtypes = [
-        p, p, p, p, p, p, p,        # q k v mask boundary w out
-        i, i, i, i, i, i,           # batch lq lk num_heads head_dim is_bf16
+        p, p, p, p, p, p, p, p,     # q k v mask boundary w out lse
+        i, i, i, i, i,              # batch lq lk num_heads head_dim
         f,                          # scale
         i, i, i, i,                 # has_geometry row_start text_len offset
         i, u, f, u,                 # dropout threshold keep_div seed
@@ -371,7 +489,7 @@ def _lib(width=None) -> ctypes.CDLL:
         p,                          # stream
     ]
     lib.mkg_fused_attention_fwd.restype = ctypes.c_int
-    lib.mkg_fused_attention_fwd_smem.argtypes = [i, i, i]
+    lib.mkg_fused_attention_fwd_smem.argtypes = [i]  # head_dim
     lib.mkg_fused_attention_fwd_smem.restype = ctypes.c_size_t
     lib.mkg_cuda_error_string.argtypes = [i]
     lib.mkg_cuda_error_string.restype = ctypes.c_char_p
@@ -384,8 +502,9 @@ def _lib_bwd(width=None) -> ctypes.CDLL:
     p, i, f, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint
     lib.mkg_fused_attention_bwd.argtypes = [
         p, p, p, p, p, p, p,        # q k v g mask boundary w
-        p, p, p, p, p,              # dq dk dv stats dw_part
-        i, i, i, i, i, i,           # batch lq lk num_heads head_dim is_bf16
+        p, p,                       # out lse (the forward's)
+        p, p, p, p, p,              # dq dk dv delta dw_part
+        i, i, i, i, i,              # batch lq lk num_heads head_dim
         f,                          # scale
         i, i, i, i,                 # has_geometry row_start text_len offset
         i, u, f, u,                 # dropout threshold inv_keep seed
@@ -393,7 +512,7 @@ def _lib_bwd(width=None) -> ctypes.CDLL:
         p,                          # stream
     ]
     lib.mkg_fused_attention_bwd.restype = ctypes.c_int
-    lib.mkg_fused_attention_bwd_smem.argtypes = [i, i, i, i]
+    lib.mkg_fused_attention_bwd_smem.argtypes = [i]  # head_dim
     lib.mkg_fused_attention_bwd_smem.restype = ctypes.c_size_t
     lib.mkg_cuda_error_string.argtypes = [i]
     lib.mkg_cuda_error_string.restype = ctypes.c_char_p
@@ -477,10 +596,9 @@ def _head_dim(q, num_heads):
 
 
 def _check_smem(smem, q, what, hint="the device is not an H100-class card"):
-    """Raise where a block of the form a call takes needs more shared
-    memory than the device lets it have (the single-block kernels: never on
-    an H100, whose 227 KB each of their forms was sized for, at any
-    length)."""
+    """Raise where a block of a kernel needs more shared memory than the
+    device lets it have (the fp32 single-block kernels: a size set by the
+    head width alone, never above an H100's 227 KB, at any length)."""
     limit = torch.cuda.get_device_properties(q.device).shared_memory_per_block_optin
     if smem > limit:
         raise ValueError(
@@ -539,28 +657,39 @@ def _count_bwd(head_dim):
     WIDTH_LAUNCHES["bwd", head_dim] += 1
 
 
-def _launch_fwd_cuda_cores(q, k, v, mask, num_heads, bnd, w, geometry, rate, seed, stride=None):
-    """The CUDA-core forward (csrc/fused_attention_fwd.cu): the fp32 route.
-    It also takes bf16 at head_dim 64 and 128, which :func:`_launch_fwd`
-    never sends it; only a measurement that wants the earlier kernel's time
-    beside the new one's calls it so (a library of another width has the
-    fp32 instance alone, and its bf16 launch raises)."""
+def _check_fp32(q, what):
+    if q.dtype != torch.float32:
+        raise ValueError(f"{what} takes float32 (bf16 takes the tensor-core kernels), "
+                         f"got {q.dtype}")
+
+
+def _fwd_cuda_cores(q, k, v, mask, num_heads, bnd, w, geometry, rate, seed, stride=None):
+    """(out, lse) of one launch of the fp32 forward (csrc/fused_attention_fwd.cu),
+    uncounted: lse is the (B, heads, Lq, 2) fp32 row statistics the backward
+    takes, each row's max and the log of its sum."""
+    _check_fp32(q, "the CUDA-core forward")
     b, lq, _ = q.shape
     lk = k.shape[1]
     d = _head_dim(q, num_heads)
     lib = _lib(build.library_width(d))
-    is_bf16 = int(q.dtype == torch.bfloat16)
-    _check_smem(lib.mkg_fused_attention_fwd_smem(lk, is_bf16, d), q,
-                f"Lk={lk} at head_dim {d}")
+    _check_smem(lib.mkg_fused_attention_fwd_smem(d), q, f"the fp32 forward at head_dim {d}")
     out = torch.empty_like(q)
+    lse = torch.empty(b, num_heads, lq, 2, dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         err = lib.mkg_fused_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
-            bnd.data_ptr(), w.data_ptr(), out.data_ptr(), b, lq, lk, num_heads, d, is_bf16,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(), bnd.data_ptr(),
+            w.data_ptr(), out.data_ptr(), lse.data_ptr(), b, lq, lk, num_heads, d,
             *_call_tail(q, d, geometry, rate, seed, stride, 1.0 - rate))
     _raise_if(err, lib, "fused_attention_fwd")
-    _count_fwd(d)
-    return out
+    return out, lse
+
+
+def _launch_fwd_cuda_cores(q, k, v, mask, num_heads, bnd, w, geometry, rate, seed, stride=None):
+    """The fp32 forward (csrc/fused_attention_fwd.cu, on the CUDA cores):
+    (out, lse), one launch counted."""
+    out, lse = _fwd_cuda_cores(q, k, v, mask, num_heads, bnd, w, geometry, rate, seed, stride)
+    _count_fwd(_head_dim(q, num_heads))
+    return out, lse
 
 
 def _launch_fwd_mma(q, k, v, mask, num_heads, bnd, w, geometry, rate, seed, stride=None):
@@ -581,15 +710,19 @@ def _launch_fwd_mma(q, k, v, mask, num_heads, bnd, w, geometry, rate, seed, stri
 
 
 def _launch_fwd(q, k, v, mask, num_heads, bnd, w, geometry, rate, seed, stride=None):
-    """One forward launch; the dtype alone picks the kernel."""
-    launch = _launch_fwd_mma if q.dtype == torch.bfloat16 else _launch_fwd_cuda_cores
-    return launch(q, k, v, mask, num_heads, bnd, w, geometry, rate, seed, stride)
+    """The output of one forward launch; the dtype alone picks the kernel."""
+    if q.dtype == torch.bfloat16:
+        return _launch_fwd_mma(q, k, v, mask, num_heads, bnd, w, geometry, rate, seed, stride)
+    return _launch_fwd_cuda_cores(q, k, v, mask, num_heads, bnd, w, geometry, rate, seed,
+                                  stride)[0]
 
 
 def _bwd_buffers(q, k, v, g, num_heads, stats_width):
     """(dq, dk, dv, stats, dw_part) of one backward: the results, the
     ``stats_width`` fp32 row statistics that the dq pass hands the dk/dv
-    pass, and one (dw0, dw1) partial per (b, head, query tile)."""
+    pass (the fp32 kernels' delta; the tensor-core ones' m, 1 / l, delta
+    and multiplier), and one (dw0, dw1) partial per (b, head, query
+    tile)."""
     _check_tensor("g", g, q)
     if g.shape != q.shape:
         raise ValueError(f"g {tuple(g.shape)} is not q's shape {tuple(q.shape)}")
@@ -604,21 +737,31 @@ def _bwd_pointers(q, k, v, g, mask, bnd, w, buffers):
     return [t.data_ptr() for t in (q, k, v, g, mask, bnd, w, *buffers)]
 
 
-def _launch_bwd_cuda_cores(q, k, v, mask, g, num_heads, bnd, w, geometry, rate, seed, stride=None):
-    """The CUDA-core backward (csrc/fused_attention_bwd.cu): the fp32 route
-    (bf16 only for a measurement, as :func:`_launch_fwd_cuda_cores`)."""
+def _launch_bwd_cuda_cores(q, k, v, mask, g, num_heads, bnd, w, geometry, rate, seed,
+                           stride=None, out=None, lse=None):
+    """The fp32 backward (csrc/fused_attention_bwd.cu: the dq pass, then the
+    dK/dV pass) from the forward's ``out`` and ``lse``. A call without them
+    (a direct call, as the tests and chip_smoke.py make) has the forward
+    kernel rebuild them first, within this backward's one counted launch."""
+    _check_fp32(q, "the CUDA-core backward")
     b, lq, _ = q.shape
     lk = k.shape[1]
     d = _head_dim(q, num_heads)
-    buffers = _bwd_buffers(q, k, v, g, num_heads, 3)  # m, l, delta a row
+    if out is None or lse is None:
+        out, lse = _fwd_cuda_cores(q, k, v, mask, num_heads, bnd, w, geometry, rate, seed,
+                                   stride)
+    _check_tensor("out", out, q)
+    if out.shape != q.shape or lse.shape != (b, num_heads, lq, 2) \
+            or lse.dtype != torch.float32 or not lse.is_contiguous():
+        raise ValueError(f"out {tuple(out.shape)} / lse {tuple(lse.shape)} are not the "
+                         f"forward's residuals of q {tuple(q.shape)}")
+    buffers = _bwd_buffers(q, k, v, g, num_heads, 1)  # delta a row
     lib = _lib_bwd(build.library_width(d))
-    is_bf16 = int(q.dtype == torch.bfloat16)
-    _check_smem(lib.mkg_fused_attention_bwd_smem(lq, lk, is_bf16, d), q,
-                f"the backward at Lq={lq}, Lk={lk}, head_dim {d}")
+    _check_smem(lib.mkg_fused_attention_bwd_smem(d), q, f"the fp32 backward at head_dim {d}")
     with torch.cuda.device(q.device):
         err = lib.mkg_fused_attention_bwd(
-            *_bwd_pointers(q, k, v, g, mask, bnd, w, buffers), b, lq, lk, num_heads, d,
-            is_bf16, *_call_tail(q, d, geometry, rate, seed, stride, _inv_keep(rate)))
+            *_bwd_pointers(q, k, v, g, mask, bnd, w, (out, lse, *buffers)), b, lq, lk,
+            num_heads, d, *_call_tail(q, d, geometry, rate, seed, stride, _inv_keep(rate)))
     _raise_if(err, lib, "fused_attention_bwd")
     _count_bwd(d)
     dq, dk, dv, _, dw_part = buffers
@@ -643,41 +786,65 @@ def _launch_bwd_mma(q, k, v, mask, g, num_heads, bnd, w, geometry, rate, seed, s
     return dq, dk, dv, dw_part.sum(dim=(0, 1, 2)).to(w.dtype)
 
 
-def _launch_bwd(q, k, v, mask, g, num_heads, bnd, w, geometry, rate, seed, stride=None):
+def _launch_bwd(q, k, v, mask, g, num_heads, bnd, w, geometry, rate, seed, stride=None,
+                out=None, lse=None):
     """dq, dk, dv and the (2,) dw of one backward; the dtype alone picks the
-    kernels. They write one (dw0, dw1) partial per (b, head, query tile) and
-    the launcher sums them, so no float atomics run and fp32 results repeat
-    from run to run."""
-    launch = _launch_bwd_mma if q.dtype == torch.bfloat16 else _launch_bwd_cuda_cores
-    return launch(q, k, v, mask, g, num_heads, bnd, w, geometry, rate, seed, stride)
+    kernels (``out`` and ``lse``, the fp32 forward's residuals, go to the fp32
+    ones; bf16 recomputes its statistics). They write one (dw0, dw1) partial
+    per (b, head, query tile) and the launcher sums them, so no float atomics
+    run and fp32 results repeat from run to run."""
+    if q.dtype == torch.bfloat16:
+        return _launch_bwd_mma(q, k, v, mask, g, num_heads, bnd, w, geometry, rate, seed,
+                               stride)
+    return _launch_bwd_cuda_cores(q, k, v, mask, g, num_heads, bnd, w, geometry, rate, seed,
+                                  stride, out, lse)
+
+
+def _route(q) -> str:
+    """The route of a call: "plain" for a CPU tensor; on the card the dtype
+    alone picks "tensor_cores" (bf16) or "cuda_cores" (fp32)."""
+    if q.device.type == "cpu":
+        return "plain"
+    return "tensor_cores" if q.dtype == torch.bfloat16 else "cuda_cores"
 
 
 class _FusedAttention(torch.autograd.Function):
     """The custom VJP of attention.py:286-383: the forward saves its inputs
     and the seed, the backward recomputes the probabilities and the dropout
-    mask. Gradients flow to q, k, v and the stacked (w0, w1)."""
+    mask. The fp32 CUDA route also saves its output and lse (the row
+    statistics its backward rebuilds P from in one sweep); the bf16 and CPU
+    routes keep JAX's residuals. Gradients flow to q, k, v and the stacked
+    (w0, w1)."""
 
     @staticmethod
     def forward(ctx, q, k, v, mask, bnd, w, num_heads, geometry, rate, seed,
                 compute_dtype, stride):
-        ctx.save_for_backward(q, k, v, mask, bnd, w)
-        ctx.call = (num_heads, geometry, rate, seed, compute_dtype, stride)
-        if q.device.type == "cpu":
-            return _plain_fwd(q, k, v, mask, num_heads, bnd, w, geometry, rate,
-                              seed, compute_dtype, stride=stride)
-        return _launch_fwd(q, k, v, mask, num_heads, bnd, w, geometry, rate, seed, stride)
+        route = _route(q)
+        ctx.call = (route, num_heads, geometry, rate, seed, compute_dtype, stride)
+        args = (q, k, v, mask, num_heads, bnd, w, geometry, rate, seed)
+        residuals = ()
+        if route == "plain":
+            out = _plain_fwd(*args, compute_dtype, stride=stride)
+        elif route == "tensor_cores":
+            out = _launch_fwd_mma(*args, stride)
+        else:
+            out, lse = _launch_fwd_cuda_cores(*args, stride)
+            residuals = (out, lse)
+        ctx.save_for_backward(q, k, v, mask, bnd, w, *residuals)
+        return out
 
     @staticmethod
     def backward(ctx, g):
-        q, k, v, mask, bnd, w = ctx.saved_tensors
-        num_heads, geometry, rate, seed, compute_dtype, stride = ctx.call
-        if q.device.type == "cpu":
+        q, k, v, mask, bnd, w, *residuals = ctx.saved_tensors
+        route, num_heads, geometry, rate, seed, compute_dtype, stride = ctx.call
+        if route == "plain":
             dq, dk, dv, dw = _plain_bwd(q, k, v, mask, g, num_heads, bnd, w,
                                         geometry, rate, seed, compute_dtype, stride)
         else:
             # g comes from the out-projection's backward
             dq, dk, dv, dw = _launch_bwd(q, k, v, mask, g.to(q.dtype).contiguous(),
-                                         num_heads, bnd, w, geometry, rate, seed, stride)
+                                         num_heads, bnd, w, geometry, rate, seed, stride,
+                                         *residuals)
         return dq, dk, dv, None, None, dw, None, None, None, None, None, None
 
 

@@ -120,10 +120,11 @@ class _Lib:
 def test_wrappers_cap_no_key_count(monkeypatch, dtype):
     """Neither route's wrapper caps the key count: at 5,000 keys the bf16
     launchers (the tensor-core kernels, which stream their keys) and the
-    fp32 ones (which stream them where a head's K and V pass a block) pass
-    the call to the library as it is. The fp32 ones still hold the bytes
-    the library reports against the device's limit, which the streaming
-    forms never pass on an H100."""
+    fp32 ones (one sweep over key tiles, shared memory set by the head width
+    alone) pass the call to the library as it is; the fp32 backward, called
+    without the forward's residuals, has the forward kernel rebuild them
+    first. The fp32 ones still hold the bytes the library reports against
+    the device's limit, which they never pass on an H100."""
     class _Stream:
         cuda_stream = 0
 
@@ -144,11 +145,18 @@ def test_wrappers_cap_no_key_count(monkeypatch, dtype):
     single._launch_fwd(q, k, k, mask, H, bnd, w, geo, rate, seed)
     single._launch_bwd(q, k, k, mask, q, H, bnd, w, geo, rate, seed)
     names = [name for name, _ in lib.calls]
-    suffix = "_mma" if dtype == torch.bfloat16 else ""
-    assert names == [f"mkg_fused_attention_fwd{suffix}", f"mkg_fused_attention_bwd{suffix}"]
-    # (b, lq, lk) follow the pointers: 7 of the forward's, 12 of the backward's
-    assert lib.calls[0][1][7:10] == (1, lq, lk)
-    assert lib.calls[1][1][12:15] == (1, lq, lk)
+    if dtype == torch.bfloat16:
+        assert names == ["mkg_fused_attention_fwd_mma", "mkg_fused_attention_bwd_mma"]
+        # (b, lq, lk) follow the pointers: 7 of the forward's, 12 of the backward's
+        assert lib.calls[0][1][7:10] == (1, lq, lk)
+        assert lib.calls[1][1][12:15] == (1, lq, lk)
+    else:
+        assert names == ["mkg_fused_attention_fwd", "mkg_fused_attention_fwd",
+                         "mkg_fused_attention_bwd"]
+        # 8 pointers of the forward's (out and lse among them), 14 of the
+        # backward's (the forward's out and lse among them)
+        assert lib.calls[0][1][8:11] == lib.calls[1][1][8:11] == (1, lq, lk)
+        assert lib.calls[2][1][14:17] == (1, lq, lk)
     lib.smem = 232449
     if dtype == torch.float32:
         with pytest.raises(ValueError, match="not an H100-class card"):
@@ -189,8 +197,8 @@ def test_single_block_kernels_take_long_keys(cuda, shape, dtype):  # noqa: F811
     """Rows 1-2 on the card at 418, 1100 and 1024 x 1024 keys, dropout 0.1:
     the forward within 2e-5 fp32 / 2e-2 bf16 of the plain version, the
     backward within 2e-5 / 2^-7 of each result's largest, each launch
-    counted. The fp32 kernels stream K and V at all three (they pass a
-    block's shared memory whole: 418 x 68 x 4 x 2 bytes and more)."""
+    counted. The fp32 kernels sweep K and V in tiles at every length, as
+    the tensor-core ones do."""
     b, lq, lk, geometry = KERNEL_SHAPES[shape]
     q, k, v, g, mask = kernel_inputs(b, lq, lk, dtype, cuda)
     kw = dict(port_kwargs(geometry, cuda), compute_dtype=dtype, dropout_rate=0.1,
@@ -214,21 +222,3 @@ def test_single_block_kernels_take_long_keys(cuda, shape, dtype):  # noqa: F811
         torch.testing.assert_close(a.float(), b_.float(),
                                    atol=rel * b_.float().abs().max().item() + 1e-30, rtol=0)
     # (dw: chip_smoke.py's kernel phases hold it to the sum of its terms)
-
-
-@pytest.mark.cuda
-def test_fp32_kernels_stream_only_where_the_resident_form_does_not_fit(cuda):  # noqa: F811
-    """The fp32 kernels report the shared memory of the form a call takes:
-    the resident form (K and V of every key) up to 400 keys at head_dim 64,
-    the streaming form (whatever the length) from 401, each within the
-    device's limit; so MKGformer's 99 x 227 runs the kernel it always ran."""
-    from mkg_analogy_tpu_torch.kernels import build
-
-    lib, lib_bwd = single._lib(), single._lib_bwd()
-    limit = torch.cuda.get_device_properties(cuda).shared_memory_per_block_optin
-    resident = [lib.mkg_fused_attention_fwd_smem(lk, 0, 64) for lk in (227, 400)]
-    assert resident == [2 * lk * 68 * 4 + (-(-lk // 4) * 4) * 4 * 9 for lk in (227, 400)]
-    streaming = {lib.mkg_fused_attention_fwd_smem(lk, 0, 64) for lk in (401, 1100, 100000)}
-    assert len(streaming) == 1 and streaming.pop() <= limit
-    assert lib_bwd.mkg_fused_attention_bwd_smem(100000, 100000, 0, 64) <= limit
-    assert build.MAX_HEAD_DIM == 256
