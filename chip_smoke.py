@@ -105,10 +105,11 @@ exits non-zero:
                 tiles), FLAVA's three towers (B=24: 393x393, 128x128 with the
                 multiplier from row 1, 522x522) and ViLT's fp32 route (B=32,
                 418x418), fp32 and bf16, dropout 0 and 0.1; the times of each
-                kernel, of the CUDA-core kernels in bf16 (``earlier_ms``,
-                which each tensor-core kernel must beat at every shape), the
-                plain versions and SDPA (where no analogy multiplier
-                applies), and the bounds; then the tensor-core kernels at
+                kernel in bf16 and in fp32, of the CUDA-core forward in bf16
+                (``earlier_ms``, which the tensor-core forward must beat at
+                every shape), the plain versions and SDPA (where no analogy
+                multiplier applies), and the bounds; then the tensor-core
+                kernels at
                 the flash edge cases (FLASH_EDGE_CASES: Lq and Lk of 1, 255,
                 257, 511, 513 and 611, a row whose keys are all masked,
                 row_start 1, the +290 offset, 64-row blocks and 64-key
@@ -160,10 +161,10 @@ exits non-zero:
                 family's default kernels (ViLT the single-block ones, 12 + 12
                 launches a step; FLAVA the flash ones, 30 + 30 + 30): the
                 loss falls, step time and a device profile; ViLT's step also
-                through the flash kernels, for comparison; and what ViLT's
-                fp32 step costs through the single-block kernels
-                (fp32_step_cost: step ms, device ms, the attention kernels'
-                share of it);
+                through the flash kernels, for comparison; and what each
+                family's fp32 step costs through its default kernels (ViLT
+                the single-block ones, FLAVA the flash ones; fp32_step_cost:
+                step ms, device ms, the attention kernels' share of it);
 16. cli_image — the main path of the image slice: the tool writes a pixel
                 store for a dataset written here, ``cli.main --model_class
                 ViltKGC|FlavaKGC --image_features <store>`` fine-tunes one
@@ -1844,12 +1845,14 @@ def flash_kernel_phase(device):
     of each result's largest |value| (a term rounded at a cast point can
     land one bf16 ulp apart), dw within 1e-5 of its sum of |terms|. Then
     the times in bf16 (dropout 0.1 on text keys as the text tower trains):
-    each kernel, the CUDA-core backward pair in bf16 (``earlier_ms``: FAIL
-    where a tensor-core kernel is not faster), the plain forward and the
+    each kernel, the CUDA-core forward in bf16 (``fwd_earlier_ms``: FAIL
+    where the tensor-core forward is not faster), the plain forward and the
     plain backward (one walk computes dq, dk and dv, so both backward
     kernels' rows carry its time), SDPA's forward and backward
     (forward-and-backward minus forward) where no analogy multiplier
-    applies, and the bounds."""
+    applies, and the bounds; and each kernel in fp32 on the same calls
+    (``{kernel}_ms_fp32``, the CUDA-core kernels of the fp32 route) with
+    its fp32 bounds."""
     import torch
     import torch.nn.functional as F
 
@@ -1886,22 +1889,25 @@ def flash_kernel_phase(device):
                                                            *args), **n)
         row["dq_ms"] = time_ms(lambda: fa._launch_bwd_dq(q, k, v, mask, go, lse, delta,
                                                          *args), **n)
-        # the CUDA-core kernels in bf16, which these calls ran before: the
-        # tensor-core kernels must beat them at every shape
+        # the CUDA-core forward in bf16, which these calls ran before: the
+        # tensor-core forward must beat it at every shape
         slow = dict(samples=5, per_sample=3)
         row["fwd_earlier_ms"] = time_ms(lambda: fa._launch_fwd_cuda_cores(q, k, v, mask, *args),
                                         **slow)
-        row["dkv_earlier_ms"] = time_ms(lambda: fa._launch_bwd_dkv_cuda_cores(
-            q, k, v, mask, go, lse, delta, *args), **slow)
-        row["dq_earlier_ms"] = time_ms(lambda: fa._launch_bwd_dq_cuda_cores(
-            q, k, v, mask, go, lse, delta, *args), **slow)
-        for kernel in ("fwd", "dkv", "dq"):
-            if not row[f"{kernel}_ms"] < row[f"{kernel}_earlier_ms"]:
-                print(f"FAIL flash {name}: the tensor-core {kernel} kernel "
-                      f"({row[f'{kernel}_ms']} ms) is no faster than the CUDA-core one "
-                      f"({row[f'{kernel}_earlier_ms']} ms)", flush=True)
-                raise AssertionError(f"flash {name}: {kernel} no faster than the CUDA-core "
-                                     "kernel")
+        if not row["fwd_ms"] < row["fwd_earlier_ms"]:
+            print(f"FAIL flash {name}: the tensor-core forward ({row['fwd_ms']} ms) is no "
+                  f"faster than the CUDA-core one ({row['fwd_earlier_ms']} ms)", flush=True)
+            raise AssertionError(f"flash {name}: fwd no faster than the CUDA-core kernel")
+        # the same calls on the fp32 route: the CUDA-core kernels
+        q32, k32, v32, go32 = (x.float() for x in (q, k, v, go))
+        out32, lse32 = fa._launch_fwd(q32, k32, v32, mask, *args)
+        delta32 = fa._delta(go32, out32, HEADS)
+        row["fwd_ms_fp32"] = time_ms(lambda: fa._launch_fwd(q32, k32, v32, mask, *args), **slow)
+        row["dkv_ms_fp32"] = time_ms(lambda: fa._launch_bwd_dkv(
+            q32, k32, v32, mask, go32, lse32, delta32, *args), **slow)
+        row["dq_ms_fp32"] = time_ms(lambda: fa._launch_bwd_dq(
+            q32, k32, v32, mask, go32, lse32, delta32, *args), **slow)
+        del q32, k32, v32, go32, out32, lse32, delta32
         row["plain_fwd_ms"] = time_ms(
             lambda: fa.flash_attention_reference(q, k, v, mask, HEADS, **kw), **n)
         row["plain_bwd_ms"] = time_ms(lambda: fa.flash_attention_bwd_reference(
@@ -1935,6 +1941,9 @@ def flash_kernel_phase(device):
             row[f"{kernel}_bytes_ms"], row[f"{kernel}_operations_ms"] = t_bytes, t_ops
             row[f"{kernel}_bound_ms"] = max(t_bytes, t_ops)
             row[f"{kernel}_bound_by"] = bound_by(t_bytes, t_ops)
+            t_bytes, t_ops = flash_bound_times(kernel, b, lq, lk, 4,
+                                               flops_per_s=FP32_FLOPS_PER_S)
+            row[f"{kernel}_bytes_ms_fp32"], row[f"{kernel}_operations_ms_fp32"] = t_bytes, t_ops
         rows.append(row)
         emit(dict(phase="flash_kernel", **row))
         del q, k, v, go, out, lse, delta
@@ -3323,8 +3332,9 @@ def family_phase(device, name):
                                                               runs["plain_nodrop"][1]))
     del runs, model, trainer
     torch.cuda.empty_cache()
-    if name == "vilt":
-        # what the fp32 step costs through the single-block kernels
+    if name in FAMILIES:
+        # what the fp32 step costs through the family's default kernels
+        # (ViLT the single-block ones, FLAVA the flash ones)
         out["fp32"]["step_cost"] = fp32_step_cost(device, name)
 
     with torch.device(device):
@@ -5273,9 +5283,11 @@ def flash_entry(rows, kernel, launches, edges):
     is the library yardstick of every call); plain_ms is the plain forward,
     or for both backward kernels the plain backward, which computes dq, dk
     and dv in one walk; library_ms likewise SDPA's forward or its whole
-    backward; earlier_ms is the CUDA-core kernel's in bf16. Errors are the
-    largest over every shape, and over the bf16 edge cases (``edges``, the
-    errors of flash_edge_phase) in max_abs_err_edges."""
+    backward; ms_fp32 and bound_ms_fp32 the fp32 route's kernel (the
+    CUDA-core one) on the same calls; the forward's earlier_ms the CUDA-core
+    forward's in bf16. Errors are the largest over every shape, and over the
+    bf16 edge cases (``edges``, the errors of flash_edge_phase) in
+    max_abs_err_edges."""
     name, source, source_fp32, line = FLASH_KERNELS[kernel]
     step = [r for r in rows if r["launches_per_triple_step"]]
 
@@ -5309,10 +5321,13 @@ def flash_entry(rows, kernel, launches, edges):
                  if k.startswith((kernel, "shape", "B", "L", "tiles", plain, library))}
                 for r in rows])
     # bf16 on the tensor cores, fp32 on the CUDA cores
+    t_bytes, t_ops = (per_step(f"{kernel}_bytes_ms_fp32"),
+                      per_step(f"{kernel}_operations_ms_fp32"))
     entry.update(source_fp32=f"mkg_analogy_tpu_torch/csrc/{source_fp32}",
-                 earlier_ms=per_step(f"{kernel}_earlier_ms"), max_abs_err_edges=edge_err)
+                 ms_fp32=per_step(f"{kernel}_ms_fp32"), bound_ms_fp32=max(t_bytes, t_ops),
+                 bound_by_fp32=bound_by(t_bytes, t_ops), max_abs_err_edges=edge_err)
     if kernel == "fwd":
-        entry["lse_max_abs_err"] = lse_err
+        entry.update(lse_max_abs_err=lse_err, earlier_ms=per_step("fwd_earlier_ms"))
     return entry
 
 
@@ -5350,7 +5365,8 @@ def main() -> int:
               resources={name: build.resource_usage(name)
                          for name in ("fused_attention_fwd_mma", "fused_attention_bwd_mma",
                                       "flash_attention_fwd_mma", "flash_attention_bwd_mma",
-                                      "fused_attention_fwd", "fused_attention_bwd")}))
+                                      "fused_attention_fwd", "fused_attention_bwd",
+                                      "flash_attention_bwd")}))
     rows, edge_err = kernel_phase(device)
     bwd_rows, bwd_edge_err = kernel_bwd_phase(device)
     model_phase(device)

@@ -1,6 +1,6 @@
-// The tiled fp32 single-block attention kernels (fused_attention_fwd.cu,
-// fused_attention_bwd.cu): what the forward and the two backward passes
-// share.
+// The tiled fp32 attention kernels (fused_attention_fwd.cu, and the two
+// backward passes of attention_fp32_bwd.cuh, which fused_attention_bwd.cu
+// and flash_attention_bwd.cu instantiate): what they share.
 //
 // Every block takes a tile of 64 rows (query rows, or keys in the dK/dV
 // pass) against the other side, which comes in tiles of kN rows through a
@@ -126,21 +126,22 @@ __device__ __forceinline__ void stage(float* dst, int stride, const float* src, 
 }
 
 // s[i][t] += A[ty + 16 i] . B[tx + kG t] over D columns of two staged tiles
-// (rows `stride` floats apart), one fmaf a column, in column order.
-template <int D, int T>
-__device__ __forceinline__ void row_dots(float (&s)[4][T], const float* A, const float* B,
+// (rows `stride` floats apart), one fmaf a column, in column order; R of a
+// thread's rows (4, or fewer where a block's valid rows fit in 16 R).
+template <int D, int T, int R>
+__device__ __forceinline__ void row_dots(float (&s)[R][T], const float* A, const float* B,
                                          int stride, int ty, int tx) {
   const float* a = A + ty * stride;
   const float* b = B + tx * stride;
 #pragma unroll 4
   for (int c = 0; c < D; c += 4) {
-    float4 av[4], bv[T];
+    float4 av[R], bv[T];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) av[i] = *reinterpret_cast<const float4*>(a + 16 * i * stride + c);
+    for (int i = 0; i < R; ++i) av[i] = *reinterpret_cast<const float4*>(a + 16 * i * stride + c);
 #pragma unroll
     for (int t = 0; t < T; ++t) bv[t] = *reinterpret_cast<const float4*>(b + kG * t * stride + c);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+    for (int i = 0; i < R; ++i) {
 #pragma unroll
       for (int t = 0; t < T; ++t) {
         s[i][t] = fmaf(av[i].x, bv[t].x, s[i][t]);
@@ -189,19 +190,19 @@ __device__ __forceinline__ float part(const float4& v, int u) {
 }
 
 // acc[i][m] += sum over j < kN of P[ty + 16 i][j] * X[j][col_of(m)]: the
-// 64 x kN tile P (rows `pstride` apart) into the thread's 4 x kCols / kG
+// 64 x kN tile P (rows `pstride` apart) into the thread's R x kCols / kG
 // accumulators, X's rows `xstride` apart, j in order.
-template <int kN, int kCols>
-__device__ __forceinline__ void p_times(float (&acc)[4][kCols / kG], const float* P,
+template <int kN, int kCols, int R>
+__device__ __forceinline__ void p_times(float (&acc)[R][kCols / kG], const float* P,
                                         int pstride, const float* X, int xstride, int ty,
                                         int tx) {
   constexpr int NC = kCols / kG;
   const float* p = P + ty * pstride;
 #pragma unroll 2
   for (int j = 0; j < kN; j += 4) {
-    float4 pv[4];
+    float4 pv[R];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+    for (int i = 0; i < R; ++i) {
       pv[i] = *reinterpret_cast<const float4*>(p + 16 * i * pstride + j);
     }
 #pragma unroll
@@ -209,7 +210,7 @@ __device__ __forceinline__ void p_times(float (&acc)[4][kCols / kG], const float
       float x[NC];
       load_cols<kCols>(X + (j + u) * xstride, tx, x);
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
+      for (int i = 0; i < R; ++i) {
         const float pij = part(pv[i], u);
 #pragma unroll
         for (int m = 0; m < NC; ++m) acc[i][m] = fmaf(pij, x[m], acc[i][m]);
@@ -305,13 +306,17 @@ struct Args {
   const float *q, *k, *v, *g, *mask, *w;
   const int* boundary;
   const float* out;  // the backward's: the forward's output, for delta
-  float* lse;        // (B, heads, Lq, 2): the forward writes it, the backward reads it
+  float* lse;        // (B, heads, Lq, 2): the forward writes it, the backward reads it;
+                     // flash: (B, heads, Lq), row 3's log-sum-exp
   float *o, *dq, *dk, *dv;
-  float* delta;    // (B, heads, Lq): the dq pass writes rowsum(g * out), the dK/dV pass reads it
-  float* dw_part;  // (B, heads, ceil(Lq / 64), 2): the dq pass's (dw0, dw1) partials
+  float* delta;    // (B, heads, Lq): the dq pass writes rowsum(g * out), the dK/dV pass
+                   // reads it; flash: the wrapper's, both passes read it
+  float* dw_part;  // the (dw0, dw1) partials: (B, heads, ceil(Lq / 64), 2) of the
+                   // single-block dq pass, (B, heads, ceil(Lk / 64), 2) of the flash dK/dV pass
   int lq, lk, num_heads, head_dim, has_geometry, row_start, text_len, offset, dropout;
   uint32_t threshold, seed, cell_stride;
   float scale, keep;  // keep: the forward's divisor 1 - rate, the backward's 1 / (1 - rate)
+  int bq, bk, n_qblk, n_kblk;  // the flash call's logical tiles (its dropout cells)
 };
 
 // Whether every row of one head (x at its first row, rows ld floats apart,

@@ -63,13 +63,14 @@ R with_width(int d, R none, F&& f) {
   return none;
 }
 
-// f(T{}) for the element type T of a call to a CUDA-core flash kernel of
-// this library (flash_attention_*.cu), or `none` where it has none: fp32
-// and bf16 in a library of 64 and 128 (bf16 only for a measurement of the
-// CUDA-core kernel beside the tensor-core one), fp32 alone in a library of
-// one padded width, whose bf16 calls the tensor-core kernels take (so nvcc
-// compiles half as many kernels there). The single-block fp32 kernels
-// (fused_attention_*.cu, attention_fp32.cuh) have an fp32 instance alone.
+// f(T{}) for the element type T of a call to the CUDA-core flash forward
+// of this library (flash_attention_fwd.cu), or `none` where it has none:
+// fp32 and bf16 in a library of 64 and 128 (bf16 only for a measurement of
+// the CUDA-core kernel beside the tensor-core one), fp32 alone in a library
+// of one padded width, whose bf16 calls the tensor-core kernel takes (so
+// nvcc compiles half as many kernels there). The tiled fp32 kernels
+// (fused_attention_*.cu and flash_attention_bwd.cu, attention_fp32.cuh)
+// have an fp32 instance alone.
 template <class R, class F>
 R with_type(int is_bf16, R none, F&& f) {
   if (!is_bf16) return f(float{});
@@ -87,8 +88,8 @@ __device__ __forceinline__ bool rows_aligned(const void* p, int ld, int cols, in
            uintptr_t(cols) * elem_bytes) & 15u) == 0;
 }
 
-// Element by element, for the CUDA-core flash kernels in a library of one
-// padded width (flash_attention_*.cu): a head's rows of d columns are
+// Element by element, for the CUDA-core flash forward in a library of one
+// padded width (flash_attention_fwd.cu): a head's rows of d columns are
 // staged into rows of D, zero from d on; a result pair (col, col + 1)
 // stored where its columns are below d.
 __device__ __forceinline__ float to_float(float x) { return x; }
@@ -131,8 +132,8 @@ __device__ __forceinline__ void load16(const __nv_bfloat16* p, float* f) {
 }
 
 // A staged head row of D columns (shared memory, 16-byte aligned) that is
-// one operand of many dot products in the CUDA-core kernels: a warp's
-// query, key, value or cotangent row against the rows its lanes take. Up
+// one operand of many dot products in the CUDA-core flash forward: a warp's
+// query row against the key rows its lanes take. Up
 // to D = 128 its D floats are held in registers, as the kernels held them
 // before other widths came; above, where D registers a thread would pass
 // the 255 it may hold, it is read again from shared memory at every product

@@ -102,18 +102,24 @@ def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
     return (x * lo + (((x * hi) & 0xFFFF) << 16)) & _M32
 
 
-def hash_keep(seeds: torch.Tensor, rows: int, cols: int, rate: float) -> torch.Tensor:
-    """(..., rows, cols) keep mask of the JAX interpret-mode ``_dropout_keep``
-    on a (rows, cols) plane for each int64 seed in ``seeds`` (any shape):
-    lowbias32 of ``row * cols + col`` xor ``seed * 0x9E3779B9``."""
-    mix = _mul32(seeds & _M32, 0x9E3779B9)[..., None, None]
-    idx = (torch.arange(rows, device=seeds.device)[:, None] * cols
-           + torch.arange(cols, device=seeds.device)[None, :])
-    x = idx ^ mix
+def keep_bits(idx: torch.Tensor, seeds: torch.Tensor, rate: float) -> torch.Tensor:
+    """Keep bits of the JAX interpret-mode ``_dropout_keep`` at int64 element
+    indices ``idx`` under int64 ``seeds`` (broadcast against each other):
+    lowbias32 of ``idx`` xor ``seed * 0x9E3779B9``."""
+    x = idx ^ _mul32(seeds & _M32, 0x9E3779B9)
     x = _mul32(x ^ (x >> 16), 0x7FEB352D)
     x = _mul32(x ^ (x >> 15), 0x846CA68B)
     x = x ^ (x >> 16)
     return x >= int(rate * float(2 ** 32))
+
+
+def hash_keep(seeds: torch.Tensor, rows: int, cols: int, rate: float) -> torch.Tensor:
+    """(..., rows, cols) keep mask of the JAX interpret-mode ``_dropout_keep``
+    on a (rows, cols) plane for each int64 seed in ``seeds`` (any shape):
+    the keep bits of ``row * cols + col``."""
+    idx = (torch.arange(rows, device=seeds.device)[:, None] * cols
+           + torch.arange(cols, device=seeds.device)[None, :])
+    return keep_bits(idx, seeds[..., None, None], rate)
 
 
 def dropout_cells(batch: int, num_heads: int, stride, device) -> torch.Tensor:

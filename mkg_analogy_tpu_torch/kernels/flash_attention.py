@@ -38,13 +38,18 @@ dK/dV (JAX zeroes their q, g, lse and delta).
   hand-written kernels, built at first use by ``kernels/build.py`` and
   picked by the dtype alone: bf16 takes the tensor-core kernels
   (``csrc/flash_attention_fwd_mma.cu``, ``csrc/flash_attention_bwd_mma.cu``),
-  fp32 the CUDA-core ones (``csrc/flash_attention_fwd.cu``,
-  ``csrc/flash_attention_bwd.cu``). A CPU tensor takes the plain versions.
-  Nothing falls back from one to the other.
+  fp32 the CUDA-core ones (``csrc/flash_attention_fwd.cu``;
+  ``csrc/flash_attention_bwd.cu``, the tiled passes of
+  ``csrc/attention_fp32_bwd.cuh`` that the single-block fp32 backward
+  shares). A CPU tensor takes the plain versions. Nothing falls back from
+  one to the other.
 - ``flash_attention_reference`` and ``flash_attention_bwd_reference`` are
   the plain versions: they walk the logical tiles as the three kernel bodies
   do. The CPU tests hold them to the JAX kernels in interpret mode, and
   ``chip_smoke.py`` holds the CUDA kernels to them on the card.
+  ``_tiled_bwd`` is the fp32 backward kernels' walk in plain PyTorch (64-row
+  tiles against the logical dropout tiles, one dw partial per 64 keys); the
+  tests hold it to JAX, no route calls it.
 - The kernels take every head_dim from 1 to 256, as the single-block ones
   do (kernels/attention.py): 64 (BERT-base, ViT-B) and 128 (ViLBERT's
   visual stream) from the libraries that export both instantiations, any
@@ -75,6 +80,7 @@ from . import build
 from .attention import (
     NEG_BIAS,
     _acc_dtype,
+    _check_fp32,
     _check_inputs,
     _check_smem,
     _check_tensor,
@@ -88,14 +94,15 @@ from .attention import (
     _split_heads,
     dropout_cells,
     hash_keep,
+    keep_bits,
     scale_of,
 )
 
 HARD_MASK = -1e30    # exact exclusion of out-of-range K columns (exp -> 0)
 BLOCK_Q, BLOCK_K = 256, 512  # logical tile defaults (flash_attention.py:533-534)
-# keys per dK/dV block, one (dw0, dw1) partial each: the CUDA-core kernel
-# (csrc/flash_attention_bwd.cu kPerBlock) and the tensor-core one (kTile)
-KEYS_PER_BLOCK_CUDA_CORES, KEYS_PER_BLOCK_MMA = 32, 64
+# keys per dK/dV block, one (dw0, dw1) partial each, on both routes (the
+# tensor-core kernel's kTile, the CUDA-core one's kRows)
+KEYS_PER_BLOCK = 64
 LAUNCHES_FLASH = 0      # forward kernel launches since import (or a caller's reset)
 LAUNCHES_FLASH_DKV = 0  # dK/dV kernel launches, either route, likewise
 LAUNCHES_FLASH_DQ = 0   # dQ kernel launches, either route, likewise
@@ -297,6 +304,63 @@ def _plain_bwd(q, k, v, mask, g, lse, delta, num_heads, bnd, w, geometry, rate, 
             _merge_heads(dv, v.dtype), dw.to(w.dtype))
 
 
+def _tiled_bwd(q, k, v, mask, g, lse, delta, num_heads, bnd, w, geometry, rate, seed,
+               block_q, block_k, stride=None, block=64):
+    """(dq, dk, dv, dw) of the fp32 backward kernels' walk in plain PyTorch
+    (csrc/flash_attention_bwd.cu, the passes of attention_fp32_bwd.cuh; the
+    tests use it, no route does): p = exp(s - lse) of each element, its
+    dropout bit from its logical (bq, bk) tile whatever tile of ``block``
+    holds it, delta the wrapper's; the dQ pass over key tiles of ``block``,
+    the dK/dV pass over query tiles of ``block``, with one (dw0, dw1)
+    partial per ``block`` keys, summed as the wrapper sums the kernel's."""
+    b, lq, hd = q.shape
+    lk = k.shape[1]
+    acc = _acc_dtype(q)
+    dev = q.device
+    qh, kh, vh, gh = (_split_heads(x, num_heads, acc) for x in (q, k, v, g))
+    scale = float(hd // num_heads) ** -0.5
+    rows, cols = torch.arange(lq, device=dev), torch.arange(lk, device=dev)
+    planes = None if geometry is None else _geometry_planes(bnd, w, rows, cols, geometry)
+    bias = ((1.0 - mask.to(acc)) * NEG_BIAS)[:, None, None, :]
+    # every pass computes a score and a dP with the same instructions (the
+    # kernels' row_dots), so here each product is formed once
+    s_raw, s = _score(qh @ kh.transpose(-1, -2), scale,
+                      None if planes is None else planes[0], bias)
+    p = torch.exp(s - lse[..., None].to(acc))
+    dp = gh @ vh.transpose(-1, -2)
+    p_drop = p
+    if rate > 0.0:
+        bq, bk, n_qblk, n_kblk = _blocks(lq, lk, block_q, block_k)
+        qb, kb = rows // bq, cols // bk
+        cell = dropout_cells(b, num_heads, stride, dev)[..., None, None]
+        kept = keep_bits((rows - qb * bq)[:, None] * bk + (cols - kb * bk)[None, :],
+                         seed + (cell * n_qblk + qb[:, None]) * n_kblk + kb[None, :], rate)
+        zero = torch.zeros((), dtype=acc, device=dev)
+        inv = 1.0 / (1.0 - rate)
+        p_drop = torch.where(kept, p * inv, zero)
+        dp = torch.where(kept, dp * inv, zero)
+    ds = p * (dp - delta[..., None].to(acc))
+    ds_raw = (ds if planes is None else ds * planes[0]) * scale
+
+    dq, dk, dv = torch.zeros_like(qh), torch.zeros_like(kh), torch.zeros_like(vh)
+    for j0 in range(0, lk, block):  # the dQ pass
+        j = slice(j0, min(lk, j0 + block))
+        dq += ds_raw[..., j] @ kh[:, :, j]
+    for i0 in range(0, lq, block):  # the dK/dV pass
+        r = slice(i0, min(lq, i0 + block))
+        dv += p_drop[:, :, r].transpose(-1, -2) @ gh[:, :, r]
+        dk += ds_raw[:, :, r].transpose(-1, -2) @ qh[:, :, r]
+    dw_part = torch.zeros(-(-lk // block), 2, dtype=acc, device=dev)
+    if planes is not None:
+        for j0 in range(0, lk, block):
+            j = slice(j0, min(lk, j0 + block))
+            terms = ds[..., j] * s_raw[..., j]
+            dw_part[j0 // block] = torch.stack([torch.sum(terms * planes[1][..., j]),
+                                                torch.sum(terms * planes[2][..., j])])
+    return (_merge_heads(dq, q.dtype), _merge_heads(dk, k.dtype), _merge_heads(dv, v.dtype),
+            dw_part.sum(dim=0).to(w.dtype))
+
+
 def flash_attention_reference(
     q: torch.Tensor,              # (B, Lq, heads*d) packed
     k: torch.Tensor,              # (B, Lk, heads*d)
@@ -433,9 +497,9 @@ def _bind_bwd(lib, suffix):
 
 @functools.cache
 def _lib_bwd(width=None) -> ctypes.CDLL:
-    """The CUDA-core backward kernels (csrc/flash_attention_bwd.cu)."""
+    """The CUDA-core backward kernels (csrc/flash_attention_bwd.cu), fp32."""
     lib = _bind_bwd(build.load("flash_attention_bwd", width), "")
-    lib.mkg_flash_attention_bwd_smem.argtypes = [ctypes.c_int, ctypes.c_int]  # is_bf16 head_dim
+    lib.mkg_flash_attention_bwd_smem.argtypes = [ctypes.c_int]  # head_dim
     lib.mkg_flash_attention_bwd_smem.restype = ctypes.c_size_t
     return lib
 
@@ -544,9 +608,9 @@ def _bwd_lib(q, g, lse, delta, num_heads, mma):
         lib = _lib_bwd_mma(build.library_width(d))
         smem, what = lib.mkg_flash_attention_bwd_mma_smem(d), "flash_attention_bwd_mma"
     else:
+        _check_fp32(q, "the CUDA-core flash backward")
         lib = _lib_bwd(build.library_width(d))
-        smem = lib.mkg_flash_attention_bwd_smem(int(q.dtype == torch.bfloat16), d)
-        what = "flash_attention_bwd"
+        smem, what = lib.mkg_flash_attention_bwd_smem(d), "flash_attention_bwd"
     _check_smem(smem, q, f"{what} at head_dim {d}")
     return lib
 
@@ -554,13 +618,13 @@ def _bwd_lib(q, g, lse, delta, num_heads, mma):
 def _dkv(mma, q, k, v, mask, g, lse, delta, num_heads, bnd, w, geometry, rate, seed, block_q,
          block_k, stride=None):
     """dk, dv and the (2,) dw of one dK/dV launch on a route: the kernel
-    writes one (dw0, dw1) partial per (b, head, block of keys) and this sums
-    them, so no float atomics run and fp32 results repeat from run to run."""
+    writes one (dw0, dw1) partial per (b, head, block of 64 keys) and this
+    sums them, so no float atomics run and fp32 results repeat from run to
+    run."""
     lib = _bwd_lib(q, g, lse, delta, num_heads, mma)
     launcher = "mkg_flash_attention_bwd_dkv" + ("_mma" if mma else "")
-    keys_per_block = KEYS_PER_BLOCK_MMA if mma else KEYS_PER_BLOCK_CUDA_CORES
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    dw_part = torch.empty(q.shape[0], num_heads, -(-k.shape[1] // keys_per_block), 2,
+    dw_part = torch.empty(q.shape[0], num_heads, -(-k.shape[1] // KEYS_PER_BLOCK), 2,
                           dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         err = getattr(lib, launcher)(
@@ -589,17 +653,15 @@ def _dq(mma, q, k, v, mask, g, lse, delta, num_heads, bnd, w, geometry, rate, se
 
 def _launch_bwd_dkv_cuda_cores(q, k, v, mask, g, lse, delta, num_heads, *args):
     """The CUDA-core dK/dV kernel (csrc/flash_attention_bwd.cu): the fp32
-    route. It also takes bf16 at head_dim 64 and 128, which
-    :func:`_launch_bwd_dkv` never sends it; only a measurement that wants the earlier kernel's time beside the new
-    one's calls it so. Arguments as :func:`_launch_bwd_dkv`."""
+    route (bf16 raises). Arguments as :func:`_launch_bwd_dkv`."""
     out = _dkv(False, q, k, v, mask, g, lse, delta, num_heads, *args)
     _count("DKV", False, q, num_heads)
     return out
 
 
 def _launch_bwd_dq_cuda_cores(q, k, v, mask, g, lse, delta, num_heads, *args):
-    """The CUDA-core dQ kernel: the fp32 route (bf16 only for a measurement,
-    as :func:`_launch_bwd_dkv_cuda_cores`)."""
+    """The CUDA-core dQ kernel (csrc/flash_attention_bwd.cu): the fp32
+    route (bf16 raises)."""
     out = _dq(False, q, k, v, mask, g, lse, delta, num_heads, *args)
     _count("DQ", False, q, num_heads)
     return out

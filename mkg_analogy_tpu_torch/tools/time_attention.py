@@ -18,16 +18,20 @@ scaled_dot_product_attention on the same inputs (and the backend that
 ran). With ``--flash``, the three tensor-core flash kernels instead
 (forward, dK/dV, dQ) at the triple pre-train shapes (B=64, 12 heads of 64:
 text 96 x 96, vision 99 x 99, vision over text K/V 99 x 195, the logical
-tiles of one call), with dropout 0 and 0.1 (with ``--dtype float32`` the
+tiles of one call) and at FLAVA's fine-tune calls (B=24, 12 heads of 64:
+text 128 x 128, image 393 x 393, multimodal 522 x 522; no multiplier, so
+SDPA applies), with dropout 0 and 0.1 (with ``--dtype float32`` the
 CUDA-core ones, and ``--yardsticks`` their plain versions, SDPA and
-bounds). With ``--fp32_step``, the full-width fp32 ViLT fine-tune step
-instead (chip_smoke.py:fp32_step_cost of this checkout, on the package of
-``--root``). Any other ``--head_dim`` from 1 to 256 times the same shapes
+bounds). With ``--fp32_step``, the full-width fp32 fine-tune step of
+``--family`` (ViLT through the single-block kernels, FLAVA through the
+flash ones) instead (chip_smoke.py:fp32_step_cost of this checkout, on the
+package of ``--root``). Any other ``--head_dim`` from 1 to 256 times the same shapes
 with 12 heads of that width (the instance of its padded width,
 kernels/build.py:library_width; above 128 at half the batch). Prints one
 JSON line: the card, each shape's ms (median of 21 samples of 10 calls, by
 CUDA events), and each set's sum weighted by its calls a forward or step
-(12 / 8 / 4; the shapes of other models count 0). Imports the
+(12 / 8 / 4; with ``--flash`` FLAVA's 12 / 12 / 6 a step in sets of their
+own; the shapes of other models count 0). Imports the
 ``mkg_analogy_tpu_torch`` of ``--root``, whose kernels it builds there.
 """
 
@@ -52,7 +56,13 @@ OTHER_SHAPES = [("vilt", 418, 418, (1, 128), 0, 64, 12, 128, 32),
                 ("long_keys_1100", 99, 1100, None, 0, 64, 12, 2, 2),
                 ("square_1024", 1024, 1024, None, 0, 64, 12, 2, 2)]
 D128_SHAPE = ("vilbert_visual", 72, 72, None, 6, 128, 8, None, None)
-FLASH_SHAPES = [("text", 96, 96, 12), ("vision", 99, 99, 8), ("vision_text", 99, 195, 4)]
+# (name, Lq, Lk, calls a step, batch, set): the triple pre-train's and FLAVA's
+# fine-tune step's (text 12, image 12, multimodal 6 calls)
+FLASH_SHAPES = [("text", 96, 96, 12, 64, ""), ("vision", 99, 99, 8, 64, ""),
+                ("vision_text", 99, 195, 4, 64, ""),
+                ("flava_text", 128, 128, 12, 24, "flava_"),
+                ("flava_image", 393, 393, 12, 24, "flava_"),
+                ("flava_multimodal", 522, 522, 6, 24, "flava_")]
 FP32_FLOPS_PER_S = 67e12   # H100 SXM data sheet, fp32 outside the tensor cores
 BF16_FLOPS_PER_S = 989e12  # the same, bf16 on the tensor cores
 
@@ -91,7 +101,9 @@ def main(argv=None) -> int:
     p.add_argument("--yardsticks", action="store_true",
                    help="also time the plain versions and SDPA, and give the bounds")
     p.add_argument("--fp32_step", action="store_true",
-                   help="time the full-width fp32 ViLT fine-tune step instead")
+                   help="time the full-width fp32 fine-tune step of --family instead")
+    p.add_argument("--family", choices=("vilt", "flava"), default="vilt",
+                   help="the family of --fp32_step")
     args = p.parse_args(argv)
     if not 1 <= args.head_dim <= 256:
         p.error(f"--head_dim {args.head_dim}: the kernels take 1 to 256")
@@ -109,8 +121,8 @@ def main(argv=None) -> int:
                           check=True).stdout.strip().splitlines()[0]
     dtype = getattr(torch, args.dtype)
     if args.fp32_step:
-        print(json.dumps(dict(card=card, root=args.root,
-                              fp32_step=_chip_smoke().fp32_step_cost(torch.device("cuda")))))
+        step = _chip_smoke().fp32_step_cost(torch.device("cuda"), args.family)
+        print(json.dumps(dict(card=card, root=args.root, family=args.family, fp32_step=step)))
         return 0
     if args.flash:
         rows, sets = time_flash(args.head_dim, dtype, args.yardsticks)
@@ -256,7 +268,7 @@ def longest_kernel(fn):
 
 def time_flash(d=64, dtype=None, with_yardsticks=False):
     """(rows, per-set sums) of the three flash kernels at FLASH_SHAPES (and
-    at 128 ViLBERT's visual stream, 8 heads, 72 x 72), B=64, 12 heads of
+    at 128 ViLBERT's visual stream, 8 heads, 72 x 72, B=64), 12 heads of
     ``d``, dropout 0 and 0.1: on the tensor cores in bf16, on the CUDA cores
     in fp32; ``with_yardsticks`` also each kernel's bound (flash_bounds),
     the plain versions (the forward; one backward computing dq, dk and dv)
@@ -270,18 +282,18 @@ def time_flash(d=64, dtype=None, with_yardsticks=False):
     dtype = dtype or torch.bfloat16
     shapes = [shape + (12,) for shape in FLASH_SHAPES]
     if d == 128:
-        shapes.append(("vilbert_visual", 72, 72, 6, 8))
+        shapes.append(("vilbert_visual", 72, 72, 6, 64, "", 8))
     rows, sets = [], {}
-    for name, lq, lk, calls, heads in shapes:
+    for name, lq, lk, calls, b, set_name, heads in shapes:
         gen = torch.Generator().manual_seed(7)
-        b = 64
         q, go = (torch.randn(b, lq, heads * d, generator=gen).to("cuda", dtype)
                  for _ in range(2))
         k, v = (torch.randn(b, lk, heads * d, generator=gen).to("cuda", dtype)
                 for _ in range(2))
         mask = torch.ones(b, lk, device="cuda")
         mask[:, lk - 9:] = 0.0
-        row = dict(shape=name, B=b, Lq=lq, Lk=lk, heads=heads, head_dim=d)
+        row = dict(shape=name, B=b, Lq=lq, Lk=lk, heads=heads, head_dim=d,
+                   tiles=list(fa._blocks(lq, lk, fa.BLOCK_Q, fa.BLOCK_K)))
         for rate in (0.0, 0.1):
             bnd, w, geo, rate, seed = attn._resolve(q, None, None, None, None, 0, 0, rate,
                                                     rate == 0.0, 99)
@@ -297,7 +309,7 @@ def time_flash(d=64, dtype=None, with_yardsticks=False):
             for kernel, fn in timed.items():
                 key = f"{kernel}_ms_dropout_{rate}"
                 row[key] = time_ms(fn)
-                sets[key] = sets.get(key, 0.0) + row[key] * calls
+                sets[set_name + key] = sets.get(set_name + key, 0.0) + row[key] * calls
         if with_yardsticks:
             call = dict(compute_dtype=dtype)
             few = dict(samples=5, per_sample=2)
