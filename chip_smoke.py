@@ -53,7 +53,10 @@ exits non-zero:
                 every gradient leaf within its bound); then bf16 through the
                 kernels, the main path, for 8 steps on one batch: the loss
                 falls, 24 forward and 24 backward launches a step, step time
-                and a device profile of one step;
+                and a device profile of one step; then 4 bf16 steps with
+                ``UnimoConfig.remat`` off and on (each layer recomputed in
+                the backward): the first step's loss bit-equal, step ms and
+                peak GB of each;
 7. cli        — ``mkg_analogy_tpu_torch.cli.main --only_test`` at full width
                 on a small MARS/MarKG-format dataset written here, in bf16
                 through the kernel: finite metrics, 24 launches per eval
@@ -105,11 +108,9 @@ exits non-zero:
                 tiles), FLAVA's three towers (B=24: 393x393, 128x128 with the
                 multiplier from row 1, 522x522) and ViLT's fp32 route (B=32,
                 418x418), fp32 and bf16, dropout 0 and 0.1; the times of each
-                kernel in bf16 and in fp32, of the CUDA-core forward in bf16
-                (``earlier_ms``, which the tensor-core forward must beat at
-                every shape), the plain versions and SDPA (where no analogy
-                multiplier applies), and the bounds; then the tensor-core
-                kernels at
+                kernel in bf16 and in fp32, the plain versions and SDPA in
+                bf16 and SDPA's fp32 forward (where no analogy multiplier
+                applies), and the bounds; then the tensor-core kernels at
                 the flash edge cases (FLASH_EDGE_CASES: Lq and Lk of 1, 255,
                 257, 511, 513 and 611, a row whose keys are all masked,
                 row_start 1, the +290 offset, 64-row blocks and 64-key
@@ -977,8 +978,56 @@ def train_phase(device):
                        peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
                        device_profile_step=device_profile(
                            lambda: trainer._train_step(opt, batch, 8), top=15))
+    del model, trainer, opt
+    torch.cuda.empty_cache()
+    out["remat"] = remat_steps(device, state, batch)
     emit(dict(phase="train", B=TRAIN_BATCH, L=128, **out))
     return out
+
+
+def remat_steps(device, state, batch, steps=4):
+    """4 bf16 steps through the kernels with ``UnimoConfig.remat`` off and
+    on, from the same weights and batch (the same dropout: the recomputed
+    layers draw the forward's masks): the first step's loss must agree bit
+    for bit (the same forward); the step ms (median after two) and peak GB
+    of each, and the attention launches a step (remat runs each layer's
+    forward again in the backward)."""
+    import torch
+
+    from mkg_analogy_tpu_torch.kernels import attention as attn
+    from mkg_analogy_tpu_torch.models.unimo import UnimoConfig, UnimoForMaskedLM
+    from mkg_analogy_tpu_torch.train.optim import make_optimizer
+    from mkg_analogy_tpu_torch.train.trainer import MarTTrainer, TrainConfig
+
+    runs = {}
+    for remat in (False, True):
+        with torch.device(device):
+            model = UnimoForMaskedLM(UnimoConfig(dtype="bfloat16", remat=remat))
+        model.load_state_dict(state)
+        trainer = MarTTrainer(model, _AnalogyVocab(), TrainConfig(seed=3), device=device)
+        opt = make_optimizer(model, 1e-4, 100, warmup_ratio=0.0)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses, times, launches = [], [], []
+        for step in range(steps):
+            attn.LAUNCHES = attn.LAUNCHES_BWD = 0
+            t0 = time.perf_counter()
+            metrics = trainer._train_step(opt, batch, step)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            launches.append((attn.LAUNCHES, attn.LAUNCHES_BWD))
+            losses.append(metrics["loss"].item())
+        runs["on" if remat else "off"] = dict(
+            losses=losses, step_ms=times, median_step_ms=statistics.median(times[2:]),
+            peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+            launches_per_step=dict(fwd=launches[-1][0], bwd=launches[-1][1]))
+        del model, trainer, opt
+        torch.cuda.empty_cache()
+    first = (runs["off"]["losses"][0], runs["on"]["losses"][0])
+    if first[0] != first[1] or not all(math.isfinite(x) for r in runs.values()
+                                       for x in r["losses"]):
+        raise AssertionError(f"remat: first losses {first}, or a loss is not finite")
+    return runs
 
 
 WORDS = ("alpha beta gamma delta epsilon zeta eta theta iota kappa lamda mu nu "
@@ -1845,14 +1894,13 @@ def flash_kernel_phase(device):
     of each result's largest |value| (a term rounded at a cast point can
     land one bf16 ulp apart), dw within 1e-5 of its sum of |terms|. Then
     the times in bf16 (dropout 0.1 on text keys as the text tower trains):
-    each kernel, the CUDA-core forward in bf16 (``fwd_earlier_ms``: FAIL
-    where the tensor-core forward is not faster), the plain forward and the
-    plain backward (one walk computes dq, dk and dv, so both backward
-    kernels' rows carry its time), SDPA's forward and backward
-    (forward-and-backward minus forward) where no analogy multiplier
-    applies, and the bounds; and each kernel in fp32 on the same calls
-    (``{kernel}_ms_fp32``, the CUDA-core kernels of the fp32 route) with
-    its fp32 bounds."""
+    each kernel, the plain forward and the plain backward (one walk
+    computes dq, dk and dv, so both backward kernels' rows carry its time),
+    SDPA's forward and backward (forward-and-backward minus forward) where
+    no analogy multiplier applies, and the bounds; and each kernel in fp32
+    on the same calls (``{kernel}_ms_fp32``, the CUDA-core kernels of the
+    fp32 route) with its fp32 bounds and SDPA's fp32 forward
+    (``library_fwd_ms_fp32``)."""
     import torch
     import torch.nn.functional as F
 
@@ -1889,16 +1937,8 @@ def flash_kernel_phase(device):
                                                            *args), **n)
         row["dq_ms"] = time_ms(lambda: fa._launch_bwd_dq(q, k, v, mask, go, lse, delta,
                                                          *args), **n)
-        # the CUDA-core forward in bf16, which these calls ran before: the
-        # tensor-core forward must beat it at every shape
-        slow = dict(samples=5, per_sample=3)
-        row["fwd_earlier_ms"] = time_ms(lambda: fa._launch_fwd_cuda_cores(q, k, v, mask, *args),
-                                        **slow)
-        if not row["fwd_ms"] < row["fwd_earlier_ms"]:
-            print(f"FAIL flash {name}: the tensor-core forward ({row['fwd_ms']} ms) is no "
-                  f"faster than the CUDA-core one ({row['fwd_earlier_ms']} ms)", flush=True)
-            raise AssertionError(f"flash {name}: fwd no faster than the CUDA-core kernel")
         # the same calls on the fp32 route: the CUDA-core kernels
+        slow = dict(samples=5, per_sample=3)
         q32, k32, v32, go32 = (x.float() for x in (q, k, v, go))
         out32, lse32 = fa._launch_fwd(q32, k32, v32, mask, *args)
         delta32 = fa._delta(go32, out32, HEADS)
@@ -1912,7 +1952,7 @@ def flash_kernel_phase(device):
             lambda: fa.flash_attention_reference(q, k, v, mask, HEADS, **kw), **n)
         row["plain_bwd_ms"] = time_ms(lambda: fa.flash_attention_bwd_reference(
             q, k, v, mask, go, HEADS, out=out, lse=lse, **kw), **n)
-        row["library_fwd_ms"] = row["library_bwd_ms"] = None
+        row["library_fwd_ms"] = row["library_bwd_ms"] = row["library_fwd_ms_fp32"] = None
         if geometry is not None:
             row["library_note"] = "no single PyTorch call applies the analogy multiplier"
         else:
@@ -1934,6 +1974,12 @@ def flash_kernel_phase(device):
 
             row["library_fwd_ms"] = time_ms(sdpa, **n)
             row["library_bwd_ms"] = time_ms(sdpa_fwd_bwd, **n) - row["library_fwd_ms"]
+            # SDPA's fp32 forward beside the fp32 route's (TF32 off)
+            q32h, k32h, v32h = (heads(x.float()) for x in (q, k, v))
+            bias32 = None if bias is None else bias.float()
+            row["library_fwd_ms_fp32"] = time_ms(lambda: F.scaled_dot_product_attention(
+                q32h, k32h, v32h, attn_mask=bias32, dropout_p=0.0), **slow)
+            del q32h, k32h, v32h
             row["library_note"] = ("SDPA without dropout" + (" with the padding mask as a "
                                    "bias" if bias is not None else ""))
         for kernel in ("fwd", "dkv", "dq"):
@@ -5284,9 +5330,9 @@ def flash_entry(rows, kernel, launches, edges):
     or for both backward kernels the plain backward, which computes dq, dk
     and dv in one walk; library_ms likewise SDPA's forward or its whole
     backward; ms_fp32 and bound_ms_fp32 the fp32 route's kernel (the
-    CUDA-core one) on the same calls; the forward's earlier_ms the CUDA-core
-    forward's in bf16. Errors are the largest over every shape, and over the
-    bf16 edge cases (``edges``, the errors of flash_edge_phase) in
+    CUDA-core one) on the same calls, and the forward's library_ms_fp32
+    SDPA's fp32 forward. Errors are the largest over every shape, and over
+    the bf16 edge cases (``edges``, the errors of flash_edge_phase) in
     max_abs_err_edges."""
     name, source, source_fp32, line = FLASH_KERNELS[kernel]
     step = [r for r in rows if r["launches_per_triple_step"]]
@@ -5327,7 +5373,7 @@ def flash_entry(rows, kernel, launches, edges):
                  ms_fp32=per_step(f"{kernel}_ms_fp32"), bound_ms_fp32=max(t_bytes, t_ops),
                  bound_by_fp32=bound_by(t_bytes, t_ops), max_abs_err_edges=edge_err)
     if kernel == "fwd":
-        entry.update(lse_max_abs_err=lse_err, earlier_ms=per_step("fwd_earlier_ms"))
+        entry.update(lse_max_abs_err=lse_err, library_ms_fp32=per_step("library_fwd_ms_fp32"))
     return entry
 
 
@@ -5366,7 +5412,7 @@ def main() -> int:
                          for name in ("fused_attention_fwd_mma", "fused_attention_bwd_mma",
                                       "flash_attention_fwd_mma", "flash_attention_bwd_mma",
                                       "fused_attention_fwd", "fused_attention_bwd",
-                                      "flash_attention_bwd")}))
+                                      "flash_attention_fwd", "flash_attention_bwd")}))
     rows, edge_err = kernel_phase(device)
     bwd_rows, bwd_edge_err = kernel_bwd_phase(device)
     model_phase(device)

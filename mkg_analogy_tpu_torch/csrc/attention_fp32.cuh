@@ -1,6 +1,8 @@
-// The tiled fp32 attention kernels (fused_attention_fwd.cu, and the two
-// backward passes of attention_fp32_bwd.cuh, which fused_attention_bwd.cu
-// and flash_attention_bwd.cu instantiate): what they share.
+// The tiled fp32 attention kernels (the forward of attention_fp32_fwd.cuh,
+// which fused_attention_fwd.cu and flash_attention_fwd.cu instantiate, and
+// the two backward passes of attention_fp32_bwd.cuh, which
+// fused_attention_bwd.cu and flash_attention_bwd.cu instantiate): what they
+// share.
 //
 // Every block takes a tile of 64 rows (query rows, or keys in the dK/dV
 // pass) against the other side, which comes in tiles of kN rows through a
@@ -315,7 +317,8 @@ struct Args {
                    // single-block dq pass, (B, heads, ceil(Lk / 64), 2) of the flash dK/dV pass
   int lq, lk, num_heads, head_dim, has_geometry, row_start, text_len, offset, dropout;
   uint32_t threshold, seed, cell_stride;
-  float scale, keep;  // keep: the forward's divisor 1 - rate, the backward's 1 / (1 - rate)
+  float scale, keep;  // keep: the single-block forward's divisor 1 - rate, else the
+                      // factor 1 / (1 - rate) of a kept weight
   int bq, bk, n_qblk, n_kblk;  // the flash call's logical tiles (its dropout cells)
 };
 
@@ -334,6 +337,34 @@ __device__ __forceinline__ Geometry geometry_of(const Args& a, int b) {
 __device__ __forceinline__ uint32_t seed_mix_of(const Args& a, int b, int h) {
   return (a.seed + uint32_t(b) * a.cell_stride + uint32_t(h)) * 0x9E3779B9u;
 }
+
+// The flash dropout cells: the row and the column part of element (r, j)'s
+// logical tile seed and index (kernels/flash_attention.py:_Tiles.keep): an
+// element's tile (qb, kb) = (r / bq, j / bk), whatever tile of 64 holds it.
+struct TileRow {
+  uint32_t seed;  // seed + (cell * n_qblk + qb) * n_kblk
+  uint32_t idx;   // (r - qb * bq) * bk
+};
+struct TileCol {
+  uint32_t kb, idx;  // j / bk, j - kb * bk
+};
+__device__ __forceinline__ TileRow tile_row(const Args& a, uint32_t cell, int r) {
+  const int qb = r / a.bq;
+  return TileRow{a.seed + (cell * uint32_t(a.n_qblk) + uint32_t(qb)) * uint32_t(a.n_kblk),
+                 uint32_t(r - qb * a.bq) * uint32_t(a.bk)};
+}
+__device__ __forceinline__ TileCol tile_col(const Args& a, int j) {
+  const int kb = j / a.bk;
+  return TileCol{uint32_t(kb), uint32_t(j - kb * a.bk)};
+}
+__device__ __forceinline__ bool tile_keep(const Args& a, TileRow r, TileCol c) {
+  return dropout_keep(r.idx + c.idx, (r.seed + c.kb) * 0x9E3779B9u, a.threshold);
+}
+
+// The fewest rows a thread, R <= 4, whose 16 R rows cover a block's n
+// valid ones: 96 rows take blocks of 4 and 2 rows a thread, 393 rows six
+// of 4 and one of 1.
+__device__ __forceinline__ int rows_a_thread(int n) { return (n + 15) / 16; }
 
 // f(std::integral_constant<int, D>{}) for this library's instance of a call
 // of head width d, or `none`.

@@ -40,7 +40,7 @@
 //   - the dropout mask: single-block one seed a (b, head) and idx = row *
 //     Lk + col; flash one seed a logical (bq, bk) tile, seed + (cell *
 //     n_qblk + qb) * n_kblk + kb, and idx = (row - qb bq) * bk + (col - kb
-//     bk), the forward's (flash_attention_fwd.cu), whatever the 64-row
+//     bk), the forward's (attention_fp32_fwd.cuh), whatever the 64-row
 //     tiles here;
 //   - the dw partials: single-block in the dq pass, one per query tile;
 //     flash in the dK/dV pass, one per 64-key tile, as the Pallas kv kernel
@@ -59,9 +59,8 @@
 // rows and columns left out are zero rows, whose terms add exact zeros, so
 // the results are those of whole tiles bit for bit. Both passes compute a score with the
 // forward's instructions in the same order (row_dots' column-order fmaf
-// chain, then __fmul_rn and one fmaf; the flash forward's HeadRow::dot is
-// the same chain), so every pass sees the forward's probabilities bit for
-// bit. Products are exact fp32 FMAs: no TF32.
+// chain, then __fmul_rn and one fmaf, attention_fp32_fwd.cuh), so every
+// pass sees the forward's probabilities bit for bit. Products are exact fp32 FMAs: no TF32.
 
 #pragma once
 
@@ -107,28 +106,6 @@ __device__ __forceinline__ float prob(float sc, float m, float logl) {
   } else {
     return expf((sc - m) - logl);
   }
-}
-
-// The flash dropout cells: the row and the column part of element (r, j)'s
-// logical tile seed and index (flash_attention_fwd.cu, Tiles::keep).
-struct TileRow {
-  uint32_t seed;  // seed + (cell * n_qblk + qb) * n_kblk
-  uint32_t idx;   // (r - qb * bq) * bk
-};
-struct TileCol {
-  uint32_t kb, idx;  // j / bk, j - kb * bk
-};
-__device__ __forceinline__ TileRow tile_row(const Args& a, uint32_t cell, int r) {
-  const int qb = r / a.bq;
-  return TileRow{a.seed + (cell * uint32_t(a.n_qblk) + uint32_t(qb)) * uint32_t(a.n_kblk),
-                 uint32_t(r - qb * a.bq) * uint32_t(a.bk)};
-}
-__device__ __forceinline__ TileCol tile_col(const Args& a, int j) {
-  const int kb = j / a.bk;
-  return TileCol{uint32_t(kb), uint32_t(j - kb * a.bk)};
-}
-__device__ __forceinline__ bool tile_keep(const Args& a, TileRow r, TileCol c) {
-  return dropout_keep(r.idx + c.idx, (r.seed + c.kb) * 0x9E3779B9u, a.threshold);
 }
 
 // Sum a block's (dw0, dw1) partials in a fixed order and write them at
@@ -417,11 +394,6 @@ __device__ __forceinline__ void dq_block(const Args& a) {
                      a.dw_part + ((size_t(b) * a.num_heads + h) * tiles + tile) * 2);
   }
 }
-
-// The fewest rows a thread, R <= 4, whose 16 R rows cover a block's n
-// valid ones: 96 rows take blocks of 4 and 2 rows a thread, 393 rows six
-// of 4 and one of 1.
-__device__ __forceinline__ int rows_a_thread(int n) { return (n + 15) / 16; }
 
 template <int D, bool kFlash>
 __global__ void __launch_bounds__(kThreads, D <= 64 ? 2 : 1) dq_kernel(const Args a) {

@@ -27,13 +27,15 @@
 // What bounds it: bytes at the main-path shapes (a (batch row, head) of the
 // pre-train shapes reads (2 Lq + 2 Lk) * 64 bf16 and does 4 Lq Lk 64 flops,
 // ~48 flop/byte at 96 x 96, far below the H100's ~295); operations at 2048
-// tokens (chip_smoke.py:flash_bound_times). The CUDA-core kernel it takes
-// over from (flash_attention_fwd.cu, which keeps fp32: TF32 cannot meet the
-// fp32 bar of 2e-5) ran 17-74x that bound: one warp per 4 query rows of a
-// 32-row block, every product an fmaf with each lane re-reading K rows and
-// V pairs from shared memory for every row it owns, the whole 32 x bk fp32
-// score tile through shared memory, K and V in synchronous chunks of 128
-// keys with two barriers each. Here (attention_mma.cuh):
+// tokens (chip_smoke.py:flash_bound_times). The CUDA-core kernel it took
+// over from (the first design of flash_attention_fwd.cu, which keeps fp32,
+// as TF32 cannot meet the fp32 bar of 2e-5, and now runs the tiled fp32
+// forward of attention_fp32_fwd.cuh) ran 17-74x that bound: one warp per 4
+// query rows of a 32-row block, every product an fmaf with each lane
+// re-reading K rows and V pairs from shared memory for every row it owns,
+// the whole 32 x bk fp32 score tile through shared memory, K and V in
+// synchronous chunks of 128 keys with two barriers each. Here
+// (attention_mma.cuh):
 //   - a block takes one (64 query rows, head, batch row); four warps of 16
 //     rows; both products are mma.sync m16n8k16 on ldmatrix fragments, so a
 //     K or V fragment read once from shared memory serves 16 rows, and the

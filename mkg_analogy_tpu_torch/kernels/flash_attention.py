@@ -24,7 +24,11 @@ result, so the kernels keep them whatever they stage:
 - the online softmax updates its running max once per K tile, and the
   exp-weights ``exp(s - m)`` are rounded to the compute dtype against that
   max before ·V, then the sum divides in fp32 at the end (the single-block
-  kernel rounds normalised probabilities instead).
+  kernel rounds normalised probabilities instead). Both kernel sets take
+  each logical tile's max before any exponential; in fp32 the rounding is
+  none, but the order of operations is kept too, since the fp32 training
+  steps amplify a re-association of round-off (chip_smoke.py's gradient
+  gates).
 
 Out-of-range columns of a ragged last K tile carry ``HARD_MASK`` (their
 exp-weight is exactly 0) and out-of-range rows contribute nothing to
@@ -38,18 +42,20 @@ dK/dV (JAX zeroes their q, g, lse and delta).
   hand-written kernels, built at first use by ``kernels/build.py`` and
   picked by the dtype alone: bf16 takes the tensor-core kernels
   (``csrc/flash_attention_fwd_mma.cu``, ``csrc/flash_attention_bwd_mma.cu``),
-  fp32 the CUDA-core ones (``csrc/flash_attention_fwd.cu``;
+  fp32 the CUDA-core ones, which take fp32 alone (``csrc/flash_attention_fwd.cu``,
+  the tiled forward of ``csrc/attention_fp32_fwd.cuh``, and
   ``csrc/flash_attention_bwd.cu``, the tiled passes of
-  ``csrc/attention_fp32_bwd.cuh`` that the single-block fp32 backward
-  shares). A CPU tensor takes the plain versions. Nothing falls back from
-  one to the other.
+  ``csrc/attention_fp32_bwd.cuh``, each shared with the single-block fp32
+  kernel of kernels/attention.py). A CPU tensor takes the plain versions.
+  Nothing falls back from one to the other.
 - ``flash_attention_reference`` and ``flash_attention_bwd_reference`` are
   the plain versions: they walk the logical tiles as the three kernel bodies
   do. The CPU tests hold them to the JAX kernels in interpret mode, and
   ``chip_smoke.py`` holds the CUDA kernels to them on the card.
-  ``_tiled_bwd`` is the fp32 backward kernels' walk in plain PyTorch (64-row
-  tiles against the logical dropout tiles, one dw partial per 64 keys); the
-  tests hold it to JAX, no route calls it.
+  ``_tiled_fwd`` and ``_tiled_bwd`` are the fp32 kernels' walks in plain
+  PyTorch (64-row tiles against the logical dropout tiles; the forward's
+  staged key tiles and one lse a row, the backward's one dw partial per 64
+  keys); the tests hold them to JAX, no route calls them.
 - The kernels take every head_dim from 1 to 256, as the single-block ones
   do (kernels/attention.py): 64 (BERT-base, ViT-B) and 128 (ViLBERT's
   visual stream) from the libraries that export both instantiations, any
@@ -79,6 +85,7 @@ import torch.nn.functional as F
 from . import build
 from .attention import (
     NEG_BIAS,
+    ROWS_PER_BLOCK,
     _acc_dtype,
     _check_fp32,
     _check_inputs,
@@ -304,6 +311,79 @@ def _plain_bwd(q, k, v, mask, g, lse, delta, num_heads, bnd, w, geometry, rate, 
             _merge_heads(dv, v.dtype), dw.to(w.dtype))
 
 
+def _tile_keep(b, lq, lk, num_heads, rate, seed, block_q, block_k, stride, device):
+    """(B, heads, Lq, Lk) keep mask of the whole call, each element's bit
+    from its logical (bq, bk) tile (the kernels' TileRow / TileCol,
+    csrc/attention_fp32.cuh), whatever tile of 64 holds it."""
+    bq, bk, n_qblk, n_kblk = _blocks(lq, lk, block_q, block_k)
+    rows, cols = torch.arange(lq, device=device), torch.arange(lk, device=device)
+    qb, kb = rows // bq, cols // bk
+    cell = dropout_cells(b, num_heads, stride, device)[..., None, None]
+    return keep_bits((rows - qb * bq)[:, None] * bk + (cols - kb * bk)[None, :],
+                     seed + (cell * n_qblk + qb[:, None]) * n_kblk + kb[None, :], rate)
+
+
+def _tiled_fwd(q, k, v, mask, num_heads, bnd, w, geometry, rate, seed, block_q, block_k,
+               stride=None, keys=None):
+    """(out, lse (B, heads, Lq)) of the fp32 forward kernel's walk in plain
+    PyTorch (csrc/flash_attention_fwd.cu, the flash sweep of
+    attention_fp32_fwd.cuh; the tests use it, no route does): blocks of
+    ROWS_PER_BLOCK query rows (rows are independent: the kernel's 32-row
+    blocks above a padded head width of 128 give the same numbers), each
+    walking the logical K tiles of bk keys in staged tiles of ``keys`` (the
+    kernel's: 64 up to a padded head width of 64, else 32). Of each logical
+    tile first every staged tile's scores and the tile's max, before any
+    exponential (as JAX's body), the running sum and accumulator rescaled
+    once, then each staged tile's exp-weights, their sum, their dropout bit
+    from the logical tile, a kept weight times 1 / (1 - rate), and P V added
+    to the accumulator; out = acc / l and lse = m + log(l)."""
+    b, lq, hd = q.shape
+    lk = k.shape[1]
+    acc = _acc_dtype(q)
+    dev = q.device
+    d = hd // num_heads
+    _, bk, _, _ = _blocks(lq, lk, block_q, block_k)
+    keys = keys or (64 if build.padded_width(d) <= 64 else 32)
+    qh, kh, vh = (_split_heads(x, num_heads, acc) for x in (q, k, v))
+    rows, cols = torch.arange(lq, device=dev), torch.arange(lk, device=dev)
+    mult = None
+    if geometry is not None:
+        mult = _geometry_planes(bnd, w, rows, cols, geometry)[0]
+    bias = ((1.0 - mask.to(acc)) * NEG_BIAS)[:, None, None, :]
+    kept = None
+    if rate > 0.0:
+        kept = _tile_keep(b, lq, lk, num_heads, rate, seed, block_q, block_k, stride, dev)
+    inv = 1.0 / (1.0 - rate) if rate > 0.0 else 1.0
+    zero = torch.zeros((), dtype=acc, device=dev)
+    out = torch.empty_like(qh)
+    lse = torch.empty(qh.shape[:3], dtype=acc, device=dev)
+    for i0 in range(0, lq, ROWS_PER_BLOCK):
+        r = slice(i0, min(lq, i0 + ROWS_PER_BLOCK))
+        m = torch.full(qh[:, :, r].shape[:3] + (1,), HARD_MASK, dtype=acc, device=dev)
+        l = torch.zeros_like(m)
+        o = torch.zeros_like(qh[:, :, r])
+        for c0 in range(0, lk, bk):
+            staged = [slice(j0, min(lk, c0 + bk, j0 + keys))
+                      for j0 in range(c0, min(lk, c0 + bk), keys)]
+            s = [_score(qh[:, :, r] @ kh[:, :, j].transpose(-1, -2), scale_of(d),
+                        None if mult is None else mult[..., r, j], bias[..., j])[1]
+                 for j in staged]
+            m_new = torch.maximum(m, torch.cat([x.amax(dim=-1, keepdim=True) for x in s],
+                                               dim=-1).amax(dim=-1, keepdim=True))
+            corr = torch.exp(m - m_new)
+            l, o = l * corr, o * corr
+            for j, s_j in zip(staged, s):
+                p = torch.exp(s_j - m_new)
+                l = l + p.sum(dim=-1, keepdim=True)
+                if kept is not None:
+                    p = torch.where(kept[..., r, j], p * inv, zero)
+                o = o + p @ vh[:, :, j]
+            m = m_new
+        out[:, :, r] = o / l
+        lse[:, :, r] = (m + torch.log(l))[..., 0]
+    return _merge_heads(out, q.dtype), lse
+
+
 def _tiled_bwd(q, k, v, mask, g, lse, delta, num_heads, bnd, w, geometry, rate, seed,
                block_q, block_k, stride=None, block=64):
     """(dq, dk, dv, dw) of the fp32 backward kernels' walk in plain PyTorch
@@ -330,11 +410,7 @@ def _tiled_bwd(q, k, v, mask, g, lse, delta, num_heads, bnd, w, geometry, rate, 
     dp = gh @ vh.transpose(-1, -2)
     p_drop = p
     if rate > 0.0:
-        bq, bk, n_qblk, n_kblk = _blocks(lq, lk, block_q, block_k)
-        qb, kb = rows // bq, cols // bk
-        cell = dropout_cells(b, num_heads, stride, dev)[..., None, None]
-        kept = keep_bits((rows - qb * bq)[:, None] * bk + (cols - kb * bk)[None, :],
-                         seed + (cell * n_qblk + qb[:, None]) * n_kblk + kb[None, :], rate)
+        kept = _tile_keep(b, lq, lk, num_heads, rate, seed, block_q, block_k, stride, dev)
         zero = torch.zeros((), dtype=acc, device=dev)
         inv = 1.0 / (1.0 - rate)
         p_drop = torch.where(kept, p * inv, zero)
@@ -454,11 +530,11 @@ def _bind_fwd(lib, suffix):
 
 @functools.cache
 def _lib_fwd(width=None) -> ctypes.CDLL:
-    """The CUDA-core forward kernel (csrc/flash_attention_fwd.cu), at a
-    padded head ``width`` or in the library of 64 and 128; so the three
+    """The CUDA-core forward kernel (csrc/flash_attention_fwd.cu), fp32, at
+    a padded head ``width`` or in the library of 64 and 128; so the three
     below."""
     lib = _bind_fwd(build.load("flash_attention_fwd", width), "")
-    lib.mkg_flash_attention_fwd_smem.argtypes = [ctypes.c_int] * 3  # bk is_bf16 head_dim
+    lib.mkg_flash_attention_fwd_smem.argtypes = [ctypes.c_int] * 2  # bk head_dim
     lib.mkg_flash_attention_fwd_smem.restype = ctypes.c_size_t
     return lib
 
@@ -536,8 +612,9 @@ def _fwd(mma, q, k, v, mask, num_heads, bnd, w, geometry, rate, seed, block_q, b
         lib, launcher = _lib_fwd_mma(build.library_width(d)), "mkg_flash_attention_fwd_mma"
         smem = lib.mkg_flash_attention_fwd_mma_smem(k.shape[1], bk, d)
     else:
+        _check_fp32(q, "the CUDA-core flash forward")
         lib, launcher = _lib_fwd(build.library_width(d)), "mkg_flash_attention_fwd"
-        smem = lib.mkg_flash_attention_fwd_smem(bk, int(q.dtype == torch.bfloat16), d)
+        smem = lib.mkg_flash_attention_fwd_smem(bk, d)
     _check_smem(smem, q, f"{launcher[4:]} at block_k={bk}, head_dim {d}",
                 hint="pass a smaller block_k")
     out = torch.empty_like(q)
@@ -568,11 +645,8 @@ def _count(kernel, mma, q, num_heads):
 
 
 def _launch_fwd_cuda_cores(q, k, v, mask, num_heads, *args):
-    """The CUDA-core forward (csrc/flash_attention_fwd.cu): the fp32 route.
-    It also takes bf16 at head_dim 64 and 128, which :func:`_launch_fwd`
-    never sends it; only a measurement that wants the earlier kernel's time
-    beside the new one's calls it so (a library of another width has the
-    fp32 instance alone). Arguments as :func:`_launch_fwd`."""
+    """The CUDA-core forward (csrc/flash_attention_fwd.cu): the fp32 route
+    (bf16 raises). Arguments as :func:`_launch_fwd`."""
     out = _fwd(False, q, k, v, mask, num_heads, *args)
     _count("FWD", False, q, num_heads)
     return out

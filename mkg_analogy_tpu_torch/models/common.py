@@ -225,6 +225,15 @@ class DropoutRNG:
     def row_offset(self) -> int:
         return 0 if self.rows is None else self.rows[0]
 
+    def get_state(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Both generators' states (a layer run again under remat restores
+        them, models/unimo.py:_remat)."""
+        return self.device.get_state(), self.seeds.get_state()
+
+    def set_state(self, state: Tuple[torch.Tensor, torch.Tensor]) -> None:
+        self.device.set_state(state[0])
+        self.seeds.set_state(state[1])
+
     def attention_seed(self) -> int:
         """A seed in [0, 2^31 - 1), the range of the JAX model's
         ``jax.random.randint(..., 0, int32 max)``."""

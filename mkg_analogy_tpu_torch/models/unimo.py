@@ -23,6 +23,12 @@ embedding LayerNorm, after each text attention's output projection and after
 each text FFN, attention dropout in the text self-attention (the vision
 tower has none). It runs only in a training forward (``deterministic=False``
 with a ``DropoutRNG``); evaluation is deterministic.
+
+``UnimoConfig.remat`` is the JAX model's ``remat`` (``nn.remat`` of each
+layer, unimo.py:317-319): every vision and text layer of the loop keeps no
+activations for the backward and runs again there (``torch.utils.
+checkpoint``, non-reentrant), its dropout drawn again from the same
+generator states (:func:`_remat`). Off by default, as in JAX.
 """
 
 from __future__ import annotations
@@ -32,6 +38,7 @@ from typing import Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..core.precision import to_dtype
 from ..ops.masks import attention_bias
@@ -114,6 +121,7 @@ class UnimoConfig:
     # route's bf16 dq/dk backward, one fused Q/K/V projection
     qk_bf16_grad: bool = False
     fused_qkv: bool = False
+    remat: bool = False  # recompute each layer in the backward (memory for FLOPs)
 
     @property
     def compute_dtype(self) -> torch.dtype:
@@ -268,6 +276,33 @@ class BertLayer(nn.Module):
         return self.out_ln(h + attn_out), kv
 
 
+def _remat(layer, *args, rng: Optional[DropoutRNG] = None, **kwargs):
+    """``layer(*args, rng=rng, **kwargs)`` under ``torch.utils.checkpoint``
+    (non-reentrant): the layer keeps no activations and runs again in the
+    backward. The run there draws its dropout masks and attention seeds
+    from ``rng``'s two generators, which ``preserve_rng_state`` does not
+    cover, so it starts them where the forward did and hands them back as
+    it found them: the recomputed layer draws what the forward drew, and the
+    step ends with the generators where it ends without remat."""
+    if rng is None:
+        return checkpoint(layer, *args, use_reentrant=False, **kwargs)
+    before = rng.get_state()
+    forward_done = []
+
+    def run(*a, **kw):
+        if not forward_done:
+            forward_done.append(True)
+            return layer(*a, rng=rng, **kw)
+        now = rng.get_state()
+        rng.set_state(before)
+        try:
+            return layer(*a, rng=rng, **kw)
+        finally:  # also where the recomputation stops early
+            rng.set_state(now)
+
+    return checkpoint(run, *args, use_reentrant=False, **kwargs)
+
+
 class UnimoEncoder(nn.Module):
     """Lockstep dual-tower loop (modeling_unimo.py:580-658)."""
 
@@ -290,16 +325,17 @@ class UnimoEncoder(nn.Module):
         cfg = self.cfg
         vision_h, text_h = vision_embeds, text_embeds
         prev_text_kv: Optional[Tuple] = None
+        call = _remat if cfg.remat and torch.is_grad_enabled() else (
+            lambda layer, *args, **kwargs: layer(*args, **kwargs))
         for idx in range(cfg.text.num_layers):
             # Vision layer idx >= fusion_start attends over the *previous*
             # text layer's K/V (exported from idx >= fusion_start - 1).
             extra_kv = prev_text_kv if idx >= cfg.fusion_start else None
-            vision_h = getattr(self, f"vision_{idx}")(
-                vision_h, extra_kv, attn_bias if extra_kv is not None else None,
-                rng=rng)
+            vision_h = call(getattr(self, f"vision_{idx}"), vision_h, extra_kv,
+                            attn_bias if extra_kv is not None else None, rng=rng)
             vision_for_text = vision_h if idx >= cfg.fusion_start else None
-            text_h, prev_text_kv = getattr(self, f"text_{idx}")(
-                text_h, attn_bias, boundary, vision_for_text,
+            text_h, prev_text_kv = call(
+                getattr(self, f"text_{idx}"), text_h, attn_bias, boundary, vision_for_text,
                 output_kv=idx >= cfg.fusion_start - 1, rng=rng)
         return text_h, vision_h
 
