@@ -16,7 +16,7 @@ far: fine-tuning, MarKG pre-training and evaluation of ``MKGformerKGC``.
 - ``ops``      — analogy masks, losses and ranking metrics.
 - ``train``    — the MarT trainer (fine-tune, pre-train, evaluation), AdamW with its
                  schedule, checkpoints.
-- ``utils``    — metric logging, step timing and ``torch.profiler`` traces.
+- ``utils``    — metric logging, spans and ``torch.profiler`` traces.
 - ``cli``      — ``python -m mkg_analogy_tpu_torch.cli.main``.
 
 Entry points run on CUDA unless the caller asks for the CPU.

@@ -81,6 +81,7 @@ from typing import Optional
 
 import torch
 
+from ..utils.profiling import active, span
 from . import build
 
 NEG_BIAS = -10000.0  # reference padding bias (modeling_unimo.py:56)
@@ -814,6 +815,17 @@ def _route(q) -> str:
     return "tensor_cores" if q.dtype == torch.bfloat16 else "cuda_cores"
 
 
+def _span(name, q, k, num_heads):
+    """The span of one attention call (``attention.fwd``) or its backward
+    (``attention.bwd``), with the route, the dtype and (B, heads, Lq, Lk,
+    head_dim): what the benchmark's attention metrics read."""
+    if not active():
+        return span(name)  # the shared no-op
+    b, lq, hd = q.shape
+    return span(name, route=_route(q), dtype=q.dtype,
+                shape=(b, num_heads, lq, k.shape[1], hd // num_heads))
+
+
 class _FusedAttention(torch.autograd.Function):
     """The custom VJP of attention.py:286-383: the forward saves its inputs
     and the seed, the backward recomputes the probabilities and the dropout
@@ -843,14 +855,15 @@ class _FusedAttention(torch.autograd.Function):
     def backward(ctx, g):
         q, k, v, mask, bnd, w, *residuals = ctx.saved_tensors
         route, num_heads, geometry, rate, seed, compute_dtype, stride = ctx.call
-        if route == "plain":
-            dq, dk, dv, dw = _plain_bwd(q, k, v, mask, g, num_heads, bnd, w,
-                                        geometry, rate, seed, compute_dtype, stride)
-        else:
-            # g comes from the out-projection's backward
-            dq, dk, dv, dw = _launch_bwd(q, k, v, mask, g.to(q.dtype).contiguous(),
-                                         num_heads, bnd, w, geometry, rate, seed, stride,
-                                         *residuals)
+        with _span("attention.bwd", q, k, num_heads):
+            if route == "plain":
+                dq, dk, dv, dw = _plain_bwd(q, k, v, mask, g, num_heads, bnd, w,
+                                            geometry, rate, seed, compute_dtype, stride)
+            else:
+                # g comes from the out-projection's backward
+                dq, dk, dv, dw = _launch_bwd(q, k, v, mask, g.to(q.dtype).contiguous(),
+                                             num_heads, bnd, w, geometry, rate, seed, stride,
+                                             *residuals)
         return dq, dk, dv, None, None, dw, None, None, None, None, None, None
 
 
@@ -887,11 +900,13 @@ def fused_attention(
     """
     if not 0.0 <= dropout_rate < 1.0:
         raise ValueError(f"dropout_rate must be in [0, 1), got {dropout_rate}")
-    bnd, w, geometry, rate, seed = _resolve(q, boundary, w0, w1, text_len, row_start,
-                                            offset, dropout_rate, deterministic,
-                                            dropout_seed, cell_offset)
-    maskf = mask.to(device=q.device, dtype=_acc_dtype(q)).contiguous()
-    if q.device.type != "cpu":
-        _check_inputs(q, k, v, maskf, num_heads, compute_dtype)
-    return _FusedAttention.apply(q, k, v, maskf, bnd.contiguous(), w.contiguous(),
-                                 num_heads, geometry, rate, seed, compute_dtype, cell_stride)
+    with _span("attention.fwd", q, k, num_heads):
+        bnd, w, geometry, rate, seed = _resolve(q, boundary, w0, w1, text_len, row_start,
+                                                offset, dropout_rate, deterministic,
+                                                dropout_seed, cell_offset)
+        maskf = mask.to(device=q.device, dtype=_acc_dtype(q)).contiguous()
+        if q.device.type != "cpu":
+            _check_inputs(q, k, v, maskf, num_heads, compute_dtype)
+        return _FusedAttention.apply(q, k, v, maskf, bnd.contiguous(), w.contiguous(),
+                                     num_heads, geometry, rate, seed, compute_dtype,
+                                     cell_stride)

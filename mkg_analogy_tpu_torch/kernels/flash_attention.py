@@ -98,6 +98,7 @@ from .attention import (
     _resolve,
     _score,
     _seed_args,
+    _span,
     _split_heads,
     dropout_cells,
     hash_keep,
@@ -802,15 +803,16 @@ class _FlashAttention(torch.autograd.Function):
     def backward(ctx, g):
         q, k, v, mask, bnd, w, out, lse = ctx.saved_tensors
         num_heads, geometry, rate, seed, compute_dtype, block_q, block_k, stride = ctx.call
-        g = g.to(q.dtype).contiguous()  # from the out-projection's backward
-        delta = _delta(g, out, num_heads)
-        args = (num_heads, bnd, w, geometry, rate, seed)
-        if q.device.type == "cpu":
-            dq, dk, dv, dw = _plain_bwd(q, k, v, mask, g, lse, delta, *args,
-                                        compute_dtype, block_q, block_k, stride)
-        else:
-            dq, dk, dv, dw = _launch_bwd(q, k, v, mask, g, lse, delta, *args,
-                                         block_q, block_k, stride)
+        with _span("attention.bwd", q, k, num_heads):
+            g = g.to(q.dtype).contiguous()  # from the out-projection's backward
+            delta = _delta(g, out, num_heads)
+            args = (num_heads, bnd, w, geometry, rate, seed)
+            if q.device.type == "cpu":
+                dq, dk, dv, dw = _plain_bwd(q, k, v, mask, g, lse, delta, *args,
+                                            compute_dtype, block_q, block_k, stride)
+            else:
+                dq, dk, dv, dw = _launch_bwd(q, k, v, mask, g, lse, delta, *args,
+                                             block_q, block_k, stride)
         return dq, dk, dv, None, None, dw, None, None, None, None, None, None, None, None
 
 
@@ -845,13 +847,14 @@ def flash_attention(
         raise ValueError(f"dropout_rate must be in [0, 1), got {dropout_rate}")
     if block_q < 1 or block_k < 1:
         raise ValueError(f"block_q / block_k must be positive, got {block_q} / {block_k}")
-    bnd, w, geometry, rate, seed = _resolve(q, boundary, w0, w1, text_len, row_start,
-                                            offset, dropout_rate, deterministic,
-                                            dropout_seed, cell_offset,
-                                            _tile_count(q, k, block_q, block_k))
-    maskf = mask.to(device=q.device, dtype=_acc_dtype(q)).contiguous()
-    if q.device.type != "cpu":
-        _check_inputs(q, k, v, maskf, num_heads, compute_dtype, kernel="flash_attention")
-    return _FlashAttention.apply(q, k, v, maskf, bnd.contiguous(), w.contiguous(),
-                                 num_heads, geometry, rate, seed, compute_dtype,
-                                 int(block_q), int(block_k), cell_stride)
+    with _span("attention.fwd", q, k, num_heads):
+        bnd, w, geometry, rate, seed = _resolve(q, boundary, w0, w1, text_len, row_start,
+                                                offset, dropout_rate, deterministic,
+                                                dropout_seed, cell_offset,
+                                                _tile_count(q, k, block_q, block_k))
+        maskf = mask.to(device=q.device, dtype=_acc_dtype(q)).contiguous()
+        if q.device.type != "cpu":
+            _check_inputs(q, k, v, maskf, num_heads, compute_dtype, kernel="flash_attention")
+        return _FlashAttention.apply(q, k, v, maskf, bnd.contiguous(), w.contiguous(),
+                                     num_heads, geometry, rate, seed, compute_dtype,
+                                     int(block_q), int(block_k), cell_stride)

@@ -28,6 +28,10 @@ JAX trainer does: a worker thread assembles each batch and starts its copy
 to the device two steps ahead. On a CUDA device the copy runs from pinned
 memory on a side stream, and the step's stream waits on its event.
 
+While ``utils/profiling.recording()`` is open the loops record spans (names
+in the docstrings of ``fit``, ``_epochs``, ``_prefetch`` and ``evaluate``;
+``sync`` around ``_sync``), each with the id of the step or batch it serves.
+
 On a mesh (``mesh``, ``core/mesh.py``; one process a rank) the trainer does
 what JAX's GSPMD does for its sharded step:
 - the model's parameters are split over ``tp`` by the rules of
@@ -70,7 +74,7 @@ from ..parallel.collectives import ShardedLogits, all_reduce_, gather_rows, shar
 from ..parallel.shardings import (
     batch_spec, gather_state_dict, make_shardings, shard_module, shard_state_dict)
 from ..utils.logging import MetricLogger
-from ..utils.profiling import StepTimer, trace
+from ..utils.profiling import set_step, span, trace
 from .optim import make_optimizer
 
 
@@ -330,8 +334,10 @@ class MarTTrainer:
         rng = DropoutRNG.from_seed(step_seed(cfg.seed, step), self.device, rows=rows)
         loss_fn = (self._pretrain_loss if (loss_kind or self._format()) == "triple"
                    else self._finetune_loss)
-        loss, metrics = loss_fn(batch, rng, image_table=image_table)
-        loss.backward()
+        with span("step.forward"):
+            loss, metrics = loss_fn(batch, rng, image_table=image_table)
+        with span("step.backward"):
+            loss.backward()
         metrics = {k: v.detach() for k, v in metrics.items()}
         if self.dp_group is not None:
             # the global batch's losses: the sums of the ranks' shares
@@ -341,7 +347,8 @@ class MarTTrainer:
         if cfg.track_grad_norm:
             optimizer.sync_gradients()
             metrics["grad_norm"] = optimizer.grad_norm()
-        optimizer.step()
+        with span("step.optimizer"):
+            optimizer.step()
         return metrics
 
     def _eval_step(self, batch, image_table=None):
@@ -431,14 +438,19 @@ class MarTTrainer:
                 t.record_stream(stream)
         return tensors
 
-    def _prefetch(self, iterable, transform, lookahead: int = 2):
+    def _prefetch(self, iterable, transform, lookahead: int = 2, wait: str = "step.wait",
+                  first_id: int = 0):
         """Yield ``transform(b)`` for each ``b`` of ``iterable``, computed on
         a worker thread up to ``lookahead`` items ahead (the JAX trainer's
         ``_prefetch``: batch assembly and the copy to the device leave the
         loop's thread). An error in the worker is raised here. Close the
         generator when leaving early (``contextlib.closing``): closing stops
         and joins the worker, so none outlives its loop, where the JAX
-        version leaves its thread blocked on the full queue."""
+        version leaves its thread blocked on the full queue.
+
+        Spans: ``stage`` on the worker around each ``transform``, and
+        ``wait`` on the loop's thread while it blocks on the queue, each with
+        the id of the item it serves, counted from ``first_id``."""
         q: "queue.Queue" = queue.Queue(maxsize=lookahead)
         stop = threading.Event()
 
@@ -453,8 +465,10 @@ class MarTTrainer:
 
         def worker():
             try:
-                for b in iterable:
-                    if not put(("item", transform(b))):
+                for i, b in enumerate(iterable, first_id):
+                    with span("stage", step=i):
+                        item = transform(b)
+                    if not put(("item", item)):
                         return
                 put(("end", None))
             except BaseException as e:  # surfaced in the loop
@@ -467,8 +481,9 @@ class MarTTrainer:
         thread = threading.Thread(target=worker, name="mkg-prefetch", daemon=True)
         thread.start()
         try:
-            while True:
-                kind, payload = q.get()
+            for i in itertools.count(first_id):
+                with span(wait, step=i):
+                    kind, payload = q.get()
                 if kind == "end":
                     return
                 if kind == "err":
@@ -494,16 +509,34 @@ class MarTTrainer:
         return [{k: v[i] for k, v in gathered} for i in range(len(outs))]
 
     def evaluate(self, features, attach=None, dump_path=None) -> Dict[str, float]:
+        """Rank every example of ``features``; returns the metrics. Spans:
+        ``evaluate``; for each batch ``eval.wait`` (its queue wait),
+        ``eval.batch`` and in it ``eval.forward``; ``eval.gather``, the
+        transfer at the split's end and the host metrics."""
         cfg = self.config
-        it = BatchIterator(features, cfg.eval_batch_size, shuffle=False,
-                           attach=attach, pad_tail=True)
-        with torch.inference_mode(), contextlib.closing(
-                self._prefetch(it, self._put_batch_async)) as batches:
-            outs = [self._eval_step(self._ready(b), self.image_table) for b in batches]
-            if self.dp_group is not None:
-                outs = self._every_ranks_rows(outs)
-            # one device-to-host transfer per output at the end of the split
-            outs = [{k: v.cpu().numpy() for k, v in o.items()} for o in outs]
+        with span("evaluate"):
+            it = BatchIterator(features, cfg.eval_batch_size, shuffle=False,
+                               attach=attach, pad_tail=True)
+            outs = []
+            with torch.inference_mode(), contextlib.closing(
+                    self._prefetch(it, self._put_batch_async, wait="eval.wait")) as batches:
+                for i, b in enumerate(batches):
+                    set_step(i)
+                    with span("eval.batch"):
+                        b = self._ready(b)
+                        with span("eval.forward"):
+                            outs.append(self._eval_step(b, self.image_table))
+            with span("eval.gather"):
+                with torch.inference_mode():
+                    if self.dp_group is not None:
+                        outs = self._every_ranks_rows(outs)
+                    # one device-to-host transfer per output at the end of the split
+                    outs = [{k: v.cpu().numpy() for k, v in o.items()} for o in outs]
+                return self._split_metrics(outs, dump_path)
+
+    def _split_metrics(self, outs, dump_path) -> Dict[str, float]:
+        """The metrics of a split from its batches' outputs on the host; with
+        ``dump_path``, the ranks written there."""
         ranks = np.concatenate([o["ranks"][o["valid"]] for o in outs])
         is_rel = np.concatenate([o["is_rel"][o["valid"]] for o in outs])
         nonfinite = np.concatenate([o["nonfinite"][o["valid"]] for o in outs])
@@ -549,8 +582,9 @@ class MarTTrainer:
             self.logger.log(step, metrics, prefix=prefix)
 
     def _sync(self) -> None:
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        with span("sync"):
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
 
     def _epoch_schedule(self, train_features, attach=None):
         """(the number of batches an epoch, a function that yields one
@@ -598,32 +632,44 @@ class MarTTrainer:
         transfer from a checkpoint): fine-tuning, or pre-training in the
         config's format (``train_features`` a (triple, analogy) pair for the
         mixed diet). Returns (the number of steps taken, the dev metrics of
-        the best-Hits@10 evaluation)."""
+        the best-Hits@10 evaluation). Spans: ``fit``, and in it
+        ``fit.setup`` (the schedule and the optimizer) and ``_epochs``'s."""
         cfg = self.config
-        steps_per_epoch, epoch_batches = self._epoch_schedule(train_features, attach)
-        limit_batches = cfg.limit_train_batches
-        if limit_batches and isinstance(limit_batches, float) and limit_batches <= 1.0:
-            # only FLOATS in (0, 1] are fractions; an int 1 means exactly one
-            # batch (pl.Trainer semantics, base.py:79-82)
-            limit_batches = max(1, int(steps_per_epoch * limit_batches))
-        limit_batches = int(limit_batches) if limit_batches else None
-        if limit_batches:
-            steps_per_epoch = min(steps_per_epoch, limit_batches)
-        total_steps = steps_per_epoch * cfg.max_epochs
-        if init_params_fn is not None:
-            # pretrain->finetune transfer (main.py:133-134 strict=False parity)
-            self.load_state_dict(init_params_fn(self.state_dict()))
-        self._parallelize()  # before the optimizer takes the parameters
-        optimizer = make_optimizer(
-            self.model, cfg.lr, total_steps, cfg.warmup_ratio, cfg.weight_decay,
-            grad_accum_steps=cfg.grad_accum_steps, max_grad_norm=cfg.max_grad_norm,
-            fused=cfg.fused_adamw, mesh=self.mesh)
-        optimizer.zero_grad()
+        with span("fit"):
+            with span("fit.setup"):
+                steps_per_epoch, epoch_batches = self._epoch_schedule(train_features, attach)
+                limit_batches = cfg.limit_train_batches
+                if limit_batches and isinstance(limit_batches, float) and limit_batches <= 1.0:
+                    # only FLOATS in (0, 1] are fractions; an int 1 means exactly one
+                    # batch (pl.Trainer semantics, base.py:79-82)
+                    limit_batches = max(1, int(steps_per_epoch * limit_batches))
+                limit_batches = int(limit_batches) if limit_batches else None
+                if limit_batches:
+                    steps_per_epoch = min(steps_per_epoch, limit_batches)
+                total_steps = steps_per_epoch * cfg.max_epochs
+                if init_params_fn is not None:
+                    # pretrain->finetune transfer (main.py:133-134 strict=False parity)
+                    self.load_state_dict(init_params_fn(self.state_dict()))
+                self._parallelize()  # before the optimizer takes the parameters
+                optimizer = make_optimizer(
+                    self.model, cfg.lr, total_steps, cfg.warmup_ratio, cfg.weight_decay,
+                    grad_accum_steps=cfg.grad_accum_steps, max_grad_norm=cfg.max_grad_norm,
+                    fused=cfg.fused_adamw, mesh=self.mesh)
+                optimizer.zero_grad()
+            return self._epochs(optimizer, epoch_batches, limit_batches, dev_features,
+                                eval_attach or attach, checkpointer)
 
+    def _epochs(self, optimizer, epoch_batches, limit_batches, dev_features, eval_attach,
+                checkpointer):
+        """``fit``'s epochs, each followed by an evaluation every
+        ``check_val_every_n_epoch``. Spans: ``step`` for each step, around
+        ``_ready`` and ``_train_step`` (which holds ``step.forward``,
+        ``step.backward`` and ``step.optimizer``); ``step.wait`` and
+        ``stage`` from ``_prefetch``."""
+        cfg = self.config
         best_mrr, best_hits10, since_best = -1.0, -1.0, 0
         best_metrics: Dict[str, float] = {}
         global_step = 0
-        timer = StepTimer()
 
         def stage(tagged):
             # on the prefetch worker: host assembly and the copy to the device
@@ -643,7 +689,8 @@ class MarTTrainer:
                     # loop did before it, so the iterators' seeded draws of
                     # the next epoch stay where they were
                     batches = itertools.islice(batches, limit_batches + 1)
-                with contextlib.closing(self._prefetch(batches, stage)) as prefetched:
+                with contextlib.closing(self._prefetch(batches, stage,
+                                                       first_id=global_step)) as prefetched:
                     for epoch_steps, (kind, ids_preview, sbatch) in enumerate(prefetched):
                         if limit_batches and epoch_steps >= limit_batches:
                             break
@@ -653,11 +700,11 @@ class MarTTrainer:
                                 print(self.vocab.decode(row[row != 0][:48]))
                         if cfg.profile_dir and global_step == 5:
                             profile.enter_context(trace(cfg.profile_dir))
-                        dbatch = self._ready(sbatch)
-                        timer.start()
-                        metrics = self._train_step(optimizer, dbatch, global_step,
-                                                   self.image_table, loss_kind=kind)
-                        timer.stop()
+                        set_step(global_step)
+                        with span("step"):
+                            dbatch = self._ready(sbatch)
+                            metrics = self._train_step(optimizer, dbatch, global_step,
+                                                       self.image_table, loss_kind=kind)
                         global_step += 1
                         n_examples += cfg.batch_size
                         if global_step == 1:
@@ -675,12 +722,11 @@ class MarTTrainer:
                 self._sync()
                 dt = time.time() - t_epoch
                 epoch_stats = {"epoch": epoch, "examples_per_sec": n_examples / max(dt, 1e-9)}
-                epoch_stats.update(timer.stats())
                 # the epoch's last step, so a run's losses can be compared
                 epoch_stats.update({f"last_{k}": float(v) for k, v in metrics.items()})
                 self._log(global_step, epoch_stats, prefix="train/")
                 if (epoch + 1) % cfg.check_val_every_n_epoch == 0:
-                    eval_metrics = self.evaluate(dev_features, attach=eval_attach or attach)
+                    eval_metrics = self.evaluate(dev_features, attach=eval_attach)
                     self._log(global_step, eval_metrics)
                     mrr = eval_metrics.get("Eval_entity/mrr", 0.0)
                     hits10 = eval_metrics.get("Eval_entity/hits10", 0.0)

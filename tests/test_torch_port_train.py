@@ -414,9 +414,21 @@ def test_cli_trainer_flags(dataset, tmp_path, extra, steps):
 
 def test_cli_profile_writes_a_trace(dataset, tmp_path):
     """--profile traces steps 5..10 with torch.profiler (2 epochs of 3 steps
-    here: the trace covers step 6 and closes when the fit ends)."""
+    here: the trace covers step 6 and closes when the fit ends), with the
+    spans of that window on the trace's timeline, inside its time range."""
     port_cli.main(train_flags(dataset, tmp_path, "p", ["--profile", "--max_epochs", "2"]))
-    assert (tmp_path / "logs_p" / "profile" / "trace.json").stat().st_size > 0
+    path = tmp_path / "logs_p" / "profile" / "trace.json"
+    assert path.stat().st_size > 0
+    events = [e for e in json.loads(path.read_text())["traceEvents"] if e.get("ph") == "X"]
+    traced = [e for e in events if e.get("cat") != "span"]
+    first = min(e["ts"] for e in traced)
+    last = max(e["ts"] + e["dur"] for e in traced)
+    spans = [e for e in events if e.get("cat") == "span"]
+    steps = [e for e in spans if e["name"] == "step"]
+    assert [e["args"]["step"] for e in steps] == [5]
+    assert {"step.forward", "step.backward", "step.optimizer"} <= {e["name"] for e in spans}
+    for e in spans:
+        assert first <= e["ts"] and e["ts"] + e["dur"] <= last, e
 
 
 def test_cli_train_on_cuda_without_gpu_raises(dataset, tmp_path):
