@@ -41,19 +41,32 @@ exits non-zero:
                 phase 3 (the fp32 backward from the forward's out and lse,
                 as the main path calls it), and the backward of
                 scaled_dot_product_attention at the vision shapes;
+    gelu_kernel — row 7, gelu_poly's forward and backward kernels, against
+                the plain chain at the FFN activations of MKGformer (B=32,
+                L=128) and of FLAVA's three towers (B=24: 128, 393 and 522
+                tokens), 3072 wide, bf16 and fp32: every element bit for
+                bit; the times of each kernel, of the plain chain and of
+                F.gelu in bf16, and the bounds; then a full-width MKGformer
+                bf16 fine-tune step through the kernels and through the
+                plain chain: 13 + 13 launches, the loss and every gradient
+                leaf that two kernel runs give alike bit for bit. Every bf16
+                main path below counts row 7's launches beside its attention
+                launches, and its plain runs take the plain chain;
 5. model      — a full-width UnimoForMaskedLM (random weights from a seed,
                 B=32, L=128, two 224-px images) forward through the kernel
-                and through the plain version: fp32 logits within 1e-3, bf16
-                difference and top-1 agreement reported, 24 launches a
-                forward;
+                and through the plain version (gelu_poly through its plain
+                chain too): fp32 logits within 1e-3, bf16 difference and
+                top-1 agreement reported, 24 launches a forward and in bf16
+                13 of row 7's;
 6. train      — the full-width fine-tune step (label-smoothed CE +
                 alpha * relaxation, AdamW), dropout on: fp32 through the
                 kernels against fp32 through the plain attention from the
                 same weights, batch and seeds (loss within 1e-5 relative,
                 every gradient leaf within its bound); then bf16 through the
                 kernels, the main path, for 8 steps on one batch: the loss
-                falls, 24 forward and 24 backward launches a step, step time
-                and a device profile of one step; then 4 bf16 steps with
+                falls, 24 forward and 24 backward launches a step (and 13
+                + 13 of row 7), step time and a device profile of one step;
+                then 4 bf16 steps with
                 ``UnimoConfig.remat`` off and on (each layer recomputed in
                 the backward): the first step's loss bit-equal, step ms and
                 peak GB of each;
@@ -160,7 +173,8 @@ exits non-zero:
                 within its bound), and through the flash kernels against the
                 plain attention without attention dropout, then a bf16 forward and 6 bf16 steps through the
                 family's default kernels (ViLT the single-block ones, 12 + 12
-                launches a step; FLAVA the flash ones, 30 + 30 + 30): the
+                launches a step; FLAVA the flash ones, 30 + 30 + 30; and 13
+                + 13 and 31 + 31 of row 7): the
                 loss falls, step time and a device profile; ViLT's step also
                 through the flash kernels, for comparison; and what each
                 family's fp32 step costs through its default kernels (ViLT
@@ -199,7 +213,8 @@ exits non-zero:
                 within its bound; ViLBERT also through the flash kernels,
                 at the same bars), then a bf16 forward and 6 bf16 steps
                 (12 + 12 launches a step for VisualBERT, 18 + 18 for
-                ViLBERT, 6 + 6 of them at head_dim 128): the loss falls,
+                ViLBERT, 6 + 6 of them at head_dim 128; 13 + 13 and 31 + 29
+                of row 7): the loss falls,
                 step time and a device profile; ViLBERT then 4 more steps
                 through the flash kernels (18 + 17 + 17 launches, 6 + 5 + 5
                 at head_dim 128, on the tensor cores): the loss falls, step
@@ -273,6 +288,7 @@ prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -316,6 +332,17 @@ EDGE_CASES = [
     ("418x418_rows_from_1_text_128", 1, 418, 418, ((60,), 1, 128, 0), None),
     ("418x418_offset_290", 2, 418, 418, ((1, 128), 1, None, 290), 0),
 ]
+# Row 7, gelu_poly's kernels: the FFN activations of the benchmark's bf16
+# cells, MKGformer's 12 text layers (B=32, L=128) and FLAVA's text, image and
+# multimodal towers (B=24); fp32 operations an element forward and backward
+# (csrc/gelu_poly.cu: no fused multiply-add, the clamps' min and max
+# counted), at one a lane a cycle, half the fp32 FMA peak.
+GELU_SHAPES = [("mkgformer_text", (32, 128, 3072)), ("flava_text", (24, 128, 3072)),
+               ("flava_image", (24, 393, 3072)), ("flava_multimodal", (24, 522, 3072))]
+GELU_OPS_FWD, GELU_OPS_BWD = 57, 56
+# gelu_poly calls of a MKGformer forward in bf16: the 12 text layers' FFNs and
+# the MLM transform (the vision tower takes quick_gelu; fp32 takes F.gelu)
+GELU_CALLS = 13
 
 
 START = time.perf_counter()
@@ -801,10 +828,145 @@ def kernel_bwd_phase(device):
     return rows, max(e for n, e in edges.items() if n.startswith("max_abs_err"))
 
 
+@contextlib.contextmanager
+def plain_gelu():
+    """Within: gelu_poly on the card computes its plain version (the eager
+    chain, ~59 PyTorch kernels each way) instead of launching row 7's
+    kernels, for the runs that hold a kernel route against the plain one."""
+    from mkg_analogy_tpu_torch.kernels import gelu_poly as gp
+
+    saved = gp._launch_fwd, gp._launch_bwd
+    gp._launch_fwd, gp._launch_bwd = gp.gelu_poly_reference, gp.gelu_poly_grad_reference
+    try:
+        yield
+    finally:
+        gp._launch_fwd, gp._launch_bwd = saved
+
+
+def differing_bits(got, want):
+    """The elements of ``got`` whose bits differ from ``want``'s, NaN for
+    NaN (a NaN's payload aside); all of them if the dtypes, shapes or NaNs
+    differ."""
+    import torch
+
+    nan = torch.isnan(got)
+    if got.dtype != want.dtype or got.shape != want.shape \
+            or not torch.equal(nan, torch.isnan(want)):
+        return got.numel()
+    bits = {torch.bfloat16: torch.int16, torch.float32: torch.int32}[got.dtype]
+    return int((got.view(bits)[~nan] != want.view(bits)[~nan]).sum())
+
+
+def gelu_kernel_phase(device):
+    """Row 7: gelu_poly's two kernels (csrc/gelu_poly.cu) against the plain
+    chain at GELU_SHAPES, in bf16 (every main path's) and fp32: one launch
+    each way a call, every element bit for bit. The times of each kernel,
+    of the plain chain each way and of F.gelu and its backward in bf16 (the
+    library's fused exact gelu, a yardstick: the port never calls it in
+    bf16); the bounds, the larger of the bytes (x, the cotangent and the
+    result, each once) over the HBM rate and GELU_OPS_* an element over
+    half the fp32 peak. Then a full-width MKGformer bf16 fine-tune step
+    (B=32, L=128, dropout on) from one state dict, batch and seeds, twice
+    through the kernels and once through the plain chain: GELU_CALLS
+    launches each way (none through the plain chain), the loss bit for bit,
+    and bit for bit every gradient leaf that the two kernel runs give alike
+    (a leaf summed by atomics in another order from run to run is counted
+    and its largest difference printed)."""
+    import torch
+    import torch.nn.functional as F
+
+    from mkg_analogy_tpu_torch.kernels import gelu_poly as gp
+    from mkg_analogy_tpu_torch.models.common import DropoutRNG
+    from mkg_analogy_tpu_torch.models.unimo import UnimoConfig, UnimoForMaskedLM
+    from mkg_analogy_tpu_torch.train.trainer import MarTTrainer, TrainConfig
+
+    ops_per_s = FP32_FLOPS_PER_S / 2  # one operation a lane a cycle, nothing fused
+    rows = []
+    for name, shape in GELU_SHAPES:
+        row = dict(shape=name, dims=list(shape))
+        gen = torch.Generator(device).manual_seed(sum(shape))
+        for tag, dtype in (("", torch.bfloat16), ("_fp32", torch.float32)):
+            x = (3 * torch.randn(shape, device=device, generator=gen)).to(dtype)
+            g = torch.randn(shape, device=device, generator=gen).to(dtype)
+            before = (gp.LAUNCHES_GELU_FWD, gp.LAUNCHES_GELU_BWD)
+            y, dx = gp._launch_fwd(x), gp._launch_bwd(x, g)
+            torch.cuda.synchronize()
+            if (gp.LAUNCHES_GELU_FWD - before[0], gp.LAUNCHES_GELU_BWD - before[1]) != (1, 1):
+                raise AssertionError(f"gelu_kernel {name}{tag}: launches "
+                                     f"{gp.LAUNCHES_GELU_FWD - before[0]} / "
+                                     f"{gp.LAUNCHES_GELU_BWD - before[1]}, expected 1 / 1")
+            for way, got, want in (("fwd", y, gp.gelu_poly_reference(x)),
+                                   ("bwd", dx, gp.gelu_poly_grad_reference(x, g))):
+                differ = differing_bits(got, want)
+                if differ:
+                    raise AssertionError(f"gelu_kernel {name}{tag} {way}: {differ} of "
+                                         f"{got.numel()} elements differ from the plain chain")
+            del y, dx, want
+            row[f"fwd_ms{tag}"] = time_ms(lambda: gp._launch_fwd(x))
+            row[f"bwd_ms{tag}"] = time_ms(lambda: gp._launch_bwd(x, g))
+            for way, tensors, ops in (("fwd", 2, GELU_OPS_FWD), ("bwd", 3, GELU_OPS_BWD)):
+                t_bytes = x.numel() * x.element_size() * tensors / HBM_BYTES_PER_S * 1e3
+                t_ops = x.numel() * ops / ops_per_s * 1e3
+                row[f"{way}_bound_ms{tag}"] = max(t_bytes, t_ops)
+                row[f"{way}_bound_by{tag}"] = bound_by(t_bytes, t_ops)
+                row[f"{way}_over_bound{tag}"] = row[f"{way}_ms{tag}"] / max(t_bytes, t_ops)
+            if dtype == torch.bfloat16:
+                row.update(
+                    plain_fwd_ms=time_ms(lambda: gp.gelu_poly_reference(x)),
+                    plain_bwd_ms=time_ms(lambda: gp.gelu_poly_grad_reference(x, g)),
+                    library_fwd_ms=time_ms(lambda: F.gelu(x)),
+                    library_bwd_ms=time_ms(lambda: torch.ops.aten.gelu_backward(g, x)))
+            del x, g
+        rows.append(row)
+        torch.cuda.empty_cache()
+
+    batch = train_batch(device)
+    with torch.device(device):
+        model = UnimoForMaskedLM(UnimoConfig(dtype="bfloat16"))
+    model.init_params(torch.Generator(device=device).manual_seed(0))
+    trainer = MarTTrainer(model, _AnalogyVocab(), TrainConfig(), device=device)
+    runs = {}
+    for run in ("kernels", "plain", "kernels_again"):
+        model.zero_grad(set_to_none=True)
+        reset_counts()
+        with plain_gelu() if run == "plain" else contextlib.nullcontext():
+            loss, _ = trainer._finetune_loss(batch, DropoutRNG.from_seed(5, device))
+            loss.backward()
+        torch.cuda.synchronize()
+        n = 0 if run == "plain" else GELU_CALLS
+        if (gp.LAUNCHES_GELU_FWD, gp.LAUNCHES_GELU_BWD) != (n, n):
+            raise AssertionError(f"gelu_kernel step {run}: launches {gp.LAUNCHES_GELU_FWD} / "
+                                 f"{gp.LAUNCHES_GELU_BWD}, expected {n} / {n}")
+        runs[run] = (loss.detach().clone(), {k: p.grad.clone() for k, p in
+                                             model.named_parameters() if p.grad is not None})
+    (loss_k, grads), (loss_p, grads_p), (_, grads_again) = (
+        runs["kernels"], runs["plain"], runs["kernels_again"])
+    if differing_bits(loss_k, loss_p) or grads.keys() != grads_p.keys():
+        raise AssertionError(f"gelu_kernel step: loss {loss_k.item()} through the kernels, "
+                             f"{loss_p.item()} through the plain chain")
+    unsteady = {k: (grads[k] - grads_again[k]).abs().max().item() for k in grads
+                if differing_bits(grads[k], grads_again[k])}
+    differ = {k: differing_bits(grads[k], grads_p[k]) for k in grads if k not in unsteady}
+    if any(differ.values()):
+        raise AssertionError("gelu_kernel step: gradient leaves differ from the plain chain's: "
+                             f"{ {k: n for k, n in differ.items() if n} }")
+    step = dict(B=TRAIN_BATCH, L=128, loss=loss_k.item(), loss_bit_equal=True,
+                launches_per_step=dict(fwd=GELU_CALLS, bwd=GELU_CALLS),
+                grad_leaves=len(grads), grad_leaves_bit_equal=len(differ),
+                leaves_unsteady_run_to_run=unsteady,
+                unsteady_leaves_largest_diff_vs_plain={
+                    k: (grads[k] - grads_p[k]).abs().max().item() for k in unsteady})
+    del runs, grads, grads_p, grads_again, model, trainer
+    torch.cuda.empty_cache()
+    emit(dict(phase="gelu_kernel", shapes=rows, main_path_step=step))
+    return rows
+
+
 def model_phase(device):
     import torch
 
     from mkg_analogy_tpu_torch.kernels import attention as attn
+    from mkg_analogy_tpu_torch.kernels import gelu_poly as gp
     from mkg_analogy_tpu_torch.models.unimo import UnimoConfig, UnimoForMaskedLM
 
     b, length = 32, 128
@@ -833,11 +995,13 @@ def model_phase(device):
         results = {}
         for fused in (True, False):
             set_backend(model, "single" if fused else "plain")
-            with torch.inference_mode():
-                before = attn.LAUNCHES
+            with torch.inference_mode(), \
+                    contextlib.nullcontext() if fused else plain_gelu():
+                before, gelu_before = attn.LAUNCHES, gp.LAUNCHES_GELU_FWD
                 logits = model.logits(model(**batch)[:, 0], vocab_ids=vocab_ids)
                 torch.cuda.synchronize()
                 launches = attn.LAUNCHES - before
+                gelu_launches = gp.LAUNCHES_GELU_FWD - gelu_before
                 t = []
                 for _ in range(5):
                     t0 = time.perf_counter()
@@ -850,16 +1014,19 @@ def model_phase(device):
             if not torch.isfinite(logits).all():
                 raise AssertionError(f"{dtype}: non-finite logits")
             expect = 24 if fused else 0
-            if launches != expect:
+            gelu_expect = GELU_CALLS if fused and dtype == "bfloat16" else 0
+            if launches != expect or gelu_launches != gelu_expect:
                 raise AssertionError(f"{dtype} fused={fused}: {launches} launches, "
-                                     f"expected {expect}")
+                                     f"expected {expect}; gelu {gelu_launches}, expected "
+                                     f"{gelu_expect}")
             results[fused] = (logits.float(), statistics.median(t))
         (lk, tk), (lp, tp) = results[True], results[False]
         diff = (lk - lp).abs().max().item()
         top1 = (lk.argmax(-1) == lp.argmax(-1)).float().mean().item()
         out[dtype] = dict(max_abs_logit_diff=diff, top1_agreement=top1,
                           forward_ms_kernel=tk, forward_ms_plain=tp,
-                          launches_per_forward=24)
+                          launches_per_forward=24,
+                          gelu_launches_per_forward=GELU_CALLS if dtype == "bfloat16" else 0)
         if dtype == "float32" and not diff <= 1e-3:
             raise AssertionError(f"fp32 logits: kernel vs plain {diff} > 1e-3")
         del model
@@ -906,10 +1073,12 @@ def train_phase(device):
     last-bit differences; the floor covers leaves whose exact gradient is 0,
     the key biases, which carry round-off only). (2) bf16 through the
     kernels, the main path: 8 AdamW steps on one batch, the loss finite and
-    falling, 24 forward and 24 backward launches a step."""
+    falling, 24 forward and 24 backward launches a step, and 13 each way of
+    row 7 (gelu_poly)."""
     import torch
 
     from mkg_analogy_tpu_torch.kernels import attention as attn
+    from mkg_analogy_tpu_torch.kernels import gelu_poly
     from mkg_analogy_tpu_torch.models.common import DropoutRNG
     from mkg_analogy_tpu_torch.models.unimo import UnimoConfig, UnimoForMaskedLM
     from mkg_analogy_tpu_torch.train.optim import make_optimizer
@@ -960,21 +1129,24 @@ def train_phase(device):
     opt = make_optimizer(model, 1e-4, 100, warmup_ratio=0.0)
     losses, times, launches = [], [], []
     for step in range(8):
-        attn.LAUNCHES = attn.LAUNCHES_BWD = 0
+        reset_counts()
         t0 = time.perf_counter()
         metrics = trainer._train_step(opt, batch, step)
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
-        launches.append((attn.LAUNCHES, attn.LAUNCHES_BWD))
+        launches.append((attn.LAUNCHES, attn.LAUNCHES_BWD, gelu_poly.LAUNCHES_GELU_FWD,
+                         gelu_poly.LAUNCHES_GELU_BWD))
         losses.append(metrics["loss"].item())
-    if any(n != (24, 24) for n in launches):
-        raise AssertionError(f"bf16 steps: launches {launches}, expected 24 + 24 a step")
+    if any(n != (24, 24, GELU_CALLS, GELU_CALLS) for n in launches):
+        raise AssertionError(f"bf16 steps: launches {launches}, expected 24 + 24 a step "
+                             f"and {GELU_CALLS} + {GELU_CALLS} of row 7")
     if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
         raise AssertionError(f"bf16 loss did not fall: {losses}")
     step_ms = statistics.median(times[2:])
     out["bf16"] = dict(losses=losses, step_ms=times, median_step_ms=step_ms,
                        examples_per_sec=TRAIN_BATCH / step_ms * 1e3,
-                       launches_per_step=dict(fwd=24, bwd=24),
+                       launches_per_step=dict(fwd=24, bwd=24, gelu_fwd=GELU_CALLS,
+                                              gelu_bwd=GELU_CALLS),
                        peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
                        device_profile_step=device_profile(
                            lambda: trainer._train_step(opt, batch, 8), top=15))
@@ -1154,7 +1326,8 @@ def cli_phase():
     evaluation in fp32 through the kernel and through the plain attention
     must rank at least 99% of the examples alike (fp32 differences are
     summation-order ulps, far below the logit gaps of almost every
-    example). The bf16 plain run is only
+    example). The plain runs take gelu_poly's plain chain too (bf16). The
+    bf16 plain run is only
     reported: with random weights BertFusion's unscaled softmax over
     768-wide dot products is near-argmax, so last-bit differences in the
     text context can move its choice of vision token."""
@@ -1162,6 +1335,7 @@ def cli_phase():
 
     from mkg_analogy_tpu_torch.cli import main as cli
     from mkg_analogy_tpu_torch.kernels import attention as attn
+    from mkg_analogy_tpu_torch.kernels import gelu_poly as gp
 
     n_test = 200
     runs = {}
@@ -1176,21 +1350,25 @@ def cli_phase():
                     "--image_features", "synthetic",
                     "--output_dir", out_dir, "--log_dir", os.path.join(root, "logs"),
                     "--cache_dir", os.path.join(root, "cache")]
-            attn.LAUNCHES = 0
+            reset_counts()
             t0 = time.perf_counter()
-            with BuildOrder() as order:
+            with BuildOrder() as order, \
+                    plain_gelu() if fused == "0" else contextlib.nullcontext():
                 metrics = cli.main(argv)
             seconds = time.perf_counter() - t0
             order.check(f"cli {dtype} --fused_attention {fused}")
             launches = attn.LAUNCHES
+            gelu_launches = (gp.LAUNCHES_GELU_FWD, gp.LAUNCHES_GELU_BWD)
             ranks = np.load(os.path.join(out_dir, "test_ranks.npz"))["ranks"]
-            runs[dtype, fused] = (metrics, launches, ranks, seconds)
+            runs[dtype, fused] = (metrics, launches, ranks, seconds, gelu_launches)
     n_batches = math.ceil(n_test / 128)
-    for (dtype, fused), (metrics, launches, ranks, _) in runs.items():
+    for (dtype, fused), (metrics, launches, ranks, _, gelu_launches) in runs.items():
         expect = 24 * n_batches if fused == "1" else 0
-        if launches != expect:
+        gelu_expect = GELU_CALLS * n_batches if (dtype, fused) == ("bfloat16", "1") else 0
+        if launches != expect or gelu_launches != (gelu_expect, 0):
             raise AssertionError(f"cli {dtype} --fused_attention {fused}: "
-                                 f"{launches} launches, expected {expect}")
+                                 f"{launches} launches, expected {expect}; gelu "
+                                 f"{gelu_launches}, expected ({gelu_expect}, 0)")
         if not all(math.isfinite(v) for v in metrics.values()):
             raise AssertionError(f"cli {dtype}: non-finite metrics {metrics}")
         if not 0.0 < metrics["Eval_entity/mrr"] <= 1.0 or len(ranks) != n_test:
@@ -1200,10 +1378,11 @@ def cli_phase():
     if fp32_same < 0.99:
         raise AssertionError(f"cli fp32: kernel and plain attention rank alike "
                              f"for only {fp32_same} of the examples")
-    metrics, launches, ranks, seconds = runs["bfloat16", "1"]
-    plain_metrics, _, plain_ranks, plain_seconds = runs["bfloat16", "0"]
+    metrics, launches, ranks, seconds, gelu_launches = runs["bfloat16", "1"]
+    plain_metrics, _, plain_ranks, plain_seconds, _ = runs["bfloat16", "0"]
     emit(dict(phase="cli", dtype="bfloat16", examples=n_test, eval_batches=n_batches,
-              launches=launches, mrr=metrics["Eval_entity/mrr"],
+              launches=launches, gelu_launches=gelu_launches[0],
+              mrr=metrics["Eval_entity/mrr"],
               hits1=metrics["Eval_entity/hits1"], hits10=metrics["Eval_entity/hits10"],
               seconds=seconds, fp32_rank_agreement_kernel_vs_plain=fp32_same,
               fp32_mrr=runs["float32", "1"][0]["Eval_entity/mrr"],
@@ -1211,7 +1390,7 @@ def cli_phase():
               bf16_rank_agreement_kernel_vs_plain=float((ranks == plain_ranks).mean()),
               bf16_plain_seconds=plain_seconds, kernels_built_before_first_batch=True,
               nonfinite_gold=metrics["Eval_entity/nonfinite_gold"]))
-    return launches
+    return launches, gelu_launches[0]
 
 
 def cli_train_phase():
@@ -1219,7 +1398,8 @@ def cli_train_phase():
     the kernels, with both counts set to 0 just before and read just after.
     128 training examples at B=32 are 4 steps (24 + 24 launches each); the
     dev split (16) is one eval batch and the test split (200) two, 24
-    forward launches each. The best-dev checkpoint is written and restored
+    forward launches each; 13 of row 7's each way a step and 13 a forward.
+    The best-dev checkpoint is written and restored
     for the test; ``--only_test --checkpoint`` on it must give the same
     ranks. The fit runs with an empty build directory: the CLI must compile
     every kernel before the first batch is assembled, and its first step
@@ -1229,6 +1409,7 @@ def cli_train_phase():
 
     from mkg_analogy_tpu_torch.cli import main as cli
     from mkg_analogy_tpu_torch.kernels import attention as attn
+    from mkg_analogy_tpu_torch.kernels import gelu_poly as gp
     from mkg_analogy_tpu_torch.train import checkpoint
     from mkg_analogy_tpu_torch.train.trainer import MarTTrainer
 
@@ -1259,7 +1440,7 @@ def cli_train_phase():
             step_ms.append((time.perf_counter() - t1) * 1e3)
             return metrics
 
-        attn.LAUNCHES = attn.LAUNCHES_BWD = 0
+        reset_counts()
         t0 = time.perf_counter()
         MarTTrainer._train_step = timed_step
         try:
@@ -1269,9 +1450,12 @@ def cli_train_phase():
             MarTTrainer._train_step = real_step
         seconds = time.perf_counter() - t0
         build_seconds = order.check("cli fine-tune")
-        launches = dict(fwd=attn.LAUNCHES, bwd=attn.LAUNCHES_BWD)
+        launches = dict(fwd=attn.LAUNCHES, bwd=attn.LAUNCHES_BWD,
+                        gelu_fwd=gp.LAUNCHES_GELU_FWD, gelu_bwd=gp.LAUNCHES_GELU_BWD)
         steps = n_train // 32
-        expect = dict(fwd=24 * (steps + 1 + math.ceil(n_test / 128)), bwd=24 * steps)
+        forwards = steps + 1 + math.ceil(n_test / 128)
+        expect = dict(fwd=24 * forwards, bwd=24 * steps, gelu_fwd=GELU_CALLS * forwards,
+                      gelu_bwd=GELU_CALLS * steps)
         if launches != expect:
             raise AssertionError(f"cli fine-tune: launches {launches}, expected {expect}")
         if not all(math.isfinite(v) for v in metrics.values()):
@@ -1645,10 +1829,14 @@ def qk_bf16_grad_phase(device):
         finally:
             common._qk_scores_bf16grad = real
     kernels = all_counts()
-    if not all(math.isfinite(v) for v in metrics.values()) or any(kernels.values()) \
-            or sum(calls) != 4 * 24:
-        raise AssertionError(f"qk_bf16_grad CLI: metrics {metrics}, launches {kernels}, "
-                             f"{sum(calls)} products under autograd (4 steps x 24 expected)")
+    # 4 steps, then the dev batch and the two test batches; row 7's gelu is
+    # the bf16 path's, whatever the attention
+    gelu = dict(gelu_fwd=GELU_CALLS * (4 + 1 + 2), gelu_bwd=GELU_CALLS * 4)
+    if not all(math.isfinite(v) for v in metrics.values()) \
+            or kernels != dict({k: 0 for k in kernels}, **gelu) or sum(calls) != 4 * 24:
+        raise AssertionError(f"qk_bf16_grad CLI: metrics {metrics}, launches {kernels} "
+                             f"(only {gelu} expected), {sum(calls)} products under autograd "
+                             "(4 steps x 24 expected)")
     emit(dict(phase="qk_bf16_grad", B=TRAIN_BATCH, L=128, attention="plain",
               loss_bf16=l_on, loss_fp32=l32, loss_bit_equal=True,
               worst_leaf_change_over_bar=worst, worst_leaf=worst_leaf,
@@ -2583,8 +2771,10 @@ def flash_mma_counts():
 def reset_counts():
     from mkg_analogy_tpu_torch.kernels import attention as attn
     from mkg_analogy_tpu_torch.kernels import flash_attention as fa
+    from mkg_analogy_tpu_torch.kernels import gelu_poly as gp
     from mkg_analogy_tpu_torch.kernels import image_prep as ip
 
+    gp.LAUNCHES_GELU_FWD = gp.LAUNCHES_GELU_BWD = 0
     attn.LAUNCHES = attn.LAUNCHES_BWD = 0
     attn.LAUNCHES_D128 = attn.LAUNCHES_BWD_D128 = 0
     fa.LAUNCHES_FLASH = fa.LAUNCHES_FLASH_DKV = fa.LAUNCHES_FLASH_DQ = 0
@@ -2636,11 +2826,13 @@ def pretrain_phase(device):
     amplifies last-bit differences of any attention formulation (BertFusion's
     unscaled softmax), so that ratio measures the model, not the kernel.
     (2) bf16 through the flash kernels, 8 steps on one batch: the loss finite
-    and falling, 24 forward, 24 dK/dV and 24 dQ launches a step, the median
-    step over steps 3-8, a device profile of one step."""
+    and falling, 24 forward, 24 dK/dV and 24 dQ launches a step and 13 of
+    row 7's each way, the median step over steps 3-8, a device profile of
+    one step."""
     import torch
 
     from mkg_analogy_tpu_torch.kernels import flash_attention as fa
+    from mkg_analogy_tpu_torch.kernels import gelu_poly as gp
     from mkg_analogy_tpu_torch.models import common
     from mkg_analogy_tpu_torch.models.common import DropoutRNG
     from mkg_analogy_tpu_torch.models.unimo import UnimoConfig, UnimoForMaskedLM
@@ -2708,12 +2900,13 @@ def pretrain_phase(device):
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
         launches.append(dict(flash_counts(), **{f"{k}_mma": n
-                                                for k, n in flash_mma_counts().items()}))
+                                                for k, n in flash_mma_counts().items()},
+                             gelu_fwd=gp.LAUNCHES_GELU_FWD, gelu_bwd=gp.LAUNCHES_GELU_BWD))
         losses.append(metrics["loss"].item())
-    if any(n != dict(fwd=24, dkv=24, dq=24, fwd_mma=24, dkv_mma=24, dq_mma=24)
-           for n in launches):
+    if any(n != dict(fwd=24, dkv=24, dq=24, fwd_mma=24, dkv_mma=24, dq_mma=24,
+                     gelu_fwd=GELU_CALLS, gelu_bwd=GELU_CALLS) for n in launches):
         raise AssertionError(f"bf16 pre-train steps: launches {launches}, expected 24 each, "
-                             "all on the tensor cores")
+                             f"all on the tensor cores, and {GELU_CALLS} each way of row 7")
     if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
         raise AssertionError(f"bf16 pre-train loss did not fall: {losses}")
     step_ms = statistics.median(times[2:])
@@ -2792,14 +2985,19 @@ def cli_pretrain_phase():
     and ~400 pseudo-analogy examples), for each of triple (L=96), analogy
     and mixed (L=128), at B=64 and 3 steps each (--limit_train_batches 3),
     with the dev and test evaluation on the training features; the counts
-    set to 0 before each run and read after it. Then a fine-tune on MARS
+    set to 0 before each run and read after it, row 7's gelu launches among
+    them (13 each way a step, 13 a forward). Then a fine-tune on MARS
     from the triple run's checkpoint (--checkpoint), through the flash
     kernels: 4 steps, dev and test."""
     import numpy as np
 
     from mkg_analogy_tpu_torch.cli import main as cli
     from mkg_analogy_tpu_torch.kernels import attention as attn
+    from mkg_analogy_tpu_torch.kernels import gelu_poly as gp
     from mkg_analogy_tpu_torch.train import checkpoint
+
+    def gelu_counts():
+        return dict(gelu_fwd=gp.LAUNCHES_GELU_FWD, gelu_bwd=gp.LAUNCHES_GELU_BWD)
 
     runs = {}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_pretrain_", dir=".") as root:
@@ -2815,16 +3013,19 @@ def cli_pretrain_phase():
         reset_counts()
         for fmt, length in (("triple", 96), ("analogy", 128), ("mixed", 128)):
             out_dir = os.path.join(root, fmt)
-            before = flash_counts()
+            before = dict(flash_counts(), **gelu_counts())
             t0 = time.perf_counter()
             metrics = cli.main(argv(out_dir, "--pretrain", "1", "--pretrain_format", fmt,
                                     "--max_seq_length", str(length), "--batch_size", "64",
                                     "--max_epochs", "1", "--limit_train_batches", "3"))
             seconds = time.perf_counter() - t0
-            launches = {k: n - before[k] for k, n in flash_counts().items()}
+            launches = {k: n - before[k]
+                        for k, n in dict(flash_counts(), **gelu_counts()).items()}
             n_eval = len(np.load(os.path.join(out_dir, "test_ranks_pretrain.npz"))["ranks"])
             # 3 steps; the dev and the test evaluation on n_eval examples
-            expect = dict(fwd=24 * (3 + 2 * math.ceil(n_eval / 128)), dkv=24 * 3, dq=24 * 3)
+            forwards = 3 + 2 * math.ceil(n_eval / 128)
+            expect = dict(fwd=24 * forwards, dkv=24 * 3, dq=24 * 3,
+                          gelu_fwd=GELU_CALLS * forwards, gelu_bwd=GELU_CALLS * 3)
             if launches != expect or attn.LAUNCHES or attn.LAUNCHES_BWD:
                 raise AssertionError(f"cli pretrain {fmt}: flash {launches} (expected "
                                      f"{expect}), single {attn.LAUNCHES}/{attn.LAUNCHES_BWD}")
@@ -2839,7 +3040,8 @@ def cli_pretrain_phase():
                              relation_mrr=metrics.get("Eval_relation/mrr"))
         # the main path's launches, all three formats; all on the tensor
         # cores
-        total = dict(flash_counts(), **{f"{k}_mma": n for k, n in flash_mma_counts().items()})
+        total = dict(flash_counts(), **{f"{k}_mma": n for k, n in flash_mma_counts().items()},
+                     **gelu_counts())
         if any(total[f"{k}_mma"] != total[k] for k in ("fwd", "dkv", "dq")):
             raise AssertionError(f"cli pretrain: a bf16 launch left the tensor cores: {total}")
 
@@ -2848,8 +3050,9 @@ def cli_pretrain_phase():
         metrics = cli.main(argv(ft_dir, "--checkpoint", os.path.join(root, "triple", "ckpt"),
                                 "--max_seq_length", "128", "--batch_size", "32",
                                 "--max_epochs", "1"))
-        launches = flash_counts()
-        expect = dict(fwd=24 * (4 + 1 + 2), dkv=24 * 4, dq=24 * 4)
+        launches = dict(flash_counts(), **gelu_counts())
+        expect = dict(fwd=24 * (4 + 1 + 2), dkv=24 * 4, dq=24 * 4,
+                      gelu_fwd=GELU_CALLS * (4 + 1 + 2), gelu_bwd=GELU_CALLS * 4)
         if (launches != expect or attn.LAUNCHES or attn.LAUNCHES_BWD
                 or flash_mma_counts() != dict(fwd=24 * 7, dkv=24 * 4, dq=24 * 4)):
             raise AssertionError(f"cli fine-tune from the pre-train checkpoint: {launches}")
@@ -3125,12 +3328,14 @@ def image_tool_phase(device):
 
 def all_counts():
     from mkg_analogy_tpu_torch.kernels import attention as attn
+    from mkg_analogy_tpu_torch.kernels import gelu_poly as gp
 
     return dict(single_fwd=attn.LAUNCHES, single_bwd=attn.LAUNCHES_BWD,
                 single_fwd_d128=attn.LAUNCHES_D128, single_bwd_d128=attn.LAUNCHES_BWD_D128,
                 **{f"flash_{k}": n for k, n in flash_counts().items()},
                 **{f"flash_{k}_mma": n for k, n in flash_mma_counts().items()},
-                **{f"flash_{k}": n for k, n in flash_d128_counts().items()})
+                **{f"flash_{k}": n for k, n in flash_d128_counts().items()},
+                gelu_fwd=gp.LAUNCHES_GELU_FWD, gelu_bwd=gp.LAUNCHES_GELU_BWD)
 
 
 # The two families that read the tool's pixel stores, at the recipes of
@@ -3146,7 +3351,11 @@ def all_counts():
 # runs for them (ViLBERT's last visual layer, after its last connection
 # layer; JAX's jit drops its forward too, the eager port runs it).
 # ``auto_flash``: the calls whose query length reaches FLASH_AUTO_MIN_LEN,
-# which the plain route sends to the flash kernels. ``backend``: the card's
+# which the plain route sends to the flash kernels. ``gelu``: the gelu_poly
+# calls of a bf16 forward (each FFN of the text, image and multimodal layers
+# and of ViLBERT's connection layers, and the MLM transform), ``gelu_unread``
+# those with no backward (ViLBERT's last visual layer and the image side of
+# its last connection layer). ``backend``: the card's
 # default (models/registry.py). ``fp32``: the kernels of the fp32 step,
 # the family's default as JAX runs it. ``also_flash``: the steps also run
 # through the flash kernels, the other route the family could take: the
@@ -3158,16 +3367,19 @@ def all_counts():
 FAMILIES = {
     "vilt": dict(model_class="ViltKGC", batch=32, image=384, alpha=0.3, lr=4e-5,
                  stats="vilt", backend="single", calls=12, auto_flash=0, fp32="single",
-                 also_flash=True),
+                 also_flash=True, gelu=13),
     "flava": dict(model_class="FlavaKGC", batch=24, image=224, alpha=0.45, lr=5e-5,
-                  stats="clip", backend="flash", calls=30, auto_flash=6, fp32="flash"),
+                  stats="clip", backend="flash", calls=30, auto_flash=6, fp32="flash",
+                  gelu=31),
 }
 REGION_FAMILIES = {
     "visualbert": dict(model_class="VisualBertKGC", batch=64, image=None, alpha=0.43,
-                       lr=5e-5, backend="single", calls=12, auto_flash=0, fp32="single"),
+                       lr=5e-5, backend="single", calls=12, auto_flash=0, fp32="single",
+                       gelu=13),
     "vilbert": dict(model_class="VilBertKGC", batch=64, image=None, alpha=0.43, lr=5e-5,
                     backend="single", calls=18, d128=6, unread=1, auto_flash=0,
-                    fp32="single", also_flash=True, flash_same_masks=True),
+                    fp32="single", also_flash=True, flash_same_masks=True, gelu=31,
+                    gelu_unread=2),
 }
 
 
@@ -3216,15 +3428,25 @@ def fp32_step_cost(device, name="vilt", steps=5):
                 losses=losses, device_profile_top=profile["top"])
 
 
-def family_counts(backend, calls, backward=True, bf16=True, d128=0, unread=0):
+def family_kw(fam):
+    """family_counts' keywords for a family of FAMILIES or REGION_FAMILIES."""
+    return {k: fam.get(k, 0) for k in ("d128", "unread", "gelu", "gelu_unread")}
+
+
+def family_counts(backend, calls, backward=True, bf16=True, d128=0, unread=0, gelu=0,
+                  gelu_unread=0):
     """all_counts of a step (or a forward) through ``backend``; in bf16 the
-    flash kernels run on the tensor cores; ``d128`` of the calls are at
-    head_dim 128, ``unread`` of those have no backward."""
+    flash kernels run on the tensor cores and each of a forward's ``gelu``
+    calls launches row 7's kernel (fp32 takes F.gelu); ``d128`` of the calls
+    are at head_dim 128, ``unread`` of those and ``gelu_unread`` of the gelu
+    calls have no backward."""
     n_b = calls - unread if backward else 0
     d128_b = d128 - unread if backward else 0
     zero = dict(single_fwd=0, single_bwd=0, single_fwd_d128=0, single_bwd_d128=0,
                 **{f"flash_{k}{m}{w}": 0 for k in ("fwd", "dkv", "dq") for m in ("", "_mma")
-                   for w in ("", "_d128")})
+                   for w in ("", "_d128")},
+                gelu_fwd=gelu if bf16 else 0,
+                gelu_bwd=gelu - gelu_unread if bf16 and backward else 0)
     if backend == "single":
         return dict(zero, single_fwd=calls, single_bwd=n_b, single_fwd_d128=d128,
                     single_bwd_d128=d128_b)
@@ -3278,7 +3500,7 @@ def family_phase(device, name):
 
     fam = {**FAMILIES, **REGION_FAMILIES}[name]
     b, calls = fam["batch"], fam["calls"]
-    d128 = dict(d128=fam.get("d128", 0), unread=fam.get("unread", 0))
+    counts_kw = family_kw(fam)
     batch = train_batch(device, b=b, seed=6)
     g = torch.Generator().manual_seed(7)
     if fam["image"] is None:  # region features
@@ -3328,7 +3550,7 @@ def family_phase(device, name):
             loss, _ = trainer._finetune_loss(batch, DropoutRNG.from_seed(5, device))
             loss.backward()
             torch.cuda.synchronize()
-            expect = family_counts(route, n, bf16=False, **(d128 if n else {}))
+            expect = family_counts(route, n, bf16=False, **(counts_kw if n else {}))
             if all_counts() != expect:
                 raise AssertionError(f"{name} fp32 step {run}: launches {all_counts()}, "
                                      f"expected {expect}")
@@ -3358,7 +3580,7 @@ def family_phase(device, name):
             runs[pairs[0][1]][0]),
         grad_leaves=len(runs["kernels"][1]), leaves_without_gradient=len(no_grad),
         worst_err_over_bar=worst, worst_leaf=worst_name,
-        launches=family_counts(fam["fp32"], calls, bf16=False, **d128))
+        launches=family_counts(fam["fp32"], calls, bf16=False, **counts_kw))
     if "flash" in runs:
         worst_flash, worst_flash_name = leaf_ratios(runs["flash"][1], runs["plain"][1])
         if not worst_flash <= 1.0:
@@ -3368,7 +3590,7 @@ def family_phase(device, name):
             loss_kernels=runs["flash"][0], loss_reference=runs["plain"][0],
             loss_rel_diff=abs(runs["flash"][0] - runs["plain"][0]) / abs(runs["plain"][0]),
             worst_err_over_bar=worst_flash, worst_leaf=worst_flash_name,
-            launches=family_counts("flash", calls, bf16=False, **d128))
+            launches=family_counts("flash", calls, bf16=False, **counts_kw))
     if "flash_nodrop" in runs:
         lk, lp = runs["flash_nodrop"][0], runs["plain_nodrop"][0]
         out["fp32"].update(
@@ -3397,7 +3619,7 @@ def family_phase(device, name):
                       boundary=batch["sep_idx"][:, 2], **extra)
         logits = model.logits(trans[:, 0], vocab_ids=torch.arange(20000, 22063, device=device))
         torch.cuda.synchronize()
-    if all_counts() != family_counts(fam["backend"], calls, backward=False, **d128) \
+    if all_counts() != family_counts(fam["backend"], calls, backward=False, **counts_kw) \
             or logits.shape != (b, 2063) or not torch.isfinite(logits).all():
         raise AssertionError(f"{name} bf16 forward: launches {all_counts()}, logits "
                              f"{tuple(logits.shape)}")
@@ -3406,7 +3628,7 @@ def family_phase(device, name):
     opt = make_optimizer(model, 1e-4, 100, warmup_ratio=0.0)
     losses, times = [], []
     torch.cuda.reset_peak_memory_stats()
-    expect = family_counts(fam["backend"], calls, **d128)
+    expect = family_counts(fam["backend"], calls, **counts_kw)
     for step in range(6):
         reset_counts()
         t0 = time.perf_counter()
@@ -3439,7 +3661,7 @@ def family_phase(device, name):
             metrics = trainer._train_step(opt, batch, step)
             torch.cuda.synchronize()
             flash_times.append((time.perf_counter() - t0) * 1e3)
-            if all_counts() != family_counts("flash", calls, **d128):
+            if all_counts() != family_counts("flash", calls, **counts_kw):
                 raise AssertionError(f"{name} bf16 flash step: launches {all_counts()}")
             flash_losses.append(metrics["loss"].item())
         if not all(math.isfinite(x) for x in flash_losses) \
@@ -3449,7 +3671,7 @@ def family_phase(device, name):
         profile = device_profile(lambda: trainer._train_step(opt, batch, 11), top=6)
         out["bf16_through_flash"] = dict(
             step_ms=flash_times, median_step_ms=flash_ms, losses=flash_losses,
-            launches_per_step=family_counts("flash", calls, **d128),
+            launches_per_step=family_counts("flash", calls, **counts_kw),
             peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
             idle_share=1.0 - profile["device_ms"] / flash_ms, device_profile_step=profile)
         set_backend(model, fam["backend"])
@@ -3509,8 +3731,9 @@ def cli_image_phase():
             seconds = time.perf_counter() - t0
             launches = dict(all_counts(), resize=ip.LAUNCHES_RESIZE)
             steps = n_train // fam["batch"]
-            fwd_only = family_counts(fam["backend"], fam["calls"], backward=False)
-            both = family_counts(fam["backend"], fam["calls"])
+            fwd_only = family_counts(fam["backend"], fam["calls"], backward=False,
+                                     **family_kw(fam))
+            both = family_counts(fam["backend"], fam["calls"], **family_kw(fam))
             expect = {k: both[k] * steps + fwd_only[k] * (1 + math.ceil(n_test / 128))
                       for k in both}
             expect["resize"] = math.ceil(n_with / 64)
@@ -3609,9 +3832,9 @@ def cli_region_phase():
             seconds = time.perf_counter() - t0
             launches = all_counts()
             steps = n_train // fam["batch"]
-            d128 = dict(d128=fam.get("d128", 0), unread=fam.get("unread", 0))
-            fwd_only = family_counts(fam["backend"], fam["calls"], backward=False, **d128)
-            both = family_counts(fam["backend"], fam["calls"], **d128)
+            counts_kw = family_kw(fam)
+            fwd_only = family_counts(fam["backend"], fam["calls"], backward=False, **counts_kw)
+            both = family_counts(fam["backend"], fam["calls"], **counts_kw)
             expect = {k: both[k] * steps + fwd_only[k] * (1 + math.ceil(n_test / 128))
                       for k in both}
             if launches != expect:
@@ -5398,7 +5621,7 @@ def main() -> int:
     emit(dict(phase="card", card=card, torch=torch.__version__,
               cuda=torch.version.cuda))
     t0 = time.perf_counter()
-    # the nine libraries and the attention libraries of HEAD_WIDTHS' padded
+    # the ten libraries and the attention libraries of HEAD_WIDTHS' padded
     # widths: one nvcc each, all started together, before any timed phase
     kernels = sorted(p.stem for p in build.CSRC.glob("*.cu"))
     widths = sorted({build.library_width(d) for d in HEAD_WIDTHS})
@@ -5412,12 +5635,14 @@ def main() -> int:
                          for name in ("fused_attention_fwd_mma", "fused_attention_bwd_mma",
                                       "flash_attention_fwd_mma", "flash_attention_bwd_mma",
                                       "fused_attention_fwd", "fused_attention_bwd",
-                                      "flash_attention_fwd", "flash_attention_bwd")}))
+                                      "flash_attention_fwd", "flash_attention_bwd",
+                                      "gelu_poly")}))
     rows, edge_err = kernel_phase(device)
     bwd_rows, bwd_edge_err = kernel_bwd_phase(device)
+    gelu_rows = gelu_kernel_phase(device)
     model_phase(device)
     train_phase(device)
-    eval_launches = cli_phase()
+    eval_launches, eval_gelu_launches = cli_phase()
     launches = cli_train_phase()
     if not launches["fwd"] or not launches["bwd"]:
         raise AssertionError(f"the main path launched no kernel: {launches}")
@@ -5537,6 +5762,26 @@ def main() -> int:
     def per_call_set(rows, key, n):
         return sum(r[key] * r[n] for r in rows)
 
+    def gelu_entry(way):
+        """Row 7's kernel ``way``: one call at MKGformer's text-layer FFN
+        (B=32, L=128, 3072 wide), bf16; the other shapes and fp32 in
+        ``shapes``; launches the fine-tune CLI's, and those of the other
+        main paths."""
+        mkg = gelu_rows[0]
+        return dict(
+            name=f"gelu_poly_{way}", route="cuda", source="mkg_analogy_tpu_torch/csrc/gelu_poly.cu",
+            replaces=None,  # JAX's gelu_poly (models/common.py) is jnp that XLA fuses
+            ok=True, launches=launches[f"gelu_{way}"],
+            launches_eval_path=eval_gelu_launches if way == "fwd" else 0,
+            launches_pretrain_path=flash_launches[f"gelu_{way}"],
+            launches_image_path=image_launches[f"gelu_{way}"],
+            launches_region_path=sum(r[f"gelu_{way}"] for r in region_launches.values()),
+            differing_bits=0, ms=mkg[f"{way}_ms"], plain_ms=mkg[f"plain_{way}_ms"],
+            bound_ms=mkg[f"{way}_bound_ms"], bound_by=mkg[f"{way}_bound_by"],
+            library_ms=mkg[f"library_{way}_ms"],  # F.gelu in bf16 (exact erf)
+            ms_fp32=mkg[f"{way}_ms_fp32"], bound_ms_fp32=mkg[f"{way}_bound_ms_fp32"],
+            shapes=gelu_rows)
+
     t_bytes = per_call_set(rows, "bytes_ms", "launches_per_forward")
     t_ops = per_call_set(rows, "operations_ms", "launches_per_forward")
     b_bytes = per_call_set(bwd_rows, "bytes_ms", "launches_per_step")
@@ -5633,7 +5878,7 @@ def main() -> int:
         # the shape at which one F.interpolate call computes the same
         **{k: resize_rows[0][k] for k in ("plain_ms", "bound_ms", "bound_by", "library_ms")},
         ms=resize_rows[0]["kernel_ms"], shapes=resize_rows,
-    )] + width_entries(width_rows, width_launches, wide)})
+    ), gelu_entry("fwd"), gelu_entry("bwd")] + width_entries(width_rows, width_launches, wide)})
     print(card)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

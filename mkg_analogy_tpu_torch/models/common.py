@@ -31,6 +31,7 @@ from torch import nn
 
 from ..kernels.attention import _qk_products, fused_attention, fused_attention_reference
 from ..kernels.flash_attention import flash_attention
+from ..kernels.gelu_poly import gelu_poly
 from ..parallel.collectives import ShardedLogits, copy_to, reduce_from, shard_of
 
 # Attention at or above this query length takes the flash kernel even on the
@@ -79,94 +80,6 @@ def _qk_scores_bf16grad(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
 def quick_gelu(x: torch.Tensor) -> torch.Tensor:
     """CLIP's activation: x * sigmoid(1.702 x)."""
     return x * torch.sigmoid(1.702 * x)
-
-
-# Chebyshev coefficients of q in s = clip(x^2/18 - 1, -1, 1), fitted so that
-# clip(x*q(s), -1, 1) is a minimax approximation of erf(x/sqrt(2)) (max
-# error 2.2e-6 evaluated in fp32). The fit and its validation gates are
-# tools/fit_gelu_poly.py of the JAX package; the values are its
-# models/common.py:_GELU_POLY_CHEB.
-_GELU_POLY_CHEB = (
-    0.33028964434727737,
-    -0.24219334583714663,
-    0.11777000939518502,
-    -0.0582491905022037,
-    0.027863442342632622,
-    -0.012659164253535369,
-    0.00542071972438396,
-    -0.002180891087797214,
-    0.0008237438783073934,
-    -0.00029222435125419576,
-    9.74498053259353e-05,
-    -3.0554179772880074e-05,
-    8.974542569486454e-06,
-    -2.4208471486769374e-06,
-    5.430217595261719e-07,
-)
-
-# Chebyshev coefficients of r in the same s, fitted so that 0.5 + clip(x,
-# -6, 6) * r(s) approximates gelu'(x) within 4.3e-6 over the real line
-# (_GELU_POLY_DERIV_CHEB of the JAX package): the backward of ``gelu_poly``.
-_GELU_POLY_DERIV_CHEB = (
-    0.21898524531263905,
-    -0.22260624861509148,
-    0.14400788421381755,
-    -0.0928012135086846,
-    0.056602672027503374,
-    -0.03207533320570575,
-    0.016773504258689072,
-    -0.008083637805368912,
-    0.0035947343345571346,
-    -0.0014786162490729624,
-    0.0005640296608659698,
-    -0.00019982686276727213,
-    6.555459678467149e-05,
-    -1.9516758768489917e-05,
-    4.780831823745028e-06,
-)
-
-
-def _clenshaw_f32(s: torch.Tensor, coeffs) -> torch.Tensor:
-    two_s = s + s
-    b1 = torch.zeros_like(s)
-    b2 = torch.zeros_like(s)
-    for ci in coeffs[:0:-1]:
-        b1, b2 = two_s * b1 - b2 + ci, b1
-    return s * b1 - b2 + coeffs[0]
-
-
-def _gelu_poly_s(xf: torch.Tensor) -> torch.Tensor:
-    return (xf * xf * (1.0 / 18.0) - 1.0).clamp(-1.0, 1.0)
-
-
-class _GeluPoly(torch.autograd.Function):
-    """The JAX custom JVP (models/common.py:164-194): the forward's series,
-    and for the backward the fitted derivative series ``0.5 + clip(x, -6, 6)
-    * r(s)`` instead of autograd through the Clenshaw chain, which would keep
-    its ~30 fp32 intermediates of every FFN activation. Saves only x."""
-
-    @staticmethod
-    def forward(ctx, x):
-        ctx.save_for_backward(x)
-        xf = x.to(torch.float32)
-        t = (xf * _clenshaw_f32(_gelu_poly_s(xf), _GELU_POLY_CHEB)).clamp(-1.0, 1.0)
-        return (0.5 * xf * (1.0 + t)).to(x.dtype)
-
-    @staticmethod
-    def backward(ctx, g):
-        (x,) = ctx.saved_tensors
-        xf = x.to(torch.float32)
-        d = 0.5 + xf.clamp(-6.0, 6.0) * _clenshaw_f32(_gelu_poly_s(xf),
-                                                      _GELU_POLY_DERIV_CHEB)
-        return (d * g.to(torch.float32)).to(x.dtype)
-
-
-def gelu_poly(x: torch.Tensor) -> torch.Tensor:
-    """Exact-gelu via structural polynomial: x/2*(1+clip(x*q(x^2), -1, 1)),
-    q a degree-14 Chebyshev series evaluated by Clenshaw in fp32 (within
-    2.1e-6 of erf-gelu everywhere); its gradient is the fitted derivative
-    series (within 4.3e-6 of erf-gelu's)."""
-    return _GeluPoly.apply(x)
 
 
 def gelu(x: torch.Tensor, impl: str = "poly") -> torch.Tensor:

@@ -158,8 +158,8 @@ TOOLS = {
     "collect_quality.py": "parses the CLI's logs, which the port writes alike",
     "cpu_cli.py": "selects JAX's CPU platform; the port's CLIs take --device cpu",
     "encode_images.py": "tools/encode_images.py",
-    "fit_gelu_poly.py": "fits gelu_poly's coefficients offline (numpy); models/common.py "
-                        "holds the fitted ones",
+    "fit_gelu_poly.py": "fits gelu_poly's coefficients offline (numpy); "
+                        "kernels/gelu_poly.py holds the fitted ones",
     "prepare_data.py": "tools/prepare_data.py",
     "profile_step.py": HARNESS,
     "race_base_so.py": "races the native sampler against the reference's prebuilt "
