@@ -131,6 +131,19 @@ exits non-zero:
                 and 0.1, lse included; then the four fp32 CUDA-core kernels
                 (single-block and flash) at the edge cases with an
                 all-masked row, at the fp32 bars (``fp32_masked_rows``);
+    kimi_vl   — rows 3-5 causal, values 128 wide under heads of 192, at
+                latent attention's call in the Kimi-VL cell (B=32, 16
+                heads, 228 x 228, the key mask and the analogy multiplier
+                after 100 image tokens), dropout 0 and 0.1, against the
+                plain versions at the flash bars; the kernels' times, the
+                plain versions' and the causal bounds
+                (port_bench/bounds_mla.py); then a full-width KimiVLKGC bf16
+                fine-tune step (B=32, AdamW), the counts set to 0 before
+                it: 26 + 26 + 26 flash launches on the tensor cores (14 at
+                head width 192, 12 at 64 in the CLIP tower), 1 + 1 of row
+                7, 13 expert-layer forwards and 78 grouped products, and
+                the rows routed to the held experts; then 7 more steps: the
+                loss falls, step ms, peak GB and a device profile;
 10. pretrain  — the full-width triple pre-train step (B=64, L=96) through
                 the flash kernels: fp32 against the plain attention (loss
                 within 1e-5 relative, every gradient leaf within its bound),
@@ -1992,7 +2005,7 @@ def flash_bound_times(kernel, b, lq, lk, dtype_bytes, heads=HEADS, head_dim=HEAD
 
 
 def flash_dw_scales(fa, q, k, v, mask, go, lse, delta, bnd, w, geo, rate, seed,
-                    block_q=None, block_k=None, heads=HEADS, head_dim=HEAD_DIM):
+                    block_q=None, block_k=None, heads=HEADS, head_dim=HEAD_DIM, causal=False):
     """sum |dS · S_raw| over each analogy region, walking the logical tiles
     (by default JAX's (256, 512)) as the plain backward does: the scale of
     the dw0/dw1 sums."""
@@ -2000,7 +2013,7 @@ def flash_dw_scales(fa, q, k, v, mask, go, lse, delta, bnd, w, geo, rate, seed,
 
     assert q.shape[2] == heads * head_dim
     tiles = fa._Tiles(q.float(), k.float(), mask, heads, bnd, w, geo, rate, seed,
-                      block_q or fa.BLOCK_Q, block_k or fa.BLOCK_K)
+                      block_q or fa.BLOCK_Q, block_k or fa.BLOCK_K, None, causal)
     qh, kh, vh, gh = (fa._split_heads(x, heads, torch.float32) for x in (q, k, v, go))
     scales = [0.0, 0.0]
     for qb in range(tiles.n_qblk):
@@ -2019,20 +2032,21 @@ def flash_dw_scales(fa, q, k, v, mask, go, lse, delta, bnd, w, geo, rate, seed,
 
 
 def flash_errors(fa, what, key, q, k, v, go, mask, kw, rate, seed, head_dim=HEAD_DIM,
-                 heads=HEADS):
+                 heads=HEADS, causal=False):
     """One forward and one backward launch of the flash kernels against
     their plain versions (at JAX's logical tiles, dropout ``rate`` from
-    ``seed``, the dtype of q): out within 2e-5 fp32 / 2e-2 bf16, lse within
-    1e-5; dq, dk, dv, from the kernel forward's out and lse, within 2e-5 /
-    2^-7 of each result's largest |value|; dw within 1e-5 of its sum of
-    |terms|. Each wrapper must count its launch, on the route of the
-    dtype. ``{name_key: error}``; raises beyond a bar."""
+    ``seed``, the dtype of q, ``causal`` or not): out within 2e-5 fp32 /
+    2e-2 bf16, lse within 1e-5; dq, dk, dv, from the kernel forward's out
+    and lse, within 2e-5 / 2^-7 of each result's largest |value|; dw within
+    1e-5 of its sum of |terms|. Each wrapper must count its launch, on the
+    route of the dtype. ``{name_key: error}``; raises beyond a bar."""
     import torch
 
     dtype = q.dtype
     kw = dict(kw, compute_dtype=dtype, dropout_rate=rate, deterministic=rate == 0.0,
-              dropout_seed=seed)
-    args = (heads, *resolve_geometry(fa, q, kw, rate, seed), fa.BLOCK_Q, fa.BLOCK_K)
+              dropout_seed=seed, **({"causal": True} if causal else {}))
+    args = (heads, *resolve_geometry(fa, q, kw, rate, seed), fa.BLOCK_Q, fa.BLOCK_K,
+            *((None, True) if causal else ()))
     before, before_mma = flash_counts(), flash_mma_counts()
     out, lse = fa._launch_fwd(q, k, v, mask, *args)
     delta = fa._delta(go, out, heads)
@@ -2062,7 +2076,7 @@ def flash_errors(fa, what, key, q, k, v, go, mask, kw, rate, seed, head_dim=HEAD
             raise AssertionError(f"flash bwd {what} {t_name}: {err} > {bar} * {top}")
     if args[3] is not None:  # the geometry
         scales = flash_dw_scales(fa, q, k, v, mask, go, lse, delta, *args[1:6],
-                                 heads=heads, head_dim=head_dim)
+                                 heads=heads, head_dim=head_dim, causal=causal)
         for i in range(2):
             err = abs(got[3][i].item() - want[3][i].item())
             row[f"dw{i}_err_{key}"] = err
@@ -2346,6 +2360,156 @@ def fp32_masked_row_phase(device):
         c for c in FLASH_EDGE_CASES if c[5] is not None and c[6] == (256, 512)])
     return max([e for n, e in errs.items() if "max_abs_err" in n]
                + [e for n, e in flash.items() if n.startswith(("fwd_", "max_abs_err"))])
+
+
+# Kimi-VL's latent attention as KimiVLForMaskedLM sends it to rows 3-5 on
+# the main path of its benchmark cell (B=32): 16 heads, queries and keys of
+# 128 + 64 columns a head, values of 128, causal over 100 image and 128
+# text positions, the key mask and the analogy multiplier over the text
+# after the image prefix; 14 layers a step, and the CLIP tower's 12 calls
+# (two images of 50 tokens an example, 12 heads of 64, not causal).
+KIMI_MLA = dict(B=32, heads=16, L=228, d=192, d_v=128, images=100, text=128)
+KIMI_LAYERS, KIMI_VISION_CALLS = 14, 12
+KIMI_VOCAB, KIMI_WORD_ROWS = 32000, 20480  # port_bench/configs/kimi_vl_a3b.json
+
+
+def kimi_mla_inputs(device, seed, dtype):
+    """q, k (B, L, heads·d), v and a cotangent (B, L, heads·d_v), the (B, L)
+    key mask (the image keys, then the text padded to 48-128) and the
+    analogy geometry's keywords, as KimiVLForMaskedLM builds them."""
+    import torch
+
+    c = KIMI_MLA
+    b, n, prefix = c["B"], c["L"], c["images"]
+    g = torch.Generator().manual_seed(seed)
+    gd = torch.Generator(device=device).manual_seed(seed)
+    q, k = (seeded_randn((b, n, c["heads"] * c["d"]), seed, device, dtype, gd) for _ in range(2))
+    v, go = (seeded_randn((b, n, c["heads"] * c["d_v"]), seed, device, dtype, gd)
+             for _ in range(2))
+    lens = torch.randint(48, c["text"] + 1, (b,), generator=g)
+    mask = torch.cat([torch.ones(b, prefix),
+                      (torch.arange(c["text"])[None] < lens[:, None]).float()], dim=1)
+    kw = dict(boundary=(lens // 2).to(device, torch.int32),
+              w0=torch.tensor([0.3], device=device), w1=torch.tensor([0.7], device=device),
+              row_start=prefix, text_len=n, offset=prefix)
+    return q, k, v, go, mask.to(device), kw
+
+
+def kimi_vl_phase(device):
+    """Rows 3-5's causal instances with values narrower than the head (the
+    ``-DMKG_ATTN_DP`` code of the 192-wide library), at latent attention's
+    call in the Kimi-VL cell (KIMI_MLA), then a full-width KimiVLKGC bf16
+    fine-tune step. (1) The forward, dK/dV and dQ wrappers against the plain
+    versions (flash_attention_reference, flash_attention_bwd_reference,
+    causal), dropout 0 (the model has none) and 0.1, at the flash bars
+    (flash_errors): out 2e-2, lse 1e-5, dq / dk / dv 2^-7 of each result's
+    largest |value|, dw0 / dw1 1e-5 of their sums of |terms|. (2) Each
+    kernel's time at dropout 0, the plain forward's and backward's, and the
+    causal bounds (port_bench/bounds_mla.py). (3) KimiVLKGC at its defaults
+    (14 layers, 8 of 64 experts, 32,000 rows), B=32, L=128, two 224-px
+    images, AdamW: the counts set to 0 before its first step and read after
+    it: 26 forward, 26 dK/dV and 26 dQ launches on the tensor cores, 14 each
+    at head width 192 and 12 at 64 (the CLIP tower), 1 + 1 of row 7 (the
+    projector), none of rows 1-2; 13 expert-layer forwards and 78 grouped
+    products (2 + 4 a layer); the rows routed to the held experts beside the
+    32 x 228 x 0.75 a layer the traffic leads one to expect. Then 7 more
+    steps on the same batch (the first step's learning rate is 0): every
+    loss finite and the last below the first; step ms, peak GB (with what
+    earlier phases still hold, ``held_before_gb``) and a device profile of
+    one step."""
+    import torch
+
+    from mkg_analogy_tpu_torch.kernels import flash_attention as fa
+    from mkg_analogy_tpu_torch.models import kimi_vl
+    from mkg_analogy_tpu_torch.models.registry import create_model
+    from mkg_analogy_tpu_torch.train.optim import make_optimizer
+    from mkg_analogy_tpu_torch.train.trainer import MarTTrainer, TrainConfig
+    from port_bench import bounds_mla
+
+    c = KIMI_MLA
+    b, heads, n, d, dv = c["B"], c["heads"], c["L"], c["d"], c["d_v"]
+    row = dict(shape="kimi_vl_mla", B=b, heads=heads, Lq=n, Lk=n, head_dim=d, head_dim_v=dv,
+               causal=True, geometry=(c["images"], n, c["images"]),
+               launches_per_step=KIMI_LAYERS)
+    for rate in (0.0, 0.1):
+        key = f"bf16{'_dropout' if rate else ''}"
+        q, k, v, go, mask, kw = kimi_mla_inputs(device, 228, torch.bfloat16)
+        row.update(flash_errors(fa, f"kimi_vl_mla {key}", key, q, k, v, go, mask, kw, rate,
+                                4321, head_dim=d, heads=heads, causal=True))
+    kw = dict(kw, compute_dtype=torch.bfloat16, dropout_rate=0.0, deterministic=True,
+              dropout_seed=99, causal=True)
+    args = (heads, *resolve_geometry(fa, q, kw, 0.0, 99), fa.BLOCK_Q, fa.BLOCK_K, None, True)
+    out, lse = fa._launch_fwd(q, k, v, mask, *args)
+    delta = fa._delta(go, out, heads)
+    row["fwd_ms"] = time_ms(lambda: fa._launch_fwd(q, k, v, mask, *args))
+    row["dkv_ms"] = time_ms(lambda: fa._launch_bwd_dkv(q, k, v, mask, go, lse, delta, *args))
+    row["dq_ms"] = time_ms(lambda: fa._launch_bwd_dq(q, k, v, mask, go, lse, delta, *args))
+    row["plain_fwd_ms"] = time_ms(
+        lambda: fa.flash_attention_reference(q, k, v, mask, heads, **kw), samples=3,
+        per_sample=3)
+    row["plain_bwd_ms"] = time_ms(lambda: fa.flash_attention_bwd_reference(
+        q, k, v, mask, go, heads, out=out, lse=lse, **kw), samples=3, per_sample=3)
+    for kernel in ("fwd", "dkv", "dq"):
+        t_bytes, t_ops = (1e3 * t for t in bounds_mla.flash_bound_s(
+            kernel, b, heads, n, n, d, dv, True, "bfloat16"))
+        row[f"{kernel}_bytes_ms"], row[f"{kernel}_operations_ms"] = t_bytes, t_ops
+        row[f"{kernel}_bound_ms"] = max(t_bytes, t_ops)
+        row[f"{kernel}_bound_by"] = bound_by(t_bytes, t_ops)
+    del q, k, v, go, out, lse, delta
+    torch.cuda.empty_cache()
+
+    batch = train_batch(device, b=b, seed=8)
+    batch["input_ids"] = batch["input_ids"] % KIMI_WORD_ROWS
+    held_before = torch.cuda.memory_allocated() / 1e9  # what earlier phases still hold
+    with torch.device(device):
+        model = create_model("KimiVLKGC", vocab_size=KIMI_VOCAB, dtype="bfloat16")
+    model.init_params(torch.Generator(device=device).manual_seed(0))
+    trainer = MarTTrainer(model, _AnalogyVocab(), TrainConfig(alpha=0.45, seed=3),
+                          device=device)
+    opt = make_optimizer(model, 1e-4, 100, warmup_ratio=0.0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    fa.WIDTH_LAUNCHES_FLASH.clear()
+    kimi_vl.TOKENS_ROUTED_HELD = kimi_vl.MOE_CALLS = kimi_vl.GROUPED_PRODUCTS = 0
+    losses, times = [], []
+    t0 = time.perf_counter()
+    losses.append(trainer._train_step(opt, batch, 0)["loss"].item())
+    times.append((time.perf_counter() - t0) * 1e3)
+    counts = all_counts()
+    widths = {f"{kernel}{route}_d{w}": fa.WIDTH_LAUNCHES_FLASH[suffix, w]
+              for w in (d, 64) for kernel, route, suffix in (
+                  ("fwd", "", ""), ("dkv", "", "_DKV"), ("dq", "", "_DQ"),
+                  ("fwd", "_mma", "_FWD_MMA"), ("dkv", "_mma", "_DKV_MMA"),
+                  ("dq", "_mma", "_DQ_MMA"))}
+    moe = dict(moe_calls=kimi_vl.MOE_CALLS, grouped_products=kimi_vl.GROUPED_PRODUCTS)
+    want = family_counts("flash", KIMI_LAYERS + KIMI_VISION_CALLS, gelu=1)
+    want_widths = {name: KIMI_LAYERS if name.endswith(f"_d{d}") else KIMI_VISION_CALLS
+                   for name in widths}
+    want_moe = dict(moe_calls=KIMI_LAYERS - 1, grouped_products=6 * (KIMI_LAYERS - 1))
+    if counts != want or widths != want_widths or moe != want_moe:
+        raise AssertionError(f"kimi_vl step: launches {counts}, widths {widths}, {moe}; want "
+                             f"{want}, {want_widths}, {want_moe}")
+    routed = kimi_vl.TOKENS_ROUTED_HELD / kimi_vl.MOE_CALLS
+    for step in range(1, 8):
+        t0 = time.perf_counter()
+        losses.append(trainer._train_step(opt, batch, step)["loss"].item())
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    if not (all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]):
+        raise AssertionError(f"kimi_vl steps: losses {losses}")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    profile = device_profile(lambda: trainer._train_step(opt, batch, 8))
+    step = dict(B=b, L=128, launches=counts, width_launches=widths, **moe,
+                routed_rows_per_layer=routed,
+                expected_rows_per_layer=b * (c["images"] + c["text"]) * 6 * 8 / 64,
+                losses=losses, step_ms=times, median_step_ms=statistics.median(times[2:]),
+                peak_gb=peak, held_before_gb=held_before, device_ms=profile["device_ms"],
+                attention_ms=profile["attention_ms"], device_profile_top=profile["top"])
+    del model, trainer, opt, batch
+    torch.cuda.empty_cache()
+    emit(dict(phase="kimi_vl", mla=row, step=step))
+    return row, dict(counts, **widths)
 
 
 # The single-block attention shapes of the region families (the recipes of
@@ -5655,6 +5819,7 @@ def main() -> int:
     flash_rows = flash_kernel_phase(device)
     flash_edges = flash_edge_phase(device)
     fp32_masked_row_err = fp32_masked_row_phase(device)
+    kimi_row, kimi_launches = kimi_vl_phase(device)
     pretrain_phase(device)
     long_phase(device)
     flash_launches = cli_pretrain_phase()
@@ -5758,6 +5923,32 @@ def main() -> int:
             shapes=[{k: v for k, v in r.items()
                      if k.startswith((kernel, "shape", "B", "L", "tiles", "keys", "geometry",
                                       plain, library))} for r in flash_d128_rows])
+
+    def kimi_entry(kernel):
+        """A flash kernel's causal instance with values 128 wide under heads
+        of 192 (the ``-DMKG_ATTN_DP`` code of the 192-wide library): times
+        and bounds of the 14 calls of one Kimi-VL step at its latent
+        attention (B=32, 16 heads, 228 x 228; plain_ms the plain forward or
+        the plain backward, which computes dq, dk and dv in one walk);
+        launches those of the full-width KimiVLKGC step at head width 192
+        (its CLIP tower's at 64 beside them); errors the largest at that
+        shape."""
+        name, source, _, line = FLASH_KERNELS[kernel]
+        n = kimi_row["launches_per_step"]
+        keys = ["fwd_max_abs_err"] if kernel == "fwd" else [
+            f"max_abs_err_{t}" for t in (("dq",) if kernel == "dq" else ("dk", "dv"))]
+        plain = "plain_fwd_ms" if kernel == "fwd" else "plain_bwd_ms"
+        return dict(
+            name=f"{name}_causal_d192_v128", route="cuda",
+            source=f"mkg_analogy_tpu_torch/csrc/{source}",
+            replaces=f"mkg_analogy_tpu/kernels/flash_attention.py:{line}", head_dim=192,
+            head_dim_v=128, causal=True, ok=True, launches=kimi_launches[f"{kernel}_mma_d192"],
+            launches_clip_d64=kimi_launches[f"{kernel}_mma_d64"],
+            max_abs_err=max(kimi_row[f"{k}_{d}"] for k in keys for d in ("bf16", "bf16_dropout")),
+            ms=kimi_row[f"{kernel}_ms"] * n, plain_ms=kimi_row[plain] * n,
+            bound_ms=kimi_row[f"{kernel}_bound_ms"] * n, bound_by=kimi_row[f"{kernel}_bound_by"],
+            library_ms=None,  # no single PyTorch call applies the analogy multiplier
+            shapes=[kimi_row])
 
     def per_call_set(rows, key, n):
         return sum(r[key] * r[n] for r in rows)
@@ -5878,7 +6069,8 @@ def main() -> int:
         # the shape at which one F.interpolate call computes the same
         **{k: resize_rows[0][k] for k in ("plain_ms", "bound_ms", "bound_by", "library_ms")},
         ms=resize_rows[0]["kernel_ms"], shapes=resize_rows,
-    ), gelu_entry("fwd"), gelu_entry("bwd")] + width_entries(width_rows, width_launches, wide)})
+    ), gelu_entry("fwd"), gelu_entry("bwd")] + width_entries(width_rows, width_launches, wide)
+        + [kimi_entry(kernel) for kernel in ("fwd", "dkv", "dq")]})
     print(card)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

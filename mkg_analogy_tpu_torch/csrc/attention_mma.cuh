@@ -519,11 +519,16 @@ __device__ __forceinline__ void stage_bias(float* bias_chunk, const float* mask_
 // s = acc * c + bias on a 16 x 64 fragment, in place (by ScoreRule<D> with
 // `pre` at D = 128); c is c_row[r] at the lane's answer columns (abits) and
 // c_plain elsewhere. Folds the max of each of the lane's two rows over its
-// columns into cmax.
+// columns into cmax. A causal call (row_g >= 0, a library of one padded
+// width only) gives a key after the row (col > row) the score -inf before
+// any max sees it, as the padding beyond Lk has: its probability is
+// exactly 0. row_g is the lane's first row (its second row_g + 8), col0 the
+// chunk's first key plus 2t.
 template <int D = kHeadDim>
 __device__ __forceinline__ void scores(float (&s)[8][4], uint32_t abits, float c_plain,
                                        const float (&c_row)[2], const float* bias_chunk,
-                                       float (&cmax)[2], float pre = 1.0f) {
+                                       float (&cmax)[2], float pre = 1.0f, int row_g = -1,
+                                       int col0 = 0) {
   const int t = threadIdx.x & 3;
 #pragma unroll
   for (int nt = 0; nt < 8; ++nt) {
@@ -533,6 +538,9 @@ __device__ __forceinline__ void scores(float (&s)[8][4], uint32_t abits, float c
       const int r = e >> 1, j = e & 1;
       const float c = (abits >> (2 * nt + j)) & 1u ? c_row[r] : c_plain;
       s[nt][e] = score_of<D>(s[nt][e], pre, c, j ? bias.y : bias.x);
+      if constexpr (kRagged) {
+        if (row_g >= 0 && col0 + nt * 8 + j > row_g + 8 * r) s[nt][e] = -INFINITY;
+      }
       cmax[r] = fmaxf(cmax[r], s[nt][e]);
     }
   }

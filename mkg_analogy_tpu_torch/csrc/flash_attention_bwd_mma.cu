@@ -88,6 +88,15 @@
 // has bias -inf (p exactly 0, as JAX's HARD_MASK gives), a query row beyond
 // Lq is given lse = +inf and delta = 0 (p and dS exactly 0); they enter no
 // sum, dw or product, and are not stored.
+//
+// Causal calls and a value width d_v <= d of its own, as the forward takes
+// them (flash_attention_fwd_mma.cu), in a library of one padded width only,
+// so the instances of 64 and 128 are compiled as before: a key after its
+// row has p = 0 (so P_drop, dS and its dw terms are 0); the dK/dV block of
+// keys key0.. starts its sweep at the query chunk of key0, the dQ block of
+// rows row0.. ends its sweep at the key chunk of its last row. V, g, dv and
+// the products dP = g V^T take d_v columns (the rest of the staged tile is
+// zero); dk, dq and the scores keep d.
 
 #include "attention_mma.cuh"
 
@@ -127,9 +136,30 @@ struct Args {
   uint32_t cell_stride;  // dropout cell of (b, h): b * cell_stride + h
   int bq, bk, n_qblk, n_kblk;
 #ifdef MKG_ATTN_DP
-  int d;  // the call's head width (the tile's is MKG_ATTN_DP)
+  int d;       // the call's head width (the tile's is MKG_ATTN_DP)
+  int d_v;     // its value width, <= d
+  int causal;  // a key after its row takes no part (Lq = Lk)
 #endif
 };
+
+// The call's value width and whether it is causal: D and no in a library of
+// 64 and 128, where the kernels write the value width and its row stride as
+// the head width's own (as the forward does, flash_attention_fwd_mma.cu).
+template <int D>
+__device__ __forceinline__ int value_width(const Args& a) {
+#ifdef MKG_ATTN_DP
+  return a.d_v;
+#else
+  return D;
+#endif
+}
+__device__ __forceinline__ bool is_causal(const Args& a) {
+#ifdef MKG_ATTN_DP
+  return a.causal;
+#else
+  return false;
+#endif
+}
 
 // The key's part of the dropout hash: its column in its logical K tile and
 // (seed + cell * n_qblk * n_kblk + kb) * 0x9E3779B9.
@@ -175,11 +205,12 @@ __global__ void __launch_bounds__(kThreads, 2) dkv_kernel(const Args a) {
 
   const Block<D> blk;
   const int h = blk.h, b = blk.b;
-  const int d = head_width<D>(a);
-  const int hd = a.num_heads * d;
+  const int d = head_width<D>(a), dv = kRagged ? value_width<D>(a) : d;
+  const int hd = a.num_heads * d, hdv = kRagged ? a.num_heads * dv : hd;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;
   const int key0 = blk.tile * kTile;
+  const bool causal = is_causal(a);
   const uint32_t cell = uint32_t(b * a.num_heads + h);
   const uint32_t seed_cell = uint32_t(b) * a.cell_stride + uint32_t(h);
   const Geometry geo =
@@ -187,15 +218,18 @@ __global__ void __launch_bounds__(kThreads, 2) dkv_kernel(const Args a) {
   const ScoreRule<D> rule(a.scale, a.has_geometry);
 
   const bf16* qb = a.q + size_t(b) * a.lq * hd + h * d;
-  const bf16* gb = a.go + size_t(b) * a.lq * hd + h * d;
+  const bf16* gb = a.go + size_t(b) * a.lq * hdv + h * dv;
   const float* lse_bh = a.lse + size_t(cell) * a.lq;
   const float* delta_bh = a.delta + size_t(cell) * a.lq;
   const int n_chunks = (a.lq + kTile - 1) / kTile;
+  // the first query chunk: causal, no row before key0 sees these keys
+  int it0 = 0;
+  if (causal) it0 = blk.tile;
 
   auto load_chunk = [&](int it) {
     const int buf = it & 1, r0 = it * kTile;
     stage_tile<D>(q_s + buf * tile_elems<D>(), qb + size_t(r0) * hd, a.lq - r0, hd, d);
-    stage_tile<D>(g_s + buf * tile_elems<D>(), gb + size_t(r0) * hd, a.lq - r0, hd, d);
+    stage_tile<D>(g_s + buf * tile_elems<D>(), gb + size_t(r0) * hdv, a.lq - r0, hdv, dv);
     cp_async_commit();
   };
   // Thread i < 64 writes the record of row i of each chunk; its lse and
@@ -217,13 +251,14 @@ __global__ void __launch_bounds__(kThreads, 2) dkv_kernel(const Args a) {
   };
 
   const size_t tile_off = (size_t(b) * a.lk + key0) * hd + h * d;
+  const size_t tile_off_v = kRagged ? (size_t(b) * a.lk + key0) * hdv + h * dv : tile_off;
   stage_tile<D>(k_s, a.k + tile_off, a.lk - key0, hd, d);
-  stage_tile<D>(v_s, a.v + tile_off, a.lk - key0, hd, d);
-  load_chunk(0);  // one group with the K and V tiles
+  stage_tile<D>(v_s, a.v + tile_off_v, a.lk - key0, hdv, dv);
+  load_chunk(it0);  // one group with the K and V tiles
   if (threadIdx.x < kTile) {
-    fetch(0);
-    put_record(0);
-    if (n_chunks > 1) fetch(1);
+    fetch(it0);
+    put_record(it0);
+    if (it0 + 1 < n_chunks) fetch(it0 + 1);
   }
 
   // this lane's keys, key_g and key_g + 8
@@ -247,7 +282,7 @@ __global__ void __launch_bounds__(kThreads, 2) dkv_kernel(const Args a) {
   const bf16* k_rows = k_s + warp * 16 * stride_of<D>();
   const bf16* v_rows = v_s + warp * 16 * stride_of<D>();
 
-  for (int it = 0; it < n_chunks; ++it) {
+  for (int it = it0; it < n_chunks; ++it) {
     if (it + 1 < n_chunks) {
       load_chunk(it + 1);
       if (threadIdx.x < kTile) {
@@ -259,7 +294,7 @@ __global__ void __launch_bounds__(kThreads, 2) dkv_kernel(const Args a) {
       cp_async_wait<0>();
     }
     __syncthreads();
-    if (kHold && it == 0) {
+    if (kHold && it == it0) {
       load_a_held<D>(ka, k_rows);
       load_a_held<D>(va, v_rows);
     }
@@ -290,7 +325,8 @@ __global__ void __launch_bounds__(kThreads, 2) dkv_kernel(const Args a) {
           if (key_answer[r]) rg = rgeo[il];
           const float acc = st[nt][e];
           const float c = key_answer[r] ? rule.c_answer(rg.x) : rule.c_plain;
-          const float p = exp_minus_max(rule.score(acc, c, bias[r]), row.x);
+          float p = exp_minus_max(rule.score(acc, c, bias[r]), row.x);
+          if (causal && key_g + 8 * r > it * kTile + rh * 32 + il) p = 0.0f;
           float p_drop = p, dp = dpt[nt][e];
           if (a.dropout) {
             const bool keep = dropout_keep(__float_as_uint(row.z) + col[r],
@@ -322,8 +358,10 @@ __global__ void __launch_bounds__(kThreads, 2) dkv_kernel(const Args a) {
   const size_t out_off = tile_off + size_t(warp) * 16 * hd + blk.group * W;
   store_rows<D>(a.dk + out_off, hd, keys_valid, k_s + warp * 16 * stride_of<D>(), dk_acc,
                 cols_valid);
-  store_rows<D>(a.dv + out_off, hd, keys_valid, v_s + warp * 16 * stride_of<D>(), dv_acc,
-                cols_valid);
+  if (!kRagged || dv > blk.group * W) {  // from 128 up, a group may own none of dv's columns
+    store_rows<D>(a.dv + (kRagged ? tile_off_v + size_t(warp) * 16 * hdv + blk.group * W : out_off),
+                  hdv, keys_valid, v_s + warp * 16 * stride_of<D>(), dv_acc, dv - blk.group * W);
+  }
   if (blk.group != 0) return;  // the first group's block writes the keys' dw partial
   dw0 = warp_sum(dw0);
   dw1 = warp_sum(dw1);
@@ -359,11 +397,12 @@ __global__ void __launch_bounds__(kThreads, 2) dq_kernel(const Args a) {
 
   const Block<D> blk;
   const int h = blk.h, b = blk.b;
-  const int d = head_width<D>(a);
-  const int hd = a.num_heads * d;
+  const int d = head_width<D>(a), dv = kRagged ? value_width<D>(a) : d;
+  const int hd = a.num_heads * d, hdv = kRagged ? a.num_heads * dv : hd;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int t = lane & 3;
   const int row0 = blk.tile * kTile;
+  const bool causal = is_causal(a);
   const uint32_t cell = uint32_t(b * a.num_heads + h);
   const uint32_t seed_cell = uint32_t(b) * a.cell_stride + uint32_t(h);
   const Geometry geo =
@@ -371,14 +410,15 @@ __global__ void __launch_bounds__(kThreads, 2) dq_kernel(const Args a) {
   const ScoreRule<D> rule(a.scale, a.has_geometry);
 
   const bf16* kb = a.k + size_t(b) * a.lk * hd + h * d;
-  const bf16* vb = a.v + size_t(b) * a.lk * hd + h * d;
+  const bf16* vb = a.v + size_t(b) * a.lk * hdv + h * dv;
   const float* mask_b = a.mask + size_t(b) * a.lk;
-  const int n_chunks = (a.lk + kTile - 1) / kTile;
+  int n_chunks = (a.lk + kTile - 1) / kTile;
+  if (causal) n_chunks = min(n_chunks, blk.tile + 1);  // none past the diagonal's
 
   auto load_chunk = [&](int it) {
     const int buf = it & 1, key0 = it * kTile;
     stage_tile<D>(k_s + buf * tile_elems<D>(), kb + size_t(key0) * hd, a.lk - key0, hd, d);
-    stage_tile<D>(v_s + buf * tile_elems<D>(), vb + size_t(key0) * hd, a.lk - key0, hd, d);
+    stage_tile<D>(v_s + buf * tile_elems<D>(), vb + size_t(key0) * hdv, a.lk - key0, hdv, dv);
     cp_async_commit();
   };
   // Thread j < 64 writes the record of key j of each chunk; its mask value
@@ -400,7 +440,8 @@ __global__ void __launch_bounds__(kThreads, 2) dq_kernel(const Args a) {
 
   const size_t tile_off = (size_t(b) * a.lq + row0) * hd + h * d;
   stage_tile<D>(q_s, a.q + tile_off, a.lq - row0, hd, d);
-  stage_tile<D>(g_s, a.go + tile_off, a.lq - row0, hd, d);
+  stage_tile<D>(g_s, a.go + (kRagged ? (size_t(b) * a.lq + row0) * hdv + h * dv : tile_off),
+                a.lq - row0, hdv, dv);
   load_chunk(0);  // one group with the Q and g tiles
   if (threadIdx.x < kTile) {
     fetch(0);
@@ -463,8 +504,9 @@ __global__ void __launch_bounds__(kThreads, 2) dq_kernel(const Args a) {
         const int r = e >> 1, j = nt * 8 + 2 * t + (e & 1);
         const float4 kr = keys[j];  // bias, dropout column, key mix, answer column
         const bool answer = kr.w != 0.0f;
-        const float p =
+        float p =
             exp_minus_max(rule.score(s[nt][e], answer ? c_row[r] : rule.c_plain, kr.x), lse[r]);
+        if (causal && it * kTile + j > row_g + 8 * r) p = 0.0f;
         float dpv = dp[nt][e];
         if (a.dropout) {
           const bool keep = dropout_keep(row_base[r] + __float_as_uint(kr.y),
@@ -501,7 +543,7 @@ Args make_args(const void* q, const void* k, const void* v, const void* g, const
                int lq, int lk, int num_heads, float scale, int has_geometry, int row_start,
                int text_len, int offset, int dropout, uint32_t threshold, float inv_keep,
                uint32_t seed, uint32_t cell_stride, int bq, int bk,
-               int n_qblk, int n_kblk, int head_dim) {
+               int n_qblk, int n_kblk, int head_dim, int head_dim_v, int causal) {
   Args a{};
   a.q = static_cast<const bf16*>(q);
   a.k = static_cast<const bf16*>(k);
@@ -531,8 +573,18 @@ Args make_args(const void* q, const void* k, const void* v, const void* g, const
   a.n_kblk = n_kblk;
 #ifdef MKG_ATTN_DP
   a.d = head_dim;
+  a.d_v = head_dim_v;
+  a.causal = causal;
 #endif
   return a;
+}
+
+// Whether this library takes the call's value width and mask: a causal call
+// needs Lq = Lk, and either, or a value width other than head_dim, a
+// library of one padded width.
+bool takes(int lq, int lk, int head_dim, int head_dim_v, int causal) {
+  return head_dim_v >= 1 && head_dim_v <= head_dim && !(causal && lq != lk) &&
+         (kRagged || (!causal && head_dim_v == head_dim));
 }
 
 }  // namespace
@@ -555,9 +607,10 @@ size_t mkg_flash_attention_bwd_mma_smem(int head_dim) {
 
 // dK/dV and the dw partials: launches on `stream` without synchronising and
 // returns cudaGetLastError() (cudaErrorInvalidValue for anything but bf16,
-// where fp32 takes the CUDA-core kernels, or for a head_dim this library
-// does not take). q, k, v, g, dk and dv are bf16, packed (B, L, heads *
-// head_dim); lse
+// where fp32 takes the CUDA-core kernels, for a head_dim this library
+// does not take, or for a causal call or value width it does not take:
+// `takes`). q, k and dk are bf16, packed (B, L, heads * head_dim), v, g and
+// dv (B, L, heads * head_dim_v); lse
 // and delta (B, heads, Lq) fp32; dw_part (B, heads, ceil(Lk / 64), 2) fp32
 // partials of (dw0, dw1).
 int mkg_flash_attention_bwd_dkv_mma(const void* q, const void* k, const void* v, const void* g,
@@ -568,11 +621,14 @@ int mkg_flash_attention_bwd_dkv_mma(const void* q, const void* k, const void* v,
                                     int row_start, int text_len, int offset, int dropout,
                                     unsigned int threshold, float inv_keep, unsigned int seed,
                                     unsigned int cell_stride,
-                                    int bq, int bk, int n_qblk, int n_kblk, void* stream) {
-  if (!is_bf16) return int(cudaErrorInvalidValue);
+                                    int bq, int bk, int n_qblk, int n_kblk, void* stream,
+                                    int causal, int head_dim_v) {
+  if (!is_bf16 || !takes(lq, lk, head_dim, head_dim_v, causal)) {
+    return int(cudaErrorInvalidValue);
+  }
   Args a = make_args(q, k, v, g, mask, boundary, w, lse, delta, lq, lk, num_heads, scale,
                      has_geometry, row_start, text_len, offset, dropout, threshold, inv_keep,
-                     seed, cell_stride, bq, bk, n_qblk, n_kblk, head_dim);
+                     seed, cell_stride, bq, bk, n_qblk, n_kblk, head_dim, head_dim_v, causal);
   a.dk = static_cast<bf16*>(dk);
   a.dv = static_cast<bf16*>(dv);
   a.dw_part = static_cast<float*>(dw_part);
@@ -592,11 +648,14 @@ int mkg_flash_attention_bwd_dq_mma(const void* q, const void* k, const void* v, 
                                    float scale, int has_geometry, int row_start, int text_len,
                                    int offset, int dropout, unsigned int threshold,
                                    float inv_keep, unsigned int seed, unsigned int cell_stride,
-                                   int bq, int bk, int n_qblk, int n_kblk, void* stream) {
-  if (!is_bf16) return int(cudaErrorInvalidValue);
+                                   int bq, int bk, int n_qblk, int n_kblk, void* stream,
+                                   int causal, int head_dim_v) {
+  if (!is_bf16 || !takes(lq, lk, head_dim, head_dim_v, causal)) {
+    return int(cudaErrorInvalidValue);
+  }
   Args a = make_args(q, k, v, g, mask, boundary, w, lse, delta, lq, lk, num_heads, scale,
                      has_geometry, row_start, text_len, offset, dropout, threshold, inv_keep,
-                     seed, cell_stride, bq, bk, n_qblk, n_kblk, head_dim);
+                     seed, cell_stride, bq, bk, n_qblk, n_kblk, head_dim, head_dim_v, causal);
   a.dq = static_cast<bf16*>(dq);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return attention_width::with_width(head_dim, int(cudaErrorInvalidValue), [&](auto width) {

@@ -103,6 +103,23 @@
 // zero-filled and has bias -inf, so it takes no part in max or sum and its
 // p is exactly 0 (JAX's -1e30 gives the same zero weight); a row beyond Lq
 // is zero-filled, and neither out nor lse is stored for it.
+//
+// Causal calls and a value width of its own (latent attention: queries and
+// keys of 192 columns, values of 128) are taken in a library of one padded
+// width only (attention_width.cuh; the wrapper sends such a call there
+// whatever its width), and only its instances see the code for them (`if
+// constexpr (kRagged)`, or the walk's own view of the call): the instances
+// of 64 and 128 compile as before, register for register (a value width
+// carried through their code, equal in value, moved ptxas's allocation and
+// slowed them by 1-2%, tools/time_attention.py --flash, PERF.md):
+//   - causal (flags bit 2; Lq = Lk): a key after its row scores -inf, as the
+//     padding does (attention_mma.cuh: scores), and a block walks no key past
+//     its last row: the resident kernel stops at the chunk of its diagonal,
+//     the streaming walk ends there, in whatever logical tile it lies;
+//   - d_v <= d (flags bits 17-25; bits 8-16 are d): V, the output and their
+//     rows are d_v wide; a block stages d_v - 64 group columns of V, the
+//     rest zero, and from 128 up a group that owns none of the d_v columns
+//     returns at once.
 
 #include "attention_mma.cuh"
 
@@ -138,8 +155,9 @@ struct Args {
   int lq, lk, num_heads;
   float scale;
   int row_start, text_len, offset;
-  int flags;  // bit 0: the analogy geometry applies; bit 1: dropout; bits 8-: the
-             // call's head width (a library of one padded width only)
+  int flags;  // bit 0: the analogy geometry applies; bit 1: dropout; bit 2: causal;
+             // bits 8-16 the call's head width, 17-25 its value width (bits 2
+             // and 8-25 in a library of one padded width only)
   uint32_t threshold;
   float inv_keep;
   uint32_t seed;
@@ -265,8 +283,8 @@ __device__ __forceinline__ void finish(const Args& a, const Block<D>& blk, int r
                                        bf16* stage) {
   constexpr int W = cols_of<D>(), NT = W / 8;
   const int warp = threadIdx.x >> 5;
-  int d = D;  // the head width: a constant in a library of 64 and 128 (PERF.md)
-  if constexpr (kRagged) d = a.flags >> 8;
+  int d = D;  // the output's head width: a constant in a library of 64 and 128 (PERF.md)
+  if constexpr (kRagged) d = (a.flags >> 17) & 511;
   const int hd = a.num_heads * d;
   const int h = blk.h, b = blk.b;
 #pragma unroll
@@ -303,14 +321,23 @@ __global__ void __launch_bounds__(kThreads) fwd_resident_kernel(const Args a) {
   const Block<D> blk;
   const int h = blk.h, b = blk.b;
   int d = D;  // the head width: a constant in a library of 64 and 128 (PERF.md)
-  if constexpr (kRagged) d = a.flags >> 8;
-  const int v_cols = d - blk.group * W;
+  if constexpr (kRagged) d = (a.flags >> 8) & 511;
+  int v_cols = d - blk.group * W;
   const int hd = a.num_heads * d;
+  int v_ld = hd;  // V's row stride
   const int warp = threadIdx.x >> 5, t = threadIdx.x & 3;
   const int row0 = blk.tile * kTile;
-  const int n_chunks = (a.lk + kTile - 1) / kTile;  // <= NC
+  int n_chunks = (a.lk + kTile - 1) / kTile;  // <= NC
   const bf16* k_bh = a.k + size_t(b) * a.lk * hd + h * d;
   const bf16* v_bh = a.v + size_t(b) * a.lk * hd + h * d + blk.group * W;
+  if constexpr (kRagged) {
+    const int dv = (a.flags >> 17) & 511;
+    if (blk.group * W >= dv) return;  // from 128 up, a group of none of the value columns
+    v_cols = dv - blk.group * W;
+    v_ld = a.num_heads * dv;
+    v_bh = a.v + size_t(b) * a.lk * v_ld + h * dv + blk.group * W;
+    if (a.flags & 4) n_chunks = min(n_chunks, blk.tile + 1);  // causal: none past the diagonal's
+  }
 
   // every load of the block, one commit group a chunk: Q with K's first
   stage_tile<D>(q_s, a.q + (size_t(b) * a.lq + row0) * hd + h * d, a.lq - row0, hd, d);
@@ -325,8 +352,8 @@ __global__ void __launch_bounds__(kThreads) fwd_resident_kernel(const Args a) {
 #pragma unroll
   for (int c = 0; c < NC; ++c) {
     if (c < n_chunks) {
-      stage_tile<W>(v_s + c * tile_elems<W>(), v_bh + size_t(c) * kTile * hd,
-                    a.lk - c * kTile, hd, v_cols);
+      stage_tile<W>(v_s + c * tile_elems<W>(), v_bh + size_t(c) * kTile * v_ld,
+                    a.lk - c * kTile, v_ld, v_cols);
     }
     cp_async_commit();
   }
@@ -348,8 +375,14 @@ __global__ void __launch_bounds__(kThreads) fwd_resident_kernel(const Args a) {
       if (c < n_chunks) {
         zero(s[c]);
         product_nt<D>(s[c], qa, k_s + c * tile_elems<D>());
-        scores<D>(s[c], ln.geo.answer_bits(c * kTile + 2 * t), ln.rule.c_plain, ln.c_row,
-                  bias_s + c * kTile, cmax, ln.rule.pre);
+        if constexpr (kRagged) {
+          scores<D>(s[c], ln.geo.answer_bits(c * kTile + 2 * t), ln.rule.c_plain, ln.c_row,
+                    bias_s + c * kTile, cmax, ln.rule.pre, (a.flags & 4) ? ln.row_g : -1,
+                    c * kTile + 2 * t);
+        } else {
+          scores<D>(s[c], ln.geo.answer_bits(c * kTile + 2 * t), ln.rule.c_plain, ln.c_row,
+                    bias_s + c * kTile, cmax, ln.rule.pre);
+        }
       }
     }
   }
@@ -427,30 +460,45 @@ __global__ void __launch_bounds__(kThreads) fwd_streaming_kernel(const Args a) {
   const Block<D> blk;
   const int h = blk.h, b = blk.b;
   int d = D;  // the head width: a constant in a library of 64 and 128 (PERF.md)
-  if constexpr (kRagged) d = a.flags >> 8;
-  const int v_cols = d - blk.group * W;
+  if constexpr (kRagged) d = (a.flags >> 8) & 511;
+  int v_cols = d - blk.group * W;
   const int hd = a.num_heads * d;
+  int v_ld = hd;  // V's row stride
   const int warp = threadIdx.x >> 5, t = threadIdx.x & 3;
   const int row0 = blk.tile * kTile;
   const bf16* k_bh = a.k + size_t(b) * a.lk * hd + h * d;
   const bf16* v_bh = a.v + size_t(b) * a.lk * hd + h * d + blk.group * W;
   const float* mask_b = a.mask + size_t(b) * a.lk;
+#ifdef MKG_ATTN_DP
+  const int dv = (a.flags >> 17) & 511;
+  if (blk.group * W >= dv) return;  // from 128 up, a group of none of the value columns
+  v_cols = dv - blk.group * W;
+  v_ld = a.num_heads * dv;
+  v_bh = a.v + size_t(b) * a.lk * v_ld + h * dv + blk.group * W;
+  Args wa = a;  // the walk's view of the call: causal, its keys end after the block's rows
+  if (a.flags & 4) {
+    wa.lk = min(a.lk, row0 + kTile);
+    wa.n_kblk = (wa.lk + a.bk - 1) / a.bk;
+  }
+#else
+  const Args& wa = a;
+#endif
 
   // One commit group a chunk: K (and in the second sweep V) and its bias;
   // an empty group past the walk's end keeps the count of groups in flight.
-  Walk ahead(a), wk(a);
+  Walk ahead(wa), wk(wa);
   int ahead_buf = 0;
   auto load_next = [&]() {
-    if (!ahead.done(a)) {
+    if (!ahead.done(wa)) {
       const int c0 = ahead.chunk_key0();
       stage_tile<D>(k_s + ahead_buf * tile_elems<D>(), k_bh + size_t(c0) * hd,
                     ahead.tile_end - c0, hd, d);
       if (ahead.sweep) {
-        stage_tile<W>(v_s + ahead_buf * tile_elems<W>(), v_bh + size_t(c0) * hd,
-                      ahead.tile_end - c0, hd, v_cols);
+        stage_tile<W>(v_s + ahead_buf * tile_elems<W>(), v_bh + size_t(c0) * v_ld,
+                      ahead.tile_end - c0, v_ld, v_cols);
       }
       stage_bias(bias_s + ahead_buf * kTile, mask_b, c0, ahead.tile_end);
-      ahead.next(a);
+      ahead.next(wa);
       ahead_buf ^= 1;
     }
     cp_async_commit();
@@ -468,7 +516,7 @@ __global__ void __launch_bounds__(kThreads) fwd_streaming_kernel(const Args a) {
   float o[NT][4];
   zero(o);
 
-  for (int buf = 0, first = 1; !wk.done(a); wk.next(a), first = 0) {
+  for (int buf = 0, first = 1; !wk.done(wa); wk.next(wa), first = 0) {
     load_next();  // into the buffer the previous item was read from
     cp_async_wait<1>();
     __syncthreads();
@@ -477,8 +525,14 @@ __global__ void __launch_bounds__(kThreads) fwd_streaming_kernel(const Args a) {
     float s[8][4];
     zero(s);
     product_a<D>(s, qa, q_s + warp * 16 * stride_of<D>(), k_s + buf * tile_elems<D>());
-    scores<D>(s, ln.geo.answer_bits(wk.chunk_key0() + 2 * t), ln.rule.c_plain, ln.c_row,
-              bias_s + buf * kTile, cmax, ln.rule.pre);
+    if constexpr (kRagged) {
+      scores<D>(s, ln.geo.answer_bits(wk.chunk_key0() + 2 * t), ln.rule.c_plain, ln.c_row,
+                bias_s + buf * kTile, cmax, ln.rule.pre, (a.flags & 4) ? ln.row_g : -1,
+                wk.chunk_key0() + 2 * t);
+    } else {
+      scores<D>(s, ln.geo.answer_bits(wk.chunk_key0() + 2 * t), ln.rule.c_plain, ln.c_row,
+                bias_s + buf * kTile, cmax, ln.rule.pre);
+    }
     if (wk.sweep == 0) {
       if (wk.last_chunk()) {  // the tile max is known
         open_tile(cmax, m, m_new, alpha, o);
@@ -559,23 +613,30 @@ size_t mkg_flash_attention_fwd_mma_smem(int lk, int bk, int head_dim) {
 
 // Launches on `stream` without synchronising and returns cudaGetLastError()
 // (cudaErrorInvalidValue for anything but bf16, where fp32 takes the
-// CUDA-core kernel, or for a head_dim this library does not take). q, k, v and
-// out are bf16, packed (B, L, heads * head_dim); lse (B, heads, Lq) fp32;
-// inv_keep is 1 / (1 - rate).
+// CUDA-core kernel, for a head_dim this library does not take, or for a
+// causal call or a value width other than head_dim outside a library of one
+// padded width). q and k are bf16, packed (B, L, heads * head_dim), v and
+// out (B, L, heads * head_dim_v), head_dim_v <= head_dim; lse (B, heads,
+// Lq) fp32; inv_keep is 1 / (1 - rate); causal needs lq == lk.
 int mkg_flash_attention_fwd_mma(const void* q, const void* k, const void* v, const void* mask,
                                 const void* boundary, const void* w, void* out, void* lse,
                                 int batch, int lq, int lk, int num_heads, int head_dim,
                                 int is_bf16, float scale, int has_geometry, int row_start,
                                 int text_len, int offset, int dropout, unsigned int threshold,
                                 float inv_keep, unsigned int seed, unsigned int cell_stride, int bq,
-                                int bk, int n_qblk, int n_kblk, void* stream) {
-  if (!is_bf16) return int(cudaErrorInvalidValue);
+                                int bk, int n_qblk, int n_kblk, void* stream, int causal,
+                                int head_dim_v) {
+  if (!is_bf16 || head_dim_v < 1 || head_dim_v > head_dim || (causal && lq != lk) ||
+      (!kRagged && (causal || head_dim_v != head_dim))) {
+    return int(cudaErrorInvalidValue);
+  }
   const Args a{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
                static_cast<const bf16*>(v), static_cast<const float*>(mask),
                static_cast<const int*>(boundary), static_cast<const float*>(w),
                static_cast<bf16*>(out), static_cast<float*>(lse), lq, lk, num_heads, scale,
                row_start, text_len, offset,
-               (has_geometry ? 1 : 0) | (dropout ? 2 : 0) | (kRagged ? head_dim << 8 : 0),
+               (has_geometry ? 1 : 0) | (dropout ? 2 : 0) |
+                   (kRagged ? (causal ? 4 : 0) | head_dim << 8 | head_dim_v << 17 : 0),
                threshold, inv_keep,
                seed, cell_stride,
                bq, bk, n_qblk, n_kblk};

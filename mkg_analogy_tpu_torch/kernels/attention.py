@@ -573,7 +573,10 @@ def _check_tensor(name, t, q):
                          f"(B, L, heads*d) tensor, got {tuple(t.shape)}")
 
 
-def _check_inputs(q, k, v, mask, num_heads, compute_dtype, kernel="fused_attention"):
+def _check_inputs(q, k, v, mask, num_heads, compute_dtype, kernel="fused_attention",
+                  value_width=False):
+    """The kernels' inputs checked; ``value_width``: v may be narrower than
+    k (d_v from 1 to the head width: the flash kernels)."""
     if q.device.type != "cuda":
         raise ValueError(f"{kernel} kernel needs CUDA tensors, got {q.device}")
     if q.dtype not in (torch.bfloat16, torch.float32):
@@ -589,7 +592,9 @@ def _check_inputs(q, k, v, mask, num_heads, compute_dtype, kernel="fused_attenti
     if hd % num_heads or not 1 <= hd // num_heads <= MAX_HEAD_DIM:
         raise ValueError(f"{kernel} kernel takes head_dim 1 to {MAX_HEAD_DIM}: width {hd} "
                          f"for {num_heads} heads")
-    if k.shape != (b, lk, hd) or v.shape != k.shape:
+    hdv = v.shape[-1] if value_width else hd
+    if (k.shape != (b, lk, hd) or v.shape != (b, lk, hdv) or hdv % num_heads
+            or not 1 <= hdv // num_heads <= hd // num_heads):
         raise ValueError(f"k {tuple(k.shape)} / v {tuple(v.shape)} do not match q "
                          f"{tuple(q.shape)}")
     if lq < 1 or lk < 1:
@@ -815,15 +820,18 @@ def _route(q) -> str:
     return "tensor_cores" if q.dtype == torch.bfloat16 else "cuda_cores"
 
 
-def _span(name, q, k, num_heads):
+def _span(name, q, k, num_heads, v=None, causal=False):
     """The span of one attention call (``attention.fwd``) or its backward
-    (``attention.bwd``), with the route, the dtype and (B, heads, Lq, Lk,
-    head_dim): what the benchmark's attention metrics read."""
+    (``attention.bwd``), with the route, the dtype, (B, heads, Lq, Lk,
+    head_dim), whether it is causal and the value width ``d_v``: what the
+    benchmark's attention metrics read."""
     if not active():
         return span(name)  # the shared no-op
     b, lq, hd = q.shape
+    d = hd // num_heads
     return span(name, route=_route(q), dtype=q.dtype,
-                shape=(b, num_heads, lq, k.shape[1], hd // num_heads))
+                shape=(b, num_heads, lq, k.shape[1], d), causal=bool(causal),
+                d_v=d if v is None else v.shape[-1] // num_heads)
 
 
 class _FusedAttention(torch.autograd.Function):

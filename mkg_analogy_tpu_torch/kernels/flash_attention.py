@@ -62,6 +62,16 @@ dK/dV (JAX zeroes their q, g, lse and delta).
   other width from the library of its padded width (a multiple of 16 up to
   128, 192 or 256 above); the launchers pass the width of the call
   (``hd // num_heads``) and its scale, of the real width.
+- ``causal`` (queries and keys at the same positions, Lq = Lk) takes no
+  key after its query row: its score is ``HARD_MASK`` in the plain
+  versions, -inf in the kernels, its weight exactly 0 in both. And v may be
+  narrower than q and k (``d_v <= d``, latent attention's 128 under 192):
+  the output, dv and every product with V or g are ``d_v`` wide. Either
+  takes the bf16 kernels in the library of the call's padded width (the
+  instances of 64 and 128 are left as they are: a call of 64 or 128 that
+  is causal or narrower in v goes to the ``-DMKG_ATTN_DP`` library of its
+  width), which skip the tiles wholly above the diagonal; the fp32 kernels
+  take neither and raise.
 - ``LAUNCHES_FLASH``, ``LAUNCHES_FLASH_DKV`` and ``LAUNCHES_FLASH_DQ``
   count kernel launches (a forward, dK/dV or dQ launch on either route);
   ``LAUNCHES_FLASH_FWD_MMA``, ``LAUNCHES_FLASH_DKV_MMA`` and
@@ -175,9 +185,10 @@ class _Tiles:
     and JAX's zeroed out-of-range rows add exact zeros to dK/dV)."""
 
     def __init__(self, q, k, mask, num_heads, bnd, w, geometry, rate, seed,
-                 block_q, block_k, stride=None):
+                 block_q, block_k, stride=None, causal=False):
         b, lq, hd = q.shape
         self.lk = k.shape[1]
+        self.causal = causal
         self.acc = _acc_dtype(q)
         self.scale = float(hd // num_heads) ** -0.5
         self.bq, self.bk, self.n_qblk, self.n_kblk = _blocks(lq, self.lk, block_q, block_k)
@@ -208,6 +219,11 @@ class _Tiles:
         bias = F.pad(bias, (0, self.bk - bias.shape[1]), value=HARD_MASK)  # _col_bias
         s_raw, s = _score(torch.matmul(qt, kt.transpose(-1, -2)), self.scale,
                           None if planes is None else planes[0], bias[:, None, None, :])
+        if self.causal:
+            dev = qt.device
+            later = (torch.arange(c0, c0 + self.bk, device=dev)[None, :]
+                     > torch.arange(r0, r1, device=dev)[:, None])
+            s = s.masked_fill(later, HARD_MASK)
         return s_raw, planes, s
 
     def keep(self, qb, kb, r0, r1, device):
@@ -221,17 +237,17 @@ class _Tiles:
 
 
 def _plain_fwd(q, k, v, mask, num_heads, bnd, w, geometry, rate, seed, compute_dtype,
-               block_q, block_k, stride=None):
-    """(out (B, Lq, heads·d), lse (B, heads, Lq)): _flash_fwd_kernel :98-170
+               block_q, block_k, stride=None, causal=False):
+    """(out (B, Lq, heads·d_v), lse (B, heads, Lq)): _flash_fwd_kernel :98-170
     tile by tile, its running max, sum and accumulator per row."""
     b, lq, _ = q.shape
     tiles = _Tiles(q, k, mask, num_heads, bnd, w, geometry, rate, seed, block_q, block_k,
-                   stride)
+                   stride, causal)
     acc = tiles.acc
     qh = _split_heads(q, num_heads, acc)
     kh = _split_heads(k, num_heads, acc)
     vh = _split_heads(v, num_heads, compute_dtype).to(acc)
-    out = torch.empty_like(qh)
+    out = qh.new_empty(qh.shape[:3] + vh.shape[3:])
     lse = torch.empty(qh.shape[:3], dtype=acc, device=q.device)
     inv = 1.0 / (1.0 - rate) if rate > 0.0 else 1.0
     zero = torch.zeros((), dtype=acc, device=q.device)
@@ -240,7 +256,7 @@ def _plain_fwd(q, k, v, mask, num_heads, bnd, w, geometry, rate, seed, compute_d
         qt = qh[:, :, r0:r1]
         m = torch.full(qt.shape[:3] + (1,), HARD_MASK, dtype=acc, device=q.device)
         l = torch.zeros_like(m)
-        o = torch.zeros_like(qt)
+        o = qt.new_zeros(qt.shape[:3] + vh.shape[3:])
         for kb in range(tiles.n_kblk):
             _, _, s = tiles.scores(qt, tiles.keys(kh, kb), qb, kb, r0, r1)
             m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
@@ -267,7 +283,7 @@ def _delta(g, out, num_heads):
 
 
 def _plain_bwd(q, k, v, mask, g, lse, delta, num_heads, bnd, w, geometry, rate, seed,
-               compute_dtype, block_q, block_k, stride=None):
+               compute_dtype, block_q, block_k, stride=None, causal=False):
     """(dq, dk, dv, dw): the two backward kernel bodies, _flash_bwd_kv_kernel
     :183-268 and _flash_bwd_q_kernel :271-328, over the same tiles in one
     walk (their per-tile p and dS_raw are the same values), with their cast
@@ -275,7 +291,7 @@ def _plain_bwd(q, k, v, mask, g, lse, delta, num_heads, bnd, w, geometry, rate, 
     products, every sum in fp32."""
     b, lq, _ = q.shape
     tiles = _Tiles(q, k, mask, num_heads, bnd, w, geometry, rate, seed, block_q, block_k,
-                   stride)
+                   stride, causal)
     acc, lk, bk = tiles.acc, tiles.lk, tiles.bk
     qh, kh, vh, gh = (_split_heads(x, num_heads, acc) for x in (q, k, v, g))
     dq, dk, dv = torch.zeros_like(qh), torch.zeros_like(kh), torch.zeros_like(vh)
@@ -459,6 +475,7 @@ def flash_attention_reference(
     compute_dtype: torch.dtype = torch.bfloat16,
     block_q: int = BLOCK_Q,
     block_k: int = BLOCK_K,
+    causal: bool = False,
 ) -> torch.Tensor:
     """Plain PyTorch version of :func:`flash_attention` (same arguments)."""
     bnd, w, geometry, rate, seed = _resolve(q, boundary, w0, w1, text_len, row_start,
@@ -466,7 +483,7 @@ def flash_attention_reference(
                                             dropout_seed, cell_offset,
                                             _tile_count(q, k, block_q, block_k))
     return _plain_fwd(q, k, v, mask, num_heads, bnd, w, geometry, rate, seed,
-                      compute_dtype, block_q, block_k, cell_stride)[0]
+                      compute_dtype, block_q, block_k, cell_stride, causal)[0]
 
 
 def flash_attention_bwd_reference(
@@ -493,6 +510,7 @@ def flash_attention_bwd_reference(
     compute_dtype: torch.dtype = torch.bfloat16,
     block_q: int = BLOCK_Q,
     block_k: int = BLOCK_K,
+    causal: bool = False,
 ):
     """Plain PyTorch version of the backward: (dq, dk, dv, dw), dw the (2,)
     gradient of the clamped (w0, w1) (zeros without a geometry). delta is
@@ -503,10 +521,15 @@ def flash_attention_bwd_reference(
                                             _tile_count(q, k, block_q, block_k))
     if out is None or lse is None:
         out, lse = _plain_fwd(q, k, v, mask, num_heads, bnd, w, geometry, rate, seed,
-                              compute_dtype, block_q, block_k, cell_stride)
+                              compute_dtype, block_q, block_k, cell_stride, causal)
     g = g.to(q.dtype)
     return _plain_bwd(q, k, v, mask, g, lse, _delta(g, out, num_heads), num_heads, bnd,
-                      w, geometry, rate, seed, compute_dtype, block_q, block_k, cell_stride)
+                      w, geometry, rate, seed, compute_dtype, block_q, block_k, cell_stride,
+                      causal)
+
+
+# the tensor-core launchers' last two arguments: causal, head_dim_v
+_SHAPE_ARGS = {"": [], "_mma": [ctypes.c_int, ctypes.c_int]}
 
 
 def _bind_fwd(lib, suffix):
@@ -522,7 +545,7 @@ def _bind_fwd(lib, suffix):
         u,                          # cell_stride
         i, i, i, i,                 # bq bk n_qblk n_kblk
         p,                          # stream
-    ]
+    ] + _SHAPE_ARGS[suffix]
     launcher.restype = ctypes.c_int
     lib.mkg_cuda_error_string.argtypes = [i]
     lib.mkg_cuda_error_string.restype = ctypes.c_char_p
@@ -561,7 +584,7 @@ def _bind_bwd(lib, suffix):
         u,                          # cell_stride
         i, i, i, i,                 # bq bk n_qblk n_kblk
         p,                          # stream
-    ]
+    ] + _SHAPE_ARGS[suffix]
     # q k v g mask boundary w lse delta, then dk dv dw_part / dq
     dkv, dq = (getattr(lib, f"mkg_flash_attention_bwd_{n}{suffix}") for n in ("dkv", "dq"))
     dkv.argtypes = [p] * 12 + common
@@ -603,29 +626,46 @@ def _call_args(q, k, num_heads, geometry, rate, seed, block_q, block_k, stride=N
             bq, bk, n_qblk, n_kblk, torch.cuda.current_stream(q.device).cuda_stream)
 
 
+def _shape_args(mma, q, v, num_heads, causal):
+    """The library width of a call and its launcher's last arguments: the
+    tensor-core kernels take (causal, d_v), and a causal call or one whose v
+    is narrower than q goes to the library of its padded width (the
+    instances of 64 and 128 take neither); the CUDA-core kernels raise at
+    either."""
+    d, dv = _head_dim(q, num_heads), _head_dim(v, num_heads)
+    if not (causal or dv != d):
+        return build.library_width(d), ((int(causal), dv) if mma else ())
+    if not mma:
+        raise ValueError("causal attention and a value width of its own take bf16 "
+                         "(the tensor-core flash kernels)")
+    return build.padded_width(d), (int(causal), dv)
+
+
 def _fwd(mma, q, k, v, mask, num_heads, bnd, w, geometry, rate, seed, block_q, block_k,
-         stride=None):
+         stride=None, causal=False):
     """(out, lse) of one forward launch on a route: the tensor-core kernel
     (``mma``, bf16) or the CUDA-core one."""
     _, bk, _, _ = _blocks(q.shape[1], k.shape[1], block_q, block_k)
     d = _head_dim(q, num_heads)
+    width, tail = _shape_args(mma, q, v, num_heads, causal)
     if mma:
-        lib, launcher = _lib_fwd_mma(build.library_width(d)), "mkg_flash_attention_fwd_mma"
+        lib, launcher = _lib_fwd_mma(width), "mkg_flash_attention_fwd_mma"
         smem = lib.mkg_flash_attention_fwd_mma_smem(k.shape[1], bk, d)
     else:
         _check_fp32(q, "the CUDA-core flash forward")
-        lib, launcher = _lib_fwd(build.library_width(d)), "mkg_flash_attention_fwd"
+        lib, launcher = _lib_fwd(width), "mkg_flash_attention_fwd"
         smem = lib.mkg_flash_attention_fwd_smem(bk, d)
     _check_smem(smem, q, f"{launcher[4:]} at block_k={bk}, head_dim {d}",
                 hint="pass a smaller block_k")
-    out = torch.empty_like(q)
+    out = q.new_empty(q.shape[:2] + v.shape[2:])
     lse = torch.empty(q.shape[0], num_heads, q.shape[1], dtype=torch.float32,
                       device=q.device)
     with torch.cuda.device(q.device):
         err = getattr(lib, launcher)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(), bnd.data_ptr(),
             w.data_ptr(), out.data_ptr(), lse.data_ptr(),
-            *_call_args(q, k, num_heads, geometry, rate, seed, block_q, block_k, stride))
+            *_call_args(q, k, num_heads, geometry, rate, seed, block_q, block_k, stride),
+            *tail)
     _raise_if(err, lib, launcher[4:])
     return out, lse
 
@@ -661,42 +701,45 @@ def _launch_fwd_mma(q, k, v, mask, num_heads, *args):
 
 
 def _launch_fwd(q, k, v, mask, num_heads, bnd, w, geometry, rate, seed, block_q, block_k,
-                stride=None):
+                stride=None, causal=False):
     """(out, lse) of one forward launch; the dtype alone picks the kernel."""
     launch = _launch_fwd_mma if q.dtype == torch.bfloat16 else _launch_fwd_cuda_cores
     return launch(q, k, v, mask, num_heads, bnd, w, geometry, rate, seed, block_q, block_k,
-                  stride)
+                  stride, causal)
 
 
-def _bwd_lib(q, g, lse, delta, num_heads, mma):
-    """The backward library of a route, its inputs checked: the tensor-core
-    kernels (``mma``, bf16) or the CUDA-core ones."""
+def _bwd_lib(q, v, g, lse, delta, num_heads, mma, causal=False):
+    """The backward library of a route, its inputs checked, and its
+    launchers' last arguments: the tensor-core kernels (``mma``, bf16) or
+    the CUDA-core ones."""
     _check_tensor("g", g, q)
-    if g.shape != q.shape:
-        raise ValueError(f"g {tuple(g.shape)} is not q's shape {tuple(q.shape)}")
+    if g.shape != q.shape[:2] + v.shape[2:]:
+        raise ValueError(f"g {tuple(g.shape)} is not the output's shape "
+                         f"{tuple(q.shape[:2] + v.shape[2:])}")
     for name, t in (("lse", lse), ("delta", delta)):
         if (t.shape != (q.shape[0], num_heads, q.shape[1]) or t.dtype != torch.float32
                 or not t.is_contiguous()):
             raise ValueError(f"{name} must be a contiguous fp32 (B, heads, Lq) tensor")
     d = _head_dim(q, num_heads)
+    width, tail = _shape_args(mma, q, v, num_heads, causal)
     if mma:
-        lib = _lib_bwd_mma(build.library_width(d))
+        lib = _lib_bwd_mma(width)
         smem, what = lib.mkg_flash_attention_bwd_mma_smem(d), "flash_attention_bwd_mma"
     else:
         _check_fp32(q, "the CUDA-core flash backward")
-        lib = _lib_bwd(build.library_width(d))
+        lib = _lib_bwd(width)
         smem, what = lib.mkg_flash_attention_bwd_smem(d), "flash_attention_bwd"
     _check_smem(smem, q, f"{what} at head_dim {d}")
-    return lib
+    return lib, tail
 
 
 def _dkv(mma, q, k, v, mask, g, lse, delta, num_heads, bnd, w, geometry, rate, seed, block_q,
-         block_k, stride=None):
+         block_k, stride=None, causal=False):
     """dk, dv and the (2,) dw of one dK/dV launch on a route: the kernel
     writes one (dw0, dw1) partial per (b, head, block of 64 keys) and this
     sums them, so no float atomics run and fp32 results repeat from run to
     run."""
-    lib = _bwd_lib(q, g, lse, delta, num_heads, mma)
+    lib, tail = _bwd_lib(q, v, g, lse, delta, num_heads, mma, causal)
     launcher = "mkg_flash_attention_bwd_dkv" + ("_mma" if mma else "")
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     dw_part = torch.empty(q.shape[0], num_heads, -(-k.shape[1] // KEYS_PER_BLOCK), 2,
@@ -706,22 +749,24 @@ def _dkv(mma, q, k, v, mask, g, lse, delta, num_heads, bnd, w, geometry, rate, s
             q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), mask.data_ptr(),
             bnd.data_ptr(), w.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
             dv.data_ptr(), dw_part.data_ptr(),
-            *_call_args(q, k, num_heads, geometry, rate, seed, block_q, block_k, stride))
+            *_call_args(q, k, num_heads, geometry, rate, seed, block_q, block_k, stride),
+            *tail)
     _raise_if(err, lib, launcher)
     return dk, dv, dw_part.sum(dim=(0, 1, 2)).to(w.dtype)
 
 
 def _dq(mma, q, k, v, mask, g, lse, delta, num_heads, bnd, w, geometry, rate, seed, block_q,
-        block_k, stride=None):
+        block_k, stride=None, causal=False):
     """dq of one dQ launch on a route."""
-    lib = _bwd_lib(q, g, lse, delta, num_heads, mma)
+    lib, tail = _bwd_lib(q, v, g, lse, delta, num_heads, mma, causal)
     launcher = "mkg_flash_attention_bwd_dq" + ("_mma" if mma else "")
     dq = torch.empty_like(q)
     with torch.cuda.device(q.device):
         err = getattr(lib, launcher)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), mask.data_ptr(),
             bnd.data_ptr(), w.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-            *_call_args(q, k, num_heads, geometry, rate, seed, block_q, block_k, stride))
+            *_call_args(q, k, num_heads, geometry, rate, seed, block_q, block_k, stride),
+            *tail)
     _raise_if(err, lib, launcher)
     return dq
 
@@ -757,20 +802,20 @@ def _launch_bwd_dq_mma(q, k, v, mask, g, lse, delta, num_heads, *args):
 
 
 def _launch_bwd_dkv(q, k, v, mask, g, lse, delta, num_heads, bnd, w, geometry, rate, seed,
-                    block_q, block_k, stride=None):
+                    block_q, block_k, stride=None, causal=False):
     """dk, dv and the (2,) dw of one dK/dV launch; the dtype alone picks the
     kernel."""
     launch = _launch_bwd_dkv_mma if q.dtype == torch.bfloat16 else _launch_bwd_dkv_cuda_cores
     return launch(q, k, v, mask, g, lse, delta, num_heads, bnd, w, geometry, rate, seed,
-                  block_q, block_k, stride)
+                  block_q, block_k, stride, causal)
 
 
 def _launch_bwd_dq(q, k, v, mask, g, lse, delta, num_heads, bnd, w, geometry, rate, seed,
-                   block_q, block_k, stride=None):
+                   block_q, block_k, stride=None, causal=False):
     """dq of one dQ launch; the dtype alone picks the kernel."""
     launch = _launch_bwd_dq_mma if q.dtype == torch.bfloat16 else _launch_bwd_dq_cuda_cores
     return launch(q, k, v, mask, g, lse, delta, num_heads, bnd, w, geometry, rate, seed,
-                  block_q, block_k, stride)
+                  block_q, block_k, stride, causal)
 
 
 def _launch_bwd(*args):
@@ -788,32 +833,35 @@ class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, mask, bnd, w, num_heads, geometry, rate, seed,
-                compute_dtype, block_q, block_k, stride):
+                compute_dtype, block_q, block_k, stride, causal):
         args = (num_heads, bnd, w, geometry, rate, seed)
         if q.device.type == "cpu":
             out, lse = _plain_fwd(q, k, v, mask, *args, compute_dtype, block_q, block_k,
-                                  stride)
+                                  stride, causal)
         else:
-            out, lse = _launch_fwd(q, k, v, mask, *args, block_q, block_k, stride)
+            out, lse = _launch_fwd(q, k, v, mask, *args, block_q, block_k, stride, causal)
         ctx.save_for_backward(q, k, v, mask, bnd, w, out, lse)
-        ctx.call = (num_heads, geometry, rate, seed, compute_dtype, block_q, block_k, stride)
+        ctx.call = (num_heads, geometry, rate, seed, compute_dtype, block_q, block_k, stride,
+                    causal)
         return out
 
     @staticmethod
     def backward(ctx, g):
         q, k, v, mask, bnd, w, out, lse = ctx.saved_tensors
-        num_heads, geometry, rate, seed, compute_dtype, block_q, block_k, stride = ctx.call
-        with _span("attention.bwd", q, k, num_heads):
+        (num_heads, geometry, rate, seed, compute_dtype, block_q, block_k, stride,
+         causal) = ctx.call
+        with _span("attention.bwd", q, k, num_heads, v, causal):
             g = g.to(q.dtype).contiguous()  # from the out-projection's backward
             delta = _delta(g, out, num_heads)
             args = (num_heads, bnd, w, geometry, rate, seed)
             if q.device.type == "cpu":
                 dq, dk, dv, dw = _plain_bwd(q, k, v, mask, g, lse, delta, *args,
-                                            compute_dtype, block_q, block_k, stride)
+                                            compute_dtype, block_q, block_k, stride, causal)
             else:
                 dq, dk, dv, dw = _launch_bwd(q, k, v, mask, g, lse, delta, *args,
-                                             block_q, block_k, stride)
-        return dq, dk, dv, None, None, dw, None, None, None, None, None, None, None, None
+                                             block_q, block_k, stride, causal)
+        return (dq, dk, dv, None, None, dw, None, None, None, None, None, None, None, None,
+                None)
 
 
 def flash_attention(
@@ -837,24 +885,30 @@ def flash_attention(
     compute_dtype: torch.dtype = torch.bfloat16,
     block_q: int = BLOCK_Q,
     block_k: int = BLOCK_K,
+    causal: bool = False,
 ) -> torch.Tensor:
     """Blocked fused attention: the contract of ``fused_attention`` at any
     sequence length, differentiable in q, k, v, w0 and w1. On CPU tensors the
     plain forward and backward (any head width); on CUDA tensors the kernels
     (bf16 or fp32, head_dim 1 to 256, compute dtype = the inputs' dtype) or
-    an error."""
+    an error. ``causal`` (Lq = Lk) leaves out every key after its query
+    row; v (B, Lk, heads·d_v) may be narrower than q and k, d_v <= d, and
+    the output is then (B, Lq, heads·d_v); either takes bf16 on CUDA."""
     if not 0.0 <= dropout_rate < 1.0:
         raise ValueError(f"dropout_rate must be in [0, 1), got {dropout_rate}")
     if block_q < 1 or block_k < 1:
         raise ValueError(f"block_q / block_k must be positive, got {block_q} / {block_k}")
-    with _span("attention.fwd", q, k, num_heads):
+    if causal and q.shape[1] != k.shape[1]:
+        raise ValueError(f"causal attention needs Lq = Lk, got {q.shape[1]} and {k.shape[1]}")
+    with _span("attention.fwd", q, k, num_heads, v, causal):
         bnd, w, geometry, rate, seed = _resolve(q, boundary, w0, w1, text_len, row_start,
                                                 offset, dropout_rate, deterministic,
                                                 dropout_seed, cell_offset,
                                                 _tile_count(q, k, block_q, block_k))
         maskf = mask.to(device=q.device, dtype=_acc_dtype(q)).contiguous()
         if q.device.type != "cpu":
-            _check_inputs(q, k, v, maskf, num_heads, compute_dtype, kernel="flash_attention")
+            _check_inputs(q, k, v, maskf, num_heads, compute_dtype, kernel="flash_attention",
+                          value_width=True)
         return _FlashAttention.apply(q, k, v, maskf, bnd.contiguous(), w.contiguous(),
                                      num_heads, geometry, rate, seed, compute_dtype,
-                                     int(block_q), int(block_k), cell_stride)
+                                     int(block_q), int(block_k), cell_stride, bool(causal))

@@ -10,8 +10,18 @@ Each model shares the interface::
 
 ``IMAGE_INPUT`` describes the visual features each family consumes (the
 collator contract, data_module.py:121-161): pixels for MKGformerKGC,
-ViltKGC and FlavaKGC, detector region features (2 images x 36 regions of
-2048) for VisualBertKGC and VilBertKGC.
+ViltKGC, FlavaKGC and KimiVLKGC, detector region features (2 images x 36
+regions of 2048) for VisualBertKGC and VilBertKGC.
+
+``KimiVLKGC`` (``models/kimi_vl.py``) has no counterpart in the JAX
+package: Kimi-VL-A3B's language model, a decoder of latent attention and
+sparse experts, at the published widths, with this card's share of an
+expert-parallel deployment (8 of the 64 experts, 14 of the 27 layers, an
+eighth of the word rows); the sizes ``create_model`` is not passed are
+``KimiVLConfig``'s defaults, as FLAVA's ``image_layers`` are FlavaConfig's.
+Its MLA always attends through the causal flash kernels (head width 192,
+value width 128); ``attention`` picks its CLIP tower's backend, flash by
+default.
 
 ``DEFAULT_ATTENTION`` is the attention backend each family takes when the
 caller names none (models/common.py:AttentionCore). ViLT attends over L +
@@ -31,6 +41,7 @@ from __future__ import annotations
 from typing import Callable, Dict
 
 from .flava import FlavaConfig, FlavaForMaskedLM
+from .kimi_vl import KimiVLConfig, KimiVLForMaskedLM
 from .unimo import TextConfig, UnimoConfig, UnimoForMaskedLM, VisionConfig
 from .vilbert import VilBertConfig, VilBertForMaskedLM
 from .vilt import ViltConfig, ViltForMaskedLM
@@ -45,10 +56,11 @@ IMAGE_INPUT = {
     "FlavaKGC": ("pixels", 224),
     "VisualBertKGC": ("regions", None),
     "VilBertKGC": ("regions", None),
+    "KimiVLKGC": ("pixels", 224),
 }
 
 DEFAULT_ATTENTION = {"MKGformerKGC": "single", "ViltKGC": "single", "FlavaKGC": "flash",
-                     "VisualBertKGC": "single", "VilBertKGC": "single"}
+                     "VisualBertKGC": "single", "VilBertKGC": "single", "KimiVLKGC": "flash"}
 
 
 def _text_cfg(vocab_size: int, kw: dict) -> TextConfig:
@@ -139,6 +151,15 @@ def _vilbert(vocab_size: int, dtype: str = "bfloat16", attention: str = "single"
             attention=attention, gelu_impl=gelu_impl, **_switches(kw),
         )
     )
+
+
+@register("KimiVLKGC")
+def _kimi_vl(vocab_size: int, dtype: str = "bfloat16", attention: str = "flash",
+             gelu_impl: str = "poly", **kw):
+    sizes = {k: v for k, v in kw.items()
+             if k in ("hidden_size", "num_layers", "num_heads", "intermediate_size")}
+    return KimiVLForMaskedLM(KimiVLConfig(vocab_size=vocab_size, dtype=dtype,
+                                          attention=attention, gelu_impl=gelu_impl, **sizes))
 
 
 def create_model(name: str, **kw):

@@ -22,7 +22,12 @@ tiles of one call) and at FLAVA's fine-tune calls (B=24, 12 heads of 64:
 text 128 x 128, image 393 x 393, multimodal 522 x 522; no multiplier, so
 SDPA applies), with dropout 0 and 0.1 (with ``--dtype float32`` the
 CUDA-core ones, and ``--yardsticks`` their plain versions, SDPA and
-bounds). With ``--fp32_step``, the full-width fp32 fine-tune step of
+bounds). With ``--flash --causal`` and/or ``--head_dim_v``, the three at
+latent attention's call instead (B=32, 16 heads, 228 x 228 with MarT's
+multiplier over the text rows from 100, queries and keys of ``--head_dim``,
+values of ``--head_dim_v``; 14 calls a step; ``--yardsticks`` adds the
+causal bounds of port_bench/bounds_mla.py's formulas). With
+``--fp32_step``, the full-width fp32 fine-tune step of
 ``--family`` (ViLT through the single-block kernels, FLAVA through the
 flash ones) instead (chip_smoke.py:fp32_step_cost of this checkout, on the
 package of ``--root``). Any other ``--head_dim`` from 1 to 256 times the same shapes
@@ -104,6 +109,10 @@ def main(argv=None) -> int:
                    help="time the full-width fp32 fine-tune step of --family instead")
     p.add_argument("--family", choices=("vilt", "flava"), default="vilt",
                    help="the family of --fp32_step")
+    p.add_argument("--causal", action="store_true",
+                   help="with --flash: latent attention's causal call instead")
+    p.add_argument("--head_dim_v", type=int, default=None,
+                   help="with --flash: the values' head width (default --head_dim)")
     args = p.parse_args(argv)
     if not 1 <= args.head_dim <= 256:
         p.error(f"--head_dim {args.head_dim}: the kernels take 1 to 256")
@@ -125,8 +134,10 @@ def main(argv=None) -> int:
         print(json.dumps(dict(card=card, root=args.root, family=args.family, fp32_step=step)))
         return 0
     if args.flash:
-        rows, sets = time_flash(args.head_dim, dtype, args.yardsticks)
+        rows, sets = time_flash(args.head_dim, dtype, args.yardsticks, args.head_dim_v,
+                                args.causal)
         print(json.dumps(dict(card=card, root=args.root, flash=True, dtype=args.dtype,
+                              causal=args.causal, head_dim_v=args.head_dim_v or args.head_dim,
                               shapes=rows, per_set_ms=sets)))
         return 0
     shapes = SHAPES + ([D128_SHAPE] if args.head_dim == 128 else [])
@@ -266,13 +277,15 @@ def longest_kernel(fn):
     return max(rows)[1][:90] if rows else None
 
 
-def time_flash(d=64, dtype=None, with_yardsticks=False):
+def time_flash(d=64, dtype=None, with_yardsticks=False, dv=None, causal=False):
     """(rows, per-set sums) of the three flash kernels at FLASH_SHAPES (and
     at 128 ViLBERT's visual stream, 8 heads, 72 x 72, B=64), 12 heads of
     ``d``, dropout 0 and 0.1: on the tensor cores in bf16, on the CUDA cores
     in fp32; ``with_yardsticks`` also each kernel's bound (flash_bounds),
     the plain versions (the forward; one backward computing dq, dk and dv)
-    and SDPA on the same inputs, without dropout."""
+    and SDPA on the same inputs, without dropout. With ``causal`` or a value
+    width ``dv``, latent attention's call alone (MLA_SHAPE), its bounds
+    causal, no plain version or SDPA."""
     import torch
     import torch.nn.functional as F
 
@@ -280,6 +293,8 @@ def time_flash(d=64, dtype=None, with_yardsticks=False):
     from mkg_analogy_tpu_torch.kernels import flash_attention as fa
 
     dtype = dtype or torch.bfloat16
+    if causal or dv is not None:
+        return time_mla(fa, attn, d, dv or d, causal, dtype, with_yardsticks)
     shapes = [shape + (12,) for shape in FLASH_SHAPES]
     if d == 128:
         shapes.append(("vilbert_visual", 72, 72, 6, 64, "", 8))
@@ -344,6 +359,48 @@ def time_flash(d=64, dtype=None, with_yardsticks=False):
         del q, go, k, v
         torch.cuda.empty_cache()
     return rows, sets
+
+
+# (name, L, calls a step, batch, heads, first text row, boundary): Kimi-VL's
+# latent attention in the MarT cell, 100 image and 128 text positions
+MLA_SHAPE = ("mla", 228, 14, 32, 16, 100, 140)
+
+
+def time_mla(fa, attn, d, dv, causal, dtype, with_yardsticks):
+    """(rows, per-set sums) of the three flash kernels at MLA_SHAPE, queries
+    and keys of ``d``, values of ``dv``, dropout 0."""
+    import torch
+
+    name, n, calls, b, heads, row_start, bnd = MLA_SHAPE
+    gen = torch.Generator().manual_seed(7)
+    q, k = (torch.randn(b, n, heads * d, generator=gen).to("cuda", dtype) for _ in range(2))
+    v, go = (torch.randn(b, n, heads * dv, generator=gen).to("cuda", dtype) for _ in range(2))
+    mask = torch.ones(b, n, device="cuda")
+    mask[:, n - 9:] = 0.0
+    boundary = torch.full((b,), bnd, dtype=torch.int32, device="cuda")
+    w0, w1 = torch.tensor([0.3], device="cuda"), torch.tensor([0.7], device="cuda")
+    resolved = attn._resolve(q, boundary, w0, w1, n, row_start, 0, 0.0, True, 99)
+    tail = (heads, *resolved, fa.BLOCK_Q, fa.BLOCK_K, None, causal)
+    out, lse = fa._launch_fwd(q, k, v, mask, *tail)
+    delta = fa._delta(go, out, heads)
+    row = dict(shape=name, B=b, Lq=n, Lk=n, heads=heads, head_dim=d, head_dim_v=dv,
+               causal=causal)
+    timed = {"fwd": lambda: fa._launch_fwd(q, k, v, mask, *tail),
+             "dkv": lambda: fa._launch_bwd_dkv(q, k, v, mask, go, lse, delta, *tail),
+             "dq": lambda: fa._launch_bwd_dq(q, k, v, mask, go, lse, delta, *tail)}
+    if with_yardsticks:  # the benchmark's causal bounds, of this tool's checkout
+        sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__)))))
+        from port_bench import bounds_mla
+    sets = {}
+    for kernel, fn in timed.items():
+        row[f"{kernel}_ms"] = time_ms(fn)
+        sets[f"mla_{kernel}_ms"] = row[f"{kernel}_ms"] * calls
+        if with_yardsticks:
+            t = bounds_mla.flash_bound_s(kernel, b, heads, n, n, d, dv, causal, "bfloat16")
+            row[f"{kernel}_bound_ms"] = max(t) * 1e3
+            row[f"{kernel}_bound_by"] = "bytes" if t[0] >= t[1] else "operations"
+    return [row], sets
 
 
 def flash_bound(kernel, b, lq, lk, heads, d, nbytes, flops_per_s):

@@ -56,11 +56,13 @@ def linear_warmup_linear_decay(lr: float, total_steps: int,
 
 def no_decay_mask(model: nn.Module) -> Dict[str, bool]:
     """Parameter name -> True where weight decay applies: everything except
-    leaves named ``bias`` and LayerNorm scales. The JAX package decides by
-    the Flax leaf names ``bias`` and ``scale``; here a LayerNorm scale is
-    ``<ln>.weight``, so it is found by module type, not by name. So
-    ``mlm_bias``, ``adaptive_w0/w1`` and the embeddings decay, as in JAX."""
-    ln_scales = {id(m.weight) for m in model.modules() if isinstance(m, nn.LayerNorm)}
+    leaves named ``bias`` and LayerNorm (and RMSNorm) scales. The JAX
+    package decides by the Flax leaf names ``bias`` and ``scale``; here a
+    LayerNorm scale is ``<ln>.weight``, so it is found by module type, not
+    by name. So ``mlm_bias``, ``adaptive_w0/w1`` and the embeddings decay,
+    as in JAX."""
+    ln_scales = {id(m.weight) for m in model.modules()
+                 if isinstance(m, (nn.LayerNorm, nn.RMSNorm))}
     return {name: not (name.rpartition(".")[2] == "bias" or id(p) in ln_scales)
             for name, p in model.named_parameters()}
 

@@ -282,7 +282,7 @@ def test_registry_creates_the_pixel_families():
     attention backend of each family's default and an explicit one."""
     assert registry.DEFAULT_ATTENTION == {"MKGformerKGC": "single", "ViltKGC": "single",
                                           "FlavaKGC": "flash", "VisualBertKGC": "single",
-                                          "VilBertKGC": "single"}
+                                          "VilBertKGC": "single", "KimiVLKGC": "flash"}
     with torch.device("meta"):
         v = registry.create_model("ViltKGC", vocab_size=256)
         f = registry.create_model("FlavaKGC", vocab_size=256, attention="single")

@@ -377,10 +377,11 @@ def test_registry_creates_the_region_families():
     """Full-width constructors on the meta device: VisualBERT 88.2M and
     ViLBERT 211.2M parameters at vocab 256 (the JAX models' counts by
     jax.eval_shape), the single-block attention by default, ViLBERT's visual
-    stream at head_dim 128; ``available_models`` lists JAX's names."""
+    stream at head_dim 128; ``available_models`` lists JAX's names and
+    KimiVLKGC, the one family without a JAX counterpart."""
     assert registry.DEFAULT_ATTENTION["VisualBertKGC"] == "single"
     assert registry.DEFAULT_ATTENTION["VilBertKGC"] == "single"
-    assert registry.available_models() == jregistry.available_models()
+    assert registry.available_models() == sorted(jregistry.available_models() + ["KimiVLKGC"])
     with torch.device("meta"):
         vb = registry.create_model("VisualBertKGC", vocab_size=256)
         vl = registry.create_model("VilBertKGC", vocab_size=256, attention="plain")
