@@ -52,6 +52,19 @@ exits non-zero:
                 leaf that two kernel runs give alike bit for bit. Every bf16
                 main path below counts row 7's launches beside its attention
                 launches, and its plain runs take the plain chain;
+    adamw     — row 8, the AdamW kernel, at the parameter sets of the
+                benchmark's Kimi-VL (1.61 B), FLAVA and MKGformer
+                configurations (built on the meta device as the harness
+                builds them), both groups, null gradients for Kimi-VL's
+                selection biases and one leaf of each: 3 steps against the
+                plain version (PyTorch's foreach update), every parameter
+                and moment bit for bit, one launch a step, then a step of
+                torch.optim.AdamW(foreach=True) from the plain version's
+                state against one more of the kernel; the kernel's, the
+                plain version's and torch's step by CUDA events beside the
+                bound, 28 bytes a parameter over the HBM rate. The CLI
+                fine-tune (cli_train) and the Kimi-VL step (kimi_vl) count
+                its launches, one a step;
 5. model      — a full-width UnimoForMaskedLM (random weights from a seed,
                 B=32, L=128, two 224-px images) forward through the kernel
                 and through the plain version (gelu_poly through its plain
@@ -356,6 +369,11 @@ GELU_OPS_FWD, GELU_OPS_BWD = 57, 56
 # gelu_poly calls of a MKGformer forward in bf16: the 12 text layers' FFNs and
 # the MLM transform (the vision tower takes quick_gelu; fp32 takes F.gelu)
 GELU_CALLS = 13
+# Row 8, the AdamW kernel: the benchmark's fine-tune configurations whose
+# parameter sets it updates (port_bench/configs/<name>.json), and the bytes
+# a parameter moves (p, g, m and v read, p, m and v written, fp32)
+ADAMW_CONFIGS = ("kimi_vl_a3b", "flava", "mkgformer")
+ADAMW_BYTES = 28
 
 
 START = time.perf_counter()
@@ -975,6 +993,140 @@ def gelu_kernel_phase(device):
     return rows
 
 
+def meta_model(config_name):
+    """The benchmark's model of ``port_bench/configs/<config_name>.json`` on
+    the meta device, built as ``port_bench/harness.py`` builds it."""
+    import torch
+
+    from mkg_analogy_tpu_torch.models.registry import create_model
+
+    with open(os.path.join("port_bench", "configs", f"{config_name}.json")) as f:
+        cfg = json.load(f)
+    with torch.device("meta"):
+        return create_model(
+            cfg["model_class"], vocab_size=cfg["vocab_size"], dtype=cfg["dtype"],
+            attention=cfg["attention"], hidden_size=cfg["hidden_size"],
+            num_layers=cfg["num_layers"], num_heads=cfg["num_heads"],
+            intermediate_size=cfg["intermediate_size"],
+            max_position_embeddings=cfg["max_position_embeddings"])
+
+
+def adamw_phase(device, steps=3):
+    """Row 8: the AdamW kernel (csrc/adamw.cu) at the trainable parameters of
+    each of ADAMW_CONFIGS, in make_optimizer's two groups (decay 0.01 and
+    none), with null gradients for the router's selection biases (Kimi-VL's
+    expert layers: no gradient reaches them) and for the first leaf. From
+    parameters and gradients drawn on the card (fresh gradients each step)
+    and zero moments, ``steps`` steps of the kernel and of the plain version
+    (adamw_reference, PyTorch's foreach update, in its copy of the
+    parameters) at the schedule's learning rates past warm-up: every
+    parameter and moment bit for bit after each, one launch a step. Then
+    torch.optim.AdamW(foreach=True) takes the plain version's parameters and
+    moments for one more step, and the kernel one more: bit for bit. Times
+    by CUDA events (2 steps a sample, so the host's enqueueing of the
+    foreach chain is not timed): the kernel's step, the plain version's and
+    torch.optim.AdamW's, beside the bound, ADAMW_BYTES a parameter over the
+    HBM rate."""
+    import torch
+
+    from mkg_analogy_tpu_torch.kernels import adamw as aw
+    from mkg_analogy_tpu_torch.train.optim import linear_warmup_linear_decay, no_decay_mask
+
+    schedule = linear_warmup_linear_decay(5e-5, 100, 0.1)
+    rows = []
+    for name in ADAMW_CONFIGS:
+        meta = meta_model(name)
+        decay = no_decay_mask(meta)
+        named = [(n, p) for n, p in meta.named_parameters() if p.requires_grad]
+        none = {0} | {i for i, (n, _) in enumerate(named) if n.endswith("router.bias")}
+        gen = torch.Generator(device).manual_seed(len(named))
+        mine = [torch.nn.Parameter(0.02 * torch.randn(p.shape, device=device, generator=gen))
+                for _, p in named]
+        plain = [p.detach().clone() for p in mine]
+        grads = [None if i in none else torch.empty(p.shape, device=device) for i, p in
+                 enumerate(mine)]
+        del meta
+
+        def groups(leaves, named=named, decay=decay):
+            return [{"params": [p for (n, _), p in zip(named, leaves) if decay[n]],
+                     "weight_decay": 0.01},
+                    {"params": [p for (n, _), p in zip(named, leaves) if not decay[n]],
+                     "weight_decay": 0.0}]
+
+        opt = aw.AdamW(groups(mine), lr=1.0, eps=1e-8)
+        plain_groups = groups(plain)
+        order = [p for g in groups(list(range(len(mine)))) for p in g["params"]]
+        m_plain = [torch.zeros_like(p) for p in plain]
+        v_plain = [torch.zeros_like(p) for p in plain]
+
+        def plain_step(step, lr, plain_groups=plain_groups, order=order, grads=grads,
+                       m_plain=m_plain, v_plain=v_plain):
+            k = 0
+            for group in plain_groups:
+                idx = order[k:k + len(group["params"])]
+                aw.adamw_reference(group["params"], [grads[i] for i in idx],
+                                   [m_plain[i] for i in idx], [v_plain[i] for i in idx],
+                                   step=float(step), lr=lr, betas=(0.9, 0.999), eps=1e-8,
+                                   weight_decay=group["weight_decay"])
+                k += len(idx)
+
+        def differ(opt=opt, mine=mine, plain=plain, m_plain=m_plain, v_plain=v_plain):
+            return sum(differing_bits(a, b) for a, b in zip(
+                [p.detach() for p in mine] + [opt.state[p]["exp_avg"] for p in mine]
+                + [opt.state[p]["exp_avg_sq"] for p in mine], plain + m_plain + v_plain))
+
+        n_params = sum(p.numel() for p in mine)
+        launches = []
+        with torch.no_grad():
+            for step in range(1, steps + 1):
+                lr = schedule(10 + step)
+                for g in grads:
+                    if g is not None:
+                        g.normal_(generator=gen)
+                for p, g in zip(mine, grads):
+                    p.grad = g
+                for group in opt.param_groups:
+                    group["lr"] = lr
+                before = aw.LAUNCHES_ADAMW
+                opt.step()
+                launches.append(aw.LAUNCHES_ADAMW - before)
+                plain_step(step, lr)
+                torch.cuda.synchronize()
+                bad = differ()
+                if bad or launches[-1] != 1:
+                    raise AssertionError(f"adamw {name} step {step}: {bad} elements differ from "
+                                         f"the plain version; {launches[-1]} launches")
+            # torch's own foreach step from the plain version's state
+            ref = torch.optim.AdamW(groups([torch.nn.Parameter(p) for p in plain]), lr=lr,
+                                    eps=1e-8, foreach=True)
+            twins = [p for g in ref.param_groups for p in g["params"]]
+            for i, q in zip(order, twins):
+                q.grad = grads[i] if grads[i] is not None else torch.zeros_like(q)
+                ref.state[q] = {"step": torch.tensor(float(steps)), "exp_avg": m_plain[i],
+                                "exp_avg_sq": v_plain[i]}
+            ref.step()
+            opt.step()
+            torch.cuda.synchronize()
+            bad = sum(differing_bits(mine[i].detach(), q.detach()) for i, q in zip(order, twins))
+            if bad:
+                raise AssertionError(f"adamw {name}: torch.optim.AdamW's foreach step and the "
+                                     f"kernel's differ in {bad} elements")
+        row = dict(config=name, parameters=n_params, tensors=len(mine),
+                   tensors_without_gradient=len(none), steps_bit_equal=steps + 1,
+                   launches_per_step=launches,
+                   ms=time_ms(opt.step, per_sample=2),
+                   plain_ms=time_ms(lambda: plain_step(steps + 2, lr), per_sample=2),
+                   library_ms=time_ms(ref.step, per_sample=2),
+                   bound_ms=ADAMW_BYTES * n_params / HBM_BYTES_PER_S * 1e3, bound_by="bytes")
+        row["over_bound"] = row["ms"] / row["bound_ms"]
+        row["roofline_pct"] = 100.0 / row["over_bound"]
+        rows.append(row)
+        del opt, ref, mine, plain, grads, m_plain, v_plain, twins
+        torch.cuda.empty_cache()
+    emit(dict(phase="adamw", card=card_line(), sets=rows))
+    return rows
+
+
 def model_phase(device):
     import torch
 
@@ -1411,8 +1563,8 @@ def cli_train_phase():
     the kernels, with both counts set to 0 just before and read just after.
     128 training examples at B=32 are 4 steps (24 + 24 launches each); the
     dev split (16) is one eval batch and the test split (200) two, 24
-    forward launches each; 13 of row 7's each way a step and 13 a forward.
-    The best-dev checkpoint is written and restored
+    forward launches each; 13 of row 7's each way a step and 13 a forward;
+    one of row 8's (AdamW) a step. The best-dev checkpoint is written and restored
     for the test; ``--only_test --checkpoint`` on it must give the same
     ranks. The fit runs with an empty build directory: the CLI must compile
     every kernel before the first batch is assembled, and its first step
@@ -1421,6 +1573,7 @@ def cli_train_phase():
     import torch
 
     from mkg_analogy_tpu_torch.cli import main as cli
+    from mkg_analogy_tpu_torch.kernels import adamw as aw
     from mkg_analogy_tpu_torch.kernels import attention as attn
     from mkg_analogy_tpu_torch.kernels import gelu_poly as gp
     from mkg_analogy_tpu_torch.train import checkpoint
@@ -1464,11 +1617,12 @@ def cli_train_phase():
         seconds = time.perf_counter() - t0
         build_seconds = order.check("cli fine-tune")
         launches = dict(fwd=attn.LAUNCHES, bwd=attn.LAUNCHES_BWD,
-                        gelu_fwd=gp.LAUNCHES_GELU_FWD, gelu_bwd=gp.LAUNCHES_GELU_BWD)
+                        gelu_fwd=gp.LAUNCHES_GELU_FWD, gelu_bwd=gp.LAUNCHES_GELU_BWD,
+                        adamw=aw.LAUNCHES_ADAMW)
         steps = n_train // 32
         forwards = steps + 1 + math.ceil(n_test / 128)
         expect = dict(fwd=24 * forwards, bwd=24 * steps, gelu_fwd=GELU_CALLS * forwards,
-                      gelu_bwd=GELU_CALLS * steps)
+                      gelu_bwd=GELU_CALLS * steps, adamw=steps)
         if launches != expect:
             raise AssertionError(f"cli fine-tune: launches {launches}, expected {expect}")
         if not all(math.isfinite(v) for v in metrics.values()):
@@ -2419,6 +2573,7 @@ def kimi_vl_phase(device):
     one step."""
     import torch
 
+    from mkg_analogy_tpu_torch.kernels import adamw as aw
     from mkg_analogy_tpu_torch.kernels import flash_attention as fa
     from mkg_analogy_tpu_torch.models import kimi_vl
     from mkg_analogy_tpu_torch.models.registry import create_model
@@ -2498,10 +2653,13 @@ def kimi_vl_phase(device):
         times.append((time.perf_counter() - t0) * 1e3)
     if not (all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]):
         raise AssertionError(f"kimi_vl steps: losses {losses}")
+    if aw.LAUNCHES_ADAMW != len(losses):
+        raise AssertionError(f"kimi_vl steps: {aw.LAUNCHES_ADAMW} AdamW launches in "
+                             f"{len(losses)} steps")
     peak = torch.cuda.max_memory_allocated() / 1e9
     profile = device_profile(lambda: trainer._train_step(opt, batch, 8))
     step = dict(B=b, L=128, launches=counts, width_launches=widths, **moe,
-                routed_rows_per_layer=routed,
+                adamw_launches=len(losses), routed_rows_per_layer=routed,
                 expected_rows_per_layer=b * (c["images"] + c["text"]) * 6 * 8 / 64,
                 losses=losses, step_ms=times, median_step_ms=statistics.median(times[2:]),
                 peak_gb=peak, held_before_gb=held_before, device_ms=profile["device_ms"],
@@ -2509,7 +2667,7 @@ def kimi_vl_phase(device):
     del model, trainer, opt, batch
     torch.cuda.empty_cache()
     emit(dict(phase="kimi_vl", mla=row, step=step))
-    return row, dict(counts, **widths)
+    return row, dict(counts, **widths), step["adamw_launches"]
 
 
 # The single-block attention shapes of the region families (the recipes of
@@ -2933,12 +3091,14 @@ def flash_mma_counts():
 
 
 def reset_counts():
+    from mkg_analogy_tpu_torch.kernels import adamw as aw
     from mkg_analogy_tpu_torch.kernels import attention as attn
     from mkg_analogy_tpu_torch.kernels import flash_attention as fa
     from mkg_analogy_tpu_torch.kernels import gelu_poly as gp
     from mkg_analogy_tpu_torch.kernels import image_prep as ip
 
     gp.LAUNCHES_GELU_FWD = gp.LAUNCHES_GELU_BWD = 0
+    aw.LAUNCHES_ADAMW = 0
     attn.LAUNCHES = attn.LAUNCHES_BWD = 0
     attn.LAUNCHES_D128 = attn.LAUNCHES_BWD_D128 = 0
     fa.LAUNCHES_FLASH = fa.LAUNCHES_FLASH_DKV = fa.LAUNCHES_FLASH_DQ = 0
@@ -5785,7 +5945,7 @@ def main() -> int:
     emit(dict(phase="card", card=card, torch=torch.__version__,
               cuda=torch.version.cuda))
     t0 = time.perf_counter()
-    # the ten libraries and the attention libraries of HEAD_WIDTHS' padded
+    # the eleven libraries and the attention libraries of HEAD_WIDTHS' padded
     # widths: one nvcc each, all started together, before any timed phase
     kernels = sorted(p.stem for p in build.CSRC.glob("*.cu"))
     widths = sorted({build.library_width(d) for d in HEAD_WIDTHS})
@@ -5800,10 +5960,11 @@ def main() -> int:
                                       "flash_attention_fwd_mma", "flash_attention_bwd_mma",
                                       "fused_attention_fwd", "fused_attention_bwd",
                                       "flash_attention_fwd", "flash_attention_bwd",
-                                      "gelu_poly")}))
+                                      "gelu_poly", "adamw")}))
     rows, edge_err = kernel_phase(device)
     bwd_rows, bwd_edge_err = kernel_bwd_phase(device)
     gelu_rows = gelu_kernel_phase(device)
+    adamw_rows = adamw_phase(device)
     model_phase(device)
     train_phase(device)
     eval_launches, eval_gelu_launches = cli_phase()
@@ -5819,7 +5980,7 @@ def main() -> int:
     flash_rows = flash_kernel_phase(device)
     flash_edges = flash_edge_phase(device)
     fp32_masked_row_err = fp32_masked_row_phase(device)
-    kimi_row, kimi_launches = kimi_vl_phase(device)
+    kimi_row, kimi_launches, kimi_launches_adamw = kimi_vl_phase(device)
     pretrain_phase(device)
     long_phase(device)
     flash_launches = cli_pretrain_phase()
@@ -5953,6 +6114,20 @@ def main() -> int:
     def per_call_set(rows, key, n):
         return sum(r[key] * r[n] for r in rows)
 
+    def adamw_entry():
+        """Row 8: one step over Kimi-VL's 1.61 B parameters; FLAVA's and
+        MKGformer's sets in ``shapes``; launches the fine-tune CLI's (one a
+        step) and the Kimi-VL step's."""
+        kimi = adamw_rows[0]
+        return dict(
+            name="adamw", route="cuda", source="mkg_analogy_tpu_torch/csrc/adamw.cu",
+            replaces=None,  # optax.adamw (train/optim.py) is jnp that XLA fuses
+            ok=True, launches=launches["adamw"], launches_kimi_vl_path=kimi_launches_adamw,
+            differing_bits=0, ms=kimi["ms"], plain_ms=kimi["plain_ms"],
+            bound_ms=kimi["bound_ms"], bound_by=kimi["bound_by"],
+            library_ms=kimi["library_ms"],  # torch.optim.AdamW(foreach=True); never called
+            shapes=adamw_rows)
+
     def gelu_entry(way):
         """Row 7's kernel ``way``: one call at MKGformer's text-layer FFN
         (B=32, L=128, 3072 wide), bf16; the other shapes and fp32 in
@@ -6069,7 +6244,7 @@ def main() -> int:
         # the shape at which one F.interpolate call computes the same
         **{k: resize_rows[0][k] for k in ("plain_ms", "bound_ms", "bound_by", "library_ms")},
         ms=resize_rows[0]["kernel_ms"], shapes=resize_rows,
-    ), gelu_entry("fwd"), gelu_entry("bwd")] + width_entries(width_rows, width_launches, wide)
+    ), gelu_entry("fwd"), gelu_entry("bwd"), adamw_entry()] + width_entries(width_rows, width_launches, wide)
         + [kimi_entry(kernel) for kernel in ("fwd", "dkv", "dq")]})
     print(card)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -11,12 +11,12 @@ output; a successful one keeps it beside the library (``-Xptxas -v``: each
 kernel's registers, spills and static shared memory, see
 :func:`resource_usage`).
 
-The ten libraries: the eight attention sources (``ATTENTION_SOURCES``),
-``resize_normalize`` and ``gelu_poly``; the last two are elementwise and
-have no head-width instances.
+The eleven libraries: the eight attention sources (``ATTENTION_SOURCES``),
+``resize_normalize``, ``gelu_poly`` and ``adamw``; the last three have no
+head-width instances.
 
 Head widths (``csrc/attention_width.cuh``): the eight attention libraries
-among the ten carry their kernels at head_dim 64 and 128. Any other width
+among the eleven carry their kernels at head_dim 64 and 128. Any other width
 d up to 256 runs the instance of its padded width ``Dp`` (d rounded up to
 a multiple of 16 up to 128, of 64 above: 192 or 256), compiled from the
 same attention sources with ``-DMKG_ATTN_DP=<Dp>`` into a library of its own,
@@ -48,7 +48,7 @@ ATTENTION_SOURCES = ("flash_attention_bwd", "flash_attention_bwd_mma", "flash_at
                      "flash_attention_fwd_mma", "fused_attention_bwd",
                      "fused_attention_bwd_mma", "fused_attention_fwd",
                      "fused_attention_fwd_mma")
-BASE_HEAD_DIMS = (64, 128)  # the attention instances of the ten libraries
+BASE_HEAD_DIMS = (64, 128)  # the attention instances of the eleven libraries
 MAX_HEAD_DIM = 256
 
 _LOADED: Dict[tuple, ctypes.CDLL] = {}
@@ -70,7 +70,7 @@ def padded_width(head_dim: int) -> int:
 
 def library_width(head_dim: int) -> Optional[int]:
     """The padded width whose library carries the attention kernels of a
-    call of ``head_dim``: None for 64 and 128 (the ten libraries' own
+    call of ``head_dim``: None for 64 and 128 (the eleven libraries' own
     attention instances), else :func:`padded_width`."""
     width = padded_width(head_dim)
     return None if head_dim in BASE_HEAD_DIMS else width
@@ -131,7 +131,7 @@ def build(names: Iterable[str] = ()) -> None:
 
 def build_widths(head_dims: Iterable[int], names: Iterable[str] = ATTENTION_SOURCES) -> None:
     """Build the attention libraries of each head width's padded width
-    (none for 64 and 128, which the ten libraries carry), all together."""
+    (none for 64 and 128, which the eleven libraries carry), all together."""
     widths = sorted({w for w in map(library_width, head_dims) if w is not None})
     build_jobs([(name, w) for w in widths for name in names])
 

@@ -28,6 +28,7 @@ import torch
 from torch import nn
 
 from ..core.mesh import AXES, axis_group
+from ..kernels.adamw import AdamW
 from ..parallel.collectives import all_reduce_, shard_of
 
 # elements of one coalesced gradient all-reduce (256 MB of fp32)
@@ -71,8 +72,10 @@ class Optimizer:
     """AdamW over two parameter groups (decay, no decay) with a ``LambdaLR``
     on the schedule; ``step`` is called after every micro-batch's backward
     and updates the parameters every ``accumulate``-th call, on the mean of
-    the accumulated gradients, clipped to ``max_grad_norm``. No call syncs
-    with the device."""
+    the accumulated gradients, clipped to ``max_grad_norm``. The update is
+    ``kernels/adamw.py:AdamW``: one kernel launch on a card, PyTorch's
+    foreach update on the CPU; a leaf without a gradient steps on zeros. No
+    call syncs with the device."""
 
     def __init__(self, model: nn.Module, schedule: Callable[[int], float],
                  weight_decay: float, eps: float = 1e-8, accumulate: int = 1,
@@ -84,7 +87,7 @@ class Optimizer:
             {"params": [p for n, p in named if not decay[n]], "weight_decay": 0.0},
         ]
         # base lr 1.0: LambdaLR's factor is the learning rate itself
-        self.adamw = torch.optim.AdamW(groups, lr=1.0, betas=betas, eps=eps)
+        self.adamw = AdamW(groups, lr=1.0, betas=betas, eps=eps)
         self.schedule = torch.optim.lr_scheduler.LambdaLR(self.adamw, schedule)
         self.params = [p for _, p in named]
         self.accumulate = max(1, int(accumulate))
@@ -123,27 +126,29 @@ class Optimizer:
     def grad_norm(self, grads=None) -> torch.Tensor:
         """The global norm of ``grads`` (default: the parameters' own),
         each split leaf's part counted on its rank, summed over tp."""
-        grads = grads if grads is not None else [
-            p.grad if p.grad is not None else torch.zeros_like(p) for p in self.params]
+        grads = [p.grad for p in self.params] if grads is None else grads
+        grads = [g if g is not None else torch.zeros_like(p) for g, p in zip(grads, self.params)]
         return global_norm(grads, shards=[shard_of(p) for p in self.params])
 
     def _clip(self, grads) -> None:
         """optax.clip_by_global_norm: g / norm * max_norm where the global
-        norm reaches max_norm, in place and on the device."""
+        norm reaches max_norm, in place and on the device (a gradient of
+        None counts as zeros and stays None)."""
         norm = self.grad_norm(grads)
         trigger = norm < self.max_grad_norm
         for g in grads:
-            g.copy_(torch.where(trigger, g, g / norm * self.max_grad_norm))
+            if g is not None:
+                g.copy_(torch.where(trigger, g, g / norm * self.max_grad_norm))
 
     def step(self) -> bool:
         """Take this micro-batch's gradients (``.grad``, then cleared);
         return True where the parameters were updated."""
         self.sync_gradients()
         self._synced = False
-        grads = [p.grad if p.grad is not None else torch.zeros_like(p)
-                 for p in self.params]
         if self.accumulate > 1:
             # optax.MultiSteps' running mean: acc += (g - acc) / (n + 1)
+            grads = [p.grad if p.grad is not None else torch.zeros_like(p)
+                     for p in self.params]
             if self._acc is None:
                 self._acc = [torch.zeros_like(p) for p in self.params]
             n = self.mini_step
@@ -154,11 +159,10 @@ class Optimizer:
                 self.zero_grad()
                 return False
             self.mini_step = 0
-            grads = self._acc
+            for p, acc in zip(self.params, self._acc):
+                p.grad = acc
         if self.max_grad_norm:
-            self._clip(grads)
-        for p, g in zip(self.params, grads):
-            p.grad = g
+            self._clip([p.grad for p in self.params])
         self.adamw.step()
         self.schedule.step()
         self.zero_grad()
@@ -188,9 +192,9 @@ def fused_adamw(model: nn.Module, schedule: Callable[[int], float], b1: float = 
                 mesh=None) -> Optimizer:
     """The JAX ``fused_adamw`` (``--fused_adamw``): optax.adamw's numbers
     with the small leaves' moments batched into one vector, to save the
-    TPU's per-leaf dispatches. PyTorch's AdamW already updates every leaf
-    in one multi-tensor pass on the card, so this is ``make_optimizer``'s
-    ``Optimizer``, the same update."""
+    TPU's per-leaf dispatches. ``make_optimizer``'s ``Optimizer`` already
+    updates every leaf in one pass of one kernel launch on the card
+    (``kernels/adamw.py``), so this is that ``Optimizer``, the same update."""
     return Optimizer(model, schedule, weight_decay, eps=eps, accumulate=accumulate,
                      max_grad_norm=max_grad_norm, betas=(b1, b2), mesh=mesh)
 
